@@ -1,0 +1,360 @@
+// Carry-mode WGS loop kernels for Hopper (sm_90a).
+//
+// The loop carries the rows-transformed field pair (gr, gi) = FFT_rows of
+// amp * e^{i psi}, in natural order. One iteration is two kernels, as on
+// the TPU: the cols round trip (forward column FFT, WGS epilogue, inverse
+// column FFT) and the rows round trip (inverse row FFT, amplitude
+// replacement, forward row FFT). Entry and exit convert psi to and from
+// the carry. Semantics: the plain PyTorch versions in
+// slmsuite_torch/ops/fft.py (`_wgs_carry_entry`, `_wgs_carry_step`,
+// `_wgs_carry_exit`).
+//
+// What bounds them on the H100: memory traffic. At 2048^2 one f32 plane
+// is 16 MiB; a Kim step with stats reads gr, gi, w, t, mask, pffr, pffi
+// and writes hr, hi, w', pffr', pffi' in the cols kernel, then reads
+// hr, hi and writes gr', gi' in the rows kernel: 16 plane crossings, about
+// 270 MB, or ~80 us at 3.35 TB/s. The FFT arithmetic (5 N log2 N flops
+// per axis pass, four passes) is ~1 GFLOP per step, well under the f32
+// peak. The simple design keeps every intermediate (the farfield, the
+// constrained field, the nearfield) in shared memory, so each kernel
+// touches device memory once per operand; the column kernel stages a tile
+// of `tc` adjacent columns so that each row segment it loads is 4 * tc
+// contiguous bytes. Fully coalesced column access is later work.
+//
+// Launchers take raw pointers, sizes, flags and a stream, and return
+// cudaGetLastError(). They allocate nothing.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fft_shared.cuh"
+
+namespace slm {
+
+constexpr float kNegFill = -3.0e38f;
+
+__device__ __forceinline__ bool is_nan(float x) { return x != x; }
+__device__ __forceinline__ bool is_inf(float x) {
+  return fabsf(x) == __int_as_float(0x7f800000);
+}
+__device__ __forceinline__ bool is_finite(float x) {
+  return fabsf(x) < __int_as_float(0x7f800000);
+}
+
+// Lane layout of the device scalar buffer (ops/fft.py SCALAR_KEYS).
+enum Scalar {
+  kPost = 0,        // 1/sqrt(HW), times the amplitude when it is a scalar
+  kInvPrevNorm,     // 1 / previous iteration's weight norm
+  kApplyUpdate,     // 0/1: the WGS update is active (iteration > 0)
+  kUseTheta,        // 0/1: Kim takes the current farfield direction
+  kExponent,        // feedback_exponent
+  kFactor,          // feedback_factor
+  kInvFnorm,        // 1 / sqrt(Parseval feedback power)
+  kInvTsum,         // 1 / sum(target^2)
+  kInvFsum,         // 1 / Parseval feedback power
+  kNumScalars
+};
+
+// Rules: 0 = leonardo/kim, 1 = wu, 2 = tanh (pallas_fft._weight_correction).
+__device__ __forceinline__ float weight_correction(float f, float t, float p,
+                                                   float factor,
+                                                   float inv_fnorm, int rule) {
+  float c;
+  if (rule == 0) {
+    const bool on = t != 0.f;
+    c = f / (on ? t : 1.f);
+    if (!(on && c > 0.f && is_finite(c))) c = 1.f;
+    c = expf(-p * logf(c));
+  } else if (rule == 1) {
+    c = expf(p * (t - p * f * inv_fnorm));
+  } else {
+    c = 1.f + factor * tanhf(p * (t - p * f * inv_fnorm));
+  }
+  return is_inf(c) ? 1.f : c;
+}
+
+// Block reduction of 4 sums and 4 maxes in a fixed order (no atomics, so
+// the result is the same from run to run). Thread 0 gets the totals.
+__device__ __forceinline__ void block_reduce8(float v[8]) {
+  __shared__ float red[kThreads / 32][8];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) {
+    for (int k = 0; k < 4; ++k) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+    for (int k = 4; k < 8; ++k)
+      v[k] = fmaxf(v[k], __shfl_down_sync(0xffffffffu, v[k], off));
+  }
+  if (lane == 0)
+    for (int k = 0; k < 8; ++k) red[warp][k] = v[k];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kThreads / 32; ++w) {
+      for (int k = 0; k < 4; ++k) v[k] += red[w][k];
+      for (int k = 4; k < 8; ++k) v[k] = fmaxf(v[k], red[w][k]);
+    }
+  }
+}
+
+// #1 <- pallas_fft.wgs_carry_entry_pallas (_rows_phase_kernel,
+// _rows_phase_amp_kernel). One block per row: z = amp * e^{i psi} with a
+// fully range-reduced sincosf (psi is unbounded on warm starts), then the
+// forward row FFT.
+__global__ void __launch_bounds__(kThreads)
+carry_entry_kernel(const float* __restrict__ psi, const float* __restrict__ amp,
+                   float* __restrict__ gr, float* __restrict__ gi, int W,
+                   int log2W, const float2* __restrict__ tw) {
+  extern __shared__ float2 sbuf[];
+  const size_t base = (size_t)blockIdx.x * W;
+  for (int i = threadIdx.x; i < W; i += blockDim.x) {
+    float s, c;
+    sincosf(psi[base + i], &s, &c);
+    const float a = amp ? amp[base + i] : 1.f;
+    sbuf[i] = make_float2(a * c, a * s);
+  }
+  __syncthreads();
+  fft_lines(sbuf, W, log2W, 1, tw);
+  for (int i = threadIdx.x; i < W; i += blockDim.x) {
+    gr[base + i] = sbuf[i].x;
+    gi[base + i] = sbuf[i].y;
+  }
+}
+
+// #2 <- pallas_fft.wgs_carry_step_pallas kernel B
+// (_cols_wgs_roundtrip_kernel(phasor=True) with _wgs_epilogue,
+// _weight_correction, _acc_tiles). One block per tile of `tc` adjacent
+// columns: forward column FFT, f = post * |F|, the rule's correction,
+// w' = w * c (nan -> 1e-4) scaled by 1/prev-norm once the update is on,
+// the unit phasor F/|F| (zero -> (1, 0)) with the Kim select against the
+// stored phasor, the constrained field w' * phasor, the stats partials,
+// then the inverse column FFT. Partials go to partials[block * 8 + k]:
+// [overlap, err_sum, err_sq, |w'|^2, err_max, u_max, -err_min, -u_min].
+__global__ void __launch_bounds__(kThreads)
+cols_wgs_roundtrip_kernel(
+    const float* __restrict__ gr, const float* __restrict__ gi,
+    const float* __restrict__ w, const float* __restrict__ t,
+    const float* __restrict__ mask, const float* __restrict__ pffr,
+    const float* __restrict__ pffi, float* __restrict__ hr,
+    float* __restrict__ hi, float* __restrict__ wout,
+    float* __restrict__ pffr_out, float* __restrict__ pffi_out,
+    const float* __restrict__ scal, float* __restrict__ partials, int H, int W,
+    int log2H, int tc, int log2tc, const float2* __restrict__ tw_fwd,
+    const float2* __restrict__ tw_inv, int rule, int kim, int stats_on) {
+  extern __shared__ float2 sbuf[];  // tc columns of length H, back to back
+  const int c0 = blockIdx.x * tc;
+  const int total = tc * H;
+
+  // Element idx: column j = idx % tc of the tile, row r = idx / tc, so a
+  // warp reads whole row segments of the tile.
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int j = idx & (tc - 1);
+    const int r = idx >> log2tc;
+    const size_t g = (size_t)r * W + c0 + j;
+    sbuf[j * H + r] = make_float2(gr[g], gi[g]);
+  }
+  __syncthreads();
+  fft_lines(sbuf, H, log2H, tc, tw_fwd);
+
+  const float post = scal[kPost];
+  const float inv_prev = scal[kInvPrevNorm];
+  const bool apply_update = scal[kApplyUpdate] > 0.f;
+  const bool use_theta = scal[kUseTheta] > 0.f;
+  const float p = scal[kExponent];
+  const float factor = scal[kFactor];
+  const float inv_fnorm = scal[kInvFnorm];
+  const float inv_tsum = scal[kInvTsum];
+  const float inv_fsum = scal[kInvFsum];
+
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, kNegFill, kNegFill, kNegFill, kNegFill};
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int j = idx & (tc - 1);
+    const int r = idx >> log2tc;
+    const size_t g = (size_t)r * W + c0 + j;
+    const float2 F = sbuf[j * H + r];
+    const float f2 = F.x * F.x + F.y * F.y;
+    const float f = sqrtf(f2) * post;
+    const float tv = t[g];
+    const float wv = w[g];
+
+    float uw = wv * weight_correction(f, tv, p, factor, inv_fnorm, rule);
+    if (is_nan(uw)) uw = 1e-4f;
+    const float wo = apply_update ? uw * inv_prev : wv;
+    wout[g] = wo;
+
+    float er = 1.f, ei = 0.f;
+    if (f2 > 0.f) {
+      const float ib = rsqrtf(f2);
+      er = F.x * ib;
+      ei = F.y * ib;
+    }
+    if (kim) {
+      if (!use_theta) {
+        er = pffr[g];
+        ei = pffi[g];
+      }
+      pffr_out[g] = er;
+      pffi_out[g] = ei;
+    }
+    sbuf[j * H + r] = make_float2(wo * er, wo * ei);
+
+    acc[3] += wo * wo;
+    if (stats_on) {
+      const float mv = mask[g];
+      const float fsq = f * f;
+      const float tsq = tv * tv;
+      const float err_full = tsq * inv_tsum - fsq * inv_fsum;
+      const float err = err_full * mv;
+      acc[0] += tv * f;
+      acc[1] += err;
+      acc[2] += err * err;
+      if (mv > 0.f) {
+        const float u = fsq / tsq;
+        acc[4] = fmaxf(acc[4], err_full);
+        acc[5] = fmaxf(acc[5], u);
+        acc[6] = fmaxf(acc[6], -err_full);
+        acc[7] = fmaxf(acc[7], -u);
+      }
+    }
+  }
+  __syncthreads();
+  fft_lines(sbuf, H, log2H, tc, tw_inv);
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int j = idx & (tc - 1);
+    const int r = idx >> log2tc;
+    const size_t g = (size_t)r * W + c0 + j;
+    const float2 v = sbuf[j * H + r];
+    hr[g] = v.x;
+    hi[g] = v.y;
+  }
+
+  block_reduce8(acc);
+  if (threadIdx.x == 0)
+    for (int k = 0; k < 8; ++k) partials[blockIdx.x * 8 + k] = acc[k];
+}
+
+// Second pass of #2: one block folds the (n_blocks, 8) partials into
+// out[0:4] = sums and out[4:8] = maxs, in a fixed order.
+__global__ void __launch_bounds__(kThreads)
+stats_reduce_kernel(const float* __restrict__ partials, int n_blocks,
+                    float* __restrict__ out) {
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, kNegFill, kNegFill, kNegFill, kNegFill};
+  for (int b = threadIdx.x; b < n_blocks; b += blockDim.x) {
+    for (int k = 0; k < 4; ++k) acc[k] += partials[b * 8 + k];
+    for (int k = 4; k < 8; ++k) acc[k] = fmaxf(acc[k], partials[b * 8 + k]);
+  }
+  block_reduce8(acc);
+  if (threadIdx.x == 0)
+    for (int k = 0; k < 8; ++k) out[k] = acc[k];
+}
+
+// #3 <- pallas_fft.wgs_carry_step_pallas kernel A (_rows_normfwd_kernel,
+// _rows_normfwd_amp_kernel). One block per row: inverse row FFT -> Z,
+// Z/|Z| or amp * Z/|Z| (zero -> 1 or amp, real), forward row FFT.
+__global__ void __launch_bounds__(kThreads)
+rows_normfwd_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
+                    const float* __restrict__ amp, float* __restrict__ gr,
+                    float* __restrict__ gi, int W, int log2W,
+                    const float2* __restrict__ tw_fwd,
+                    const float2* __restrict__ tw_inv) {
+  extern __shared__ float2 sbuf[];
+  const size_t base = (size_t)blockIdx.x * W;
+  for (int i = threadIdx.x; i < W; i += blockDim.x)
+    sbuf[i] = make_float2(hr[base + i], hi[base + i]);
+  __syncthreads();
+  fft_lines(sbuf, W, log2W, 1, tw_inv);
+  for (int i = threadIdx.x; i < W; i += blockDim.x) {
+    const float2 z = sbuf[i];
+    const float a = amp ? amp[base + i] : 1.f;
+    const float mag2 = z.x * z.x + z.y * z.y;
+    if (mag2 > 0.f) {
+      const float inv = a * rsqrtf(mag2);
+      sbuf[i] = make_float2(z.x * inv, z.y * inv);
+    } else {
+      sbuf[i] = make_float2(a, 0.f);
+    }
+  }
+  __syncthreads();
+  fft_lines(sbuf, W, log2W, 1, tw_fwd);
+  for (int i = threadIdx.x; i < W; i += blockDim.x) {
+    gr[base + i] = sbuf[i].x;
+    gi[base + i] = sbuf[i].y;
+  }
+}
+
+// #4 <- pallas_fft.wgs_carry_exit_pallas (_rows_phase_extract_kernel).
+// One block per row: inverse row FFT, then atan2f.
+__global__ void __launch_bounds__(kThreads)
+carry_exit_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
+                  float* __restrict__ psi, int W, int log2W,
+                  const float2* __restrict__ tw_inv) {
+  extern __shared__ float2 sbuf[];
+  const size_t base = (size_t)blockIdx.x * W;
+  for (int i = threadIdx.x; i < W; i += blockDim.x)
+    sbuf[i] = make_float2(gr[base + i], gi[base + i]);
+  __syncthreads();
+  fft_lines(sbuf, W, log2W, 1, tw_inv);
+  for (int i = threadIdx.x; i < W; i += blockDim.x)
+    psi[base + i] = atan2f(sbuf[i].y, sbuf[i].x);
+}
+
+inline int ilog2(int n) {
+  int k = 0;
+  while ((1 << k) < n) ++k;
+  return k;
+}
+
+}  // namespace slm
+
+using namespace slm;
+
+extern "C" {
+
+int slm_carry_entry(const float* psi, const float* amp, float* gr, float* gi,
+                    int H, int W, const float2* tw, cudaStream_t stream) {
+  carry_entry_kernel<<<H, kThreads, W * sizeof(float2), stream>>>(
+      psi, amp, gr, gi, W, ilog2(W), tw);
+  return (int)cudaGetLastError();
+}
+
+int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
+                           const float* t, const float* mask,
+                           const float* pffr, const float* pffi, float* hr,
+                           float* hi, float* wout, float* pffr_out,
+                           float* pffi_out, const float* scal,
+                           float* partials, float* sums_maxs, int H, int W,
+                           int tc, const float2* tw_fwd, const float2* tw_inv,
+                           int rule, int kim, int stats_on,
+                           cudaStream_t stream) {
+  if (tc <= 0 || (tc & (tc - 1)) || W % tc) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)tc * H * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(
+      cols_wgs_roundtrip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_blocks = W / tc;
+  cols_wgs_roundtrip_kernel<<<n_blocks, kThreads, smem, stream>>>(
+      gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out, pffi_out, scal,
+      partials, H, W, ilog2(H), tc, ilog2(tc), tw_fwd, tw_inv, rule, kim,
+      stats_on);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_reduce_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks,
+                                                  sums_maxs);
+  return (int)cudaGetLastError();
+}
+
+int slm_rows_normfwd(const float* hr, const float* hi, const float* amp,
+                     float* gr, float* gi, int H, int W, const float2* tw_fwd,
+                     const float2* tw_inv, cudaStream_t stream) {
+  rows_normfwd_kernel<<<H, kThreads, W * sizeof(float2), stream>>>(
+      hr, hi, amp, gr, gi, W, ilog2(W), tw_fwd, tw_inv);
+  return (int)cudaGetLastError();
+}
+
+int slm_carry_exit(const float* gr, const float* gi, float* psi, int H, int W,
+                   const float2* tw_inv, cudaStream_t stream) {
+  carry_exit_kernel<<<H, kThreads, W * sizeof(float2), stream>>>(
+      gr, gi, psi, W, ilog2(W), tw_inv);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

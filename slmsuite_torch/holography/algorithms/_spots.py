@@ -1,0 +1,175 @@
+r"""
+:class:`SpotHologram`: DFT-based optical focus arrays (port of the
+``SpotHologram`` part of :mod:`slmsuite_tpu.holography.algorithms._spots`).
+
+This slice covers spots given in the computational ``"knm"`` basis
+without hardware, optimized with computational feedback through the
+fused engine. The ``"kxy"``/``"ij"`` bases and camera feedback need a
+``cameraslm`` (ROADMAP.md queue 1, item 8); null regions make an MRAF
+target (item 7); spot-integrated ``computational_spot`` feedback runs on
+the natural engine path (item 4).
+"""
+
+import numpy as np
+
+from slmsuite_torch.holography.algorithms._feedback import FeedbackHologram
+from slmsuite_torch.holography.algorithms._hologram import Hologram
+from slmsuite_torch.holography.toolbox import REAL_TYPES, format_2vectors
+
+
+class SpotHologram(FeedbackHologram):
+    """
+    N spots at ``"knm"`` (computational pixel) positions, with per-spot
+    amplitude targets.
+    """
+
+    def __init__(
+        self,
+        shape,
+        spot_vectors,
+        basis="knm",
+        spot_amp=None,
+        cameraslm=None,
+        null_vectors=None,
+        null_radius=None,
+        null_region=None,
+        null_region_radius_frac=None,
+        **kwargs,
+    ):
+        """
+        Initialize a spot hologram from ``(2, N)`` spot vectors in the
+        ``"knm"`` basis.
+        """
+        if basis not in (None, "knm") or cameraslm is not None:
+            raise NotImplementedError(
+                "Spot bases other than 'knm' need a cameraslm "
+                "(ROADMAP.md queue 1, item 8)."
+            )
+        if any(v is not None for v in (null_vectors, null_radius, null_region,
+                                        null_region_radius_frac)):
+            raise NotImplementedError(
+                "Null regions make an MRAF target (ROADMAP.md queue 1, item 7)."
+            )
+        vectors = format_2vectors(spot_vectors)
+        N = vectors.shape[1]
+
+        if spot_amp is not None:
+            self.spot_amp = np.ravel(spot_amp)
+            if len(self.spot_amp) != N:
+                raise ValueError("spot_amp must have the same length as the spots.")
+        else:
+            self.spot_amp = np.full(N, 1.0 / np.sqrt(N))
+        self.external_spot_amp = np.copy(self.spot_amp)
+
+        self.spot_knm = vectors
+        self.spot_kxy = None
+        self.spot_ij = None
+        self.null_knm = None
+        self.null_radius_knm = None
+        self.null_region_knm = None
+
+        # Integration width: 10x the psf clipped to [3, spot spacing / 1.5]
+        # and made odd, which is 3 without hardware (psf 0).
+        self.spot_integration_width_knm = 3
+        self.spot_integration_width_ij = None
+
+        if (
+            np.any(self.spot_knm[0] < 0)
+            or np.any(self.spot_knm[1] < 0)
+            or np.any(self.spot_knm[0] >= shape[1])
+            or np.any(self.spot_knm[1] >= shape[0])
+        ):
+            raise ValueError(
+                f"Spots outside SLM computational space bounds!\n"
+                f"Spots:\n{self.spot_knm}\nBounds: {shape}"
+            )
+
+        super().__init__(shape, target_ij=None, cameraslm=None, **kwargs)
+        self.set_target(reset_weights=True)
+
+    def __len__(self):
+        """Number of spots."""
+        return self.spot_knm.shape[1]
+
+    @staticmethod
+    def make_rectangular_array(
+        shape,
+        array_shape,
+        array_pitch,
+        array_center=None,
+        basis="knm",
+        orientation_check=False,
+        **kwargs,
+    ):
+        """
+        A rectangular array of ``array_shape`` spots at ``array_pitch``
+        spacing about ``array_center`` (the zeroth order by default).
+        ``orientation_check`` removes the last two spots.
+        """
+        if basis not in (None, "knm"):
+            raise NotImplementedError(
+                "Spot bases other than 'knm' need a cameraslm "
+                "(ROADMAP.md queue 1, item 8)."
+            )
+        if isinstance(array_shape, REAL_TYPES):
+            array_shape = (int(array_shape), int(array_shape))
+        if isinstance(array_pitch, REAL_TYPES):
+            array_pitch = (array_pitch, array_pitch)
+        if array_center is None:
+            array_center = (shape[1] / 2.0, shape[0] / 2.0)
+
+        x_edge, y_edge = (
+            (np.arange(array_shape[a]) - (array_shape[a] - 1) / 2.0) * array_pitch[a]
+            + array_center[a]
+            for a in (0, 1)
+        )
+
+        x_grid, y_grid = np.meshgrid(x_edge, y_edge)
+        x_list, y_list = x_grid.ravel(), y_grid.ravel()
+
+        if orientation_check and len(x_list) > 2:
+            x_list = x_list[:-2]
+            y_list = y_list[:-2]
+
+        return SpotHologram(
+            shape, np.vstack((x_list, y_list)), basis=basis, spot_amp=None, **kwargs
+        )
+
+    def _set_target_spots(self, reset_weights=False):
+        """Scatter the spot amplitudes into the target plane."""
+        self.spot_knm_rounded = np.rint(self.spot_knm).astype(int)
+        self.spot_kxy_rounded = None
+        self.spot_ij_rounded = None
+
+        if self.target is None:
+            self.target = np.zeros(self.shape, dtype=self.dtype)
+        self.target.fill(0)
+        self.target[self.spot_knm_rounded[1, :], self.spot_knm_rounded[0, :]] = self.spot_amp
+        self.target /= Hologram._norm(self.target)
+
+        if reset_weights:
+            self.reset_weights()
+
+    def set_target(self, new_target=None, reset_weights=False):
+        """Update the target from the current :attr:`spot_knm` positions."""
+        del new_target  # The target is derived from the spot positions.
+        self._set_target_spots(reset_weights=reset_weights)
+
+    # ------------------------------------------------------------------
+    # Engine hooks.
+    # ------------------------------------------------------------------
+
+    def _engine_feedback(self):
+        feedback = self.flags.get("feedback", "computational")
+        if feedback in ("computational", "computational_spot"):
+            return feedback
+        raise NotImplementedError(
+            f"Feedback '{feedback}' needs the stepwise host loop "
+            "(ROADMAP.md queue 1, items 6 and 8)."
+        )
+
+    def _device_stat_groups(self):
+        return tuple(
+            g for g in self.flags.get("stat_groups", [])
+            if g in ("computational", "computational_spot")
+        )

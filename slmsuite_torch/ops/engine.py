@@ -1,0 +1,407 @@
+r"""
+The Gerchberg-Saxton engine (PyTorch counterpart of
+:mod:`slmsuite_tpu.ops.engine`).
+
+This slice ports the fully-fused carry-mode WGS loop: the JAX package's
+``lax.scan`` becomes a Python loop over :meth:`_make_fused_step`, whose
+two kernels per iteration are :meth:`slmsuite_torch.ops.fft.wgs_carry_step`.
+All loop state stays on the device (including ``fixed_phase``,
+``unfixed_streak``, ``iteration`` and ``w_norm``); no ``.item()`` or
+Python branch on a tensor value runs inside the loop, and the stats rows
+are stacked once per run.
+
+Configurations outside :meth:`_fused_active` raise
+:class:`NotImplementedError` naming the ROADMAP item that brings them.
+"""
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from slmsuite_torch import resolve_device
+from slmsuite_torch.ops import fft as _fft
+
+
+class GSState(NamedTuple):
+    """Everything that evolves across GS iterations (device tensors).
+
+    Inside the fused loop ``psi`` holds the carry pair ``(gr, gi)`` and,
+    for Kim, ``phase_ff`` the unit-phasor pair; outside it they are
+    (H, W) planes.
+    """
+
+    psi: object                 # (Hs, Ws) folded nearfield phase
+    weights: torch.Tensor       # (H, W) farfield weight amplitudes
+    phase_ff: object            # (H, W) stored farfield phase (Kim)
+    fixed_phase: torch.Tensor   # bool scalar
+    unfixed_streak: torch.Tensor  # int32: consecutive unfixed iterations
+    iteration: torch.Tensor     # int32: global iteration counter
+    #: f32 scalar: the weights' norm under the fused loop's deferred-by-one
+    #: normalization (weights are renormalized once on exit).
+    w_norm: torch.Tensor = None
+
+
+@dataclasses.dataclass(frozen=True)
+class GSConfig:
+    """Static configuration of the engine."""
+
+    method: str
+    shape: tuple
+    slm_shape: tuple
+    feedback: str = "computational"
+    stat_groups: tuple = ()
+    mraf: bool = False
+    has_kernel: bool = False
+    kim_efficiency_trigger: bool = False
+
+    @property
+    def is_wgs(self):
+        return self.method.startswith("WGS")
+
+    @property
+    def is_kim(self):
+        return "Kim" in self.method
+
+
+# The step fills the scalar buffer's lanes 1-3 from device state.
+assert _fft.SCALAR_KEYS[1:4] == ("inv_prev_norm", "apply_update", "use_theta")
+
+#: WGS rules whose weight correction is elementwise once the Parseval
+#: feedback norm is substituted (Nogrette needs a plane mean).
+_FUSABLE_METHODS = ("WGS-Leonardo", "WGS-Kim", "WGS-Wu", "WGS-tanh")
+
+
+def _fused_active(config: GSConfig):
+    """True when the fully-fused carry-mode WGS step applies: farfield ==
+    SLM shape, no propagation kernel, a fusable rule with plain
+    computational feedback, no MRAF masks or spot integration, and
+    computational stats only (Kim's efficiency trigger needs them)."""
+    needs_spot = (
+        config.feedback == "computational_spot"
+        or "computational_spot" in config.stat_groups
+    )
+    return (
+        tuple(config.shape) == tuple(config.slm_shape)
+        and not config.has_kernel
+        and config.is_wgs
+        and config.feedback == "computational"
+        and not needs_spot
+        and config.method in _FUSABLE_METHODS
+        and (not config.kim_efficiency_trigger or bool(config.stat_groups))
+        and all(g == "computational" for g in config.stat_groups)
+        and not config.mraf
+    )
+
+
+def _unported(config: GSConfig):
+    """The NotImplementedError for a configuration the fused loop does not
+    run, naming the ROADMAP item that brings it."""
+    if config.mraf:
+        what = "MRAF (ROADMAP.md queue 1, item 7)"
+    elif config.feedback not in ("computational",) or any(
+        g != "computational" for g in config.stat_groups
+    ):
+        what = (
+            f"feedback '{config.feedback}' / stat groups {config.stat_groups} "
+            "(ROADMAP.md queue 1, items 4 and 8)"
+        )
+    else:
+        what = (
+            f"method '{config.method}', shape {config.shape} on slm_shape "
+            f"{config.slm_shape}, propagation kernel {config.has_kernel}: the "
+            "natural (non-fused) engine path (ROADMAP.md queue 1, item 4)"
+        )
+    return NotImplementedError(f"slmsuite_torch does not run {what} yet.")
+
+
+def _augment_fused_consts(config: GSConfig, consts):
+    """Loop-invariant scalars of the fused step, computed once per run."""
+    consts = dict(consts)
+    amp = consts["amp"]
+    device = consts["target"].device
+    H, W = config.shape
+    if _fft.is_scalar_amp(amp):
+        amp_t = torch.as_tensor(amp, dtype=torch.float32, device=device)
+        # Parseval: sum |F|^2 == sum amp^2 exactly for the ortho pair.
+        fsum = torch.square(amp_t) * (H * W)
+        post = amp_t / np.sqrt(H * W)
+    else:
+        fsum = torch.square(amp).sum()
+        post = torch.tensor(1.0 / np.sqrt(H * W), dtype=torch.float32, device=device)
+    consts["_zero"] = torch.zeros((), dtype=torch.float32, device=device)
+    consts["_nan"] = torch.full((), float("nan"), dtype=torch.float32, device=device)
+    consts["_inv_fsum"] = 1.0 / fsum
+    consts["_inv_fnorm"] = 1.0 / torch.sqrt(fsum)
+    if config.stat_groups:
+        mask_f = consts["stat_mask"].to(torch.float32)
+        consts["_stat_mask_f32"] = mask_f
+        consts["_stat_count"] = mask_f.sum()
+        consts["_inv_tsum"] = 1.0 / torch.square(consts["target"]).sum()
+    else:
+        consts["_inv_tsum"] = torch.ones((), dtype=torch.float32, device=device)
+    # The step's scalar buffer with its loop-invariant lanes filled; the
+    # step writes lanes 1-3 (inv_prev_norm, apply_update, use_theta).
+    consts["_scal"] = _fft.pack_scalars({
+        "post": post,
+        "inv_prev_norm": 1.0,
+        "apply_update": 0.0,
+        "use_theta": 0.0,
+        "feedback_exponent": consts["feedback_exponent"],
+        "feedback_factor": consts["feedback_factor"],
+        "inv_fnorm": consts["_inv_fnorm"],
+        "inv_tsum": consts["_inv_tsum"],
+        "inv_fsum": consts["_inv_fsum"],
+    }, device)
+    return consts
+
+
+def _make_fused_step(config: GSConfig):
+    """The fully-fused WGS step in CARRY mode: ``state.psi`` holds the
+    rows-transformed field pair (converted at the loop boundaries by
+    :meth:`_run_fused`); each iteration is the two kernels of
+    :meth:`slmsuite_torch.ops.fft.wgs_carry_step`."""
+    stats_on = bool(config.stat_groups)
+    rule = config.method[4:].lower()
+
+    def step(state, consts):
+        was_not_fixed = torch.logical_not(state.fixed_phase)
+        apply_update = state.iteration > 0
+        flags = torch.stack([apply_update, was_not_fixed]).to(torch.float32)
+        base = consts["_scal"]
+        scal = torch.cat([base[:1], (1.0 / state.w_norm)[None], flags, base[4:]])
+        gr, gi = state.psi
+        gr, gi, weights, pff_out, sums, maxs = _fft.wgs_carry_step(
+            gr, gi,
+            consts["amp"],
+            state.weights,
+            state.phase_ff if config.is_kim else None,
+            consts["target"],
+            consts.get("_stat_mask_f32"),
+            scal,
+            rule=rule,
+            kim=config.is_kim,
+            stats_on=stats_on,
+        )
+        w_norm = torch.where(apply_update, torch.sqrt(sums[3]), state.w_norm)
+
+        if stats_on:
+            count = consts["_stat_count"]
+            efficiency = torch.square(sums[0]) * consts["_inv_tsum"] * consts["_inv_fsum"]
+            u_max, u_min = maxs[1], -maxs[3]
+            uniformity = 1 - (u_max - u_min) / (u_max + u_min)
+            err_mean = sums[1] / count
+            err_var = sums[2] / count - torch.square(err_mean)
+            pkpk_err = count * (maxs[0] + maxs[2])
+            std_err = count * torch.sqrt(torch.clamp(err_var, min=0.0))
+            stats_rows = [torch.stack([efficiency, uniformity, pkpk_err, std_err])]
+        else:
+            efficiency = consts["_nan"]
+            stats_rows = []
+
+        # Kim phase fixing. The efficiency trigger compares the CURRENT
+        # (pre-constraint) efficiency; the in-kernel phase select always
+        # uses the PREVIOUS flag, as on the standard path.
+        if config.is_kim:
+            fixed = state.fixed_phase
+            if config.kim_efficiency_trigger:
+                fixed = fixed | (efficiency > consts["fix_phase_efficiency"])
+            streak = torch.where(
+                was_not_fixed, state.unfixed_streak + 1, state.unfixed_streak
+            )
+            iter_trigger = (
+                was_not_fixed
+                & (state.iteration >= consts["fix_phase_iteration"] - 1)
+                & (streak >= consts["fix_phase_iteration"])
+            )
+            fixed = (fixed | iter_trigger) & (state.iteration > 0)
+            phase_ff = pff_out
+        else:
+            fixed = torch.zeros_like(state.fixed_phase)
+            streak = state.unfixed_streak
+            phase_ff = state.phase_ff
+
+        new_state = GSState(
+            psi=(gr, gi),
+            weights=weights,
+            phase_ff=phase_ff,
+            fixed_phase=fixed,
+            unfixed_streak=streak,
+            iteration=state.iteration + 1,
+            w_norm=w_norm,
+        )
+        zero = consts["_zero"]
+        internal = torch.stack(
+            [efficiency, state.fixed_phase.to(torch.float32), zero, zero]
+        )
+        return new_state, torch.stack(stats_rows + [internal])
+
+    return step
+
+
+def make_gs_step(config: GSConfig):
+    """The per-iteration step ``step(state, consts) -> (state, stats
+    (n_groups + 1, 4))``; the trailing row carries ``[efficiency,
+    fixed_phase, 0, 0]``."""
+    if not _fused_active(config):
+        raise _unported(config)
+    return _make_fused_step(config)
+
+
+def _run_fused(config: GSConfig, state: GSState, consts: dict, n_iterations: int):
+    """Entry, ``n_iterations`` fused steps, exit. Returns ``(state, stats
+    (n, n_groups + 1, 4))`` with the weights still unnormalized."""
+    step = make_gs_step(config)
+    consts = _augment_fused_consts(config, consts)
+    # The loop carries the rows-transformed field pair and, for Kim, the
+    # phase store as a unit phasor; convert at the boundaries. Entry
+    # handles unbounded psi (warm starts).
+    state = state._replace(psi=_fft.wgs_carry_entry(state.psi, consts["amp"]))
+    if config.is_kim:
+        state = state._replace(phase_ff=_fft.wgs_phasor_entry(state.phase_ff))
+    rows = []
+    for _ in range(int(n_iterations)):
+        state, stats = step(state, consts)
+        rows.append(stats)
+    state = state._replace(psi=_fft.wgs_carry_exit(*state.psi))
+    if config.is_kim:
+        state = state._replace(phase_ff=_fft.wgs_phasor_exit(*state.phase_ff))
+    n_rows = len(config.stat_groups) + 1
+    stats = (
+        torch.stack(rows)
+        if rows
+        else torch.zeros((0, n_rows, 4), device=state.weights.device)
+    )
+    return state, stats
+
+
+def run_gs(config: GSConfig, state: GSState, consts: dict, n_iterations: int):
+    """
+    Run ``n_iterations`` of fused WGS on the device.
+
+    Returns ``(state, stats)`` with stats of shape ``(n_iterations,
+    len(stat_groups) + 1, 4)`` (a device tensor).
+    """
+    state = _provision_fused(config, state)
+    state, stats = _run_fused(config, state, consts, n_iterations)
+    return _finalize_fused(config, state), stats
+
+
+def run_gs_chunked(config, state, consts, n_iterations, chunk=None, on_chunk=None):
+    """
+    Like :meth:`run_gs` but split into ``chunk``-sized runs with
+    ``on_chunk(n)`` called between them (progress reporting). Each chunk
+    enters and exits the carry, as the JAX package's chunks do; the
+    deferred weight norm is finalized once at the end.
+
+    Returns ``(state, [stats_chunk, ...])``.
+    """
+    n_iterations = int(n_iterations)
+    chunk = n_iterations if chunk is None else max(1, int(chunk))
+    state = _provision_fused(config, state)
+    all_stats = []
+    done = 0
+    while done < n_iterations:
+        n = min(chunk, n_iterations - done)
+        state, stats = _run_fused(config, state, consts, n)
+        all_stats.append(stats)
+        done += n
+        if on_chunk is not None:
+            on_chunk(n)
+    return _finalize_fused(config, state), all_stats
+
+
+def run_gs_scheduled(*args, **kwargs):
+    """The TPU's coarse-then-refine FFT precision schedule."""
+    raise NotImplementedError(
+        "run_gs_scheduled is TPU matrix-unit precision machinery; a reduced "
+        "precision mode for the port is opt-in later work (ROADMAP.md "
+        "'Semantics, not means')."
+    )
+
+
+def run_gs_batch(*args, **kwargs):
+    """K independent holograms in lockstep (``optimize_batch``)."""
+    raise NotImplementedError(
+        "Batched runs come with optimize_batch (ROADMAP.md queue 1, item 10)."
+    )
+
+
+def set_scrambled_mode(enable):
+    """The TPU's four-step scrambled farfield layout."""
+    raise NotImplementedError(
+        "The scrambled layout is TPU machinery; the port runs in natural "
+        "order (ROADMAP.md 'Semantics, not means')."
+    )
+
+
+def _provision_fused(config: GSConfig, state: GSState):
+    """Give the fused loop its deferred-normalization scalar."""
+    if not _fused_active(config):
+        raise _unported(config)
+    if state.w_norm is None:
+        state = state._replace(
+            w_norm=torch.ones((), dtype=torch.float32, device=state.weights.device)
+        )
+    return state
+
+
+def _finalize_fused(config: GSConfig, state: GSState):
+    """Renormalize the deferred-norm weights once on exit."""
+    if _fused_active(config) and state.w_norm is not None:
+        state = state._replace(
+            weights=state.weights / state.w_norm,
+            w_norm=torch.ones_like(state.w_norm),
+        )
+    return state
+
+
+def init_gs_state(config: GSConfig, psi, weights, phase_ff=None, device=None):
+    """Fresh loop state from the initial folded phase and weights (numpy
+    or tensors), on ``device``."""
+    device = resolve_device(device)
+
+    def plane(x):
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               dtype=torch.float32, device=device)
+
+    shape = tuple(config.shape)
+    return GSState(
+        psi=plane(psi),
+        weights=plane(weights),
+        phase_ff=(
+            torch.zeros(shape, dtype=torch.float32, device=device)
+            if phase_ff is None
+            else plane(phase_ff)
+        ),
+        fixed_phase=torch.zeros((), dtype=torch.bool, device=device),
+        unfixed_streak=torch.zeros((), dtype=torch.int32, device=device),
+        iteration=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def spot_gather_indices(spot_ij, window, shape):
+    """
+    The (N, D*D) flat gather map for spot-integration feedback and the
+    (N,) spot-center flat indices (numpy).
+
+    Parameters
+    ----------
+    spot_ij : numpy.ndarray
+        (2, N) integer spot pixel coordinates (x; y) in the farfield plane.
+    window : int
+        Integration width D (centered).
+    shape : (int, int)
+        Farfield plane shape.
+    """
+    spot_ij = np.asarray(spot_ij, dtype=int)
+    edge = np.floor(np.arange(window) - ((window - 1) / 2)).astype(int)
+    ex, ey = np.meshgrid(edge, edge)
+
+    ix = np.clip(spot_ij[0][:, None] + ex.ravel()[None, :], 0, shape[1] - 1)
+    iy = np.clip(spot_ij[1][:, None] + ey.ravel()[None, :], 0, shape[0] - 1)
+
+    flat = (iy * shape[1] + ix).astype(np.int32)
+    center = (spot_ij[1] * shape[1] + spot_ij[0]).astype(np.int32)
+    return flat, center

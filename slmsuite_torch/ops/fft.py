@@ -1,0 +1,293 @@
+r"""
+The carry-mode WGS step (PyTorch counterpart of the carry section of
+:mod:`slmsuite_tpu.ops.fft`).
+
+The loop carries the ROWS-TRANSFORMED field pair ``(gr, gi)``, the
+unnormalized forward FFT along the last axis of ``amp * e^{i psi}``
+(``e^{i psi}`` when the amplitude is a scalar; it folds into the step's
+``post`` scale). One iteration is a column round trip (forward column
+FFT, WGS epilogue, inverse column FFT) and a row round trip (inverse row
+FFT, amplitude replacement ``Z/|Z|``, forward row FFT), so psi, ``|F|`` and
+``arg F`` never exist inside the loop. The Kim phase store rides as a
+unit-phasor pair ``(pffr, pffi)``; :meth:`wgs_phasor_entry` and
+:meth:`wgs_phasor_exit` convert at the loop boundaries.
+
+Everything is in natural order: the JAX package's scrambled layout
+exists for the TPU's four-step FFT and is not ported. Two algebraic
+substitutions make the update one-pass, as in the JAX package:
+
+- deferred-by-one weight normalization: the weights are divided by the
+  PREVIOUS iteration's norm (``inv_prev_norm``) and renormalized once on
+  exit (every rule's correction is scale-free and psi is scale-invariant);
+- the Parseval feedback norm: ``sum |F|^2 == sum amp^2`` for the ortho
+  transform, so the feedback power is a precomputed constant.
+
+The underscored functions are the plain PyTorch versions of the CUDA
+kernels in :mod:`slmsuite_torch.ops.cuda_fft`. The dispatchers
+(:meth:`wgs_carry_entry`, :meth:`wgs_carry_step`, :meth:`wgs_carry_exit`)
+take the plain versions for CPU tensors only. A CUDA tensor whose sides
+are powers of two in [64, 4096] launches the kernels; any other CUDA
+shape raises :class:`NotImplementedError`.
+"""
+
+import functools
+
+import torch
+
+#: Lane order of the step's device scalar buffer (see ``csrc/wgs_carry.cu``).
+SCALAR_KEYS = (
+    "post",               # 1/sqrt(HW), times the amplitude when it is a scalar
+    "inv_prev_norm",      # 1 / previous iteration's weight norm
+    "apply_update",       # 0/1: the WGS update is active (iteration > 0)
+    "use_theta",          # 0/1: Kim takes the current farfield direction
+    "feedback_exponent",
+    "feedback_factor",
+    "inv_fnorm",          # 1 / sqrt(Parseval feedback power)
+    "inv_tsum",           # 1 / sum(target^2)
+    "inv_fsum",           # 1 / Parseval feedback power
+)
+
+_S = {key: lane for lane, key in enumerate(SCALAR_KEYS)}
+
+#: Fill value standing in for -inf in the max partials.
+_NEG_FILL = -3.0e38
+
+#: Line lengths the CUDA kernels take: powers of two whose line fits the
+#: shared-memory FFT.
+_KERNEL_MIN_LEN, _KERNEL_MAX_LEN = 64, 4096
+
+
+def pack_scalars(values, device=None):
+    """Stack ``values[key]`` for :data:`SCALAR_KEYS` into the f32 buffer
+    the step reads."""
+    return torch.stack(
+        [torch.as_tensor(values[k], dtype=torch.float32, device=device)
+         for k in SCALAR_KEYS]
+    )
+
+
+def is_scalar_amp(amp):
+    """Whether the nearfield amplitude is a scalar (Python or 0-d)."""
+    return not torch.is_tensor(amp) or amp.ndim == 0
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_len_ok(n):
+    """Whether a line of length ``n`` takes the CUDA kernels."""
+    return _KERNEL_MIN_LEN <= n <= _KERNEL_MAX_LEN and n & (n - 1) == 0
+
+
+def use_kernels(x):
+    """The dispatchers' gate, decided from the device and shape alone,
+    before any launch: False for a CPU tensor (the plain versions), True
+    for a CUDA tensor whose last two sides both take the kernels. Raises
+    for any other tensor."""
+    if x.device.type == "cpu":
+        return False
+    if x.is_cuda and kernel_len_ok(x.shape[-2]) and kernel_len_ok(x.shape[-1]):
+        return True
+    raise NotImplementedError(
+        f"The carry kernels take CUDA planes whose sides are powers of two in "
+        f"[{_KERNEL_MIN_LEN}, {_KERNEL_MAX_LEN}], not {tuple(x.shape)} on "
+        f"{x.device} (ROADMAP.md 'Non-power-of-two lengths')."
+    )
+
+
+def _pair(z):
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def _ifft(z, dim):
+    """Unnormalized inverse FFT (the kernels do not scale either)."""
+    return torch.fft.ifft(z, dim=dim, norm="forward")
+
+
+def _wgs_carry_entry(psi, amp):
+    """psi -> rows-transformed carry of ``e^{i psi}`` (scalar amp) or
+    ``amp * e^{i psi}`` (array amp). Unnormalized."""
+    c, s = torch.cos(psi), torch.sin(psi)
+    if not is_scalar_amp(amp):
+        c, s = amp * c, amp * s
+    return _pair(torch.fft.fft(torch.complex(c, s), dim=-1))
+
+
+def _wgs_carry_exit(gr, gi):
+    """Rows-transformed carry -> psi (the normalization drops out of atan2)."""
+    z = _ifft(torch.complex(gr, gi), -1)
+    return torch.atan2(z.imag, z.real)
+
+
+def _wgs_correction(f, target, scal, rule):
+    """Elementwise weight-correction factor ``c`` of the fusable rules
+    (never depends on the weight scale)."""
+    p = scal[_S["feedback_exponent"]]
+    if rule in ("leonardo", "kim"):
+        on = target != 0
+        c = f / torch.where(on, target, 1.0)
+        c = torch.where(on & (c > 0) & torch.isfinite(c), c, 1.0)
+        c = torch.exp(-p * torch.log(c))
+    elif rule in ("wu", "tanh"):
+        term = p * (target - p * f * scal[_S["inv_fnorm"]])
+        if rule == "wu":
+            c = torch.exp(term)
+        else:
+            c = 1.0 + scal[_S["feedback_factor"]] * torch.tanh(term)
+    else:
+        raise ValueError(f"Unfusable rule '{rule}'.")
+    return torch.where(torch.isinf(c), 1.0, c)
+
+
+def _wgs_stats(f, target, mask, scal, norm_sq, stats_on):
+    """Stats partials: sums = [overlap, err_sum, err_sq_sum, norm_sq],
+    maxs = [err_max, u_max, -err_min, -u_min]."""
+    if not stats_on:
+        zero = torch.zeros((), dtype=torch.float32, device=f.device)
+        sums = torch.stack([zero, zero, zero, norm_sq])
+        return sums, torch.full((4,), _NEG_FILL, device=f.device)
+    fsq = torch.square(f)
+    tsq = torch.square(target)
+    overlap = (target * f).sum()
+    err_full = tsq * scal[_S["inv_tsum"]] - fsq * scal[_S["inv_fsum"]]
+    err = err_full * mask
+    on = mask > 0
+    u = fsq / torch.where(on, tsq, 1.0)
+    sums = torch.stack([overlap, err.sum(), torch.square(err).sum(), norm_sq])
+    maxs = torch.stack([
+        torch.where(on, err_full, _NEG_FILL).max(),
+        torch.where(on, u, _NEG_FILL).max(),
+        torch.where(on, -err_full, _NEG_FILL).max(),
+        torch.where(on, -u, _NEG_FILL).max(),
+    ])
+    return sums, maxs
+
+
+def _cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
+                        *, rule, kim, stats_on):
+    """Column round trip of the step: forward column FFT (completing the
+    2D transform), WGS epilogue, inverse column FFT. Returns ``(hr, hi,
+    weights', phase_ff' | None, sums, maxs)``."""
+    big = torch.fft.fft(torch.complex(gr, gi), dim=0)
+    fr, fi = big.real, big.imag
+    f2 = torch.square(fr) + torch.square(fi)
+    f = torch.sqrt(f2) * scal[_S["post"]]
+
+    uw = weights * _wgs_correction(f, target, scal, rule)
+    uw = torch.where(torch.isnan(uw), 1e-4, uw)
+    wout = torch.where(
+        scal[_S["apply_update"]] > 0, uw * scal[_S["inv_prev_norm"]], weights
+    )
+
+    # Farfield direction without transcendentals; zero field -> (1, 0).
+    on = f2 > 0
+    invb = torch.rsqrt(torch.where(on, f2, 1.0))
+    er = torch.where(on, fr * invb, 1.0)
+    ei = torch.where(on, fi * invb, 0.0)
+    if kim:
+        use_theta = scal[_S["use_theta"]] > 0
+        er = torch.where(use_theta, er, phase_ff[0])
+        ei = torch.where(use_theta, ei, phase_ff[1])
+        pff_out = (er, ei)
+    else:
+        pff_out = None
+
+    sums, maxs = _wgs_stats(
+        f, target, mask, scal, torch.square(wout).sum(), stats_on
+    )
+
+    hr, hi = _pair(_ifft(torch.complex(wout * er, wout * ei), 0))
+    return hr, hi, wout, pff_out, sums, maxs
+
+
+def _rows_normfwd(hr, hi, amp):
+    """Row round trip of the step: inverse row FFT -> Z, amplitude
+    replacement ``Z/|Z|`` or ``amp * Z/|Z|`` (zero -> 1 or amp, real),
+    forward row FFT. Returns the next carry ``(gr, gi)``."""
+    z = _ifft(torch.complex(hr, hi), -1)
+    zr, zi = z.real, z.imag
+    mag2 = torch.square(zr) + torch.square(zi)
+    on = mag2 > 0
+    inv = torch.rsqrt(torch.where(on, mag2, 1.0))
+    if is_scalar_amp(amp):
+        ur = torch.where(on, zr * inv, 1.0)
+        ui = torch.where(on, zi * inv, 0.0)
+    else:
+        inv = amp * inv
+        ur = torch.where(on, zr * inv, amp)
+        ui = torch.where(on, zi * inv, 0.0)
+    return _pair(torch.fft.fft(torch.complex(ur, ui), dim=-1))
+
+
+def _wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
+                    *, rule, kim, stats_on):
+    """Plain PyTorch version of one carry-mode WGS iteration (the two
+    CUDA kernels of :meth:`slmsuite_torch.ops.cuda_fft.carry_step`).
+    ``phase_ff`` is the Kim unit-phasor pair or None; ``scal`` the
+    :data:`SCALAR_KEYS` buffer."""
+    hr, hi, wout, pff_out, sums, maxs = _cols_wgs_roundtrip(
+        gr, gi, weights, target, mask, phase_ff, scal,
+        rule=rule, kim=kim, stats_on=stats_on,
+    )
+    gr2, gi2 = _rows_normfwd(hr, hi, amp)
+    return gr2, gi2, wout, pff_out, sums, maxs
+
+
+def wgs_carry_entry(psi, amp):
+    """psi (natural, unbounded range) -> rows-transformed field carry."""
+    if use_kernels(psi):
+        from slmsuite_torch.ops import cuda_fft
+
+        return cuda_fft.carry_entry(psi, amp)
+    return _wgs_carry_entry(psi, amp)
+
+
+def wgs_carry_exit(gr, gi):
+    """Rows-transformed field carry -> psi."""
+    if use_kernels(gr):
+        from slmsuite_torch.ops import cuda_fft
+
+        return cuda_fft.carry_exit(gr, gi)
+    return _wgs_carry_exit(gr, gi)
+
+
+def wgs_phasor_entry(phase_ff):
+    """Kim phase-store angle plane -> unit-phasor pair."""
+    return torch.cos(phase_ff), torch.sin(phase_ff)
+
+
+def wgs_phasor_exit(pffr, pffi):
+    """Unit-phasor pair -> angle plane."""
+    return torch.atan2(pffi, pffr)
+
+
+def wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
+                   *, rule, kim, stats_on):
+    """
+    One complete WGS iteration on the rows-transformed carry.
+
+    Parameters
+    ----------
+    gr, gi : (H, W) f32 carry pair.
+    amp : scalar or (H, W) nearfield amplitude.
+    weights, target : (H, W) farfield weights and target amplitudes.
+    phase_ff : Kim unit-phasor pair ``(pffr, pffi)`` or None.
+    mask : (H, W) f32 0/1 stats mask, or None when ``stats_on`` is off.
+    scal : (9,) f32 buffer in :data:`SCALAR_KEYS` order, on the device.
+    rule : ``"leonardo"``, ``"kim"``, ``"wu"`` or ``"tanh"``.
+
+    Returns
+    -------
+    ``(gr', gi', weights', phase_ff' | None, sums (4,), maxs (4,))`` with
+    sums = [overlap, err_sum, err_sq_sum, |w'|^2] and maxs = [err_max,
+    u_max, -err_min, -u_min].
+    """
+    if use_kernels(gr):
+        from slmsuite_torch.ops import cuda_fft
+
+        return cuda_fft.carry_step(
+            gr, gi, amp, weights, phase_ff, target, mask, scal,
+            rule=rule, kim=kim, stats_on=stats_on,
+        )
+    return _wgs_carry_step(
+        gr, gi, amp, weights, phase_ff, target, mask, scal,
+        rule=rule, kim=kim, stats_on=stats_on,
+    )

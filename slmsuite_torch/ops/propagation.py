@@ -1,0 +1,121 @@
+r"""
+Shift-free centered Fourier propagation (PyTorch twin of
+:mod:`slmsuite_tpu.ops.propagation`).
+
+For even dimensions, with :math:`C_{ij} = (-1)^{i+j}` and
+:math:`s = (-1)^{(H+W)/2}`,
+``fftshift(fft2(fftshift(x))) = s C * fft2(C * x)`` elementwise. Carrying
+the *folded* phase :math:`\psi = \phi + \pi(i+j)` absorbs the input
+checkerboard, so the GS loop runs on plain ``fft2`` output; only the
+user-facing conversions below apply the checkerboard and the sign.
+
+These functions run once per ``optimize`` call, outside the loop, so they
+use ``torch.fft``.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+
+def pad_window_slices(shape, slm_shape):
+    """
+    Centered-pad window indices ``(y0, y1, x0, x1)`` of a ``slm_shape``
+    window in a ``shape`` canvas (floor-biased).
+    """
+    dh = (shape[0] - slm_shape[0]) / 2.0
+    dw = (shape[1] - slm_shape[1]) / 2.0
+    if dh < 0 or dw < 0:
+        raise ValueError(f"slm_shape {slm_shape} larger than canvas {shape}")
+    y0 = int(np.floor(dh))
+    x0 = int(np.floor(dw))
+    return (y0, y0 + slm_shape[0], x0, x0 + slm_shape[1])
+
+
+def checkerboard(slm_shape, window_offset=(0, 0), dtype=np.float32):
+    r"""
+    The fold phase :math:`\pi \cdot ((i + j + o_y + o_x) \bmod 2)` on the
+    SLM window (host numpy, cached, read-only).
+    """
+    return _checkerboard_cached(
+        tuple(int(v) for v in slm_shape),
+        (int(window_offset[0]), int(window_offset[1])),
+        np.dtype(dtype).str,
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _checkerboard_cached(slm_shape, window_offset, dtype_str):
+    parity = (window_offset[0] + window_offset[1]) % 2
+    row = np.arange(slm_shape[1], dtype=np.int64)
+    col = np.arange(slm_shape[0], dtype=np.int64)
+    board = (np.pi * ((col[:, None] + row[None, :] + parity) % 2)).astype(
+        np.dtype(dtype_str)
+    )
+    board.setflags(write=False)
+    return board
+
+
+def fold_phase(phase, shape):
+    """User phase -> internal folded phase ``psi`` (numpy)."""
+    phase = np.asarray(phase)
+    y0, _, x0, _ = pad_window_slices(shape, phase.shape)
+    return phase + checkerboard(phase.shape, (y0, x0), dtype=phase.dtype)
+
+
+def unfold_phase(psi, shape):
+    """Internal folded phase -> user phase (numpy)."""
+    psi = np.asarray(psi)
+    y0, _, x0, _ = pad_window_slices(shape, psi.shape)
+    return psi - checkerboard(psi.shape, (y0, x0), dtype=psi.dtype)
+
+
+def build_folded_nearfield(psi, amp, shape, kernel=None):
+    """``amp * exp(1j * (psi + kernel))`` in the center window of a zero
+    complex64 canvas of ``shape``."""
+    total = psi if kernel is None else psi + kernel
+    window = (amp * torch.exp(1j * total.to(torch.float32))).to(torch.complex64)
+    y0, y1, x0, x1 = pad_window_slices(shape, tuple(psi.shape))
+    canvas = torch.zeros(tuple(shape), dtype=torch.complex64, device=psi.device)
+    canvas[y0:y1, x0:x1] = window
+    return canvas
+
+
+def nearfield_to_farfield(folded_nearfield):
+    """Forward propagation: orthonormal 2D FFT."""
+    return torch.fft.fft2(folded_nearfield, norm="ortho")
+
+
+def farfield_sign(shape):
+    """The global sign ``s = (-1)^((H+W)/2)`` of the folded basis."""
+    return -1.0 if ((shape[0] + shape[1]) // 2) % 2 else 1.0
+
+
+def unfold_farfield(farfield_folded):
+    """
+    fft-output-layout complex farfield ``G = fft2(Z)`` -> the centered
+    complex farfield ``s * C * G`` (amplitudes unchanged).
+    """
+    H, W = farfield_folded.shape[-2:]
+    if isinstance(farfield_folded, np.ndarray):
+        iy = np.arange(H).reshape(-1, 1)
+        ix = np.arange(W).reshape(1, -1)
+    else:
+        iy = torch.arange(H, device=farfield_folded.device).reshape(-1, 1)
+        ix = torch.arange(W, device=farfield_folded.device).reshape(1, -1)
+    cb = 1.0 - 2.0 * ((iy + ix) % 2)
+    return farfield_sign((H, W)) * cb * farfield_folded
+
+
+def compute_farfield(psi, amp, shape, kernel=None):
+    """Folded phase + amplitude -> centered complex farfield (device)."""
+    nearfield = build_folded_nearfield(psi, amp, shape, kernel)
+    return unfold_farfield(nearfield_to_farfield(nearfield))
+
+
+def forward_fields(psi, amp, shape, kernel=None):
+    """Forward propagation returning the folded complex farfield plus its
+    amplitude and phase."""
+    farfield = nearfield_to_farfield(build_folded_nearfield(psi, amp, shape, kernel))
+    return farfield, torch.abs(farfield), torch.angle(farfield)

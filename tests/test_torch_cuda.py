@@ -1,0 +1,131 @@
+"""
+The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device (decided inside
+the fixture, never at import). On a GPU machine without jax, run
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
+(the repository conftest configures jax). Tolerances are those of
+``chip_smoke.py``: carry planes 1e-4 relative to their peak, weights,
+phasors and stats atol 1e-4 / rtol 1e-3, psi 99th-percentile wrapped
+difference below 2e-3.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+CARRY_RTOL = 1e-4
+ATOL, RTOL = 1e-4, 1e-3
+PSI_P99 = 2e-3
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+def _inputs(shape, device, amp_kind, seed=0):
+    H, W = shape
+    rng = np.random.default_rng(seed)
+    psi = rng.uniform(-4 * np.pi, 4 * np.pi, shape).astype(np.float32)
+    target = np.zeros(shape, np.float32)
+    target[rng.integers(0, H, 12), rng.integers(0, W, 12)] = 1.0
+    target /= np.sqrt((target**2).sum())
+    pff = rng.uniform(-np.pi, np.pi, shape).astype(np.float32)
+    amp = (1.0 / np.sqrt(H * W) if amp_kind == "scalar"
+           else torch.from_numpy((0.5 + rng.uniform(0, 1, shape)).astype(np.float32)).to(device))
+    return (torch.from_numpy(psi).to(device), torch.from_numpy(target).to(device),
+            (torch.from_numpy(np.cos(pff)).to(device), torch.from_numpy(np.sin(pff)).to(device)),
+            amp)
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (256, 512)])
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+@pytest.mark.parametrize("rule", ["kim", "leonardo", "wu", "tanh"])
+@pytest.mark.parametrize("stats_on", [True, False])
+def test_kernels_match_plain(cuda, shape, amp_kind, rule, stats_on):
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    psi, target, pff, amp = _inputs(shape, cuda, amp_kind)
+    gr, gi = cuda_fft.carry_entry(psi, amp)
+    pgr, pgi = fft._wgs_carry_entry(psi, amp)
+    assert max(_rel(gr, pgr), _rel(gi, pgi)) <= CARRY_RTOL
+
+    H, W = shape
+    post = (amp if amp_kind == "scalar" else 1.0) / np.sqrt(H * W)
+    scal = fft.pack_scalars(dict(
+        post=post, inv_prev_norm=0.7, apply_update=1.0, use_theta=float(stats_on),
+        feedback_exponent=0.8, feedback_factor=0.2, inv_fnorm=1.3,
+        inv_tsum=float(1.0 / (target**2).sum()), inv_fsum=0.9,
+    ), cuda)
+    kim = rule == "kim"
+    args = (pgr, pgi, amp, target, pff if kim else None, target,
+            (target != 0).float() if stats_on else None, scal)
+    kw = dict(rule=rule, kim=kim, stats_on=stats_on)
+    got = cuda_fft.carry_step(*args, **kw)
+    ref = fft._wgs_carry_step(*args, **kw)
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+    pairs = [(got[2], ref[2]), (got[4], ref[4]), (got[5], ref[5])]
+    if kim:
+        pairs += list(zip(got[3], ref[3]))
+    for g, r in pairs:
+        torch.testing.assert_close(g, r, atol=ATOL, rtol=RTOL)
+
+    diff = torch.remainder(cuda_fft.carry_exit(pgr, pgi) - fft._wgs_carry_exit(pgr, pgi)
+                           + np.pi, 2 * np.pi) - np.pi
+    assert float(torch.quantile(diff.abs().flatten(), 0.99)) < PSI_P99
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_bad_inputs(cuda):
+    from slmsuite_torch.ops import cuda_fft
+
+    with pytest.raises(ValueError, match="powers of two"):
+        cuda_fft.carry_entry(torch.zeros((96, 128), device=cuda), 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_fft.carry_entry(torch.zeros((64, 64), device=cuda, dtype=torch.float64), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_fft.carry_entry(torch.zeros((64, 64), device=cuda).t()[:, :64], 1.0)
+
+
+@pytest.mark.cuda
+def test_dispatchers_refuse_cuda_shapes_outside_the_gate(cuda):
+    """A CUDA plane whose sides the kernels do not take raises; it never
+    falls back to the plain versions."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    plane = torch.zeros((96, 128), device=cuda)
+    scal = fft.pack_scalars(dict.fromkeys(fft.SCALAR_KEYS, 0.0), cuda)
+    cuda_fft.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+        fft.wgs_carry_entry(plane, 1.0)
+    with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+        fft.wgs_carry_exit(plane, plane)
+    with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+        fft.wgs_carry_step(plane, plane, 1.0, plane, None, plane, plane, scal,
+                           rule="kim", kim=False, stats_on=True)
+    assert sum(cuda_fft.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+def test_spot_hologram_runs_through_kernels(cuda):
+    from slmsuite_torch.holography.algorithms import SpotHologram
+    from slmsuite_torch.ops import cuda_fft
+
+    holo = SpotHologram.make_rectangular_array(
+        (256, 256), array_shape=(8, 8), array_pitch=(20, 20), basis="knm", device=cuda
+    )
+    holo.reset_phase(custom_phase=np.random.default_rng(1).uniform(-np.pi, np.pi, (256, 256)))
+    cuda_fft.reset_launch_counts()
+    holo.optimize(method="WGS-Kim", maxiter=10, stat_groups=["computational"], verbose=False)
+    assert cuda_fft.LAUNCHES["cols_wgs_roundtrip"] == 10
+    assert cuda_fft.LAUNCHES["rows_normfwd"] == 10
+    efficiency = holo.stats["stats"]["computational"]["efficiency"][-1]
+    assert 0 < efficiency <= 1
