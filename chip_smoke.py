@@ -7,19 +7,37 @@ CUDA card and ``nvcc``; it fails (exit code != 0, no result line) when
 there is no card or the port is missing. In order:
 
 1. device check; 2. environment (torch, CUDA, nvcc, card, power limit);
-3. build of the CUDA kernels from ``slmsuite_torch/csrc``;
-4. each kernel against its plain PyTorch version on the card, at 2048^2
-   and 256x512, for every fusable rule, scalar and array amplitude,
-   stats on and off;
-5. the slice: ``SpotHologram.make_rectangular_array((2048, 2048), 32x32,
-   pitch 30, "knm")`` optimized with WGS-Kim for 50 iterations, through
-   the kernels (launch counts checked) and through the plain step
-   functions, and the 64^2 WGS-Kim golden replay;
-6. timing with CUDA events: each kernel and its plain version at 2048^2,
-   and ``spot_array_wgs(N=2048).run(n)`` for n = 50 and 200 through the
-   kernels and through the plain (cuFFT) step;
-7. a ``torch.profiler`` breakdown of ``spot_array_wgs(N=2048).run(50)``:
-   device time, device busy share and device launches per iteration.
+3. build of the CUDA kernels from ``slmsuite_torch/csrc`` (one ``nvcc``
+   per source, in parallel);
+4. each kernel against its plain PyTorch version on the card: the carry
+   kernels at 2048^2 and 256x512 for every fusable rule, scalar and array
+   amplitude, stats on and off; the natural-path kernels and the composed
+   dispatchers at 2048^2 and 256x512, and the canvas transforms on a
+   2048^2 canvas holding a 1024^2 window;
+5. the paths, each driven with the launch counts set to 0 just before it:
+   - the fused slice: ``SpotHologram.make_rectangular_array((2048, 2048),
+     32x32, pitch 30, "knm")``, WGS-Kim, 50 iterations;
+   - N1, the natural full-fuse geometry: the same array, WGS-Nogrette with
+     ``computational_spot`` feedback and both stat groups, 50 iterations;
+   - N2, BASELINE config 1 at 2x padding: a 10x10 array at pitch 60 on a
+     2048^2 farfield over a 1024^2 SLM, GS then WGS-Kim, 50 iterations
+     each;
+   each through the kernels (loop launches checked, launches after the
+   loop counted apart; the kernels line reports both together) and
+   through the plain versions (final efficiency and uniformity within
+   1e-3);
+6. the 64^2 goldens ``wgs_kim_iter``, ``gs``, ``wgs_nogrette``,
+   ``gs_padded`` and ``spots_kim`` replayed through the kernels;
+7. timing with CUDA events: each kernel, its plain version and, where one
+   PyTorch call computes the same function, that call, at 2048^2; the
+   composed ``fft2``/``ifft2`` against ``torch.fft.fft2``/``ifft2``, and
+   the composed ``wexp_ifft2`` against its plain version; and
+   ms/iteration of ``spot_array_wgs(2048)`` (WGS-Kim, fused),
+   ``spot_array_wgs(2048, method="WGS-Nogrette")`` (natural) and the N2
+   GS loop, through the kernels and through the plain versions;
+8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette)
+   and the N2 GS loops: device time, device busy share, device launches
+   per iteration.
 
 It prints the per-kernel JSON line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
@@ -41,21 +59,31 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
 #: Acceptance tolerances, kernel against plain version on the card.
-CARRY_RTOL = 1e-4          # carry planes: max |diff| / max |plain|
+CARRY_RTOL = 1e-4          # carry and transformed planes: max |diff| / max |plain|
 WEIGHT_ATOL, WEIGHT_RTOL = 1e-4, 1e-3   # weights, phasors, sums, maxs
+THETA_ATOL = 1e-3          # arg F, where |F| > 1e-3 max |F|
 PSI_P99 = 2e-3             # psi: 99th percentile of the wrapped difference
 SLICE_ATOL = 1e-3          # final efficiency / uniformity, kernel vs plain
 GOLDEN_STATS_ATOL, GOLDEN_STATS_RTOL, GOLDEN_PHASE_ATOL = 1e-4, 1e-3, 5e-3
+GOLDENS = ("wgs_kim_iter", "gs", "wgs_nogrette", "gs_padded", "spots_kim")
 
-#: Kernel name -> the TPU kernel it replaces.
+#: Kernel name -> (source, the TPU kernel it replaces, the path whose
+#: launches the kernels line reports).
 KERNELS = {
-    "carry_entry": "slmsuite_tpu/ops/pallas_fft.py:1184",
-    "cols_wgs_roundtrip": "slmsuite_tpu/ops/pallas_fft.py:797",
-    "rows_normfwd": "slmsuite_tpu/ops/pallas_fft.py:835",
-    "carry_exit": "slmsuite_tpu/ops/pallas_fft.py:1216",
+    "carry_entry": ("wgs_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:1184", "fused"),
+    "cols_wgs_roundtrip": ("wgs_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:797", "fused"),
+    "rows_normfwd": ("wgs_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:835", "fused"),
+    "carry_exit": ("wgs_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:1216", "fused"),
+    "rows_fft": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:373", "N2"),
+    "cols_fft": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:385", "N2"),
+    "cols_fwd_polar": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:559", "N1"),
+    "cols_wexp_inv": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:1885", "N1"),
 }
-SOURCE = "slmsuite_torch/csrc/wgs_carry.cu"
 RULES = ("kim", "leonardo", "wu", "tanh")
+
+#: The H100 SXM's published peaks (NVIDIA data sheet, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def log(*args):
@@ -95,6 +123,8 @@ def phase_build():
     path, seconds, build_log = cuda_fft.build()
     cuda_fft._lib()
     log(f"build: {path.relative_to(ROOT)} in {seconds:.1f} s")
+    if not build_log:
+        return  # already built: the log of that build stays
     OUT.mkdir(exist_ok=True)
     (OUT / "ptxas.log").write_text(build_log)
     for line in build_log.splitlines():
@@ -164,10 +194,12 @@ def psi_p99(got, ref):
 
 
 def phase_parity(device):
-    """Every kernel against its plain version; returns the 2048^2 errors."""
+    """Every carry kernel against its plain version; returns the 2048^2
+    errors."""
     from slmsuite_torch.ops import cuda_fft, fft
 
-    worst = dict.fromkeys(KERNELS, 0.0)
+    worst = dict.fromkeys(("carry_entry", "cols_wgs_roundtrip", "rows_normfwd",
+                           "carry_exit"), 0.0)
     lines = []
     for shape in ((2048, 2048), (256, 512)):
         for amp_kind in ("scalar", "array"):
@@ -232,6 +264,125 @@ def phase_parity(device):
     return worst
 
 
+def wrapped_abs(a, b):
+    return (torch.remainder(a - b + np.pi, 2 * np.pi) - np.pi).abs()
+
+
+def theta_err(got, ref, amp):
+    """Largest wrapped |arg difference| where |F| > 1e-3 max |F|."""
+    on = amp > 1e-3 * amp.max()
+    return float(wrapped_abs(got, ref)[on].max())
+
+
+def theta_yardstick(device, lines, seeds=range(3, 8)):
+    """What THETA_ATOL is held against: ``cols_fwd_polar``'s arg F and its
+    plain version's (cuFFT), each against a float64 column FFT of the same
+    2048^2 input, on several seeded inputs; and the kernel against the
+    plain version with no |F| mask, where the angle of a round-off-sized
+    value is arbitrary."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    worst = dict(kernel=0.0, plain=0.0, kernel_vs_plain=0.0, unmasked=0.0)
+    for seed in seeds:
+        xr, xi = random_pair((2048, 2048), device, seed)
+        _, th_k = cuda_fft.cols_fwd_polar(xr, xi, 1.0)
+        amp_p, th_p = fft._cols_fwd_polar(xr, xi, 1.0)
+        truth = torch.fft.fft(torch.complex(xr.double(), xi.double()), dim=-2)
+        amp_t, th_t = truth.abs(), torch.angle(truth)
+        errs = dict(kernel=theta_err(th_k.double(), th_t, amp_t),
+                    plain=theta_err(th_p.double(), th_t, amp_t),
+                    kernel_vs_plain=theta_err(th_k, th_p, amp_p),
+                    unmasked=float(wrapped_abs(th_k, th_p).max()))
+        lines.append(f"arg F yardstick seed {seed}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+    log(f"arg F yardstick, cols_fwd_polar 2048^2, seeds {seeds.start}-{seeds.stop - 1}, "
+        f"where |F| > 1e-3 max |F|: kernel vs float64 {worst['kernel']:.3e}, plain vs "
+        f"float64 {worst['plain']:.3e}, kernel vs plain {worst['kernel_vs_plain']:.3e} "
+        f"(limit {THETA_ATOL}); kernel vs plain unmasked {worst['unmasked']:.3e} rad")
+    assert worst["kernel"] < THETA_ATOL and worst["plain"] < THETA_ATOL, worst
+
+
+def random_pair(shape, device, seed=3):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+                 for _ in range(2))
+
+
+def phase_natural_parity(device):
+    """The natural-path kernels and the composed dispatchers against their
+    plain versions; returns the kernels' 2048^2 max |diff|."""
+    from slmsuite_torch.ops import cuda_fft, fft, propagation
+
+    worst = dict.fromkeys(("rows_fft", "cols_fft", "cols_fwd_polar", "cols_wexp_inv"), 0.0)
+    lines = []
+
+    def planes(tag, got, ref, kernel=None):
+        e = max(rel_err(g, r) for g, r in zip(got, ref))
+        assert e <= CARRY_RTOL, f"{tag}: rel {e:.3e}"
+        lines.append(f"{tag}: rel {e:.3e}")
+        if kernel and tag.startswith(f"{kernel} (2048, 2048)"):
+            worst[kernel] = max(worst[kernel], *(max_abs(g, r) for g, r in zip(got, ref)))
+
+    def polar(tag, got, ref, kernel=None):
+        planes(tag + " |F|", got[:1], ref[:1], kernel)
+        e = theta_err(got[1], ref[1], ref[0])
+        assert e < THETA_ATOL, f"{tag} arg F: {e:.3e}"
+        lines.append(f"{tag} arg F: max {e:.3e}")
+        if kernel and tag.startswith(f"{kernel} (2048, 2048)"):
+            worst[kernel] = max(worst[kernel], e)
+
+    def phase(tag, got, ref):
+        e = psi_p99(got, ref)
+        assert e < PSI_P99, f"{tag}: p99 {e:.3e}"
+        lines.append(f"{tag}: p99 {e:.3e}")
+
+    for shape in ((2048, 2048), (256, 512)):
+        xr, xi = random_pair(shape, device)
+        for inverse in (False, True):
+            for name in ("rows_fft", "cols_fft"):
+                planes(f"{name} {shape} inverse={inverse}",
+                       getattr(cuda_fft, name)(xr, xi, inverse=inverse, scale=0.5),
+                       getattr(fft, "_" + name)(xr, xi, inverse=inverse, scale=0.5), name)
+        polar(f"cols_fwd_polar {shape}", cuda_fft.cols_fwd_polar(xr, xi, 0.25),
+              fft._cols_fwd_polar(xr, xi, 0.25), "cols_fwd_polar")
+        w, phi = xr.abs(), xi * np.pi
+        planes(f"cols_wexp_inv {shape}", cuda_fft.cols_wexp_inv(w, phi),
+               fft._cols_wexp_inv(w, phi), "cols_wexp_inv")
+        for amp_kind in ("scalar", "array"):
+            x = step_inputs(shape, amp_kind, "kim", True, device)
+            polar(f"fft2_polar_from_phase {shape} {amp_kind}",
+                  fft.fft2_polar_from_phase(x["psi"], x["amp"]),
+                  fft._fft2_polar_from_phase(x["psi"], x["amp"]))
+        amp_ff, theta = fft._fft2_polar_from_phase(x["psi"], x["amp"])
+        phase(f"wexp_ifft2_phase {shape}", fft.wexp_ifft2_phase(w, theta),
+              fft._wexp_ifft2_phase(w, theta))
+        planes(f"wexp_ifft2 {shape}", fft.wexp_ifft2(w, theta), fft._wexp_ifft2(w, theta))
+
+    # A 2048^2 canvas holding a 1024^2 window, as in the padded loop.
+    rng = np.random.default_rng(4)
+    window = torch.from_numpy(rng.uniform(-np.pi, np.pi, (1024, 1024)).astype(np.float32))
+    for amp_kind in ("scalar", "array"):
+        amp = (1.0 / 1024 if amp_kind == "scalar" else
+               torch.from_numpy(rng.uniform(0.5, 1, (1024, 1024)).astype(np.float32)).to(device))
+        nr, ni = propagation.build_folded_nearfield(window.to(device), amp, (2048, 2048))
+        tag = f"canvas 2048^2 / 1024^2 {amp_kind}"
+        planes(f"fft2 {tag}", fft.fft2(nr, ni), fft._fft2(nr, ni))
+        polar(f"fft2_polar {tag}", fft.fft2_polar(nr, ni), fft._fft2_polar(nr, ni))
+        fr, fi = fft._fft2(nr, ni)
+        planes(f"ifft2 {tag}", fft.ifft2(fr, fi), fft._ifft2(fr, fi))
+        amp_c, theta_c = fft._fft2_polar(nr, ni)
+        planes(f"wexp_ifft2 {tag}", fft.wexp_ifft2(amp_c, theta_c),
+               fft._wexp_ifft2(amp_c, theta_c))
+    theta_yardstick(device, lines)
+    torch.cuda.synchronize()
+    OUT.mkdir(exist_ok=True)
+    (OUT / "parity_natural.log").write_text("\n".join(lines) + "\n")
+    log(f"natural parity: {len(lines)} checks passed; 2048^2 max |diff| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
 def cuda_ms(fn, n=20, warmup=3):
     """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
     for _ in range(warmup):
@@ -246,138 +397,277 @@ def cuda_ms(fn, n=20, warmup=3):
     return start.elapsed_time(stop) / n
 
 
+def bound(shape, planes_moved, line_ffts):
+    """``(bound_ms, bound_by)`` of an (n, n) kernel: the larger of the
+    bytes moved (each input plane read once, each output written once)
+    over the HBM rate and the FFT flops (5 n log2 n per line, n lines per
+    pass, ``line_ffts`` passes) over the f32 peak."""
+    H, W = shape
+    assert H == W, shape
+    byte_ms = planes_moved * 4 * H * W / HBM_BYTES_PER_S * 1e3
+    flop_ms = line_ffts * 5 * H * W * np.log2(H) / F32_FLOP_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
+
+
+def interleaved(name, kernel, plain, library=None, bound_of=None):
+    """Time ``kernel`` and ``plain`` in turns (plain, kernel, kernel,
+    plain) and ``library`` once between them; log and return
+    ``{kernel, plain, library, bound, bound_by}`` in ms."""
+    p1 = cuda_ms(plain)
+    k1 = cuda_ms(kernel)
+    lib = cuda_ms(library) if library is not None else None
+    k2 = cuda_ms(kernel)
+    p2 = cuda_ms(plain)
+    bound_ms, bound_by = bound_of if bound_of is not None else (None, None)
+    log(f"time {name} 2048^2: kernel {k1:.4f} {k2:.4f} ms, plain {p1:.4f} {p2:.4f} ms"
+        + (f", library {lib:.4f} ms" if lib is not None else "")
+        + (f", bound {bound_ms:.4f} ms ({bound_by})" if bound_ms is not None else ""))
+    return dict(kernel=(k1 + k2) / 2, plain=(p1 + p2) / 2, library=lib,
+                bound=bound_ms, bound_by=bound_by)
+
+
 def phase_kernel_timing(device):
-    """Each kernel and its plain version at 2048^2 (WGS-Kim, scalar amp,
-    stats on), alternating plain, kernel, kernel, plain."""
+    """Each kernel and its plain version at 2048^2 (carry kernels:
+    WGS-Kim, scalar amp, stats on), and the library calls."""
     from slmsuite_torch.ops import cuda_fft, fft
 
-    x = step_inputs((2048, 2048), "scalar", "kim", True, device)
+    shape = (2048, 2048)
+    x = step_inputs(shape, "scalar", "kim", True, device)
     gr, gi = fft._wgs_carry_entry(x["psi"], x["amp"])
     cols_args = (gr, gi, x["weights"], x["target"], x["mask"], x["phase_ff"], x["scal"])
-    cases = {
-        "carry_entry": (cuda_fft.carry_entry, fft._wgs_carry_entry,
-                        (x["psi"], x["amp"]), {}),
-        "cols_wgs_roundtrip": (cuda_fft.cols_wgs_roundtrip, fft._cols_wgs_roundtrip,
-                               cols_args, dict(rule="kim", kim=True, stats_on=True)),
-        "rows_normfwd": (cuda_fft.rows_normfwd, fft._rows_normfwd, (gr, gi, x["amp"]), {}),
-        "carry_exit": (cuda_fft.carry_exit, fft._wgs_carry_exit, (gr, gi), {}),
-    }
-    times = {}
-    for name, (kernel, plain, args, kwargs) in cases.items():
-        p1 = cuda_ms(lambda: plain(*args, **kwargs))
-        k1 = cuda_ms(lambda: kernel(*args, **kwargs))
-        k2 = cuda_ms(lambda: kernel(*args, **kwargs))
-        p2 = cuda_ms(lambda: plain(*args, **kwargs))
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"time {name} 2048^2: kernel {k1:.4f} {k2:.4f} ms, plain {p1:.4f} {p2:.4f} ms")
-    return times
+    cols_kw = dict(rule="kim", kim=True, stats_on=True)
+    xr, xi = random_pair(shape, device)
+    w, phi = xr.abs(), xi * np.pi
+    z = torch.complex(xr, xi)
+    t = {}
+    t["carry_entry"] = interleaved(
+        "carry_entry", lambda: cuda_fft.carry_entry(x["psi"], x["amp"]),
+        lambda: fft._wgs_carry_entry(x["psi"], x["amp"]), bound_of=bound(shape, 3, 1))
+    t["cols_wgs_roundtrip"] = interleaved(
+        "cols_wgs_roundtrip", lambda: cuda_fft.cols_wgs_roundtrip(*cols_args, **cols_kw),
+        lambda: fft._cols_wgs_roundtrip(*cols_args, **cols_kw), bound_of=bound(shape, 12, 2))
+    t["rows_normfwd"] = interleaved(
+        "rows_normfwd", lambda: cuda_fft.rows_normfwd(gr, gi, x["amp"]),
+        lambda: fft._rows_normfwd(gr, gi, x["amp"]), bound_of=bound(shape, 4, 2))
+    t["carry_exit"] = interleaved(
+        "carry_exit", lambda: cuda_fft.carry_exit(gr, gi),
+        lambda: fft._wgs_carry_exit(gr, gi), bound_of=bound(shape, 3, 1))
+    t["rows_fft"] = interleaved(
+        "rows_fft", lambda: cuda_fft.rows_fft(xr, xi, inverse=False),
+        lambda: fft._rows_fft(xr, xi, inverse=False),
+        library=lambda: torch.fft.fft(z, dim=-1), bound_of=bound(shape, 4, 1))
+    t["cols_fft"] = interleaved(
+        "cols_fft", lambda: cuda_fft.cols_fft(xr, xi, inverse=False),
+        lambda: fft._cols_fft(xr, xi, inverse=False),
+        library=lambda: torch.fft.fft(z, dim=0), bound_of=bound(shape, 4, 1))
+    t["cols_fwd_polar"] = interleaved(
+        "cols_fwd_polar", lambda: cuda_fft.cols_fwd_polar(xr, xi, 1.0),
+        lambda: fft._cols_fwd_polar(xr, xi, 1.0), bound_of=bound(shape, 4, 1))
+    t["cols_wexp_inv"] = interleaved(
+        "cols_wexp_inv", lambda: cuda_fft.cols_wexp_inv(w, phi),
+        lambda: fft._cols_wexp_inv(w, phi), bound_of=bound(shape, 4, 1))
+    # The composed transforms (two launches each) against torch.fft.
+    interleaved("fft2 (rows_fft + cols_fft)", lambda: cuda_fft.fft2(xr, xi),
+                lambda: fft._fft2(xr, xi), library=lambda: torch.fft.fft2(z, norm="ortho"),
+                bound_of=bound(shape, 8, 2))
+    interleaved("ifft2 (cols_fft + rows_fft)", lambda: cuda_fft.ifft2(xr, xi),
+                lambda: fft._ifft2(xr, xi), library=lambda: torch.fft.ifft2(z, norm="ortho"),
+                bound_of=bound(shape, 8, 2))
+    # The padded loop's backward half: w and phi in, the pair out.
+    interleaved("wexp_ifft2 (cols_wexp_inv + rows_fft)", lambda: cuda_fft.wexp_ifft2(w, phi),
+                lambda: fft._wexp_ifft2(w, phi), bound_of=bound(shape, 4, 2))
+    return t
+
+
+#: The dispatchers that the plain runs swap for their plain versions.
+DISPATCHERS = ("wgs_carry_entry", "wgs_carry_step", "wgs_carry_exit", "fft2", "ifft2",
+               "fft2_polar", "fft2_polar_from_phase", "wexp_ifft2",
+               "wexp_ifft2_phase")
 
 
 @contextlib.contextmanager
 def plain_step_functions():
-    """Route the engine's carry calls to the plain PyTorch versions."""
+    """Route the engine's and the propagation's transforms to the plain
+    PyTorch versions."""
     from slmsuite_torch.ops import fft
 
-    saved = (fft.wgs_carry_entry, fft.wgs_carry_step, fft.wgs_carry_exit)
-    fft.wgs_carry_entry = fft._wgs_carry_entry
-    fft.wgs_carry_step = fft._wgs_carry_step
-    fft.wgs_carry_exit = fft._wgs_carry_exit
+    saved = {name: getattr(fft, name) for name in DISPATCHERS}
+    for name in DISPATCHERS:
+        setattr(fft, name, getattr(fft, "_" + name))
     try:
         yield
     finally:
-        fft.wgs_carry_entry, fft.wgs_carry_step, fft.wgs_carry_exit = saved
+        for name, fn in saved.items():
+            setattr(fft, name, fn)
 
 
-def run_slice(device, seed=0):
+def spot_array(device, array_shape, array_pitch, slm_shape=None, seed=0):
     from slmsuite_torch.holography.algorithms import SpotHologram
 
+    kwargs = {} if slm_shape is None else dict(slm_shape=slm_shape)
     holo = SpotHologram.make_rectangular_array(
-        (2048, 2048), array_shape=(32, 32), array_pitch=(30, 30), basis="knm",
-        device=device,
+        (2048, 2048), array_shape=array_shape, array_pitch=array_pitch, basis="knm",
+        device=device, **kwargs,
     )
     rng = np.random.default_rng(seed)
-    holo.reset_phase(custom_phase=rng.uniform(-np.pi, np.pi, (2048, 2048)))
-    holo.optimize(method="WGS-Kim", maxiter=50, stat_groups=["computational"],
-                  verbose=False)
-    torch.cuda.synchronize()
-    stats = holo.stats["stats"]["computational"]
-    return holo, {k: float(stats[k][-1]) for k in ("efficiency", "uniformity")}
+    holo.reset_phase(custom_phase=rng.uniform(-np.pi, np.pi, holo.slm_shape))
+    return holo
 
 
-def phase_slice(device):
+def drive(make, optimize):
+    """Run ``optimize(holo)`` on a fresh ``make()`` with the launch counts
+    set to 0 just before it. Returns ``(holo, final computational
+    efficiency and uniformity, loop launches, launches after the loop)``:
+    the counts are read when ``_populate_results`` starts."""
     from slmsuite_torch.ops import cuda_fft
 
-    cuda_fft.reset_launch_counts()
-    start = time.perf_counter()
-    holo, kernel_stats = run_slice(device)
-    seconds = time.perf_counter() - start
-    launches = dict(cuda_fft.LAUNCHES)
-    log(f"slice (kernels): {kernel_stats} in {seconds:.2f} s, launches {launches}")
-    assert launches["carry_entry"] >= 1 and launches["carry_exit"] >= 1, launches
-    assert launches["cols_wgs_roundtrip"] == 50 and launches["rows_normfwd"] == 50, launches
-    phase = holo.get_phase()
-    assert phase.shape == (2048, 2048) and np.isfinite(phase).all()
-    for key, value in kernel_stats.items():
-        assert np.isfinite(value) and 0 < value <= 1, (key, value)
+    holo = make()
+    populate = holo._populate_results
+    at_populate = {}
 
+    def counted_populate():
+        at_populate.update(cuda_fft.LAUNCHES)
+        populate()
+
+    holo._populate_results = counted_populate
     cuda_fft.reset_launch_counts()
+    optimize(holo)
+    torch.cuda.synchronize()
+    after = {k: v - at_populate[k] for k, v in cuda_fft.LAUNCHES.items() if v - at_populate[k]}
+    loop = {k: v for k, v in at_populate.items() if v}
+    stats = holo.stats["stats"]["computational"]
+    return holo, {k: float(stats[k][-1]) for k in ("efficiency", "uniformity")}, loop, after
+
+
+def run_path(label, make, optimize, expect):
+    """One path through the kernels (loop launches must equal ``expect``)
+    and through the plain versions (no launch; final efficiency and
+    uniformity within SLICE_ATOL). Returns the path's launches, in the
+    loop and after it."""
+    from slmsuite_torch.ops import cuda_fft
+
+    start = time.perf_counter()
+    holo, kernel_stats, loop, after = drive(make, optimize)
+    seconds = time.perf_counter() - start
+    log(f"{label} (kernels): {kernel_stats} in {seconds:.2f} s; loop launches {loop}; "
+        f"after the loop {after}")
+    assert loop == expect, (label, loop, expect)
+    phase = holo.get_phase()
+    assert phase.shape == tuple(holo.slm_shape) and np.isfinite(phase).all()
+    for key, value in kernel_stats.items():
+        assert np.isfinite(value) and 0 < value <= 1, (label, key, value)
     with plain_step_functions():
-        _, plain_stats = run_slice(device)
-    assert sum(cuda_fft.LAUNCHES.values()) == 0, cuda_fft.LAUNCHES
-    log(f"slice (plain):   {plain_stats}")
+        _, plain_stats, plain_loop, plain_after = drive(make, optimize)
+    assert not plain_loop and not plain_after, (plain_loop, plain_after)
+    log(f"{label} (plain):   {plain_stats}")
     for key in kernel_stats:
         diff = abs(kernel_stats[key] - plain_stats[key])
-        assert diff <= SLICE_ATOL, f"slice {key}: kernel vs plain differ by {diff:.3e}"
-    return launches
+        assert diff <= SLICE_ATOL, f"{label} {key}: kernel vs plain differ by {diff:.3e}"
+    return {k: loop.get(k, 0) + after.get(k, 0) for k in {*loop, *after}}
+
+
+def phase_paths(device):
+    """The fused slice, N1 and N2; returns each path's loop launches."""
+    n = 50
+    fused = run_path(
+        "fused slice WGS-Kim 2048^2",
+        lambda: spot_array(device, (32, 32), (30, 30)),
+        lambda h: h.optimize(method="WGS-Kim", maxiter=n, stat_groups=["computational"],
+                             verbose=False),
+        dict(carry_entry=1, cols_wgs_roundtrip=n, rows_normfwd=n, carry_exit=1),
+    )
+    n1 = run_path(
+        "N1 WGS-Nogrette computational_spot 2048^2",
+        lambda: spot_array(device, (32, 32), (30, 30)),
+        lambda h: h.optimize(method="WGS-Nogrette", maxiter=n, feedback="computational_spot",
+                             stat_groups=["computational", "computational_spot"],
+                             verbose=False),
+        dict(carry_entry=n, cols_fwd_polar=n, cols_wexp_inv=n, carry_exit=n),
+    )
+    n2 = {}
+    for method in ("GS", "WGS-Kim"):
+        n2[method] = run_path(
+            f"N2 {method} 2048^2 canvas / 1024^2 SLM",
+            lambda: spot_array(device, (10, 10), (60, 60), slm_shape=(1024, 1024)),
+            lambda h, m=method: h.optimize(method=m, maxiter=n,
+                                           stat_groups=["computational"], verbose=False),
+            dict(rows_fft=2 * n, cols_fwd_polar=n, cols_wexp_inv=n),
+        )
+    return {"fused": fused, "N1": n1, "N2": n2["GS"]}
 
 
 def phase_golden():
-    """The 64^2 WGS-Kim golden replay through the kernels on the card."""
+    """The 64^2 goldens replayed through the kernels on the card."""
     from slmsuite_torch.holography.algorithms import Hologram, SpotHologram
+    from slmsuite_torch.ops import cuda_fft
 
     golden_dir = ROOT / "tests" / "holography" / "golden"
     spec = importlib.util.spec_from_file_location("golden_configs", golden_dir / "configs.py")
     configs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(configs)
-    golden = np.load(golden_dir / "ref_wgs_kim_iter.npz")
+    for name in GOLDENS:
+        golden = np.load(golden_dir / f"ref_{name}.npz")
+        cuda_fft.reset_launch_counts()
+        stats, phase = configs.run_config(name, Hologram, SpotHologram)
+        launched = sum(cuda_fft.LAUNCHES.values())
+        assert launched > 0, f"golden {name} launched no kernel"
+        for key in configs.STAT_KEYS:
+            np.testing.assert_allclose(stats[key], golden[key], atol=GOLDEN_STATS_ATOL,
+                                       rtol=GOLDEN_STATS_RTOL, err_msg=f"{name}/{key}")
+        dp = phase - golden["phase"]
+        dp = np.mod(dp - dp.flat[0] + np.pi, 2 * np.pi) - np.pi
+        assert np.abs(dp).max() < GOLDEN_PHASE_ATOL, (name, np.abs(dp).max())
+        std_diff = np.abs(stats["std_err"] - golden["std_err"]).max()
+        log(f"golden {name}: stats and phase within tolerance (phase max "
+            f"{np.abs(dp).max():.2e} rad, std_err max |diff| {std_diff:.2e}, "
+            f"{launched} kernel launches)")
 
-    stats, phase = configs.run_config("wgs_kim_iter", Hologram, SpotHologram)
-    for key in configs.STAT_KEYS:
-        np.testing.assert_allclose(stats[key], golden[key], atol=GOLDEN_STATS_ATOL,
-                                   rtol=GOLDEN_STATS_RTOL, err_msg=key)
-    dp = phase - golden["phase"]
-    dp = np.mod(dp - dp.flat[0] + np.pi, 2 * np.pi) - np.pi
-    assert np.abs(dp).max() < GOLDEN_PHASE_ATOL, np.abs(dp).max()
-    log(f"golden wgs_kim_iter 64^2: stats and phase within tolerance "
-        f"(phase max {np.abs(dp).max():.2e} rad)")
+
+def engine_loop(holo, method):
+    """The engine inputs of ``holo`` for ``method`` with computational
+    stats, and a function that runs ``n`` iterations from them."""
+    from slmsuite_torch.ops import engine
+
+    holo._update_flags(method, False, None, ["computational"])
+    config = holo._build_config()
+    consts = holo._build_consts(config)
+    state = holo._build_state(config)
+    return lambda n: engine.run_gs(config, state, consts, n)
 
 
-def phase_model_timing(device):
-    """ms/iteration of spot_array_wgs(N=2048).run(n), kernels vs plain."""
+def phase_model_timing(device, n=50):
+    """ms/iteration of the fused and the natural loops at 2048^2, through
+    the kernels and through the plain versions, in turns."""
     from slmsuite_torch.models.engine_models import spot_array_wgs
 
-    model = spot_array_wgs(N=2048, device=device)
+    loops = {
+        "spot_array_wgs(2048) WGS-Kim fused": spot_array_wgs(N=2048, device=device).run,
+        "spot_array_wgs(2048) WGS-Nogrette natural": spot_array_wgs(
+            N=2048, method="WGS-Nogrette", device=device).run,
+        "N2 GS 2048^2 canvas / 1024^2 SLM": engine_loop(
+            spot_array(device, (10, 10), (60, 60), slm_shape=(1024, 1024)), "GS"),
+    }
 
-    def timed(n):
-        model.run(2)  # warm-up
+    def timed(run):
+        run(2)  # warm-up
         torch.cuda.synchronize()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        model.run(n)
+        run(n)
         stop.record()
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / n
 
     out = {}
-    for n in (50, 200):
+    for label, run in loops.items():
         with plain_step_functions():
-            p1 = timed(n)
-        k1 = timed(n)
-        k2 = timed(n)
+            p1 = timed(run)
+        k1 = timed(run)
+        k2 = timed(run)
         with plain_step_functions():
-            p2 = timed(n)
-        out[n] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"spot_array_wgs(2048) run({n}): kernels {k1:.4f} {k2:.4f} ms/iter, "
+            p2 = timed(run)
+        out[label] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        log(f"{label} run({n}): kernels {k1:.4f} {k2:.4f} ms/iter, "
             f"plain {p1:.4f} {p2:.4f} ms/iter  [{nvidia_smi_line()}]")
     return out
 
@@ -394,23 +684,20 @@ def _union_ms(spans):
     return (total + hi - lo) / 1e3
 
 
-def phase_profile(device, n=50):
-    """Device-time breakdown of ``spot_array_wgs(N=2048).run(n)`` under
-    ``torch.profiler``. Only device events (kernels, copies, memsets) are
-    counted, never the host-side operator rows that enclose them. The
-    busy share is the union of device spans over the host wall time of
-    the run, both under the profiler."""
+def phase_profile(device, label, run, n=50):
+    """Device-time breakdown of ``run(n)`` under ``torch.profiler``. Only
+    device events (kernels, copies, memsets) are counted, never the
+    host-side operator rows that enclose them. The busy share is the
+    union of device spans over the host wall time of the run, both under
+    the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from slmsuite_torch.models.engine_models import spot_array_wgs
-
-    model = spot_array_wgs(N=2048, device=device)
-    model.run(5)
+    run(5)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        model.run(n)
+        run(n)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     events = [
@@ -421,7 +708,7 @@ def phase_profile(device, n=50):
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     device_ms = sum(b - a for a, b in spans) / 1e3
     busy_ms = _union_ms(spans)
-    log(f"profile spot_array_wgs(2048) run({n}) [{nvidia_smi_line()}]: "
+    log(f"profile {label} run({n}) [{nvidia_smi_line()}]: "
         f"wall {wall_ms:.3f} ms ({wall_ms / n:.4f} ms/iter), device time "
         f"{device_ms:.3f} ms, device busy {busy_ms:.3f} ms (busy share "
         f"{busy_ms / wall_ms:.3f}), {len(events)} device events "
@@ -435,26 +722,38 @@ def phase_profile(device, n=50):
 
 
 def main():
+    from slmsuite_torch.models.engine_models import spot_array_wgs
+
     device = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_environment()
     phase_build()
     errors = phase_parity(device)
-    launches = phase_slice(device)
+    errors.update(phase_natural_parity(device))
+    paths = phase_paths(device)
     phase_golden()
     times = phase_kernel_timing(device)
     phase_model_timing(device)
-    phase_profile(device)
+    phase_profile(device, "spot_array_wgs(2048) WGS-Kim fused",
+                  spot_array_wgs(N=2048, device=device).run)
+    phase_profile(device, "spot_array_wgs(2048) WGS-Nogrette natural",
+                  spot_array_wgs(N=2048, method="WGS-Nogrette", device=device).run)
+    phase_profile(device, "N2 GS 2048^2 canvas / 1024^2 SLM", engine_loop(
+        spot_array(device, (10, 10), (60, 60), slm_shape=(1024, 1024)), "GS"))
 
-    kernels = [
-        {
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errors[name],
-            "ms": times[name][0], "plain_ms": times[name][1],
-        }
-        for name, replaces in KERNELS.items()
-    ]
+    kernels = []
+    for name, (source, replaces, path) in KERNELS.items():
+        launches = paths[path].get(name, 0)
+        assert launches > 0, f"{name} was not launched on the {path} path"
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"slmsuite_torch/csrc/{source}",
+            "replaces": replaces, "path": path, "launches": launches,
+            "max_abs_err": errors[name], "ms": t["kernel"], "plain_ms": t["plain"],
+            "bound_ms": t["bound"], "bound_us": t["bound"] * 1e3, "bound_by": t["bound_by"],
+            "library_ms": t["library"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Shared-memory FFT used by every kernel of wgs_carry.cu.
+// Shared-memory FFT used by every kernel of wgs_carry.cu and natural_fft.cu.
 //
 // Replaces `_fft_core` in slmsuite_tpu/ops/pallas_fft.py: a four-step DFT
 // written as block-complex matrix products for the TPU's matrix unit. On
@@ -60,6 +60,13 @@ __device__ __forceinline__ void fft_lines(float2* buf, int n, int log2n,
     }
     __syncthreads();
   }
+}
+
+// log2 of a power of two (host side, for the launchers).
+inline int ilog2(int n) {
+  int k = 0;
+  while ((1 << k) < n) ++k;
+  return k;
 }
 
 }  // namespace slm

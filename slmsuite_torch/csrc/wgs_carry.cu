@@ -73,24 +73,40 @@ __device__ __forceinline__ float weight_correction(float f, float t, float p,
   return is_inf(c) ? 1.f : c;
 }
 
-// Block reduction of 4 sums and 4 maxes in a fixed order (no atomics, so
-// the result is the same from run to run). Thread 0 gets the totals.
-__device__ __forceinline__ void block_reduce8(float v[8]) {
-  __shared__ float red[kThreads / 32][8];
+// Block reduction of the stats partials in a fixed order (no atomics, so
+// the result is the same from run to run): two float32 sums f (overlap,
+// |w'|^2), the two float64 error moments d (err_sum, err_sq) and four
+// float32 maxes m. Thread 0 gets the totals.
+__device__ __forceinline__ void block_reduce(float f[2], double d[2],
+                                             float m[4]) {
+  __shared__ float red_f[kThreads / 32][2];
+  __shared__ double red_d[kThreads / 32][2];
+  __shared__ float red_m[kThreads / 32][4];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int off = 16; off > 0; off >>= 1) {
-    for (int k = 0; k < 4; ++k) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
-    for (int k = 4; k < 8; ++k)
-      v[k] = fmaxf(v[k], __shfl_down_sync(0xffffffffu, v[k], off));
+    for (int k = 0; k < 2; ++k) {
+      f[k] += __shfl_down_sync(0xffffffffu, f[k], off);
+      d[k] += __shfl_down_sync(0xffffffffu, d[k], off);
+    }
+    for (int k = 0; k < 4; ++k)
+      m[k] = fmaxf(m[k], __shfl_down_sync(0xffffffffu, m[k], off));
   }
-  if (lane == 0)
-    for (int k = 0; k < 8; ++k) red[warp][k] = v[k];
+  if (lane == 0) {
+    for (int k = 0; k < 2; ++k) {
+      red_f[warp][k] = f[k];
+      red_d[warp][k] = d[k];
+    }
+    for (int k = 0; k < 4; ++k) red_m[warp][k] = m[k];
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int w = 1; w < kThreads / 32; ++w) {
-      for (int k = 0; k < 4; ++k) v[k] += red[w][k];
-      for (int k = 4; k < 8; ++k) v[k] = fmaxf(v[k], red[w][k]);
+      for (int k = 0; k < 2; ++k) {
+        f[k] += red_f[w][k];
+        d[k] += red_d[w][k];
+      }
+      for (int k = 0; k < 4; ++k) m[k] = fmaxf(m[k], red_m[w][k]);
     }
   }
 }
@@ -128,6 +144,9 @@ carry_entry_kernel(const float* __restrict__ psi, const float* __restrict__ amp,
 // stored phasor, the constrained field w' * phasor, the stats partials,
 // then the inverse column FFT. Partials go to partials[block * 8 + k]:
 // [overlap, err_sum, err_sq, |w'|^2, err_max, u_max, -err_min, -u_min].
+// The error moments accumulate in float64: std_err is formed from
+// E[e^2] - E[e]^2, which cancels most of its digits near convergence. The
+// overlap and |w'|^2 keep their float32 sums, as in the plain version.
 __global__ void __launch_bounds__(kThreads)
 cols_wgs_roundtrip_kernel(
     const float* __restrict__ gr, const float* __restrict__ gi,
@@ -136,7 +155,7 @@ cols_wgs_roundtrip_kernel(
     const float* __restrict__ pffi, float* __restrict__ hr,
     float* __restrict__ hi, float* __restrict__ wout,
     float* __restrict__ pffr_out, float* __restrict__ pffi_out,
-    const float* __restrict__ scal, float* __restrict__ partials, int H, int W,
+    const float* __restrict__ scal, double* __restrict__ partials, int H, int W,
     int log2H, int tc, int log2tc, const float2* __restrict__ tw_fwd,
     const float2* __restrict__ tw_inv, int rule, int kim, int stats_on) {
   extern __shared__ float2 sbuf[];  // tc columns of length H, back to back
@@ -164,7 +183,9 @@ cols_wgs_roundtrip_kernel(
   const float inv_tsum = scal[kInvTsum];
   const float inv_fsum = scal[kInvFsum];
 
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, kNegFill, kNegFill, kNegFill, kNegFill};
+  float facc[2] = {0.f, 0.f};    // overlap, |w'|^2
+  double dacc[2] = {0.0, 0.0};   // err_sum, err_sq
+  float macc[4] = {kNegFill, kNegFill, kNegFill, kNegFill};
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int j = idx & (tc - 1);
     const int r = idx >> log2tc;
@@ -196,22 +217,22 @@ cols_wgs_roundtrip_kernel(
     }
     sbuf[j * H + r] = make_float2(wo * er, wo * ei);
 
-    acc[3] += wo * wo;
+    facc[1] += wo * wo;
     if (stats_on) {
       const float mv = mask[g];
       const float fsq = f * f;
       const float tsq = tv * tv;
       const float err_full = tsq * inv_tsum - fsq * inv_fsum;
-      const float err = err_full * mv;
-      acc[0] += tv * f;
-      acc[1] += err;
-      acc[2] += err * err;
+      const double err = err_full * mv;
+      facc[0] += tv * f;
+      dacc[0] += err;
+      dacc[1] += err * err;
       if (mv > 0.f) {
         const float u = fsq / tsq;
-        acc[4] = fmaxf(acc[4], err_full);
-        acc[5] = fmaxf(acc[5], u);
-        acc[6] = fmaxf(acc[6], -err_full);
-        acc[7] = fmaxf(acc[7], -u);
+        macc[0] = fmaxf(macc[0], err_full);
+        macc[1] = fmaxf(macc[1], u);
+        macc[2] = fmaxf(macc[2], -err_full);
+        macc[3] = fmaxf(macc[3], -u);
       }
     }
   }
@@ -226,24 +247,42 @@ cols_wgs_roundtrip_kernel(
     hi[g] = v.y;
   }
 
-  block_reduce8(acc);
-  if (threadIdx.x == 0)
-    for (int k = 0; k < 8; ++k) partials[blockIdx.x * 8 + k] = acc[k];
+  block_reduce(facc, dacc, macc);
+  if (threadIdx.x == 0) {
+    double* out = partials + blockIdx.x * 8;
+    out[0] = facc[0];
+    out[1] = dacc[0];
+    out[2] = dacc[1];
+    out[3] = facc[1];
+    for (int k = 0; k < 4; ++k) out[4 + k] = macc[k];
+  }
 }
 
 // Second pass of #2: one block folds the (n_blocks, 8) partials into
-// out[0:4] = sums and out[4:8] = maxs, in a fixed order.
+// sums[0:4] (float64 storage; the overlap and |w'|^2 summed in float32,
+// the error moments in float64) and maxs[0:4] (float32), in a fixed order.
 __global__ void __launch_bounds__(kThreads)
-stats_reduce_kernel(const float* __restrict__ partials, int n_blocks,
-                    float* __restrict__ out) {
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, kNegFill, kNegFill, kNegFill, kNegFill};
+stats_reduce_kernel(const double* __restrict__ partials, int n_blocks,
+                    double* __restrict__ sums, float* __restrict__ maxs) {
+  float facc[2] = {0.f, 0.f};
+  double dacc[2] = {0.0, 0.0};
+  float macc[4] = {kNegFill, kNegFill, kNegFill, kNegFill};
   for (int b = threadIdx.x; b < n_blocks; b += blockDim.x) {
-    for (int k = 0; k < 4; ++k) acc[k] += partials[b * 8 + k];
-    for (int k = 4; k < 8; ++k) acc[k] = fmaxf(acc[k], partials[b * 8 + k]);
+    const double* in = partials + b * 8;
+    facc[0] += (float)in[0];
+    dacc[0] += in[1];
+    dacc[1] += in[2];
+    facc[1] += (float)in[3];
+    for (int k = 0; k < 4; ++k) macc[k] = fmaxf(macc[k], (float)in[4 + k]);
   }
-  block_reduce8(acc);
-  if (threadIdx.x == 0)
-    for (int k = 0; k < 8; ++k) out[k] = acc[k];
+  block_reduce(facc, dacc, macc);
+  if (threadIdx.x == 0) {
+    sums[0] = facc[0];
+    sums[1] = dacc[0];
+    sums[2] = dacc[1];
+    sums[3] = facc[1];
+    for (int k = 0; k < 4; ++k) maxs[k] = macc[k];
+  }
 }
 
 // #3 <- pallas_fft.wgs_carry_step_pallas kernel A (_rows_normfwd_kernel,
@@ -296,12 +335,6 @@ carry_exit_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
     psi[base + i] = atan2f(sbuf[i].y, sbuf[i].x);
 }
 
-inline int ilog2(int n) {
-  int k = 0;
-  while ((1 << k) < n) ++k;
-  return k;
-}
-
 }  // namespace slm
 
 using namespace slm;
@@ -320,7 +353,8 @@ int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
                            const float* pffr, const float* pffi, float* hr,
                            float* hi, float* wout, float* pffr_out,
                            float* pffi_out, const float* scal,
-                           float* partials, float* sums_maxs, int H, int W,
+                           double* partials, double* sums, float* maxs,
+                           int H, int W,
                            int tc, const float2* tw_fwd, const float2* tw_inv,
                            int rule, int kim, int stats_on,
                            cudaStream_t stream) {
@@ -337,8 +371,8 @@ int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
       stats_on);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  stats_reduce_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks,
-                                                  sums_maxs);
+  stats_reduce_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks, sums,
+                                                  maxs);
   return (int)cudaGetLastError();
 }
 

@@ -4,11 +4,11 @@ counterpart of :mod:`slmsuite_tpu.holography.algorithms._hologram`).
 
 The nearfield phase is carried in the *folded* (checkerboard) basis so
 the loop runs shift-free (see :mod:`slmsuite_torch.ops.propagation`); all
-user-facing accessors unfold. Fully-computational WGS runs go through
-the fused engine (:mod:`slmsuite_torch.ops.engine`) in chunks, with the
-planes kept on the device between calls. The stepwise host loop
-(callbacks, experimental feedback), conjugate gradient and mesh-sharded
-runs are not ported yet and raise :class:`NotImplementedError`.
+user-facing accessors unfold. Fully-computational runs go through the
+engine (:mod:`slmsuite_torch.ops.engine`) in chunks, with the planes kept
+on the device between calls. MRAF, the stepwise host loop (callbacks,
+experimental feedback), conjugate gradient and mesh-sharded runs are not
+ported yet and raise :class:`NotImplementedError`.
 """
 
 import warnings
@@ -477,11 +477,17 @@ class Hologram(_HologramStats):
         **kwargs,
     ):
         r"""
-        Iterative phase retrieval. The port runs the fused WGS methods
-        (``"WGS-Leonardo"``, ``"WGS-Kim"``, ``"WGS-Wu"``, ``"WGS-tanh"``)
-        with computational feedback and computational stats, on
-        holograms whose farfield shape equals the SLM shape; the other
-        methods and modes raise :class:`NotImplementedError`.
+        Iterative phase retrieval. The port runs ``"GS"`` and the WGS
+        methods (``"WGS-Leonardo"``, ``"WGS-Kim"``, ``"WGS-Nogrette"``,
+        ``"WGS-Wu"``, ``"WGS-tanh"``) on the device, with
+        ``"computational"`` feedback (and ``"computational_spot"`` on a
+        :class:`SpotHologram`), ``"computational"`` and
+        ``"computational_spot"`` stats, padded farfields (``shape !=
+        slm_shape``) and propagation kernels. Leonardo, Kim, Wu and tanh
+        with computational feedback and stats on an unpadded farfield
+        take the fused loop; everything else the natural step. MRAF
+        (nan targets), ``"CG"``, callbacks and camera feedback raise
+        :class:`NotImplementedError` naming their ROADMAP item.
 
         Parameters follow ``slmsuite_tpu``'s :meth:`optimize`: ``method``,
         ``maxiter``, ``verbose``, ``callback``, ``feedback``,
@@ -572,16 +578,17 @@ class Hologram(_HologramStats):
                 "Kim" in self.flags["method"]
                 and self.flags.get("fix_phase_efficiency") is not None
             ),
+            spot_single_px=getattr(self, "_spot_single_px", False),
         )
 
-    def _build_consts(self):
+    def _build_consts(self, config):
         device = self.device
         target = np.asarray(self.target, dtype=np.float32)
 
         def scalar(value, dtype=torch.float32):
             return torch.tensor(value, dtype=dtype, device=device)
 
-        return {
+        consts = {
             "amp": self._amp_device(),
             "target": torch.as_tensor(target, device=device),
             "stat_mask": torch.as_tensor((target != 0) & ~np.isnan(target), device=device),
@@ -594,6 +601,13 @@ class Hologram(_HologramStats):
                 float(self.flags.get("fix_phase_efficiency") or np.nan)
             ),
         }
+        if config.has_kernel:
+            consts["kernel"] = self._kernel_device()
+        self._extend_consts(consts, config)
+        return consts
+
+    def _extend_consts(self, consts, config):
+        """Hook for subclasses (spot gather maps)."""
 
     def _build_state(self, config):
         device = self.device
@@ -626,8 +640,8 @@ class Hologram(_HologramStats):
 
     def optimize_gs(self, maxiter, callback, verbose=True, name=None):
         """
-        GS/WGS loop on the fused engine, in chunks (progress reporting
-        between chunks when ``verbose``); stats are fetched once per call.
+        GS/WGS loop on the engine, in chunks (progress reporting between
+        chunks when ``verbose``); stats are fetched once per call.
         """
         if isinstance(maxiter, range):
             maxiter = len(maxiter)
@@ -649,7 +663,7 @@ class Hologram(_HologramStats):
             raise ValueError("Must track statistics to fix phase based on efficiency!")
 
         config = self._build_config()
-        consts = self._build_consts()
+        consts = self._build_consts(config)
         state = self._build_state(config)
         start_iter = self.iter
 

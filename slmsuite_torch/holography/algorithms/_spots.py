@@ -3,18 +3,20 @@ r"""
 ``SpotHologram`` part of :mod:`slmsuite_tpu.holography.algorithms._spots`).
 
 This slice covers spots given in the computational ``"knm"`` basis
-without hardware, optimized with computational feedback through the
-fused engine. The ``"kxy"``/``"ij"`` bases and camera feedback need a
-``cameraslm`` (ROADMAP.md queue 1, item 8); null regions make an MRAF
-target (item 7); spot-integrated ``computational_spot`` feedback runs on
-the natural engine path (item 4).
+without hardware, on padded or unpadded farfields, optimized with
+``computational`` or spot-integrated ``computational_spot`` feedback on
+the device engine. The ``"kxy"``/``"ij"`` bases and camera feedback need
+a ``cameraslm`` (ROADMAP.md queue 1, item 8); null regions make an MRAF
+target (item 7).
 """
 
 import numpy as np
+import torch
 
 from slmsuite_torch.holography.algorithms._feedback import FeedbackHologram
 from slmsuite_torch.holography.algorithms._hologram import Hologram
 from slmsuite_torch.holography.toolbox import REAL_TYPES, format_2vectors
+from slmsuite_torch.ops import engine as _engine
 
 
 class SpotHologram(FeedbackHologram):
@@ -156,8 +158,12 @@ class SpotHologram(FeedbackHologram):
         self._set_target_spots(reset_weights=reset_weights)
 
     # ------------------------------------------------------------------
-    # Engine hooks.
+    # Engine hooks: spot feedback inside the loop.
     # ------------------------------------------------------------------
+
+    @property
+    def _spot_single_px(self):
+        return tuple(self.shape) == tuple(self.slm_shape)
 
     def _engine_feedback(self):
         feedback = self.flags.get("feedback", "computational")
@@ -172,4 +178,28 @@ class SpotHologram(FeedbackHologram):
         return tuple(
             g for g in self.flags.get("stat_groups", [])
             if g in ("computational", "computational_spot")
+        )
+
+    def _extend_consts(self, consts, config):
+        if not (config.feedback == "computational_spot"
+                or "computational_spot" in config.stat_groups):
+            return
+        # Gather maps: stats use the raw (floored) spot positions, weight
+        # updates the rounded spot pixels.
+        flat_idx, _ = _engine.spot_gather_indices(
+            np.floor(self.spot_knm).astype(int),
+            self.spot_integration_width_knm, self.shape,
+        )
+        weight_flat_idx, center_idx = _engine.spot_gather_indices(
+            self.spot_knm_rounded, self.spot_integration_width_knm, self.shape
+        )
+
+        def index(x):
+            return torch.as_tensor(x, dtype=torch.int64, device=self.device)
+
+        consts["spot_flat_idx"] = index(flat_idx)
+        consts["spot_weight_flat_idx"] = index(weight_flat_idx)
+        consts["spot_center_idx"] = index(center_idx)
+        consts["spot_amp"] = torch.as_tensor(
+            np.asarray(self.spot_amp, np.float32), device=self.device
         )

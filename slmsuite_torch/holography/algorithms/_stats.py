@@ -115,7 +115,7 @@ class _HologramStats:
     def save_stats(self, file_path, include_state=True):
         """Save the stats dictionary (and optionally the current hologram
         state) to an HDF5 file."""
-        from slmsuite_tpu.misc.files import save_h5
+        from slmsuite_torch.misc.files import save_h5
 
         data = {"stats": _listdict_to_h5(self.stats)}
         if include_state:
@@ -130,7 +130,7 @@ class _HologramStats:
 
     def load_stats(self, file_path, include_state=True):
         """Load stats (and optionally state) saved by :meth:`save_stats`."""
-        from slmsuite_tpu.misc.files import load_h5
+        from slmsuite_torch.misc.files import load_h5
 
         data = load_h5(file_path)
         self.stats = _h5_to_listdict(data["stats"])

@@ -76,7 +76,9 @@ def _base_consts(N, target, device):
 
 def spot_array_wgs(N=2048, n_side=32, spacing_div=70, method="WGS-Kim",
                    stats=True, seed=0, device=None):
-    """The headline model: ``N``^2 SLM, ``n_side``^2 spot array, WGS."""
+    """The headline model: ``N``^2 SLM, ``n_side``^2 spot array, any
+    ``method``: Leonardo, Kim, Wu and tanh run the fused loop, GS and
+    Nogrette the natural step."""
     from slmsuite_torch.ops.engine import GSConfig
     from slmsuite_torch.ops.propagation import fold_phase
 

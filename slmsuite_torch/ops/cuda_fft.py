@@ -1,12 +1,14 @@
 """
-CUDA kernels of the carry-mode WGS loop (counterpart of
-:mod:`slmsuite_tpu.ops.pallas_fft`'s carry section), their build and
-their wrappers.
+CUDA kernels of the GS engine (counterpart of
+:mod:`slmsuite_tpu.ops.pallas_fft`), their build and their wrappers:
+the carry-mode WGS loop (``csrc/wgs_carry.cu``) and the natural-order
+transforms of the natural step (``csrc/natural_fft.cu``).
 
 The sources are ``slmsuite_torch/csrc/*.cu`` and ``*.cuh``. On the first
-launch they are compiled with ``nvcc`` for ``sm_90a`` into
+launch each ``.cu`` is compiled with ``nvcc`` for ``sm_90a``, all at
+once in parallel, and the objects are linked into
 ``build/slmsuite_torch/<hash of the sources>/libslmsuite_torch.so``
-(beside the package, in the checkout) and loaded with ``ctypes``;
+(beside the package, in the checkout), loaded with ``ctypes``;
 importing this module builds nothing. Each wrapper checks its inputs
 (CUDA, float32, contiguous, one shape, sides powers of two in
 [64, 4096]) and raises on anything else, allocates its outputs, launches
@@ -29,7 +31,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from slmsuite_torch.ops.fft import SCALAR_KEYS, is_scalar_amp, kernel_len_ok
+from slmsuite_torch.ops.fft import (
+    SCALAR_KEYS,
+    is_scalar_amp,
+    kernel_len_ok,
+    ortho_scale,
+    post_scale,
+)
 
 #: Launches per wrapper since the last :meth:`reset_launch_counts`.
 LAUNCHES = {
@@ -37,22 +45,30 @@ LAUNCHES = {
     "cols_wgs_roundtrip": 0,
     "rows_normfwd": 0,
     "carry_exit": 0,
+    "rows_fft": 0,
+    "cols_fft": 0,
+    "cols_fwd_polar": 0,
+    "cols_wexp_inv": 0,
 }
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "slmsuite_torch"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _RULES = {"leonardo": 0, "kim": 0, "wu": 1, "tanh": 2}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "slm_carry_entry": [_P, _P, _P, _P, _I, _I, _P, _P],
-    "slm_cols_wgs_roundtrip": [_P] * 15 + [_I, _I, _I, _P, _P, _I, _I, _I, _P],
+    "slm_cols_wgs_roundtrip": [_P] * 16 + [_I, _I, _I, _P, _P, _I, _I, _I, _P],
     "slm_rows_normfwd": [_P] * 5 + [_I, _I, _P, _P, _P],
     "slm_carry_exit": [_P, _P, _P, _I, _I, _P, _P],
+    "slm_rows_fft": [_P] * 4 + [_I, _I, _P, _F, _P],
+    "slm_cols_fft": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
+    "slm_cols_fwd_polar": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
+    "slm_cols_wexp_inv": [_P] * 4 + [_I, _I, _I, _P, _P],
 }
 
 _LIB = None
@@ -81,9 +97,10 @@ def _nvcc():
 def build():
     """
     Compile the kernels (once per source hash) and return ``(path,
-    seconds, log)``: the library, the compile time (0.0 when it was
-    already built) and nvcc's output (its ``-Xptxas -v`` register and
-    shared-memory report).
+    seconds, log)``: the library, the build time (0.0 when it was already
+    built) and nvcc's output (its ``-Xptxas -v`` register and
+    shared-memory report). One ``nvcc`` per source runs at the same time;
+    every one is waited for before a failure is raised.
     """
     digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in _sources():
@@ -94,18 +111,36 @@ def build():
     if lib_path.exists():
         return lib_path, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libslmsuite_torch.{os.getpid()}.so"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    tag = os.getpid()
+    nvcc = _nvcc()
     start = time.perf_counter()
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out_dir / f"libslmsuite_torch.{tag}.so"
+    done = subprocess.run(
+        [nvcc, *_ARCH, "-shared", "-o", str(tmp), *[str(obj) for obj, _ in jobs]],
+        capture_output=True, text=True,
+    )
     if done.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({done.returncode}):\n{done.stdout}\n{done.stderr}"
+            f"nvcc link failed ({done.returncode}):\n{done.stdout}\n{done.stderr}"
         )
     os.replace(tmp, lib_path)
-    return lib_path, seconds, done.stdout + done.stderr
+    seconds = time.perf_counter() - start
+    return lib_path, seconds, "".join(logs) + done.stdout + done.stderr
 
 
 def _lib():
@@ -202,8 +237,8 @@ def carry_entry(psi, amp):
 def cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
                        *, rule, kim, stats_on):
     """#2: forward column FFT, WGS epilogue, inverse column FFT, plus the
-    stats reduction. Returns ``(hr, hi, weights', phase_ff' | None, sums,
-    maxs)``."""
+    stats reduction. Returns ``(hr, hi, weights', phase_ff' | None, sums
+    (float64), maxs)``."""
     planes = [gr, gi, weights, target]
     if stats_on:
         planes.append(mask)
@@ -218,21 +253,21 @@ def cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
     tc = _cols_tile(H)
     hr, hi, wout = (torch.empty_like(gr) for _ in range(3))
     pff_out = (torch.empty_like(gr), torch.empty_like(gr)) if kim else (None, None)
-    partials = torch.empty((W // tc, 8), dtype=torch.float32, device=gr.device)
-    sums_maxs = torch.empty(8, dtype=torch.float32, device=gr.device)
+    partials = torch.empty((W // tc, 8), dtype=torch.float64, device=gr.device)
+    sums = torch.empty(4, dtype=torch.float64, device=gr.device)
+    maxs = torch.empty(4, dtype=torch.float32, device=gr.device)
     pff_in = phase_ff if kim else (None, None)
     rc = _lib().slm_cols_wgs_roundtrip(
         _ptr(gr), _ptr(gi), _ptr(weights), _ptr(target),
         _ptr(mask if stats_on else None), _ptr(pff_in[0]), _ptr(pff_in[1]),
         _ptr(hr), _ptr(hi), _ptr(wout), _ptr(pff_out[0]), _ptr(pff_out[1]),
-        _ptr(scal), _ptr(partials), _ptr(sums_maxs), H, W, tc,
+        _ptr(scal), _ptr(partials), _ptr(sums), _ptr(maxs), H, W, tc,
         _ptr(_twiddles(H, False, gr.device)), _ptr(_twiddles(H, True, gr.device)),
         _RULES[rule], int(kim), int(stats_on), _stream(),
     )
     _raise_on(rc, "cols_wgs_roundtrip")
     LAUNCHES["cols_wgs_roundtrip"] += 1
-    return (hr, hi, wout, pff_out if kim else None,
-            sums_maxs[:4], sums_maxs[4:])
+    return hr, hi, wout, pff_out if kim else None, sums, maxs
 
 
 def rows_normfwd(hr, hi, amp):
@@ -274,3 +309,101 @@ def carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
     )
     gr2, gi2 = rows_normfwd(hr, hi, amp)
     return gr2, gi2, wout, pff_out, sums, maxs
+
+
+def rows_fft(xr, xi, *, inverse, scale=1.0):
+    """#5, rows half: the FFT (``inverse``: the unnormalized inverse FFT)
+    of every row of the pair, times ``scale``."""
+    H, W = _check_planes(xr, xi)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xr)
+    rc = _lib().slm_rows_fft(
+        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), H, W,
+        _ptr(_twiddles(W, inverse, xr.device)), float(scale), _stream(),
+    )
+    _raise_on(rc, "rows_fft")
+    LAUNCHES["rows_fft"] += 1
+    return yr, yi
+
+
+def cols_fft(xr, xi, *, inverse, scale=1.0):
+    """#5, cols half: the FFT (``inverse``: the unnormalized inverse FFT)
+    of every column of the pair, times ``scale``."""
+    H, W = _check_planes(xr, xi)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xr)
+    rc = _lib().slm_cols_fft(
+        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), H, W, _cols_tile(H),
+        _ptr(_twiddles(H, inverse, xr.device)), float(scale), _stream(),
+    )
+    _raise_on(rc, "cols_fft")
+    LAUNCHES["cols_fft"] += 1
+    return yr, yi
+
+
+def cols_fwd_polar(xr, xi, scale):
+    """#5 polar and #6, cols half: the forward FFT of every column,
+    returned as ``(scale * |F|, arg F)``."""
+    H, W = _check_planes(xr, xi)
+    amp, theta = torch.empty_like(xr), torch.empty_like(xr)
+    rc = _lib().slm_cols_fwd_polar(
+        _ptr(xr), _ptr(xi), _ptr(amp), _ptr(theta), H, W, _cols_tile(H),
+        _ptr(_twiddles(H, False, xr.device)), float(scale), _stream(),
+    )
+    _raise_on(rc, "cols_fwd_polar")
+    LAUNCHES["cols_fwd_polar"] += 1
+    return amp, theta
+
+
+def cols_wexp_inv(weights, phase):
+    """#11, cols half: ``weights * e^{i phase}``, then the unnormalized
+    inverse FFT of every column."""
+    H, W = _check_planes(weights, phase)
+    yr, yi = torch.empty_like(weights), torch.empty_like(weights)
+    rc = _lib().slm_cols_wexp_inv(
+        _ptr(weights), _ptr(phase), _ptr(yr), _ptr(yi), H, W, _cols_tile(H),
+        _ptr(_twiddles(H, True, weights.device)), _stream(),
+    )
+    _raise_on(rc, "cols_wexp_inv")
+    LAUNCHES["cols_wexp_inv"] += 1
+    return yr, yi
+
+
+def fft2(xr, xi):
+    """Ortho 2D FFT: :meth:`rows_fft`, then :meth:`cols_fft` with the
+    ortho scale (same contract as :meth:`slmsuite_torch.ops.fft._fft2`)."""
+    hr, hi = rows_fft(xr, xi, inverse=False)
+    return cols_fft(hr, hi, inverse=False, scale=ortho_scale(xr.shape))
+
+
+def ifft2(xr, xi):
+    """Ortho inverse 2D FFT: :meth:`cols_fft`, then :meth:`rows_fft`
+    with the ortho scale."""
+    hr, hi = cols_fft(xr, xi, inverse=True)
+    return rows_fft(hr, hi, inverse=True, scale=ortho_scale(xr.shape))
+
+
+def fft2_polar(xr, xi):
+    """``(|F|, arg F)`` of the ortho 2D FFT: :meth:`rows_fft`, then
+    :meth:`cols_fwd_polar`."""
+    hr, hi = rows_fft(xr, xi, inverse=False)
+    return cols_fwd_polar(hr, hi, ortho_scale(xr.shape))
+
+
+def fft2_polar_from_phase(psi, amp):
+    """``(|F|, arg F)`` of the ortho 2D FFT of ``amp * e^{i psi}``:
+    :meth:`carry_entry`, then :meth:`cols_fwd_polar`."""
+    scale = post_scale(amp, psi.shape)
+    gr, gi = carry_entry(psi, amp)
+    return cols_fwd_polar(gr, gi, scale)
+
+
+def wexp_ifft2(weights, phase):
+    """Ortho ``ifft2(weights * e^{i phase})`` as a pair:
+    :meth:`cols_wexp_inv`, then :meth:`rows_fft` with the ortho scale."""
+    hr, hi = cols_wexp_inv(weights, phase)
+    return rows_fft(hr, hi, inverse=True, scale=ortho_scale(weights.shape))
+
+
+def wexp_ifft2_phase(weights, phase):
+    """``arg ifft2(weights * e^{i phase})``: :meth:`cols_wexp_inv`, then
+    :meth:`carry_exit`."""
+    return carry_exit(*cols_wexp_inv(weights, phase))

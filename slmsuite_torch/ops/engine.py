@@ -2,16 +2,29 @@ r"""
 The Gerchberg-Saxton engine (PyTorch counterpart of
 :mod:`slmsuite_tpu.ops.engine`).
 
-This slice ports the fully-fused carry-mode WGS loop: the JAX package's
-``lax.scan`` becomes a Python loop over :meth:`_make_fused_step`, whose
-two kernels per iteration are :meth:`slmsuite_torch.ops.fft.wgs_carry_step`.
+The JAX package's ``lax.scan`` becomes a Python loop over one of two
+steps:
+
+- the fully-fused carry-mode WGS step (:meth:`_make_fused_step`, gate
+  :meth:`_fused_active`), whose two kernels per iteration are
+  :meth:`slmsuite_torch.ops.fft.wgs_carry_step`;
+- the natural step (:meth:`_make_natural_step`) for every other ported
+  configuration: GS and all five WGS rules, ``computational`` and
+  ``computational_spot`` feedback and stats, padded farfields
+  (``shape != slm_shape``) and propagation kernels. Its transforms are
+  :meth:`slmsuite_torch.ops.fft.fft2_polar_from_phase` and
+  :meth:`~slmsuite_torch.ops.fft.wexp_ifft2_phase` when the farfield is
+  the SLM plane, else :meth:`~slmsuite_torch.ops.fft.fft2_polar` and
+  :meth:`~slmsuite_torch.ops.fft.wexp_ifft2` on the canvas.
+
 All loop state stays on the device (including ``fixed_phase``,
 ``unfixed_streak``, ``iteration`` and ``w_norm``); no ``.item()`` or
 Python branch on a tensor value runs inside the loop, and the stats rows
 are stacked once per run.
 
-Configurations outside :meth:`_fused_active` raise
-:class:`NotImplementedError` naming the ROADMAP item that brings them.
+MRAF, the simulated camera (``experimental_spot_sim``) and host-side
+feedback raise :class:`NotImplementedError` naming the ROADMAP item that
+brings them.
 """
 
 import dataclasses
@@ -22,6 +35,9 @@ import torch
 
 from slmsuite_torch import resolve_device
 from slmsuite_torch.ops import fft as _fft
+from slmsuite_torch.ops import propagation as _prop
+from slmsuite_torch.ops.stats import calculate_stats, std_from_moments
+from slmsuite_torch.ops.weights import update_weights_generic
 
 
 class GSState(NamedTuple):
@@ -55,6 +71,7 @@ class GSConfig:
     mraf: bool = False
     has_kernel: bool = False
     kim_efficiency_trigger: bool = False
+    spot_single_px: bool = False     # stats skip integration (shape == slm_shape)
 
     @property
     def is_wgs(self):
@@ -95,24 +112,31 @@ def _fused_active(config: GSConfig):
     )
 
 
+#: Stat groups the device computes; the others are measured on the host.
+_DEVICE_STAT_GROUPS = ("computational", "computational_spot")
+
+
 def _unported(config: GSConfig):
-    """The NotImplementedError for a configuration the fused loop does not
-    run, naming the ROADMAP item that brings it."""
+    """The NotImplementedError for a configuration the port does not run
+    yet, naming the ROADMAP item that brings it, or None."""
     if config.mraf:
         what = "MRAF (ROADMAP.md queue 1, item 7)"
-    elif config.feedback not in ("computational",) or any(
-        g != "computational" for g in config.stat_groups
+    elif (config.feedback == "experimental_spot_sim"
+          or "experimental_spot" in config.stat_groups):
+        what = (
+            "the simulated camera in the loop, feedback "
+            f"'{config.feedback}' / stat groups {config.stat_groups} "
+            "(ROADMAP.md queue 1, item 8)"
+        )
+    elif config.feedback not in _DEVICE_STAT_GROUPS or any(
+        g not in _DEVICE_STAT_GROUPS for g in config.stat_groups
     ):
         what = (
-            f"feedback '{config.feedback}' / stat groups {config.stat_groups} "
-            "(ROADMAP.md queue 1, items 4 and 8)"
+            f"feedback '{config.feedback}' / stat groups {config.stat_groups}: "
+            "the stepwise host loop (ROADMAP.md queue 1, items 6 and 8)"
         )
     else:
-        what = (
-            f"method '{config.method}', shape {config.shape} on slm_shape "
-            f"{config.slm_shape}, propagation kernel {config.has_kernel}: the "
-            "natural (non-fused) engine path (ROADMAP.md queue 1, item 4)"
-        )
+        return None
     return NotImplementedError(f"slmsuite_torch does not run {what} yet.")
 
 
@@ -184,17 +208,20 @@ def _make_fused_step(config: GSConfig):
             kim=config.is_kim,
             stats_on=stats_on,
         )
-        w_norm = torch.where(apply_update, torch.sqrt(sums[3]), state.w_norm)
+        w_norm = torch.where(
+            apply_update, torch.sqrt(sums[3]).to(torch.float32), state.w_norm
+        )
 
         if stats_on:
+            # sums are float64; efficiency, uniformity and pkpk_err keep
+            # their f32 definitions, std_err is formed in float64.
             count = consts["_stat_count"]
-            efficiency = torch.square(sums[0]) * consts["_inv_tsum"] * consts["_inv_fsum"]
+            overlap = sums[0].to(torch.float32)
+            efficiency = torch.square(overlap) * consts["_inv_tsum"] * consts["_inv_fsum"]
             u_max, u_min = maxs[1], -maxs[3]
             uniformity = 1 - (u_max - u_min) / (u_max + u_min)
-            err_mean = sums[1] / count
-            err_var = sums[2] / count - torch.square(err_mean)
             pkpk_err = count * (maxs[0] + maxs[2])
-            std_err = count * torch.sqrt(torch.clamp(err_var, min=0.0))
+            std_err = std_from_moments(sums[1], sums[2], count)
             stats_rows = [torch.stack([efficiency, uniformity, pkpk_err, std_err])]
         else:
             efficiency = consts["_nan"]
@@ -240,13 +267,184 @@ def _make_fused_step(config: GSConfig):
     return step
 
 
+def _spot_feedback_amp(amp_ff_sq, consts):
+    """Integrated power around each spot -> feedback amplitudes (N,).
+    ``consts["spot_flat_idx"]`` is the (N, D*D) gather map into the
+    flattened farfield plane."""
+    gathered = amp_ff_sq.reshape(-1)[consts["spot_flat_idx"]]
+    return torch.sqrt(gathered.sum(dim=-1))
+
+
+def _compute_group_stats(group, config, consts, amp_ff, spot_feedback):
+    """Length-4 stats vector for one device stat group."""
+    if group == "computational":
+        return calculate_stats(
+            amp_ff, consts["target"], mask=consts["stat_mask"],
+            efficiency_compensation=False,
+        )
+    # computational_spot
+    total = torch.square(amp_ff).sum()
+    if config.spot_single_px:
+        # One-pixel spots: no integration.
+        feedback = amp_ff.reshape(-1)[consts["spot_center_idx"]]
+    else:
+        feedback = spot_feedback
+    return calculate_stats(
+        feedback, consts["spot_amp"], mask=consts["spot_amp"] != 0,
+        efficiency_compensation=False, total=total,
+    )
+
+
+def _make_natural_step(config: GSConfig):
+    """The natural (non-fused) step: forward transform to (|F|, arg F),
+    device stats, the weight update and Kim's decision in PyTorch, the
+    constraint ``w e^{i phi}`` and the backward transform to psi."""
+    needs_spot = (
+        config.feedback == "computational_spot"
+        or "computational_spot" in config.stat_groups
+    )
+    # Farfield == SLM plane with no kernel: nearfield == amp e^{i psi}, so
+    # the transforms start and end at psi and no canvas exists.
+    full_fuse = (
+        tuple(config.shape) == tuple(config.slm_shape) and not config.has_kernel
+    )
+
+    def step(state, consts):
+        kernel = consts["kernel"] if config.has_kernel else None
+        if full_fuse:
+            amp_ff, theta = _fft.fft2_polar_from_phase(state.psi, consts["amp"])
+        else:
+            amp_ff, theta = _fft.fft2_polar(*_prop.build_folded_nearfield(
+                state.psi, consts["amp"], config.shape, kernel
+            ))
+
+        spot_feedback = (
+            _spot_feedback_amp(torch.square(amp_ff), consts) if needs_spot else None
+        )
+        stats_rows = [
+            _compute_group_stats(g, config, consts, amp_ff, spot_feedback)
+            for g in config.stat_groups
+        ]
+
+        weights = state.weights
+        if config.is_wgs:
+            rule_kw = dict(
+                method=config.method,
+                feedback_exponent=consts["feedback_exponent"],
+                feedback_factor=consts["feedback_factor"],
+            )
+            if config.feedback == "computational":
+                updated = update_weights_generic(
+                    weights, amp_ff, consts["target"], **rule_kw
+                )
+            else:
+                # Weight feedback integrates around the ROUNDED spot
+                # pixels; the stats use the raw positions.
+                center = consts["spot_center_idx"]
+                weight_feedback = torch.sqrt(
+                    torch.square(amp_ff).reshape(-1)[consts["spot_weight_flat_idx"]]
+                    .sum(dim=-1)
+                )
+                spot_weights = update_weights_generic(
+                    weights.reshape(-1)[center], weight_feedback,
+                    consts["spot_amp"], **rule_kw
+                )
+                updated = torch.zeros_like(weights).reshape(-1)
+                updated[center] = spot_weights
+                updated = updated.reshape(weights.shape)
+            weights = torch.where(state.iteration > 0, updated, weights)
+
+        # Kim phase fixing: the efficiency trigger reads the last stat
+        # group's efficiency; fixing applies once weighting starts.
+        was_not_fixed = torch.logical_not(state.fixed_phase)
+        if config.is_kim:
+            fixed = state.fixed_phase
+            if config.kim_efficiency_trigger:
+                fixed = fixed | (stats_rows[-1][0] > consts["fix_phase_efficiency"])
+            streak = torch.where(
+                was_not_fixed, state.unfixed_streak + 1, state.unfixed_streak
+            )
+            iter_trigger = (
+                was_not_fixed
+                & (state.iteration >= consts["fix_phase_iteration"] - 1)
+                & (streak >= consts["fix_phase_iteration"])
+            )
+            fixed = (fixed | iter_trigger) & (state.iteration > 0)
+            # The constraint phase: the current angle while unfixed
+            # (including the iteration that fixes), the stored one after.
+            phase_ff = torch.where(was_not_fixed, theta, state.phase_ff)
+        else:
+            fixed = torch.zeros_like(state.fixed_phase)
+            streak = state.unfixed_streak
+            phase_ff = theta
+
+        if full_fuse:
+            psi = _fft.wexp_ifft2_phase(weights, phase_ff)
+        else:
+            nearfield = _fft.wexp_ifft2(weights, phase_ff)
+            psi = _prop.extract_folded_phase(*nearfield, config.slm_shape, kernel)
+
+        new_state = state._replace(
+            psi=psi,
+            weights=weights,
+            phase_ff=phase_ff,
+            fixed_phase=fixed,
+            unfixed_streak=streak,
+            iteration=state.iteration + 1,
+        )
+        efficiency = stats_rows[-1][0] if stats_rows else consts["_nan"]
+        zero = consts["_zero"]
+        internal = torch.stack(
+            [efficiency, state.fixed_phase.to(torch.float32), zero, zero]
+        )
+        return new_state, torch.stack(stats_rows + [internal])
+
+    return step
+
+
 def make_gs_step(config: GSConfig):
     """The per-iteration step ``step(state, consts) -> (state, stats
     (n_groups + 1, 4))``; the trailing row carries ``[efficiency,
-    fixed_phase, 0, 0]``."""
-    if not _fused_active(config):
-        raise _unported(config)
-    return _make_fused_step(config)
+    fixed_phase, 0, 0]``. The fused step needs the constants of
+    :meth:`_augment_fused_consts`, the natural step those of
+    :meth:`_augment_natural_consts`."""
+    err = _unported(config)
+    if err is not None:
+        raise err
+    if _fused_active(config):
+        return _make_fused_step(config)
+    return _make_natural_step(config)
+
+
+def _augment_natural_consts(consts):
+    """The natural loop's constants: the spot gather maps as int64 and
+    the step's 0-d zero and nan."""
+    consts = dict(consts)
+    device = consts["target"].device
+    for key in ("spot_flat_idx", "spot_weight_flat_idx", "spot_center_idx"):
+        if key in consts:
+            consts[key] = consts[key].to(device=device, dtype=torch.int64)
+    consts["_zero"] = torch.zeros((), dtype=torch.float32, device=device)
+    consts["_nan"] = torch.full((), float("nan"), dtype=torch.float32, device=device)
+    return consts
+
+
+def _stack_stats(config, rows, device):
+    n_rows = len(config.stat_groups) + 1
+    return torch.stack(rows) if rows else torch.zeros((0, n_rows, 4), device=device)
+
+
+def _run_natural(config: GSConfig, state: GSState, consts: dict, n_iterations: int):
+    """``n_iterations`` natural steps (for any ported configuration, the
+    fusable ones included). Returns ``(state, stats (n, n_groups + 1,
+    4))``."""
+    step = _make_natural_step(config)
+    consts = _augment_natural_consts(consts)
+    rows = []
+    for _ in range(int(n_iterations)):
+        state, stats = step(state, consts)
+        rows.append(stats)
+    return state, _stack_stats(config, rows, state.weights.device)
 
 
 def _run_fused(config: GSConfig, state: GSState, consts: dict, n_iterations: int):
@@ -267,32 +465,33 @@ def _run_fused(config: GSConfig, state: GSState, consts: dict, n_iterations: int
     state = state._replace(psi=_fft.wgs_carry_exit(*state.psi))
     if config.is_kim:
         state = state._replace(phase_ff=_fft.wgs_phasor_exit(*state.phase_ff))
-    n_rows = len(config.stat_groups) + 1
-    stats = (
-        torch.stack(rows)
-        if rows
-        else torch.zeros((0, n_rows, 4), device=state.weights.device)
-    )
-    return state, stats
+    return state, _stack_stats(config, rows, state.weights.device)
+
+
+def _run(config: GSConfig, state: GSState, consts: dict, n_iterations: int):
+    if _fused_active(config):
+        return _run_fused(config, state, consts, n_iterations)
+    return _run_natural(config, state, consts, n_iterations)
 
 
 def run_gs(config: GSConfig, state: GSState, consts: dict, n_iterations: int):
     """
-    Run ``n_iterations`` of fused WGS on the device.
+    Run ``n_iterations`` of GS/WGS on the device, fused where
+    :meth:`_fused_active` allows, else on the natural step.
 
     Returns ``(state, stats)`` with stats of shape ``(n_iterations,
     len(stat_groups) + 1, 4)`` (a device tensor).
     """
     state = _provision_fused(config, state)
-    state, stats = _run_fused(config, state, consts, n_iterations)
+    state, stats = _run(config, state, consts, n_iterations)
     return _finalize_fused(config, state), stats
 
 
 def run_gs_chunked(config, state, consts, n_iterations, chunk=None, on_chunk=None):
     """
     Like :meth:`run_gs` but split into ``chunk``-sized runs with
-    ``on_chunk(n)`` called between them (progress reporting). Each chunk
-    enters and exits the carry, as the JAX package's chunks do; the
+    ``on_chunk(n)`` called between them (progress reporting). Fused
+    chunks enter and exit the carry, as the JAX package's chunks do; the
     deferred weight norm is finalized once at the end.
 
     Returns ``(state, [stats_chunk, ...])``.
@@ -304,7 +503,7 @@ def run_gs_chunked(config, state, consts, n_iterations, chunk=None, on_chunk=Non
     done = 0
     while done < n_iterations:
         n = min(chunk, n_iterations - done)
-        state, stats = _run_fused(config, state, consts, n)
+        state, stats = _run(config, state, consts, n)
         all_stats.append(stats)
         done += n
         if on_chunk is not None:
@@ -337,10 +536,12 @@ def set_scrambled_mode(enable):
 
 
 def _provision_fused(config: GSConfig, state: GSState):
-    """Give the fused loop its deferred-normalization scalar."""
-    if not _fused_active(config):
-        raise _unported(config)
-    if state.w_norm is None:
+    """Raise for an unported configuration; give the fused loop its
+    deferred-normalization scalar."""
+    err = _unported(config)
+    if err is not None:
+        raise err
+    if _fused_active(config) and state.w_norm is None:
         state = state._replace(
             w_norm=torch.ones((), dtype=torch.float32, device=state.weights.device)
         )

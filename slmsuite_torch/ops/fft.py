@@ -1,6 +1,7 @@
 r"""
-The carry-mode WGS step (PyTorch counterpart of the carry section of
-:mod:`slmsuite_tpu.ops.fft`).
+The 2D transforms of the GS engine (PyTorch counterpart of
+:mod:`slmsuite_tpu.ops.fft`): the carry-mode WGS step of the fused loop,
+and the natural-order transforms of the natural (non-fused) step.
 
 The loop carries the ROWS-TRANSFORMED field pair ``(gr, gi)``, the
 unnormalized forward FFT along the last axis of ``amp * e^{i psi}``
@@ -22,9 +23,17 @@ substitutions make the update one-pass, as in the JAX package:
 - the Parseval feedback norm: ``sum |F|^2 == sum amp^2`` for the ortho
   transform, so the feedback power is a precomputed constant.
 
+The natural step takes :meth:`fft2_polar_from_phase` and
+:meth:`wexp_ifft2_phase` when the farfield is the SLM plane, and
+:meth:`fft2_polar` and :meth:`wexp_ifft2` on a padded canvas or with a
+propagation kernel; propagation outside the loop takes :meth:`fft2` and
+:meth:`ifft2`.
+
 The underscored functions are the plain PyTorch versions of the CUDA
-kernels in :mod:`slmsuite_torch.ops.cuda_fft`. The dispatchers
-(:meth:`wgs_carry_entry`, :meth:`wgs_carry_step`, :meth:`wgs_carry_exit`)
+kernels in :mod:`slmsuite_torch.ops.cuda_fft` and of the dispatchers.
+The dispatchers (:meth:`wgs_carry_entry`, :meth:`wgs_carry_step`,
+:meth:`wgs_carry_exit`, :meth:`fft2`, :meth:`ifft2`, :meth:`fft2_polar`,
+:meth:`fft2_polar_from_phase`, :meth:`wexp_ifft2`, :meth:`wexp_ifft2_phase`)
 take the plain versions for CPU tensors only. A CUDA tensor whose sides
 are powers of two in [64, 4096] launches the kernels; any other CUDA
 shape raises :class:`NotImplementedError`.
@@ -32,7 +41,10 @@ shape raises :class:`NotImplementedError`.
 
 import functools
 
+import numpy as np
 import torch
+
+from slmsuite_torch.ops.stats import error_moments
 
 #: Lane order of the step's device scalar buffer (see ``csrc/wgs_carry.cu``).
 SCALAR_KEYS = (
@@ -87,10 +99,17 @@ def use_kernels(x):
     if x.is_cuda and kernel_len_ok(x.shape[-2]) and kernel_len_ok(x.shape[-1]):
         return True
     raise NotImplementedError(
-        f"The carry kernels take CUDA planes whose sides are powers of two in "
+        f"The CUDA kernels take planes whose sides are powers of two in "
         f"[{_KERNEL_MIN_LEN}, {_KERNEL_MAX_LEN}], not {tuple(x.shape)} on "
         f"{x.device} (ROADMAP.md 'Non-power-of-two lengths')."
     )
+
+
+def _cuda():
+    """The kernels' module (imported on first use; importing builds nothing)."""
+    from slmsuite_torch.ops import cuda_fft
+
+    return cuda_fft
 
 
 def _pair(z):
@@ -138,11 +157,12 @@ def _wgs_correction(f, target, scal, rule):
 
 
 def _wgs_stats(f, target, mask, scal, norm_sq, stats_on):
-    """Stats partials: sums = [overlap, err_sum, err_sq_sum, norm_sq],
-    maxs = [err_max, u_max, -err_min, -u_min]."""
+    """Stats partials: sums = [overlap, err_sum, err_sq_sum, norm_sq]
+    (float64; the overlap and norm summed in f32, the error moments in
+    float64), maxs = [err_max, u_max, -err_min, -u_min] (float32)."""
     if not stats_on:
-        zero = torch.zeros((), dtype=torch.float32, device=f.device)
-        sums = torch.stack([zero, zero, zero, norm_sq])
+        zero = torch.zeros((), dtype=torch.float64, device=f.device)
+        sums = torch.stack([zero, zero, zero, norm_sq.double()])
         return sums, torch.full((4,), _NEG_FILL, device=f.device)
     fsq = torch.square(f)
     tsq = torch.square(target)
@@ -151,7 +171,7 @@ def _wgs_stats(f, target, mask, scal, norm_sq, stats_on):
     err = err_full * mask
     on = mask > 0
     u = fsq / torch.where(on, tsq, 1.0)
-    sums = torch.stack([overlap, err.sum(), torch.square(err).sum(), norm_sq])
+    sums = torch.stack([overlap.double(), *error_moments(err), norm_sq.double()])
     maxs = torch.stack([
         torch.where(on, err_full, _NEG_FILL).max(),
         torch.where(on, u, _NEG_FILL).max(),
@@ -234,18 +254,14 @@ def _wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
 def wgs_carry_entry(psi, amp):
     """psi (natural, unbounded range) -> rows-transformed field carry."""
     if use_kernels(psi):
-        from slmsuite_torch.ops import cuda_fft
-
-        return cuda_fft.carry_entry(psi, amp)
+        return _cuda().carry_entry(psi, amp)
     return _wgs_carry_entry(psi, amp)
 
 
 def wgs_carry_exit(gr, gi):
     """Rows-transformed field carry -> psi."""
     if use_kernels(gr):
-        from slmsuite_torch.ops import cuda_fft
-
-        return cuda_fft.carry_exit(gr, gi)
+        return _cuda().carry_exit(gr, gi)
     return _wgs_carry_exit(gr, gi)
 
 
@@ -277,13 +293,11 @@ def wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
     Returns
     -------
     ``(gr', gi', weights', phase_ff' | None, sums (4,), maxs (4,))`` with
-    sums = [overlap, err_sum, err_sq_sum, |w'|^2] and maxs = [err_max,
-    u_max, -err_min, -u_min].
+    sums = [overlap, err_sum, err_sq_sum, |w'|^2] (float64) and maxs =
+    [err_max, u_max, -err_min, -u_min] (float32).
     """
     if use_kernels(gr):
-        from slmsuite_torch.ops import cuda_fft
-
-        return cuda_fft.carry_step(
+        return _cuda().carry_step(
             gr, gi, amp, weights, phase_ff, target, mask, scal,
             rule=rule, kim=kim, stats_on=stats_on,
         )
@@ -291,3 +305,153 @@ def wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
         gr, gi, amp, weights, phase_ff, target, mask, scal,
         rule=rule, kim=kim, stats_on=stats_on,
     )
+
+
+# ----------------------------------------------------------------------
+# Natural-order 2D transforms of the engine's natural (non-fused) path.
+# The JAX package's counterparts are its ``*_scrambled*`` functions; the
+# port has no scrambled layout, so the names drop the word.
+# ----------------------------------------------------------------------
+
+
+def ortho_scale(shape):
+    """``1 / sqrt(H W)``: the orthonormal 2D scale of an (H, W) plane."""
+    return 1.0 / np.sqrt(shape[-2] * shape[-1])
+
+
+def post_scale(amp, shape):
+    """Scale of ``|F|`` after :meth:`wgs_carry_entry`, which leaves a
+    scalar amplitude out: ``amp / sqrt(HW)`` for a scalar (which must not
+    be negative), ``1 / sqrt(HW)`` for an amplitude plane."""
+    if not is_scalar_amp(amp):
+        return ortho_scale(shape)
+    amp = float(amp)
+    if amp < 0:
+        raise ValueError(f"A scalar nearfield amplitude must be >= 0, not {amp}.")
+    return amp * ortho_scale(shape)
+
+
+def _polar(z):
+    return torch.sqrt(torch.square(z.real) + torch.square(z.imag)), torch.atan2(z.imag, z.real)
+
+
+def _rows_fft(xr, xi, *, inverse, scale=1.0):
+    """Plain version of the ``rows_fft`` kernel: the unnormalized FFT
+    (or inverse FFT) of every row, times ``scale``."""
+    z = torch.complex(xr, xi)
+    z = _ifft(z, -1) if inverse else torch.fft.fft(z, dim=-1)
+    return _pair(z * scale)
+
+
+def _cols_fft(xr, xi, *, inverse, scale=1.0):
+    """Plain version of the ``cols_fft`` kernel: the unnormalized FFT (or
+    inverse FFT) of every column, times ``scale``."""
+    z = torch.complex(xr, xi)
+    z = _ifft(z, -2) if inverse else torch.fft.fft(z, dim=-2)
+    return _pair(z * scale)
+
+
+def _cols_fwd_polar(xr, xi, scale):
+    """Plain version of the ``cols_fwd_polar`` kernel: the forward FFT of
+    every column, returned as ``(scale * |F|, arg F)``."""
+    amp, theta = _polar(torch.fft.fft(torch.complex(xr, xi), dim=-2))
+    return amp * scale, theta
+
+
+def _cols_wexp_inv(weights, phase):
+    """Plain version of the ``cols_wexp_inv`` kernel: ``w * e^{i phase}``,
+    then the unnormalized inverse FFT of every column."""
+    z = torch.complex(weights * torch.cos(phase), weights * torch.sin(phase))
+    return _pair(_ifft(z, -2))
+
+
+def _fft2(xr, xi):
+    """Plain version of :meth:`fft2` (``torch.fft.fft2``, ortho)."""
+    return _pair(torch.fft.fft2(torch.complex(xr, xi), norm="ortho"))
+
+
+def _ifft2(xr, xi):
+    """Plain version of :meth:`ifft2` (``torch.fft.ifft2``, ortho)."""
+    return _pair(torch.fft.ifft2(torch.complex(xr, xi), norm="ortho"))
+
+
+def _fft2_polar(xr, xi):
+    """Plain version of :meth:`fft2_polar`."""
+    return _polar(torch.fft.fft2(torch.complex(xr, xi), norm="ortho"))
+
+
+def _fft2_polar_from_phase(psi, amp):
+    """Plain version of :meth:`fft2_polar_from_phase`."""
+    z = torch.complex(amp * torch.cos(psi), amp * torch.sin(psi))
+    return _polar(torch.fft.fft2(z, norm="ortho"))
+
+
+def _wexp_ifft2(weights, phase):
+    """Plain version of :meth:`wexp_ifft2`."""
+    z = torch.complex(weights * torch.cos(phase), weights * torch.sin(phase))
+    return _pair(torch.fft.ifft2(z, norm="ortho"))
+
+
+def _wexp_ifft2_phase(weights, phase):
+    """Plain version of :meth:`wexp_ifft2_phase`."""
+    z = torch.complex(weights * torch.cos(phase), weights * torch.sin(phase))
+    z = torch.fft.ifft2(z, norm="ortho")
+    return torch.atan2(z.imag, z.real)
+
+
+def fft2(xr, xi):
+    """Ortho 2D FFT of an (re, im) pair, in natural order
+    (``slmsuite_tpu.ops.fft.fft2_scrambled``, whose output is scrambled).
+    Kernels: ``rows_fft``, then ``cols_fft`` with the ortho scale."""
+    if use_kernels(xr):
+        return _cuda().fft2(xr, xi)
+    return _fft2(xr, xi)
+
+
+def ifft2(xr, xi):
+    """Ortho inverse 2D FFT of an (re, im) pair, in natural order
+    (``slmsuite_tpu.ops.fft.ifft2_scrambled``, whose input is scrambled).
+    Kernels: ``cols_fft``, then ``rows_fft`` with the ortho scale."""
+    if use_kernels(xr):
+        return _cuda().ifft2(xr, xi)
+    return _ifft2(xr, xi)
+
+
+def fft2_polar(xr, xi):
+    """``(|F|, arg F)`` of the ortho 2D FFT of an (re, im) pair
+    (``slmsuite_tpu.ops.fft.fft2_scrambled_polar``). Kernels:
+    ``rows_fft``, then ``cols_fwd_polar``."""
+    if use_kernels(xr):
+        return _cuda().fft2_polar(xr, xi)
+    return _fft2_polar(xr, xi)
+
+
+def fft2_polar_from_phase(psi, amp):
+    """``(|F|, arg F)`` of the ortho 2D FFT of ``amp * e^{i psi}``, with
+    a scalar or (H, W) ``amp``
+    (``slmsuite_tpu.ops.fft.fft2_scrambled_polar_from_phase``). Kernels:
+    ``carry_entry``, then ``cols_fwd_polar``."""
+    if use_kernels(psi):
+        return _cuda().fft2_polar_from_phase(psi, amp)
+    return _fft2_polar_from_phase(psi, amp)
+
+
+def wexp_ifft2_phase(weights, phase):
+    """``arg ifft2(weights * e^{i phase})``: the backward half of the
+    natural step when the farfield is the SLM plane
+    (``slmsuite_tpu.ops.fft.wexp_ifft2_scrambled_phase``). Kernels:
+    ``cols_wexp_inv``, then ``carry_exit``."""
+    if use_kernels(weights):
+        return _cuda().wexp_ifft2_phase(weights, phase)
+    return _wexp_ifft2_phase(weights, phase)
+
+
+def wexp_ifft2(weights, phase):
+    """Ortho inverse 2D FFT of ``weights * e^{i phase}`` as an (re, im)
+    pair: the backward half of the natural step on a padded canvas or
+    with a propagation kernel (``slmsuite_tpu.ops.fft.wexp_ifft2_scrambled``,
+    whose input is scrambled). Kernels: ``cols_wexp_inv``, then
+    ``rows_fft`` with the ortho scale."""
+    if use_kernels(weights):
+        return _cuda().wexp_ifft2(weights, phase)
+    return _wexp_ifft2(weights, phase)

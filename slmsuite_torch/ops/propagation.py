@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from slmsuite_torch.ops import fft as _fft
+
 
 def pad_window_slices(shape, slm_shape):
     """
@@ -73,18 +75,33 @@ def unfold_phase(psi, shape):
 
 def build_folded_nearfield(psi, amp, shape, kernel=None):
     """``amp * exp(1j * (psi + kernel))`` in the center window of a zero
-    complex64 canvas of ``shape``."""
+    canvas of ``shape``, as an (re, im) pair."""
     total = psi if kernel is None else psi + kernel
-    window = (amp * torch.exp(1j * total.to(torch.float32))).to(torch.complex64)
     y0, y1, x0, x1 = pad_window_slices(shape, tuple(psi.shape))
-    canvas = torch.zeros(tuple(shape), dtype=torch.complex64, device=psi.device)
-    canvas[y0:y1, x0:x1] = window
-    return canvas
+    canvas = []
+    for part in (torch.cos(total), torch.sin(total)):
+        plane = torch.zeros(tuple(shape), dtype=torch.float32, device=psi.device)
+        plane[y0:y1, x0:x1] = amp * part
+        canvas.append(plane)
+    return tuple(canvas)
 
 
-def nearfield_to_farfield(folded_nearfield):
-    """Forward propagation: orthonormal 2D FFT."""
-    return torch.fft.fft2(folded_nearfield, norm="ortho")
+def nearfield_to_farfield(re, im):
+    """Forward propagation: orthonormal 2D FFT of an (re, im) pair."""
+    return _fft.fft2(re, im)
+
+
+def farfield_to_nearfield(re, im):
+    """Inverse propagation: orthonormal inverse 2D FFT of an (re, im) pair."""
+    return _fft.ifft2(re, im)
+
+
+def extract_folded_phase(re, im, slm_shape, kernel=None):
+    """The folded phase psi of the canvas window of an (re, im) pair,
+    minus the propagation ``kernel`` if present."""
+    y0, y1, x0, x1 = pad_window_slices(tuple(re.shape), tuple(slm_shape))
+    psi = torch.atan2(im[y0:y1, x0:x1], re[y0:y1, x0:x1])
+    return psi if kernel is None else psi - kernel
 
 
 def farfield_sign(shape):
@@ -108,14 +125,18 @@ def unfold_farfield(farfield_folded):
     return farfield_sign((H, W)) * cb * farfield_folded
 
 
+def _folded_farfield(psi, amp, shape, kernel):
+    re, im = nearfield_to_farfield(*build_folded_nearfield(psi, amp, shape, kernel))
+    return torch.complex(re, im)
+
+
 def compute_farfield(psi, amp, shape, kernel=None):
     """Folded phase + amplitude -> centered complex farfield (device)."""
-    nearfield = build_folded_nearfield(psi, amp, shape, kernel)
-    return unfold_farfield(nearfield_to_farfield(nearfield))
+    return unfold_farfield(_folded_farfield(psi, amp, shape, kernel))
 
 
 def forward_fields(psi, amp, shape, kernel=None):
     """Forward propagation returning the folded complex farfield plus its
     amplitude and phase."""
-    farfield = nearfield_to_farfield(build_folded_nearfield(psi, amp, shape, kernel))
+    farfield = _folded_farfield(psi, amp, shape, kernel)
     return farfield, torch.abs(farfield), torch.angle(farfield)

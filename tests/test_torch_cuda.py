@@ -5,8 +5,9 @@ Marked ``cuda``: each test skips without a CUDA device (decided inside
 the fixture, never at import). On a GPU machine without jax, run
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (the repository conftest configures jax). Tolerances are those of
-``chip_smoke.py``: carry planes 1e-4 relative to their peak, weights,
-phasors and stats atol 1e-4 / rtol 1e-3, psi 99th-percentile wrapped
+``chip_smoke.py``: carry and transformed planes 1e-4 relative to their
+peak, weights, phasors and stats atol 1e-4 / rtol 1e-3, ``arg F`` 1e-3
+rad where ``|F| > 1e-3 max |F|``, psi 99th-percentile wrapped
 difference below 2e-3.
 """
 
@@ -111,6 +112,13 @@ def test_dispatchers_refuse_cuda_shapes_outside_the_gate(cuda):
     with pytest.raises(NotImplementedError, match="Non-power-of-two"):
         fft.wgs_carry_step(plane, plane, 1.0, plane, None, plane, plane, scal,
                            rule="kim", kim=False, stats_on=True)
+    for call in (lambda: fft.fft2(plane, plane), lambda: fft.ifft2(plane, plane),
+                 lambda: fft.fft2_polar(plane, plane),
+                 lambda: fft.fft2_polar_from_phase(plane, 1.0),
+                 lambda: fft.wexp_ifft2(plane, plane),
+                 lambda: fft.wexp_ifft2_phase(plane, plane)):
+        with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+            call()
     assert sum(cuda_fft.LAUNCHES.values()) == 0
 
 
@@ -129,3 +137,115 @@ def test_spot_hologram_runs_through_kernels(cuda):
     assert cuda_fft.LAUNCHES["rows_normfwd"] == 10
     efficiency = holo.stats["stats"]["computational"]["efficiency"][-1]
     assert 0 < efficiency <= 1
+
+
+THETA_ATOL = 1e-3
+
+
+def _assert_theta(got, ref, amp):
+    on = amp > 1e-3 * amp.max()
+    diff = torch.remainder(got - ref + np.pi, 2 * np.pi) - np.pi
+    assert float(diff.abs()[on].max()) < THETA_ATOL
+
+
+def _psi_p99(got, ref):
+    diff = torch.remainder(got - ref + np.pi, 2 * np.pi) - np.pi
+    return float(torch.quantile(diff.abs().flatten(), 0.99))
+
+
+def _pair(shape, device, seed=2):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+                 for _ in range(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (256, 512)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_kernels_match_plain(cuda, shape, inverse):
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    xr, xi = _pair(shape, cuda)
+    for kernel, plain in ((cuda_fft.rows_fft, fft._rows_fft),
+                          (cuda_fft.cols_fft, fft._cols_fft)):
+        got = kernel(xr, xi, inverse=inverse, scale=0.5)
+        ref = plain(xr, xi, inverse=inverse, scale=0.5)
+        assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (256, 512)])
+def test_cols_fwd_polar_and_wexp_inv_match_plain(cuda, shape):
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    xr, xi = _pair(shape, cuda)
+    amp, theta = cuda_fft.cols_fwd_polar(xr, xi, 0.25)
+    ref_amp, ref_theta = fft._cols_fwd_polar(xr, xi, 0.25)
+    assert _rel(amp, ref_amp) <= CARRY_RTOL
+    _assert_theta(theta, ref_theta, ref_amp)
+
+    weights, phase = xr.abs(), xi * np.pi
+    got = cuda_fft.cols_wexp_inv(weights, phase)
+    ref = fft._cols_wexp_inv(weights, phase)
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+def test_natural_dispatchers_match_plain(cuda, amp_kind):
+    """The composed dispatchers on the card against their plain versions
+    (torch.fft), and their launch counts."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    psi, target, _, amp = _inputs((256, 512), cuda, amp_kind)
+    xr, xi = _pair((256, 512), cuda)
+    cuda_fft.reset_launch_counts()
+    for name in ("fft2", "ifft2"):
+        got, ref = getattr(fft, name)(xr, xi), getattr(fft, "_" + name)(xr, xi)
+        assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+    got, ref = fft.fft2_polar(xr, xi), fft._fft2_polar(xr, xi)
+    assert _rel(got[0], ref[0]) <= CARRY_RTOL
+    _assert_theta(got[1], ref[1], ref[0])
+    got, ref = fft.fft2_polar_from_phase(psi, amp), fft._fft2_polar_from_phase(psi, amp)
+    assert _rel(got[0], ref[0]) <= CARRY_RTOL
+    _assert_theta(got[1], ref[1], ref[0])
+    weights = xr.abs()
+    assert _psi_p99(fft.wexp_ifft2_phase(weights, ref[1]),
+                    fft._wexp_ifft2_phase(weights, ref[1])) < PSI_P99
+    got, plain = fft.wexp_ifft2(weights, ref[1]), fft._wexp_ifft2(weights, ref[1])
+    assert max(_rel(got[0], plain[0]), _rel(got[1], plain[1])) <= CARRY_RTOL
+    assert cuda_fft.LAUNCHES == dict(
+        carry_entry=1, cols_wgs_roundtrip=0, rows_normfwd=0, carry_exit=1,
+        rows_fft=4, cols_fft=2, cols_fwd_polar=2, cols_wexp_inv=2,
+    )
+
+
+@pytest.mark.cuda
+def test_natural_holograms_run_through_kernels(cuda):
+    """A padded GS SpotHologram and an unpadded WGS-Nogrette one with spot
+    feedback run on the natural step's kernels, four launches per
+    iteration; the result farfield adds rows_fft and cols_fft once."""
+    from slmsuite_torch.holography.algorithms import SpotHologram
+    from slmsuite_torch.ops import cuda_fft
+
+    padded = SpotHologram.make_rectangular_array(
+        (256, 256), array_shape=(4, 4), array_pitch=(20, 20), basis="knm",
+        slm_shape=(128, 128), device=cuda,
+    )
+    cuda_fft.reset_launch_counts()
+    padded.optimize(method="GS", maxiter=6, stat_groups=["computational"], verbose=False)
+    assert cuda_fft.LAUNCHES["rows_fft"] == 2 * 6 + 1
+    assert cuda_fft.LAUNCHES["cols_fwd_polar"] == 6
+    assert cuda_fft.LAUNCHES["cols_wexp_inv"] == 6
+    assert cuda_fft.LAUNCHES["cols_fft"] == 1
+    assert 0 < padded.stats["stats"]["computational"]["efficiency"][-1] <= 1
+
+    holo = SpotHologram.make_rectangular_array(
+        (128, 128), array_shape=(4, 4), array_pitch=(20, 20), basis="knm", device=cuda
+    )
+    cuda_fft.reset_launch_counts()
+    holo.optimize(method="WGS-Nogrette", maxiter=6, feedback="computational_spot",
+                  stat_groups=["computational", "computational_spot"], verbose=False)
+    for key in ("carry_entry", "cols_fwd_polar", "cols_wexp_inv", "carry_exit"):
+        assert cuda_fft.LAUNCHES[key] == 6, (key, cuda_fft.LAUNCHES)
+    assert 0 < holo.stats["stats"]["computational_spot"]["efficiency"][-1] <= 1

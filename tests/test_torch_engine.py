@@ -149,14 +149,17 @@ def test_spot_array_wgs_model_matches_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(method="GS"),
-    dict(method="WGS-Nogrette"),
-    dict(shape=(256, 256)),
     dict(mraf=True),
-    dict(has_kernel=True),
-    dict(feedback="computational_spot"),
+    dict(method="GS", mraf=True),
+    dict(feedback="experimental_spot_sim"),
+    dict(stat_groups=("experimental_spot",)),
+    dict(feedback="external_spot"),
+    dict(stat_groups=("experimental",)),
 ])
 def test_unported_configs_raise(change):
+    """MRAF, the simulated camera and host-side feedback or stats raise,
+    naming their ROADMAP item (GS, Nogrette, padded shapes, kernels and
+    computational_spot run on the natural path)."""
     config = TE.GSConfig(**dict(
         dict(method="WGS-Kim", shape=(64, 64), slm_shape=(64, 64)), **change
     ))

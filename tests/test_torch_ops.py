@@ -85,15 +85,38 @@ def test_calculate_stats(compensation, total, mask):
     )
     got, ref = got.numpy(), np.asarray(ref)
     np.testing.assert_allclose(got[:3], ref[:3], atol=1e-5, rtol=1e-4)
-    # std_err is count * sqrt(E[e^2] - E[e]^2) in f32 in both packages: the
-    # cancellation magnifies their different summation orders (~1e-2 here,
-    # where the random feedback leaves a large mean error).
+    # std_err is count * sqrt(E[e^2] - E[e]^2). The port forms it from
+    # float64 moments, the JAX package in f32, whose cancellation leaves
+    # ~1e-2 of it here, where the random feedback leaves a large mean error
+    # (test_calculate_stats_std_err holds the port to numpy's float64 std).
     np.testing.assert_allclose(got[3], ref[3], rtol=3e-2)
     host = tstats.calculate_stats_numpy(feedback, np.nan_to_num(target), compensation, total)
     assert host == jstats.calculate_stats_numpy(
         feedback, np.nan_to_num(target), compensation, total
     )
     assert tstats.STAT_KEYS == jstats.STAT_KEYS
+
+
+@pytest.mark.parametrize("total", [None, 3.0])
+def test_calculate_stats_std_err(total):
+    """std_err from float64 moments against numpy's float64 std, on a
+    plane whose error has a mean far above its spread (most of the light
+    off target), where an f32 E[e^2] - E[e]^2 loses its digits."""
+    rng = np.random.default_rng(3)
+    target = np.zeros((128, 128), np.float32)
+    target[rng.integers(0, 128, 200), rng.integers(0, 128, 200)] = 1.0
+    target /= np.sqrt((target**2).sum())
+    feedback = rng.uniform(0.9, 1.0, (128, 128)).astype(np.float32)
+    got = tstats.calculate_stats(
+        torch.from_numpy(feedback), torch.from_numpy(target),
+        efficiency_compensation=False, total=total,
+    )
+    on = target != 0
+    f2, t2 = np.square(feedback.astype(np.float64)), np.square(target.astype(np.float64))
+    f_norm = f2.sum()
+    err = t2[on] / t2.sum() - f2[on] / f_norm
+    assert abs(err.mean()) > 10 * err.std()
+    np.testing.assert_allclose(float(got[3]), on.sum() * np.std(err), rtol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(64, 64), (128, 96)])
@@ -172,6 +195,14 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_build_nothing():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_fft.carry_step(plane, plane, 1.0, plane, None, plane, plane, scal,
                             rule="kim", kim=False, stats_on=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fft.rows_fft(plane, plane, inverse=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fft.cols_fft(plane, plane, inverse=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fft.cols_fwd_polar(plane, plane, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fft.cols_wexp_inv(plane, plane)
     assert cuda_fft._LIB is None
     assert "triton" not in sys.modules
     assert not tfft.use_kernels(plane)
@@ -185,6 +216,14 @@ def test_dispatch_gate_is_cpu_or_kernels():
         tfft.use_kernels(torch.zeros((96, 128), device="meta"))
     with pytest.raises(NotImplementedError, match="Non-power-of-two"):
         tfft.wgs_carry_entry(torch.zeros((64, 64), device="meta"), 1.0)
+    meta = torch.zeros((64, 64), device="meta")
+    for call in (lambda: tfft.fft2(meta, meta), lambda: tfft.ifft2(meta, meta),
+                 lambda: tfft.fft2_polar(meta, meta),
+                 lambda: tfft.fft2_polar_from_phase(meta, 1.0),
+                 lambda: tfft.wexp_ifft2(meta, meta),
+                 lambda: tfft.wexp_ifft2_phase(meta, meta)):
+        with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+            call()
 
 
 @pytest.mark.parametrize("n,ok", [(32, False), (64, True), (1536, False), (2048, True),
