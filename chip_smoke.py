@@ -13,7 +13,10 @@ there is no card or the port is missing. In order:
    kernels at 2048^2 and 256x512 for every fusable rule, scalar and array
    amplitude, stats on and off; the natural-path kernels and the composed
    dispatchers at 2048^2 and 256x512, and the canvas transforms on a
-   2048^2 canvas holding a 1024^2 window;
+   2048^2 canvas holding a 1024^2 window; the two MRAF kernels at 2048^2
+   and 256x512 for Leonardo and Kim, zero weights on and off, stats on
+   and off, scalar and array amplitude, and the composed ``ifft2_phase``,
+   ``wgs_fused_step`` and ``mraf_fused_step``;
 5. the paths, each driven with the launch counts set to 0 just before it:
    - the fused slice: ``SpotHologram.make_rectangular_array((2048, 2048),
      32x32, pitch 30, "knm")``, WGS-Kim, 50 iterations;
@@ -22,22 +25,30 @@ there is no card or the port is missing. In order:
    - N2, BASELINE config 1 at 2x padding: a 10x10 array at pitch 60 on a
      2048^2 farfield over a 1024^2 SLM, GS then WGS-Kim, 50 iterations
      each;
+   - M1, BASELINE config 3 through ``Hologram``: the 2048^2 ring target of
+     ``image_mraf``, WGS-Leonardo with ``mraf_factor`` 0.5 (the MRAF carry
+     loop), 50 iterations; M2, the same with WGS-Kim and ``zero_factor``
+     0.1; M3, the same with GS (the natural MRAF step);
    each through the kernels (loop launches checked, launches after the
    loop counted apart; the kernels line reports both together) and
    through the plain versions (final efficiency and uniformity within
    1e-3);
 6. the 64^2 goldens ``wgs_kim_iter``, ``gs``, ``wgs_nogrette``,
-   ``gs_padded`` and ``spots_kim`` replayed through the kernels;
+   ``gs_padded``, ``spots_kim``, ``gs_mraf`` and ``wgs_leonardo_mraf_zero``
+   replayed through the kernels;
 7. timing with CUDA events: each kernel, its plain version and, where one
    PyTorch call computes the same function, that call, at 2048^2; the
    composed ``fft2``/``ifft2`` against ``torch.fft.fft2``/``ifft2``, and
-   the composed ``wexp_ifft2`` against its plain version; and
-   ms/iteration of ``spot_array_wgs(2048)`` (WGS-Kim, fused),
-   ``spot_array_wgs(2048, method="WGS-Nogrette")`` (natural) and the N2
-   GS loop, through the kernels and through the plain versions;
-8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette)
-   and the N2 GS loops: device time, device busy share, device launches
-   per iteration.
+   the composed ``wexp_ifft2``, ``ifft2_phase`` (with ``torch.fft.ifft2``),
+   ``wgs_fused_step`` and ``mraf_fused_step`` against their plain
+   versions; and ms/iteration of ``spot_array_wgs(2048)`` (WGS-Kim,
+   fused), ``spot_array_wgs(2048, method="WGS-Nogrette")`` (natural), the
+   N2 GS loop and ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop;
+   GS, the natural MRAF step), through the kernels and through the plain
+   versions;
+8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette),
+   the N2 GS and the ``image_mraf(2048)`` loops: device time, device busy
+   share, device launches per iteration.
 
 It prints the per-kernel JSON line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
@@ -65,7 +76,8 @@ THETA_ATOL = 1e-3          # arg F, where |F| > 1e-3 max |F|
 PSI_P99 = 2e-3             # psi: 99th percentile of the wrapped difference
 SLICE_ATOL = 1e-3          # final efficiency / uniformity, kernel vs plain
 GOLDEN_STATS_ATOL, GOLDEN_STATS_RTOL, GOLDEN_PHASE_ATOL = 1e-4, 1e-3, 5e-3
-GOLDENS = ("wgs_kim_iter", "gs", "wgs_nogrette", "gs_padded", "spots_kim")
+GOLDENS = ("wgs_kim_iter", "gs", "wgs_nogrette", "gs_padded", "spots_kim", "gs_mraf",
+           "wgs_leonardo_mraf_zero")
 
 #: Kernel name -> (source, the TPU kernel it replaces, the path whose
 #: launches the kernels line reports).
@@ -78,8 +90,12 @@ KERNELS = {
     "cols_fft": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:385", "N2"),
     "cols_fwd_polar": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:559", "N1"),
     "cols_wexp_inv": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:1885", "N1"),
+    "cols_mraf_fwd": ("mraf_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:1619", "M1"),
+    "cols_mraf_mix_inv": ("mraf_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:1664", "M1"),
 }
 RULES = ("kim", "leonardo", "wu", "tanh")
+#: Shapes of the MRAF parity phase; the first is the main path's.
+MRAF_SHAPES = ((2048, 2048), (256, 512))
 
 #: The H100 SXM's published peaks (NVIDIA data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -159,11 +175,15 @@ def step_inputs(shape, amp_kind, rule, stats_on, device, seed=0):
         post=post, inv_prev_norm=0.7, apply_update=1.0,
         use_theta=float(stats_on), feedback_exponent=0.8, feedback_factor=0.2,
         inv_fnorm=1.3, inv_tsum=1.0 / float((target**2).sum()), inv_fsum=0.9,
+        mraf_factor=0.4, zero_factor=0.3,
     ), device)
     kim = rule == "kim"
+    # MRAF regions: signal at the spots, noise or zero at random elsewhere.
+    mcode = np.where(target > 0, 1.0, np.where(rng.uniform(size=shape) < 0.5, 2.0, 0.0))
     return dict(
         psi=dev(psi), amp=amp if amp_kind == "scalar" else dev(amp),
-        weights=dev(target), target=dev(target),
+        weights=dev(target), target=dev(target), mcode=dev(mcode.astype(np.float32)),
+        zw=dev((1e-3 * rng.standard_normal((2, *shape))).astype(np.float32)),
         mask=dev((target != 0).astype(np.float32)) if stats_on else None,
         phase_ff=(dev(np.cos(pff)), dev(np.sin(pff))) if kim else None,
         scal=scal, rule=rule, kim=kim, stats_on=stats_on,
@@ -260,6 +280,83 @@ def phase_parity(device):
     OUT.mkdir(exist_ok=True)
     (OUT / "parity.log").write_text("\n".join(lines) + "\n")
     log(f"parity: {len(lines)} checks passed; 2048^2 max |diff| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def phase_mraf_parity(device):
+    """The two MRAF kernels and the MRAF/WGS compositions against their
+    plain versions; returns the kernels' max |diff| at the first shape."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    worst = dict.fromkeys(("cols_mraf_fwd", "cols_mraf_mix_inv"), 0.0)
+    lines = []
+    for shape in MRAF_SHAPES:
+        for amp_kind in ("scalar", "array"):
+            for rule in ("leonardo", "kim"):
+                for stats_on in (True, False):
+                    x = step_inputs(shape, amp_kind, rule, stats_on, device)
+                    gr, gi = fft._wgs_carry_entry(x["psi"], x["amp"])
+                    fwd = (gr, gi, x["weights"] * 1.3, x["target"], x["mask"], x["scal"])
+                    got = cuda_fft.cols_mraf_fwd(*fwd, rule=rule, stats_on=stats_on)
+                    ref = fft._cols_mraf_fwd(*fwd, rule=rule, stats_on=stats_on)
+                    tag = f"cols_mraf_fwd {shape} {amp_kind} {rule} stats={stats_on}"
+                    e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+                    assert e <= CARRY_RTOL, f"{tag}/F: {e:.3e}"
+                    ew = check_close(tag + "/uw", got[2], ref[2], WEIGHT_ATOL, WEIGHT_RTOL)
+                    es = check_close(tag + "/sums", got[3], ref[3], WEIGHT_ATOL, WEIGHT_RTOL)
+                    em = check_close(tag + "/maxs", got[4], ref[4], WEIGHT_ATOL, WEIGHT_RTOL)
+                    lines.append(f"{tag}: F rel {e:.3e} uw {ew:.3e} sums {es:.3e} maxs {em:.3e}")
+                    if shape == MRAF_SHAPES[0]:
+                        worst["cols_mraf_fwd"] = max(worst["cols_mraf_fwd"], ew,
+                                                     max_abs(got[0], ref[0]),
+                                                     max_abs(got[1], ref[1]))
+                    for zero in (True, False):
+                        mix = (ref[0], ref[1], ref[2], x["mcode"], x["phase_ff"],
+                               x["zw"] if zero else None, ref[3], x["scal"])
+                        kw = dict(kim=x["kim"], zero=zero)
+                        got_m = cuda_fft.cols_mraf_mix_inv(*mix, **kw)
+                        ref_m = fft._cols_mraf_mix_inv(*mix, **kw)
+                        tag_m = f"cols_mraf_mix_inv {shape} {amp_kind} {rule} zero={zero}"
+                        e = max(rel_err(got_m[0], ref_m[0]), rel_err(got_m[1], ref_m[1]))
+                        assert e <= CARRY_RTOL, f"{tag_m}/h: {e:.3e}"
+                        pairs = list(zip(got_m[2], ref_m[2])) if x["kim"] else []
+                        pairs += list(zip(got_m[3], ref_m[3])) if zero else []
+                        ez = max([check_close(tag_m + "/pff, zw", g, r, WEIGHT_ATOL,
+                                              WEIGHT_RTOL) for g, r in pairs] or [0.0])
+                        lines.append(f"{tag_m} (after stats={stats_on}): h rel {e:.3e} "
+                                     f"pff, zw {ez:.3e}")
+                        if shape == MRAF_SHAPES[0]:
+                            worst["cols_mraf_mix_inv"] = max(
+                                worst["cols_mraf_mix_inv"], ez,
+                                max_abs(got_m[0], ref_m[0]), max_abs(got_m[1], ref_m[1]))
+            # The compositions: ifft2_phase, and the psi -> psi steps with
+            # Kim's angle store.
+            x = step_inputs(shape, amp_kind, "kim", True, device)
+            xr, xi = random_pair(shape, device)
+            e = psi_p99(fft.ifft2_phase(xr, xi), fft._ifft2_phase(xr, xi))
+            assert e < PSI_P99, f"ifft2_phase {shape}: p99 {e:.3e}"
+            lines.append(f"ifft2_phase {shape}: p99 {e:.3e}")
+            angle = torch.atan2(x["phase_ff"][1], x["phase_ff"][0])
+            args = (x["psi"], x["amp"], x["weights"] * 1.3, angle, x["target"], x["mask"])
+            for name, extra in (("wgs_fused_step", ()), ("mraf_fused_step", (x["mcode"],))):
+                kw = dict(rule="kim", kim=True, stats_on=True)
+                got = getattr(fft, name)(*args, *extra, x["scal"], **kw)
+                ref = getattr(fft, "_" + name)(*args, *extra, x["scal"], **kw)
+                tag = f"{name} {shape} {amp_kind} kim"
+                e = psi_p99(got[0], ref[0])
+                assert e < PSI_P99, f"{tag} psi: p99 {e:.3e}"
+                ew = check_close(tag + "/w", got[1], ref[1], WEIGHT_ATOL, WEIGHT_RTOL)
+                amp_ff = fft._fft2_polar_from_phase(x["psi"], x["amp"])[0]
+                et = theta_err(got[2], ref[2], amp_ff)
+                assert et < THETA_ATOL, f"{tag} phase_ff: {et:.3e}"
+                es = check_close(tag + "/sums", got[3], ref[3], WEIGHT_ATOL, WEIGHT_RTOL)
+                lines.append(f"{tag}: psi p99 {e:.3e} w {ew:.3e} phase_ff {et:.3e} "
+                             f"sums {es:.3e}")
+    torch.cuda.synchronize()
+    OUT.mkdir(exist_ok=True)
+    (OUT / "parity_mraf.log").write_text("\n".join(lines) + "\n")
+    log(f"MRAF parity: {len(lines)} checks passed; {MRAF_SHAPES[0]} max |diff| "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
 
@@ -476,13 +573,48 @@ def phase_kernel_timing(device):
     # The padded loop's backward half: w and phi in, the pair out.
     interleaved("wexp_ifft2 (cols_wexp_inv + rows_fft)", lambda: cuda_fft.wexp_ifft2(w, phi),
                 lambda: fft._wexp_ifft2(w, phi), bound_of=bound(shape, 4, 2))
+
+    # MRAF: the M1 variants (WGS-Leonardo, stats on, no zero weights), and
+    # the mix kernel's largest variant (Kim, zero weights).
+    m = step_inputs(shape, "scalar", "leonardo", True, device)
+    fwd = (gr, gi, m["weights"], m["target"], m["mask"], m["scal"])
+    fr, fi, uw, sums, _ = fft._cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True)
+    mix = (fr, fi, uw, m["mcode"], None, None, sums, m["scal"])
+    mix_kim = (fr, fi, uw, m["mcode"], x["phase_ff"], m["zw"], sums, m["scal"])
+    t["cols_mraf_fwd"] = interleaved(
+        "cols_mraf_fwd", lambda: cuda_fft.cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True),
+        lambda: fft._cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True),
+        bound_of=bound(shape, 8, 1))
+    t["cols_mraf_mix_inv"] = interleaved(
+        "cols_mraf_mix_inv", lambda: cuda_fft.cols_mraf_mix_inv(*mix, kim=False, zero=False),
+        lambda: fft._cols_mraf_mix_inv(*mix, kim=False, zero=False),
+        bound_of=bound(shape, 6, 1))
+    interleaved("cols_mraf_mix_inv (Kim, zero weights)",
+                lambda: cuda_fft.cols_mraf_mix_inv(*mix_kim, kim=True, zero=True),
+                lambda: fft._cols_mraf_mix_inv(*mix_kim, kim=True, zero=True),
+                bound_of=bound(shape, 14, 1))
+    # The compositions: arg ifft2 (the GS-MRAF backward half), and the two
+    # psi -> psi steps (WGS-Kim and MRAF WGS-Kim, stats on).
+    interleaved("ifft2_phase (cols_fft + carry_exit)", lambda: cuda_fft.ifft2_phase(xr, xi),
+                lambda: fft._ifft2_phase(xr, xi),
+                library=lambda: torch.fft.ifft2(z, norm="ortho"), bound_of=bound(shape, 3, 2))
+    angle = torch.atan2(x["phase_ff"][1], x["phase_ff"][0])
+    args = (x["psi"], x["amp"], x["weights"], angle, x["target"], x["mask"])
+    kw = dict(rule="kim", kim=True, stats_on=True)
+    interleaved("wgs_fused_step (carry_entry + cols_wgs_roundtrip + carry_exit)",
+                lambda: cuda_fft.wgs_fused_step(*args, x["scal"], **kw),
+                lambda: fft._wgs_fused_step(*args, x["scal"], **kw), bound_of=bound(shape, 8, 4))
+    interleaved("mraf_fused_step (carry_entry + cols_mraf_fwd + cols_mraf_mix_inv + carry_exit)",
+                lambda: cuda_fft.mraf_fused_step(*args, m["mcode"], x["scal"], **kw),
+                lambda: fft._mraf_fused_step(*args, m["mcode"], x["scal"], **kw),
+                bound_of=bound(shape, 9, 4))
     return t
 
 
 #: The dispatchers that the plain runs swap for their plain versions.
-DISPATCHERS = ("wgs_carry_entry", "wgs_carry_step", "wgs_carry_exit", "fft2", "ifft2",
-               "fft2_polar", "fft2_polar_from_phase", "wexp_ifft2",
-               "wexp_ifft2_phase")
+DISPATCHERS = ("wgs_carry_entry", "wgs_carry_step", "wgs_carry_exit", "mraf_carry_step",
+               "fft2", "ifft2", "ifft2_phase", "fft2_polar", "fft2_polar_from_phase",
+               "wexp_ifft2", "wexp_ifft2_phase")
 
 
 @contextlib.contextmanager
@@ -511,6 +643,18 @@ def spot_array(device, array_shape, array_pitch, slm_shape=None, seed=0):
     )
     rng = np.random.default_rng(seed)
     holo.reset_phase(custom_phase=rng.uniform(-np.pi, np.pi, holo.slm_shape))
+    return holo
+
+
+def image_hologram(device):
+    """``Hologram`` on the 2048^2 ``image_mraf`` ring target (nan noise
+    region), from a seeded phase."""
+    from slmsuite_torch.holography.algorithms import Hologram
+    from slmsuite_torch.models.engine_models import image_mraf_target
+
+    holo = Hologram(target=image_mraf_target(2048), device=device)
+    rng = np.random.default_rng(0)
+    holo.reset_phase(custom_phase=rng.uniform(-np.pi, np.pi, (2048, 2048)))
     return holo
 
 
@@ -593,7 +737,30 @@ def phase_paths(device):
                                            stat_groups=["computational"], verbose=False),
             dict(rows_fft=2 * n, cols_fwd_polar=n, cols_wexp_inv=n),
         )
-    return {"fused": fused, "N1": n1, "N2": n2["GS"]}
+    mraf = dict(carry_entry=1, cols_mraf_fwd=n, cols_mraf_mix_inv=n, rows_normfwd=n,
+                carry_exit=1)
+    m1 = run_path(
+        "M1 MRAF WGS-Leonardo image 2048^2",
+        lambda: image_hologram(device),
+        lambda h: h.optimize(method="WGS-Leonardo", maxiter=n, mraf_factor=0.5,
+                             stat_groups=["computational"], verbose=False),
+        mraf,
+    )
+    run_path(
+        "M2 MRAF WGS-Kim zero_factor image 2048^2",
+        lambda: image_hologram(device),
+        lambda h: h.optimize(method="WGS-Kim", maxiter=n, mraf_factor=0.5, zero_factor=0.1,
+                             stat_groups=["computational"], verbose=False),
+        mraf,
+    )
+    m3 = run_path(
+        "M3 MRAF GS image 2048^2",
+        lambda: image_hologram(device),
+        lambda h: h.optimize(method="GS", maxiter=n, mraf_factor=0.5,
+                             stat_groups=["computational"], verbose=False),
+        dict(carry_entry=n, cols_fwd_polar=n, cols_fft=n, carry_exit=n),
+    )
+    return {"fused": fused, "N1": n1, "N2": n2["GS"], "M1": m1, "M3": m3}
 
 
 def phase_golden():
@@ -636,9 +803,9 @@ def engine_loop(holo, method):
 
 
 def phase_model_timing(device, n=50):
-    """ms/iteration of the fused and the natural loops at 2048^2, through
-    the kernels and through the plain versions, in turns."""
-    from slmsuite_torch.models.engine_models import spot_array_wgs
+    """ms/iteration of the fused, the natural and the MRAF loops at
+    2048^2, through the kernels and through the plain versions, in turns."""
+    from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
     loops = {
         "spot_array_wgs(2048) WGS-Kim fused": spot_array_wgs(N=2048, device=device).run,
@@ -646,6 +813,9 @@ def phase_model_timing(device, n=50):
             N=2048, method="WGS-Nogrette", device=device).run,
         "N2 GS 2048^2 canvas / 1024^2 SLM": engine_loop(
             spot_array(device, (10, 10), (60, 60), slm_shape=(1024, 1024)), "GS"),
+        "image_mraf(2048) WGS-Leonardo MRAF carry": image_mraf(N=2048, device=device).run,
+        "image_mraf(2048) GS natural MRAF": image_mraf(N=2048, method="GS",
+                                                       device=device).run,
     }
 
     def timed(run):
@@ -722,7 +892,7 @@ def phase_profile(device, label, run, n=50):
 
 
 def main():
-    from slmsuite_torch.models.engine_models import spot_array_wgs
+    from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
     device = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -731,6 +901,7 @@ def main():
     phase_build()
     errors = phase_parity(device)
     errors.update(phase_natural_parity(device))
+    errors.update(phase_mraf_parity(device))
     paths = phase_paths(device)
     phase_golden()
     times = phase_kernel_timing(device)
@@ -741,6 +912,8 @@ def main():
                   spot_array_wgs(N=2048, method="WGS-Nogrette", device=device).run)
     phase_profile(device, "N2 GS 2048^2 canvas / 1024^2 SLM", engine_loop(
         spot_array(device, (10, 10), (60, 60), slm_shape=(1024, 1024)), "GS"))
+    phase_profile(device, "image_mraf(2048) WGS-Leonardo MRAF carry",
+                  image_mraf(N=2048, device=device).run)
 
     kernels = []
     for name, (source, replaces, path) in KERNELS.items():

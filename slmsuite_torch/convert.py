@@ -31,15 +31,18 @@ def gs_state_from_numpy(arrays, device=None):
     A :class:`~slmsuite_torch.ops.engine.GSState` from a dict of numpy
     arrays with the fields of ``slmsuite_tpu.ops.engine.GSState``:
     ``psi``, ``weights``, ``phase_ff``, ``fixed_phase``,
-    ``unfixed_streak``, ``iteration``, and optionally ``w_norm`` (other
-    fields, such as ``zero_weights``, belong to paths not ported yet).
+    ``unfixed_streak``, ``iteration``, and optionally ``zero_weights``
+    (the (2, H, W) MRAF zero-region pair; the empty (2, 0, 0) pair when
+    missing) and ``w_norm``.
     """
     device = resolve_device(device)
     w_norm = arrays.get("w_norm")
+    zero_weights = arrays.get("zero_weights", np.zeros((2, 0, 0)))
     return GSState(
         psi=_tensor(np.asarray(arrays["psi"], np.float32), device),
         weights=_tensor(np.asarray(arrays["weights"], np.float32), device),
         phase_ff=_tensor(np.asarray(arrays["phase_ff"], np.float32), device),
+        zero_weights=_tensor(np.asarray(zero_weights, np.float32), device),
         fixed_phase=_tensor(np.asarray(arrays["fixed_phase"], bool), device),
         unfixed_streak=_tensor(np.asarray(arrays["unfixed_streak"], np.int32), device),
         iteration=_tensor(np.asarray(arrays["iteration"], np.int32), device),

@@ -1,4 +1,5 @@
-// Shared-memory FFT used by every kernel of wgs_carry.cu and natural_fft.cu.
+// Shared-memory FFT used by every kernel of wgs_carry.cu, natural_fft.cu and
+// mraf_carry.cu, and the column kernels' tile load, store and launch setup.
 //
 // Replaces `_fft_core` in slmsuite_tpu/ops/pallas_fft.py: a four-step DFT
 // written as block-complex matrix products for the TPU's matrix unit. On
@@ -62,11 +63,56 @@ __device__ __forceinline__ void fft_lines(float2* buf, int n, int log2n,
   }
 }
 
+// Load tile `blockIdx.x` of `tc` adjacent columns of the (H, W) pair into
+// buf (column j of the tile at buf[j * H]). Element idx of the tile is
+// column j = idx % tc, row r = idx / tc, so a warp reads whole row
+// segments. Ends with a barrier.
+__device__ __forceinline__ void load_col_tile(float2* buf,
+                                              const float* __restrict__ xr,
+                                              const float* __restrict__ xi,
+                                              int H, int W, int tc,
+                                              int log2tc) {
+  const int c0 = blockIdx.x * tc;
+  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
+    const int j = idx & (tc - 1);
+    const int r = idx >> log2tc;
+    const size_t g = (size_t)r * W + c0 + j;
+    buf[j * H + r] = make_float2(xr[g], xi[g]);
+  }
+  __syncthreads();
+}
+
+// Store the tile back as a pair, in the layout of load_col_tile.
+__device__ __forceinline__ void store_col_tile(const float2* buf,
+                                               float* __restrict__ yr,
+                                               float* __restrict__ yi, int H,
+                                               int W, int tc, int log2tc) {
+  const int c0 = blockIdx.x * tc;
+  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
+    const int j = idx & (tc - 1);
+    const int r = idx >> log2tc;
+    const size_t g = (size_t)r * W + c0 + j;
+    const float2 v = buf[j * H + r];
+    yr[g] = v.x;
+    yi[g] = v.y;
+  }
+}
+
 // log2 of a power of two (host side, for the launchers).
 inline int ilog2(int n) {
   int k = 0;
   while ((1 << k) < n) ++k;
   return k;
+}
+
+// The column kernels' grid (W / tc blocks) and dynamic shared memory
+// (tc * H complex values, above the 48 KB default at H >= 2048).
+template <typename Kernel>
+cudaError_t cols_setup(Kernel kernel, int H, int W, int tc, size_t* smem) {
+  if (tc <= 0 || (tc & (tc - 1)) || W % tc) return cudaErrorInvalidValue;
+  *smem = (size_t)tc * H * sizeof(float2);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
 }
 
 }  // namespace slm

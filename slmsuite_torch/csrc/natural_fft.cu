@@ -33,25 +33,6 @@
 
 namespace slm {
 
-// Load tile `blockIdx.x` of `tc` adjacent columns of the (H, W) pair into
-// buf (column j of the tile at buf[j * H]). Element idx of the tile is
-// column j = idx % tc, row r = idx / tc, so a warp reads whole row
-// segments.
-__device__ __forceinline__ void load_col_tile(float2* buf,
-                                              const float* __restrict__ xr,
-                                              const float* __restrict__ xi,
-                                              int H, int W, int tc,
-                                              int log2tc) {
-  const int c0 = blockIdx.x * tc;
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    buf[j * H + r] = make_float2(xr[g], xi[g]);
-  }
-  __syncthreads();
-}
-
 // #5 (rows half) <- pallas_fft._fft_rows / _rows_kernel (used by
 // fft2_scrambled_pallas, ifft2_scrambled_pallas). One block per row:
 // forward or inverse FFT by the twiddle table, times `scale`.
@@ -141,24 +122,7 @@ cols_wexp_inv_kernel(const float* __restrict__ w, const float* __restrict__ phi,
   }
   __syncthreads();
   fft_lines(sbuf, H, log2H, tc, tw_inv);
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    const float2 v = sbuf[j * H + r];
-    yr[g] = v.x;
-    yi[g] = v.y;
-  }
-}
-
-// The column kernels' grid (W / tc blocks) and dynamic shared memory
-// (tc * H complex values, above the 48 KB default at H >= 2048).
-template <typename Kernel>
-cudaError_t cols_setup(Kernel kernel, int H, int W, int tc, size_t* smem) {
-  if (tc <= 0 || (tc & (tc - 1)) || W % tc) return cudaErrorInvalidValue;
-  *smem = (size_t)tc * H * sizeof(float2);
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
+  store_col_tile(sbuf, yr, yi, H, W, tc, log2tc);
 }
 
 }  // namespace slm

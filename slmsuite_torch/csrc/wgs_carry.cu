@@ -27,89 +27,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fft_shared.cuh"
+#include "carry_shared.cuh"
 
 namespace slm {
-
-constexpr float kNegFill = -3.0e38f;
-
-__device__ __forceinline__ bool is_nan(float x) { return x != x; }
-__device__ __forceinline__ bool is_inf(float x) {
-  return fabsf(x) == __int_as_float(0x7f800000);
-}
-__device__ __forceinline__ bool is_finite(float x) {
-  return fabsf(x) < __int_as_float(0x7f800000);
-}
-
-// Lane layout of the device scalar buffer (ops/fft.py SCALAR_KEYS).
-enum Scalar {
-  kPost = 0,        // 1/sqrt(HW), times the amplitude when it is a scalar
-  kInvPrevNorm,     // 1 / previous iteration's weight norm
-  kApplyUpdate,     // 0/1: the WGS update is active (iteration > 0)
-  kUseTheta,        // 0/1: Kim takes the current farfield direction
-  kExponent,        // feedback_exponent
-  kFactor,          // feedback_factor
-  kInvFnorm,        // 1 / sqrt(Parseval feedback power)
-  kInvTsum,         // 1 / sum(target^2)
-  kInvFsum,         // 1 / Parseval feedback power
-  kNumScalars
-};
-
-// Rules: 0 = leonardo/kim, 1 = wu, 2 = tanh (pallas_fft._weight_correction).
-__device__ __forceinline__ float weight_correction(float f, float t, float p,
-                                                   float factor,
-                                                   float inv_fnorm, int rule) {
-  float c;
-  if (rule == 0) {
-    const bool on = t != 0.f;
-    c = f / (on ? t : 1.f);
-    if (!(on && c > 0.f && is_finite(c))) c = 1.f;
-    c = expf(-p * logf(c));
-  } else if (rule == 1) {
-    c = expf(p * (t - p * f * inv_fnorm));
-  } else {
-    c = 1.f + factor * tanhf(p * (t - p * f * inv_fnorm));
-  }
-  return is_inf(c) ? 1.f : c;
-}
-
-// Block reduction of the stats partials in a fixed order (no atomics, so
-// the result is the same from run to run): two float32 sums f (overlap,
-// |w'|^2), the two float64 error moments d (err_sum, err_sq) and four
-// float32 maxes m. Thread 0 gets the totals.
-__device__ __forceinline__ void block_reduce(float f[2], double d[2],
-                                             float m[4]) {
-  __shared__ float red_f[kThreads / 32][2];
-  __shared__ double red_d[kThreads / 32][2];
-  __shared__ float red_m[kThreads / 32][4];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    for (int k = 0; k < 2; ++k) {
-      f[k] += __shfl_down_sync(0xffffffffu, f[k], off);
-      d[k] += __shfl_down_sync(0xffffffffu, d[k], off);
-    }
-    for (int k = 0; k < 4; ++k)
-      m[k] = fmaxf(m[k], __shfl_down_sync(0xffffffffu, m[k], off));
-  }
-  if (lane == 0) {
-    for (int k = 0; k < 2; ++k) {
-      red_f[warp][k] = f[k];
-      red_d[warp][k] = d[k];
-    }
-    for (int k = 0; k < 4; ++k) red_m[warp][k] = m[k];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) {
-      for (int k = 0; k < 2; ++k) {
-        f[k] += red_f[w][k];
-        d[k] += red_d[w][k];
-      }
-      for (int k = 0; k < 4; ++k) m[k] = fmaxf(m[k], red_m[w][k]);
-    }
-  }
-}
 
 // #1 <- pallas_fft.wgs_carry_entry_pallas (_rows_phase_kernel,
 // _rows_phase_amp_kernel). One block per row: z = amp * e^{i psi} with a
@@ -141,12 +61,8 @@ carry_entry_kernel(const float* __restrict__ psi, const float* __restrict__ amp,
 // columns: forward column FFT, f = post * |F|, the rule's correction,
 // w' = w * c (nan -> 1e-4) scaled by 1/prev-norm once the update is on,
 // the unit phasor F/|F| (zero -> (1, 0)) with the Kim select against the
-// stored phasor, the constrained field w' * phasor, the stats partials,
-// then the inverse column FFT. Partials go to partials[block * 8 + k]:
-// [overlap, err_sum, err_sq, |w'|^2, err_max, u_max, -err_min, -u_min].
-// The error moments accumulate in float64: std_err is formed from
-// E[e^2] - E[e]^2, which cancels most of its digits near convergence. The
-// overlap and |w'|^2 keep their float32 sums, as in the plain version.
+// stored phasor, the constrained field w' * phasor, the stats partials
+// (carry_shared.cuh), then the inverse column FFT.
 __global__ void __launch_bounds__(kThreads)
 cols_wgs_roundtrip_kernel(
     const float* __restrict__ gr, const float* __restrict__ gi,
@@ -161,28 +77,10 @@ cols_wgs_roundtrip_kernel(
   extern __shared__ float2 sbuf[];  // tc columns of length H, back to back
   const int c0 = blockIdx.x * tc;
   const int total = tc * H;
-
-  // Element idx: column j = idx % tc of the tile, row r = idx / tc, so a
-  // warp reads whole row segments of the tile.
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    sbuf[j * H + r] = make_float2(gr[g], gi[g]);
-  }
-  __syncthreads();
+  load_col_tile(sbuf, gr, gi, H, W, tc, log2tc);
   fft_lines(sbuf, H, log2H, tc, tw_fwd);
 
-  const float post = scal[kPost];
-  const float inv_prev = scal[kInvPrevNorm];
-  const bool apply_update = scal[kApplyUpdate] > 0.f;
-  const bool use_theta = scal[kUseTheta] > 0.f;
-  const float p = scal[kExponent];
-  const float factor = scal[kFactor];
-  const float inv_fnorm = scal[kInvFnorm];
-  const float inv_tsum = scal[kInvTsum];
-  const float inv_fsum = scal[kInvFsum];
-
+  const StepScalars s = load_scalars(scal);
   float facc[2] = {0.f, 0.f};    // overlap, |w'|^2
   double dacc[2] = {0.0, 0.0};   // err_sum, err_sq
   float macc[4] = {kNegFill, kNegFill, kNegFill, kNegFill};
@@ -192,13 +90,9 @@ cols_wgs_roundtrip_kernel(
     const size_t g = (size_t)r * W + c0 + j;
     const float2 F = sbuf[j * H + r];
     const float f2 = F.x * F.x + F.y * F.y;
-    const float f = sqrtf(f2) * post;
+    const float f = sqrtf(f2) * s.post;
     const float tv = t[g];
-    const float wv = w[g];
-
-    float uw = wv * weight_correction(f, tv, p, factor, inv_fnorm, rule);
-    if (is_nan(uw)) uw = 1e-4f;
-    const float wo = apply_update ? uw * inv_prev : wv;
+    const float wo = updated_weight(f, tv, w[g], s, rule);
     wout[g] = wo;
 
     float er = 1.f, ei = 0.f;
@@ -208,7 +102,7 @@ cols_wgs_roundtrip_kernel(
       ei = F.y * ib;
     }
     if (kim) {
-      if (!use_theta) {
+      if (!s.use_theta) {
         er = pffr[g];
         ei = pffi[g];
       }
@@ -218,44 +112,13 @@ cols_wgs_roundtrip_kernel(
     sbuf[j * H + r] = make_float2(wo * er, wo * ei);
 
     facc[1] += wo * wo;
-    if (stats_on) {
-      const float mv = mask[g];
-      const float fsq = f * f;
-      const float tsq = tv * tv;
-      const float err_full = tsq * inv_tsum - fsq * inv_fsum;
-      const double err = err_full * mv;
-      facc[0] += tv * f;
-      dacc[0] += err;
-      dacc[1] += err * err;
-      if (mv > 0.f) {
-        const float u = fsq / tsq;
-        macc[0] = fmaxf(macc[0], err_full);
-        macc[1] = fmaxf(macc[1], u);
-        macc[2] = fmaxf(macc[2], -err_full);
-        macc[3] = fmaxf(macc[3], -u);
-      }
-    }
+    if (stats_on)
+      stats_accumulate(f, tv, mask[g], s.inv_tsum, s.inv_fsum, facc, dacc, macc);
   }
   __syncthreads();
   fft_lines(sbuf, H, log2H, tc, tw_inv);
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    const float2 v = sbuf[j * H + r];
-    hr[g] = v.x;
-    hi[g] = v.y;
-  }
-
-  block_reduce(facc, dacc, macc);
-  if (threadIdx.x == 0) {
-    double* out = partials + blockIdx.x * 8;
-    out[0] = facc[0];
-    out[1] = dacc[0];
-    out[2] = dacc[1];
-    out[3] = facc[1];
-    for (int k = 0; k < 4; ++k) out[4 + k] = macc[k];
-  }
+  store_col_tile(sbuf, hr, hi, H, W, tc, log2tc);
+  write_partials(facc, dacc, macc, partials);
 }
 
 // Second pass of #2: one block folds the (n_blocks, 8) partials into
@@ -335,6 +198,13 @@ carry_exit_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
     psi[base + i] = atan2f(sbuf[i].y, sbuf[i].x);
 }
 
+cudaError_t launch_stats_reduce(const double* partials, int n_blocks,
+                                double* sums, float* maxs, cudaStream_t stream) {
+  stats_reduce_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks, sums,
+                                                  maxs);
+  return cudaGetLastError();
+}
+
 }  // namespace slm
 
 using namespace slm;
@@ -358,11 +228,8 @@ int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
                            int tc, const float2* tw_fwd, const float2* tw_inv,
                            int rule, int kim, int stats_on,
                            cudaStream_t stream) {
-  if (tc <= 0 || (tc & (tc - 1)) || W % tc) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)tc * H * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      cols_wgs_roundtrip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  size_t smem = 0;
+  cudaError_t err = cols_setup(cols_wgs_roundtrip_kernel, H, W, tc, &smem);
   if (err != cudaSuccess) return (int)err;
   const int n_blocks = W / tc;
   cols_wgs_roundtrip_kernel<<<n_blocks, kThreads, smem, stream>>>(
@@ -371,9 +238,7 @@ int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
       stats_on);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  stats_reduce_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks, sums,
-                                                  maxs);
-  return (int)cudaGetLastError();
+  return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
 }
 
 int slm_rows_normfwd(const float* hr, const float* hi, const float* amp,

@@ -3,7 +3,7 @@ r"""
 :mod:`slmsuite_tpu.holography.algorithms._feedback`), reduced to what
 :class:`SpotHologram` needs without hardware: ``cameraslm=None`` and
 computational feedback. Camera-in-the-loop feedback comes with the
-simulated-rig slice (ROADMAP.md queue 1, item 8).
+simulated-rig slice (ROADMAP.md queue 1, item 9).
 """
 
 from slmsuite_torch.holography.algorithms._hologram import Hologram
@@ -28,7 +28,7 @@ class FeedbackHologram(Hologram):
         if cameraslm is not None or target_ij is not None:
             raise NotImplementedError(
                 "Camera feedback (cameraslm, target_ij) comes with the "
-                "simulated-rig slice (ROADMAP.md queue 1, item 8)."
+                "simulated-rig slice (ROADMAP.md queue 1, item 9)."
             )
         self.cameraslm = None
         super().__init__(target=shape, **kwargs)
@@ -43,5 +43,5 @@ class FeedbackHologram(Hologram):
             return feedback
         raise NotImplementedError(
             f"Feedback '{feedback}' needs the stepwise host loop "
-            "(ROADMAP.md queue 1, items 6 and 8)."
+            "(ROADMAP.md queue 1, items 6 and 9)."
         )

@@ -6,9 +6,10 @@ The nearfield phase is carried in the *folded* (checkerboard) basis so
 the loop runs shift-free (see :mod:`slmsuite_torch.ops.propagation`); all
 user-facing accessors unfold. Fully-computational runs go through the
 engine (:mod:`slmsuite_torch.ops.engine`) in chunks, with the planes kept
-on the device between calls. MRAF, the stepwise host loop (callbacks,
-experimental feedback), conjugate gradient and mesh-sharded runs are not
-ported yet and raise :class:`NotImplementedError`.
+on the device between calls; a target with nan (MRAF noise regions) runs
+MRAF. The stepwise host loop (callbacks, experimental feedback),
+conjugate gradient and mesh-sharded runs are not ported yet and raise
+:class:`NotImplementedError`.
 """
 
 import warnings
@@ -85,6 +86,10 @@ class Hologram(_HologramStats):
         current optimization weights, shape :attr:`shape`.
     amp_ff, phase_ff : numpy.ndarray OR None
         Current farfield amplitude/phase.
+    zero_weights : numpy.ndarray OR None
+        MRAF zero-region weights as a (2, H, W) re/im pair, once an
+        ``optimize`` with ``zero_factor`` has run; the next such call
+        resumes from them.
     flags : dict
         Persistent optimization flags (see :meth:`optimize`).
     stats : dict
@@ -101,6 +106,8 @@ class Hologram(_HologramStats):
     amp_ff = _Plane()
     #: Folded farfield phase (the Kim phase store).
     _phase_ff_folded = _Plane()
+    #: MRAF zero-region weights, (2, H, W) re/im.
+    zero_weights = _Plane()
 
     def __init__(
         self,
@@ -139,7 +146,7 @@ class Hologram(_HologramStats):
             if hasattr(slm_shape, "shape") and hasattr(slm_shape, "grid"):
                 raise NotImplementedError(
                     "SLM objects as slm_shape come with the hardware slice "
-                    "(ROADMAP.md queue 1, item 8); pass a shape."
+                    "(ROADMAP.md queue 1, item 9); pass a shape."
                 )
             slm_shape = tuple(int(v) for v in np.ravel(slm_shape))
 
@@ -485,9 +492,18 @@ class Hologram(_HologramStats):
         ``"computational_spot"`` stats, padded farfields (``shape !=
         slm_shape``) and propagation kernels. Leonardo, Kim, Wu and tanh
         with computational feedback and stats on an unpadded farfield
-        take the fused loop; everything else the natural step. MRAF
-        (nan targets), ``"CG"``, callbacks and camera feedback raise
-        :class:`NotImplementedError` naming their ROADMAP item.
+        take the fused loop; everything else the natural step.
+
+        A target with nan runs MRAF: the nan pixels are the noise region,
+        whose farfield evolves freely (times the ``mraf_factor`` flag when
+        it is set), the zeros of the target are the zero region, held at
+        0 or, with a ``zero_factor`` flag, at weights that evolve as
+        ``zw - zero_factor |F| F`` and persist across calls in
+        :attr:`zero_weights`. WGS-Leonardo and WGS-Kim with computational
+        feedback and stats on an unpadded farfield take the carry-mode
+        MRAF loop; every other MRAF run the natural step. ``"CG"``,
+        callbacks and camera feedback raise :class:`NotImplementedError`
+        naming their ROADMAP item.
 
         Parameters follow ``slmsuite_tpu``'s :meth:`optimize`: ``method``,
         ``maxiter``, ``verbose``, ``callback``, ``feedback``,
@@ -566,13 +582,16 @@ class Hologram(_HologramStats):
         return bool(np.any(np.isnan(self.target))) if self.target is not None else False
 
     def _build_config(self):
+        mraf = self._mraf_enabled()
         return _engine.GSConfig(
             method=self.flags["method"],
             shape=tuple(self.shape),
             slm_shape=tuple(self.slm_shape),
             feedback=self._engine_feedback(),
             stat_groups=self._device_stat_groups(),
-            mraf=self._mraf_enabled(),
+            mraf=mraf,
+            mraf_factor=mraf and self.flags.get("mraf_factor") is not None,
+            zero_factor=mraf and bool(self.flags.get("zero_factor", 0)),
             has_kernel=self.propagation_kernel is not None,
             kim_efficiency_trigger=(
                 "Kim" in self.flags["method"]
@@ -603,6 +622,14 @@ class Hologram(_HologramStats):
         }
         if config.has_kernel:
             consts["kernel"] = self._kernel_device()
+        if config.mraf:
+            noise = np.isnan(target)
+            zero = ~noise & (target == 0)
+            for key, mask in (("signal_mask", ~(noise | zero)), ("noise_mask", noise),
+                              ("zero_mask", zero)):
+                consts[key] = torch.as_tensor(mask, device=device)
+            consts["mraf_factor"] = scalar(float(self.flags.get("mraf_factor") or 1.0))
+            consts["zero_factor"] = scalar(float(self.flags.get("zero_factor", 0.0)))
         self._extend_consts(consts, config)
         return consts
 
@@ -612,6 +639,12 @@ class Hologram(_HologramStats):
     def _build_state(self, config):
         device = self.device
         phase_ff = type(self)._phase_ff_folded.device(self, device)
+        # A second optimize() with zero_factor resumes from the last run's.
+        zero_weights = (
+            type(self).zero_weights.device(self, device) if config.zero_factor else None
+        )
+        if zero_weights is None:
+            zero_weights = _engine.empty_zero_weights(config, device)
         return _engine.GSState(
             psi=type(self)._psi.device(self, device),
             weights=torch.nan_to_num(type(self).weights.device(self, device)),
@@ -619,6 +652,7 @@ class Hologram(_HologramStats):
                 phase_ff if phase_ff is not None
                 else torch.zeros(config.shape, dtype=torch.float32, device=device)
             ),
+            zero_weights=zero_weights,
             fixed_phase=torch.tensor(bool(self.flags.get("fixed_phase", False)),
                                      device=device),
             unfixed_streak=torch.zeros((), dtype=torch.int32, device=device),
@@ -631,6 +665,8 @@ class Hologram(_HologramStats):
         self._psi = state.psi
         self.weights = state.weights
         self._phase_ff_folded = state.phase_ff
+        if state.zero_weights.numel():
+            self.zero_weights = state.zero_weights
         scalars = torch.stack([
             state.fixed_phase.to(torch.float32),
             state.iteration.to(torch.float32),
@@ -653,7 +689,7 @@ class Hologram(_HologramStats):
         ):
             raise NotImplementedError(
                 "The stepwise host loop (callbacks, experimental or external "
-                "feedback) is not ported yet (ROADMAP.md queue 1, items 6 and 8)."
+                "feedback) is not ported yet (ROADMAP.md queue 1, items 6 and 9)."
             )
         if (
             self.flags.get("fix_phase_efficiency") is not None

@@ -6,8 +6,8 @@ This slice covers spots given in the computational ``"knm"`` basis
 without hardware, on padded or unpadded farfields, optimized with
 ``computational`` or spot-integrated ``computational_spot`` feedback on
 the device engine. The ``"kxy"``/``"ij"`` bases and camera feedback need
-a ``cameraslm`` (ROADMAP.md queue 1, item 8); null regions make an MRAF
-target (item 7).
+a ``cameraslm`` (ROADMAP.md queue 1, item 9); spot null regions are not
+ported yet (item 6).
 """
 
 import numpy as np
@@ -45,12 +45,12 @@ class SpotHologram(FeedbackHologram):
         if basis not in (None, "knm") or cameraslm is not None:
             raise NotImplementedError(
                 "Spot bases other than 'knm' need a cameraslm "
-                "(ROADMAP.md queue 1, item 8)."
+                "(ROADMAP.md queue 1, item 9)."
             )
         if any(v is not None for v in (null_vectors, null_radius, null_region,
                                         null_region_radius_frac)):
             raise NotImplementedError(
-                "Null regions make an MRAF target (ROADMAP.md queue 1, item 7)."
+                "Spot null regions are not ported yet (ROADMAP.md queue 1, item 6)."
             )
         vectors = format_2vectors(spot_vectors)
         N = vectors.shape[1]
@@ -111,7 +111,7 @@ class SpotHologram(FeedbackHologram):
         if basis not in (None, "knm"):
             raise NotImplementedError(
                 "Spot bases other than 'knm' need a cameraslm "
-                "(ROADMAP.md queue 1, item 8)."
+                "(ROADMAP.md queue 1, item 9)."
             )
         if isinstance(array_shape, REAL_TYPES):
             array_shape = (int(array_shape), int(array_shape))
@@ -171,7 +171,7 @@ class SpotHologram(FeedbackHologram):
             return feedback
         raise NotImplementedError(
             f"Feedback '{feedback}' needs the stepwise host loop "
-            "(ROADMAP.md queue 1, items 6 and 8)."
+            "(ROADMAP.md queue 1, items 6 and 9)."
         )
 
     def _device_stat_groups(self):

@@ -1,7 +1,8 @@
 """
 Engine-level models (PyTorch counterpart of
 :mod:`slmsuite_tpu.models.engine_models`): the headline ``spot_array_wgs``
-workload, built from a seed, ready to run on a device.
+workload and the MRAF image workload ``image_mraf``, built from a seed,
+ready to run on a device.
 """
 
 import dataclasses
@@ -16,7 +17,8 @@ from slmsuite_torch import resolve_device
 class EngineModel:
     """A ready-to-run engine workload: config + device consts + the
     initial folded phase and weights (device tensors, copied on every
-    :meth:`run`)."""
+    :meth:`run`; zero-region weights start at 0 when
+    ``config.zero_factor`` is set)."""
 
     config: object
     consts: dict
@@ -96,4 +98,53 @@ def spot_array_wgs(N=2048, n_side=32, spacing_div=70, method="WGS-Kim",
         config, _base_consts(N, target, device), target,
         torch.as_tensor(phase0, device=device),
         torch.as_tensor(np.nan_to_num(target), device=device),
+    )
+
+
+def image_mraf_target(N):
+    """(N, N) MRAF target of :meth:`image_mraf`: a unit-power ring of
+    radius ``N/8`` and width ``N/40``, nan (the noise region) outside
+    radius ``N/4``."""
+    yy, xx = np.meshgrid(*(np.arange(N) - N / 2 for _ in range(2)), indexing="ij")
+    radius = np.sqrt(xx**2 + yy**2)
+    target = np.where(np.abs(radius - N / 8) < N / 80, 1.0, 0.0).astype(np.float32)
+    target /= np.sqrt(np.nansum(target**2))
+    target[radius > N / 4] = np.nan  # Noise region: amplitude freedom.
+    return target
+
+
+def image_mraf(N=2048, method="WGS-Leonardo", mraf_factor=0.5, stats=True,
+               seed=0, device=None):
+    """BASELINE config 3: the ring image target of
+    :meth:`image_mraf_target`, whose amplitude-free noise region (nan)
+    lies outside radius ``N/4`` and zero region inside it. Leonardo and
+    Kim run the carry-mode MRAF step, the other methods the natural
+    step."""
+    from slmsuite_torch.ops.engine import GSConfig
+    from slmsuite_torch.ops.propagation import fold_phase
+
+    device = resolve_device(device)
+    target = image_mraf_target(N)
+    rng = np.random.default_rng(seed)
+    phase0 = fold_phase(
+        rng.uniform(-np.pi, np.pi, (N, N)).astype(np.float32), (N, N)
+    )
+    config = GSConfig(
+        method=method, shape=(N, N), slm_shape=(N, N),
+        stat_groups=("computational",) if stats else (),
+        mraf=True, mraf_factor=mraf_factor is not None,
+    )
+    consts = _base_consts(N, target, device)
+    noise = np.isnan(target)
+    clean = np.nan_to_num(target)
+    for key, mask in (("signal_mask", ~noise & (clean > 0)), ("noise_mask", noise),
+                      ("zero_mask", ~noise & (clean == 0))):
+        consts[key] = torch.as_tensor(mask, device=device)
+    consts["mraf_factor"] = torch.tensor(
+        1.0 if mraf_factor is None else mraf_factor, dtype=torch.float32, device=device
+    )
+    return EngineModel(
+        config, consts, target,
+        torch.as_tensor(phase0, device=device),
+        torch.as_tensor(clean, device=device),
     )

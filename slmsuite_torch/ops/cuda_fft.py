@@ -1,8 +1,9 @@
 """
 CUDA kernels of the GS engine (counterpart of
 :mod:`slmsuite_tpu.ops.pallas_fft`), their build and their wrappers:
-the carry-mode WGS loop (``csrc/wgs_carry.cu``) and the natural-order
-transforms of the natural step (``csrc/natural_fft.cu``).
+the carry-mode WGS loop (``csrc/wgs_carry.cu``), the two column passes
+of the carry-mode MRAF step (``csrc/mraf_carry.cu``) and the
+natural-order transforms of the natural step (``csrc/natural_fft.cu``).
 
 The sources are ``slmsuite_torch/csrc/*.cu`` and ``*.cuh``. On the first
 launch each ``.cu`` is compiled with ``nvcc`` for ``sm_90a``, all at
@@ -37,6 +38,8 @@ from slmsuite_torch.ops.fft import (
     kernel_len_ok,
     ortho_scale,
     post_scale,
+    wgs_phasor_entry,
+    wgs_phasor_exit,
 )
 
 #: Launches per wrapper since the last :meth:`reset_launch_counts`.
@@ -49,6 +52,8 @@ LAUNCHES = {
     "cols_fft": 0,
     "cols_fwd_polar": 0,
     "cols_wexp_inv": 0,
+    "cols_mraf_fwd": 0,
+    "cols_mraf_mix_inv": 0,
 }
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -69,6 +74,8 @@ _SIGNATURES = {
     "slm_cols_fft": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
     "slm_cols_fwd_polar": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
     "slm_cols_wexp_inv": [_P] * 4 + [_I, _I, _I, _P, _P],
+    "slm_cols_mraf_fwd": [_P] * 12 + [_I, _I, _I, _P, _I, _I, _P],
+    "slm_cols_mraf_mix_inv": [_P] * 16 + [_I, _I, _I, _P, _I, _I, _P],
 }
 
 _LIB = None
@@ -206,6 +213,29 @@ def _amp_plane(amp, shape):
     return amp
 
 
+def _check_scal(scal, like):
+    """Raise unless ``scal`` is the contiguous f32 :data:`SCALAR_KEYS`
+    buffer on the planes' device."""
+    if (scal.device != like.device or scal.dtype != torch.float32
+            or scal.shape != (len(SCALAR_KEYS),) or not scal.is_contiguous()):
+        raise ValueError(
+            f"scal must be a contiguous f32 ({len(SCALAR_KEYS)},) tensor on the "
+            "plane's device."
+        )
+
+
+def _check_rule(rule):
+    if rule not in _RULES:
+        raise ValueError(f"Unfusable rule '{rule}'.")
+
+
+def _with_post(scal, post):
+    """A copy of ``scal`` with its ``post`` lane set (on the device)."""
+    scal = scal.clone()
+    scal[SCALAR_KEYS.index("post")] = post
+    return scal
+
+
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
@@ -245,11 +275,8 @@ def cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
     if kim:
         planes += list(phase_ff)
     H, W = _check_planes(*planes)
-    if rule not in _RULES:
-        raise ValueError(f"Unfusable rule '{rule}'.")
-    if (scal.device != gr.device or scal.dtype != torch.float32
-            or scal.shape != (len(SCALAR_KEYS),) or not scal.is_contiguous()):
-        raise ValueError("scal must be a contiguous f32 (9,) tensor on the plane's device.")
+    _check_rule(rule)
+    _check_scal(scal, gr)
     tc = _cols_tile(H)
     hr, hi, wout = (torch.empty_like(gr) for _ in range(3))
     pff_out = (torch.empty_like(gr), torch.empty_like(gr)) if kim else (None, None)
@@ -309,6 +336,76 @@ def carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
     )
     gr2, gi2 = rows_normfwd(hr, hi, amp)
     return gr2, gi2, wout, pff_out, sums, maxs
+
+
+def cols_mraf_fwd(gr, gi, weights, target, mask, scal, *, rule, stats_on):
+    """#10, K1: forward column FFT, the scaled complex farfield, the
+    unnormalized weight update and the stats, plus the stats reduction.
+    Returns ``(fr, fi, uw, sums (float64), maxs)``."""
+    planes = [gr, gi, weights, target] + ([mask] if stats_on else [])
+    H, W = _check_planes(*planes)
+    _check_rule(rule)
+    _check_scal(scal, gr)
+    tc = _cols_tile(H)
+    fr, fi, uw = (torch.empty_like(gr) for _ in range(3))
+    partials = torch.empty((W // tc, 8), dtype=torch.float64, device=gr.device)
+    sums = torch.empty(4, dtype=torch.float64, device=gr.device)
+    maxs = torch.empty(4, dtype=torch.float32, device=gr.device)
+    rc = _lib().slm_cols_mraf_fwd(
+        _ptr(gr), _ptr(gi), _ptr(weights), _ptr(target),
+        _ptr(mask if stats_on else None), _ptr(fr), _ptr(fi), _ptr(uw),
+        _ptr(scal), _ptr(partials), _ptr(sums), _ptr(maxs), H, W, tc,
+        _ptr(_twiddles(H, False, gr.device)), _RULES[rule], int(stats_on), _stream(),
+    )
+    _raise_on(rc, "cols_mraf_fwd")
+    LAUNCHES["cols_mraf_fwd"] += 1
+    return fr, fi, uw, sums, maxs
+
+
+def cols_mraf_mix_inv(fr, fi, uw, mcode, phase_ff, zw, sums, scal, *, kim, zero):
+    """#10, K2: the region mix (norm read from the device ``sums``), Kim's
+    phasor select, the zero-weight update, the inverse column FFT.
+    Returns ``(hr, hi, phase_ff' | None, zw' | None)``."""
+    planes = [fr, fi, uw, mcode]
+    if kim:
+        planes += list(phase_ff)
+    if zero:
+        planes += [zw[0], zw[1]]
+    H, W = _check_planes(*planes)
+    _check_scal(scal, fr)
+    if (sums.device != fr.device or sums.dtype != torch.float64
+            or sums.shape != (4,) or not sums.is_contiguous()):
+        raise ValueError("sums must be the contiguous float64 (4,) stats sums.")
+    hr, hi = torch.empty_like(fr), torch.empty_like(fr)
+    pff_out = (torch.empty_like(fr), torch.empty_like(fr)) if kim else (None, None)
+    zw_out = torch.empty((2, H, W), dtype=fr.dtype, device=fr.device) if zero else None
+    pff_in = phase_ff if kim else (None, None)
+    zw_in, zw_to = (zw, zw_out) if zero else ((None, None), (None, None))
+    rc = _lib().slm_cols_mraf_mix_inv(
+        _ptr(fr), _ptr(fi), _ptr(uw), _ptr(mcode), _ptr(pff_in[0]), _ptr(pff_in[1]),
+        _ptr(zw_in[0]), _ptr(zw_in[1]), _ptr(hr), _ptr(hi), _ptr(pff_out[0]),
+        _ptr(pff_out[1]), _ptr(zw_to[0]), _ptr(zw_to[1]), _ptr(scal), _ptr(sums),
+        H, W, _cols_tile(H), _ptr(_twiddles(H, True, fr.device)), int(kim), int(zero),
+        _stream(),
+    )
+    _raise_on(rc, "cols_mraf_mix_inv")
+    LAUNCHES["cols_mraf_mix_inv"] += 1
+    return hr, hi, pff_out if kim else None, zw_out
+
+
+def mraf_carry_step(gr, gi, amp, weights, phase_ff, target, mask, mcode, zw, scal,
+                    *, rule, kim, stats_on, zero):
+    """One MRAF iteration on the carry: :meth:`cols_mraf_fwd`,
+    :meth:`cols_mraf_mix_inv`, :meth:`rows_normfwd` (same contract as
+    :meth:`slmsuite_torch.ops.fft._mraf_carry_step`)."""
+    fr, fi, uw, sums, maxs = cols_mraf_fwd(
+        gr, gi, weights, target, mask, scal, rule=rule, stats_on=stats_on
+    )
+    hr, hi, pff_out, zw_out = cols_mraf_mix_inv(
+        fr, fi, uw, mcode, phase_ff, zw, sums, scal, kim=kim, zero=zero
+    )
+    gr2, gi2 = rows_normfwd(hr, hi, amp)
+    return gr2, gi2, uw, pff_out, zw_out, sums, maxs
 
 
 def rows_fft(xr, xi, *, inverse, scale=1.0):
@@ -407,3 +504,43 @@ def wexp_ifft2_phase(weights, phase):
     """``arg ifft2(weights * e^{i phase})``: :meth:`cols_wexp_inv`, then
     :meth:`carry_exit`."""
     return carry_exit(*cols_wexp_inv(weights, phase))
+
+
+def ifft2_phase(xr, xi):
+    """#13, ``arg ifft2``: :meth:`cols_fft` (inverse), then
+    :meth:`carry_exit` (the inverse rows and atan2; the scale drops out)."""
+    return carry_exit(*cols_fft(xr, xi, inverse=True))
+
+
+def wgs_fused_step(psi, amp, weights, phase_ff, target, mask, scal,
+                   *, rule, kim, stats_on):
+    """#8, psi -> psi: :meth:`carry_entry`, :meth:`cols_wgs_roundtrip`,
+    :meth:`carry_exit`, with Kim's angle store converted to and from a
+    phasor around the round trip (same contract as
+    :meth:`slmsuite_torch.ops.fft._wgs_fused_step`)."""
+    scal = _with_post(scal, post_scale(amp, psi.shape))
+    gr, gi = carry_entry(psi, amp)
+    hr, hi, wout, pff_out, sums, maxs = cols_wgs_roundtrip(
+        gr, gi, weights, target, mask, wgs_phasor_entry(phase_ff) if kim else None,
+        scal, rule=rule, kim=kim, stats_on=stats_on,
+    )
+    pff_out = wgs_phasor_exit(*pff_out) if kim else None
+    return carry_exit(hr, hi), wout, pff_out, sums, maxs
+
+
+def mraf_fused_step(psi, amp, weights, phase_ff, target, mask, mcode, scal,
+                    *, rule, kim, stats_on):
+    """#9, psi -> psi: :meth:`carry_entry`, :meth:`cols_mraf_fwd`,
+    :meth:`cols_mraf_mix_inv` (no zero weights), :meth:`carry_exit` (same
+    contract as :meth:`slmsuite_torch.ops.fft._mraf_fused_step`)."""
+    scal = _with_post(scal, post_scale(amp, psi.shape))
+    gr, gi = carry_entry(psi, amp)
+    fr, fi, uw, sums, maxs = cols_mraf_fwd(
+        gr, gi, weights, target, mask, scal, rule=rule, stats_on=stats_on
+    )
+    hr, hi, pff_out, _ = cols_mraf_mix_inv(
+        fr, fi, uw, mcode, wgs_phasor_entry(phase_ff) if kim else None, None, sums,
+        scal, kim=kim, zero=False,
+    )
+    pff_out = wgs_phasor_exit(*pff_out) if kim else None
+    return carry_exit(hr, hi), uw, pff_out, sums, maxs

@@ -23,20 +23,33 @@ substitutions make the update one-pass, as in the JAX package:
 - the Parseval feedback norm: ``sum |F|^2 == sum amp^2`` for the ortho
   transform, so the feedback power is a precomputed constant.
 
+The MRAF carry step (:meth:`mraf_carry_step`) runs on the same carry.
+Its signal:noise mix needs the EXACT current weight norm, so its column
+round trip is split in two around one device-side reduction: a forward
+column pass that emits the scaled complex farfield ``F``, the
+unnormalized updated weights ``uw`` and the stats (with ``sum uw^2``),
+then the region mix and the inverse column pass, which read
+``1/sqrt(sum uw^2)`` from the device sums. The row round trip is the WGS
+step's.
+
 The natural step takes :meth:`fft2_polar_from_phase` and
 :meth:`wexp_ifft2_phase` when the farfield is the SLM plane, and
 :meth:`fft2_polar` and :meth:`wexp_ifft2` on a padded canvas or with a
-propagation kernel; propagation outside the loop takes :meth:`fft2` and
-:meth:`ifft2`.
+propagation kernel; its MRAF mix ends in :meth:`ifft2_phase` or
+:meth:`ifft2`. Propagation outside the loop takes :meth:`fft2` and
+:meth:`ifft2`. :meth:`wgs_fused_step` and :meth:`mraf_fused_step` are
+psi -> psi steps that only tests call.
 
 The underscored functions are the plain PyTorch versions of the CUDA
 kernels in :mod:`slmsuite_torch.ops.cuda_fft` and of the dispatchers.
 The dispatchers (:meth:`wgs_carry_entry`, :meth:`wgs_carry_step`,
-:meth:`wgs_carry_exit`, :meth:`fft2`, :meth:`ifft2`, :meth:`fft2_polar`,
-:meth:`fft2_polar_from_phase`, :meth:`wexp_ifft2`, :meth:`wexp_ifft2_phase`)
-take the plain versions for CPU tensors only. A CUDA tensor whose sides
-are powers of two in [64, 4096] launches the kernels; any other CUDA
-shape raises :class:`NotImplementedError`.
+:meth:`wgs_carry_exit`, :meth:`mraf_carry_step`, :meth:`fft2`,
+:meth:`ifft2`, :meth:`ifft2_phase`, :meth:`fft2_polar`,
+:meth:`fft2_polar_from_phase`, :meth:`wexp_ifft2`, :meth:`wexp_ifft2_phase`,
+:meth:`wgs_fused_step`, :meth:`mraf_fused_step`) take the plain versions
+for CPU tensors only. A CUDA tensor whose sides are powers of two in
+[64, 4096] launches the kernels; any other CUDA shape raises
+:class:`NotImplementedError`.
 """
 
 import functools
@@ -46,7 +59,7 @@ import torch
 
 from slmsuite_torch.ops.stats import error_moments
 
-#: Lane order of the step's device scalar buffer (see ``csrc/wgs_carry.cu``).
+#: Lane order of the step's device scalar buffer (see ``csrc/carry_shared.cuh``).
 SCALAR_KEYS = (
     "post",               # 1/sqrt(HW), times the amplitude when it is a scalar
     "inv_prev_norm",      # 1 / previous iteration's weight norm
@@ -57,7 +70,13 @@ SCALAR_KEYS = (
     "inv_fnorm",          # 1 / sqrt(Parseval feedback power)
     "inv_tsum",           # 1 / sum(target^2)
     "inv_fsum",           # 1 / Parseval feedback power
+    "mraf_factor",        # MRAF noise-region factor k
+    "zero_factor",        # MRAF zero-region weight step zf
 )
+
+#: Lanes only the MRAF step reads; :meth:`pack_scalars` sets them to 0
+#: when they are not given.
+_MRAF_KEYS = ("mraf_factor", "zero_factor")
 
 _S = {key: lane for lane, key in enumerate(SCALAR_KEYS)}
 
@@ -71,7 +90,8 @@ _KERNEL_MIN_LEN, _KERNEL_MAX_LEN = 64, 4096
 
 def pack_scalars(values, device=None):
     """Stack ``values[key]`` for :data:`SCALAR_KEYS` into the f32 buffer
-    the step reads."""
+    the step reads (the MRAF-only lanes default to 0)."""
+    values = {**dict.fromkeys(_MRAF_KEYS, 0.0), **values}
     return torch.stack(
         [torch.as_tensor(values[k], dtype=torch.float32, device=device)
          for k in SCALAR_KEYS]
@@ -181,6 +201,15 @@ def _wgs_stats(f, target, mask, scal, norm_sq, stats_on):
     return sums, maxs
 
 
+def _unit_phasor(fr, fi):
+    """``F/|F|`` without transcendentals; a zero field gives (1, 0), the
+    ``atan2(0, 0) = 0`` convention."""
+    f2 = torch.square(fr) + torch.square(fi)
+    on = f2 > 0
+    inv = torch.rsqrt(torch.where(on, f2, 1.0))
+    return torch.where(on, fr * inv, 1.0), torch.where(on, fi * inv, 0.0)
+
+
 def _cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
                         *, rule, kim, stats_on):
     """Column round trip of the step: forward column FFT (completing the
@@ -197,11 +226,7 @@ def _cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
         scal[_S["apply_update"]] > 0, uw * scal[_S["inv_prev_norm"]], weights
     )
 
-    # Farfield direction without transcendentals; zero field -> (1, 0).
-    on = f2 > 0
-    invb = torch.rsqrt(torch.where(on, f2, 1.0))
-    er = torch.where(on, fr * invb, 1.0)
-    ei = torch.where(on, fi * invb, 0.0)
+    er, ei = _unit_phasor(fr, fi)
     if kim:
         use_theta = scal[_S["use_theta"]] > 0
         er = torch.where(use_theta, er, phase_ff[0])
@@ -251,6 +276,67 @@ def _wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
     return gr2, gi2, wout, pff_out, sums, maxs
 
 
+def _cols_mraf_fwd(gr, gi, weights, target, mask, scal, *, rule, stats_on):
+    """Plain version of the ``cols_mraf_fwd`` kernel: the forward column
+    FFT, the scaled complex farfield ``F = post * B``, the unnormalized
+    weight update ``uw`` and the stats partials (``sums[3] = sum uw^2``).
+    Returns ``(fr, fi, uw, sums, maxs)``."""
+    fr, fi = _pair(torch.fft.fft(torch.complex(gr, gi), dim=0) * scal[_S["post"]])
+    f = torch.sqrt(torch.square(fr) + torch.square(fi))
+    uw = weights * _wgs_correction(f, target, scal, rule)
+    uw = torch.where(torch.isnan(uw), 1e-4, uw)
+    uw = torch.where(scal[_S["apply_update"]] > 0, uw * scal[_S["inv_prev_norm"]], weights)
+    sums, maxs = _wgs_stats(f, target, mask, scal, torch.square(uw).sum(), stats_on)
+    return fr, fi, uw, sums, maxs
+
+
+def _cols_mraf_mix_inv(fr, fi, uw, mcode, phase_ff, zw, sums, scal, *, kim, zero):
+    """Plain version of the ``cols_mraf_mix_inv`` kernel: the region mix
+    on the free farfield ``F`` (region code 1: ``uw / ||uw|| * phasor``,
+    2: ``k * F``, 0: 0, or with ``zero`` the updated zero weight ``zw' =
+    zw - zf * |F| * F``), with ``||uw|| = sqrt(sums[3])``, then the
+    unnormalized inverse column FFT. ``phase_ff`` is Kim's unit-phasor
+    pair (None otherwise), ``zw`` the (2, H, W) zero weights (None
+    without ``zero``). Returns ``(hr, hi, phase_ff' | None, zw' | None)``."""
+    inv_norm = torch.rsqrt(sums[3].to(torch.float32))
+    er, ei = _unit_phasor(fr, fi)
+    pff_out = None
+    if kim:
+        use_theta = scal[_S["use_theta"]] > 0
+        er = torch.where(use_theta, er, phase_ff[0])
+        ei = torch.where(use_theta, ei, phase_ff[1])
+        pff_out = (er, ei)
+    k = scal[_S["mraf_factor"]]
+    wn = uw * inv_norm
+    sig, noi = mcode == 1.0, mcode == 2.0
+    re = torch.where(sig, wn * er, torch.where(noi, k * fr, 0.0))
+    im = torch.where(sig, wn * ei, torch.where(noi, k * fi, 0.0))
+    zw_out = None
+    if zero:
+        zmask = mcode == 0.0
+        step = scal[_S["zero_factor"]] * torch.sqrt(torch.square(fr) + torch.square(fi))
+        zw_out = torch.stack([torch.where(zmask, zw[0] - step * fr, zw[0]),
+                              torch.where(zmask, zw[1] - step * fi, zw[1])])
+        re = torch.where(zmask, zw_out[0], re)
+        im = torch.where(zmask, zw_out[1], im)
+    hr, hi = _pair(_ifft(torch.complex(re, im), 0))
+    return hr, hi, pff_out, zw_out
+
+
+def _mraf_carry_step(gr, gi, amp, weights, phase_ff, target, mask, mcode, zw, scal,
+                     *, rule, kim, stats_on, zero):
+    """Plain PyTorch version of one carry-mode MRAF iteration (the three
+    kernels of :meth:`slmsuite_torch.ops.cuda_fft.mraf_carry_step`)."""
+    fr, fi, uw, sums, maxs = _cols_mraf_fwd(
+        gr, gi, weights, target, mask, scal, rule=rule, stats_on=stats_on
+    )
+    hr, hi, pff_out, zw_out = _cols_mraf_mix_inv(
+        fr, fi, uw, mcode, phase_ff, zw, sums, scal, kim=kim, zero=zero
+    )
+    gr2, gi2 = _rows_normfwd(hr, hi, amp)
+    return gr2, gi2, uw, pff_out, zw_out, sums, maxs
+
+
 def wgs_carry_entry(psi, amp):
     """psi (natural, unbounded range) -> rows-transformed field carry."""
     if use_kernels(psi):
@@ -287,7 +373,7 @@ def wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
     weights, target : (H, W) farfield weights and target amplitudes.
     phase_ff : Kim unit-phasor pair ``(pffr, pffi)`` or None.
     mask : (H, W) f32 0/1 stats mask, or None when ``stats_on`` is off.
-    scal : (9,) f32 buffer in :data:`SCALAR_KEYS` order, on the device.
+    scal : f32 buffer in :data:`SCALAR_KEYS` order, on the device.
     rule : ``"leonardo"``, ``"kim"``, ``"wu"`` or ``"tanh"``.
 
     Returns
@@ -304,6 +390,38 @@ def wgs_carry_step(gr, gi, amp, weights, phase_ff, target, mask, scal,
     return _wgs_carry_step(
         gr, gi, amp, weights, phase_ff, target, mask, scal,
         rule=rule, kim=kim, stats_on=stats_on,
+    )
+
+
+def mraf_carry_step(gr, gi, amp, weights, phase_ff, target, mask, mcode, zw, scal,
+                    *, rule, kim, stats_on, zero):
+    """
+    One complete MRAF WGS iteration on the rows-transformed carry
+    (``slmsuite_tpu.ops.fft.mraf_carry_step``).
+
+    Parameters are those of :meth:`wgs_carry_step`, with ``target`` the
+    cleaned target (noise region 0), plus ``mcode``, the (H, W) f32
+    region code (1 signal, 2 noise, 0 zero), and ``zw``, the (2, H, W)
+    zero-region weights (``zero=True``) or None. ``weights`` is the
+    unnormalized carry; ``scal`` also carries ``mraf_factor`` and
+    ``zero_factor``.
+
+    Returns
+    -------
+    ``(gr', gi', uw, phase_ff' | None, zw' | None, sums (4,), maxs (4,))``
+    with ``uw`` unnormalized and ``sums[3] = sum uw^2``. On the card: the
+    kernels ``cols_mraf_fwd`` (with the stats reduction),
+    ``cols_mraf_mix_inv`` (which reads the norm from the device sums: no
+    host round trip) and ``rows_normfwd``.
+    """
+    if use_kernels(gr):
+        return _cuda().mraf_carry_step(
+            gr, gi, amp, weights, phase_ff, target, mask, mcode, zw, scal,
+            rule=rule, kim=kim, stats_on=stats_on, zero=zero,
+        )
+    return _mraf_carry_step(
+        gr, gi, amp, weights, phase_ff, target, mask, mcode, zw, scal,
+        rule=rule, kim=kim, stats_on=stats_on, zero=zero,
     )
 
 
@@ -399,6 +517,65 @@ def _wexp_ifft2_phase(weights, phase):
     return torch.atan2(z.imag, z.real)
 
 
+def _ifft2_phase(xr, xi):
+    """Plain version of :meth:`ifft2_phase`."""
+    z = torch.fft.ifft2(torch.complex(xr, xi), norm="ortho")
+    return torch.atan2(z.imag, z.real)
+
+
+def _farfield_update(fr, fi, weights, target, scal, rule):
+    """The psi -> psi steps' forward half: ``(f, theta, uw)`` with ``uw``
+    the weight update under the deferred norm (the weights themselves
+    before the update is on)."""
+    f = torch.sqrt(torch.square(fr) + torch.square(fi))
+    theta = torch.atan2(fi, fr)
+    uw = weights * _wgs_correction(f, target, scal, rule)
+    uw = torch.where(torch.isnan(uw), 1e-4, uw)
+    uw = torch.where(scal[_S["apply_update"]] > 0, uw * scal[_S["inv_prev_norm"]], weights)
+    return f, theta, uw
+
+
+def _constraint_phase(theta, phase_ff, scal, kim):
+    """Kim's select on the angle store: the current angle while
+    ``use_theta``, else the stored one. Returns ``(phase, phase_ff' |
+    None)``."""
+    if not kim:
+        return theta, None
+    phase = torch.where(scal[_S["use_theta"]] > 0, theta, phase_ff)
+    return phase, phase
+
+
+def _wgs_fused_step(psi, amp, weights, phase_ff, target, mask, scal,
+                    *, rule, kim, stats_on):
+    """Plain version of :meth:`wgs_fused_step`: ortho fft2 of ``amp *
+    e^{i psi}``, the WGS epilogue on the angle store, then ``arg
+    ifft2(w' e^{i phase})``."""
+    fr, fi = _fft2(amp * torch.cos(psi), amp * torch.sin(psi))
+    f, theta, wout = _farfield_update(fr, fi, weights, target, scal, rule)
+    phase, pff_out = _constraint_phase(theta, phase_ff, scal, kim)
+    sums, maxs = _wgs_stats(f, target, mask, scal, torch.square(wout).sum(), stats_on)
+    return _wexp_ifft2_phase(wout, phase), wout, pff_out, sums, maxs
+
+
+def _mraf_fused_step(psi, amp, weights, phase_ff, target, mask, mcode, scal,
+                     *, rule, kim, stats_on):
+    """Plain version of :meth:`mraf_fused_step`: as
+    :meth:`_wgs_fused_step`, with the MRAF mix (signal ``uw / ||uw|| *
+    e^{i phase}``, noise ``k |F| e^{i theta}``, zero 0) before the inverse
+    transform."""
+    fr, fi = _fft2(amp * torch.cos(psi), amp * torch.sin(psi))
+    f, theta, uw = _farfield_update(fr, fi, weights, target, scal, rule)
+    phase, pff_out = _constraint_phase(theta, phase_ff, scal, kim)
+    norm_sq = torch.square(uw).sum()
+    wn = uw * torch.rsqrt(norm_sq)
+    kf = scal[_S["mraf_factor"]] * f
+    sig, noi = mcode == 1.0, mcode == 2.0
+    re = torch.where(sig, wn * torch.cos(phase), torch.where(noi, kf * torch.cos(theta), 0.0))
+    im = torch.where(sig, wn * torch.sin(phase), torch.where(noi, kf * torch.sin(theta), 0.0))
+    sums, maxs = _wgs_stats(f, target, mask, scal, norm_sq, stats_on)
+    return _ifft2_phase(re, im), uw, pff_out, sums, maxs
+
+
 def fft2(xr, xi):
     """Ortho 2D FFT of an (re, im) pair, in natural order
     (``slmsuite_tpu.ops.fft.fft2_scrambled``, whose output is scrambled).
@@ -455,3 +632,57 @@ def wexp_ifft2(weights, phase):
     if use_kernels(weights):
         return _cuda().wexp_ifft2(weights, phase)
     return _wexp_ifft2(weights, phase)
+
+
+def ifft2_phase(xr, xi):
+    """``arg ifft2(xr + i xi)`` (ortho): the backward half of the natural
+    MRAF step when the farfield is the SLM plane
+    (``slmsuite_tpu.ops.fft.ifft2_scrambled_phase``). Kernels:
+    ``cols_fft`` (inverse), then ``carry_exit``."""
+    if use_kernels(xr):
+        return _cuda().ifft2_phase(xr, xi)
+    return _ifft2_phase(xr, xi)
+
+
+def wgs_fused_step(psi, amp, weights, phase_ff, target, mask, scal,
+                   *, rule, kim, stats_on):
+    """
+    One complete WGS iteration, psi in -> psi out
+    (``slmsuite_tpu.ops.fft.wgs_fused_step``), with Kim's store as an
+    angle plane. ``scal`` is the :data:`SCALAR_KEYS` buffer; its ``post``
+    lane is not read (the step derives it from ``amp``). Returns ``(psi',
+    weights', phase_ff' | None, sums, maxs)`` with the conventions of
+    :meth:`wgs_carry_step`. Kernels: ``carry_entry``,
+    ``cols_wgs_roundtrip``, ``carry_exit``.
+    """
+    if use_kernels(psi):
+        return _cuda().wgs_fused_step(
+            psi, amp, weights, phase_ff, target, mask, scal,
+            rule=rule, kim=kim, stats_on=stats_on,
+        )
+    return _wgs_fused_step(
+        psi, amp, weights, phase_ff, target, mask, scal,
+        rule=rule, kim=kim, stats_on=stats_on,
+    )
+
+
+def mraf_fused_step(psi, amp, weights, phase_ff, target, mask, mcode, scal,
+                    *, rule, kim, stats_on):
+    """
+    One complete MRAF iteration, psi in -> psi out
+    (``slmsuite_tpu.ops.fft.mraf_fused_step``), with Kim's store as an
+    angle plane and no zero-region weights. ``weights`` is the
+    unnormalized carry; the exact norm of ``uw`` is ``sqrt(sums[3])``.
+    Returns ``(psi', uw, phase_ff' | None, sums, maxs)``. Kernels:
+    ``carry_entry``, ``cols_mraf_fwd``, ``cols_mraf_mix_inv``,
+    ``carry_exit``.
+    """
+    if use_kernels(psi):
+        return _cuda().mraf_fused_step(
+            psi, amp, weights, phase_ff, target, mask, mcode, scal,
+            rule=rule, kim=kim, stats_on=stats_on,
+        )
+    return _mraf_fused_step(
+        psi, amp, weights, phase_ff, target, mask, mcode, scal,
+        rule=rule, kim=kim, stats_on=stats_on,
+    )

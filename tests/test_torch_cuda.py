@@ -217,6 +217,7 @@ def test_natural_dispatchers_match_plain(cuda, amp_kind):
     assert cuda_fft.LAUNCHES == dict(
         carry_entry=1, cols_wgs_roundtrip=0, rows_normfwd=0, carry_exit=1,
         rows_fft=4, cols_fft=2, cols_fwd_polar=2, cols_wexp_inv=2,
+        cols_mraf_fwd=0, cols_mraf_mix_inv=0,
     )
 
 
@@ -249,3 +250,134 @@ def test_natural_holograms_run_through_kernels(cuda):
     for key in ("carry_entry", "cols_fwd_polar", "cols_wexp_inv", "carry_exit"):
         assert cuda_fft.LAUNCHES[key] == 6, (key, cuda_fft.LAUNCHES)
     assert 0 < holo.stats["stats"]["computational_spot"]["efficiency"][-1] <= 1
+
+
+def _mraf_inputs(shape, device, amp_kind, seed=3):
+    """The carry of a seeded psi, the cleaned spot target, weights, the
+    region code (1 at the spots, 2 or 0 at random elsewhere), a Kim
+    phasor pair and zero weights, on the card."""
+    from slmsuite_torch.ops import fft
+
+    psi, target, pff, amp = _inputs(shape, device, amp_kind, seed)
+    rng = np.random.default_rng(seed)
+    noise = torch.from_numpy(rng.uniform(size=shape) < 0.5).to(device)
+    mcode = torch.where(target > 0, 1.0, torch.where(noise, 2.0, 0.0)).contiguous()
+    zw = torch.from_numpy(1e-3 * rng.standard_normal((2, *shape)).astype(np.float32)).to(device)
+    gr, gi = fft._wgs_carry_entry(psi, amp)
+    return gr, gi, amp, target, pff, mcode, zw
+
+
+def _mraf_scal(shape, amp, target, stats_on, device):
+    from slmsuite_torch.ops import fft
+
+    return fft.pack_scalars(dict(
+        post=fft.post_scale(amp, shape), inv_prev_norm=0.7, apply_update=1.0,
+        use_theta=float(stats_on), feedback_exponent=0.8, feedback_factor=0.2,
+        inv_fnorm=1.3, inv_tsum=float(1.0 / (target**2).sum()), inv_fsum=0.9,
+        mraf_factor=0.4, zero_factor=0.3,
+    ), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (256, 512)])
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+@pytest.mark.parametrize("rule", ["leonardo", "kim"])
+@pytest.mark.parametrize("stats_on", [True, False])
+@pytest.mark.parametrize("zero", [True, False])
+def test_mraf_kernels_match_plain(cuda, shape, amp_kind, rule, stats_on, zero):
+    """cols_mraf_fwd and cols_mraf_mix_inv against their plain versions,
+    and the three-kernel MRAF carry step against its plain version."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    gr, gi, amp, target, pff, mcode, zw = _mraf_inputs(shape, cuda, amp_kind)
+    kim = rule == "kim"
+    scal = _mraf_scal(shape, amp, target, stats_on, cuda)
+    weights = target * 1.3
+    mask = (target != 0).float() if stats_on else None
+    fwd = (gr, gi, weights, target, mask, scal)
+    got = cuda_fft.cols_mraf_fwd(*fwd, rule=rule, stats_on=stats_on)
+    ref = fft._cols_mraf_fwd(*fwd, rule=rule, stats_on=stats_on)
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+    for g, r in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(g, r, atol=ATOL, rtol=RTOL)
+
+    mix = (ref[0], ref[1], ref[2], mcode, pff if kim else None, zw if zero else None,
+           ref[3], scal)
+    got = cuda_fft.cols_mraf_mix_inv(*mix, kim=kim, zero=zero)
+    plain = fft._cols_mraf_mix_inv(*mix, kim=kim, zero=zero)
+    assert max(_rel(got[0], plain[0]), _rel(got[1], plain[1])) <= CARRY_RTOL
+    for g, r in ([*zip(got[2], plain[2])] if kim else []) + ([(got[3], plain[3])] if zero else []):
+        torch.testing.assert_close(g, r, atol=ATOL, rtol=RTOL)
+    assert (got[2] is None) is not kim and (got[3] is None) is not zero
+
+    step = (gr, gi, amp, weights, pff if kim else None, target, mask, mcode,
+            zw if zero else None, scal)
+    kw = dict(rule=rule, kim=kim, stats_on=stats_on, zero=zero)
+    got, plain = cuda_fft.mraf_carry_step(*step, **kw), fft._mraf_carry_step(*step, **kw)
+    assert max(_rel(got[0], plain[0]), _rel(got[1], plain[1])) <= CARRY_RTOL
+    torch.testing.assert_close(got[5], plain[5], atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+def test_mraf_compositions_match_plain(cuda, amp_kind):
+    """ifft2_phase, wgs_fused_step and mraf_fused_step on the card against
+    their plain versions, and their launch counts."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    shape = (256, 512)
+    psi, target, _, amp = _inputs(shape, cuda, amp_kind)
+    _, _, _, _, _, mcode, _ = _mraf_inputs(shape, cuda, amp_kind)
+    angle = torch.from_numpy(np.random.default_rng(4).uniform(
+        -np.pi, np.pi, shape).astype(np.float32)).to(cuda)
+    scal = _mraf_scal(shape, amp, target, True, cuda)
+    xr, xi = _pair(shape, cuda)
+    cuda_fft.reset_launch_counts()
+    assert _psi_p99(fft.ifft2_phase(xr, xi), fft._ifft2_phase(xr, xi)) < PSI_P99
+    args = (psi, amp, target * 1.3, angle, target, (target != 0).float())
+    kw = dict(rule="kim", kim=True, stats_on=True)
+    for name, extra in (("wgs_fused_step", ()), ("mraf_fused_step", (mcode,))):
+        got = getattr(fft, name)(*args, *extra, scal, **kw)
+        ref = getattr(fft, "_" + name)(*args, *extra, scal, **kw)
+        assert _psi_p99(got[0], ref[0]) < PSI_P99, name
+        torch.testing.assert_close(got[1], ref[1], atol=ATOL, rtol=RTOL)
+        diff = torch.remainder(got[2] - ref[2] + np.pi, 2 * np.pi) - np.pi
+        assert float(diff[target > 0].abs().max()) < THETA_ATOL, name
+        for g, r in zip(got[3:], ref[3:]):
+            torch.testing.assert_close(g, r, atol=ATOL, rtol=RTOL)
+    assert cuda_fft.LAUNCHES == dict(
+        carry_entry=2, cols_wgs_roundtrip=1, rows_normfwd=0, carry_exit=3,
+        rows_fft=0, cols_fft=1, cols_fwd_polar=0, cols_wexp_inv=0,
+        cols_mraf_fwd=1, cols_mraf_mix_inv=1,
+    )
+
+
+@pytest.mark.cuda
+def test_mraf_holograms_run_through_kernels(cuda):
+    """An MRAF Hologram at 256^2: WGS-Kim with zero weights on the carry
+    loop (three kernels per iteration), GS on the natural step (four)."""
+    from slmsuite_torch.holography.algorithms import Hologram
+    from slmsuite_torch.ops import cuda_fft
+
+    yy, xx = np.meshgrid(np.arange(256) - 128, np.arange(256) - 128, indexing="ij")
+    radius = np.hypot(xx, yy)
+    target = (np.abs(radius - 32) < 3).astype(np.float32)
+    target[radius > 64] = np.nan
+    phi0 = np.random.default_rng(5).uniform(-np.pi, np.pi, (256, 256))
+    n = 6
+    for method, loop in (("WGS-Kim", dict(carry_entry=1, cols_mraf_fwd=n,
+                                          cols_mraf_mix_inv=n, rows_normfwd=n,
+                                          carry_exit=1)),
+                         ("GS", dict(carry_entry=n, cols_fwd_polar=n, cols_fft=n,
+                                     carry_exit=n))):
+        holo = Hologram(target=target, device=cuda)
+        holo.reset_phase(custom_phase=phi0)
+        cuda_fft.reset_launch_counts()
+        holo.optimize(method=method, maxiter=n, stat_groups=["computational"],
+                      verbose=False, mraf_factor=0.5, zero_factor=0.1)
+        launched = {k: v for k, v in cuda_fft.LAUNCHES.items() if v}
+        # The result farfield adds one rows_fft and one cols_fft.
+        loop = dict(loop, rows_fft=1, cols_fft=loop.get("cols_fft", 0) + 1)
+        assert launched == loop, (method, launched)
+        assert 0 < holo.stats["stats"]["computational"]["efficiency"][-1] <= 1
+        assert holo.zero_weights.shape == (2, 256, 256)

@@ -149,17 +149,15 @@ def test_spot_array_wgs_model_matches_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(mraf=True),
-    dict(method="GS", mraf=True),
     dict(feedback="experimental_spot_sim"),
     dict(stat_groups=("experimental_spot",)),
     dict(feedback="external_spot"),
     dict(stat_groups=("experimental",)),
 ])
 def test_unported_configs_raise(change):
-    """MRAF, the simulated camera and host-side feedback or stats raise,
-    naming their ROADMAP item (GS, Nogrette, padded shapes, kernels and
-    computational_spot run on the natural path)."""
+    """The simulated camera and host-side feedback or stats raise, naming
+    their ROADMAP item (GS, Nogrette, padded shapes, kernels,
+    computational_spot and MRAF run)."""
     config = TE.GSConfig(**dict(
         dict(method="WGS-Kim", shape=(64, 64), slm_shape=(64, 64)), **change
     ))
@@ -168,6 +166,35 @@ def test_unported_configs_raise(change):
     state = TE.init_gs_state(config, np.zeros((64, 64)), np.zeros(config.shape))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TE.run_gs(config, state, {}, 1)
+
+
+@pytest.mark.parametrize("change", [dict(mraf=True), dict(method="GS", mraf=True)])
+def test_mraf_configs_run(change):
+    """The two MRAF configurations that raised before MRAF was ported now
+    build a step and run: WGS-Kim on the carry-mode MRAF step, GS on the
+    natural step."""
+    config = TE.GSConfig(**dict(
+        dict(method="WGS-Kim", shape=(64, 64), slm_shape=(64, 64),
+             stat_groups=("computational",)), **change
+    ))
+    assert TE._mraf_fused_active(config) is (config.method == "WGS-Kim")
+    assert callable(TE.make_gs_step(config))
+    target = np.full((64, 64), np.nan, np.float32)
+    target[24:40, 24:40] = 0.0
+    target[28:36:2, 28:36:2] = 0.25
+    noise = np.isnan(target)
+    consts = convert.consts_from_numpy(dict(
+        amp=np.float32(1 / 64), target=target, stat_mask=target > 0,
+        feedback_exponent=np.float32(0.8), feedback_factor=np.float32(0.1),
+        fix_phase_iteration=np.int32(10), fix_phase_efficiency=np.float32(np.nan),
+        signal_mask=target > 0, noise_mask=noise, zero_mask=target == 0,
+        mraf_factor=np.float32(1.0),
+    ), device="cpu")
+    psi0 = np.random.default_rng(3).uniform(-np.pi, np.pi, (64, 64))
+    state = TE.init_gs_state(config, psi0, np.nan_to_num(target), device="cpu")
+    state, stats = TE.run_gs(config, state, consts, 3)
+    assert int(state.iteration) == 3 and stats.shape == (3, 2, 4)
+    assert bool(torch.isfinite(state.psi).all()) and 0 < float(stats[-1, 0, 0]) <= 1
 
 
 @pytest.mark.parametrize("entry", ["run_gs_scheduled", "run_gs_batch", "set_scrambled_mode"])

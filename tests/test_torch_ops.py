@@ -203,6 +203,13 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_build_nothing():
         cuda_fft.cols_fwd_polar(plane, plane, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_fft.cols_wexp_inv(plane, plane)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fft.cols_mraf_fwd(plane, plane, plane, plane, plane, scal,
+                               rule="leonardo", stats_on=True)
+    sums = torch.ones(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fft.cols_mraf_mix_inv(plane, plane, plane, plane, None, None, sums, scal,
+                                   kim=False, zero=False)
     assert cuda_fft._LIB is None
     assert "triton" not in sys.modules
     assert not tfft.use_kernels(plane)
@@ -221,7 +228,8 @@ def test_dispatch_gate_is_cpu_or_kernels():
                  lambda: tfft.fft2_polar(meta, meta),
                  lambda: tfft.fft2_polar_from_phase(meta, 1.0),
                  lambda: tfft.wexp_ifft2(meta, meta),
-                 lambda: tfft.wexp_ifft2_phase(meta, meta)):
+                 lambda: tfft.wexp_ifft2_phase(meta, meta),
+                 lambda: tfft.ifft2_phase(meta, meta)):
         with pytest.raises(NotImplementedError, match="Non-power-of-two"):
             call()
 

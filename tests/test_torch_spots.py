@@ -1,7 +1,8 @@
 """
-The port's public classes on the CPU: the golden replay of the five
-fusable configurations and of the natural path's four (GS, Nogrette, a
-padded hologram, spot feedback) with the port's ``Hologram``/
+The port's public classes on the CPU: the golden replay of the six
+carry-loop configurations (the five fusable ones and MRAF WGS-Leonardo
+with zero weights) and of the natural path's five (GS, Nogrette, a padded
+hologram, spot feedback, GS-MRAF) with the port's ``Hologram``/
 ``SpotHologram`` (``tests/holography/golden``, the tolerances of
 ``test_reference_parity.py``, std_err within 1e-6 / 1e-5), a 256^2
 ``SpotHologram`` WGS-Kim run held
@@ -52,12 +53,15 @@ def _phase_err(a, b):
     return np.abs(dp).max()
 
 
-#: The fused loop's goldens, and the natural path's.
-FUSED_GOLDENS = ["wgs_leonardo", "wgs_kim_iter", "wgs_kim_eff", "wgs_wu", "wgs_tanh"]
-NATURAL_GOLDENS = ["gs", "wgs_nogrette", "gs_padded", "spots_kim"]
+#: The carry loops' goldens (the fused WGS loop's and the MRAF one's), and
+#: the natural path's.
+FUSED_GOLDENS = ["wgs_leonardo", "wgs_kim_iter", "wgs_kim_eff", "wgs_wu", "wgs_tanh",
+                 "wgs_leonardo_mraf_zero"]
+NATURAL_GOLDENS = ["gs", "wgs_nogrette", "gs_padded", "spots_kim", "gs_mraf"]
 #: std_err against the golden on every iteration: the port forms it from
 #: float64 moments (largest difference measured 2.6e-7 on the fused
-#: goldens and 1.8e-6 on spots_kim, at 1 and 8 threads).
+#: goldens and 1.8e-6 on spots_kim, at 1 and 8 threads; 1.9e-7 on
+#: wgs_leonardo_mraf_zero and 1.2e-7 on gs_mraf at 2 threads).
 STD_ERR_ATOL = {name: 1e-6 for name in FUSED_GOLDENS}
 STD_ERR_ATOL.update({name: 1e-5 for name in NATURAL_GOLDENS})
 
@@ -146,12 +150,13 @@ def test_resume_from_jax_arrays():
 
 
 def test_unported_paths_raise():
-    """MRAF (a nan target), callbacks, CG and the kxy basis raise, naming
-    their ROADMAP item."""
+    """Callbacks, CG and the kxy basis raise, naming their ROADMAP item;
+    MRAF (a nan target), which raised before it was ported, runs."""
     target = np.ones((64, 64))
     target[:8] = np.nan
-    with pytest.raises(NotImplementedError, match="MRAF.*ROADMAP"):
-        T.Hologram(target=target).optimize(method="GS", maxiter=2, verbose=False)
+    mraf = T.Hologram(target=target)
+    mraf.optimize(method="GS", maxiter=2, verbose=False)
+    assert mraf.iter == 2 and np.isfinite(mraf.get_phase()).all()
     holo = T.Hologram(target=np.ones((64, 64)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         holo.optimize(method="WGS-Kim", maxiter=2, verbose=False, callback=lambda h: False)
