@@ -16,7 +16,10 @@ there is no card or the port is missing. In order:
    2048^2 canvas holding a 1024^2 window; the two MRAF kernels at 2048^2
    and 256x512 for Leonardo and Kim, zero weights on and off, stats on
    and off, scalar and array amplitude, and the composed ``ifft2_phase``,
-   ``wgs_fused_step`` and ``mraf_fused_step``;
+   ``wgs_fused_step`` and ``mraf_fused_step``; the four compressed
+   kernels at BASELINE config 5's shapes (P = 1024^2, N = 256, D = 3) and
+   at P = 3000, N = 17, D = 4, scalar and array amplitude, and the
+   compressed dispatchers on config 5's hologram;
 5. the paths, each driven with the launch counts set to 0 just before it:
    - the fused slice: ``SpotHologram.make_rectangular_array((2048, 2048),
      32x32, pitch 30, "knm")``, WGS-Kim, 50 iterations;
@@ -29,10 +32,16 @@ there is no card or the port is missing. In order:
      ``image_mraf``, WGS-Leonardo with ``mraf_factor`` 0.5 (the MRAF carry
      loop), 50 iterations; M2, the same with WGS-Kim and ``zero_factor``
      0.1; M3, the same with GS (the natural MRAF step);
+   - C1, BASELINE config 5 through ``CompressedSpotHologram`` on a 1024^2
+     ``SimulatedSLM``: 16x16 3D spots, WGS-Kim, 30 iterations on the
+     cached loop; C2, the same with the cache off (the recomputing loop);
+     C3, C1 with a quarter of ``spot_amp`` nan (per-spot MRAF,
+     ``mraf_factor`` 0.5);
    each through the kernels (loop launches checked, launches after the
    loop counted apart; the kernels line reports both together) and
    through the plain versions (final efficiency and uniformity within
-   1e-3);
+   1e-3; C1-C3: normalized amp_ff and weights within 2e-3, every launch
+   of the call counted);
 6. the 64^2 goldens ``wgs_kim_iter``, ``gs``, ``wgs_nogrette``,
    ``gs_padded``, ``spots_kim``, ``gs_mraf`` and ``wgs_leonardo_mraf_zero``
    replayed through the kernels;
@@ -41,14 +50,16 @@ there is no card or the port is missing. In order:
    composed ``fft2``/``ifft2`` against ``torch.fft.fft2``/``ifft2``, and
    the composed ``wexp_ifft2``, ``ifft2_phase`` (with ``torch.fft.ifft2``),
    ``wgs_fused_step`` and ``mraf_fused_step`` against their plain
-   versions; and ms/iteration of ``spot_array_wgs(2048)`` (WGS-Kim,
+   versions; each compressed kernel and its plain version at config 5,
+   the cos/sin cache build, and ms/iteration of the C1 and C2 loops; and
+   ms/iteration of ``spot_array_wgs(2048)`` (WGS-Kim,
    fused), ``spot_array_wgs(2048, method="WGS-Nogrette")`` (natural), the
    N2 GS loop and ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop;
    GS, the natural MRAF step), through the kernels and through the plain
    versions;
 8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette),
-   the N2 GS and the ``image_mraf(2048)`` loops: device time, device busy
-   share, device launches per iteration.
+   the N2 GS, the ``image_mraf(2048)`` and the C1 loops: device time,
+   device busy share, device launches per iteration.
 
 It prints the per-kernel JSON line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
@@ -58,6 +69,7 @@ line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
 import contextlib
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -92,6 +104,10 @@ KERNELS = {
     "cols_wexp_inv": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:1885", "N1"),
     "cols_mraf_fwd": ("mraf_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:1619", "M1"),
     "cols_mraf_mix_inv": ("mraf_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:1664", "M1"),
+    "f2n": ("compressed.cu", "slmsuite_tpu/ops/pallas_compressed.py:128", "C2"),
+    "n2f": ("compressed.cu", "slmsuite_tpu/ops/pallas_compressed.py:415", "C1"),
+    "fused_iter": ("compressed.cu", "slmsuite_tpu/ops/pallas_compressed.py:350", "C2"),
+    "fused_iter_cached": ("compressed.cu", "slmsuite_tpu/ops/pallas_compressed.py:289", "C1"),
 }
 RULES = ("kim", "leonardo", "wu", "tanh")
 #: Shapes of the MRAF parity phase; the first is the main path's.
@@ -100,6 +116,22 @@ MRAF_SHAPES = ((2048, 2048), (256, 512))
 #: The H100 SXM's published peaks (NVIDIA data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+
+#: Compressed kernels against their plain versions: max |diff| / max
+#: |plain|. The kernels form each phase by an fma chain, the plain versions
+#: by a matrix product (an f32 ulp of a ~500 rad phase is ~3e-5 rad), and
+#: the sums run in another order; the largest measured on an H100 is 1.2e-6.
+CMP_RTOL = 1e-4
+#: Compressed paths, kernels against plain: amp_ff and weights, each
+#: divided by its max, as bench.py's attest_compressed_parity holds them.
+CMP_PATH_ATOL = 2e-3
+#: BASELINE config 5 (bench.py config_5): 16x16 spots on a 1024^2 SLM, 30
+#: WGS-Kim iterations.
+CONFIG5_RES, CONFIG5_SIDE, CONFIG5_ITERS = 1024, 16, 30
+#: f32 operations counted for one libdevice sincosf on its fast path
+#: (|x| < 105615): a three-term Cody-Waite reduction (3 FMAs, a multiply and
+#: a round) and two degree-4 polynomials (8 FMAs), an FMA counted as 2.
+SINCOS_FLOPS = 24
 
 
 def log(*args):
@@ -506,7 +538,7 @@ def bound(shape, planes_moved, line_ffts):
     return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
 
 
-def interleaved(name, kernel, plain, library=None, bound_of=None):
+def interleaved(name, kernel, plain, library=None, bound_of=None, size="2048^2"):
     """Time ``kernel`` and ``plain`` in turns (plain, kernel, kernel,
     plain) and ``library`` once between them; log and return
     ``{kernel, plain, library, bound, bound_by}`` in ms."""
@@ -516,7 +548,7 @@ def interleaved(name, kernel, plain, library=None, bound_of=None):
     k2 = cuda_ms(kernel)
     p2 = cuda_ms(plain)
     bound_ms, bound_by = bound_of if bound_of is not None else (None, None)
-    log(f"time {name} 2048^2: kernel {k1:.4f} {k2:.4f} ms, plain {p1:.4f} {p2:.4f} ms"
+    log(f"time {name} {size}: kernel {k1:.4f} {k2:.4f} ms, plain {p1:.4f} {p2:.4f} ms"
         + (f", library {lib:.4f} ms" if lib is not None else "")
         + (f", bound {bound_ms:.4f} ms ({bound_by})" if bound_ms is not None else ""))
     return dict(kernel=(k1 + k2) / 2, plain=(p1 + p2) / 2, library=lib,
@@ -618,19 +650,24 @@ DISPATCHERS = ("wgs_carry_entry", "wgs_carry_step", "wgs_carry_exit", "mraf_carr
 
 
 @contextlib.contextmanager
-def plain_step_functions():
-    """Route the engine's and the propagation's transforms to the plain
-    PyTorch versions."""
-    from slmsuite_torch.ops import fft
-
-    saved = {name: getattr(fft, name) for name in DISPATCHERS}
-    for name in DISPATCHERS:
-        setattr(fft, name, getattr(fft, "_" + name))
+def plain_versions(module, names):
+    """Route ``module``'s dispatchers ``names`` to their plain PyTorch
+    versions (``_`` + name) for the duration."""
+    saved = {name: getattr(module, name) for name in names}
+    for name in names:
+        setattr(module, name, getattr(module, "_" + name))
     try:
         yield
     finally:
         for name, fn in saved.items():
-            setattr(fft, name, fn)
+            setattr(module, name, fn)
+
+
+def plain_step_functions():
+    """The engine's and the propagation's transforms, plain."""
+    from slmsuite_torch.ops import fft
+
+    return plain_versions(fft, DISPATCHERS)
 
 
 def spot_array(device, array_shape, array_pitch, slm_shape=None, seed=0):
@@ -802,6 +839,19 @@ def engine_loop(holo, method):
     return lambda n: engine.run_gs(config, state, consts, n)
 
 
+def loop_ms(run, n):
+    """Milliseconds per iteration of ``run(n)`` (CUDA events, after a
+    two-iteration warm-up)."""
+    run(2)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(n)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def phase_model_timing(device, n=50):
     """ms/iteration of the fused, the natural and the MRAF loops at
     2048^2, through the kernels and through the plain versions, in turns."""
@@ -818,24 +868,14 @@ def phase_model_timing(device, n=50):
                                                        device=device).run,
     }
 
-    def timed(run):
-        run(2)  # warm-up
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        run(n)
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / n
-
     out = {}
     for label, run in loops.items():
         with plain_step_functions():
-            p1 = timed(run)
-        k1 = timed(run)
-        k2 = timed(run)
+            p1 = loop_ms(run, n)
+        k1 = loop_ms(run, n)
+        k2 = loop_ms(run, n)
         with plain_step_functions():
-            p2 = timed(run)
+            p2 = loop_ms(run, n)
         out[label] = ((k1 + k2) / 2, (p1 + p2) / 2)
         log(f"{label} run({n}): kernels {k1:.4f} {k2:.4f} ms/iter, "
             f"plain {p1:.4f} {p2:.4f} ms/iter  [{nvidia_smi_line()}]")
@@ -891,6 +931,274 @@ def phase_profile(device, label, run, n=50):
         log(f"  {us / 1e3:9.3f} ms  {count:5d}  {name[:100]}")
 
 
+# ----------------------------------------------------------------------
+# The compressed slice: BASELINE config 5.
+# ----------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """``os.environ[name] = value`` for the duration (None: unchanged)."""
+    saved = os.environ.get(name)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+#: The compressed dispatchers that the plain runs swap for their plain versions.
+CMP_DISPATCHERS = ("farfield_to_nearfield", "nearfield_to_farfield", "fused_iteration",
+                   "fused_iteration_cached")
+
+
+def plain_compressed():
+    """The compressed engine's transforms, plain."""
+    from slmsuite_torch.ops import compressed
+
+    return plain_versions(compressed, CMP_DISPATCHERS)
+
+
+def config5_hologram(device, spot_amp=None):
+    """BASELINE config 5 as bench.py builds it: a 1024^2 SimulatedSLM (8 um
+    pitch, 0.78 um), 16x16 spots at kx, ky in [-8e-3, 8e-3] with focus
+    uniform in [-2e-6, 2e-6] (default_rng(0)), in the kxy basis (Zernike
+    2, 1, 4); from a seeded phase."""
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+
+    slm = SimulatedSLM(resolution=(CONFIG5_RES, CONFIG5_RES), pitch_um=(8, 8), wav_um=0.78)
+    rng = np.random.default_rng(0)
+    edge = np.linspace(-8e-3, 8e-3, CONFIG5_SIDE)
+    kx, ky = np.meshgrid(edge, edge)
+    spots = np.vstack([kx.ravel(), ky.ravel(), rng.uniform(-2e-6, 2e-6, kx.size)])
+    holo = CompressedSpotHologram(spots, basis="kxy", spot_amp=spot_amp, cameraslm=slm,
+                                  device=device)
+    holo.reset_phase(np.random.default_rng(1).uniform(-np.pi, np.pi, slm.shape))
+    return holo
+
+
+def compressed_inputs(device, D, P, N, seed=0, basis=None, coeffs=None):
+    """Seeded farfield (N,), nearfield (P,) and amplitude (P,) pairs on the
+    card, with a random basis and coefficients unless given."""
+    rng = np.random.default_rng(seed)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+    return dict(
+        basis=dev(rng.normal(size=(D, P)) * 2) if basis is None else basis,
+        coeffs=dev(rng.normal(size=(D, N)) * 5) if coeffs is None else coeffs,
+        ffr=dev(rng.normal(size=N)), ffi=dev(rng.normal(size=N)),
+        nfr=dev(rng.normal(size=P)), nfi=dev(rng.normal(size=P)),
+        amp=dev(0.5 + rng.uniform(0, 1, P)),
+    )
+
+
+def config5_inputs(device):
+    """Config 5's basis and coefficients (from its hologram), seeded
+    fields, and the cos/sin cache."""
+    from slmsuite_torch.ops import compressed
+
+    holo = config5_hologram(device)
+    consts = holo._compressed_consts()
+    (D, N), P = consts["coeffs"].shape, consts["basis"].shape[1]
+    x = compressed_inputs(device, D, P, N, basis=consts["basis"], coeffs=consts["coeffs"])
+    x["kc"], x["ks"] = compressed.build_kernel_cache(x["coeffs"], x["basis"])
+    return holo, consts, x
+
+
+def compressed_calls(x, amp):
+    """``{kernel: (kernel call, plain call)}`` on inputs ``x``."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    N, P = x["coeffs"].shape[1], x["basis"].shape[1]
+    ff, nf, cb = (x["ffr"], x["ffi"]), (x["nfr"], x["nfi"]), (x["coeffs"], x["basis"])
+    cache = (x["kc"], x["ks"], amp, N, P)
+    return {
+        "f2n": (lambda: K.f2n(*ff, *cb), lambda: C._farfield_to_nearfield(*ff, *cb)),
+        "n2f": (lambda: K.n2f(*nf, *cb), lambda: C._nearfield_to_farfield(*nf, *cb)),
+        "fused_iter": (lambda: K.fused_iter(*ff, *cb, amp),
+                       lambda: C._fused_iteration(*ff, *cb, amp)),
+        "fused_iter_cached": (lambda: K.fused_iter_cached(*ff, *cache),
+                              lambda: C._fused_iteration_cached(*ff, *cache)),
+    }
+
+
+def phase_compressed_parity(device):
+    """The four compressed kernels against their plain versions at config
+    5's shapes and at an unaligned shape (P = 3000, N = 17, D = 4), with
+    scalar and array amplitude; the dispatchers through config 5's
+    hologram consts. Returns the kernels' max |diff| at config 5."""
+    from slmsuite_torch.ops import compressed as C
+
+    worst = dict.fromkeys(("f2n", "n2f", "fused_iter", "fused_iter_cached"), 0.0)
+    lines = []
+    holo, consts, x5 = config5_inputs(device)
+    xu = compressed_inputs(device, 4, 3000, 17)
+    xu["kc"], xu["ks"] = C.build_kernel_cache(xu["coeffs"], xu["basis"])
+    for tag, x in (("config 5 (P 1024^2, N 256, D 3)", x5), ("P 3000, N 17, D 4", xu)):
+        for amp_kind in ("scalar", "array"):
+            amp = 1.0 if amp_kind == "scalar" else x["amp"]
+            for name, (kernel, plain) in compressed_calls(x, amp).items():
+                if amp_kind == "array" and name in ("f2n", "n2f"):
+                    continue  # these take no amplitude
+                got, ref = kernel(), plain()
+                e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+                assert e <= CMP_RTOL, f"{name} {tag} {amp_kind}: rel {e:.3e}"
+                lines.append(f"{name} {tag} {amp_kind}: rel {e:.3e}")
+                if x is x5:
+                    worst[name] = max(worst[name], max_abs(got[0], ref[0]),
+                                      max_abs(got[1], ref[1]))
+    # The dispatchers on the hologram's own consts and phase.
+    psi = type(holo)._psi.device(holo, device).reshape(-1)
+    nf = C.nearfield(psi, consts["amp"])
+    cb = (consts["coeffs"], consts["basis"])
+    got, ref = C.nearfield_to_farfield(*nf, *cb), C._nearfield_to_farfield(*nf, *cb)
+    e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+    assert e <= CMP_RTOL, f"nearfield_to_farfield (config 5 hologram): rel {e:.3e}"
+    lines.append(f"nearfield_to_farfield (config 5 hologram): rel {e:.3e}")
+    got, ref = C.farfield_to_nearfield(*ref, *cb), C._farfield_to_nearfield(*ref, *cb)
+    e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+    assert e <= CMP_RTOL, f"farfield_to_nearfield (config 5 hologram): rel {e:.3e}"
+    lines.append(f"farfield_to_nearfield (config 5 hologram): rel {e:.3e}")
+    torch.cuda.synchronize()
+    OUT.mkdir(exist_ok=True)
+    (OUT / "parity_compressed.log").write_text("\n".join(lines) + "\n")
+    log(f"compressed parity: {len(lines)} checks passed; config 5 max |diff| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def drive_compressed(make, optimize):
+    """Run ``optimize(holo)`` on a fresh ``make()`` with the launch counts
+    set to 0 just before it. Returns ``(holo, launches, amp_ff / max,
+    weights / max, seconds)``."""
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft
+
+    holo = make()
+    cuda_compressed.reset_launch_counts()
+    cuda_fft.reset_launch_counts()
+    start = time.perf_counter()
+    optimize(holo)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    assert not any(cuda_fft.LAUNCHES.values()), cuda_fft.LAUNCHES
+    launched = {k: v for k, v in cuda_compressed.LAUNCHES.items() if v}
+    amp, weights = np.asarray(holo.amp_ff), np.asarray(holo.weights)
+    return holo, launched, amp / amp.max(), weights / weights.max(), seconds
+
+
+def run_compressed_path(label, make, optimize, expect, cache_mb=None):
+    """One compressed path through the kernels (launches must equal
+    ``expect``) and through the plain versions (no launch; normalized
+    amp_ff and weights within CMP_PATH_ATOL). Returns the launches."""
+    with env_var("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", cache_mb):
+        holo, launched, amp, weights, seconds = drive_compressed(make, optimize)
+        cv = float(np.std(holo.amp_ff) / np.mean(holo.amp_ff))
+        log(f"{label} (kernels): {seconds:.2f} s, launches {launched}, amp_ff cv {cv:.4f}")
+        assert launched == expect, (label, launched, expect)
+        phase = holo.get_phase()
+        assert phase.shape == tuple(holo.slm_shape) and np.isfinite(phase).all()
+        assert np.isfinite(amp).all() and np.isfinite(weights).all()
+        assert holo.iter == CONFIG5_ITERS, holo.iter
+        with plain_compressed():
+            _, plain_launched, plain_amp, plain_weights, plain_s = drive_compressed(
+                make, optimize)
+    assert not plain_launched, plain_launched
+    e_amp = float(np.abs(amp - plain_amp).max())
+    e_w = float(np.abs(weights - plain_weights).max())
+    log(f"{label} (plain):   {plain_s:.2f} s; normalized amp_ff max |diff| {e_amp:.3e}, "
+        f"weights {e_w:.3e}")
+    assert e_amp < CMP_PATH_ATOL and e_w < CMP_PATH_ATOL, (label, e_amp, e_w)
+    return launched
+
+
+def phase_compressed_paths(device):
+    """C1 (config 5, the cached loop), C2 (the cache off: the recomputing
+    loop) and C3 (C1 with per-spot MRAF); returns C1's and C2's launches."""
+    n = CONFIG5_ITERS
+
+    def wgs_kim(holo, **kw):
+        holo.optimize("WGS-Kim", maxiter=n, verbose=False, **kw)
+
+    c1 = run_compressed_path("C1 config 5 WGS-Kim cached", lambda: config5_hologram(device),
+                             wgs_kim, dict(fused_iter_cached=n, n2f=1))
+    c2 = run_compressed_path("C2 config 5 WGS-Kim recompute", lambda: config5_hologram(device),
+                             wgs_kim, dict(fused_iter=n, n2f=2, f2n=1), cache_mb="0")
+    n_spots = CONFIG5_SIDE**2
+    spot_amp = np.ones(n_spots)
+    spot_amp[np.random.default_rng(2).permutation(n_spots)[:n_spots // 4]] = np.nan
+    run_compressed_path("C3 config 5 per-spot MRAF WGS-Kim cached",
+                        lambda: config5_hologram(device, spot_amp=spot_amp),
+                        lambda h: wgs_kim(h, mraf_factor=0.5),
+                        dict(fused_iter_cached=n, n2f=1))
+    return {"C1": c1, "C2": c2}
+
+
+def compressed_bound(name, D, N, P, n8):
+    """``(bound_ms, bound_by)`` of a compressed kernel: bytes (each input
+    read once, each output written once) over the HBM rate against f32
+    operations over the f32 peak. A (spot, pixel) pair costs 2 D for its
+    phase, SINCOS_FLOPS for its sincos and 8 per direction (four FMAs);
+    fused_iter_cached reads the sincos from the cache instead."""
+    pairs = N * P
+    fields = 2 * N * 4 * (2 if name.startswith("fused") else 1)
+    if name == "fused_iter_cached":
+        n_tiles = -(-P // 8192)
+        nbytes = 2 * n8 * n_tiles * 8192 * 4 + P * 4 + fields
+        flops = pairs * 16
+    else:
+        nbytes = (D * P + D * N) * 4 + fields + (2 * P * 4 if name in ("f2n", "n2f") else P * 4)
+        flops = pairs * (2 * D + SINCOS_FLOPS + (16 if name == "fused_iter" else 8))
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / F32_FLOP_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
+
+
+def phase_compressed_timing(device):
+    """Each compressed kernel and its plain version at config 5 (array amp,
+    as config 5 runs), the cache build, and ms/iteration of the C1 (cached)
+    and C2 (recompute) loops through the kernels and the plain versions."""
+    from slmsuite_torch.ops import compressed as C
+
+    holo, _, x = config5_inputs(device)
+    (D, N), P, n8 = x["coeffs"].shape, x["basis"].shape[1], x["kc"].shape[1]
+    t = {}
+    for name, (kernel, plain) in compressed_calls(x, x["amp"]).items():
+        t[name] = interleaved(name, kernel, plain, bound_of=compressed_bound(name, D, N, P, n8),
+                              size="config 5 (P 1024^2, N 256, D 3)")
+    build_ms = cuda_ms(lambda: C.build_kernel_cache(x["coeffs"], x["basis"]), n=3, warmup=1)
+    log(f"cache build config 5: {build_ms:.3f} ms, {C.kernel_cache_bytes(N, P)} bytes "
+        f"({tuple(x['kc'].shape)} x 2 f32)")
+    del x
+
+    def loop(cache):
+        holo._update_flags("WGS-Kim", False, "computational_spot", [])
+        config = holo._compressed_config(kernel_cache=cache)
+        consts = holo._compressed_consts(kernel_cache=cache)
+        state = holo._compressed_state()
+        return lambda n: C.run_compressed_gs(config, state, consts, n)
+
+    loops = {"C1 config 5 WGS-Kim cached": loop(True),
+             "C2 config 5 WGS-Kim recompute": loop(False)}
+    for label, run in loops.items():
+        with plain_compressed():
+            p1 = loop_ms(run, CONFIG5_ITERS)
+        k1 = loop_ms(run, CONFIG5_ITERS)
+        k2 = loop_ms(run, CONFIG5_ITERS)
+        with plain_compressed():
+            p2 = loop_ms(run, CONFIG5_ITERS)
+        log(f"{label} run({CONFIG5_ITERS}): kernels {k1:.4f} {k2:.4f} ms/iter, "
+            f"plain {p1:.4f} {p2:.4f} ms/iter  [{nvidia_smi_line()}]")
+    return t, loops
+
+
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
@@ -902,9 +1210,13 @@ def main():
     errors = phase_parity(device)
     errors.update(phase_natural_parity(device))
     errors.update(phase_mraf_parity(device))
+    errors.update(phase_compressed_parity(device))
     paths = phase_paths(device)
+    paths.update(phase_compressed_paths(device))
     phase_golden()
     times = phase_kernel_timing(device)
+    compressed_times, compressed_loops = phase_compressed_timing(device)
+    times.update(compressed_times)
     phase_model_timing(device)
     phase_profile(device, "spot_array_wgs(2048) WGS-Kim fused",
                   spot_array_wgs(N=2048, device=device).run)
@@ -914,6 +1226,8 @@ def main():
         spot_array(device, (10, 10), (60, 60), slm_shape=(1024, 1024)), "GS"))
     phase_profile(device, "image_mraf(2048) WGS-Leonardo MRAF carry",
                   image_mraf(N=2048, device=device).run)
+    phase_profile(device, "C1 config 5 WGS-Kim cached", compressed_loops[
+        "C1 config 5 WGS-Kim cached"], n=CONFIG5_ITERS)
 
     kernels = []
     for name, (source, replaces, path) in KERNELS.items():

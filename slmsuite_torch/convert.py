@@ -64,3 +64,24 @@ def consts_from_numpy(consts, device=None):
         else:
             out[key] = _tensor(value, device)
     return out
+
+
+def compressed_state_from_numpy(arrays, device=None):
+    """
+    A :class:`~slmsuite_torch.ops.compressed.CompressedGSState` from a dict
+    of numpy arrays with the fields of
+    ``slmsuite_tpu.ops.compressed.CompressedGSState`` between runs:
+    ``psi`` (the ``(P,)`` nearfield phase), ``weights``, ``phase_ff``,
+    ``fixed_phase``, ``unfixed_streak`` and ``iteration``.
+    """
+    from slmsuite_torch.ops.compressed import CompressedGSState
+
+    device = resolve_device(device)
+    return CompressedGSState(
+        psi=_tensor(np.asarray(arrays["psi"], np.float32), device),
+        weights=_tensor(np.asarray(arrays["weights"], np.float32), device),
+        phase_ff=_tensor(np.asarray(arrays["phase_ff"], np.float32), device),
+        fixed_phase=_tensor(np.asarray(arrays["fixed_phase"], bool), device),
+        unfixed_streak=_tensor(np.asarray(arrays["unfixed_streak"], np.int32), device),
+        iteration=_tensor(np.asarray(arrays["iteration"], np.int32), device),
+    )

@@ -1,0 +1,276 @@
+r"""
+The spatial light modulator interface: the part of
+:mod:`slmsuite_tpu.hardware.slms.slm` that the compressed spot hologram
+and the simulated rig need (numpy only). It holds the SLM's geometry
+(shape, pitch, wavelength, the normalized coordinate grid), its source
+(measured or simulated illumination), and the host-side write path
+(:meth:`SLM.set_phase`, grayscale conversion into :attr:`SLM.display`).
+
+Fitting a *measured* source amplitude (its moments or a Gaussian fit)
+comes with the simulated-rig slice (ROADMAP.md queue 1, item 9) and
+raises :class:`NotImplementedError` until then.
+"""
+
+import inspect
+import time
+from abc import ABC, abstractmethod
+
+import numpy as np
+
+from slmsuite_torch.holography import toolbox
+from slmsuite_torch.holography.toolbox import REAL_TYPES
+
+
+class SLM(ABC):
+    r"""
+    Abstract spatial light modulator.
+
+    Attributes
+    ----------
+    name : str
+    shape : (int, int)
+        ``(height, width)`` in pixels.
+    bitdepth, bitresolution : int
+        Pixel well depth in bits; ``2**bitdepth``.
+    settle_time_s : float
+        Delay after a write when ``settle`` is set.
+    pitch_um, pitch : numpy.ndarray
+        Pixel pitch in microns, and in wavelengths.
+    wav_um, wav_design_um, phase_scaling : float
+        Operating and design wavelengths, and their ratio.
+    grid : [numpy.ndarray, numpy.ndarray]
+        Normalized (wavelength-unit) coordinate meshgrids, centered.
+    source : dict
+        Measured or simulated source properties.
+    phase, display : numpy.ndarray
+        Last written phase (radians) and its quantized hardware data.
+    """
+
+    @abstractmethod
+    def __init__(
+        self,
+        resolution,
+        bitdepth=8,
+        name="SLM",
+        wav_um=1,
+        wav_design_um=None,
+        pitch_um=(8, 8),
+        settle_time_s=0.3,
+    ):
+        """``resolution`` is ``(width, height)``, the opposite of the numpy
+        order kept in :attr:`shape`."""
+        self.name = str(name)
+        width, height = resolution
+        self.shape = (int(height), int(width))
+
+        self.wav_um = float(wav_um)
+        self.wav_design_um = float(wav_um if wav_design_um is None else wav_design_um)
+        self.phase_scaling = self.wav_um / self.wav_design_um
+
+        self.bitdepth = int(bitdepth)
+        self.settle_time_s = float(settle_time_s)
+
+        if isinstance(pitch_um, REAL_TYPES):
+            pitch_um = [pitch_um, pitch_um]
+        pitch_um = np.squeeze(pitch_um)
+        if len(pitch_um) != 2 or np.any(pitch_um <= 0):
+            raise ValueError("Expected positive (float, float) for pitch_um")
+        self.pitch_um = np.array([float(pitch_um[0]), float(pitch_um[1])])
+        self.pitch = self.pitch_um / self.wav_um
+
+        xpix = (width - 1) * np.linspace(-0.5, 0.5, width)
+        ypix = (height - 1) * np.linspace(-0.5, 0.5, height)
+        self.grid = list(np.meshgrid(self.pitch[0] * xpix, self.pitch[1] * ypix))
+
+        self.source = {}
+
+        self.dtype = np.dtype(np.uint8 if self.bitdepth <= 8 else np.uint16)
+        self.phase = np.zeros(self.shape)
+        self.display = np.zeros(self.shape, dtype=self.dtype)
+
+        hw_args = inspect.signature(self._set_phase_hw).parameters.keys()
+        self._set_phase_hw_block = "block" in hw_args
+        self._set_phase_hw_execute = "execute" in hw_args
+
+        self.phase_correct = True
+        self.settle = False
+
+    @property
+    def bitresolution(self):
+        return 2**self.bitdepth
+
+    @abstractmethod
+    def close(self):
+        """Close the SLM and free hardware resources."""
+
+    @abstractmethod
+    def _set_phase_hw(self, display):
+        """Low-level write of integer ``display`` data to the hardware."""
+
+    def set_phase(self, phase, phase_correct=None, settle=None, execute=None, block=None,
+                  **kwargs):
+        r"""
+        Clean, convert and write ``phase`` to the SLM; returns
+        :attr:`display`. ``None`` zeroes the phase; a hologram's phase is
+        taken with ``get_phase()``; larger arrays are center-cropped;
+        integers of the display type are written as they are. Float phase
+        changes sign in the conversion (increasing value = decreasing
+        phase delay). ``phase_correct`` adds ``source["phase"]``;
+        ``settle`` sleeps :attr:`settle_time_s` after the write.
+        """
+        if execute is None:
+            execute = True
+        elif self._set_phase_hw_execute:
+            kwargs["execute"] = bool(execute)
+        else:
+            raise ValueError("This SLM does not support the execute argument in set_phase.")
+
+        if block is None:
+            block = True
+        elif self._set_phase_hw_block:
+            kwargs["block"] = bool(block)
+        else:
+            raise ValueError("This SLM does not support the block argument in set_phase.")
+
+        if hasattr(phase, "get_phase"):
+            phase = phase.get_phase()
+
+        if phase is None:
+            self.phase.fill(0)
+        else:
+            phase = np.asarray(phase)
+
+        if phase is not None and np.issubdtype(phase.dtype, np.integer):
+            if phase.dtype != self.display.dtype:
+                raise TypeError(
+                    f"Unexpected integer type {phase.dtype}. Expected {self.display.dtype}."
+                )
+            if np.any(phase >= self.bitresolution):
+                raise TypeError(
+                    f"Integer data must be within the bitdepth ({self.bitdepth}-bit) of the SLM."
+                )
+            if phase.shape != self.shape:
+                np.copyto(self.display, toolbox.unpad(phase, self.shape))
+            else:
+                np.copyto(self.display, phase)
+            self.phase = 2 * np.pi - self.display * (
+                2 * np.pi / self.phase_scaling / self.bitresolution
+            )
+        else:
+            if phase is not None:
+                if phase.shape != self.shape:
+                    np.copyto(self.phase, toolbox.unpad(phase, self.shape))
+                else:
+                    np.copyto(self.phase, phase)
+            if phase_correct is None:
+                phase_correct = self.phase_correct
+            if phase_correct and "phase" in self.source:
+                self.phase += np.asarray(self.source["phase"])
+            self.display = self._phase2gray(self.phase, out=self.display)
+
+        if execute:
+            self._set_phase_hw(self.display, **kwargs)
+
+        if settle is None:
+            settle = self.settle
+        if execute and settle:
+            time.sleep(self.settle_time_s)
+
+        return self.display
+
+    def _phase2gray(self, phase, out=None):
+        r"""
+        Radians to bitdepth-scaled integers. When ``phase_scaling == 1``
+        ``phase`` is left untouched (as the JAX package's native
+        conversion leaves it) and a bitwise modulo wraps a power-of-two
+        bitresolution; otherwise ``phase`` is wrapped in place with
+        ``np.mod``, with the over- and under-range handling of
+        ``phase_scaling != 1``.
+        """
+        if out is None:
+            out = np.zeros(self.shape, dtype=self.dtype)
+
+        if self.phase_scaling == 1:
+            factor = -(self.bitresolution / 2 / np.pi)
+            scaled = phase * factor
+
+            # Shift everything negative so the cast rounds one way.
+            maximum = np.amax(scaled)
+            if maximum >= 0:
+                toshift = self.bitresolution * 2 * float(np.ceil(maximum / self.bitresolution))
+                scaled -= toshift
+
+            np.rint(scaled, out=scaled)
+            np.copyto(out, scaled, casting="unsafe")
+
+            out -= 1
+            if self.bitresolution & (self.bitresolution - 1) == 0:
+                np.bitwise_and(out, int(self.bitresolution - 1), out=out)
+            else:
+                np.mod(out, self.bitresolution, out=out)
+        else:
+            factor = -(self.bitresolution * self.phase_scaling / 2 / np.pi)
+            phase *= factor
+
+            if np.amin(phase) <= -self.bitresolution or np.amax(phase) > 0:
+                phase -= 1
+                np.mod(phase, self.bitresolution * self.phase_scaling, out=phase)
+                phase += self.bitresolution * (1 - self.phase_scaling)
+                if self.phase_scaling > 1:
+                    phase[phase < 0] = self.bitresolution - 1
+            else:
+                phase += self.bitresolution - 1
+
+            np.copyto(out, phase, casting="unsafe")
+            phase *= 1 / factor
+
+        return out
+
+    def fit_source_amplitude(self, method="moments", extent_threshold=0.1, force=True):
+        """
+        Scalar source parameters (center pixel, amplitude radius, extent).
+        Without a measured ``source["amplitude"]`` they follow from the
+        SLM's geometry: the grid center, a quarter of the smaller side,
+        and the grid's extent.
+        """
+        if "amplitude_center_pix" in self.source and not force:
+            return
+
+        if "amplitude" in self.source:
+            raise NotImplementedError(
+                "Fitting a measured source amplitude comes with the simulated-rig "
+                "slice (ROADMAP.md queue 1, item 9)."
+            )
+
+        self.source["amplitude_center_pix"] = np.array(
+            [np.argmin(np.abs(self.grid[0][0, :])), np.argmin(np.abs(self.grid[1][:, 0]))]
+        )
+        self.source["amplitude_radius"] = 0.25 * np.min(
+            (self.shape[1] * self.pitch[0], self.shape[0] * self.pitch[1])
+        )
+        self.source["amplitude_extent"] = np.array(
+            [np.max(np.abs(self.grid[0])), np.max(np.abs(self.grid[1]))]
+        )
+        self.source["amplitude_extent_radius"] = np.sqrt(
+            np.amax(np.square(self.grid[0]) + np.square(self.grid[1]))
+        )
+
+    def get_source_zernike_scaling(self):
+        """Zernike aperture scaling from the source radius."""
+        self.fit_source_amplitude(force=False)
+        return np.reciprocal(2 * self.source["amplitude_radius"])
+
+    def _get_source_amplitude(self):
+        """Source amplitude; uniform if unmeasured."""
+        if "amplitude" in self.source:
+            return self.source["amplitude"]
+        return np.ones(self.shape)
+
+    def get_spot_radius_kxy(self):
+        """Expected farfield spot standard-deviation radius in kxy units."""
+        self.fit_source_amplitude(force=False)
+        rad_freq = np.reciprocal(self.source["amplitude_radius"] / np.mean(self.pitch))
+        psf_kxy = toolbox.convert_vector(
+            [rad_freq, rad_freq], "freq", "kxy", hardware=self, shape=self.shape
+        )
+        return np.mean(psf_kxy)

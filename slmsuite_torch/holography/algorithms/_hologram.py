@@ -129,8 +129,9 @@ class Hologram(_HologramStats):
             Nearfield amplitude (normalized internally); uniform if None.
         phase : array_like OR None
             Initial nearfield phase (random if None).
-        slm_shape : (int, int) OR None
-            Nearfield shape.
+        slm_shape : (int, int) OR SLM OR None
+            Nearfield shape, or an SLM to take it from (with its measured
+            source amplitude as ``amp`` when ``amp`` is None).
         dtype : type
             Host dtype: float32 (default) or float64. The loop runs in f32.
         propagation_kernel : array_like OR None
@@ -142,12 +143,18 @@ class Hologram(_HologramStats):
             Initial :attr:`flags`.
         """
         self.device = resolve_device(device)
-        if slm_shape is not None:
-            if hasattr(slm_shape, "shape") and hasattr(slm_shape, "grid"):
-                raise NotImplementedError(
-                    "SLM objects as slm_shape come with the hardware slice "
-                    "(ROADMAP.md queue 1, item 9); pass a shape."
-                )
+        if hasattr(slm_shape, "slm") and hasattr(slm_shape, "cam"):
+            raise NotImplementedError(
+                "CameraSLMs come with the simulated-rig slice (ROADMAP.md queue 1, "
+                "item 9); pass its SLM."
+            )
+        if hasattr(slm_shape, "shape") and hasattr(slm_shape, "grid"):
+            # An SLM: its shape, and its measured source amplitude as amp.
+            source_amp = slm_shape.source.get("amplitude")
+            if amp is None and source_amp is not None:
+                amp = np.asarray(source_amp)
+            slm_shape = tuple(slm_shape.shape)
+        elif slm_shape is not None:
             slm_shape = tuple(int(v) for v in np.ravel(slm_shape))
 
         candidates = []

@@ -1,25 +1,64 @@
 r"""
-:class:`SpotHologram`: DFT-based optical focus arrays (port of the
-``SpotHologram`` part of :mod:`slmsuite_tpu.holography.algorithms._spots`).
+Optical focus arrays (port of :mod:`slmsuite_tpu.holography.algorithms._spots`):
+:class:`SpotHologram` (DFT grid based) and :class:`CompressedSpotHologram`
+(grid-free, in a Zernike basis).
 
-This slice covers spots given in the computational ``"knm"`` basis
-without hardware, on padded or unpadded farfields, optimized with
+:class:`SpotHologram` covers spots given in the computational ``"knm"``
+basis without hardware, on padded or unpadded farfields, optimized with
 ``computational`` or spot-integrated ``computational_spot`` feedback on
 the device engine. The ``"kxy"``/``"ij"`` bases and camera feedback need
 a ``cameraslm`` (ROADMAP.md queue 1, item 9); spot null regions are not
 ported yet (item 6).
+
+:class:`CompressedSpotHologram` takes a bare SLM and runs the compressed
+engine (:mod:`slmsuite_torch.ops.compressed`) with ``computational_spot``
+feedback. The host-paced loop (callbacks, experimental or external
+feedback, MRAF with ``zero_factor``) and conjugate gradient are queued
+under item 6, CameraSLMs under item 9 and mesh-sharded runs under item 11.
 """
+
+import os
+import warnings
 
 import numpy as np
 import torch
 
+from slmsuite_torch.holography import toolbox
 from slmsuite_torch.holography.algorithms._feedback import FeedbackHologram
 from slmsuite_torch.holography.algorithms._hologram import Hologram
 from slmsuite_torch.holography.toolbox import REAL_TYPES, format_2vectors
+from slmsuite_torch.holography.toolbox import phase as _tphase
+from slmsuite_torch.ops import compressed as _comp
 from slmsuite_torch.ops import engine as _engine
+from slmsuite_torch.ops.weights import update_weights_generic
 
 
-class SpotHologram(FeedbackHologram):
+class _AbstractSpotHologram(FeedbackHologram):
+    """Shared spot logic: no vortex removal, and the camera and external
+    spot statistics."""
+
+    def remove_vortices(self):
+        """Spot holograms do not need to consider vortices."""
+
+    def _populate_stats(self, stats, stat_groups):
+        super()._populate_stats(stats, stat_groups)
+        if "experimental_spot" in stat_groups:
+            raise NotImplementedError(
+                "Camera spot statistics come with the simulated-rig slice "
+                "(ROADMAP.md queue 1, item 9)."
+            )
+        if "external_spot" in stat_groups:
+            pwr_feedback = np.square(np.asarray(self.external_spot_amp, dtype=self.dtype))
+            stats["external_spot"] = self._calculate_stats(
+                np.sqrt(pwr_feedback),
+                self.spot_amp,
+                efficiency_compensation=False,
+                total=np.sum(pwr_feedback),
+                raw=bool(self.flags.get("raw_stats")),
+            )
+
+
+class SpotHologram(_AbstractSpotHologram):
     """
     N spots at ``"knm"`` (computational pixel) positions, with per-spot
     amplitude targets.
@@ -203,3 +242,441 @@ class SpotHologram(FeedbackHologram):
         consts["spot_amp"] = torch.as_tensor(
             np.asarray(self.spot_amp, np.float32), device=self.device
         )
+
+
+class CompressedSpotHologram(_AbstractSpotHologram):
+    r"""
+    Grid-free spot holography: the farfield is a length-``N`` complex
+    vector, and the near/far transform is an explicit kernel in which each
+    spot carries its own Zernike coefficients (3D position and
+    aberrations). The loop runs on :mod:`slmsuite_torch.ops.compressed`:
+    the CUDA kernels for a CUDA device, the plain versions for the CPU.
+
+    Attributes
+    ----------
+    spot_zernike : numpy.ndarray
+        ``(D, N)`` spot coefficients in the Zernike basis.
+    zernike_basis : numpy.ndarray
+        ANSI indices of the basis (``-1`` is the vortex waveplate).
+    spot_kxy : numpy.ndarray
+        ``(2, N)`` or ``(3, N)`` spot positions in ``"kxy"``.
+    spot_ij : None
+        Camera-basis positions (they need a CameraSLM, item 9).
+    """
+
+    def __init__(self, spot_vectors, basis="kxy", spot_amp=None, cameraslm=None, cuda=None,
+                 **kwargs):
+        """
+        Initialize from ``(D, N)`` spot vectors in basis ``"kxy"`` (or
+        another SLM unit of :meth:`toolbox.convert_vector`),
+        ``"zernike"``, or an explicit list of ANSI indices. ``cameraslm``
+        is an SLM. ``cuda`` is kept for the JAX package's signature: the
+        device decides the route (the kernels on a CUDA device, the plain
+        versions on the CPU), and a ``cuda`` that contradicts it raises.
+        """
+        if cameraslm is None:
+            raise ValueError("cameraslm must be passed.")
+
+        spot_vectors = toolbox.format_vectors(spot_vectors, handle_dimension="pass")
+        D, N = spot_vectors.shape
+        if N == 0:
+            raise ValueError("CompressedSpotHologram requires at least one spot.")
+
+        if spot_amp is not None:
+            self.spot_amp = np.asarray(spot_amp).ravel()
+            if self.spot_amp.size != N:
+                raise ValueError("spot_amp must have the same length as the spots.")
+        else:
+            self.spot_amp = np.full(N, 1.0 / np.sqrt(N))
+
+        if isinstance(basis, str):
+            self.zernike_basis = _tphase._zernike_indices_parse(None, D)
+        else:
+            self.zernike_basis = np.ravel(basis)
+            basis = "zernike"
+            if len(self.zernike_basis) != D:
+                raise ValueError("zernike_basis must match the spot dimension.")
+            if 0 in self.zernike_basis:
+                warnings.warn(
+                    "Found ANSI index '0' (piston) in the zernike_basis; "
+                    "spot phase is controlled externally."
+                )
+
+        if not np.any(self.zernike_basis == 2) or not np.any(self.zernike_basis == 1):
+            raise ValueError("Compressed basis must include x, y (ANSI indices 2, 1)")
+        cartesian = [np.argwhere(self.zernike_basis == 2)[0],
+                     np.argwhere(self.zernike_basis == 1)[0]]
+        if np.any(self.zernike_basis == 4):
+            cartesian.append(np.argwhere(self.zernike_basis == 4)[0])
+        self.zernike_basis_cartesian = np.squeeze(cartesian)
+
+        if basis == "zernike":
+            self.spot_zernike = np.array(spot_vectors, dtype=float)
+            self.spot_kxy = toolbox.convert_vector(
+                spot_vectors[self.zernike_basis_cartesian, :], "zernike", "kxy",
+                hardware=cameraslm,
+            )
+        else:
+            self.spot_zernike = toolbox.convert_vector(
+                spot_vectors, basis, "zernike", hardware=cameraslm
+            )
+            self.spot_kxy = toolbox.convert_vector(spot_vectors, basis, "kxy",
+                                                   hardware=cameraslm)
+
+        # A CameraSLM bounds the spots laterally by its SLM's farfield (and
+        # then raises in FeedbackHologram: CameraSLMs come with item 9).
+        if hasattr(cameraslm, "slm"):
+            kmax = 1.0 / np.min(cameraslm.slm.pitch) / 2.0
+            if np.any(np.abs(self.spot_kxy[:2, :]) > 1.1 * kmax):
+                raise ValueError("Spots laterally outside the bounds of the farfield")
+        self.spot_ij = None
+        self.spot_integration_width_ij = None
+
+        super().__init__(shape=None, target_ij=None, cameraslm=cameraslm, **kwargs)
+        self.shape = self.slm_shape
+
+        self.set_target(new_target=self.spot_amp, reset_weights=True)
+        self.reset()
+
+        self.external_spot_amp = np.copy(self.spot_amp)
+
+        self._basis = _comp.build_zernike_basis(self.zernike_basis, cameraslm)
+        on_card = self.device.type == "cuda"
+        if cuda is not None and bool(cuda) != on_card:
+            raise ValueError(
+                f"cuda={cuda} contradicts the device {self.device}: the device "
+                "decides whether the CUDA kernels run."
+            )
+        self.cuda = on_card
+
+    def __len__(self):
+        return int(self.spot_amp.size)
+
+    def get_padded_shape(self, *args, **kwargs):
+        """Compressed holograms have no DFT grid and need no padding."""
+        raise NameError(
+            "CompressedSpotHologram does not use a DFT grid and does not need padding."
+        )
+
+    # ------------------------------------------------------------------
+    # Target management.
+    # ------------------------------------------------------------------
+
+    def _set_target(self, new_target, reset_weights=False):
+        if not hasattr(self, "spot_amp"):
+            self.target = None
+            return
+        self.set_target(new_target, reset_weights)
+
+    def set_target(self, new_target=None, reset_weights=False):
+        """Set the ``(N,)`` spot-amplitude target (cleans and normalizes;
+        nan marks an MRAF noise spot)."""
+        if new_target is None:
+            self.target = np.asarray(self.spot_amp, dtype=self.dtype)
+        else:
+            new_target = np.squeeze(np.asarray(new_target).ravel())
+            if new_target.shape != (len(self),):
+                raise ValueError("Target must have one amplitude per spot.")
+            self.target = np.array(new_target, dtype=self.dtype)
+            self.spot_amp = np.array(new_target, dtype=self.dtype)
+
+        self.target = np.abs(self.target)
+        self.target = self.target / Hologram._norm(self.target)
+
+        if reset_weights:
+            self.reset_weights()
+
+    # ------------------------------------------------------------------
+    # The phase is stored directly (no fold), flat on the device after a run.
+    # ------------------------------------------------------------------
+
+    @property
+    def phase(self):
+        psi = self._psi
+        if psi is None:
+            return None
+        return np.asarray(psi, dtype=self.dtype).reshape(self.slm_shape)
+
+    @phase.setter
+    def phase(self, value):
+        self._psi = None if value is None else np.asarray(value, dtype=self.dtype)
+
+    @property
+    def phase_ff(self):
+        """(N,) farfield spot phases."""
+        return self._phase_ff_folded
+
+    @phase_ff.setter
+    def phase_ff(self, value):
+        self._phase_ff_folded = None if value is None else np.asarray(value)
+
+    @property
+    def farfield(self):
+        """(N,) complex spot farfield."""
+        if self.amp_ff is None:
+            return None
+        return np.asarray(self.amp_ff) * np.exp(1j * np.asarray(self._phase_ff_folded))
+
+    def get_farfield(self, *args, **kwargs):
+        """(N,) complex spot farfield from the current phase."""
+        self._populate_results()
+        return self.farfield
+
+    # ------------------------------------------------------------------
+    # Engine integration.
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _host_fingerprint(host):
+        """Shape and the bytes of <= 1024 strided samples of a host array
+        (None for a tensor): catches in-place edits that identity misses."""
+        if not isinstance(host, np.ndarray):
+            return None
+        flat = host.reshape(-1)
+        return (host.shape, flat[::max(1, flat.size // 1024)].tobytes())
+
+    def _dev_const(self, key, host, make):
+        """``make(host)``, kept on the device across calls while ``host`` is
+        the same array with the same fingerprint."""
+        cache = self.__dict__.setdefault("_dev_cache", {})
+        fp = self._host_fingerprint(host)
+        cached = cache.get(key)
+        if cached is not None and cached[0] is host and cached[1] == fp:
+            return cached[2]
+        dev = make(host)
+        cache[key] = (host, fp, dev)
+        return dev
+
+    def _kernel_cache_enabled(self):
+        """Whether the loop streams the cos/sin cache instead of recomputing
+        the sincos: when the cache fits ``SLMSUITE_TORCH_COMPRESSED_CACHE_MB``
+        (default 4096; ``0`` disables)."""
+        try:
+            budget_mb = float(os.environ.get("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", 4096))
+        except ValueError:
+            budget_mb = 4096.0
+        return _comp.kernel_cache_bytes(len(self), int(np.prod(self.slm_shape))) \
+            <= budget_mb * 1e6
+
+    def _compressed_config(self, kernel_cache=False):
+        return _comp.CompressedGSConfig(
+            method=self.flags["method"],
+            n_pixels=int(np.prod(self.slm_shape)),
+            n_spots=len(self),
+            stat_groups=tuple(
+                g for g in self.flags.get("stat_groups", []) if g == "computational_spot"
+            ),
+            kim_efficiency_trigger=(
+                "Kim" in self.flags["method"]
+                and self.flags.get("fix_phase_efficiency") is not None
+            ),
+            mraf=self._mraf_enabled(),
+            kernel_cache=kernel_cache,
+        )
+
+    def _compressed_consts(self, kernel_cache=False):
+        device = self.device
+
+        def dev(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+        amp = self.amp
+        if np.isscalar(amp) or np.ndim(amp) == 0:
+            amp_flat = float(amp)
+        else:
+            amp_flat = self._dev_const("amp", amp, lambda a: dev(np.ravel(a)))
+
+        def target_pair(t):
+            clean = np.nan_to_num(np.asarray(t, np.float32))
+            return dev(clean), dev(clean != 0, torch.bool)
+
+        target, stat_mask = self._dev_const("target", self.target, target_pair)
+        consts = {
+            "amp": amp_flat,
+            "coeffs": self._dev_const("coeffs", self.spot_zernike, dev),
+            "basis": self._dev_const("basis", self._basis, dev),
+            "target": target,
+            "stat_mask": stat_mask,
+            "feedback_exponent": dev(self.flags.get("feedback_exponent", 0.8)),
+            "feedback_factor": dev(self.flags.get("feedback_factor", 0.1)),
+            "fix_phase_iteration": dev(self.flags.get("fix_phase_iteration", 10), torch.int32),
+            "fix_phase_efficiency": dev(self.flags.get("fix_phase_efficiency") or np.nan),
+        }
+        if self._mraf_enabled():
+            # nan spot_amp: noise spots (amplitude freedom); zeros: null spots.
+            def masks(t):
+                t = np.asarray(t, float)
+                return (dev(~np.isnan(t) & (np.nan_to_num(t) > 0), torch.bool),
+                        dev(np.isnan(t), torch.bool))
+
+            consts["signal_mask"], consts["noise_mask"] = self._dev_const(
+                "mraf_masks", self.target, masks)
+            mraf_factor = self.flags.get("mraf_factor")
+            consts["mraf_k"] = dev(1.0 if mraf_factor is None else mraf_factor)
+        if kernel_cache:
+            consts["kc_tiles"], consts["ks_tiles"] = self._kernel_cache_tiles(
+                consts["coeffs"], consts["basis"]
+            )
+        return consts
+
+    def _kernel_cache_tiles(self, coeffs_dev, basis_dev):
+        """The device cos/sin cache, rebuilt only when the spot coefficients
+        or the basis change (identity and fingerprint of both)."""
+        spots, basis = self.spot_zernike, self._basis
+        fp = (self._host_fingerprint(spots), self._host_fingerprint(basis))
+        cached = self.__dict__.get("_kcache")
+        if cached is not None and cached[0] is spots and cached[1] is basis and cached[2] == fp:
+            return cached[3]
+        tiles = _comp.build_kernel_cache(coeffs_dev, basis_dev)
+        self._kcache = (spots, basis, fp, tiles)
+        return tiles
+
+    def _compressed_state(self):
+        """The engine's state from the hologram (resident tensors are used
+        as they are)."""
+        device = self.device
+        phase_ff = type(self)._phase_ff_folded.device(self, device)
+        return _comp.CompressedGSState(
+            psi=type(self)._psi.device(self, device).reshape(-1),
+            weights=torch.nan_to_num(type(self).weights.device(self, device)),
+            phase_ff=(phase_ff if phase_ff is not None
+                      else torch.zeros(len(self), dtype=torch.float32, device=device)),
+            fixed_phase=torch.tensor(bool(self.flags.get("fixed_phase", False)),
+                                     device=device),
+            unfixed_streak=torch.zeros((), dtype=torch.int32, device=device),
+            iteration=torch.tensor(self.iter, dtype=torch.int32, device=device),
+        )
+
+    def optimize_gs(self, maxiter, callback, verbose=True, name=None):
+        """Compressed GS/WGS on the engine, in chunks (progress reporting
+        between chunks when ``verbose``), with one packed download at the
+        end."""
+        if isinstance(maxiter, range):
+            maxiter = len(maxiter)
+
+        feedback = self.flags.get("feedback", "computational")
+        if feedback == "computational":
+            feedback = self.flags["feedback"] = "computational_spot"
+        if feedback == "experimental":
+            feedback = self.flags["feedback"] = "experimental_spot"
+
+        if (
+            callback is not None
+            or self._stats_pending_groups()
+            or feedback in ("experimental_spot", "external_spot")
+            or (bool(self.flags.get("zero_factor", 0)) and self._mraf_enabled())
+        ):
+            raise NotImplementedError(
+                "The host-paced compressed loop (callbacks, experimental or external "
+                "feedback, MRAF with zero_factor) is not ported yet (ROADMAP.md queue 1, "
+                "item 6)."
+            )
+
+        config = self._compressed_config(kernel_cache=self._kernel_cache_enabled())
+        consts = self._compressed_consts(kernel_cache=config.kernel_cache)
+        state = self._compressed_state()
+        start_iter = self.iter
+
+        progress = None
+        if verbose and maxiter > 1:
+            try:
+                from tqdm.auto import tqdm
+            except ImportError:
+                tqdm = None
+            if tqdm is not None:
+                progress = tqdm(total=maxiter, desc=name)
+        chunk = maxiter if not verbose else max(1, int(np.ceil(maxiter / 10)))
+        all_stats = []
+        remaining = maxiter
+        while remaining > 0:
+            n = min(chunk, remaining)
+            state, stats = _comp.run_compressed_gs(config, state, consts, n)
+            all_stats.append(stats)
+            remaining -= n
+            if progress is not None:
+                progress.update(n)
+        if progress is not None:
+            progress.close()
+
+        self._finalize_scan_fused(state, all_stats, config, consts, start_iter)
+
+    def _finalize_scan_fused(self, state, all_stats, config, consts, start_iter):
+        """Adopt the final state, the farfield of the final phase and the
+        stats with ONE download: everything small is packed into one f32
+        vector on the device. The phase stays on the device."""
+        N = len(self)
+        nf_re, nf_im = _comp.nearfield(state.psi, consts["amp"])
+        ff_re, ff_im = _comp.nearfield_to_farfield(nf_re, nf_im, consts["coeffs"],
+                                                   consts["basis"])
+        stats = torch.cat(all_stats) if all_stats else None
+        packed = torch.cat([
+            state.weights.to(torch.float32),
+            torch.atan2(ff_im, ff_re),
+            torch.sqrt(ff_re**2 + ff_im**2),
+            torch.stack([state.fixed_phase.to(torch.float32),
+                         state.iteration.to(torch.float32)]),
+            *([] if stats is None else [stats.reshape(-1)]),
+        ]).cpu().numpy()
+
+        self._psi = state.psi.reshape(self.slm_shape)
+        self.weights = packed[:N].copy()
+        self._phase_ff_folded = packed[N:2 * N].copy()
+        self._farfield_folded = None
+        self.amp_ff = packed[2 * N:3 * N].copy()
+        self.flags["fixed_phase"] = bool(packed[3 * N])
+        self._final_fixed_phase = bool(packed[3 * N])
+        self.iter = int(packed[3 * N + 1])
+        if config.stat_groups and stats is not None:
+            self._record_scan_stats(packed[3 * N + 2:].reshape(tuple(stats.shape)),
+                                    start_iter)
+
+    def _populate_results(self):
+        """The (N,) farfield amplitude and phase of the current phase."""
+        consts = self._compressed_consts()
+        psi = type(self)._psi.device(self, self.device).reshape(-1)
+        ff_re, ff_im = _comp.nearfield_to_farfield(
+            *_comp.nearfield(psi, consts["amp"]), consts["coeffs"], consts["basis"]
+        )
+        self._farfield_folded = None
+        self.amp_ff = torch.sqrt(ff_re**2 + ff_im**2).cpu().numpy()
+        self._phase_ff_folded = torch.atan2(ff_im, ff_re).cpu().numpy()
+
+    def optimize_cg(self, *args, **kwargs):
+        """Gradient descent through the compressed transform."""
+        raise NotImplementedError(
+            "Conjugate-gradient optimization of compressed holograms is not ported yet "
+            "(ROADMAP.md queue 1, item 6)."
+        )
+
+    # ------------------------------------------------------------------
+    # Weighting and stats.
+    # ------------------------------------------------------------------
+
+    def _update_weights(self):
+        """Host-side weight update from the computed spot amplitudes."""
+        feedback = self.flags["feedback"]
+        if feedback == "computational":
+            feedback = self.flags["feedback"] = "computational_spot"
+        if feedback != "computational_spot":
+            raise NotImplementedError(
+                f"Feedback '{feedback}' needs the host-paced loop (ROADMAP.md queue 1, "
+                "items 6 and 9)."
+            )
+
+        def host(x):
+            return torch.as_tensor(np.nan_to_num(np.asarray(x, np.float32)))
+
+        self.weights = update_weights_generic(
+            host(self.weights), host(self.amp_ff), host(self.target), self.flags["method"],
+            self.flags.get("feedback_exponent", 0.8), self.flags.get("feedback_factor", 0.1),
+        ).numpy()
+
+    def _populate_stats(self, stats, stat_groups):
+        if "computational_spot" in stat_groups and self.amp_ff is not None:
+            stats["computational_spot"] = self._calculate_stats(
+                np.asarray(self.amp_ff),
+                np.nan_to_num(np.asarray(self.target)),
+                efficiency_compensation=False,
+                raw=bool(self.flags.get("raw_stats")),
+            )
+        _AbstractSpotHologram._populate_stats(self, stats, stat_groups)

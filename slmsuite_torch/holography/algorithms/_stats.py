@@ -66,6 +66,22 @@ class _HologramStats:
         if stats_array.shape[0]:
             self.flags["fixed_phase"] = bool(self._final_fixed_phase)
 
+    def _update_stats(self, stat_groups=()):
+        """Compute and record the host-side stats of the current iteration."""
+        stats = {}
+        self._populate_stats(stats, stat_groups)
+        self._update_stats_dictionary(stats)
+
+    def _populate_stats(self, stats, stat_groups):
+        """Fill ``stats`` with the groups this class computes."""
+        if "computational" in stat_groups:
+            stats["computational"] = self._calculate_stats(
+                self.get_amp_ff(),
+                np.asarray(self.target),
+                efficiency_compensation=False,
+                raw=bool(self.flags.get("raw_stats")),
+            )
+
     def _update_stats_dictionary(self, stats, iteration=None):
         """
         Merge one iteration's ``{group: {stat: value}}`` into :attr:`stats`,

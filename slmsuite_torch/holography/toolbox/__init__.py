@@ -1,0 +1,257 @@
+"""
+The vector, unit and grid helpers the port's hologram classes and SLM
+need, with the semantics of :mod:`slmsuite_tpu.holography.toolbox`
+(numpy and scipy only).
+
+Camera units (``"ij"`` and the metric camera-plane units) need a
+Fourier-calibrated CameraSLM, which comes with the simulated-rig slice
+(ROADMAP.md queue 1, item 9): until then :meth:`convert_vector` warns and
+returns nan for them, as the JAX package does without a calibration.
+"""
+
+import warnings
+
+import numpy as np
+from scipy.spatial import distance
+
+#: Real scalar types.
+REAL_TYPES = (int, float, np.integer, np.floating)
+
+#: Microns per unit of length.
+LENGTH_FACTORS = {"m": 1e6, "cm": 1e4, "mm": 1e3, "um": 1.0, "nm": 1e-3}
+
+#: Camera-plane units: pixels and (magnified) lengths.
+CAMERA_UNITS = ["ij"] + [p + k for p in ("", "mag_") for k in LENGTH_FACTORS]
+
+#: Every unit :meth:`convert_vector` takes.
+BLAZE_UNITS = ["rad", "mrad", "deg", "norm", "kxy", "knm", "freq", "lpmm",
+               "zernike"] + CAMERA_UNITS
+
+
+def format_vectors(vectors, expected_dimension=2, handle_dimension="pass"):
+    """
+    Clean an array of M-dimensional vectors into shape ``(M, N)``: tuples,
+    row vectors and singletons handled. ``handle_dimension`` is the policy
+    for more than ``M`` rows: ``"error"``, ``"crop"`` or ``"pass"``.
+    """
+    expected_dimension = int(expected_dimension)
+    if handle_dimension not in ("error", "crop", "pass"):
+        raise ValueError(f"handle_dimension '{handle_dimension}' not recognized.")
+
+    vectors = np.squeeze(np.asarray(vectors))
+    if vectors.ndim == 1:
+        vectors = vectors[:, np.newaxis]
+    elif vectors.ndim == 2 and vectors.shape[0] == 1:
+        vectors = vectors.T
+
+    if vectors.ndim != 2:
+        raise ValueError(f"Wrong dimension {vectors.shape} for vectors.")
+
+    rows = vectors.shape[0]
+    if rows < expected_dimension:
+        raise ValueError(f"Expected {expected_dimension}-vectors; found {rows}-vectors.")
+    if rows > expected_dimension:
+        if handle_dimension == "crop":
+            vectors = vectors[:expected_dimension, :]
+        elif handle_dimension == "error":
+            raise ValueError(
+                f"Expected {expected_dimension}-vectors; found {rows}-vectors."
+            )
+    return vectors
+
+
+def format_2vectors(vectors):
+    """Clean an array of 2-vectors into shape ``(2, N)`` (extra dimensions
+    cropped)."""
+    return format_vectors(vectors, expected_dimension=2, handle_dimension="crop")
+
+
+def format_shape(shape, expected_dimension=2):
+    """Validate and normalize a shape tuple of positive integers."""
+    shape = tuple(np.squeeze(shape))
+    if expected_dimension is not None and len(shape) != expected_dimension:
+        raise ValueError(
+            f"Expected shape with {expected_dimension} dimensions, got {len(shape)}"
+        )
+    for dim in shape:
+        if not isinstance(dim, (int, np.integer)) or dim <= 0:
+            raise ValueError(f"Expected positive integer dimensions, got {shape}")
+    return tuple(int(d) for d in shape)
+
+
+def unpad(matrix, shape):
+    """Center-crop ``matrix`` to ``shape``."""
+    mshape = np.shape(matrix)
+    shape = format_shape(shape)
+    dh = (mshape[0] - shape[0]) / 2.0
+    dw = (mshape[1] - shape[1]) / 2.0
+    if dh < 0 or dw < 0:
+        raise ValueError(f"Shape {tuple(mshape)} too small to unpad to {shape}")
+    y0, x0 = int(np.floor(dh)), int(np.floor(dw))
+    return matrix[y0:int(mshape[0] - np.ceil(dh)), x0:int(mshape[1] - np.ceil(dw))]
+
+
+def convert_vector(vector, from_units="norm", to_units="norm", hardware=None, shape=None):
+    r"""
+    Convert blaze vectors between k-space units: ``"rad"``, ``"mrad"``,
+    ``"deg"`` (blaze angle), ``"norm"``/``"kxy"`` (:math:`k_x/k`),
+    ``"knm"`` (computational Fourier-grid pixels centered at ``shape/2``),
+    ``"freq"`` (grating pixel frequency), ``"lpmm"`` (line pairs per mm)
+    and ``"zernike"`` (tilt coefficients in radians). The SLM units need
+    ``hardware`` (an SLM); ``shape`` defaults to the SLM's for ``"knm"``.
+
+    3D vectors carry a :math:`z` row, handled as normalized focal power
+    :math:`\lambda/f`, or as the focus coefficient in ``"zernike"``.
+    Returns ``(2, N)`` or ``(3, N)`` vectors.
+    """
+    if from_units not in BLAZE_UNITS:
+        raise ValueError(f"Unit '{from_units}' not in {BLAZE_UNITS}")
+    if to_units not in BLAZE_UNITS:
+        raise ValueError(f"Unit '{to_units}' not in {BLAZE_UNITS}")
+
+    parsed = format_vectors(vector, expected_dimension=2, handle_dimension="pass").astype(float)
+    if from_units == to_units:
+        return parsed
+
+    if from_units in CAMERA_UNITS or to_units in CAMERA_UNITS:
+        warnings.warn(
+            f"A Fourier-calibrated CameraSLM is required for '{from_units}' -> '{to_units}'"
+        )
+        return np.full_like(parsed, np.nan)
+
+    xy = parsed[:2, :].copy()
+    z = parsed[[2], :].copy() if parsed.shape[0] > 2 else None
+    slm = hardware.slm if hasattr(hardware, "slm") else hardware
+
+    def slm_pitch_um():
+        if slm is None:
+            warnings.warn("An SLM is required for this unit conversion.")
+            return np.nan, np.nan
+        return format_2vectors(slm.pitch_um), slm.wav_um
+
+    if "freq" in (from_units, to_units):
+        pitch_um, wav_um = slm_pitch_um()
+    if "lpmm" in (from_units, to_units):
+        _, wav_um = slm_pitch_um()
+
+    if "knm" in (from_units, to_units):
+        pitch = format_2vectors(slm.pitch) if slm is not None else np.nan
+        if shape is None:
+            if slm is None:
+                warnings.warn("shape or slm required for unit 'knm'")
+                shape_arr = np.array((np.nan, np.nan))
+            else:
+                shape_arr = np.array(slm.shape, dtype=float)
+        else:
+            shape_arr = np.array(format_shape(shape), dtype=float)
+        shape_xy = format_2vectors(np.flip(np.squeeze(shape_arr)))
+        knm_conv = pitch * shape_xy
+
+    if "zernike" in (from_units, to_units):
+        zernike_scale = (
+            np.nan if slm is None else 2 * np.pi / slm.get_source_zernike_scaling()
+        )
+
+    # xy: input -> normalized kxy.
+    if from_units in ("norm", "kxy", "rad"):
+        rad = xy
+    elif from_units == "mrad":
+        rad = xy / 1e3
+    elif from_units == "deg":
+        rad = xy * (np.pi / 180)
+    elif from_units == "knm":
+        rad = (xy - shape_xy / 2.0) / knm_conv
+    elif from_units == "freq":
+        rad = xy * wav_um / pitch_um
+    elif from_units == "lpmm":
+        rad = xy * wav_um / 1e3
+    else:  # zernike
+        rad = xy / zernike_scale
+
+    # xy: normalized kxy -> output.
+    if to_units in ("norm", "kxy", "rad"):
+        out_xy = rad
+    elif to_units == "mrad":
+        out_xy = rad * 1e3
+    elif to_units == "deg":
+        out_xy = rad * (180 / np.pi)
+    elif to_units == "knm":
+        out_xy = rad * knm_conv + shape_xy / 2.0
+    elif to_units == "freq":
+        out_xy = rad * pitch_um / wav_um
+    elif to_units == "lpmm":
+        out_xy = rad * 1e3 / wav_um
+    else:  # zernike
+        out_xy = rad * zernike_scale
+
+    if z is None:
+        return out_xy
+
+    # z: focal power in and out (the Zernike focus coefficient converts).
+    focal_power = (
+        z * ((8 * np.pi) / (zernike_scale * zernike_scale))
+        if from_units == "zernike" else z
+    )
+    out_z = (
+        focal_power * ((zernike_scale * zernike_scale) / (8 * np.pi))
+        if to_units == "zernike" else focal_power
+    )
+    return np.vstack((out_xy, out_z))
+
+
+def smallest_distance(vectors, metric="chebyshev"):
+    r"""
+    Smallest pairwise distance among ``vectors`` under ``metric``
+    (:math:`\mathcal{O}(N\log N)` divide and conquer for scipy string
+    metrics, brute force for callables); ``inf`` for fewer than 2 points.
+    """
+    vectors = format_2vectors(vectors)
+    N = vectors.shape[1]
+    if N <= 1:
+        return np.inf
+
+    if callable(metric):
+        best = np.inf
+        for a in range(N - 1):
+            for b in range(a + 1, N):
+                best = min(best, metric(vectors[:, a], vectors[:, b]))
+        return best
+
+    points = vectors.T.astype(float)
+    min_div = 200
+
+    def recurse(v):
+        n = v.shape[0]
+        if n <= min_div:
+            return distance.pdist(v, metric=metric).min()
+        mid = n // 2
+        d = min(recurse(v[:mid]), recurse(v[mid:]))
+        x0 = (v[mid - 1, 0] + v[mid, 0]) / 2
+        strip = v[np.abs(v[:, 0] - x0) < d]
+        if strip.shape[0] > 1:
+            d = min(d, distance.pdist(strip, metric=metric).min())
+        return d
+
+    if N < 2 * min_div:
+        return distance.pdist(points, metric=metric).min()
+    order = np.argsort(points[:, 0])
+    return recurse(points[order])
+
+
+def _process_grid(grid):
+    """
+    Interpret a grid argument: ``(x_grid, y_grid)`` meshgrids, or an object
+    with a ``.grid`` attribute (an SLM), or one with a ``.slm``.
+    """
+    if hasattr(grid, "slm"):
+        grid = grid.slm
+    if hasattr(grid, "grid"):
+        grid = grid.grid
+    elif hasattr(grid, "x_grid") and hasattr(grid, "y_grid"):
+        return (grid.x_grid, grid.y_grid)
+
+    if len(grid) != 2:
+        raise ValueError("Expected a 2-tuple with x and y meshgrids.")
+    if np.any(np.shape(grid[0]) != np.shape(grid[1])):
+        raise ValueError("x and y meshgrids must share a shape.")
+    return grid

@@ -1,0 +1,196 @@
+"""
+CUDA kernels of the compressed spot transforms (counterpart of
+:mod:`slmsuite_tpu.ops.pallas_compressed`) and their wrappers. The source
+is ``slmsuite_torch/csrc/compressed.cu``; it is built with the other
+kernels by :func:`slmsuite_torch.ops.cuda_fft.build` on the first launch
+(importing this module builds nothing).
+
+Each wrapper checks its inputs (CUDA, float32, contiguous, consistent
+lengths, at most 16 Zernike terms, a spot count whose shared memory fits)
+and raises on anything else, allocates its outputs and the per-block
+partials, launches on the current stream, raises if the launcher reports
+an error, and counts its call in :data:`LAUNCHES` (one per call, for the
+kernel and the fixed-order passes that finish it).
+
+The plain PyTorch version of each kernel is the underscored function of
+the same name in :mod:`slmsuite_torch.ops.compressed`.
+"""
+
+import ctypes
+
+import torch
+
+from slmsuite_torch.ops import cuda_fft
+from slmsuite_torch.ops.cuda_fft import _ptr
+
+#: Calls per wrapper since the last :meth:`reset_launch_counts`.
+LAUNCHES = {"f2n": 0, "n2f": 0, "fused_iter": 0, "fused_iter_cached": 0}
+
+#: Zernike terms the kernels take (``kMaxD`` in the source).
+MAX_TERMS = 16
+#: Shared memory a block may use on the H100, in bytes.
+_SMEM_LIMIT = 227 * 1024
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "slm_cmp_f2n": [_P] * 4 + [_I, _I, _I, _F, _P, _P, _P],
+    "slm_cmp_n2f": [_P] * 4 + [_I, _I, _I, _F, _P, _P, _P, _P],
+    "slm_cmp_fused": [_P] * 5 + [_I, _I, _I, _P, _P, _P, _P],
+    "slm_cmp_fused_cached": [_P] * 4 + [_I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "slm_cmp_block_pixels": [],
+}
+
+_BOUND = None
+
+
+def reset_launch_counts():
+    """Set every launch count to 0."""
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _lib():
+    """The kernels' library with this module's signatures bound."""
+    global _BOUND
+    lib = cuda_fft._lib()
+    if _BOUND is not lib:
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _BOUND = lib
+    return lib
+
+
+def _check(*tensors, ndim=1):
+    for x in tensors:
+        if not torch.is_tensor(x) or not x.is_cuda:
+            raise ValueError("CUDA kernel wrappers take CUDA tensors only.")
+        if x.dtype != torch.float32:
+            raise ValueError(f"Expected float32, got {x.dtype}.")
+        if not x.is_contiguous():
+            raise ValueError("Expected a contiguous tensor.")
+        if x.ndim != ndim:
+            raise ValueError(f"Expected {ndim} dimensions, got {tuple(x.shape)}.")
+        if x.device.index != torch.cuda.current_device():
+            raise ValueError(
+                f"Tensor on {x.device}, but the current CUDA device is "
+                f"{torch.cuda.current_device()}: launches go to the current device."
+            )
+
+
+def _check_transform(ff_or_nf, coeffs, basis):
+    """Shapes ``(D, N)`` and ``(D, P)``; returns ``(D, N, P)``."""
+    _check(*ff_or_nf)
+    _check(coeffs, basis, ndim=2)
+    D, N = coeffs.shape
+    if basis.shape[0] != D:
+        raise ValueError(f"coeffs {tuple(coeffs.shape)} and basis {tuple(basis.shape)} "
+                         "disagree on the Zernike terms.")
+    if not 1 <= D <= MAX_TERMS:
+        raise ValueError(f"The kernels take 1 to {MAX_TERMS} Zernike terms, not {D}.")
+    return D, N, basis.shape[1]
+
+
+def _check_spots(N, floats_per_spot):
+    if N < 1 or floats_per_spot * N * 4 + 4096 > _SMEM_LIMIT:
+        raise ValueError(f"{N} spots do not fit the kernels' shared memory.")
+
+
+def _amp_plane(amp, n_pixels):
+    """The (P,) amplitude, or None for a scalar amplitude (unit modulus: the
+    scale drops out in the caller's normalization)."""
+    if not torch.is_tensor(amp) or amp.ndim == 0:
+        return None
+    _check(amp)
+    if amp.shape != (n_pixels,):
+        raise ValueError(f"amp {tuple(amp.shape)} does not match {n_pixels} pixels.")
+    return amp
+
+
+def _partials(N, P, like):
+    n_blocks = -(-P // _lib().slm_cmp_block_pixels())
+    return torch.empty((2, n_blocks, N), dtype=torch.float32, device=like.device)
+
+
+def _out(N, like):
+    return torch.empty(N, dtype=torch.float32, device=like.device), torch.empty(
+        N, dtype=torch.float32, device=like.device)
+
+
+def f2n(ff_re, ff_im, coeffs, basis):
+    """#14: the ``(P,)`` nearfield pair ``P^-1/2 sum_n ff[n] e^{i Phi[n, p]}``."""
+    D, N, P = _check_transform((ff_re, ff_im), coeffs, basis)
+    if ff_re.shape != (N,) or ff_im.shape != (N,):
+        raise ValueError(f"The farfield must have {N} spots.")
+    nfr = torch.empty(P, dtype=torch.float32, device=basis.device)
+    nfi = torch.empty_like(nfr)
+    rc = _lib().slm_cmp_f2n(_ptr(ff_re), _ptr(ff_im), _ptr(coeffs), _ptr(basis),
+                            P, N, D, float(P ** -0.5), _ptr(nfr), _ptr(nfi),
+                            cuda_fft._stream())
+    cuda_fft._raise_on(rc, "f2n")
+    LAUNCHES["f2n"] += 1
+    return nfr, nfi
+
+
+def n2f(nf_re, nf_im, coeffs, basis):
+    """#15: the unit-norm ``(N,)`` farfield pair of ``P^-1/2 sum_p
+    e^{-i Phi[n, p]} nf[p]``."""
+    D, N, P = _check_transform((nf_re, nf_im), coeffs, basis)
+    if nf_re.shape != (P,) or nf_im.shape != (P,):
+        raise ValueError(f"The nearfield must have {P} pixels.")
+    _check_spots(N, D + 2)
+    partials = _partials(N, P, basis)
+    out_re, out_im = _out(N, basis)
+    rc = _lib().slm_cmp_n2f(_ptr(nf_re), _ptr(nf_im), _ptr(coeffs), _ptr(basis),
+                            P, N, D, float(P ** -0.5), _ptr(partials), _ptr(out_re),
+                            _ptr(out_im), cuda_fft._stream())
+    cuda_fft._raise_on(rc, "n2f")
+    LAUNCHES["n2f"] += 1
+    return out_re, out_im
+
+
+def fused_iter(ff_re, ff_im, coeffs, basis, amp):
+    """#16: one round trip ff -> nf -> amp nf/|nf| (padded pixels masked)
+    -> the unnormalized ``(N,)`` farfield pair; ``amp`` is a scalar or
+    ``(P,)``."""
+    D, N, P = _check_transform((ff_re, ff_im), coeffs, basis)
+    if ff_re.shape != (N,) or ff_im.shape != (N,):
+        raise ValueError(f"The farfield must have {N} spots.")
+    _check_spots(N, D + 4)
+    amp_plane = _amp_plane(amp, P)
+    partials = _partials(N, P, basis)
+    out_re, out_im = _out(N, basis)
+    rc = _lib().slm_cmp_fused(_ptr(ff_re), _ptr(ff_im), _ptr(coeffs), _ptr(basis),
+                              _ptr(amp_plane), P, N, D, _ptr(partials), _ptr(out_re),
+                              _ptr(out_im), cuda_fft._stream())
+    cuda_fft._raise_on(rc, "fused_iter")
+    LAUNCHES["fused_iter"] += 1
+    return out_re, out_im
+
+
+def fused_iter_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels):
+    """#17: the round trip of :meth:`fused_iter`, reading cos/sin from the
+    ``(n_tiles, N8, T)`` cache of
+    :meth:`slmsuite_torch.ops.compressed.build_kernel_cache`."""
+    _check(ff_re, ff_im)
+    _check(kc, ks, ndim=3)
+    n_tiles, n8, tile = kc.shape
+    N, P = int(n_spots), int(n_pixels)
+    if ks.shape != kc.shape or not (1 <= N <= n8) or not (0 < P <= n_tiles * tile):
+        raise ValueError(f"Cache {tuple(kc.shape)} does not hold {N} spots and "
+                         f"{P} pixels.")
+    if tile % 32:
+        raise ValueError(f"The cache's tile ({tile}) must be a multiple of 32.")
+    if ff_re.shape != (N,) or ff_im.shape != (N,):
+        raise ValueError(f"The farfield must have {N} spots.")
+    _check_spots(N, 4)
+    amp_plane = _amp_plane(amp, P)
+    partials = _partials(N, P, kc)
+    out_re, out_im = _out(N, kc)
+    rc = _lib().slm_cmp_fused_cached(_ptr(ff_re), _ptr(ff_im), _ptr(kc), _ptr(ks),
+                                     n8, tile, _ptr(amp_plane), P, N, _ptr(partials),
+                                     _ptr(out_re), _ptr(out_im), cuda_fft._stream())
+    cuda_fft._raise_on(rc, "fused_iter_cached")
+    LAUNCHES["fused_iter_cached"] += 1
+    return out_re, out_im

@@ -4,6 +4,8 @@ CUDA kernels of the GS engine (counterpart of
 the carry-mode WGS loop (``csrc/wgs_carry.cu``), the two column passes
 of the carry-mode MRAF step (``csrc/mraf_carry.cu``) and the
 natural-order transforms of the natural step (``csrc/natural_fft.cu``).
+The compressed spot transforms (``csrc/compressed.cu``) build into the
+same library; their wrappers are in :mod:`slmsuite_torch.ops.cuda_compressed`.
 
 The sources are ``slmsuite_torch/csrc/*.cu`` and ``*.cuh``. On the first
 launch each ``.cu`` is compiled with ``nvcc`` for ``sm_90a``, all at

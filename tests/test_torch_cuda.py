@@ -381,3 +381,146 @@ def test_mraf_holograms_run_through_kernels(cuda):
         assert launched == loop, (method, launched)
         assert 0 < holo.stats["stats"]["computational"]["efficiency"][-1] <= 1
         assert holo.zero_weights.shape == (2, 256, 256)
+
+
+#: The compressed kernels against their plain versions: max |diff| over
+#: max |plain|. The kernel forms each phase by an fma chain and the plain
+#: version by a matrix product, so a phase of ~500 rad may differ by an
+#: f32 ulp (~3e-5 rad), and the sums run in another order (the largest
+#: measured on an H100 at config 5 is 1.2e-6).
+CMP_RTOL = 1e-4
+
+
+def _cmp_inputs(D, P, N, device, seed=0):
+    """Seeded basis (D, P), coefficients (D, N), farfield (N,), nearfield
+    (P,) and amplitude (P,) pairs on the card, as the JAX package's
+    compressed tests make them."""
+    rng = np.random.default_rng(seed)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+    return dict(
+        basis=dev(rng.normal(size=(D, P)) * 2), coeffs=dev(rng.normal(size=(D, N)) * 5),
+        ffr=dev(rng.normal(size=N)), ffi=dev(rng.normal(size=N)),
+        nfr=dev(rng.normal(size=P)), nfi=dev(rng.normal(size=P)),
+        amp=dev(0.5 + rng.uniform(0, 1, P)),
+    )
+
+
+def _rel_pair(got, ref):
+    return max(_rel(got[0], ref[0]), _rel(got[1], ref[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D, P, N", [(4, 3000, 17), (3, 65536, 256), (2, 8192, 600)])
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
+    """f2n, n2f, fused_iter and fused_iter_cached against their plain
+    versions, at unaligned sizes (padded pixels and pad spots), at config
+    5's spot count, and past one f2n spot chunk (600 spots); one launch
+    each."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    x = _cmp_inputs(D, P, N, cuda)
+    amp = 1.0 if amp_kind == "scalar" else x["amp"]
+    K.reset_launch_counts()
+    assert _rel_pair(K.f2n(x["ffr"], x["ffi"], x["coeffs"], x["basis"]),
+                     C._farfield_to_nearfield(x["ffr"], x["ffi"], x["coeffs"],
+                                              x["basis"])) <= CMP_RTOL
+    got = K.n2f(x["nfr"], x["nfi"], x["coeffs"], x["basis"])
+    assert got[0].shape == (N,)
+    assert _rel_pair(got, C._nearfield_to_farfield(x["nfr"], x["nfi"], x["coeffs"],
+                                                   x["basis"])) <= CMP_RTOL
+    assert _rel_pair(K.fused_iter(x["ffr"], x["ffi"], x["coeffs"], x["basis"], amp),
+                     C._fused_iteration(x["ffr"], x["ffi"], x["coeffs"], x["basis"],
+                                        amp)) <= CMP_RTOL
+    kc, ks = C.build_kernel_cache(x["coeffs"], x["basis"])
+    got = K.fused_iter_cached(x["ffr"], x["ffi"], kc, ks, amp, N, P)
+    assert got[0].shape == (N,)
+    assert _rel_pair(got, C._fused_iteration_cached(x["ffr"], x["ffi"], kc, ks, amp, N,
+                                                    P)) <= CMP_RTOL
+    assert K.LAUNCHES == dict(f2n=1, n2f=1, fused_iter=1, fused_iter_cached=1)
+
+
+@pytest.mark.cuda
+def test_compressed_reductions_repeat_bit_for_bit(cuda):
+    """The cross-block reductions run in a fixed order: two launches on
+    the same inputs give the same bits."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    x = _cmp_inputs(3, 65536, 256, cuda, seed=1)
+    kc, ks = C.build_kernel_cache(x["coeffs"], x["basis"])
+    calls = (
+        lambda: K.n2f(x["nfr"], x["nfi"], x["coeffs"], x["basis"]),
+        lambda: K.fused_iter(x["ffr"], x["ffi"], x["coeffs"], x["basis"], x["amp"]),
+        lambda: K.fused_iter_cached(x["ffr"], x["ffi"], kc, ks, x["amp"], 256, 65536),
+    )
+    for call in calls:
+        first, second = call(), call()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_compressed_dispatchers_route_cuda_to_kernels(cuda):
+    """The dispatchers launch the kernels for CUDA tensors (never the plain
+    versions), and the wrappers refuse what the kernels do not take."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    x = _cmp_inputs(4, 3000, 17, cuda)
+    K.reset_launch_counts()
+    C.farfield_to_nearfield(x["ffr"], x["ffi"], x["coeffs"], x["basis"])
+    C.nearfield_to_farfield(x["nfr"], x["nfi"], x["coeffs"], x["basis"])
+    C.fused_iteration(x["ffr"], x["ffi"], x["coeffs"], x["basis"], x["amp"])
+    kc, ks = C.build_kernel_cache(x["coeffs"], x["basis"])
+    C.fused_iteration_cached(x["ffr"], x["ffi"], kc, ks, 1.0, 17, 3000)
+    assert K.LAUNCHES == dict(f2n=1, n2f=1, fused_iter=1, fused_iter_cached=1)
+    with pytest.raises(ValueError, match="float32"):
+        K.f2n(x["ffr"].double(), x["ffi"], x["coeffs"], x["basis"])
+    with pytest.raises(ValueError, match="Zernike terms"):
+        K.n2f(x["nfr"], x["nfi"], torch.zeros((17, 17), device=cuda),
+              torch.zeros((17, 3000), device=cuda))
+    with pytest.raises(ValueError, match="pixels"):
+        K.fused_iter(x["ffr"], x["ffi"], x["coeffs"], x["basis"], x["amp"][:100])
+
+
+@pytest.mark.cuda
+def test_compressed_hologram_runs_through_kernels(cuda, monkeypatch):
+    """A CompressedSpotHologram on a 64^2 SimulatedSLM: the cached loop
+    launches fused_iter_cached once per iteration and n2f once (the
+    finalize); without the cache fused_iter runs once per iteration, n2f at
+    the entry and the finalize, f2n at the exit. Both agree with the plain
+    run on the card (normalized amp_ff and weights within 2e-3)."""
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    rng = np.random.default_rng(8)
+    spots = np.vstack([rng.uniform(-8e-3, 8e-3, (2, 9)), rng.uniform(-2e-6, 2e-6, (1, 9))])
+    phi0 = rng.uniform(-np.pi, np.pi, (64, 64))
+    n = 6
+
+    def run():
+        holo = CompressedSpotHologram(spots, cameraslm=SimulatedSLM((64, 64)), device=cuda)
+        holo.reset_phase(phi0)
+        K.reset_launch_counts()
+        holo.optimize("WGS-Kim", maxiter=n, verbose=False)
+        amp, w = np.asarray(holo.amp_ff), np.asarray(holo.weights)
+        return {k: v for k, v in K.LAUNCHES.items() if v}, amp / amp.max(), w / w.max()
+
+    for cache_mb, expect in (("4096", dict(fused_iter_cached=n, n2f=1)),
+                             ("0", dict(fused_iter=n, n2f=2, f2n=1))):
+        monkeypatch.setenv("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", cache_mb)
+        launched, amp, w = run()
+        assert launched == expect, (cache_mb, launched)
+        for name in ("farfield_to_nearfield", "nearfield_to_farfield", "fused_iteration",
+                     "fused_iteration_cached"):
+            monkeypatch.setattr(C, name, getattr(C, "_" + name))
+        plain_launched, plain_amp, plain_w = run()
+        monkeypatch.undo()
+        assert not plain_launched
+        assert np.abs(amp - plain_amp).max() < 2e-3 and np.abs(w - plain_w).max() < 2e-3

@@ -1,7 +1,8 @@
 """
-Importing the port and running a 64^2 fused optimize and a padded GS
-optimize on the CPU loads none of jax, cv2, h5py, matplotlib, tqdm,
-triton or the JAX package, and needs no ``nvcc``. It runs in a
+Importing the port and running a 64^2 fused optimize, a padded GS
+optimize and a compressed WGS-Kim optimize on the CPU loads none of jax,
+cv2, h5py, matplotlib, tqdm, triton or the JAX package, and needs no
+``nvcc`` (nor imports the compressed kernels' module). It runs in a
 subprocess: this test process has already imported jax
 (tests/conftest.py). ``import torch`` itself pulls in tqdm when it is
 installed (through torch.hub), so the check is on what the port adds.
@@ -36,11 +37,18 @@ SCRIPT = textwrap.dedent("""
     padded = SpotHologram.make_rectangular_array(
         (128, 128), array_shape=(4, 4), array_pitch=(8, 8), basis="knm", slm_shape=(64, 64))
     padded.optimize(method="GS", maxiter=3, verbose=False)
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+    compressed = CompressedSpotHologram(
+        [[1e-3, -2e-3], [0.0, 1e-3], [0.0, 1e-6]], cameraslm=SimulatedSLM((32, 32)))
+    compressed.optimize("WGS-Kim", maxiter=3, verbose=False)
+    compressed_module = sys.modules.get("slmsuite_torch.ops.cuda_compressed")
     added = sorted({m.split(".")[0] for m in set(sys.modules) - before})
     cuda_fft = sys.modules.get("slmsuite_torch.ops.cuda_fft")
     print(json.dumps({
         "added": added,
-        "built": cuda_fft is not None and cuda_fft._LIB is not None,
+        "built": (cuda_fft is not None and cuda_fft._LIB is not None)
+                 or compressed_module is not None,
         "efficiency": holo.stats["stats"]["computational"]["efficiency"][-1],
     }))
 """)
