@@ -19,7 +19,9 @@ there is no card or the port is missing. In order:
    ``wgs_fused_step`` and ``mraf_fused_step``; the four compressed
    kernels at BASELINE config 5's shapes (P = 1024^2, N = 256, D = 3) and
    at P = 3000, N = 17, D = 4, scalar and array amplitude, and the
-   compressed dispatchers on config 5's hologram;
+   compressed dispatchers on config 5's hologram; ``cols_wgs_fwd`` and the
+   composed ``wgs_fused_forward`` at 2048^2 and 256x512 for every rule,
+   Kim on and off, stats on and off, scalar and array amplitude;
 5. the paths, each driven with the launch counts set to 0 just before it:
    - the fused slice: ``SpotHologram.make_rectangular_array((2048, 2048),
      32x32, pitch 30, "knm")``, WGS-Kim, 50 iterations;
@@ -37,6 +39,19 @@ there is no card or the port is missing. In order:
      cached loop; C2, the same with the cache off (the recomputing loop);
      C3, C1 with a quarter of ``spot_amp`` nan (per-spot MRAF,
      ``mraf_factor`` 0.5);
+   - Q1, the psi -> psi WGS step in two halves: the fused slice's array,
+     20 iterations of WGS-Kim, each ``wgs_fused_forward`` then
+     ``ifft2_phase``, against the same loop on the plain versions and
+     against ``wgs_fused_step`` iterated;
+   - S0-S2, BASELINE config 4 (``camera_loop_wgs``: a 512^2 SimulatedSLM
+     and a 512^2 SimulatedCamera, Fourier calibrated analytically, a
+     1024^2 hologram): the calibration checked by projecting a 5x5 grid
+     and finding its spots in the camera frame; S0, ``sim_measure_spots``
+     against ``set_phase`` -> ``get_image`` -> ``take``; S1, config 4's
+     four spots, 5 computational iterations then 30 with
+     ``feedback="experimental_spot"``; S2, a 10x10 grid at 24-pixel pitch
+     on the same rig; the engine loop of each run under the profiler to
+     count host transfers (none allowed);
    each through the kernels (loop launches checked, launches after the
    loop counted apart; the kernels line reports both together) and
    through the plain versions (final efficiency and uniformity within
@@ -56,10 +71,11 @@ there is no card or the port is missing. In order:
    fused), ``spot_array_wgs(2048, method="WGS-Nogrette")`` (natural), the
    N2 GS loop and ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop;
    GS, the natural MRAF step), through the kernels and through the plain
-   versions;
+   versions; ms/iteration of the S1 and S2 camera loops likewise;
 8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette),
-   the N2 GS, the ``image_mraf(2048)`` and the C1 loops: device time,
-   device busy share, device launches per iteration.
+   the N2 GS, the ``image_mraf(2048)``, the C1 and the S2 loops: device
+   time, device busy share, device launches per iteration (S2 also:
+   the share of ``sim_measure_spots``).
 
 It prints the per-kernel JSON line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
@@ -98,6 +114,7 @@ KERNELS = {
     "cols_wgs_roundtrip": ("wgs_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:797", "fused"),
     "rows_normfwd": ("wgs_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:835", "fused"),
     "carry_exit": ("wgs_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:1216", "fused"),
+    "cols_wgs_fwd": ("wgs_carry.cu", "slmsuite_tpu/ops/pallas_fft.py:906", "Q1"),
     "rows_fft": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:373", "N2"),
     "cols_fft": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:385", "N2"),
     "cols_fwd_polar": ("natural_fft.cu", "slmsuite_tpu/ops/pallas_fft.py:559", "N1"),
@@ -110,6 +127,31 @@ KERNELS = {
     "fused_iter_cached": ("compressed.cu", "slmsuite_tpu/ops/pallas_compressed.py:289", "C1"),
 }
 RULES = ("kim", "leonardo", "wu", "tanh")
+#: How the profiler names the port's kernels (the ``__global__`` functions
+#: of slmsuite_torch/csrc).
+PORT_KERNEL_NAMES = (
+    "carry_entry_kernel", "carry_exit_kernel", "cols_fft_kernel", "cols_fwd_polar_kernel",
+    "cols_mraf_fwd_kernel", "cols_mraf_mix_inv_kernel", "cols_wexp_inv_kernel",
+    "cols_wgs_fwd_kernel", "cols_wgs_roundtrip_kernel", "f2n_kernel", "roundtrip_kernel",
+    "rows_fft_kernel", "rows_normfwd_kernel", "spot_reduce_kernel", "stats_reduce_kernel",
+    "unit_norm_kernel",
+)
+#: Q1: iterations of the two-halves WGS-Kim loop; per-iteration efficiency
+#: and uniformity, kernels against plain and against wgs_fused_step.
+Q1_ITERS = 20
+#: Q1's final planes, kernels against the other route: psi (99th percentile
+#: of the wrapped difference), weights over their maximum, and Kim's angle
+#: store on the spots.
+Q1_PSI_P99, Q1_WEIGHT_ATOL, Q1_STORE_ATOL = PSI_P99, WEIGHT_RTOL, THETA_ATOL
+#: BASELINE config 4 (bench.py config_4): warm-up and camera iterations.
+CONFIG4_WARM, CONFIG4_ITERS = 5, 30
+#: S2's spots: a 10x10 grid at 24-pixel pitch centred on the camera's centre.
+S2_SIDE, S2_PITCH = 10, 24
+#: The camera loops, kernels against plain: measured uniformity and
+#: efficiency after the loop, and the spot weights over their maximum. The
+#: display quantization and the camera's integer counts make the loop
+#: discontinuous in psi, so it is held on what users read.
+CAMERA_STAT_ATOL, CAMERA_WEIGHT_ATOL = 2e-3, 1e-2
 #: Shapes of the MRAF parity phase; the first is the main path's.
 MRAF_SHAPES = ((2048, 2048), (256, 512))
 
@@ -575,6 +617,14 @@ def phase_kernel_timing(device):
     t["cols_wgs_roundtrip"] = interleaved(
         "cols_wgs_roundtrip", lambda: cuda_fft.cols_wgs_roundtrip(*cols_args, **cols_kw),
         lambda: fft._cols_wgs_roundtrip(*cols_args, **cols_kw), bound_of=bound(shape, 12, 2))
+    # psi, weights, target, mask and the angle store read once (the carry
+    # stays between the two halves), re, im, weights and the store written
+    # once: nine planes; no single PyTorch call computes it.
+    angle = torch.atan2(x["phase_ff"][1], x["phase_ff"][0])
+    fwd_args = (gr, gi, x["weights"], x["target"], x["mask"], angle, x["scal"])
+    t["cols_wgs_fwd"] = interleaved(
+        "cols_wgs_fwd", lambda: cuda_fft.cols_wgs_fwd(*fwd_args, **cols_kw),
+        lambda: fft._cols_wgs_fwd(*fwd_args, **cols_kw), bound_of=bound(shape, 9, 1))
     t["rows_normfwd"] = interleaved(
         "rows_normfwd", lambda: cuda_fft.rows_normfwd(gr, gi, x["amp"]),
         lambda: fft._rows_normfwd(gr, gi, x["amp"]), bound_of=bound(shape, 4, 2))
@@ -630,9 +680,12 @@ def phase_kernel_timing(device):
     interleaved("ifft2_phase (cols_fft + carry_exit)", lambda: cuda_fft.ifft2_phase(xr, xi),
                 lambda: fft._ifft2_phase(xr, xi),
                 library=lambda: torch.fft.ifft2(z, norm="ortho"), bound_of=bound(shape, 3, 2))
-    angle = torch.atan2(x["phase_ff"][1], x["phase_ff"][0])
     args = (x["psi"], x["amp"], x["weights"], angle, x["target"], x["mask"])
     kw = dict(rule="kim", kim=True, stats_on=True)
+    interleaved("wgs_fused_forward (carry_entry + cols_wgs_fwd)",
+                lambda: cuda_fft.wgs_fused_forward(*args, x["scal"], **kw),
+                lambda: fft._wgs_fused_forward(*args, x["scal"], **kw),
+                bound_of=bound(shape, 9, 2))
     interleaved("wgs_fused_step (carry_entry + cols_wgs_roundtrip + carry_exit)",
                 lambda: cuda_fft.wgs_fused_step(*args, x["scal"], **kw),
                 lambda: fft._wgs_fused_step(*args, x["scal"], **kw), bound_of=bound(shape, 8, 4))
@@ -695,14 +748,13 @@ def image_hologram(device):
     return holo
 
 
-def drive(make, optimize):
-    """Run ``optimize(holo)`` on a fresh ``make()`` with the launch counts
-    set to 0 just before it. Returns ``(holo, final computational
-    efficiency and uniformity, loop launches, launches after the loop)``:
-    the counts are read when ``_populate_results`` starts."""
+def launches_split_at_populate(holo):
+    """Set the launch counts to 0 and have ``holo`` note them when its
+    ``_populate_results`` starts, which is where an ``optimize`` call's
+    loop ends. Returns a function giving ``(loop launches, launches after
+    the loop)``."""
     from slmsuite_torch.ops import cuda_fft
 
-    holo = make()
     populate = holo._populate_results
     at_populate = {}
 
@@ -710,12 +762,26 @@ def drive(make, optimize):
         at_populate.update(cuda_fft.LAUNCHES)
         populate()
 
+    def split():
+        after = {k: v - at_populate[k] for k, v in cuda_fft.LAUNCHES.items()
+                 if v - at_populate[k]}
+        return {k: v for k, v in at_populate.items() if v}, after
+
     holo._populate_results = counted_populate
     cuda_fft.reset_launch_counts()
+    return split
+
+
+def drive(make, optimize):
+    """Run ``optimize(holo)`` on a fresh ``make()`` with the launch counts
+    set to 0 just before it. Returns ``(holo, final computational
+    efficiency and uniformity, loop launches, launches after the loop)``:
+    the counts are read when ``_populate_results`` starts."""
+    holo = make()
+    split = launches_split_at_populate(holo)
     optimize(holo)
     torch.cuda.synchronize()
-    after = {k: v - at_populate[k] for k, v in cuda_fft.LAUNCHES.items() if v - at_populate[k]}
-    loop = {k: v for k, v in at_populate.items() if v}
+    loop, after = split()
     stats = holo.stats["stats"]["computational"]
     return holo, {k: float(stats[k][-1]) for k in ("efficiency", "uniformity")}, loop, after
 
@@ -927,6 +993,19 @@ def phase_profile(device, label, run, n=50):
     for e in events:
         us, count = per_name.get(e.name, (0.0, 0))
         per_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    groups = {"the port's kernels": [0.0, 0], "PyTorch glue kernels": [0.0, 0],
+              "copies and memsets": [0.0, 0]}
+    for name, (us, count) in per_name.items():
+        if name.startswith(("Memcpy", "Memset")):
+            key = "copies and memsets"
+        elif any(kernel in name for kernel in PORT_KERNEL_NAMES):
+            key = "the port's kernels"
+        else:
+            key = "PyTorch glue kernels"
+        groups[key][0] += us
+        groups[key][1] += count
+    log("  " + "; ".join(f"{key} {us / 1e3:.3f} ms in {count} events"
+                         for key, (us, count) in groups.items()))
     for name, (us, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:15]:
         log(f"  {us / 1e3:9.3f} ms  {count:5d}  {name[:100]}")
 
@@ -1199,6 +1278,370 @@ def phase_compressed_timing(device):
     return t, loops
 
 
+# ----------------------------------------------------------------------
+# The forward half of the psi -> psi WGS step: cols_wgs_fwd, and Q1.
+# ----------------------------------------------------------------------
+
+
+def phase_fwd_parity(device):
+    """``cols_wgs_fwd`` against its plain version for every rule, Kim on
+    and off, stats on and off (stats off also selects the stored angle),
+    scalar and array amplitude, and the composed ``wgs_fused_forward``;
+    returns the kernel's 2048^2 max |diff|."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    worst = {"cols_wgs_fwd": 0.0}
+    lines = []
+
+    def compare(tag, got, ref, amp_ff, kim):
+        e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+        assert e <= CARRY_RTOL, f"{tag}/re, im: {e:.3e}"
+        ew = check_close(tag + "/w", got[2], ref[2], WEIGHT_ATOL, WEIGHT_RTOL)
+        et = 0.0
+        if kim:
+            et = theta_err(got[3], ref[3], amp_ff)
+            assert et < THETA_ATOL, f"{tag}/phase_ff: {et:.3e}"
+        else:
+            assert got[3] is None, tag
+        assert got[4].dtype == torch.float64, tag
+        es = check_close(tag + "/sums", got[4], ref[4], WEIGHT_ATOL, WEIGHT_RTOL)
+        em = check_close(tag + "/maxs", got[5], ref[5], WEIGHT_ATOL, WEIGHT_RTOL)
+        lines.append(f"{tag}: re, im rel {e:.3e} w {ew:.3e} phase_ff {et:.3e} "
+                     f"sums {es:.3e} maxs {em:.3e}")
+        return max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1]), ew)
+
+    for shape in ((2048, 2048), (256, 512)):
+        for amp_kind in ("scalar", "array"):
+            for stats_on in (True, False):
+                x = step_inputs(shape, amp_kind, "kim", stats_on, device)
+                angle = torch.atan2(x["phase_ff"][1], x["phase_ff"][0])
+                gr, gi = fft._wgs_carry_entry(x["psi"], x["amp"])
+                amp_ff = fft._fft2_polar_from_phase(x["psi"], x["amp"])[0]
+                for rule in RULES:
+                    for kim in (True, False):
+                        kw = dict(rule=rule, kim=kim, stats_on=stats_on)
+                        pff = angle if kim else None
+                        args = (gr, gi, x["weights"] * 1.3, x["target"], x["mask"], pff,
+                                x["scal"])
+                        tag = (f"cols_wgs_fwd {shape} {amp_kind} {rule} kim={kim} "
+                               f"stats={stats_on}")
+                        got = cuda_fft.cols_wgs_fwd(*args, **kw)
+                        err = compare(tag, got, fft._cols_wgs_fwd(*args, **kw), amp_ff, kim)
+                        if kim and not stats_on:
+                            assert torch.equal(got[3], angle), tag  # The stored angle.
+                        if not stats_on:
+                            assert got[4][:3].tolist() == [0.0, 0.0, 0.0], tag
+                            assert bool((got[5] == -3.0e38).all()), tag
+                        if shape == (2048, 2048):
+                            worst["cols_wgs_fwd"] = max(worst["cols_wgs_fwd"], err)
+                        whole = (x["psi"], x["amp"], x["weights"] * 1.3, pff, x["target"],
+                                 x["mask"], x["scal"])
+                        compare("wgs_fused_forward" + tag[12:],
+                                fft.wgs_fused_forward(*whole, **kw),
+                                fft._wgs_fused_forward(*whole, **kw), amp_ff, kim)
+    torch.cuda.synchronize()
+    OUT.mkdir(exist_ok=True)
+    (OUT / "parity_fwd.log").write_text("\n".join(lines) + "\n")
+    log(f"forward-half parity: {len(lines)} checks passed; 2048^2 max |diff| "
+        f"cols_wgs_fwd {worst['cols_wgs_fwd']:.3e}")
+    return worst
+
+
+def two_halves_loop(holo, n, mode):
+    """``n`` iterations of WGS-Kim with computational stats from
+    ``holo``'s planes, the step scalars, the deferred norm and Kim's
+    decision formed as the fused step forms them. ``mode="halves"``: each
+    iteration is ``wgs_fused_forward`` then ``ifft2_phase``;
+    ``mode="step"``: ``wgs_fused_step``. Returns ``(state, stats (n, 2,
+    4))``."""
+    from slmsuite_torch.ops import engine, fft
+
+    holo._update_flags("WGS-Kim", False, None, ["computational"])
+    config = holo._build_config()
+    consts = engine._augment_fused_consts(config, holo._build_consts(config))
+    state = engine._provision_fused(config, holo._build_state(config))
+    kw = dict(rule="kim", kim=True, stats_on=True)
+    rows = []
+    for _ in range(n):
+        args = (state.psi, consts["amp"], state.weights, state.phase_ff, consts["target"],
+                consts["_stat_mask_f32"], engine._carry_scalars(state, consts))
+        if mode == "halves":
+            re, im, weights, pff, sums, maxs = fft.wgs_fused_forward(*args, **kw)
+            psi = fft.ifft2_phase(re, im)
+        else:
+            psi, weights, pff, sums, maxs = fft.wgs_fused_step(*args, **kw)
+        state, stats = engine._carry_finish(config, state, consts, psi, weights, pff,
+                                            state.zero_weights, sums, maxs)
+        rows.append(stats)
+    return engine._finalize_fused(config, state), torch.stack(rows)
+
+
+def phase_q1(device):
+    """Q1: the two-halves loop through the kernels (exact launch counts),
+    through the plain versions, and ``wgs_fused_step`` iterated; returns
+    the kernels' launches."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    n = Q1_ITERS
+
+    def make():
+        return spot_array(device, (32, 32), (30, 30))
+
+    def counted(mode):
+        holo = make()
+        cuda_fft.reset_launch_counts()
+        start = time.perf_counter()
+        out = two_halves_loop(holo, n, mode)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        return out, {k: v for k, v in cuda_fft.LAUNCHES.items() if v}, seconds
+
+    (state, stats), launches, seconds = counted("halves")
+    expect = dict(carry_entry=n, cols_wgs_fwd=n, cols_fft=n, carry_exit=n)
+    log(f"Q1 two halves WGS-Kim 2048^2 (kernels): efficiency {float(stats[-1, 0, 0]):.6f} "
+        f"uniformity {float(stats[-1, 0, 1]):.6f} in {seconds:.2f} s; launches {launches}")
+    assert launches == expect, (launches, expect)
+    assert bool(torch.isfinite(state.psi).all()) and state.psi.shape == (2048, 2048)
+    assert bool(torch.isfinite(stats).all()) and 0 < float(stats[-1, 0, 0]) <= 1
+
+    with plain_versions(fft, ("wgs_fused_forward", "ifft2_phase")):
+        (p_state, p_stats), p_launches, _ = counted("halves")
+    assert not p_launches, p_launches
+    (s_state, s_stats), s_launches, _ = counted("step")
+    assert s_launches == dict(carry_entry=n, cols_wgs_roundtrip=n, carry_exit=n), s_launches
+
+    # Kim's store is compared on the spots, where the loop reads it: off
+    # them it holds the angle of a near-zero field, which is arbitrary.
+    spots = state.weights > 0
+    for label, other, other_stats in (("plain", p_state, p_stats),
+                                      ("wgs_fused_step", s_state, s_stats)):
+        d_stats = float((stats[:, 0, :2] - other_stats[:, 0, :2]).abs().max())
+        d_fixed = float((stats[:, 1, 1] - other_stats[:, 1, 1]).abs().max())
+        d_psi = psi_p99(state.psi, other.psi)
+        d_w = float((state.weights - other.weights).abs().max() / other.weights.max())
+        d_store = float(wrapped_abs(state.phase_ff, other.phase_ff)[spots].max())
+        log(f"Q1 kernels vs {label}: efficiency, uniformity max |diff| over {n} iterations "
+            f"{d_stats:.3e}; psi p99 {d_psi:.3e} rad; weights / max {d_w:.3e}; Kim store on "
+            f"the spots {d_store:.3e} rad")
+        assert d_stats <= SLICE_ATOL, (label, d_stats)
+        assert d_fixed == 0, (label, "fixed_phase history differs")
+        assert d_psi < Q1_PSI_P99 and d_w < Q1_WEIGHT_ATOL and d_store < Q1_STORE_ATOL, label
+    return launches
+
+
+# ----------------------------------------------------------------------
+# The simulated camera in the loop: BASELINE config 4.
+# ----------------------------------------------------------------------
+
+
+def s2_spots():
+    edge = (np.arange(S2_SIDE) - (S2_SIDE - 1) / 2) * S2_PITCH + 256.0
+    xs, ys = np.meshgrid(edge, edge)
+    return np.vstack((xs.ravel(), ys.ravel()))
+
+
+def config4(device, spots=None):
+    """BASELINE config 4's rig and hologram (``spots`` None: its four
+    spots), the initial phase from seed 0."""
+    from slmsuite_torch.models.engine_models import camera_loop_wgs
+
+    return camera_loop_wgs(spot_ij=spots, seed=0, device=device)
+
+
+def measured(holo):
+    """The camera's spot statistics of ``holo``'s current phase, and the
+    spot weights over their maximum."""
+    stats = {}
+    holo._midloop_cleaning()
+    holo._populate_stats(stats, ["experimental_spot"])
+    weights = np.asarray(holo.weights)[holo.spot_knm_rounded[1], holo.spot_knm_rounded[0]]
+    return stats["experimental_spot"], weights / weights.max()
+
+
+def phase_calibration_check(device):
+    """The analytic Fourier calibration, checked on the card without
+    OpenCV: the projected 5x5 grid's spots lie where the calibration puts
+    them in the camera frame (brightest pixel within 2 of each window's
+    centre)."""
+    from slmsuite_torch.holography import analysis
+    from slmsuite_torch.models.engine_models import camera_loop_rig
+
+    fs = camera_loop_rig(device=device)
+    fs.fourier_calibrate_analytic(fs.cam.M, fs.cam.b)
+    np.random.seed(0)  # fourier_grid_project draws its initial phase.
+    holo = fs.fourier_grid_project(array_shape=5, array_pitch=16, verbose=False)
+    exposure = 1.0
+    for _ in range(24):
+        fs.cam.set_exposure(exposure)
+        img = fs.cam.get_image()
+        if img.max() < fs.cam.bitresolution - 1:
+            break
+        exposure /= 2  # Saturated: a plateau has no brightest pixel.
+    centers = fs.kxyslm_to_ijcam(holo.spot_kxy_rounded)
+    width = 15
+    windows = analysis.take(img, centers, width, centered=True, integrate=False)
+    peaks = np.array([np.unravel_index(np.argmax(w), w.shape) for w in windows])
+    offset = np.abs(peaks - width // 2).max()
+    log(f"Fourier calibration (analytic), 5x5 grid projected: {len(windows)} spots, "
+        f"brightest pixel at most {offset} px from its window's centre (limit 2), peak "
+        f"{int(windows.max())} counts at exposure {exposure}")
+    assert len(windows) == 23 and offset <= 2 and windows.max() > 20, (offset, windows.max())
+
+
+def phase_s0(device):
+    """S0: the device measurement against the host image path on config 4,
+    on the seeded phase (exposure raised so the speckle has counts) and on
+    the phase after the warm-up."""
+    from slmsuite_torch.holography import analysis
+    from slmsuite_torch.ops import cuda_fft
+
+    fs, holo = config4(device)
+    pixels = holo.spot_integration_width_ij ** 2
+    for label, exposure in (("seeded phase", 200.0), ("after the warm-up", 1.0)):
+        if exposure == 1.0:
+            holo.optimize("WGS-Kim", maxiter=CONFIG4_WARM, verbose=False)
+        fs.cam.set_exposure(exposure)
+        holo._midloop_cleaning()
+        cuda_fft.reset_launch_counts()
+        fast, fast_total = holo._sim_spot_powers()
+        assert cuda_fft.LAUNCHES["rows_fft"] == 1 and cuda_fft.LAUNCHES["cols_fft"] == 1
+        holo.measure("ij")
+        pwr_img = np.square(np.asarray(holo.img_ij, np.float64))
+        host = analysis.take(pwr_img, holo.spot_ij, holo.spot_integration_width_ij,
+                             centered=True, integrate=True)
+        d_spots = float(np.abs(fast - host).max())
+        d_total = abs(fast_total - float(pwr_img.sum()))
+        log(f"S0 {label}, exposure {exposure}: spot powers {np.round(host).tolist()} counts, "
+            f"device vs host max |diff| {d_spots:.1f} (limit {pixels}: one count per window "
+            f"pixel), total {pwr_img.sum():.0f} |diff| {d_total:.1f}")
+        assert host.min() > 0 and d_spots <= pixels and d_total <= pwr_img.size, label
+
+
+def drive_camera(device, spots):
+    """Config 4 on ``spots``: the warm-up, then the camera loop with the
+    launch counts set to 0 just before it. Returns ``(holo, measured
+    after the warm-up, measured after the loop, loop launches, launches
+    after the loop, seconds of the camera loop)``."""
+    _, holo = config4(device, spots)
+    holo.optimize("WGS-Kim", maxiter=CONFIG4_WARM, verbose=False)
+    warm = measured(holo)
+    split = launches_split_at_populate(holo)
+    start = time.perf_counter()
+    holo.optimize("WGS-Kim", maxiter=CONFIG4_ITERS, verbose=False,
+                  feedback="experimental_spot", stat_groups=["experimental_spot"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    loop, after = split()
+    return holo, warm, measured(holo), loop, after, seconds
+
+
+def run_camera_path(label, device, spots):
+    """One camera path through the kernels (exact loop launches) and
+    through the plain versions (no launch); measured uniformity and
+    efficiency after the loop and the spot weights agree within the
+    camera limits, and the loop ends no less uniform than the warm-up."""
+    n = CONFIG4_ITERS
+    holo, warm, final, loop, after, seconds = drive_camera(device, spots)
+    log(f"{label} (kernels): after the warm-up uniformity {warm[0]['uniformity']:.6f} "
+        f"efficiency {warm[0]['efficiency']:.6f}; after {n} camera iterations uniformity "
+        f"{final[0]['uniformity']:.6f} efficiency {final[0]['efficiency']:.6f} in "
+        f"{seconds:.2f} s; loop launches {loop}; after the loop {after}")
+    # Per iteration: the padded forward (rows_fft, cols_fwd_polar) and
+    # backward (cols_wexp_inv, rows_fft) transforms, and the camera's
+    # canvas transform (rows_fft, cols_fft).
+    expect = dict(rows_fft=3 * n, cols_fwd_polar=n, cols_wexp_inv=n, cols_fft=n)
+    assert loop == expect, (label, loop, expect)
+    assert holo._build_config().feedback == "experimental_spot_sim"
+    recorded = holo.stats["stats"]["experimental_spot"]["uniformity"]
+    assert len(recorded) == CONFIG4_WARM + n and np.isfinite(recorded[CONFIG4_WARM:]).all()
+    phase = holo.get_phase()
+    assert phase.shape == (512, 512) and np.isfinite(phase).all()
+    # No worse than the warm-up, to the camera's resolution: spot powers
+    # are sums of integer counts (S1's four start exactly equal).
+    assert final[0]["uniformity"] >= warm[0]["uniformity"] - CAMERA_STAT_ATOL, (
+        label, warm[0], final[0])
+    with plain_step_functions():
+        _, _, plain_final, plain_loop, plain_after, _ = drive_camera(device, spots)
+    assert not plain_loop and not plain_after, (plain_loop, plain_after)
+    d_w = float(np.abs(final[1] - plain_final[1]).max())
+    log(f"{label} (plain):   uniformity {plain_final[0]['uniformity']:.6f} efficiency "
+        f"{plain_final[0]['efficiency']:.6f}; spot weights / max |diff| {d_w:.3e}")
+    for key in ("uniformity", "efficiency"):
+        diff = abs(final[0][key] - plain_final[0][key])
+        assert diff <= CAMERA_STAT_ATOL, f"{label} {key}: kernel vs plain differ by {diff:.3e}"
+    assert d_w <= CAMERA_WEIGHT_ATOL, (label, d_w)
+    return {k: loop.get(k, 0) + after.get(k, 0) for k in {*loop, *after}}
+
+
+def camera_engine_loop(holo):
+    """The engine inputs of the camera loop of ``holo``, and a function
+    that runs ``n`` iterations from them."""
+    from slmsuite_torch.ops import engine
+
+    holo._update_flags("WGS-Kim", False, "experimental_spot", ["experimental_spot"])
+    config = holo._build_config()
+    consts = holo._build_consts(config)
+    state = holo._build_state(config)
+    return lambda n: engine.run_gs(config, state, consts, n)
+
+
+def host_transfers(run, n):
+    """Host-to-device and device-to-host copies among the device events
+    of ``run(n)`` under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(n)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert names, "torch.profiler recorded no device events"
+    return [name for name in names if "HtoD" in name or "DtoH" in name], len(names)
+
+
+def phase_camera(device):
+    """The calibration check, S0, S1 and S2; then, for S1 and S2, the
+    engine loop alone: host transfers (none allowed), ms/iteration through
+    the kernels and the plain versions, and ``sim_measure_spots`` alone.
+    Returns the S2 engine loop for the profile."""
+    from slmsuite_torch.ops import engine
+
+    phase_calibration_check(device)
+    phase_s0(device)
+    run_camera_path("S1 config 4 WGS-Kim, 4 spots, camera feedback", device, None)
+    run_camera_path("S2 config 4 rig WGS-Kim, 10x10 spots, camera feedback", device,
+                    s2_spots())
+    loops = {}
+    for label, spots in (("S1 config 4, 4 spots", None), ("S2 config 4 rig, 10x10 spots",
+                                                           s2_spots())):
+        _, holo = config4(device, spots)
+        holo.optimize("WGS-Kim", maxiter=CONFIG4_WARM, verbose=False)
+        run = loops[label] = camera_engine_loop(holo)
+        copies, events = host_transfers(run, CONFIG4_ITERS)
+        log(f"{label}: {len(copies)} host transfers among {events} device events of "
+            f"run({CONFIG4_ITERS})")
+        assert not copies, (label, copies[:5])
+        with plain_step_functions():
+            p1 = loop_ms(run, CONFIG4_ITERS)
+        k1 = loop_ms(run, CONFIG4_ITERS)
+        k2 = loop_ms(run, CONFIG4_ITERS)
+        with plain_step_functions():
+            p2 = loop_ms(run, CONFIG4_ITERS)
+        consts, statics = holo._sim_engine_inputs()
+        consts = {**consts, "sim_scale": holo._sim_scale()}
+        psi = type(holo)._psi.device(holo, device)
+        sim_k = cuda_ms(lambda: engine.sim_measure_spots(psi, consts, **statics))
+        with plain_step_functions():
+            sim_p = cuda_ms(lambda: engine.sim_measure_spots(psi, consts, **statics))
+        log(f"{label} run({CONFIG4_ITERS}): kernels {k1:.4f} {k2:.4f} ms/iter, plain "
+            f"{p1:.4f} {p2:.4f} ms/iter; sim_measure_spots alone {sim_k:.4f} ms "
+            f"({sim_k / ((k1 + k2) / 2):.3f} of the iteration), on the plain transform "
+            f"{sim_p:.4f} ms  [{nvidia_smi_line()}]")
+    return loops["S2 config 4 rig, 10x10 spots"]
+
+
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
@@ -1211,8 +1654,11 @@ def main():
     errors.update(phase_natural_parity(device))
     errors.update(phase_mraf_parity(device))
     errors.update(phase_compressed_parity(device))
+    errors.update(phase_fwd_parity(device))
     paths = phase_paths(device)
     paths.update(phase_compressed_paths(device))
+    paths["Q1"] = phase_q1(device)
+    s2_loop = phase_camera(device)
     phase_golden()
     times = phase_kernel_timing(device)
     compressed_times, compressed_loops = phase_compressed_timing(device)
@@ -1228,6 +1674,8 @@ def main():
                   image_mraf(N=2048, device=device).run)
     phase_profile(device, "C1 config 5 WGS-Kim cached", compressed_loops[
         "C1 config 5 WGS-Kim cached"], n=CONFIG5_ITERS)
+    phase_profile(device, "S2 config 4 rig, 10x10 spots, camera feedback", s2_loop,
+                  n=CONFIG4_ITERS)
 
     kernels = []
     for name, (source, replaces, path) in KERNELS.items():

@@ -6,6 +6,9 @@ The JAX package's arrays come in as numpy (the caller runs
 result is the port's state on a given device. With these the tests start
 both packages from identical psi, weights, Kim phase store and constants.
 For a hologram's planes, see :meth:`slmsuite_torch.holography.algorithms.Hologram.load_arrays`.
+A simulated rig crosses with :meth:`rig_from_jax`, a spot hologram on it
+with :meth:`spot_hologram_from_jax`: they read the JAX objects' numpy
+attributes only.
 """
 
 import numpy as np
@@ -85,3 +88,74 @@ def compressed_state_from_numpy(arrays, device=None):
         unfixed_streak=_tensor(np.asarray(arrays["unfixed_streak"], np.int32), device),
         iteration=_tensor(np.asarray(arrays["iteration"], np.int32), device),
     )
+
+
+def rig_from_jax(cameraslm, device=None):
+    """
+    The port's :class:`~slmsuite_torch.hardware.cameraslms.FourierSLM` from
+    a JAX-package ``FourierSLM`` on a ``SimulatedSLM`` and a
+    ``SimulatedCamera``: geometry, bit depths, the source dictionary, the
+    display, the camera's affine, exposure, gain, noise, averaging and HDR,
+    and the ``"fourier"`` calibration, all copied as numpy.
+    """
+    from slmsuite_torch.hardware.cameras.simulated import SimulatedCamera
+    from slmsuite_torch.hardware.cameraslms import FourierSLM
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+
+    jslm, jcam = cameraslm.slm, cameraslm.cam
+    slm = SimulatedSLM(
+        tuple(jslm.shape[::-1]), pitch_um=tuple(jslm.pitch_um), bitdepth=jslm.bitdepth,
+        name=jslm.name, wav_um=jslm.wav_um, wav_design_um=jslm.wav_design_um,
+    )
+    slm.source = {key: np.array(value) for key, value in jslm.source.items()}
+    slm.phase = np.array(jslm.phase)
+    slm.display = np.array(jslm.display)
+
+    interpolates = getattr(jcam, "_interpolate", False)
+    cam = SimulatedCamera(
+        slm, resolution=tuple(jcam.default_shape[::-1]),
+        M=np.array(jcam.M) if interpolates else None,
+        b=np.array(jcam.b) if interpolates else None,
+        noise=jcam.noise, pitch_um=None if jcam.pitch_um is None else tuple(jcam.pitch_um),
+        gain=jcam.gain, device=device, bitdepth=jcam.bitdepth, name=jcam.name,
+        averaging=jcam.averaging, hdr=jcam.hdr,
+    )
+    cam.transform = jcam.transform
+    cam.shape = tuple(jcam.shape)
+    cam.set_exposure(jcam.exposure_s)
+
+    fs = FourierSLM(cam, slm, mag=cameraslm.mag)
+    if "fourier" in cameraslm.calibrations:
+        fs.calibrations["fourier"] = {
+            key: np.array(value) if isinstance(value, np.ndarray) else value
+            for key, value in cameraslm.calibrations["fourier"].items()
+        }
+    return fs
+
+
+def spot_hologram_from_jax(holo, cameraslm, device=None):
+    """
+    The port's :class:`~slmsuite_torch.holography.algorithms.SpotHologram`
+    from a JAX-package one on the rig ``cameraslm`` (the port's, from
+    :meth:`rig_from_jax`): the same spots in the camera basis when it has
+    them (else ``"knm"``), spot amplitudes, phase, weights, Kim's phase
+    store, iteration count and flags.
+    """
+    from slmsuite_torch.holography.algorithms import SpotHologram
+
+    if holo.spot_ij is not None:
+        vectors, basis = np.array(holo.spot_ij), "ij"
+    else:
+        vectors, basis = np.array(holo.spot_knm), "knm"
+    out = SpotHologram(
+        tuple(holo.shape), vectors, basis=basis, spot_amp=np.array(holo.spot_amp),
+        cameraslm=cameraslm, phase=np.array(holo.phase), device=device,
+    )
+    arrays = {"psi": np.asarray(holo._psi), "weights": np.asarray(holo.weights),
+              "iter": holo.iter}
+    if holo._phase_ff_folded is not None:
+        arrays["phase_ff_folded"] = np.asarray(holo._phase_ff_folded)
+    if "fixed_phase" in holo.flags:
+        arrays["fixed_phase"] = holo.flags["fixed_phase"]
+    out.load_arrays(arrays)
+    return out

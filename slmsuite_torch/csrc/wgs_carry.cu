@@ -7,7 +7,8 @@
 // replacement, forward row FFT). Entry and exit convert psi to and from
 // the carry. Semantics: the plain PyTorch versions in
 // slmsuite_torch/ops/fft.py (`_wgs_carry_entry`, `_wgs_carry_step`,
-// `_wgs_carry_exit`).
+// `_wgs_carry_exit`). cols_wgs_fwd is the column pass of the psi -> psi
+// forward half `wgs_fused_forward` (plain version: `_cols_wgs_fwd`).
 //
 // What bounds them on the H100: memory traffic. At 2048^2 one f32 plane
 // is 16 MiB; a Kim step with stats reads gr, gi, w, t, mask, pffr, pffi
@@ -121,9 +122,69 @@ cols_wgs_roundtrip_kernel(
   write_partials(facc, dacc, macc, partials);
 }
 
-// Second pass of #2: one block folds the (n_blocks, 8) partials into
-// sums[0:4] (float64 storage; the overlap and |w'|^2 summed in float32,
-// the error moments in float64) and maxs[0:4] (float32), in a fixed order.
+// <- pallas_fft.wgs_fused_forward_pallas (the column pass, _cols_wgs_kernel
+// with the angle-plane epilogue). The forward half of a psi -> psi WGS
+// step: carry_entry gives the rows pass, this kernel the column pass and
+// the epilogue. One block per tile of `tc` adjacent columns: forward column
+// FFT, f = post * |F|, theta = atan2f(Im F, Re F) (a zero field gives 0),
+// the updated weight, Kim's select between theta and the stored ANGLE plane
+// (stored back as an angle), the constrained farfield w' * (cos, sin)(phase)
+// written to (re, im) with a fully range-reduced sincosf, and the stats
+// partials (carry_shared.cuh; the error moments in float64). Nothing goes
+// back through shared memory: the inverse transform is ifft2_phase's.
+// Bound by memory traffic: with Kim and stats it reads six planes and
+// writes four.
+__global__ void __launch_bounds__(kThreads)
+cols_wgs_fwd_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
+                    const float* __restrict__ w, const float* __restrict__ t,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ pff, float* __restrict__ re,
+                    float* __restrict__ im, float* __restrict__ wout,
+                    float* __restrict__ pff_out,
+                    const float* __restrict__ scal,
+                    double* __restrict__ partials, int H, int W, int log2H,
+                    int tc, int log2tc, const float2* __restrict__ tw_fwd,
+                    int rule, int kim, int stats_on) {
+  extern __shared__ float2 sbuf[];  // tc columns of length H, back to back
+  const int c0 = blockIdx.x * tc;
+  load_col_tile(sbuf, gr, gi, H, W, tc, log2tc);
+  fft_lines(sbuf, H, log2H, tc, tw_fwd);
+
+  const StepScalars s = load_scalars(scal);
+  float facc[2] = {0.f, 0.f};    // overlap, |w'|^2
+  double dacc[2] = {0.0, 0.0};   // err_sum, err_sq
+  float macc[4] = {kNegFill, kNegFill, kNegFill, kNegFill};
+  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
+    const int j = idx & (tc - 1);
+    const int r = idx >> log2tc;
+    const size_t g = (size_t)r * W + c0 + j;
+    const float2 F = sbuf[j * H + r];
+    const float f = sqrtf(F.x * F.x + F.y * F.y) * s.post;
+    const float tv = t[g];
+    const float wo = updated_weight(f, tv, w[g], s, rule);
+    wout[g] = wo;
+
+    float phase = atan2f(F.y, F.x);
+    if (kim) {
+      if (!s.use_theta) phase = pff[g];
+      pff_out[g] = phase;
+    }
+    float sn, cs;
+    sincosf(phase, &sn, &cs);
+    re[g] = wo * cs;
+    im[g] = wo * sn;
+
+    facc[1] += wo * wo;
+    if (stats_on)
+      stats_accumulate(f, tv, mask[g], s.inv_tsum, s.inv_fsum, facc, dacc, macc);
+  }
+  write_partials(facc, dacc, macc, partials);
+}
+
+// Second pass of #2 and of cols_wgs_fwd: one block folds the (n_blocks, 8)
+// partials into sums[0:4] (float64 storage; the overlap and |w'|^2 summed
+// in float32, the error moments in float64) and maxs[0:4] (float32), in a
+// fixed order.
 __global__ void __launch_bounds__(kThreads)
 stats_reduce_kernel(const double* __restrict__ partials, int n_blocks,
                     double* __restrict__ sums, float* __restrict__ maxs) {
@@ -236,6 +297,24 @@ int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
       gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out, pffi_out, scal,
       partials, H, W, ilog2(H), tc, ilog2(tc), tw_fwd, tw_inv, rule, kim,
       stats_on);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
+}
+
+int slm_cols_wgs_fwd(const float* gr, const float* gi, const float* w,
+                     const float* t, const float* mask, const float* pff,
+                     float* re, float* im, float* wout, float* pff_out,
+                     const float* scal, double* partials, double* sums,
+                     float* maxs, int H, int W, int tc, const float2* tw_fwd,
+                     int rule, int kim, int stats_on, cudaStream_t stream) {
+  size_t smem = 0;
+  cudaError_t err = cols_setup(cols_wgs_fwd_kernel, H, W, tc, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_blocks = W / tc;
+  cols_wgs_fwd_kernel<<<n_blocks, kThreads, smem, stream>>>(
+      gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal, partials, H, W,
+      ilog2(H), tc, ilog2(tc), tw_fwd, rule, kim, stats_on);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);

@@ -7,8 +7,8 @@ and the simulated rig need (numpy only). It holds the SLM's geometry
 (:meth:`SLM.set_phase`, grayscale conversion into :attr:`SLM.display`).
 
 Fitting a *measured* source amplitude (its moments or a Gaussian fit)
-comes with the simulated-rig slice (ROADMAP.md queue 1, item 9) and
-raises :class:`NotImplementedError` until then.
+comes with the wavefront calibration that measures it (ROADMAP.md queue
+1, item 9) and raises :class:`NotImplementedError` until then.
 """
 
 import inspect
@@ -17,11 +17,13 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 
+from slmsuite_torch.hardware import _Picklable
 from slmsuite_torch.holography import toolbox
-from slmsuite_torch.holography.toolbox import REAL_TYPES
+from slmsuite_torch.holography.analysis import fitfunctions
+from slmsuite_torch.misc.math import REAL_TYPES
 
 
-class SLM(ABC):
+class SLM(_Picklable, ABC):
     r"""
     Abstract spatial light modulator.
 
@@ -45,6 +47,20 @@ class SLM(ABC):
     phase, display : numpy.ndarray
         Last written phase (radians) and its quantized hardware data.
     """
+
+    _pickle = [
+        "name",
+        "shape",
+        "bitdepth",
+        "bitresolution",
+        "pitch_um",
+        "pitch",
+        "settle_time_s",
+        "wav_um",
+        "wav_design_um",
+        "phase_scaling",
+    ]
+    _pickle_data = ["source", "phase", "display"]
 
     @abstractmethod
     def __init__(
@@ -226,6 +242,40 @@ class SLM(ABC):
 
         return out
 
+    def set_source_analytic(self, fit_function="gaussian2d", units="norm", phase_offset=0,
+                            sim=False, **kwargs):
+        """
+        Set the amplitude and phase of :attr:`source` from an analytic
+        ``fit_function`` (a name in
+        :mod:`slmsuite_torch.holography.analysis.fitfunctions` or a
+        callable of ``(xy, **kwargs)``) evaluated on the grid in
+        ``units`` (``"norm"``, ``"frac"`` or a length). ``sim=True`` sets
+        the simulation's ground-truth keys instead.
+        """
+        if units == "norm":
+            scaling = (1, 1)
+        elif units == "frac":
+            scaling = [g.max() - g.min() for g in self.grid]
+        elif units in toolbox.LENGTH_FACTORS:
+            factor = toolbox.LENGTH_FACTORS[units]
+            scaling = [factor / self.wav_um, factor / self.wav_um]
+        else:
+            raise RuntimeError(f"Did not recognize units '{units}'")
+
+        xy = [g / s for g, s in zip(self.grid, scaling)]
+
+        if len(kwargs) == 0 and fit_function == "gaussian2d":
+            w = np.min([np.amax(xy[0]), np.amax(xy[1])]) / 2
+            kwargs = {"x0": 0, "y0": 0, "a": 1, "c": 0, "wx": w, "wy": w}
+
+        if isinstance(fit_function, str):
+            fit_function = getattr(fitfunctions, fit_function)
+
+        source = fit_function(xy, **kwargs)
+        self.source["amplitude_sim" if sim else "amplitude"] = np.abs(source)
+        self.source["phase_sim" if sim else "phase"] = np.angle(source) + phase_offset
+        return self.source
+
     def fit_source_amplitude(self, method="moments", extent_threshold=0.1, force=True):
         """
         Scalar source parameters (center pixel, amplitude radius, extent).
@@ -238,8 +288,8 @@ class SLM(ABC):
 
         if "amplitude" in self.source:
             raise NotImplementedError(
-                "Fitting a measured source amplitude comes with the simulated-rig "
-                "slice (ROADMAP.md queue 1, item 9)."
+                "Fitting a measured source amplitude comes with the wavefront "
+                "calibration (ROADMAP.md queue 1, item 9)."
             )
 
         self.source["amplitude_center_pix"] = np.array(

@@ -1,22 +1,25 @@
 r"""
 :class:`FeedbackHologram` (port of
-:mod:`slmsuite_tpu.holography.algorithms._feedback`), reduced to what the
-spot holograms need without a camera: computational feedback, with
-``cameraslm`` None or a bare SLM (its shape and source amplitude).
-Camera-in-the-loop feedback and CameraSLMs come with the simulated-rig
-slice (ROADMAP.md queue 1, item 9).
+:mod:`slmsuite_tpu.holography.algorithms._feedback`): a hologram that
+knows its hardware. ``cameraslm`` is None, a bare SLM (taken for its shape
+and source amplitude) or a CameraSLM, whose camera :meth:`measure` images
+the current phase with. Feedback from camera *images* (``target_ij``,
+``ijcam_to_knmslm``, ``"experimental"`` weighting) needs the stepwise host
+loop and raises :class:`NotImplementedError` (ROADMAP.md queue 1, item 6).
 """
+
+import numpy as np
 
 from slmsuite_torch.holography.algorithms._hologram import Hologram
 
 
 class FeedbackHologram(Hologram):
     """
-    Hologram with (for now, only computational) feedback.
+    Hologram with hardware access for feedback.
 
     Attributes
     ----------
-    cameraslm : None
+    cameraslm : CameraSLM OR None
         Hardware access for experimental feedback (a bare SLM is taken for
         its shape and source, and leaves this None, as in the JAX package).
     target_ij : numpy.ndarray OR None
@@ -27,19 +30,22 @@ class FeedbackHologram(Hologram):
 
     def __init__(self, shape, target_ij=None, cameraslm=None, **kwargs):
         """Initialize a feedback hologram of computational ``shape``."""
-        if target_ij is not None or (
-            hasattr(cameraslm, "slm") and hasattr(cameraslm, "cam")
-        ):
+        if target_ij is not None:
             raise NotImplementedError(
-                "Camera feedback (a CameraSLM, target_ij) comes with the "
-                "simulated-rig slice (ROADMAP.md queue 1, item 9)."
+                "Camera-basis image targets (target_ij) come with the stepwise "
+                "host loop (ROADMAP.md queue 1, item 6)."
             )
-        self.cameraslm = None
+        self.cameraslm = cameraslm
         if cameraslm is not None:
-            if not (hasattr(cameraslm, "shape") and hasattr(cameraslm, "grid")):
+            if hasattr(cameraslm, "slm") and hasattr(cameraslm, "cam"):
+                slm = cameraslm.slm
+            elif hasattr(cameraslm, "shape") and hasattr(cameraslm, "grid"):
+                slm = cameraslm
+                self.cameraslm = None
+            else:
                 raise ValueError("Expected a CameraSLM or SLM for cameraslm.")
-            kwargs["amp"] = cameraslm._get_source_amplitude()
-            kwargs.setdefault("slm_shape", tuple(cameraslm.shape))
+            kwargs["amp"] = slm._get_source_amplitude()
+            kwargs.setdefault("slm_shape", tuple(slm.shape))
         super().__init__(target=shape, **kwargs)
 
         self.img_ij = None
@@ -52,5 +58,38 @@ class FeedbackHologram(Hologram):
             return feedback
         raise NotImplementedError(
             f"Feedback '{feedback}' needs the stepwise host loop "
-            "(ROADMAP.md queue 1, items 6 and 9)."
+            "(ROADMAP.md queue 1, item 6)."
         )
+
+    def ijcam_to_knmslm(self, *args, **kwargs):
+        """A camera-basis image resampled into the computational basis."""
+        raise NotImplementedError(
+            "ijcam_to_knmslm comes with the stepwise host loop "
+            "(ROADMAP.md queue 1, item 6)."
+        )
+
+    def measure(self, basis="ij"):
+        """
+        Ensure a feedback image is cached: write the hologram's phase to
+        the SLM, settle, grab a camera image, and store its amplitude
+        (the square root) in :attr:`img_ij`.
+        """
+        if basis == "knm":
+            self.ijcam_to_knmslm()
+        if basis != "ij":
+            raise ValueError(f"Unrecognized basis '{basis}'. Options: 'ij', 'knm'.")
+        if self.cameraslm is None:
+            raise RuntimeError("measure() requires a cameraslm.")
+        if self.img_ij is None:
+            self.cameraslm.slm.set_phase(
+                self.get_phase(include_propagation=True), settle=True
+            )
+            self.cameraslm.cam.flush()
+            self.img_ij = np.sqrt(
+                np.asarray(self.cameraslm.cam.get_image(), dtype=self.dtype)
+            )
+            self.img_knm = None
+
+    def _midloop_cleaning(self):
+        self.img_ij = None
+        self.img_knm = None

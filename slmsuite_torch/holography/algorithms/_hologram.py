@@ -7,7 +7,7 @@ the loop runs shift-free (see :mod:`slmsuite_torch.ops.propagation`); all
 user-facing accessors unfold. Fully-computational runs go through the
 engine (:mod:`slmsuite_torch.ops.engine`) in chunks, with the planes kept
 on the device between calls; a target with nan (MRAF noise regions) runs
-MRAF. The stepwise host loop (callbacks, experimental feedback),
+MRAF. The stepwise host loop (callbacks, feedback measured on the host),
 conjugate gradient and mesh-sharded runs are not ported yet and raise
 :class:`NotImplementedError`.
 """
@@ -144,10 +144,7 @@ class Hologram(_HologramStats):
         """
         self.device = resolve_device(device)
         if hasattr(slm_shape, "slm") and hasattr(slm_shape, "cam"):
-            raise NotImplementedError(
-                "CameraSLMs come with the simulated-rig slice (ROADMAP.md queue 1, "
-                "item 9); pass its SLM."
-            )
+            slm_shape = slm_shape.slm  # A CameraSLM: its SLM.
         if hasattr(slm_shape, "shape") and hasattr(slm_shape, "grid"):
             # An SLM: its shape, and its measured source amplitude as amp.
             source_amp = slm_shape.source.get("amplitude")
@@ -218,6 +215,72 @@ class Hologram(_HologramStats):
         self._psi = None
         self.reset_phase(phase)
         self.reset(reset_phase=False, reset_flags=False)
+
+    @staticmethod
+    def get_padded_shape(
+        slm_shape,
+        padding_order=1,
+        square_padding=True,
+        precision=np.inf,
+        precision_basis="kxy",
+    ):
+        """
+        The computational shape for ``slm_shape`` (a shape, an SLM or a
+        CameraSLM): padded to the ``padding_order``-th larger power of 2
+        (squared by default), or as far as a k-space ``precision`` in
+        ``precision_basis`` (``"kxy"`` or ``"ij"``) needs.
+        """
+        cameraslm = None
+        if hasattr(slm_shape, "slm") and hasattr(slm_shape, "cam"):
+            cameraslm = slm_shape
+            slm_shape = cameraslm.slm.shape
+        elif hasattr(slm_shape, "shape") and hasattr(slm_shape, "grid"):
+            slm_obj = slm_shape
+            slm_shape = slm_obj.shape
+            if precision_basis == "ij" and np.isfinite(precision):
+                raise ValueError("Pass a CameraSLM for 'ij' precision_basis.")
+            cameraslm = type("_Fake", (), {"slm": slm_obj})()
+
+        slm_shape = tuple(int(v) for v in slm_shape)
+
+        if np.isfinite(precision) and cameraslm is not None:
+            if precision <= 0:
+                raise ValueError("precision must be positive.")
+            fs = 1 / np.amin(cameraslm.slm.pitch)
+            if precision_basis == "ij":
+                pixels = np.amax(cameraslm.kxyslm_to_ijcam([fs, fs])) / precision
+            else:
+                pixels = fs / precision
+            pixels = int(2 ** int(np.ceil(np.log2(pixels))))
+            precision_shape = (pixels, pixels)
+        elif np.isfinite(precision):
+            raise ValueError("Pass a CameraSLM/SLM for precision calculations.")
+        else:
+            precision_shape = slm_shape
+
+        if padding_order > 0:
+            padding_shape = np.power(
+                2, np.ceil(np.log2(slm_shape)) + padding_order - 1
+            ).astype(int)
+        else:
+            padding_shape = slm_shape
+
+        shape = tuple(
+            int(v) for v in np.amax(np.vstack((precision_shape, padding_shape)), axis=0)
+        )
+        if square_padding:
+            largest = int(np.amax(shape))
+            shape = (largest, largest)
+        return shape
+
+    @staticmethod
+    def _host_fingerprint(host):
+        """Shape and the bytes of <= 1024 strided samples of a host array
+        (None for a tensor): catches in-place edits that identity misses."""
+        if not isinstance(host, np.ndarray):
+            return None
+        flat = host.reshape(-1)
+        return (host.shape, flat[::max(1, flat.size // 1024)].tobytes())
 
     # ------------------------------------------------------------------
     # Phase conventions.
@@ -475,6 +538,7 @@ class Hologram(_HologramStats):
         self._farfield_folded = folded
         self.amp_ff = amp_ff
         self._phase_ff_folded = theta
+        self._midloop_cleaning()
 
     # ------------------------------------------------------------------
     # Optimization.
@@ -494,10 +558,12 @@ class Hologram(_HologramStats):
         Iterative phase retrieval. The port runs ``"GS"`` and the WGS
         methods (``"WGS-Leonardo"``, ``"WGS-Kim"``, ``"WGS-Nogrette"``,
         ``"WGS-Wu"``, ``"WGS-tanh"``) on the device, with
-        ``"computational"`` feedback (and ``"computational_spot"`` on a
-        :class:`SpotHologram`), ``"computational"`` and
-        ``"computational_spot"`` stats, padded farfields (``shape !=
-        slm_shape``) and propagation kernels. Leonardo, Kim, Wu and tanh
+        ``"computational"`` feedback (on a :class:`SpotHologram` also
+        ``"computational_spot"`` and, with a simulated rig as
+        ``cameraslm``, ``"experimental_spot"``: the camera measures inside
+        the loop on the device), the matching stat groups, padded
+        farfields (``shape != slm_shape``) and propagation kernels.
+        Leonardo, Kim, Wu and tanh
         with computational feedback and stats on an unpadded farfield
         take the fused loop; everything else the natural step.
 
@@ -509,8 +575,9 @@ class Hologram(_HologramStats):
         :attr:`zero_weights`. WGS-Leonardo and WGS-Kim with computational
         feedback and stats on an unpadded farfield take the carry-mode
         MRAF loop; every other MRAF run the natural step. ``"CG"``,
-        callbacks and camera feedback raise :class:`NotImplementedError`
-        naming their ROADMAP item.
+        callbacks and feedback measured on the host (a camera that the
+        device measurement does not model, image feedback) raise
+        :class:`NotImplementedError` naming their ROADMAP item.
 
         Parameters follow ``slmsuite_tpu``'s :meth:`optimize`: ``method``,
         ``maxiter``, ``verbose``, ``callback``, ``feedback``,
@@ -585,12 +652,15 @@ class Hologram(_HologramStats):
             if g in ("computational", "computational_spot")
         )
 
+    def _midloop_cleaning(self):
+        """Drop what was cached for the last phase (hook for subclasses)."""
+
     def _mraf_enabled(self):
         return bool(np.any(np.isnan(self.target))) if self.target is not None else False
 
     def _build_config(self):
         mraf = self._mraf_enabled()
-        return _engine.GSConfig(
+        config = _engine.GSConfig(
             method=self.flags["method"],
             shape=tuple(self.shape),
             slm_shape=tuple(self.slm_shape),
@@ -606,6 +676,12 @@ class Hologram(_HologramStats):
             ),
             spot_single_px=getattr(self, "_spot_single_px", False),
         )
+        return self._amend_config(config)
+
+    def _amend_config(self, config):
+        """Hook for subclasses to refine the engine config (the simulated
+        rig's camera statics)."""
+        return config
 
     def _build_consts(self, config):
         device = self.device
@@ -695,8 +771,8 @@ class Hologram(_HologramStats):
             or self._engine_feedback() in ("external", "external_spot")
         ):
             raise NotImplementedError(
-                "The stepwise host loop (callbacks, experimental or external "
-                "feedback) is not ported yet (ROADMAP.md queue 1, items 6 and 9)."
+                "The stepwise host loop (callbacks, feedback or statistics measured "
+                "on the host) is not ported yet (ROADMAP.md queue 1, item 6)."
             )
         if (
             self.flags.get("fix_phase_efficiency") is not None

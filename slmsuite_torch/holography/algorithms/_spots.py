@@ -4,11 +4,15 @@ Optical focus arrays (port of :mod:`slmsuite_tpu.holography.algorithms._spots`):
 (grid-free, in a Zernike basis).
 
 :class:`SpotHologram` covers spots given in the computational ``"knm"``
-basis without hardware, on padded or unpadded farfields, optimized with
-``computational`` or spot-integrated ``computational_spot`` feedback on
-the device engine. The ``"kxy"``/``"ij"`` bases and camera feedback need
-a ``cameraslm`` (ROADMAP.md queue 1, item 9); spot null regions are not
-ported yet (item 6).
+basis, in ``"kxy"`` (with an SLM or CameraSLM) or in camera pixels
+``"ij"`` (with a Fourier-calibrated CameraSLM), on padded or unpadded
+farfields, optimized on the device engine with ``computational`` or
+spot-integrated ``computational_spot`` feedback, or with
+``experimental_spot`` feedback from a simulated rig's camera, measured
+inside the loop on the device. A rig the device measurement does not
+model (real hardware, noise, averaging, an orientation transform) needs
+the stepwise host loop, which is not ported yet, as are spot null regions
+(ROADMAP.md queue 1, item 6) and ``refine_offset`` (item 9).
 
 :class:`CompressedSpotHologram` takes a bare SLM and runs the compressed
 engine (:mod:`slmsuite_torch.ops.compressed`) with ``computational_spot``
@@ -17,35 +21,226 @@ feedback, MRAF with ``zero_factor``) and conjugate gradient are queued
 under item 6, CameraSLMs under item 9 and mesh-sharded runs under item 11.
 """
 
+import dataclasses
 import os
 import warnings
 
 import numpy as np
 import torch
 
-from slmsuite_torch.holography import toolbox
+from slmsuite_torch.holography import analysis, toolbox
 from slmsuite_torch.holography.algorithms._feedback import FeedbackHologram
 from slmsuite_torch.holography.algorithms._hologram import Hologram
 from slmsuite_torch.holography.toolbox import REAL_TYPES, format_2vectors
 from slmsuite_torch.holography.toolbox import phase as _tphase
 from slmsuite_torch.ops import compressed as _comp
 from slmsuite_torch.ops import engine as _engine
+from slmsuite_torch.ops import propagation as _prop
 from slmsuite_torch.ops.weights import update_weights_generic
 
 
 class _AbstractSpotHologram(FeedbackHologram):
-    """Shared spot logic: no vortex removal, and the camera and external
-    spot statistics."""
+    """Shared spot logic: no vortex removal, the simulated rig's
+    measurement on the device, and the camera and external spot
+    statistics."""
+
+    #: Subclasses whose psi is a (slm_shape) folded DFT phase opt in to
+    #: the simulated rig's device measurement (the compressed hologram's
+    #: psi has no fold).
+    _sim_fast_path = False
+
+    #: The last one-shot device measurement (cleared by
+    #: :meth:`_midloop_cleaning`).
+    _sim_powers_value = None
 
     def remove_vortices(self):
         """Spot holograms do not need to consider vortices."""
 
+    def _midloop_cleaning(self):
+        super()._midloop_cleaning()
+        self._sim_powers_value = None
+
+    # ------------------------------------------------------------------
+    # The simulated rig's closed loop on the device.
+    # ------------------------------------------------------------------
+
+    def _sim_engine_inputs(self):
+        """
+        Whether the rig qualifies for the device measurement
+        :meth:`slmsuite_torch.ops.engine.sim_measure_spots`, and its
+        ingredients: ``(consts, statics)``, the device tensors that do not
+        change in the loop and the static keyword arguments (without the
+        dynamic ``sim_scale``). None when the rig does not qualify: real
+        hardware, a noise model, an orientation transform, averaging or
+        HDR, a bit depth that is no power of two, or an integration window
+        off the frame.
+        """
+        if not self._sim_fast_path:
+            return None
+        cs = self.cameraslm
+        if cs is None or not hasattr(cs, "cam") or not hasattr(cs, "slm"):
+            return None
+        from slmsuite_torch.hardware.cameras.simulated import SimulatedCamera
+        from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+
+        cam, slm = cs.cam, cs.slm
+        if not (isinstance(cam, SimulatedCamera) and isinstance(slm, SimulatedSLM)):
+            return None
+        if cam.noise is not None or cam.averaging is not None or cam.hdr is not None:
+            return None
+        if slm.phase_scaling != 1 or (slm.bitresolution & (slm.bitresolution - 1)):
+            return None
+        if not getattr(cam, "_interpolate", False) or not hasattr(cam, "_hologram"):
+            return None
+        probe = np.arange(6, dtype=float).reshape(2, 3)
+        if not np.array_equal(cam.transform(probe), probe):
+            return None
+        if getattr(self, "spot_ij", None) is None or self.spot_integration_width_ij is None:
+            return None
+
+        # The key: identity and content fingerprint of every input array.
+        # Identity alone misses an in-place edit (a wavefront calibration
+        # updates ``slm.source["phase"]`` in place), and a freed array's
+        # address can be taken by its replacement, so the cache entry also
+        # holds the keyed arrays.
+        keyed_arrays = (
+            self.spot_ij, cam.knm_cam,
+            slm.source.get("amplitude_sim"), slm.source.get("phase_sim"),
+            slm.source.get("phase"), self.propagation_kernel,
+        )
+        key = tuple(
+            (id(a), self._host_fingerprint(a)) for a in keyed_arrays
+        ) + (int(self.spot_integration_width_ij), str(self.device))
+        cached = getattr(self, "_sim_inputs_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[2]
+
+        slm_shape = tuple(slm.shape)
+        # Unfold the hologram's folded phase, fold for the camera's canvas.
+        y0h, _, x0h, _ = _prop.pad_window_slices(tuple(self.shape), slm_shape)
+        cb_holo = _prop.checkerboard(slm_shape, (y0h, x0h))
+        shape_padded = tuple(int(v) for v in cam.shape_padded)
+        y0c, _, x0c, _ = _prop.pad_window_slices(shape_padded, slm_shape)
+        cb_cam = _prop.checkerboard(slm_shape, (y0c, x0c))
+
+        # One sum before quantization (minus the hologram's fold, plus the
+        # propagation kernel and the hardware correction) and one after
+        # (the simulated aberration plus the camera canvas's fold).
+        pre = -np.asarray(cb_holo, np.float32)
+        if self.propagation_kernel is not None:
+            pre = pre + np.asarray(self.propagation_kernel, np.float32)
+        correction = slm.source.get("phase")
+        if correction is not None:
+            pre = pre + np.asarray(correction, np.float32)
+        post = np.asarray(slm.source["phase_sim"], np.float32) + np.asarray(
+            cb_cam, np.float32
+        )
+
+        flat_cam, valid_cam = cam._sample_maps()
+
+        # Spot windows: the index math of `analysis.take` (floored anchors,
+        # floored centered edges). A window off the frame disqualifies the
+        # rig (the host path would raise there).
+        width = int(self.spot_integration_width_ij)
+        vectors = np.floor(np.asarray(self.spot_ij)).astype(int)
+        edge = np.floor(analysis._coordinates(width, True)).astype(int)
+        rx, ry = np.meshgrid(edge, edge)
+        ix = rx.ravel()[None, :] + vectors[0][:, None]
+        iy = ry.ravel()[None, :] + vectors[1][:, None]
+        cam_shape = tuple(cam.shape)
+        if (
+            (ix < 0).any() or (ix >= cam_shape[1]).any()
+            or (iy < 0).any() or (iy >= cam_shape[0]).any()
+        ):
+            return None
+
+        def dev(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+        consts = {
+            "sim_pre": dev(pre),
+            "sim_post": dev(post),
+            "sim_amp": dev(np.asarray(slm.source["amplitude_sim"], np.float32)),
+            "sim_flat_cam": dev(flat_cam.ravel(), torch.int64),
+            "sim_valid_cam": dev(valid_cam.ravel()),
+            "sim_spot_flat": dev(iy * cam_shape[1] + ix, torch.int64),
+        }
+        statics = {
+            "bitres": float(slm.bitresolution),
+            "cam_sat": float(cam.bitresolution - 1),
+            # The host camera casts counts to its dtype.
+            "truncates": bool(np.issubdtype(np.dtype(cam.dtype), np.integer)),
+            "shape_padded": shape_padded,
+        }
+        self._sim_inputs_cache = (key, keyed_arrays, (consts, statics))
+        return consts, statics
+
+    def _sim_scale(self):
+        """The simulated camera's exposure scaling (a 0-d device tensor)."""
+        cam = self.cameraslm.cam
+        return torch.tensor(
+            float(np.float32(cam.exposure_s * cam.gain)), dtype=torch.float32,
+            device=self.device,
+        )
+
+    def _sim_composite(self):
+        """``run(psi) -> (spot powers, total)`` on the device, or None when
+        the rig does not qualify (see :meth:`_sim_engine_inputs`)."""
+        inputs = self._sim_engine_inputs()
+        if inputs is None:
+            return None
+        consts, statics = inputs
+
+        def run(psi):
+            return _engine.sim_measure_spots(
+                psi, {**consts, "sim_scale": self._sim_scale()}, **statics
+            )
+
+        return run
+
+    def _sim_spot_powers(self):
+        """
+        The simulated rig's measurement of the current phase in one device
+        pass: ``(spot_powers (N,), total)`` on the host, or None when the
+        rig does not qualify. Unlike :meth:`measure` it does not write the
+        phase to the SLM's display.
+        """
+        if self._sim_powers_value is not None:
+            return self._sim_powers_value
+        run = self._sim_composite()
+        if run is None:
+            return None
+        spots, total = run(type(self)._psi.device(self, self.device))
+        packed = torch.cat([spots, total[None]]).cpu().numpy()
+        self._sim_powers_value = (packed[:-1], float(packed[-1]))
+        return self._sim_powers_value
+
+    def refine_offset(self, *args, **kwargs):
+        """Hone the spot positions toward their targets from an image."""
+        raise NotImplementedError(
+            "refine_offset is not ported yet (ROADMAP.md queue 1, item 9)."
+        )
+
     def _populate_stats(self, stats, stat_groups):
         super()._populate_stats(stats, stat_groups)
         if "experimental_spot" in stat_groups:
-            raise NotImplementedError(
-                "Camera spot statistics come with the simulated-rig slice "
-                "(ROADMAP.md queue 1, item 9)."
+            fast = self._sim_spot_powers()
+            if fast is not None:
+                pwr_feedback, total = fast
+            else:
+                self.measure(basis="ij")
+                pwr_img = np.square(self.img_ij)
+                pwr_feedback = analysis.take(
+                    pwr_img, self.spot_ij, self.spot_integration_width_ij,
+                    centered=True, integrate=True,
+                )
+                total = np.sum(pwr_img)
+            stats["experimental_spot"] = self._calculate_stats(
+                np.sqrt(pwr_feedback),
+                self.spot_amp,
+                efficiency_compensation=False,
+                total=total,
+                raw=bool(self.flags.get("raw_stats")),
             )
         if "external_spot" in stat_groups:
             pwr_feedback = np.square(np.asarray(self.external_spot_amp, dtype=self.dtype))
@@ -60,15 +255,18 @@ class _AbstractSpotHologram(FeedbackHologram):
 
 class SpotHologram(_AbstractSpotHologram):
     """
-    N spots at ``"knm"`` (computational pixel) positions, with per-spot
-    amplitude targets.
+    DFT-based optical focus arrays: N spots tracked in the ``"knm"``
+    (computational), ``"kxy"`` (normalized k-space) and ``"ij"`` (camera)
+    bases, with per-spot amplitude targets and spot-integrated feedback.
     """
+
+    _sim_fast_path = True
 
     def __init__(
         self,
         shape,
         spot_vectors,
-        basis="knm",
+        basis="kxy",
         spot_amp=None,
         cameraslm=None,
         null_vectors=None,
@@ -79,13 +277,10 @@ class SpotHologram(_AbstractSpotHologram):
     ):
         """
         Initialize a spot hologram from ``(2, N)`` spot vectors in the
-        ``"knm"`` basis.
+        given ``basis``: ``"kxy"`` (the default; needs a ``cameraslm`` or
+        SLM), ``"knm"`` (computational pixels) or ``"ij"`` (camera pixels;
+        needs a Fourier-calibrated ``cameraslm``).
         """
-        if basis not in (None, "knm") or cameraslm is not None:
-            raise NotImplementedError(
-                "Spot bases other than 'knm' need a cameraslm "
-                "(ROADMAP.md queue 1, item 9)."
-            )
         if any(v is not None for v in (null_vectors, null_radius, null_region,
                                         null_region_radius_frac)):
             raise NotImplementedError(
@@ -102,17 +297,64 @@ class SpotHologram(_AbstractSpotHologram):
             self.spot_amp = np.full(N, 1.0 / np.sqrt(N))
         self.external_spot_amp = np.copy(self.spot_amp)
 
-        self.spot_knm = vectors
-        self.spot_kxy = None
-        self.spot_ij = None
         self.null_knm = None
         self.null_radius_knm = None
         self.null_region_knm = None
 
+        calibrated = "fourier" in getattr(cameraslm, "calibrations", {})
+        if basis is None or basis == "knm":
+            self.spot_knm = vectors
+            if cameraslm is not None:
+                self.spot_kxy = toolbox.convert_vector(
+                    self.spot_knm, "knm", "kxy", hardware=cameraslm, shape=shape
+                )
+                self.spot_ij = cameraslm.kxyslm_to_ijcam(self.spot_kxy) if calibrated else None
+            else:
+                self.spot_kxy = None
+                self.spot_ij = None
+        elif basis == "kxy":
+            if cameraslm is None:
+                raise ValueError("A cameraslm (or SLM) is needed to interpret kxy.")
+            self.spot_kxy = vectors
+            self.spot_ij = cameraslm.kxyslm_to_ijcam(vectors) if calibrated else None
+            self.spot_knm = toolbox.convert_vector(
+                vectors, "kxy", "knm", hardware=cameraslm, shape=shape
+            )
+        elif basis == "ij":
+            if cameraslm is None or not calibrated:
+                raise ValueError("A Fourier-calibrated cameraslm is needed for ij.")
+            self.spot_ij = vectors
+            self.spot_kxy = cameraslm.ijcam_to_kxyslm(vectors)
+            self.spot_knm = toolbox.convert_vector(
+                vectors, "ij", "knm", hardware=cameraslm, shape=shape
+            )
+        else:
+            raise ValueError(f"Unrecognized basis for spots '{basis}'.")
+
+        # Point spread functions and integration widths.
+        if cameraslm is not None and hasattr(cameraslm, "slm"):
+            psf_kxy = np.mean(cameraslm.slm.get_spot_radius_kxy())
+            psf_knm = toolbox.convert_radius(psf_kxy, "kxy", "knm", cameraslm.slm, shape)
+            psf_ij = toolbox.convert_radius(psf_kxy, "kxy", "ij", cameraslm, shape)
+        else:
+            psf_knm = 0
+            psf_ij = np.nan
+        psf_knm = 0 if np.isnan(psf_knm) else psf_knm
+        psf_ij = 0 if np.isnan(psf_ij) else psf_ij
+
         # Integration width: 10x the psf clipped to [3, spot spacing / 1.5]
-        # and made odd, which is 3 without hardware (psf 0).
-        self.spot_integration_width_knm = 3
-        self.spot_integration_width_ij = None
+        # and made odd.
+        N_psf, min_psf = 10, 3
+        dist_knm = np.max([toolbox.smallest_distance(self.spot_knm) / 1.5, min_psf])
+        width = np.clip(N_psf * psf_knm, min_psf, dist_knm)
+        self.spot_integration_width_knm = int(2 * np.floor(width / 2) + 1)
+
+        if self.spot_ij is not None:
+            dist_ij = np.max([toolbox.smallest_distance(self.spot_ij) / 1.5, min_psf])
+            width = np.clip(N_psf * psf_ij, min_psf, dist_ij)
+            self.spot_integration_width_ij = int(2 * np.floor(width / 2) + 1)
+        else:
+            self.spot_integration_width_ij = None
 
         if (
             np.any(self.spot_knm[0] < 0)
@@ -125,7 +367,21 @@ class SpotHologram(_AbstractSpotHologram):
                 f"Spots:\n{self.spot_knm}\nBounds: {shape}"
             )
 
-        super().__init__(shape, target_ij=None, cameraslm=None, **kwargs)
+        if self.spot_ij is not None:
+            cam_shape = cameraslm.cam.shape
+            half = self.spot_integration_width_ij / 2
+            if (
+                np.any(self.spot_ij[0] < half)
+                or np.any(self.spot_ij[1] < half)
+                or np.any(self.spot_ij[0] >= cam_shape[1] - half)
+                or np.any(self.spot_ij[1] >= cam_shape[0] - half)
+            ):
+                raise ValueError(
+                    f"Spots outside camera bounds!\nSpots:\n{self.spot_ij}\n"
+                    f"Bounds: {cam_shape}"
+                )
+
+        super().__init__(shape, target_ij=None, cameraslm=cameraslm, **kwargs)
         self.set_target(reset_weights=True)
 
     def __len__(self):
@@ -144,20 +400,25 @@ class SpotHologram(_AbstractSpotHologram):
     ):
         """
         A rectangular array of ``array_shape`` spots at ``array_pitch``
-        spacing about ``array_center`` (the zeroth order by default).
-        ``orientation_check`` removes the last two spots.
+        spacing about ``array_center`` (the zeroth order in ``basis`` by
+        default). ``orientation_check`` removes the last two spots.
         """
-        if basis not in (None, "knm"):
-            raise NotImplementedError(
-                "Spot bases other than 'knm' need a cameraslm "
-                "(ROADMAP.md queue 1, item 9)."
-            )
         if isinstance(array_shape, REAL_TYPES):
             array_shape = (int(array_shape), int(array_shape))
         if isinstance(array_pitch, REAL_TYPES):
             array_pitch = (array_pitch, array_pitch)
         if array_center is None:
-            array_center = (shape[1] / 2.0, shape[0] / 2.0)
+            if basis == "knm":
+                array_center = (shape[1] / 2.0, shape[0] / 2.0)
+            elif basis == "kxy":
+                array_center = (0, 0)
+            elif basis == "ij":
+                cameraslm = kwargs.get("cameraslm")
+                if cameraslm is None or "fourier" not in cameraslm.calibrations:
+                    raise ValueError("A Fourier-calibrated cameraslm is needed for ij.")
+                array_center = toolbox.convert_vector(
+                    (0, 0), "kxy", "ij", hardware=cameraslm
+                )
 
         x_edge, y_edge = (
             (np.arange(array_shape[a]) - (array_shape[a] - 1) / 2.0) * array_pitch[a]
@@ -179,8 +440,19 @@ class SpotHologram(_AbstractSpotHologram):
     def _set_target_spots(self, reset_weights=False):
         """Scatter the spot amplitudes into the target plane."""
         self.spot_knm_rounded = np.rint(self.spot_knm).astype(int)
-        self.spot_kxy_rounded = None
-        self.spot_ij_rounded = None
+
+        if self.cameraslm is not None:
+            self.spot_kxy_rounded = toolbox.convert_vector(
+                self.spot_knm_rounded, "knm", "kxy",
+                hardware=self.cameraslm.slm, shape=self.shape,
+            )
+            if "fourier" in self.cameraslm.calibrations:
+                self.spot_ij_rounded = self.cameraslm.kxyslm_to_ijcam(self.spot_kxy_rounded)
+            else:
+                self.spot_ij_rounded = None
+        else:
+            self.spot_kxy_rounded = None
+            self.spot_ij_rounded = None
 
         if self.target is None:
             self.target = np.zeros(self.shape, dtype=self.dtype)
@@ -208,20 +480,48 @@ class SpotHologram(_AbstractSpotHologram):
         feedback = self.flags.get("feedback", "computational")
         if feedback in ("computational", "computational_spot"):
             return feedback
+        if feedback == "experimental_spot" and self._sim_engine_inputs() is not None:
+            # A simulated rig that the device measurement models exactly:
+            # the whole camera-in-the-loop iteration runs on the device.
+            return "experimental_spot_sim"
         raise NotImplementedError(
             f"Feedback '{feedback}' needs the stepwise host loop "
-            "(ROADMAP.md queue 1, items 6 and 9)."
+            "(ROADMAP.md queue 1, item 6)."
         )
 
     def _device_stat_groups(self):
-        return tuple(
-            g for g in self.flags.get("stat_groups", [])
-            if g in ("computational", "computational_spot")
-        )
+        allowed = {"computational", "computational_spot"}
+        if self._sim_engine_inputs() is not None:
+            allowed.add("experimental_spot")
+        return tuple(g for g in self.flags.get("stat_groups", []) if g in allowed)
+
+    def _stats_pending_groups(self):
+        pending = super()._stats_pending_groups()
+        if self._sim_engine_inputs() is not None:
+            # The loop computes the measured spot stats on the device.
+            pending = [g for g in pending if g != "experimental_spot"]
+        return pending
+
+    def _amend_config(self, config):
+        config = super()._amend_config(config)
+        if _engine._needs_sim_measure(config):
+            _, statics = self._sim_engine_inputs()
+            config = dataclasses.replace(
+                config,
+                sim_bitres=statics["bitres"],
+                sim_cam_sat=statics["cam_sat"],
+                sim_truncates=statics["truncates"],
+                sim_shape_padded=tuple(statics["shape_padded"]),
+            )
+        return config
 
     def _extend_consts(self, consts, config):
-        if not (config.feedback == "computational_spot"
-                or "computational_spot" in config.stat_groups):
+        needs_spots = (
+            config.feedback == "computational_spot"
+            or "computational_spot" in config.stat_groups
+        )
+        needs_sim = _engine._needs_sim_measure(config)
+        if not (needs_spots or needs_sim):
             return
         # Gather maps: stats use the raw (floored) spot positions, weight
         # updates the rounded spot pixels.
@@ -242,6 +542,10 @@ class SpotHologram(_AbstractSpotHologram):
         consts["spot_amp"] = torch.as_tensor(
             np.asarray(self.spot_amp, np.float32), device=self.device
         )
+        if needs_sim:
+            sim_consts, _ = self._sim_engine_inputs()
+            consts.update(sim_consts)
+            consts["sim_scale"] = self._sim_scale()
 
 
 class CompressedSpotHologram(_AbstractSpotHologram):
@@ -323,12 +627,16 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             self.spot_kxy = toolbox.convert_vector(spot_vectors, basis, "kxy",
                                                    hardware=cameraslm)
 
-        # A CameraSLM bounds the spots laterally by its SLM's farfield (and
-        # then raises in FeedbackHologram: CameraSLMs come with item 9).
+        # A CameraSLM bounds the spots laterally by its SLM's farfield.
         if hasattr(cameraslm, "slm"):
             kmax = 1.0 / np.min(cameraslm.slm.pitch) / 2.0
             if np.any(np.abs(self.spot_kxy[:2, :]) > 1.1 * kmax):
                 raise ValueError("Spots laterally outside the bounds of the farfield")
+            raise NotImplementedError(
+                "Compressed holograms on a CameraSLM (camera-basis spots and "
+                "camera feedback) are not ported yet (ROADMAP.md queue 1, item 9); "
+                "pass its SLM."
+            )
         self.spot_ij = None
         self.spot_integration_width_ij = None
 
@@ -425,15 +733,6 @@ class CompressedSpotHologram(_AbstractSpotHologram):
     # ------------------------------------------------------------------
     # Engine integration.
     # ------------------------------------------------------------------
-
-    @staticmethod
-    def _host_fingerprint(host):
-        """Shape and the bytes of <= 1024 strided samples of a host array
-        (None for a tensor): catches in-place edits that identity misses."""
-        if not isinstance(host, np.ndarray):
-            return None
-        flat = host.reshape(-1)
-        return (host.shape, flat[::max(1, flat.size // 1024)].tobytes())
 
     def _dev_const(self, key, host, make):
         """``make(host)``, kept on the device across calls while ``host`` is

@@ -1,0 +1,852 @@
+r"""
+Image analysis on the host (the port's copy of what the simulated rig
+needs from :mod:`slmsuite_tpu.holography.analysis`; numpy and scipy):
+region extraction (:meth:`take`), background removal and first moments,
+affine fitting, and the spot-lattice detection behind the Fourier
+calibration (:meth:`blob_array_detect`).
+
+``cv2`` is imported inside :meth:`blob_detect` and the helpers of
+:meth:`blob_array_detect` only: everything else here, and every path that
+runs on a machine without OpenCV, needs numpy and scipy alone. The image
+fits, the second moments, the phase-image operations and the plots of the
+JAX package's module are not copied.
+"""
+
+import warnings
+from functools import reduce
+
+import numpy as np
+from scipy.optimize import minimize
+
+from slmsuite_torch.holography.analysis.fitfunctions import gaussian2d
+from slmsuite_torch.holography.toolbox import format_2vectors
+
+__all__ = [
+    "take",
+    "image_remove_field",
+    "image_moment",
+    "image_normalization",
+    "image_normalize",
+    "image_positions",
+    "fit_affine",
+    "blob_detect",
+    "blob_array_detect",
+    "get_orientation_transformation",
+]
+
+
+def _center(width, integer=False):
+    """Center of an index range of length ``width``."""
+    if integer:
+        return int((width - 1) / 2 if width % 2 else width / 2)
+    return float(width - 1) / 2
+
+
+def _coordinates(width, centered=False):
+    """Float indices ``0..width-1``, optionally centered."""
+    xs = np.arange(width).astype(np.float64)
+    if centered:
+        xs -= _center(width)
+    return xs
+
+
+def _generate_grid(w_x, w_y, centered=False, integer=False):
+    """Meshgrid of pixel indices of shape ``(w_y, w_x)``."""
+    xs = np.arange(w_x, dtype=float)
+    ys = np.arange(w_y, dtype=float)
+    if centered:
+        xs -= _center(w_x, integer=integer)
+        ys -= _center(w_y, integer=integer)
+    return np.meshgrid(xs, ys)
+
+
+def _ensure_stack(images):
+    """View ``images`` as ``(image_count, h, w)``; note if a single image was passed."""
+    images = np.asarray(images)
+    single = images.ndim == 2
+    if single:
+        images = images.reshape((1,) + images.shape)
+    return images, single
+
+
+def take(
+    images,
+    vectors,
+    size,
+    centered=True,
+    integrate=False,
+    clip=False,
+    return_mask=False,
+    plot=False,
+):
+    """
+    Crop same-sized integration regions around ``vectors``, vectorized over
+    regions (and optionally over a stack of images).
+
+    Parameters
+    ----------
+    images : array_like
+        2D image or ``(image_count, h, w)`` stack.
+    vectors : array_like
+        ``(2, N)`` pixel anchors (region centers if ``centered``).
+    size : int OR (int, int)
+        Region size ``(w, h)``; scalar means square.
+    centered : bool
+        Center regions on the vectors (else the vectors are upper-left corners).
+    integrate : bool
+        Sum each region (as float) to return shape ``(N,)``.
+    clip : bool
+        Allow out-of-range regions, filling with ``nan`` (or 0 for int dtypes).
+    return_mask : bool
+        Return a boolean mask of taken pixels instead of data.
+    plot : bool
+        Show the mask (with ``return_mask``).
+    Returns
+    -------
+    numpy.ndarray
+        ``(N, h, w)`` regions or ``(N,)`` sums.
+    """
+    if np.isscalar(size):
+        size = (int(size), int(size))
+    else:
+        s = np.asarray(size).ravel()
+        size = (int(s[0]), int(s[1]))
+
+    vectors = np.floor(format_2vectors(vectors)).astype(int)
+
+    edge_x = np.floor(_coordinates(size[0], centered)).astype(int)
+    edge_y = np.floor(_coordinates(size[1], centered)).astype(int)
+    region_x, region_y = np.meshgrid(edge_x, edge_y)
+
+    # (N, w*h) index arrays.
+    integration_x = region_x.ravel()[np.newaxis, :] + vectors[0][:, np.newaxis]
+    integration_y = region_y.ravel()[np.newaxis, :] + vectors[1][:, np.newaxis]
+
+    images = np.asarray(images)
+    shape = images.shape
+
+    if clip:
+        oob = (
+            (integration_x < 0)
+            | (integration_x >= shape[-1])
+            | (integration_y < 0)
+            | (integration_y >= shape[-2])
+        )
+        if np.any(oob):
+            integration_x = np.clip(integration_x, 0, shape[-1] - 1)
+            integration_y = np.clip(integration_y, 0, shape[-2] - 1)
+        else:
+            clip = False
+
+    if return_mask:
+        canvas = np.zeros(shape[-2:], dtype=bool)
+        canvas[integration_y, integration_x] = True
+        if plot:
+            import matplotlib.pyplot as plt
+
+            plt.imshow(canvas)
+            plt.show()
+        return canvas
+
+    if len(shape) == 2:
+        result = images[np.newaxis, integration_y, integration_x]
+    elif len(shape) == 3:
+        result = images[:, integration_y, integration_x]
+    else:
+        raise RuntimeError(f"Unexpected shape for images: {shape}")
+
+    if clip:
+        if np.issubdtype(result.dtype, np.floating):
+            result[:, oob] = np.nan
+        else:
+            result[:, oob] = 0
+
+    if integrate:
+        return np.squeeze(np.sum(result.astype(float), axis=-1))
+    return np.reshape(result, (vectors.shape[1], size[1], size[0]))
+
+
+def image_remove_field(images, deviations=1, out=None):
+    r"""
+    Background-subtract each image in a stack: zero pixels below
+    ``mean + deviations * std`` (or below the median if ``deviations`` is
+    ``None``), so that moment calculations measure the feature, not the field.
+    """
+    images = np.asarray(images, dtype=float)
+
+    if out is None:
+        out = np.copy(images)
+    elif out is not images:
+        np.copyto(out, images)
+
+    stack, single = _ensure_stack(images)
+
+    if deviations is None:
+        threshold = np.nanmedian(stack, axis=(1, 2))
+    else:
+        threshold = np.nanmean(stack, axis=(1, 2)) + deviations * np.nanstd(
+            stack, axis=(1, 2)
+        )
+    if not single:
+        threshold = threshold.reshape((stack.shape[0], 1, 1))
+
+    out_max = np.amax(out, axis=(-2, -1), keepdims=True)
+    out -= threshold.astype(out.dtype)
+    out[out < 0] = 0
+    out[out > out_max - threshold] = 0
+    return out
+
+
+def image_moment(images, moment=(1, 0), centers=(0, 0), grid=None, normalize=True, nansum=False):
+    r"""
+    Discrete image moment :math:`M_{m_xm_y}` (normalized by :math:`M_{00}`
+    when ``normalize``), vectorized over a stack of images.
+
+    ``grid`` sets the units: ``None`` for image-centered pixels, a scalar or
+    pair for pixel pitch, 1D lists of length w/h, or full 2D meshgrids.
+    ``centers`` shifts the trial-function origin (``(2, N)`` for per-image).
+    """
+    images, _ = _ensure_stack(images)
+    img_count, w_y, w_x = images.shape
+    moment = (int(moment[0]), int(moment[1]))
+    np_sum = np.nansum if nansum else np.sum
+
+    if normalize:
+        normalization = np_sum(images, axis=(1, 2)).reshape((img_count, 1, 1))
+        reciprocal = np.reciprocal(
+            normalization, where=normalization != 0, out=np.zeros((img_count, 1, 1))
+        )
+    else:
+        reciprocal = 1
+
+    if moment == (0, 0):
+        if normalize:
+            return np.ones((img_count,))
+        return np_sum(images, axis=(1, 2))
+
+    if len(np.shape(centers)) == 2:
+        c_x = np.reshape(centers[0], (img_count, 1, 1))
+        c_y = np.reshape(centers[1], (img_count, 1, 1))
+    else:
+        c_x, c_y = centers[0], centers[1]
+
+    if grid is None or np.isscalar(grid) or (np.isscalar(grid[0]) and np.isscalar(grid[1])):
+        # Pixel grid (optionally scaled by a pitch).
+        x_grid = y_grid = 0
+        if moment[0] != 0:
+            x_grid = np.reshape(np.arange(w_x) - _center(w_x), (1, 1, w_x)) - c_x
+            if moment[0] != 1:
+                x_grid = np.power(x_grid, moment[0])
+        if moment[1] != 0:
+            y_grid = np.reshape(np.arange(w_y) - _center(w_y), (1, w_y, 1)) - c_y
+            if moment[1] != 1:
+                y_grid = np.power(y_grid, moment[1])
+        if grid is not None:
+            if np.isscalar(grid):
+                x_grid = x_grid * grid
+                y_grid = y_grid * grid
+            else:
+                x_grid = x_grid * grid[0]
+                y_grid = y_grid * grid[1]
+    else:
+        x_grid, y_grid = grid
+        if np.ndim(x_grid) == 2:
+            x_grid = np.reshape(x_grid, (1, w_y, w_x)) - c_x
+            y_grid = np.reshape(y_grid, (1, w_y, w_x)) - c_y
+        elif np.ndim(x_grid) == 1:
+            x_grid = np.reshape(x_grid, (1, 1, w_x)) - c_x
+            y_grid = np.reshape(y_grid, (1, w_y, 1)) - c_y
+        elif np.ndim(x_grid) == 3:
+            pass
+        else:
+            raise ValueError(f"Could not parse grid of shape {np.shape(x_grid)}")
+        if moment[0] > 1:
+            x_grid = np.power(x_grid, moment[0])
+        if moment[1] > 1:
+            y_grid = np.power(y_grid, moment[1])
+
+    if moment[1] == 0:
+        return np_sum(images * x_grid * reciprocal, axis=(1, 2))
+    if moment[0] == 0:
+        return np_sum(images * y_grid * reciprocal, axis=(1, 2))
+    return np_sum(images * x_grid * y_grid * reciprocal, axis=(1, 2))
+
+
+def image_normalization(images, nansum=False):
+    """Zeroth-order moments (mass) per image; shape ``(N,)``."""
+    return image_moment(images, (0, 0), normalize=False, nansum=nansum)
+
+
+def image_normalize(images, nansum=False, remove_field=False):
+    """Normalize each image to unit mass (zero images stay zero)."""
+    if remove_field:
+        images = image_remove_field(images)
+    else:
+        images = np.asarray(images, dtype=float)
+
+    single = images.ndim == 2
+    normalization = image_normalization(images, nansum=nansum)
+
+    if single:
+        norm = float(normalization.item())
+        return np.zeros_like(images) if norm == 0 else images / norm
+
+    reciprocal = np.reciprocal(
+        normalization, where=normalization != 0, out=np.zeros(len(normalization))
+    )
+    return images * reciprocal.reshape((len(normalization), 1, 1))
+
+
+def image_positions(images, grid=None, normalize=True, nansum=False):
+    r"""First moments (centroid relative to image center); shape ``(2, N)``."""
+    if normalize:
+        images = image_normalize(images, nansum=nansum)
+    return np.vstack(
+        (
+            image_moment(images, (1, 0), grid=grid, normalize=False, nansum=nansum),
+            image_moment(images, (0, 1), grid=grid, normalize=False, nansum=nansum),
+        )
+    )
+
+
+def fit_affine(x, y, guess_affine=None, plot=False):
+    r"""
+    Least-squares affine transform :math:`\vec{y} = M\vec{x} + \vec{b}` from
+    ordered point correspondences ``(2, N)`` (nan-tolerant). Returns
+    ``{"M", "b"}``.
+    """
+    x = format_2vectors(x)
+    y = format_2vectors(y)
+    assert x.shape == y.shape
+
+    if guess_affine is None:
+        xc = np.nanmean(x, axis=1)[:, np.newaxis]
+        yc = np.nanmean(y, axis=1)[:, np.newaxis]
+        if np.any(np.isnan(xc)) or np.any(np.isnan(yc)):
+            raise ValueError("Vectors cannot contain a row of all-nan values")
+
+        x_ = x - xc
+        y_ = y - yc
+
+        # Ignore points too close to the centroid (disproportionate influence).
+        threshold = np.median(np.sqrt(np.sum(np.square(x_), axis=0))) / 2
+        nan_row = np.full_like(y_[0, :], np.nan)
+
+        def ratio(num, den):
+            return np.nanmean(np.divide(num, den, where=den > threshold, out=nan_row.copy()))
+
+        M_guess = np.array(
+            [
+                [ratio(y_[0, :], x_[0, :]), ratio(y_[0, :], x_[1, :])],
+                [ratio(y_[1, :], x_[0, :]), ratio(y_[1, :], x_[1, :])],
+            ]
+        )
+        M_guess[np.isnan(M_guess)] = 0
+        b_guess = yc - M_guess @ xc
+    else:
+        if not (isinstance(guess_affine, dict) and "M" in guess_affine and "b" in guess_affine):
+            raise ValueError("guess_affine must be a dictionary with 'M' and 'b' fields.")
+        M_guess = guess_affine["M"]
+        b_guess = guess_affine["b"]
+
+    def err(p):
+        M = np.array([[p[0], p[1]], [p[2], p[3]]])
+        b = format_2vectors([p[4], p[5]])
+        return np.nansum(np.square(M @ x + b - y))
+
+    guess = (
+        M_guess[0, 0], M_guess[0, 1], M_guess[1, 0], M_guess[1, 1],
+        b_guess[0, 0], b_guess[1, 0],
+    )
+
+    try:
+        m = minimize(err, x0=guess)
+        p = [float(v) for v in m.x]
+        M = np.array([[p[0], p[1]], [p[2], p[3]]])
+        b = format_2vectors([p[4], p[5]])
+    except Exception:
+        M, b = M_guess, b_guess
+
+    if plot:
+        import matplotlib.pyplot as plt
+
+        plt.scatter(y[0, :], y[1, :], s=20, fc="b", ec="b")
+        result = M @ x + b
+        plt.scatter(result[0, :], result[1, :], s=60, fc="none", ec="g")
+        plt.gca().set_aspect("equal")
+        plt.show()
+
+    return {"M": M, "b": b}
+
+
+def _make_8bit(img):
+    """Scale any image to the full uint8 range (for cv2)."""
+    img = img.astype(float)
+    img -= np.amin(img)
+    peak = np.amax(img)
+    if peak > 0:
+        img = img / peak * 255
+    return img.astype(np.uint8)
+
+
+def blob_detect(img, filter=None, plot=False, **kwargs):
+    """
+    Detect bright blobs with :class:`cv2.SimpleBlobDetector` (defaults tuned
+    for bright spots on a dark background; customize via ``**kwargs``).
+
+    ``filter``: ``"dist_to_center"`` keeps the blob closest to the image
+    center; ``"max_amp"`` keeps the brightest (integrated) one.
+
+    Returns ``(blobs, detector)``.
+    """
+    import cv2
+
+    img_8bit = _make_8bit(np.copy(img))
+    params = cv2.SimpleBlobDetector_Params()
+
+    params.blobColor = 255
+    params.minThreshold = 10
+    params.maxThreshold = 255
+    params.thresholdStep = 10
+    params.filterByArea = False
+    params.filterByCircularity = False
+    params.filterByConvexity = False
+    params.filterByInertia = False
+
+    for key, val in kwargs.items():
+        setattr(params, key, val)
+
+    detector = cv2.SimpleBlobDetector_create(params)
+    blobs = detector.detect(img_8bit)
+
+    if len(blobs) == 0:
+        return [], detector
+
+    if filter == "dist_to_center":
+        dist = [
+            np.linalg.norm(np.array(blob.pt) - np.array(img.shape[::-1]) / 2)
+            for blob in blobs
+        ]
+        blobs = [blobs[int(np.argmin(dist))]]
+    elif filter == "max_amp":
+        bin_size = int(np.mean([blob.size for blob in blobs]))
+        responses = []
+        for blob in blobs:
+            try:
+                region = img_8bit[
+                    np.ix_(
+                        int(blob.pt[1]) + np.arange(-bin_size, bin_size),
+                        int(blob.pt[0]) + np.arange(-bin_size, bin_size),
+                    )
+                ]
+                responses.append(float(region.sum()))
+            except Exception:
+                responses.append(0.0)
+        blobs = [blobs[int(np.argmax(responses))]]
+
+    if plot:
+        import matplotlib.pyplot as plt
+        import matplotlib.patches
+
+        plt.imshow(img_8bit)
+        ax = plt.gca()
+        for blob in blobs:
+            ax.add_patch(
+                matplotlib.patches.Circle(
+                    (float(blob.pt[0]), float(blob.pt[1])),
+                    radius=float(blob.size / 2),
+                    color="red", linewidth=1, fill=None,
+                )
+            )
+        plt.show()
+
+    return blobs, detector
+
+
+def _dft_peak_points(img, dft_threshold, dft_padding):
+    """
+    Find reciprocal-lattice peaks of a spot-array image: padded |FFT| with
+    suppressed 0th order, blob-detected at progressively coarser blur.
+    Returns (points (N, 2) in full-res DFT pixels, fft_size).
+    """
+    import cv2
+
+    fft_size = int(2 ** (np.floor(np.log2(np.max(np.shape(img)))) + dft_padding))
+    dft = np.abs(np.fft.fftshift(np.fft.fft2(img, s=[fft_size, fft_size])))
+
+    fft_blur_size = int(np.clip(fft_size / 200, 1, 5)) * 2 + 1
+    zo_size = 8 * fft_blur_size
+    if fft_size <= zo_size * 4:
+        raise ValueError(
+            f"Image of shape {img.shape} is too small to use with blob_array_detect."
+        )
+
+    # Inverted-Gaussian window to suppress the 0th order.
+    zo_x, zo_y = np.meshgrid(
+        np.linspace(-zo_size / 2, zo_size / 2, zo_size),
+        np.linspace(-zo_size / 2, zo_size / 2, zo_size),
+    )
+    zo_filter = gaussian2d([zo_x, zo_y], 0, 0, -1, 1, fft_blur_size / 2, fft_blur_size / 2)
+
+    points = []
+    downscaling = 1
+    i = 0
+    while fft_size / downscaling > zo_size * 4:
+        dft_amp = cv2.GaussianBlur(dft, (fft_blur_size, fft_blur_size), fft_blur_size / 4)
+
+        zo_i = int(fft_size / 2 / downscaling - zo_size / 2)
+        dft_amp[zo_i : zo_i + zo_size, zo_i : zo_i + zo_size] *= zo_filter
+
+        blobs, _ = blob_detect(dft_amp, minThreshold=dft_threshold, thresholdStep=10)
+        points += [np.array(blob.pt) * downscaling for blob in blobs]
+
+        if len(points) > 4 * (i + 1):
+            break
+
+        if fft_size / (2 * downscaling) > zo_size * 4:
+            # 2x2 binning, then retry with effectively stronger blur.
+            dft = dft[0::2, 0::2] + dft[0::2, 1::2] + dft[1::2, 0::2] + dft[1::2, 1::2]
+            downscaling *= 2
+            i += 1
+        else:
+            break
+
+    if len(points) < 4:
+        raise RuntimeError(
+            "Array fitting looks for prominent periodicity, but failed to find such "
+            "in the given image. Try: verifying the camera image (settle time, stale "
+            "frames), increasing exposure, or increasing the array pitch."
+        )
+
+    return np.array(points), fft_size
+
+
+def _fit_lattice_vectors(points, fft_size, k, tol):
+    """
+    Cluster k-nearest-neighbor displacements of DFT peaks into reciprocal
+    primitive lattice vectors; return the real-space pitch matrix M (2, 2).
+    """
+    # Discard noise points near the 0th order; anchor with the exact center.
+    lengths = np.sqrt(
+        np.square(points[:, 0] - fft_size / 2) + np.square(points[:, 1] - fft_size / 2)
+    )
+    points = points[lengths > 0.5 * np.mean(lengths), :]
+    points = np.concatenate((points, [[fft_size / 2, fft_size / 2]]))
+
+    k = min(k, len(points) - 1)
+
+    # Displacements to the k nearest neighbors (and inverses, to merge branches).
+    dx = points[:, 0][:, np.newaxis] - points[:, 0][np.newaxis, :]
+    dy = points[:, 1][:, np.newaxis] - points[:, 1][np.newaxis, :]
+    d = np.sqrt(dx * dx + dy * dy)
+    order = np.argsort(d, axis=0)
+    kNN = (points[order[1 : k + 1, :]] - points).reshape((-1, 2))
+    kNN = np.vstack((kNN, -kNN))
+
+    # Group displacements whose difference (or sum) is within tol.
+    vdx = kNN[:, 0][:, np.newaxis]
+    vdy = kNN[:, 1][:, np.newaxis]
+    norms = np.linalg.norm(kNN, axis=1)
+    dnorm = np.sqrt(np.square(vdx - vdx.T) + np.square(vdy - vdy.T)) / norms
+    inorm = np.sqrt(np.square(vdx + vdx.T) + np.square(vdy + vdy.T)) / norms
+
+    tags = np.zeros(kNN.shape[0])
+    group = 1
+    for i in range(kNN.shape[0]):
+        new = ((dnorm[i, :] < tol) | (inorm[i, :] < tol)) & (tags == 0)
+        tags[new] = group
+        if np.any(new):
+            group += 1
+
+    def mean_group(members):
+        members = members.copy()
+        len0 = np.sum(np.square(members[0, :]))
+        diff = np.sum(np.square(members - members[[0], :]), axis=1)
+        members[diff > len0] = -members[diff > len0]
+        final = np.mean(members, axis=0)
+        return -final if final[0] < 0 else final
+
+    tag, count = np.unique(tags, return_counts=True)
+    top = np.argsort(-count)[: min(k, len(count))]
+    centers = np.array([mean_group(kNN[tags == tag[g]]) for g in top])
+
+    # Order by distance to center; prefer short vectors, then orthogonality.
+    distance_to_center = np.linalg.norm(centers, axis=1)
+    distance_to_center = distance_to_center / np.max(distance_to_center)
+    by_distance = np.argsort(distance_to_center)
+    centers = centers[by_distance, :]
+    distance_to_center = distance_to_center[by_distance]
+
+    normed = centers / np.linalg.norm(centers, axis=1, keepdims=True)
+    cross = normed[:, 0] * normed[0, 1] - normed[:, 1] * normed[0, 0]
+    cross[0] = 2  # The base vector always wins slot one.
+    fom = 1e4 * np.abs(cross) - distance_to_center
+    best = np.argsort(-fom)
+    centers = centers[best, :]
+
+    lv = centers[:2].T  # Reciprocal primitive vectors as columns.
+    return fft_size * lv / (np.linalg.norm(lv, axis=0) ** 2)
+
+
+def _array_center_kernel_match(img_8bit, M_trial, size):
+    """
+    Build a +1/-border array kernel under M_trial and cross-correlate with the
+    image to locate the array center. Returns (max_val, b (2, 1), mask_shape,
+    rotated_centers, max_loc, max_pitch).
+    """
+    import cv2
+
+    x_list = np.arange(-(size[0] - 1) / 2.0, (size[0] + 1) / 2.0)
+    y_list = np.arange(-(size[1] - 1) / 2.0, (size[1] + 1) / 2.0)
+    xg, yg = np.meshgrid(x_list, y_list)
+    centers = np.vstack((xg.ravel(), yg.ravel()))
+
+    p = 2  # Border padding to penalize off-by-one shifts.
+    xg_l, yg_l = np.meshgrid(
+        np.arange(-(size[0] + p - 1) / 2.0, (size[0] + p + 1) / 2.0),
+        np.arange(-(size[1] + p - 1) / 2.0, (size[1] + p + 1) / 2.0),
+    )
+    centers_larger = np.vstack((xg_l.ravel(), yg_l.ravel()))
+
+    rotated_centers = M_trial @ centers
+    rotated_larger = M_trial @ centers_larger
+
+    max_pitch = int(np.amax([np.linalg.norm(M_trial[:, 0]), np.linalg.norm(M_trial[:, 1])]))
+    mask_shape = (
+        int(np.ptp(rotated_larger[1, :]) + max_pitch),
+        int(np.ptp(rotated_larger[0, :]) + max_pitch),
+    )
+    mask = np.zeros(mask_shape)
+
+    rotated_centers = rotated_centers + np.flip(mask_shape)[:, np.newaxis] / 2
+    rotated_larger = rotated_larger + np.flip(mask_shape)[:, np.newaxis] / 2
+
+    area = size[0] * size[1]
+    perimeter = 2 * (size[0] + size[1]) + 4
+    mask[
+        np.rint(rotated_larger[1, :]).astype(int),
+        np.rint(rotated_larger[0, :]).astype(int),
+    ] = -area / perimeter
+    mask[
+        np.rint(rotated_centers[1, :]).astype(int),
+        np.rint(rotated_centers[0, :]).astype(int),
+    ] = 1
+    mask = _make_8bit(mask)
+
+    try:
+        res = cv2.matchTemplate(img_8bit, mask, cv2.TM_CCOEFF)
+        _, max_val, _, max_loc = cv2.minMaxLoc(res)
+    except Exception:
+        max_val, max_loc = 0, [0, 0]
+
+    b = np.array(max_loc)[:, np.newaxis] + np.flip(mask.shape)[:, np.newaxis] / 2
+    return max_val, b, mask.shape, rotated_centers, max_loc, max_pitch
+
+
+def _parity_check(img_8bit, M_trial, size, rotated_centers, max_loc, mask_shape, max_pitch):
+    """
+    Use the two intentionally-missing corner spots to resolve the 4-fold
+    rotation and flip ambiguity. Returns (M_fixed, success).
+    """
+    try:
+        window = img_8bit[
+            np.ix_(
+                max_loc[1] + np.arange(mask_shape[0]),
+                max_loc[0] + np.arange(mask_shape[1]),
+            )
+        ]
+
+        w = max(1, int(0.2 * max_pitch))
+        edge = np.arange(-w, w + 1)
+        ex, ey = np.meshgrid(edge, edge)
+        ix = np.rint(ex.ravel()[np.newaxis, :] + rotated_centers[0][:, np.newaxis]).astype(int)
+        iy = np.rint(ey.ravel()[np.newaxis, :] + rotated_centers[1][:, np.newaxis]).astype(int)
+
+        spotpowers = np.reshape(np.sum(window[iy, ix], 1), np.flip(size))
+        spotbooleans = spotpowers <= np.sort(spotpowers.ravel())[1]
+        assert np.sum(spotbooleans) == 2
+
+        corners = spotbooleans[[-1, -1, 0, 0], [-1, 0, 0, -1]]
+        assert np.sum(corners) == 1
+
+        rotation_parity = int(np.where(corners)[0][0])
+        rotated = np.rot90(spotbooleans, rotation_parity)
+
+        theta = rotation_parity * np.pi / 2
+        c, s = np.cos(theta), np.sin(theta)
+        rotation = np.array([[c, -s], [s, c]])
+
+        flip_parity = int(rotated[-1, -2]) - int(rotated[-2, -1])
+        assert abs(flip_parity) == 1
+        flip = np.eye(2) if flip_parity == 1 else np.array([[0, 1], [1, 0]])
+
+        return M_trial @ rotation @ flip, True
+    except Exception:
+        return M_trial, False
+
+
+def blob_array_detect(
+    img,
+    size,
+    orientation=None,
+    orientation_check=True,
+    dft_threshold=100,
+    dft_padding=0,
+    k=8,
+    tol=0.1,
+    plot=False,
+):
+    r"""
+    Detect a rectangular array of spots and return the affine transform
+    :math:`\vec{y} = M\vec{x} + \vec{b}` from spot indices to camera pixels.
+
+    Pipeline: padded |FFT| -> 0th-order suppression -> multiscale peak
+    detection -> kNN clustering of reciprocal lattice vectors -> primitive
+    lattice fit -> kernel cross-correlation for the center -> missing-corner
+    parity check -> iterative centroid refinement with outlier rejection.
+
+    Parameters
+    ----------
+    img : numpy.ndarray
+        Camera image of the array.
+    size : (int, int) OR int
+        Array size ``(Nx, Ny)``.
+    orientation : dict OR None
+        Optional previous ``{"M", "b"}`` guess (skips the DFT stage).
+    orientation_check : bool
+        Whether the two-missing-spot parity check applies (see
+        :meth:`~slmsuite_torch.holography.algorithms.SpotHologram.make_rectangular_array`).
+    dft_threshold, dft_padding, k, tol, plot :
+        Pipeline tuning.
+
+    Returns
+    -------
+    dict with keys ``"M"`` (2, 2) and ``"b"`` (2, 1).
+    """
+    if len(np.shape(img)) != 2:
+        raise RuntimeError(f"Cannot interpret image with shape {np.shape(img)}")
+    if np.isscalar(size):
+        size = (int(size), int(size))
+
+    img_8bit = _make_8bit(img)
+    if np.amax(img_8bit) == 0:
+        raise RuntimeError(
+            "Cannot fit an image of all zeros. "
+            "Check your camera to make sure it is snapping correctly."
+        )
+
+    if orientation is not None:
+        M = orientation["M"]
+    else:
+        points, fft_size = _dft_peak_points(img, dft_threshold, dft_padding)
+        M = _fit_lattice_vectors(points, fft_size, k, tol)
+
+    # Consider the transposed alternative for non-square arrays.
+    if size[0] != size[1] and orientation is None:
+        M_options = [M, np.array([[M[0, 1], M[0, 0]], [M[1, 1], M[1, 0]]])]
+    else:
+        M_options = [M]
+
+    results = []
+    for M_trial in M_options:
+        max_val, b, mask_shape, rotated_centers, max_loc, max_pitch = (
+            _array_center_kernel_match(img_8bit, M_trial, size)
+        )
+        if orientation is None and orientation_check:
+            M_fixed, parity_success = _parity_check(
+                img_8bit, M_trial, size, rotated_centers, max_loc, mask_shape, max_pitch
+            )
+        else:
+            M_fixed, parity_success = M_trial, True
+        results.append((max_val, b, M_fixed, parity_success))
+
+    if len(results) == 1:
+        index = 0
+    elif results[0][3] == results[1][3]:
+        index = int(results[1][0] > results[0][0])
+    else:
+        index = int(results[1][3])
+
+    orientation = {"M": results[index][2], "b": results[index][1]}
+
+    # Refine the fit by averaging spot centroid deviations (3 passes,
+    # rejecting > mean + std outliers each pass).
+    x_list = np.arange(-(size[0] - 1) / 2.0, (size[0] + 1) / 2.0)
+    y_list = np.arange(-(size[1] - 1) / 2.0, (size[1] + 1) / 2.0)
+    xg, yg = np.meshgrid(x_list, y_list)
+    centers = np.vstack((xg.ravel(), yg.ravel()))
+
+    region_fraction = 1.0
+    true_positions = None
+    for _ in range(3):
+        guess_positions = orientation["M"] @ centers + orientation["b"]
+
+        psf = 2 * int(np.floor(np.amin(np.amax(np.abs(orientation["M"]), axis=0))) / 2) + 1
+        psf = max(3, psf)
+
+        regions = take(img, guess_positions, psf, centered=True, integrate=False, clip=True)
+        region_fraction = np.sum(np.nan_to_num(regions)) / np.sum(img)
+
+        shift = image_positions(regions) - (guess_positions - np.rint(guess_positions))
+
+        shift_error = np.sqrt(np.square(shift[0, :]) + np.square(shift[1, :]))
+        thresh = np.mean(shift_error) + np.std(shift_error)
+        shift[:, shift_error > thresh] = np.nan
+
+        true_positions = guess_positions + shift
+        orientation = fit_affine(centers, true_positions, orientation)
+
+    mask_shape_arr = np.array(mask_shape)
+    if np.any(mask_shape_arr > 0.95 * np.array(img_8bit.shape)):
+        warnings.warn(
+            "The computed Fourier grid size exceeds or approaches the camera size; "
+            "calibration results may be improperly centered as a result."
+        )
+    elif np.any(np.nanmax(true_positions, axis=1) > 0.95 * np.flip(img_8bit.shape)) or np.any(
+        np.nanmin(true_positions, axis=1) < 0.05 * np.flip(img_8bit.shape)
+    ):
+        warnings.warn(
+            "The fitted spot array approaches or exceeds the camera FOV; "
+            "calibration results may be improperly centered as a result."
+        )
+    if region_fraction < 0.5:
+        warnings.warn(
+            f"{(1 - region_fraction) * 100:.1f}% of the image's power is outside the "
+            "spot array. This might have caused the array fit to be poor."
+        )
+
+    if plot:
+        import matplotlib.pyplot as plt
+
+        true_centers = orientation["M"] @ centers + orientation["b"]
+        plt.imshow(img)
+        plt.scatter(
+            true_centers[0, :], true_centers[1, :],
+            facecolors="none", edgecolors="r", marker="o", s=80, linewidths=0.5,
+        )
+        plt.scatter(orientation["b"][0], orientation["b"][1], c="r", marker="x", s=10)
+        plt.title("blob_array_detect result")
+        plt.show()
+
+    return orientation
+
+
+def get_orientation_transformation(rot="0", fliplr=False, flipud=False):
+    """
+    Compile an image transformation lambda from rotations ("90"/"180"/"270"
+    or 1/2/3) and flips. Used by the Camera transform pipeline.
+    """
+    transforms = []
+    if fliplr:
+        transforms.append(np.fliplr)
+    if flipud:
+        transforms.append(np.flipud)
+
+    if rot in ("90", 1):
+        transforms.append(lambda img: np.rot90(img, 1))
+    elif rot in ("180", 2):
+        transforms.append(lambda img: np.rot90(img, 2))
+    elif rot in ("270", 3):
+        transforms.append(lambda img: np.rot90(img, 3))
+
+    return reduce(lambda f, g: lambda x: f(g(x)), transforms, lambda x: x)

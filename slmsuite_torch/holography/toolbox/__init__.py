@@ -4,9 +4,8 @@ need, with the semantics of :mod:`slmsuite_tpu.holography.toolbox`
 (numpy and scipy only).
 
 Camera units (``"ij"`` and the metric camera-plane units) need a
-Fourier-calibrated CameraSLM, which comes with the simulated-rig slice
-(ROADMAP.md queue 1, item 9): until then :meth:`convert_vector` warns and
-returns nan for them, as the JAX package does without a calibration.
+Fourier-calibrated CameraSLM as ``hardware``; without one
+:meth:`convert_vector` warns and returns nan for them.
 """
 
 import warnings
@@ -14,8 +13,7 @@ import warnings
 import numpy as np
 from scipy.spatial import distance
 
-#: Real scalar types.
-REAL_TYPES = (int, float, np.integer, np.floating)
+from slmsuite_torch.misc.math import REAL_TYPES  # noqa: F401
 
 #: Microns per unit of length.
 LENGTH_FACTORS = {"m": 1e6, "cm": 1e4, "mm": 1e3, "um": 1.0, "nm": 1e-3}
@@ -97,11 +95,16 @@ def convert_vector(vector, from_units="norm", to_units="norm", hardware=None, sh
     ``"deg"`` (blaze angle), ``"norm"``/``"kxy"`` (:math:`k_x/k`),
     ``"knm"`` (computational Fourier-grid pixels centered at ``shape/2``),
     ``"freq"`` (grating pixel frequency), ``"lpmm"`` (line pairs per mm)
-    and ``"zernike"`` (tilt coefficients in radians). The SLM units need
-    ``hardware`` (an SLM); ``shape`` defaults to the SLM's for ``"knm"``.
+    ``"zernike"`` (tilt coefficients in radians), and the camera-plane
+    units: ``"ij"`` (camera pixels) and lengths (``"um"``, ``"mm"``, ...,
+    or ``"mag_um"``, ... in the experiment plane). The SLM units need
+    ``hardware`` (an SLM, or a CameraSLM for its SLM), the camera units a
+    Fourier-calibrated CameraSLM; ``shape`` defaults to the SLM's for
+    ``"knm"``.
 
     3D vectors carry a :math:`z` row, handled as normalized focal power
-    :math:`\lambda/f`, or as the focus coefficient in ``"zernike"``.
+    :math:`\lambda/f`, as the focus coefficient in ``"zernike"``, or as
+    true depth in the camera-plane units.
     Returns ``(2, N)`` or ``(3, N)`` vectors.
     """
     if from_units not in BLAZE_UNITS:
@@ -113,15 +116,27 @@ def convert_vector(vector, from_units="norm", to_units="norm", hardware=None, sh
     if from_units == to_units:
         return parsed
 
-    if from_units in CAMERA_UNITS or to_units in CAMERA_UNITS:
-        warnings.warn(
-            f"A Fourier-calibrated CameraSLM is required for '{from_units}' -> '{to_units}'"
-        )
-        return np.full_like(parsed, np.nan)
-
     xy = parsed[:2, :].copy()
     z = parsed[[2], :].copy() if parsed.shape[0] > 2 else None
-    slm = hardware.slm if hasattr(hardware, "slm") else hardware
+    if hasattr(hardware, "slm") and hasattr(hardware, "cam"):
+        cameraslm, slm = hardware, hardware.slm
+    else:
+        cameraslm, slm = None, hardware
+
+    cam_pitch_um = None
+    if from_units in CAMERA_UNITS or to_units in CAMERA_UNITS:
+        if cameraslm is None or "fourier" not in getattr(cameraslm, "calibrations", {}):
+            warnings.warn(
+                f"A Fourier-calibrated CameraSLM is required for '{from_units}' -> '{to_units}'"
+            )
+            return np.full_like(parsed, np.nan)
+        cam_pitch_um = cameraslm.cam.pitch_um
+        metric = from_units in CAMERA_UNITS[1:] or to_units in CAMERA_UNITS[1:]
+        if cam_pitch_um is None and metric:
+            warnings.warn("Camera pitch_um required for metric camera units.")
+            return np.full_like(parsed, np.nan)
+        if cam_pitch_um is not None:
+            cam_pitch_um = format_2vectors(cam_pitch_um)
 
     def slm_pitch_um():
         if slm is None:
@@ -165,8 +180,15 @@ def convert_vector(vector, from_units="norm", to_units="norm", hardware=None, sh
         rad = xy * wav_um / pitch_um
     elif from_units == "lpmm":
         rad = xy * wav_um / 1e3
-    else:  # zernike
+    elif from_units == "zernike":
         rad = xy / zernike_scale
+    elif from_units == "ij":
+        rad = cameraslm.ijcam_to_kxyslm(xy)
+    else:  # metric camera units
+        unit = from_units.split("_")[-1]
+        if from_units.startswith("mag_"):
+            xy = xy * cameraslm.mag
+        rad = cameraslm.ijcam_to_kxyslm(xy * LENGTH_FACTORS[unit] / cam_pitch_um)
 
     # xy: normalized kxy -> output.
     if to_units in ("norm", "kxy", "rad"):
@@ -181,22 +203,54 @@ def convert_vector(vector, from_units="norm", to_units="norm", hardware=None, sh
         out_xy = rad * pitch_um / wav_um
     elif to_units == "lpmm":
         out_xy = rad * 1e3 / wav_um
-    else:  # zernike
+    elif to_units == "zernike":
         out_xy = rad * zernike_scale
+    elif to_units == "ij":
+        out_xy = cameraslm.kxyslm_to_ijcam(rad)
+    else:  # metric camera units
+        unit = to_units.split("_")[-1]
+        out_xy = cameraslm.kxyslm_to_ijcam(rad) * cam_pitch_um / LENGTH_FACTORS[unit]
+        if to_units.startswith("mag_"):
+            out_xy = out_xy / cameraslm.mag
 
     if z is None:
         return out_xy
 
-    # z: focal power in and out (the Zernike focus coefficient converts).
-    focal_power = (
-        z * ((8 * np.pi) / (zernike_scale * zernike_scale))
-        if from_units == "zernike" else z
-    )
-    out_z = (
-        focal_power * ((zernike_scale * zernike_scale) / (8 * np.pi))
-        if to_units == "zernike" else focal_power
-    )
+    # z: input -> normalized focal power.
+    if from_units in CAMERA_UNITS:
+        if from_units != "ij":
+            unit = from_units.split("_")[-1]
+            z = z * (LENGTH_FACTORS[unit] / np.mean(cam_pitch_um))
+            if from_units.startswith("mag_"):
+                z = z / cameraslm.mag
+        focal_power = cameraslm._ijcam_to_kxyslm_depth(z)
+    elif from_units == "zernike":
+        focal_power = z * ((8 * np.pi) / (zernike_scale * zernike_scale))
+    else:
+        focal_power = z
+
+    # z: normalized focal power -> output.
+    if to_units in CAMERA_UNITS:
+        out_z = cameraslm._kxyslm_to_ijcam_depth(focal_power)
+        if to_units != "ij":
+            unit = to_units.split("_")[-1]
+            out_z = out_z * (np.mean(cam_pitch_um) / LENGTH_FACTORS[unit])
+            if to_units.startswith("mag_"):
+                out_z = out_z * cameraslm.mag
+    elif to_units == "zernike":
+        out_z = focal_power * ((zernike_scale * zernike_scale) / (8 * np.pi))
+    else:
+        out_z = focal_power
     return np.vstack((out_xy, out_z))
+
+
+def convert_radius(radius, from_units="norm", to_units="norm", hardware=None, shape=None):
+    """A scalar radius between unit systems: the mean of the conversions
+    along x and along y (they differ under an anisotropic transform)."""
+    origin = convert_vector((0, 0), from_units, to_units, hardware, shape)
+    vx = convert_vector((radius, 0), from_units, to_units, hardware, shape)
+    vy = convert_vector((0, radius), from_units, to_units, hardware, shape)
+    return np.mean([np.linalg.norm(vx - origin), np.linalg.norm(vy - origin)])
 
 
 def smallest_distance(vectors, metric="chebyshev"):
@@ -255,3 +309,48 @@ def _process_grid(grid):
     if np.any(np.shape(grid[0]) != np.shape(grid[1])):
         raise ValueError("x and y meshgrids must share a shape.")
     return grid
+
+
+def transform_grid(grid, transform=None, shift=None, direction="fwd"):
+    r"""
+    A copy of ``grid`` under an affine transform: ``"fwd"`` applies
+    :math:`M\vec{x} + \vec{b}`, ``"rev"`` applies :math:`M^{-1}(\vec{x} -
+    \vec{b})`. A scalar ``transform`` is a rotation angle; ``shift=True``
+    centers the grid on itself.
+    """
+    x_grid, y_grid = _process_grid(grid)
+
+    if transform is None:
+        transform = 0
+    if not np.isscalar(transform):
+        transform = np.squeeze(transform)
+        if transform.shape != (2, 2):
+            raise ValueError("transform must be None, scalar, or 2x2.")
+
+    if shift is None:
+        shift = (0, 0)
+    if shift is True:
+        shift = (-np.mean(x_grid), -np.mean(y_grid))
+    shift = np.squeeze(shift)
+
+    if np.isscalar(transform) and transform == 0:
+        sx, sy = (shift[0], shift[1]) if direction == "fwd" else (-shift[0], -shift[1])
+        return (
+            x_grid.copy() if sx == 0 else x_grid + sx,
+            y_grid.copy() if sy == 0 else y_grid + sy,
+        )
+
+    if np.isscalar(transform):
+        c, s = np.cos(transform), np.sin(transform)
+        transform = np.array([[c, -s], [s, c]])
+
+    if direction == "fwd":
+        return (
+            transform[0, 0] * x_grid + transform[0, 1] * y_grid + shift[0],
+            transform[1, 0] * x_grid + transform[1, 1] * y_grid + shift[1],
+        )
+    inv = np.linalg.inv(transform)
+    return (
+        inv[0, 0] * (x_grid - shift[0]) + inv[0, 1] * (y_grid - shift[1]),
+        inv[1, 0] * (x_grid - shift[0]) + inv[1, 1] * (y_grid - shift[1]),
+    )

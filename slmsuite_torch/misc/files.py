@@ -1,10 +1,53 @@
 """
-HDF5 save and load of nested dictionaries (the port's copy of
-``save_h5``/``load_h5`` in :mod:`slmsuite_tpu.misc.files`). ``h5py`` is
-imported when a file is read or written, never on import.
+Auto-numbered save paths, and HDF5 save and load of nested dictionaries
+(the port's copy of ``generate_path``, ``latest_path``, ``save_h5`` and
+``load_h5`` in :mod:`slmsuite_tpu.misc.files`). ``h5py`` is imported when
+a file is read or written, never on import.
 """
 
+import os
+import re
+
 import numpy as np
+
+
+def _numbered(path, name, numeric_id, extension, digit_count):
+    stem = "{}_{:0{}d}".format(name, numeric_id, int(digit_count))
+    if extension is not None:
+        stem += "." + extension
+    return os.path.join(path, stem)
+
+
+def _largest_id(path, name, extension, digit_count):
+    """The largest id among the files ``path/name_#####[.extension]``, or -1."""
+    if not os.path.isdir(path):
+        return -1
+    pattern = re.escape(name) + r"_(\d{" + str(int(digit_count)) + r"})"
+    if extension is not None:
+        pattern += re.escape("." + extension)
+    regex = re.compile(pattern + r"$")
+    best = -1
+    for entry in os.listdir(path):
+        match = regex.match(entry)
+        if match and os.path.isfile(os.path.join(path, entry)):
+            best = max(best, int(match.group(1)))
+    return best
+
+
+def generate_path(path, name, extension=None, digit_count=5):
+    """A fresh auto-numbered file path ``path/name_00001.extension``, one
+    past the largest id there (``path`` is created if missing)."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    start = _largest_id(path, name, extension, digit_count) + 1
+    return _numbered(path, name, start, extension, digit_count)
+
+
+def latest_path(path, name, extension=None, digit_count=5):
+    """The auto-numbered file path with the largest id, or None."""
+    path = os.path.abspath(path)
+    best = _largest_id(path, name, extension, digit_count)
+    return None if best < 0 else _numbered(path, name, best, extension, digit_count)
 
 
 def load_h5(file_path, decode_bytes=True):

@@ -2,7 +2,8 @@
 Engine-level models (PyTorch counterpart of
 :mod:`slmsuite_tpu.models.engine_models`): the headline ``spot_array_wgs``
 workload and the MRAF image workload ``image_mraf``, built from a seed,
-ready to run on a device.
+ready to run on a device, and ``camera_loop_wgs``, the simulated rig and
+spot hologram of the camera-in-the-loop WGS (BASELINE config 4).
 """
 
 import dataclasses
@@ -148,3 +149,63 @@ def image_mraf(N=2048, method="WGS-Leonardo", mraf_factor=0.5, stats=True,
         torch.as_tensor(phase0, device=device),
         torch.as_tensor(clean, device=device),
     )
+
+
+#: BASELINE config 4's spots, in camera pixels.
+CAMERA_LOOP_SPOTS_IJ = np.array([[160.0, 256, 352, 256], [256.0, 160, 256, 352]])
+
+
+def camera_loop_rig(slm_side=512, cam_side=512, M=None, b=None, device=None):
+    """The simulated rig of BASELINE config 4: a ``slm_side``^2 SLM (8 um
+    pixels, 0.78 um light) under a Gaussian simulated source of radius
+    0.35 of its side, viewed by a ``cam_side``^2 camera (5.5 um pixels,
+    exposure 1) through the affine ``M`` (default ``[[8e3, 200], [-200,
+    8e3]]``) and ``b`` (default the camera's center). Returns the
+    uncalibrated :class:`~slmsuite_torch.hardware.cameraslms.FourierSLM`."""
+    from slmsuite_torch.hardware.cameras.simulated import SimulatedCamera
+    from slmsuite_torch.hardware.cameraslms import FourierSLM
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+
+    slm = SimulatedSLM(resolution=(slm_side, slm_side), pitch_um=(8, 8), wav_um=0.78)
+    slm.set_source_analytic(
+        "gaussian2d", sim=True, x0=0, y0=0, a=1, c=0,
+        wx=0.35 * slm_side * slm.pitch[0], wy=0.35 * slm_side * slm.pitch[1],
+    )
+    if M is None:
+        M = np.array([[8.0e3, 200.0], [-200.0, 8.0e3]])
+    if b is None:
+        b = np.array([[cam_side / 2.0], [cam_side / 2.0]])
+    cam = SimulatedCamera(
+        slm, resolution=(cam_side, cam_side), pitch_um=(5.5, 5.5), M=M, b=b,
+        device=device,
+    )
+    cam.set_exposure(1.0)
+    return FourierSLM(cam, slm)
+
+
+def camera_loop_wgs(spot_ij=None, shape=(1024, 1024), calibration="analytic", seed=0,
+                    device=None, **rig):
+    """BASELINE config 4: the rig of :meth:`camera_loop_rig`, Fourier
+    calibrated, and a :class:`SpotHologram` of ``shape`` on the spots
+    ``spot_ij`` (camera pixels; config 4's four by default), its initial
+    phase drawn from ``seed``. ``calibration="analytic"`` sets the
+    calibration from the camera's own affine; ``"measured"`` projects and
+    detects a 5 x 5 grid at pitch 16 (it needs OpenCV). Optimize with
+    ``feedback="experimental_spot"`` to close the loop through the
+    simulated camera. Returns ``(cameraslm, hologram)``."""
+    from slmsuite_torch.holography.algorithms import SpotHologram
+
+    device = resolve_device(device)
+    fs = camera_loop_rig(device=device, **rig)
+    if calibration == "analytic":
+        fs.fourier_calibrate_analytic(fs.cam.M, fs.cam.b)
+    elif calibration == "measured":
+        fs.fourier_calibrate(array_shape=5, array_pitch=16, verbose=False)
+    else:
+        raise ValueError(f"Unrecognized calibration '{calibration}'.")
+    if spot_ij is None:
+        spot_ij = CAMERA_LOOP_SPOTS_IJ
+    phase = np.random.default_rng(seed).uniform(-np.pi, np.pi, fs.slm.shape)
+    holo = SpotHologram(shape, spot_ij, basis="ij", cameraslm=fs, phase=phase,
+                        device=device)
+    return fs, holo

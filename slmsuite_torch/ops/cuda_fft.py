@@ -56,6 +56,7 @@ LAUNCHES = {
     "cols_wexp_inv": 0,
     "cols_mraf_fwd": 0,
     "cols_mraf_mix_inv": 0,
+    "cols_wgs_fwd": 0,
 }
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -70,6 +71,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "slm_carry_entry": [_P, _P, _P, _P, _I, _I, _P, _P],
     "slm_cols_wgs_roundtrip": [_P] * 16 + [_I, _I, _I, _P, _P, _I, _I, _I, _P],
+    "slm_cols_wgs_fwd": [_P] * 14 + [_I, _I, _I, _P, _I, _I, _I, _P],
     "slm_rows_normfwd": [_P] * 5 + [_I, _I, _P, _P, _P],
     "slm_carry_exit": [_P, _P, _P, _I, _I, _P, _P],
     "slm_rows_fft": [_P] * 4 + [_I, _I, _P, _F, _P],
@@ -299,6 +301,38 @@ def cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
     return hr, hi, wout, pff_out if kim else None, sums, maxs
 
 
+def cols_wgs_fwd(gr, gi, weights, target, mask, phase_ff, scal,
+                 *, rule, kim, stats_on):
+    """#7, cols half: forward column FFT of the rows-transformed carry,
+    the WGS epilogue on Kim's ANGLE store ``phase_ff`` (None without
+    Kim), the constrained farfield as a pair, plus the stats reduction.
+    Returns ``(re, im, weights', phase_ff' | None, sums (float64), maxs)``."""
+    planes = [gr, gi, weights, target]
+    if stats_on:
+        planes.append(mask)
+    if kim:
+        planes.append(phase_ff)
+    H, W = _check_planes(*planes)
+    _check_rule(rule)
+    _check_scal(scal, gr)
+    tc = _cols_tile(H)
+    re, im, wout = (torch.empty_like(gr) for _ in range(3))
+    pff_out = torch.empty_like(gr) if kim else None
+    partials = torch.empty((W // tc, 8), dtype=torch.float64, device=gr.device)
+    sums = torch.empty(4, dtype=torch.float64, device=gr.device)
+    maxs = torch.empty(4, dtype=torch.float32, device=gr.device)
+    rc = _lib().slm_cols_wgs_fwd(
+        _ptr(gr), _ptr(gi), _ptr(weights), _ptr(target),
+        _ptr(mask if stats_on else None), _ptr(phase_ff if kim else None),
+        _ptr(re), _ptr(im), _ptr(wout), _ptr(pff_out), _ptr(scal), _ptr(partials),
+        _ptr(sums), _ptr(maxs), H, W, tc, _ptr(_twiddles(H, False, gr.device)),
+        _RULES[rule], int(kim), int(stats_on), _stream(),
+    )
+    _raise_on(rc, "cols_wgs_fwd")
+    LAUNCHES["cols_wgs_fwd"] += 1
+    return re, im, wout, pff_out, sums, maxs
+
+
 def rows_normfwd(hr, hi, amp):
     """#3: inverse row FFT, amplitude replacement, forward row FFT."""
     H, W = _check_planes(hr, hi)
@@ -512,6 +546,17 @@ def ifft2_phase(xr, xi):
     """#13, ``arg ifft2``: :meth:`cols_fft` (inverse), then
     :meth:`carry_exit` (the inverse rows and atan2; the scale drops out)."""
     return carry_exit(*cols_fft(xr, xi, inverse=True))
+
+
+def wgs_fused_forward(psi, amp, weights, phase_ff, target, mask, scal,
+                      *, rule, kim, stats_on):
+    """#7, psi -> constrained farfield: :meth:`carry_entry`, then
+    :meth:`cols_wgs_fwd` with the ``post`` lane set from ``amp`` (same
+    contract as :meth:`slmsuite_torch.ops.fft._wgs_fused_forward`)."""
+    scal = _with_post(scal, post_scale(amp, psi.shape))
+    gr, gi = carry_entry(psi, amp)
+    return cols_wgs_fwd(gr, gi, weights, target, mask, phase_ff, scal,
+                        rule=rule, kim=kim, stats_on=stats_on)
 
 
 def wgs_fused_step(psi, amp, weights, phase_ff, target, mask, scal,

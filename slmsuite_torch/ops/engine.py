@@ -13,9 +13,10 @@ steps:
   whose three kernels per iteration are
   :meth:`slmsuite_torch.ops.fft.mraf_carry_step`;
 - the natural step (:meth:`_make_natural_step`) for every other ported
-  configuration: GS and all five WGS rules, ``computational`` and
-  ``computational_spot`` feedback and stats, padded farfields
-  (``shape != slm_shape``), propagation kernels and MRAF. Its transforms
+  configuration: GS and all five WGS rules, ``computational``,
+  ``computational_spot`` and ``experimental_spot_sim`` feedback and
+  stats, padded farfields (``shape != slm_shape``), propagation kernels
+  and MRAF. Its transforms
   are :meth:`slmsuite_torch.ops.fft.fft2_polar_from_phase` and
   :meth:`~slmsuite_torch.ops.fft.wexp_ifft2_phase` (MRAF:
   :meth:`~slmsuite_torch.ops.fft.ifft2_phase`) when the farfield is the
@@ -28,9 +29,12 @@ All loop state stays on the device (including ``fixed_phase``,
 Python branch on a tensor value runs inside the loop, and the stats rows
 are stacked once per run.
 
-The simulated camera (``experimental_spot_sim``) and host-side feedback
-raise :class:`NotImplementedError` naming the ROADMAP item that brings
-them.
+``experimental_spot_sim`` closes the camera loop on the device for a
+simulated rig: :meth:`sim_measure_spots` forms the quantized display, the
+farfield on the camera's canvas, the camera frame and the spot-window sums
+from psi inside the step, with no host hop. Feedback measured on the host
+raises :class:`NotImplementedError` naming the ROADMAP item that brings
+it.
 """
 
 import dataclasses
@@ -81,6 +85,12 @@ class GSConfig:
     has_kernel: bool = False
     kim_efficiency_trigger: bool = False
     spot_single_px: bool = False     # stats skip integration (shape == slm_shape)
+    # The simulated rig's closed loop (feedback "experimental_spot_sim" or
+    # stat group "experimental_spot"): statics of :meth:`sim_measure_spots`.
+    sim_bitres: float = 0.0          # SLM gray levels (a power of two)
+    sim_cam_sat: float = 0.0         # camera saturation level (counts)
+    sim_truncates: bool = False      # the camera's dtype is integer (floor counts)
+    sim_shape_padded: tuple = ()     # the camera's FFT canvas shape
 
     @property
     def is_wgs(self):
@@ -144,30 +154,83 @@ def _carry_active(config: GSConfig):
     return _fused_active(config) or _mraf_fused_active(config)
 
 
-#: Stat groups the device computes; the others are measured on the host.
-_DEVICE_STAT_GROUPS = ("computational", "computational_spot")
+#: Feedback modes and stat groups the device computes; the others are
+#: measured on the host.
+_DEVICE_FEEDBACK = ("computational", "computational_spot", "experimental_spot_sim")
+_DEVICE_STAT_GROUPS = ("computational", "computational_spot", "experimental_spot")
+
+
+def _needs_sim_measure(config: GSConfig):
+    """Whether the step measures with the simulated camera."""
+    return (
+        config.feedback == "experimental_spot_sim"
+        or "experimental_spot" in config.stat_groups
+    )
 
 
 def _unported(config: GSConfig):
     """The NotImplementedError for a configuration the port does not run
     yet, naming the ROADMAP item that brings it, or None."""
-    if (config.feedback == "experimental_spot_sim"
-          or "experimental_spot" in config.stat_groups):
-        what = (
-            "the simulated camera in the loop, feedback "
-            f"'{config.feedback}' / stat groups {config.stat_groups} "
-            "(ROADMAP.md queue 1, item 9)"
-        )
-    elif config.feedback not in _DEVICE_STAT_GROUPS or any(
-        g not in _DEVICE_STAT_GROUPS for g in config.stat_groups
+    if config.feedback in _DEVICE_FEEDBACK and all(
+        g in _DEVICE_STAT_GROUPS for g in config.stat_groups
     ):
-        what = (
-            f"feedback '{config.feedback}' / stat groups {config.stat_groups}: "
-            "the stepwise host loop (ROADMAP.md queue 1, items 6 and 9)"
-        )
-    else:
+        if _needs_sim_measure(config) and not config.sim_shape_padded:
+            return ValueError(
+                "The simulated camera's statics (sim_bitres, sim_cam_sat, "
+                "sim_truncates, sim_shape_padded) are missing from the config."
+            )
         return None
-    return NotImplementedError(f"slmsuite_torch does not run {what} yet.")
+    return NotImplementedError(
+        f"slmsuite_torch does not run feedback '{config.feedback}' / stat groups "
+        f"{config.stat_groups} yet: the stepwise host loop (ROADMAP.md queue 1, item 6)."
+    )
+
+
+def sim_measure_spots(psi, consts, *, bitres, cam_sat, truncates, shape_padded):
+    """
+    The simulated rig's measurement on the device: the quantized display
+    (``SLM._phase2gray`` for ``phase_scaling == 1`` and a power-of-two bit
+    depth), the farfield on the camera's padded canvas, nearest-pixel
+    camera sampling, exposure, saturation, integer truncation and the
+    spot-window sums. The host twin is ``slm.set_phase`` ->
+    ``cam.get_image`` -> ``analysis.take(..., integrate=True)``.
+
+    ``consts`` keys (device tensors that do not change in the loop):
+
+    - ``sim_pre``: SLM-shaped phase added before quantization (minus the
+      hologram's fold, plus the propagation kernel and the hardware
+      correction phase).
+    - ``sim_post``: SLM-shaped phase added after it (the simulated
+      aberration plus the camera canvas's fold).
+    - ``sim_amp``: SLM-shaped simulated source amplitude.
+    - ``sim_flat_cam`` / ``sim_valid_cam``: the camera pixels' int64 gather
+      map into the flattened canvas power, and their validity weights.
+    - ``sim_spot_flat``: (N, D*D) int64 gather of the spot windows into
+      the flattened camera frame.
+    - ``sim_scale``: exposure_s * gain (0-d tensor).
+
+    Returns ``(spot_powers (N,), total_power ())`` in camera counts. The
+    canvas transform is :meth:`slmsuite_torch.ops.fft.fft2`.
+    """
+    two_pi = 2.0 * np.pi
+    phase = psi + consts["sim_pre"]
+    # display = (rint(-phase * s) - 1) mod 2^b; the modulus takes the
+    # divisor's sign, so a negative level wraps upward.
+    q = torch.round(phase * float(np.float32(-bitres / two_pi))) - 1.0
+    disp = torch.remainder(q, float(bitres))
+    # A global phase offset drops out of |F|.
+    phase_cam = -disp * float(np.float32(two_pi / bitres)) + consts["sim_post"]
+    fr, fi = _prop.nearfield_to_farfield(*_prop.build_folded_nearfield(
+        phase_cam, consts["sim_amp"], tuple(shape_padded)
+    ))
+    pwr = (torch.square(fr) + torch.square(fi)).reshape(-1)
+    img = pwr[consts["sim_flat_cam"]] * consts["sim_valid_cam"] * consts["sim_scale"]
+    img = torch.clamp(img, max=float(cam_sat))
+    if truncates:
+        # The host camera casts counts to its integer dtype (non-negative
+        # values: floor == trunc).
+        img = torch.floor(img)
+    return img[consts["sim_spot_flat"]].sum(dim=-1), img.sum()
 
 
 def _augment_fused_consts(config: GSConfig, consts):
@@ -365,12 +428,20 @@ def _spot_feedback_amp(amp_ff_sq, consts):
     return torch.sqrt(gathered.sum(dim=-1))
 
 
-def _compute_group_stats(group, config, consts, amp_ff, spot_feedback):
+def _compute_group_stats(group, config, consts, amp_ff, spot_feedback,
+                         sim_measured=None):
     """Length-4 stats vector for one device stat group."""
     if group == "computational":
         return calculate_stats(
             amp_ff, consts["target"], mask=consts["stat_mask"],
             efficiency_compensation=False,
+        )
+    if group == "experimental_spot":
+        # From the camera measurement inside the step.
+        sim_spot_pwr, sim_total = sim_measured
+        return calculate_stats(
+            torch.sqrt(sim_spot_pwr), consts["spot_amp"], mask=consts["spot_amp"] != 0,
+            efficiency_compensation=False, total=sim_total,
         )
     # computational_spot
     total = torch.square(amp_ff).sum()
@@ -419,6 +490,7 @@ def _make_natural_step(config: GSConfig):
         config.feedback == "computational_spot"
         or "computational_spot" in config.stat_groups
     )
+    needs_sim = _needs_sim_measure(config)
     # Farfield == SLM plane with no kernel: nearfield == amp e^{i psi}, so
     # the transforms start and end at psi and no canvas exists.
     full_fuse = (
@@ -437,8 +509,17 @@ def _make_natural_step(config: GSConfig):
         spot_feedback = (
             _spot_feedback_amp(torch.square(amp_ff), consts) if needs_spot else None
         )
+        # The camera measures psi, the folded nearfield phase, directly.
+        sim_measured = (
+            sim_measure_spots(
+                state.psi, consts,
+                bitres=config.sim_bitres, cam_sat=config.sim_cam_sat,
+                truncates=config.sim_truncates, shape_padded=config.sim_shape_padded,
+            )
+            if needs_sim else None
+        )
         stats_rows = [
-            _compute_group_stats(g, config, consts, amp_ff, spot_feedback)
+            _compute_group_stats(g, config, consts, amp_ff, spot_feedback, sim_measured)
             for g in config.stat_groups
         ]
 
@@ -454,13 +535,17 @@ def _make_natural_step(config: GSConfig):
                     weights, amp_ff, consts["target"], **rule_kw
                 )
             else:
-                # Weight feedback integrates around the ROUNDED spot
-                # pixels; the stats use the raw positions.
                 center = consts["spot_center_idx"]
-                weight_feedback = torch.sqrt(
-                    torch.square(amp_ff).reshape(-1)[consts["spot_weight_flat_idx"]]
-                    .sum(dim=-1)
-                )
+                if config.feedback == "experimental_spot_sim":
+                    # The root of the camera's spot-window powers.
+                    weight_feedback = torch.sqrt(sim_measured[0])
+                else:
+                    # Weight feedback integrates around the ROUNDED spot
+                    # pixels; the stats use the raw positions.
+                    weight_feedback = torch.sqrt(
+                        torch.square(amp_ff).reshape(-1)[consts["spot_weight_flat_idx"]]
+                        .sum(dim=-1)
+                    )
                 spot_weights = update_weights_generic(
                     weights.reshape(-1)[center], weight_feedback,
                     consts["spot_amp"], **rule_kw
@@ -546,11 +631,12 @@ def make_gs_step(config: GSConfig):
 
 
 def _augment_natural_consts(consts):
-    """The natural loop's constants: the spot gather maps as int64 and
+    """The natural loop's constants: the gather maps as int64 and
     the step's 0-d zero and nan."""
     consts = dict(consts)
     device = consts["target"].device
-    for key in ("spot_flat_idx", "spot_weight_flat_idx", "spot_center_idx"):
+    for key in ("spot_flat_idx", "spot_weight_flat_idx", "spot_center_idx",
+                "sim_flat_cam", "sim_spot_flat"):
         if key in consts:
             consts[key] = consts[key].to(device=device, dtype=torch.int64)
     consts["_zero"] = torch.zeros((), dtype=torch.float32, device=device)

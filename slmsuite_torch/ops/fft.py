@@ -37,8 +37,10 @@ The natural step takes :meth:`fft2_polar_from_phase` and
 :meth:`fft2_polar` and :meth:`wexp_ifft2` on a padded canvas or with a
 propagation kernel; its MRAF mix ends in :meth:`ifft2_phase` or
 :meth:`ifft2`. Propagation outside the loop takes :meth:`fft2` and
-:meth:`ifft2`. :meth:`wgs_fused_step` and :meth:`mraf_fused_step` are
-psi -> psi steps that only tests call.
+:meth:`ifft2`. :meth:`wgs_fused_forward` is the forward half of a psi -> psi
+WGS step (its backward half is :meth:`ifft2_phase`); :meth:`wgs_fused_step`
+and :meth:`mraf_fused_step` are whole psi -> psi steps. No loop of the
+engine runs these three: they are entry points of their own.
 
 The underscored functions are the plain PyTorch versions of the CUDA
 kernels in :mod:`slmsuite_torch.ops.cuda_fft` and of the dispatchers.
@@ -46,7 +48,7 @@ The dispatchers (:meth:`wgs_carry_entry`, :meth:`wgs_carry_step`,
 :meth:`wgs_carry_exit`, :meth:`mraf_carry_step`, :meth:`fft2`,
 :meth:`ifft2`, :meth:`ifft2_phase`, :meth:`fft2_polar`,
 :meth:`fft2_polar_from_phase`, :meth:`wexp_ifft2`, :meth:`wexp_ifft2_phase`,
-:meth:`wgs_fused_step`, :meth:`mraf_fused_step`) take the plain versions
+:meth:`wgs_fused_forward`, :meth:`wgs_fused_step`, :meth:`mraf_fused_step`) take the plain versions
 for CPU tensors only. A CUDA tensor whose sides are powers of two in
 [64, 4096] launches the kernels; any other CUDA shape raises
 :class:`NotImplementedError`.
@@ -476,6 +478,19 @@ def _cols_fwd_polar(xr, xi, scale):
     return amp * scale, theta
 
 
+def _cols_wgs_fwd(gr, gi, weights, target, mask, phase_ff, scal,
+                  *, rule, kim, stats_on):
+    """Plain version of the ``cols_wgs_fwd`` kernel: the forward column
+    FFT of the rows-transformed carry (scaled by the ``post`` lane), then
+    the WGS epilogue on the angle store. Returns ``(re, im, weights',
+    phase_ff' | None, sums, maxs)``."""
+    fr, fi = _pair(torch.fft.fft(torch.complex(gr, gi), dim=0) * scal[_S["post"]])
+    f, theta, wout = _farfield_update(fr, fi, weights, target, scal, rule)
+    phase, pff_out = _constraint_phase(theta, phase_ff, scal, kim)
+    sums, maxs = _wgs_stats(f, target, mask, scal, torch.square(wout).sum(), stats_on)
+    return wout * torch.cos(phase), wout * torch.sin(phase), wout, pff_out, sums, maxs
+
+
 def _cols_wexp_inv(weights, phase):
     """Plain version of the ``cols_wexp_inv`` kernel: ``w * e^{i phase}``,
     then the unnormalized inverse FFT of every column."""
@@ -545,16 +560,28 @@ def _constraint_phase(theta, phase_ff, scal, kim):
     return phase, phase
 
 
-def _wgs_fused_step(psi, amp, weights, phase_ff, target, mask, scal,
-                    *, rule, kim, stats_on):
-    """Plain version of :meth:`wgs_fused_step`: ortho fft2 of ``amp *
-    e^{i psi}``, the WGS epilogue on the angle store, then ``arg
-    ifft2(w' e^{i phase})``."""
+def _wgs_fused_forward(psi, amp, weights, phase_ff, target, mask, scal,
+                       *, rule, kim, stats_on):
+    """Plain version of :meth:`wgs_fused_forward`: ortho fft2 of ``amp *
+    e^{i psi}``, the WGS epilogue on the angle store, and the constrained
+    farfield ``w' e^{i phase}`` as an (re, im) pair."""
     fr, fi = _fft2(amp * torch.cos(psi), amp * torch.sin(psi))
     f, theta, wout = _farfield_update(fr, fi, weights, target, scal, rule)
     phase, pff_out = _constraint_phase(theta, phase_ff, scal, kim)
     sums, maxs = _wgs_stats(f, target, mask, scal, torch.square(wout).sum(), stats_on)
-    return _wexp_ifft2_phase(wout, phase), wout, pff_out, sums, maxs
+    return wout * torch.cos(phase), wout * torch.sin(phase), wout, pff_out, sums, maxs
+
+
+def _wgs_fused_step(psi, amp, weights, phase_ff, target, mask, scal,
+                    *, rule, kim, stats_on):
+    """Plain version of :meth:`wgs_fused_step`: the forward half
+    (:meth:`_wgs_fused_forward`), then ``arg ifft2`` of the constrained
+    farfield."""
+    re, im, wout, pff_out, sums, maxs = _wgs_fused_forward(
+        psi, amp, weights, phase_ff, target, mask, scal,
+        rule=rule, kim=kim, stats_on=stats_on,
+    )
+    return _ifft2_phase(re, im), wout, pff_out, sums, maxs
 
 
 def _mraf_fused_step(psi, amp, weights, phase_ff, target, mask, mcode, scal,
@@ -642,6 +669,46 @@ def ifft2_phase(xr, xi):
     if use_kernels(xr):
         return _cuda().ifft2_phase(xr, xi)
     return _ifft2_phase(xr, xi)
+
+
+def wgs_fused_forward(psi, amp, weights, phase_ff, target, mask, scal,
+                      *, rule, kim, stats_on):
+    """
+    The forward half of one WGS iteration, psi in -> constrained farfield
+    out (``slmsuite_tpu.ops.fft.wgs_fused_forward``, in natural order):
+    ``F = fft2(amp e^{i psi})`` (ortho), the rule's weight update under
+    the deferred norm, Kim's select on the angle store, ``(re, im) = w'
+    (cos, sin)(phase)`` and the stats partials. :meth:`ifft2_phase` of
+    ``(re, im)`` completes the iteration.
+
+    Parameters
+    ----------
+    psi : (H, W) folded nearfield phase (any range).
+    amp : scalar or (H, W) nearfield amplitude.
+    weights, target : (H, W) farfield planes.
+    phase_ff : (H, W) stored farfield angle (Kim) or None.
+    mask : (H, W) f32 0/1 stats mask, or None when ``stats_on`` is off.
+    scal : the :data:`SCALAR_KEYS` buffer; its ``post`` lane is not read
+        (the function derives it from ``amp``).
+    rule : ``"leonardo"``, ``"kim"``, ``"wu"`` or ``"tanh"``.
+
+    Returns
+    -------
+    ``(re, im, weights', phase_ff' | None, sums (4,), maxs (4,))`` with
+    sums = [overlap, err_sum, err_sq_sum, |w'|^2] (float64; ``[0, 0, 0,
+    |w'|^2]`` without stats) and maxs = [err_max, u_max, -err_min, -u_min]
+    (float32; all -3e38 without stats). Kernels: ``carry_entry``, then
+    ``cols_wgs_fwd`` (with the stats reduction).
+    """
+    if use_kernels(psi):
+        return _cuda().wgs_fused_forward(
+            psi, amp, weights, phase_ff, target, mask, scal,
+            rule=rule, kim=kim, stats_on=stats_on,
+        )
+    return _wgs_fused_forward(
+        psi, amp, weights, phase_ff, target, mask, scal,
+        rule=rule, kim=kim, stats_on=stats_on,
+    )
 
 
 def wgs_fused_step(psi, amp, weights, phase_ff, target, mask, scal,

@@ -662,8 +662,11 @@ def test_hologram_takes_an_slm_as_slm_shape():
     np.testing.assert_allclose(t.amp, np.asarray(j.amp), rtol=1e-6)
     t.optimize(method="GS", maxiter=2, verbose=False)
     assert t.iter == 2 and np.isfinite(t.get_phase()).all()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.Hologram(target, slm_shape=_FakeCameraSLM(tslm))
+    # A CameraSLM gives its SLM's shape and source, as in the JAX package.
+    t = T.Hologram(target, slm_shape=_FakeCameraSLM(tslm))
+    j = J.Hologram(target, slm_shape=_FakeCameraSLM(jslm))
+    assert t.slm_shape == j.slm_shape == (32, 48)
+    np.testing.assert_allclose(t.amp, np.asarray(j.amp), rtol=1e-6)
 
 
 def test_feedback_hologram_takes_a_bare_slm():
@@ -678,7 +681,13 @@ def test_feedback_hologram_takes_a_bare_slm():
     t.set_target(np.pad(np.ones((4, 4)), 30))
     t.optimize(method="GS", maxiter=2, verbose=False)
     assert t.iter == 2
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.FeedbackHologram((64, 64), cameraslm=_FakeCameraSLM(tslm))
+    # A CameraSLM is kept, and its SLM gives amp and slm_shape.
+    fake = _FakeCameraSLM(tslm)
+    fake.calibrations = {}
+    t = T.FeedbackHologram((64, 64), cameraslm=fake)
+    assert t.cameraslm is fake and t.slm_shape == (32, 48)
+    np.testing.assert_allclose(t.amp, np.asarray(j.amp), rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        T.FeedbackHologram((64, 64), target_ij=np.ones((8, 8)), cameraslm=fake)
     with pytest.raises(ValueError, match="CameraSLM or SLM"):
         T.FeedbackHologram((64, 64), cameraslm=object())

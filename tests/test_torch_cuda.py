@@ -217,7 +217,7 @@ def test_natural_dispatchers_match_plain(cuda, amp_kind):
     assert cuda_fft.LAUNCHES == dict(
         carry_entry=1, cols_wgs_roundtrip=0, rows_normfwd=0, carry_exit=1,
         rows_fft=4, cols_fft=2, cols_fwd_polar=2, cols_wexp_inv=2,
-        cols_mraf_fwd=0, cols_mraf_mix_inv=0,
+        cols_mraf_fwd=0, cols_mraf_mix_inv=0, cols_wgs_fwd=0,
     )
 
 
@@ -348,7 +348,7 @@ def test_mraf_compositions_match_plain(cuda, amp_kind):
     assert cuda_fft.LAUNCHES == dict(
         carry_entry=2, cols_wgs_roundtrip=1, rows_normfwd=0, carry_exit=3,
         rows_fft=0, cols_fft=1, cols_fwd_polar=0, cols_wexp_inv=0,
-        cols_mraf_fwd=1, cols_mraf_mix_inv=1,
+        cols_mraf_fwd=1, cols_mraf_mix_inv=1, cols_wgs_fwd=0,
     )
 
 
@@ -524,3 +524,106 @@ def test_compressed_hologram_runs_through_kernels(cuda, monkeypatch):
         monkeypatch.undo()
         assert not plain_launched
         assert np.abs(amp - plain_amp).max() < 2e-3 and np.abs(w - plain_w).max() < 2e-3
+
+
+# ----------------------------------------------------------------------
+# The forward half of the psi -> psi WGS step: cols_wgs_fwd.
+# ----------------------------------------------------------------------
+
+
+def _fwd_scal(shape, amp, target, use_theta, device, apply_update=1.0):
+    from slmsuite_torch.ops import fft
+
+    H, W = shape
+    post = (amp if not torch.is_tensor(amp) else 1.0) / np.sqrt(H * W)
+    return fft.pack_scalars(dict(
+        post=post, inv_prev_norm=0.7, apply_update=apply_update, use_theta=float(use_theta),
+        feedback_exponent=0.8, feedback_factor=0.2, inv_fnorm=1.3,
+        inv_tsum=float(1.0 / (target**2).sum()), inv_fsum=0.9,
+    ), device)
+
+
+def _assert_fwd(got, ref, amp_ff, kim):
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+    torch.testing.assert_close(got[2], ref[2], atol=ATOL, rtol=RTOL)
+    if kim:
+        _assert_theta(got[3], ref[3], amp_ff)
+    else:
+        assert got[3] is None
+    assert got[4].dtype == torch.float64
+    torch.testing.assert_close(got[4], ref[4], atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got[5], ref[5], atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (256, 512)])
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+@pytest.mark.parametrize("rule", ["kim", "leonardo", "wu", "tanh"])
+@pytest.mark.parametrize("kim", [True, False])
+@pytest.mark.parametrize("stats_on", [True, False])
+def test_cols_wgs_fwd_matches_plain(cuda, shape, amp_kind, rule, kim, stats_on):
+    """``cols_wgs_fwd`` against ``_cols_wgs_fwd`` on the same carry, with
+    the stored angle selected when stats are off and the current one when
+    they are on."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    psi, target, pff, amp = _inputs(shape, cuda, amp_kind)
+    angle = torch.atan2(pff[1], pff[0])
+    gr, gi = fft._wgs_carry_entry(psi, amp)
+    scal = _fwd_scal(shape, amp, target, stats_on, cuda)
+    args = (gr, gi, target * 1.3, target, (target != 0).float() if stats_on else None,
+            angle if kim else None, scal)
+    kw = dict(rule=rule, kim=kim, stats_on=stats_on)
+    got, ref = cuda_fft.cols_wgs_fwd(*args, **kw), fft._cols_wgs_fwd(*args, **kw)
+    _assert_fwd(got, ref, fft._fft2_polar_from_phase(psi, amp)[0], kim)
+    if kim and not stats_on:
+        assert torch.equal(got[3], angle)
+    if not stats_on:
+        assert got[4][:3].tolist() == [0.0, 0.0, 0.0]
+        assert bool((got[5] == -3.0e38).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+def test_wgs_fused_forward_dispatches_to_kernels(cuda, amp_kind):
+    """The dispatcher on CUDA tensors launches ``carry_entry`` and
+    ``cols_wgs_fwd`` once each, ignores the ``post`` lane, passes the
+    weights through on the first iteration, and gives the same sums on a
+    second launch (fixed-order reduction)."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    shape = (256, 512)
+    psi, target, pff, amp = _inputs(shape, cuda, amp_kind)
+    angle = torch.atan2(pff[1], pff[0])
+    scal = _fwd_scal(shape, amp, target, True, cuda, apply_update=0.0)
+    scal[0] = 123.0
+    args = (psi, amp, target * 1.3, angle, target, (target != 0).float(), scal)
+    kw = dict(rule="kim", kim=True, stats_on=True)
+    cuda_fft.reset_launch_counts()
+    got = fft.wgs_fused_forward(*args, **kw)
+    assert {k: v for k, v in cuda_fft.LAUNCHES.items() if v} == dict(
+        carry_entry=1, cols_wgs_fwd=1)
+    ref = fft._wgs_fused_forward(*args, **kw)
+    _assert_fwd(got, ref, fft._fft2_polar_from_phase(psi, amp)[0], True)
+    assert torch.equal(got[2], target * 1.3)
+    again = fft.wgs_fused_forward(*args, **kw)
+    assert torch.equal(got[4], again[4]) and torch.equal(got[5], again[5])
+    with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+        plane = torch.zeros((96, 128), device=cuda)
+        fft.wgs_fused_forward(plane, 1.0, plane, None, plane, None, scal,
+                              rule="wu", kim=False, stats_on=False)
+
+
+@pytest.mark.cuda
+def test_cols_wgs_fwd_zero_field_angle_is_zero(cuda):
+    """A zero carry gives the angle 0 and the constrained field (w', 0)."""
+    from slmsuite_torch.ops import cuda_fft
+
+    shape = (64, 128)
+    _, target, _, _ = _inputs(shape, cuda, "scalar")
+    zero = torch.zeros(shape, device=cuda)
+    scal = _fwd_scal(shape, 1.0, target, True, cuda)
+    re, im, wout, pff, _, _ = cuda_fft.cols_wgs_fwd(
+        zero, zero, target, target, None, zero + 1.0, scal, rule="wu", kim=True,
+        stats_on=False)
+    assert torch.equal(pff, zero) and torch.equal(im, zero) and torch.equal(re, wout)

@@ -148,23 +148,24 @@ def test_spot_array_wgs_model_matches_jax():
                                atol=STATS_ATOL, rtol=STATS_RTOL)
 
 
-@pytest.mark.parametrize("change", [
-    dict(feedback="experimental_spot_sim"),
-    dict(stat_groups=("experimental_spot",)),
-    dict(feedback="external_spot"),
-    dict(stat_groups=("experimental",)),
-])
-def test_unported_configs_raise(change):
-    """The simulated camera and host-side feedback or stats raise, naming
-    their ROADMAP item (GS, Nogrette, padded shapes, kernels,
-    computational_spot and MRAF run)."""
+@pytest.mark.parametrize("change, error, match", [
+    (dict(feedback="experimental_spot_sim"), ValueError, "sim_shape_padded"),
+    (dict(stat_groups=("experimental_spot",)), ValueError, "sim_shape_padded"),
+    (dict(feedback="external_spot"), NotImplementedError, "ROADMAP"),
+    (dict(stat_groups=("experimental",)), NotImplementedError, "ROADMAP"),
+], ids=["change0", "change1", "change2", "change3"])
+def test_unported_configs_raise(change, error, match):
+    """Host-side feedback or stats raise, naming their ROADMAP item, and
+    the simulated camera in the loop (which runs since it was ported)
+    raises without its camera statics (GS, Nogrette, padded shapes,
+    kernels, computational_spot and MRAF run)."""
     config = TE.GSConfig(**dict(
         dict(method="WGS-Kim", shape=(64, 64), slm_shape=(64, 64)), **change
     ))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         TE.make_gs_step(config)
     state = TE.init_gs_state(config, np.zeros((64, 64)), np.zeros(config.shape))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         TE.run_gs(config, state, {}, 1)
 
 

@@ -1,13 +1,16 @@
 """
 Importing the port and running a 64^2 fused optimize, a padded GS
-optimize and a compressed WGS-Kim optimize on the CPU loads none of jax,
+optimize, a compressed WGS-Kim optimize and a camera-in-the-loop WGS-Kim
+optimize on a simulated rig on the CPU loads none of jax,
 cv2, h5py, matplotlib, tqdm, triton or the JAX package, and needs no
 ``nvcc`` (nor imports the compressed kernels' module). It runs in a
 subprocess: this test process has already imported jax
 (tests/conftest.py). ``import torch`` itself pulls in tqdm when it is
 installed (through torch.hub), so the check is on what the port adds.
 A static check reads every module of the port and ``chip_smoke.py``
-with ``ast``: none imports jax or the JAX package.
+with ``ast``: none imports jax or the JAX package, and none imports
+``cv2`` or ``tqdm`` outside a function (the machine with the card has
+neither).
 """
 
 import ast
@@ -42,6 +45,13 @@ SCRIPT = textwrap.dedent("""
     compressed = CompressedSpotHologram(
         [[1e-3, -2e-3], [0.0, 1e-3], [0.0, 1e-6]], cameraslm=SimulatedSLM((32, 32)))
     compressed.optimize("WGS-Kim", maxiter=3, verbose=False)
+    from slmsuite_torch.models.engine_models import camera_loop_wgs
+    rig, camera_loop = camera_loop_wgs(
+        spot_ij=[[24.0, 40.0], [32.0, 32.0]], shape=(128, 128), slm_side=64, cam_side=64,
+        M=np.array([[1.0e3, 0.0], [0.0, 1.0e3]]))
+    camera_loop.optimize("WGS-Kim", maxiter=3, verbose=False, feedback="experimental_spot",
+                         stat_groups=["experimental_spot"])
+    rig.cam.get_image()
     compressed_module = sys.modules.get("slmsuite_torch.ops.cuda_compressed")
     added = sorted({m.split(".")[0] for m in set(sys.modules) - before})
     cuda_fft = sys.modules.get("slmsuite_torch.ops.cuda_fft")
@@ -93,3 +103,30 @@ def test_port_source_imports_no_jax(path):
             imported.append(node.module)
     roots = {name.split(".")[0] for name in imported}
     assert not roots & {"jax", "jaxlib", "slmsuite_tpu"}, sorted(roots)
+
+
+def _imports_outside_functions(node):
+    """Names imported by ``node``'s statements that run on import (not
+    those inside a function body)."""
+    found = []
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(child, ast.Import):
+            found += [alias.name for alias in child.names]
+        elif isinstance(child, ast.ImportFrom) and child.module and not child.level:
+            found.append(child.module)
+        found += _imports_outside_functions(child)
+    return found
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_port_source_imports_no_cv2_or_tqdm_on_import(path):
+    """``cv2`` and ``tqdm`` are imported inside the functions that use
+    them, never when a module of the port (or chip_smoke.py) is imported."""
+    with open(path) as handle:
+        tree = ast.parse(handle.read(), filename=path)
+    roots = {name.split(".")[0] for name in _imports_outside_functions(tree)}
+    assert not roots & {"cv2", "tqdm"}, sorted(roots)

@@ -150,7 +150,8 @@ def test_resume_from_jax_arrays():
 
 
 def test_unported_paths_raise():
-    """Callbacks, CG and the kxy basis raise, naming their ROADMAP item;
+    """Callbacks, CG and spot null regions raise, naming their ROADMAP
+    item; the kxy basis without hardware raises as in the JAX package;
     MRAF (a nan target), which raised before it was ported, runs."""
     target = np.ones((64, 64))
     target[:8] = np.nan
@@ -162,5 +163,10 @@ def test_unported_paths_raise():
         holo.optimize(method="WGS-Kim", maxiter=2, verbose=False, callback=lambda h: False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         holo.optimize(method="CG", maxiter=2, verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cameraslm"):
         T.SpotHologram((64, 64), [[10, 20], [10, 20]], basis="kxy")
+    with pytest.raises(ValueError, match="cameraslm"):
+        J.SpotHologram((64, 64), [[10, 20], [10, 20]], basis="kxy")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.SpotHologram((64, 64), [[10, 20], [10, 20]], basis="knm",
+                       null_vectors=[[30], [30]])
