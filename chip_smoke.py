@@ -11,7 +11,9 @@ there is no card or the port is missing. In order:
    per source, in parallel);
 4. each kernel against its plain PyTorch version on the card: the carry
    kernels at 2048^2 and 256x512 for every fusable rule, scalar and array
-   amplitude, stats on and off; the natural-path kernels and the composed
+   amplitude, stats on and off; ``rows_fft`` and ``cols_fft`` at every
+   power-of-two side from 64 to 4096, at 64x4096, 4096x64 and 256x512,
+   forward and inverse; the other natural-path kernels and the composed
    dispatchers at 2048^2 and 256x512, and the canvas transforms on a
    2048^2 canvas holding a 1024^2 window; the two MRAF kernels at 2048^2
    and 256x512 for Leonardo and Kim, zero weights on and off, stats on
@@ -61,11 +63,17 @@ there is no card or the port is missing. In order:
    ``gs_padded``, ``spots_kim``, ``gs_mraf`` and ``wgs_leonardo_mraf_zero``
    replayed through the kernels;
 7. timing with CUDA events: each kernel, its plain version and, where one
-   PyTorch call computes the same function, that call, at 2048^2; the
-   composed ``fft2``/``ifft2`` against ``torch.fft.fft2``/``ifft2``, and
-   the composed ``wexp_ifft2``, ``ifft2_phase`` (with ``torch.fft.ifft2``),
-   ``wgs_fused_step`` and ``mraf_fused_step`` against their plain
-   versions; each compressed kernel and its plain version at config 5,
+   PyTorch call computes the same function, that call, at 2048^2;
+   ``rows_fft`` and ``cols_fft`` at 1024^2, 2048^2 and 4096^2 by CUDA
+   events and by the device's own time under ``torch.profiler`` (their
+   launches are shorter than the host's enqueue; the kernels line reports
+   the device time and says so in ``timer``), with ``carry_entry``
+   and ``cols_fwd_polar`` (the shared-memory FFT on the same planes) and
+   the composed ``fft2``/``ifft2`` (against ``torch.fft.fft2``/``ifft2``),
+   ``ifft2_phase`` (with ``torch.fft.ifft2``) and ``wexp_ifft2`` beside
+   them; the composed ``wgs_fused_forward``, ``wgs_fused_step`` and
+   ``mraf_fused_step`` against their plain versions; each compressed
+   kernel and its plain version at config 5,
    the cos/sin cache build, and ms/iteration of the C1 and C2 loops; and
    ms/iteration of ``spot_array_wgs(2048)`` (WGS-Kim,
    fused), ``spot_array_wgs(2048, method="WGS-Nogrette")`` (natural), the
@@ -79,7 +87,10 @@ there is no card or the port is missing. In order:
 
 It prints the per-kernel JSON line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
-``chiprun_out/``.
+``chiprun_out/`` (``chip_smoke.log`` keeps every line printed;
+``fft_launch.log`` the launch shapes of ``rows_fft`` and ``cols_fft``, as
+their launchers report them, and the compiler's registers, stack and
+spills for each instantiation).
 """
 
 import contextlib
@@ -130,11 +141,11 @@ RULES = ("kim", "leonardo", "wu", "tanh")
 #: How the profiler names the port's kernels (the ``__global__`` functions
 #: of slmsuite_torch/csrc).
 PORT_KERNEL_NAMES = (
-    "carry_entry_kernel", "carry_exit_kernel", "cols_fft_kernel", "cols_fwd_polar_kernel",
-    "cols_mraf_fwd_kernel", "cols_mraf_mix_inv_kernel", "cols_wexp_inv_kernel",
-    "cols_wgs_fwd_kernel", "cols_wgs_roundtrip_kernel", "f2n_kernel", "roundtrip_kernel",
-    "rows_fft_kernel", "rows_normfwd_kernel", "spot_reduce_kernel", "stats_reduce_kernel",
-    "unit_norm_kernel",
+    "carry_entry_kernel", "carry_exit_kernel", "cols_fft_kernel", "cols_fft_cluster_kernel",
+    "cols_fwd_polar_kernel", "cols_mraf_fwd_kernel", "cols_mraf_mix_inv_kernel",
+    "cols_wexp_inv_kernel", "cols_wgs_fwd_kernel", "cols_wgs_roundtrip_kernel", "f2n_kernel",
+    "roundtrip_kernel", "rows_fft_kernel", "rows_normfwd_kernel", "spot_reduce_kernel",
+    "stats_reduce_kernel", "unit_norm_kernel",
 )
 #: Q1: iterations of the two-halves WGS-Kim loop; per-iteration efficiency
 #: and uniformity, kernels against plain and against wgs_fused_step.
@@ -154,6 +165,14 @@ S2_SIDE, S2_PITCH = 10, 24
 CAMERA_STAT_ATOL, CAMERA_WEIGHT_ATOL = 2e-3, 1e-2
 #: Shapes of the MRAF parity phase; the first is the main path's.
 MRAF_SHAPES = ((2048, 2048), (256, 512))
+
+#: Shapes of the rows_fft and cols_fft parity checks: every power-of-two
+#: side the kernels take, the two extreme rectangles and 256x512.
+FFT_SHAPES = tuple((n, n) for n in (64, 128, 256, 512, 1024, 2048, 4096)) + (
+    (256, 512), (64, 4096), (4096, 64))
+#: Sizes at which rows_fft and cols_fft are timed; the kernels line reports
+#: the second (the main paths' plane).
+FFT_TIMED_SIDES = (1024, 2048, 4096)
 
 #: The H100 SXM's published peaks (NVIDIA data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -177,7 +196,11 @@ SINCOS_FLOPS = 24
 
 
 def log(*args):
+    """Print a line, and keep it in ``chiprun_out/chip_smoke.log`` (which
+    :meth:`main` empties first)."""
     print(*args, flush=True)
+    with open(OUT / "chip_smoke.log", "a") as out:
+        print(*args, file=out)
 
 
 def phase_device():
@@ -508,13 +531,17 @@ def phase_natural_parity(device):
         assert e < PSI_P99, f"{tag}: p99 {e:.3e}"
         lines.append(f"{tag}: p99 {e:.3e}")
 
-    for shape in ((2048, 2048), (256, 512)):
+    for shape in FFT_SHAPES:
         xr, xi = random_pair(shape, device)
         for inverse in (False, True):
             for name in ("rows_fft", "cols_fft"):
                 planes(f"{name} {shape} inverse={inverse}",
                        getattr(cuda_fft, name)(xr, xi, inverse=inverse, scale=0.5),
                        getattr(fft, "_" + name)(xr, xi, inverse=inverse, scale=0.5), name)
+        del xr, xi
+    fft_checks = len(lines)
+    for shape in ((2048, 2048), (256, 512)):
+        xr, xi = random_pair(shape, device)
         polar(f"cols_fwd_polar {shape}", cuda_fft.cols_fwd_polar(xr, xi, 0.25),
               fft._cols_fwd_polar(xr, xi, 0.25), "cols_fwd_polar")
         w, phi = xr.abs(), xi * np.pi
@@ -549,7 +576,8 @@ def phase_natural_parity(device):
     torch.cuda.synchronize()
     OUT.mkdir(exist_ok=True)
     (OUT / "parity_natural.log").write_text("\n".join(lines) + "\n")
-    log(f"natural parity: {len(lines)} checks passed; 2048^2 max |diff| "
+    log(f"natural parity: {len(lines)} checks passed ({fft_checks} of rows_fft and "
+        f"cols_fft at {len(FFT_SHAPES)} shapes); 2048^2 max |diff| "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
 
@@ -568,6 +596,35 @@ def cuda_ms(fn, n=20, warmup=3):
     return start.elapsed_time(stop) / n
 
 
+class NoDeviceEvents(RuntimeError):
+    """``torch.profiler`` recorded no device event."""
+
+
+def device_ms(fn, n=20):
+    """Device milliseconds per call of ``fn``: the device events' own
+    durations under ``torch.profiler``, summed, over ``n`` calls. Unlike
+    :meth:`cuda_ms` it leaves out the gaps in which the device waits for
+    the host, which at 1024^2 are longer than the kernels. Raises
+    :class:`NoDeviceEvents` where the profiler records no device event in
+    three tries (it now and then returns none for a window this short)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        if spans:
+            return sum(spans) / 1e3 / n
+    raise NoDeviceEvents("torch.profiler recorded no device events in three tries")
+
+
 def bound(shape, planes_moved, line_ffts):
     """``(bound_ms, bound_by)`` of an (n, n) kernel: the larger of the
     bytes moved (each input plane read once, each output written once)
@@ -580,21 +637,112 @@ def bound(shape, planes_moved, line_ffts):
     return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
 
 
-def interleaved(name, kernel, plain, library=None, bound_of=None, size="2048^2"):
+def interleaved(name, kernel, plain, library=None, bound_of=None, size="2048^2",
+                timer=cuda_ms):
     """Time ``kernel`` and ``plain`` in turns (plain, kernel, kernel,
-    plain) and ``library`` once between them; log and return
-    ``{kernel, plain, library, bound, bound_by}`` in ms."""
-    p1 = cuda_ms(plain)
-    k1 = cuda_ms(kernel)
-    lib = cuda_ms(library) if library is not None else None
-    k2 = cuda_ms(kernel)
-    p2 = cuda_ms(plain)
+    plain) and ``library`` once between them, with ``timer``
+    (:meth:`cuda_ms`, or :meth:`device_ms` for launches so short that the
+    host's enqueue sets the pace of CUDA events); log and return
+    ``{kernel, plain, library, bound, bound_by}`` in ms and ``timer``,
+    ``"events"`` or ``"device"``: which of the two every time of the entry
+    is. Where the profiler gives :meth:`device_ms` nothing, all of them are
+    taken again with CUDA events."""
+    try:
+        p1 = timer(plain)
+        k1 = timer(kernel)
+        lib = timer(library) if library is not None else None
+        k2 = timer(kernel)
+        p2 = timer(plain)
+    except NoDeviceEvents as err:
+        log(f"  {name} {size}: {err}; CUDA events instead")
+        return interleaved(name, kernel, plain, library, bound_of, size)
+    timed_by = "device" if timer is device_ms else "events"
     bound_ms, bound_by = bound_of if bound_of is not None else (None, None)
-    log(f"time {name} {size}: kernel {k1:.4f} {k2:.4f} ms, plain {p1:.4f} {p2:.4f} ms"
-        + (f", library {lib:.4f} ms" if lib is not None else "")
+    log(f"time {name} {size} ({timed_by}): kernel {k1:.4f} {k2:.4f} ms, plain {p1:.4f} "
+        f"{p2:.4f} ms" + (f", library {lib:.4f} ms" if lib is not None else "")
         + (f", bound {bound_ms:.4f} ms ({bound_by})" if bound_ms is not None else ""))
     return dict(kernel=(k1 + k2) / 2, plain=(p1 + p2) / 2, library=lib,
-                bound=bound_ms, bound_by=bound_by)
+                bound=bound_ms, bound_by=bound_by, timer=timed_by)
+
+
+def phase_fft_timing(device):
+    """``rows_fft`` and ``cols_fft`` at each of FFT_TIMED_SIDES, each with
+    its plain version, its library call (``torch.fft.fft`` along the same
+    axis) and its bound, by CUDA events and by the device's own time
+    (:meth:`device_ms`); beside them, by both too, ``carry_entry`` and
+    ``cols_fwd_polar``, which move the same planes on the shared-memory
+    ``fft_lines``; and the composed transforms' device time. Writes the
+    launchers' shapes and the compiler's line for every instantiation to
+    ``fft_launch.log``. Returns the 2048^2 times of the kernels line:
+    ``rows_fft`` and ``cols_fft`` by device time, ``cols_fwd_polar`` by
+    CUDA events like the kernels timed in :meth:`phase_kernel_timing`."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    t = {}
+    for side in FFT_TIMED_SIDES:
+        shape, size = (side, side), f"{side}^2"
+        xr, xi = random_pair(shape, device)
+        z = torch.complex(xr, xi)
+        w, phi = xr.abs(), xi * np.pi
+        timed = {
+            "rows_fft": (lambda: cuda_fft.rows_fft(xr, xi, inverse=False),
+                         lambda: fft._rows_fft(xr, xi, inverse=False),
+                         lambda: torch.fft.fft(z, dim=-1), bound(shape, 4, 1)),
+            "cols_fft": (lambda: cuda_fft.cols_fft(xr, xi, inverse=False),
+                         lambda: fft._cols_fft(xr, xi, inverse=False),
+                         lambda: torch.fft.fft(z, dim=0), bound(shape, 4, 1)),
+            "carry_entry (fft_lines, rows)": (
+                lambda: cuda_fft.carry_entry(phi, 1.0),
+                lambda: fft._wgs_carry_entry(phi, 1.0), None, bound(shape, 3, 1)),
+            "cols_fwd_polar": (lambda: cuda_fft.cols_fwd_polar(xr, xi, 1.0),
+                               lambda: fft._cols_fwd_polar(xr, xi, 1.0), None,
+                               bound(shape, 4, 1)),
+        }
+        for name, (kernel, plain, library, bound_of) in timed.items():
+            by_events = interleaved(name, kernel, plain, library, bound_of, size)
+            # The device's own time: these launches are shorter than the
+            # host takes to enqueue them.
+            by_device = interleaved(name, kernel, plain, library, bound_of, size,
+                                    timer=device_ms)
+            if library is not None:
+                log(f"  {name} {size}: {by_device['bound'] / by_device['kernel']:.3f} of its "
+                    f"bound, {by_device['kernel'] / by_device['library']:.3f} of its library "
+                    f"call ({by_device['timer']})")
+            if side == 2048 and name in KERNELS:
+                t[name] = by_device if library is not None else by_events
+        # The composed transforms (two launches each) against torch.fft.
+        interleaved("fft2 (rows_fft + cols_fft)", lambda: cuda_fft.fft2(xr, xi),
+                    lambda: fft._fft2(xr, xi), library=lambda: torch.fft.fft2(z, norm="ortho"),
+                    bound_of=bound(shape, 8, 2), size=size, timer=device_ms)
+        interleaved("ifft2 (cols_fft + rows_fft)", lambda: cuda_fft.ifft2(xr, xi),
+                    lambda: fft._ifft2(xr, xi), library=lambda: torch.fft.ifft2(z, norm="ortho"),
+                    bound_of=bound(shape, 8, 2), size=size, timer=device_ms)
+        interleaved("ifft2_phase (cols_fft + carry_exit)",
+                    lambda: cuda_fft.ifft2_phase(xr, xi), lambda: fft._ifft2_phase(xr, xi),
+                    library=lambda: torch.fft.ifft2(z, norm="ortho"),
+                    bound_of=bound(shape, 3, 2), size=size, timer=device_ms)
+        # The padded loop's backward half: w and phi in, the pair out.
+        interleaved("wexp_ifft2 (cols_wexp_inv + rows_fft)",
+                    lambda: cuda_fft.wexp_ifft2(w, phi), lambda: fft._wexp_ifft2(w, phi),
+                    bound_of=bound(shape, 4, 2), size=size, timer=device_ms)
+        del xr, xi, z, w, phi, timed
+    log(f"  [{nvidia_smi_line()}]")
+
+    lines = []
+    for n in (64, 128, 256, 512, 1024, 2048, 4096):
+        rows_a_block, _, threads, smem = cuda_fft.fft_launch_shape("rows_fft", n)
+        lines.append(f"rows_fft W={n}: plan {cuda_fft.fft_plan(n)}, {rows_a_block} rows and "
+                     f"{threads} threads a block, {smem} bytes of shared memory")
+        tc, blocks, threads, smem = cuda_fft.fft_launch_shape("cols_fft", n)
+        lines.append(f"cols_fft H={n}: plan {cuda_fft.fft_plan(n)}, tc {tc}, {blocks} block(s) "
+                     f"a tile, {threads} threads and {smem} bytes of shared memory a block")
+    ptxas = (OUT / "ptxas.log").read_text().splitlines() if (OUT / "ptxas.log").exists() else []
+    for k, line in enumerate(ptxas):
+        if "Compiling entry function" in line and (
+                "rows_fft_kernel" in line or "cols_fft_" in line):
+            lines.append(" ".join(x.strip() for x in ptxas[k:k + 4]))
+    (OUT / "fft_launch.log").write_text("\n".join(lines) + "\n")
+    return t
 
 
 def phase_kernel_timing(device):
@@ -609,7 +757,6 @@ def phase_kernel_timing(device):
     cols_kw = dict(rule="kim", kim=True, stats_on=True)
     xr, xi = random_pair(shape, device)
     w, phi = xr.abs(), xi * np.pi
-    z = torch.complex(xr, xi)
     t = {}
     t["carry_entry"] = interleaved(
         "carry_entry", lambda: cuda_fft.carry_entry(x["psi"], x["amp"]),
@@ -631,30 +778,10 @@ def phase_kernel_timing(device):
     t["carry_exit"] = interleaved(
         "carry_exit", lambda: cuda_fft.carry_exit(gr, gi),
         lambda: fft._wgs_carry_exit(gr, gi), bound_of=bound(shape, 3, 1))
-    t["rows_fft"] = interleaved(
-        "rows_fft", lambda: cuda_fft.rows_fft(xr, xi, inverse=False),
-        lambda: fft._rows_fft(xr, xi, inverse=False),
-        library=lambda: torch.fft.fft(z, dim=-1), bound_of=bound(shape, 4, 1))
-    t["cols_fft"] = interleaved(
-        "cols_fft", lambda: cuda_fft.cols_fft(xr, xi, inverse=False),
-        lambda: fft._cols_fft(xr, xi, inverse=False),
-        library=lambda: torch.fft.fft(z, dim=0), bound_of=bound(shape, 4, 1))
-    t["cols_fwd_polar"] = interleaved(
-        "cols_fwd_polar", lambda: cuda_fft.cols_fwd_polar(xr, xi, 1.0),
-        lambda: fft._cols_fwd_polar(xr, xi, 1.0), bound_of=bound(shape, 4, 1))
+    t.update(phase_fft_timing(device))
     t["cols_wexp_inv"] = interleaved(
         "cols_wexp_inv", lambda: cuda_fft.cols_wexp_inv(w, phi),
         lambda: fft._cols_wexp_inv(w, phi), bound_of=bound(shape, 4, 1))
-    # The composed transforms (two launches each) against torch.fft.
-    interleaved("fft2 (rows_fft + cols_fft)", lambda: cuda_fft.fft2(xr, xi),
-                lambda: fft._fft2(xr, xi), library=lambda: torch.fft.fft2(z, norm="ortho"),
-                bound_of=bound(shape, 8, 2))
-    interleaved("ifft2 (cols_fft + rows_fft)", lambda: cuda_fft.ifft2(xr, xi),
-                lambda: fft._ifft2(xr, xi), library=lambda: torch.fft.ifft2(z, norm="ortho"),
-                bound_of=bound(shape, 8, 2))
-    # The padded loop's backward half: w and phi in, the pair out.
-    interleaved("wexp_ifft2 (cols_wexp_inv + rows_fft)", lambda: cuda_fft.wexp_ifft2(w, phi),
-                lambda: fft._wexp_ifft2(w, phi), bound_of=bound(shape, 4, 2))
 
     # MRAF: the M1 variants (WGS-Leonardo, stats on, no zero weights), and
     # the mix kernel's largest variant (Kim, zero weights).
@@ -675,11 +802,8 @@ def phase_kernel_timing(device):
                 lambda: cuda_fft.cols_mraf_mix_inv(*mix_kim, kim=True, zero=True),
                 lambda: fft._cols_mraf_mix_inv(*mix_kim, kim=True, zero=True),
                 bound_of=bound(shape, 14, 1))
-    # The compositions: arg ifft2 (the GS-MRAF backward half), and the two
-    # psi -> psi steps (WGS-Kim and MRAF WGS-Kim, stats on).
-    interleaved("ifft2_phase (cols_fft + carry_exit)", lambda: cuda_fft.ifft2_phase(xr, xi),
-                lambda: fft._ifft2_phase(xr, xi),
-                library=lambda: torch.fft.ifft2(z, norm="ortho"), bound_of=bound(shape, 3, 2))
+    # The compositions: the forward half and the two psi -> psi steps
+    # (WGS-Kim and MRAF WGS-Kim, stats on).
     args = (x["psi"], x["amp"], x["weights"], angle, x["target"], x["mask"])
     kw = dict(rule="kim", kim=True, stats_on=True)
     interleaved("wgs_fused_forward (carry_entry + cols_wgs_fwd)",
@@ -1648,6 +1772,8 @@ def main():
     device = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke.log").write_text("")
     phase_environment()
     phase_build()
     errors = phase_parity(device)
@@ -1687,7 +1813,7 @@ def main():
             "replaces": replaces, "path": path, "launches": launches,
             "max_abs_err": errors[name], "ms": t["kernel"], "plain_ms": t["plain"],
             "bound_ms": t["bound"], "bound_us": t["bound"] * 1e3, "bound_by": t["bound_by"],
-            "library_ms": t["library"],
+            "library_ms": t["library"], "timer": t["timer"],
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

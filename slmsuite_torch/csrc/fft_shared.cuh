@@ -1,5 +1,7 @@
-// Shared-memory FFT used by every kernel of wgs_carry.cu, natural_fft.cu and
-// mraf_carry.cu, and the column kernels' tile load, store and launch setup.
+// The FFTs of the kernels of wgs_carry.cu, natural_fft.cu and mraf_carry.cu:
+// the shared-memory fft_lines with the column kernels' tile load, store and
+// launch setup, and, further down, the register-resident line_fft of
+// rows_fft_kernel and cols_fft_kernel.
 //
 // Replaces `_fft_core` in slmsuite_tpu/ops/pallas_fft.py: a four-step DFT
 // written as block-complex matrix products for the TPU's matrix unit. On
@@ -15,6 +17,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace slm {
@@ -96,6 +99,268 @@ __device__ __forceinline__ void store_col_tile(const float2* buf,
     yr[g] = v.x;
     yi[g] = v.y;
   }
+}
+
+// ----------------------------------------------------------------------
+// The register-resident line FFT (rows_fft_kernel and cols_fft_kernel of
+// natural_fft.cu; the kernels above still run fft_lines).
+//
+// fft_lines crosses shared memory log2(n) + 1 times with a barrier each
+// and reads a twiddle from global memory per butterfly. line_fft keeps the
+// line in registers: a thread holds E = 8 or 16 points and does radix-8 or
+// radix-16 butterflies on them with the rotations inside the radix as
+// constants; the line crosses shared memory only between passes, in a
+// self-sorting (Stockham) exchange, so there is no bit-reversal pass.
+// Plan per length (fft_plan in ops/cuda_fft.py; ops/cuda_fft.py's
+// line_fft_model follows this code pass by pass on the CPU):
+//   64 = 8*8, 128 = 8*16, 256 = 16*16, 512 = 8*8*8, 1024 = 8*8*16,
+//   2048 = 8*16*16, 4096 = 16*16*16
+// that is two or three passes, one or two exchanges, three barriers at
+// most. A line takes n / E threads. Thread s holds, before the first pass
+// and after the last, the points s + q * (n / E), q < E, in v[q]: a caller
+// loads them straight from global memory and an epilogue finds its output
+// in the same registers. A pass of radix R with p = the product of the
+// radices before it gives butterfly i (i < n / R; thread s runs the
+// E / R butterflies i = s + b * n / E) the inputs i + r * n / R, rotates
+// input r by tw^(r k n / (p R)), k = i mod p, and writes output r to
+// (i - k) R + k + r p. The rotations between passes come from the
+// float64-built f32 table tw[m] = exp(-+ 2 pi i m / n), m < n / 2: a
+// butterfly reads w = tw^(k n / (p R)) and w^4 and forms the other powers
+// by at most three products, 2 n / R loads a line and pass, not n / 2 a
+// stage. (A load for each of the R - 1 powers cost rows_fft a fifth of its
+// time at 2048^2 on the H100, lanes of a warp reading up to 32 lines of the
+// table; staging the table in shared memory changed nothing, its banks
+// conflict the same way.)
+//
+// A line may be shared by a cluster of G blocks (G = 1: one block). The
+// line's T = n / E threads go to the blocks in groups of 8: block g holds
+// the threads s with (s / 8) mod G = g (line_thread gives s). A block's
+// exchange buffer holds the points that its own threads read; whoever
+// computes a point writes it there, through distributed shared memory
+// where it is another block's, and the barriers of such an exchange are
+// the cluster's. After a pass with p a multiple of 8 G a thread's outputs
+// (i - k) R + k + r p all go to readers s' = k mod 8 G = s mod 8 G, its
+// own block: that exchange is local, with the block's barriers. So 4096 =
+// 16 * 16 * 16 on two blocks crosses blocks once. cols_fft takes G = 2
+// there, where one block's registers hold only four columns.
+//
+// Shared memory: point m of a line sits in slot line_pad(m) = m + m / 16;
+// the slot stride `ms` and the line's base are the caller's (rows: a line
+// is contiguous, ms = 1; columns: the tile's columns interleave, ms = tc,
+// so that lanes run across the columns as they do in global memory). The
+// padding spreads the first pass's stride-8 and stride-16 writes over the
+// banks.
+// ----------------------------------------------------------------------
+
+__host__ __device__ constexpr int line_passes(int log2n) { return log2n <= 8 ? 2 : 3; }
+// Radix of pass `pass`: 8 first, 16 for what is left.
+__host__ __device__ constexpr int line_radix(int log2n, int pass) {
+  return pass < 4 * line_passes(log2n) - log2n ? 8 : 16;
+}
+// Points a thread holds: the plan's largest radix.
+__host__ __device__ constexpr int line_points(int log2n) {
+  return line_radix(log2n, line_passes(log2n) - 1);
+}
+__host__ __device__ constexpr int line_threads(int log2n) {
+  return (1 << log2n) / line_points(log2n);
+}
+// Slots of one line in the exchange buffer.
+__host__ __device__ constexpr int line_pitch(int log2n) {
+  return (1 << log2n) + (1 << log2n) / 16;
+}
+__device__ __forceinline__ int line_pad(int m) { return m + (m >> 4); }
+
+// a * (+-i): -i forward, +i inverse.
+template <bool INV>
+__device__ __forceinline__ float2 mul_i(float2 a) {
+  return INV ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+}
+
+// a * (c -+ i s): the root of unity (c, s) = (cos, sin), conjugated forward.
+template <bool INV>
+__device__ __forceinline__ float2 rot(float2 a, float c, float s) {
+  const float t = INV ? s : -s;
+  return make_float2(a.x * c - a.y * t, a.x * t + a.y * c);
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// Radix-4 butterfly in natural order.
+template <bool INV>
+__device__ __forceinline__ void fft4(float2& a0, float2& a1, float2& a2, float2& a3) {
+  const float2 s02 = cadd(a0, a2), d02 = csub(a0, a2), s13 = cadd(a1, a3);
+  const float2 d13 = mul_i<INV>(csub(a1, a3));
+  a0 = cadd(s02, s13);
+  a1 = cadd(d02, d13);
+  a2 = csub(s02, s13);
+  a3 = csub(d02, d13);
+}
+
+constexpr float kCos8th = 0.92387953251128674f;   // cos(pi / 8)
+constexpr float kSin8th = 0.38268343236508977f;   // sin(pi / 8)
+constexpr float kSqrtHalf = 0.70710678118654752f;
+
+// Radix-R butterfly (R = 8 or 16) on u[0..R), in place, natural order out.
+// R = 4 * N2: input n1 + 4 n2; N2-point transforms over n2, rotations by
+// the R-th roots w^(n1 k2), radix-4 transforms over n1; output k2 + N2 k1
+// ends in a[4 k2 + k1] and is put in order by renaming registers.
+template <int R, bool INV>
+__device__ __forceinline__ void radix(float2 (&u)[R]) {
+  static_assert(R == 8 || R == 16, "radix 8 or 16");
+  constexpr int N2 = R / 4;
+  float2 a[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) a[j] = u[j];
+  if constexpr (R == 8) {
+#pragma unroll
+    for (int n1 = 0; n1 < 4; ++n1) {
+      const float2 t = a[n1];
+      a[n1] = cadd(t, a[n1 + 4]);
+      a[n1 + 4] = csub(t, a[n1 + 4]);
+    }
+    a[5] = rot<INV>(a[5], kSqrtHalf, kSqrtHalf);
+    a[6] = mul_i<INV>(a[6]);
+    a[7] = rot<INV>(a[7], -kSqrtHalf, kSqrtHalf);
+  } else {
+#pragma unroll
+    for (int n1 = 0; n1 < 4; ++n1)
+      fft4<INV>(a[n1], a[n1 + 4], a[n1 + 8], a[n1 + 12]);
+    a[5] = rot<INV>(a[5], kCos8th, kSin8th);
+    a[6] = rot<INV>(a[6], kSqrtHalf, kSqrtHalf);
+    a[7] = rot<INV>(a[7], kSin8th, kCos8th);
+    a[9] = rot<INV>(a[9], kSqrtHalf, kSqrtHalf);
+    a[10] = mul_i<INV>(a[10]);
+    a[11] = rot<INV>(a[11], -kSqrtHalf, kSqrtHalf);
+    a[13] = rot<INV>(a[13], kSin8th, kCos8th);
+    a[14] = rot<INV>(a[14], -kSqrtHalf, kSqrtHalf);
+    a[15] = rot<INV>(a[15], -kCos8th, -kSin8th);
+  }
+#pragma unroll
+  for (int k2 = 0; k2 < N2; ++k2)
+    fft4<INV>(a[4 * k2], a[4 * k2 + 1], a[4 * k2 + 2], a[4 * k2 + 3]);
+#pragma unroll
+  for (int k = 0; k < R; ++k) u[k] = a[4 * (k % N2) + k / N2];
+}
+
+// Store v at the address that `at` has in the shared memory of block
+// `rank` of the cluster.
+__device__ __forceinline__ void store_cluster(float2* at, int rank, float2 v) {
+  const unsigned local = (unsigned)__cvta_generic_to_shared(at);
+  unsigned remote;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(remote), "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+// The barrier of an exchange: the block's where every point stays in its
+// block, else the cluster's.
+template <bool LOCAL>
+__device__ __forceinline__ void line_barrier() {
+  if (LOCAL) __syncthreads();
+  else cooperative_groups::this_cluster().sync();
+}
+
+// Thread s of a line that is thread t of the line in block `rank` of G:
+// the blocks take the line's threads in groups of 8 in turn.
+template <int G>
+__device__ __forceinline__ int line_thread(int t, int rank) {
+  return (t >> 3) * (8 * G) + rank * 8 + (t & 7);
+}
+
+// One pass of line_fft: radix R, LOG2P = log2 of the product of the
+// radices before it. A pass that is not the last ends with the exchange
+// (write, barrier, read); a pass that is not the first has a barrier
+// before its writes, so that every thread has read the exchange before.
+template <int LOG2N, bool INV, int PASS, int LOG2P, int G = 1>
+__device__ __forceinline__ void line_pass(float2 (&v)[line_points(LOG2N)], float2* line,
+                                          int ms, int s,
+                                          const float2* __restrict__ tw) {
+  constexpr int N = 1 << LOG2N, E = line_points(LOG2N), T = N / E;
+  constexpr int R = line_radix(LOG2N, PASS), B = E / R, P = 1 << LOG2P;
+  constexpr int LOG2R = R == 8 ? 3 : 4;
+  constexpr bool LAST = PASS == line_passes(LOG2N) - 1;
+  // Whether this pass's outputs all go to the block that computes them.
+  constexpr bool LOCAL = G == 1 || P % (8 * G) == 0;
+  if (PASS > 0 && !LAST) line_barrier<LOCAL>();
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int i = s + b * T;
+    const int k = i & (P - 1);
+    float2 u[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) u[r] = v[b + r * B];
+    if (PASS > 0) {
+      // w^r, r < R, of w = tw^(k n / (p R)) from two table reads (both
+      // below n / 2): w, w^2, w^3 and w^4, w^8, w^12 by products, and
+      // w^(4a + b) = w^(4a) w^b.
+      constexpr int TS = N / (P * R);
+      float2 lo[4], hi[R / 4];
+      lo[1] = __ldg(&tw[k * TS]);
+      lo[2] = cmul(lo[1], lo[1]);
+      lo[3] = cmul(lo[2], lo[1]);
+      hi[1] = __ldg(&tw[4 * k * TS]);
+      if constexpr (R == 16) {
+        hi[2] = cmul(hi[1], hi[1]);
+        hi[3] = cmul(hi[2], hi[1]);
+      }
+#pragma unroll
+      for (int r = 1; r < R; ++r)
+        u[r] = cmul(u[r], r < 4 ? lo[r] : r % 4 == 0 ? hi[r / 4] : cmul(hi[r / 4], lo[r % 4]));
+    }
+    radix<R, INV>(u);
+    if (LAST) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[b + r * B] = u[r];
+    } else {
+      const int j = ((i - k) << LOG2R) + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        // Thread m mod T reads point m next, as the (m / T)-th of its
+        // points; `reader` is its index among its block's threads.
+        const int m = j + r * P;
+        const int reader = ((m & (T - 1)) / (8 * G)) * 8 + (m & 7);
+        float2* at = &line[line_pad(G == 1 ? m : (m / T) * (T / G) + reader) * ms];
+        if (LOCAL) *at = u[r];
+        else store_cluster(at, (m >> 3) & (G - 1), u[r]);
+      }
+    }
+  }
+  if (!LAST) {
+    line_barrier<LOCAL>();
+    const int t = G == 1 ? s : (s / (8 * G)) * 8 + (s & 7);
+#pragma unroll
+    for (int q = 0; q < E; ++q) v[q] = line[line_pad(q * (T / G) + t) * ms];
+  }
+}
+
+// FFT (INV: unnormalized inverse FFT) of a line of n = 1 << LOG2N points
+// held by line_threads(LOG2N) threads in registers: thread s brings the
+// points s + q * line_threads(LOG2N) in v[q] and leaves with the
+// transform's points of the same indices. `line` is the line's exchange
+// buffer in shared memory (slot stride ms, line_pitch(LOG2N) slots), `tw`
+// the table of the direction; with G > 1 blocks to a line, s comes from
+// line_thread and `line` is the block's own buffer (line_pitch / G slots).
+// Every thread of the block, and every block of the cluster, must call it: it
+// has barriers (one or two exchanges). Threads may still be reading the
+// buffer when others return: a caller that writes it again (a second
+// transform, another line) puts a barrier in between.
+template <int LOG2N, bool INV, int G = 1>
+__device__ __forceinline__ void line_fft(float2 (&v)[line_points(LOG2N)], float2* line,
+                                         int ms, int s,
+                                         const float2* __restrict__ tw) {
+  constexpr int L0 = line_radix(LOG2N, 0) == 8 ? 3 : 4;
+  constexpr int L1 = L0 + (line_radix(LOG2N, 1) == 8 ? 3 : 4);
+  line_pass<LOG2N, INV, 0, 0, G>(v, line, ms, s, tw);
+  line_pass<LOG2N, INV, 1, L0, G>(v, line, ms, s, tw);
+  if constexpr (line_passes(LOG2N) == 3) line_pass<LOG2N, INV, 2, L1, G>(v, line, ms, s, tw);
 }
 
 // log2 of a power of two (host side, for the launchers).

@@ -15,9 +15,11 @@
 // planes and writes two (at 2048^2, 4 x 16.8 MB = 67 MB, 20 us at
 // 3.35 TB/s); its FFT arithmetic, 5 N log2 N flops per line, is ~0.23
 // GFLOP, 3.5 us at the 67 TFLOP/s f32 peak. So the design touches device
-// memory once per operand: a row kernel holds one row in shared memory,
-// a column kernel a tile of `tc` adjacent columns (64 KiB), so that each
-// row segment it loads is 4 * tc contiguous bytes, as in wgs_carry.cu.
+// memory once per operand. cols_fwd_polar and cols_wexp_inv hold a tile
+// of `tc` adjacent columns in shared memory (64 KiB), so that each row
+// segment they load is 4 * tc contiguous bytes, as in wgs_carry.cu, and
+// run fft_lines on it. rows_fft and cols_fft hold their lines in
+// registers and run line_fft (fft_shared.cuh); see the notes above them.
 // The polar output, the ortho scale and the constraint synthesis
 // w * e^{i phi} live in the kernels' prologues and epilogues, so no
 // complex farfield plane exists in device memory in the full-fuse
@@ -33,44 +35,159 @@
 
 namespace slm {
 
-// #5 (rows half) <- pallas_fft._fft_rows / _rows_kernel (used by
-// fft2_scrambled_pallas, ifft2_scrambled_pallas). One block per row:
-// forward or inverse FFT by the twiddle table, times `scale`.
+// #5 (rows half) <- pallas_fft._fft_rows (slmsuite_tpu/ops/pallas_fft.py:373,
+// _rows_kernel; used by fft2_scrambled_pallas, ifft2_scrambled_pallas):
+// forward or unnormalized inverse FFT of every row, times `scale`.
+//
+// Bound on the H100 by bytes: two planes read, two written, 5 log2 W flops
+// a point against 16 bytes. The first version (one row a block in shared
+// memory, fft_lines: 12 barriers and 13 shared-memory round trips a row at
+// 2048, a global twiddle load a butterfly) ran at 18% of that bound. Here
+// a row never rests in shared memory: thread s of the row's W / E threads
+// loads the points s + q W / E straight into registers (a warp reads 128
+// contiguous bytes an instruction, 2 E loads in flight a thread), line_fft
+// transforms them with one or two exchanges, and the thread stores the
+// same indices from registers, scaled. A block of 256 threads holds
+// 256 E / W rows, and three blocks fit an SM at W = 1024 and 2048 (70-74
+// registers a thread; more blocks at the other lengths), so one block's loads and
+// stores overlap the others' butterflies. The loads are 4-byte ones: the
+// layout s + q W / E gives a thread no two adjacent points, so a 16-byte
+// load would have to stage the row in shared memory first, and rows staged
+// there (by cp.async.bulk and an mbarrier) were slower, 0.035 against
+// 0.033 ms at 2048^2 by CUDA events. Nothing here needs more than the
+// planes' 4-byte alignment.
+template <int LOG2N, bool INV>
 __global__ void __launch_bounds__(kThreads)
 rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                float* __restrict__ yr, float* __restrict__ yi, int W,
-                int log2W, const float2* __restrict__ tw, float scale) {
+                float* __restrict__ yr, float* __restrict__ yi,
+                const float2* __restrict__ tw, float scale) {
+  constexpr int N = 1 << LOG2N, E = line_points(LOG2N), T = line_threads(LOG2N);
+  constexpr int LINES = kThreads / T;
   extern __shared__ float2 sbuf[];
-  const size_t base = (size_t)blockIdx.x * W;
-  for (int i = threadIdx.x; i < W; i += blockDim.x)
-    sbuf[i] = make_float2(xr[base + i], xi[base + i]);
-  __syncthreads();
-  fft_lines(sbuf, W, log2W, 1, tw);
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    yr[base + i] = sbuf[i].x * scale;
-    yi[base + i] = sbuf[i].y * scale;
+  const int s = threadIdx.x % T, line = threadIdx.x / T;
+  const size_t base = ((size_t)blockIdx.x * LINES + line) * N + s;
+  float2 v[E];
+#pragma unroll
+  for (int q = 0; q < E; ++q) v[q] = make_float2(xr[base + q * T], xi[base + q * T]);
+  line_fft<LOG2N, INV>(v, sbuf + line * line_pitch(LOG2N), 1, s, tw);
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    yr[base + q * T] = v[q].x * scale;
+    yi[base + q * T] = v[q].y * scale;
   }
 }
 
-// #5 (cols half) <- pallas_fft._fft_cols / _cols_kernel. One block per
-// tile of `tc` columns: forward or inverse column FFT, times `scale`.
-__global__ void __launch_bounds__(kThreads)
-cols_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                float* __restrict__ yr, float* __restrict__ yi, int H, int W,
-                int log2H, int tc, int log2tc, const float2* __restrict__ tw,
-                float scale) {
-  extern __shared__ float2 sbuf[];
-  load_col_tile(sbuf, xr, xi, H, W, tc, log2tc);
-  fft_lines(sbuf, H, log2H, tc, tw);
-  const int c0 = blockIdx.x * tc;
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    const float2 v = sbuf[j * H + r];
-    yr[g] = v.x * scale;
-    yi[g] = v.y * scale;
+// Thread (s, column c of the tile) loads its points of line_fft's layout,
+// rows s + q H / E of column `col`, from the (H, W) pair into registers.
+template <int LOG2N>
+__device__ __forceinline__ void load_col_regs(float2 (&v)[line_points(LOG2N)],
+                                              const float* __restrict__ xr,
+                                              const float* __restrict__ xi, int W,
+                                              size_t col, int s) {
+#pragma unroll
+  for (int q = 0; q < line_points(LOG2N); ++q) {
+    const size_t g = (size_t)(s + q * line_threads(LOG2N)) * W + col;
+    v[q] = make_float2(xr[g], xi[g]);
   }
+}
+
+// Store the registers back as a pair, times `scale`, in the layout of
+// load_col_regs.
+template <int LOG2N>
+__device__ __forceinline__ void store_col_regs(const float2 (&v)[line_points(LOG2N)],
+                                               float* __restrict__ yr,
+                                               float* __restrict__ yi, int W,
+                                               size_t col, int s, float scale) {
+#pragma unroll
+  for (int q = 0; q < line_points(LOG2N); ++q) {
+    const size_t g = (size_t)(s + q * line_threads(LOG2N)) * W + col;
+    yr[g] = v[q].x * scale;
+    yi[g] = v[q].y * scale;
+  }
+}
+
+// Most threads a block of cols_fft_kernel may have (its register budget).
+__host__ __device__ constexpr int cols_max_threads(int log2n) {
+  return log2n >= 11 ? 1024 : 512;
+}
+// Columns of a tile of cols_fft: 8, a whole 32-byte sector a row segment,
+// and more for short columns, up to a warp's 32, to fill a block of 512
+// threads.
+__host__ __device__ constexpr int cols_tile(int log2n) {
+  const int fill = 512 / line_threads(log2n);
+  return fill < 8 ? 8 : fill > 32 ? 32 : fill;
+}
+// Blocks that share a tile of columns: two (cols_fft_cluster_kernel) where
+// one block's 1024 threads hold fewer than 8 columns (4096 points), else
+// one (cols_fft_kernel).
+__host__ __device__ constexpr int cols_cluster(int log2n) {
+  return 8 * line_threads(log2n) > 1024 ? 2 : 1;
+}
+
+// #5 (cols half) <- pallas_fft._fft_cols (slmsuite_tpu/ops/pallas_fft.py:385,
+// _cols_kernel): forward or unnormalized inverse FFT of every column, times
+// `scale`. One cluster of G blocks per tile of tc = cols_tile adjacent
+// columns, tc * H / E threads in all.
+//
+// Bound on the H100 by bytes, as rows_fft_kernel, and in practice by the
+// width of a row segment: at 2048^2 this kernel takes 0.13 ms with 8-byte
+// segments (tc = 2), 0.09 with 16, 0.04 with 32 (a whole sector) and no
+// less with 64. The first version staged the tile in shared memory column
+// by column (a 4-way bank conflict at tc = 4), ran fft_lines on it and
+// read it back for the store, with 4 columns at H = 2048 and 2 at 4096: 9%
+// of the bound. Here lanes run across the tile's columns, then down the
+// rows: thread (s, c) loads rows s + q H / E of column c straight into
+// registers, so a warp's load instruction touches 32 / tc row segments of
+// 4 tc bytes, and the first butterfly needs no staging. The exchange
+// buffer interleaves the columns (slot stride tc), so lanes stay adjacent
+// in shared memory too, and line_pad keeps the first pass's writes off
+// each other's banks. The store goes from registers, scaled. tc = 8 fills
+// the sectors (cols_tile); the registers of one SM
+// hold 16 K points, 8 columns of 2048 in one block of 1024 threads. At
+// 4096 points a block holds 4 columns, so two blocks of a cluster take
+// every line's threads in turn (G = 2; line_fft's first exchange goes
+// through distributed shared memory): 0.18 ms against 0.32 for one block
+// with tc = 4. At 2048 the cluster loses to one block (0.046 against 0.041 ms).
+// tc reaches the kernel as an argument: as a constant of the instantiation
+// the 2048-point kernel spilled 108 bytes under its 64 registers and took
+// 0.052 ms against 0.039.
+// The cluster's size is the kernel's attribute: given at the launch
+// instead, the same code took 0.21 ms.
+template <int LOG2N, bool INV, int G>
+__device__ __forceinline__ void cols_fft_tile(const float* __restrict__ xr,
+                                              const float* __restrict__ xi,
+                                              float* __restrict__ yr,
+                                              float* __restrict__ yi, int W, int tc,
+                                              int log2tc, const float2* __restrict__ tw,
+                                              float scale) {
+  extern __shared__ float2 sbuf[];
+  int rank = 0;
+  if (G > 1) rank = cooperative_groups::this_cluster().block_rank();
+  const int c = threadIdx.x & (tc - 1);
+  const int s = line_thread<G>(threadIdx.x >> log2tc, rank);
+  const size_t col = (size_t)(blockIdx.x / G) * tc + c;
+  float2 v[line_points(LOG2N)];
+  load_col_regs<LOG2N>(v, xr, xi, W, col, s);
+  // Every block of the cluster runs before any writes another's memory.
+  if (G > 1) cooperative_groups::this_cluster().sync();
+  line_fft<LOG2N, INV, G>(v, sbuf + c, tc, s, tw);
+  store_col_regs<LOG2N>(v, yr, yi, W, col, s, scale);
+}
+
+template <int LOG2N, bool INV>
+__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+cols_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                float* __restrict__ yr, float* __restrict__ yi, int W, int tc,
+                int log2tc, const float2* __restrict__ tw, float scale) {
+  cols_fft_tile<LOG2N, INV, 1>(xr, xi, yr, yi, W, tc, log2tc, tw, scale);
+}
+
+template <int LOG2N, bool INV>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+cols_fft_cluster_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                        float* __restrict__ yr, float* __restrict__ yi, int W, int tc,
+                        int log2tc, const float2* __restrict__ tw, float scale) {
+  cols_fft_tile<LOG2N, INV, 2>(xr, xi, yr, yi, W, tc, log2tc, tw, scale);
 }
 
 // #5 polar and #6 (cols half) <- pallas_fft._cols_kernel(polar_out=True)
@@ -125,6 +242,67 @@ cols_wexp_inv_kernel(const float* __restrict__ w, const float* __restrict__ phi,
   store_col_tile(sbuf, yr, yi, H, W, tc, log2tc);
 }
 
+// What a launch of rows_fft (`cols` false) or cols_fft on lines of
+// 1 << log2n points is made with: the launchers below use it, and
+// slm_fft_launch_shape reports it.
+struct LaunchShape {
+  int lines;    // rows a block; columns a tile
+  int cluster;  // blocks that share a tile
+  int threads;  // a block
+  int smem;     // bytes of dynamic shared memory a block: its padded lines
+};
+constexpr LaunchShape launch_shape(bool cols, int log2n) {
+  const int lines = cols ? cols_tile(log2n) : kThreads / line_threads(log2n);
+  const int cluster = cols ? cols_cluster(log2n) : 1;
+  return {lines, cluster, lines * line_threads(log2n) / cluster,
+          lines * line_pitch(log2n) / cluster * (int)sizeof(float2)};
+}
+
+// Launch of one instantiation of rows_fft_kernel.
+template <int LOG2N, bool INV>
+int launch_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
+                    const float2* tw, float scale, cudaStream_t stream) {
+  constexpr LaunchShape shape = launch_shape(false, LOG2N);
+  static_assert(shape.threads == kThreads && shape.smem <= 48 * 1024, "rows_fft launch");
+  if (H % shape.lines) return (int)cudaErrorInvalidValue;
+  rows_fft_kernel<LOG2N, INV><<<H / shape.lines, shape.threads, shape.smem, stream>>>(
+      xr, xi, yr, yi, tw, scale);
+  return (int)cudaGetLastError();
+}
+
+// Launch of one instantiation of cols_fft_kernel: W / tc clusters, tc the
+// launch shape's lines. The dynamic shared memory is above the 48 KB default from H = 1024 on: the
+// attribute is the instantiation's own.
+template <int LOG2N, bool INV>
+int launch_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int W,
+                    const float2* tw, float scale, cudaStream_t stream) {
+  constexpr LaunchShape shape = launch_shape(true, LOG2N);
+  constexpr int G = cols_cluster(LOG2N);
+  static_assert(shape.threads <= cols_max_threads(LOG2N), "cols_fft launch");
+  if (W % shape.lines) return (int)cudaErrorInvalidValue;
+  auto kernel = [] {
+    if constexpr (G == 2) return cols_fft_cluster_kernel<LOG2N, INV>;
+    else return cols_fft_kernel<LOG2N, INV>;
+  }();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shape.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<W / shape.lines * G, shape.threads, shape.smem, stream>>>(
+      xr, xi, yr, yi, W, shape.lines, ilog2(shape.lines), tw, scale);
+  return (int)cudaGetLastError();
+}
+
+// The cases of a launcher's switch on 2 * log2(n) + inverse: one
+// instantiation per line length 64..4096 and direction.
+#define SLM_LINE_CASE(fn, log2n, ...)                      \
+  case 2 * log2n: return fn<log2n, false>(__VA_ARGS__);    \
+  case 2 * log2n + 1: return fn<log2n, true>(__VA_ARGS__);
+#define SLM_LINE_CASES(fn, ...)                                        \
+  SLM_LINE_CASE(fn, 6, __VA_ARGS__) SLM_LINE_CASE(fn, 7, __VA_ARGS__)  \
+  SLM_LINE_CASE(fn, 8, __VA_ARGS__) SLM_LINE_CASE(fn, 9, __VA_ARGS__)  \
+  SLM_LINE_CASE(fn, 10, __VA_ARGS__) SLM_LINE_CASE(fn, 11, __VA_ARGS__) \
+  SLM_LINE_CASE(fn, 12, __VA_ARGS__)
+
 }  // namespace slm
 
 using namespace slm;
@@ -132,21 +310,34 @@ using namespace slm;
 extern "C" {
 
 int slm_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
-                 int W, const float2* tw, float scale, cudaStream_t stream) {
-  rows_fft_kernel<<<H, kThreads, W * sizeof(float2), stream>>>(
-      xr, xi, yr, yi, W, ilog2(W), tw, scale);
-  return (int)cudaGetLastError();
+                 int W, int inverse, const float2* tw, float scale,
+                 cudaStream_t stream) {
+  switch (ilog2(W) * 2 + (inverse != 0)) {
+    SLM_LINE_CASES(launch_rows_fft, xr, xi, yr, yi, H, tw, scale, stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int slm_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
-                 int W, int tc, const float2* tw, float scale,
+                 int W, int inverse, const float2* tw, float scale,
                  cudaStream_t stream) {
-  size_t smem = 0;
-  cudaError_t err = cols_setup(cols_fft_kernel, H, W, tc, &smem);
-  if (err != cudaSuccess) return (int)err;
-  cols_fft_kernel<<<W / tc, kThreads, smem, stream>>>(
-      xr, xi, yr, yi, H, W, ilog2(H), tc, ilog2(tc), tw, scale);
-  return (int)cudaGetLastError();
+  switch (ilog2(H) * 2 + (inverse != 0)) {
+    SLM_LINE_CASES(launch_cols_fft, xr, xi, yr, yi, W, tw, scale, stream)
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// out[0..4) = the LaunchShape (lines, cluster, threads, smem) of rows_fft
+// (`cols` 0) or cols_fft on lines of n points, a power of two in [64, 4096].
+int slm_fft_launch_shape(int cols, int n, int* out) {
+  const int log2n = ilog2(n);
+  if (log2n < 6 || log2n > 12 || (1 << log2n) != n) return (int)cudaErrorInvalidValue;
+  const LaunchShape shape = launch_shape(cols != 0, log2n);
+  out[0] = shape.lines;
+  out[1] = shape.cluster;
+  out[2] = shape.threads;
+  out[3] = shape.smem;
+  return 0;
 }
 
 int slm_cols_fwd_polar(const float* xr, const float* xi, float* amp,

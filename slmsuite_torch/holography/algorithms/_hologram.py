@@ -635,6 +635,14 @@ class Hologram(_HologramStats):
                 )
             self.flags["feedback"] = feedback
 
+        if verbose > 1:
+            import pprint
+
+            print(f"Optimizing with '{method}' using flags:")
+            pprint.pprint(
+                {k: v for k, v in self.flags.items() if k in ALGORITHM_DEFAULTS[method]}
+            )
+
     def _engine_feedback(self):
         """The device feedback mode for the engine ('computational' here)."""
         feedback = self.flags.get("feedback", "computational")

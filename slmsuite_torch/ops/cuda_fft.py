@@ -20,6 +20,14 @@ counts its launches in :data:`LAUNCHES`.
 
 The plain PyTorch version of each kernel is the underscored function of
 the same name in :mod:`slmsuite_torch.ops.fft`.
+
+``rows_fft`` and ``cols_fft`` run a register-resident line FFT
+(``line_fft`` in ``csrc/fft_shared.cuh``). Its plan (:meth:`fft_plan`),
+its exchange's index maps, and a plain PyTorch model that follows it pass
+by pass (:meth:`line_fft_model`) are here, so that they can be tested
+without a card; the launch shapes are the launchers' own
+(:meth:`fft_launch_shape` asks them). The other kernels run the
+shared-memory ``fft_lines``.
 """
 
 import ctypes
@@ -74,8 +82,9 @@ _SIGNATURES = {
     "slm_cols_wgs_fwd": [_P] * 14 + [_I, _I, _I, _P, _I, _I, _I, _P],
     "slm_rows_normfwd": [_P] * 5 + [_I, _I, _P, _P, _P],
     "slm_carry_exit": [_P, _P, _P, _I, _I, _P, _P],
-    "slm_rows_fft": [_P] * 4 + [_I, _I, _P, _F, _P],
+    "slm_rows_fft": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
     "slm_cols_fft": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
+    "slm_fft_launch_shape": [_I, _I, ctypes.POINTER(_I)],
     "slm_cols_fwd_polar": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
     "slm_cols_wexp_inv": [_P] * 4 + [_I, _I, _I, _P, _P],
     "slm_cols_mraf_fwd": [_P] * 12 + [_I, _I, _I, _P, _I, _I, _P],
@@ -180,6 +189,142 @@ def _twiddles(n, inverse, device):
 def _cols_tile(H):
     """Columns per block of the cols kernel: 64 KiB of shared memory."""
     return max(1, min(8, 8192 // H))
+
+
+# ----------------------------------------------------------------------
+# The register-resident line FFT of rows_fft and cols_fft (line_fft in
+# csrc/fft_shared.cuh): its plan, its index maps, and a plain PyTorch
+# model that follows the kernel pass by pass.
+# ----------------------------------------------------------------------
+
+
+def fft_plan(n):
+    """The radices of the line FFT's passes for a line of ``n`` points, in
+    the order they run: two passes up to 256, three above, radix 8 first and
+    radix 16 for what is left (2048 = 8 * 16 * 16)."""
+    if not kernel_len_ok(n):
+        raise ValueError(f"No plan for a line of {n} points.")
+    log2n = n.bit_length() - 1
+    passes = 2 if log2n <= 8 else 3
+    sixteens = log2n - 3 * passes
+    return (8,) * (passes - sixteens) + (16,) * sixteens
+
+
+def line_points(n):
+    """Points of a line that one thread holds in registers: the plan's
+    largest radix. A line takes ``n // line_points(n)`` threads, and thread
+    ``s`` holds the points ``s + q * n // line_points(n)`` before the first
+    pass and after the last."""
+    return max(fft_plan(n))
+
+
+def line_pad(m):
+    """Slot of point ``m`` of a line in the shared-memory exchange buffer:
+    one slot of padding after every 16, so that the first pass's writes
+    (stride 8 or 16) spread over the banks."""
+    return m + (m >> 4)
+
+
+def line_pitch(n):
+    """Slots of one line in the exchange buffer."""
+    return n + n // 16
+
+
+def line_slot(n, m, blocks=1):
+    """``(block, slot)`` of point ``m`` of a line in the exchange: the
+    block of the cluster whose threads read it next (thread ``m mod T`` of
+    the line's ``T = n // line_points(n)``; the blocks take the threads in
+    groups of 8 in turn), and its padded slot in that block's buffer, which
+    holds the points of its own threads only. One block: ``(0,
+    line_pad(m))``."""
+    threads = n // line_points(n)
+    reader = m % threads
+    local = (m // threads) * (threads // blocks) + reader // (8 * blocks) * 8 + reader % 8
+    return reader // 8 % blocks, line_pad(local)
+
+
+_C1, _S1, _H = (np.float32(x) for x in (np.cos(np.pi / 8), np.sin(np.pi / 8), np.sqrt(0.5)))
+#: (cos, sin) of 2 pi e / 16, as f32, for the exponents the radix-8 and
+#: radix-16 butterflies rotate by (csrc/fft_shared.cuh has the same).
+_ROOT16 = {1: (_C1, _S1), 2: (_H, _H), 3: (_S1, _C1), 6: (-_H, _H), 9: (-_C1, -_S1)}
+
+
+def _rot(a, e, inverse):
+    """``a`` times the 16th root of unity ``e`` (forward: its conjugate)."""
+    if e == 0:
+        return a
+    if e == 4:
+        return torch.complex(-a.imag, a.real) if inverse else torch.complex(a.imag, -a.real)
+    c, s = _ROOT16[e]
+    s = s if inverse else -s
+    return torch.complex(a.real * c - a.imag * s, a.real * s + a.imag * c)
+
+
+def _fft4(a, inverse):
+    """Radix-4 butterfly, natural order, as ``fft4`` of the kernel."""
+    s02, d02, s13 = a[0] + a[2], a[0] - a[2], a[1] + a[3]
+    d13 = _rot(a[1] - a[3], 4, inverse)
+    return [s02 + s13, d02 + d13, s02 - s13, d02 - d13]
+
+
+def _radix(u, inverse):
+    """Radix-8 or radix-16 butterfly of the list ``u``, natural order, as
+    ``radix<8>``/``radix<16>`` of the kernel: R = 4 * n2, input ``n1 + 4 * n2``,
+    output ``k2 + n2 * k1``."""
+    n2 = len(u) // 4
+    a = list(u)
+    for n1 in range(4):
+        if n2 == 2:
+            a[n1], a[n1 + 4] = a[n1] + a[n1 + 4], a[n1] - a[n1 + 4]
+        else:
+            a[n1::4] = _fft4(a[n1::4], inverse)
+    for k2 in range(1, n2):
+        for n1 in range(1, 4):
+            a[n1 + 4 * k2] = _rot(a[n1 + 4 * k2], n1 * k2 * (16 // len(u)), inverse)
+    for k2 in range(n2):
+        a[4 * k2:4 * k2 + 4] = _fft4(a[4 * k2:4 * k2 + 4], inverse)
+    return [a[4 * (k % n2) + k // n2] for k in range(len(u))]
+
+
+def line_fft_model(xr, xi, *, inverse, blocks=1):
+    """Plain PyTorch model of the kernels' ``line_fft`` along the last
+    axis, in f32: the passes of :meth:`fft_plan`, each a twiddle ``w^r``
+    formed from two reads of the f32 table of :meth:`_twiddles` (``w`` at
+    ``k n / (p R)`` and ``w^4``: ``w^(4a + b) = (w^4)^a w^b``), a radix-8 or
+    radix-16 butterfly in natural order, and a self-sorting exchange
+    (write ``(i - k) R + k + r p``, read ``i + r n / R``) through one padded
+    buffer for each of the ``blocks`` blocks that share the line
+    (:meth:`line_slot`). Unnormalized, like the kernels."""
+    n = xr.shape[-1]
+    table = _twiddles(n, bool(inverse), "cpu")
+    table = torch.complex(table[:, 0], table[:, 1])
+    x = torch.complex(xr.float(), xi.float())
+    p = 1
+    for radix in fft_plan(n):
+        i = torch.arange(n // radix)
+        k = i & (p - 1)
+        stride = n // (p * radix)
+        lo = [None, table[k * stride]]
+        lo += [lo[1] * lo[1], lo[1] * lo[1] * lo[1]]
+        hi = [None, table[4 * k * stride]]
+        hi += [hi[1] * hi[1], hi[1] * hi[1] * hi[1]]
+        u = []
+        for r in range(radix):
+            points = x[..., i + r * (n // radix)]
+            if p > 1 and r > 0:
+                a, b = divmod(r, 4)
+                w = lo[b] if a == 0 else hi[a] if b == 0 else hi[a] * lo[b]
+                points = points * w
+            u.append(points)
+        u = _radix(u, inverse)
+        buf = torch.zeros((*x.shape[:-1], blocks, line_pitch(n) // blocks), dtype=x.dtype)
+        for r in range(radix):
+            block, slot = line_slot(n, (i - k) * radix + k + r * p, blocks)
+            buf[..., block, slot] = u[r]
+        block, slot = line_slot(n, torch.arange(n), blocks)
+        x = buf[..., block, slot]
+        p *= radix
+    return x.real.contiguous(), x.imag.contiguous()
 
 
 def _check_planes(*planes):
@@ -450,8 +595,8 @@ def rows_fft(xr, xi, *, inverse, scale=1.0):
     H, W = _check_planes(xr, xi)
     yr, yi = torch.empty_like(xr), torch.empty_like(xr)
     rc = _lib().slm_rows_fft(
-        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), H, W,
-        _ptr(_twiddles(W, inverse, xr.device)), float(scale), _stream(),
+        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), H, W, int(bool(inverse)),
+        _ptr(_twiddles(W, bool(inverse), xr.device)), float(scale), _stream(),
     )
     _raise_on(rc, "rows_fft")
     LAUNCHES["rows_fft"] += 1
@@ -464,12 +609,24 @@ def cols_fft(xr, xi, *, inverse, scale=1.0):
     H, W = _check_planes(xr, xi)
     yr, yi = torch.empty_like(xr), torch.empty_like(xr)
     rc = _lib().slm_cols_fft(
-        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), H, W, _cols_tile(H),
-        _ptr(_twiddles(H, inverse, xr.device)), float(scale), _stream(),
+        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), H, W, int(bool(inverse)),
+        _ptr(_twiddles(H, bool(inverse), xr.device)), float(scale), _stream(),
     )
     _raise_on(rc, "cols_fft")
     LAUNCHES["cols_fft"] += 1
     return yr, yi
+
+
+def fft_launch_shape(kernel, n):
+    """What the launcher of ``kernel`` (``"rows_fft"`` or ``"cols_fft"``)
+    launches on lines of ``n`` points, as the built library reports it:
+    ``(rows a block or columns a tile, blocks that share a tile, threads a
+    block, bytes of dynamic shared memory a block)``. Launches nothing."""
+    out = (_I * 4)()
+    rc = _lib().slm_fft_launch_shape({"rows_fft": 0, "cols_fft": 1}[kernel], int(n), out)
+    if rc != 0:
+        raise ValueError(f"No {kernel} launch on lines of {n} points.")
+    return tuple(out)
 
 
 def cols_fwd_polar(xr, xi, scale):

@@ -159,18 +159,74 @@ def _pair(shape, device, seed=2):
                  for _ in range(2))
 
 
+#: Every power-of-two side the kernels take, the two extreme rectangles
+#: and 256x512.
+FFT_SHAPES = [(n, n) for n in (64, 128, 256, 512, 1024, 2048, 4096)] + [
+    (256, 512), (64, 4096), (4096, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 64), (256, 512)])
+@pytest.mark.parametrize("shape", FFT_SHAPES)
 @pytest.mark.parametrize("inverse", [False, True])
-def test_fft_kernels_match_plain(cuda, shape, inverse):
+@pytest.mark.parametrize("name", ["rows_fft", "cols_fft"])
+def test_fft_kernels_match_plain(cuda, name, shape, inverse):
     from slmsuite_torch.ops import cuda_fft, fft
 
     xr, xi = _pair(shape, cuda)
-    for kernel, plain in ((cuda_fft.rows_fft, fft._rows_fft),
-                          (cuda_fft.cols_fft, fft._cols_fft)):
-        got = kernel(xr, xi, inverse=inverse, scale=0.5)
-        ref = plain(xr, xi, inverse=inverse, scale=0.5)
-        assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+    cuda_fft.reset_launch_counts()
+    got = getattr(cuda_fft, name)(xr, xi, inverse=inverse, scale=0.5)
+    ref = getattr(fft, "_" + name)(xr, xi, inverse=inverse, scale=0.5)
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+    assert cuda_fft.LAUNCHES[name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rows_fft", "cols_fft"])
+def test_fft_wrappers_reject_strided_planes_and_take_offset_views(cuda, name):
+    """A strided view raises and nothing is launched. A contiguous view
+    that starts 4 bytes into its storage is transformed like any other:
+    the kernels load and store 4 bytes at a time."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    kernel = getattr(cuda_fft, name)
+    flat = _pair((64 * 64 + 4,), cuda)[0]
+    aligned = flat[:64 * 64].view(64, 64)
+    shifted = flat[1:64 * 64 + 1].view(64, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    strided = torch.zeros((64, 128), device=cuda)[:, ::2]
+    cuda_fft.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(strided, aligned, inverse=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(aligned, strided, inverse=True)
+    assert cuda_fft.LAUNCHES[name] == 0
+    got = kernel(shifted, aligned, inverse=False)
+    ref = getattr(fft, "_" + name)(shifted, aligned, inverse=False)
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+    assert cuda_fft.LAUNCHES[name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048, 4096])
+def test_fft_launch_shapes_fit_the_card(cuda, n):
+    """What the launchers report: blocks of at most 1024 threads, at most
+    227 KB of shared memory (rows: under the 48 KB that needs no
+    attribute), row groups and tiles that divide the shortest side, whole
+    32-byte sectors a row segment of a column tile, and a thread for every
+    8 or 16 points of the lines a block holds."""
+    from slmsuite_torch.ops import cuda_fft
+
+    points = cuda_fft.line_points(n)
+    rows, blocks, threads, smem = cuda_fft.fft_launch_shape("rows_fft", n)
+    assert blocks == 1 and threads == 256 and 64 % rows == 0 and smem <= 48 * 1024
+    assert threads * points == rows * n and smem == rows * cuda_fft.line_pitch(n) * 8
+    tc, blocks, threads, smem = cuda_fft.fft_launch_shape("cols_fft", n)
+    assert tc >= 8 and 64 % tc == 0 and blocks == (2 if n == 4096 else 1)
+    assert threads <= 1024 and smem <= 227 * 1024
+    assert threads * blocks * points == tc * n
+    assert smem * blocks == tc * cuda_fft.line_pitch(n) * 8
+    with pytest.raises(ValueError, match="No rows_fft launch"):
+        cuda_fft.fft_launch_shape("rows_fft", 96)
 
 
 @pytest.mark.cuda

@@ -202,3 +202,23 @@ def test_mraf_configs_run(change):
 def test_tpu_only_entry_points_raise(entry):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(TE, entry)(None)
+
+
+@pytest.mark.parametrize("method", ["GS", "WGS-Kim"])
+def test_verbose_flags_print_matches_jax(method, capsys):
+    """``optimize(verbose=2)`` prints the method's flags as the JAX
+    package does: the same call on both packages, the same text."""
+    from slmsuite_torch.holography import algorithms as T
+    from slmsuite_tpu.holography import algorithms as J
+
+    target = tmodels.spot_array_target(64, 2, 16)
+    printed = []
+    for module in (J, T):
+        holo = module.Hologram(target=target)
+        capsys.readouterr()
+        holo.optimize(method=method, maxiter=1, verbose=2, feedback_exponent=0.7)
+        printed.append(capsys.readouterr().out)
+    assert printed[0] == printed[1]
+    assert printed[1].startswith(f"Optimizing with '{method}' using flags:")
+    if method == "WGS-Kim":
+        assert "'feedback_exponent': 0.7" in printed[1]

@@ -1,0 +1,159 @@
+"""
+The register-resident line FFT of ``rows_fft`` and ``cols_fft``
+(``slmsuite_torch/csrc/fft_shared.cuh: line_fft``), as far as it can be
+held without a card: its plan, its index arithmetic, and the plain
+PyTorch model that follows the kernel pass by pass
+(``slmsuite_torch.ops.cuda_fft.line_fft_model``), against ``torch.fft`` in
+float64 and against the JAX package's ``fft2``/``ifft2`` on the CPU.
+
+Tolerances: the model runs in f32 with an f32 twiddle table, so against a
+float64 transform of the same input it is held to ``2e-6 * log2(n)`` of
+the largest output value (an f32 FFT's error grows with the number of
+passes; measured 1e-7 to 2e-7). Against the JAX package (f32, another
+algorithm) a plane is held to 2e-5 of its largest value.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slmsuite_torch.ops import cuda_fft
+from slmsuite_torch.ops import fft as TF
+from slmsuite_tpu.ops import fft as JF
+
+SIDES = (64, 128, 256, 512, 1024, 2048, 4096)
+JAX_RTOL = 2e-5
+
+
+def _pair(shape, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+
+
+def _rel(got, ref):
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("n", SIDES)
+def test_plan_multiplies_to_the_length(n):
+    plan = cuda_fft.fft_plan(n)
+    assert int(np.prod(plan)) == n
+    assert set(plan) <= {8, 16} and len(plan) == (2 if n <= 256 else 3)
+    assert list(plan) == sorted(plan)
+    assert cuda_fft.line_points(n) == max(plan)
+
+
+@pytest.mark.parametrize("n", [32, 96, 8192])
+def test_plan_refuses_other_lengths(n):
+    with pytest.raises(ValueError, match="No plan"):
+        cuda_fft.fft_plan(n)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", SIDES)
+def test_model_matches_float64_fft(n, inverse):
+    xr, xi = _pair((3, n), n)
+    yr, yi = cuda_fft.line_fft_model(torch.from_numpy(xr), torch.from_numpy(xi), inverse=inverse)
+    z = torch.complex(torch.from_numpy(xr).double(), torch.from_numpy(xi).double())
+    ref = torch.fft.ifft(z, norm="forward") if inverse else torch.fft.fft(z)
+    got = torch.complex(yr.double(), yi.double())
+    assert _rel(got.numpy(), ref.numpy()) <= 2e-6 * np.log2(n)
+
+
+@pytest.mark.parametrize("n", [1024, 2048, 4096])
+def test_model_through_a_cluster_of_two_is_the_same(n):
+    """The exchange through two blocks' buffers (cols_fft at 4096 points)
+    moves the same values: bit-identical to one block's."""
+    xr, xi = (torch.from_numpy(x) for x in _pair((2, n), 7))
+    one = cuda_fft.line_fft_model(xr, xi, inverse=False)
+    two = cuda_fft.line_fft_model(xr, xi, inverse=False, blocks=2)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("n", SIDES)
+def test_exchange_writes_every_point_once(n):
+    """Each pass's output map (i - k) R + k + r p is a permutation of the
+    line, and the padded slots are distinct and fit the pitch."""
+    p = 1
+    for radix in cuda_fft.fft_plan(n):
+        i = np.arange(n // radix)
+        k = i & (p - 1)
+        out = np.concatenate([(i - k) * radix + k + r * p for r in range(radix)])
+        assert sorted(out) == list(range(n))
+        p *= radix
+    slots = cuda_fft.line_pad(np.arange(n))
+    assert len(set(slots)) == n and slots.max() < cuda_fft.line_pitch(n)
+
+
+@pytest.mark.parametrize("blocks", [1, 2])
+@pytest.mark.parametrize("n", [n for n in SIDES if n >= 256])
+def test_cluster_slots(n, blocks):
+    """Point m goes to the block whose thread m mod T reads it (the blocks
+    take a line's threads in groups of 8 in turn), to a slot of its own
+    there; thread s of the line is thread t = s / (8 blocks) * 8 + s mod 8
+    of its block and finds its q-th point, s + q T, at the padded local
+    index q * T / blocks + t, where the kernel reads it. Lines of at least
+    16 threads: each of two blocks takes whole groups of 8."""
+    threads = n // cuda_fft.line_points(n)
+    per_block = threads // blocks
+    m = np.arange(n)
+    block, slot = cuda_fft.line_slot(n, m, blocks)
+    assert (block == (m % threads) // 8 % blocks).all()
+    assert len(set(zip(block, slot))) == n
+    assert slot.max() < cuda_fft.line_pitch(n) // blocks
+    s = np.arange(threads)
+    t = s // (8 * blocks) * 8 + s % 8
+    for q in range(cuda_fft.line_points(n)):
+        owner, at = cuda_fft.line_slot(n, s + q * threads, blocks)
+        assert (owner == s // 8 % blocks).all()
+        assert (at == cuda_fft.line_pad(q * per_block + t)).all()
+
+
+def test_cluster_exchange_after_a_wide_pass_is_local():
+    """After a pass whose stride p is a multiple of 8 * blocks every output
+    of a thread is read in the thread's own block, so 4096 = 16 * 16 * 16 on
+    two blocks crosses blocks in its first exchange only."""
+    n, blocks = 4096, 2
+    threads = n // cuda_fft.line_points(n)
+    p, local = 1, []
+    for radix in cuda_fft.fft_plan(n)[:-1]:
+        i = np.arange(n // radix)
+        k = i & (p - 1)
+        writer = (i % threads) // 8 % blocks
+        stays = all(
+            (cuda_fft.line_slot(n, (i - k) * radix + k + r * p, blocks)[0] == writer).all()
+            for r in range(radix))
+        assert stays == (p % (8 * blocks) == 0)
+        local.append(stays)
+        p *= radix
+    assert local == [False, True]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", [(64, 4096), (4096, 64)])
+@pytest.mark.parametrize("route", ["plain", "model"])
+def test_rectangles_match_jax(route, shape, inverse):
+    """Rows then columns (inverse: columns then rows) of the two extreme
+    rectangles, through the kernels' plain versions and through the model
+    of their line FFT, against the JAX package's ortho fft2 / ifft2."""
+    xr, xi = _pair(shape, 11)
+    ref = (JF.ifft2 if inverse else JF.fft2)(jnp.asarray(xr) + 1j * jnp.asarray(xi))
+    ref = np.asarray(ref)
+    a, b = torch.from_numpy(xr), torch.from_numpy(xi)
+    if route == "plain":
+        rows = lambda a, b, scale=1.0: TF._rows_fft(a, b, inverse=inverse, scale=scale)
+        cols = lambda a, b, scale=1.0: TF._cols_fft(a, b, inverse=inverse, scale=scale)
+    else:
+        def rows(a, b, scale=1.0):
+            yr, yi = cuda_fft.line_fft_model(a, b, inverse=inverse)
+            return yr * scale, yi * scale
+
+        def cols(a, b, scale=1.0):
+            yr, yi = cuda_fft.line_fft_model(a.T.contiguous(), b.T.contiguous(),
+                                             inverse=inverse)
+            return yr.T * scale, yi.T * scale
+    scale = TF.ortho_scale(shape)
+    got = rows(*cols(a, b), scale) if inverse else cols(*rows(a, b), scale)
+    assert _rel(got[0].numpy(), ref.real) <= JAX_RTOL
+    assert _rel(got[1].numpy(), ref.imag) <= JAX_RTOL
