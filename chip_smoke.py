@@ -11,7 +11,9 @@ there is no card or the port is missing. In order:
    per source, in parallel);
 4. each kernel against its plain PyTorch version on the card: the carry
    kernels at 2048^2 and 256x512 for every fusable rule, scalar and array
-   amplitude, stats on and off; ``rows_fft`` and ``cols_fft`` at every
+   amplitude, stats on and off, and ``cols_wgs_roundtrip`` and
+   ``rows_normfwd`` (WGS-Kim, stats on, scalar and array amplitude) at
+   every shape of the ``rows_fft`` checks; ``rows_fft`` and ``cols_fft`` at every
    power-of-two side from 64 to 4096, at 64x4096, 4096x64 and 256x512,
    forward and inverse; the other natural-path kernels and the composed
    dispatchers at 2048^2 and 256x512, and the canvas transforms on a
@@ -64,9 +66,10 @@ there is no card or the port is missing. In order:
    replayed through the kernels;
 7. timing with CUDA events: each kernel, its plain version and, where one
    PyTorch call computes the same function, that call, at 2048^2;
-   ``rows_fft`` and ``cols_fft`` at 1024^2, 2048^2 and 4096^2 by CUDA
-   events and by the device's own time under ``torch.profiler`` (their
-   launches are shorter than the host's enqueue; the kernels line reports
+   ``cols_wgs_roundtrip``, ``rows_normfwd`` (also with an amplitude
+   plane), ``rows_fft`` and ``cols_fft`` at 1024^2, 2048^2 and 4096^2 by
+   CUDA events and by the device's own time under ``torch.profiler`` (their
+   launches are about as short as the host's enqueue; the kernels line reports
    the device time and says so in ``timer``), with ``carry_entry``
    and ``cols_fwd_polar`` (the shared-memory FFT on the same planes) and
    the composed ``fft2``/``ifft2`` (against ``torch.fft.fft2``/``ifft2``),
@@ -88,9 +91,10 @@ there is no card or the port is missing. In order:
 It prints the per-kernel JSON line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
 ``chiprun_out/`` (``chip_smoke.log`` keeps every line printed;
-``fft_launch.log`` the launch shapes of ``rows_fft`` and ``cols_fft``, as
-their launchers report them, and the compiler's registers, stack and
-spills for each instantiation).
+``fft_launch.log`` the launch shapes of ``rows_fft``, ``cols_fft``,
+``rows_normfwd`` and ``cols_wgs_roundtrip``, as their launchers report
+them, and the compiler's registers, stack and spills for each
+instantiation).
 """
 
 import contextlib
@@ -111,6 +115,7 @@ OUT = ROOT / "chiprun_out"
 #: Acceptance tolerances, kernel against plain version on the card.
 CARRY_RTOL = 1e-4          # carry and transformed planes: max |diff| / max |plain|
 WEIGHT_ATOL, WEIGHT_RTOL = 1e-4, 1e-3   # weights, phasors, sums, maxs
+F32_EPS = 2.0**-24          # f32 unit round-off (phasor_turn)
 THETA_ATOL = 1e-3          # arg F, where |F| > 1e-3 max |F|
 PSI_P99 = 2e-3             # psi: 99th percentile of the wrapped difference
 SLICE_ATOL = 1e-3          # final efficiency / uniformity, kernel vs plain
@@ -143,7 +148,8 @@ RULES = ("kim", "leonardo", "wu", "tanh")
 PORT_KERNEL_NAMES = (
     "carry_entry_kernel", "carry_exit_kernel", "cols_fft_kernel", "cols_fft_cluster_kernel",
     "cols_fwd_polar_kernel", "cols_mraf_fwd_kernel", "cols_mraf_mix_inv_kernel",
-    "cols_wexp_inv_kernel", "cols_wgs_fwd_kernel", "cols_wgs_roundtrip_kernel", "f2n_kernel",
+    "cols_wexp_inv_kernel", "cols_wgs_fwd_kernel", "cols_wgs_roundtrip_kernel",
+    "cols_wgs_roundtrip_cluster_kernel", "f2n_kernel",
     "roundtrip_kernel", "rows_fft_kernel", "rows_normfwd_kernel", "spot_reduce_kernel",
     "stats_reduce_kernel", "unit_norm_kernel",
 )
@@ -305,6 +311,36 @@ def check_close(name, got, ref, atol, rtol):
     return float(err.max())
 
 
+def phasor_turn(amp_ff):
+    """The turn that f32 round-off gives the unit phasor F/|F| of a column
+    FFT of length H: an error of 2^-24 log2(H) rms|F| in F (the FFT's
+    normwise error bound, rms over the column) over |F|. Negligible where
+    |F| is near its rms; it grows only near a zero of F."""
+    rms = amp_ff.square().mean(dim=0, keepdim=True).sqrt()
+    return F32_EPS * np.log2(amp_ff.shape[0]) * rms / amp_ff
+
+
+def check_phasor(name, got, ref, amp_ff):
+    """Kim's unit phasor pair against the plain version's at every point:
+    within WEIGHT_ATOL + WEIGHT_RTOL |ref| + phasor_turn, and of modulus 1
+    within 1e-5. Returns the worst difference and the worst ratio of a
+    difference to its bound."""
+    turn = phasor_turn(amp_ff)
+    worst, ratio = 0.0, 0.0
+    for g, r in zip(got, ref):
+        err = (g - r).abs()
+        bound = WEIGHT_ATOL + WEIGHT_RTOL * r.abs() + turn
+        bad = err > bound
+        if bool(bad.any()):
+            raise AssertionError(f"{name}: {int(bad.sum())} values off, max |diff| "
+                                 f"{float(err.max()):.3e}, max |diff| / bound "
+                                 f"{float((err / bound).max()):.3e}")
+        worst, ratio = max(worst, float(err.max())), max(ratio, float((err / bound).max()))
+    unit = float(((got[0] ** 2 + got[1] ** 2) - 1).abs().max())
+    assert unit < 1e-5, f"{name}: |phasor| off 1 by {unit:.3e}"
+    return f"max |diff| {worst:.3e}, max |diff| / bound {ratio:.3e}"
+
+
 def psi_p99(got, ref):
     diff = torch.remainder(got - ref + np.pi, 2 * np.pi) - np.pi
     return float(torch.quantile(diff.abs().flatten().double(), 0.99))
@@ -318,6 +354,41 @@ def phase_parity(device):
     worst = dict.fromkeys(("carry_entry", "cols_wgs_roundtrip", "rows_normfwd",
                            "carry_exit"), 0.0)
     lines = []
+
+    def step(shape, amp_kind, rule, stats_on, pr, pi_):
+        """cols_wgs_roundtrip, then rows_normfwd on the plain version's
+        output, each against its plain version."""
+        x = step_inputs(shape, amp_kind, rule, stats_on, device)
+        args = (pr, pi_, x["weights"], x["target"], x["mask"], x["phase_ff"], x["scal"])
+        kw = dict(rule=rule, kim=x["kim"], stats_on=stats_on)
+        got = cuda_fft.cols_wgs_roundtrip(*args, **kw)
+        ref = fft._cols_wgs_roundtrip(*args, **kw)
+        tag = f"cols {shape} {amp_kind} {rule} stats={stats_on}"
+        e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+        assert e <= CARRY_RTOL, f"{tag}/h: {e:.3e}"
+        ew = check_close(tag + "/w", got[2], ref[2], WEIGHT_ATOL, WEIGHT_RTOL)
+        if x["kim"]:
+            amp_ff = torch.fft.fft(torch.complex(pr, pi_), dim=0).abs()
+            lines.append(f"{tag}/pff: " + check_phasor(tag + "/pff", got[3], ref[3], amp_ff))
+        es = check_close(tag + "/sums", got[4], ref[4], WEIGHT_ATOL, WEIGHT_RTOL)
+        em = check_close(tag + "/maxs", got[5], ref[5], WEIGHT_ATOL, WEIGHT_RTOL)
+        lines.append(f"{tag}: h rel {e:.3e} w {ew:.3e} sums {es:.3e} maxs {em:.3e}")
+        if shape == (2048, 2048):
+            worst["cols_wgs_roundtrip"] = max(
+                worst["cols_wgs_roundtrip"], max_abs(got[0], ref[0]),
+                max_abs(got[1], ref[1]), ew,
+            )
+
+        hr, hi = ref[0], ref[1]
+        rk = cuda_fft.rows_normfwd(hr, hi, x["amp"])
+        rp = fft._rows_normfwd(hr, hi, x["amp"])
+        e = max(rel_err(rk[0], rp[0]), rel_err(rk[1], rp[1]))
+        assert e <= CARRY_RTOL, f"rows {shape} {amp_kind} {rule}: {e:.3e}"
+        lines.append(f"rows {shape} {amp_kind} {rule}: rel {e:.3e}")
+        if shape == (2048, 2048):
+            worst["rows_normfwd"] = max(worst["rows_normfwd"], max_abs(rk[0], rp[0]),
+                                        max_abs(rk[1], rp[1]))
+
     for shape in ((2048, 2048), (256, 512)):
         for amp_kind in ("scalar", "array"):
             x = step_inputs(shape, amp_kind, "kim", True, device)
@@ -341,38 +412,14 @@ def phase_parity(device):
 
             for rule in RULES:
                 for stats_on in (True, False):
-                    x = step_inputs(shape, amp_kind, rule, stats_on, device)
-                    args = (pr, pi_, x["weights"], x["target"], x["mask"],
-                            x["phase_ff"], x["scal"])
-                    kw = dict(rule=rule, kim=x["kim"], stats_on=stats_on)
-                    got = cuda_fft.cols_wgs_roundtrip(*args, **kw)
-                    ref = fft._cols_wgs_roundtrip(*args, **kw)
-                    tag = f"cols {shape} {amp_kind} {rule} stats={stats_on}"
-                    e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
-                    assert e <= CARRY_RTOL, f"{tag}/h: {e:.3e}"
-                    ew = check_close(tag + "/w", got[2], ref[2], WEIGHT_ATOL, WEIGHT_RTOL)
-                    if x["kim"]:
-                        for k in (0, 1):
-                            check_close(tag + "/pff", got[3][k], ref[3][k],
-                                        WEIGHT_ATOL, WEIGHT_RTOL)
-                    es = check_close(tag + "/sums", got[4], ref[4], WEIGHT_ATOL, WEIGHT_RTOL)
-                    em = check_close(tag + "/maxs", got[5], ref[5], WEIGHT_ATOL, WEIGHT_RTOL)
-                    lines.append(f"{tag}: h rel {e:.3e} w {ew:.3e} sums {es:.3e} maxs {em:.3e}")
-                    if shape == (2048, 2048):
-                        worst["cols_wgs_roundtrip"] = max(
-                            worst["cols_wgs_roundtrip"], max_abs(got[0], ref[0]),
-                            max_abs(got[1], ref[1]), ew,
-                        )
-
-                    hr, hi = ref[0], ref[1]
-                    rk = cuda_fft.rows_normfwd(hr, hi, x["amp"])
-                    rp = fft._rows_normfwd(hr, hi, x["amp"])
-                    e = max(rel_err(rk[0], rp[0]), rel_err(rk[1], rp[1]))
-                    assert e <= CARRY_RTOL, f"rows {shape} {amp_kind} {rule}: {e:.3e}"
-                    if shape == (2048, 2048):
-                        worst["rows_normfwd"] = max(worst["rows_normfwd"],
-                                                    max_abs(rk[0], rp[0]),
-                                                    max_abs(rk[1], rp[1]))
+                    step(shape, amp_kind, rule, stats_on, pr, pi_)
+    # The step kernels' launches differ with the side (line_fft's plan, the
+    # tile, the cluster at 4096): every side from 64 to 4096 and the
+    # rectangles both ways.
+    for shape in FFT_SHAPES:
+        for amp_kind in ("scalar", "array"):
+            x = step_inputs(shape, amp_kind, "kim", True, device)
+            step(shape, amp_kind, "kim", True, *fft._wgs_carry_entry(x["psi"], x["amp"]))
     torch.cuda.synchronize()
     OUT.mkdir(exist_ok=True)
     (OUT / "parity.log").write_text("\n".join(lines) + "\n")
@@ -671,9 +718,8 @@ def phase_fft_timing(device):
     axis) and its bound, by CUDA events and by the device's own time
     (:meth:`device_ms`); beside them, by both too, ``carry_entry`` and
     ``cols_fwd_polar``, which move the same planes on the shared-memory
-    ``fft_lines``; and the composed transforms' device time. Writes the
-    launchers' shapes and the compiler's line for every instantiation to
-    ``fft_launch.log``. Returns the 2048^2 times of the kernels line:
+    ``fft_lines``; and the composed transforms' device time. Returns the
+    2048^2 times of the kernels line:
     ``rows_fft`` and ``cols_fft`` by device time, ``cols_fwd_polar`` by
     CUDA events like the kernels timed in :meth:`phase_kernel_timing`."""
     from slmsuite_torch.ops import cuda_fft, fft
@@ -728,26 +774,78 @@ def phase_fft_timing(device):
         del xr, xi, z, w, phi, timed
     log(f"  [{nvidia_smi_line()}]")
 
+    return t
+
+
+def write_launch_log():
+    """``fft_launch.log``: the launch shapes of the kernels on the line FFT
+    as their launchers report them, and the compiler's line (registers,
+    stack, spills) for each of their instantiations."""
+    from slmsuite_torch.ops import cuda_fft
+
     lines = []
-    for n in (64, 128, 256, 512, 1024, 2048, 4096):
-        rows_a_block, _, threads, smem = cuda_fft.fft_launch_shape("rows_fft", n)
-        lines.append(f"rows_fft W={n}: plan {cuda_fft.fft_plan(n)}, {rows_a_block} rows and "
-                     f"{threads} threads a block, {smem} bytes of shared memory")
-        tc, blocks, threads, smem = cuda_fft.fft_launch_shape("cols_fft", n)
-        lines.append(f"cols_fft H={n}: plan {cuda_fft.fft_plan(n)}, tc {tc}, {blocks} block(s) "
-                     f"a tile, {threads} threads and {smem} bytes of shared memory a block")
+    for kernel in cuda_fft.LINE_KERNELS:
+        for n in (64, 128, 256, 512, 1024, 2048, 4096):
+            lines_a_block, blocks, threads, smem = cuda_fft.fft_launch_shape(kernel, n)
+            what = "columns a tile" if kernel.startswith("cols") else "rows a block"
+            lines.append(f"{kernel} n={n}: plan {cuda_fft.fft_plan(n)}, {lines_a_block} "
+                         f"{what}, {blocks} block(s) a tile, {threads} threads and {smem} "
+                         "bytes of shared memory a block")
     ptxas = (OUT / "ptxas.log").read_text().splitlines() if (OUT / "ptxas.log").exists() else []
+    names = ("rows_fft_kernel", "cols_fft_", "rows_normfwd_kernel", "cols_wgs_roundtrip_")
     for k, line in enumerate(ptxas):
-        if "Compiling entry function" in line and (
-                "rows_fft_kernel" in line or "cols_fft_" in line):
+        if "Compiling entry function" in line and any(name in line for name in names):
             lines.append(" ".join(x.strip() for x in ptxas[k:k + 4]))
     (OUT / "fft_launch.log").write_text("\n".join(lines) + "\n")
+
+
+def phase_carry_timing(device):
+    """``cols_wgs_roundtrip`` (WGS-Kim, stats on, scalar amp) and
+    ``rows_normfwd`` (scalar amp, and an amplitude plane) at each of
+    FFT_TIMED_SIDES, each with its plain version and its bound, by CUDA
+    events and by the device's own time (:meth:`device_ms`). Neither has a
+    library call. Returns their 2048^2 device times for the kernels line."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    t = {}
+    kw = dict(rule="kim", kim=True, stats_on=True)
+    for side in FFT_TIMED_SIDES:
+        shape, size = (side, side), f"{side}^2"
+        x = step_inputs(shape, "scalar", "kim", True, device)
+        gr, gi = fft._wgs_carry_entry(x["psi"], x["amp"])
+        amp = random_pair(shape, device)[0].abs() + 0.5
+        cols = (gr, gi, x["weights"], x["target"], x["mask"], x["phase_ff"], x["scal"])
+        timed = {
+            # gr, gi, w, t and mask read, hr, hi, w' and the phasor pair
+            # written: ten planes (use_theta is on with stats, so the stored
+            # phasor is not read).
+            "cols_wgs_roundtrip": (lambda: cuda_fft.cols_wgs_roundtrip(*cols, **kw),
+                                   lambda: fft._cols_wgs_roundtrip(*cols, **kw),
+                                   bound(shape, 10, 2)),
+            "rows_normfwd": (lambda: cuda_fft.rows_normfwd(gr, gi, x["amp"]),
+                             lambda: fft._rows_normfwd(gr, gi, x["amp"]), bound(shape, 4, 2)),
+            "rows_normfwd (amplitude plane)": (lambda: cuda_fft.rows_normfwd(gr, gi, amp),
+                                               lambda: fft._rows_normfwd(gr, gi, amp),
+                                               bound(shape, 5, 2)),
+        }
+        for name, (kernel, plain, bound_of) in timed.items():
+            interleaved(name, kernel, plain, bound_of=bound_of, size=size)
+            by_device = interleaved(name, kernel, plain, bound_of=bound_of, size=size,
+                                    timer=device_ms)
+            log(f"  {name} {size}: {by_device['bound'] / by_device['kernel']:.3f} of its "
+                f"bound ({by_device['timer']})")
+            if side == 2048 and name in KERNELS:
+                t[name] = by_device
+        del x, gr, gi, amp, cols, timed
+    log(f"  [{nvidia_smi_line()}]")
     return t
 
 
 def phase_kernel_timing(device):
     """Each kernel and its plain version at 2048^2 (carry kernels:
-    WGS-Kim, scalar amp, stats on), and the library calls."""
+    WGS-Kim, scalar amp, stats on), and the library calls; the kernels on
+    the line FFT at each of FFT_TIMED_SIDES too (:meth:`phase_carry_timing`,
+    :meth:`phase_fft_timing`)."""
     from slmsuite_torch.ops import cuda_fft, fft
 
     shape = (2048, 2048)
@@ -761,9 +859,6 @@ def phase_kernel_timing(device):
     t["carry_entry"] = interleaved(
         "carry_entry", lambda: cuda_fft.carry_entry(x["psi"], x["amp"]),
         lambda: fft._wgs_carry_entry(x["psi"], x["amp"]), bound_of=bound(shape, 3, 1))
-    t["cols_wgs_roundtrip"] = interleaved(
-        "cols_wgs_roundtrip", lambda: cuda_fft.cols_wgs_roundtrip(*cols_args, **cols_kw),
-        lambda: fft._cols_wgs_roundtrip(*cols_args, **cols_kw), bound_of=bound(shape, 12, 2))
     # psi, weights, target, mask and the angle store read once (the carry
     # stays between the two halves), re, im, weights and the store written
     # once: nine planes; no single PyTorch call computes it.
@@ -772,13 +867,12 @@ def phase_kernel_timing(device):
     t["cols_wgs_fwd"] = interleaved(
         "cols_wgs_fwd", lambda: cuda_fft.cols_wgs_fwd(*fwd_args, **cols_kw),
         lambda: fft._cols_wgs_fwd(*fwd_args, **cols_kw), bound_of=bound(shape, 9, 1))
-    t["rows_normfwd"] = interleaved(
-        "rows_normfwd", lambda: cuda_fft.rows_normfwd(gr, gi, x["amp"]),
-        lambda: fft._rows_normfwd(gr, gi, x["amp"]), bound_of=bound(shape, 4, 2))
     t["carry_exit"] = interleaved(
         "carry_exit", lambda: cuda_fft.carry_exit(gr, gi),
         lambda: fft._wgs_carry_exit(gr, gi), bound_of=bound(shape, 3, 1))
+    t.update(phase_carry_timing(device))
     t.update(phase_fft_timing(device))
+    write_launch_log()
     t["cols_wexp_inv"] = interleaved(
         "cols_wexp_inv", lambda: cuda_fft.cols_wexp_inv(w, phi),
         lambda: fft._cols_wexp_inv(w, phi), bound_of=bound(shape, 4, 1))

@@ -122,12 +122,13 @@ __device__ __forceinline__ void stats_accumulate(float f, float t, float m,
 // Block reduction of the stats partials in a fixed order (no atomics, so
 // the result is the same from run to run): two float32 sums f (overlap,
 // |w|^2), the two float64 error moments d (err_sum, err_sq) and four
-// float32 maxes m. Thread 0 gets the totals.
+// float32 maxes m; lanes first, then the warps in order. Thread 0 gets the
+// totals. Any block of whole warps, up to 1024 threads.
 __device__ __forceinline__ void block_reduce(float f[2], double d[2],
                                              float m[4]) {
-  __shared__ float red_f[kThreads / 32][2];
-  __shared__ double red_d[kThreads / 32][2];
-  __shared__ float red_m[kThreads / 32][4];
+  __shared__ float red_f[32][2];
+  __shared__ double red_d[32][2];
+  __shared__ float red_m[32][4];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int off = 16; off > 0; off >>= 1) {
@@ -147,7 +148,7 @@ __device__ __forceinline__ void block_reduce(float f[2], double d[2],
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) {
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
       for (int k = 0; k < 2; ++k) {
         f[k] += red_f[w][k];
         d[k] += red_d[w][k];

@@ -1,7 +1,9 @@
 // The FFTs of the kernels of wgs_carry.cu, natural_fft.cu and mraf_carry.cu:
 // the shared-memory fft_lines with the column kernels' tile load, store and
-// launch setup, and, further down, the register-resident line_fft of
-// rows_fft_kernel and cols_fft_kernel.
+// launch setup, and, further down, the register-resident line_fft with the
+// row and column places, loads and stores, tile widths and launch shapes
+// of the kernels on it (rows_fft, cols_fft, rows_normfwd,
+// cols_wgs_roundtrip).
 //
 // Replaces `_fft_core` in slmsuite_tpu/ops/pallas_fft.py: a four-step DFT
 // written as block-complex matrix products for the TPU's matrix unit. On
@@ -103,7 +105,8 @@ __device__ __forceinline__ void store_col_tile(const float2* buf,
 
 // ----------------------------------------------------------------------
 // The register-resident line FFT (rows_fft_kernel and cols_fft_kernel of
-// natural_fft.cu; the kernels above still run fft_lines).
+// natural_fft.cu, rows_normfwd_kernel and cols_wgs_roundtrip_kernel of
+// wgs_carry.cu; the other kernels still run fft_lines).
 //
 // fft_lines crosses shared memory log2(n) + 1 times with a barrier each
 // and reads a twiddle from global memory per butterfly. line_fft keeps the
@@ -362,6 +365,163 @@ __device__ __forceinline__ void line_fft(float2 (&v)[line_points(LOG2N)], float2
   line_pass<LOG2N, INV, 1, L0, G>(v, line, ms, s, tw);
   if constexpr (line_passes(LOG2N) == 3) line_pass<LOG2N, INV, 2, L1, G>(v, line, ms, s, tw);
 }
+
+// Thread (s, column c of the tile) loads its points of line_fft's layout,
+// rows s + q H / E of column `col`, from the (H, W) pair into registers.
+template <int LOG2N>
+__device__ __forceinline__ void load_col_regs(float2 (&v)[line_points(LOG2N)],
+                                              const float* __restrict__ xr,
+                                              const float* __restrict__ xi, int W,
+                                              size_t col, int s) {
+#pragma unroll
+  for (int q = 0; q < line_points(LOG2N); ++q) {
+    const size_t g = (size_t)(s + q * line_threads(LOG2N)) * W + col;
+    v[q] = make_float2(xr[g], xi[g]);
+  }
+}
+
+// Store the registers back as a pair, times `scale`, in the layout of
+// load_col_regs.
+template <int LOG2N>
+__device__ __forceinline__ void store_col_regs(const float2 (&v)[line_points(LOG2N)],
+                                               float* __restrict__ yr,
+                                               float* __restrict__ yi, int W,
+                                               size_t col, int s, float scale) {
+#pragma unroll
+  for (int q = 0; q < line_points(LOG2N); ++q) {
+    const size_t g = (size_t)(s + q * line_threads(LOG2N)) * W + col;
+    yr[g] = v[q].x * scale;
+    yi[g] = v[q].y * scale;
+  }
+}
+
+// A thread's place in a tile of tc adjacent columns taken by a cluster of
+// G blocks: c, its column in the tile (lanes run across the tile), col, that
+// column in the (H, W) pair, and s, its thread of the line (line_thread).
+struct ColPlace {
+  int c, s;
+  size_t col;
+};
+
+// The start of a column-tile kernel: the thread's place, and its points of
+// line_fft's layout loaded into v. With G > 1 every block of the cluster
+// has started before any writes another's memory.
+template <int LOG2N, int G>
+__device__ __forceinline__ ColPlace col_tile_start(float2 (&v)[line_points(LOG2N)],
+                                                       const float* __restrict__ xr,
+                                                       const float* __restrict__ xi, int W,
+                                                       int tc, int log2tc) {
+  int rank = 0;
+  if (G > 1) rank = cooperative_groups::this_cluster().block_rank();
+  ColPlace p;
+  p.c = threadIdx.x & (tc - 1);
+  p.s = line_thread<G>(threadIdx.x >> log2tc, rank);
+  p.col = (size_t)(blockIdx.x / G) * tc + p.c;
+  load_col_regs<LOG2N>(v, xr, xi, W, p.col, p.s);
+  if (G > 1) cooperative_groups::this_cluster().sync();
+  return p;
+}
+
+// A thread's place among the rows of a row kernel: a block of kThreads
+// holds kThreads / T lines of N points, thread s of a line has the points
+// s + q T at base + q T, and buf is its line's exchange buffer.
+struct RowPlace {
+  int s;
+  size_t base;
+  float2* buf;
+};
+
+template <int LOG2N>
+__device__ __forceinline__ RowPlace row_place(float2* sbuf) {
+  constexpr int T = line_threads(LOG2N);
+  const int line = threadIdx.x / T;
+  RowPlace p;
+  p.s = threadIdx.x % T;
+  p.base = ((size_t)blockIdx.x * (kThreads / T) + line) * (1 << LOG2N) + p.s;
+  p.buf = sbuf + line * line_pitch(LOG2N);
+  return p;
+}
+
+// Load and store a row thread's points (row_place) as a pair, the store
+// times `scale`.
+template <int LOG2N>
+__device__ __forceinline__ void load_row_regs(float2 (&v)[line_points(LOG2N)],
+                                              const float* __restrict__ xr,
+                                              const float* __restrict__ xi, size_t base) {
+#pragma unroll
+  for (int q = 0; q < line_points(LOG2N); ++q) {
+    const size_t g = base + q * line_threads(LOG2N);
+    v[q] = make_float2(xr[g], xi[g]);
+  }
+}
+
+template <int LOG2N>
+__device__ __forceinline__ void store_row_regs(const float2 (&v)[line_points(LOG2N)],
+                                               float* __restrict__ yr,
+                                               float* __restrict__ yi, size_t base,
+                                               float scale) {
+#pragma unroll
+  for (int q = 0; q < line_points(LOG2N); ++q) {
+    const size_t g = base + q * line_threads(LOG2N);
+    yr[g] = v[q].x * scale;
+    yi[g] = v[q].y * scale;
+  }
+}
+
+// Most threads a block of cols_fft_kernel may have (its register budget).
+__host__ __device__ constexpr int cols_max_threads(int log2n) {
+  return log2n >= 11 ? 1024 : 512;
+}
+// Columns of a tile of the column kernels on line_fft: 8, a whole 32-byte
+// sector a row segment, and more for short columns, up to a warp's 32, to
+// fill a block of 512 threads.
+__host__ __device__ constexpr int cols_tile(int log2n) {
+  const int fill = 512 / line_threads(log2n);
+  return fill < 8 ? 8 : fill > 32 ? 32 : fill;
+}
+// Blocks that share a tile of a column kernel: two (the _cluster_kernel
+// instantiations) where one block's 1024 threads hold fewer than 8 columns
+// (4096 points), else one. cols_wgs_roundtrip's note in wgs_carry.cu has
+// the alternatives measured for it.
+__host__ __device__ constexpr int cols_cluster(int log2n) {
+  return 8 * line_threads(log2n) > 1024 ? 2 : 1;
+}
+
+// The kernels on line_fft whose launch shapes slm_fft_launch_shape reports.
+enum LineKernel { kRowsFft = 0, kColsFft, kRowsNormfwd, kColsWgsRoundtrip, kNumLineKernels };
+
+// What a launch of one of them on lines of 1 << log2n points is made with:
+// its launcher uses it, and slm_fft_launch_shape (natural_fft.cu) reports it.
+struct LaunchShape {
+  int lines;    // rows a block; columns a tile
+  int cluster;  // blocks that share a tile
+  int threads;  // a block
+  int smem;     // bytes of dynamic shared memory a block: its padded lines
+};
+constexpr LaunchShape launch_shape(int kernel, int log2n) {
+  const bool cols = kernel == kColsFft || kernel == kColsWgsRoundtrip;
+  const int lines = cols ? cols_tile(log2n) : kThreads / line_threads(log2n);
+  const int cluster = cols ? cols_cluster(log2n) : 1;
+  return {lines, cluster, lines * line_threads(log2n) / cluster,
+          lines * line_pitch(log2n) / cluster * (int)sizeof(float2)};
+}
+
+// The cases of a launcher's switch on 2 * log2(n) + inverse: one
+// instantiation per line length 64..4096 and direction.
+#define SLM_LINE_CASE(fn, log2n, ...)                      \
+  case 2 * log2n: return fn<log2n, false>(__VA_ARGS__);    \
+  case 2 * log2n + 1: return fn<log2n, true>(__VA_ARGS__);
+#define SLM_LINE_CASES(fn, ...)                                        \
+  SLM_LINE_CASE(fn, 6, __VA_ARGS__) SLM_LINE_CASE(fn, 7, __VA_ARGS__)  \
+  SLM_LINE_CASE(fn, 8, __VA_ARGS__) SLM_LINE_CASE(fn, 9, __VA_ARGS__)  \
+  SLM_LINE_CASE(fn, 10, __VA_ARGS__) SLM_LINE_CASE(fn, 11, __VA_ARGS__) \
+  SLM_LINE_CASE(fn, 12, __VA_ARGS__)
+// The same on log2(n) alone: one instantiation per line length.
+#define SLM_LEN_CASES(fn, ...)                                                  \
+  case 6: return fn<6>(__VA_ARGS__); case 7: return fn<7>(__VA_ARGS__);         \
+  case 8: return fn<8>(__VA_ARGS__); case 9: return fn<9>(__VA_ARGS__);         \
+  case 10: return fn<10>(__VA_ARGS__); case 11: return fn<11>(__VA_ARGS__);     \
+  case 12: return fn<12>(__VA_ARGS__);
 
 // log2 of a power of two (host side, for the launchers).
 inline int ilog2(int n) {

@@ -61,67 +61,12 @@ __global__ void __launch_bounds__(kThreads)
 rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ yr, float* __restrict__ yi,
                 const float2* __restrict__ tw, float scale) {
-  constexpr int N = 1 << LOG2N, E = line_points(LOG2N), T = line_threads(LOG2N);
-  constexpr int LINES = kThreads / T;
   extern __shared__ float2 sbuf[];
-  const int s = threadIdx.x % T, line = threadIdx.x / T;
-  const size_t base = ((size_t)blockIdx.x * LINES + line) * N + s;
-  float2 v[E];
-#pragma unroll
-  for (int q = 0; q < E; ++q) v[q] = make_float2(xr[base + q * T], xi[base + q * T]);
-  line_fft<LOG2N, INV>(v, sbuf + line * line_pitch(LOG2N), 1, s, tw);
-#pragma unroll
-  for (int q = 0; q < E; ++q) {
-    yr[base + q * T] = v[q].x * scale;
-    yi[base + q * T] = v[q].y * scale;
-  }
-}
-
-// Thread (s, column c of the tile) loads its points of line_fft's layout,
-// rows s + q H / E of column `col`, from the (H, W) pair into registers.
-template <int LOG2N>
-__device__ __forceinline__ void load_col_regs(float2 (&v)[line_points(LOG2N)],
-                                              const float* __restrict__ xr,
-                                              const float* __restrict__ xi, int W,
-                                              size_t col, int s) {
-#pragma unroll
-  for (int q = 0; q < line_points(LOG2N); ++q) {
-    const size_t g = (size_t)(s + q * line_threads(LOG2N)) * W + col;
-    v[q] = make_float2(xr[g], xi[g]);
-  }
-}
-
-// Store the registers back as a pair, times `scale`, in the layout of
-// load_col_regs.
-template <int LOG2N>
-__device__ __forceinline__ void store_col_regs(const float2 (&v)[line_points(LOG2N)],
-                                               float* __restrict__ yr,
-                                               float* __restrict__ yi, int W,
-                                               size_t col, int s, float scale) {
-#pragma unroll
-  for (int q = 0; q < line_points(LOG2N); ++q) {
-    const size_t g = (size_t)(s + q * line_threads(LOG2N)) * W + col;
-    yr[g] = v[q].x * scale;
-    yi[g] = v[q].y * scale;
-  }
-}
-
-// Most threads a block of cols_fft_kernel may have (its register budget).
-__host__ __device__ constexpr int cols_max_threads(int log2n) {
-  return log2n >= 11 ? 1024 : 512;
-}
-// Columns of a tile of cols_fft: 8, a whole 32-byte sector a row segment,
-// and more for short columns, up to a warp's 32, to fill a block of 512
-// threads.
-__host__ __device__ constexpr int cols_tile(int log2n) {
-  const int fill = 512 / line_threads(log2n);
-  return fill < 8 ? 8 : fill > 32 ? 32 : fill;
-}
-// Blocks that share a tile of columns: two (cols_fft_cluster_kernel) where
-// one block's 1024 threads hold fewer than 8 columns (4096 points), else
-// one (cols_fft_kernel).
-__host__ __device__ constexpr int cols_cluster(int log2n) {
-  return 8 * line_threads(log2n) > 1024 ? 2 : 1;
+  const RowPlace p = row_place<LOG2N>(sbuf);
+  float2 v[line_points(LOG2N)];
+  load_row_regs<LOG2N>(v, xr, xi, p.base);
+  line_fft<LOG2N, INV>(v, p.buf, 1, p.s, tw);
+  store_row_regs<LOG2N>(v, yr, yi, p.base, scale);
 }
 
 // #5 (cols half) <- pallas_fft._fft_cols (slmsuite_tpu/ops/pallas_fft.py:385,
@@ -161,17 +106,10 @@ __device__ __forceinline__ void cols_fft_tile(const float* __restrict__ xr,
                                               int log2tc, const float2* __restrict__ tw,
                                               float scale) {
   extern __shared__ float2 sbuf[];
-  int rank = 0;
-  if (G > 1) rank = cooperative_groups::this_cluster().block_rank();
-  const int c = threadIdx.x & (tc - 1);
-  const int s = line_thread<G>(threadIdx.x >> log2tc, rank);
-  const size_t col = (size_t)(blockIdx.x / G) * tc + c;
   float2 v[line_points(LOG2N)];
-  load_col_regs<LOG2N>(v, xr, xi, W, col, s);
-  // Every block of the cluster runs before any writes another's memory.
-  if (G > 1) cooperative_groups::this_cluster().sync();
-  line_fft<LOG2N, INV, G>(v, sbuf + c, tc, s, tw);
-  store_col_regs<LOG2N>(v, yr, yi, W, col, s, scale);
+  const ColPlace p = col_tile_start<LOG2N, G>(v, xr, xi, W, tc, log2tc);
+  line_fft<LOG2N, INV, G>(v, sbuf + p.c, tc, p.s, tw);
+  store_col_regs<LOG2N>(v, yr, yi, W, p.col, p.s, scale);
 }
 
 template <int LOG2N, bool INV>
@@ -242,27 +180,11 @@ cols_wexp_inv_kernel(const float* __restrict__ w, const float* __restrict__ phi,
   store_col_tile(sbuf, yr, yi, H, W, tc, log2tc);
 }
 
-// What a launch of rows_fft (`cols` false) or cols_fft on lines of
-// 1 << log2n points is made with: the launchers below use it, and
-// slm_fft_launch_shape reports it.
-struct LaunchShape {
-  int lines;    // rows a block; columns a tile
-  int cluster;  // blocks that share a tile
-  int threads;  // a block
-  int smem;     // bytes of dynamic shared memory a block: its padded lines
-};
-constexpr LaunchShape launch_shape(bool cols, int log2n) {
-  const int lines = cols ? cols_tile(log2n) : kThreads / line_threads(log2n);
-  const int cluster = cols ? cols_cluster(log2n) : 1;
-  return {lines, cluster, lines * line_threads(log2n) / cluster,
-          lines * line_pitch(log2n) / cluster * (int)sizeof(float2)};
-}
-
 // Launch of one instantiation of rows_fft_kernel.
 template <int LOG2N, bool INV>
 int launch_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
                     const float2* tw, float scale, cudaStream_t stream) {
-  constexpr LaunchShape shape = launch_shape(false, LOG2N);
+  constexpr LaunchShape shape = launch_shape(kRowsFft, LOG2N);
   static_assert(shape.threads == kThreads && shape.smem <= 48 * 1024, "rows_fft launch");
   if (H % shape.lines) return (int)cudaErrorInvalidValue;
   rows_fft_kernel<LOG2N, INV><<<H / shape.lines, shape.threads, shape.smem, stream>>>(
@@ -276,7 +198,7 @@ int launch_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int 
 template <int LOG2N, bool INV>
 int launch_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int W,
                     const float2* tw, float scale, cudaStream_t stream) {
-  constexpr LaunchShape shape = launch_shape(true, LOG2N);
+  constexpr LaunchShape shape = launch_shape(kColsFft, LOG2N);
   constexpr int G = cols_cluster(LOG2N);
   static_assert(shape.threads <= cols_max_threads(LOG2N), "cols_fft launch");
   if (W % shape.lines) return (int)cudaErrorInvalidValue;
@@ -291,17 +213,6 @@ int launch_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int 
       xr, xi, yr, yi, W, shape.lines, ilog2(shape.lines), tw, scale);
   return (int)cudaGetLastError();
 }
-
-// The cases of a launcher's switch on 2 * log2(n) + inverse: one
-// instantiation per line length 64..4096 and direction.
-#define SLM_LINE_CASE(fn, log2n, ...)                      \
-  case 2 * log2n: return fn<log2n, false>(__VA_ARGS__);    \
-  case 2 * log2n + 1: return fn<log2n, true>(__VA_ARGS__);
-#define SLM_LINE_CASES(fn, ...)                                        \
-  SLM_LINE_CASE(fn, 6, __VA_ARGS__) SLM_LINE_CASE(fn, 7, __VA_ARGS__)  \
-  SLM_LINE_CASE(fn, 8, __VA_ARGS__) SLM_LINE_CASE(fn, 9, __VA_ARGS__)  \
-  SLM_LINE_CASE(fn, 10, __VA_ARGS__) SLM_LINE_CASE(fn, 11, __VA_ARGS__) \
-  SLM_LINE_CASE(fn, 12, __VA_ARGS__)
 
 }  // namespace slm
 
@@ -327,12 +238,15 @@ int slm_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
   return (int)cudaErrorInvalidValue;
 }
 
-// out[0..4) = the LaunchShape (lines, cluster, threads, smem) of rows_fft
-// (`cols` 0) or cols_fft on lines of n points, a power of two in [64, 4096].
-int slm_fft_launch_shape(int cols, int n, int* out) {
+// out[0..4) = the LaunchShape (lines, cluster, threads, smem) of `kernel`
+// (a LineKernel: rows_fft, cols_fft, rows_normfwd, cols_wgs_roundtrip) on
+// lines of n points, a power of two in [64, 4096].
+int slm_fft_launch_shape(int kernel, int n, int* out) {
   const int log2n = ilog2(n);
-  if (log2n < 6 || log2n > 12 || (1 << log2n) != n) return (int)cudaErrorInvalidValue;
-  const LaunchShape shape = launch_shape(cols != 0, log2n);
+  if (kernel < 0 || kernel >= kNumLineKernels || log2n < 6 || log2n > 12 ||
+      (1 << log2n) != n)
+    return (int)cudaErrorInvalidValue;
+  const LaunchShape shape = launch_shape(kernel, log2n);
   out[0] = shape.lines;
   out[1] = shape.cluster;
   out[2] = shape.threads;

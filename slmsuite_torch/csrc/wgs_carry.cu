@@ -16,11 +16,16 @@
 // hr, hi and writes gr', gi' in the rows kernel: 16 plane crossings, about
 // 270 MB, or ~80 us at 3.35 TB/s. The FFT arithmetic (5 N log2 N flops
 // per axis pass, four passes) is ~1 GFLOP per step, well under the f32
-// peak. The simple design keeps every intermediate (the farfield, the
-// constrained field, the nearfield) in shared memory, so each kernel
-// touches device memory once per operand; the column kernel stages a tile
-// of `tc` adjacent columns so that each row segment it loads is 4 * tc
-// contiguous bytes. Fully coalesced column access is later work.
+// peak. Each kernel touches device memory once per operand: no
+// intermediate (the farfield, the constrained field, the nearfield)
+// leaves the chip. The two step kernels, cols_wgs_roundtrip and
+// rows_normfwd, hold their lines in registers and transform them twice
+// with the register-resident line_fft (fft_shared.cuh), the epilogue
+// between the transforms on the same registers; the column kernel has
+// lanes across a tile of 8 adjacent columns, so each row segment it
+// loads or stores is a whole 32-byte sector (cols_tile). The entry, exit
+// and cols_wgs_fwd kernels still stage their lines in shared memory and
+// run fft_lines (ROADMAP.md, K1).
 //
 // Launchers take raw pointers, sizes, flags and a stream, and return
 // cudaGetLastError(). They allocate nothing.
@@ -58,42 +63,61 @@ carry_entry_kernel(const float* __restrict__ psi, const float* __restrict__ amp,
 
 // #2 <- pallas_fft.wgs_carry_step_pallas kernel B
 // (_cols_wgs_roundtrip_kernel(phasor=True) with _wgs_epilogue,
-// _weight_correction, _acc_tiles). One block per tile of `tc` adjacent
-// columns: forward column FFT, f = post * |F|, the rule's correction,
-// w' = w * c (nan -> 1e-4) scaled by 1/prev-norm once the update is on,
-// the unit phasor F/|F| (zero -> (1, 0)) with the Kim select against the
-// stored phasor, the constrained field w' * phasor, the stats partials
-// (carry_shared.cuh), then the inverse column FFT.
-__global__ void __launch_bounds__(kThreads)
-cols_wgs_roundtrip_kernel(
+// _weight_correction, _acc_tiles). One cluster of G blocks per tile of
+// tc = cols_tile adjacent columns, cols_fft's tile (natural_fft.cu): forward
+// column line_fft, then per register point at its global index
+// (s + q H / E, col) f = post * |F|, the rule's correction, w' = w * c
+// (nan -> 1e-4) scaled by 1/prev-norm once the update is on, the unit
+// phasor F/|F| (zero -> (1, 0)) with the Kim select against the stored
+// phasor, the constrained field w' * phasor back into the same registers
+// and the stats (carry_shared.cuh; each block writes its own row of
+// partials), then the inverse column line_fft and the store. Nothing
+// crosses device memory between the two transforms.
+//
+// Bound on the H100 by bytes: with Kim it reads gr, gi, w, t, mask and,
+// while use_theta is off, the stored phasor pair, and writes five planes:
+// 60 us at 2048^2 (50 with use_theta on). The blocks are cols_fft's: one of
+// 1024 threads up to 2048 points, which beats a cluster of two blocks of
+// 512 there, and two of a cluster at 4096 (cols_cluster). The barrier
+// between the transforms is the cluster's when G = 2: the inverse's first
+// exchange writes the other block's buffer, which that block may still be
+// reading. Each thread sums the stats of its E points in q order, then
+// block_reduce and stats_reduce fold them in a fixed order, so the result
+// repeats bit for bit. The partials are written before the inverse
+// transform, so that the accumulators (two of them float64) are not live
+// through it: at 2048 points 1024 threads leave 64 registers a thread.
+// The alternatives measured against this design are in PERF.md, section 6.
+template <int LOG2N, int G>
+__device__ __forceinline__ void cols_wgs_roundtrip_tile(
     const float* __restrict__ gr, const float* __restrict__ gi,
     const float* __restrict__ w, const float* __restrict__ t,
     const float* __restrict__ mask, const float* __restrict__ pffr,
     const float* __restrict__ pffi, float* __restrict__ hr,
     float* __restrict__ hi, float* __restrict__ wout,
     float* __restrict__ pffr_out, float* __restrict__ pffi_out,
-    const float* __restrict__ scal, double* __restrict__ partials, int H, int W,
-    int log2H, int tc, int log2tc, const float2* __restrict__ tw_fwd,
-    const float2* __restrict__ tw_inv, int rule, int kim, int stats_on) {
-  extern __shared__ float2 sbuf[];  // tc columns of length H, back to back
-  const int c0 = blockIdx.x * tc;
-  const int total = tc * H;
-  load_col_tile(sbuf, gr, gi, H, W, tc, log2tc);
-  fft_lines(sbuf, H, log2H, tc, tw_fwd);
+    const float* __restrict__ scal, double* __restrict__ partials, int W, int tc,
+    int log2tc, const float2* __restrict__ tw_fwd, const float2* __restrict__ tw_inv,
+    int rule, int kim, int stats_on) {
+  constexpr int E = line_points(LOG2N), T = line_threads(LOG2N);
+  extern __shared__ float2 sbuf[];
+  float2 v[E];
+  const ColPlace p = col_tile_start<LOG2N, G>(v, gr, gi, W, tc, log2tc);
+  const int s = p.s;
+  const size_t col = p.col;
+  line_fft<LOG2N, false, G>(v, sbuf + p.c, tc, s, tw_fwd);
 
-  const StepScalars s = load_scalars(scal);
+  const StepScalars sc = load_scalars(scal);
   float facc[2] = {0.f, 0.f};    // overlap, |w'|^2
   double dacc[2] = {0.0, 0.0};   // err_sum, err_sq
   float macc[4] = {kNegFill, kNegFill, kNegFill, kNegFill};
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    const float2 F = sbuf[j * H + r];
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const size_t g = (size_t)(s + q * T) * W + col;
+    const float2 F = v[q];
     const float f2 = F.x * F.x + F.y * F.y;
-    const float f = sqrtf(f2) * s.post;
+    const float f = sqrtf(f2) * sc.post;
     const float tv = t[g];
-    const float wo = updated_weight(f, tv, w[g], s, rule);
+    const float wo = updated_weight(f, tv, w[g], sc, rule);
     wout[g] = wo;
 
     float er = 1.f, ei = 0.f;
@@ -103,23 +127,58 @@ cols_wgs_roundtrip_kernel(
       ei = F.y * ib;
     }
     if (kim) {
-      if (!s.use_theta) {
+      if (!sc.use_theta) {
         er = pffr[g];
         ei = pffi[g];
       }
       pffr_out[g] = er;
       pffi_out[g] = ei;
     }
-    sbuf[j * H + r] = make_float2(wo * er, wo * ei);
+    v[q] = make_float2(wo * er, wo * ei);
 
     facc[1] += wo * wo;
     if (stats_on)
-      stats_accumulate(f, tv, mask[g], s.inv_tsum, s.inv_fsum, facc, dacc, macc);
+      stats_accumulate(f, tv, mask[g], sc.inv_tsum, sc.inv_fsum, facc, dacc, macc);
   }
-  __syncthreads();
-  fft_lines(sbuf, H, log2H, tc, tw_inv);
-  store_col_tile(sbuf, hr, hi, H, W, tc, log2tc);
+  // The stats leave before the inverse transform, so that their
+  // accumulators are not live through it.
   write_partials(facc, dacc, macc, partials);
+  line_barrier<G == 1>();
+  line_fft<LOG2N, true, G>(v, sbuf + p.c, tc, s, tw_inv);
+  store_col_regs<LOG2N>(v, hr, hi, W, col, s, 1.f);
+}
+
+template <int LOG2N>
+__global__ void __launch_bounds__(launch_shape(kColsWgsRoundtrip, LOG2N).threads)
+cols_wgs_roundtrip_kernel(
+    const float* __restrict__ gr, const float* __restrict__ gi, const float* __restrict__ w,
+    const float* __restrict__ t, const float* __restrict__ mask,
+    const float* __restrict__ pffr, const float* __restrict__ pffi, float* __restrict__ hr,
+    float* __restrict__ hi, float* __restrict__ wout, float* __restrict__ pffr_out,
+    float* __restrict__ pffi_out, const float* __restrict__ scal,
+    double* __restrict__ partials, int W, int tc, int log2tc,
+    const float2* __restrict__ tw_fwd, const float2* __restrict__ tw_inv, int rule, int kim,
+    int stats_on) {
+  cols_wgs_roundtrip_tile<LOG2N, 1>(gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out,
+                                    pffi_out, scal, partials, W, tc, log2tc, tw_fwd, tw_inv,
+                                    rule, kim, stats_on);
+}
+
+template <int LOG2N>
+__global__ void __cluster_dims__(2, 1, 1)
+__launch_bounds__(launch_shape(kColsWgsRoundtrip, LOG2N).threads)
+cols_wgs_roundtrip_cluster_kernel(
+    const float* __restrict__ gr, const float* __restrict__ gi, const float* __restrict__ w,
+    const float* __restrict__ t, const float* __restrict__ mask,
+    const float* __restrict__ pffr, const float* __restrict__ pffi, float* __restrict__ hr,
+    float* __restrict__ hi, float* __restrict__ wout, float* __restrict__ pffr_out,
+    float* __restrict__ pffi_out, const float* __restrict__ scal,
+    double* __restrict__ partials, int W, int tc, int log2tc,
+    const float2* __restrict__ tw_fwd, const float2* __restrict__ tw_inv, int rule, int kim,
+    int stats_on) {
+  cols_wgs_roundtrip_tile<LOG2N, 2>(gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out,
+                                    pffi_out, scal, partials, W, tc, log2tc, tw_fwd, tw_inv,
+                                    rule, kim, stats_on);
 }
 
 // <- pallas_fft.wgs_fused_forward_pallas (the column pass, _cols_wgs_kernel
@@ -210,37 +269,45 @@ stats_reduce_kernel(const double* __restrict__ partials, int n_blocks,
 }
 
 // #3 <- pallas_fft.wgs_carry_step_pallas kernel A (_rows_normfwd_kernel,
-// _rows_normfwd_amp_kernel). One block per row: inverse row FFT -> Z,
-// Z/|Z| or amp * Z/|Z| (zero -> 1 or amp, real), forward row FFT.
+// _rows_normfwd_amp_kernel): inverse row FFT -> Z, Z/|Z| or amp * Z/|Z|
+// (zero -> 1 or amp, real), forward row FFT.
+//
+// Bound on the H100 by bytes: two planes read and two written (an
+// amplitude plane: three read), 20 (25) us at 2048^2. The rows are
+// rows_fft's (natural_fft.cu, row_place): the inverse line_fft stays
+// unnormalized (Z/|Z| does not see the scale), the amplitude replacement
+// runs on the registers (the amplitude plane read at the same indices),
+// and the forward line_fft and the store follow from the same registers.
+// The block barrier between the transforms is required: the forward's
+// first exchange writes the buffer that the inverse's last exchange may
+// still be read from.
+template <int LOG2N>
 __global__ void __launch_bounds__(kThreads)
 rows_normfwd_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
                     const float* __restrict__ amp, float* __restrict__ gr,
-                    float* __restrict__ gi, int W, int log2W,
-                    const float2* __restrict__ tw_fwd,
+                    float* __restrict__ gi, const float2* __restrict__ tw_fwd,
                     const float2* __restrict__ tw_inv) {
+  constexpr int E = line_points(LOG2N), T = line_threads(LOG2N);
   extern __shared__ float2 sbuf[];
-  const size_t base = (size_t)blockIdx.x * W;
-  for (int i = threadIdx.x; i < W; i += blockDim.x)
-    sbuf[i] = make_float2(hr[base + i], hi[base + i]);
-  __syncthreads();
-  fft_lines(sbuf, W, log2W, 1, tw_inv);
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    const float2 z = sbuf[i];
-    const float a = amp ? amp[base + i] : 1.f;
+  const RowPlace p = row_place<LOG2N>(sbuf);
+  float2 v[E];
+  load_row_regs<LOG2N>(v, hr, hi, p.base);
+  line_fft<LOG2N, true>(v, p.buf, 1, p.s, tw_inv);
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const float2 z = v[q];
+    const float a = amp ? amp[p.base + q * T] : 1.f;
     const float mag2 = z.x * z.x + z.y * z.y;
     if (mag2 > 0.f) {
       const float inv = a * rsqrtf(mag2);
-      sbuf[i] = make_float2(z.x * inv, z.y * inv);
+      v[q] = make_float2(z.x * inv, z.y * inv);
     } else {
-      sbuf[i] = make_float2(a, 0.f);
+      v[q] = make_float2(a, 0.f);
     }
   }
   __syncthreads();
-  fft_lines(sbuf, W, log2W, 1, tw_fwd);
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    gr[base + i] = sbuf[i].x;
-    gi[base + i] = sbuf[i].y;
-  }
+  line_fft<LOG2N, false>(v, p.buf, 1, p.s, tw_fwd);
+  store_row_regs<LOG2N>(v, gr, gi, p.base, 1.f);
 }
 
 // #4 <- pallas_fft.wgs_carry_exit_pallas (_rows_phase_extract_kernel).
@@ -266,6 +333,50 @@ cudaError_t launch_stats_reduce(const double* partials, int n_blocks,
   return cudaGetLastError();
 }
 
+// Launch of one instantiation of cols_wgs_roundtrip, and of stats_reduce
+// on its n_blocks rows of partials (which must be the grid's). The dynamic
+// shared memory is above the 48 KB default from H = 1024 on: the attribute
+// is the instantiation's own.
+template <int LOG2N>
+int launch_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
+                              const float* t, const float* mask, const float* pffr,
+                              const float* pffi, float* hr, float* hi, float* wout,
+                              float* pffr_out, float* pffi_out, const float* scal,
+                              double* partials, double* sums, float* maxs, int W,
+                              int n_blocks, const float2* tw_fwd, const float2* tw_inv,
+                              int rule, int kim, int stats_on, cudaStream_t stream) {
+  constexpr LaunchShape shape = launch_shape(kColsWgsRoundtrip, LOG2N);
+  constexpr int G = shape.cluster;
+  static_assert(shape.threads <= 1024 && shape.smem <= 227 * 1024, "cols_wgs_roundtrip launch");
+  if (W % shape.lines || n_blocks != W / shape.lines * G) return (int)cudaErrorInvalidValue;
+  auto kernel = [] {
+    if constexpr (G == 2) return cols_wgs_roundtrip_cluster_kernel<LOG2N>;
+    else return cols_wgs_roundtrip_kernel<LOG2N>;
+  }();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shape.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_blocks, shape.threads, shape.smem, stream>>>(
+      gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out, pffi_out, scal, partials, W,
+      shape.lines, ilog2(shape.lines), tw_fwd, tw_inv, rule, kim, stats_on);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
+}
+
+// Launch of one instantiation of rows_normfwd_kernel.
+template <int LOG2N>
+int launch_rows_normfwd(const float* hr, const float* hi, const float* amp, float* gr,
+                        float* gi, int H, const float2* tw_fwd, const float2* tw_inv,
+                        cudaStream_t stream) {
+  constexpr LaunchShape shape = launch_shape(kRowsNormfwd, LOG2N);
+  static_assert(shape.threads == kThreads && shape.smem <= 48 * 1024, "rows_normfwd launch");
+  if (H % shape.lines) return (int)cudaErrorInvalidValue;
+  rows_normfwd_kernel<LOG2N><<<H / shape.lines, shape.threads, shape.smem, stream>>>(
+      hr, hi, amp, gr, gi, tw_fwd, tw_inv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace slm
 
 using namespace slm;
@@ -279,27 +390,30 @@ int slm_carry_entry(const float* psi, const float* amp, float* gr, float* gi,
   return (int)cudaGetLastError();
 }
 
+// Blocks of a cols_wgs_roundtrip launch on an (H, W) pair, that is the
+// rows of its stats partials; -1 for a pair it does not take.
+int slm_cols_wgs_roundtrip_blocks(int H, int W) {
+  const int log2n = ilog2(H);
+  if (log2n < 6 || log2n > 12 || (1 << log2n) != H) return -1;
+  const LaunchShape shape = launch_shape(kColsWgsRoundtrip, log2n);
+  return W % shape.lines ? -1 : W / shape.lines * shape.cluster;
+}
+
 int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
                            const float* t, const float* mask,
                            const float* pffr, const float* pffi, float* hr,
                            float* hi, float* wout, float* pffr_out,
                            float* pffi_out, const float* scal,
                            double* partials, double* sums, float* maxs,
-                           int H, int W,
-                           int tc, const float2* tw_fwd, const float2* tw_inv,
-                           int rule, int kim, int stats_on,
+                           int H, int W, int n_blocks, const float2* tw_fwd,
+                           const float2* tw_inv, int rule, int kim, int stats_on,
                            cudaStream_t stream) {
-  size_t smem = 0;
-  cudaError_t err = cols_setup(cols_wgs_roundtrip_kernel, H, W, tc, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_blocks = W / tc;
-  cols_wgs_roundtrip_kernel<<<n_blocks, kThreads, smem, stream>>>(
-      gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out, pffi_out, scal,
-      partials, H, W, ilog2(H), tc, ilog2(tc), tw_fwd, tw_inv, rule, kim,
-      stats_on);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
+  switch (ilog2(H)) {
+    SLM_LEN_CASES(launch_cols_wgs_roundtrip, gr, gi, w, t, mask, pffr, pffi, hr, hi, wout,
+                  pffr_out, pffi_out, scal, partials, sums, maxs, W, n_blocks, tw_fwd,
+                  tw_inv, rule, kim, stats_on, stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int slm_cols_wgs_fwd(const float* gr, const float* gi, const float* w,
@@ -323,9 +437,10 @@ int slm_cols_wgs_fwd(const float* gr, const float* gi, const float* w,
 int slm_rows_normfwd(const float* hr, const float* hi, const float* amp,
                      float* gr, float* gi, int H, int W, const float2* tw_fwd,
                      const float2* tw_inv, cudaStream_t stream) {
-  rows_normfwd_kernel<<<H, kThreads, W * sizeof(float2), stream>>>(
-      hr, hi, amp, gr, gi, W, ilog2(W), tw_fwd, tw_inv);
-  return (int)cudaGetLastError();
+  switch (ilog2(W)) {
+    SLM_LEN_CASES(launch_rows_normfwd, hr, hi, amp, gr, gi, H, tw_fwd, tw_inv, stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int slm_carry_exit(const float* gr, const float* gi, float* psi, int H, int W,

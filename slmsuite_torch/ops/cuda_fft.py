@@ -21,13 +21,13 @@ counts its launches in :data:`LAUNCHES`.
 The plain PyTorch version of each kernel is the underscored function of
 the same name in :mod:`slmsuite_torch.ops.fft`.
 
-``rows_fft`` and ``cols_fft`` run a register-resident line FFT
-(``line_fft`` in ``csrc/fft_shared.cuh``). Its plan (:meth:`fft_plan`),
-its exchange's index maps, and a plain PyTorch model that follows it pass
-by pass (:meth:`line_fft_model`) are here, so that they can be tested
-without a card; the launch shapes are the launchers' own
-(:meth:`fft_launch_shape` asks them). The other kernels run the
-shared-memory ``fft_lines``.
+``rows_fft``, ``cols_fft``, ``rows_normfwd`` and ``cols_wgs_roundtrip``
+run a register-resident line FFT (``line_fft`` in
+``csrc/fft_shared.cuh``). Its plan (:meth:`fft_plan`), its exchange's
+index maps, and a plain PyTorch model that follows it pass by pass
+(:meth:`line_fft_model`) are here, so that they can be tested without a
+card; the launch shapes are the launchers' own (:meth:`fft_launch_shape`
+asks them). The other kernels run the shared-memory ``fft_lines``.
 """
 
 import ctypes
@@ -79,6 +79,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "slm_carry_entry": [_P, _P, _P, _P, _I, _I, _P, _P],
     "slm_cols_wgs_roundtrip": [_P] * 16 + [_I, _I, _I, _P, _P, _I, _I, _I, _P],
+    "slm_cols_wgs_roundtrip_blocks": [_I, _I],
     "slm_cols_wgs_fwd": [_P] * 14 + [_I, _I, _I, _P, _I, _I, _I, _P],
     "slm_rows_normfwd": [_P] * 5 + [_I, _I, _P, _P, _P],
     "slm_carry_exit": [_P, _P, _P, _I, _I, _P, _P],
@@ -187,7 +188,8 @@ def _twiddles(n, inverse, device):
 
 
 def _cols_tile(H):
-    """Columns per block of the cols kernel: 64 KiB of shared memory."""
+    """Columns per block of the column kernels on ``fft_lines``: 64 KiB of
+    shared memory."""
     return max(1, min(8, 8192 // H))
 
 
@@ -426,10 +428,11 @@ def cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
     H, W = _check_planes(*planes)
     _check_rule(rule)
     _check_scal(scal, gr)
-    tc = _cols_tile(H)
+    # One row of stats partials a block of the launch, as the launcher counts them.
+    blocks = _lib().slm_cols_wgs_roundtrip_blocks(H, W)
     hr, hi, wout = (torch.empty_like(gr) for _ in range(3))
     pff_out = (torch.empty_like(gr), torch.empty_like(gr)) if kim else (None, None)
-    partials = torch.empty((W // tc, 8), dtype=torch.float64, device=gr.device)
+    partials = torch.empty((blocks, 8), dtype=torch.float64, device=gr.device)
     sums = torch.empty(4, dtype=torch.float64, device=gr.device)
     maxs = torch.empty(4, dtype=torch.float32, device=gr.device)
     pff_in = phase_ff if kim else (None, None)
@@ -437,7 +440,7 @@ def cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
         _ptr(gr), _ptr(gi), _ptr(weights), _ptr(target),
         _ptr(mask if stats_on else None), _ptr(pff_in[0]), _ptr(pff_in[1]),
         _ptr(hr), _ptr(hi), _ptr(wout), _ptr(pff_out[0]), _ptr(pff_out[1]),
-        _ptr(scal), _ptr(partials), _ptr(sums), _ptr(maxs), H, W, tc,
+        _ptr(scal), _ptr(partials), _ptr(sums), _ptr(maxs), H, W, blocks,
         _ptr(_twiddles(H, False, gr.device)), _ptr(_twiddles(H, True, gr.device)),
         _RULES[rule], int(kim), int(stats_on), _stream(),
     )
@@ -617,13 +620,18 @@ def cols_fft(xr, xi, *, inverse, scale=1.0):
     return yr, yi
 
 
+#: The kernels on the line FFT, in the order of ``LineKernel`` in
+#: ``csrc/fft_shared.cuh``.
+LINE_KERNELS = ("rows_fft", "cols_fft", "rows_normfwd", "cols_wgs_roundtrip")
+
+
 def fft_launch_shape(kernel, n):
-    """What the launcher of ``kernel`` (``"rows_fft"`` or ``"cols_fft"``)
+    """What the launcher of ``kernel`` (one of :data:`LINE_KERNELS`)
     launches on lines of ``n`` points, as the built library reports it:
     ``(rows a block or columns a tile, blocks that share a tile, threads a
     block, bytes of dynamic shared memory a block)``. Launches nothing."""
     out = (_I * 4)()
-    rc = _lib().slm_fft_launch_shape({"rows_fft": 0, "cols_fft": 1}[kernel], int(n), out)
+    rc = _lib().slm_fft_launch_shape(LINE_KERNELS.index(kernel), int(n), out)
     if rc != 0:
         raise ValueError(f"No {kernel} launch on lines of {n} points.")
     return tuple(out)

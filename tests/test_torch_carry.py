@@ -24,6 +24,9 @@ from slmsuite_torch.ops import fft as T
 from slmsuite_tpu.ops import fft as F
 
 SHAPE = (64, 128)
+#: The step's shapes: the kernels' line FFT has two passes at 64 and 128
+#: points and three at 256, so these cover both plans along each axis.
+STEP_SHAPES = [(64, 128), (128, 64), (256, 128)]
 CARRY_RTOL = 3e-5
 ATOL, RTOL = 3e-5, 1e-4
 PSI_P99 = 2e-3
@@ -39,40 +42,44 @@ def _torch_cpu():
     torch.set_num_threads(threads)
 
 
-def _inputs(seed=1):
-    H, W = SHAPE
+def _inputs(seed=1, shape=SHAPE):
+    H, W = shape
     rng = np.random.default_rng(seed)
-    psi = rng.uniform(-2 * np.pi, 2 * np.pi, SHAPE).astype(np.float32)
-    target = np.zeros(SHAPE, np.float32)
+    psi = rng.uniform(-2 * np.pi, 2 * np.pi, shape).astype(np.float32)
+    target = np.zeros(shape, np.float32)
     target[rng.integers(0, H, 12), rng.integers(0, W, 12)] = 1.0
     target /= np.sqrt((target**2).sum())
-    pff = rng.uniform(-np.pi, np.pi, SHAPE).astype(np.float32)
-    amp_plane = (0.5 + rng.uniform(0, 1, SHAPE)).astype(np.float32)
+    pff = rng.uniform(-np.pi, np.pi, shape).astype(np.float32)
+    amp_plane = (0.5 + rng.uniform(0, 1, shape)).astype(np.float32)
     return psi, target, pff, amp_plane
 
 
-_PH, _PW = F.scramble_permutation_2d(SHAPE)
+def _perm(shape):
+    return F.scramble_permutation_2d(shape)
 
 
 def _scramble2(x):
-    return np.asarray(x)[_PH][:, _PW]
+    ph, pw = _perm(np.shape(x))
+    return np.asarray(x)[ph][:, pw]
 
 
 def _unscramble_w(x):
+    _, pw = _perm(np.shape(x))
     out = np.empty_like(np.asarray(x))
-    out[..., _PW] = np.asarray(x)
+    out[..., pw] = np.asarray(x)
     return out
 
 
 def _unscramble2(x):
+    ph, pw = _perm(np.shape(x))
     out = np.empty_like(np.asarray(x))
-    out[np.ix_(_PH, _PW)] = np.asarray(x)
+    out[np.ix_(ph, pw)] = np.asarray(x)
     return out
 
 
 def _amps(kind, amp_plane):
     """(jax amp, port amp, post scale) for a scalar or array amplitude."""
-    H, W = SHAPE
+    H, W = amp_plane.shape
     if kind == "scalar":
         a = 1.0 / np.sqrt(H * W)
         return jnp.float32(a), float(a), a / np.sqrt(H * W)
@@ -111,8 +118,9 @@ def test_carry_exit():
 @pytest.mark.parametrize("stats_on", [True, False])
 @pytest.mark.parametrize("amp_kind", ["scalar", "array"])
 @pytest.mark.parametrize("rule", ["kim", "leonardo", "wu", "tanh"])
-def test_carry_step(rule, amp_kind, stats_on, kim):
-    psi, target, pff, amp_plane = _inputs()
+@pytest.mark.parametrize("shape", STEP_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_carry_step(shape, rule, amp_kind, stats_on, kim):
+    psi, target, pff, amp_plane = _inputs(shape=shape)
     jamp, tamp, post = _amps(amp_kind, amp_plane)
     mask = (target != 0).astype(np.float32)
     scalars = dict(

@@ -6,8 +6,9 @@ the fixture, never at import). On a GPU machine without jax, run
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (the repository conftest configures jax). Tolerances are those of
 ``chip_smoke.py``: carry and transformed planes 1e-4 relative to their
-peak, weights, phasors and stats atol 1e-4 / rtol 1e-3, ``arg F`` 1e-3
-rad where ``|F| > 1e-3 max |F|``, psi 99th-percentile wrapped
+peak, weights, phasors and stats atol 1e-4 / rtol 1e-3 (the phasor also
+within the turn f32 round-off gives it near a zero of F), ``arg F``
+1e-3 rad where ``|F| > 1e-3 max |F|``, psi 99th-percentile wrapped
 difference below 2e-3.
 """
 
@@ -46,8 +47,29 @@ def _rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+def _assert_phasor(got, ref, amp_ff):
+    """Kim's unit phasor F/|F| at every point within ATOL + RTOL |ref| plus
+    the turn that f32 round-off gives it: an error of 2^-24 log2(H) rms|F|
+    in F (the FFT's normwise bound, rms over the column) over |F|, which
+    matters only near a zero of F; and of modulus 1."""
+    rms = amp_ff.square().mean(dim=0, keepdim=True).sqrt()
+    turn = 2.0**-24 * np.log2(amp_ff.shape[0]) * rms / amp_ff
+    for g, r in zip(got, ref):
+        bad = (g - r).abs() > ATOL + RTOL * r.abs() + turn
+        assert not bool(bad.any()), f"{int(bad.sum())} phasor values off"
+    assert float((got[0] ** 2 + got[1] ** 2 - 1).abs().max()) < 1e-5
+
+
+#: Shapes of the carry step: the step kernels' launches differ with each
+#: side (line_fft's plan, the column tile, the cluster of two at 4096), so
+#: every side from 64 to 4096 appears as H and as W, with the rectangles
+#: both ways.
+STEP_SHAPES = [(64, 64), (256, 512), (64, 4096), (4096, 64), (512, 256), (2048, 2048),
+               (128, 1024), (1024, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 64), (256, 512)])
+@pytest.mark.parametrize("shape", STEP_SHAPES)
 @pytest.mark.parametrize("amp_kind", ["scalar", "array"])
 @pytest.mark.parametrize("rule", ["kim", "leonardo", "wu", "tanh"])
 @pytest.mark.parametrize("stats_on", [True, False])
@@ -73,15 +95,60 @@ def test_kernels_match_plain(cuda, shape, amp_kind, rule, stats_on):
     got = cuda_fft.carry_step(*args, **kw)
     ref = fft._wgs_carry_step(*args, **kw)
     assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
-    pairs = [(got[2], ref[2]), (got[4], ref[4]), (got[5], ref[5])]
-    if kim:
-        pairs += list(zip(got[3], ref[3]))
-    for g, r in pairs:
+    for g, r in [(got[2], ref[2]), (got[4], ref[4]), (got[5], ref[5])]:
         torch.testing.assert_close(g, r, atol=ATOL, rtol=RTOL)
+    if kim:
+        _assert_phasor(got[3], ref[3], torch.fft.fft(torch.complex(pgr, pgi), dim=0).abs())
 
     diff = torch.remainder(cuda_fft.carry_exit(pgr, pgi) - fft._wgs_carry_exit(pgr, pgi)
                            + np.pi, 2 * np.pi) - np.pi
     assert float(torch.quantile(diff.abs().flatten(), 0.99)) < PSI_P99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 2048), (4096, 256), (256, 64)])
+def test_cols_wgs_roundtrip_stats_repeat_bit_for_bit(cuda, shape):
+    """The stats partials are reduced in a fixed order (each thread its
+    points in turn, the block's warps in order, the blocks in order): two
+    launches on the same inputs give the same bits, the cluster of two at
+    4096 points included."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    psi, target, pff, amp = _inputs(shape, cuda, "scalar")
+    gr, gi = fft._wgs_carry_entry(psi, amp)
+    args = (gr, gi, target * 1.3, target, (target != 0).float(), pff,
+            _fwd_scal(shape, 1.0, target, True, cuda))
+    kw = dict(rule="kim", kim=True, stats_on=True)
+    first = cuda_fft.cols_wgs_roundtrip(*args, **kw)
+    second = cuda_fft.cols_wgs_roundtrip(*args, **kw)
+    assert torch.equal(first[4], second[4]) and torch.equal(first[5], second[5])
+    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128), (4096, 64)])
+def test_step_kernels_zero_fields(cuda, shape):
+    """A zero farfield gives the phasor (1, 0) and the weights of the plain
+    version; a zero nearfield gives the amplitude itself, real, before the
+    forward row FFT."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    _, target, _, amp = _inputs(shape, cuda, "array")
+    zero = torch.zeros(shape, device=cuda)
+    args = (zero, zero, target * 1.3, target, (target != 0).float(), (zero, zero),
+            _fwd_scal(shape, 1.0, target, True, cuda))
+    kw = dict(rule="leonardo", kim=True, stats_on=True)
+    got, ref = cuda_fft.cols_wgs_roundtrip(*args, **kw), fft._cols_wgs_roundtrip(*args, **kw)
+    assert bool((got[3][0] == 1.0).all()) and bool((got[3][1] == 0.0).all())
+    torch.testing.assert_close(got[2], ref[2], atol=ATOL, rtol=RTOL)
+    assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+
+    for a in (1.0, amp):
+        gr, gi = cuda_fft.rows_normfwd(zero, zero, a)
+        field = torch.fft.fft(torch.complex(torch.ones_like(zero) * a, zero), dim=-1)
+        assert max(_rel(gr, field.real), _rel(gi, field.imag)) <= CARRY_RTOL
+        plain = fft._rows_normfwd(zero, zero, a)
+        assert max(_rel(gr, plain[0]), _rel(gi, plain[1])) <= CARRY_RTOL
 
 
 @pytest.mark.cuda
@@ -217,14 +284,16 @@ def test_fft_launch_shapes_fit_the_card(cuda, n):
     from slmsuite_torch.ops import cuda_fft
 
     points = cuda_fft.line_points(n)
-    rows, blocks, threads, smem = cuda_fft.fft_launch_shape("rows_fft", n)
-    assert blocks == 1 and threads == 256 and 64 % rows == 0 and smem <= 48 * 1024
-    assert threads * points == rows * n and smem == rows * cuda_fft.line_pitch(n) * 8
-    tc, blocks, threads, smem = cuda_fft.fft_launch_shape("cols_fft", n)
-    assert tc >= 8 and 64 % tc == 0 and blocks == (2 if n == 4096 else 1)
-    assert threads <= 1024 and smem <= 227 * 1024
-    assert threads * blocks * points == tc * n
-    assert smem * blocks == tc * cuda_fft.line_pitch(n) * 8
+    for kernel in ("rows_fft", "rows_normfwd"):
+        rows, blocks, threads, smem = cuda_fft.fft_launch_shape(kernel, n)
+        assert blocks == 1 and threads == 256 and 64 % rows == 0 and smem <= 48 * 1024
+        assert threads * points == rows * n and smem == rows * cuda_fft.line_pitch(n) * 8
+    for kernel in ("cols_fft", "cols_wgs_roundtrip"):
+        tc, blocks, threads, smem = cuda_fft.fft_launch_shape(kernel, n)
+        assert tc >= 8 and 64 % tc == 0 and blocks == (2 if n == 4096 else 1)
+        assert threads <= 1024 and smem <= 227 * 1024
+        assert threads * blocks * points == tc * n
+        assert smem * blocks == tc * cuda_fft.line_pitch(n) * 8
     with pytest.raises(ValueError, match="No rows_fft launch"):
         cuda_fft.fft_launch_shape("rows_fft", 96)
 
