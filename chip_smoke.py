@@ -11,8 +11,9 @@ there is no card or the port is missing. In order:
    per source, in parallel);
 4. each kernel against its plain PyTorch version on the card: the carry
    kernels at 2048^2 and 256x512 for every fusable rule, scalar and array
-   amplitude, stats on and off, and ``cols_wgs_roundtrip`` and
-   ``rows_normfwd`` (WGS-Kim, stats on, scalar and array amplitude) at
+   amplitude, stats on and off, ``carry_entry`` and ``carry_exit`` there
+   also at |psi| up to 1e6, and all four (``cols_wgs_roundtrip`` and
+   ``rows_normfwd`` WGS-Kim, stats on; scalar and array amplitude) at
    every shape of the ``rows_fft`` checks; ``rows_fft`` and ``cols_fft`` at every
    power-of-two side from 64 to 4096, at 64x4096, 4096x64 and 256x512,
    forward and inverse; the other natural-path kernels and the composed
@@ -65,16 +66,18 @@ there is no card or the port is missing. In order:
    ``gs_padded``, ``spots_kim``, ``gs_mraf`` and ``wgs_leonardo_mraf_zero``
    replayed through the kernels;
 7. timing with CUDA events: each kernel, its plain version and, where one
-   PyTorch call computes the same function, that call, at 2048^2;
-   ``cols_wgs_roundtrip``, ``rows_normfwd`` (also with an amplitude
-   plane), ``rows_fft`` and ``cols_fft`` at 1024^2, 2048^2 and 4096^2 by
-   CUDA events and by the device's own time under ``torch.profiler`` (their
-   launches are about as short as the host's enqueue; the kernels line reports
-   the device time and says so in ``timer``), with ``carry_entry``
-   and ``cols_fwd_polar`` (the shared-memory FFT on the same planes) and
-   the composed ``fft2``/``ifft2`` (against ``torch.fft.fft2``/``ifft2``),
-   ``ifft2_phase`` (with ``torch.fft.ifft2``) and ``wexp_ifft2`` beside
-   them; the composed ``wgs_fused_forward``, ``wgs_fused_step`` and
+   PyTorch call computes the same function, that call, at 2048^2; the six
+   kernels on the line FFT, ``cols_wgs_roundtrip``, ``rows_normfwd`` and
+   ``carry_entry`` (both also with an amplitude plane), ``carry_exit``,
+   ``rows_fft`` and ``cols_fft``, at 1024^2, 2048^2 and 4096^2 by CUDA
+   events and by the device's own time under ``torch.profiler`` (their
+   launches are about as short as the host's enqueue; the kernels line
+   reports the device time and says so in ``timer``), with
+   ``cols_fwd_polar`` (the shared-memory FFT on the same planes) and the
+   composed ``fft2``/``ifft2`` (against ``torch.fft.fft2``/``ifft2``),
+   ``ifft2_phase`` (with ``torch.fft.ifft2``), ``wexp_ifft2``,
+   ``fft2_polar_from_phase`` and ``wexp_ifft2_phase`` beside them; the
+   composed ``wgs_fused_forward``, ``wgs_fused_step`` and
    ``mraf_fused_step`` against their plain versions; each compressed
    kernel and its plain version at config 5,
    the cos/sin cache build, and ms/iteration of the C1 and C2 loops; and
@@ -84,17 +87,17 @@ there is no card or the port is missing. In order:
    GS, the natural MRAF step), through the kernels and through the plain
    versions; ms/iteration of the S1 and S2 camera loops likewise;
 8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette),
-   the N2 GS, the ``image_mraf(2048)``, the C1 and the S2 loops: device
+   the N2 GS, the ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop;
+   GS, M3's natural MRAF step), the C1 and the S2 loops: device
    time, device busy share, device launches per iteration (S2 also:
    the share of ``sim_measure_spots``).
 
 It prints the per-kernel JSON line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
 ``chiprun_out/`` (``chip_smoke.log`` keeps every line printed;
-``fft_launch.log`` the launch shapes of ``rows_fft``, ``cols_fft``,
-``rows_normfwd`` and ``cols_wgs_roundtrip``, as their launchers report
-them, and the compiler's registers, stack and spills for each
-instantiation).
+``fft_launch.log`` the launch shapes of the kernels on the line FFT, as
+their launchers report them, and the compiler's registers, stack and
+spills for each instantiation).
 """
 
 import contextlib
@@ -118,6 +121,7 @@ WEIGHT_ATOL, WEIGHT_RTOL = 1e-4, 1e-3   # weights, phasors, sums, maxs
 F32_EPS = 2.0**-24          # f32 unit round-off (phasor_turn)
 THETA_ATOL = 1e-3          # arg F, where |F| > 1e-3 max |F|
 PSI_P99 = 2e-3             # psi: 99th percentile of the wrapped difference
+PSI_MAX_ATOL = 1e-4        # psi: largest wrapped difference, no point near 0
 SLICE_ATOL = 1e-3          # final efficiency / uniformity, kernel vs plain
 GOLDEN_STATS_ATOL, GOLDEN_STATS_RTOL, GOLDEN_PHASE_ATOL = 1e-4, 1e-3, 5e-3
 GOLDENS = ("wgs_kim_iter", "gs", "wgs_nogrette", "gs_padded", "spots_kim", "gs_mraf",
@@ -355,6 +359,42 @@ def phase_parity(device):
                            "carry_exit"), 0.0)
     lines = []
 
+    def carry(shape, amp_kind, psi_max=None):
+        """carry_entry, then carry_exit on the plain version's carry, each
+        against its plain version; psi uniform in +-psi_max where given
+        (past 105615 sincosf takes its Payne-Hanek reduction). Returns the
+        plain carry."""
+        x = step_inputs(shape, amp_kind, "kim", True, device)
+        psi = x["psi"]
+        if psi_max is not None:
+            rng = np.random.default_rng(9)
+            psi = torch.from_numpy(
+                rng.uniform(-psi_max, psi_max, shape).astype(np.float32)).to(device)
+        tag = f"{shape} {amp_kind}" + (f" |psi| <= {psi_max:.0e}" if psi_max else "")
+        gr, gi = cuda_fft.carry_entry(psi, x["amp"])
+        pr, pi_ = fft._wgs_carry_entry(psi, x["amp"])
+        e = max(rel_err(gr, pr), rel_err(gi, pi_))
+        assert e <= CARRY_RTOL, f"carry_entry {tag}: {e:.3e}"
+        lines.append(f"carry_entry {tag}: rel {e:.3e}")
+        wrapped = wrapped_abs(cuda_fft.carry_exit(pr, pi_), fft._wgs_carry_exit(pr, pi_))
+        p99 = float(torch.quantile(wrapped.flatten().double(), 0.99))
+        # The exit's inverse gives back W amp e^{i psi}, with amp > 0 at
+        # every point: no point is near 0, so the largest error is held
+        # too, not only a percentile.
+        top = float(wrapped.max())
+        assert p99 < PSI_P99 and top <= PSI_MAX_ATOL, (
+            f"carry_exit {tag}: p99 {p99:.3e}, max {top:.3e}")
+        lines.append(f"carry_exit {tag}: p99 {p99:.3e}, max {top:.3e}")
+        if psi_max is not None:
+            far["carry_entry"] = max(far["carry_entry"], e)
+            far["carry_exit"] = max(far["carry_exit"], p99)
+        elif shape == (2048, 2048):
+            worst["carry_entry"] = max(worst["carry_entry"], max_abs(gr, pr), max_abs(gi, pi_))
+            worst["carry_exit"] = max(worst["carry_exit"], top)
+        return pr, pi_
+
+    far = dict(carry_entry=0.0, carry_exit=0.0)  # rel, p99 at |psi| <= 1e6
+
     def step(shape, amp_kind, rule, stats_on, pr, pi_):
         """cols_wgs_roundtrip, then rows_normfwd on the plain version's
         output, each against its plain version."""
@@ -391,40 +431,24 @@ def phase_parity(device):
 
     for shape in ((2048, 2048), (256, 512)):
         for amp_kind in ("scalar", "array"):
-            x = step_inputs(shape, amp_kind, "kim", True, device)
-            gr, gi = cuda_fft.carry_entry(x["psi"], x["amp"])
-            pr, pi_ = fft._wgs_carry_entry(x["psi"], x["amp"])
-            e = max(rel_err(gr, pr), rel_err(gi, pi_))
-            assert e <= CARRY_RTOL, f"carry_entry {shape} {amp_kind}: {e:.3e}"
-            lines.append(f"carry_entry {shape} {amp_kind}: rel {e:.3e}")
-            if shape == (2048, 2048):
-                worst["carry_entry"] = max(worst["carry_entry"],
-                                           max_abs(gr, pr), max_abs(gi, pi_))
-
-            psi_k = cuda_fft.carry_exit(pr, pi_)
-            psi_p = fft._wgs_carry_exit(pr, pi_)
-            e = psi_p99(psi_k, psi_p)
-            assert e < PSI_P99, f"carry_exit {shape}: p99 {e:.3e}"
-            lines.append(f"carry_exit {shape} {amp_kind}: p99 {e:.3e}")
-            if shape == (2048, 2048):
-                wrapped = torch.remainder(psi_k - psi_p + np.pi, 2 * np.pi) - np.pi
-                worst["carry_exit"] = max(worst["carry_exit"], float(wrapped.abs().max()))
-
+            pr, pi_ = carry(shape, amp_kind)
             for rule in RULES:
                 for stats_on in (True, False):
                     step(shape, amp_kind, rule, stats_on, pr, pi_)
-    # The step kernels' launches differ with the side (line_fft's plan, the
-    # tile, the cluster at 4096): every side from 64 to 4096 and the
-    # rectangles both ways.
+            carry(shape, amp_kind, psi_max=1e6)
+    # The line kernels' launches differ with the side (line_fft's plan, the
+    # rows a block, the tile, the cluster at 4096): every side from 64 to
+    # 4096 and the rectangles both ways.
     for shape in FFT_SHAPES:
         for amp_kind in ("scalar", "array"):
-            x = step_inputs(shape, amp_kind, "kim", True, device)
-            step(shape, amp_kind, "kim", True, *fft._wgs_carry_entry(x["psi"], x["amp"]))
+            step(shape, amp_kind, "kim", True, *carry(shape, amp_kind))
     torch.cuda.synchronize()
     OUT.mkdir(exist_ok=True)
     (OUT / "parity.log").write_text("\n".join(lines) + "\n")
     log(f"parity: {len(lines)} checks passed; 2048^2 max |diff| "
-        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; |psi| <= 1e6: carry_entry rel {far['carry_entry']:.3e}, carry_exit p99 "
+        f"{far['carry_exit']:.3e}")
     return worst
 
 
@@ -716,12 +740,12 @@ def phase_fft_timing(device):
     """``rows_fft`` and ``cols_fft`` at each of FFT_TIMED_SIDES, each with
     its plain version, its library call (``torch.fft.fft`` along the same
     axis) and its bound, by CUDA events and by the device's own time
-    (:meth:`device_ms`); beside them, by both too, ``carry_entry`` and
-    ``cols_fwd_polar``, which move the same planes on the shared-memory
-    ``fft_lines``; and the composed transforms' device time. Returns the
-    2048^2 times of the kernels line:
-    ``rows_fft`` and ``cols_fft`` by device time, ``cols_fwd_polar`` by
-    CUDA events like the kernels timed in :meth:`phase_kernel_timing`."""
+    (:meth:`device_ms`); beside them, by both too, ``cols_fwd_polar``,
+    which moves the same planes on the shared-memory ``fft_lines``; and
+    the composed transforms' device time. Returns the 2048^2 times of the
+    kernels line: ``rows_fft`` and ``cols_fft`` by device time,
+    ``cols_fwd_polar`` by CUDA events like the kernels timed in
+    :meth:`phase_kernel_timing`."""
     from slmsuite_torch.ops import cuda_fft, fft
 
     t = {}
@@ -737,9 +761,6 @@ def phase_fft_timing(device):
             "cols_fft": (lambda: cuda_fft.cols_fft(xr, xi, inverse=False),
                          lambda: fft._cols_fft(xr, xi, inverse=False),
                          lambda: torch.fft.fft(z, dim=0), bound(shape, 4, 1)),
-            "carry_entry (fft_lines, rows)": (
-                lambda: cuda_fft.carry_entry(phi, 1.0),
-                lambda: fft._wgs_carry_entry(phi, 1.0), None, bound(shape, 3, 1)),
             "cols_fwd_polar": (lambda: cuda_fft.cols_fwd_polar(xr, xi, 1.0),
                                lambda: fft._cols_fwd_polar(xr, xi, 1.0), None,
                                bound(shape, 4, 1)),
@@ -771,6 +792,15 @@ def phase_fft_timing(device):
         interleaved("wexp_ifft2 (cols_wexp_inv + rows_fft)",
                     lambda: cuda_fft.wexp_ifft2(w, phi), lambda: fft._wexp_ifft2(w, phi),
                     bound_of=bound(shape, 4, 2), size=size, timer=device_ms)
+        # The natural step's two halves where the farfield is the SLM plane.
+        interleaved("fft2_polar_from_phase (carry_entry + cols_fwd_polar)",
+                    lambda: cuda_fft.fft2_polar_from_phase(phi, 1.0),
+                    lambda: fft._fft2_polar_from_phase(phi, 1.0),
+                    bound_of=bound(shape, 3, 2), size=size, timer=device_ms)
+        interleaved("wexp_ifft2_phase (cols_wexp_inv + carry_exit)",
+                    lambda: cuda_fft.wexp_ifft2_phase(w, phi),
+                    lambda: fft._wexp_ifft2_phase(w, phi),
+                    bound_of=bound(shape, 3, 2), size=size, timer=device_ms)
         del xr, xi, z, w, phi, timed
     log(f"  [{nvidia_smi_line()}]")
 
@@ -792,7 +822,8 @@ def write_launch_log():
                          f"{what}, {blocks} block(s) a tile, {threads} threads and {smem} "
                          "bytes of shared memory a block")
     ptxas = (OUT / "ptxas.log").read_text().splitlines() if (OUT / "ptxas.log").exists() else []
-    names = ("rows_fft_kernel", "cols_fft_", "rows_normfwd_kernel", "cols_wgs_roundtrip_")
+    names = ("rows_fft_kernel", "cols_fft_", "rows_normfwd_kernel", "cols_wgs_roundtrip_",
+             "carry_entry_kernel", "carry_exit_kernel")
     for k, line in enumerate(ptxas):
         if "Compiling entry function" in line and any(name in line for name in names):
             lines.append(" ".join(x.strip() for x in ptxas[k:k + 4]))
@@ -800,11 +831,12 @@ def write_launch_log():
 
 
 def phase_carry_timing(device):
-    """``cols_wgs_roundtrip`` (WGS-Kim, stats on, scalar amp) and
-    ``rows_normfwd`` (scalar amp, and an amplitude plane) at each of
-    FFT_TIMED_SIDES, each with its plain version and its bound, by CUDA
-    events and by the device's own time (:meth:`device_ms`). Neither has a
-    library call. Returns their 2048^2 device times for the kernels line."""
+    """``cols_wgs_roundtrip`` (WGS-Kim, stats on, scalar amp),
+    ``rows_normfwd`` and ``carry_entry`` (scalar amp, and an amplitude
+    plane) and ``carry_exit`` at each of FFT_TIMED_SIDES, each with its
+    plain version and its bound, by CUDA events and by the device's own
+    time (:meth:`device_ms`). None has a library call. Returns their
+    2048^2 device times for the kernels line."""
     from slmsuite_torch.ops import cuda_fft, fft
 
     t = {}
@@ -827,6 +859,16 @@ def phase_carry_timing(device):
             "rows_normfwd (amplitude plane)": (lambda: cuda_fft.rows_normfwd(gr, gi, amp),
                                                lambda: fft._rows_normfwd(gr, gi, amp),
                                                bound(shape, 5, 2)),
+            # psi read, the pair written (an amplitude plane read too).
+            "carry_entry": (lambda: cuda_fft.carry_entry(x["psi"], x["amp"]),
+                            lambda: fft._wgs_carry_entry(x["psi"], x["amp"]),
+                            bound(shape, 3, 1)),
+            "carry_entry (amplitude plane)": (lambda: cuda_fft.carry_entry(x["psi"], amp),
+                                              lambda: fft._wgs_carry_entry(x["psi"], amp),
+                                              bound(shape, 4, 1)),
+            # The pair read, psi written.
+            "carry_exit": (lambda: cuda_fft.carry_exit(gr, gi),
+                           lambda: fft._wgs_carry_exit(gr, gi), bound(shape, 3, 1)),
         }
         for name, (kernel, plain, bound_of) in timed.items():
             interleaved(name, kernel, plain, bound_of=bound_of, size=size)
@@ -856,9 +898,6 @@ def phase_kernel_timing(device):
     xr, xi = random_pair(shape, device)
     w, phi = xr.abs(), xi * np.pi
     t = {}
-    t["carry_entry"] = interleaved(
-        "carry_entry", lambda: cuda_fft.carry_entry(x["psi"], x["amp"]),
-        lambda: fft._wgs_carry_entry(x["psi"], x["amp"]), bound_of=bound(shape, 3, 1))
     # psi, weights, target, mask and the angle store read once (the carry
     # stays between the two halves), re, im, weights and the store written
     # once: nine planes; no single PyTorch call computes it.
@@ -867,9 +906,6 @@ def phase_kernel_timing(device):
     t["cols_wgs_fwd"] = interleaved(
         "cols_wgs_fwd", lambda: cuda_fft.cols_wgs_fwd(*fwd_args, **cols_kw),
         lambda: fft._cols_wgs_fwd(*fwd_args, **cols_kw), bound_of=bound(shape, 9, 1))
-    t["carry_exit"] = interleaved(
-        "carry_exit", lambda: cuda_fft.carry_exit(gr, gi),
-        lambda: fft._wgs_carry_exit(gr, gi), bound_of=bound(shape, 3, 1))
     t.update(phase_carry_timing(device))
     t.update(phase_fft_timing(device))
     write_launch_log()
@@ -1892,6 +1928,8 @@ def main():
         spot_array(device, (10, 10), (60, 60), slm_shape=(1024, 1024)), "GS"))
     phase_profile(device, "image_mraf(2048) WGS-Leonardo MRAF carry",
                   image_mraf(N=2048, device=device).run)
+    phase_profile(device, "image_mraf(2048) GS natural MRAF",
+                  image_mraf(N=2048, method="GS", device=device).run)
     phase_profile(device, "C1 config 5 WGS-Kim cached", compressed_loops[
         "C1 config 5 WGS-Kim cached"], n=CONFIG5_ITERS)
     phase_profile(device, "S2 config 4 rig, 10x10 spots, camera feedback", s2_loop,

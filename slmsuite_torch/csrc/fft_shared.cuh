@@ -3,7 +3,7 @@
 // launch setup, and, further down, the register-resident line_fft with the
 // row and column places, loads and stores, tile widths and launch shapes
 // of the kernels on it (rows_fft, cols_fft, rows_normfwd,
-// cols_wgs_roundtrip).
+// cols_wgs_roundtrip, carry_entry, carry_exit).
 //
 // Replaces `_fft_core` in slmsuite_tpu/ops/pallas_fft.py: a four-step DFT
 // written as block-complex matrix products for the TPU's matrix unit. On
@@ -105,8 +105,10 @@ __device__ __forceinline__ void store_col_tile(const float2* buf,
 
 // ----------------------------------------------------------------------
 // The register-resident line FFT (rows_fft_kernel and cols_fft_kernel of
-// natural_fft.cu, rows_normfwd_kernel and cols_wgs_roundtrip_kernel of
-// wgs_carry.cu; the other kernels still run fft_lines).
+// natural_fft.cu; rows_normfwd_kernel, cols_wgs_roundtrip_kernel,
+// carry_entry_kernel and carry_exit_kernel of wgs_carry.cu). Five column
+// kernels still run fft_lines: cols_fwd_polar, cols_wexp_inv (natural_fft.cu),
+// cols_mraf_fwd, cols_mraf_mix_inv (mraf_carry.cu) and cols_wgs_fwd.
 //
 // fft_lines crosses shared memory log2(n) + 1 times with a barrier each
 // and reads a twiddle from global memory per butterfly. line_fft keeps the
@@ -488,7 +490,10 @@ __host__ __device__ constexpr int cols_cluster(int log2n) {
 }
 
 // The kernels on line_fft whose launch shapes slm_fft_launch_shape reports.
-enum LineKernel { kRowsFft = 0, kColsFft, kRowsNormfwd, kColsWgsRoundtrip, kNumLineKernels };
+enum LineKernel {
+  kRowsFft = 0, kColsFft, kRowsNormfwd, kColsWgsRoundtrip, kCarryEntry, kCarryExit,
+  kNumLineKernels
+};
 
 // What a launch of one of them on lines of 1 << log2n points is made with:
 // its launcher uses it, and slm_fft_launch_shape (natural_fft.cu) reports it.
@@ -528,6 +533,19 @@ inline int ilog2(int n) {
   int k = 0;
   while ((1 << k) < n) ++k;
   return k;
+}
+
+// Launch of a row kernel on line_fft (`kind`, a LineKernel that is not a
+// column kernel; `kernel` its instantiation for lines of 1 << LOG2N points)
+// over H rows: H / lines blocks of its launch shape, under the 48 KB of
+// shared memory that needs no attribute.
+template <int KIND, int LOG2N, typename... Params, typename... Args>
+int launch_rows(void (*kernel)(Params...), int H, cudaStream_t stream, Args... args) {
+  constexpr LaunchShape shape = launch_shape(KIND, LOG2N);
+  static_assert(shape.threads == kThreads && shape.smem <= 48 * 1024, "row kernel launch");
+  if (H % shape.lines) return (int)cudaErrorInvalidValue;
+  kernel<<<H / shape.lines, shape.threads, shape.smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 // The column kernels' grid (W / tc blocks) and dynamic shared memory

@@ -3,9 +3,10 @@
 //
 // One natural step is a forward 2D FFT to (|F|, arg F), the farfield
 // constraint in PyTorch, and an inverse 2D FFT back to psi. Where the
-// farfield is the SLM plane, the forward half is carry_entry (wgs_carry.cu)
-// then cols_fwd_polar, and the backward half cols_wexp_inv then carry_exit
-// (wgs_carry.cu). On a padded canvas or with a propagation kernel, it is
+// farfield is the SLM plane, the forward half is carry_entry (wgs_carry.cu,
+// a row kernel on line_fft) then cols_fwd_polar, and the backward half
+// cols_wexp_inv then carry_exit (wgs_carry.cu, likewise). On a padded
+// canvas or with a propagation kernel, it is
 // rows_fft then cols_fwd_polar, and cols_wexp_inv then rows_fft; fft2 and
 // ifft2 outside the loop are rows_fft and cols_fft. Semantics: the
 // plain PyTorch versions `_rows_fft`, `_cols_fft`, `_cols_fwd_polar` and
@@ -17,9 +18,9 @@
 // GFLOP, 3.5 us at the 67 TFLOP/s f32 peak. So the design touches device
 // memory once per operand. cols_fwd_polar and cols_wexp_inv hold a tile
 // of `tc` adjacent columns in shared memory (64 KiB), so that each row
-// segment they load is 4 * tc contiguous bytes, as in wgs_carry.cu, and
-// run fft_lines on it. rows_fft and cols_fft hold their lines in
-// registers and run line_fft (fft_shared.cuh); see the notes above them.
+// segment they load is 4 * tc contiguous bytes, and run fft_lines on it
+// (ROADMAP.md, K1: next to move). rows_fft and cols_fft hold their lines
+// in registers and run line_fft (fft_shared.cuh); see the notes above them.
 // The polar output, the ortho scale and the constraint synthesis
 // w * e^{i phi} live in the kernels' prologues and epilogues, so no
 // complex farfield plane exists in device memory in the full-fuse
@@ -180,16 +181,12 @@ cols_wexp_inv_kernel(const float* __restrict__ w, const float* __restrict__ phi,
   store_col_tile(sbuf, yr, yi, H, W, tc, log2tc);
 }
 
-// Launch of one instantiation of rows_fft_kernel.
+// Launch of one instantiation of rows_fft_kernel (launch_rows).
 template <int LOG2N, bool INV>
 int launch_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
                     const float2* tw, float scale, cudaStream_t stream) {
-  constexpr LaunchShape shape = launch_shape(kRowsFft, LOG2N);
-  static_assert(shape.threads == kThreads && shape.smem <= 48 * 1024, "rows_fft launch");
-  if (H % shape.lines) return (int)cudaErrorInvalidValue;
-  rows_fft_kernel<LOG2N, INV><<<H / shape.lines, shape.threads, shape.smem, stream>>>(
-      xr, xi, yr, yi, tw, scale);
-  return (int)cudaGetLastError();
+  return launch_rows<kRowsFft, LOG2N>(rows_fft_kernel<LOG2N, INV>, H, stream, xr, xi, yr, yi,
+                                      tw, scale);
 }
 
 // Launch of one instantiation of cols_fft_kernel: W / tc clusters, tc the
@@ -239,8 +236,9 @@ int slm_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
 }
 
 // out[0..4) = the LaunchShape (lines, cluster, threads, smem) of `kernel`
-// (a LineKernel: rows_fft, cols_fft, rows_normfwd, cols_wgs_roundtrip) on
-// lines of n points, a power of two in [64, 4096].
+// (a LineKernel: rows_fft, cols_fft, rows_normfwd, cols_wgs_roundtrip,
+// carry_entry, carry_exit) on lines of n points, a power of two in
+// [64, 4096].
 int slm_fft_launch_shape(int kernel, int n, int* out) {
   const int log2n = ilog2(n);
   if (kernel < 0 || kernel >= kNumLineKernels || log2n < 6 || log2n > 12 ||

@@ -23,9 +23,10 @@
 // with the register-resident line_fft (fft_shared.cuh), the epilogue
 // between the transforms on the same registers; the column kernel has
 // lanes across a tile of 8 adjacent columns, so each row segment it
-// loads or stores is a whole 32-byte sector (cols_tile). The entry, exit
-// and cols_wgs_fwd kernels still stage their lines in shared memory and
-// run fft_lines (ROADMAP.md, K1).
+// loads or stores is a whole 32-byte sector (cols_tile). The entry and
+// exit kernels are row kernels on line_fft too, their prologue and
+// epilogue on the registers. cols_wgs_fwd still stages its columns in
+// shared memory and runs fft_lines (ROADMAP.md, K1).
 //
 // Launchers take raw pointers, sizes, flags and a stream, and return
 // cudaGetLastError(). They allocate nothing.
@@ -38,27 +39,46 @@
 namespace slm {
 
 // #1 <- pallas_fft.wgs_carry_entry_pallas (_rows_phase_kernel,
-// _rows_phase_amp_kernel). One block per row: z = amp * e^{i psi} with a
-// fully range-reduced sincosf (psi is unbounded on warm starts), then the
-// forward row FFT.
+// _rows_phase_amp_kernel): z = e^{i psi}, or amp * e^{i psi} with an
+// amplitude plane (a scalar amplitude folds into the column kernel's post
+// scale, not into this kernel), then the forward row FFT, unnormalized.
+//
+// Bound on the H100 by bytes: psi read, gr and gi written (an amplitude
+// plane: read too), 15 (20) us at 2048^2. The rows are rows_fft's
+// (natural_fft.cu, row_place): thread s loads psi, and the amplitude at the
+// same indices, at its points s + q W / E straight into registers (4-byte
+// loads, a warp's 128 contiguous bytes an instruction), forms the phasor
+// there and hands it to the forward line_fft; the store goes from the same
+// registers. sincosf keeps libdevice's full range reduction (Payne-Hanek
+// beyond |psi| = 105615): psi is unbounded on warm starts and on a phase a
+// user gives, so neither __sincosf nor a Cody-Waite-only reduction will do.
+// Inlined, it costs nothing where it is not taken: 64 registers from 1024
+// points up, no spill (a 32-byte stack frame at 64 and 512), four blocks
+// an SM, 72% of the bound at 2048^2 (0.021 ms; the first version, one row
+// a block staged in shared memory on fft_lines, 0.101). Moving the far
+// branch into a call of its own cost 26%; capping the registers for three
+// blocks an SM, 6%. PERF.md, section 6, has the measurements.
+template <int LOG2N>
 __global__ void __launch_bounds__(kThreads)
 carry_entry_kernel(const float* __restrict__ psi, const float* __restrict__ amp,
-                   float* __restrict__ gr, float* __restrict__ gi, int W,
-                   int log2W, const float2* __restrict__ tw) {
+                   float* __restrict__ gr, float* __restrict__ gi,
+                   const float2* __restrict__ tw) {
+  constexpr int E = line_points(LOG2N), T = line_threads(LOG2N);
   extern __shared__ float2 sbuf[];
-  const size_t base = (size_t)blockIdx.x * W;
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
+  const RowPlace p = row_place<LOG2N>(sbuf);
+  float2 v[E];
+  // Every load first (psi in .x, the amplitude in .y), then the phasors.
+#pragma unroll
+  for (int q = 0; q < E; ++q)
+    v[q] = make_float2(psi[p.base + q * T], amp ? amp[p.base + q * T] : 1.f);
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
     float s, c;
-    sincosf(psi[base + i], &s, &c);
-    const float a = amp ? amp[base + i] : 1.f;
-    sbuf[i] = make_float2(a * c, a * s);
+    sincosf(v[q].x, &s, &c);
+    v[q] = make_float2(v[q].y * c, v[q].y * s);
   }
-  __syncthreads();
-  fft_lines(sbuf, W, log2W, 1, tw);
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    gr[base + i] = sbuf[i].x;
-    gi[base + i] = sbuf[i].y;
-  }
+  line_fft<LOG2N, false>(v, p.buf, 1, p.s, tw);
+  store_row_regs<LOG2N>(v, gr, gi, p.base, 1.f);
 }
 
 // #2 <- pallas_fft.wgs_carry_step_pallas kernel B
@@ -310,20 +330,28 @@ rows_normfwd_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
   store_row_regs<LOG2N>(v, gr, gi, p.base, 1.f);
 }
 
-// #4 <- pallas_fft.wgs_carry_exit_pallas (_rows_phase_extract_kernel).
-// One block per row: inverse row FFT, then atan2f.
+// #4 <- pallas_fft.wgs_carry_exit_pallas (_rows_phase_extract_kernel):
+// the inverse row FFT of the carry, then psi = atan2f(Im, Re) (0 where the
+// point is 0, as torch.atan2).
+//
+// Bound on the H100 by bytes: gr and gi read, psi written, 15 us at
+// 2048^2. The rows are rows_fft's (row_place): load_row_regs, the inverse
+// line_fft left unnormalized (atan2 does not see the scale), atan2f on the
+// registers, and one plane stored at the same indices. 64 registers at
+// 2048 and 4096 points (80 at 1024), no spill: 58% of the bound at 2048^2
+// (0.026 ms; the first version 0.104), 76% at 4096^2. PERF.md, section 6.
+template <int LOG2N>
 __global__ void __launch_bounds__(kThreads)
 carry_exit_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
-                  float* __restrict__ psi, int W, int log2W,
-                  const float2* __restrict__ tw_inv) {
+                  float* __restrict__ psi, const float2* __restrict__ tw_inv) {
+  constexpr int E = line_points(LOG2N), T = line_threads(LOG2N);
   extern __shared__ float2 sbuf[];
-  const size_t base = (size_t)blockIdx.x * W;
-  for (int i = threadIdx.x; i < W; i += blockDim.x)
-    sbuf[i] = make_float2(gr[base + i], gi[base + i]);
-  __syncthreads();
-  fft_lines(sbuf, W, log2W, 1, tw_inv);
-  for (int i = threadIdx.x; i < W; i += blockDim.x)
-    psi[base + i] = atan2f(sbuf[i].y, sbuf[i].x);
+  const RowPlace p = row_place<LOG2N>(sbuf);
+  float2 v[E];
+  load_row_regs<LOG2N>(v, gr, gi, p.base);
+  line_fft<LOG2N, true>(v, p.buf, 1, p.s, tw_inv);
+#pragma unroll
+  for (int q = 0; q < E; ++q) psi[p.base + q * T] = atan2f(v[q].y, v[q].x);
 }
 
 cudaError_t launch_stats_reduce(const double* partials, int n_blocks,
@@ -364,17 +392,27 @@ int launch_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
   return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
 }
 
-// Launch of one instantiation of rows_normfwd_kernel.
+// Launches of one instantiation of the row kernels (launch_rows).
 template <int LOG2N>
 int launch_rows_normfwd(const float* hr, const float* hi, const float* amp, float* gr,
                         float* gi, int H, const float2* tw_fwd, const float2* tw_inv,
                         cudaStream_t stream) {
-  constexpr LaunchShape shape = launch_shape(kRowsNormfwd, LOG2N);
-  static_assert(shape.threads == kThreads && shape.smem <= 48 * 1024, "rows_normfwd launch");
-  if (H % shape.lines) return (int)cudaErrorInvalidValue;
-  rows_normfwd_kernel<LOG2N><<<H / shape.lines, shape.threads, shape.smem, stream>>>(
-      hr, hi, amp, gr, gi, tw_fwd, tw_inv);
-  return (int)cudaGetLastError();
+  return launch_rows<kRowsNormfwd, LOG2N>(rows_normfwd_kernel<LOG2N>, H, stream, hr, hi, amp,
+                                          gr, gi, tw_fwd, tw_inv);
+}
+
+template <int LOG2N>
+int launch_carry_entry(const float* psi, const float* amp, float* gr, float* gi, int H,
+                       const float2* tw, cudaStream_t stream) {
+  return launch_rows<kCarryEntry, LOG2N>(carry_entry_kernel<LOG2N>, H, stream, psi, amp, gr,
+                                         gi, tw);
+}
+
+template <int LOG2N>
+int launch_carry_exit(const float* gr, const float* gi, float* psi, int H,
+                      const float2* tw_inv, cudaStream_t stream) {
+  return launch_rows<kCarryExit, LOG2N>(carry_exit_kernel<LOG2N>, H, stream, gr, gi, psi,
+                                        tw_inv);
 }
 
 }  // namespace slm
@@ -385,9 +423,10 @@ extern "C" {
 
 int slm_carry_entry(const float* psi, const float* amp, float* gr, float* gi,
                     int H, int W, const float2* tw, cudaStream_t stream) {
-  carry_entry_kernel<<<H, kThreads, W * sizeof(float2), stream>>>(
-      psi, amp, gr, gi, W, ilog2(W), tw);
-  return (int)cudaGetLastError();
+  switch (ilog2(W)) {
+    SLM_LEN_CASES(launch_carry_entry, psi, amp, gr, gi, H, tw, stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Blocks of a cols_wgs_roundtrip launch on an (H, W) pair, that is the
@@ -445,9 +484,10 @@ int slm_rows_normfwd(const float* hr, const float* hi, const float* amp,
 
 int slm_carry_exit(const float* gr, const float* gi, float* psi, int H, int W,
                    const float2* tw_inv, cudaStream_t stream) {
-  carry_exit_kernel<<<H, kThreads, W * sizeof(float2), stream>>>(
-      gr, gi, psi, W, ilog2(W), tw_inv);
-  return (int)cudaGetLastError();
+  switch (ilog2(W)) {
+    SLM_LEN_CASES(launch_carry_exit, gr, gi, psi, H, tw_inv, stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -21,13 +21,17 @@ counts its launches in :data:`LAUNCHES`.
 The plain PyTorch version of each kernel is the underscored function of
 the same name in :mod:`slmsuite_torch.ops.fft`.
 
-``rows_fft``, ``cols_fft``, ``rows_normfwd`` and ``cols_wgs_roundtrip``
+The kernels of :data:`LINE_KERNELS` (``rows_fft``, ``cols_fft``,
+``rows_normfwd``, ``cols_wgs_roundtrip``, ``carry_entry``, ``carry_exit``)
 run a register-resident line FFT (``line_fft`` in
 ``csrc/fft_shared.cuh``). Its plan (:meth:`fft_plan`), its exchange's
 index maps, and a plain PyTorch model that follows it pass by pass
 (:meth:`line_fft_model`) are here, so that they can be tested without a
 card; the launch shapes are the launchers' own (:meth:`fft_launch_shape`
-asks them). The other kernels run the shared-memory ``fft_lines``.
+asks them). The five other FFT kernels, all column kernels
+(``cols_fwd_polar``, ``cols_wexp_inv``, ``cols_mraf_fwd``,
+``cols_mraf_mix_inv``, ``cols_wgs_fwd``), run the shared-memory
+``fft_lines``.
 """
 
 import ctypes
@@ -194,7 +198,7 @@ def _cols_tile(H):
 
 
 # ----------------------------------------------------------------------
-# The register-resident line FFT of rows_fft and cols_fft (line_fft in
+# The register-resident line FFT of the LINE_KERNELS (line_fft in
 # csrc/fft_shared.cuh): its plan, its index maps, and a plain PyTorch
 # model that follows the kernel pass by pass.
 # ----------------------------------------------------------------------
@@ -622,7 +626,8 @@ def cols_fft(xr, xi, *, inverse, scale=1.0):
 
 #: The kernels on the line FFT, in the order of ``LineKernel`` in
 #: ``csrc/fft_shared.cuh``.
-LINE_KERNELS = ("rows_fft", "cols_fft", "rows_normfwd", "cols_wgs_roundtrip")
+LINE_KERNELS = ("rows_fft", "cols_fft", "rows_normfwd", "cols_wgs_roundtrip", "carry_entry",
+                "carry_exit")
 
 
 def fft_launch_shape(kernel, n):

@@ -8,10 +8,18 @@ along its last axis, and its farfield planes (weights, target, mask, Kim
 phasor) along both axes, so the JAX inputs are permuted with
 ``scramble_permutation_2d`` and its outputs un-permuted.
 
+The entry and exit kernels' own arithmetic (``carry_entry_kernel`` and
+``carry_exit_kernel`` in ``csrc/wgs_carry.cu``: the phasor, then the
+forward line FFT; the inverse line FFT, then atan2) runs here through
+``cuda_fft.line_fft_model``, which follows the kernels' ``line_fft`` pass
+by pass, at every line length the kernels take.
+
 Tolerances, as in the JAX package's own Pallas-vs-twin test
 (``tests/holography/test_algorithms.py``): carry planes 3e-5 relative to
 their peak; weights, phasors and stats sums atol 3e-5 / rtol 1e-4; psi
-99th-percentile wrapped difference below 2e-3.
+99th-percentile wrapped difference below 2e-3. At |psi| up to 1e3 (a warm
+start) both sides take cos and sin of the same f32 value, so the carry is
+held to the same 3e-5.
 """
 
 import jax.numpy as jnp
@@ -20,6 +28,7 @@ import pytest
 import torch
 
 import slmsuite_torch
+from slmsuite_torch.ops import cuda_fft
 from slmsuite_torch.ops import fft as T
 from slmsuite_tpu.ops import fft as F
 
@@ -27,6 +36,10 @@ SHAPE = (64, 128)
 #: The step's shapes: the kernels' line FFT has two passes at 64 and 128
 #: points and three at 256, so these cover both plans along each axis.
 STEP_SHAPES = [(64, 128), (128, 64), (256, 128)]
+#: Every line length of the kernels' line FFT (two passes to 256, three
+#: above), a few rows of each for the entry and exit kernels' model.
+LINE_SIDES = (64, 128, 256, 512, 1024, 2048, 4096)
+LINE_ROWS = 3
 CARRY_RTOL = 3e-5
 ATOL, RTOL = 3e-5, 1e-4
 PSI_P99 = 2e-3
@@ -166,3 +179,66 @@ def test_carry_step(shape, rule, amp_kind, stats_on, kim):
     np.testing.assert_allclose(got[5].numpy(), np.asarray(ref[5]), atol=ATOL, rtol=RTOL)
     diff = np.angle(np.exp(1j * (got_psi - ref_psi)))
     assert np.percentile(np.abs(diff), 99) < PSI_P99
+
+
+def _unscramble_rows(x):
+    """The JAX carry's last axis in natural order, for any number of rows."""
+    perm = F.scramble_permutation(np.shape(x)[-1])
+    out = np.empty_like(np.asarray(x))
+    out[..., perm] = np.asarray(x)
+    return out
+
+
+def _rows_inputs(n, psi_max=2 * np.pi):
+    rng = np.random.default_rng(n)
+    shape = (LINE_ROWS, n)
+    psi = rng.uniform(-psi_max, psi_max, shape).astype(np.float32)
+    return psi, (0.5 + rng.uniform(0, 1, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+@pytest.mark.parametrize("n", LINE_SIDES)
+def test_carry_entry_kernel_model_matches_jax(n, amp_kind):
+    """carry_entry_kernel: (amp cos psi, amp sin psi) in the registers (amp
+    = 1 for a scalar, which folds into the post scale), then the forward
+    line FFT, against the JAX twin."""
+    psi, amp_plane = _rows_inputs(n)
+    jamp = jnp.float32(0.5) if amp_kind == "scalar" else jnp.asarray(amp_plane)
+    ref = F._wgs_carry_entry_jnp(jnp.asarray(psi), jamp)
+    a = 1.0 if amp_kind == "scalar" else torch.from_numpy(amp_plane)
+    t = torch.from_numpy(psi)
+    got = cuda_fft.line_fft_model(a * torch.cos(t), a * torch.sin(t), inverse=False)
+    for g, r in zip(got, ref):
+        _assert_carry(g.numpy(), _unscramble_rows(r))
+
+
+@pytest.mark.parametrize("n", LINE_SIDES)
+def test_carry_exit_kernel_model_matches_jax(n):
+    """carry_exit_kernel: the unnormalized inverse line FFT of the carry,
+    then atan2, against the JAX twin."""
+    psi, _ = _rows_inputs(n)
+    gr, gi = F._wgs_carry_entry_jnp(jnp.asarray(psi), jnp.float32(1.0))
+    ref = np.asarray(F._wgs_carry_exit_jnp(gr, gi))
+    zr, zi = cuda_fft.line_fft_model(torch.from_numpy(_unscramble_rows(gr)),
+                                     torch.from_numpy(_unscramble_rows(gi)), inverse=True)
+    got = torch.atan2(zi, zr).numpy()
+    diff = np.angle(np.exp(1j * (got - ref)))
+    assert np.percentile(np.abs(diff), 99) < PSI_P99
+
+
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+@pytest.mark.parametrize("route", ["plain", "model"])
+def test_carry_entry_warm_start_range(route, amp_kind):
+    """psi uniform in +-1e3, as a warm start or a user's phase gives it:
+    the plain version and the kernel's model against the JAX twin."""
+    psi, amp_plane = _rows_inputs(2048, psi_max=1e3)
+    jamp = jnp.float32(1.0) if amp_kind == "scalar" else jnp.asarray(amp_plane)
+    ref = F._wgs_carry_entry_jnp(jnp.asarray(psi), jamp)
+    a = 1.0 if amp_kind == "scalar" else torch.from_numpy(amp_plane)
+    t = torch.from_numpy(psi)
+    if route == "plain":
+        got = T._wgs_carry_entry(t, a)
+    else:
+        got = cuda_fft.line_fft_model(a * torch.cos(t), a * torch.sin(t), inverse=False)
+    for g, r in zip(got, ref):
+        _assert_carry(g.numpy(), _unscramble_rows(r))

@@ -19,6 +19,7 @@ import torch
 CARRY_RTOL = 1e-4
 ATOL, RTOL = 1e-4, 1e-3
 PSI_P99 = 2e-3
+PSI_MAX_ATOL = 1e-4   # psi, where no point of the carry is near 0
 
 
 @pytest.fixture
@@ -149,6 +150,8 @@ def test_step_kernels_zero_fields(cuda, shape):
         assert max(_rel(gr, field.real), _rel(gi, field.imag)) <= CARRY_RTOL
         plain = fft._rows_normfwd(zero, zero, a)
         assert max(_rel(gr, plain[0]), _rel(gi, plain[1])) <= CARRY_RTOL
+    # A zero carry leaves psi 0, as torch.atan2 gives it.
+    assert bool((cuda_fft.carry_exit(zero, zero) == 0).all())
 
 
 @pytest.mark.cuda
@@ -248,6 +251,34 @@ def test_fft_kernels_match_plain(cuda, name, shape, inverse):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", FFT_SHAPES)
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+@pytest.mark.parametrize("psi_max", [4 * np.pi, 1e6], ids=["4pi", "1e6"])
+def test_carry_entry_and_exit_match_plain(cuda, shape, amp_kind, psi_max):
+    """carry_entry and carry_exit, row kernels on the line FFT, at every
+    line length and the rectangles, with psi in +-4 pi and in +-1e6 (past
+    105615 sincosf takes its Payne-Hanek reduction)."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    rng = np.random.default_rng(4)
+    psi = torch.from_numpy(rng.uniform(-psi_max, psi_max, shape).astype(np.float32)).to(cuda)
+    amp = (1.0 if amp_kind == "scalar" else
+           torch.from_numpy((0.5 + rng.uniform(0, 1, shape)).astype(np.float32)).to(cuda))
+    cuda_fft.reset_launch_counts()
+    gr, gi = cuda_fft.carry_entry(psi, amp)
+    pgr, pgi = fft._wgs_carry_entry(psi, amp)
+    assert max(_rel(gr, pgr), _rel(gi, pgi)) <= CARRY_RTOL
+    got, ref = cuda_fft.carry_exit(pgr, pgi), fft._wgs_carry_exit(pgr, pgi)
+    assert _psi_p99(got, ref) < PSI_P99
+    # The exit's inverse gives back W amp e^{i psi}, far from 0 at every
+    # point, so every point is held, not a percentile: a fault confined to
+    # one row of a block shows here.
+    wrapped = torch.remainder(got - ref + np.pi, 2 * np.pi) - np.pi
+    assert float(wrapped.abs().max()) <= PSI_MAX_ATOL
+    assert cuda_fft.LAUNCHES["carry_entry"] == 1 and cuda_fft.LAUNCHES["carry_exit"] == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["rows_fft", "cols_fft"])
 def test_fft_wrappers_reject_strided_planes_and_take_offset_views(cuda, name):
     """A strided view raises and nothing is launched. A contiguous view
@@ -284,7 +315,9 @@ def test_fft_launch_shapes_fit_the_card(cuda, n):
     from slmsuite_torch.ops import cuda_fft
 
     points = cuda_fft.line_points(n)
-    for kernel in ("rows_fft", "rows_normfwd"):
+    rows_kernels = [k for k in cuda_fft.LINE_KERNELS if not k.startswith("cols")]
+    assert rows_kernels == ["rows_fft", "rows_normfwd", "carry_entry", "carry_exit"]
+    for kernel in rows_kernels:
         rows, blocks, threads, smem = cuda_fft.fft_launch_shape(kernel, n)
         assert blocks == 1 and threads == 256 and 64 % rows == 0 and smem <= 48 * 1024
         assert threads * points == rows * n and smem == rows * cuda_fft.line_pitch(n) * 8
