@@ -16,9 +16,10 @@ there is no card or the port is missing. In order:
    ``rows_normfwd`` WGS-Kim, stats on; scalar and array amplitude) at
    every shape of the ``rows_fft`` checks; ``rows_fft`` and ``cols_fft`` at every
    power-of-two side from 64 to 4096, at 64x4096, 4096x64 and 256x512,
-   forward and inverse; the other natural-path kernels and the composed
-   dispatchers at 2048^2 and 256x512, and the canvas transforms on a
-   2048^2 canvas holding a 1024^2 window; the two MRAF kernels at 2048^2
+   forward and inverse, and ``cols_fwd_polar`` and ``cols_wexp_inv`` there
+   with one column all zero and the phase in +-pi and in +-1e6; the
+   composed natural-path dispatchers at 2048^2 and 256x512, and the canvas
+   transforms on a 2048^2 canvas holding a 1024^2 window; the two MRAF kernels at 2048^2
    and 256x512 for Leonardo and Kim, zero weights on and off, stats on
    and off, scalar and array amplitude, and the composed ``ifft2_phase``,
    ``wgs_fused_step`` and ``mraf_fused_step``; the four compressed
@@ -66,15 +67,15 @@ there is no card or the port is missing. In order:
    ``gs_padded``, ``spots_kim``, ``gs_mraf`` and ``wgs_leonardo_mraf_zero``
    replayed through the kernels;
 7. timing with CUDA events: each kernel, its plain version and, where one
-   PyTorch call computes the same function, that call, at 2048^2; the six
-   kernels on the line FFT, ``cols_wgs_roundtrip``, ``rows_normfwd`` and
-   ``carry_entry`` (both also with an amplitude plane), ``carry_exit``,
-   ``rows_fft`` and ``cols_fft``, at 1024^2, 2048^2 and 4096^2 by CUDA
-   events and by the device's own time under ``torch.profiler`` (their
-   launches are about as short as the host's enqueue; the kernels line
-   reports the device time and says so in ``timer``), with
-   ``cols_fwd_polar`` (the shared-memory FFT on the same planes) and the
-   composed ``fft2``/``ifft2`` (against ``torch.fft.fft2``/``ifft2``),
+   PyTorch call computes the same function, that call, at 2048^2; the
+   eight kernels on the line FFT, ``cols_wgs_roundtrip``, ``rows_normfwd``
+   and ``carry_entry`` (both also with an amplitude plane), ``carry_exit``,
+   ``rows_fft``, ``cols_fft``, ``cols_fwd_polar`` and ``cols_wexp_inv``, at
+   1024^2, 2048^2 and 4096^2 by CUDA events and by the device's own time
+   under ``torch.profiler`` (their launches are about as short as the
+   host's enqueue; the kernels line reports the device time and says so in
+   ``timer``), with the composed ``fft2``/``ifft2`` (against
+   ``torch.fft.fft2``/``ifft2``),
    ``ifft2_phase`` (with ``torch.fft.ifft2``), ``wexp_ifft2``,
    ``fft2_polar_from_phase`` and ``wexp_ifft2_phase`` beside them; the
    composed ``wgs_fused_forward``, ``wgs_fused_step`` and
@@ -151,8 +152,9 @@ RULES = ("kim", "leonardo", "wu", "tanh")
 #: of slmsuite_torch/csrc).
 PORT_KERNEL_NAMES = (
     "carry_entry_kernel", "carry_exit_kernel", "cols_fft_kernel", "cols_fft_cluster_kernel",
-    "cols_fwd_polar_kernel", "cols_mraf_fwd_kernel", "cols_mraf_mix_inv_kernel",
-    "cols_wexp_inv_kernel", "cols_wgs_fwd_kernel", "cols_wgs_roundtrip_kernel",
+    "cols_fwd_polar_kernel", "cols_fwd_polar_cluster_kernel", "cols_mraf_fwd_kernel",
+    "cols_mraf_mix_inv_kernel", "cols_wexp_inv_kernel", "cols_wexp_inv_cluster_kernel",
+    "cols_wgs_fwd_kernel", "cols_wgs_roundtrip_kernel",
     "cols_wgs_roundtrip_cluster_kernel", "f2n_kernel",
     "roundtrip_kernel", "rows_fft_kernel", "rows_normfwd_kernel", "spot_reduce_kernel",
     "stats_reduce_kernel", "unit_norm_kernel",
@@ -176,12 +178,13 @@ CAMERA_STAT_ATOL, CAMERA_WEIGHT_ATOL = 2e-3, 1e-2
 #: Shapes of the MRAF parity phase; the first is the main path's.
 MRAF_SHAPES = ((2048, 2048), (256, 512))
 
-#: Shapes of the rows_fft and cols_fft parity checks: every power-of-two
-#: side the kernels take, the two extreme rectangles and 256x512.
+#: Shapes of the parity checks of the natural path's kernels (rows_fft,
+#: cols_fft, cols_fwd_polar, cols_wexp_inv): every power-of-two side the
+#: kernels take, the two extreme rectangles and 256x512.
 FFT_SHAPES = tuple((n, n) for n in (64, 128, 256, 512, 1024, 2048, 4096)) + (
     (256, 512), (64, 4096), (4096, 64))
-#: Sizes at which rows_fft and cols_fft are timed; the kernels line reports
-#: the second (the main paths' plane).
+#: Sizes at which the kernels on the line FFT are timed; the kernels line
+#: reports the second (the main paths' plane).
 FFT_TIMED_SIDES = (1024, 2048, 4096)
 
 #: The H100 SXM's published peaks (NVIDIA data sheet, at 700 W).
@@ -602,6 +605,7 @@ def phase_natural_parity(device):
         assert e < PSI_P99, f"{tag}: p99 {e:.3e}"
         lines.append(f"{tag}: p99 {e:.3e}")
 
+    rng = np.random.default_rng(5)
     for shape in FFT_SHAPES:
         xr, xi = random_pair(shape, device)
         for inverse in (False, True):
@@ -609,15 +613,29 @@ def phase_natural_parity(device):
                 planes(f"{name} {shape} inverse={inverse}",
                        getattr(cuda_fft, name)(xr, xi, inverse=inverse, scale=0.5),
                        getattr(fft, "_" + name)(xr, xi, inverse=inverse, scale=0.5), name)
-        del xr, xi
+        # The column kernels with an epilogue, on a pair with one column
+        # all zero (|F| = 0 and arg F = 0 there), the phase in +-pi and in
+        # +-1e6 (past 105615 sincosf takes its Payne-Hanek reduction).
+        xr[:, 1], xi[:, 1] = 0.0, 0.0
+        got = cuda_fft.cols_fwd_polar(xr, xi, 0.25)
+        polar(f"cols_fwd_polar {shape}", got, fft._cols_fwd_polar(xr, xi, 0.25),
+              "cols_fwd_polar")
+        zero = max(float(x[:, 1].abs().max()) for x in got)
+        assert zero == 0.0, f"cols_fwd_polar {shape}: {zero} on the zero column"
+        w = xr.abs()
+        for phase_max in (np.pi, 1e6):
+            phi = torch.from_numpy(
+                rng.uniform(-phase_max, phase_max, shape).astype(np.float32)).to(device)
+            got = cuda_fft.cols_wexp_inv(w, phi)
+            planes(f"cols_wexp_inv {shape} phase +-{phase_max:g}", got,
+                   fft._cols_wexp_inv(w, phi), "cols_wexp_inv")
+            zero = max(float(x[:, 1].abs().max()) for x in got)
+            assert zero == 0.0, f"cols_wexp_inv {shape}: {zero} on the zero column"
+        del xr, xi, w, phi, got
     fft_checks = len(lines)
     for shape in ((2048, 2048), (256, 512)):
         xr, xi = random_pair(shape, device)
-        polar(f"cols_fwd_polar {shape}", cuda_fft.cols_fwd_polar(xr, xi, 0.25),
-              fft._cols_fwd_polar(xr, xi, 0.25), "cols_fwd_polar")
-        w, phi = xr.abs(), xi * np.pi
-        planes(f"cols_wexp_inv {shape}", cuda_fft.cols_wexp_inv(w, phi),
-               fft._cols_wexp_inv(w, phi), "cols_wexp_inv")
+        w = xr.abs()
         for amp_kind in ("scalar", "array"):
             x = step_inputs(shape, amp_kind, "kim", True, device)
             polar(f"fft2_polar_from_phase {shape} {amp_kind}",
@@ -647,8 +665,8 @@ def phase_natural_parity(device):
     torch.cuda.synchronize()
     OUT.mkdir(exist_ok=True)
     (OUT / "parity_natural.log").write_text("\n".join(lines) + "\n")
-    log(f"natural parity: {len(lines)} checks passed ({fft_checks} of rows_fft and "
-        f"cols_fft at {len(FFT_SHAPES)} shapes); 2048^2 max |diff| "
+    log(f"natural parity: {len(lines)} checks passed ({fft_checks} of rows_fft, cols_fft, "
+        f"cols_fwd_polar and cols_wexp_inv at {len(FFT_SHAPES)} shapes); 2048^2 max |diff| "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst
 
@@ -737,15 +755,14 @@ def interleaved(name, kernel, plain, library=None, bound_of=None, size="2048^2",
 
 
 def phase_fft_timing(device):
-    """``rows_fft`` and ``cols_fft`` at each of FFT_TIMED_SIDES, each with
-    its plain version, its library call (``torch.fft.fft`` along the same
-    axis) and its bound, by CUDA events and by the device's own time
-    (:meth:`device_ms`); beside them, by both too, ``cols_fwd_polar``,
-    which moves the same planes on the shared-memory ``fft_lines``; and
-    the composed transforms' device time. Returns the 2048^2 times of the
-    kernels line: ``rows_fft`` and ``cols_fft`` by device time,
-    ``cols_fwd_polar`` by CUDA events like the kernels timed in
-    :meth:`phase_kernel_timing`."""
+    """The natural path's kernels at each of FFT_TIMED_SIDES, each with
+    its plain version and its bound, by CUDA events and by the device's own
+    time (:meth:`device_ms`): ``rows_fft`` and ``cols_fft`` with their
+    library call (``torch.fft.fft`` along the same axis), and beside
+    ``cols_fft`` the two column kernels that move the same four planes,
+    ``cols_fwd_polar`` and ``cols_wexp_inv`` (no library call); then the
+    composed transforms' device time. Returns the four kernels' 2048^2
+    device times for the kernels line."""
     from slmsuite_torch.ops import cuda_fft, fft
 
     t = {}
@@ -764,19 +781,21 @@ def phase_fft_timing(device):
             "cols_fwd_polar": (lambda: cuda_fft.cols_fwd_polar(xr, xi, 1.0),
                                lambda: fft._cols_fwd_polar(xr, xi, 1.0), None,
                                bound(shape, 4, 1)),
+            "cols_wexp_inv": (lambda: cuda_fft.cols_wexp_inv(w, phi),
+                              lambda: fft._cols_wexp_inv(w, phi), None, bound(shape, 4, 1)),
         }
         for name, (kernel, plain, library, bound_of) in timed.items():
-            by_events = interleaved(name, kernel, plain, library, bound_of, size)
+            interleaved(name, kernel, plain, library, bound_of, size)
             # The device's own time: these launches are shorter than the
             # host takes to enqueue them.
             by_device = interleaved(name, kernel, plain, library, bound_of, size,
                                     timer=device_ms)
-            if library is not None:
-                log(f"  {name} {size}: {by_device['bound'] / by_device['kernel']:.3f} of its "
-                    f"bound, {by_device['kernel'] / by_device['library']:.3f} of its library "
-                    f"call ({by_device['timer']})")
-            if side == 2048 and name in KERNELS:
-                t[name] = by_device if library is not None else by_events
+            log(f"  {name} {size}: {by_device['bound'] / by_device['kernel']:.3f} of its "
+                f"bound" + (f", {by_device['kernel'] / by_device['library']:.3f} of its "
+                            "library call" if library is not None else "")
+                + f" ({by_device['timer']})")
+            if side == 2048:
+                t[name] = by_device
         # The composed transforms (two launches each) against torch.fft.
         interleaved("fft2 (rows_fft + cols_fft)", lambda: cuda_fft.fft2(xr, xi),
                     lambda: fft._fft2(xr, xi), library=lambda: torch.fft.fft2(z, norm="ortho"),
@@ -823,7 +842,7 @@ def write_launch_log():
                          "bytes of shared memory a block")
     ptxas = (OUT / "ptxas.log").read_text().splitlines() if (OUT / "ptxas.log").exists() else []
     names = ("rows_fft_kernel", "cols_fft_", "rows_normfwd_kernel", "cols_wgs_roundtrip_",
-             "carry_entry_kernel", "carry_exit_kernel")
+             "carry_entry_kernel", "carry_exit_kernel", "cols_fwd_polar_", "cols_wexp_inv_")
     for k, line in enumerate(ptxas):
         if "Compiling entry function" in line and any(name in line for name in names):
             lines.append(" ".join(x.strip() for x in ptxas[k:k + 4]))
@@ -893,10 +912,7 @@ def phase_kernel_timing(device):
     shape = (2048, 2048)
     x = step_inputs(shape, "scalar", "kim", True, device)
     gr, gi = fft._wgs_carry_entry(x["psi"], x["amp"])
-    cols_args = (gr, gi, x["weights"], x["target"], x["mask"], x["phase_ff"], x["scal"])
     cols_kw = dict(rule="kim", kim=True, stats_on=True)
-    xr, xi = random_pair(shape, device)
-    w, phi = xr.abs(), xi * np.pi
     t = {}
     # psi, weights, target, mask and the angle store read once (the carry
     # stays between the two halves), re, im, weights and the store written
@@ -909,9 +925,6 @@ def phase_kernel_timing(device):
     t.update(phase_carry_timing(device))
     t.update(phase_fft_timing(device))
     write_launch_log()
-    t["cols_wexp_inv"] = interleaved(
-        "cols_wexp_inv", lambda: cuda_fft.cols_wexp_inv(w, phi),
-        lambda: fft._cols_wexp_inv(w, phi), bound_of=bound(shape, 4, 1))
 
     # MRAF: the M1 variants (WGS-Leonardo, stats on, no zero weights), and
     # the mix kernel's largest variant (Kim, zero weights).

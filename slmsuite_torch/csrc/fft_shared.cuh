@@ -1,9 +1,9 @@
 // The FFTs of the kernels of wgs_carry.cu, natural_fft.cu and mraf_carry.cu:
 // the shared-memory fft_lines with the column kernels' tile load, store and
 // launch setup, and, further down, the register-resident line_fft with the
-// row and column places, loads and stores, tile widths and launch shapes
-// of the kernels on it (rows_fft, cols_fft, rows_normfwd,
-// cols_wgs_roundtrip, carry_entry, carry_exit).
+// row and column places, loads and stores, tile widths, launch shapes and
+// launchers of the kernels on it (rows_fft, cols_fft, cols_fwd_polar,
+// cols_wexp_inv, rows_normfwd, cols_wgs_roundtrip, carry_entry, carry_exit).
 //
 // Replaces `_fft_core` in slmsuite_tpu/ops/pallas_fft.py: a four-step DFT
 // written as block-complex matrix products for the TPU's matrix unit. On
@@ -104,11 +104,12 @@ __device__ __forceinline__ void store_col_tile(const float2* buf,
 }
 
 // ----------------------------------------------------------------------
-// The register-resident line FFT (rows_fft_kernel and cols_fft_kernel of
-// natural_fft.cu; rows_normfwd_kernel, cols_wgs_roundtrip_kernel,
-// carry_entry_kernel and carry_exit_kernel of wgs_carry.cu). Five column
-// kernels still run fft_lines: cols_fwd_polar, cols_wexp_inv (natural_fft.cu),
-// cols_mraf_fwd, cols_mraf_mix_inv (mraf_carry.cu) and cols_wgs_fwd.
+// The register-resident line FFT (rows_fft_kernel, cols_fft_kernel,
+// cols_fwd_polar_kernel and cols_wexp_inv_kernel of natural_fft.cu;
+// rows_normfwd_kernel, cols_wgs_roundtrip_kernel, carry_entry_kernel and
+// carry_exit_kernel of wgs_carry.cu). Three column kernels still run
+// fft_lines: cols_mraf_fwd, cols_mraf_mix_inv (mraf_carry.cu) and
+// cols_wgs_fwd (wgs_carry.cu).
 //
 // fft_lines crosses shared memory log2(n) + 1 times with a barrier each
 // and reads a twiddle from global memory per butterfly. line_fft keeps the
@@ -146,8 +147,8 @@ __device__ __forceinline__ void store_col_tile(const float2* buf,
 // the cluster's. After a pass with p a multiple of 8 G a thread's outputs
 // (i - k) R + k + r p all go to readers s' = k mod 8 G = s mod 8 G, its
 // own block: that exchange is local, with the block's barriers. So 4096 =
-// 16 * 16 * 16 on two blocks crosses blocks once. cols_fft takes G = 2
-// there, where one block's registers hold only four columns.
+// 16 * 16 * 16 on two blocks crosses blocks once. The column kernels take
+// G = 2 there, where one block's registers hold only four columns.
 //
 // Shared memory: point m of a line sits in slot line_pad(m) = m + m / 16;
 // the slot stride `ms` and the line's base are the caller's (rows: a line
@@ -368,8 +369,16 @@ __device__ __forceinline__ void line_fft(float2 (&v)[line_points(LOG2N)], float2
   if constexpr (line_passes(LOG2N) == 3) line_pass<LOG2N, INV, 2, L1, G>(v, line, ms, s, tw);
 }
 
-// Thread (s, column c of the tile) loads its points of line_fft's layout,
-// rows s + q H / E of column `col`, from the (H, W) pair into registers.
+// Offset in the (H, W) plane of point q of thread s of column `col`: row
+// s + q H / E, line_fft's layout. The column loads and stores below take
+// their offsets from it.
+template <int LOG2N>
+__device__ __forceinline__ size_t col_offset(int q, int W, size_t col, int s) {
+  return (size_t)(s + q * line_threads(LOG2N)) * W + col;
+}
+
+// Thread (s, column c of the tile) loads its points of line_fft's layout
+// from the (H, W) pair into registers.
 template <int LOG2N>
 __device__ __forceinline__ void load_col_regs(float2 (&v)[line_points(LOG2N)],
                                               const float* __restrict__ xr,
@@ -377,7 +386,7 @@ __device__ __forceinline__ void load_col_regs(float2 (&v)[line_points(LOG2N)],
                                               size_t col, int s) {
 #pragma unroll
   for (int q = 0; q < line_points(LOG2N); ++q) {
-    const size_t g = (size_t)(s + q * line_threads(LOG2N)) * W + col;
+    const size_t g = col_offset<LOG2N>(q, W, col, s);
     v[q] = make_float2(xr[g], xi[g]);
   }
 }
@@ -391,9 +400,27 @@ __device__ __forceinline__ void store_col_regs(const float2 (&v)[line_points(LOG
                                                size_t col, int s, float scale) {
 #pragma unroll
   for (int q = 0; q < line_points(LOG2N); ++q) {
-    const size_t g = (size_t)(s + q * line_threads(LOG2N)) * W + col;
+    const size_t g = col_offset<LOG2N>(q, W, col, s);
     yr[g] = v[q].x * scale;
     yi[g] = v[q].y * scale;
+  }
+}
+
+// Store the registers in polar form, (scale * |v|, arg v), in the layout
+// of load_col_regs. A point that is 0 gives arg 0: the transform of zeros
+// may hold -0 (a zero times a negative twiddle), and atan2f(+-0, -0) is
+// +-pi, so the real part goes in as re + 0, which is +0 there and re
+// elsewhere.
+template <int LOG2N>
+__device__ __forceinline__ void store_col_polar(const float2 (&v)[line_points(LOG2N)],
+                                                float* __restrict__ amp,
+                                                float* __restrict__ theta, int W,
+                                                size_t col, int s, float scale) {
+#pragma unroll
+  for (int q = 0; q < line_points(LOG2N); ++q) {
+    const size_t g = col_offset<LOG2N>(q, W, col, s);
+    amp[g] = sqrtf(v[q].x * v[q].x + v[q].y * v[q].y) * scale;
+    theta[g] = atan2f(v[q].y, v[q].x + 0.f);
   }
 }
 
@@ -405,6 +432,17 @@ struct ColPlace {
   size_t col;
 };
 
+template <int G>
+__device__ __forceinline__ ColPlace col_place(int tc, int log2tc) {
+  int rank = 0;
+  if (G > 1) rank = cooperative_groups::this_cluster().block_rank();
+  ColPlace p;
+  p.c = threadIdx.x & (tc - 1);
+  p.s = line_thread<G>(threadIdx.x >> log2tc, rank);
+  p.col = (size_t)(blockIdx.x / G) * tc + p.c;
+  return p;
+}
+
 // The start of a column-tile kernel: the thread's place, and its points of
 // line_fft's layout loaded into v. With G > 1 every block of the cluster
 // has started before any writes another's memory.
@@ -413,13 +451,29 @@ __device__ __forceinline__ ColPlace col_tile_start(float2 (&v)[line_points(LOG2N
                                                        const float* __restrict__ xr,
                                                        const float* __restrict__ xi, int W,
                                                        int tc, int log2tc) {
-  int rank = 0;
-  if (G > 1) rank = cooperative_groups::this_cluster().block_rank();
-  ColPlace p;
-  p.c = threadIdx.x & (tc - 1);
-  p.s = line_thread<G>(threadIdx.x >> log2tc, rank);
-  p.col = (size_t)(blockIdx.x / G) * tc + p.c;
+  const ColPlace p = col_place<G>(tc, log2tc);
   load_col_regs<LOG2N>(v, xr, xi, W, p.col, p.s);
+  if (G > 1) cooperative_groups::this_cluster().sync();
+  return p;
+}
+
+// The same start where the tile's points are the constraint w * e^{i phi}:
+// every load first (phi in .x, w in .y, at load_col_regs' offsets), then
+// the phasors point by point. sincosf keeps libdevice's full range
+// reduction: phi is any phase a caller gives, not only one in +-pi.
+template <int LOG2N, int G>
+__device__ __forceinline__ ColPlace col_tile_start_wexp(float2 (&v)[line_points(LOG2N)],
+                                                            const float* __restrict__ w,
+                                                            const float* __restrict__ phi,
+                                                            int W, int tc, int log2tc) {
+  const ColPlace p = col_place<G>(tc, log2tc);
+  load_col_regs<LOG2N>(v, phi, w, W, p.col, p.s);
+#pragma unroll
+  for (int q = 0; q < line_points(LOG2N); ++q) {
+    float sn, cs;
+    sincosf(v[q].x, &sn, &cs);
+    v[q] = make_float2(v[q].y * cs, v[q].y * sn);
+  }
   if (G > 1) cooperative_groups::this_cluster().sync();
   return p;
 }
@@ -470,7 +524,8 @@ __device__ __forceinline__ void store_row_regs(const float2 (&v)[line_points(LOG
   }
 }
 
-// Most threads a block of cols_fft_kernel may have (its register budget).
+// Most threads a block of a column kernel on line_fft may have (its
+// register budget).
 __host__ __device__ constexpr int cols_max_threads(int log2n) {
   return log2n >= 11 ? 1024 : 512;
 }
@@ -492,7 +547,7 @@ __host__ __device__ constexpr int cols_cluster(int log2n) {
 // The kernels on line_fft whose launch shapes slm_fft_launch_shape reports.
 enum LineKernel {
   kRowsFft = 0, kColsFft, kRowsNormfwd, kColsWgsRoundtrip, kCarryEntry, kCarryExit,
-  kNumLineKernels
+  kColsFwdPolar, kColsWexpInv, kNumLineKernels
 };
 
 // What a launch of one of them on lines of 1 << log2n points is made with:
@@ -504,7 +559,8 @@ struct LaunchShape {
   int smem;     // bytes of dynamic shared memory a block: its padded lines
 };
 constexpr LaunchShape launch_shape(int kernel, int log2n) {
-  const bool cols = kernel == kColsFft || kernel == kColsWgsRoundtrip;
+  const bool cols = kernel == kColsFft || kernel == kColsWgsRoundtrip ||
+                    kernel == kColsFwdPolar || kernel == kColsWexpInv;
   const int lines = cols ? cols_tile(log2n) : kThreads / line_threads(log2n);
   const int cluster = cols ? cols_cluster(log2n) : 1;
   return {lines, cluster, lines * line_threads(log2n) / cluster,
@@ -548,8 +604,32 @@ int launch_rows(void (*kernel)(Params...), int H, cudaStream_t stream, Args... a
   return (int)cudaGetLastError();
 }
 
-// The column kernels' grid (W / tc blocks) and dynamic shared memory
-// (tc * H complex values, above the 48 KB default at H >= 2048).
+// Launch of a column kernel on line_fft (`kind`, a LineKernel that is a
+// column kernel; `kernel` its instantiation for lines of 1 << LOG2N points,
+// the _cluster_kernel one where cols_cluster says two blocks) over W
+// columns: W / tc tiles of its launch shape, each a cluster of G blocks.
+// The kernel takes (W, tc, log2tc) after `args`. The dynamic shared memory
+// is above the 48 KB default from H = 1024 on: the attribute is the
+// instantiation's own. cols_wgs_roundtrip keeps its own launcher
+// (wgs_carry.cu): with its parameters in this order ptxas spilled 704
+// bytes at 2048 points, not 664, and the kernel took 0.146 ms, not 0.136.
+template <int KIND, int LOG2N, typename... Params, typename... Args>
+int launch_cols(void (*kernel)(Params...), int W, cudaStream_t stream, Args... args) {
+  constexpr LaunchShape shape = launch_shape(KIND, LOG2N);
+  static_assert(shape.threads <= cols_max_threads(LOG2N) && shape.smem <= 227 * 1024,
+                "column kernel launch");
+  if (W % shape.lines) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shape.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<W / shape.lines * shape.cluster, shape.threads, shape.smem, stream>>>(
+      args..., W, shape.lines, ilog2(shape.lines));
+  return (int)cudaGetLastError();
+}
+
+// The grid (W / tc blocks) and dynamic shared memory (tc * H complex
+// values, above the 48 KB default at H >= 2048) of the column kernels on
+// fft_lines.
 template <typename Kernel>
 cudaError_t cols_setup(Kernel kernel, int H, int W, int tc, size_t* smem) {
   if (tc <= 0 || (tc & (tc - 1)) || W % tc) return cudaErrorInvalidValue;

@@ -16,15 +16,16 @@
 // planes and writes two (at 2048^2, 4 x 16.8 MB = 67 MB, 20 us at
 // 3.35 TB/s); its FFT arithmetic, 5 N log2 N flops per line, is ~0.23
 // GFLOP, 3.5 us at the 67 TFLOP/s f32 peak. So the design touches device
-// memory once per operand. cols_fwd_polar and cols_wexp_inv hold a tile
-// of `tc` adjacent columns in shared memory (64 KiB), so that each row
-// segment they load is 4 * tc contiguous bytes, and run fft_lines on it
-// (ROADMAP.md, K1: next to move). rows_fft and cols_fft hold their lines
-// in registers and run line_fft (fft_shared.cuh); see the notes above them.
+// memory once per operand. All four hold their lines in registers and run
+// line_fft (fft_shared.cuh): rows_fft a row per W / E threads, the three
+// column kernels a tile of tc = cols_tile adjacent columns with lanes
+// across the tile, so that each row segment they load or store is a whole
+// 32-byte sector (at 4096 points on a cluster of two blocks). See the notes
+// above them.
 // The polar output, the ortho scale and the constraint synthesis
-// w * e^{i phi} live in the kernels' prologues and epilogues, so no
-// complex farfield plane exists in device memory in the full-fuse
-// geometry.
+// w * e^{i phi} live in the kernels' prologues and epilogues, on the
+// registers, so no complex farfield plane exists in device memory in the
+// full-fuse geometry.
 //
 // Launchers take raw pointers, sizes, scales and a stream, and return
 // cudaGetLastError(). They allocate nothing.
@@ -103,9 +104,9 @@ template <int LOG2N, bool INV, int G>
 __device__ __forceinline__ void cols_fft_tile(const float* __restrict__ xr,
                                               const float* __restrict__ xi,
                                               float* __restrict__ yr,
-                                              float* __restrict__ yi, int W, int tc,
-                                              int log2tc, const float2* __restrict__ tw,
-                                              float scale) {
+                                              float* __restrict__ yi,
+                                              const float2* __restrict__ tw, float scale,
+                                              int W, int tc, int log2tc) {
   extern __shared__ float2 sbuf[];
   float2 v[line_points(LOG2N)];
   const ColPlace p = col_tile_start<LOG2N, G>(v, xr, xi, W, tc, log2tc);
@@ -116,69 +117,113 @@ __device__ __forceinline__ void cols_fft_tile(const float* __restrict__ xr,
 template <int LOG2N, bool INV>
 __global__ void __launch_bounds__(cols_max_threads(LOG2N))
 cols_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                float* __restrict__ yr, float* __restrict__ yi, int W, int tc,
-                int log2tc, const float2* __restrict__ tw, float scale) {
-  cols_fft_tile<LOG2N, INV, 1>(xr, xi, yr, yi, W, tc, log2tc, tw, scale);
+                float* __restrict__ yr, float* __restrict__ yi,
+                const float2* __restrict__ tw, float scale, int W, int tc, int log2tc) {
+  cols_fft_tile<LOG2N, INV, 1>(xr, xi, yr, yi, tw, scale, W, tc, log2tc);
 }
 
 template <int LOG2N, bool INV>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
 cols_fft_cluster_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                        float* __restrict__ yr, float* __restrict__ yi, int W, int tc,
-                        int log2tc, const float2* __restrict__ tw, float scale) {
-  cols_fft_tile<LOG2N, INV, 2>(xr, xi, yr, yi, W, tc, log2tc, tw, scale);
+                        float* __restrict__ yr, float* __restrict__ yi,
+                        const float2* __restrict__ tw, float scale, int W, int tc,
+                        int log2tc) {
+  cols_fft_tile<LOG2N, INV, 2>(xr, xi, yr, yi, tw, scale, W, tc, log2tc);
 }
 
 // #5 polar and #6 (cols half) <- pallas_fft._cols_kernel(polar_out=True)
-// (fft2_scrambled_polar_pallas; fft2_scrambled_polar_from_phase's last
-// pallas_call). One block per tile of `tc` columns: forward column FFT,
-// then |F| * scale and atan2f(im, re) (0 where F = 0, as torch.atan2).
-__global__ void __launch_bounds__(kThreads)
-cols_fwd_polar_kernel(const float* __restrict__ xr,
-                      const float* __restrict__ xi, float* __restrict__ amp,
-                      float* __restrict__ theta, int H, int W, int log2H,
-                      int tc, int log2tc, const float2* __restrict__ tw,
-                      float scale) {
+// (slmsuite_tpu/ops/pallas_fft.py:332; fft2_scrambled_polar_pallas :406,
+// and fft2_scrambled_polar_from_phase's last pallas_call, :559): the
+// forward FFT of every column, then |F| * scale and atan2f(Im F, Re F) (0
+// where F = 0, as torch.atan2). The complex farfield never reaches device
+// memory.
+//
+// Bound on the H100 by bytes, as cols_fft_kernel: two planes read, two
+// written, 20 us at 2048^2. The tile, the cluster at 4096 points and the
+// transform are cols_fft's (col_tile_start, line_fft); the epilogue runs
+// on the registers, thread (s, c) holding rows s + q H / E of its column,
+// and stores the two planes at load_col_regs' offsets (store_col_polar).
+// 64 registers at 2048 and 4096 points, no spill: 0.040 ms at 2048^2, 50%
+// of the bound and within 3% of cols_fft (45% at 4096^2); the first
+// version, the tile staged in shared memory on fft_lines, took 0.22 ms, 9%.
+// PERF.md, section 6, has the measurements.
+template <int LOG2N, int G>
+__device__ __forceinline__ void cols_fwd_polar_tile(const float* __restrict__ xr,
+                                                    const float* __restrict__ xi,
+                                                    float* __restrict__ amp,
+                                                    float* __restrict__ theta,
+                                                    const float2* __restrict__ tw, float scale,
+                                                    int W, int tc, int log2tc) {
   extern __shared__ float2 sbuf[];
-  load_col_tile(sbuf, xr, xi, H, W, tc, log2tc);
-  fft_lines(sbuf, H, log2H, tc, tw);
-  const int c0 = blockIdx.x * tc;
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    const float2 F = sbuf[j * H + r];
-    amp[g] = sqrtf(F.x * F.x + F.y * F.y) * scale;
-    theta[g] = atan2f(F.y, F.x);
-  }
+  float2 v[line_points(LOG2N)];
+  const ColPlace p = col_tile_start<LOG2N, G>(v, xr, xi, W, tc, log2tc);
+  line_fft<LOG2N, false, G>(v, sbuf + p.c, tc, p.s, tw);
+  store_col_polar<LOG2N>(v, amp, theta, W, p.col, p.s, scale);
 }
 
-// #11 (cols half) <- pallas_fft.wexp_ifft2_scrambled_phase
-// (_cols_wexp_inv_kernel). One block per tile of `tc` columns: the
-// constraint w * e^{i phi} (full-range sincosf) synthesised in shared
-// memory, then the unnormalized inverse column FFT. carry_exit_kernel
+template <int LOG2N>
+__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+cols_fwd_polar_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                      float* __restrict__ amp, float* __restrict__ theta,
+                      const float2* __restrict__ tw, float scale, int W, int tc, int log2tc) {
+  cols_fwd_polar_tile<LOG2N, 1>(xr, xi, amp, theta, tw, scale, W, tc, log2tc);
+}
+
+template <int LOG2N>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+cols_fwd_polar_cluster_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                              float* __restrict__ amp, float* __restrict__ theta,
+                              const float2* __restrict__ tw, float scale, int W, int tc,
+                              int log2tc) {
+  cols_fwd_polar_tile<LOG2N, 2>(xr, xi, amp, theta, tw, scale, W, tc, log2tc);
+}
+
+// #11 (cols half) <- pallas_fft._cols_wexp_inv_kernel
+// (slmsuite_tpu/ops/pallas_fft.py:1885; wexp_ifft2_scrambled_phase :1902,
+// wexp_ifft2_scrambled :1943): the constraint w * e^{i phi}, then the
+// unnormalized inverse FFT of every column. carry_exit_kernel
 // (wgs_carry.cu) finishes arg ifft2 with the inverse rows and atan2f;
 // rows_fft_kernel (inverse, ortho scale) finishes the complex ifft2 of
-// pallas_fft.wexp_ifft2_scrambled (#12) on the padded canvas.
-__global__ void __launch_bounds__(kThreads)
-cols_wexp_inv_kernel(const float* __restrict__ w, const float* __restrict__ phi,
-                     float* __restrict__ yr, float* __restrict__ yi, int H,
-                     int W, int log2H, int tc, int log2tc,
-                     const float2* __restrict__ tw_inv) {
+// wexp_ifft2_scrambled (#12) on the padded canvas.
+//
+// Bound on the H100 by bytes: w and phi read, the pair written, 20 us at
+// 2048^2. The tile, the cluster and the transform are cols_fft's; the
+// start (col_tile_start_wexp) loads w and phi at load_col_regs' offsets
+// and forms the phasors on the registers with an inline, fully
+// range-reduced sincosf (carry_entry_kernel's note in wgs_carry.cu has why
+// inline), before the cluster's barrier. 64 registers at 2048 and 4096
+// points, no spill (a 32-byte stack frame for sincosf's Payne-Hanek array
+// at 64 and 512 points only): 0.042 ms at 2048^2, 48% of the bound (44% at
+// 4096^2); the first version, the constraint synthesised into a
+// shared-memory tile on fft_lines, took 0.25 ms, 8%.
+template <int LOG2N, int G>
+__device__ __forceinline__ void cols_wexp_inv_tile(const float* __restrict__ w,
+                                                   const float* __restrict__ phi,
+                                                   float* __restrict__ yr,
+                                                   float* __restrict__ yi,
+                                                   const float2* __restrict__ tw_inv, int W,
+                                                   int tc, int log2tc) {
   extern __shared__ float2 sbuf[];
-  const int c0 = blockIdx.x * tc;
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    float s, c;
-    sincosf(phi[g], &s, &c);
-    const float wv = w[g];
-    sbuf[j * H + r] = make_float2(wv * c, wv * s);
-  }
-  __syncthreads();
-  fft_lines(sbuf, H, log2H, tc, tw_inv);
-  store_col_tile(sbuf, yr, yi, H, W, tc, log2tc);
+  float2 v[line_points(LOG2N)];
+  const ColPlace p = col_tile_start_wexp<LOG2N, G>(v, w, phi, W, tc, log2tc);
+  line_fft<LOG2N, true, G>(v, sbuf + p.c, tc, p.s, tw_inv);
+  store_col_regs<LOG2N>(v, yr, yi, W, p.col, p.s, 1.f);
+}
+
+template <int LOG2N>
+__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+cols_wexp_inv_kernel(const float* __restrict__ w, const float* __restrict__ phi,
+                     float* __restrict__ yr, float* __restrict__ yi,
+                     const float2* __restrict__ tw_inv, int W, int tc, int log2tc) {
+  cols_wexp_inv_tile<LOG2N, 1>(w, phi, yr, yi, tw_inv, W, tc, log2tc);
+}
+
+template <int LOG2N>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+cols_wexp_inv_cluster_kernel(const float* __restrict__ w, const float* __restrict__ phi,
+                             float* __restrict__ yr, float* __restrict__ yi,
+                             const float2* __restrict__ tw_inv, int W, int tc, int log2tc) {
+  cols_wexp_inv_tile<LOG2N, 2>(w, phi, yr, yi, tw_inv, W, tc, log2tc);
 }
 
 // Launch of one instantiation of rows_fft_kernel (launch_rows).
@@ -189,26 +234,36 @@ int launch_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int 
                                       tw, scale);
 }
 
-// Launch of one instantiation of cols_fft_kernel: W / tc clusters, tc the
-// launch shape's lines. The dynamic shared memory is above the 48 KB default from H = 1024 on: the
-// attribute is the instantiation's own.
+// Launches of one instantiation of the column kernels (launch_cols): the
+// cluster instantiation where cols_cluster says two blocks.
 template <int LOG2N, bool INV>
 int launch_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int W,
                     const float2* tw, float scale, cudaStream_t stream) {
-  constexpr LaunchShape shape = launch_shape(kColsFft, LOG2N);
-  constexpr int G = cols_cluster(LOG2N);
-  static_assert(shape.threads <= cols_max_threads(LOG2N), "cols_fft launch");
-  if (W % shape.lines) return (int)cudaErrorInvalidValue;
   auto kernel = [] {
-    if constexpr (G == 2) return cols_fft_cluster_kernel<LOG2N, INV>;
+    if constexpr (cols_cluster(LOG2N) == 2) return cols_fft_cluster_kernel<LOG2N, INV>;
     else return cols_fft_kernel<LOG2N, INV>;
   }();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shape.smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<W / shape.lines * G, shape.threads, shape.smem, stream>>>(
-      xr, xi, yr, yi, W, shape.lines, ilog2(shape.lines), tw, scale);
-  return (int)cudaGetLastError();
+  return launch_cols<kColsFft, LOG2N>(kernel, W, stream, xr, xi, yr, yi, tw, scale);
+}
+
+template <int LOG2N>
+int launch_cols_fwd_polar(const float* xr, const float* xi, float* amp, float* theta, int W,
+                          const float2* tw, float scale, cudaStream_t stream) {
+  auto kernel = [] {
+    if constexpr (cols_cluster(LOG2N) == 2) return cols_fwd_polar_cluster_kernel<LOG2N>;
+    else return cols_fwd_polar_kernel<LOG2N>;
+  }();
+  return launch_cols<kColsFwdPolar, LOG2N>(kernel, W, stream, xr, xi, amp, theta, tw, scale);
+}
+
+template <int LOG2N>
+int launch_cols_wexp_inv(const float* w, const float* phi, float* yr, float* yi, int W,
+                         const float2* tw_inv, cudaStream_t stream) {
+  auto kernel = [] {
+    if constexpr (cols_cluster(LOG2N) == 2) return cols_wexp_inv_cluster_kernel<LOG2N>;
+    else return cols_wexp_inv_kernel<LOG2N>;
+  }();
+  return launch_cols<kColsWexpInv, LOG2N>(kernel, W, stream, w, phi, yr, yi, tw_inv);
 }
 
 }  // namespace slm
@@ -237,8 +292,8 @@ int slm_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
 
 // out[0..4) = the LaunchShape (lines, cluster, threads, smem) of `kernel`
 // (a LineKernel: rows_fft, cols_fft, rows_normfwd, cols_wgs_roundtrip,
-// carry_entry, carry_exit) on lines of n points, a power of two in
-// [64, 4096].
+// carry_entry, carry_exit, cols_fwd_polar, cols_wexp_inv) on lines of n
+// points, a power of two in [64, 4096].
 int slm_fft_launch_shape(int kernel, int n, int* out) {
   const int log2n = ilog2(n);
   if (kernel < 0 || kernel >= kNumLineKernels || log2n < 6 || log2n > 12 ||
@@ -252,26 +307,20 @@ int slm_fft_launch_shape(int kernel, int n, int* out) {
   return 0;
 }
 
-int slm_cols_fwd_polar(const float* xr, const float* xi, float* amp,
-                       float* theta, int H, int W, int tc, const float2* tw,
-                       float scale, cudaStream_t stream) {
-  size_t smem = 0;
-  cudaError_t err = cols_setup(cols_fwd_polar_kernel, H, W, tc, &smem);
-  if (err != cudaSuccess) return (int)err;
-  cols_fwd_polar_kernel<<<W / tc, kThreads, smem, stream>>>(
-      xr, xi, amp, theta, H, W, ilog2(H), tc, ilog2(tc), tw, scale);
-  return (int)cudaGetLastError();
+int slm_cols_fwd_polar(const float* xr, const float* xi, float* amp, float* theta, int H,
+                       int W, const float2* tw, float scale, cudaStream_t stream) {
+  switch (ilog2(H)) {
+    SLM_LEN_CASES(launch_cols_fwd_polar, xr, xi, amp, theta, W, tw, scale, stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-int slm_cols_wexp_inv(const float* w, const float* phi, float* yr, float* yi,
-                      int H, int W, int tc, const float2* tw_inv,
-                      cudaStream_t stream) {
-  size_t smem = 0;
-  cudaError_t err = cols_setup(cols_wexp_inv_kernel, H, W, tc, &smem);
-  if (err != cudaSuccess) return (int)err;
-  cols_wexp_inv_kernel<<<W / tc, kThreads, smem, stream>>>(
-      w, phi, yr, yi, H, W, ilog2(H), tc, ilog2(tc), tw_inv);
-  return (int)cudaGetLastError();
+int slm_cols_wexp_inv(const float* w, const float* phi, float* yr, float* yi, int H, int W,
+                      const float2* tw_inv, cudaStream_t stream) {
+  switch (ilog2(H)) {
+    SLM_LEN_CASES(launch_cols_wexp_inv, w, phi, yr, yi, W, tw_inv, stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

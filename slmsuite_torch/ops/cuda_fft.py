@@ -22,16 +22,15 @@ The plain PyTorch version of each kernel is the underscored function of
 the same name in :mod:`slmsuite_torch.ops.fft`.
 
 The kernels of :data:`LINE_KERNELS` (``rows_fft``, ``cols_fft``,
-``rows_normfwd``, ``cols_wgs_roundtrip``, ``carry_entry``, ``carry_exit``)
-run a register-resident line FFT (``line_fft`` in
-``csrc/fft_shared.cuh``). Its plan (:meth:`fft_plan`), its exchange's
-index maps, and a plain PyTorch model that follows it pass by pass
-(:meth:`line_fft_model`) are here, so that they can be tested without a
-card; the launch shapes are the launchers' own (:meth:`fft_launch_shape`
-asks them). The five other FFT kernels, all column kernels
-(``cols_fwd_polar``, ``cols_wexp_inv``, ``cols_mraf_fwd``,
-``cols_mraf_mix_inv``, ``cols_wgs_fwd``), run the shared-memory
-``fft_lines``.
+``rows_normfwd``, ``cols_wgs_roundtrip``, ``carry_entry``, ``carry_exit``,
+``cols_fwd_polar``, ``cols_wexp_inv``) run a register-resident line FFT
+(``line_fft`` in ``csrc/fft_shared.cuh``). Its plan (:meth:`fft_plan`),
+its exchange's index maps, and a plain PyTorch model that follows it pass
+by pass (:meth:`line_fft_model`) are here, so that they can be tested
+without a card; the launch shapes are the launchers' own
+(:meth:`fft_launch_shape` asks them). The three other FFT kernels, all
+column kernels (``cols_mraf_fwd``, ``cols_mraf_mix_inv``,
+``cols_wgs_fwd``), run the shared-memory ``fft_lines``.
 """
 
 import ctypes
@@ -90,8 +89,8 @@ _SIGNATURES = {
     "slm_rows_fft": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
     "slm_cols_fft": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
     "slm_fft_launch_shape": [_I, _I, ctypes.POINTER(_I)],
-    "slm_cols_fwd_polar": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
-    "slm_cols_wexp_inv": [_P] * 4 + [_I, _I, _I, _P, _P],
+    "slm_cols_fwd_polar": [_P] * 4 + [_I, _I, _P, _F, _P],
+    "slm_cols_wexp_inv": [_P] * 4 + [_I, _I, _P, _P],
     "slm_cols_mraf_fwd": [_P] * 12 + [_I, _I, _I, _P, _I, _I, _P],
     "slm_cols_mraf_mix_inv": [_P] * 16 + [_I, _I, _I, _P, _I, _I, _P],
 }
@@ -192,8 +191,10 @@ def _twiddles(n, inverse, device):
 
 
 def _cols_tile(H):
-    """Columns per block of the column kernels on ``fft_lines``: 64 KiB of
-    shared memory."""
+    """Columns per block of the three column kernels still on
+    ``fft_lines`` (``cols_mraf_fwd``, ``cols_mraf_mix_inv``,
+    ``cols_wgs_fwd``): 64 KiB of shared memory. The kernels on ``line_fft``
+    take their tile from their launch shape (:meth:`fft_launch_shape`)."""
     return max(1, min(8, 8192 // H))
 
 
@@ -627,7 +628,7 @@ def cols_fft(xr, xi, *, inverse, scale=1.0):
 #: The kernels on the line FFT, in the order of ``LineKernel`` in
 #: ``csrc/fft_shared.cuh``.
 LINE_KERNELS = ("rows_fft", "cols_fft", "rows_normfwd", "cols_wgs_roundtrip", "carry_entry",
-                "carry_exit")
+                "carry_exit", "cols_fwd_polar", "cols_wexp_inv")
 
 
 def fft_launch_shape(kernel, n):
@@ -648,7 +649,7 @@ def cols_fwd_polar(xr, xi, scale):
     H, W = _check_planes(xr, xi)
     amp, theta = torch.empty_like(xr), torch.empty_like(xr)
     rc = _lib().slm_cols_fwd_polar(
-        _ptr(xr), _ptr(xi), _ptr(amp), _ptr(theta), H, W, _cols_tile(H),
+        _ptr(xr), _ptr(xi), _ptr(amp), _ptr(theta), H, W,
         _ptr(_twiddles(H, False, xr.device)), float(scale), _stream(),
     )
     _raise_on(rc, "cols_fwd_polar")
@@ -662,7 +663,7 @@ def cols_wexp_inv(weights, phase):
     H, W = _check_planes(weights, phase)
     yr, yi = torch.empty_like(weights), torch.empty_like(weights)
     rc = _lib().slm_cols_wexp_inv(
-        _ptr(weights), _ptr(phase), _ptr(yr), _ptr(yi), H, W, _cols_tile(H),
+        _ptr(weights), _ptr(phase), _ptr(yr), _ptr(yi), H, W,
         _ptr(_twiddles(H, True, weights.device)), _stream(),
     )
     _raise_on(rc, "cols_wexp_inv")

@@ -321,7 +321,9 @@ def test_fft_launch_shapes_fit_the_card(cuda, n):
         rows, blocks, threads, smem = cuda_fft.fft_launch_shape(kernel, n)
         assert blocks == 1 and threads == 256 and 64 % rows == 0 and smem <= 48 * 1024
         assert threads * points == rows * n and smem == rows * cuda_fft.line_pitch(n) * 8
-    for kernel in ("cols_fft", "cols_wgs_roundtrip"):
+    cols_kernels = [k for k in cuda_fft.LINE_KERNELS if k.startswith("cols")]
+    assert cols_kernels == ["cols_fft", "cols_wgs_roundtrip", "cols_fwd_polar", "cols_wexp_inv"]
+    for kernel in cols_kernels:
         tc, blocks, threads, smem = cuda_fft.fft_launch_shape(kernel, n)
         assert tc >= 8 and 64 % tc == 0 and blocks == (2 if n == 4096 else 1)
         assert threads <= 1024 and smem <= 227 * 1024
@@ -332,20 +334,33 @@ def test_fft_launch_shapes_fit_the_card(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 64), (256, 512)])
-def test_cols_fwd_polar_and_wexp_inv_match_plain(cuda, shape):
+@pytest.mark.parametrize("shape", FFT_SHAPES)
+@pytest.mark.parametrize("phase_max", [np.pi, 1e6], ids=["pi", "1e6"])
+def test_cols_fwd_polar_and_wexp_inv_match_plain(cuda, shape, phase_max):
+    """cols_fwd_polar and cols_wexp_inv, column kernels on the line FFT, at
+    every line length (4096 on a cluster of two blocks) and the rectangles
+    both ways, with one all-zero column (|F| = 0 and arg F = 0 there), and
+    the phase in +-pi and in +-1e6 (past 105615 sincosf takes its
+    Payne-Hanek reduction)."""
     from slmsuite_torch.ops import cuda_fft, fft
 
     xr, xi = _pair(shape, cuda)
+    xr[:, 1], xi[:, 1] = 0.0, 0.0
+    cuda_fft.reset_launch_counts()
     amp, theta = cuda_fft.cols_fwd_polar(xr, xi, 0.25)
     ref_amp, ref_theta = fft._cols_fwd_polar(xr, xi, 0.25)
     assert _rel(amp, ref_amp) <= CARRY_RTOL
     _assert_theta(theta, ref_theta, ref_amp)
+    assert float(amp[:, 1].abs().max()) == 0.0 and float(theta[:, 1].abs().max()) == 0.0
 
-    weights, phase = xr.abs(), xi * np.pi
+    rng = np.random.default_rng(5)
+    weights = xr.abs()
+    phase = torch.from_numpy(rng.uniform(-phase_max, phase_max, shape).astype(np.float32)).to(cuda)
     got = cuda_fft.cols_wexp_inv(weights, phase)
     ref = fft._cols_wexp_inv(weights, phase)
     assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+    assert float(got[0][:, 1].abs().max()) == 0.0 and float(got[1][:, 1].abs().max()) == 0.0
+    assert cuda_fft.LAUNCHES["cols_fwd_polar"] == 1 and cuda_fft.LAUNCHES["cols_wexp_inv"] == 1
 
 
 @pytest.mark.cuda
