@@ -19,9 +19,10 @@ there is no card or the port is missing. In order:
    forward and inverse, and ``cols_fwd_polar`` and ``cols_wexp_inv`` there
    with one column all zero and the phase in +-pi and in +-1e6; the
    composed natural-path dispatchers at 2048^2 and 256x512, and the canvas
-   transforms on a 2048^2 canvas holding a 1024^2 window; the two MRAF kernels at 2048^2
-   and 256x512 for Leonardo and Kim, zero weights on and off, stats on
-   and off, scalar and array amplitude, and the composed ``ifft2_phase``,
+   transforms on a 2048^2 canvas holding a 1024^2 window; the two MRAF kernels at 2048^2,
+   64^2, 4096^2 and 256x512, with one column of the carry all zero, for
+   Leonardo and Kim, zero weights on and off, stats on and off, scalar and
+   array amplitude, and the composed ``ifft2_phase``,
    ``wgs_fused_step`` and ``mraf_fused_step``; the four compressed
    kernels at BASELINE config 5's shapes (P = 1024^2, N = 256, D = 3) and
    at P = 3000, N = 17, D = 4, scalar and array amplitude, and the
@@ -68,9 +69,12 @@ there is no card or the port is missing. In order:
    replayed through the kernels;
 7. timing with CUDA events: each kernel, its plain version and, where one
    PyTorch call computes the same function, that call, at 2048^2; the
-   eight kernels on the line FFT, ``cols_wgs_roundtrip``, ``rows_normfwd``
+   ten kernels on the line FFT, ``cols_wgs_roundtrip``, ``rows_normfwd``
    and ``carry_entry`` (both also with an amplitude plane), ``carry_exit``,
-   ``rows_fft``, ``cols_fft``, ``cols_fwd_polar`` and ``cols_wexp_inv``, at
+   ``cols_mraf_fwd`` and ``cols_mraf_mix_inv`` (also with Kim and zero
+   weights), ``rows_fft``, ``cols_fft``, ``cols_fwd_polar`` and
+   ``cols_wexp_inv``, with the composed ``mraf_fused_step`` and
+   ``mraf_carry_step``, at
    1024^2, 2048^2 and 4096^2 by CUDA events and by the device's own time
    under ``torch.profiler`` (their launches are about as short as the
    host's enqueue; the kernels line reports the device time and says so in
@@ -78,8 +82,8 @@ there is no card or the port is missing. In order:
    ``torch.fft.fft2``/``ifft2``),
    ``ifft2_phase`` (with ``torch.fft.ifft2``), ``wexp_ifft2``,
    ``fft2_polar_from_phase`` and ``wexp_ifft2_phase`` beside them; the
-   composed ``wgs_fused_forward``, ``wgs_fused_step`` and
-   ``mraf_fused_step`` against their plain versions; each compressed
+   composed ``wgs_fused_forward`` and ``wgs_fused_step`` against their
+   plain versions; each compressed
    kernel and its plain version at config 5,
    the cos/sin cache build, and ms/iteration of the C1 and C2 loops; and
    ms/iteration of ``spot_array_wgs(2048)`` (WGS-Kim,
@@ -88,8 +92,9 @@ there is no card or the port is missing. In order:
    GS, the natural MRAF step), through the kernels and through the plain
    versions; ms/iteration of the S1 and S2 camera loops likewise;
 8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette),
-   the N2 GS, the ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop;
-   GS, M3's natural MRAF step), the C1 and the S2 loops: device
+   the N2 GS, the ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop),
+   M2's (WGS-Kim with zero weights), M3's (GS, the natural MRAF step), the
+   C1 and the S2 loops: device
    time, device busy share, device launches per iteration (S2 also:
    the share of ``sim_measure_spots``).
 
@@ -153,7 +158,8 @@ RULES = ("kim", "leonardo", "wu", "tanh")
 PORT_KERNEL_NAMES = (
     "carry_entry_kernel", "carry_exit_kernel", "cols_fft_kernel", "cols_fft_cluster_kernel",
     "cols_fwd_polar_kernel", "cols_fwd_polar_cluster_kernel", "cols_mraf_fwd_kernel",
-    "cols_mraf_mix_inv_kernel", "cols_wexp_inv_kernel", "cols_wexp_inv_cluster_kernel",
+    "cols_mraf_fwd_cluster_kernel", "cols_mraf_mix_inv_kernel",
+    "cols_mraf_mix_inv_cluster_kernel", "cols_wexp_inv_kernel", "cols_wexp_inv_cluster_kernel",
     "cols_wgs_fwd_kernel", "cols_wgs_roundtrip_kernel",
     "cols_wgs_roundtrip_cluster_kernel", "f2n_kernel",
     "roundtrip_kernel", "rows_fft_kernel", "rows_normfwd_kernel", "spot_reduce_kernel",
@@ -175,8 +181,10 @@ S2_SIDE, S2_PITCH = 10, 24
 #: display quantization and the camera's integer counts make the loop
 #: discontinuous in psi, so it is held on what users read.
 CAMERA_STAT_ATOL, CAMERA_WEIGHT_ATOL = 2e-3, 1e-2
-#: Shapes of the MRAF parity phase; the first is the main path's.
-MRAF_SHAPES = ((2048, 2048), (256, 512))
+#: Shapes of the MRAF parity phase; the first is the main path's. The MRAF
+#: kernels' launches differ with the column length (line_fft's plan, the
+#: tile, the cluster of two at 4096 points).
+MRAF_SHAPES = ((2048, 2048), (64, 64), (4096, 4096), (256, 512))
 
 #: Shapes of the parity checks of the natural path's kernels (rows_fft,
 #: cols_fft, cols_fwd_polar, cols_wexp_inv): every power-of-two side the
@@ -457,7 +465,9 @@ def phase_parity(device):
 
 def phase_mraf_parity(device):
     """The two MRAF kernels and the MRAF/WGS compositions against their
-    plain versions; returns the kernels' max |diff| at the first shape."""
+    plain versions, the kernels with one all-zero column of the carry (F =
+    0 there, and the phasor (1, 0)); returns the kernels' max |diff| at the
+    first shape."""
     from slmsuite_torch.ops import cuda_fft, fft
 
     worst = dict.fromkeys(("cols_mraf_fwd", "cols_mraf_mix_inv"), 0.0)
@@ -468,12 +478,15 @@ def phase_mraf_parity(device):
                 for stats_on in (True, False):
                     x = step_inputs(shape, amp_kind, rule, stats_on, device)
                     gr, gi = fft._wgs_carry_entry(x["psi"], x["amp"])
+                    gr[:, 1], gi[:, 1] = 0.0, 0.0
                     fwd = (gr, gi, x["weights"] * 1.3, x["target"], x["mask"], x["scal"])
                     got = cuda_fft.cols_mraf_fwd(*fwd, rule=rule, stats_on=stats_on)
                     ref = fft._cols_mraf_fwd(*fwd, rule=rule, stats_on=stats_on)
                     tag = f"cols_mraf_fwd {shape} {amp_kind} {rule} stats={stats_on}"
                     e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
                     assert e <= CARRY_RTOL, f"{tag}/F: {e:.3e}"
+                    assert float(got[0][:, 1].abs().max()) == 0.0, f"{tag}: zero column"
+                    assert float(got[1][:, 1].abs().max()) == 0.0, f"{tag}: zero column"
                     ew = check_close(tag + "/uw", got[2], ref[2], WEIGHT_ATOL, WEIGHT_RTOL)
                     es = check_close(tag + "/sums", got[3], ref[3], WEIGHT_ATOL, WEIGHT_RTOL)
                     em = check_close(tag + "/maxs", got[4], ref[4], WEIGHT_ATOL, WEIGHT_RTOL)
@@ -491,6 +504,9 @@ def phase_mraf_parity(device):
                         tag_m = f"cols_mraf_mix_inv {shape} {amp_kind} {rule} zero={zero}"
                         e = max(rel_err(got_m[0], ref_m[0]), rel_err(got_m[1], ref_m[1]))
                         assert e <= CARRY_RTOL, f"{tag_m}/h: {e:.3e}"
+                        if x["kim"] and stats_on:  # use_theta on: F/|F|, (1, 0) at F = 0
+                            unit = (got_m[2][0][:, 1] == 1.0) & (got_m[2][1][:, 1] == 0.0)
+                            assert bool(unit.all()), f"{tag_m}: zero column phasor"
                         pairs = list(zip(got_m[2], ref_m[2])) if x["kim"] else []
                         pairs += list(zip(got_m[3], ref_m[3])) if zero else []
                         ez = max([check_close(tag_m + "/pff, zw", g, r, WEIGHT_ATOL,
@@ -689,29 +705,56 @@ class NoDeviceEvents(RuntimeError):
     """``torch.profiler`` recorded no device event."""
 
 
-def device_ms(fn, n=20):
-    """Device milliseconds per call of ``fn``: the device events' own
-    durations under ``torch.profiler``, summed, over ``n`` calls. Unlike
-    :meth:`cuda_ms` it leaves out the gaps in which the device waits for
-    the host, which at 1024^2 are longer than the kernels. Raises
-    :class:`NoDeviceEvents` where the profiler records no device event in
-    three tries (it now and then returns none for a window this short)."""
+def device_spans(fn, n):
+    """Durations in us of the device events (kernels, copies, memsets)
+    of ``n`` calls of ``fn`` under ``torch.profiler``: the events whose
+    midpoint lies in a ``record_function`` range around the calls and a
+    synchronize, with one call before the range and one after it. A window
+    may lose one device event at its edge (at 4096^2 every window lost
+    exactly one): the calls outside the range take that loss."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
-    for _ in range(3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("device_spans window"):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)]
-        if spans:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    window = [e.time_range for e in events
+              if e.name == "device_spans window" and e.device_type == DeviceType.CPU]
+    if not window:
+        return []
+    lo, hi = window[0].start, window[0].end
+    return [e.time_range.elapsed_us() for e in events
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and lo <= (e.time_range.start + e.time_range.end) / 2 <= hi]
+
+
+def device_ms(fn, n=20):
+    """Device milliseconds per call of ``fn``: the device events' own
+    durations under ``torch.profiler`` (:meth:`device_spans`), summed,
+    over ``n`` calls. Unlike :meth:`cuda_ms` it leaves out the gaps in
+    which the device waits for the host, which at 1024^2 are longer than
+    the kernels. The profiler now and then records only part of a window's
+    events, which reads short: a window counts only where it holds ``n``
+    times the events of one call. Raises :class:`NoDeviceEvents` where
+    three tries give no such window."""
+    fn()
+    for _ in range(3):
+        one = device_spans(fn, 1)
+        spans = device_spans(fn, n)
+        if one and len(spans) == len(one) * n:
             return sum(spans) / 1e3 / n
-    raise NoDeviceEvents("torch.profiler recorded no device events in three tries")
+        log(f"  device_ms: {len(spans)} device events for {n} calls of {len(one)}; again")
+    raise NoDeviceEvents("torch.profiler recorded no whole window of device events in three "
+                         "tries")
 
 
 def bound(shape, planes_moved, line_ffts):
@@ -842,7 +885,8 @@ def write_launch_log():
                          "bytes of shared memory a block")
     ptxas = (OUT / "ptxas.log").read_text().splitlines() if (OUT / "ptxas.log").exists() else []
     names = ("rows_fft_kernel", "cols_fft_", "rows_normfwd_kernel", "cols_wgs_roundtrip_",
-             "carry_entry_kernel", "carry_exit_kernel", "cols_fwd_polar_", "cols_wexp_inv_")
+             "carry_entry_kernel", "carry_exit_kernel", "cols_fwd_polar_", "cols_wexp_inv_",
+             "cols_mraf_fwd_", "cols_mraf_mix_inv_")
     for k, line in enumerate(ptxas):
         if "Compiling entry function" in line and any(name in line for name in names):
             lines.append(" ".join(x.strip() for x in ptxas[k:k + 4]))
@@ -852,10 +896,15 @@ def write_launch_log():
 def phase_carry_timing(device):
     """``cols_wgs_roundtrip`` (WGS-Kim, stats on, scalar amp),
     ``rows_normfwd`` and ``carry_entry`` (scalar amp, and an amplitude
-    plane) and ``carry_exit`` at each of FFT_TIMED_SIDES, each with its
-    plain version and its bound, by CUDA events and by the device's own
-    time (:meth:`device_ms`). None has a library call. Returns their
-    2048^2 device times for the kernels line."""
+    plane), ``carry_exit``, the MRAF kernels at M1's variant
+    (``cols_mraf_fwd``: WGS-Leonardo, stats on; ``cols_mraf_mix_inv``: no
+    Kim, no zero weights) with the mix's largest (Kim with the stored
+    phasor read, zero weights), and the MRAF step compositions
+    (``mraf_fused_step``, WGS-Kim with stats; ``mraf_carry_step``, M1's)
+    at each of FFT_TIMED_SIDES, each with its plain version and its bound,
+    by CUDA events and by the device's own time (:meth:`device_ms`). None
+    has a library call. Returns the kernels' 2048^2 device times for the
+    kernels line."""
     from slmsuite_torch.ops import cuda_fft, fft
 
     t = {}
@@ -866,6 +915,19 @@ def phase_carry_timing(device):
         gr, gi = fft._wgs_carry_entry(x["psi"], x["amp"])
         amp = random_pair(shape, device)[0].abs() + 0.5
         cols = (gr, gi, x["weights"], x["target"], x["mask"], x["phase_ff"], x["scal"])
+        m = step_inputs(shape, "scalar", "leonardo", True, device)
+        fwd = (gr, gi, m["weights"], m["target"], m["mask"], m["scal"])
+        fr, fi, uw, sums, _ = fft._cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True)
+        mix = (fr, fi, uw, m["mcode"], None, None, sums, m["scal"])
+        # use_theta off (no stats): Kim's stored phasor is read.
+        k = step_inputs(shape, "scalar", "kim", False, device)
+        mix_kim = (fr, fi, uw, m["mcode"], k["phase_ff"], m["zw"], sums, k["scal"])
+        angle = torch.atan2(x["phase_ff"][1], x["phase_ff"][0])
+        fused = (x["psi"], x["amp"], x["weights"], angle, x["target"], x["mask"], m["mcode"],
+                 x["scal"])
+        step = (gr, gi, m["amp"], m["weights"], None, m["target"], m["mask"], m["mcode"], None,
+                m["scal"])
+        step_kw = dict(rule="leonardo", kim=False, stats_on=True, zero=False)
         timed = {
             # gr, gi, w, t and mask read, hr, hi, w' and the phasor pair
             # written: ten planes (use_theta is on with stats, so the stored
@@ -888,6 +950,32 @@ def phase_carry_timing(device):
             # The pair read, psi written.
             "carry_exit": (lambda: cuda_fft.carry_exit(gr, gi),
                            lambda: fft._wgs_carry_exit(gr, gi), bound(shape, 3, 1)),
+            # gr, gi, w, t and mask read, fr, fi and uw written.
+            "cols_mraf_fwd": (
+                lambda: cuda_fft.cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True),
+                lambda: fft._cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True),
+                bound(shape, 8, 1)),
+            # fr, fi, uw and mcode read, hr and hi written.
+            "cols_mraf_mix_inv": (
+                lambda: cuda_fft.cols_mraf_mix_inv(*mix, kim=False, zero=False),
+                lambda: fft._cols_mraf_mix_inv(*mix, kim=False, zero=False),
+                bound(shape, 6, 1)),
+            # And the stored phasor pair and the zero weights read and written.
+            "cols_mraf_mix_inv (Kim, zero weights)": (
+                lambda: cuda_fft.cols_mraf_mix_inv(*mix_kim, kim=True, zero=True),
+                lambda: fft._cols_mraf_mix_inv(*mix_kim, kim=True, zero=True),
+                bound(shape, 14, 1)),
+            # Row 9: psi, w, the angle store, t, mask and mcode read, psi, w
+            # and the store written.
+            "mraf_fused_step (carry_entry + cols_mraf_fwd + cols_mraf_mix_inv + carry_exit)": (
+                lambda: cuda_fft.mraf_fused_step(*fused, rule="kim", kim=True, stats_on=True),
+                lambda: fft._mraf_fused_step(*fused, rule="kim", kim=True, stats_on=True),
+                bound(shape, 9, 4)),
+            # Row 10 at M1's variant: gr, gi, w, t, mask and mcode read, the
+            # carry and uw written.
+            "mraf_carry_step (cols_mraf_fwd + cols_mraf_mix_inv + rows_normfwd)": (
+                lambda: cuda_fft.mraf_carry_step(*step, **step_kw),
+                lambda: fft._mraf_carry_step(*step, **step_kw), bound(shape, 9, 4)),
         }
         for name, (kernel, plain, bound_of) in timed.items():
             interleaved(name, kernel, plain, bound_of=bound_of, size=size)
@@ -897,7 +985,8 @@ def phase_carry_timing(device):
                 f"bound ({by_device['timer']})")
             if side == 2048 and name in KERNELS:
                 t[name] = by_device
-        del x, gr, gi, amp, cols, timed
+        del x, gr, gi, amp, cols, m, fwd, fr, fi, uw, sums, mix, k, mix_kim, angle, fused
+        del step, timed
     log(f"  [{nvidia_smi_line()}]")
     return t
 
@@ -926,27 +1015,8 @@ def phase_kernel_timing(device):
     t.update(phase_fft_timing(device))
     write_launch_log()
 
-    # MRAF: the M1 variants (WGS-Leonardo, stats on, no zero weights), and
-    # the mix kernel's largest variant (Kim, zero weights).
-    m = step_inputs(shape, "scalar", "leonardo", True, device)
-    fwd = (gr, gi, m["weights"], m["target"], m["mask"], m["scal"])
-    fr, fi, uw, sums, _ = fft._cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True)
-    mix = (fr, fi, uw, m["mcode"], None, None, sums, m["scal"])
-    mix_kim = (fr, fi, uw, m["mcode"], x["phase_ff"], m["zw"], sums, m["scal"])
-    t["cols_mraf_fwd"] = interleaved(
-        "cols_mraf_fwd", lambda: cuda_fft.cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True),
-        lambda: fft._cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True),
-        bound_of=bound(shape, 8, 1))
-    t["cols_mraf_mix_inv"] = interleaved(
-        "cols_mraf_mix_inv", lambda: cuda_fft.cols_mraf_mix_inv(*mix, kim=False, zero=False),
-        lambda: fft._cols_mraf_mix_inv(*mix, kim=False, zero=False),
-        bound_of=bound(shape, 6, 1))
-    interleaved("cols_mraf_mix_inv (Kim, zero weights)",
-                lambda: cuda_fft.cols_mraf_mix_inv(*mix_kim, kim=True, zero=True),
-                lambda: fft._cols_mraf_mix_inv(*mix_kim, kim=True, zero=True),
-                bound_of=bound(shape, 14, 1))
-    # The compositions: the forward half and the two psi -> psi steps
-    # (WGS-Kim and MRAF WGS-Kim, stats on).
+    # The compositions: the forward half and the psi -> psi WGS step
+    # (WGS-Kim, stats on); the MRAF ones are phase_carry_timing's.
     args = (x["psi"], x["amp"], x["weights"], angle, x["target"], x["mask"])
     kw = dict(rule="kim", kim=True, stats_on=True)
     interleaved("wgs_fused_forward (carry_entry + cols_wgs_fwd)",
@@ -956,10 +1026,6 @@ def phase_kernel_timing(device):
     interleaved("wgs_fused_step (carry_entry + cols_wgs_roundtrip + carry_exit)",
                 lambda: cuda_fft.wgs_fused_step(*args, x["scal"], **kw),
                 lambda: fft._wgs_fused_step(*args, x["scal"], **kw), bound_of=bound(shape, 8, 4))
-    interleaved("mraf_fused_step (carry_entry + cols_mraf_fwd + cols_mraf_mix_inv + carry_exit)",
-                lambda: cuda_fft.mraf_fused_step(*args, m["mcode"], x["scal"], **kw),
-                lambda: fft._mraf_fused_step(*args, m["mcode"], x["scal"], **kw),
-                bound_of=bound(shape, 9, 4))
     return t
 
 
@@ -1160,12 +1226,13 @@ def phase_golden():
             f"{launched} kernel launches)")
 
 
-def engine_loop(holo, method):
-    """The engine inputs of ``holo`` for ``method`` with computational
-    stats, and a function that runs ``n`` iterations from them."""
+def engine_loop(holo, method, **flags):
+    """The engine inputs of ``holo`` for ``method`` (and ``flags``, as
+    ``optimize`` takes them) with computational stats, and a function that
+    runs ``n`` iterations from them."""
     from slmsuite_torch.ops import engine
 
-    holo._update_flags(method, False, None, ["computational"])
+    holo._update_flags(method, False, None, ["computational"], **flags)
     config = holo._build_config()
     consts = holo._build_consts(config)
     state = holo._build_state(config)
@@ -1941,6 +2008,8 @@ def main():
         spot_array(device, (10, 10), (60, 60), slm_shape=(1024, 1024)), "GS"))
     phase_profile(device, "image_mraf(2048) WGS-Leonardo MRAF carry",
                   image_mraf(N=2048, device=device).run)
+    phase_profile(device, "M2 MRAF WGS-Kim zero_factor image 2048^2", engine_loop(
+        image_hologram(device), "WGS-Kim", mraf_factor=0.5, zero_factor=0.1))
     phase_profile(device, "image_mraf(2048) GS natural MRAF",
                   image_mraf(N=2048, method="GS", device=device).run)
     phase_profile(device, "C1 config 5 WGS-Kim cached", compressed_loops[

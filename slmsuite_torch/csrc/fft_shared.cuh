@@ -1,9 +1,11 @@
 // The FFTs of the kernels of wgs_carry.cu, natural_fft.cu and mraf_carry.cu:
-// the shared-memory fft_lines with the column kernels' tile load, store and
-// launch setup, and, further down, the register-resident line_fft with the
-// row and column places, loads and stores, tile widths, launch shapes and
-// launchers of the kernels on it (rows_fft, cols_fft, cols_fwd_polar,
-// cols_wexp_inv, rows_normfwd, cols_wgs_roundtrip, carry_entry, carry_exit).
+// the shared-memory fft_lines with its tile load and launch setup, which
+// serve cols_wgs_fwd (wgs_carry.cu) alone, and, further down, the
+// register-resident line_fft with the row and column places, loads and
+// stores, tile widths, launch shapes and launchers of the kernels on it
+// (rows_fft, cols_fft, cols_fwd_polar, cols_wexp_inv, rows_normfwd,
+// cols_wgs_roundtrip, carry_entry, carry_exit, cols_mraf_fwd,
+// cols_mraf_mix_inv).
 //
 // Replaces `_fft_core` in slmsuite_tpu/ops/pallas_fft.py: a four-step DFT
 // written as block-complex matrix products for the TPU's matrix unit. On
@@ -87,29 +89,13 @@ __device__ __forceinline__ void load_col_tile(float2* buf,
   __syncthreads();
 }
 
-// Store the tile back as a pair, in the layout of load_col_tile.
-__device__ __forceinline__ void store_col_tile(const float2* buf,
-                                               float* __restrict__ yr,
-                                               float* __restrict__ yi, int H,
-                                               int W, int tc, int log2tc) {
-  const int c0 = blockIdx.x * tc;
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    const float2 v = buf[j * H + r];
-    yr[g] = v.x;
-    yi[g] = v.y;
-  }
-}
-
 // ----------------------------------------------------------------------
 // The register-resident line FFT (rows_fft_kernel, cols_fft_kernel,
 // cols_fwd_polar_kernel and cols_wexp_inv_kernel of natural_fft.cu;
 // rows_normfwd_kernel, cols_wgs_roundtrip_kernel, carry_entry_kernel and
-// carry_exit_kernel of wgs_carry.cu). Three column kernels still run
-// fft_lines: cols_mraf_fwd, cols_mraf_mix_inv (mraf_carry.cu) and
-// cols_wgs_fwd (wgs_carry.cu).
+// carry_exit_kernel of wgs_carry.cu; cols_mraf_fwd_kernel and
+// cols_mraf_mix_inv_kernel of mraf_carry.cu). One column kernel still runs
+// fft_lines: cols_wgs_fwd (wgs_carry.cu).
 //
 // fft_lines crosses shared memory log2(n) + 1 times with a barrier each
 // and reads a twiddle from global memory per butterfly. line_fft keeps the
@@ -371,10 +357,13 @@ __device__ __forceinline__ void line_fft(float2 (&v)[line_points(LOG2N)], float2
 
 // Offset in the (H, W) plane of point q of thread s of column `col`: row
 // s + q H / E, line_fft's layout. The column loads and stores below take
-// their offsets from it.
-template <int LOG2N>
-__device__ __forceinline__ size_t col_offset(int q, int W, size_t col, int s) {
-  return (size_t)(s + q * line_threads(LOG2N)) * W + col;
+// their offsets from it. Offset may be a 32-bit `unsigned` (every plane
+// the kernels take has at most 4096^2 points): the MRAF kernels read and
+// write up to 14 planes a point, and with 64-bit offsets the mix spilled
+// (mraf_carry.cu).
+template <int LOG2N, typename Offset = size_t>
+__device__ __forceinline__ Offset col_offset(int q, int W, size_t col, int s) {
+  return (Offset)(s + q * line_threads(LOG2N)) * (Offset)W + (Offset)col;
 }
 
 // Thread (s, column c of the tile) loads its points of line_fft's layout
@@ -544,11 +533,19 @@ __host__ __device__ constexpr int cols_cluster(int log2n) {
   return 8 * line_threads(log2n) > 1024 ? 2 : 1;
 }
 
-// The kernels on line_fft whose launch shapes slm_fft_launch_shape reports.
+// The kernels on line_fft whose launch shapes slm_fft_launch_shape reports,
+// in the order of cuda_fft.LINE_KERNELS (tests/test_torch_fft_plan.py reads
+// this enum and holds the two to each other).
 enum LineKernel {
   kRowsFft = 0, kColsFft, kRowsNormfwd, kColsWgsRoundtrip, kCarryEntry, kCarryExit,
-  kColsFwdPolar, kColsWexpInv, kNumLineKernels
+  kColsFwdPolar, kColsWexpInv, kColsMrafFwd, kColsMrafMixInv, kNumLineKernels
 };
+
+// Whether `kernel` is a column kernel (a tile of columns, launch_cols).
+constexpr bool cols_kernel(int kernel) {
+  return kernel == kColsFft || kernel == kColsWgsRoundtrip || kernel == kColsFwdPolar ||
+         kernel == kColsWexpInv || kernel == kColsMrafFwd || kernel == kColsMrafMixInv;
+}
 
 // What a launch of one of them on lines of 1 << log2n points is made with:
 // its launcher uses it, and slm_fft_launch_shape (natural_fft.cu) reports it.
@@ -559,12 +556,20 @@ struct LaunchShape {
   int smem;     // bytes of dynamic shared memory a block: its padded lines
 };
 constexpr LaunchShape launch_shape(int kernel, int log2n) {
-  const bool cols = kernel == kColsFft || kernel == kColsWgsRoundtrip ||
-                    kernel == kColsFwdPolar || kernel == kColsWexpInv;
+  const bool cols = cols_kernel(kernel);
   const int lines = cols ? cols_tile(log2n) : kThreads / line_threads(log2n);
   const int cluster = cols ? cols_cluster(log2n) : 1;
   return {lines, cluster, lines * line_threads(log2n) / cluster,
           lines * line_pitch(log2n) / cluster * (int)sizeof(float2)};
+}
+
+// Blocks of a launch of the column kernel `kernel` over W columns of
+// 1 << log2n points (W / tc tiles of its cluster's blocks), which is the
+// rows of stats partials a kernel with stats writes; -1 where W is not a
+// multiple of the tile.
+constexpr int cols_blocks(int kernel, int log2n, int W) {
+  const LaunchShape shape = launch_shape(kernel, log2n);
+  return W % shape.lines ? -1 : W / shape.lines * shape.cluster;
 }
 
 // The cases of a launcher's switch on 2 * log2(n) + inverse: one
@@ -628,8 +633,8 @@ int launch_cols(void (*kernel)(Params...), int W, cudaStream_t stream, Args... a
 }
 
 // The grid (W / tc blocks) and dynamic shared memory (tc * H complex
-// values, above the 48 KB default at H >= 2048) of the column kernels on
-// fft_lines.
+// values, above the 48 KB default at H >= 2048) of cols_wgs_fwd, the
+// column kernel on fft_lines.
 template <typename Kernel>
 cudaError_t cols_setup(Kernel kernel, int H, int W, int tc, size_t* smem) {
   if (tc <= 0 || (tc & (tc - 1)) || W % tc) return cudaErrorInvalidValue;

@@ -23,10 +23,29 @@
 // fi, uw, mcode and writes hr, hi (6 planes, 30 us); Kim adds the phasor
 // pair in and out and the zero weights their pair in and out (14 planes,
 // 70 us). One column FFT each is ~0.12 GFLOP, 2 us at the f32 peak. The
-// simple design keeps the column tile in shared memory and touches device
-// memory once per operand, as the WGS column kernel does; the scaled
-// complex farfield (not |F| and arg F) crosses between the two kernels, so
-// the mix runs without a transcendental.
+// scaled complex farfield (not |F| and arg F) crosses between the two
+// kernels, so the mix runs without a transcendental.
+//
+// Both are column kernels on the register-resident line_fft
+// (fft_shared.cuh), with cols_fft's tile (natural_fft.cu): one cluster of
+// G blocks per tile of tc = cols_tile adjacent columns, lanes across the
+// tile so that each row segment loaded or stored is a whole 32-byte
+// sector, and G = 2 at 4096 points (cols_cluster). Thread (s, c) holds the
+// rows s + q H / E of its column in registers; every per-point plane is
+// read and written at the same offsets (col_offset), and the epilogue of
+// the forward kernel and the prologue of the mix run on those registers.
+// The per-point offsets are 32-bit (col_offset<LOG2N, unsigned>): with
+// 64-bit ones the mix spilled 528-560 bytes at 2048 and 4096 points and
+// took 0.068 ms at 2048^2, with 32-bit ones it spills nothing at any
+// length and takes 0.058 (Kim with zero weights 0.109 against 0.129);
+// the forward kernel gains 3-5% at 2048^2 and 4096^2 and loses 6% at
+// 1024^2. Making kim and zero template parameters instead cut the mix's
+// spill less and gained less (0.117 ms with Kim and zero weights). At
+// 2048^2, device time: cols_mraf_fwd 0.088 ms, 46% of its bound;
+// cols_mraf_mix_inv 0.058, 52% (with Kim and zero weights 0.109, 65%).
+// The first version staged the tile in shared memory for the radix-2
+// fft_lines, with 4 columns a tile at 2048 points and 2 at 4096: 0.312
+// and 0.238 ms. PERF.md, section 6, has the measurements.
 //
 // Launchers take raw pointers, sizes, flags and a stream, and return
 // cudaGetLastError(). They allocate nothing.
@@ -43,85 +62,121 @@ constexpr float kSignal = 1.f;
 constexpr float kNoise = 2.f;
 
 // #10, K1 <- pallas_fft._cols_mraf_fwd2_kernel (mraf_carry_step_pallas,
-// pallas_call at :1796). One block per tile of `tc` adjacent columns:
-// forward column FFT, (fr, fi) = post * B, uw = the rule's update of w
-// (updated_weight), the stats partials and sum uw^2 (carry_shared.cuh).
-__global__ void __launch_bounds__(kThreads)
-cols_mraf_fwd_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
-                     const float* __restrict__ w, const float* __restrict__ t,
-                     const float* __restrict__ mask, float* __restrict__ fr_out,
-                     float* __restrict__ fi_out, float* __restrict__ uw_out,
-                     const float* __restrict__ scal,
-                     double* __restrict__ partials, int H, int W, int log2H,
-                     int tc, int log2tc, const float2* __restrict__ tw_fwd,
-                     int rule, int stats_on) {
-  extern __shared__ float2 sbuf[];  // tc columns of length H, back to back
-  const int c0 = blockIdx.x * tc;
-  load_col_tile(sbuf, gr, gi, H, W, tc, log2tc);
-  fft_lines(sbuf, H, log2H, tc, tw_fwd);
+// pallas_call at :1796). The forward column line_fft of the tile, then per
+// register point (s + q H / E, col): (fr, fi) = post * F, uw = the rule's
+// update of w at f = |post * F| (updated_weight), the three planes stored,
+// sum uw^2 and, while stats are on, the stats (carry_shared.cuh) summed by
+// each thread over its points in q order; then block_reduce and
+// stats_reduce fold them in a fixed order, so the sums repeat bit for bit.
+// One transform, so nothing writes the exchange buffer after it and no
+// second barrier is needed. 64 registers from 128 points up (53 at 64 and
+// 512), with 192-256 bytes of spill loads; the mix kernel below, 64 or
+// fewer and no spill.
+template <int LOG2N, int G>
+__device__ __forceinline__ void cols_mraf_fwd_tile(
+    const float* __restrict__ gr, const float* __restrict__ gi, const float* __restrict__ w,
+    const float* __restrict__ t, const float* __restrict__ mask, float* __restrict__ fr_out,
+    float* __restrict__ fi_out, float* __restrict__ uw_out, const float* __restrict__ scal,
+    double* __restrict__ partials, const float2* __restrict__ tw_fwd, int rule, int stats_on,
+    int W, int tc, int log2tc) {
+  constexpr int E = line_points(LOG2N);
+  extern __shared__ float2 sbuf[];
+  float2 v[E];
+  const ColPlace p = col_tile_start<LOG2N, G>(v, gr, gi, W, tc, log2tc);
+  line_fft<LOG2N, false, G>(v, sbuf + p.c, tc, p.s, tw_fwd);
 
-  const StepScalars s = load_scalars(scal);
+  const StepScalars sc = load_scalars(scal);
   float facc[2] = {0.f, 0.f};    // overlap, sum uw^2
   double dacc[2] = {0.0, 0.0};   // err_sum, err_sq
   float macc[4] = {kNegFill, kNegFill, kNegFill, kNegFill};
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    const float2 B = sbuf[j * H + r];
-    const float fr = B.x * s.post;
-    const float fi = B.y * s.post;
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const unsigned g = col_offset<LOG2N, unsigned>(q, W, p.col, p.s);
+    const float fr = v[q].x * sc.post;
+    const float fi = v[q].y * sc.post;
     const float f = sqrtf(fr * fr + fi * fi);
     const float tv = t[g];
-    const float uw = updated_weight(f, tv, w[g], s, rule);
+    const float uw = updated_weight(f, tv, w[g], sc, rule);
     fr_out[g] = fr;
     fi_out[g] = fi;
     uw_out[g] = uw;
     facc[1] += uw * uw;
     if (stats_on)
-      stats_accumulate(f, tv, mask[g], s.inv_tsum, s.inv_fsum, facc, dacc, macc);
+      stats_accumulate(f, tv, mask[g], sc.inv_tsum, sc.inv_fsum, facc, dacc, macc);
   }
   write_partials(facc, dacc, macc, partials);
 }
 
+template <int LOG2N>
+__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+cols_mraf_fwd_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
+                     const float* __restrict__ w, const float* __restrict__ t,
+                     const float* __restrict__ mask, float* __restrict__ fr_out,
+                     float* __restrict__ fi_out, float* __restrict__ uw_out,
+                     const float* __restrict__ scal, double* __restrict__ partials,
+                     const float2* __restrict__ tw_fwd, int rule, int stats_on, int W, int tc,
+                     int log2tc) {
+  cols_mraf_fwd_tile<LOG2N, 1>(gr, gi, w, t, mask, fr_out, fi_out, uw_out, scal, partials,
+                               tw_fwd, rule, stats_on, W, tc, log2tc);
+}
+
+template <int LOG2N>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+cols_mraf_fwd_cluster_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
+                             const float* __restrict__ w, const float* __restrict__ t,
+                             const float* __restrict__ mask, float* __restrict__ fr_out,
+                             float* __restrict__ fi_out, float* __restrict__ uw_out,
+                             const float* __restrict__ scal, double* __restrict__ partials,
+                             const float2* __restrict__ tw_fwd, int rule, int stats_on, int W,
+                             int tc, int log2tc) {
+  cols_mraf_fwd_tile<LOG2N, 2>(gr, gi, w, t, mask, fr_out, fi_out, uw_out, scal, partials,
+                               tw_fwd, rule, stats_on, W, tc, log2tc);
+}
+
 // #10, K2 <- pallas_fft._cols_mraf_mix_inv_kernel (pallas_call at :1837),
-// with the norm sync (:1810) folded in: every thread reads sums[3]. One
-// block per tile of `tc` adjacent columns. e = F/|F| (zero -> (1, 0)), or
-// Kim's stored phasor while use_theta is off (then stored back); the mix
-// uw/||uw|| * e in the signal region, k * F in the noise region, 0 in the
-// zero region, or with `zero` the updated zero weight zw - zf * |F| * F
-// (written back too); then the inverse column FFT.
-__global__ void __launch_bounds__(kThreads)
-cols_mraf_mix_inv_kernel(
+// with the norm sync (:1810) folded in: every thread reads sums[3]. The
+// start works as col_tile_start_wexp does: the farfield pair (fr, fi) is
+// loaded into the registers first, then the mix is formed there point by
+// point, reading each point's other planes (uw where the region is the
+// signal, mcode, Kim's stored phasor while use_theta is off, the zero
+// weights) at the same offsets: e = F/|F| (zero -> (1, 0)), or Kim's
+// stored phasor while use_theta is off (then stored back); uw/||uw|| * e
+// in the signal region, k * F in the noise region, 0 in the zero region,
+// or with `zero` the updated zero weight zw - zf * |F| * F (written back
+// too). Loading every plane of all E points first, as the wexp start does
+// for two, would not fit 64 registers. With G = 2 the cluster's barrier
+// ends the start: the inverse's first exchange writes the other block's
+// buffer. Then the inverse column line_fft and the store.
+template <int LOG2N, int G>
+__device__ __forceinline__ void cols_mraf_mix_inv_tile(
     const float* __restrict__ fr_in, const float* __restrict__ fi_in,
     const float* __restrict__ uw, const float* __restrict__ mcode,
     const float* __restrict__ pffr, const float* __restrict__ pffi,
-    const float* __restrict__ zwr, const float* __restrict__ zwi,
-    float* __restrict__ hr, float* __restrict__ hi,
-    float* __restrict__ pffr_out, float* __restrict__ pffi_out,
-    float* __restrict__ zwr_out, float* __restrict__ zwi_out,
-    const float* __restrict__ scal, const double* __restrict__ sums, int H,
-    int W, int log2H, int tc, int log2tc, const float2* __restrict__ tw_inv,
-    int kim, int zero) {
+    const float* __restrict__ zwr, const float* __restrict__ zwi, float* __restrict__ hr,
+    float* __restrict__ hi, float* __restrict__ pffr_out, float* __restrict__ pffi_out,
+    float* __restrict__ zwr_out, float* __restrict__ zwi_out, const float* __restrict__ scal,
+    const double* __restrict__ sums, const float2* __restrict__ tw_inv, int kim, int zero,
+    int W, int tc, int log2tc) {
+  constexpr int E = line_points(LOG2N);
   extern __shared__ float2 sbuf[];
-  const int c0 = blockIdx.x * tc;
-  const StepScalars s = load_scalars(scal);
+  float2 v[E];
+  const ColPlace p = col_place<G>(tc, log2tc);
+  load_col_regs<LOG2N>(v, fr_in, fi_in, W, p.col, p.s);
+  const StepScalars sc = load_scalars(scal);
   const float inv_norm = 1.f / sqrtf((float)sums[3]);
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    const float fr = fr_in[g];
-    const float fi = fi_in[g];
-    const float f2 = fr * fr + fi * fi;
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const unsigned g = col_offset<LOG2N, unsigned>(q, W, p.col, p.s);
+    const float2 F = v[q];
+    const float f2 = F.x * F.x + F.y * F.y;
     float er = 1.f, ei = 0.f;
     if (f2 > 0.f) {
       const float ib = rsqrtf(f2);
-      er = fr * ib;
-      ei = fi * ib;
+      er = F.x * ib;
+      ei = F.y * ib;
     }
     if (kim) {
-      if (!s.use_theta) {
+      if (!sc.use_theta) {
         er = pffr[g];
         ei = pffi[g];
       }
@@ -135,26 +190,96 @@ cols_mraf_mix_inv_kernel(
       re = wn * er;
       im = wn * ei;
     } else if (mc == kNoise) {
-      re = s.mraf_k * fr;
-      im = s.mraf_k * fi;
+      re = sc.mraf_k * F.x;
+      im = sc.mraf_k * F.y;
     }
     if (zero) {
       float zr = zwr[g], zi = zwi[g];
       if (mc == 0.f) {
-        const float step = s.zero_f * sqrtf(f2);
-        zr -= step * fr;
-        zi -= step * fi;
+        const float step = sc.zero_f * sqrtf(f2);
+        zr -= step * F.x;
+        zi -= step * F.y;
         re = zr;
         im = zi;
       }
       zwr_out[g] = zr;
       zwi_out[g] = zi;
     }
-    sbuf[j * H + r] = make_float2(re, im);
+    v[q] = make_float2(re, im);
   }
-  __syncthreads();
-  fft_lines(sbuf, H, log2H, tc, tw_inv);
-  store_col_tile(sbuf, hr, hi, H, W, tc, log2tc);
+  if (G > 1) cooperative_groups::this_cluster().sync();
+  line_fft<LOG2N, true, G>(v, sbuf + p.c, tc, p.s, tw_inv);
+  store_col_regs<LOG2N>(v, hr, hi, W, p.col, p.s, 1.f);
+}
+
+template <int LOG2N>
+__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+cols_mraf_mix_inv_kernel(
+    const float* __restrict__ fr_in, const float* __restrict__ fi_in,
+    const float* __restrict__ uw, const float* __restrict__ mcode,
+    const float* __restrict__ pffr, const float* __restrict__ pffi,
+    const float* __restrict__ zwr, const float* __restrict__ zwi, float* __restrict__ hr,
+    float* __restrict__ hi, float* __restrict__ pffr_out, float* __restrict__ pffi_out,
+    float* __restrict__ zwr_out, float* __restrict__ zwi_out, const float* __restrict__ scal,
+    const double* __restrict__ sums, const float2* __restrict__ tw_inv, int kim, int zero,
+    int W, int tc, int log2tc) {
+  cols_mraf_mix_inv_tile<LOG2N, 1>(fr_in, fi_in, uw, mcode, pffr, pffi, zwr, zwi, hr, hi,
+                                   pffr_out, pffi_out, zwr_out, zwi_out, scal, sums, tw_inv,
+                                   kim, zero, W, tc, log2tc);
+}
+
+template <int LOG2N>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+cols_mraf_mix_inv_cluster_kernel(
+    const float* __restrict__ fr_in, const float* __restrict__ fi_in,
+    const float* __restrict__ uw, const float* __restrict__ mcode,
+    const float* __restrict__ pffr, const float* __restrict__ pffi,
+    const float* __restrict__ zwr, const float* __restrict__ zwi, float* __restrict__ hr,
+    float* __restrict__ hi, float* __restrict__ pffr_out, float* __restrict__ pffi_out,
+    float* __restrict__ zwr_out, float* __restrict__ zwi_out, const float* __restrict__ scal,
+    const double* __restrict__ sums, const float2* __restrict__ tw_inv, int kim, int zero,
+    int W, int tc, int log2tc) {
+  cols_mraf_mix_inv_tile<LOG2N, 2>(fr_in, fi_in, uw, mcode, pffr, pffi, zwr, zwi, hr, hi,
+                                   pffr_out, pffi_out, zwr_out, zwi_out, scal, sums, tw_inv,
+                                   kim, zero, W, tc, log2tc);
+}
+
+// Launches of one instantiation of each (launch_cols; the cluster
+// instantiation where cols_cluster says two blocks). cols_mraf_fwd then
+// launches stats_reduce on its n_blocks rows of partials, which must be
+// the grid's (cols_blocks).
+template <int LOG2N>
+int launch_cols_mraf_fwd(const float* gr, const float* gi, const float* w, const float* t,
+                         const float* mask, float* fr, float* fi, float* uw, const float* scal,
+                         double* partials, double* sums, float* maxs, int W, int n_blocks,
+                         const float2* tw_fwd, int rule, int stats_on, cudaStream_t stream) {
+  if (n_blocks <= 0 || n_blocks != cols_blocks(kColsMrafFwd, LOG2N, W))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = [] {
+    if constexpr (cols_cluster(LOG2N) == 2) return cols_mraf_fwd_cluster_kernel<LOG2N>;
+    else return cols_mraf_fwd_kernel<LOG2N>;
+  }();
+  const int err = launch_cols<kColsMrafFwd, LOG2N>(kernel, W, stream, gr, gi, w, t, mask, fr,
+                                                    fi, uw, scal, partials, tw_fwd, rule,
+                                                    stats_on);
+  if (err != (int)cudaSuccess) return err;
+  return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
+}
+
+template <int LOG2N>
+int launch_cols_mraf_mix_inv(const float* fr, const float* fi, const float* uw,
+                             const float* mcode, const float* pffr, const float* pffi,
+                             const float* zwr, const float* zwi, float* hr, float* hi,
+                             float* pffr_out, float* pffi_out, float* zwr_out, float* zwi_out,
+                             const float* scal, const double* sums, int W,
+                             const float2* tw_inv, int kim, int zero, cudaStream_t stream) {
+  auto kernel = [] {
+    if constexpr (cols_cluster(LOG2N) == 2) return cols_mraf_mix_inv_cluster_kernel<LOG2N>;
+    else return cols_mraf_mix_inv_kernel<LOG2N>;
+  }();
+  return launch_cols<kColsMrafMixInv, LOG2N>(kernel, W, stream, fr, fi, uw, mcode, pffr, pffi,
+                                             zwr, zwi, hr, hi, pffr_out, pffi_out, zwr_out,
+                                             zwi_out, scal, sums, tw_inv, kim, zero);
 }
 
 }  // namespace slm
@@ -163,22 +288,18 @@ using namespace slm;
 
 extern "C" {
 
+// n_blocks: the rows of `partials`, slm_cols_blocks(kColsMrafFwd, H, W).
 int slm_cols_mraf_fwd(const float* gr, const float* gi, const float* w,
                       const float* t, const float* mask, float* fr, float* fi,
                       float* uw, const float* scal, double* partials,
-                      double* sums, float* maxs, int H, int W, int tc,
+                      double* sums, float* maxs, int H, int W, int n_blocks,
                       const float2* tw_fwd, int rule, int stats_on,
                       cudaStream_t stream) {
-  size_t smem = 0;
-  cudaError_t err = cols_setup(cols_mraf_fwd_kernel, H, W, tc, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_blocks = W / tc;
-  cols_mraf_fwd_kernel<<<n_blocks, kThreads, smem, stream>>>(
-      gr, gi, w, t, mask, fr, fi, uw, scal, partials, H, W, ilog2(H), tc,
-      ilog2(tc), tw_fwd, rule, stats_on);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
+  switch (ilog2(H)) {
+    SLM_LEN_CASES(launch_cols_mraf_fwd, gr, gi, w, t, mask, fr, fi, uw, scal, partials, sums,
+                  maxs, W, n_blocks, tw_fwd, rule, stats_on, stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int slm_cols_mraf_mix_inv(const float* fr, const float* fi, const float* uw,
@@ -187,17 +308,15 @@ int slm_cols_mraf_mix_inv(const float* fr, const float* fi, const float* uw,
                           const float* zwi, float* hr, float* hi,
                           float* pffr_out, float* pffi_out, float* zwr_out,
                           float* zwi_out, const float* scal,
-                          const double* sums, int H, int W, int tc,
+                          const double* sums, int H, int W,
                           const float2* tw_inv, int kim, int zero,
                           cudaStream_t stream) {
-  size_t smem = 0;
-  cudaError_t err = cols_setup(cols_mraf_mix_inv_kernel, H, W, tc, &smem);
-  if (err != cudaSuccess) return (int)err;
-  cols_mraf_mix_inv_kernel<<<W / tc, kThreads, smem, stream>>>(
-      fr, fi, uw, mcode, pffr, pffi, zwr, zwi, hr, hi, pffr_out, pffi_out,
-      zwr_out, zwi_out, scal, sums, H, W, ilog2(H), tc, ilog2(tc), tw_inv,
-      kim, zero);
-  return (int)cudaGetLastError();
+  switch (ilog2(H)) {
+    SLM_LEN_CASES(launch_cols_mraf_mix_inv, fr, fi, uw, mcode, pffr, pffi, zwr, zwi, hr, hi,
+                  pffr_out, pffi_out, zwr_out, zwi_out, scal, sums, W, tw_inv, kim, zero,
+                  stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

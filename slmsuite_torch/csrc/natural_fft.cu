@@ -292,8 +292,8 @@ int slm_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
 
 // out[0..4) = the LaunchShape (lines, cluster, threads, smem) of `kernel`
 // (a LineKernel: rows_fft, cols_fft, rows_normfwd, cols_wgs_roundtrip,
-// carry_entry, carry_exit, cols_fwd_polar, cols_wexp_inv) on lines of n
-// points, a power of two in [64, 4096].
+// carry_entry, carry_exit, cols_fwd_polar, cols_wexp_inv, cols_mraf_fwd,
+// cols_mraf_mix_inv) on lines of n points, a power of two in [64, 4096].
 int slm_fft_launch_shape(int kernel, int n, int* out) {
   const int log2n = ilog2(n);
   if (kernel < 0 || kernel >= kNumLineKernels || log2n < 6 || log2n > 12 ||
@@ -305,6 +305,16 @@ int slm_fft_launch_shape(int kernel, int n, int* out) {
   out[2] = shape.threads;
   out[3] = shape.smem;
   return 0;
+}
+
+// Blocks of a launch of the column kernel `kernel` (a LineKernel) on an
+// (H, W) pair, that is the rows of the stats partials of cols_wgs_roundtrip
+// and cols_mraf_fwd (cols_blocks); -1 for a pair or a kernel it does not
+// take.
+int slm_cols_blocks(int kernel, int H, int W) {
+  const int log2n = ilog2(H);
+  if (!cols_kernel(kernel) || log2n < 6 || log2n > 12 || (1 << log2n) != H) return -1;
+  return cols_blocks(kernel, log2n, W);
 }
 
 int slm_cols_fwd_polar(const float* xr, const float* xi, float* amp, float* theta, int H,

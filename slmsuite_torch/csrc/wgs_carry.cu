@@ -376,7 +376,8 @@ int launch_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
   constexpr LaunchShape shape = launch_shape(kColsWgsRoundtrip, LOG2N);
   constexpr int G = shape.cluster;
   static_assert(shape.threads <= 1024 && shape.smem <= 227 * 1024, "cols_wgs_roundtrip launch");
-  if (W % shape.lines || n_blocks != W / shape.lines * G) return (int)cudaErrorInvalidValue;
+  if (n_blocks <= 0 || n_blocks != cols_blocks(kColsWgsRoundtrip, LOG2N, W))
+    return (int)cudaErrorInvalidValue;
   auto kernel = [] {
     if constexpr (G == 2) return cols_wgs_roundtrip_cluster_kernel<LOG2N>;
     else return cols_wgs_roundtrip_kernel<LOG2N>;
@@ -427,15 +428,6 @@ int slm_carry_entry(const float* psi, const float* amp, float* gr, float* gi,
     SLM_LEN_CASES(launch_carry_entry, psi, amp, gr, gi, H, tw, stream)
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// Blocks of a cols_wgs_roundtrip launch on an (H, W) pair, that is the
-// rows of its stats partials; -1 for a pair it does not take.
-int slm_cols_wgs_roundtrip_blocks(int H, int W) {
-  const int log2n = ilog2(H);
-  if (log2n < 6 || log2n > 12 || (1 << log2n) != H) return -1;
-  const LaunchShape shape = launch_shape(kColsWgsRoundtrip, log2n);
-  return W % shape.lines ? -1 : W / shape.lines * shape.cluster;
 }
 
 int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,

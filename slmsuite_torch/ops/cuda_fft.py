@@ -23,14 +23,14 @@ the same name in :mod:`slmsuite_torch.ops.fft`.
 
 The kernels of :data:`LINE_KERNELS` (``rows_fft``, ``cols_fft``,
 ``rows_normfwd``, ``cols_wgs_roundtrip``, ``carry_entry``, ``carry_exit``,
-``cols_fwd_polar``, ``cols_wexp_inv``) run a register-resident line FFT
-(``line_fft`` in ``csrc/fft_shared.cuh``). Its plan (:meth:`fft_plan`),
-its exchange's index maps, and a plain PyTorch model that follows it pass
-by pass (:meth:`line_fft_model`) are here, so that they can be tested
-without a card; the launch shapes are the launchers' own
-(:meth:`fft_launch_shape` asks them). The three other FFT kernels, all
-column kernels (``cols_mraf_fwd``, ``cols_mraf_mix_inv``,
-``cols_wgs_fwd``), run the shared-memory ``fft_lines``.
+``cols_fwd_polar``, ``cols_wexp_inv``, ``cols_mraf_fwd``,
+``cols_mraf_mix_inv``) run a register-resident line FFT (``line_fft`` in
+``csrc/fft_shared.cuh``). Its plan (:meth:`fft_plan`), its exchange's
+index maps, and a plain PyTorch model that follows it pass by pass
+(:meth:`line_fft_model`) are here, so that they can be tested without a
+card; the launch shapes are the launchers' own (:meth:`fft_launch_shape`
+asks them). The one other FFT kernel, the column kernel
+``cols_wgs_fwd``, runs the shared-memory ``fft_lines``.
 """
 
 import ctypes
@@ -82,7 +82,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "slm_carry_entry": [_P, _P, _P, _P, _I, _I, _P, _P],
     "slm_cols_wgs_roundtrip": [_P] * 16 + [_I, _I, _I, _P, _P, _I, _I, _I, _P],
-    "slm_cols_wgs_roundtrip_blocks": [_I, _I],
+    "slm_cols_blocks": [_I, _I, _I],
     "slm_cols_wgs_fwd": [_P] * 14 + [_I, _I, _I, _P, _I, _I, _I, _P],
     "slm_rows_normfwd": [_P] * 5 + [_I, _I, _P, _P, _P],
     "slm_carry_exit": [_P, _P, _P, _I, _I, _P, _P],
@@ -92,7 +92,7 @@ _SIGNATURES = {
     "slm_cols_fwd_polar": [_P] * 4 + [_I, _I, _P, _F, _P],
     "slm_cols_wexp_inv": [_P] * 4 + [_I, _I, _P, _P],
     "slm_cols_mraf_fwd": [_P] * 12 + [_I, _I, _I, _P, _I, _I, _P],
-    "slm_cols_mraf_mix_inv": [_P] * 16 + [_I, _I, _I, _P, _I, _I, _P],
+    "slm_cols_mraf_mix_inv": [_P] * 16 + [_I, _I, _P, _I, _I, _P],
 }
 
 _LIB = None
@@ -191,9 +191,8 @@ def _twiddles(n, inverse, device):
 
 
 def _cols_tile(H):
-    """Columns per block of the three column kernels still on
-    ``fft_lines`` (``cols_mraf_fwd``, ``cols_mraf_mix_inv``,
-    ``cols_wgs_fwd``): 64 KiB of shared memory. The kernels on ``line_fft``
+    """Columns per block of ``cols_wgs_fwd``, the column kernel still on
+    ``fft_lines``: 64 KiB of shared memory. The kernels on ``line_fft``
     take their tile from their launch shape (:meth:`fft_launch_shape`)."""
     return max(1, min(8, 8192 // H))
 
@@ -433,8 +432,7 @@ def cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
     H, W = _check_planes(*planes)
     _check_rule(rule)
     _check_scal(scal, gr)
-    # One row of stats partials a block of the launch, as the launcher counts them.
-    blocks = _lib().slm_cols_wgs_roundtrip_blocks(H, W)
+    blocks = _cols_blocks("cols_wgs_roundtrip", H, W)
     hr, hi, wout = (torch.empty_like(gr) for _ in range(3))
     pff_out = (torch.empty_like(gr), torch.empty_like(gr)) if kim else (None, None)
     partials = torch.empty((blocks, 8), dtype=torch.float64, device=gr.device)
@@ -535,15 +533,15 @@ def cols_mraf_fwd(gr, gi, weights, target, mask, scal, *, rule, stats_on):
     H, W = _check_planes(*planes)
     _check_rule(rule)
     _check_scal(scal, gr)
-    tc = _cols_tile(H)
+    blocks = _cols_blocks("cols_mraf_fwd", H, W)
     fr, fi, uw = (torch.empty_like(gr) for _ in range(3))
-    partials = torch.empty((W // tc, 8), dtype=torch.float64, device=gr.device)
+    partials = torch.empty((blocks, 8), dtype=torch.float64, device=gr.device)
     sums = torch.empty(4, dtype=torch.float64, device=gr.device)
     maxs = torch.empty(4, dtype=torch.float32, device=gr.device)
     rc = _lib().slm_cols_mraf_fwd(
         _ptr(gr), _ptr(gi), _ptr(weights), _ptr(target),
         _ptr(mask if stats_on else None), _ptr(fr), _ptr(fi), _ptr(uw),
-        _ptr(scal), _ptr(partials), _ptr(sums), _ptr(maxs), H, W, tc,
+        _ptr(scal), _ptr(partials), _ptr(sums), _ptr(maxs), H, W, blocks,
         _ptr(_twiddles(H, False, gr.device)), _RULES[rule], int(stats_on), _stream(),
     )
     _raise_on(rc, "cols_mraf_fwd")
@@ -574,8 +572,7 @@ def cols_mraf_mix_inv(fr, fi, uw, mcode, phase_ff, zw, sums, scal, *, kim, zero)
         _ptr(fr), _ptr(fi), _ptr(uw), _ptr(mcode), _ptr(pff_in[0]), _ptr(pff_in[1]),
         _ptr(zw_in[0]), _ptr(zw_in[1]), _ptr(hr), _ptr(hi), _ptr(pff_out[0]),
         _ptr(pff_out[1]), _ptr(zw_to[0]), _ptr(zw_to[1]), _ptr(scal), _ptr(sums),
-        H, W, _cols_tile(H), _ptr(_twiddles(H, True, fr.device)), int(kim), int(zero),
-        _stream(),
+        H, W, _ptr(_twiddles(H, True, fr.device)), int(kim), int(zero), _stream(),
     )
     _raise_on(rc, "cols_mraf_mix_inv")
     LAUNCHES["cols_mraf_mix_inv"] += 1
@@ -628,7 +625,8 @@ def cols_fft(xr, xi, *, inverse, scale=1.0):
 #: The kernels on the line FFT, in the order of ``LineKernel`` in
 #: ``csrc/fft_shared.cuh``.
 LINE_KERNELS = ("rows_fft", "cols_fft", "rows_normfwd", "cols_wgs_roundtrip", "carry_entry",
-                "carry_exit", "cols_fwd_polar", "cols_wexp_inv")
+                "carry_exit", "cols_fwd_polar", "cols_wexp_inv", "cols_mraf_fwd",
+                "cols_mraf_mix_inv")
 
 
 def fft_launch_shape(kernel, n):
@@ -641,6 +639,16 @@ def fft_launch_shape(kernel, n):
     if rc != 0:
         raise ValueError(f"No {kernel} launch on lines of {n} points.")
     return tuple(out)
+
+
+def _cols_blocks(kernel, H, W):
+    """Blocks of a launch of the column kernel ``kernel`` (one of
+    :data:`LINE_KERNELS`) on an (H, W) pair, as its launcher counts them:
+    the rows of stats partials it writes. Launches nothing."""
+    blocks = _lib().slm_cols_blocks(LINE_KERNELS.index(kernel), H, W)
+    if blocks <= 0:
+        raise ValueError(f"No {kernel} launch on a ({H}, {W}) pair.")
+    return blocks
 
 
 def cols_fwd_polar(xr, xi, scale):

@@ -322,7 +322,8 @@ def test_fft_launch_shapes_fit_the_card(cuda, n):
         assert blocks == 1 and threads == 256 and 64 % rows == 0 and smem <= 48 * 1024
         assert threads * points == rows * n and smem == rows * cuda_fft.line_pitch(n) * 8
     cols_kernels = [k for k in cuda_fft.LINE_KERNELS if k.startswith("cols")]
-    assert cols_kernels == ["cols_fft", "cols_wgs_roundtrip", "cols_fwd_polar", "cols_wexp_inv"]
+    assert cols_kernels == ["cols_fft", "cols_wgs_roundtrip", "cols_fwd_polar", "cols_wexp_inv",
+                            "cols_mraf_fwd", "cols_mraf_mix_inv"]
     for kernel in cols_kernels:
         tc, blocks, threads, smem = cuda_fft.fft_launch_shape(kernel, n)
         assert tc >= 8 and 64 % tc == 0 and blocks == (2 if n == 4096 else 1)
@@ -452,17 +453,21 @@ def _mraf_scal(shape, amp, target, stats_on, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 64), (256, 512)])
+@pytest.mark.parametrize("shape", FFT_SHAPES)
 @pytest.mark.parametrize("amp_kind", ["scalar", "array"])
 @pytest.mark.parametrize("rule", ["leonardo", "kim"])
 @pytest.mark.parametrize("stats_on", [True, False])
 @pytest.mark.parametrize("zero", [True, False])
 def test_mraf_kernels_match_plain(cuda, shape, amp_kind, rule, stats_on, zero):
-    """cols_mraf_fwd and cols_mraf_mix_inv against their plain versions,
+    """cols_mraf_fwd and cols_mraf_mix_inv, column kernels on the line FFT,
+    against their plain versions at every line length (4096 on a cluster of
+    two blocks) and the rectangles both ways, with one all-zero column of
+    the carry (F = 0 there: the phasor (1, 0), the weight update at f = 0),
     and the three-kernel MRAF carry step against its plain version."""
     from slmsuite_torch.ops import cuda_fft, fft
 
     gr, gi, amp, target, pff, mcode, zw = _mraf_inputs(shape, cuda, amp_kind)
+    gr[:, 1], gi[:, 1] = 0.0, 0.0
     kim = rule == "kim"
     scal = _mraf_scal(shape, amp, target, stats_on, cuda)
     weights = target * 1.3
@@ -471,6 +476,7 @@ def test_mraf_kernels_match_plain(cuda, shape, amp_kind, rule, stats_on, zero):
     got = cuda_fft.cols_mraf_fwd(*fwd, rule=rule, stats_on=stats_on)
     ref = fft._cols_mraf_fwd(*fwd, rule=rule, stats_on=stats_on)
     assert max(_rel(got[0], ref[0]), _rel(got[1], ref[1])) <= CARRY_RTOL
+    assert float(got[0][:, 1].abs().max()) == 0.0 and float(got[1][:, 1].abs().max()) == 0.0
     for g, r in zip(got[2:], ref[2:]):
         torch.testing.assert_close(g, r, atol=ATOL, rtol=RTOL)
 
@@ -482,6 +488,8 @@ def test_mraf_kernels_match_plain(cuda, shape, amp_kind, rule, stats_on, zero):
     for g, r in ([*zip(got[2], plain[2])] if kim else []) + ([(got[3], plain[3])] if zero else []):
         torch.testing.assert_close(g, r, atol=ATOL, rtol=RTOL)
     assert (got[2] is None) is not kim and (got[3] is None) is not zero
+    if kim and stats_on:  # use_theta: the phasor of the zero column is (1, 0)
+        assert bool((got[2][0][:, 1] == 1.0).all()) and bool((got[2][1][:, 1] == 0.0).all())
 
     step = (gr, gi, amp, weights, pff if kim else None, target, mask, mcode,
             zw if zero else None, scal)
@@ -489,6 +497,45 @@ def test_mraf_kernels_match_plain(cuda, shape, amp_kind, rule, stats_on, zero):
     got, plain = cuda_fft.mraf_carry_step(*step, **kw), fft._mraf_carry_step(*step, **kw)
     assert max(_rel(got[0], plain[0]), _rel(got[1], plain[1])) <= CARRY_RTOL
     torch.testing.assert_close(got[5], plain[5], atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 4096), (4096, 64), (2048, 256)])
+def test_cols_mraf_fwd_partials_have_the_launch_block_count(cuda, shape):
+    """cols_mraf_fwd writes one row of stats partials a block: W / tc tiles
+    of the launch shape's blocks, two a tile at 4096 points. The wrapper
+    sizes the buffer by the library's count, and the launcher refuses any
+    other count, so no launch writes past the buffer; the sums repeat bit
+    for bit."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    H, W = shape
+    tc, blocks, _, _ = cuda_fft.fft_launch_shape("cols_mraf_fwd", H)
+    assert blocks == (2 if H == 4096 else 1)
+    n_blocks = cuda_fft._cols_blocks("cols_mraf_fwd", H, W)
+    assert n_blocks == W // tc * blocks
+    gr, gi, amp, target, _, _, _ = _mraf_inputs(shape, cuda, "scalar")
+    scal = _mraf_scal(shape, amp, target, True, cuda)
+    fwd = (gr, gi, target * 1.3, target, (target != 0).float(), scal)
+    first = cuda_fft.cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True)
+    second = cuda_fft.cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True)
+    assert torch.equal(first[3], second[3]) and torch.equal(first[4], second[4])
+    ref = fft._cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True)
+    torch.testing.assert_close(first[3], ref[3], atol=ATOL, rtol=RTOL)
+
+    out = [torch.empty_like(gr) for _ in range(3)]
+    sums = torch.empty(4, dtype=torch.float64, device=cuda)
+    maxs = torch.empty(4, dtype=torch.float32, device=cuda)
+    for wrong in (n_blocks // 2, n_blocks * 2):
+        partials = torch.empty((max(wrong, n_blocks), 8), dtype=torch.float64, device=cuda)
+        rc = cuda_fft._lib().slm_cols_mraf_fwd(
+            gr.data_ptr(), gi.data_ptr(), fwd[2].data_ptr(), target.data_ptr(),
+            fwd[4].data_ptr(), *(x.data_ptr() for x in out), scal.data_ptr(),
+            partials.data_ptr(), sums.data_ptr(), maxs.data_ptr(), H, W, wrong,
+            cuda_fft._twiddles(H, False, cuda).data_ptr(), 0, 1,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, wrong
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

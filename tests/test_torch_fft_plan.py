@@ -13,6 +13,8 @@ passes; measured 1e-7 to 2e-7). Against the JAX package (f32, another
 algorithm) a plane is held to 2e-5 of its largest value.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -128,6 +130,23 @@ def test_cluster_exchange_after_a_wide_pass_is_local():
         local.append(stays)
         p *= radix
     assert local == [False, True]
+
+
+def test_line_kernel_enum_names_the_line_kernels_in_order():
+    """The library takes a kernel by its place in ``enum LineKernel``
+    (``csrc/fft_shared.cuh``; ``slm_fft_launch_shape``, ``slm_cols_blocks``)
+    and the wrappers give it its place in ``LINE_KERNELS``: a kernel out of
+    place would get another kernel's launch shape without any error. The
+    enum, read from the source, names the same kernels in the same order,
+    counts from 0 and ends with its count."""
+    source = (cuda_fft._CSRC / "fft_shared.cuh").read_text()
+    body = re.search(r"enum LineKernel \{(.*?)\};", source, re.S).group(1)
+    entries = [e.strip() for e in body.split(",")]
+    assert entries[0] == "kRowsFft = 0" and entries[-1] == "kNumLineKernels"
+    assert all(re.fullmatch(r"k[A-Za-z0-9]+", e) for e in entries[1:])
+    names = [re.sub(r"(?<!^)([A-Z])", r"_\1", e.split(" ")[0][1:]).lower()
+             for e in entries[:-1]]
+    assert tuple(names) == cuda_fft.LINE_KERNELS
 
 
 @pytest.mark.parametrize("inverse", [False, True])
