@@ -25,10 +25,13 @@ there is no card or the port is missing. In order:
    array amplitude, and the composed ``ifft2_phase``,
    ``wgs_fused_step`` and ``mraf_fused_step``; the four compressed
    kernels at BASELINE config 5's shapes (P = 1024^2, N = 256, D = 3) and
-   at P = 3000, N = 17, D = 4, scalar and array amplitude, and the
-   compressed dispatchers on config 5's hologram; ``cols_wgs_fwd`` and the
-   composed ``wgs_fused_forward`` at 2048^2 and 256x512 for every rule,
-   Kim on and off, stats on and off, scalar and array amplitude;
+   at P = 3000, N = 17, D = 4, there also with phases up to 1e6 (past 1e5
+   the kernels' sincos takes libdevice's sincosf), scalar and array
+   amplitude, ``fused_iter`` and its plain f32 version against the plain
+   version in float64, and the compressed dispatchers on config 5's
+   hologram; ``cols_wgs_fwd`` and the composed ``wgs_fused_forward`` at
+   2048^2, 256x512, 64^2 and 4096^2 for every rule, Kim on and off, stats
+   on and off, scalar and array amplitude, with one all-zero column;
 5. the paths, each driven with the launch counts set to 0 just before it:
    - the fused slice: ``SpotHologram.make_rectangular_array((2048, 2048),
      32x32, pitch 30, "knm")``, WGS-Kim, 50 iterations;
@@ -69,10 +72,10 @@ there is no card or the port is missing. In order:
    replayed through the kernels;
 7. timing with CUDA events: each kernel, its plain version and, where one
    PyTorch call computes the same function, that call, at 2048^2; the
-   ten kernels on the line FFT, ``cols_wgs_roundtrip``, ``rows_normfwd``
+   eleven kernels on the line FFT, ``cols_wgs_roundtrip``, ``rows_normfwd``
    and ``carry_entry`` (both also with an amplitude plane), ``carry_exit``,
-   ``cols_mraf_fwd`` and ``cols_mraf_mix_inv`` (also with Kim and zero
-   weights), ``rows_fft``, ``cols_fft``, ``cols_fwd_polar`` and
+   ``cols_wgs_fwd``, ``cols_mraf_fwd`` and ``cols_mraf_mix_inv`` (also with
+   Kim and zero weights), ``rows_fft``, ``cols_fft``, ``cols_fwd_polar`` and
    ``cols_wexp_inv``, with the composed ``mraf_fused_step`` and
    ``mraf_carry_step``, at
    1024^2, 2048^2 and 4096^2 by CUDA events and by the device's own time
@@ -94,7 +97,7 @@ there is no card or the port is missing. In order:
 8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette),
    the N2 GS, the ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop),
    M2's (WGS-Kim with zero weights), M3's (GS, the natural MRAF step), the
-   C1 and the S2 loops: device
+   C1, the C2 and the S2 loops: device
    time, device busy share, device launches per iteration (S2 also:
    the share of ``sim_measure_spots``).
 
@@ -160,8 +163,8 @@ PORT_KERNEL_NAMES = (
     "cols_fwd_polar_kernel", "cols_fwd_polar_cluster_kernel", "cols_mraf_fwd_kernel",
     "cols_mraf_fwd_cluster_kernel", "cols_mraf_mix_inv_kernel",
     "cols_mraf_mix_inv_cluster_kernel", "cols_wexp_inv_kernel", "cols_wexp_inv_cluster_kernel",
-    "cols_wgs_fwd_kernel", "cols_wgs_roundtrip_kernel",
-    "cols_wgs_roundtrip_cluster_kernel", "f2n_kernel",
+    "cols_wgs_fwd_kernel", "cols_wgs_fwd_cluster_kernel", "cols_wgs_roundtrip_kernel",
+    "cols_wgs_roundtrip_cluster_kernel", "f2n_kernel", "fused_spots_kernel",
     "roundtrip_kernel", "rows_fft_kernel", "rows_normfwd_kernel", "spot_reduce_kernel",
     "stats_reduce_kernel", "unit_norm_kernel",
 )
@@ -210,9 +213,11 @@ CMP_PATH_ATOL = 2e-3
 #: BASELINE config 5 (bench.py config_5): 16x16 spots on a 1024^2 SLM, 30
 #: WGS-Kim iterations.
 CONFIG5_RES, CONFIG5_SIDE, CONFIG5_ITERS = 1024, 16, 30
-#: f32 operations counted for one libdevice sincosf on its fast path
-#: (|x| < 105615): a three-term Cody-Waite reduction (3 FMAs, a multiply and
-#: a round) and two degree-4 polynomials (8 FMAs), an FMA counted as 2.
+#: f32 operations counted for one sincos in the compressed kernels' bound:
+#: a three-term Cody-Waite reduction (3 FMAs, a multiply and a round) and two
+#: degree-4 polynomials (8 FMAs), an FMA counted as 2. The kernels' own
+#: sincos (csrc/compressed.cu) runs the same reduction and two SFU
+#: operations; the count stays, so that the yardstick does not move.
 SINCOS_FLOPS = 24
 
 
@@ -886,7 +891,7 @@ def write_launch_log():
     ptxas = (OUT / "ptxas.log").read_text().splitlines() if (OUT / "ptxas.log").exists() else []
     names = ("rows_fft_kernel", "cols_fft_", "rows_normfwd_kernel", "cols_wgs_roundtrip_",
              "carry_entry_kernel", "carry_exit_kernel", "cols_fwd_polar_", "cols_wexp_inv_",
-             "cols_mraf_fwd_", "cols_mraf_mix_inv_")
+             "cols_mraf_fwd_", "cols_mraf_mix_inv_", "cols_wgs_fwd_")
     for k, line in enumerate(ptxas):
         if "Compiling entry function" in line and any(name in line for name in names):
             lines.append(" ".join(x.strip() for x in ptxas[k:k + 4]))
@@ -896,7 +901,8 @@ def write_launch_log():
 def phase_carry_timing(device):
     """``cols_wgs_roundtrip`` (WGS-Kim, stats on, scalar amp),
     ``rows_normfwd`` and ``carry_entry`` (scalar amp, and an amplitude
-    plane), ``carry_exit``, the MRAF kernels at M1's variant
+    plane), ``carry_exit``, ``cols_wgs_fwd`` (WGS-Kim, stats on), the MRAF
+    kernels at M1's variant
     (``cols_mraf_fwd``: WGS-Leonardo, stats on; ``cols_mraf_mix_inv``: no
     Kim, no zero weights) with the mix's largest (Kim with the stored
     phasor read, zero weights), and the MRAF step compositions
@@ -928,6 +934,7 @@ def phase_carry_timing(device):
         step = (gr, gi, m["amp"], m["weights"], None, m["target"], m["mask"], m["mcode"], None,
                 m["scal"])
         step_kw = dict(rule="leonardo", kim=False, stats_on=True, zero=False)
+        fwd_kim = (gr, gi, x["weights"], x["target"], x["mask"], angle, x["scal"])
         timed = {
             # gr, gi, w, t and mask read, hr, hi, w' and the phasor pair
             # written: ten planes (use_theta is on with stats, so the stored
@@ -950,6 +957,10 @@ def phase_carry_timing(device):
             # The pair read, psi written.
             "carry_exit": (lambda: cuda_fft.carry_exit(gr, gi),
                            lambda: fft._wgs_carry_exit(gr, gi), bound(shape, 3, 1)),
+            # Row 7: gr, gi, w, t and mask read (use_theta is on, so the
+            # angle store is not read), re, im, w' and the store written.
+            "cols_wgs_fwd": (lambda: cuda_fft.cols_wgs_fwd(*fwd_kim, **kw),
+                             lambda: fft._cols_wgs_fwd(*fwd_kim, **kw), bound(shape, 9, 1)),
             # gr, gi, w, t and mask read, fr, fi and uw written.
             "cols_mraf_fwd": (
                 lambda: cuda_fft.cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True),
@@ -986,7 +997,7 @@ def phase_carry_timing(device):
             if side == 2048 and name in KERNELS:
                 t[name] = by_device
         del x, gr, gi, amp, cols, m, fwd, fr, fi, uw, sums, mix, k, mix_kim, angle, fused
-        del step, timed
+        del step, fwd_kim, timed
     log(f"  [{nvidia_smi_line()}]")
     return t
 
@@ -1000,18 +1011,8 @@ def phase_kernel_timing(device):
 
     shape = (2048, 2048)
     x = step_inputs(shape, "scalar", "kim", True, device)
-    gr, gi = fft._wgs_carry_entry(x["psi"], x["amp"])
-    cols_kw = dict(rule="kim", kim=True, stats_on=True)
-    t = {}
-    # psi, weights, target, mask and the angle store read once (the carry
-    # stays between the two halves), re, im, weights and the store written
-    # once: nine planes; no single PyTorch call computes it.
     angle = torch.atan2(x["phase_ff"][1], x["phase_ff"][0])
-    fwd_args = (gr, gi, x["weights"], x["target"], x["mask"], angle, x["scal"])
-    t["cols_wgs_fwd"] = interleaved(
-        "cols_wgs_fwd", lambda: cuda_fft.cols_wgs_fwd(*fwd_args, **cols_kw),
-        lambda: fft._cols_wgs_fwd(*fwd_args, **cols_kw), bound_of=bound(shape, 9, 1))
-    t.update(phase_carry_timing(device))
+    t = phase_carry_timing(device)
     t.update(phase_fft_timing(device))
     write_launch_log()
 
@@ -1022,7 +1023,7 @@ def phase_kernel_timing(device):
     interleaved("wgs_fused_forward (carry_entry + cols_wgs_fwd)",
                 lambda: cuda_fft.wgs_fused_forward(*args, x["scal"], **kw),
                 lambda: fft._wgs_fused_forward(*args, x["scal"], **kw),
-                bound_of=bound(shape, 9, 2))
+                bound_of=bound(shape, 9, 2), timer=device_ms)
     interleaved("wgs_fused_step (carry_entry + cols_wgs_roundtrip + carry_exit)",
                 lambda: cuda_fft.wgs_fused_step(*args, x["scal"], **kw),
                 lambda: fft._wgs_fused_step(*args, x["scal"], **kw), bound_of=bound(shape, 8, 4))
@@ -1443,19 +1444,72 @@ def compressed_calls(x, amp):
     }
 
 
+def wide_phase_inputs(device, D=4, P=3000, N=17, top=1e6, seed=4):
+    """Compressed inputs whose phases reach ``|phase|`` = ``top``: the basis in
+    multiples of 1/4 within [-2, 2], the spots' coefficients in multiples of
+    1/4 up to scales spaced geometrically from 1 to top / (2 D), the first
+    spot's all at that scale and the first pixel's basis all 2 (there the
+    phase is ``top``). Every product and partial sum is then a multiple of
+    1/16 below 2^20, so the phase is exact in f32 whatever the order of its
+    sum: kernel and plain version differ in the sincos alone, past
+    REDUCED_LIMIT (1e5) too."""
+    rng = np.random.default_rng(seed)
+    basis = rng.integers(-8, 9, size=(D, P)) / 4
+    scale = np.geomspace(top / (2 * D), 1, N)
+    coeffs = np.round(rng.uniform(-1, 1, (D, N)) * scale * 4) / 4
+    coeffs[:, 0], basis[:, 0] = scale[0], 2.0
+    assert np.abs(coeffs.T @ basis).max() == top < 2**20
+    dev = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    x = compressed_inputs(device, D, P, N, seed=seed, basis=dev(basis), coeffs=dev(coeffs))
+    x["phase_max"] = float(np.abs(coeffs.T @ basis).max())
+    return x
+
+
+def float64_errors(x, amp):
+    """``fused_iter`` and its plain f32 version against the plain version
+    run in float64 on the card: max |diff| / max |float64|."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    args = (x["ffr"], x["ffi"], x["coeffs"], x["basis"])
+    amp64 = amp.double() if torch.is_tensor(amp) else amp
+    ref = C._fused_iteration(*(a.double() for a in args), amp64)
+    scale = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+
+    def err(got):
+        return max(float((got[k].double() - ref[k]).abs().max()) for k in (0, 1)) / scale
+
+    return err(K.fused_iter(*args, amp)), err(C._fused_iteration(*args, amp))
+
+
 def phase_compressed_parity(device):
     """The four compressed kernels against their plain versions at config
-    5's shapes and at an unaligned shape (P = 3000, N = 17, D = 4), with
-    scalar and array amplitude; the dispatchers through config 5's
-    hologram consts. Returns the kernels' max |diff| at config 5."""
+    5's shapes, at an unaligned shape (P = 3000, N = 17, D = 4) and there
+    with phases up to 1e6 (past REDUCED_LIMIT the kernels' sincos takes
+    libdevice's sincosf), past 256 spots (300 and 600) and with nine
+    Zernike terms, with scalar and array amplitude; ``fused_iter`` and
+    its plain f32 version against the plain version in float64; the
+    dispatchers through config 5's hologram consts. Returns the kernels'
+    max |diff| at config 5."""
     from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
 
     worst = dict.fromkeys(("f2n", "n2f", "fused_iter", "fused_iter_cached"), 0.0)
     lines = []
     holo, consts, x5 = config5_inputs(device)
     xu = compressed_inputs(device, 4, 3000, 17)
-    xu["kc"], xu["ks"] = C.build_kernel_cache(xu["coeffs"], xu["basis"])
-    for tag, x in (("config 5 (P 1024^2, N 256, D 3)", x5), ("P 3000, N 17, D 4", xu)):
+    xw = wide_phase_inputs(device)
+    assert xw["phase_max"] == 1e6 > K.REDUCED_LIMIT, xw["phase_max"]
+    # fused_iter past its lanes-on-spots kernel's 256 spots (roundtrip_kernel
+    # keeping, then recomputing, the cos/sin), and with nine Zernike terms.
+    x300, x600 = compressed_inputs(device, 5, 4096, 300), compressed_inputs(device, 2, 8192, 600)
+    x9 = compressed_inputs(device, 9, 5000, 100)
+    for x in (xu, xw, x300, x600, x9):
+        x["kc"], x["ks"] = C.build_kernel_cache(x["coeffs"], x["basis"])
+    for tag, x in (("config 5 (P 1024^2, N 256, D 3)", x5), ("P 3000, N 17, D 4", xu),
+                   (f"P 3000, N 17, D 4, |phase| to {xw['phase_max']:.3g}", xw),
+                   ("P 4096, N 300, D 5", x300), ("P 8192, N 600, D 2", x600),
+                   ("P 5000, N 100, D 9", x9)):
         for amp_kind in ("scalar", "array"):
             amp = 1.0 if amp_kind == "scalar" else x["amp"]
             for name, (kernel, plain) in compressed_calls(x, amp).items():
@@ -1468,6 +1522,12 @@ def phase_compressed_parity(device):
                 if x is x5:
                     worst[name] = max(worst[name], max_abs(got[0], ref[0]),
                                       max_abs(got[1], ref[1]))
+            e_kernel, e_plain = float64_errors(x, amp)
+            log(f"fused_iter {tag} {amp_kind} against float64: kernel {e_kernel:.3e}, "
+                f"plain f32 {e_plain:.3e} (max |diff| / max |float64|)")
+            lines.append(f"fused_iter {tag} {amp_kind} against float64: kernel "
+                         f"{e_kernel:.3e}, plain f32 {e_plain:.3e}")
+            assert e_kernel <= CMP_RTOL, (tag, amp_kind, e_kernel)
     # The dispatchers on the hologram's own consts and phase.
     psi = type(holo)._psi.device(holo, device).reshape(-1)
     nf = C.nearfield(psi, consts["amp"])
@@ -1617,18 +1677,28 @@ def phase_compressed_timing(device):
 # ----------------------------------------------------------------------
 
 
+#: Shapes of the parity checks of cols_wgs_fwd: the main path's first, then
+#: the line FFT's shortest and longest columns (4096 points on a cluster of
+#: two blocks) and a rectangle.
+FWD_SHAPES = ((2048, 2048), (256, 512), (64, 64), (4096, 4096))
+
+
 def phase_fwd_parity(device):
-    """``cols_wgs_fwd`` against its plain version for every rule, Kim on
-    and off, stats on and off (stats off also selects the stored angle),
-    scalar and array amplitude, and the composed ``wgs_fused_forward``;
-    returns the kernel's 2048^2 max |diff|."""
+    """``cols_wgs_fwd`` against its plain version at FWD_SHAPES for every
+    rule, Kim on and off, stats on and off (stats off also selects the
+    stored angle), scalar and array amplitude, with one all-zero column of
+    the carry, and the composed ``wgs_fused_forward``; returns the kernel's
+    2048^2 max |diff|. On the zero column F = 0 and its phase is 0 (the
+    constrained field w' + 0i): the plain version's arg of a zero that the
+    FFT may hold as -0 is +-pi there, so that column is held to the
+    convention and the rest of the plane to the plain version."""
     from slmsuite_torch.ops import cuda_fft, fft
 
     worst = {"cols_wgs_fwd": 0.0}
     lines = []
 
-    def compare(tag, got, ref, amp_ff, kim):
-        e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+    def compare(tag, got, ref, amp_ff, kim, cols=slice(None)):
+        e = max(rel_err(got[k][:, cols], ref[k][:, cols]) for k in (0, 1))
         assert e <= CARRY_RTOL, f"{tag}/re, im: {e:.3e}"
         ew = check_close(tag + "/w", got[2], ref[2], WEIGHT_ATOL, WEIGHT_RTOL)
         et = 0.0
@@ -1642,15 +1712,19 @@ def phase_fwd_parity(device):
         em = check_close(tag + "/maxs", got[5], ref[5], WEIGHT_ATOL, WEIGHT_RTOL)
         lines.append(f"{tag}: re, im rel {e:.3e} w {ew:.3e} phase_ff {et:.3e} "
                      f"sums {es:.3e} maxs {em:.3e}")
-        return max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1]), ew)
+        return max(max_abs(got[0][:, cols], ref[0][:, cols]),
+                   max_abs(got[1][:, cols], ref[1][:, cols]), ew)
 
-    for shape in ((2048, 2048), (256, 512)):
+    for shape in FWD_SHAPES:
+        off_zero = torch.arange(shape[1], device=device) != 1
         for amp_kind in ("scalar", "array"):
             for stats_on in (True, False):
                 x = step_inputs(shape, amp_kind, "kim", stats_on, device)
                 angle = torch.atan2(x["phase_ff"][1], x["phase_ff"][0])
                 gr, gi = fft._wgs_carry_entry(x["psi"], x["amp"])
+                gr[:, 1], gi[:, 1] = 0.0, 0.0
                 amp_ff = fft._fft2_polar_from_phase(x["psi"], x["amp"])[0]
+                amp_ff[:, 1] = 0.0
                 for rule in RULES:
                     for kim in (True, False):
                         kw = dict(rule=rule, kim=kim, stats_on=stats_on)
@@ -1660,19 +1734,28 @@ def phase_fwd_parity(device):
                         tag = (f"cols_wgs_fwd {shape} {amp_kind} {rule} kim={kim} "
                                f"stats={stats_on}")
                         got = cuda_fft.cols_wgs_fwd(*args, **kw)
-                        err = compare(tag, got, fft._cols_wgs_fwd(*args, **kw), amp_ff, kim)
+                        own_phase = not (kim and not stats_on)
+                        err = compare(tag, got, fft._cols_wgs_fwd(*args, **kw), amp_ff, kim,
+                                      off_zero if own_phase else slice(None))
+                        if own_phase:  # F = 0: the phase is 0, the field w' + 0i
+                            assert torch.equal(got[0][:, 1], got[2][:, 1]), tag
+                            assert float(got[1][:, 1].abs().max()) == 0.0, tag
+                            if kim:
+                                assert float(got[3][:, 1].abs().max()) == 0.0, tag
                         if kim and not stats_on:
                             assert torch.equal(got[3], angle), tag  # The stored angle.
                         if not stats_on:
                             assert got[4][:3].tolist() == [0.0, 0.0, 0.0], tag
                             assert bool((got[5] == -3.0e38).all()), tag
-                        if shape == (2048, 2048):
+                        if shape == FWD_SHAPES[0]:
                             worst["cols_wgs_fwd"] = max(worst["cols_wgs_fwd"], err)
                         whole = (x["psi"], x["amp"], x["weights"] * 1.3, pff, x["target"],
                                  x["mask"], x["scal"])
                         compare("wgs_fused_forward" + tag[12:],
                                 fft.wgs_fused_forward(*whole, **kw),
-                                fft._wgs_fused_forward(*whole, **kw), amp_ff, kim)
+                                fft._wgs_fused_forward(*whole, **kw),
+                                fft._fft2_polar_from_phase(x["psi"], x["amp"])[0], kim)
+        del x, gr, gi, amp_ff, angle, got
     torch.cuda.synchronize()
     OUT.mkdir(exist_ok=True)
     (OUT / "parity_fwd.log").write_text("\n".join(lines) + "\n")
@@ -2014,6 +2097,8 @@ def main():
                   image_mraf(N=2048, method="GS", device=device).run)
     phase_profile(device, "C1 config 5 WGS-Kim cached", compressed_loops[
         "C1 config 5 WGS-Kim cached"], n=CONFIG5_ITERS)
+    phase_profile(device, "C2 config 5 WGS-Kim recompute", compressed_loops[
+        "C2 config 5 WGS-Kim recompute"], n=CONFIG5_ITERS)
     phase_profile(device, "S2 config 4 rig, 10x10 spots, camera feedback", s2_loop,
                   n=CONFIG4_ITERS)
 

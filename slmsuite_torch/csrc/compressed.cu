@@ -16,31 +16,54 @@
 //
 // What bounds them on the H100. A (spot, pixel) pair costs one sincos,
 // D FMAs of phase and four FMAs per direction; at 256 spots on a 1024^2
-// SLM that is 2.7e8 pairs, ~1.5e10 f32 operations when a sincos counts as
-// 40, or ~0.2 ms at 67 TFLOP/s, while the bytes (the basis and the two
-// fields) move in ~6 us. So f2n, n2f and fused_iter are bound by
-// arithmetic. fused_iter_cached reads the (N, P) cos/sin cache instead,
-// 2.15 GB at that size, and is bound by bytes at ~0.64 ms.
+// SLM that is 2.7e8 pairs, while the bytes (the basis and the two fields)
+// move in ~6 us. So f2n, n2f and fused_iter are bound by the rate at
+// which the SMs dispatch those instructions: fused_iter's bound in
+// PERF.md, 0.18 ms, counts the sincos as 24 f32 operations.
+// fused_iter_cached reads the (N, P) cos/sin cache instead, 2.15 GB at
+// that size, and is bound by bytes at ~0.64 ms.
 //
-// Design. Phases reach hundreds of radians, so the sincos is libdevice's
-// sincosf with its full range reduction (not __sincosf, and none of the
-// TPU's minimax polynomials). Blocks take chunks of kBlockPixels pixels in
-// parallel and walk them in sub-chunks of 32, one pixel per lane; each
+// The sincos. Phases reach hundreds of radians, and libdevice's sincosf
+// costs ~40-70 instructions a pair with its range reduction. The kernels
+// take the TPU kernel's route (pallas_fft._sincos_reduced): sincos_reduced
+// rounds k = x / 2 pi to the nearest integer, forms y = x - k 2 pi by a
+// three-term Cody-Waite split in three fmaf, folds y back into [-pi, pi]
+// where rounding picked k off by one, and takes __sincosf (two SFU
+// operations) on [-pi, pi]; the TPU's minimax pair on the FMA pipe in its
+// place made fused_iter 1.36 times slower. Against float64 sin and cos of
+// the same f32 phase the reduction is within 4.1e-7 up to |x| = 1e5
+// (ops/cuda_compressed.py sincos_reduced_model, tests/test_torch_compressed.py)
+// and __sincosf within 2^-21.41 on [-pi, pi] (CUDA's documented bound):
+// ~8e-7 in all. Beyond kReducedLimit = 1e5, where the split stops being
+// exact (k * k2PiA needs |k| < 2^16), libdevice's sincosf runs inline. On
+// the H100, fused_iter at config 5 is within 2.9e-7 of the plain version
+// in float64 (max |diff| / max |float64|; the plain f32 version 3.6e-7), and
+// with phases up to 1e6 within 1.9e-7 (chip_smoke.py phase_compressed_parity).
+//
+// Design. Blocks take chunks of kBlockPixels pixels in parallel; each
 // block writes its (N,) partial sums, and spot_reduce sums them over the
 // blocks in a fixed order. No atomics: a run is repeatable bit for bit.
 //
-// n2f, fused_iter and fused_iter_cached are one kernel, `roundtrip_kernel`.
-// Its first half has lanes on pixels and warp w on spots w, w + 8, ...: it
-// forms the cos/sin of each (spot, pixel) pair (sincosf, or a coalesced
-// read of the cache) and, for the round trips, the nearfield of the
-// sub-chunk, which the amplitude replacement needs over all N spots. Its
-// second half reduces the replaced field (for n2f, the given nearfield)
-// back onto the spots. The choice: keep the sub-chunk's (N, 32) cos/sin in
-// shared memory between the halves (66 KiB at N = 256), so each pair costs
-// one sincos or one read of the cache, and let each thread own whole spots
-// in the second half, summing its 32 pixels from its row into registers,
-// with no shuffle (rows are XOR-swizzled, so neither half has a bank
-// conflict and no padding costs an SM its third block). When N is too large
+// fused_iter, for N <= kWarpSpots (256), is fused_spots_kernel: lanes on
+// spots, a spot's farfield and sums and a chunk's cos/sin in registers,
+// the nearfield of a pixel summed over the lanes by shuffles (its note
+// below). Its range check is one warp vote a chunk (sincos_reduced_lanes),
+// so the chunk's 32 pairs a lane carry no branch. 0.37 ms at config 5, 50%
+// of the row bound; the first structure below with the same sincos took
+// 0.75 ms, and with libdevice's sincosf 0.78 (PERF.md, section 6).
+//
+// n2f, fused_iter_cached and fused_iter beyond 256 spots are
+// `roundtrip_kernel`. Its first half has lanes on pixels and warp w on
+// spots w, w + 8, ...: it forms the cos/sin of each (spot, pixel) pair
+// (sincos_reduced, or a coalesced read of the cache) and, for the round
+// trips, the nearfield of the sub-chunk of 32 pixels, which the amplitude
+// replacement needs over all N spots. Its second half reduces the replaced
+// field (for n2f, the given nearfield) back onto the spots. It keeps the
+// sub-chunk's (N, 32) cos/sin in shared memory between the halves (66 KiB
+// at N = 256), so each pair costs one sincos or one read of the cache, and
+// lets each thread own whole spots in the second half, summing its 32
+// pixels from its row into registers, with no shuffle (rows are
+// XOR-swizzled, so neither half has a bank conflict). When N is too large
 // to keep (`keep` false), the second half recomputes the sincos, or reads
 // the cache again, with lanes on pixels and a fixed shuffle butterfly per
 // spot.
@@ -60,6 +83,58 @@ constexpr int kSub = 32;              // pixels per sub-chunk: one per lane
 constexpr int kBlockPixels = 1024;    // pixels per block of the reductions
 constexpr int kSpotChunk = 512;       // spots staged at once by f2n
 constexpr size_t kKeepLimit = 160 * 1024;  // shared bytes for the kept cos/sin
+
+// The period reduction of sincos_reduced (ops/cuda_compressed.py
+// `sincos_reduced_model` holds the same constants, and
+// tests/test_torch_compressed.py reads them from here): 2 pi split in three
+// f32 terms, the first with 8 significant bits, so that k * k2PiA is exact
+// for |k| < 2^16 and each fmaf below rounds once.
+constexpr float kInv2Pi = 0.15915493667125702f;
+constexpr float k2PiA = 6.28125f;
+constexpr float k2PiB = 0.0019353071693331003f;
+constexpr float k2PiC = 1.0253376273028358e-11f;
+constexpr float kPiF = 3.1415927410125732f;
+constexpr float k2PiF = 6.2831854820251465f;
+// |phase| above which sincos_reduced takes libdevice's sincosf.
+constexpr float kReducedLimit = 1e5f;
+
+// (sin, cos) of a phase in +-kReducedLimit: k = rint(x / 2 pi), y = x -
+// k 2 pi by three fmaf (Cody-Waite), y folded back into [-pi, pi] where
+// rounding picked k off by one, then __sincosf (the SFU) on [-pi, pi].
+__device__ __forceinline__ void sincos_near(float x, float* s, float* c) {
+  const float k = rintf(x * kInv2Pi);
+  float y = fmaf(-k, k2PiA, x);
+  y = fmaf(-k, k2PiB, y);
+  y = fmaf(-k, k2PiC, y);
+  if (fabsf(y) > kPiF) y -= copysignf(k2PiF, y);
+  __sincosf(y, s, c);
+}
+
+// (sin, cos) of any phase: sincos_near, and beyond kReducedLimit
+// libdevice's sincosf inline.
+__device__ __forceinline__ void sincos_reduced(float x, float* s, float* c) {
+  if (fabsf(x) > kReducedLimit) sincosf(x, s, c);
+  else sincos_near(x, s, c);
+}
+
+// sincos_reduced of K phases a lane holds, with one warp vote on the range:
+// where no lane holds a phase beyond kReducedLimit (the rule), the K pairs
+// are formed without a branch, so that their latencies overlap. Every lane
+// of the warp calls it.
+template <int K>
+__device__ __forceinline__ void sincos_reduced_lanes(const float (&x)[K], float (&s)[K],
+                                                     float (&c)[K]) {
+  float m = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) m = fmaxf(m, fabsf(x[k]));
+  if (__any_sync(0xffffffffu, m > kReducedLimit)) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) sincos_reduced(x[k], &s[k], &c[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) sincos_near(x[k], &s[k], &c[k]);
+  }
+}
 
 // Phase of spot n at the pixel whose basis values are b (coefficients
 // staged as coef[d * N + n]).
@@ -144,7 +219,7 @@ f2n_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
     __syncthreads();
     for (int n = 0; n < ns; ++n) {
       float s, c;
-      sincosf(spot_phase(coef, kSpotChunk, n, b, D), &s, &c);
+      sincos_reduced(spot_phase(coef, kSpotChunk, n, b, D), &s, &c);
       re = fmaf(fr[n], c, fmaf(-fi[n], s, re));
       im = fmaf(fr[n], s, fmaf(fi[n], c, im));
     }
@@ -212,7 +287,7 @@ roundtrip_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
           c = kc[cache_off + (size_t)n * T];
           s = ks[cache_off + (size_t)n * T];
         } else {
-          sincosf(spot_phase(coef, N, n, b, D), &s, &c);
+          sincos_reduced(spot_phase(coef, N, n, b, D), &s, &c);
         }
         if (kKeep) cs[n * kSub + (lane ^ (n & (kSub - 1)))] = make_float2(c, s);
         if (kExpand) {
@@ -263,7 +338,7 @@ roundtrip_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
           c = kc[cache_off + (size_t)n * T];
           s = ks[cache_off + (size_t)n * T];
         } else {
-          sincosf(spot_phase(coef, N, n, b, D), &s, &c);
+          sincos_reduced(spot_phase(coef, N, n, b, D), &s, &c);
         }
         float re = fmaf(c, v.x, s * v.y), im = fmaf(c, v.y, -s * v.x);
         warp_sum2(re, im);
@@ -278,6 +353,153 @@ roundtrip_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
   for (int n = threadIdx.x; n < N; n += kThreads) {
     partials[(size_t)blockIdx.x * N + n] = acc_re[n];
     partials[((size_t)gridDim.x + blockIdx.x) * N + n] = acc_im[n];
+  }
+}
+
+// #16 fused_iter with lanes on spots, for N <= kWarpSpots: each warp takes
+// chunks of kChunk pixels of the block on its own, every lane kLaneSpots
+// spots (lane + 32 j); the spots' farfield and accumulators stay in
+// registers, and so do the chunk's cos/sin between the halves. The basis
+// of the block's pixels and the coefficients are staged once in shared
+// memory as float4 groups of four terms (zero-padded), read as broadcasts
+// (basis) and conflict-free rows (coefficients). The nearfield of a pixel
+// is the sum over the warp's lanes: a butterfly that halves the chunk at
+// offsets 16 and 8 and sums at 4, 2 and 1, after which lane l holds pixel
+// 2 (l >> 4 & 1) + (l >> 3 & 1); its amp nf/|nf| goes back to every lane by
+// shuffles. No block barrier inside the loop; the warps' sums are added in
+// a fixed order at the end. 128 registers and sincosf's 32-byte stack
+// frame, no spill: two blocks an SM. Spots past N have a zero farfield and
+// coefficients and add nothing.
+constexpr int kLaneSpots = 8;
+constexpr int kWarpSpots = 32 * kLaneSpots;
+constexpr int kChunk = 4;
+
+__global__ void __launch_bounds__(kThreads)
+fused_spots_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
+                   const float* __restrict__ coeffs, const float* __restrict__ basis,
+                   const float* __restrict__ amp, int P, int N, int D,
+                   float* __restrict__ partials) {
+  // bs[kBlockPixels][dq], cf[kWarpSpots][dq]; after the loop, the warps'
+  // sums red[kWarps][kWarpSpots] as (re, im) over bs.
+  extern __shared__ float4 smem4[];
+  const int dq = (D + 3) >> 2;
+  float4* bs = smem4;
+  float4* cf = bs + (size_t)kBlockPixels * dq;
+  const int p0 = blockIdx.x * kBlockPixels;
+  const int np = min(kBlockPixels, P - p0);
+  for (int i = threadIdx.x; i < kBlockPixels * dq; i += kThreads) {
+    const int p = i / dq, q = i - p * dq;
+    float t[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int d = 4 * q + k;
+      t[k] = (d < D && p < np) ? basis[(size_t)d * P + p0 + p] : 0.f;
+    }
+    bs[i] = make_float4(t[0], t[1], t[2], t[3]);
+  }
+  for (int i = threadIdx.x; i < kWarpSpots * dq; i += kThreads) {
+    const int n = i / dq, q = i - n * dq;
+    float t[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int d = 4 * q + k;
+      t[k] = (d < D && n < N) ? coeffs[(size_t)d * N + n] : 0.f;
+    }
+    cf[i] = make_float4(t[0], t[1], t[2], t[3]);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float fr[kLaneSpots], fi[kLaneSpots], acc_re[kLaneSpots], acc_im[kLaneSpots];
+#pragma unroll
+  for (int j = 0; j < kLaneSpots; ++j) {
+    const int n = lane + 32 * j;
+    fr[j] = n < N ? ffr[n] : 0.f;
+    fi[j] = n < N ? ffi[n] : 0.f;
+    acc_re[j] = acc_im[j] = 0.f;
+  }
+  const int mine = ((lane >> 4) & 1) * 2 + ((lane >> 3) & 1);
+  constexpr int kPairs = kLaneSpots * kChunk;  // pair (j, c) at j * kChunk + c
+  for (int c0 = warp * kChunk; c0 < np; c0 += kWarps * kChunk) {
+    float ph[kPairs];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) ph[i] = 0.f;
+    for (int q = 0; q < dq; ++q) {
+      float4 b[kChunk], a[kLaneSpots];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) b[c] = bs[(c0 + c) * dq + q];
+#pragma unroll
+      for (int j = 0; j < kLaneSpots; ++j) a[j] = cf[(lane + 32 * j) * dq + q];
+#pragma unroll
+      for (int j = 0; j < kLaneSpots; ++j)
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          float v = fmaf(a[j].x, b[c].x, ph[j * kChunk + c]);
+          v = fmaf(a[j].y, b[c].y, v);
+          v = fmaf(a[j].z, b[c].z, v);
+          ph[j * kChunk + c] = fmaf(a[j].w, b[c].w, v);
+        }
+    }
+    float sn[kPairs], cs[kPairs];
+    sincos_reduced_lanes(ph, sn, cs);
+    float re[kChunk], im[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) re[c] = im[c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLaneSpots; ++j)
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const int i = j * kChunk + c;
+        re[c] = fmaf(fr[j], cs[i], fmaf(-fi[j], sn[i], re[c]));
+        im[c] = fmaf(fr[j], sn[i], fmaf(fi[j], cs[i], im[c]));
+      }
+    // The sum over the lanes (see above): lane ends with pixel `mine`.
+    const bool up16 = lane & 16, up8 = lane & 8;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float sr = up16 ? re[i] : re[i + 2], si = up16 ? im[i] : im[i + 2];
+      re[i] = (up16 ? re[i + 2] : re[i]) + __shfl_xor_sync(0xffffffffu, sr, 16);
+      im[i] = (up16 ? im[i + 2] : im[i]) + __shfl_xor_sync(0xffffffffu, si, 16);
+    }
+    {
+      const float sr = up8 ? re[0] : re[1], si = up8 ? im[0] : im[1];
+      re[0] = (up8 ? re[1] : re[0]) + __shfl_xor_sync(0xffffffffu, sr, 8);
+      im[0] = (up8 ? im[1] : im[0]) + __shfl_xor_sync(0xffffffffu, si, 8);
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      re[0] += __shfl_xor_sync(0xffffffffu, re[0], o);
+      im[0] += __shfl_xor_sync(0xffffffffu, im[0], o);
+    }
+    const int p = p0 + c0 + mine;
+    const float2 um = amp_replace(re[0], im[0], amp, p, p < P);
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int src = (c >> 1) * 16 + (c & 1) * 8;
+      const float ur = __shfl_sync(0xffffffffu, um.x, src);
+      const float ui = __shfl_sync(0xffffffffu, um.y, src);
+#pragma unroll
+      for (int j = 0; j < kLaneSpots; ++j) {
+        const int i = j * kChunk + c;
+        acc_re[j] = fmaf(cs[i], ur, fmaf(sn[i], ui, acc_re[j]));
+        acc_im[j] = fmaf(cs[i], ui, fmaf(-sn[i], ur, acc_im[j]));
+      }
+    }
+  }
+  __syncthreads();  // red overwrites bs
+  float2* red = reinterpret_cast<float2*>(smem4);
+#pragma unroll
+  for (int j = 0; j < kLaneSpots; ++j)
+    red[warp * kWarpSpots + lane + 32 * j] = make_float2(acc_re[j], acc_im[j]);
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += kThreads) {
+    float2 v = make_float2(0.f, 0.f);
+    for (int w = 0; w < kWarps; ++w) {
+      v.x += red[w * kWarpSpots + n].x;
+      v.y += red[w * kWarpSpots + n].y;
+    }
+    partials[(size_t)blockIdx.x * N + n] = v.x;
+    partials[((size_t)gridDim.x + blockIdx.x) * N + n] = v.y;
   }
 }
 
@@ -355,6 +577,23 @@ cudaError_t launch_roundtrip(const float* ffr, const float* ffi, const float* nf
   return finish(partials, n_blocks, N, scale, out_re, out_im, stream);
 }
 
+// fused_iter: fused_spots_kernel where N <= kWarpSpots, else roundtrip_kernel.
+cudaError_t launch_fused(const float* ffr, const float* ffi, const float* coeffs,
+                         const float* basis, const float* amp, int P, int N, int D,
+                         float* partials, float* out_re, float* out_im, cudaStream_t stream) {
+  if (N > kWarpSpots)
+    return launch_roundtrip<false, true>(ffr, ffi, nullptr, nullptr, coeffs, basis, nullptr,
+                                         nullptr, 0, 1, amp, P, N, D, 1.f, partials, out_re,
+                                         out_im, stream);
+  const size_t smem = (size_t)(kBlockPixels + kWarpSpots) * ((D + 3) / 4) * sizeof(float4);
+  cudaError_t err = set_smem(fused_spots_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int n_blocks = n_blocks_of(P);
+  fused_spots_kernel<<<n_blocks, kThreads, smem, stream>>>(ffr, ffi, coeffs, basis, amp, P, N,
+                                                           D, partials);
+  return finish(partials, n_blocks, N, 1.f, out_re, out_im, stream);
+}
+
 }  // namespace slm_cmp
 
 using namespace slm_cmp;
@@ -386,9 +625,8 @@ int slm_cmp_fused(const float* ffr, const float* ffi, const float* coeffs,
                   const float* basis, const float* amp, int P, int N, int D,
                   float* partials, float* out_re, float* out_im,
                   cudaStream_t stream) {
-  return (int)launch_roundtrip<false, true>(ffr, ffi, nullptr, nullptr, coeffs, basis,
-                                            nullptr, nullptr, 0, 1, amp, P, N, D, 1.f,
-                                            partials, out_re, out_im, stream);
+  return (int)launch_fused(ffr, ffi, coeffs, basis, amp, P, N, D, partials, out_re, out_im,
+                           stream);
 }
 
 int slm_cmp_fused_cached(const float* ffr, const float* ffi, const float* kc,

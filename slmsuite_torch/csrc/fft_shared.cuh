@@ -1,19 +1,16 @@
-// The FFTs of the kernels of wgs_carry.cu, natural_fft.cu and mraf_carry.cu:
-// the shared-memory fft_lines with its tile load and launch setup, which
-// serve cols_wgs_fwd (wgs_carry.cu) alone, and, further down, the
-// register-resident line_fft with the row and column places, loads and
+// The FFT of the kernels of wgs_carry.cu, natural_fft.cu and mraf_carry.cu:
+// the register-resident line_fft, with the row and column places, loads and
 // stores, tile widths, launch shapes and launchers of the kernels on it
 // (rows_fft, cols_fft, cols_fwd_polar, cols_wexp_inv, rows_normfwd,
 // cols_wgs_roundtrip, carry_entry, carry_exit, cols_mraf_fwd,
-// cols_mraf_mix_inv).
+// cols_mraf_mix_inv, cols_wgs_fwd).
 //
 // Replaces `_fft_core` in slmsuite_tpu/ops/pallas_fft.py: a four-step DFT
 // written as block-complex matrix products for the TPU's matrix unit. On
-// Hopper a line of up to 4096 complex f32 (32 KB) fits in shared memory,
-// so the transform is a plain radix-2 Cooley-Tukey in natural order: a
-// bit-reversal permutation, then log2(n) decimation-in-time stages, each
-// followed by a block barrier. Unnormalized in both directions, like the
-// TPU kernels.
+// Hopper a line of up to 4096 complex f32 fits in the registers of the
+// threads that hold it: the transform is radix-8/16 passes in registers
+// with self-sorting exchanges through shared memory, unnormalized in both
+// directions, like the TPU kernels.
 //
 // The twiddle table is built once per (n, direction) on the host in
 // float64 and stored as f32: tw[k] = exp(sign * 2 pi i k / n), k < n/2,
@@ -28,78 +25,17 @@ namespace slm {
 
 constexpr int kThreads = 256;
 
-// In-place FFT of `lines` complex lines of length n held back to back in
-// shared memory (line j at buf[j * n]). n is a power of two, n = 1 << log2n.
-// Every thread of the block must call it; it ends with a barrier.
-__device__ __forceinline__ void fft_lines(float2* buf, int n, int log2n,
-                                          int lines,
-                                          const float2* __restrict__ tw) {
-  const int total = lines * n;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int i = idx & (n - 1);
-    const int r = __brev(i) >> (32 - log2n);
-    if (i < r) {
-      float2* a = buf + (idx - i);
-      const float2 t = a[i];
-      a[i] = a[r];
-      a[r] = t;
-    }
-  }
-  __syncthreads();
-
-  const int half = n >> 1;
-  const int half_total = lines * half;
-  for (int s = 0; s < log2n; ++s) {
-    const int m = 1 << s;                 // half the butterfly span
-    const int tw_shift = log2n - 1 - s;   // twiddle stride n / (2m)
-    for (int b = threadIdx.x; b < half_total; b += blockDim.x) {
-      const int line = b >> (log2n - 1);
-      const int q = b & (half - 1);
-      const int k = q & (m - 1);
-      const int i0 = ((q >> s) << (s + 1)) + k;
-      float2* a = buf + line * n;
-      const float2 w = __ldg(&tw[k << tw_shift]);
-      const float2 x0 = a[i0];
-      const float2 x1 = a[i0 + m];
-      const float2 t = make_float2(x1.x * w.x - x1.y * w.y,
-                                   x1.x * w.y + x1.y * w.x);
-      a[i0] = make_float2(x0.x + t.x, x0.y + t.y);
-      a[i0 + m] = make_float2(x0.x - t.x, x0.y - t.y);
-    }
-    __syncthreads();
-  }
-}
-
-// Load tile `blockIdx.x` of `tc` adjacent columns of the (H, W) pair into
-// buf (column j of the tile at buf[j * H]). Element idx of the tile is
-// column j = idx % tc, row r = idx / tc, so a warp reads whole row
-// segments. Ends with a barrier.
-__device__ __forceinline__ void load_col_tile(float2* buf,
-                                              const float* __restrict__ xr,
-                                              const float* __restrict__ xi,
-                                              int H, int W, int tc,
-                                              int log2tc) {
-  const int c0 = blockIdx.x * tc;
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    buf[j * H + r] = make_float2(xr[g], xi[g]);
-  }
-  __syncthreads();
-}
-
 // ----------------------------------------------------------------------
 // The register-resident line FFT (rows_fft_kernel, cols_fft_kernel,
 // cols_fwd_polar_kernel and cols_wexp_inv_kernel of natural_fft.cu;
-// rows_normfwd_kernel, cols_wgs_roundtrip_kernel, carry_entry_kernel and
-// carry_exit_kernel of wgs_carry.cu; cols_mraf_fwd_kernel and
-// cols_mraf_mix_inv_kernel of mraf_carry.cu). One column kernel still runs
-// fft_lines: cols_wgs_fwd (wgs_carry.cu).
+// rows_normfwd_kernel, cols_wgs_roundtrip_kernel, carry_entry_kernel,
+// carry_exit_kernel and cols_wgs_fwd_kernel of wgs_carry.cu;
+// cols_mraf_fwd_kernel and cols_mraf_mix_inv_kernel of mraf_carry.cu).
 //
-// fft_lines crosses shared memory log2(n) + 1 times with a barrier each
-// and reads a twiddle from global memory per butterfly. line_fft keeps the
-// line in registers: a thread holds E = 8 or 16 points and does radix-8 or
+// A radix-2 transform staged in shared memory would cross it log2(n) + 1
+// times with a barrier each and read a twiddle from global memory per
+// butterfly (the port's first design, PERF.md section 6). line_fft keeps
+// the line in registers: a thread holds E = 8 or 16 points and does radix-8 or
 // radix-16 butterflies on them with the rotations inside the radix as
 // constants; the line crosses shared memory only between passes, in a
 // self-sorting (Stockham) exchange, so there is no bit-reversal pass.
@@ -538,13 +474,14 @@ __host__ __device__ constexpr int cols_cluster(int log2n) {
 // this enum and holds the two to each other).
 enum LineKernel {
   kRowsFft = 0, kColsFft, kRowsNormfwd, kColsWgsRoundtrip, kCarryEntry, kCarryExit,
-  kColsFwdPolar, kColsWexpInv, kColsMrafFwd, kColsMrafMixInv, kNumLineKernels
+  kColsFwdPolar, kColsWexpInv, kColsMrafFwd, kColsMrafMixInv, kColsWgsFwd, kNumLineKernels
 };
 
 // Whether `kernel` is a column kernel (a tile of columns, launch_cols).
 constexpr bool cols_kernel(int kernel) {
   return kernel == kColsFft || kernel == kColsWgsRoundtrip || kernel == kColsFwdPolar ||
-         kernel == kColsWexpInv || kernel == kColsMrafFwd || kernel == kColsMrafMixInv;
+         kernel == kColsWexpInv || kernel == kColsMrafFwd || kernel == kColsMrafMixInv ||
+         kernel == kColsWgsFwd;
 }
 
 // What a launch of one of them on lines of 1 << log2n points is made with:
@@ -630,17 +567,6 @@ int launch_cols(void (*kernel)(Params...), int W, cudaStream_t stream, Args... a
   kernel<<<W / shape.lines * shape.cluster, shape.threads, shape.smem, stream>>>(
       args..., W, shape.lines, ilog2(shape.lines));
   return (int)cudaGetLastError();
-}
-
-// The grid (W / tc blocks) and dynamic shared memory (tc * H complex
-// values, above the 48 KB default at H >= 2048) of cols_wgs_fwd, the
-// column kernel on fft_lines.
-template <typename Kernel>
-cudaError_t cols_setup(Kernel kernel, int H, int W, int tc, size_t* smem) {
-  if (tc <= 0 || (tc & (tc - 1)) || W % tc) return cudaErrorInvalidValue;
-  *smem = (size_t)tc * H * sizeof(float2);
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
 }
 
 }  // namespace slm

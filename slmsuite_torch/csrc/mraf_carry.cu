@@ -43,8 +43,8 @@
 // spill less and gained less (0.117 ms with Kim and zero weights). At
 // 2048^2, device time: cols_mraf_fwd 0.088 ms, 46% of its bound;
 // cols_mraf_mix_inv 0.058, 52% (with Kim and zero weights 0.109, 65%).
-// The first version staged the tile in shared memory for the radix-2
-// fft_lines, with 4 columns a tile at 2048 points and 2 at 4096: 0.312
+// The first version staged the tile in shared memory for a radix-2
+// transform there, with 4 columns a tile at 2048 points and 2 at 4096: 0.312
 // and 0.238 ms. PERF.md, section 6, has the measurements.
 //
 // Launchers take raw pointers, sizes, flags and a stream, and return

@@ -43,7 +43,7 @@ namespace slm {
 //
 // Bound on the H100 by bytes: two planes read, two written, 5 log2 W flops
 // a point against 16 bytes. The first version (one row a block in shared
-// memory, fft_lines: 12 barriers and 13 shared-memory round trips a row at
+// memory, a radix-2 transform there: 12 barriers and 13 shared-memory round trips a row at
 // 2048, a global twiddle load a butterfly) ran at 18% of that bound. Here
 // a row never rests in shared memory: thread s of the row's W / E threads
 // loads the points s + q W / E straight into registers (a warp reads 128
@@ -80,7 +80,7 @@ rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // width of a row segment: at 2048^2 this kernel takes 0.13 ms with 8-byte
 // segments (tc = 2), 0.09 with 16, 0.04 with 32 (a whole sector) and no
 // less with 64. The first version staged the tile in shared memory column
-// by column (a 4-way bank conflict at tc = 4), ran fft_lines on it and
+// by column (a 4-way bank conflict at tc = 4), ran a radix-2 FFT on it and
 // read it back for the store, with 4 columns at H = 2048 and 2 at 4096: 9%
 // of the bound. Here lanes run across the tile's columns, then down the
 // rows: thread (s, c) loads rows s + q H / E of column c straight into
@@ -145,7 +145,7 @@ cols_fft_cluster_kernel(const float* __restrict__ xr, const float* __restrict__ 
 // and stores the two planes at load_col_regs' offsets (store_col_polar).
 // 64 registers at 2048 and 4096 points, no spill: 0.040 ms at 2048^2, 50%
 // of the bound and within 3% of cols_fft (45% at 4096^2); the first
-// version, the tile staged in shared memory on fft_lines, took 0.22 ms, 9%.
+// version, the tile staged in shared memory for a radix-2 FFT, took 0.22 ms, 9%.
 // PERF.md, section 6, has the measurements.
 template <int LOG2N, int G>
 __device__ __forceinline__ void cols_fwd_polar_tile(const float* __restrict__ xr,
@@ -195,7 +195,7 @@ cols_fwd_polar_cluster_kernel(const float* __restrict__ xr, const float* __restr
 // points, no spill (a 32-byte stack frame for sincosf's Payne-Hanek array
 // at 64 and 512 points only): 0.042 ms at 2048^2, 48% of the bound (44% at
 // 4096^2); the first version, the constraint synthesised into a
-// shared-memory tile on fft_lines, took 0.25 ms, 8%.
+// shared-memory tile for a radix-2 FFT, took 0.25 ms, 8%.
 template <int LOG2N, int G>
 __device__ __forceinline__ void cols_wexp_inv_tile(const float* __restrict__ w,
                                                    const float* __restrict__ phi,
@@ -308,9 +308,9 @@ int slm_fft_launch_shape(int kernel, int n, int* out) {
 }
 
 // Blocks of a launch of the column kernel `kernel` (a LineKernel) on an
-// (H, W) pair, that is the rows of the stats partials of cols_wgs_roundtrip
-// and cols_mraf_fwd (cols_blocks); -1 for a pair or a kernel it does not
-// take.
+// (H, W) pair, that is the rows of the stats partials of cols_wgs_roundtrip,
+// cols_mraf_fwd and cols_wgs_fwd (cols_blocks); -1 for a pair or a kernel it
+// does not take.
 int slm_cols_blocks(int kernel, int H, int W) {
   const int log2n = ilog2(H);
   if (!cols_kernel(kernel) || log2n < 6 || log2n > 12 || (1 << log2n) != H) return -1;

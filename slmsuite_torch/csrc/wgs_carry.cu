@@ -25,8 +25,8 @@
 // lanes across a tile of 8 adjacent columns, so each row segment it
 // loads or stores is a whole 32-byte sector (cols_tile). The entry and
 // exit kernels are row kernels on line_fft too, their prologue and
-// epilogue on the registers. cols_wgs_fwd still stages its columns in
-// shared memory and runs fft_lines (ROADMAP.md, K1).
+// epilogue on the registers, and so is cols_wgs_fwd, the column pass of
+// the forward half: one transform and the epilogue.
 //
 // Launchers take raw pointers, sizes, flags and a stream, and return
 // cudaGetLastError(). They allocate nothing.
@@ -55,7 +55,7 @@ namespace slm {
 // Inlined, it costs nothing where it is not taken: 64 registers from 1024
 // points up, no spill (a 32-byte stack frame at 64 and 512), four blocks
 // an SM, 72% of the bound at 2048^2 (0.021 ms; the first version, one row
-// a block staged in shared memory on fft_lines, 0.101). Moving the far
+// a block staged in shared memory for a radix-2 FFT, 0.101). Moving the far
 // branch into a call of its own cost 26%; capping the registers for three
 // blocks an SM, 6%. PERF.md, section 6, has the measurements.
 template <int LOG2N>
@@ -201,63 +201,104 @@ cols_wgs_roundtrip_cluster_kernel(
                                     rule, kim, stats_on);
 }
 
-// <- pallas_fft.wgs_fused_forward_pallas (the column pass, _cols_wgs_kernel
-// with the angle-plane epilogue). The forward half of a psi -> psi WGS
-// step: carry_entry gives the rows pass, this kernel the column pass and
-// the epilogue. One block per tile of `tc` adjacent columns: forward column
-// FFT, f = post * |F|, theta = atan2f(Im F, Re F) (a zero field gives 0),
-// the updated weight, Kim's select between theta and the stored ANGLE plane
+// #7 <- pallas_fft.wgs_fused_forward_pallas (the column pass,
+// _cols_wgs_kernel with the angle-plane epilogue). The forward half of a
+// psi -> psi WGS step: carry_entry gives the rows pass, this kernel the
+// column pass and the epilogue; the inverse transform is ifft2_phase's.
+// A column kernel on line_fft with cols_mraf_fwd's tile and launch
+// (launch_cols; one cluster of G blocks per tile of cols_tile adjacent
+// columns, G = 2 at 4096 points): the forward column line_fft, then per
+// register point (s + q H / E, col), at 32-bit offsets (col_offset): f =
+// post * |F|, the updated weight, the phase of F (atan2f on re + 0, so that
+// a zero point, which the transform may hold as -0, gives 0 as
+// store_col_polar does), Kim's select between it and the stored ANGLE plane
 // (stored back as an angle), the constrained farfield w' * (cos, sin)(phase)
-// written to (re, im) with a fully range-reduced sincosf, and the stats
-// partials (carry_shared.cuh; the error moments in float64). Nothing goes
-// back through shared memory: the inverse transform is ifft2_phase's.
-// Bound by memory traffic: with Kim and stats it reads six planes and
-// writes four.
-__global__ void __launch_bounds__(kThreads)
-cols_wgs_fwd_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
-                    const float* __restrict__ w, const float* __restrict__ t,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ pff, float* __restrict__ re,
-                    float* __restrict__ im, float* __restrict__ wout,
-                    float* __restrict__ pff_out,
-                    const float* __restrict__ scal,
-                    double* __restrict__ partials, int H, int W, int log2H,
-                    int tc, int log2tc, const float2* __restrict__ tw_fwd,
-                    int rule, int kim, int stats_on) {
-  extern __shared__ float2 sbuf[];  // tc columns of length H, back to back
-  const int c0 = blockIdx.x * tc;
-  load_col_tile(sbuf, gr, gi, H, W, tc, log2tc);
-  fft_lines(sbuf, H, log2H, tc, tw_fwd);
+// and the stats partials (carry_shared.cuh; float64 error moments). Where
+// the phase is F's own, (cos, sin) is F/|F| (a zero point (1, 0)); the
+// stored angle goes through sincosf with its full range reduction.
+//
+// Bound on the H100 by bytes: with Kim and stats it reads gr, gi, w, t,
+// mask and the angle store and writes re, im, w' and the store: ten planes,
+// 50 us at 2048^2 (45 with use_theta on, the store not read). One
+// transform, so no barrier follows it.
+template <int LOG2N, int G>
+__device__ __forceinline__ void cols_wgs_fwd_tile(
+    const float* __restrict__ gr, const float* __restrict__ gi, const float* __restrict__ w,
+    const float* __restrict__ t, const float* __restrict__ mask,
+    const float* __restrict__ pff, float* __restrict__ re, float* __restrict__ im,
+    float* __restrict__ wout, float* __restrict__ pff_out, const float* __restrict__ scal,
+    double* __restrict__ partials, const float2* __restrict__ tw_fwd, int rule, int kim,
+    int stats_on, int W, int tc, int log2tc) {
+  constexpr int E = line_points(LOG2N);
+  extern __shared__ float2 sbuf[];
+  float2 v[E];
+  const ColPlace p = col_tile_start<LOG2N, G>(v, gr, gi, W, tc, log2tc);
+  line_fft<LOG2N, false, G>(v, sbuf + p.c, tc, p.s, tw_fwd);
 
-  const StepScalars s = load_scalars(scal);
+  const StepScalars sc = load_scalars(scal);
   float facc[2] = {0.f, 0.f};    // overlap, |w'|^2
   double dacc[2] = {0.0, 0.0};   // err_sum, err_sq
   float macc[4] = {kNegFill, kNegFill, kNegFill, kNegFill};
-  for (int idx = threadIdx.x; idx < tc * H; idx += blockDim.x) {
-    const int j = idx & (tc - 1);
-    const int r = idx >> log2tc;
-    const size_t g = (size_t)r * W + c0 + j;
-    const float2 F = sbuf[j * H + r];
-    const float f = sqrtf(F.x * F.x + F.y * F.y) * s.post;
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const unsigned g = col_offset<LOG2N, unsigned>(q, W, p.col, p.s);
+    const float2 F = v[q];
+    const float f2 = F.x * F.x + F.y * F.y;
+    const float f = sqrtf(f2) * sc.post;
     const float tv = t[g];
-    const float wo = updated_weight(f, tv, w[g], s, rule);
+    const float wo = updated_weight(f, tv, w[g], sc, rule);
     wout[g] = wo;
 
-    float phase = atan2f(F.y, F.x);
-    if (kim) {
-      if (!s.use_theta) phase = pff[g];
-      pff_out[g] = phase;
+    float er = 1.f, ei = 0.f;
+    if (f2 > 0.f) {
+      const float ib = rsqrtf(f2);
+      er = F.x * ib;
+      ei = F.y * ib;
     }
-    float sn, cs;
-    sincosf(phase, &sn, &cs);
-    re[g] = wo * cs;
-    im[g] = wo * sn;
+    if (kim) {
+      if (sc.use_theta) {
+        pff_out[g] = atan2f(F.y, F.x + 0.f);
+      } else {
+        const float phase = pff[g];
+        pff_out[g] = phase;
+        sincosf(phase, &ei, &er);
+      }
+    }
+    re[g] = wo * er;
+    im[g] = wo * ei;
 
     facc[1] += wo * wo;
     if (stats_on)
-      stats_accumulate(f, tv, mask[g], s.inv_tsum, s.inv_fsum, facc, dacc, macc);
+      stats_accumulate(f, tv, mask[g], sc.inv_tsum, sc.inv_fsum, facc, dacc, macc);
   }
   write_partials(facc, dacc, macc, partials);
+}
+
+template <int LOG2N>
+__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+cols_wgs_fwd_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
+                    const float* __restrict__ w, const float* __restrict__ t,
+                    const float* __restrict__ mask, const float* __restrict__ pff,
+                    float* __restrict__ re, float* __restrict__ im, float* __restrict__ wout,
+                    float* __restrict__ pff_out, const float* __restrict__ scal,
+                    double* __restrict__ partials, const float2* __restrict__ tw_fwd, int rule,
+                    int kim, int stats_on, int W, int tc, int log2tc) {
+  cols_wgs_fwd_tile<LOG2N, 1>(gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal, partials,
+                              tw_fwd, rule, kim, stats_on, W, tc, log2tc);
+}
+
+template <int LOG2N>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+cols_wgs_fwd_cluster_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
+                            const float* __restrict__ w, const float* __restrict__ t,
+                            const float* __restrict__ mask, const float* __restrict__ pff,
+                            float* __restrict__ re, float* __restrict__ im,
+                            float* __restrict__ wout, float* __restrict__ pff_out,
+                            const float* __restrict__ scal, double* __restrict__ partials,
+                            const float2* __restrict__ tw_fwd, int rule, int kim,
+                            int stats_on, int W, int tc, int log2tc) {
+  cols_wgs_fwd_tile<LOG2N, 2>(gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal, partials,
+                              tw_fwd, rule, kim, stats_on, W, tc, log2tc);
 }
 
 // Second pass of #2 and of cols_wgs_fwd: one block folds the (n_blocks, 8)
@@ -393,6 +434,28 @@ int launch_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
   return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
 }
 
+// Launch of one instantiation of cols_wgs_fwd (launch_cols; the cluster
+// instantiation where cols_cluster says two blocks), then stats_reduce on
+// its n_blocks rows of partials, which must be the grid's (cols_blocks).
+template <int LOG2N>
+int launch_cols_wgs_fwd(const float* gr, const float* gi, const float* w, const float* t,
+                        const float* mask, const float* pff, float* re, float* im,
+                        float* wout, float* pff_out, const float* scal, double* partials,
+                        double* sums, float* maxs, int W, int n_blocks, const float2* tw_fwd,
+                        int rule, int kim, int stats_on, cudaStream_t stream) {
+  if (n_blocks <= 0 || n_blocks != cols_blocks(kColsWgsFwd, LOG2N, W))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = [] {
+    if constexpr (cols_cluster(LOG2N) == 2) return cols_wgs_fwd_cluster_kernel<LOG2N>;
+    else return cols_wgs_fwd_kernel<LOG2N>;
+  }();
+  const int err = launch_cols<kColsWgsFwd, LOG2N>(kernel, W, stream, gr, gi, w, t, mask, pff,
+                                                   re, im, wout, pff_out, scal, partials,
+                                                   tw_fwd, rule, kim, stats_on);
+  if (err != (int)cudaSuccess) return err;
+  return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
+}
+
 // Launches of one instantiation of the row kernels (launch_rows).
 template <int LOG2N>
 int launch_rows_normfwd(const float* hr, const float* hi, const float* amp, float* gr,
@@ -447,22 +510,18 @@ int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
   return (int)cudaErrorInvalidValue;
 }
 
+// n_blocks: the rows of `partials`, slm_cols_blocks(kColsWgsFwd, H, W).
 int slm_cols_wgs_fwd(const float* gr, const float* gi, const float* w,
                      const float* t, const float* mask, const float* pff,
                      float* re, float* im, float* wout, float* pff_out,
                      const float* scal, double* partials, double* sums,
-                     float* maxs, int H, int W, int tc, const float2* tw_fwd,
+                     float* maxs, int H, int W, int n_blocks, const float2* tw_fwd,
                      int rule, int kim, int stats_on, cudaStream_t stream) {
-  size_t smem = 0;
-  cudaError_t err = cols_setup(cols_wgs_fwd_kernel, H, W, tc, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_blocks = W / tc;
-  cols_wgs_fwd_kernel<<<n_blocks, kThreads, smem, stream>>>(
-      gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal, partials, H, W,
-      ilog2(H), tc, ilog2(tc), tw_fwd, rule, kim, stats_on);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
+  switch (ilog2(H)) {
+    SLM_LEN_CASES(launch_cols_wgs_fwd, gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal,
+                  partials, sums, maxs, W, n_blocks, tw_fwd, rule, kim, stats_on, stream)
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int slm_rows_normfwd(const float* hr, const float* hi, const float* amp,

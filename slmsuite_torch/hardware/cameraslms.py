@@ -90,6 +90,13 @@ class FourierSLM(CameraSLM):
     wavefront_calibration_superpixel_process = _not_ported(
         "wavefront_calibration_superpixel_process"
     )
+    wavefront_calibration_superpixel_window = _not_ported(
+        "wavefront_calibration_superpixel_window"
+    )
+    wavefront_calibrate_zernike_smooth = _not_ported("wavefront_calibrate_zernike_smooth")
+    pixel_kernel = _not_ported("pixel_kernel")
+    write_calibration = _not_ported("write_calibration")
+    read_calibration = _not_ported("read_calibration")
 
     # ------------------------------------------------------------------
     # Calibration bookkeeping.

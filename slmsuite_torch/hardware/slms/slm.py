@@ -13,6 +13,7 @@ comes with the wavefront calibration that measures it (ROADMAP.md queue
 
 import inspect
 import time
+import warnings
 from abc import ABC, abstractmethod
 
 import numpy as np
@@ -122,6 +123,12 @@ class SLM(_Picklable, ABC):
     @abstractmethod
     def _set_phase_hw(self, display):
         """Low-level write of integer ``display`` data to the hardware."""
+
+    def write(self, phase, phase_correct=True, settle=False, **kwargs):
+        """Backwards-compatible alias of :meth:`set_phase` (it warns, as the
+        JAX package's does)."""
+        warnings.warn("SLM.write is a backwards-compatible alias of SLM.set_phase.")
+        return self.set_phase(phase, phase_correct, settle, **kwargs)
 
     def set_phase(self, phase, phase_correct=None, settle=None, execute=None, block=None,
                   **kwargs):

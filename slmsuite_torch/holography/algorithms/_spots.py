@@ -463,9 +463,15 @@ class SpotHologram(_AbstractSpotHologram):
         if reset_weights:
             self.reset_weights()
 
-    def set_target(self, new_target=None, reset_weights=False):
-        """Update the target from the current :attr:`spot_knm` positions."""
+    def set_target(self, new_target=None, reset_weights=False, plot=False):
+        """Update the target from the current :attr:`spot_knm` positions.
+        ``plot=True`` raises: the hologram plots are not ported yet."""
         del new_target  # The target is derived from the spot positions.
+        if plot:
+            raise NotImplementedError(
+                "set_target(plot=True): the hologram plots are not ported yet "
+                "(ROADMAP.md queue 1, item 12)."
+            )
         self._set_target_spots(reset_weights=reset_weights)
 
     # ------------------------------------------------------------------

@@ -78,6 +78,7 @@ def take(
     clip=False,
     return_mask=False,
     plot=False,
+    xp=None,
 ):
     """
     Crop same-sized integration regions around ``vectors``, vectorized over
@@ -101,11 +102,21 @@ def take(
         Return a boolean mask of taken pixels instead of data.
     plot : bool
         Show the mask (with ``return_mask``).
+    xp : module OR None
+        Array module of the data path: numpy (the default). The device
+        measurement of the simulated rig gathers on the card inside the
+        engine (``ops.engine.sim_measure_spots``); another module raises.
+
     Returns
     -------
     numpy.ndarray
         ``(N, h, w)`` regions or ``(N,)`` sums.
     """
+    if xp is not None and xp is not np:
+        raise NotImplementedError(
+            f"take(xp={getattr(xp, '__name__', xp)}) takes numpy only; other array "
+            "modules are not ported yet (ROADMAP.md queue 1, item 12)."
+        )
     if np.isscalar(size):
         size = (int(size), int(size))
     else:

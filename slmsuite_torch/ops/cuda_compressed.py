@@ -13,11 +13,15 @@ an error, and counts its call in :data:`LAUNCHES` (one per call, for the
 kernel and the fixed-order passes that finish it).
 
 The plain PyTorch version of each kernel is the underscored function of
-the same name in :mod:`slmsuite_torch.ops.compressed`.
+the same name in :mod:`slmsuite_torch.ops.compressed`. The kernels' sincos
+is period-reduced (``sincos_reduced`` in the source); :meth:`sincos_reduced_model`
+forms it in PyTorch from the same constants, so that its error can be held
+on the CPU.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
 from slmsuite_torch.ops import cuda_fft
@@ -41,6 +45,35 @@ _SIGNATURES = {
 }
 
 _BOUND = None
+
+#: The period reduction of the kernels' sincos (``compressed.cu``): 1/(2 pi)
+#: as f32, 2 pi split in three f32 terms (the first of 8 significant bits, so
+#: that ``k`` times it is exact for ``|k| < 2**16``), pi and 2 pi as f32, and
+#: the ``|phase|`` beyond which the kernels take libdevice's ``sincosf``.
+INV_2PI = 0.15915493667125702
+TWO_PI_TERMS = (6.28125, 0.0019353071693331003, 1.0253376273028358e-11)
+PI_F32, TWO_PI_F32 = 3.1415927410125732, 6.2831854820251465
+REDUCED_LIMIT = 1e5
+
+
+def sincos_reduced_model(x):
+    """``(sin, cos)`` of the float32 phases ``x`` as the kernels' sincos
+    forms them, with ``torch.sin``/``torch.cos`` in place of the card's
+    pair on [-pi, pi]: ``k = rint(x / 2 pi)``, ``y = x - k 2 pi`` by the
+    three terms of :data:`TWO_PI_TERMS`, each step one ``fmaf`` (here a
+    float64 product and difference rounded once to float32), ``y`` folded
+    back into [-pi, pi] where rounding picked ``k`` off by one, and beyond
+    :data:`REDUCED_LIMIT` the plain sin and cos of ``x``."""
+    x = x.to(torch.float32)
+    k = torch.round(x * np.float32(INV_2PI)).double()
+    y = x
+    for term in TWO_PI_TERMS:
+        y = (y.double() - k * term).float()
+    pi, two_pi = np.float32(PI_F32), np.float32(TWO_PI_F32)
+    y = torch.where(y > pi, y - two_pi, torch.where(y < -pi, y + two_pi, y))
+    far = x.abs() > REDUCED_LIMIT
+    return (torch.where(far, torch.sin(x), torch.sin(y)),
+            torch.where(far, torch.cos(x), torch.cos(y)))
 
 
 def reset_launch_counts():
@@ -194,3 +227,4 @@ def fused_iter_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels):
     cuda_fft._raise_on(rc, "fused_iter_cached")
     LAUNCHES["fused_iter_cached"] += 1
     return out_re, out_im
+

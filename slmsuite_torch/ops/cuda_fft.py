@@ -21,16 +21,15 @@ counts its launches in :data:`LAUNCHES`.
 The plain PyTorch version of each kernel is the underscored function of
 the same name in :mod:`slmsuite_torch.ops.fft`.
 
-The kernels of :data:`LINE_KERNELS` (``rows_fft``, ``cols_fft``,
-``rows_normfwd``, ``cols_wgs_roundtrip``, ``carry_entry``, ``carry_exit``,
-``cols_fwd_polar``, ``cols_wexp_inv``, ``cols_mraf_fwd``,
-``cols_mraf_mix_inv``) run a register-resident line FFT (``line_fft`` in
-``csrc/fft_shared.cuh``). Its plan (:meth:`fft_plan`), its exchange's
-index maps, and a plain PyTorch model that follows it pass by pass
-(:meth:`line_fft_model`) are here, so that they can be tested without a
-card; the launch shapes are the launchers' own (:meth:`fft_launch_shape`
-asks them). The one other FFT kernel, the column kernel
-``cols_wgs_fwd``, runs the shared-memory ``fft_lines``.
+Every kernel here is one of :data:`LINE_KERNELS` (``rows_fft``,
+``cols_fft``, ``rows_normfwd``, ``cols_wgs_roundtrip``, ``carry_entry``,
+``carry_exit``, ``cols_fwd_polar``, ``cols_wexp_inv``, ``cols_mraf_fwd``,
+``cols_mraf_mix_inv``, ``cols_wgs_fwd``) and runs the register-resident
+line FFT (``line_fft`` in ``csrc/fft_shared.cuh``). Its plan
+(:meth:`fft_plan`), its exchange's index maps, and a plain PyTorch model
+that follows it pass by pass (:meth:`line_fft_model`) are here, so that
+they can be tested without a card; the launch shapes are the launchers'
+own (:meth:`fft_launch_shape` asks them).
 """
 
 import ctypes
@@ -188,13 +187,6 @@ def _twiddles(n, inverse, device):
     w = np.exp(sign * 2j * np.pi * np.arange(n // 2) / n)
     table = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
     return torch.from_numpy(table).to(device)
-
-
-def _cols_tile(H):
-    """Columns per block of ``cols_wgs_fwd``, the column kernel still on
-    ``fft_lines``: 64 KiB of shared memory. The kernels on ``line_fft``
-    take their tile from their launch shape (:meth:`fft_launch_shape`)."""
-    return max(1, min(8, 8192 // H))
 
 
 # ----------------------------------------------------------------------
@@ -466,17 +458,17 @@ def cols_wgs_fwd(gr, gi, weights, target, mask, phase_ff, scal,
     H, W = _check_planes(*planes)
     _check_rule(rule)
     _check_scal(scal, gr)
-    tc = _cols_tile(H)
+    blocks = _cols_blocks("cols_wgs_fwd", H, W)
     re, im, wout = (torch.empty_like(gr) for _ in range(3))
     pff_out = torch.empty_like(gr) if kim else None
-    partials = torch.empty((W // tc, 8), dtype=torch.float64, device=gr.device)
+    partials = torch.empty((blocks, 8), dtype=torch.float64, device=gr.device)
     sums = torch.empty(4, dtype=torch.float64, device=gr.device)
     maxs = torch.empty(4, dtype=torch.float32, device=gr.device)
     rc = _lib().slm_cols_wgs_fwd(
         _ptr(gr), _ptr(gi), _ptr(weights), _ptr(target),
         _ptr(mask if stats_on else None), _ptr(phase_ff if kim else None),
         _ptr(re), _ptr(im), _ptr(wout), _ptr(pff_out), _ptr(scal), _ptr(partials),
-        _ptr(sums), _ptr(maxs), H, W, tc, _ptr(_twiddles(H, False, gr.device)),
+        _ptr(sums), _ptr(maxs), H, W, blocks, _ptr(_twiddles(H, False, gr.device)),
         _RULES[rule], int(kim), int(stats_on), _stream(),
     )
     _raise_on(rc, "cols_wgs_fwd")
@@ -626,7 +618,7 @@ def cols_fft(xr, xi, *, inverse, scale=1.0):
 #: ``csrc/fft_shared.cuh``.
 LINE_KERNELS = ("rows_fft", "cols_fft", "rows_normfwd", "cols_wgs_roundtrip", "carry_entry",
                 "carry_exit", "cols_fwd_polar", "cols_wexp_inv", "cols_mraf_fwd",
-                "cols_mraf_mix_inv")
+                "cols_mraf_mix_inv", "cols_wgs_fwd")
 
 
 def fft_launch_shape(kernel, n):

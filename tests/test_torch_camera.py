@@ -121,6 +121,21 @@ def test_take_matches_jax(kwargs):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("integrate", [True, False])
+def test_take_takes_numpy_xp_like_jax(integrate):
+    """``take(..., xp=numpy)``, the JAX package's signature, gives what the
+    default gives; another array module raises, naming item 12."""
+    rng = np.random.default_rng(3)
+    img = rng.uniform(0, 255, (64, 96))
+    vectors = rng.uniform(8, 56, (2, 5))
+    got = tanalysis.take(img, vectors, 7, integrate=integrate, xp=np)
+    np.testing.assert_array_equal(got, janalysis.take(img, vectors, 7, integrate=integrate,
+                                                      xp=np))
+    np.testing.assert_array_equal(got, tanalysis.take(img, vectors, 7, integrate=integrate))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tanalysis.take(img, vectors, 7, integrate=integrate, xp=torch)
+
+
 def test_take_off_frame_raises_like_jax():
     img = np.zeros((32, 32))
     for module in (tanalysis, janalysis):
@@ -850,3 +865,16 @@ def test_camera_loop_model_builds_config_4():
     with pytest.raises(ValueError, match="calibration"):
         tmodels.camera_loop_wgs(calibration="guessed", slm_side=SIDE, cam_side=SIDE,
                                 M=RIG_M, device="cpu")
+
+
+@pytest.mark.parametrize("name", [
+    "pixel_kernel", "write_calibration", "read_calibration",
+    "wavefront_calibrate_zernike_smooth", "wavefront_calibration_superpixel_window",
+])
+def test_fourier_slm_names_of_item_9_raise(name):
+    """FourierSLM methods of the JAX package that the port does not copy yet
+    raise NotImplementedError naming item 9, not AttributeError."""
+    assert callable(getattr(JFourierSLM, name))
+    fs = TFourierSLM.__new__(TFourierSLM)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        getattr(fs, name)(1)

@@ -13,6 +13,11 @@ on the same seeded numpy inputs:
   within 1e-5 (the cache and the transforms: both sides run f32 matrix
   products and sincos; Pallas synthesizes its sincos with a minimax
   polynomial, so 1e-4 there);
+- the kernels' period-reduced sincos, through its PyTorch model
+  (``cuda_compressed.sincos_reduced_model``, the constants read from
+  ``csrc/compressed.cu``), against float64 sin/cos of the same f32 phases
+  within 6e-7 and against the TPU kernel's ``_sincos_reduced`` within
+  1.2e-6 (see ``SINCOS_ATOL``);
 - ``run_compressed_gs`` against the JAX engine, and ``CompressedSpotHologram``
   on a 64^2 ``SimulatedSLM``: weights, amp_ff and stats within 1e-4,
   ``phase_ff`` within 1e-3 rad (modulo 2 pi), the exit phase within 1e-3
@@ -20,10 +25,14 @@ on the same seeded numpy inputs:
   ill-conditioned), flags and iteration counts exact.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import slmsuite_torch
@@ -33,12 +42,14 @@ from slmsuite_torch.holography import algorithms as T
 from slmsuite_torch.holography import toolbox as TT
 from slmsuite_torch.holography.toolbox import phase as TP
 from slmsuite_torch.ops import compressed as TC
+from slmsuite_torch.ops import cuda_compressed as TK
 from slmsuite_tpu.hardware.slms.simulated import SimulatedSLM as JSLM
 from slmsuite_tpu.holography import algorithms as J
 from slmsuite_tpu.holography import toolbox as JT
 from slmsuite_tpu.holography.toolbox import phase as JP
 from slmsuite_tpu.ops import compressed as JC
 from slmsuite_tpu.ops import pallas_compressed as JPC
+from slmsuite_tpu.ops.pallas_fft import _sincos_reduced
 
 #: SLM units of convert_vector (the camera units need a CameraSLM).
 SLM_UNITS = ["norm", "kxy", "rad", "mrad", "deg", "knm", "freq", "lpmm", "zernike"]
@@ -47,6 +58,15 @@ JNP_RTOL = 1e-5
 PALLAS_RTOL = 1e-4
 STATE_ATOL = 1e-4
 PHASE_ATOL = 1e-3
+#: The kernels' period-reduced sincos against float64 sin/cos of the same
+#: f32 phases: the reduced argument is rounded twice (1.2e-7 each), the rare
+#: fold adds 2 pi's f32 error (1.7e-7) and torch's f32 sin its own (0.6e-7),
+#: 5.4e-7 in all; the largest seen on a million phases up to 1e5 is 4.1e-7.
+SINCOS_ATOL = 6e-7
+#: The same against the TPU kernel's _sincos_reduced, compiled as its kernel
+#: compiles it (a two-term split and a minimax pair, up to 4e-7 off float64
+#: there; uncompiled, without fused products, 1.2e-6): the two errors add.
+SINCOS_TPU_ATOL = 1.2e-6
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -231,6 +251,20 @@ def test_measured_source_fit_is_queued():
         tslm.fit_source_amplitude()
 
 
+def test_slm_write_is_the_jax_alias():
+    """``SLM.write``, the JAX package's alias of ``set_phase``: it warns and
+    writes the same display."""
+    tslm, jslm = TSLM((40, 32), wav_um=0.8, wav_design_um=0.6), JSLM((40, 32), wav_um=0.8,
+                                                                      wav_design_um=0.6)
+    phase = np.random.default_rng(5).uniform(-3 * np.pi, 3 * np.pi, tslm.shape)
+    with pytest.warns(UserWarning, match="alias"):
+        got = tslm.write(phase)
+    with pytest.warns(UserWarning, match="alias"):
+        ref = jslm.write(phase)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(tslm.display, jslm.display)
+
+
 @pytest.mark.parametrize("indices", [[2, 1], [2, 1, 4], [2, 1, 4, 3], [2, 1, -1, 7]])
 def test_build_zernike_basis_matches_jax(indices):
     tslm, jslm = _slms((48, 50))
@@ -354,6 +388,49 @@ def test_amp_replace_conventions():
         np.testing.assert_allclose(got[0], want[0], atol=1e-7)
         np.testing.assert_allclose(got[1], want[1], atol=1e-7)
         assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("top", [np.pi, 1e2, 1e4, 1e5, 1e6])
+def test_sincos_reduced_model_matches_float64(top):
+    """The model of the kernels' sincos on seeded f32 phases in +-top:
+    period-reduced up to REDUCED_LIMIT (1e5), the plain sin and cos beyond."""
+    x = np.random.default_rng(7).uniform(-top, top, 200_000).astype(np.float32)
+    s, c = TK.sincos_reduced_model(torch.from_numpy(x))
+    x64 = x.astype(np.float64)
+    assert s.dtype == c.dtype == torch.float32
+    assert np.abs(s.numpy() - np.sin(x64)).max() <= SINCOS_ATOL
+    assert np.abs(c.numpy() - np.cos(x64)).max() <= SINCOS_ATOL
+    assert (np.abs(x) > TK.REDUCED_LIMIT).any() == (top > TK.REDUCED_LIMIT)
+
+
+@pytest.mark.parametrize("top", [np.pi, 1e3, 1e5])
+def test_sincos_reduced_model_matches_tpu_reduction(top):
+    """The model against the TPU kernel's own period-reduced sincos
+    (``pallas_fft._sincos_reduced``) on the same phases."""
+    x = np.random.default_rng(8).uniform(-top, top, 200_000).astype(np.float32)
+    s, c = TK.sincos_reduced_model(torch.from_numpy(x))
+    js, jc = (np.asarray(v) for v in jax.jit(_sincos_reduced)(jnp.asarray(x)))
+    assert np.abs(s.numpy() - js).max() <= SINCOS_TPU_ATOL
+    assert np.abs(c.numpy() - jc).max() <= SINCOS_TPU_ATOL
+
+
+def test_sincos_reduced_constants_match_the_kernel_source():
+    """The model's constants are the kernel's (``compressed.cu``), as f32."""
+    source = (Path(TK.__file__).resolve().parent.parent / "csrc" / "compressed.cu").read_text()
+
+    def const(name):
+        return np.float32(float(re.search(rf"constexpr float {name} = ([0-9.e+-]+)f;",
+                                          source).group(1)))
+
+    assert const("kInv2Pi") == np.float32(TK.INV_2PI)
+    assert (const("k2PiA"), const("k2PiB"), const("k2PiC")) == tuple(
+        np.float32(t) for t in TK.TWO_PI_TERMS)
+    assert const("kPiF") == np.float32(TK.PI_F32) == np.float32(np.pi)
+    assert const("k2PiF") == np.float32(TK.TWO_PI_F32) == np.float32(2 * np.pi)
+    assert const("kReducedLimit") == np.float32(TK.REDUCED_LIMIT)
+    # The split: the first term has 8 significant bits, the three sum to 2 pi.
+    assert float(TK.TWO_PI_TERMS[0]) * 2**5 == 201
+    assert abs(sum(map(float, TK.TWO_PI_TERMS)) - 2 * np.pi) < 1e-17
 
 
 def test_mraf_mix_matches_jax():

@@ -323,7 +323,7 @@ def test_fft_launch_shapes_fit_the_card(cuda, n):
         assert threads * points == rows * n and smem == rows * cuda_fft.line_pitch(n) * 8
     cols_kernels = [k for k in cuda_fft.LINE_KERNELS if k.startswith("cols")]
     assert cols_kernels == ["cols_fft", "cols_wgs_roundtrip", "cols_fwd_polar", "cols_wexp_inv",
-                            "cols_mraf_fwd", "cols_mraf_mix_inv"]
+                            "cols_mraf_fwd", "cols_mraf_mix_inv", "cols_wgs_fwd"]
     for kernel in cols_kernels:
         tc, blocks, threads, smem = cuda_fft.fft_launch_shape(kernel, n)
         assert tc >= 8 and 64 % tc == 0 and blocks == (2 if n == 4096 else 1)
@@ -633,13 +633,16 @@ def _rel_pair(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D, P, N", [(4, 3000, 17), (3, 65536, 256), (2, 8192, 600)])
+@pytest.mark.parametrize("D, P, N", [(4, 3000, 17), (3, 65536, 256), (2, 8192, 600),
+                                     (9, 5000, 100), (5, 4096, 300)])
 @pytest.mark.parametrize("amp_kind", ["scalar", "array"])
 def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
     """f2n, n2f, fused_iter and fused_iter_cached against their plain
     versions, at unaligned sizes (padded pixels and pad spots), at config
-    5's spot count, and past one f2n spot chunk (600 spots); one launch
-    each."""
+    5's spot count, past one f2n spot chunk (600 spots), with three float4
+    groups of Zernike terms in fused_iter's lanes-on-spots kernel (D = 9),
+    and past its 256 spots (300: roundtrip_kernel keeping the cos/sin; 600:
+    recomputing them); one launch each."""
     from slmsuite_torch.ops import compressed as C
     from slmsuite_torch.ops import cuda_compressed as K
 

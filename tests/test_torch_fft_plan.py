@@ -147,6 +147,13 @@ def test_line_kernel_enum_names_the_line_kernels_in_order():
     names = [re.sub(r"(?<!^)([A-Z])", r"_\1", e.split(" ")[0][1:]).lower()
              for e in entries[:-1]]
     assert tuple(names) == cuda_fft.LINE_KERNELS
+    # Every kernel of the port's FFT is on the line FFT, the forward half's
+    # column pass last; cols_kernel() takes the column kernels (a tile,
+    # launch_cols, cols_blocks) and only those.
+    assert cuda_fft.LINE_KERNELS[-1] == "cols_wgs_fwd" and "kColsWgsFwd" in entries
+    body = re.search(r"constexpr bool cols_kernel\(int kernel\) \{(.*?)\}", source, re.S)
+    taken = re.findall(r"kernel == (k[A-Za-z0-9]+)", body.group(1))
+    assert sorted(taken) == sorted(e for e in entries[:-1] if e.startswith("kCols"))
 
 
 @pytest.mark.parametrize("inverse", [False, True])

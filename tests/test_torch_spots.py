@@ -170,3 +170,20 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.SpotHologram((64, 64), [[10, 20], [10, 20]], basis="knm",
                        null_vectors=[[30], [30]])
+
+
+@pytest.mark.parametrize("reset_weights", [False, True])
+def test_set_target_takes_plot_like_jax(reset_weights):
+    """``set_target(new_target, reset_weights, plot=False)`` (the JAX
+    package's signature) rebuilds the same target and weights in both
+    packages after the spots move; ``plot=True`` raises, naming item 12."""
+    holos = [pkg.SpotHologram.make_rectangular_array(
+        (64, 64), array_shape=(3, 3), array_pitch=(12, 12), basis="knm") for pkg in (T, J)]
+    for holo in holos:
+        holo.spot_knm = holo.spot_knm + 2
+        holo.set_target(None, reset_weights, plot=False)
+    tholo, jholo = holos
+    np.testing.assert_array_equal(tholo.target, np.asarray(jholo.target))
+    np.testing.assert_array_equal(np.asarray(tholo.weights), np.asarray(jholo.weights))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tholo.set_target(plot=True)
