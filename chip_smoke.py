@@ -2,7 +2,9 @@
 """
 Smoke run of the PyTorch / CUDA port (``slmsuite_torch``) on one GPU.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
+Run from the root of a checkout: ``python3 chip_smoke.py``
+(``--parent DIR`` adds the A/B of the compressed kernels against the port
+unpacked at ``DIR``, e.g. ``git archive <parent> slmsuite_torch``). It needs one
 CUDA card and ``nvcc``; it fails (exit code != 0, no result line) when
 there is no card or the port is missing. In order:
 
@@ -27,11 +29,15 @@ there is no card or the port is missing. In order:
    kernels at BASELINE config 5's shapes (P = 1024^2, N = 256, D = 3) and
    at P = 3000, N = 17, D = 4, there also with phases up to 1e6 (past 1e5
    the kernels' sincos takes libdevice's sincosf), scalar and array
-   amplitude, ``fused_iter`` and its plain f32 version against the plain
-   version in float64, and the compressed dispatchers on config 5's
-   hologram; ``cols_wgs_fwd`` and the composed ``wgs_fused_forward`` at
-   2048^2, 256x512, 64^2 and 4096^2 for every rule, Kim on and off, stats
-   on and off, scalar and array amplitude, with one all-zero column;
+   amplitude, ``f2n`` and ``n2f`` also at 300, 600 and 12,000 spots (D =
+   3) and 4,096 (D = 16), ``fused_iter`` at 9,000 spots (D = 3, past
+   ``fused_spots_kernel``'s 256 spots: one launch each of ``f2n`` and
+   ``n2f``), ``f2n``, ``n2f`` and ``fused_iter`` and their plain f32
+   versions against the plain versions in float64, and the compressed
+   dispatchers on config 5's hologram; ``cols_wgs_fwd`` and the composed
+   ``wgs_fused_forward`` at 2048^2, 256x512, 64^2 and 4096^2 for every
+   rule, Kim on and off, stats on and off, scalar and array amplitude,
+   with one all-zero column;
 5. the paths, each driven with the launch counts set to 0 just before it:
    - the fused slice: ``SpotHologram.make_rectangular_array((2048, 2048),
      32x32, pitch 30, "knm")``, WGS-Kim, 50 iterations;
@@ -87,7 +93,10 @@ there is no card or the port is missing. In order:
    ``fft2_polar_from_phase`` and ``wexp_ifft2_phase`` beside them; the
    composed ``wgs_fused_forward`` and ``wgs_fused_step`` against their
    plain versions; each compressed
-   kernel and its plain version at config 5,
+   kernel and its plain version at config 5 (with ``--parent DIR``, the
+   root of a parent commit's unpacked port, each also against the
+   parent's in the same process, and ``fused_iter``'s route past 256 spots
+   against the parent's at 300 to 8,000 spots),
    the cos/sin cache build, and ms/iteration of the C1 and C2 loops; and
    ms/iteration of ``spot_array_wgs(2048)`` (WGS-Kim,
    fused), ``spot_array_wgs(2048, method="WGS-Nogrette")`` (natural), the
@@ -164,7 +173,7 @@ PORT_KERNEL_NAMES = (
     "cols_mraf_fwd_cluster_kernel", "cols_mraf_mix_inv_kernel",
     "cols_mraf_mix_inv_cluster_kernel", "cols_wexp_inv_kernel", "cols_wexp_inv_cluster_kernel",
     "cols_wgs_fwd_kernel", "cols_wgs_fwd_cluster_kernel", "cols_wgs_roundtrip_kernel",
-    "cols_wgs_roundtrip_cluster_kernel", "f2n_kernel", "fused_spots_kernel",
+    "cols_wgs_roundtrip_cluster_kernel", "f2n_kernel", "fused_spots_kernel", "n2f_kernel",
     "roundtrip_kernel", "rows_fft_kernel", "rows_normfwd_kernel", "spot_reduce_kernel",
     "stats_reduce_kernel", "unit_norm_kernel",
 )
@@ -1426,15 +1435,15 @@ def config5_inputs(device):
     return holo, consts, x
 
 
-def compressed_calls(x, amp):
-    """``{kernel: (kernel call, plain call)}`` on inputs ``x``."""
+def compressed_calls(x, amp, names=("f2n", "n2f", "fused_iter", "fused_iter_cached")):
+    """``{kernel: (kernel call, plain call)}`` on inputs ``x`` for ``names``."""
     from slmsuite_torch.ops import compressed as C
     from slmsuite_torch.ops import cuda_compressed as K
 
     N, P = x["coeffs"].shape[1], x["basis"].shape[1]
     ff, nf, cb = (x["ffr"], x["ffi"]), (x["nfr"], x["nfi"]), (x["coeffs"], x["basis"])
-    cache = (x["kc"], x["ks"], amp, N, P)
-    return {
+    cache = (x.get("kc"), x.get("ks"), amp, N, P)
+    calls = {
         "f2n": (lambda: K.f2n(*ff, *cb), lambda: C._farfield_to_nearfield(*ff, *cb)),
         "n2f": (lambda: K.n2f(*nf, *cb), lambda: C._nearfield_to_farfield(*nf, *cb)),
         "fused_iter": (lambda: K.fused_iter(*ff, *cb, amp),
@@ -1442,6 +1451,7 @@ def compressed_calls(x, amp):
         "fused_iter_cached": (lambda: K.fused_iter_cached(*ff, *cache),
                               lambda: C._fused_iteration_cached(*ff, *cache)),
     }
+    return {name: calls[name] for name in names}
 
 
 def wide_phase_inputs(device, D=4, P=3000, N=17, top=1e6, seed=4):
@@ -1465,21 +1475,79 @@ def wide_phase_inputs(device, D=4, P=3000, N=17, top=1e6, seed=4):
     return x
 
 
-def float64_errors(x, amp):
-    """``fused_iter`` and its plain f32 version against the plain version
-    run in float64 on the card: max |diff| / max |float64|."""
-    from slmsuite_torch.ops import compressed as C
-    from slmsuite_torch.ops import cuda_compressed as K
-
-    args = (x["ffr"], x["ffi"], x["coeffs"], x["basis"])
-    amp64 = amp.double() if torch.is_tensor(amp) else amp
-    ref = C._fused_iteration(*(a.double() for a in args), amp64)
+def float64_errors(kernel, plain, args):
+    """``kernel(*args)`` and ``plain(*args)`` (the plain f32 version)
+    against ``plain`` run in float64 on the card: max |diff| / max
+    |float64| of each."""
+    ref = plain(*(a.double() if torch.is_tensor(a) else a for a in args))
     scale = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
 
     def err(got):
         return max(float((got[k].double() - ref[k]).abs().max()) for k in (0, 1)) / scale
 
-    return err(K.fused_iter(*args, amp)), err(C._fused_iteration(*args, amp))
+    return err(kernel(*args)), err(plain(*args))
+
+
+def check_float64(tag, amp_kind, x, amp, lines, names=("f2n", "n2f", "fused_iter")):
+    """:meth:`float64_errors` of the kernels ``names`` (those that recompute
+    their sincos), logged and held to CMP_RTOL."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    cb = (x["coeffs"], x["basis"])
+    calls = {
+        "f2n": (K.f2n, C._farfield_to_nearfield, (x["ffr"], x["ffi"], *cb)),
+        "n2f": (K.n2f, C._nearfield_to_farfield, (x["nfr"], x["nfi"], *cb)),
+        "fused_iter": (K.fused_iter, C._fused_iteration, (x["ffr"], x["ffi"], *cb, amp)),
+    }
+    for name in names:
+        if amp_kind == "array" and name in ("f2n", "n2f"):
+            continue  # these take no amplitude
+        kernel, plain, args = calls[name]
+        e_kernel, e_plain = float64_errors(kernel, plain, args)
+        line = (f"{name} {tag} {amp_kind} against float64: kernel {e_kernel:.3e}, plain f32 "
+                f"{e_plain:.3e} (max |diff| / max |float64|)")
+        log(line)
+        lines.append(line)
+        assert e_kernel <= CMP_RTOL, (name, tag, amp_kind, e_kernel)
+
+
+#: f2n and n2f past the spot groups of n2f's grid and past the shared
+#: memory of the earlier n2f (11,417 spots at D = 3, 3,171 at D = 16):
+#: (D, P, N).
+SPOT_COUNT_SHAPES = ((3, 65536, 300), (3, 65536, 600), (3, 65536, 12000), (16, 16384, 4096))
+#: fused_iter past fused_spots_kernel's 256 spots, and past the 8,155 spots
+#: (at D = 3) that the earlier roundtrip route held: f2n with the amplitude
+#: replacement, then n2f unnormalized, on config 5's plane.
+TWO_LAUNCH_SPOTS = 9000
+
+
+def phase_two_launch_fused(device, basis, lines):
+    """``fused_iter`` at TWO_LAUNCH_SPOTS spots on ``basis`` (D = 3):
+    exactly one launch each of f2n and n2f and none of fused_iter, within
+    CMP_RTOL of ``_fused_iteration`` (scalar and array amplitude) and of
+    float64."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    D, P = basis.shape
+    x = compressed_inputs(device, D, P, TWO_LAUNCH_SPOTS, seed=9, basis=basis)
+    x["coeffs"] = x["coeffs"] * 0.1  # config 5's phases: tens of radians
+    args = (x["ffr"], x["ffi"], x["coeffs"], x["basis"])
+    for amp_kind in ("scalar", "array"):
+        amp = 1.0 if amp_kind == "scalar" else x["amp"]
+        K.reset_launch_counts()
+        got = K.fused_iter(*args, amp)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in K.LAUNCHES.items() if v}
+        assert launched == dict(f2n=1, n2f=1), launched
+        e = max(rel_err(a, b) for a, b in zip(got, C._fused_iteration(*args, amp)))
+        line = f"fused_iter (f2n + n2f) N {TWO_LAUNCH_SPOTS}, P {P}, D {D} {amp_kind}: rel {e:.3e}"
+        log(line)
+        lines.append(line)
+        assert e <= CMP_RTOL, line
+        check_float64(f"N {TWO_LAUNCH_SPOTS}, P {P}, D {D}", amp_kind, x, amp, lines,
+                      names=("fused_iter",))
 
 
 def phase_compressed_parity(device):
@@ -1487,10 +1555,12 @@ def phase_compressed_parity(device):
     5's shapes, at an unaligned shape (P = 3000, N = 17, D = 4) and there
     with phases up to 1e6 (past REDUCED_LIMIT the kernels' sincos takes
     libdevice's sincosf), past 256 spots (300 and 600) and with nine
-    Zernike terms, with scalar and array amplitude; ``fused_iter`` and
-    its plain f32 version against the plain version in float64; the
-    dispatchers through config 5's hologram consts. Returns the kernels'
-    max |diff| at config 5."""
+    Zernike terms, with scalar and array amplitude; ``f2n`` and ``n2f`` at
+    SPOT_COUNT_SHAPES; ``fused_iter`` as two launches at TWO_LAUNCH_SPOTS
+    (:meth:`phase_two_launch_fused`); ``f2n``, ``n2f`` and ``fused_iter``
+    and their plain f32 versions against the plain versions in float64;
+    the dispatchers through config 5's hologram consts. Returns the
+    kernels' max |diff| at config 5."""
     from slmsuite_torch.ops import compressed as C
     from slmsuite_torch.ops import cuda_compressed as K
 
@@ -1500,8 +1570,9 @@ def phase_compressed_parity(device):
     xu = compressed_inputs(device, 4, 3000, 17)
     xw = wide_phase_inputs(device)
     assert xw["phase_max"] == 1e6 > K.REDUCED_LIMIT, xw["phase_max"]
-    # fused_iter past its lanes-on-spots kernel's 256 spots (roundtrip_kernel
-    # keeping, then recomputing, the cos/sin), and with nine Zernike terms.
+    # fused_iter past its lanes-on-spots kernel's 256 spots (f2n + n2f),
+    # fused_iter_cached keeping, then rereading, the cos/sin, and nine
+    # Zernike terms.
     x300, x600 = compressed_inputs(device, 5, 4096, 300), compressed_inputs(device, 2, 8192, 600)
     x9 = compressed_inputs(device, 9, 5000, 100)
     for x in (xu, xw, x300, x600, x9):
@@ -1522,12 +1593,21 @@ def phase_compressed_parity(device):
                 if x is x5:
                     worst[name] = max(worst[name], max_abs(got[0], ref[0]),
                                       max_abs(got[1], ref[1]))
-            e_kernel, e_plain = float64_errors(x, amp)
-            log(f"fused_iter {tag} {amp_kind} against float64: kernel {e_kernel:.3e}, "
-                f"plain f32 {e_plain:.3e} (max |diff| / max |float64|)")
-            lines.append(f"fused_iter {tag} {amp_kind} against float64: kernel "
-                         f"{e_kernel:.3e}, plain f32 {e_plain:.3e}")
-            assert e_kernel <= CMP_RTOL, (tag, amp_kind, e_kernel)
+            check_float64(tag, amp_kind, x, amp, lines)
+    # f2n and n2f at spot counts across n2f's spot groups and past the
+    # earlier kernels' shared memory.
+    for D, P, N in SPOT_COUNT_SHAPES:
+        x = compressed_inputs(device, D, P, N, seed=N)
+        tag = f"P {P}, N {N}, D {D}"
+        for name, (kernel, plain) in compressed_calls(x, 1.0, names=("f2n", "n2f")).items():
+            got, ref = kernel(), plain()
+            assert got[0].shape == ref[0].shape == ((P,) if name == "f2n" else (N,))
+            e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+            assert e <= CMP_RTOL, f"{name} {tag}: rel {e:.3e}"
+            lines.append(f"{name} {tag}: rel {e:.3e}")
+        check_float64(tag, "scalar", x, 1.0, lines, names=("f2n", "n2f"))
+        del x
+    phase_two_launch_fused(device, x5["basis"], lines)
     # The dispatchers on the hologram's own consts and phase.
     psi = type(holo)._psi.device(holo, device).reshape(-1)
     nf = C.nearfield(psi, consts["amp"])
@@ -1634,18 +1714,121 @@ def compressed_bound(name, D, N, P, n8):
     return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
 
 
-def phase_compressed_timing(device):
+def parent_port(root):
+    """The ``cuda_compressed`` module of the port unpacked at ``root`` (a
+    parent commit's ``slmsuite_torch``, for an A/B): its package imported
+    in place of this tree's, then this tree's put back in ``sys.modules``.
+    The parent's modules keep their own references, so its wrappers check,
+    bind, build (into ``root/build/``) and launch its own library, and count
+    in its own ``LAUNCHES``."""
+    import importlib
+
+    def ours(name):
+        return name == "slmsuite_torch" or name.startswith("slmsuite_torch.")
+
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if ours(k)}
+    sys.path.insert(0, str(root))
+    try:
+        return importlib.import_module("slmsuite_torch.ops.cuda_compressed")
+    finally:
+        sys.path.remove(str(root))
+        for k in [k for k in sys.modules if ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+
+
+def ab_medians(label, calls, rounds=2):
+    """CUDA events of ``calls = {"this": fn, "parent": fn}`` in turns parent,
+    this, this, parent, ``rounds`` times; logs the readings and returns the
+    medians ``(this, parent)`` in ms."""
+    readings = {"this": [], "parent": []}
+    for _ in range(rounds):
+        for who in ("parent", "this", "this", "parent"):
+            readings[who].append(cuda_ms(calls[who]))
+    medians = float(np.median(readings["this"])), float(np.median(readings["parent"]))
+    log(f"A/B {label} (events), this tree against the parent's, one process: this "
+        + " ".join(f"{v:.4f}" for v in readings["this"]) + " ms, parent "
+        + " ".join(f"{v:.4f}" for v in readings["parent"])
+        + f" ms; medians {medians[0]:.4f} / {medians[1]:.4f} ms  [{nvidia_smi_line()}]")
+    return medians
+
+
+def compressed_ab(x, parent):
+    """This tree's four compressed kernels against the parent's (``parent``,
+    from :meth:`parent_port`) on config 5's inputs ``x`` (array amplitude),
+    both through their wrappers: the outputs within CMP_RTOL of each other,
+    then :meth:`ab_medians`."""
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    N, P = x["coeffs"].shape[1], x["basis"].shape[1]
+    ff, nf, cb = (x["ffr"], x["ffi"]), (x["nfr"], x["nfi"]), (x["coeffs"], x["basis"])
+    for name in ("f2n", "n2f", "fused_iter", "fused_iter_cached"):
+        def call(mod, name=name):
+            if name == "f2n":
+                return lambda: mod.f2n(*ff, *cb)
+            if name == "n2f":
+                return lambda: mod.n2f(*nf, *cb)
+            if name == "fused_iter":
+                return lambda: mod.fused_iter(*ff, *cb, x["amp"])
+            return lambda: mod.fused_iter_cached(*ff, x["kc"], x["ks"], x["amp"], N, P)
+
+        calls = {"this": call(K), "parent": call(parent)}
+        e = max(rel_err(a, b) for a, b in zip(calls["this"](), calls["parent"]()))
+        assert e <= CMP_RTOL, (name, e)
+        log(f"A/B {name} config 5: outputs within rel {e:.2e}")
+        ab_medians(f"{name} config 5", calls)
+
+
+#: Spot counts of the A/B of fused_iter's two routes past fused_spots_kernel's
+#: 256 spots on config 5's plane: this tree's f2n + n2f against the parent's
+#: roundtrip_kernel (keeping the cos/sin up to 640 spots, recomputing them
+#: beyond; its shared memory holds 8,155 spots at D = 3).
+FUSED_ROUTE_SPOTS = (300, 600, 4096, 8000)
+
+
+def fused_route_ab(consts, device, parent):
+    """fused_iter at FUSED_ROUTE_SPOTS on config 5's basis, the spots'
+    coefficients drawn uniformly within the range of config 5's for each
+    term (array amplitude): this tree (f2n with the amplitude replacement,
+    then n2f) against the parent's (roundtrip_kernel), outputs within
+    CMP_RTOL, then :meth:`ab_medians`."""
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    basis, coeffs = consts["basis"], consts["coeffs"]
+    lo, hi = coeffs.min(dim=1, keepdim=True).values, coeffs.max(dim=1, keepdim=True).values
+    gen = torch.Generator(device=device).manual_seed(11)
+    for N in FUSED_ROUTE_SPOTS:
+        c = lo + (hi - lo) * torch.rand((coeffs.shape[0], N), generator=gen, device=device)
+        x = compressed_inputs(device, coeffs.shape[0], basis.shape[1], N, seed=N, basis=basis,
+                              coeffs=c.contiguous())
+        args = (x["ffr"], x["ffi"], x["coeffs"], basis, x["amp"])
+        calls = {"this": lambda: K.fused_iter(*args), "parent": lambda: parent.fused_iter(*args)}
+        e = max(rel_err(a, b) for a, b in zip(calls["this"](), calls["parent"]()))
+        assert e <= CMP_RTOL, (N, e)
+        log(f"A/B fused_iter route N {N}: outputs within rel {e:.2e}")
+        ab_medians(f"fused_iter N {N}, P {basis.shape[1]}, D {basis.shape[0]} "
+                   "(f2n + n2f / roundtrip_kernel)", calls)
+
+
+def phase_compressed_timing(device, parent=None):
     """Each compressed kernel and its plain version at config 5 (array amp,
-    as config 5 runs), the cache build, and ms/iteration of the C1 (cached)
-    and C2 (recompute) loops through the kernels and the plain versions."""
+    as config 5 runs); where ``parent`` names the root of a parent commit's
+    port, each also against the parent's (:meth:`compressed_ab`) and
+    fused_iter's two routes past 256 spots (:meth:`fused_route_ab`); the
+    cache build, and ms/iteration of the C1 (cached) and C2 (recompute)
+    loops through the kernels and the plain versions."""
     from slmsuite_torch.ops import compressed as C
 
-    holo, _, x = config5_inputs(device)
+    holo, consts, x = config5_inputs(device)
     (D, N), P, n8 = x["coeffs"].shape, x["basis"].shape[1], x["kc"].shape[1]
     t = {}
     for name, (kernel, plain) in compressed_calls(x, x["amp"]).items():
         t[name] = interleaved(name, kernel, plain, bound_of=compressed_bound(name, D, N, P, n8),
                               size="config 5 (P 1024^2, N 256, D 3)")
+    if parent is not None:
+        parent = parent_port(parent)
+        compressed_ab(x, parent)
+        fused_route_ab(consts, device, parent)
     build_ms = cuda_ms(lambda: C.build_kernel_cache(x["coeffs"], x["basis"]), n=3, warmup=1)
     log(f"cache build config 5: {build_ms:.3f} ms, {C.kernel_cache_bytes(N, P)} bytes "
         f"({tuple(x['kc'].shape)} x 2 f32)")
@@ -2062,6 +2245,13 @@ def phase_camera(device):
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
+    parent = None
+    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
+        parent = Path(sys.argv[2]).resolve()
+        assert (parent / "slmsuite_torch").is_dir(), f"no port under {parent}"
+    elif len(sys.argv) > 1:
+        raise SystemExit("usage: python3 chip_smoke.py [--parent DIR]")
+
     device = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2080,7 +2270,7 @@ def main():
     s2_loop = phase_camera(device)
     phase_golden()
     times = phase_kernel_timing(device)
-    compressed_times, compressed_loops = phase_compressed_timing(device)
+    compressed_times, compressed_loops = phase_compressed_timing(device, parent=parent)
     times.update(compressed_times)
     phase_model_timing(device)
     phase_profile(device, "spot_array_wgs(2048) WGS-Kim fused",

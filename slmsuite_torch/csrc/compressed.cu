@@ -18,10 +18,10 @@
 // D FMAs of phase and four FMAs per direction; at 256 spots on a 1024^2
 // SLM that is 2.7e8 pairs, while the bytes (the basis and the two fields)
 // move in ~6 us. So f2n, n2f and fused_iter are bound by the rate at
-// which the SMs dispatch those instructions: fused_iter's bound in
-// PERF.md, 0.18 ms, counts the sincos as 24 f32 operations.
-// fused_iter_cached reads the (N, P) cos/sin cache instead, 2.15 GB at
-// that size, and is bound by bytes at ~0.64 ms.
+// which the SMs dispatch those instructions: their bounds in PERF.md
+// (0.15 ms for f2n and n2f, 0.18 for fused_iter) count the sincos as 24
+// f32 operations. fused_iter_cached reads the (N, P) cos/sin cache
+// instead, 2.15 GB at that size, and is bound by bytes at ~0.64 ms.
 //
 // The sincos. Phases reach hundreds of radians, and libdevice's sincosf
 // costs ~40-70 instructions a pair with its range reduction. The kernels
@@ -39,34 +39,43 @@
 // the H100, fused_iter at config 5 is within 2.9e-7 of the plain version
 // in float64 (max |diff| / max |float64|; the plain f32 version 3.6e-7), and
 // with phases up to 1e6 within 1.9e-7 (chip_smoke.py phase_compressed_parity).
+// f2n, n2f and fused_spots_kernel check the range once a chunk by a warp
+// vote (sincos_reduced_lanes, sincos_reduced_each), so the chunk's pairs
+// carry no branch and their latencies overlap; lanes on tail pixels and
+// pad spots take part with phase 0 and a zero weight.
 //
-// Design. Blocks take chunks of kBlockPixels pixels in parallel; each
-// block writes its (N,) partial sums, and spot_reduce sums them over the
-// blocks in a fixed order. No atomics: a run is repeatable bit for bit.
+// Design. Lanes hold what a pair reads most: n2f and fused_iter (up to
+// kWarpSpots = 256 spots) put lanes on spots, with the spots' sums (and
+// for D <= 4 their coefficients) in registers and the block's pixels'
+// basis staged once in shared memory as float4 groups of four terms, read
+// as broadcasts. n2f sums over pixels, so its loop needs no shuffle and no
+// barrier; fused_iter sums a pixel's nearfield over the lanes by shuffles
+// (its note below). f2n sums over spots, so its lanes sit on pixels, four
+// a thread, and each broadcast of a spot's coefficients and farfield
+// feeds four independent sums. Blocks take chunks of kBlockPixels pixels
+// in parallel (n2f also groups of kWarpSpots spots: any N runs); each
+// writes its (N,) partial sums, and spot_reduce sums them over the blocks
+// in a fixed order. No atomics: a run is repeatable bit for bit.
 //
-// fused_iter, for N <= kWarpSpots (256), is fused_spots_kernel: lanes on
-// spots, a spot's farfield and sums and a chunk's cos/sin in registers,
-// the nearfield of a pixel summed over the lanes by shuffles (its note
-// below). Its range check is one warp vote a chunk (sincos_reduced_lanes),
-// so the chunk's 32 pairs a lane carry no branch. 0.37 ms at config 5, 50%
-// of the row bound; the first structure below with the same sincos took
-// 0.75 ms, and with libdevice's sincosf 0.78 (PERF.md, section 6).
+// fused_iter beyond kWarpSpots spots runs as two launches, f2n with the
+// amplitude replacement, then n2f unnormalized (the wrapper composes
+// them): each pair then costs two sincos, but both kernels keep their
+// spots or pixels in registers and any N runs.
 //
-// n2f, fused_iter_cached and fused_iter beyond 256 spots are
-// `roundtrip_kernel`. Its first half has lanes on pixels and warp w on
-// spots w, w + 8, ...: it forms the cos/sin of each (spot, pixel) pair
-// (sincos_reduced, or a coalesced read of the cache) and, for the round
-// trips, the nearfield of the sub-chunk of 32 pixels, which the amplitude
-// replacement needs over all N spots. Its second half reduces the replaced
-// field (for n2f, the given nearfield) back onto the spots. It keeps the
-// sub-chunk's (N, 32) cos/sin in shared memory between the halves (66 KiB
-// at N = 256), so each pair costs one sincos or one read of the cache, and
-// lets each thread own whole spots in the second half, summing its 32
-// pixels from its row into registers, with no shuffle (rows are
+// fused_iter_cached is `roundtrip_kernel`. Its first half has lanes on
+// pixels and warp w on spots w, w + 8, ...: it reads the cos/sin of each
+// (spot, pixel) pair from the cache (coalesced) and forms the nearfield of
+// the sub-chunk of 32 pixels, which the amplitude replacement needs over
+// all N spots. Its second half reduces the replaced field back onto the
+// spots. It keeps the sub-chunk's (N, 32) cos/sin in shared memory between
+// the halves (66 KiB at N = 256), so each pair costs one read of the
+// cache, and lets each thread own whole spots in the second half, summing
+// its 32 pixels from its row into registers, with no shuffle (rows are
 // XOR-swizzled, so neither half has a bank conflict). When N is too large
-// to keep (`keep` false), the second half recomputes the sincos, or reads
-// the cache again, with lanes on pixels and a fixed shuffle butterfly per
-// spot.
+// to keep (`keep` false), the second half reads the cache again, with
+// lanes on pixels and a fixed shuffle butterfly per spot. It holds every
+// spot's farfield and sums in shared memory, which bounds N (the wrapper
+// checks).
 //
 // Launchers take raw pointers, sizes and a stream, allocate nothing, and
 // return cudaGetLastError().
@@ -83,6 +92,12 @@ constexpr int kSub = 32;              // pixels per sub-chunk: one per lane
 constexpr int kBlockPixels = 1024;    // pixels per block of the reductions
 constexpr int kSpotChunk = 512;       // spots staged at once by f2n
 constexpr size_t kKeepLimit = 160 * 1024;  // shared bytes for the kept cos/sin
+constexpr int kLaneSpots = 8;         // spots a lane (lanes on spots)
+constexpr int kWarpSpots = 32 * kLaneSpots;
+constexpr int kChunk = 4;             // pixels a warp of fused_iter takes at once
+constexpr int kN2fChunk = 2;          // pixels a warp of n2f takes at once
+constexpr int kPixelSpots = 8;        // spots f2n takes at once
+constexpr int kThreadPixels = 4;      // pixels an f2n thread sums
 
 // The period reduction of sincos_reduced (ops/cuda_compressed.py
 // `sincos_reduced_model` holds the same constants, and
@@ -136,24 +151,63 @@ __device__ __forceinline__ void sincos_reduced_lanes(const float (&x)[K], float 
   }
 }
 
-// Phase of spot n at the pixel whose basis values are b (coefficients
-// staged as coef[d * N + n]).
-__device__ __forceinline__ float spot_phase(const float* coef, int N, int n,
-                                            const float (&b)[kMaxD], int D) {
-  float phase = 0.f;
+// The same vote, handing each pair to f(k, sin, cos) as it is formed (so
+// that the caller need not hold the K pairs at once).
+template <int K, typename F>
+__device__ __forceinline__ void sincos_reduced_each(const float (&x)[K], F&& f) {
+  float m = 0.f;
 #pragma unroll
-  for (int d = 0; d < kMaxD; ++d) {
-    if (d >= D) break;
-    phase = fmaf(coef[d * N + n], b[d], phase);
+  for (int k = 0; k < K; ++k) m = fmaxf(m, fabsf(x[k]));
+  if (__any_sync(0xffffffffu, m > kReducedLimit)) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float s, c;
+      sincos_reduced(x[k], &s, &c);
+      f(k, s, c);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float s, c;
+      sincos_near(x[k], &s, &c);
+      f(k, s, c);
+    }
   }
-  return phase;
 }
 
-__device__ __forceinline__ void load_basis(const float* __restrict__ basis, int P,
-                                           int D, int p, float (&b)[kMaxD]) {
+// Terms 4q .. 4q + 3 of column i of a (D, n) row-major array as a float4:
+// zero past D and past n (tail pixels of the basis, pad spots of the
+// coefficients).
+__device__ __forceinline__ float4 terms4(const float* __restrict__ x, int n, int D, int i,
+                                         int q) {
+  float t[4];
 #pragma unroll
-  for (int d = 0; d < kMaxD; ++d) b[d] = (d < D && p < P) ? basis[(size_t)d * P + p] : 0.f;
+  for (int k = 0; k < 4; ++k) {
+    const int d = 4 * q + k;
+    t[k] = (d < D && i < n) ? x[(size_t)d * n + i] : 0.f;
+  }
+  return make_float4(t[0], t[1], t[2], t[3]);
 }
+
+// acc + a . b over the first T (1 to 4) of a float4's terms, one fmaf a term.
+template <int T>
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  if (T > 1) acc = fmaf(a.y, b.y, acc);
+  if (T > 2) acc = fmaf(a.z, b.z, acc);
+  if (T > 3) acc = fmaf(a.w, b.w, acc);
+  return acc;
+}
+
+// The kernels' term count for D terms: D itself up to 4 (one float4 group,
+// its products formed for those terms only), else D rounded up to whole
+// groups of four: DQ groups, each product over kPerGroup terms of a group.
+constexpr int terms_of(int D) { return D <= 4 ? D : 4 * ((D + 3) / 4); }
+template <int DT>
+struct Terms {
+  static constexpr int DQ = (DT + 3) / 4;
+  static constexpr int kPerGroup = DT < 4 ? DT : 4;
+};
 
 // Fixed-order sum over the 32 lanes; lane 0 holds the result.
 __device__ __forceinline__ void warp_sum2(float& a, float& b) {
@@ -194,59 +248,186 @@ __device__ __forceinline__ float2 amp_replace(float re, float im, const float* a
   return make_float2(a, 0.f);
 }
 
-// #14 f2n: one thread per pixel, spots staged in shared memory in chunks.
+// #14 f2n: lanes on pixels, kThreadPixels a thread (p, p + 256, ...), the
+// basis of each in registers as DQ float4 groups. The spots are staged in
+// shared memory kSpotChunk at a time (coefficients as float4 groups, the
+// farfield as (re, im); zero past N, so any N runs) and read as broadcasts,
+// kPixelSpots at once: each broadcast feeds kThreadPixels independent sums.
+// The phase is formed over the DT terms (terms_of) alone. The output is
+// written once, scaled by `scale`, or (replace) its amplitude replacement
+// amp nf/|nf|. At D = 3, 80 registers and sincosf's stack frame, no spill:
+// three blocks an SM.
+template <int DT>
 __global__ void __launch_bounds__(kThreads)
 f2n_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
            const float* __restrict__ coeffs, const float* __restrict__ basis,
-           int P, int N, int D, float scale, float* __restrict__ nfr,
-           float* __restrict__ nfi) {
-  extern __shared__ float smem[];  // coef[D][kSpotChunk], fr, fi
-  float* coef = smem;
-  float* fr = coef + D * kSpotChunk;
-  float* fi = fr + kSpotChunk;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  float b[kMaxD];
-  load_basis(basis, P, D, p, b);
-  float re = 0.f, im = 0.f;
+           const float* __restrict__ amp, int P, int N, int D, float scale, int replace,
+           float* __restrict__ nfr, float* __restrict__ nfi) {
+  constexpr int DQ = Terms<DT>::DQ, kT = Terms<DT>::kPerGroup;
+  constexpr int PIX = kThreadPixels, SPOTS = kPixelSpots;
+  extern __shared__ float4 smem4[];  // cf[kSpotChunk][DQ], ff[kSpotChunk]
+  float4* cf = smem4;
+  float2* ff = reinterpret_cast<float2*>(cf + kSpotChunk * DQ);
+  const int pb = blockIdx.x * kThreads * PIX + threadIdx.x;
+  float4 b[PIX][DQ];
+#pragma unroll
+  for (int c = 0; c < PIX; ++c)
+#pragma unroll
+    for (int q = 0; q < DQ; ++q) b[c][q] = terms4(basis, P, D, pb + kThreads * c, q);
+  float re[PIX], im[PIX];
+#pragma unroll
+  for (int c = 0; c < PIX; ++c) re[c] = im[c] = 0.f;
+  constexpr int kPairs = SPOTS * PIX;  // pair (j, c) at j * PIX + c
   for (int s0 = 0; s0 < N; s0 += kSpotChunk) {
     const int ns = min(kSpotChunk, N - s0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < ns; i += kThreads) {
-      for (int d = 0; d < D; ++d) coef[d * kSpotChunk + i] = coeffs[(size_t)d * N + s0 + i];
-      fr[i] = ffr[s0 + i];
-      fi[i] = ffi[s0 + i];
+    const int staged = (ns + SPOTS - 1) / SPOTS * SPOTS;
+    __syncthreads();  // the previous chunk is read
+    for (int i = threadIdx.x; i < staged; i += kThreads) {
+#pragma unroll
+      for (int q = 0; q < DQ; ++q) cf[i * DQ + q] = terms4(coeffs, N, D, s0 + i, q);
+      ff[i] = i < ns ? make_float2(ffr[s0 + i], ffi[s0 + i]) : make_float2(0.f, 0.f);
     }
     __syncthreads();
-    for (int n = 0; n < ns; ++n) {
-      float s, c;
-      sincos_reduced(spot_phase(coef, kSpotChunk, n, b, D), &s, &c);
-      re = fmaf(fr[n], c, fmaf(-fi[n], s, re));
-      im = fmaf(fr[n], s, fmaf(fi[n], c, im));
+    for (int n = 0; n < staged; n += SPOTS) {
+      float ph[kPairs];
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) ph[i] = 0.f;
+      float2 f[SPOTS];
+#pragma unroll
+      for (int j = 0; j < SPOTS; ++j) {
+        f[j] = ff[n + j];
+#pragma unroll
+        for (int q = 0; q < DQ; ++q) {
+          const float4 a = cf[(n + j) * DQ + q];
+#pragma unroll
+          for (int c = 0; c < PIX; ++c) ph[j * PIX + c] = dot4<kT>(a, b[c][q], ph[j * PIX + c]);
+        }
+      }
+      sincos_reduced_each(ph, [&](int i, float s, float co) {
+        const int j = i / PIX, c = i % PIX;
+        re[c] = fmaf(f[j].x, co, fmaf(-f[j].y, s, re[c]));
+        im[c] = fmaf(f[j].x, s, fmaf(f[j].y, co, im[c]));
+      });
     }
   }
-  if (p < P) {
-    nfr[p] = re * scale;
-    nfi[p] = im * scale;
+#pragma unroll
+  for (int c = 0; c < PIX; ++c) {
+    const int p = pb + kThreads * c;
+    if (p < P) {
+      const float2 o = replace ? amp_replace(re[c], im[c], amp, p, true)
+                               : make_float2(re[c] * scale, im[c] * scale);
+      nfr[p] = o.x;
+      nfi[p] = o.y;
+    }
   }
 }
 
-// #15 n2f (kExpand false), #16 fused_iter and #17 fused_iter_cached
-// (kExpand true): per block of kBlockPixels pixels, the (N,) partial sums
-// of e^{-i Phi} times the given nearfield (n2f) or times amp nf/|nf| of the
-// nearfield nf expanded from the farfield (the round trips). kCached reads
-// cos/sin from the (n_tiles, N8, T) cache; kKeep keeps the sub-chunk's cos/sin
-// in shared memory between the halves.
-template <bool kCached, bool kKeep, bool kExpand>
+// #15 n2f: lanes on spots. Block (x, y) takes pixels x kBlockPixels ..
+// and spots y kWarpSpots ..: each lane kLaneSpots spots (lane + 32 j),
+// whose sums stay in registers (and, for DQ = 1, their coefficients; for
+// more terms the coefficients are staged as conflict-free float4 rows
+// cf[q][spot]). The block's basis and nearfield are staged once and read
+// as broadcasts; each warp takes chunks of kN2fChunk pixels on its own,
+// with no shuffle and no barrier in the loop, and forms the phase over the
+// DT terms (terms_of) alone. Tail pixels have a zero basis and nearfield,
+// pad spots zero coefficients: both add nothing that is kept. At D = 3, 80
+// registers and sincosf's stack frame, no spill: three blocks an SM.
+template <int DT>
+__global__ void __launch_bounds__(kThreads, 3)
+n2f_kernel(const float* __restrict__ nfr, const float* __restrict__ nfi,
+           const float* __restrict__ coeffs, const float* __restrict__ basis, int P, int N,
+           int D, float* __restrict__ partials) {
+  constexpr int DQ = Terms<DT>::DQ, kT = Terms<DT>::kPerGroup, CHUNK = kN2fChunk;
+  // bs[kBlockPixels][DQ], nf[kBlockPixels], cf[DQ][kWarpSpots] (DQ > 1);
+  // after the loop the warps' sums red[kWarps][kWarpSpots] over bs.
+  extern __shared__ float4 smem4[];
+  float4* bs = smem4;
+  float2* nf = reinterpret_cast<float2*>(bs + kBlockPixels * DQ);
+  float4* cf = reinterpret_cast<float4*>(nf + kBlockPixels);
+  const int p0 = blockIdx.x * kBlockPixels;
+  const int np = min(kBlockPixels, P - p0);
+  const int n0 = blockIdx.y * kWarpSpots;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kBlockPixels * DQ; i += kThreads) {
+    const int p = i / DQ, q = i - p * DQ;
+    bs[i] = p < np ? terms4(basis + p0, P, D, p, q) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = threadIdx.x; i < kBlockPixels; i += kThreads)
+    nf[i] = i < np ? make_float2(nfr[p0 + i], nfi[p0 + i]) : make_float2(0.f, 0.f);
+  float4 a[kLaneSpots];
+  if constexpr (DQ == 1) {
+#pragma unroll
+    for (int j = 0; j < kLaneSpots; ++j) a[j] = terms4(coeffs, N, D, n0 + lane + 32 * j, 0);
+  } else {
+    for (int i = threadIdx.x; i < DQ * kWarpSpots; i += kThreads) {
+      const int q = i / kWarpSpots, n = i - q * kWarpSpots;
+      cf[i] = terms4(coeffs, N, D, n0 + n, q);
+    }
+  }
+  __syncthreads();
+
+  float acc_re[kLaneSpots], acc_im[kLaneSpots];
+#pragma unroll
+  for (int j = 0; j < kLaneSpots; ++j) acc_re[j] = acc_im[j] = 0.f;
+  constexpr int kPairs = kLaneSpots * CHUNK;  // pair (j, c) at j * CHUNK + c
+  for (int c0 = warp * CHUNK; c0 < np; c0 += kWarps * CHUNK) {
+    float ph[kPairs];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) ph[i] = 0.f;
+#pragma unroll
+    for (int q = 0; q < DQ; ++q) {
+      float4 bq[CHUNK];
+#pragma unroll
+      for (int c = 0; c < CHUNK; ++c) bq[c] = bs[(c0 + c) * DQ + q];
+#pragma unroll
+      for (int j = 0; j < kLaneSpots; ++j) {
+        float4 aj;
+        if constexpr (DQ == 1) aj = a[j];
+        else aj = cf[q * kWarpSpots + lane + 32 * j];
+#pragma unroll
+        for (int c = 0; c < CHUNK; ++c) ph[j * CHUNK + c] = dot4<kT>(aj, bq[c], ph[j * CHUNK + c]);
+      }
+    }
+    float2 v[CHUNK];
+#pragma unroll
+    for (int c = 0; c < CHUNK; ++c) v[c] = nf[c0 + c];
+    sincos_reduced_each(ph, [&](int i, float s, float co) {
+      const int j = i / CHUNK, c = i % CHUNK;
+      acc_re[j] = fmaf(co, v[c].x, fmaf(s, v[c].y, acc_re[j]));
+      acc_im[j] = fmaf(co, v[c].y, fmaf(-s, v[c].x, acc_im[j]));
+    });
+  }
+  // The warps' sums in a fixed order: red[kWarps][kWarpSpots] over bs.
+  __syncthreads();
+  float2* red = reinterpret_cast<float2*>(smem4);
+#pragma unroll
+  for (int j = 0; j < kLaneSpots; ++j)
+    red[warp * kWarpSpots + lane + 32 * j] = make_float2(acc_re[j], acc_im[j]);
+  __syncthreads();
+  for (int n = threadIdx.x; n < min(kWarpSpots, N - n0); n += kThreads) {
+    float2 v = make_float2(0.f, 0.f);
+    for (int w = 0; w < kWarps; ++w) {
+      v.x += red[w * kWarpSpots + n].x;
+      v.y += red[w * kWarpSpots + n].y;
+    }
+    partials[(size_t)blockIdx.x * N + n0 + n] = v.x;
+    partials[((size_t)gridDim.x + blockIdx.x) * N + n0 + n] = v.y;
+  }
+}
+
+// #17 fused_iter_cached: per block of kBlockPixels pixels, the (N,)
+// partial sums of e^{-i Phi} times amp nf/|nf| of the nearfield nf
+// expanded from the farfield, cos/sin read from the (n_tiles, N8, T)
+// cache; kKeep keeps the sub-chunk's cos/sin in shared memory between the
+// halves.
+template <bool kKeep>
 __global__ void __launch_bounds__(kThreads)
 roundtrip_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
-                 const float* __restrict__ nfr, const float* __restrict__ nfi,
-                 const float* __restrict__ coeffs, const float* __restrict__ basis,
                  const float* __restrict__ kc, const float* __restrict__ ks, int N8,
-                 int T, const float* __restrict__ amp, int P, int N, int D,
+                 int T, const float* __restrict__ amp, int P, int N,
                  float* __restrict__ partials) {
   // cs[N][kSub] (kKeep), u[kSub] as (re, im) pairs, then the floats
-  // part[2][kWarps][kSub], acc_re[N], acc_im[N], fr[N], fi[N] (kExpand),
-  // coef[D][N] (recompute).
+  // part[2][kWarps][kSub], acc_re[N], acc_im[N], fr[N], fi[N].
   extern __shared__ float4 smem4[];
   float2* cs = reinterpret_cast<float2*>(smem4);
   float2* u = cs + (kKeep ? (size_t)N * kSub : 0);
@@ -254,17 +435,12 @@ roundtrip_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
   float* acc_re = part + 2 * kWarps * kSub;
   float* acc_im = acc_re + N;
   float* fr = acc_im + N;
-  float* fi = fr + (kExpand ? N : 0);
-  float* coef = fi + (kExpand ? N : 0);
+  float* fi = fr + N;
   for (int i = threadIdx.x; i < N; i += kThreads) {
     acc_re[i] = acc_im[i] = 0.f;
-    if (kExpand) {
-      fr[i] = ffr[i];
-      fi[i] = ffi[i];
-    }
+    fr[i] = ffr[i];
+    fi[i] = ffi[i];
   }
-  if (!kCached)
-    for (int i = threadIdx.x; i < D * N; i += kThreads) coef[i] = coeffs[i];
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -272,50 +448,32 @@ roundtrip_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
   for (int base = p0; base < min(P, p0 + kBlockPixels); base += kSub) {
     const int p = base + lane;
     // The cache covers whole tiles, so its pad pixels (p >= P) are readable.
-    const size_t cache_off = kCached ? ((size_t)(p / T) * N8) * T + (p % T) : 0;
-    float b[kMaxD];
-    if (!kCached) load_basis(basis, P, D, p, b);
+    const size_t cache_off = ((size_t)(p / T) * N8) * T + (p % T);
 
     // First half: the warp's spots at this lane's pixel (unrolled so that
     // 16 cache loads per warp are in flight at once).
-    if (kExpand || kKeep) {
-      float nre = 0.f, nim = 0.f;
+    float nre = 0.f, nim = 0.f;
 #pragma unroll 8
-      for (int n = warp; n < N; n += kWarps) {
-        float s, c;
-        if (kCached) {
-          c = kc[cache_off + (size_t)n * T];
-          s = ks[cache_off + (size_t)n * T];
-        } else {
-          sincos_reduced(spot_phase(coef, N, n, b, D), &s, &c);
-        }
-        if (kKeep) cs[n * kSub + (lane ^ (n & (kSub - 1)))] = make_float2(c, s);
-        if (kExpand) {
-          nre = fmaf(fr[n], c, fmaf(-fi[n], s, nre));
-          nim = fmaf(fr[n], s, fmaf(fi[n], c, nim));
-        }
-      }
-      if (kExpand) {
-        part[warp * kSub + lane] = nre;
-        part[(kWarps + warp) * kSub + lane] = nim;
-      }
+    for (int n = warp; n < N; n += kWarps) {
+      const float c = kc[cache_off + (size_t)n * T], s = ks[cache_off + (size_t)n * T];
+      if (kKeep) cs[n * kSub + (lane ^ (n & (kSub - 1)))] = make_float2(c, s);
+      nre = fmaf(fr[n], c, fmaf(-fi[n], s, nre));
+      nim = fmaf(fr[n], s, fmaf(fi[n], c, nim));
     }
+    part[warp * kSub + lane] = nre;
+    part[(kWarps + warp) * kSub + lane] = nim;
     __syncthreads();
     if (warp == 0) {
-      if (kExpand) {
-        float re = 0.f, im = 0.f;
-        for (int w = 0; w < kWarps; ++w) {
-          re += part[w * kSub + lane];
-          im += part[(kWarps + w) * kSub + lane];
-        }
-        u[lane] = amp_replace(re, im, amp, p, p < P);
-      } else {
-        u[lane] = p < P ? make_float2(nfr[p], nfi[p]) : make_float2(0.f, 0.f);
+      float re = 0.f, im = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        re += part[w * kSub + lane];
+        im += part[(kWarps + w) * kSub + lane];
       }
+      u[lane] = amp_replace(re, im, amp, p, p < P);
     }
     __syncthreads();
 
-    // Second half: the field of the sub-chunk back onto the spots.
+    // Second half: the replaced field of the sub-chunk back onto the spots.
     if (kKeep) {
       for (int n = threadIdx.x; n < N; n += kThreads) {
         const float2* row = cs + n * kSub;
@@ -333,13 +491,7 @@ roundtrip_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
     } else {
       const float2 v = u[lane];
       for (int n = warp; n < N; n += kWarps) {
-        float s, c;
-        if (kCached) {
-          c = kc[cache_off + (size_t)n * T];
-          s = ks[cache_off + (size_t)n * T];
-        } else {
-          sincos_reduced(spot_phase(coef, N, n, b, D), &s, &c);
-        }
+        const float c = kc[cache_off + (size_t)n * T], s = ks[cache_off + (size_t)n * T];
         float re = fmaf(c, v.x, s * v.y), im = fmaf(c, v.y, -s * v.x);
         warp_sum2(re, im);
         if (lane == 0) {
@@ -370,10 +522,6 @@ roundtrip_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
 // a fixed order at the end. 128 registers and sincosf's 32-byte stack
 // frame, no spill: two blocks an SM. Spots past N have a zero farfield and
 // coefficients and add nothing.
-constexpr int kLaneSpots = 8;
-constexpr int kWarpSpots = 32 * kLaneSpots;
-constexpr int kChunk = 4;
-
 __global__ void __launch_bounds__(kThreads)
 fused_spots_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
                    const float* __restrict__ coeffs, const float* __restrict__ basis,
@@ -552,39 +700,85 @@ cudaError_t finish(const float* partials, int n_blocks, int N, float scale,
   return cudaGetLastError();
 }
 
-// Launches roundtrip_kernel (keeping the cos/sin when it fits) and the
-// fixed-order spot_reduce that finishes it, scaled by `scale`.
-template <bool kCached, bool kExpand>
-cudaError_t launch_roundtrip(const float* ffr, const float* ffi, const float* nfr,
-                             const float* nfi, const float* coeffs, const float* basis,
-                             const float* kc, const float* ks, int N8, int T,
-                             const float* amp, int P, int N, int D, float scale,
-                             float* partials, float* out_re, float* out_im,
-                             cudaStream_t stream) {
-  const size_t fixed = (size_t)kSub * sizeof(float2) +
-                       (size_t)(2 * kWarps * kSub + 2 * N + (kExpand ? 2 * N : 0) +
-                                (kCached ? 0 : D * N)) * sizeof(float);
+// Calls f.template run<DT>() for D's term count (terms_of).
+template <typename F>
+cudaError_t with_terms(int D, const F& f) {
+  switch (terms_of(D)) {
+    case 1: return f.template run<1>();
+    case 2: return f.template run<2>();
+    case 3: return f.template run<3>();
+    case 4: return f.template run<4>();
+    case 8: return f.template run<8>();
+    case 12: return f.template run<12>();
+    case 16: return f.template run<16>();
+  }
+  return cudaErrorInvalidValue;
+}
+
+struct F2nLaunch {
+  const float *ffr, *ffi, *coeffs, *basis, *amp;
+  int P, N, D;
+  float scale;
+  int replace;
+  float *nfr, *nfi;
+  cudaStream_t stream;
+
+  template <int DT>
+  cudaError_t run() const {
+    const size_t smem = (size_t)kSpotChunk * (Terms<DT>::DQ * sizeof(float4) + sizeof(float2));
+    cudaError_t err = set_smem(f2n_kernel<DT>, smem);
+    if (err != cudaSuccess) return err;
+    const int per_block = kThreads * kThreadPixels;
+    f2n_kernel<DT><<<(P + per_block - 1) / per_block, kThreads, smem, stream>>>(
+        ffr, ffi, coeffs, basis, amp, P, N, D, scale, replace, nfr, nfi);
+    return cudaGetLastError();
+  }
+};
+
+struct N2fLaunch {
+  const float *nfr, *nfi, *coeffs, *basis;
+  int P, N, D;
+  float* partials;
+  cudaStream_t stream;
+
+  template <int DT>
+  cudaError_t run() const {
+    constexpr int DQ = Terms<DT>::DQ;
+    const size_t smem = (size_t)kBlockPixels * (DQ * sizeof(float4) + sizeof(float2)) +
+                        (DQ > 1 ? (size_t)DQ * kWarpSpots * sizeof(float4) : 0);
+    cudaError_t err = set_smem(n2f_kernel<DT>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(n_blocks_of(P), (N + kWarpSpots - 1) / kWarpSpots);
+    n2f_kernel<DT><<<grid, kThreads, smem, stream>>>(nfr, nfi, coeffs, basis, P, N, D, partials);
+    return cudaGetLastError();
+  }
+};
+
+// fused_iter_cached: roundtrip_kernel (keeping the cos/sin when it fits)
+// and the fixed-order spot_reduce that finishes it.
+cudaError_t launch_cached(const float* ffr, const float* ffi, const float* kc, const float* ks,
+                          int N8, int T, const float* amp, int P, int N, float* partials,
+                          float* out_re, float* out_im, cudaStream_t stream) {
+  const size_t fixed =
+      (size_t)kSub * sizeof(float2) + (size_t)(2 * kWarps * kSub + 4 * N) * sizeof(float);
   const size_t kept = fixed + (size_t)N * kSub * sizeof(float2);
   const bool keep = kept <= kKeepLimit;
   const size_t smem = keep ? kept : fixed;
-  auto kernel = keep ? roundtrip_kernel<kCached, true, kExpand>
-                     : roundtrip_kernel<kCached, false, kExpand>;
+  auto kernel = keep ? roundtrip_kernel<true> : roundtrip_kernel<false>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n_blocks = n_blocks_of(P);
-  kernel<<<n_blocks, kThreads, smem, stream>>>(ffr, ffi, nfr, nfi, coeffs, basis, kc, ks,
-                                               N8, T, amp, P, N, D, partials);
-  return finish(partials, n_blocks, N, scale, out_re, out_im, stream);
+  kernel<<<n_blocks, kThreads, smem, stream>>>(ffr, ffi, kc, ks, N8, T, amp, P, N, partials);
+  return finish(partials, n_blocks, N, 1.f, out_re, out_im, stream);
 }
 
-// fused_iter: fused_spots_kernel where N <= kWarpSpots, else roundtrip_kernel.
+// fused_iter up to kWarpSpots spots: fused_spots_kernel and spot_reduce.
+// Beyond, the wrapper runs the round trip as f2n with the amplitude
+// replacement, then n2f unnormalized.
 cudaError_t launch_fused(const float* ffr, const float* ffi, const float* coeffs,
                          const float* basis, const float* amp, int P, int N, int D,
                          float* partials, float* out_re, float* out_im, cudaStream_t stream) {
-  if (N > kWarpSpots)
-    return launch_roundtrip<false, true>(ffr, ffi, nullptr, nullptr, coeffs, basis, nullptr,
-                                         nullptr, 0, 1, amp, P, N, D, 1.f, partials, out_re,
-                                         out_im, stream);
+  if (N > kWarpSpots) return cudaErrorInvalidValue;
   const size_t smem = (size_t)(kBlockPixels + kWarpSpots) * ((D + 3) / 4) * sizeof(float4);
   cudaError_t err = set_smem(fused_spots_kernel, smem);
   if (err != cudaSuccess) return err;
@@ -600,23 +794,25 @@ using namespace slm_cmp;
 
 extern "C" {
 
+// f2n: the nearfield times `scale`, or (replace != 0) its amplitude
+// replacement amp nf/|nf| (amp null: unit amplitude).
 int slm_cmp_f2n(const float* ffr, const float* ffi, const float* coeffs,
-                const float* basis, int P, int N, int D, float scale, float* nfr,
-                float* nfi, cudaStream_t stream) {
-  const size_t smem = (size_t)(D + 2) * kSpotChunk * sizeof(float);
-  f2n_kernel<<<(P + kThreads - 1) / kThreads, kThreads, smem, stream>>>(
-      ffr, ffi, coeffs, basis, P, N, D, scale, nfr, nfi);
-  return (int)cudaGetLastError();
+                const float* basis, const float* amp, int P, int N, int D, float scale,
+                int replace, float* nfr, float* nfi, cudaStream_t stream) {
+  return (int)with_terms(D, F2nLaunch{ffr, ffi, coeffs, basis, amp, P, N, D, scale, replace,
+                                      nfr, nfi, stream});
 }
 
+// n2f: the (N,) farfield sum times `scale`, divided by its norm where
+// `normalize` != 0.
 int slm_cmp_n2f(const float* nfr, const float* nfi, const float* coeffs,
-                const float* basis, int P, int N, int D, float scale,
-                float* partials, float* out_re, float* out_im,
-                cudaStream_t stream) {
-  cudaError_t err = launch_roundtrip<false, false>(
-      nullptr, nullptr, nfr, nfi, coeffs, basis, nullptr, nullptr, 0, 1, nullptr, P, N, D,
-      scale, partials, out_re, out_im, stream);
+                const float* basis, int P, int N, int D, float scale, int normalize,
+                float* partials, float* out_re, float* out_im, cudaStream_t stream) {
+  cudaError_t err =
+      with_terms(D, N2fLaunch{nfr, nfi, coeffs, basis, P, N, D, partials, stream});
   if (err != cudaSuccess) return (int)err;
+  err = finish(partials, n_blocks_of(P), N, scale, out_re, out_im, stream);
+  if (err != cudaSuccess || !normalize) return (int)err;
   unit_norm_kernel<<<1, kThreads, 0, stream>>>(out_re, out_im, N);
   return (int)cudaGetLastError();
 }
@@ -633,11 +829,12 @@ int slm_cmp_fused_cached(const float* ffr, const float* ffi, const float* kc,
                          const float* ks, int N8, int T, const float* amp, int P,
                          int N, float* partials, float* out_re, float* out_im,
                          cudaStream_t stream) {
-  return (int)launch_roundtrip<true, true>(ffr, ffi, nullptr, nullptr, nullptr, nullptr,
-                                           kc, ks, N8, T, amp, P, N, 0, 1.f, partials,
-                                           out_re, out_im, stream);
+  return (int)launch_cached(ffr, ffi, kc, ks, N8, T, amp, P, N, partials, out_re, out_im,
+                            stream);
 }
 
 int slm_cmp_block_pixels() { return kBlockPixels; }
+
+int slm_cmp_fused_spots() { return kWarpSpots; }
 
 }  // extern "C"

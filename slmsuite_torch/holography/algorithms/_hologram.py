@@ -18,12 +18,14 @@ import numpy as np
 import torch
 
 from slmsuite_torch import resolve_device
+from slmsuite_torch.holography import analysis
 from slmsuite_torch.holography.algorithms._header import (
     ALGORITHM_DEFAULTS,
     FEEDBACK_OPTIONS,
 )
 from slmsuite_torch.holography.algorithms._stats import _HologramStats
 from slmsuite_torch.holography.toolbox import REAL_TYPES
+from slmsuite_torch.holography.toolbox import phase as tphase
 from slmsuite_torch.ops import engine as _engine
 from slmsuite_torch.ops import propagation as _prop
 
@@ -336,7 +338,10 @@ class Hologram(_HologramStats):
     def reset_phase(self, custom_phase=None, random_phase=None, quadratic_phase=None):
         r"""
         Reset :attr:`phase` to ``custom_phase``, or to (scaled) uniform
-        random phase from numpy's global generator.
+        random phase from numpy's global generator plus, with
+        ``quadratic_phase`` (a scaling of the lens; the flag of the same name
+        by default), the analytic blaze and lens of
+        :meth:`_get_quadratic_initial_phase`.
         """
         if custom_phase is not None:
             custom_phase = np.asarray(custom_phase, dtype=self.dtype)
@@ -349,15 +354,12 @@ class Hologram(_HologramStats):
 
         if quadratic_phase is None:
             quadratic_phase = self.flags.get("quadratic_phase", False)
-        if quadratic_phase:
-            raise NotImplementedError(
-                "The quadratic initial phase comes with the analysis helpers "
-                "(ROADMAP.md queue 1, item 12)."
-            )
         if random_phase is None:
             random_phase = self.flags.get("random_phase", 1)
 
         phase = np.zeros(self.slm_shape, dtype=self.dtype)
+        if quadratic_phase:
+            phase += self._get_quadratic_initial_phase(quadratic_phase)
         if random_phase:
             phase += random_phase * np.random.uniform(
                 -np.pi, np.pi, self.slm_shape
@@ -539,6 +541,46 @@ class Hologram(_HologramStats):
         self.amp_ff = amp_ff
         self._phase_ff_folded = theta
         self._midloop_cleaning()
+
+    # ------------------------------------------------------------------
+    # The quadratic initial phase (slmsuite_tpu _hologram.py:825-858).
+    # ------------------------------------------------------------------
+
+    def _get_target_moments_knm_norm(self):
+        """First/second moments of the target in normalized knm space."""
+        target = np.nan_to_num(np.asarray(self.target))
+        center_knm = analysis.image_positions(target, nansum=True)
+        std_knm = np.sqrt(
+            analysis.image_variances(target, centers=center_knm, nansum=True)[:2, 0]
+        )
+        shape = np.flip(self.shape).astype(float)
+        return np.squeeze(center_knm) / shape, np.squeeze(std_knm) / shape
+
+    def _get_quadratic_initial_phase(self, scaling=1):
+        """The blaze toward the target's centroid plus the lens that spreads
+        the source over the target's extent (host numpy)."""
+        amp = self.amp
+        if np.isscalar(amp):
+            amp = np.ones(self.slm_shape)
+        std_amp = np.sqrt(analysis.image_variances(np.asarray(amp))[:2, 0])
+        slm_shape = np.flip(self.slm_shape).astype(float)
+        std_amp = std_amp / slm_shape
+
+        center_knm_norm, std_knm_norm = self._get_target_moments_knm_norm()
+
+        grid = analysis._generate_grid(self.slm_shape[1], self.slm_shape[0], centered=True)
+        grid = [
+            grid[0].astype(self.dtype) / self.slm_shape[1],
+            grid[1].astype(self.dtype) / self.slm_shape[0],
+        ]
+        # A target of no extent along an axis (one spot, or a line) has no
+        # focal power there (a flat phase), not an infinite one.
+        with np.errstate(divide="ignore"):
+            focal = np.reciprocal(scaling * slm_shape * std_knm_norm / std_amp)
+        return (
+            tphase.blaze(grid, slm_shape * center_knm_norm)
+            + tphase.lens(grid, focal)
+        ).astype(self.dtype)
 
     # ------------------------------------------------------------------
     # Optimization.

@@ -946,6 +946,29 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         self.amp_ff = torch.sqrt(ff_re**2 + ff_im**2).cpu().numpy()
         self._phase_ff_folded = torch.atan2(ff_im, ff_re).cpu().numpy()
 
+    def _get_target_moments_knm_norm(self):
+        """First/second moments of the spot ensemble in normalized knm
+        (the quadratic initial phase; slmsuite_tpu _spots.py:1561)."""
+        target = np.nan_to_num(np.asarray(self.target, dtype=float))
+        target = target.reshape(1, -1, 1)
+
+        spot_knm_norm = toolbox.convert_vector(
+            self.spot_kxy[:2, :],
+            from_units="kxy",
+            to_units="knm",
+            hardware=self.cameraslm,
+            shape=(1, 1),
+        )
+        grid = (
+            spot_knm_norm[0, :].reshape(-1, 1) - 0.5,
+            spot_knm_norm[1, :].reshape(-1, 1) - 0.5,
+        )
+        center = analysis.image_positions(target, grid=grid, nansum=True)
+        std = np.sqrt(
+            analysis.image_variances(target, centers=center, grid=grid, nansum=True)[:2, 0]
+        )
+        return np.squeeze(center), np.squeeze(std)
+
     def optimize_cg(self, *args, **kwargs):
         """Gradient descent through the compressed transform."""
         raise NotImplementedError(

@@ -1,14 +1,15 @@
 r"""
 Image analysis on the host (the port's copy of what the simulated rig
 needs from :mod:`slmsuite_tpu.holography.analysis`; numpy and scipy):
-region extraction (:meth:`take`), background removal and first moments,
+region extraction (:meth:`take`), background removal, first and second
+moments (the second for the quadratic initial phase of the holograms),
 affine fitting, and the spot-lattice detection behind the Fourier
 calibration (:meth:`blob_array_detect`).
 
 ``cv2`` is imported inside :meth:`blob_detect` and the helpers of
 :meth:`blob_array_detect` only: everything else here, and every path that
 runs on a machine without OpenCV, needs numpy and scipy alone. The image
-fits, the second moments, the phase-image operations and the plots of the
+fits, the phase-image operations and the plots of the
 JAX package's module are not copied.
 """
 
@@ -28,6 +29,8 @@ __all__ = [
     "image_normalization",
     "image_normalize",
     "image_positions",
+    "image_centroids",
+    "image_variances",
     "fit_affine",
     "blob_detect",
     "blob_array_detect",
@@ -318,6 +321,30 @@ def image_positions(images, grid=None, normalize=True, nansum=False):
             image_moment(images, (0, 1), grid=grid, normalize=False, nansum=nansum),
         )
     )
+
+
+def image_centroids(images, grid=None, normalize=True, nansum=False):
+    """Alias for :meth:`image_positions`."""
+    return image_positions(images, grid, normalize, nansum)
+
+
+def image_variances(images, centers=None, grid=None, normalize=True, nansum=False,
+                    exclude_shear=False):
+    r"""
+    Second central moments :math:`(M_{20}, M_{02}, M_{11})` per image;
+    shape ``(3, N)`` (or ``(2, N)`` with ``exclude_shear``).
+    """
+    if normalize:
+        images = image_normalize(images, nansum=nansum)
+    if centers is None:
+        centers = image_positions(images, normalize=False, nansum=nansum)
+
+    m20 = image_moment(images, (2, 0), centers=centers, grid=grid, normalize=False, nansum=nansum)
+    m02 = image_moment(images, (0, 2), centers=centers, grid=grid, normalize=False, nansum=nansum)
+    if exclude_shear:
+        return np.vstack((m20, m02))
+    m11 = image_moment(images, (1, 1), centers=centers, grid=grid, normalize=False, nansum=nansum)
+    return np.vstack((m20, m02, m11))
 
 
 def fit_affine(x, y, guess_affine=None, plot=False):

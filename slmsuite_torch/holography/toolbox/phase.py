@@ -1,15 +1,72 @@
 r"""
-Zernike polynomials on an SLM grid: the part of
-:mod:`slmsuite_tpu.holography.toolbox.phase` that the compressed spot
-hologram needs (numpy and scipy only). Polynomials are evaluated by their
-cached Cantor-monomial expansion and normalized to peak-to-valley 2 on the
-unit pupil.
+Phase patterns on an SLM grid: the part of
+:mod:`slmsuite_tpu.holography.toolbox.phase` that the holograms need
+(numpy and scipy only): the blazed grating and the lens of the quadratic
+initial phase, and the Zernike polynomials of the compressed spot
+hologram. Polynomials are evaluated by their cached Cantor-monomial
+expansion and normalized to peak-to-valley 2 on the unit pupil.
 """
 
 import numpy as np
 from scipy.special import factorial
 
-from slmsuite_torch.holography.toolbox import _process_grid
+from slmsuite_torch.holography.toolbox import REAL_TYPES, _process_grid
+
+
+def blaze(grid, vector=(0, 0)):
+    r"""
+    Blazed grating (linear phase ramp) toward ``vector`` in k-space:
+    :math:`\phi(\vec{x}) = 2\pi\,\vec{k}\cdot\vec{x}`. A third vector
+    component adds a normalized-focal-power lens term
+    :math:`\pi k_z |\vec{x}|^2`.
+    """
+    x_grid, y_grid = _process_grid(grid)
+
+    if vector[0] == 0 and vector[1] == 0:
+        result = np.zeros_like(x_grid)
+    elif vector[1] == 0:
+        result = (2 * np.pi * vector[0]) * x_grid
+    elif vector[0] == 0:
+        result = (2 * np.pi * vector[1]) * y_grid
+    else:
+        result = (2 * np.pi * vector[0]) * x_grid + (2 * np.pi * vector[1]) * y_grid
+
+    if len(vector) > 2:
+        result = result + (np.pi * vector[2]) * (np.square(x_grid) + np.square(y_grid))
+
+    return result
+
+
+def _parse_focal_length(f):
+    """Normalize a focal length argument to a 2-element array."""
+    if isinstance(f, REAL_TYPES):
+        f = [f, f]
+    if isinstance(f, (list, tuple, np.ndarray)):
+        f = np.squeeze(f)
+        if f.size != 2:
+            raise ValueError(f"Expected two terms in focal list. Found {f}.")
+        if np.any(f == 0):
+            raise ValueError(f"Cannot interpret a focal length of zero. Found {f}.")
+    return f
+
+
+def lens(grid, f=(np.inf, np.inf)):
+    r"""
+    Thin parabolic lens
+    :math:`\phi(x, y) = \pi[x^2/f_x + y^2/f_y]`
+    with focal length(s) in normalized :math:`x/\lambda` units.
+    """
+    x_grid, y_grid = _process_grid(grid)
+    f = _parse_focal_length(f)
+
+    fx_finite, fy_finite = np.isfinite(f[0]), np.isfinite(f[1])
+    if fx_finite and fy_finite:
+        return (np.pi / f[0]) * np.square(x_grid) + (np.pi / f[1]) * np.square(y_grid)
+    if fx_finite:
+        return (np.pi / f[0]) * np.square(x_grid)
+    if fy_finite:
+        return (np.pi / f[1]) * np.square(y_grid)
+    return np.zeros_like(x_grid)
 
 
 def _ansi_to_radial(index):

@@ -16,7 +16,7 @@ with :math:`B` the ``(D, P)`` Zernike basis on the SLM grid
 coefficients. Pairs are real ``(re, im)`` tensors.
 
 The underscored functions are the plain PyTorch versions of the CUDA
-kernels in :mod:`slmsuite_torch.ops.cuda_compressed`, on pixel tiles of
+kernels in :mod:`slmsuite_torch.ops.cuda_compressed`, on pixel tiles of at most
 :data:`PIXEL_TILE`. The dispatchers :meth:`farfield_to_nearfield`,
 :meth:`nearfield_to_farfield`, :meth:`fused_iteration` and
 :meth:`fused_iteration_cached` take the plain versions for CPU tensors and
@@ -99,15 +99,21 @@ def _pad_to(x, size, dim):
     return torch.nn.functional.pad(x, widths)
 
 
-def _n_tiles(P):
-    return -(-P // PIXEL_TILE)
+def _n_tiles(P, tile=PIXEL_TILE):
+    return -(-P // tile)
 
 
-def _basis_tiles(basis):
-    """``(n_tiles, D, PIXEL_TILE)``, zero-padded pixels."""
+def _transform_tile(P):
+    """Pixel-tile length of the plain transforms: :data:`PIXEL_TILE`, or
+    ``P`` where that is shorter (the tile's pad pixels add nothing)."""
+    return min(PIXEL_TILE, P)
+
+
+def _basis_tiles(basis, tile=PIXEL_TILE):
+    """``(n_tiles, D, tile)``, zero-padded pixels."""
     D, P = basis.shape
-    n = _n_tiles(P)
-    return _pad_to(basis, n * PIXEL_TILE, 1).reshape(D, n, PIXEL_TILE).transpose(0, 1)
+    n = _n_tiles(P, tile)
+    return _pad_to(basis, n * tile, 1).reshape(D, n, tile).transpose(0, 1)
 
 
 def _pixel_tiles(x, n_tiles, tile=PIXEL_TILE):
@@ -140,30 +146,39 @@ def _amp_replace(re, im, amp, valid):
     return torch.where(on, re * inv, scale), torch.where(on, im * inv, 0.0)
 
 
-def _farfield_to_nearfield(ff_re, ff_im, coeffs, basis):
-    """Plain version of :meth:`farfield_to_nearfield`."""
+def _farfield_to_nearfield(ff_re, ff_im, coeffs, basis, amp=None):
+    """Plain version of :meth:`farfield_to_nearfield`; given ``amp`` (a
+    scalar or ``(P,)``), the amplitude replacement ``amp nf/|nf|`` of the
+    unscaled sum instead (scalar: unit amplitude), as ``cuda_compressed.f2n``
+    takes it."""
     P = basis.shape[1]
-    scale = 1.0 / np.sqrt(P)
+    scale = 1.0 / np.sqrt(P) if amp is None else 1.0
     out_re, out_im = [], []
-    for basis_tile in _basis_tiles(basis):
+    for basis_tile in _basis_tiles(basis, _transform_tile(P)):
         cos, sin = _tile_sincos(coeffs, basis_tile)
         out_re.append((ff_re @ cos - ff_im @ sin) * scale)
         out_im.append((ff_re @ sin + ff_im @ cos) * scale)
-    return torch.cat(out_re)[:P], torch.cat(out_im)[:P]
+    re, im = torch.cat(out_re)[:P], torch.cat(out_im)[:P]
+    if amp is None:
+        return re, im
+    return _amp_replace(re, im, None if _is_scalar(amp) else amp, 1.0)
 
 
-def _nearfield_to_farfield_raw(nf_re, nf_im, coeffs, basis):
-    """The unnormalized ``(N,)`` overlap, ``P^-1/2 sum_p e^{-i Phi} nf``."""
+def _nearfield_to_farfield_raw(nf_re, nf_im, coeffs, basis, scale=None):
+    """The unnormalized ``(N,)`` overlap ``scale sum_p e^{-i Phi} nf``,
+    ``scale`` by default ``P^-1/2``."""
     P = basis.shape[1]
-    n = _n_tiles(P)
-    re_t, im_t = _pixel_tiles(nf_re, n), _pixel_tiles(nf_im, n)
+    tile = _transform_tile(P)
+    n = _n_tiles(P, tile)
+    re_t, im_t = _pixel_tiles(nf_re, n, tile), _pixel_tiles(nf_im, n, tile)
     acc_re = torch.zeros(coeffs.shape[1], dtype=torch.float32, device=basis.device)
     acc_im = torch.zeros_like(acc_re)
-    for t, basis_tile in enumerate(_basis_tiles(basis)):
+    for t, basis_tile in enumerate(_basis_tiles(basis, tile)):
         cos, sin = _tile_sincos(coeffs, basis_tile)
         acc_re = acc_re + cos @ re_t[t] + sin @ im_t[t]
         acc_im = acc_im + cos @ im_t[t] - sin @ re_t[t]
-    scale = 1.0 / np.sqrt(P)
+    if scale is None:
+        scale = 1.0 / np.sqrt(P)
     return acc_re * scale, acc_im * scale
 
 
@@ -172,8 +187,12 @@ def _unit(re, im):
     return re / norm, im / norm
 
 
-def _nearfield_to_farfield(nf_re, nf_im, coeffs, basis):
-    """Plain version of :meth:`nearfield_to_farfield`."""
+def _nearfield_to_farfield(nf_re, nf_im, coeffs, basis, normalize=True):
+    """Plain version of :meth:`nearfield_to_farfield`; ``normalize`` False
+    gives the sum ``sum_p e^{-i Phi} nf`` itself, neither scaled nor
+    normalized, as ``cuda_compressed.n2f`` takes it."""
+    if not normalize:
+        return _nearfield_to_farfield_raw(nf_re, nf_im, coeffs, basis, scale=1.0)
     return _unit(*_nearfield_to_farfield_raw(nf_re, nf_im, coeffs, basis))
 
 
@@ -245,12 +264,13 @@ def _fused_iteration(ff_re, ff_im, coeffs, basis, amp):
     -> amp nf/|nf| -> ff' on one phase and sincos evaluation per tile,
     unnormalized (no ``P^-1/2`` scales)."""
     P = basis.shape[1]
-    n = _n_tiles(P)
-    valid = _valid_tiles(P, n, PIXEL_TILE, basis.device)
-    amp_t = None if _is_scalar(amp) else _pixel_tiles(amp, n)
+    tile = _transform_tile(P)
+    n = _n_tiles(P, tile)
+    valid = _valid_tiles(P, n, tile, basis.device)
+    amp_t = None if _is_scalar(amp) else _pixel_tiles(amp, n, tile)
     acc_re = torch.zeros(coeffs.shape[1], dtype=torch.float32, device=basis.device)
     acc_im = torch.zeros_like(acc_re)
-    for t, basis_tile in enumerate(_basis_tiles(basis)):
+    for t, basis_tile in enumerate(_basis_tiles(basis, tile)):
         cos, sin = _tile_sincos(coeffs, basis_tile)
         fr, fi = _roundtrip_tile(ff_re, ff_im, cos, sin,
                                  None if amp_t is None else amp_t[t], valid[t])

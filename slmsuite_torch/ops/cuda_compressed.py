@@ -6,11 +6,14 @@ kernels by :func:`slmsuite_torch.ops.cuda_fft.build` on the first launch
 (importing this module builds nothing).
 
 Each wrapper checks its inputs (CUDA, float32, contiguous, consistent
-lengths, at most 16 Zernike terms, a spot count whose shared memory fits)
-and raises on anything else, allocates its outputs and the per-block
-partials, launches on the current stream, raises if the launcher reports
-an error, and counts its call in :data:`LAUNCHES` (one per call, for the
-kernel and the fixed-order passes that finish it).
+lengths, at most 16 Zernike terms; ``fused_iter_cached`` a spot count
+whose shared memory fits) and raises on anything else, allocates its
+outputs and the per-block partials, launches on the current stream,
+raises if the launcher reports an error, and counts its call in
+:data:`LAUNCHES` (one per call, for the kernel and the fixed-order passes
+that finish it). ``f2n`` and ``n2f`` take any spot count; ``fused_iter``
+beyond the spots of its kernel's warp (256) runs as the two of them (each
+counted).
 
 The plain PyTorch version of each kernel is the underscored function of
 the same name in :mod:`slmsuite_torch.ops.compressed`. The kernels' sincos
@@ -37,11 +40,12 @@ _SMEM_LIMIT = 227 * 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "slm_cmp_f2n": [_P] * 4 + [_I, _I, _I, _F, _P, _P, _P],
-    "slm_cmp_n2f": [_P] * 4 + [_I, _I, _I, _F, _P, _P, _P, _P],
+    "slm_cmp_f2n": [_P] * 5 + [_I, _I, _I, _F, _I, _P, _P, _P],
+    "slm_cmp_n2f": [_P] * 4 + [_I, _I, _I, _F, _I, _P, _P, _P, _P],
     "slm_cmp_fused": [_P] * 5 + [_I, _I, _I, _P, _P, _P, _P],
     "slm_cmp_fused_cached": [_P] * 4 + [_I, _I, _P, _I, _I, _P, _P, _P, _P],
     "slm_cmp_block_pixels": [],
+    "slm_cmp_fused_spots": [],
 }
 
 _BOUND = None
@@ -125,8 +129,10 @@ def _check_transform(ff_or_nf, coeffs, basis):
     return D, N, basis.shape[1]
 
 
-def _check_spots(N, floats_per_spot):
-    if N < 1 or floats_per_spot * N * 4 + 4096 > _SMEM_LIMIT:
+def _check_spots(N):
+    """``N`` spots' farfield and sums (four floats a spot) must fit the
+    shared memory of a block of ``roundtrip_kernel``."""
+    if N < 1 or 4 * N * 4 + 4096 > _SMEM_LIMIT:
         raise ValueError(f"{N} spots do not fit the kernels' shared memory.")
 
 
@@ -151,33 +157,41 @@ def _out(N, like):
         N, dtype=torch.float32, device=like.device)
 
 
-def f2n(ff_re, ff_im, coeffs, basis):
-    """#14: the ``(P,)`` nearfield pair ``P^-1/2 sum_n ff[n] e^{i Phi[n, p]}``."""
+def f2n(ff_re, ff_im, coeffs, basis, amp=None):
+    """#14: the ``(P,)`` nearfield pair ``P^-1/2 sum_n ff[n] e^{i Phi[n, p]}``;
+    given ``amp`` (a scalar or ``(P,)``), the amplitude replacement ``amp
+    nf/|nf|`` of the sum instead (scalar: unit amplitude), the first half
+    of :meth:`fused_iter` past its kernels' shared memory. Any spot count."""
     D, N, P = _check_transform((ff_re, ff_im), coeffs, basis)
     if ff_re.shape != (N,) or ff_im.shape != (N,):
         raise ValueError(f"The farfield must have {N} spots.")
+    replace = amp is not None
+    amp_plane = _amp_plane(amp, P) if replace else None
     nfr = torch.empty(P, dtype=torch.float32, device=basis.device)
     nfi = torch.empty_like(nfr)
     rc = _lib().slm_cmp_f2n(_ptr(ff_re), _ptr(ff_im), _ptr(coeffs), _ptr(basis),
-                            P, N, D, float(P ** -0.5), _ptr(nfr), _ptr(nfi),
-                            cuda_fft._stream())
+                            _ptr(amp_plane), P, N, D, float(P ** -0.5), int(replace),
+                            _ptr(nfr), _ptr(nfi), cuda_fft._stream())
     cuda_fft._raise_on(rc, "f2n")
     LAUNCHES["f2n"] += 1
     return nfr, nfi
 
 
-def n2f(nf_re, nf_im, coeffs, basis):
+def n2f(nf_re, nf_im, coeffs, basis, normalize=True):
     """#15: the unit-norm ``(N,)`` farfield pair of ``P^-1/2 sum_p
-    e^{-i Phi[n, p]} nf[p]``."""
+    e^{-i Phi[n, p]} nf[p]``; ``normalize`` False gives the sum itself,
+    neither scaled nor normalized (the second half of :meth:`fused_iter`
+    past its kernels' shared memory). Any spot count."""
     D, N, P = _check_transform((nf_re, nf_im), coeffs, basis)
     if nf_re.shape != (P,) or nf_im.shape != (P,):
         raise ValueError(f"The nearfield must have {P} pixels.")
-    _check_spots(N, D + 2)
+    if N < 1:
+        raise ValueError("n2f needs at least one spot.")
     partials = _partials(N, P, basis)
     out_re, out_im = _out(N, basis)
-    rc = _lib().slm_cmp_n2f(_ptr(nf_re), _ptr(nf_im), _ptr(coeffs), _ptr(basis),
-                            P, N, D, float(P ** -0.5), _ptr(partials), _ptr(out_re),
-                            _ptr(out_im), cuda_fft._stream())
+    rc = _lib().slm_cmp_n2f(_ptr(nf_re), _ptr(nf_im), _ptr(coeffs), _ptr(basis), P, N, D,
+                            float(P ** -0.5) if normalize else 1.0, int(normalize),
+                            _ptr(partials), _ptr(out_re), _ptr(out_im), cuda_fft._stream())
     cuda_fft._raise_on(rc, "n2f")
     LAUNCHES["n2f"] += 1
     return out_re, out_im
@@ -186,11 +200,17 @@ def n2f(nf_re, nf_im, coeffs, basis):
 def fused_iter(ff_re, ff_im, coeffs, basis, amp):
     """#16: one round trip ff -> nf -> amp nf/|nf| (padded pixels masked)
     -> the unnormalized ``(N,)`` farfield pair; ``amp`` is a scalar or
-    ``(P,)``."""
+    ``(P,)``. Beyond the spots of the kernel's warp (``slm_cmp_fused_spots``,
+    256), the round trip runs as :meth:`f2n` with the amplitude
+    replacement, then :meth:`n2f` unnormalized (each counts its launch)."""
     D, N, P = _check_transform((ff_re, ff_im), coeffs, basis)
     if ff_re.shape != (N,) or ff_im.shape != (N,):
         raise ValueError(f"The farfield must have {N} spots.")
-    _check_spots(N, D + 4)
+    if N < 1:
+        raise ValueError("fused_iter needs at least one spot.")
+    if N > _lib().slm_cmp_fused_spots():
+        nf = f2n(ff_re, ff_im, coeffs, basis, amp=1.0 if amp is None else amp)
+        return n2f(*nf, coeffs, basis, normalize=False)
     amp_plane = _amp_plane(amp, P)
     partials = _partials(N, P, basis)
     out_re, out_im = _out(N, basis)
@@ -217,7 +237,7 @@ def fused_iter_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels):
         raise ValueError(f"The cache's tile ({tile}) must be a multiple of 32.")
     if ff_re.shape != (N,) or ff_im.shape != (N,):
         raise ValueError(f"The farfield must have {N} spots.")
-    _check_spots(N, 4)
+    _check_spots(N)
     amp_plane = _amp_plane(amp, P)
     partials = _partials(N, P, kc)
     out_re, out_im = _out(N, kc)

@@ -304,11 +304,13 @@ def _close_pair(got, want, rtol):
     assert max(_rel(got[0], want[0]), _rel(got[1], want[1])) <= rtol
 
 
-@pytest.mark.parametrize("N", [16, 17])
+@pytest.mark.parametrize("N", [16, 17, 300, 600])
 def test_transforms_match_jax(N):
     """f2n and n2f at P = 3000 (padded pixels) against the jnp versions and
-    the Pallas kernels."""
-    x = _transform_inputs(N)
+    the Pallas kernels, at spot counts within one spot group of the kernels'
+    grids (four Zernike terms) and across two and three (300, 600 spots,
+    nine terms)."""
+    x = _transform_inputs(N, D=4 if N < 300 else 9)
     t = {k: _t(v) for k, v in x.items()}
     j = {k: jnp.asarray(v) for k, v in x.items()}
     got = TC.farfield_to_nearfield(t["ffr"], t["ffi"], t["coeffs"], t["basis"])
@@ -324,6 +326,71 @@ def test_transforms_match_jax(N):
     _close_pair(TC._nearfield_to_farfield_raw(t["nfr"], t["nfi"], t["coeffs"], t["basis"]),
                 JC.nearfield_to_farfield_raw(j["nfr"], j["nfi"], j["coeffs"], j["basis"], N),
                 JNP_RTOL)
+
+
+@pytest.mark.parametrize("N, D, P", [(12000, 3, 256), (4096, 16, 384)])
+def test_transforms_past_the_earlier_spot_limits_match_jax(N, D, P):
+    """f2n and n2f at spot counts past the shared memory of the earlier
+    kernels (11,417 spots at D = 3, 3,171 at D = 16; the new ones take any
+    count) against the jnp versions, on a small plane."""
+    x = _transform_inputs(N, P=P, D=D)
+    t = {k: _t(v) for k, v in x.items()}
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    got = TC.farfield_to_nearfield(t["ffr"], t["ffi"], t["coeffs"], t["basis"])
+    assert got[0].shape == (P,)
+    _close_pair(got, JC.farfield_to_nearfield(j["ffr"], j["ffi"], j["coeffs"], j["basis"], N),
+                JNP_RTOL)
+    got = TC.nearfield_to_farfield(t["nfr"], t["nfi"], t["coeffs"], t["basis"])
+    assert got[0].shape == (N,)
+    _close_pair(got, JC.nearfield_to_farfield(j["nfr"], j["nfi"], j["coeffs"], j["basis"], N),
+                JNP_RTOL)
+
+
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+def test_transform_options_match_jax(amp_kind):
+    """f2n's amplitude replacement (``amp``) is the JAX package's
+    ``_amp_replace`` of its unscaled nearfield, every pixel valid, held
+    where ``|nf|`` is at least 1e-2 of its largest (the angle of a
+    near-zero nearfield pixel is ill-conditioned; elsewhere ``|amp
+    nf/|nf||`` is ``amp`` alike); n2f unnormalized (``normalize=False``) is
+    its raw overlap unscaled."""
+    N, P = 17, 3000
+    x = _transform_inputs(N)
+    t = {k: _t(v) for k, v in x.items()}
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    t_amp, j_amp = (1.0, None) if amp_kind == "scalar" else (t["amp"], j["amp"])
+    got = TC._farfield_to_nearfield(t["ffr"], t["ffi"], t["coeffs"], t["basis"], amp=t_amp)
+    nf = JC.farfield_to_nearfield(j["ffr"], j["ffi"], j["coeffs"], j["basis"], N)
+    want = JPC._amp_replace(nf[0] * np.sqrt(P), nf[1] * np.sqrt(P), j_amp, jnp.ones(P),
+                            amp_kind == "scalar")
+    mag = np.hypot(np.asarray(nf[0]), np.asarray(nf[1]))
+    kept = mag >= 1e-2 * mag.max()
+    _close_pair([g.numpy()[kept] for g in got], [np.asarray(w)[kept] for w in want], JNP_RTOL)
+    np.testing.assert_allclose(np.hypot(*(g.numpy() for g in got)),
+                               np.hypot(*(np.asarray(w) for w in want)), rtol=1e-6)
+    got = TC._nearfield_to_farfield(t["nfr"], t["nfi"], t["coeffs"], t["basis"], normalize=False)
+    raw = JC.nearfield_to_farfield_raw(j["nfr"], j["nfi"], j["coeffs"], j["basis"], N)
+    _close_pair(got, (raw[0] * np.sqrt(P), raw[1] * np.sqrt(P)), JNP_RTOL)
+
+
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+def test_two_transform_round_trip_matches_jax(amp_kind):
+    """The round trip as the card runs it past the 256 spots of
+    ``fused_spots_kernel`` (here 9,000 spots at D = 3): f2n with the
+    amplitude replacement, then n2f unnormalized, against the JAX package's
+    ``_fused_iteration_jnp`` and the port's ``_fused_iteration``."""
+    N, P = 9000, 2048
+    x = _transform_inputs(N, P=P, D=3, seed=3)
+    t = {k: _t(v) for k, v in x.items()}
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    t_amp, j_amp = (1.0, jnp.float32(1.0)) if amp_kind == "scalar" else (t["amp"], j["amp"])
+    cb = (t["coeffs"], t["basis"])
+    nf = TC._farfield_to_nearfield(t["ffr"], t["ffi"], *cb, amp=t_amp)
+    got = TC._nearfield_to_farfield(*nf, *cb, normalize=False)
+    assert got[0].shape == (N,)
+    _close_pair(got, JC._fused_iteration_jnp(j["ffr"], j["ffi"], j["coeffs"], j["basis"], j_amp,
+                                             N), JNP_RTOL)
+    _close_pair(got, TC._fused_iteration(t["ffr"], t["ffi"], *cb, t_amp), JNP_RTOL)
 
 
 @pytest.mark.parametrize("N", [16, 17])

@@ -634,15 +634,22 @@ def _rel_pair(got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D, P, N", [(4, 3000, 17), (3, 65536, 256), (2, 8192, 600),
-                                     (9, 5000, 100), (5, 4096, 300)])
+                                     (9, 5000, 100), (5, 4096, 300), (3, 65536, 300),
+                                     (3, 65536, 600), (3, 65536, 9000), (3, 65536, 12000),
+                                     (16, 16384, 4096)])
 @pytest.mark.parametrize("amp_kind", ["scalar", "array"])
 def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
     """f2n, n2f, fused_iter and fused_iter_cached against their plain
     versions, at unaligned sizes (padded pixels and pad spots), at config
-    5's spot count, past one f2n spot chunk (600 spots), with three float4
-    groups of Zernike terms in fused_iter's lanes-on-spots kernel (D = 9),
-    and past its 256 spots (300: roundtrip_kernel keeping the cos/sin; 600:
-    recomputing them); one launch each."""
+    5's spot count, across n2f's spot groups and past one f2n spot chunk
+    (300, 600 spots), with three float4 groups of Zernike terms in
+    fused_iter's lanes-on-spots kernel (D = 9), past its 256 spots (300 to
+    12,000 spots, and 4,096 at D = 16: fused_iter runs as f2n with the
+    amplitude replacement, then n2f unnormalized), past the shared memory
+    of the earlier n2f (12,000 spots at D = 3, 4,096 at D = 16) and with
+    fused_iter_cached past the cos/sin it keeps (600 spots and more). One
+    launch each, and one more of f2n and n2f where fused_iter runs as the
+    two."""
     from slmsuite_torch.ops import compressed as C
     from slmsuite_torch.ops import cuda_compressed as K
 
@@ -664,22 +671,27 @@ def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
     assert got[0].shape == (N,)
     assert _rel_pair(got, C._fused_iteration_cached(x["ffr"], x["ffi"], kc, ks, amp, N,
                                                     P)) <= CMP_RTOL
-    assert K.LAUNCHES == dict(f2n=1, n2f=1, fused_iter=1, fused_iter_cached=1)
+    two = N > 256
+    assert K.LAUNCHES == dict(f2n=1 + two, n2f=1 + two, fused_iter=int(not two),
+                              fused_iter_cached=1)
 
 
 @pytest.mark.cuda
 def test_compressed_reductions_repeat_bit_for_bit(cuda):
     """The cross-block reductions run in a fixed order: two launches on
-    the same inputs give the same bits."""
+    the same inputs give the same bits (fused_iter at 9,000 spots: f2n and
+    n2f)."""
     from slmsuite_torch.ops import compressed as C
     from slmsuite_torch.ops import cuda_compressed as K
 
     x = _cmp_inputs(3, 65536, 256, cuda, seed=1)
+    big = _cmp_inputs(3, 65536, 9000, cuda, seed=1)
     kc, ks = C.build_kernel_cache(x["coeffs"], x["basis"])
     calls = (
         lambda: K.n2f(x["nfr"], x["nfi"], x["coeffs"], x["basis"]),
         lambda: K.fused_iter(x["ffr"], x["ffi"], x["coeffs"], x["basis"], x["amp"]),
         lambda: K.fused_iter_cached(x["ffr"], x["ffi"], kc, ks, x["amp"], 256, 65536),
+        lambda: K.fused_iter(big["ffr"], big["ffi"], big["coeffs"], big["basis"], big["amp"]),
     )
     for call in calls:
         first, second = call(), call()

@@ -187,3 +187,132 @@ def test_set_target_takes_plot_like_jax(reset_weights):
     np.testing.assert_array_equal(np.asarray(tholo.weights), np.asarray(jholo.weights))
     with pytest.raises(NotImplementedError, match="item 12"):
         tholo.set_target(plot=True)
+
+
+# ----------------------------------------------------------------------
+# The quadratic initial phase: the second moments, the blaze and the lens
+# copied from the JAX package's toolbox, and reset_phase(quadratic_phase=).
+# ----------------------------------------------------------------------
+
+#: Host numpy on both sides (float64 moments, the same operations): the
+#: helpers agree to round-off; the phase is built in the hologram's float32.
+QUADRATIC_ATOL = 1e-12
+QUADRATIC_PHASE_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("centers", [None, "given"])
+@pytest.mark.parametrize("grid", [None, 0.5, "1d", "2d"])
+def test_image_moments_match_jax(centers, grid):
+    """``image_centroids`` and ``image_variances`` (shear on and off, nan
+    sums) on a stack of seeded images, on each kind of grid."""
+    from slmsuite_torch.holography import analysis as TA
+    from slmsuite_tpu.holography import analysis as JA
+
+    rng = np.random.default_rng(21)
+    images = rng.uniform(0, 1, (3, 24, 30))
+    images[1, 3, 4] = np.nan
+    if grid == "1d":
+        grid = (np.linspace(-1, 1, 30), np.linspace(-2, 2, 24))
+    elif grid == "2d":
+        grid = np.meshgrid(np.linspace(-1, 1, 30), np.linspace(-2, 2, 24))
+    c = rng.uniform(-1, 1, (2, 3)) if centers == "given" else None
+    np.testing.assert_allclose(TA.image_centroids(images, grid=grid, nansum=True),
+                               JA.image_centroids(images, grid=grid, nansum=True),
+                               atol=QUADRATIC_ATOL)
+    for shear in (False, True):
+        got = TA.image_variances(images, centers=c, grid=grid, nansum=True,
+                                 exclude_shear=shear)
+        want = JA.image_variances(images, centers=c, grid=grid, nansum=True,
+                                  exclude_shear=shear)
+        assert got.shape == want.shape == (2 if shear else 3, 3)
+        np.testing.assert_allclose(got, want, atol=QUADRATIC_ATOL)
+
+
+@pytest.mark.parametrize("vector", [(0, 0), (0.01, 0), (0, -0.02), (0.01, 0.03),
+                                    (0.01, 0.02, 0.5)])
+def test_blaze_matches_jax(vector):
+    from slmsuite_torch.holography.toolbox import phase as TP
+    from slmsuite_tpu.holography.toolbox import phase as JP
+
+    grid = np.meshgrid(np.linspace(-3, 3, 17), np.linspace(-2, 2, 11))
+    np.testing.assert_allclose(TP.blaze(grid, vector), JP.blaze(grid, vector),
+                               atol=QUADRATIC_ATOL)
+
+
+@pytest.mark.parametrize("f", [np.inf, 2.0, (3.0, np.inf), (np.inf, -4.0), (1.5, 2.5)])
+def test_lens_matches_jax(f):
+    from slmsuite_torch.holography.toolbox import phase as TP
+    from slmsuite_tpu.holography.toolbox import phase as JP
+
+    grid = np.meshgrid(np.linspace(-3, 3, 17), np.linspace(-2, 2, 11))
+    np.testing.assert_allclose(TP.lens(grid, f), JP.lens(grid, f), atol=QUADRATIC_ATOL)
+    for mod in (TP, JP):
+        with pytest.raises(ValueError, match="zero"):
+            mod.lens(grid, (0.0, 1.0))
+
+
+def _quadratic_pair(kind):
+    """The same hologram in both packages: a SpotHologram array, one spot
+    (no extent: focal power 0), an image Hologram with an amplitude
+    plane, and a CompressedSpotHologram of 3D spots."""
+    rng = np.random.default_rng(23)
+    if kind == "spots":
+        return [pkg.SpotHologram.make_rectangular_array(
+            (128, 128), array_shape=(4, 3), array_pitch=(12, 16), array_center=(70, 50),
+            basis="knm") for pkg in (T, J)]
+    if kind == "one spot":
+        return [pkg.SpotHologram((128, 128), [[80], [40]], basis="knm") for pkg in (T, J)]
+    if kind == "image":
+        target = np.zeros((96, 128))
+        target[20:40, 60:100] = rng.uniform(0.5, 1, (20, 40))
+        amp = np.exp(-np.sum(np.square(np.meshgrid(np.linspace(-1, 1, 64),
+                                                   np.linspace(-1, 1, 48))), axis=0))
+        return [pkg.Hologram(target, amp=amp, slm_shape=(48, 64)) for pkg in (T, J)]
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM as TSLM
+    from slmsuite_tpu.hardware.slms.simulated import SimulatedSLM as JSLM
+
+    spots = np.vstack([rng.uniform(-8e-3, 8e-3, (2, 7)), rng.uniform(-2e-6, 2e-6, (1, 7))])
+    return [pkg.CompressedSpotHologram(spots, cameraslm=slm((64, 64), pitch_um=(8, 8),
+                                                              wav_um=0.78))
+            for pkg, slm in ((T, TSLM), (J, JSLM))]
+
+
+@pytest.mark.parametrize("kind", ["spots", "one spot", "image", "compressed"])
+@pytest.mark.parametrize("scaling", [1, 2.5])
+def test_quadratic_initial_phase_matches_jax(kind, scaling):
+    """The target moments and ``reset_phase(quadratic_phase=scaling,
+    random_phase=0)``; the single spot has no extent, so its lens is flat
+    (focal power 0) and the phase is the blaze alone. The compressed
+    hologram's spot moments are nan in the JAX package (its ``kxy`` ->
+    ``knm`` conversion at shape (1, 1)), summed as 0: its quadratic phase
+    is a no-op there, and the port copies that. This case pins parity with
+    the JAX package, not a working quadratic phase for that class."""
+    tholo, jholo = _quadratic_pair(kind)
+    for got, want in zip(tholo._get_target_moments_knm_norm(),
+                         jholo._get_target_moments_knm_norm()):
+        np.testing.assert_allclose(got, want, atol=QUADRATIC_ATOL)
+    for holo in (tholo, jholo):
+        holo.reset_phase(quadratic_phase=scaling, random_phase=0)
+    got, want = np.asarray(tholo.get_phase()), np.asarray(jholo.get_phase())
+    assert got.shape == want.shape == tuple(tholo.slm_shape)
+    assert np.isfinite(got).all() and (np.ptp(got) > 0) == (kind != "compressed")
+    np.testing.assert_allclose(got, want, atol=QUADRATIC_PHASE_ATOL)
+    if kind == "one spot":
+        _, std = tholo._get_target_moments_knm_norm()
+        assert np.all(std == 0)
+        np.testing.assert_allclose(tholo._get_quadratic_initial_phase(scaling),
+                                   T.Hologram._get_quadratic_initial_phase.__get__(tholo)(1),
+                                   atol=0)
+
+
+def test_quadratic_phase_flag_and_random_phase():
+    """The ``quadratic_phase`` flag is read where the argument is None, and
+    the random phase is added on top (numpy's global generator, as in the
+    JAX package)."""
+    tholo, jholo = _quadratic_pair("spots")
+    for holo in (tholo, jholo):
+        holo.flags["quadratic_phase"] = 1
+        np.random.seed(5)
+        holo.reset_phase(random_phase=0.5)
+    np.testing.assert_allclose(np.asarray(tholo.get_phase()), np.asarray(jholo.get_phase()),
+                               atol=QUADRATIC_PHASE_ATOL)
