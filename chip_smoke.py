@@ -68,6 +68,21 @@ there is no card or the port is missing. In order:
      ``feedback="experimental_spot"``; S2, a 10x10 grid at 24-pixel pitch
      on the same rig; the engine loop of each run under the profiler to
      count host transfers (none allowed);
+   - H1-H3, the stepwise host loop (callbacks, host feedback and stats):
+     H1, S2's rig with the camera given seeded dark and read noise and
+     averaging 4 (the device measurement does not model it), 5 engine
+     iterations then 20 host iterations with ``experimental_spot``
+     feedback and both spot stat groups; H2, the fused slice's hologram
+     through ``optimize(maxiter=50, callback=...)``, the callback recording
+     the efficiency and stopping at iteration 30 (logged against the
+     engine's own 30 iterations); H3, C3's hologram (64 nan ``spot_amp``),
+     20 host iterations of WGS-Kim with ``zero_factor`` 0.1, then 10 with
+     ``external_spot`` feedback on the amplitudes the first computed. Each
+     with exact launches per host iteration and against the plain versions
+     (H1 on what users read, H2 final efficiency and uniformity within
+     1e-3, H3 normalized amp_ff and weights within 2e-3), then ms per host
+     iteration through the kernels and the plain versions, interleaved,
+     and the host transfers per iteration under the profiler (logged);
    each through the kernels (loop launches checked, launches after the
    loop counted apart; the kernels line reports both together) and
    through the plain versions (final efficiency and uniformity within
@@ -188,6 +203,14 @@ Q1_PSI_P99, Q1_WEIGHT_ATOL, Q1_STORE_ATOL = PSI_P99, WEIGHT_RTOL, THETA_ATOL
 CONFIG4_WARM, CONFIG4_ITERS = 5, 30
 #: S2's spots: a 10x10 grid at 24-pixel pitch centred on the camera's centre.
 S2_SIDE, S2_PITCH = 10, 24
+#: H1: camera-loop iterations, frames averaged, the noise's seed.
+H1_ITERS, H1_AVERAGING, H1_NOISE_SEED = 20, 4, 11
+#: H2: iterations asked for, and the iteration at which the callback stops.
+H2_MAXITER, H2_STOP = 50, 30
+#: H3: the zero_factor MRAF host loop's iterations, then external_spot's.
+H3_MRAF_ITERS, H3_EXTERNAL_ITERS = 20, 10
+#: Host iterations of each host-loop timing and transfer count.
+HOST_TIMING_ITERS = 10
 #: The camera loops, kernels against plain: measured uniformity and
 #: efficiency after the loop, and the spot weights over their maximum. The
 #: display quantization and the camera's integer counts make the loop
@@ -2242,6 +2265,270 @@ def phase_camera(device):
     return loops["S2 config 4 rig, 10x10 spots"]
 
 
+# ----------------------------------------------------------------------
+# The stepwise host loop: H1-H3.
+# ----------------------------------------------------------------------
+
+
+def launches_split_at(holo):
+    """As :meth:`launches_split_at_populate`, for both counters: set
+    ``cuda_fft``'s and ``cuda_compressed``'s launch counts to 0 and note
+    them when ``holo``'s ``_populate_results`` starts. Returns a function
+    giving ``(loop launches, launches after the loop)`` over both."""
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft
+
+    def counts():
+        return {**cuda_fft.LAUNCHES, **cuda_compressed.LAUNCHES}
+
+    populate = holo._populate_results
+    at_populate = {}
+
+    def counted_populate():
+        at_populate.update(counts())
+        populate()
+
+    def split():
+        now = counts()
+        after = {k: v - at_populate[k] for k, v in now.items() if v - at_populate[k]}
+        return {k: v for k, v in at_populate.items() if v}, after
+
+    holo._populate_results = counted_populate
+    cuda_fft.reset_launch_counts()
+    cuda_compressed.reset_launch_counts()
+    return split
+
+
+def wall_ms(run, n):
+    """Wall milliseconds per iteration of ``run(n)`` after one warm-up
+    iteration, the card synchronized at both ends (a host-paced loop
+    waits on the card every iteration)."""
+    run(1)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run(n)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / n
+
+
+def host_loop_timing(label, run, n):
+    """ms per host iteration of ``run(n)`` through the kernels and the
+    plain versions, interleaved (plain, kernels, kernels, plain), and the
+    host transfers per iteration under the profiler (logged: the loop is
+    host-paced by design)."""
+    with plain_step_functions(), plain_compressed():
+        p1 = wall_ms(run, n)
+    k1, k2 = wall_ms(run, n), wall_ms(run, n)
+    with plain_step_functions(), plain_compressed():
+        p2 = wall_ms(run, n)
+    copies, events = host_transfers(run, n)
+    log(f"{label}: kernels {k1:.3f} {k2:.3f} ms per host iteration, plain {p1:.3f} "
+        f"{p2:.3f}; {len(copies) / n:.2f} host transfers per iteration ({len(copies)} "
+        f"among {events} device events of {n} iterations)  [{nvidia_smi_line()}]")
+    return {"kernels_ms": (k1, k2), "plain_ms": (p1, p2), "transfers": len(copies) / n}
+
+
+def camera_noise(seed):
+    """H1's camera noise: dark counts (Poisson) and read noise (Gaussian,
+    positive mean), from one generator made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return {"dark": lambda x: rng.poisson(0.005 * x),
+            "read": lambda x: rng.normal(0.004 * x, 0.001 * x)}
+
+
+def h1_rig(device):
+    """H1: config 4's rig with S2's 10x10 spots, the camera given dark and
+    read noise and averaging; the device measurement does not model it."""
+    fs, holo = config4(device, s2_spots())
+    fs.cam.noise = camera_noise(H1_NOISE_SEED)
+    fs.cam.averaging = H1_AVERAGING
+    assert holo._sim_engine_inputs() is None
+    return fs, holo
+
+
+def h1_optimize(holo, n):
+    holo.optimize("WGS-Kim", maxiter=n, verbose=False, feedback="experimental_spot",
+                  stat_groups=["computational_spot", "experimental_spot"])
+
+
+def drive_h1(device):
+    """H1 once: the warm-up on the engine, then the host loop with the
+    launch counts split at ``_populate_results``. Returns ``(holo, measured
+    after the warm-up, measured after the loop, loop launches, launches
+    after it, seconds of the loop)``."""
+    _, holo = h1_rig(device)
+    holo.optimize("WGS-Kim", maxiter=CONFIG4_WARM, verbose=False)
+    warm = measured(holo)
+    split = launches_split_at(holo)
+    start = time.perf_counter()
+    h1_optimize(holo, H1_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    loop, after = split()
+    return holo, warm, measured(holo), loop, after, seconds
+
+
+def phase_h1(device):
+    """H1 through the kernels (exact launches per host iteration) and
+    through the plain versions, from the same seed and noise draws; held
+    on what users read (PERF.md section 2)."""
+    n, a = H1_ITERS, H1_AVERAGING
+    label = "H1 config 4 rig, noise and averaging, 10x10 spots, host loop"
+    holo, warm, final, loop, after, seconds = drive_h1(device)
+    # Per host iteration: the padded forward fft2, one camera frame of
+    # `averaging` captures (one canvas fft2 each), the backward
+    # wexp_ifft2_phase.
+    expect = dict(rows_fft=(1 + a) * n, cols_fft=(1 + a) * n, cols_wexp_inv=n, carry_exit=n)
+    log(f"{label} (kernels): after the warm-up uniformity {warm[0]['uniformity']:.6f} "
+        f"efficiency {warm[0]['efficiency']:.6f}; after {n} host iterations uniformity "
+        f"{final[0]['uniformity']:.6f} efficiency {final[0]['efficiency']:.6f} in "
+        f"{seconds:.2f} s; loop launches {loop}; after the loop {after}")
+    assert loop == expect, (label, loop, expect)
+    assert holo._build_config().feedback == "external_spot"
+    recorded = holo.stats["stats"]["experimental_spot"]["uniformity"]
+    assert len(recorded) == CONFIG4_WARM + n and np.isfinite(recorded[CONFIG4_WARM:]).all()
+    assert np.isfinite(holo.get_phase()).all()
+    assert final[0]["uniformity"] >= warm[0]["uniformity"] - CAMERA_STAT_ATOL, (warm, final)
+    with plain_step_functions():
+        _, _, plain_final, plain_loop, plain_after, _ = drive_h1(device)
+    assert not plain_loop and not plain_after, (plain_loop, plain_after)
+    d_w = float(np.abs(final[1] - plain_final[1]).max())
+    log(f"{label} (plain):   uniformity {plain_final[0]['uniformity']:.6f} efficiency "
+        f"{plain_final[0]['efficiency']:.6f}; spot weights / max |diff| {d_w:.3e}")
+    for key in ("uniformity", "efficiency"):
+        diff = abs(final[0][key] - plain_final[0][key])
+        assert diff <= CAMERA_STAT_ATOL, f"{label} {key}: kernel vs plain differ by {diff:.3e}"
+    assert d_w <= CAMERA_WEIGHT_ATOL, (label, d_w)
+    host_loop_timing("H1 host loop", lambda k: h1_optimize(holo, k), HOST_TIMING_ITERS)
+    return {k: v / n for k, v in loop.items()}
+
+
+def h2_optimize(holo, maxiter, stop, seen):
+    def callback(h):
+        series = h.stats["stats"].get("computational", {}).get("efficiency", [])
+        seen.append(series[-1] if series else float("nan"))
+        return stop is not None and h.iter == stop
+
+    holo.optimize("WGS-Kim", maxiter=maxiter, verbose=False, stat_groups=["computational"],
+                  callback=callback)
+
+
+def drive_h2(device):
+    holo = spot_array(device, (32, 32), (30, 30))
+    split = launches_split_at(holo)
+    seen = []
+    h2_optimize(holo, H2_MAXITER, H2_STOP, seen)
+    torch.cuda.synchronize()
+    loop, after = split()
+    stats = holo.stats["stats"]["computational"]
+    return holo, {k: float(stats[k][-1]) for k in ("efficiency", "uniformity")}, loop, after, seen
+
+
+def phase_h2(device):
+    """H2: the fused path's hologram through ``SpotHologram.optimize`` with
+    a callback that records the efficiency and stops at iteration 30."""
+    n = H2_STOP
+    label = "H2 2048^2 32x32 spots WGS-Kim, callback stops at 30, host loop"
+    holo, kernel_stats, loop, after, seen = drive_h2(device)
+    log(f"{label} (kernels): {kernel_stats}; callback saw {len(seen)} calls; loop "
+        f"launches {loop}; after the loop {after}")
+    assert holo.iter == n and len(holo.stats["stats"]["computational"]["efficiency"]) == n
+    assert len(seen) == n + 1 and np.isfinite(seen[1:]).all()
+    # Per host iteration: fft2 forward, wexp_ifft2_phase backward; the
+    # stopping iteration runs the forward only.
+    expect = dict(rows_fft=n + 1, cols_fft=n + 1, cols_wexp_inv=n, carry_exit=n)
+    assert loop == expect, (label, loop, expect)
+    with plain_step_functions():
+        _, plain_stats, plain_loop, plain_after, _ = drive_h2(device)
+    assert not plain_loop and not plain_after, (plain_loop, plain_after)
+    log(f"{label} (plain):   {plain_stats}")
+    for key in kernel_stats:
+        diff = abs(kernel_stats[key] - plain_stats[key])
+        assert diff <= SLICE_ATOL, f"{label} {key}: kernel vs plain differ by {diff:.3e}"
+    engine = spot_array(device, (32, 32), (30, 30))
+    engine.optimize("WGS-Kim", maxiter=n, verbose=False, stat_groups=["computational"])
+    engine_stats = engine.stats["stats"]["computational"]
+    log(f"H2 against the device engine's own {n} iterations: "
+        + ", ".join(f"{k} |diff| {abs(kernel_stats[k] - float(engine_stats[k][-1])):.3e}"
+                    for k in kernel_stats))
+    host_loop_timing("H2 host loop", lambda k: h2_optimize(holo, k, None, []),
+                     HOST_TIMING_ITERS)
+    # Per complete iteration: the stopped one's forward aside.
+    stopped = dict(rows_fft=1, cols_fft=1)
+    return {k: (v - stopped.get(k, 0)) / n for k, v in loop.items()}
+
+
+def h3_hologram(device):
+    """H3: config 5 with C3's 64 nan ``spot_amp``."""
+    n_spots = CONFIG5_SIDE**2
+    spot_amp = np.ones(n_spots)
+    spot_amp[np.random.default_rng(2).permutation(n_spots)[:n_spots // 4]] = np.nan
+    return config5_hologram(device, spot_amp=spot_amp)
+
+
+def h3_mraf(holo, n):
+    holo.optimize("WGS-Kim", maxiter=n, verbose=False, zero_factor=0.1,
+                  stat_groups=["computational_spot"])
+
+
+def h3_external(holo, n):
+    holo.optimize("WGS-Kim", maxiter=n, verbose=False, feedback="external_spot",
+                  stat_groups=["computational_spot", "external_spot"])
+
+
+def drive_h3(device):
+    """H3 once: the zero_factor MRAF host loop, then the external_spot host
+    loop on the amplitudes the first computed. Returns ``(holo, launches
+    of each loop and after it, amp_ff / max, weights / max)``."""
+    holo = h3_hologram(device)
+    launches = []
+    for run, n in ((h3_mraf, H3_MRAF_ITERS), (h3_external, H3_EXTERNAL_ITERS)):
+        split = launches_split_at(holo)
+        run(holo, n)
+        torch.cuda.synchronize()
+        launches.append(split())
+        del holo._populate_results  # The class's again.
+        holo.external_spot_amp = np.array(holo.amp_ff)
+    amp, weights = np.asarray(holo.amp_ff), np.asarray(holo.weights)
+    return holo, launches, amp / amp.max(), weights / weights.max()
+
+
+def phase_h3(device):
+    """H3: config 5's compressed MRAF host loop (zero_factor) and its
+    external_spot loop, through the kernels (exact launches) and the plain
+    versions (normalized amp_ff and weights within 2e-3)."""
+    label = "H3 config 5 compressed host loop"
+    holo, launches, amp, weights = drive_h3(device)
+    for (loop, after), n, what in zip(launches, (H3_MRAF_ITERS, H3_EXTERNAL_ITERS),
+                                      ("zero_factor MRAF", "external_spot")):
+        log(f"{label}, {what} (kernels): {n} iterations; loop launches {loop}; after the "
+            f"loop {after}")
+        assert loop == dict(n2f=n, f2n=n), (what, loop)
+        assert after == dict(n2f=1), (what, after)
+    assert holo.iter == H3_MRAF_ITERS + H3_EXTERNAL_ITERS
+    assert np.isfinite(holo.get_phase()).all() and np.isfinite(amp).all()
+    assert holo._zero_weights_c is not None
+    with plain_step_functions(), plain_compressed():
+        _, plain_launches, plain_amp, plain_weights = drive_h3(device)
+    assert not any(loop or after for loop, after in plain_launches), plain_launches
+    e_amp = float(np.abs(amp - plain_amp).max())
+    e_w = float(np.abs(weights - plain_weights).max())
+    log(f"{label} (plain): normalized amp_ff max |diff| {e_amp:.3e}, weights {e_w:.3e}")
+    assert e_amp < CMP_PATH_ATOL and e_w < CMP_PATH_ATOL, (label, e_amp, e_w)
+    host_loop_timing("H3 host loop, external_spot", lambda k: h3_external(holo, k),
+                     HOST_TIMING_ITERS)
+    return {k: v / H3_MRAF_ITERS for k, v in launches[0][0].items()}
+
+
+def phase_host_loop(device):
+    """H1, H2 and H3; returns each path's kernel launches per host
+    iteration."""
+    per_iteration = {"H1": phase_h1(device), "H2": phase_h2(device), "H3": phase_h3(device)}
+    for path, counts in per_iteration.items():
+        assert counts and all(v > 0 for v in counts.values()), (path, counts)
+        log(f"{path} launches per host iteration: {counts}")
+    return per_iteration
+
+
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
@@ -2268,6 +2555,7 @@ def main():
     paths.update(phase_compressed_paths(device))
     paths["Q1"] = phase_q1(device)
     s2_loop = phase_camera(device)
+    phase_host_loop(device)
     phase_golden()
     times = phase_kernel_timing(device)
     compressed_times, compressed_loops = phase_compressed_timing(device, parent=parent)

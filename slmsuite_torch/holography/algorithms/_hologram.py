@@ -7,9 +7,12 @@ the loop runs shift-free (see :mod:`slmsuite_torch.ops.propagation`); all
 user-facing accessors unfold. Fully-computational runs go through the
 engine (:mod:`slmsuite_torch.ops.engine`) in chunks, with the planes kept
 on the device between calls; a target with nan (MRAF noise regions) runs
-MRAF. The stepwise host loop (callbacks, feedback measured on the host),
-conjugate gradient and mesh-sharded runs are not ported yet and raise
-:class:`NotImplementedError`.
+MRAF. A callback, feedback measured on the host or given by the user, or a
+stat group the device does not compute runs the stepwise host loop
+(:meth:`Hologram._stepwise_iteration`): its transforms stay on the device,
+and only the stats, the weights' inputs and the camera frames cross to the
+host. Conjugate gradient and mesh-sharded runs are not ported yet and
+raise :class:`NotImplementedError`.
 """
 
 import warnings
@@ -28,6 +31,8 @@ from slmsuite_torch.holography.toolbox import REAL_TYPES
 from slmsuite_torch.holography.toolbox import phase as tphase
 from slmsuite_torch.ops import engine as _engine
 from slmsuite_torch.ops import propagation as _prop
+from slmsuite_torch.ops.stats import STAT_KEYS, calculate_stats
+from slmsuite_torch.ops.weights import update_weights_generic
 
 
 class _Plane:
@@ -57,10 +62,20 @@ class _Plane:
             obj.__dict__[self.host] = np.asarray(value)
             obj.__dict__[self.dev] = None
 
+    def resident(self, obj):
+        """The device tensor while it is the trusted copy, else None."""
+        if obj.__dict__.get(self.host) is None:
+            return obj.__dict__.get(self.dev)
+        return None
+
+    def is_set(self, obj):
+        """Whether the plane holds a value (no transfer)."""
+        return obj.__dict__.get(self.host) is not None or obj.__dict__.get(self.dev) is not None
+
     def device(self, obj, device):
         """The plane as an f32 tensor on ``device`` (no copy when resident)."""
-        dev = obj.__dict__.get(self.dev)
-        if dev is not None and obj.__dict__.get(self.host) is None:
+        dev = self.resident(obj)
+        if dev is not None:
             return dev
         host = self.__get__(obj)
         if host is None:
@@ -283,6 +298,25 @@ class Hologram(_HologramStats):
             return None
         flat = host.reshape(-1)
         return (host.shape, flat[::max(1, flat.size // 1024)].tobytes())
+
+    def _dev_const(self, key, host, make):
+        """``make(host)``, kept on the device across calls while ``host`` is
+        the same array with the same fingerprint."""
+        cache = self.__dict__.setdefault("_dev_cache", {})
+        fp = self._host_fingerprint(host)
+        cached = cache.get(key)
+        if cached is not None and cached[0] is host and cached[1] == fp:
+            return cached[2]
+        dev = make(host)
+        cache[key] = (host, fp, dev)
+        return dev
+
+    def _target_device(self):
+        """The target as an f32 device tensor (nan kept), uploaded once
+        while :attr:`target` is unchanged; a copy on every device (a CPU
+        tensor would otherwise share the host array's memory)."""
+        return self._dev_const("target", self.target, lambda t: torch.tensor(
+            np.asarray(t, np.float32), device=self.device))
 
     # ------------------------------------------------------------------
     # Phase conventions.
@@ -616,10 +650,16 @@ class Hologram(_HologramStats):
         ``zw - zero_factor |F| F`` and persist across calls in
         :attr:`zero_weights`. WGS-Leonardo and WGS-Kim with computational
         feedback and stats on an unpadded farfield take the carry-mode
-        MRAF loop; every other MRAF run the natural step. ``"CG"``,
-        callbacks and feedback measured on the host (a camera that the
-        device measurement does not model, image feedback) raise
-        :class:`NotImplementedError` naming their ROADMAP item.
+        MRAF loop; every other MRAF run the natural step.
+
+        A ``callback(holo)`` (called each iteration after the forward
+        transform; returning True stops the loop before the weights and
+        :attr:`iter` move), feedback measured on the host (a camera that
+        the device measurement does not model, image feedback) or given by
+        the user (``"external_spot"``), or a stat group that only the host
+        computes runs the stepwise host loop, as in ``slmsuite_tpu``.
+        ``"CG"`` raises :class:`NotImplementedError` naming its ROADMAP
+        item.
 
         Parameters follow ``slmsuite_tpu``'s :meth:`optimize`: ``method``,
         ``maxiter``, ``verbose``, ``callback``, ``feedback``,
@@ -645,7 +685,7 @@ class Hologram(_HologramStats):
         """Gradient-based phase retrieval (torch.autograd + torch.optim)."""
         raise NotImplementedError(
             "Conjugate-gradient optimization is not ported yet "
-            "(ROADMAP.md queue 1, item 6)."
+            "(ROADMAP.md queue 1, item 6b)."
         )
 
     def _update_flags(self, method, verbose, feedback, stat_groups, **kwargs):
@@ -807,55 +847,167 @@ class Hologram(_HologramStats):
         self._final_fixed_phase = bool(scalars[0])
         self.iter = int(scalars[1])
 
+    @staticmethod
+    def _progress(maxiter, verbose, name):
+        """A tqdm progress bar when ``verbose`` and tqdm is installed, else
+        None."""
+        if not verbose or maxiter <= 1:
+            return None
+        try:
+            from tqdm.auto import tqdm
+        except ImportError:
+            return None
+        return tqdm(total=maxiter, desc=name)
+
     def optimize_gs(self, maxiter, callback, verbose=True, name=None):
         """
-        GS/WGS loop on the engine, in chunks (progress reporting between
-        chunks when ``verbose``); stats are fetched once per call.
+        GS/WGS loop. Fully-computational runs take the engine, in chunks
+        (progress reporting between chunks when ``verbose``), with the
+        stats fetched once per call; a callback, host feedback or host
+        stats take the stepwise host loop, one :meth:`_stepwise_iteration`
+        per iteration.
         """
         if isinstance(maxiter, range):
             maxiter = len(maxiter)
 
-        if (
+        host_loop = (
             callback is not None
-            or self._stats_pending_groups()
+            or bool(self._stats_pending_groups())
             or self._engine_feedback() in ("external", "external_spot")
-        ):
-            raise NotImplementedError(
-                "The stepwise host loop (callbacks, feedback or statistics measured "
-                "on the host) is not ported yet (ROADMAP.md queue 1, item 6)."
-            )
+        )
         if (
             self.flags.get("fix_phase_efficiency") is not None
             and "Kim" in self.flags["method"]
             and not self._device_stat_groups()
+            and not host_loop
         ):
             raise ValueError("Must track statistics to fix phase based on efficiency!")
 
         config = self._build_config()
         consts = self._build_consts(config)
-        state = self._build_state(config)
-        start_iter = self.iter
+        progress = self._progress(maxiter, verbose, name)
 
-        chunk = maxiter if not verbose else max(1, int(np.ceil(maxiter / 10)))
-        progress = None
-        if verbose and maxiter > 1:
-            try:
-                from tqdm.auto import tqdm
-            except ImportError:
-                tqdm = None
-            if tqdm is not None:
-                progress = tqdm(total=maxiter, desc=name)
-        state, all_stats = _engine.run_gs_chunked(
-            config, state, consts, maxiter, chunk=chunk,
-            on_chunk=(progress.update if progress is not None else None),
-        )
+        if host_loop:
+            for _ in range(maxiter):
+                self._stepwise_iteration(config, consts, callback)
+                if progress is not None:
+                    progress.update(1)
+                if self._break_requested:
+                    break
+        else:
+            state = self._build_state(config)
+            start_iter = self.iter
+            chunk = maxiter if not verbose else max(1, int(np.ceil(maxiter / 10)))
+            state, all_stats = _engine.run_gs_chunked(
+                config, state, consts, maxiter, chunk=chunk,
+                on_chunk=(progress.update if progress is not None else None),
+            )
+            self._sync_from_state(state)
+            if self._device_stat_groups():
+                self._record_scan_stats(torch.cat(all_stats).cpu().numpy(), start_iter)
         if progress is not None:
             progress.close()
-
-        self._sync_from_state(state)
-        if self._device_stat_groups():
-            self._record_scan_stats(torch.cat(all_stats).cpu().numpy(), start_iter)
         self._populate_results()
+
+    #: Set by a callback that returned True; ends the host loop.
+    _break_requested = False
+
+    def _stepwise_iteration(self, config, consts, callback):
+        """
+        One host-paced iteration: the forward transform on the device (the
+        complex farfield stays there), the callback, the stats and the
+        weight update, then the constraint and backward transform on the
+        device (:meth:`slmsuite_torch.ops.propagation.stepwise_backward`).
+        """
+        self._break_requested = False
+        device = self.device
+        kernel = consts["kernel"] if config.has_kernel else None
+        farfield, amp_ff, theta = _prop.forward_fields(
+            type(self)._psi.device(self, device), consts["amp"], tuple(config.shape), kernel
+        )
+        self._farfield_folded = farfield
+        self.amp_ff = amp_ff
+        self._midloop_cleaning()
+
+        if callback is not None and callback(self):
+            self._break_requested = True
+            return
+        self._update_stats(self.flags["stat_groups"])
+
+        was_not_fixed = not self.flags.get("fixed_phase", False)
+        if "WGS" in self.flags["method"] and self.iter > 0:
+            self._update_weights()
+            self._kim_decision_host()
+        # The constraint phase: the current angle while unfixed, including
+        # the iteration that fixes it.
+        if was_not_fixed or not type(self)._phase_ff_folded.is_set(self):
+            self._phase_ff_folded = theta
+
+        self._psi = _prop.stepwise_backward(config)(
+            farfield,
+            torch.nan_to_num(type(self).weights.device(self, device)),
+            type(self)._phase_ff_folded.device(self, device),
+            consts,
+        )
+        self.iter += 1
+
+    def _kim_decision_host(self):
+        """Kim's phase fixing in the host loop: on the last stat group's
+        efficiency (``fix_phase_efficiency``), or after
+        ``fix_phase_iteration`` unfixed iterations in the flag history."""
+        if "Kim" not in self.flags["method"]:
+            self.flags["fixed_phase"] = False
+            return
+
+        was_not_fixed = not self.flags.get("fixed_phase", False)
+
+        if self.flags.get("fix_phase_efficiency") is not None:
+            stats = self.stats["stats"]
+            if len(stats) == 0:
+                raise ValueError("Must track statistics to fix phase based on efficiency!")
+            group = list(stats.keys())[-1]
+            if stats[group]["efficiency"][self.iter] > self.flags["fix_phase_efficiency"]:
+                self.flags["fixed_phase"] = True
+
+        n = self.flags.get("fix_phase_iteration", 10)
+        if was_not_fixed and self.iter >= n - 1:
+            previous = self.stats["flags"].get("fixed_phase", [])
+            if len(previous) >= n and all(not bool(previous[-1 - i]) for i in range(n)):
+                self.flags["fixed_phase"] = True
+
+    def _updated_weights(self, feedback_amp, target_amp):
+        """The method's weight update of the current weights on the device,
+        from device ``feedback_amp`` and ``target_amp`` of their shape."""
+        return update_weights_generic(
+            torch.nan_to_num(type(self).weights.device(self, self.device)),
+            feedback_amp,
+            target_amp,
+            self.flags["method"],
+            self.flags.get("feedback_exponent", 0.8),
+            self.flags.get("feedback_factor", 0.1),
+        )
+
+    def _update_weights(self):
+        """The host loop's computational weight update (subclasses add
+        feedback modes); it runs on the device."""
+        if self.flags["feedback"] == "computational":
+            self.weights = self._updated_weights(
+                type(self).amp_ff.device(self, self.device), self._target_device()
+            )
+
+    def _populate_stats(self, stats, stat_groups):
+        """The ``computational`` group on the device while the farfield
+        amplitude is there (four numbers cross to the host); the host's
+        stats otherwise and for ``raw_stats``."""
+        amp_ff = type(self).amp_ff.resident(self)
+        if ("computational" in stat_groups and amp_ff is not None
+                and not self.flags.get("raw_stats")):
+            values = calculate_stats(
+                amp_ff, self._target_device(), efficiency_compensation=False
+            ).cpu().numpy()
+            stats["computational"] = dict(zip(STAT_KEYS, (float(v) for v in values)))
+            stat_groups = [g for g in stat_groups if g != "computational"]
+        super()._populate_stats(stats, stat_groups)
 
     @staticmethod
     def _norm(matrix):

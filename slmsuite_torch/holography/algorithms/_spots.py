@@ -6,19 +6,23 @@ Optical focus arrays (port of :mod:`slmsuite_tpu.holography.algorithms._spots`):
 :class:`SpotHologram` covers spots given in the computational ``"knm"``
 basis, in ``"kxy"`` (with an SLM or CameraSLM) or in camera pixels
 ``"ij"`` (with a Fourier-calibrated CameraSLM), on padded or unpadded
-farfields, optimized on the device engine with ``computational`` or
-spot-integrated ``computational_spot`` feedback, or with
-``experimental_spot`` feedback from a simulated rig's camera, measured
-inside the loop on the device. A rig the device measurement does not
-model (real hardware, noise, averaging, an orientation transform) needs
-the stepwise host loop, which is not ported yet, as are spot null regions
-(ROADMAP.md queue 1, item 6) and ``refine_offset`` (item 9).
+farfields, with MRAF null regions (``null_vectors``, ``null_radius``,
+``null_region``, ``null_region_radius_frac``), optimized on the device
+engine with ``computational`` or spot-integrated ``computational_spot``
+feedback, or with ``experimental_spot`` feedback from a simulated rig's
+camera, measured inside the loop on the device. A rig the device
+measurement does not model (real hardware, noise, averaging, an
+orientation transform), amplitudes the user measures elsewhere
+(``"external_spot"``) and callbacks run the stepwise host loop.
+``refine_offset`` is not ported yet (ROADMAP.md queue 1, item 9).
 
 :class:`CompressedSpotHologram` takes a bare SLM and runs the compressed
 engine (:mod:`slmsuite_torch.ops.compressed`) with ``computational_spot``
-feedback. The host-paced loop (callbacks, experimental or external
-feedback, MRAF with ``zero_factor``) and conjugate gradient are queued
-under item 6, CameraSLMs under item 9 and mesh-sharded runs under item 11.
+feedback; callbacks, ``"external_spot"`` feedback and MRAF with
+``zero_factor`` run its host-paced loop (:meth:`CompressedSpotHologram.
+_stepwise_compressed`) on the same transforms. Conjugate gradient is
+queued under item 6b, CameraSLMs (and so camera feedback) under item 9 and
+mesh-sharded runs under item 11.
 """
 
 import dataclasses
@@ -37,6 +41,12 @@ from slmsuite_torch.ops import compressed as _comp
 from slmsuite_torch.ops import engine as _engine
 from slmsuite_torch.ops import propagation as _prop
 from slmsuite_torch.ops.weights import update_weights_generic
+
+#: Why camera feedback on a compressed hologram raises.
+_COMPRESSED_CAMERA = (
+    "Camera feedback on a compressed hologram needs a CameraSLM, which is not ported "
+    "for compressed holograms yet (ROADMAP.md queue 1, item 9)."
+)
 
 
 class _AbstractSpotHologram(FeedbackHologram):
@@ -279,13 +289,14 @@ class SpotHologram(_AbstractSpotHologram):
         Initialize a spot hologram from ``(2, N)`` spot vectors in the
         given ``basis``: ``"kxy"`` (the default; needs a ``cameraslm`` or
         SLM), ``"knm"`` (computational pixels) or ``"ij"`` (camera pixels;
-        needs a Fourier-calibrated ``cameraslm``).
+        needs a Fourier-calibrated ``cameraslm``). ``null_vectors`` (in
+        ``basis``) make the target's background free (MRAF), with zero
+        discs of ``null_radius`` around them and the spots (a quarter of
+        the smallest distance by default); ``null_region`` (a boolean
+        plane, in the ``"knm"`` or ``"ij"`` basis) and
+        ``null_region_radius_frac`` (outside that fraction of the plane's
+        ellipse) mark zero regions.
         """
-        if any(v is not None for v in (null_vectors, null_radius, null_region,
-                                        null_region_radius_frac)):
-            raise NotImplementedError(
-                "Spot null regions are not ported yet (ROADMAP.md queue 1, item 6)."
-            )
         vectors = format_2vectors(spot_vectors)
         N = vectors.shape[1]
 
@@ -297,6 +308,8 @@ class SpotHologram(_AbstractSpotHologram):
             self.spot_amp = np.full(N, 1.0 / np.sqrt(N))
         self.external_spot_amp = np.copy(self.spot_amp)
 
+        if null_vectors is not None:
+            null_vectors = format_2vectors(null_vectors)
         self.null_knm = None
         self.null_radius_knm = None
         self.null_region_knm = None
@@ -312,6 +325,9 @@ class SpotHologram(_AbstractSpotHologram):
             else:
                 self.spot_kxy = None
                 self.spot_ij = None
+            self.null_knm = null_vectors
+            self.null_radius_knm = null_radius
+            self.null_region_knm = null_region
         elif basis == "kxy":
             if cameraslm is None:
                 raise ValueError("A cameraslm (or SLM) is needed to interpret kxy.")
@@ -330,6 +346,15 @@ class SpotHologram(_AbstractSpotHologram):
             )
         else:
             raise ValueError(f"Unrecognized basis for spots '{basis}'.")
+
+        if basis in ("ij", "kxy") and null_vectors is not None:
+            self.null_knm = toolbox.convert_vector(
+                null_vectors, basis, "knm", hardware=cameraslm, shape=shape
+            )
+            if null_radius is not None:
+                self.null_radius_knm = toolbox.convert_radius(
+                    null_radius, basis, "knm", hardware=cameraslm, shape=shape
+                )
 
         # Point spread functions and integration widths.
         if cameraslm is not None and hasattr(cameraslm, "slm"):
@@ -381,7 +406,27 @@ class SpotHologram(_AbstractSpotHologram):
                     f"Bounds: {cam_shape}"
                 )
 
+        if self.null_knm is not None:
+            if self.null_radius_knm is None:
+                all_spots = np.hstack((self.null_knm, self.spot_knm))
+                self.null_radius_knm = toolbox.smallest_distance(all_spots) / 4
+            self.null_radius_knm = int(np.ceil(self.null_radius_knm))
+
         super().__init__(shape, target_ij=None, cameraslm=cameraslm, **kwargs)
+
+        if basis == "ij" and null_region is not None:
+            self.null_region_knm = self.ijcam_to_knmslm(null_region, order=0) != 0
+        if null_region_radius_frac is not None:
+            if self.null_region_knm is None:
+                self.null_region_knm = np.zeros(self.shape, dtype=bool)
+            xg, yg = np.meshgrid(
+                np.linspace(-1, 1, self.null_region_knm.shape[1]),
+                np.linspace(-1, 1, self.null_region_knm.shape[0]),
+            )
+            self.null_region_knm[
+                np.square(xg) + np.square(yg) > null_region_radius_frac**2
+            ] = True
+
         self.set_target(reset_weights=True)
 
     def __len__(self):
@@ -438,7 +483,8 @@ class SpotHologram(_AbstractSpotHologram):
         )
 
     def _set_target_spots(self, reset_weights=False):
-        """Scatter the spot amplitudes into the target plane."""
+        """Scatter the spot amplitudes (and the null regions) into the
+        target plane."""
         self.spot_knm_rounded = np.rint(self.spot_knm).astype(int)
 
         if self.cameraslm is not None:
@@ -456,9 +502,27 @@ class SpotHologram(_AbstractSpotHologram):
 
         if self.target is None:
             self.target = np.zeros(self.shape, dtype=self.dtype)
-        self.target.fill(0)
+
+        # MRAF (a nan background) comes only with null vectors; a null
+        # region alone leaves the zero fill, as in the JAX package.
+        if self.null_knm is None:
+            self.target.fill(0)
+        else:
+            self.target.fill(np.nan)
+            if self.null_region_knm is not None:
+                self.target[self.null_region_knm] = 0
+            all_spots = np.hstack((self.null_knm, self.spot_knm))
+            w = int(2 * self.null_radius_knm + 1)
+            for ii in range(all_spots.shape[1]):
+                toolbox.imprint(
+                    self.target,
+                    (np.rint(all_spots[0, ii]), w, np.rint(all_spots[1, ii]), w),
+                    0, centered=True, circular=True,
+                )
         self.target[self.spot_knm_rounded[1, :], self.spot_knm_rounded[0, :]] = self.spot_amp
         self.target /= Hologram._norm(self.target)
+        # Edited in place: a sampled fingerprint could miss the change.
+        self.__dict__.get("_dev_cache", {}).pop("target", None)
 
         if reset_weights:
             self.reset_weights()
@@ -490,10 +554,7 @@ class SpotHologram(_AbstractSpotHologram):
             # A simulated rig that the device measurement models exactly:
             # the whole camera-in-the-loop iteration runs on the device.
             return "experimental_spot_sim"
-        raise NotImplementedError(
-            f"Feedback '{feedback}' needs the stepwise host loop "
-            "(ROADMAP.md queue 1, item 6)."
-        )
+        return "external_spot"  # The host loop updates the weights.
 
     def _device_stat_groups(self):
         allowed = {"computational", "computational_spot"}
@@ -552,6 +613,79 @@ class SpotHologram(_AbstractSpotHologram):
             sim_consts, _ = self._sim_engine_inputs()
             consts.update(sim_consts)
             consts["sim_scale"] = self._sim_scale()
+
+    # ------------------------------------------------------------------
+    # The host loop's weighting and stats.
+    # ------------------------------------------------------------------
+
+    def _update_weights(self):
+        """The spot weights from the computed (``computational_spot``),
+        camera-measured (``experimental_spot``) or given (``external_spot``)
+        spot amplitudes; only the ``(N,)`` feedback crosses to the device,
+        where the weights are updated at the rounded spot pixels."""
+        feedback = self.flags["feedback"]
+        if feedback == "experimental":
+            warnings.warn(
+                "SpotHologram feedback 'experimental' is interpreted as 'experimental_spot'"
+            )
+            feedback = self.flags["feedback"] = "experimental_spot"
+
+        if feedback == "computational":
+            super()._update_weights()
+            return
+
+        if feedback == "computational_spot":
+            amp_feedback = np.sqrt(analysis.take(
+                np.square(np.asarray(self.amp_ff)), self.spot_knm_rounded,
+                self.spot_integration_width_knm, centered=True, integrate=True,
+            ))
+        elif feedback == "experimental_spot":
+            fast = self._sim_spot_powers()
+            if fast is not None:
+                amp_feedback = np.sqrt(fast[0])
+            else:
+                self.measure(basis="ij")
+                amp_feedback = np.sqrt(analysis.take(
+                    np.square(np.asarray(self.img_ij, dtype=self.dtype)), self.spot_ij,
+                    self.spot_integration_width_ij, centered=True, integrate=True,
+                ))
+        elif feedback == "external_spot":
+            amp_feedback = self.external_spot_amp
+        else:
+            raise ValueError(f"Feedback '{feedback}' not recognized.")
+
+        def dev(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+        rows, cols = self.spot_knm_rounded[1, :], self.spot_knm_rounded[0, :]
+        center = torch.as_tensor(rows * self.shape[1] + cols, device=self.device)
+        weights = type(self).weights.device(self, self.device).clone(
+            memory_format=torch.contiguous_format)
+        flat = weights.view(-1)
+        flat[center] = update_weights_generic(
+            flat[center], dev(amp_feedback), dev(self.spot_amp), self.flags["method"],
+            self.flags.get("feedback_exponent", 0.8), self.flags.get("feedback_factor", 0.1),
+        )
+        self.weights = weights
+
+    def _populate_stats(self, stats, stat_groups):
+        super()._populate_stats(stats, stat_groups)
+        if "computational_spot" in stat_groups:
+            amp_ff = np.asarray(self.amp_ff)
+            if tuple(self.shape) == tuple(self.slm_shape):
+                feedback = amp_ff[self.spot_knm_rounded[1, :], self.spot_knm_rounded[0, :]]
+                total = np.sum(np.square(amp_ff))
+            else:
+                pwr_ff = np.square(amp_ff)
+                feedback = np.sqrt(analysis.take(
+                    pwr_ff, self.spot_knm, self.spot_integration_width_knm,
+                    centered=True, integrate=True,
+                ))
+                total = np.sum(pwr_ff)
+            stats["computational_spot"] = self._calculate_stats(
+                feedback, self.spot_amp, efficiency_compensation=False, total=total,
+                raw=bool(self.flags.get("raw_stats")),
+            )
 
 
 class CompressedSpotHologram(_AbstractSpotHologram):
@@ -740,18 +874,6 @@ class CompressedSpotHologram(_AbstractSpotHologram):
     # Engine integration.
     # ------------------------------------------------------------------
 
-    def _dev_const(self, key, host, make):
-        """``make(host)``, kept on the device across calls while ``host`` is
-        the same array with the same fingerprint."""
-        cache = self.__dict__.setdefault("_dev_cache", {})
-        fp = self._host_fingerprint(host)
-        cached = cache.get(key)
-        if cached is not None and cached[0] is host and cached[1] == fp:
-            return cached[2]
-        dev = make(host)
-        cache[key] = (host, fp, dev)
-        return dev
-
     def _kernel_cache_enabled(self):
         """Whether the loop streams the cos/sin cache instead of recomputing
         the sincos: when the cache fits ``SLMSUITE_TORCH_COMPRESSED_CACHE_MB``
@@ -855,7 +977,10 @@ class CompressedSpotHologram(_AbstractSpotHologram):
     def optimize_gs(self, maxiter, callback, verbose=True, name=None):
         """Compressed GS/WGS on the engine, in chunks (progress reporting
         between chunks when ``verbose``), with one packed download at the
-        end."""
+        end; a callback, ``"external_spot"`` feedback, host stats or MRAF
+        with ``zero_factor`` (whose complex zero weights the engine does
+        not carry) take the host-paced loop, one
+        :meth:`_stepwise_compressed` per iteration."""
         if isinstance(maxiter, range):
             maxiter = len(maxiter)
 
@@ -863,33 +988,43 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         if feedback == "computational":
             feedback = self.flags["feedback"] = "computational_spot"
         if feedback == "experimental":
-            feedback = self.flags["feedback"] = "experimental_spot"
-
-        if (
-            callback is not None
-            or self._stats_pending_groups()
-            or feedback in ("experimental_spot", "external_spot")
-            or (bool(self.flags.get("zero_factor", 0)) and self._mraf_enabled())
-        ):
-            raise NotImplementedError(
-                "The host-paced compressed loop (callbacks, experimental or external "
-                "feedback, MRAF with zero_factor) is not ported yet (ROADMAP.md queue 1, "
-                "item 6)."
+            warnings.warn(
+                "CompressedSpotHologram feedback 'experimental' is interpreted "
+                "as 'experimental_spot'"
             )
+            feedback = self.flags["feedback"] = "experimental_spot"
+        if feedback == "experimental_spot" or any(
+            "experimental" in g for g in self.flags.get("stat_groups", [])
+        ):
+            raise NotImplementedError(_COMPRESSED_CAMERA)
 
-        config = self._compressed_config(kernel_cache=self._kernel_cache_enabled())
+        host_loop = (
+            callback is not None
+            or bool(self._stats_pending_groups())
+            or feedback == "external_spot"
+            or (bool(self.flags.get("zero_factor", 0)) and self._mraf_enabled())
+        )
+        config = self._compressed_config(
+            kernel_cache=not host_loop and self._kernel_cache_enabled()
+        )
         consts = self._compressed_consts(kernel_cache=config.kernel_cache)
         state = self._compressed_state()
         start_iter = self.iter
+        progress = self._progress(maxiter, verbose, name)
 
-        progress = None
-        if verbose and maxiter > 1:
-            try:
-                from tqdm.auto import tqdm
-            except ImportError:
-                tqdm = None
-            if tqdm is not None:
-                progress = tqdm(total=maxiter, desc=name)
+        if host_loop:
+            for _ in range(maxiter):
+                state = self._stepwise_compressed(state, consts, config, callback)
+                if progress is not None:
+                    progress.update(1)
+                if self._break_requested:
+                    break
+            if progress is not None:
+                progress.close()
+            self._sync_compressed_state(state)
+            self._populate_results()
+            return
+
         chunk = maxiter if not verbose else max(1, int(np.ceil(maxiter / 10)))
         all_stats = []
         remaining = maxiter
@@ -904,6 +1039,98 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             progress.close()
 
         self._finalize_scan_fused(state, all_stats, config, consts, start_iter)
+
+    #: The evolving complex zero weights of the null spots (``zero_factor``
+    #: MRAF in the host loop); kept across calls, as in the JAX package.
+    _zero_weights_c = None
+
+    def _stepwise_compressed(self, state, consts, config, callback):
+        """
+        One host-paced compressed iteration: the entry transform
+        (:meth:`slmsuite_torch.ops.compressed.nearfield_to_farfield`, kernel
+        ``n2f``) on the device and one download of the spot farfield and
+        weights; the callback, stats and weight update on the host; the
+        constraint (with the per-spot MRAF mix and the ``zero_factor``
+        weights) and the exit transform (:meth:`~slmsuite_torch.ops.
+        compressed.farfield_to_nearfield`, kernel ``f2n``) on the device.
+        Returns the next state (the same state when the callback stops).
+        """
+        self._break_requested = False
+        N = len(self)
+        ff_re, ff_im = _comp.nearfield_to_farfield(
+            *_comp.nearfield(state.psi, consts["amp"]), consts["coeffs"], consts["basis"]
+        )
+        packed = torch.cat([
+            ff_re, ff_im, state.weights.to(torch.float32),
+            state.iteration.to(torch.float32)[None],
+        ]).cpu().numpy()
+        ff_re_h, ff_im_h = packed[:N], packed[N:2 * N]
+        self.amp_ff = np.sqrt(ff_re_h**2 + ff_im_h**2)
+        theta = np.arctan2(ff_im_h, ff_re_h)
+        self._midloop_cleaning()
+        self.weights = packed[2 * N:3 * N].copy()
+        self.iter = int(packed[3 * N])
+
+        if callback is not None and callback(self):
+            self._break_requested = True
+            return state
+        self._update_stats(self.flags["stat_groups"])
+
+        was_not_fixed = not self.flags.get("fixed_phase", False)
+        if "WGS" in self.flags["method"] and self.iter > 0:
+            self._update_weights()
+            self._kim_decision_host()
+        if was_not_fixed or not type(self)._phase_ff_folded.is_set(self):
+            self._phase_ff_folded = theta
+
+        def dev(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+        weights = dev(np.nan_to_num(np.asarray(self.weights, np.float32)))
+        phase_ff = dev(self._phase_ff_folded)
+        ffp_re, ffp_im = weights * torch.cos(phase_ff), weights * torch.sin(phase_ff)
+        if config.mraf:
+            zero_re = zero_im = None
+            zf = float(self.flags.get("zero_factor", 0) or 0)
+            if zf:
+                target = np.asarray(self.target, float)
+                null = ~np.isnan(target) & ~(np.nan_to_num(target) > 0)
+                if self._zero_weights_c is None:
+                    self._zero_weights_c = np.zeros(N, np.complex64)
+                fz = ff_re_h + 1j * ff_im_h
+                self._zero_weights_c -= np.where(null, zf * np.abs(fz) * fz, 0).astype(
+                    np.complex64)
+                zero_re, zero_im = dev(self._zero_weights_c.real), dev(self._zero_weights_c.imag)
+            ffp_re, ffp_im = _comp.apply_compressed_mraf_mix(
+                ffp_re, ffp_im, ff_re, ff_im, consts, zero_re=zero_re, zero_im=zero_im
+            )
+        nfp_re, nfp_im = _comp.farfield_to_nearfield(
+            ffp_re, ffp_im, consts["coeffs"], consts["basis"]
+        )
+        return _comp.CompressedGSState(
+            psi=torch.atan2(nfp_im, nfp_re),
+            weights=weights,
+            phase_ff=phase_ff,
+            fixed_phase=torch.tensor(bool(self.flags.get("fixed_phase", False)),
+                                     device=self.device),
+            unfixed_streak=state.unfixed_streak,
+            iteration=state.iteration + 1,
+        )
+
+    def _sync_compressed_state(self, state):
+        """Adopt the host loop's final state (psi stays on the device; one
+        download for the rest)."""
+        N = len(self)
+        packed = torch.cat([
+            state.weights.to(torch.float32), state.phase_ff.to(torch.float32),
+            torch.stack([state.fixed_phase.to(torch.float32),
+                         state.iteration.to(torch.float32)]),
+        ]).cpu().numpy()
+        self._psi = state.psi.reshape(self.slm_shape)
+        self.weights = packed[:N].copy()
+        self._phase_ff_folded = packed[N:2 * N].copy()
+        self.flags["fixed_phase"] = self._final_fixed_phase = bool(packed[2 * N])
+        self.iter = int(packed[2 * N + 1])
 
     def _finalize_scan_fused(self, state, all_stats, config, consts, start_iter):
         """Adopt the final state, the farfield of the final phase and the
@@ -973,7 +1200,7 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         """Gradient descent through the compressed transform."""
         raise NotImplementedError(
             "Conjugate-gradient optimization of compressed holograms is not ported yet "
-            "(ROADMAP.md queue 1, item 6)."
+            "(ROADMAP.md queue 1, item 6b)."
         )
 
     # ------------------------------------------------------------------
@@ -981,21 +1208,31 @@ class CompressedSpotHologram(_AbstractSpotHologram):
     # ------------------------------------------------------------------
 
     def _update_weights(self):
-        """Host-side weight update from the computed spot amplitudes."""
+        """The host loop's weight update (on the host: ``(N,)`` vectors)
+        from the computed (``computational_spot``) or given
+        (``external_spot``) spot amplitudes; camera feedback needs a
+        CameraSLM (item 9)."""
         feedback = self.flags["feedback"]
         if feedback == "computational":
             feedback = self.flags["feedback"] = "computational_spot"
-        if feedback != "computational_spot":
-            raise NotImplementedError(
-                f"Feedback '{feedback}' needs the host-paced loop (ROADMAP.md queue 1, "
-                "items 6 and 9)."
-            )
+        if feedback == "experimental":
+            feedback = self.flags["feedback"] = "experimental_spot"
+
+        if feedback == "computational_spot":
+            amp_feedback = self.amp_ff
+        elif feedback == "external_spot":
+            amp_feedback = self.external_spot_amp
+        elif feedback == "experimental_spot":
+            raise NotImplementedError(_COMPRESSED_CAMERA)
+        else:
+            raise ValueError(f"Feedback '{feedback}' not recognized.")
 
         def host(x):
             return torch.as_tensor(np.nan_to_num(np.asarray(x, np.float32)))
 
         self.weights = update_weights_generic(
-            host(self.weights), host(self.amp_ff), host(self.target), self.flags["method"],
+            host(self.weights), torch.as_tensor(np.asarray(amp_feedback, np.float32)),
+            host(self.target), self.flags["method"],
             self.flags.get("feedback_exponent", 0.8), self.flags.get("feedback_factor", 0.1),
         ).numpy()
 

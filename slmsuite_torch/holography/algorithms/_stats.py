@@ -2,10 +2,12 @@
 Statistics bookkeeping for holograms (port of the stats-recording part of
 :mod:`slmsuite_tpu.holography.algorithms._stats`).
 
-The per-iteration metrics are computed on the device inside the loop
-(:mod:`slmsuite_torch.ops.engine`) and folded here into the reference's
-stats dictionary, ``holo.stats["stats"][group][metric]``. HDF5 save/load
-imports its helpers when called.
+The engine computes the per-iteration metrics on the device inside its
+loop (:mod:`slmsuite_torch.ops.engine`), and :meth:`_record_scan_stats`
+folds them into the reference's stats dictionary,
+``holo.stats["stats"][group][metric]``; the stepwise host loop records each
+iteration with :meth:`_update_stats`. HDF5 save/load imports its helpers
+when called.
 """
 
 import numpy as np
@@ -67,7 +69,8 @@ class _HologramStats:
             self.flags["fixed_phase"] = bool(self._final_fixed_phase)
 
     def _update_stats(self, stat_groups=()):
-        """Compute and record the host-side stats of the current iteration."""
+        """Compute and record the stats of the current iteration (the
+        stepwise host loop)."""
         stats = {}
         self._populate_stats(stats, stat_groups)
         self._update_stats_dictionary(stats)
@@ -123,6 +126,12 @@ class _HologramStats:
                         series.extend([np.nan] * (iteration + 1 - len(series)))
                     if group in stats and stat in stats[group]:
                         series[iteration] = stats[group][stat]
+
+        if self.flags.get("raw_stats"):
+            raw = self.stats.setdefault("raw_farfield", [])
+            if iteration + 1 - len(raw) > 0:
+                raw.extend([np.nan] * (iteration + 1 - len(raw)))
+            raw[iteration] = np.asarray(self.get_farfield())
 
     # ------------------------------------------------------------------
     # Persistence (HDF5; helpers imported on use).

@@ -1,5 +1,5 @@
 """
-The vector, unit and grid helpers the port's hologram classes and SLM
+The vector, unit, grid and window helpers the port's hologram classes and SLM
 need, with the semantics of :mod:`slmsuite_tpu.holography.toolbox`
 (numpy and scipy only).
 
@@ -13,7 +13,7 @@ import warnings
 import numpy as np
 from scipy.spatial import distance
 
-from slmsuite_torch.misc.math import REAL_TYPES  # noqa: F401
+from slmsuite_torch.misc.math import REAL_TYPES
 
 #: Microns per unit of length.
 LENGTH_FACTORS = {"m": 1e6, "cm": 1e4, "mm": 1e3, "um": 1.0, "nm": 1e-3}
@@ -354,3 +354,85 @@ def transform_grid(grid, transform=None, shift=None, direction="fwd"):
         inv[0, 0] * (x_grid - shift[0]) + inv[0, 1] * (y_grid - shift[1]),
         inv[1, 0] * (x_grid - shift[0]) + inv[1, 1] * (y_grid - shift[1]),
     )
+
+
+def window_slice(window, shape=None, centered=False, circular=False):
+    """
+    Indices into a larger array from a window: an ``(x, w, y, h)``
+    rectangle (upper-left corner ``(x, y)``, or the center when
+    ``centered``; ``circular`` takes the inscribed ellipse as index
+    arrays), ``(y_indices, x_indices)`` index arrays, or a 2D boolean mask.
+    ``shape`` clips the indices into a ``(height, width)`` array.
+    """
+    if shape is not None:
+        shape = format_shape(shape)
+
+    if len(window) == 4:
+        x0 = int(window[0] - ((window[1] - 2) / 2 if centered else 0))
+        x1 = x0 + int(window[1])
+        y0 = int(window[2] - ((window[3] - 2) / 2 if centered else 0))
+        y1 = y0 + int(window[3])
+
+        if shape is not None:
+            x0, x1 = np.clip([x0, x1], 0, shape[1] - 1)
+            y0, y1 = np.clip([y0, y1], 0, shape[0] - 1)
+
+        if circular:
+            x_grid, y_grid = np.meshgrid(np.arange(x0, x1), np.arange(y0, y1))
+            xc = x0 + int((window[1] - 1) / 2)
+            yc = y0 + int((window[3] - 1) / 2)
+            # The ellipse inscribed in the w x h rectangle.
+            rr = (window[3] ** 2) * np.square(x_grid.astype(float) - xc) + (
+                window[1] ** 2
+            ) * np.square(y_grid.astype(float) - yc)
+            mask = rr <= (window[1] ** 2) * (window[3] ** 2) / 4.0
+            return window_slice((y_grid[mask], x_grid[mask]), shape=shape)
+        return (slice(y0, y1), slice(x0, x1))
+
+    if len(window) == 2:
+        y_ind = np.ravel(window[0])
+        x_ind = np.ravel(window[1])
+        if shape is not None:
+            y_ind = np.clip(y_ind, 0, shape[0] - 1)
+            x_ind = np.clip(x_ind, 0, shape[1] - 1)
+        return (y_ind, x_ind)
+
+    if np.ndim(window) == 2:
+        return window
+
+    raise ValueError("Unrecognized format for `window`.")
+
+
+def imprint(matrix, window, function, grid=None, imprint_operation="replace",
+            centered=False, circular=False, clip=True, transform=0, shift=(0, 0),
+            **kwargs):
+    """
+    Write ``function`` (a constant, or ``f(grid, **kwargs)`` on the
+    window's part of ``grid``) into the :meth:`window_slice` of ``matrix``
+    in place, replacing (``imprint_operation="replace"``) or adding
+    (``"add"``). ``clip`` clips the window to the matrix; ``transform`` and
+    ``shift`` go to :meth:`transform_grid`. Returns ``matrix``.
+    """
+    if grid is not None:
+        x_grid, y_grid = _process_grid(grid)
+
+    slice_ = window_slice(
+        window, shape=(matrix.shape if clip else None), centered=centered, circular=circular
+    )
+
+    if isinstance(function, REAL_TYPES):
+        value = function
+    elif grid is None:
+        raise ValueError("grid is required when function is not a constant.")
+    else:
+        value = function(
+            transform_grid((x_grid[slice_], y_grid[slice_]), transform, shift), **kwargs
+        )
+
+    if imprint_operation == "replace":
+        matrix[slice_] = value
+    elif imprint_operation == "add":
+        matrix[slice_] += value
+    else:
+        raise ValueError(f"Unrecognized imprint operation '{imprint_operation}'.")
+    return matrix

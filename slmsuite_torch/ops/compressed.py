@@ -340,15 +340,19 @@ def fused_iteration_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels):
     return _fused_iteration_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels)
 
 
-def apply_compressed_mraf_mix(ffp_re, ffp_im, ff_re, ff_im, consts):
+def apply_compressed_mraf_mix(ffp_re, ffp_im, ff_re, ff_im, consts,
+                              zero_re=None, zero_im=None):
     """Per-spot MRAF: signal spots take the constraint (``ffp``), noise
     (nan ``spot_amp``) spots keep the unit-norm farfield times
-    ``consts["mraf_k"]``, null (zero) spots take 0."""
+    ``consts["mraf_k"]``, null (zero) spots take ``zero_re``/``zero_im``
+    (the host loop's evolving ``zero_factor`` weights) when given, else 0."""
     sig, noi = consts["signal_mask"], consts["noise_mask"]
     k = consts["mraf_k"]
+    zr = 0.0 if zero_re is None else zero_re
+    zi = 0.0 if zero_im is None else zero_im
     return (
-        torch.where(sig, ffp_re, torch.where(noi, k * ff_re, 0.0)),
-        torch.where(sig, ffp_im, torch.where(noi, k * ff_im, 0.0)),
+        torch.where(sig, ffp_re, torch.where(noi, k * ff_re, zr)),
+        torch.where(sig, ffp_im, torch.where(noi, k * ff_im, zi)),
     )
 
 

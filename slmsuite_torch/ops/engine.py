@@ -12,10 +12,10 @@ steps:
   :meth:`_mraf_fused_active`: Leonardo and Kim with an MRAF target),
   whose three kernels per iteration are
   :meth:`slmsuite_torch.ops.fft.mraf_carry_step`;
-- the natural step (:meth:`_make_natural_step`) for every other ported
+- the natural step (:meth:`_make_natural_step`) for every other
   configuration: GS and all five WGS rules, ``computational``,
-  ``computational_spot`` and ``experimental_spot_sim`` feedback and
-  stats, padded farfields (``shape != slm_shape``), propagation kernels
+  ``computational_spot``, ``experimental_spot_sim``, ``external`` and
+  ``external_spot`` feedback and stats, padded farfields (``shape != slm_shape``), propagation kernels
   and MRAF. Its transforms
   are :meth:`slmsuite_torch.ops.fft.fft2_polar_from_phase` and
   :meth:`~slmsuite_torch.ops.fft.wexp_ifft2_phase` (MRAF:
@@ -32,9 +32,11 @@ are stacked once per run.
 ``experimental_spot_sim`` closes the camera loop on the device for a
 simulated rig: :meth:`sim_measure_spots` forms the quantized display, the
 farfield on the camera's canvas, the camera frame and the spot-window sums
-from psi inside the step, with no host hop. Feedback measured on the host
-raises :class:`NotImplementedError` naming the ROADMAP item that brings
-it.
+from psi inside the step, with no host hop. ``external`` and
+``external_spot`` feedback leave the weights to the host (the stepwise host
+loop of the hologram classes updates them between iterations), and a stat
+group the device does not compute gives a row of nan, as in the JAX
+package.
 """
 
 import dataclasses
@@ -77,6 +79,11 @@ class GSConfig:
     method: str
     shape: tuple
     slm_shape: tuple
+    #: ``computational`` and ``computational_spot`` update the weights on
+    #: the device from the computed farfield; ``experimental_spot_sim``
+    #: closes the simulated rig's camera loop on the device
+    #: (:meth:`sim_measure_spots`); ``external`` and ``external_spot`` leave
+    #: the weights to the host between stepwise calls.
     feedback: str = "computational"
     stat_groups: tuple = ()
     mraf: bool = False
@@ -154,10 +161,10 @@ def _carry_active(config: GSConfig):
     return _fused_active(config) or _mraf_fused_active(config)
 
 
-#: Feedback modes and stat groups the device computes; the others are
-#: measured on the host.
+#: Feedback modes whose weights the device updates, and those whose
+#: weights the host updates.
 _DEVICE_FEEDBACK = ("computational", "computational_spot", "experimental_spot_sim")
-_DEVICE_STAT_GROUPS = ("computational", "computational_spot", "experimental_spot")
+_HOST_FEEDBACK = ("external", "external_spot")
 
 
 def _needs_sim_measure(config: GSConfig):
@@ -168,22 +175,20 @@ def _needs_sim_measure(config: GSConfig):
     )
 
 
-def _unported(config: GSConfig):
-    """The NotImplementedError for a configuration the port does not run
-    yet, naming the ROADMAP item that brings it, or None."""
-    if config.feedback in _DEVICE_FEEDBACK and all(
-        g in _DEVICE_STAT_GROUPS for g in config.stat_groups
-    ):
-        if _needs_sim_measure(config) and not config.sim_shape_padded:
-            return ValueError(
-                "The simulated camera's statics (sim_bitres, sim_cam_sat, "
-                "sim_truncates, sim_shape_padded) are missing from the config."
-            )
-        return None
-    return NotImplementedError(
-        f"slmsuite_torch does not run feedback '{config.feedback}' / stat groups "
-        f"{config.stat_groups} yet: the stepwise host loop (ROADMAP.md queue 1, item 6)."
-    )
+def _config_error(config: GSConfig):
+    """The ValueError for a configuration the engine cannot run (an unknown
+    feedback mode, or the simulated camera without its statics), or None."""
+    if config.feedback not in _DEVICE_FEEDBACK + _HOST_FEEDBACK:
+        return ValueError(
+            f"Unknown engine feedback '{config.feedback}'; the engine takes "
+            f"{_DEVICE_FEEDBACK + _HOST_FEEDBACK}."
+        )
+    if _needs_sim_measure(config) and not config.sim_shape_padded:
+        return ValueError(
+            "The simulated camera's statics (sim_bitres, sim_cam_sat, "
+            "sim_truncates, sim_shape_padded) are missing from the config."
+        )
+    return None
 
 
 def sim_measure_spots(psi, consts, *, bitres, cam_sat, truncates, shape_padded):
@@ -430,7 +435,8 @@ def _spot_feedback_amp(amp_ff_sq, consts):
 
 def _compute_group_stats(group, config, consts, amp_ff, spot_feedback,
                          sim_measured=None):
-    """Length-4 stats vector for one device stat group."""
+    """Length-4 stats vector for one stat group: nan for a group the host
+    computes."""
     if group == "computational":
         return calculate_stats(
             amp_ff, consts["target"], mask=consts["stat_mask"],
@@ -443,7 +449,8 @@ def _compute_group_stats(group, config, consts, amp_ff, spot_feedback,
             torch.sqrt(sim_spot_pwr), consts["spot_amp"], mask=consts["spot_amp"] != 0,
             efficiency_compensation=False, total=sim_total,
         )
-    # computational_spot
+    if group != "computational_spot":
+        return consts["_nan"].expand(4)
     total = torch.square(amp_ff).sum()
     if config.spot_single_px:
         # One-pixel spots: no integration.
@@ -534,6 +541,8 @@ def _make_natural_step(config: GSConfig):
                 updated = update_weights_generic(
                     weights, amp_ff, consts["target"], **rule_kw
                 )
+            elif config.feedback in _HOST_FEEDBACK:
+                updated = weights  # The host updates them between calls.
             else:
                 center = consts["spot_center_idx"]
                 if config.feedback == "experimental_spot_sim":
@@ -620,7 +629,7 @@ def make_gs_step(config: GSConfig):
     fixed_phase, 0, 0]``. The carry-mode steps need the constants of
     :meth:`_augment_fused_consts`, the natural step those of
     :meth:`_augment_natural_consts`."""
-    err = _unported(config)
+    err = _config_error(config)
     if err is not None:
         raise err
     if _fused_active(config):
@@ -753,9 +762,9 @@ def set_scrambled_mode(enable):
 
 
 def _provision_fused(config: GSConfig, state: GSState):
-    """Raise for an unported configuration; give the fused loop its
-    deferred-normalization scalar."""
-    err = _unported(config)
+    """Raise for a configuration the engine cannot run; give the fused
+    loop its deferred-normalization scalar."""
+    err = _config_error(config)
     if err is not None:
         raise err
     if _carry_active(config) and state.w_norm is None:

@@ -9,8 +9,10 @@ the *folded* phase :math:`\psi = \phi + \pi(i+j)` absorbs the input
 checkerboard, so the GS loop runs on plain ``fft2`` output; only the
 user-facing conversions below apply the checkerboard and the sign.
 
-These functions run once per ``optimize`` call, outside the loop, so they
-use ``torch.fft``.
+The transforms go through the dispatchers of :mod:`slmsuite_torch.ops.fft`
+(the CUDA kernels for a CUDA plane). They run outside the engine's loop,
+once per ``optimize`` call, and once per iteration of the stepwise host
+loop (:meth:`forward_fields`, :meth:`stepwise_backward`).
 """
 
 import functools
@@ -140,3 +142,40 @@ def forward_fields(psi, amp, shape, kernel=None):
     amplitude and phase."""
     farfield = _folded_farfield(psi, amp, shape, kernel)
     return farfield, torch.abs(farfield), torch.angle(farfield)
+
+
+def stepwise_backward(config):
+    """
+    The constraint and backward transform of the stepwise host loop,
+    ``backward(farfield, weights, phase_ff, consts) -> psi``, for an
+    engine ``config`` (``slmsuite_tpu``'s ``_stepwise_backward``).
+    ``farfield`` is the folded complex farfield of :meth:`forward_fields`.
+
+    Without MRAF the constraint ``w e^{i phase_ff}`` goes straight to
+    :meth:`slmsuite_torch.ops.fft.wexp_ifft2_phase` (kernels
+    ``cols_wexp_inv`` and ``carry_exit``), whose canvas angle is cut to the
+    SLM window. With MRAF the signal region takes the constraint, the
+    noise region the farfield (times ``mraf_factor`` when set) and the zero
+    region 0; then :meth:`~slmsuite_torch.ops.fft.ifft2` (``cols_fft`` and
+    ``rows_fft``) and :meth:`extract_folded_phase`. The propagation
+    kernel, if any, is subtracted from psi.
+    """
+    slm_shape = tuple(config.slm_shape)
+
+    def backward(farfield, weights, phase_ff, consts):
+        kernel = consts["kernel"] if config.has_kernel else None
+        if not config.mraf:
+            y0, y1, x0, x1 = pad_window_slices(tuple(weights.shape), slm_shape)
+            psi = _fft.wexp_ifft2_phase(weights, phase_ff)[y0:y1, x0:x1].contiguous()
+            return psi if kernel is None else psi - kernel
+        re, im = weights * torch.cos(phase_ff), weights * torch.sin(phase_ff)
+        re = torch.where(consts["signal_mask"], re, farfield.real)
+        im = torch.where(consts["signal_mask"], im, farfield.imag)
+        if config.mraf_factor:
+            noise, k = consts["noise_mask"], consts["mraf_factor"]
+            re, im = torch.where(noise, k * re, re), torch.where(noise, k * im, im)
+        zero = consts["zero_mask"]
+        re, im = torch.where(zero, 0.0, re), torch.where(zero, 0.0, im)
+        return extract_folded_phase(*_fft.ifft2(re, im), slm_shape, kernel)
+
+    return backward

@@ -566,7 +566,8 @@ def test_rectangular_array_bases_match_jax(basis):
 
 def test_measure_matches_jax():
     """``measure`` writes the phase to the SLM and caches the frame's
-    amplitude; a new phase clears the cache."""
+    amplitude; a new phase clears the cache; ``measure("knm")`` resamples
+    the cached frame into the computational basis."""
     tfs, jfs = _rigs()
     tholo, jholo = _holograms(tfs, jfs)
     for holo in (tholo, jholo):
@@ -578,8 +579,13 @@ def test_measure_matches_jax():
     assert tholo.img_ij is cached
     tholo.optimize("GS", maxiter=1, verbose=False)
     assert tholo.img_ij is None
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tholo.measure("knm")
+    tholo, jholo = _holograms(tfs, jfs)
+    for holo in (tholo, jholo):
+        holo.cameraslm.cam.set_exposure(30.0)  # Counts to resample.
+        holo.measure("knm")
+    scale = np.nanmax(jholo.img_knm)
+    np.testing.assert_allclose(tholo.img_knm / scale, jholo.img_knm / scale, atol=1e-2,
+                               equal_nan=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         tholo.refine_offset()
 
@@ -677,7 +683,9 @@ def _disqualify(fs, how):
                                  "no_affine", "window_off_frame", "no_cameraslm"])
 def test_sim_engine_inputs_disqualifications(how):
     """A rig the device measurement does not model gives None in both
-    packages; the port's loop then raises, naming the host loop's item."""
+    packages; camera feedback and camera stats then take the host loop,
+    whose measured stats agree with the JAX package's, or, with no frame
+    to integrate (a window off the frame, no camera), raise in both."""
     tfs, jfs = _rigs()
     tholo, jholo = _holograms(tfs, jfs)
     assert tholo._sim_engine_inputs() is not None
@@ -692,10 +700,25 @@ def test_sim_engine_inputs_disqualifications(how):
     assert tholo._sim_engine_inputs() is None and jholo._sim_engine_inputs() is None
     assert tholo._sim_spot_powers() is None
     assert "experimental_spot" in tholo._stats_pending_groups() or not tholo.flags
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tholo.optimize("WGS-Kim", maxiter=2, verbose=False, feedback="experimental_spot")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tholo.optimize("WGS-Kim", maxiter=2, verbose=False, stat_groups=["experimental_spot"])
+
+    def run(holo):
+        holo.optimize("WGS-Kim", maxiter=2, verbose=False, feedback="experimental_spot",
+                      stat_groups=["experimental_spot"])
+        holo.optimize("WGS-Kim", maxiter=2, verbose=False, stat_groups=["experimental_spot"])
+        return holo.stats["stats"]["experimental_spot"]
+
+    if how in ("window_off_frame", "no_cameraslm"):
+        for holo in (tholo, jholo):
+            with pytest.raises((IndexError, RuntimeError, AttributeError)):
+                run(holo)
+        return
+    for holo in (tholo, jholo):
+        holo.cameraslm.cam.set_exposure(20.0)
+    tstats, jstats = run(tholo), run(jholo)
+    assert tholo._engine_feedback() == jholo._engine_feedback() == "external_spot"
+    assert tholo.iter == jholo.iter == 4
+    for key in ("uniformity", "efficiency"):
+        np.testing.assert_allclose(tstats[key], jstats[key], atol=LOOP_STAT_ATOL, err_msg=key)
 
 
 def test_sim_engine_inputs_cache_follows_content():

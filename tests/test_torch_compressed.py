@@ -756,15 +756,20 @@ class _FakeCameraSLM:
 
 
 def test_compressed_unported_paths_raise():
-    """The host-paced loop and CG (item 6), mesh runs (item 11) and
-    CameraSLMs (item 9) raise, naming their ROADMAP item; a ``cuda`` flag
-    that contradicts the device raises ValueError."""
+    """CG (item 6b), mesh runs (item 11), CameraSLMs and camera feedback
+    (item 9) raise, naming their ROADMAP item; the host-paced loop
+    (callbacks, external feedback, MRAF with zero_factor), which raised
+    before it was ported, runs (``tests/test_torch_hostloop.py`` holds it
+    against the JAX package); a ``cuda`` flag that contradicts the device
+    raises ValueError."""
     tslm, _ = _slms()
     vectors, _ = _spots("2d")
     holo = T.CompressedSpotHologram(vectors, cameraslm=tslm)
-    for kwargs in (dict(callback=lambda h: False), dict(feedback="experimental_spot"),
-                   dict(feedback="external_spot"), dict(stat_groups=["experimental_spot"])):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    for kwargs in (dict(callback=lambda h: False), dict(feedback="external_spot")):
+        holo.optimize("WGS-Kim", maxiter=2, verbose=False, **kwargs)
+    assert holo.iter == 4
+    for kwargs in (dict(feedback="experimental_spot"), dict(stat_groups=["experimental_spot"])):
+        with pytest.raises(NotImplementedError, match="item 9"):
             holo.optimize("WGS-Kim", maxiter=2, verbose=False, **kwargs)
     with pytest.raises(NotImplementedError, match="item 6"):
         holo.optimize("CG", maxiter=2, verbose=False)
@@ -772,9 +777,10 @@ def test_compressed_unported_paths_raise():
         holo.optimize("WGS-Kim", maxiter=2, verbose=False, mesh=object())
     mraf_amp = np.ones(9)
     mraf_amp[0] = np.nan
+    mraf_amp[1] = 0.0
     mraf = T.CompressedSpotHologram(vectors, spot_amp=mraf_amp, cameraslm=tslm)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mraf.optimize("WGS-Kim", maxiter=2, verbose=False, zero_factor=0.1)
+    mraf.optimize("WGS-Kim", maxiter=2, verbose=False, zero_factor=0.1)
+    assert mraf.iter == 2 and np.abs(mraf._zero_weights_c).max() > 0
     with pytest.raises(NotImplementedError, match="item 9"):
         T.CompressedSpotHologram(vectors, cameraslm=_FakeCameraSLM(tslm))
     with pytest.raises(ValueError, match="laterally"):
@@ -831,7 +837,11 @@ def test_feedback_hologram_takes_a_bare_slm():
     t = T.FeedbackHologram((64, 64), cameraslm=fake)
     assert t.cameraslm is fake and t.slm_shape == (32, 48)
     np.testing.assert_allclose(t.amp, np.asarray(j.amp), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.FeedbackHologram((64, 64), target_ij=np.ones((8, 8)), cameraslm=fake)
+    # Without a Fourier calibration target_ij is kept and not resampled.
+    t = T.FeedbackHologram((64, 64), target_ij=np.ones((8, 8)), cameraslm=fake)
+    j = J.FeedbackHologram((64, 64), target_ij=np.ones((8, 8)), cameraslm=fake)
+    np.testing.assert_array_equal(t.target_ij, j.target_ij)
+    np.testing.assert_array_equal(t.target, np.asarray(j.target))
+    assert t._cam_points is None and j._cam_points is None
     with pytest.raises(ValueError, match="CameraSLM or SLM"):
         T.FeedbackHologram((64, 64), cameraslm=object())

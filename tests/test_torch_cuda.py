@@ -862,3 +862,78 @@ def test_cols_wgs_fwd_zero_field_angle_is_zero(cuda):
         zero, zero, target, target, None, zero + 1.0, scal, rule="wu", kim=True,
         stats_on=False)
     assert torch.equal(pff, zero) and torch.equal(im, zero) and torch.equal(re, wout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, mraf", [((256, 256), False), ((512, 512), False),
+                                         ((256, 256), True), ((512, 512), True)],
+                         ids=["unpadded", "padded", "mraf-unpadded", "mraf-padded"])
+def test_stepwise_backward_kernels_match_plain(cuda, shape, mraf, monkeypatch):
+    """The host loop's backward on the card (``wexp_ifft2_phase`` without
+    MRAF, ``ifft2`` with it; a 256^2 SLM with a propagation kernel, padded
+    into 512^2 or not) against the same function on the plain versions:
+    psi within the psi tolerance, and exactly the counted launches."""
+    from slmsuite_torch.ops import cuda_fft, engine, fft, propagation
+
+    slm_shape = (256, 256)
+    rng = np.random.default_rng(30)
+
+    def dev(x):
+        return torch.as_tensor(x, device=cuda)
+
+    farfield = dev((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                   .astype(np.complex64))
+    weights = dev(rng.uniform(0, 1, shape).astype(np.float32))
+    phase_ff = dev(rng.uniform(-np.pi, np.pi, shape).astype(np.float32))
+    consts = {"kernel": dev(rng.uniform(-1, 1, slm_shape).astype(np.float32))}
+    if mraf:
+        code = rng.integers(0, 3, shape)
+        consts.update(signal_mask=dev(code == 1), noise_mask=dev(code == 2),
+                      zero_mask=dev(code == 0), mraf_factor=dev(np.float32(0.5)))
+    config = engine.GSConfig(method="WGS-Kim", shape=shape, slm_shape=slm_shape,
+                             mraf=mraf, mraf_factor=mraf, has_kernel=True)
+    backward = propagation.stepwise_backward(config)
+    cuda_fft.reset_launch_counts()
+    got = backward(farfield, weights, phase_ff, consts)
+    launched = {k: v for k, v in cuda_fft.LAUNCHES.items() if v}
+    expect = dict(cols_fft=1, rows_fft=1) if mraf else dict(cols_wexp_inv=1, carry_exit=1)
+    assert launched == expect, launched
+    for name in ("ifft2", "wexp_ifft2_phase"):
+        monkeypatch.setattr(fft, name, getattr(fft, "_" + name))
+    ref = backward(farfield, weights, phase_ff, consts)
+    assert got.shape == ref.shape == slm_shape and got.is_contiguous()
+    assert _psi_p99(got, ref) < PSI_P99
+
+
+@pytest.mark.cuda
+def test_host_iteration_launches_the_counted_kernels(cuda):
+    """One host-paced camera iteration on a rig that the device
+    measurement does not model (read noise, averaging 2), on a 128^2 SLM
+    and camera with a 256^2 hologram: the forward ``fft2`` (``rows_fft``,
+    ``cols_fft``), one camera canvas ``fft2`` a frame, and the backward
+    ``wexp_ifft2_phase`` (``cols_wexp_inv``, ``carry_exit``), each counted
+    exactly; the weights and psi stay finite on the card."""
+    from slmsuite_torch.models.engine_models import camera_loop_wgs
+    from slmsuite_torch.ops import cuda_fft
+
+    spots = np.array([[40.0, 64, 88, 64], [64.0, 40, 64, 88]])
+    fs, holo = camera_loop_wgs(spot_ij=spots, shape=(256, 256), slm_side=128, cam_side=128,
+                               M=np.array([[2.0e3, 50.0], [-50.0, 2.0e3]]), device=cuda)
+    rng = np.random.default_rng(31)
+    fs.cam.noise = {"read": lambda x: rng.normal(0.01 * x, 0.002 * x)}
+    fs.cam.averaging = 2
+    fs.cam.set_exposure(20.0)
+    assert holo._sim_engine_inputs() is None
+    holo.optimize("WGS-Kim", maxiter=2, verbose=False)
+    holo._update_flags("WGS-Kim", False, "experimental_spot",
+                       ["computational_spot", "experimental_spot"])
+    config = holo._build_config()
+    assert config.feedback == "external_spot"
+    consts = holo._build_consts(config)
+    cuda_fft.reset_launch_counts()
+    holo._stepwise_iteration(config, consts, None)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in cuda_fft.LAUNCHES.items() if v}
+    assert launched == dict(rows_fft=3, cols_fft=3, cols_wexp_inv=1, carry_exit=1), launched
+    assert holo.iter == 3 and type(holo)._psi.resident(holo).is_cuda
+    assert np.isfinite(holo.get_phase()).all() and np.isfinite(np.asarray(holo.weights)).all()

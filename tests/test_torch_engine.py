@@ -151,22 +151,44 @@ def test_spot_array_wgs_model_matches_jax():
 @pytest.mark.parametrize("change, error, match", [
     (dict(feedback="experimental_spot_sim"), ValueError, "sim_shape_padded"),
     (dict(stat_groups=("experimental_spot",)), ValueError, "sim_shape_padded"),
-    (dict(feedback="external_spot"), NotImplementedError, "ROADMAP"),
-    (dict(stat_groups=("experimental",)), NotImplementedError, "ROADMAP"),
-], ids=["change0", "change1", "change2", "change3"])
+    (dict(feedback="external_spot"), None, None),
+    (dict(stat_groups=("experimental",)), None, None),
+    (dict(feedback="experimental"), ValueError, "Unknown engine feedback"),
+], ids=["change0", "change1", "change2", "change3", "change4"])
 def test_unported_configs_raise(change, error, match):
-    """Host-side feedback or stats raise, naming their ROADMAP item, and
-    the simulated camera in the loop (which runs since it was ported)
-    raises without its camera statics (GS, Nogrette, padded shapes,
-    kernels, computational_spot and MRAF run)."""
-    config = TE.GSConfig(**dict(
-        dict(method="WGS-Kim", shape=(64, 64), slm_shape=(64, 64)), **change
-    ))
-    with pytest.raises(error, match=match):
-        TE.make_gs_step(config)
-    state = TE.init_gs_state(config, np.zeros((64, 64)), np.zeros(config.shape))
-    with pytest.raises(error, match=match):
-        TE.run_gs(config, state, {}, 1)
+    """The simulated camera in the loop raises without its camera statics,
+    and a feedback mode outside the engine's five raises. Host feedback (``external_spot``: the weights are left to the host)
+    and host stats (a row of nan), which raised before the stepwise host
+    loop was ported, run and match the JAX engine."""
+    config = dict(dict(method="WGS-Kim", shape=(64, 64), slm_shape=(64, 64)), **change)
+    if error is not None:
+        tconfig = TE.GSConfig(**config)
+        with pytest.raises(error, match=match):
+            TE.make_gs_step(tconfig)
+        state = TE.init_gs_state(tconfig, np.zeros((64, 64)), np.zeros(tconfig.shape))
+        with pytest.raises(error, match=match):
+            TE.run_gs(tconfig, state, {}, 1)
+        return
+    psi0, target, consts, base = _numpy_inputs(CASES["kim_iter"])
+    config = dict(base, **change)
+    jconfig = JE.GSConfig(**config)
+    jstate, jstats = JE.run_gs(jconfig, JE.init_gs_state(jconfig, psi0, target.copy()),
+                               {k: jnp.asarray(v) for k, v in consts.items()}, 6)
+    tconfig = TE.GSConfig(**config)
+    tstate = TE.init_gs_state(tconfig, psi0, target.copy(), device="cpu")
+    tstate, tstats = TE.run_gs(tconfig, tstate, convert.consts_from_numpy(consts), 6)
+    np.testing.assert_allclose(tstats.numpy(), np.asarray(jstats), atol=STATS_ATOL,
+                               rtol=STATS_RTOL, equal_nan=True)
+    assert np.isnan(tstats.numpy()[:, 0]).all() == ("experimental" in config["stat_groups"])
+    np.testing.assert_allclose(tstate.weights.numpy(), np.asarray(jstate.weights),
+                               atol=WEIGHT_ATOL)
+    if config.get("feedback") == "external_spot":
+        np.testing.assert_array_equal(tstate.weights.numpy(), target)
+    phase_t = tprop.unfold_phase(tstate.psi.numpy(), (N, N))
+    phase_j = tprop.unfold_phase(np.asarray(jstate.psi), (N, N))
+    dp = phase_t - phase_j
+    dp = np.mod(dp - dp.flat[0] + np.pi, 2 * np.pi) - np.pi
+    assert np.abs(dp).max() < PHASE_ATOL
 
 
 @pytest.mark.parametrize("change", [dict(mraf=True), dict(method="GS", mraf=True)])

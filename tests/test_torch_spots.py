@@ -150,26 +150,28 @@ def test_resume_from_jax_arrays():
 
 
 def test_unported_paths_raise():
-    """Callbacks, CG and spot null regions raise, naming their ROADMAP
-    item; the kxy basis without hardware raises as in the JAX package;
-    MRAF (a nan target), which raised before it was ported, runs."""
+    """CG raises, naming its ROADMAP item (6b); the kxy basis without
+    hardware raises as in the JAX package; MRAF (a nan target), callbacks
+    and spot null regions, which raised before they were ported, run
+    (``tests/test_torch_hostloop.py`` holds them against the JAX
+    package)."""
     target = np.ones((64, 64))
     target[:8] = np.nan
     mraf = T.Hologram(target=target)
     mraf.optimize(method="GS", maxiter=2, verbose=False)
     assert mraf.iter == 2 and np.isfinite(mraf.get_phase()).all()
     holo = T.Hologram(target=np.ones((64, 64)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        holo.optimize(method="WGS-Kim", maxiter=2, verbose=False, callback=lambda h: False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    holo.optimize(method="WGS-Kim", maxiter=3, verbose=False, callback=lambda h: h.iter == 1)
+    assert holo.iter == 1
+    with pytest.raises(NotImplementedError, match="item 6b"):
         holo.optimize(method="CG", maxiter=2, verbose=False)
     with pytest.raises(ValueError, match="cameraslm"):
         T.SpotHologram((64, 64), [[10, 20], [10, 20]], basis="kxy")
     with pytest.raises(ValueError, match="cameraslm"):
         J.SpotHologram((64, 64), [[10, 20], [10, 20]], basis="kxy")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.SpotHologram((64, 64), [[10, 20], [10, 20]], basis="knm",
-                       null_vectors=[[30], [30]])
+    nulled = T.SpotHologram((64, 64), [[10, 20], [10, 20]], basis="knm",
+                            null_vectors=[[30], [30]])
+    assert np.isnan(nulled.target).any() and nulled.null_radius_knm == 3
 
 
 @pytest.mark.parametrize("reset_weights", [False, True])
