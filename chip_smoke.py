@@ -37,7 +37,13 @@ there is no card or the port is missing. In order:
    dispatchers on config 5's hologram; ``cols_wgs_fwd`` and the composed
    ``wgs_fused_forward`` at 2048^2, 256x512, 64^2 and 4096^2 for every
    rule, Kim on and off, stats on and off, scalar and array amplitude,
-   with one all-zero column;
+   with one all-zero column; the five kernels that take a (B, H, W) stack
+   (``carry_entry`` with a shared amplitude plane and with a scalar,
+   ``cols_fwd_polar``, ``cols_wexp_inv``, ``cols_fft``, ``rows_fft``) at 8 x
+   1024^2, 3 x 64^2, 3 x 256x512, 2 x 4096^2 and 3 x 2048x128: one launch
+   for the stack, bit for bit B one-plane launches, and against the plain
+   version (with the compiler's registers, stack and spills of each
+   instantiation of the four column and entry kernels and ``rows_fft``);
 5. the paths, each driven with the launch counts set to 0 just before it:
    - the fused slice: ``SpotHologram.make_rectangular_array((2048, 2048),
      32x32, pitch 30, "knm")``, WGS-Kim, 50 iterations;
@@ -83,6 +89,22 @@ there is no card or the port is missing. In order:
      1e-3, H3 normalized amp_ff and weights within 2e-3), then ms per host
      iteration through the kernels and the plain versions, interleaved,
      and the host transfers per iteration under the profiler (logged);
+   - P1-P4, the batched multiplane slice at 8 planes (or frames) of
+     1024^2: P1, ``parallel_models.multiplane_batched(8, N=1024)``,
+     WGS-Kim, 50 iterations of ``run_batched_gs`` (one launch of each of
+     ``carry_entry``, ``cols_fwd_polar``, ``cols_wexp_inv`` and
+     ``rows_fft`` an iteration for all planes), then ms an iteration at B =
+     1, 2, 4 and 8, kernels and plain in turns; P2, the same with MRAF
+     (``cols_fft`` in place of ``cols_wexp_inv``); P3, a
+     ``MultiplaneHologram`` of 8 ``Hologram`` children (4x4 spot arrays
+     shifted per plane, a lens kernel at each of 8 depths), WGS-Kim, 30
+     iterations through ``optimize`` (the batched engine), then 5 with a
+     callback (the host meta loop: exact launches per iteration per
+     child); P4, ``optimize_batch`` of examples/batched_holography.py's 8
+     frames, WGS-Kim, 20 iterations, identical to 8 separate ``optimize``
+     calls; each loop's host transfers (none allowed in the batched
+     loops), every iteration's per-plane efficiency and uniformity against
+     the plain versions within 1e-3;
    each through the kernels (loop launches checked, launches after the
    loop counted apart; the kernels line reports both together) and
    through the plain versions (final efficiency and uniformity within
@@ -112,7 +134,11 @@ there is no card or the port is missing. In order:
    root of a parent commit's unpacked port, each also against the
    parent's in the same process, and ``fused_iter``'s route past 256 spots
    against the parent's at 300 to 8,000 spots),
-   the cos/sin cache build, and ms/iteration of the C1 and C2 loops; and
+   the cos/sin cache build, and ms/iteration of the C1 and C2 loops; the
+   five stack kernels and the multiplane step's compositions
+   (``fft2_polar_from_phase``, ``wexp_ifft2``, ``ifft2``) on 8 planes in
+   one launch, per plane, beside one plane, the plain version and the
+   library call (``torch.fft.ifft``/``ifft2``), at 1024^2 and 2048^2; and
    ms/iteration of ``spot_array_wgs(2048)`` (WGS-Kim,
    fused), ``spot_array_wgs(2048, method="WGS-Nogrette")`` (natural), the
    N2 GS loop and ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop;
@@ -121,7 +147,7 @@ there is no card or the port is missing. In order:
 8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette),
    the N2 GS, the ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop),
    M2's (WGS-Kim with zero weights), M3's (GS, the natural MRAF step), the
-   C1, the C2 and the S2 loops: device
+   C1, the C2, the S2 and the P1 loops: device
    time, device busy share, device launches per iteration (S2 also:
    the share of ``sim_measure_spots``).
 
@@ -2529,6 +2555,502 @@ def phase_host_loop(device):
     return per_iteration
 
 
+# ----------------------------------------------------------------------
+# The batched multiplane slice: the kernels' plane dimension and P1-P4.
+# ----------------------------------------------------------------------
+
+#: Stacks (B, H, W) of the batched kernel checks: P1's 8 planes of 1024^2
+#: first, then the shortest columns, a rectangle, the clustered 4096-point
+#: columns and long rows.
+STACK_SHAPES = ((8, 1024, 1024), (3, 64, 64), (3, 256, 512), (2, 4096, 4096), (3, 2048, 128))
+#: The kernels that take a (B, H, W) stack in one launch.
+STACK_KERNELS = ("carry_entry", "cols_fwd_polar", "cols_wexp_inv", "cols_fft", "rows_fft")
+#: P1-P4 at the full width of bench.py's bench_batch_scaling: 8 planes (or
+#: frames) of 1024^2. P1 and P2 run 50 iterations, P3 30 batched then 5 on
+#: the host meta loop, P4 20.
+MP_PLANES, MP_SIDE, MP_ITERS = 8, 1024, 50
+P3_ITERS, P3_HOST_ITERS, P4_ITERS = 30, 5, 20
+#: Plane counts of P1's ms an iteration, and the iterations each reading runs.
+MP_TIMING_PLANES, MP_TIMING_ITERS = (1, 2, 4, 8), 20
+#: The side of the kernel table's times, at which the batched kernels are
+#: timed too (beside P1's).
+TABLE_SIDE = 2048
+
+
+def stack_inputs(shape, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+
+    return dict(xr=dev(rng.standard_normal(shape)), xi=dev(rng.standard_normal(shape)),
+                psi=dev(rng.uniform(-4 * np.pi, 4 * np.pi, shape)),
+                w=dev(rng.uniform(0, 1, shape)), phi=dev(rng.uniform(-np.pi, np.pi, shape)),
+                amp=dev(0.5 + rng.uniform(0, 1, shape[1:])))
+
+
+def stack_calls(x):
+    """Name -> (the kernel on the stacks, the kernel on plane b, the plain
+    version on the stacks)."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    xr, xi, psi, w, phi, amp = (x[k] for k in ("xr", "xi", "psi", "w", "phi", "amp"))
+    return {
+        "carry_entry (amplitude plane)": (
+            lambda: cuda_fft.carry_entry(psi, amp), lambda b: cuda_fft.carry_entry(psi[b], amp),
+            lambda: fft._wgs_carry_entry(psi, amp)),
+        "carry_entry": (
+            lambda: cuda_fft.carry_entry(psi, 0.5), lambda b: cuda_fft.carry_entry(psi[b], 0.5),
+            lambda: fft._wgs_carry_entry(psi, 0.5)),
+        "cols_fwd_polar": (
+            lambda: cuda_fft.cols_fwd_polar(xr, xi, 0.25),
+            lambda b: cuda_fft.cols_fwd_polar(xr[b], xi[b], 0.25),
+            lambda: fft._cols_fwd_polar(xr, xi, 0.25)),
+        "cols_wexp_inv": (
+            lambda: cuda_fft.cols_wexp_inv(w, phi),
+            lambda b: cuda_fft.cols_wexp_inv(w[b], phi[b]),
+            lambda: fft._cols_wexp_inv(w, phi)),
+        "cols_fft": (
+            lambda: cuda_fft.cols_fft(xr, xi, inverse=True, scale=0.5),
+            lambda b: cuda_fft.cols_fft(xr[b], xi[b], inverse=True, scale=0.5),
+            lambda: fft._cols_fft(xr, xi, inverse=True, scale=0.5)),
+        "rows_fft": (
+            lambda: cuda_fft.rows_fft(xr, xi, inverse=False, scale=0.5),
+            lambda b: cuda_fft.rows_fft(xr[b], xi[b], inverse=False, scale=0.5),
+            lambda: fft._rows_fft(xr, xi, inverse=False, scale=0.5)),
+    }
+
+
+def phase_batched_parity(device):
+    """Each kernel that takes a (B, H, W) stack, at STACK_SHAPES: one launch
+    for the stack, equal bit for bit to B launches on its planes, and
+    within CARRY_RTOL of the plain version on the stack (``arg F``: within
+    THETA_ATOL where ``|F| > 1e-3 max |F|``). Returns the largest |diff|
+    against the plain version at P1's stack, by kernel."""
+    from slmsuite_torch.ops import cuda_fft
+
+    worst, lines = {}, []
+    for shape in STACK_SHAPES:
+        for name, (batched, single, plain) in stack_calls(stack_inputs(shape, device)).items():
+            kernel = name.split()[0]
+            cuda_fft.reset_launch_counts()
+            got = batched()
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in cuda_fft.LAUNCHES.items() if v}
+            assert launched == {kernel: 1}, (name, shape, launched)
+            planes = [single(b) for b in range(shape[0])]
+            for g, parts in zip(got, zip(*planes)):
+                assert g.shape == shape and torch.equal(g, torch.stack(parts)), (name, shape)
+            ref = plain()
+            if kernel == "cols_fwd_polar":
+                e = rel_err(got[0], ref[0])
+                on = ref[0] > 1e-3 * ref[0].amax(dim=(-2, -1), keepdim=True)
+                et = float(wrapped_abs(got[1], ref[1])[on].max())
+                assert e <= CARRY_RTOL and et < THETA_ATOL, (name, shape, e, et)
+                diff = max(max_abs(got[0], ref[0]), et)
+                lines.append(f"{name} {shape}: {shape[0]} planes in one launch, equal to "
+                             f"{shape[0]} launches; |F| rel {e:.3e}, arg F max {et:.3e}")
+            else:
+                e = max(rel_err(g, r) for g, r in zip(got, ref))
+                assert e <= CARRY_RTOL, (name, shape, e)
+                diff = max(max_abs(g, r) for g, r in zip(got, ref))
+                lines.append(f"{name} {shape}: {shape[0]} planes in one launch, equal to "
+                             f"{shape[0]} launches; rel {e:.3e}")
+            if shape == STACK_SHAPES[0]:
+                worst[name] = diff
+            del got, planes, ref
+    torch.cuda.synchronize()
+    (OUT / "parity_batched.log").write_text("\n".join(lines) + "\n")
+    log(f"batched parity: {len(lines)} checks passed (each stack one launch, bit for bit "
+        f"its planes' launches); {STACK_SHAPES[0]} max |diff| against plain "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def kernel_registers(names=("carry_entry_kernel", "cols_fwd_polar_", "cols_wexp_inv_",
+                            "cols_fft_", "rows_fft_kernel")):
+    """Registers, stack frame and spills of each instantiation of the
+    kernels ``names``, from the build's ``ptxas.log`` (-Xptxas -v)."""
+    import re
+
+    path = OUT / "ptxas.log"
+    if not path.exists():
+        return []
+    ptxas = path.read_text().splitlines()
+    out = []
+    for k, line in enumerate(ptxas):
+        entry = re.search(r"Compiling entry function '(_Z\w+)'", line)
+        if not entry or not any(n in entry.group(1) for n in names):
+            continue
+        info = " ".join(ptxas[k + 1:k + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", info)
+        name = re.search(r"slm\d+(\w+?_kernel)", entry.group(1)).group(1)
+        args = re.search(r"IL[ij](\d+)E(?:Lb([01]))?", entry.group(1))
+        tag = f"{name}<{args.group(1)}" + (f", {args.group(2)}>" if args.group(2) else ">")
+        out.append(f"{tag}: {regs.group(1) if regs else '?'} registers, "
+                   + (f"{frame.group(1)} B stack, {frame.group(2)}/{frame.group(3)} B spill "
+                      "stores/loads" if frame else "no frame line"))
+    return out
+
+
+def launch_ms(fn, n=20):
+    """``(ms, timer)`` of the one kernel launch that ``fn`` makes: the
+    median of the device's own durations of ``n`` calls' launches under the
+    profiler (a window may lose events at its edges, which a median does
+    not feel), or CUDA events where the profiler gives fewer than ``n / 2``
+    of them (logged)."""
+    fn()
+    spans = device_spans(fn, n)
+    if not n // 2 <= len(spans) <= n:
+        log(f"  launch_ms: {len(spans)} device events for {n} launches; CUDA events instead")
+        return cuda_ms(fn), "events"
+    return float(np.median(spans)) / 1e3, "device"
+
+
+def phase_batched_timing(device, B=MP_PLANES):
+    """Each kernel that takes a stack on B planes in one launch, per plane,
+    beside the same kernel on one plane (:meth:`launch_ms`, in turns), the
+    plain version on the stack and, where one PyTorch call computes the
+    same function, that call on the stack and on one plane; then the
+    multiplane step's compositions likewise (:meth:`device_or_events`). At
+    1024^2 (P1's planes) and 2048^2 (the kernel table's). Returns the
+    readings."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    out = {}
+    for side in (MP_SIDE, TABLE_SIDE):
+        shape = (side, side)
+        x = stack_inputs((B, side, side), device)
+        xr, xi, psi, w, phi = (x[k] for k in ("xr", "xi", "psi", "w", "phi"))
+        z = torch.complex(xr, xi)
+        zw = torch.complex(w * torch.cos(phi), w * torch.sin(phi))
+        # name -> (on the stack, on one plane, plain on the stack, library on
+        # the stack, library on one plane, planes moved, line FFT passes).
+        timed = {
+            "carry_entry": (lambda: cuda_fft.carry_entry(psi, 1.0),
+                            lambda: cuda_fft.carry_entry(psi[0], 1.0),
+                            lambda: fft._wgs_carry_entry(psi, 1.0), None, None, 3, 1),
+            "cols_fwd_polar": (lambda: cuda_fft.cols_fwd_polar(xr, xi, 1.0),
+                               lambda: cuda_fft.cols_fwd_polar(xr[0], xi[0], 1.0),
+                               lambda: fft._cols_fwd_polar(xr, xi, 1.0), None, None, 4, 1),
+            "cols_wexp_inv": (lambda: cuda_fft.cols_wexp_inv(w, phi),
+                              lambda: cuda_fft.cols_wexp_inv(w[0], phi[0]),
+                              lambda: fft._cols_wexp_inv(w, phi), None, None, 4, 1),
+            "cols_fft": (lambda: cuda_fft.cols_fft(xr, xi, inverse=True),
+                         lambda: cuda_fft.cols_fft(xr[0], xi[0], inverse=True),
+                         lambda: fft._cols_fft(xr, xi, inverse=True),
+                         lambda: torch.fft.ifft(z, dim=-2, norm="forward"),
+                         lambda: torch.fft.ifft(z[0], dim=-2, norm="forward"), 4, 1),
+            "rows_fft": (lambda: cuda_fft.rows_fft(xr, xi, inverse=True),
+                         lambda: cuda_fft.rows_fft(xr[0], xi[0], inverse=True),
+                         lambda: fft._rows_fft(xr, xi, inverse=True),
+                         lambda: torch.fft.ifft(z, dim=-1, norm="forward"),
+                         lambda: torch.fft.ifft(z[0], dim=-1, norm="forward"), 4, 1),
+            # Row 6, the forward: psi read, |F| and arg F written.
+            "fft2_polar_from_phase (carry_entry + cols_fwd_polar)": (
+                lambda: cuda_fft.fft2_polar_from_phase(psi, 1.0),
+                lambda: cuda_fft.fft2_polar_from_phase(psi[0], 1.0),
+                lambda: fft._fft2_polar_from_phase(psi, 1.0), None, None, 3, 2),
+            # Row 12, the backward: w and phi read, the pair written; the
+            # library call is ifft2 of the complex plane w e^{i phi}.
+            "wexp_ifft2 (cols_wexp_inv + rows_fft)": (
+                lambda: cuda_fft.wexp_ifft2(w, phi), lambda: cuda_fft.wexp_ifft2(w[0], phi[0]),
+                lambda: fft._wexp_ifft2(w, phi), lambda: torch.fft.ifft2(zw, norm="ortho"),
+                lambda: torch.fft.ifft2(zw[0], norm="ortho"), 4, 2),
+            # Row 5, the MRAF backward: the pair read and written.
+            "ifft2 (cols_fft + rows_fft)": (
+                lambda: cuda_fft.ifft2(xr, xi), lambda: cuda_fft.ifft2(xr[0], xi[0]),
+                lambda: fft._ifft2(xr, xi), lambda: torch.fft.ifft2(z, norm="ortho"),
+                lambda: torch.fft.ifft2(z[0], norm="ortho"), 4, 2),
+        }
+        for name, (kernel, one, plain, library, library_one, planes, passes) in timed.items():
+            timer = launch_ms if name in STACK_KERNELS else device_or_events
+            (k1, how), (o1, how1) = timer(kernel), timer(one)
+            plain_ms, how_plain = device_or_events(plain)
+            lib = lib1 = how_lib = None
+            if library is not None:
+                (lib, how_lib), (lib1, _) = device_or_events(library), device_or_events(library_one)
+            (k2, _), (o2, _) = timer(kernel), timer(one)
+            bound_ms, bound_by = bound(shape, planes, passes)
+            per, one_ms = (k1 + k2) / 2 / B, (o1 + o2) / 2
+            log(f"  {name} {side}^2: per plane at B = {B} {per:.4f} ms ({k1 / B:.4f}, "
+                f"{k2 / B:.4f}; {bound_ms / per:.3f} of its bound, {bound_ms:.4f} ms by "
+                f"{bound_by}), one plane {one_ms:.4f} ms ({o1:.4f}, {o2:.4f}); plain per "
+                f"plane {plain_ms / B:.4f}"
+                + (f"; library per plane {lib / B:.4f}, one plane {lib1:.4f}"
+                   if library is not None else "") + f" (timers: {how}, {how1}; plain "
+                f"{how_plain}" + (f"; library {how_lib}" if library is not None else "") + ")")
+            out[(name, side)] = dict(per_plane=per, one_plane=one_ms, plain=plain_ms / B,
+                                     library=None if lib is None else lib / B,
+                                     library_one=lib1, bound=bound_ms)
+        del x, xr, xi, psi, w, phi, z, zw, timed
+    log(f"  [{nvidia_smi_line()}]")
+    return out
+
+
+def device_or_events(fn):
+    """``(ms, timer)``: :meth:`device_ms` of ``fn``, or :meth:`cuda_ms`
+    where the profiler gives no whole window (logged)."""
+    try:
+        return device_ms(fn), "device"
+    except NoDeviceEvents as err:
+        log(f"  {err}; CUDA events instead")
+        return cuda_ms(fn), "events"
+
+
+def frame_target(shape, t, n_spots=5, seed=0):
+    """examples/batched_holography.py's frame ``t``: a spot array rotating
+    with the frame index (a tweezer movie)."""
+    rng = np.random.default_rng(seed)
+    radii = rng.uniform(0.15, 0.35, n_spots) * shape[0]
+    phases = rng.uniform(0, 2 * np.pi, n_spots)
+    target = np.zeros(shape, np.float32)
+    for r, p0 in zip(radii, phases):
+        target[int(shape[0] / 2 + r * np.sin(p0 + 0.15 * t)),
+               int(shape[1] / 2 + r * np.cos(p0 + 0.15 * t))] = 1.0
+    return target / np.sqrt((target**2).sum())
+
+
+def counted(fn):
+    """``fn()`` with the launch counts set to 0 just before it; returns
+    ``(result, launches, seconds)``."""
+    from slmsuite_torch.ops import cuda_fft
+
+    cuda_fft.reset_launch_counts()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in cuda_fft.LAUNCHES.items() if v}, time.perf_counter() - start
+
+
+def phase_p1_p2(device):
+    """P1 (WGS-Kim) and P2 (WGS-Kim, MRAF) through ``run_batched_gs`` on
+    ``multiplane_batched(8, N=1024)``: exact launches, every iteration's
+    per-plane efficiency and uniformity against the plain versions on the
+    card, no host transfer in the loop; then P1's ms an iteration at B = 1,
+    2, 4, 8, kernels and plain in turns. Returns P1's launches and run."""
+    from slmsuite_torch.models.parallel_models import multiplane_batched
+
+    n = MP_ITERS
+    result = {}
+    size = f"{MP_PLANES} x {MP_SIDE}^2"
+    for label, mraf in ((f"P1 multiplane {size} WGS-Kim", False),
+                        (f"P2 multiplane {size} WGS-Kim MRAF", True)):
+        torch.cuda.reset_peak_memory_stats()
+        run = multiplane_batched(MP_PLANES, N=MP_SIDE, mraf=mraf, device=device)
+        (psi, _, stats, _, fixed), launches, seconds = counted(lambda: run(None, n))
+        log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        backward = dict(cols_fft=n) if mraf else dict(cols_wexp_inv=n)
+        expect = dict(carry_entry=n, cols_fwd_polar=n, rows_fft=n, **backward)
+        log(f"{label} (kernels): final efficiency {stats[-1, :, 0].tolist()}, uniformity "
+            f"{stats[-1, :, 1].tolist()}, Kim fixed {fixed.tolist()} in {seconds:.2f} s; "
+            f"launches {launches}")
+        assert launches == expect, (label, launches, expect)
+        assert psi.shape == (MP_SIDE, MP_SIDE) and bool(torch.isfinite(psi).all())
+        assert bool(torch.isfinite(stats).all()) and bool((stats[-1, :, 0] > 0).all())
+        with plain_step_functions():
+            (_, _, plain, _, _), plain_launches, _ = counted(lambda: run(None, n))
+        assert not plain_launches, plain_launches
+        d = float((stats[:, :, :2] - plain[:, :, :2]).abs().max())
+        log(f"{label} (plain): per-plane efficiency and uniformity max |diff| over {n} "
+            f"iterations {d:.3e}")
+        assert d <= SLICE_ATOL, (label, d)
+        copies, events = host_transfers(lambda k: run(None, k), 5)
+        log(f"{label}: {len(copies)} host transfers among {events} device events of run(5)")
+        assert not copies, (label, copies[:5])
+        result[label[:2]] = (launches, run)
+    per_plane = {}
+    for B in MP_TIMING_PLANES:
+        run = multiplane_batched(B, N=MP_SIDE, device=device)
+        loop = lambda k, run=run: run(None, k)  # noqa: E731
+        with plain_step_functions():
+            p1 = loop_ms(loop, MP_TIMING_ITERS)
+        k1, k2 = loop_ms(loop, MP_TIMING_ITERS), loop_ms(loop, MP_TIMING_ITERS)
+        with plain_step_functions():
+            p2 = loop_ms(loop, MP_TIMING_ITERS)
+        per_plane[B] = (k1 + k2) / 2 / B
+        log(f"P1 B = {B} run({MP_TIMING_ITERS}): kernels {k1:.4f} {k2:.4f} ms/iter "
+            f"({per_plane[B]:.4f} a plane), plain {p1:.4f} {p2:.4f} ms/iter "
+            f"({(p1 + p2) / 2 / B:.4f} a plane)  [{nvidia_smi_line()}]")
+    return result
+
+
+def p3_hologram(device, seed=0):
+    """P3: a MultiplaneHologram of 8 Hologram children on a 1024^2 SLM, each
+    a 4x4 spot array at pitch 48 shifted 6 pixels a plane
+    (tests/test_parallel.py's), behind a lens kernel pi d r^2 at its depth
+    d = (b - 3.5) / 2 (r = 1 at the SLM's edge)."""
+    from slmsuite_torch.holography.algorithms import Hologram, MultiplaneHologram
+
+    N = MP_SIDE
+    r = (np.arange(N) - N / 2) / (N / 2)
+    r2 = (r[None, :] ** 2 + r[:, None] ** 2).astype(np.float32)
+    children = []
+    for b in range(MP_PLANES):
+        target = np.zeros((N, N), np.float32)
+        idx = ((np.arange(4) - 1.5) * 48 + N / 2 + 6 * b).astype(int)
+        xs, ys = np.meshgrid(idx, idx)
+        target[ys.ravel(), xs.ravel()] = 1.0
+        kernel = np.float32(np.pi * (b - 3.5) / 2) * r2
+        children.append(Hologram(target, slm_shape=(N, N), propagation_kernel=kernel,
+                                 device=device))
+    holo = MultiplaneHologram(children)
+    holo.reset_phase(np.random.default_rng(seed).uniform(-np.pi, np.pi, (N, N)))
+    return holo
+
+
+def child_stats(holograms):
+    """Final computational efficiency and uniformity of each hologram."""
+    return np.array([[h.stats["stats"]["computational"][k][-1]
+                      for k in ("efficiency", "uniformity")] for h in holograms])
+
+
+def drive_p3(device):
+    """P3 once: 30 batched iterations through ``optimize``, then 5 on the
+    host meta loop (a callback). Returns ``(holo, per-child stats after
+    each, launches (loop, after) of each)``."""
+    holo = p3_hologram(device)
+    out, launches = [], []
+    for maxiter, callback in ((P3_ITERS, None), (P3_HOST_ITERS, lambda h: False)):
+        split = launches_split_at_populate(holo)
+        holo.optimize("WGS-Kim", maxiter=maxiter, verbose=False, callback=callback,
+                      stat_groups=["computational"])
+        torch.cuda.synchronize()
+        launches.append(split())
+        del holo._populate_results  # The class's again.
+        out.append(child_stats(holo.holograms))
+    return holo, out, launches
+
+
+def phase_p3(device):
+    """P3 through the kernels (exact launches of the batched run and of
+    each host meta iteration) and the plain versions (per-child efficiency
+    and uniformity within SLICE_ATOL); the batched loop's host transfers
+    (none allowed) and ms an iteration; the meta loop's ms a host
+    iteration. Returns the launches of the batched run."""
+    from slmsuite_torch.parallel.multiplane import run_batched_gs
+
+    label = f"P3 MultiplaneHologram {MP_PLANES} x {MP_SIDE}^2, lens kernels, WGS-Kim"
+    start = time.perf_counter()
+    holo, stats, launches = drive_p3(device)
+    seconds = time.perf_counter() - start
+    n, m, B = P3_ITERS, P3_HOST_ITERS, MP_PLANES
+    (loop, after), (host_loop, host_after) = launches
+    log(f"{label} (kernels) in {seconds:.2f} s: after {n} batched iterations efficiency "
+        f"{stats[0][:, 0].tolist()}, uniformity {stats[0][:, 1].tolist()}; loop launches "
+        f"{loop}, after {after}; {m} host meta iterations: loop launches {host_loop}, after "
+        f"{host_after}")
+    assert loop == dict(carry_entry=n, cols_fwd_polar=n, cols_wexp_inv=n, rows_fft=n), loop
+    assert after == dict(rows_fft=1, cols_fft=1), after
+    # Each child each host iteration: fft2 forward, wexp_ifft2 backward.
+    assert host_loop == dict(rows_fft=2 * B * m, cols_fft=B * m, cols_wexp_inv=B * m), host_loop
+    assert host_after == dict(rows_fft=1, cols_fft=1), host_after
+    assert holo.iter == n + m and np.isfinite(holo.get_phase()).all()
+    with plain_step_functions():
+        _, plain, plain_launches = drive_p3(device)
+    assert not any(a or b for a, b in plain_launches), plain_launches
+    for what, got, ref in zip(("batched", "host meta loop"), stats, plain):
+        d = float(np.abs(got - ref).max())
+        log(f"{label} (plain), {what}: per-child efficiency and uniformity max |diff| {d:.3e}")
+        assert d <= SLICE_ATOL, (label, what, d)
+
+    fresh = p3_hologram(device)
+    fresh._update_flags("WGS-Kim", False, None, ["computational"])
+    config, psi, weights, consts, pff, fixed = fresh._batched_inputs()
+
+    def batched(k):
+        return run_batched_gs(config, psi, weights, consts, k, phase_ff=pff, fixed=fixed)
+
+    copies, events = host_transfers(batched, 5)
+    log(f"P3 batched loop: {len(copies)} host transfers among {events} device events of "
+        "run(5)")
+    assert not copies, copies[:5]
+    with plain_step_functions():
+        p1 = loop_ms(batched, MP_TIMING_ITERS)
+    k1, k2 = loop_ms(batched, MP_TIMING_ITERS), loop_ms(batched, MP_TIMING_ITERS)
+    with plain_step_functions():
+        p2 = loop_ms(batched, MP_TIMING_ITERS)
+    log(f"P3 batched run({MP_TIMING_ITERS}): kernels {k1:.4f} {k2:.4f} ms/iter, plain "
+        f"{p1:.4f} {p2:.4f} ms/iter  [{nvidia_smi_line()}]")
+    host_loop_timing("P3 host meta loop", lambda k: holo.optimize(
+        "WGS-Kim", maxiter=k, verbose=False, callback=lambda h: False,
+        stat_groups=["computational"]), m)
+    return loop
+
+
+def p4_frames(device):
+    """P4: examples/batched_holography.py's 8 frames at 1024^2, each a
+    Hologram warm-started from one seeded phase."""
+    from slmsuite_torch.holography.algorithms import Hologram
+
+    shape = (MP_SIDE, MP_SIDE)
+    phase0 = np.random.default_rng(1).uniform(-np.pi, np.pi, shape).astype(np.float32)
+    frames = []
+    for t in range(MP_PLANES):
+        h = Hologram(frame_target(shape, t), slm_shape=shape, device=device)
+        h.reset_phase(phase0)
+        frames.append(h)
+    return frames
+
+
+def drive_p4(device):
+    from slmsuite_torch.holography.algorithms import optimize_batch
+
+    frames = p4_frames(device)
+    split = launches_split_at_populate(frames[0])
+    start = time.perf_counter()
+    optimize_batch(frames, "WGS-Kim", maxiter=P4_ITERS, verbose=False,
+                   stat_groups=["computational"])
+    torch.cuda.synchronize()
+    return frames, split(), time.perf_counter() - start
+
+
+def phase_p4(device):
+    """P4: ``optimize_batch`` of 8 frames against 8 separate ``optimize``
+    calls on the card (identical phase, weights and stats), with exact
+    launches (each frame on the fused carry loop), and against the plain
+    versions (per-frame efficiency and uniformity within SLICE_ATOL).
+    Returns the loop's launches."""
+    label = f"P4 optimize_batch {MP_PLANES} frames x {MP_SIDE}^2 WGS-Kim"
+    n, K = P4_ITERS, MP_PLANES
+    frames, (loop, after), seconds = drive_p4(device)
+    stats = child_stats(frames)
+    log(f"{label} (kernels) in {seconds:.2f} s: efficiency {stats[:, 0].tolist()}, "
+        f"uniformity {stats[:, 1].tolist()}; loop launches {loop}, after {after}")
+    assert loop == dict(carry_entry=K, cols_wgs_roundtrip=K * n, rows_normfwd=K * n,
+                        carry_exit=K), loop
+    assert after == dict(rows_fft=K, cols_fft=K), after
+    solo = p4_frames(device)
+    start = time.perf_counter()
+    for h in solo:
+        h.optimize("WGS-Kim", maxiter=n, verbose=False, stat_groups=["computational"])
+    torch.cuda.synchronize()
+    solo_seconds = time.perf_counter() - start
+    for b, (h, s) in enumerate(zip(frames, solo)):
+        assert np.array_equal(h.get_phase(), s.get_phase()), b
+        assert np.array_equal(np.asarray(h.weights), np.asarray(s.weights)), b
+        assert h.stats["stats"] == s.stats["stats"] and h.iter == s.iter == n, b
+    log(f"{label}: phase, weights and stats of every frame identical to {K} separate "
+        f"optimize calls ({seconds:.3f} s against {solo_seconds:.3f} s, first calls)")
+    with plain_step_functions():
+        plain_frames, (plain_loop, plain_after), _ = drive_p4(device)
+    assert not plain_loop and not plain_after, (plain_loop, plain_after)
+    d = float(np.abs(stats - child_stats(plain_frames)).max())
+    log(f"{label} (plain): per-frame efficiency and uniformity max |diff| {d:.3e}")
+    assert d <= SLICE_ATOL, (label, d)
+    return loop
+
+
+def phase_multiplane(device):
+    """P1-P4; returns P1's and P2's launches, and P1's run for the profile."""
+    p12 = phase_p1_p2(device)
+    phase_p3(device)
+    phase_p4(device)
+    return {path: launches for path, (launches, _) in p12.items()}, p12["P1"][1]
+
+
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
@@ -2551,13 +3073,18 @@ def main():
     errors.update(phase_mraf_parity(device))
     errors.update(phase_compressed_parity(device))
     errors.update(phase_fwd_parity(device))
+    phase_batched_parity(device)
+    for line in kernel_registers():
+        log(f"  ptxas: {line}")
     paths = phase_paths(device)
     paths.update(phase_compressed_paths(device))
     paths["Q1"] = phase_q1(device)
     s2_loop = phase_camera(device)
     phase_host_loop(device)
+    mp_launches, p1_run = phase_multiplane(device)
     phase_golden()
     times = phase_kernel_timing(device)
+    batched_times = phase_batched_timing(device)
     compressed_times, compressed_loops = phase_compressed_timing(device, parent=parent)
     times.update(compressed_times)
     phase_model_timing(device)
@@ -2579,6 +3106,8 @@ def main():
         "C2 config 5 WGS-Kim recompute"], n=CONFIG5_ITERS)
     phase_profile(device, "S2 config 4 rig, 10x10 spots, camera feedback", s2_loop,
                   n=CONFIG4_ITERS)
+    phase_profile(device, f"P1 multiplane {MP_PLANES} x {MP_SIDE}^2 WGS-Kim batched",
+                  lambda k: p1_run(None, k), n=MP_TIMING_ITERS)
 
     kernels = []
     for name, (source, replaces, path) in KERNELS.items():
@@ -2592,6 +3121,15 @@ def main():
             "bound_ms": t["bound"], "bound_us": t["bound"] * 1e3, "bound_by": t["bound_by"],
             "library_ms": t["library"], "timer": t["timer"],
         })
+        if name in STACK_KERNELS:
+            # The batched multiplane step's launches (P1, or P2 for cols_fft)
+            # and the kernel's time a plane on P1's stack.
+            mp_path = "P1" if name in mp_launches["P1"] else "P2"
+            b = batched_times[(name, MP_SIDE)]
+            kernels[-1]["planes"] = {
+                "path": mp_path, "launches": mp_launches[mp_path][name], "planes": MP_PLANES,
+                "side": MP_SIDE, "ms_per_plane": b["per_plane"], "ms_one_plane": b["one_plane"],
+            }
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ result is the port's state on a given device. With these the tests start
 both packages from identical psi, weights, Kim phase store and constants.
 For a hologram's planes, see :meth:`slmsuite_torch.holography.algorithms.Hologram.load_arrays`.
 A simulated rig crosses with :meth:`rig_from_jax`, a spot hologram on it
-with :meth:`spot_hologram_from_jax`: they read the JAX objects' numpy
+with :meth:`spot_hologram_from_jax`, a multiplane hologram with
+:meth:`multiplane_hologram_from_jax`, and the batched multiplane engine's
+config and consts with :meth:`batched_config_from_jax` and
+:meth:`multiplane_consts_from_numpy`: they read the JAX objects' numpy
 attributes only.
 """
 
@@ -158,4 +161,75 @@ def spot_hologram_from_jax(holo, cameraslm, device=None):
     if "fixed_phase" in holo.flags:
         arrays["fixed_phase"] = holo.flags["fixed_phase"]
     out.load_arrays(arrays)
+    return out
+
+
+def batched_config_from_jax(config):
+    """The port's :class:`~slmsuite_torch.parallel.multiplane.BatchedGSConfig`
+    from a ``slmsuite_tpu.parallel.multiplane.BatchedGSConfig`` (its
+    ``scrambled`` field, the TPU's layout, is left out)."""
+    import dataclasses
+
+    from slmsuite_torch.parallel.multiplane import BatchedGSConfig
+
+    return BatchedGSConfig(**{
+        field.name: getattr(config, field.name) for field in dataclasses.fields(BatchedGSConfig)
+    })
+
+
+def multiplane_consts_from_numpy(consts, device=None):
+    """
+    The batched multiplane engine's consts from those of
+    ``slmsuite_tpu.parallel.multiplane.make_multiplane_consts`` as numpy
+    (floats become f32, ``fix_phase_iteration`` int32, the MRAF region
+    codes uint8; a 0-d ``"amp"`` stays a Python float).
+    """
+    device = resolve_device(device)
+    out = {}
+    for key, value in consts.items():
+        value = np.array(value)  # A writable copy.
+        if key == "amp" and value.ndim == 0:
+            out[key] = float(value)
+        elif key == "mcodes":
+            out[key] = torch.as_tensor(value.astype(np.uint8), device=device)
+        else:
+            out[key] = _tensor(value, device)
+    return out
+
+
+def multiplane_hologram_from_jax(holo, device=None):
+    """
+    The port's :class:`~slmsuite_torch.holography.algorithms.MultiplaneHologram`
+    from a JAX-package one: each child (a ``Hologram``, or a ``SpotHologram``
+    in the ``knm`` basis through :meth:`spot_hologram_from_jax`) with its
+    target, amplitude, propagation kernel, weights, Kim phase store,
+    iteration count and flags, the plane weights, and the shared psi.
+    """
+    from slmsuite_torch.holography.algorithms import Hologram, MultiplaneHologram
+
+    children = []
+    for h in holo.holograms:
+        if type(h).__name__ == "SpotHologram":
+            child = spot_hologram_from_jax(h, None, device=device)
+        else:
+            kernel = h.propagation_kernel
+            child = Hologram(
+                target=tuple(h.shape), slm_shape=tuple(h.slm_shape), dtype=h.dtype,
+                propagation_kernel=None if kernel is None else np.array(kernel),
+                device=device,
+            )
+        children.append(child)
+    out = MultiplaneHologram(children, weights=np.array(holo.weights))
+    out.weights = np.array(holo.weights, dtype=out.dtype)
+    out.load_arrays({"psi": np.asarray(holo._psi), "amp": np.asarray(holo.amp),
+                     "iter": holo.iter})
+    out.flags.update(holo.flags)
+    for child, h in zip(children, holo.holograms):
+        arrays = {"target": np.asarray(h.target), "psi": np.asarray(h._psi),
+                  "weights": np.asarray(h.weights), "iter": h.iter}
+        if h._phase_ff_folded is not None:
+            arrays["phase_ff_folded"] = np.asarray(h._phase_ff_folded)
+        child.load_arrays(arrays)
+        child.amp = out.amp
+        child.flags.update(h.flags)
     return out

@@ -549,24 +549,43 @@ int launch_rows(void (*kernel)(Params...), int H, cudaStream_t stream, Args... a
 // Launch of a column kernel on line_fft (`kind`, a LineKernel that is a
 // column kernel; `kernel` its instantiation for lines of 1 << LOG2N points,
 // the _cluster_kernel one where cols_cluster says two blocks) over W
-// columns: W / tc tiles of its launch shape, each a cluster of G blocks.
-// The kernel takes (W, tc, log2tc) after `args`. The dynamic shared memory
-// is above the 48 KB default from H = 1024 on: the attribute is the
+// columns of `planes` stacked (H, W) planes: W / tc tiles of its launch
+// shape, each a cluster of G blocks, along x, and the planes along y (a
+// kernel that takes a stack offsets its planes by plane_offset). The
+// kernel takes (W, tc, log2tc) after `args`. The dynamic shared memory is
+// above the 48 KB default from H = 1024 on: the attribute is the
 // instantiation's own. cols_wgs_roundtrip keeps its own launcher
 // (wgs_carry.cu): with its parameters in this order ptxas spilled 704
 // bytes at 2048 points, not 664, and the kernel took 0.146 ms, not 0.136.
 template <int KIND, int LOG2N, typename... Params, typename... Args>
-int launch_cols(void (*kernel)(Params...), int W, cudaStream_t stream, Args... args) {
+int launch_cols_planes(void (*kernel)(Params...), int W, int planes, cudaStream_t stream,
+                       Args... args) {
   constexpr LaunchShape shape = launch_shape(KIND, LOG2N);
   static_assert(shape.threads <= cols_max_threads(LOG2N) && shape.smem <= 227 * 1024,
                 "column kernel launch");
-  if (W % shape.lines) return (int)cudaErrorInvalidValue;
+  if (W % shape.lines || planes < 1 || planes > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shape.smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<W / shape.lines * shape.cluster, shape.threads, shape.smem, stream>>>(
-      args..., W, shape.lines, ilog2(shape.lines));
+  const dim3 grid(W / shape.lines * shape.cluster, planes);
+  kernel<<<grid, shape.threads, shape.smem, stream>>>(args..., W, shape.lines,
+                                                      ilog2(shape.lines));
   return (int)cudaGetLastError();
+}
+
+// The same over one plane (gridDim.y = 1).
+template <int KIND, int LOG2N, typename... Params, typename... Args>
+int launch_cols(void (*kernel)(Params...), int W, cudaStream_t stream, Args... args) {
+  return launch_cols_planes<KIND, LOG2N>(kernel, W, 1, stream, args...);
+}
+
+// Offset of plane blockIdx.y of a stack of (1 << LOG2N, W) planes, for the
+// column kernels that take a stack (launch_cols_planes). Each base pointer
+// moves once by it, so the per-point offsets (col_offset) stay within one
+// plane, where a 32-bit offset still holds.
+template <int LOG2N>
+__device__ __forceinline__ size_t plane_offset(int W) {
+  return (size_t)blockIdx.y * ((size_t)W << LOG2N);
 }
 
 }  // namespace slm

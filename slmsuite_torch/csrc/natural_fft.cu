@@ -1,6 +1,12 @@
 // Natural-order FFT kernels of the GS engine's natural (non-fused) path,
 // for Hopper (sm_90a).
 //
+// The three column kernels and rows_fft also take a stack of B (H, W)
+// planes in one launch, as the reference's vmap over the multiplane
+// engine's planes gives its Pallas calls a grid axis: rows_fft sees B H
+// rows, and a column kernel's grid has the planes along y (launch_cols_planes),
+// each block moving its base pointers once to its plane (plane_offset).
+//
 // One natural step is a forward 2D FFT to (|F|, arg F), the farfield
 // constraint in PyTorch, and an inverse 2D FFT back to psi. Where the
 // farfield is the SLM plane, the forward half is carry_entry (wgs_carry.cu,
@@ -108,6 +114,8 @@ __device__ __forceinline__ void cols_fft_tile(const float* __restrict__ xr,
                                               const float2* __restrict__ tw, float scale,
                                               int W, int tc, int log2tc) {
   extern __shared__ float2 sbuf[];
+  const size_t plane = plane_offset<LOG2N>(W);
+  xr += plane, xi += plane, yr += plane, yi += plane;
   float2 v[line_points(LOG2N)];
   const ColPlace p = col_tile_start<LOG2N, G>(v, xr, xi, W, tc, log2tc);
   line_fft<LOG2N, INV, G>(v, sbuf + p.c, tc, p.s, tw);
@@ -155,6 +163,8 @@ __device__ __forceinline__ void cols_fwd_polar_tile(const float* __restrict__ xr
                                                     const float2* __restrict__ tw, float scale,
                                                     int W, int tc, int log2tc) {
   extern __shared__ float2 sbuf[];
+  const size_t plane = plane_offset<LOG2N>(W);
+  xr += plane, xi += plane, amp += plane, theta += plane;
   float2 v[line_points(LOG2N)];
   const ColPlace p = col_tile_start<LOG2N, G>(v, xr, xi, W, tc, log2tc);
   line_fft<LOG2N, false, G>(v, sbuf + p.c, tc, p.s, tw);
@@ -204,6 +214,8 @@ __device__ __forceinline__ void cols_wexp_inv_tile(const float* __restrict__ w,
                                                    const float2* __restrict__ tw_inv, int W,
                                                    int tc, int log2tc) {
   extern __shared__ float2 sbuf[];
+  const size_t plane = plane_offset<LOG2N>(W);
+  w += plane, phi += plane, yr += plane, yi += plane;
   float2 v[line_points(LOG2N)];
   const ColPlace p = col_tile_start_wexp<LOG2N, G>(v, w, phi, W, tc, log2tc);
   line_fft<LOG2N, true, G>(v, sbuf + p.c, tc, p.s, tw_inv);
@@ -238,32 +250,35 @@ int launch_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int 
 // cluster instantiation where cols_cluster says two blocks.
 template <int LOG2N, bool INV>
 int launch_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int W,
-                    const float2* tw, float scale, cudaStream_t stream) {
+                    int planes, const float2* tw, float scale, cudaStream_t stream) {
   auto kernel = [] {
     if constexpr (cols_cluster(LOG2N) == 2) return cols_fft_cluster_kernel<LOG2N, INV>;
     else return cols_fft_kernel<LOG2N, INV>;
   }();
-  return launch_cols<kColsFft, LOG2N>(kernel, W, stream, xr, xi, yr, yi, tw, scale);
+  return launch_cols_planes<kColsFft, LOG2N>(kernel, W, planes, stream, xr, xi, yr, yi, tw,
+                                             scale);
 }
 
 template <int LOG2N>
 int launch_cols_fwd_polar(const float* xr, const float* xi, float* amp, float* theta, int W,
-                          const float2* tw, float scale, cudaStream_t stream) {
+                          int planes, const float2* tw, float scale, cudaStream_t stream) {
   auto kernel = [] {
     if constexpr (cols_cluster(LOG2N) == 2) return cols_fwd_polar_cluster_kernel<LOG2N>;
     else return cols_fwd_polar_kernel<LOG2N>;
   }();
-  return launch_cols<kColsFwdPolar, LOG2N>(kernel, W, stream, xr, xi, amp, theta, tw, scale);
+  return launch_cols_planes<kColsFwdPolar, LOG2N>(kernel, W, planes, stream, xr, xi, amp,
+                                                  theta, tw, scale);
 }
 
 template <int LOG2N>
 int launch_cols_wexp_inv(const float* w, const float* phi, float* yr, float* yi, int W,
-                         const float2* tw_inv, cudaStream_t stream) {
+                         int planes, const float2* tw_inv, cudaStream_t stream) {
   auto kernel = [] {
     if constexpr (cols_cluster(LOG2N) == 2) return cols_wexp_inv_cluster_kernel<LOG2N>;
     else return cols_wexp_inv_kernel<LOG2N>;
   }();
-  return launch_cols<kColsWexpInv, LOG2N>(kernel, W, stream, w, phi, yr, yi, tw_inv);
+  return launch_cols_planes<kColsWexpInv, LOG2N>(kernel, W, planes, stream, w, phi, yr, yi,
+                                                 tw_inv);
 }
 
 }  // namespace slm
@@ -281,11 +296,12 @@ int slm_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
   return (int)cudaErrorInvalidValue;
 }
 
-int slm_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
-                 int W, int inverse, const float2* tw, float scale,
+// The column launchers take `planes` stacked (H, W) planes (1: one plane).
+int slm_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int planes,
+                 int H, int W, int inverse, const float2* tw, float scale,
                  cudaStream_t stream) {
   switch (ilog2(H) * 2 + (inverse != 0)) {
-    SLM_LINE_CASES(launch_cols_fft, xr, xi, yr, yi, W, tw, scale, stream)
+    SLM_LINE_CASES(launch_cols_fft, xr, xi, yr, yi, W, planes, tw, scale, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -317,18 +333,19 @@ int slm_cols_blocks(int kernel, int H, int W) {
   return cols_blocks(kernel, log2n, W);
 }
 
-int slm_cols_fwd_polar(const float* xr, const float* xi, float* amp, float* theta, int H,
-                       int W, const float2* tw, float scale, cudaStream_t stream) {
+int slm_cols_fwd_polar(const float* xr, const float* xi, float* amp, float* theta,
+                       int planes, int H, int W, const float2* tw, float scale,
+                       cudaStream_t stream) {
   switch (ilog2(H)) {
-    SLM_LEN_CASES(launch_cols_fwd_polar, xr, xi, amp, theta, W, tw, scale, stream)
+    SLM_LEN_CASES(launch_cols_fwd_polar, xr, xi, amp, theta, W, planes, tw, scale, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int slm_cols_wexp_inv(const float* w, const float* phi, float* yr, float* yi, int H, int W,
-                      const float2* tw_inv, cudaStream_t stream) {
+int slm_cols_wexp_inv(const float* w, const float* phi, float* yr, float* yi, int planes,
+                      int H, int W, const float2* tw_inv, cudaStream_t stream) {
   switch (ilog2(H)) {
-    SLM_LEN_CASES(launch_cols_wexp_inv, w, phi, yr, yi, W, tw_inv, stream)
+    SLM_LEN_CASES(launch_cols_wexp_inv, w, phi, yr, yi, W, planes, tw_inv, stream)
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -58,19 +58,26 @@ namespace slm {
 // a block staged in shared memory for a radix-2 FFT, 0.101). Moving the far
 // branch into a call of its own cost 26%; capping the registers for three
 // blocks an SM, 6%. PERF.md, section 6, has the measurements.
+//
+// A stack of B phase planes runs in one launch, as B H rows against one
+// shared amplitude plane (the multiplane engine's planes share their
+// nearfield amplitude): a row's amplitude is that of its row in the plane,
+// at the row's offset masked by amp_mask = H W - 1 (H W is a power of two,
+// and a thread's points lie in one row).
 template <int LOG2N>
 __global__ void __launch_bounds__(kThreads)
 carry_entry_kernel(const float* __restrict__ psi, const float* __restrict__ amp,
                    float* __restrict__ gr, float* __restrict__ gi,
-                   const float2* __restrict__ tw) {
+                   const float2* __restrict__ tw, size_t amp_mask) {
   constexpr int E = line_points(LOG2N), T = line_threads(LOG2N);
   extern __shared__ float2 sbuf[];
   const RowPlace p = row_place<LOG2N>(sbuf);
   float2 v[E];
+  const size_t a = p.base & amp_mask;
   // Every load first (psi in .x, the amplitude in .y), then the phasors.
 #pragma unroll
   for (int q = 0; q < E; ++q)
-    v[q] = make_float2(psi[p.base + q * T], amp ? amp[p.base + q * T] : 1.f);
+    v[q] = make_float2(psi[p.base + q * T], amp ? amp[a + q * T] : 1.f);
 #pragma unroll
   for (int q = 0; q < E; ++q) {
     float s, c;
@@ -465,11 +472,13 @@ int launch_rows_normfwd(const float* hr, const float* hi, const float* amp, floa
                                           gr, gi, tw_fwd, tw_inv);
 }
 
+// carry_entry over `planes` stacked (H, W) phase planes: planes H rows.
 template <int LOG2N>
-int launch_carry_entry(const float* psi, const float* amp, float* gr, float* gi, int H,
-                       const float2* tw, cudaStream_t stream) {
-  return launch_rows<kCarryEntry, LOG2N>(carry_entry_kernel<LOG2N>, H, stream, psi, amp, gr,
-                                         gi, tw);
+int launch_carry_entry(const float* psi, const float* amp, float* gr, float* gi, int planes,
+                       int H, const float2* tw, cudaStream_t stream) {
+  const size_t amp_mask = ((size_t)H << LOG2N) - 1;
+  return launch_rows<kCarryEntry, LOG2N>(carry_entry_kernel<LOG2N>, planes * H, stream, psi,
+                                         amp, gr, gi, tw, amp_mask);
 }
 
 template <int LOG2N>
@@ -485,10 +494,11 @@ using namespace slm;
 
 extern "C" {
 
-int slm_carry_entry(const float* psi, const float* amp, float* gr, float* gi,
+int slm_carry_entry(const float* psi, const float* amp, float* gr, float* gi, int planes,
                     int H, int W, const float2* tw, cudaStream_t stream) {
+  if (planes < 1) return (int)cudaErrorInvalidValue;
   switch (ilog2(W)) {
-    SLM_LEN_CASES(launch_carry_entry, psi, amp, gr, gi, H, tw, stream)
+    SLM_LEN_CASES(launch_carry_entry, psi, amp, gr, gi, planes, H, tw, stream)
   }
   return (int)cudaErrorInvalidValue;
 }

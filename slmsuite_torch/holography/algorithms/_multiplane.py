@@ -1,0 +1,424 @@
+r"""
+Multiplane holography: several child holograms sharing one nearfield
+(PyTorch counterpart of
+:mod:`slmsuite_tpu.holography.algorithms._multiplane`).
+
+Each child (possibly at a different focal plane through its
+``propagation_kernel``) computes its own farfield and constraint; the
+complex nearfields (kernels removed) are weight-summed into the shared
+phase. A homogeneous, fully computational, callback-free problem runs as
+one batched device loop (:mod:`slmsuite_torch.parallel.multiplane`: each
+transform launched once an iteration for all planes, no host transfer in
+the loop). Anything else (a callback, ``SpotHologram`` children, host
+feedback or stats, ``zero_factor``) runs the host meta loop: each child's
+forward, stats, weight update and constraint, then one weighted sum of the
+windows. ``optimize(mesh=...)`` raises (ROADMAP.md queue 1, item 11), and
+so does ``"CG"`` (item 6b).
+"""
+
+import numpy as np
+import torch
+
+from slmsuite_torch import resolve_device
+from slmsuite_torch.holography.algorithms._hologram import Hologram
+from slmsuite_torch.ops import fft as _fft
+from slmsuite_torch.ops import propagation as _prop
+
+
+def _child_backward(config):
+    """The meta loop's backward for a child's engine ``config``:
+    ``backward(farfield, weights, phase_ff, plane_weight, consts) -> (re,
+    im)``, the plane-weighted complex nearfield window with the child's
+    propagation kernel removed. Without MRAF the constraint ``w e^{i
+    phase_ff}`` goes to :meth:`slmsuite_torch.ops.fft.wexp_ifft2`; with MRAF
+    its region mix to :meth:`~slmsuite_torch.ops.fft.ifft2`."""
+    y0, y1, x0, x1 = _prop.pad_window_slices(config.shape, config.slm_shape)
+
+    def backward(farfield, weights, phase_ff, plane_weight, consts):
+        if config.mraf:
+            re, im = weights * torch.cos(phase_ff), weights * torch.sin(phase_ff)
+            signal = consts["signal_mask"]
+            re = torch.where(signal, re, farfield.real)
+            im = torch.where(signal, im, farfield.imag)
+            if config.mraf_factor:
+                noise, k = consts["noise_mask"], consts["mraf_factor"]
+                re, im = torch.where(noise, k * re, re), torch.where(noise, k * im, im)
+            zero = consts["zero_mask"]
+            re, im = torch.where(zero, 0.0, re), torch.where(zero, 0.0, im)
+            re, im = _fft.ifft2(re.contiguous(), im.contiguous())
+        else:
+            re, im = _fft.wexp_ifft2(weights, phase_ff)
+        re, im = re[y0:y1, x0:x1], im[y0:y1, x0:x1]
+        if config.has_kernel:
+            c, s = torch.cos(consts["kernel"]), torch.sin(consts["kernel"])
+            re, im = re * c + im * s, im * c - re * s
+        return plane_weight * re, plane_weight * im
+
+    return backward
+
+
+def _combine_windows(windows):
+    """Sum the children's complex windows; the shared folded phase."""
+    re, im = windows[0]
+    for wr, wi in windows[1:]:
+        re, im = re + wr, im + wi
+    return torch.atan2(im, re)
+
+
+#: Taps of OpenCV's small Gaussian kernels (``getGaussianKernel`` with
+#: sigma <= 0 and an odd size up to 9), which ``cv2.GaussianBlur(img, (k,
+#: k), 0)`` takes in place of the sampled Gaussian.
+_SMALL_GAUSSIAN = {
+    1: (1.0,),
+    3: (0.25, 0.5, 0.25),
+    5: (0.0625, 0.25, 0.375, 0.25, 0.0625),
+    7: (0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125),
+    9: tuple(x / 256 for x in (4, 13, 30, 51, 60, 51, 30, 13, 4)),
+}
+
+
+def _gaussian_taps(k):
+    """The normalized taps of ``cv2.GaussianBlur``'s kernel of odd size
+    ``k`` with sigma 0: the small tables, else the Gaussian of sigma
+    ``0.3 ((k - 1) / 2 - 1) + 0.8`` sampled at the taps."""
+    if k in _SMALL_GAUSSIAN:
+        taps = np.asarray(_SMALL_GAUSSIAN[k])
+    else:
+        sigma = 0.3 * ((k - 1) * 0.5 - 1) + 0.8
+        x = np.arange(k) - (k - 1) * 0.5
+        taps = np.exp(-0.5 / sigma**2 * x * x)
+    return taps / taps.sum()
+
+
+def _reflect_101(index, n):
+    """OpenCV's default border (``BORDER_REFLECT_101``, ``gfedcb|abcdefgh|
+    gfedcba``) for any offset, also past a whole period."""
+    if n == 1:
+        return torch.zeros_like(index)
+    period = 2 * (n - 1)
+    index = torch.remainder(index, period)
+    return torch.where(index >= n, period - index, index)
+
+
+def _gaussian_blur(image, k):
+    """``cv2.GaussianBlur(image, (k, k), 0)`` in float64 on ``image``'s
+    device: the separable kernel of :meth:`_gaussian_taps` along each axis,
+    with reflect-101 borders."""
+    taps = _gaussian_taps(k)
+    for dim in (-1, -2):
+        n = image.shape[dim]
+        base = torch.arange(n, device=image.device) - len(taps) // 2
+        out = torch.zeros_like(image)
+        for j, weight in enumerate(taps):
+            out += float(weight) * image.index_select(dim, _reflect_101(base + j, n))
+        image = out
+    return image
+
+
+class MultiplaneHologram(Hologram):
+    """
+    Meta-hologram optimizing ``N`` child holograms simultaneously through
+    one shared phase pattern.
+
+    Attributes
+    ----------
+    holograms : list of Hologram
+        Children (any non-multiplane Hologram subclass).
+    weights : numpy.ndarray
+        Per-child power weights (normalized).
+    """
+
+    def __init__(self, holograms, weights=None):
+        """Initialize from children; weights default to even power. The
+        parent lives on the first child's device."""
+        self.holograms = holograms
+
+        for h in self.holograms:
+            if isinstance(h, MultiplaneHologram):
+                raise ValueError("Multiplane hologram recursion is not supported.")
+            if not isinstance(h, Hologram):
+                raise ValueError(
+                    f"Multiplane hologram must be given child holograms, not {type(h)}"
+                )
+
+        super().__init__(
+            target=holograms[0].slm_shape,
+            amp=holograms[0].amp,
+            phase=holograms[0].phase,
+            slm_shape=holograms[0].slm_shape,
+            dtype=holograms[0].dtype,
+            device=holograms[0].device,
+        )
+        self.target = None
+
+        # Children share the parent's nearfield.
+        for h in self.holograms:
+            h.amp = self.amp
+
+        if weights is None:
+            weights = np.ones(len(self), dtype=self.dtype)
+        self.weights = np.asarray(weights, dtype=self.dtype)
+        self.weights = self.weights / Hologram._norm(self.weights)
+
+    def __len__(self):
+        return len(self.holograms)
+
+    @staticmethod
+    def get_multiplane_defocus_blur(cameraslm, targets, target_depths, return_depths=None,
+                                    sharp_focus=True, device=None):
+        """
+        Propagate a stack of target images between depths with Gaussian
+        defocus blur (``slmsuite_tpu``'s, which blurs with
+        ``cv2.GaussianBlur``; here the same kernel and borders in torch on
+        ``device``, the package default when None). Returns the
+        ``(len(return_depths), h, w)`` float64 stack (numpy).
+        """
+        if return_depths is None:
+            return_depths = target_depths
+        targets = np.asarray(targets)
+        if targets.ndim != 3:
+            raise ValueError("Expected 3D stack of 2D images.")
+        image_count, h, w = targets.shape
+        if image_count != len(target_depths):
+            raise ValueError("There should be the same number of images as target_depths.")
+
+        if cameraslm.cam.pitch_um is None:
+            raise ValueError("Camera pitch_um is necessary to calculate defocus blur.")
+
+        device = resolve_device(device)
+        images = torch.as_tensor(targets, dtype=torch.float64, device=device)
+        canvas = torch.zeros((len(return_depths), h, w), dtype=torch.float64, device=device)
+        f_eff = np.sqrt(np.abs(np.linalg.det(cameraslm.calibrations["fourier"]["M"])))
+        w0_kxy = cameraslm.slm.get_spot_radius_kxy()
+        w0_pix = f_eff * w0_kxy
+        w0_um = w0_pix * np.mean(cameraslm.cam.pitch_um)
+        zr = np.pi * w0_um * w0_um / cameraslm.slm.wav_um
+
+        for j, z2 in enumerate(return_depths):
+            for i, z1 in enumerate(target_depths):
+                dz = (z1 - z2) * (f_eff * f_eff)
+                blur = w0_pix * (np.sqrt(1 + (dz / zr) ** 2) - (1 if sharp_focus else 0))
+                blur = 2 * int(blur) + 1
+                canvas[j] += _gaussian_blur(images[i], blur)
+
+        return canvas.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Meta plumbing (slmsuite_tpu _multiplane.py:146-186).
+    # ------------------------------------------------------------------
+
+    def _update_flags(self, method, verbose, feedback, stat_groups, **kwargs):
+        super()._update_flags(method, verbose, feedback, stat_groups, **kwargs)
+        for h in self.holograms:
+            h.flags.update(self.flags)
+
+    def reset(self, reset_phase=True, reset_flags=False):
+        super().reset(reset_phase, reset_flags)
+        if hasattr(self, "holograms"):
+            for h in self.holograms:
+                h.reset(reset_phase=False, reset_flags=reset_flags)
+
+    def reset_weights(self):
+        if hasattr(self, "holograms"):
+            for h in self.holograms:
+                h.reset_weights()
+
+    def set_target(self, *args, **kwargs):
+        raise RuntimeError(
+            "Do not use MultiplaneHologram.set_target(). "
+            "Update the targets of the child holograms directly."
+        )
+
+    def _update_stats(self, stat_groups=[]):
+        for h in self.holograms:
+            h._update_stats(stat_groups)
+
+    # ------------------------------------------------------------------
+    # Optimization.
+    # ------------------------------------------------------------------
+
+    def _mesh_eligible(self, callback):
+        """Whether the batched engine covers this problem (``slmsuite_tpu``'s
+        gate on a one-device mesh): no callback, plain-Hologram children
+        sharing one farfield shape (MRAF masks included: they are
+        plane-local), computational feedback, computational stats only and
+        no ``zero_factor`` (its evolving zero-region weights are host meta
+        loop state)."""
+        children = self.holograms
+        return (
+            callback is None
+            and all(type(h) is Hologram for h in children)
+            and self.flags.get("feedback", "computational") == "computational"
+            and len({tuple(h.shape) for h in children}) == 1
+            and not any(bool(h.flags.get("zero_factor", 0)) for h in children)
+            and not bool(self.flags.get("zero_factor", 0))
+            and set(self.flags.get("stat_groups", [])) <= {"computational"}
+        )
+
+    def _batched_inputs(self):
+        """The inputs of the batched run from the children's state, on the
+        device: ``(config, psi, weights, consts, phase_ff, fixed)`` for
+        :meth:`slmsuite_torch.parallel.multiplane.run_batched_gs`, resumed
+        as the single-plane engine resumes (the Kim flags from the
+        children's flags, the phase store from their ``_phase_ff_folded``,
+        None on a fresh run)."""
+        from slmsuite_torch.parallel.multiplane import BatchedGSConfig, make_multiplane_consts
+
+        children = self.holograms
+        device = self.device
+        slm_shape = tuple(self.slm_shape)
+        # Raw targets keep their nan noise regions: make_multiplane_consts
+        # derives per-plane MRAF region codes from them.
+        targets = np.stack([np.asarray(h.target, np.float32) for h in children])
+        mraf = bool(np.any(np.isnan(targets)))
+        kernels = np.stack([
+            np.zeros(slm_shape, np.float32) if h.propagation_kernel is None
+            else np.asarray(h.propagation_kernel, np.float32)
+            for h in children
+        ])
+        config = BatchedGSConfig(
+            method=self.flags["method"],
+            shape=tuple(children[0].shape),
+            slm_shape=slm_shape,
+            n_planes=len(children),
+            # Kernel-free batches skip the kernel add and the backward's
+            # phasor multiply.
+            has_kernel=any(h.propagation_kernel is not None for h in children),
+            stats=bool(self.flags.get("stat_groups", [])),
+            kim_efficiency_trigger=(
+                "Kim" in self.flags["method"]
+                and self.flags.get("fix_phase_efficiency") is not None
+            ),
+            mraf=mraf,
+            mraf_factor=mraf and self.flags.get("mraf_factor") is not None,
+        )
+        consts = make_multiplane_consts(
+            targets, kernels, np.asarray(self.weights, np.float32), self.amp,
+            feedback_exponent=self.flags.get("feedback_exponent", 0.8),
+            feedback_factor=self.flags.get("feedback_factor", 0.1),
+            fix_phase_iteration=self.flags.get("fix_phase_iteration", 10),
+            fix_phase_efficiency=self.flags.get("fix_phase_efficiency"),
+            mraf_factor=self.flags.get("mraf_factor"),
+            device=device,
+        )
+        weights = torch.stack([
+            torch.nan_to_num(type(h).weights.device(h, device)) for h in children
+        ])
+        phase_ff = (
+            torch.stack([type(h)._phase_ff_folded.device(h, device) for h in children])
+            if all(type(h)._phase_ff_folded.is_set(h) for h in children) else None
+        )
+        fixed = torch.tensor([bool(h.flags.get("fixed_phase", False)) for h in children],
+                             device=device)
+        psi = type(self)._psi.device(self, device)
+        return config, psi, weights, consts, phase_ff, fixed
+
+    def _optimize_gs_batched(self, maxiter, verbose, name):
+        """The batched multiplane run on one device (``slmsuite_tpu``'s
+        ``_optimize_gs_mesh`` on a one-device mesh): the whole run is one
+        device loop (:meth:`slmsuite_torch.parallel.multiplane.run_batched_gs`)
+        from :meth:`_batched_inputs`, with the state and stats scattered
+        back into the children once at the end."""
+        from slmsuite_torch.parallel.multiplane import run_batched_gs
+
+        children = self.holograms
+        start_iter = self.iter
+        config, psi, weights0, consts, phase_ff0, fixed0 = self._batched_inputs()
+        progress = self._progress(maxiter, verbose, name)
+        psi, weights, stats, phase_ff, fixed = run_batched_gs(
+            config, psi, weights0, consts, maxiter,
+            start_iteration=start_iter, phase_ff=phase_ff0, fixed=fixed0,
+        )
+        if progress is not None:
+            progress.update(maxiter)
+            progress.close()
+
+        # Scatter the state back into the children: planes stay on the
+        # device, the flags and the stats cross to the host once.
+        self._psi = psi
+        stats = stats.cpu().numpy()  # (n, B, 5): 4 metrics + Kim flag history.
+        fixed = fixed.cpu().numpy()
+        for b, h in enumerate(children):
+            h._psi = psi
+            h.weights = weights[b]
+            h._phase_ff_folded = phase_ff[b]
+            h.flags["fixed_phase"] = bool(fixed[b])
+            h.iter = start_iter + maxiter
+            if config.stats and h.flags.get("stat_groups"):
+                # The history column records the pre-iteration flag, so
+                # this lags a flip in the very last iteration.
+                h._final_fixed_phase = bool(stats[-1, b, 4]) if maxiter else False
+                n_groups = len(h.flags["stat_groups"])
+                arr = np.full((maxiter, n_groups + 1, 4), np.nan, np.float32)
+                for g, group in enumerate(h.flags["stat_groups"]):
+                    if group == "computational":
+                        arr[:, g, :] = stats[:, b, :4]
+                arr[:, -1, 0] = stats[:, b, 0]
+                arr[:, -1, 1] = stats[:, b, 4]
+                h._record_scan_stats(arr, start_iter)
+        self.iter = start_iter + maxiter
+        self._populate_results()
+
+    def optimize_gs(self, maxiter, callback, verbose=True, name=None):
+        """
+        Multiplane GS. A homogeneous, computational, callback-free problem
+        runs the batched engine (:meth:`_optimize_gs_batched`); anything
+        else the host meta loop: per iteration, every child runs its
+        forward, stats, weight update and constraint on the device, and the
+        plane-weighted complex windows combine into the shared phase.
+        """
+        if isinstance(maxiter, range):
+            maxiter = len(maxiter)
+
+        if self._mesh_eligible(callback):
+            return self._optimize_gs_batched(maxiter, verbose, name)
+
+        children = self.holograms
+        device = self.device
+        configs = [h._build_config() for h in children]
+        consts = [h._build_consts(c) for h, c in zip(children, configs)]
+        backwards = [_child_backward(c) for c in configs]
+        amp = self._amp_device()
+        progress = self._progress(maxiter, verbose, name)
+
+        for _ in range(maxiter):
+            windows = []
+            psi = type(self)._psi.device(self, device)
+            for b, (h, config, c) in enumerate(zip(children, configs, consts)):
+                # Forward with the child's kernel, from the shared phase.
+                h._psi = psi
+                kernel = c["kernel"] if config.has_kernel else None
+                farfield, amp_ff, theta = _prop.forward_fields(psi, amp, config.shape, kernel)
+                h._farfield_folded = farfield
+                h.amp_ff = amp_ff
+                h._midloop_cleaning()
+                h.iter = self.iter
+
+                # Stats, weights and the Kim decision, per child.
+                h._update_stats(h.flags.get("stat_groups", []))
+                was_not_fixed = not h.flags.get("fixed_phase", False)
+                if "WGS" in h.flags["method"] and h.iter > 0:
+                    h._update_weights()
+                    h._kim_decision_host()
+                if was_not_fixed or not type(h)._phase_ff_folded.is_set(h):
+                    h._phase_ff_folded = theta
+
+                windows.append(backwards[b](
+                    farfield,
+                    torch.nan_to_num(type(h).weights.device(h, device)),
+                    type(h)._phase_ff_folded.device(h, device),
+                    float(np.float32(self.weights[b])),
+                    c,
+                ))
+
+            self._psi = _combine_windows(windows)
+            stop = callback is not None and bool(callback(self))
+            self.iter += 1
+            if progress is not None:
+                progress.update(1)
+            if stop:
+                break
+
+        if progress is not None:
+            progress.close()
+        self._populate_results()

@@ -18,6 +18,14 @@ importing this module builds nothing. Each wrapper checks its inputs
 on the current stream, raises if the launcher reports an error, and
 counts its launches in :data:`LAUNCHES`.
 
+``carry_entry``, ``cols_fwd_polar``, ``cols_wexp_inv``, ``cols_fft`` and
+``rows_fft`` also take a ``(B, H, W)`` stack of planes (the multiplane
+engine's), in one launch for all B planes, counted once; ``carry_entry``
+takes it against one shared ``(H, W)`` amplitude plane (or a scalar).
+The compositions of these kernels (:meth:`fft2`, :meth:`ifft2`,
+:meth:`fft2_polar`, :meth:`fft2_polar_from_phase`, :meth:`wexp_ifft2`)
+take a stack with them. Every other wrapper takes ``(H, W)`` planes only.
+
 The plain PyTorch version of each kernel is the underscored function of
 the same name in :mod:`slmsuite_torch.ops.fft`.
 
@@ -79,17 +87,17 @@ _RULES = {"leonardo": 0, "kim": 0, "wu": 1, "tanh": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "slm_carry_entry": [_P, _P, _P, _P, _I, _I, _P, _P],
+    "slm_carry_entry": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "slm_cols_wgs_roundtrip": [_P] * 16 + [_I, _I, _I, _P, _P, _I, _I, _I, _P],
     "slm_cols_blocks": [_I, _I, _I],
     "slm_cols_wgs_fwd": [_P] * 14 + [_I, _I, _I, _P, _I, _I, _I, _P],
     "slm_rows_normfwd": [_P] * 5 + [_I, _I, _P, _P, _P],
     "slm_carry_exit": [_P, _P, _P, _I, _I, _P, _P],
     "slm_rows_fft": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
-    "slm_cols_fft": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
+    "slm_cols_fft": [_P] * 4 + [_I, _I, _I, _I, _P, _F, _P],
     "slm_fft_launch_shape": [_I, _I, ctypes.POINTER(_I)],
-    "slm_cols_fwd_polar": [_P] * 4 + [_I, _I, _P, _F, _P],
-    "slm_cols_wexp_inv": [_P] * 4 + [_I, _I, _P, _P],
+    "slm_cols_fwd_polar": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
+    "slm_cols_wexp_inv": [_P] * 4 + [_I, _I, _I, _P, _P],
     "slm_cols_mraf_fwd": [_P] * 12 + [_I, _I, _I, _P, _I, _I, _P],
     "slm_cols_mraf_mix_inv": [_P] * 16 + [_I, _I, _P, _I, _I, _P],
 }
@@ -325,10 +333,12 @@ def line_fft_model(xr, xi, *, inverse, blocks=1):
     return x.real.contiguous(), x.imag.contiguous()
 
 
-def _check_planes(*planes):
-    """Raise unless every plane is a contiguous f32 CUDA (H, W) tensor of
-    one shape whose sides the kernels take."""
+def _check_planes(*planes, stack=False):
+    """Raise unless every plane is a contiguous f32 CUDA tensor of one
+    shape, (H, W) or, with ``stack``, also (B, H, W) with B >= 1, whose
+    sides the kernels take. Returns ``(H, W)``."""
     shape = planes[0].shape
+    ndims = (2, 3) if stack else (2,)
     for x in planes:
         if not torch.is_tensor(x) or not x.is_cuda:
             raise ValueError("CUDA kernel wrappers take CUDA tensors only.")
@@ -336,26 +346,33 @@ def _check_planes(*planes):
             raise ValueError(f"Expected float32, got {x.dtype}.")
         if not x.is_contiguous():
             raise ValueError("Expected a contiguous tensor.")
-        if x.shape != shape or x.ndim != 2:
+        if x.shape != shape or x.ndim not in ndims or x.numel() == 0:
             raise ValueError(f"Shape mismatch: {tuple(x.shape)} vs {tuple(shape)}.")
         if x.device.index != torch.cuda.current_device():
             raise ValueError(
                 f"Tensor on {x.device}, but the current CUDA device is "
                 f"{torch.cuda.current_device()}: launches go to the current device."
             )
-    if not (kernel_len_ok(shape[0]) and kernel_len_ok(shape[1])):
+    H, W = shape[-2:]
+    if not (kernel_len_ok(H) and kernel_len_ok(W)):
         raise ValueError(
             f"Sides must be powers of two in [64, 4096]; got {tuple(shape)}."
         )
-    return shape
+    return H, W
+
+
+def _n_planes(x):
+    """Planes in ``x``: B of a (B, H, W) stack, 1 of an (H, W) plane."""
+    return x.shape[0] if x.ndim == 3 else 1
 
 
 def _amp_plane(amp, shape):
-    """The amplitude plane, or None for a scalar amplitude."""
+    """The (H, W) amplitude plane of planes of ``shape`` ((H, W) or a
+    (B, H, W) stack, which shares it), or None for a scalar amplitude."""
     if is_scalar_amp(amp):
         return None
     _check_planes(amp)
-    if amp.shape != shape:
+    if amp.shape != shape[-2:]:
         raise ValueError(f"amp {tuple(amp.shape)} does not match {tuple(shape)}.")
     return amp
 
@@ -398,12 +415,13 @@ def _raise_on(rc, name):
 
 def carry_entry(psi, amp):
     """#1: psi -> rows-transformed carry ``(gr, gi)`` of ``e^{i psi}``
-    (scalar ``amp``) or ``amp * e^{i psi}``."""
-    H, W = _check_planes(psi)
+    (scalar ``amp``) or ``amp * e^{i psi}``. ``psi`` is an (H, W) plane or
+    a (B, H, W) stack, whose planes share the (H, W) ``amp``."""
+    H, W = _check_planes(psi, stack=True)
     amp_plane = _amp_plane(amp, psi.shape)
     gr, gi = torch.empty_like(psi), torch.empty_like(psi)
     rc = _lib().slm_carry_entry(
-        _ptr(psi), _ptr(amp_plane), _ptr(gr), _ptr(gi), H, W,
+        _ptr(psi), _ptr(amp_plane), _ptr(gr), _ptr(gi), _n_planes(psi), H, W,
         _ptr(_twiddles(W, False, psi.device)), _stream(),
     )
     _raise_on(rc, "carry_entry")
@@ -588,11 +606,12 @@ def mraf_carry_step(gr, gi, amp, weights, phase_ff, target, mask, mcode, zw, sca
 
 def rows_fft(xr, xi, *, inverse, scale=1.0):
     """#5, rows half: the FFT (``inverse``: the unnormalized inverse FFT)
-    of every row of the pair, times ``scale``."""
-    H, W = _check_planes(xr, xi)
+    of every row of the pair (of every plane of a (B, H, W) stack: B H
+    rows), times ``scale``."""
+    H, W = _check_planes(xr, xi, stack=True)
     yr, yi = torch.empty_like(xr), torch.empty_like(xr)
     rc = _lib().slm_rows_fft(
-        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), H, W, int(bool(inverse)),
+        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), _n_planes(xr) * H, W, int(bool(inverse)),
         _ptr(_twiddles(W, bool(inverse), xr.device)), float(scale), _stream(),
     )
     _raise_on(rc, "rows_fft")
@@ -602,11 +621,12 @@ def rows_fft(xr, xi, *, inverse, scale=1.0):
 
 def cols_fft(xr, xi, *, inverse, scale=1.0):
     """#5, cols half: the FFT (``inverse``: the unnormalized inverse FFT)
-    of every column of the pair, times ``scale``."""
-    H, W = _check_planes(xr, xi)
+    of every column of the pair (of each plane of a (B, H, W) stack),
+    times ``scale``."""
+    H, W = _check_planes(xr, xi, stack=True)
     yr, yi = torch.empty_like(xr), torch.empty_like(xr)
     rc = _lib().slm_cols_fft(
-        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), H, W, int(bool(inverse)),
+        _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), _n_planes(xr), H, W, int(bool(inverse)),
         _ptr(_twiddles(H, bool(inverse), xr.device)), float(scale), _stream(),
     )
     _raise_on(rc, "cols_fft")
@@ -644,12 +664,12 @@ def _cols_blocks(kernel, H, W):
 
 
 def cols_fwd_polar(xr, xi, scale):
-    """#5 polar and #6, cols half: the forward FFT of every column,
-    returned as ``(scale * |F|, arg F)``."""
-    H, W = _check_planes(xr, xi)
+    """#5 polar and #6, cols half: the forward FFT of every column (of
+    each plane of a (B, H, W) stack), returned as ``(scale * |F|, arg F)``."""
+    H, W = _check_planes(xr, xi, stack=True)
     amp, theta = torch.empty_like(xr), torch.empty_like(xr)
     rc = _lib().slm_cols_fwd_polar(
-        _ptr(xr), _ptr(xi), _ptr(amp), _ptr(theta), H, W,
+        _ptr(xr), _ptr(xi), _ptr(amp), _ptr(theta), _n_planes(xr), H, W,
         _ptr(_twiddles(H, False, xr.device)), float(scale), _stream(),
     )
     _raise_on(rc, "cols_fwd_polar")
@@ -659,11 +679,11 @@ def cols_fwd_polar(xr, xi, scale):
 
 def cols_wexp_inv(weights, phase):
     """#11, cols half: ``weights * e^{i phase}``, then the unnormalized
-    inverse FFT of every column."""
-    H, W = _check_planes(weights, phase)
+    inverse FFT of every column (of each plane of a (B, H, W) stack)."""
+    H, W = _check_planes(weights, phase, stack=True)
     yr, yi = torch.empty_like(weights), torch.empty_like(weights)
     rc = _lib().slm_cols_wexp_inv(
-        _ptr(weights), _ptr(phase), _ptr(yr), _ptr(yi), H, W,
+        _ptr(weights), _ptr(phase), _ptr(yr), _ptr(yi), _n_planes(weights), H, W,
         _ptr(_twiddles(H, True, weights.device)), _stream(),
     )
     _raise_on(rc, "cols_wexp_inv")

@@ -29,6 +29,9 @@ All loop state stays on the device (including ``fixed_phase``,
 Python branch on a tensor value runs inside the loop, and the stats rows
 are stacked once per run.
 
+:meth:`run_gs_batch` runs K independent holograms (``optimize_batch``),
+each through :meth:`run_gs` on its own loop and kernels.
+
 ``experimental_spot_sim`` closes the camera loop on the device for a
 simulated rig: :meth:`sim_measure_spots` forms the quantized display, the
 farfield on the camera's canvas, the camera frame and the spot-window sums
@@ -746,11 +749,40 @@ def run_gs_scheduled(*args, **kwargs):
     )
 
 
-def run_gs_batch(*args, **kwargs):
-    """K independent holograms in lockstep (``optimize_batch``)."""
-    raise NotImplementedError(
-        "Batched runs come with optimize_batch (ROADMAP.md queue 1, item 10)."
-    )
+def run_gs_batch(config: GSConfig, states: GSState, consts: dict, n_iterations: int,
+                 mesh=None):
+    """
+    Run ``n_iterations`` of GS/WGS on a BATCH of K independent holograms
+    (no coupling; contrast :mod:`slmsuite_torch.parallel.multiplane`, whose
+    planes share one phase). ``states`` and ``consts`` hold the
+    per-instance states and constants stacked on a leading K (a scalar
+    amplitude as a (K,) tensor). Each instance runs through :meth:`run_gs`,
+    on the loop and the kernels its configuration takes (the fused carry
+    loop, the MRAF carry loop or the natural step); the amplitudes cross to
+    the host once, before the first. A ``mesh`` raises
+    :class:`NotImplementedError` (ROADMAP.md queue 1, item 11).
+
+    Returns ``(states, stats)``: the final states stacked on K, and the
+    stats, ``(K, n_iterations, len(stat_groups) + 1, 4)``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "Mesh-sharded batch optimization comes with the distributed engines "
+            "(ROADMAP.md queue 1, item 11)."
+        )
+    amps = consts["amp"]
+    if amps.ndim == 1:
+        amps = amps.tolist()  # Scalar amplitudes: Python floats, as run_gs takes them.
+    finals, stats = [], []
+    for k in range(states.weights.shape[0]):
+        state = GSState(*(None if field is None else field[k] for field in states))
+        instance = {key: amps[k] if key == "amp" else value[k] for key, value in consts.items()}
+        state, rows = run_gs(config, state, instance, n_iterations)
+        finals.append(state)
+        stats.append(rows)
+    states = GSState(*(None if fields[0] is None else torch.stack(fields)
+                       for fields in zip(*finals)))
+    return states, torch.stack(stats)
 
 
 def set_scrambled_mode(enable):

@@ -52,6 +52,12 @@ The dispatchers (:meth:`wgs_carry_entry`, :meth:`wgs_carry_step`,
 for CPU tensors only. A CUDA tensor whose sides are powers of two in
 [64, 4096] launches the kernels; any other CUDA shape raises
 :class:`NotImplementedError`.
+
+:meth:`fft2`, :meth:`ifft2`, :meth:`fft2_polar`, :meth:`fft2_polar_from_phase`
+and :meth:`wexp_ifft2` also take a ``(B, H, W)`` stack of planes (the
+batched multiplane engine's), transformed plane by plane: on the card one
+launch of each kernel for all B planes, on the CPU the plain versions over
+the last two dimensions. The gate reads the last two sides.
 """
 
 import functools
@@ -614,8 +620,9 @@ def fft2(xr, xi):
 
 def ifft2(xr, xi):
     """Ortho inverse 2D FFT of an (re, im) pair, in natural order
-    (``slmsuite_tpu.ops.fft.ifft2_scrambled``, whose input is scrambled).
-    Kernels: ``cols_fft``, then ``rows_fft`` with the ortho scale."""
+    (``slmsuite_tpu.ops.fft.ifft2_scrambled``, whose input is scrambled), of
+    an (H, W) plane or of each plane of a (B, H, W) stack. Kernels:
+    ``cols_fft``, then ``rows_fft`` with the ortho scale."""
     if use_kernels(xr):
         return _cuda().ifft2(xr, xi)
     return _ifft2(xr, xi)
@@ -633,8 +640,9 @@ def fft2_polar(xr, xi):
 def fft2_polar_from_phase(psi, amp):
     """``(|F|, arg F)`` of the ortho 2D FFT of ``amp * e^{i psi}``, with
     a scalar or (H, W) ``amp``
-    (``slmsuite_tpu.ops.fft.fft2_scrambled_polar_from_phase``). Kernels:
-    ``carry_entry``, then ``cols_fwd_polar``."""
+    (``slmsuite_tpu.ops.fft.fft2_scrambled_polar_from_phase``); ``psi`` is
+    an (H, W) plane or a (B, H, W) stack whose planes share ``amp``.
+    Kernels: ``carry_entry``, then ``cols_fwd_polar``."""
     if use_kernels(psi):
         return _cuda().fft2_polar_from_phase(psi, amp)
     return _fft2_polar_from_phase(psi, amp)
@@ -654,8 +662,9 @@ def wexp_ifft2(weights, phase):
     """Ortho inverse 2D FFT of ``weights * e^{i phase}`` as an (re, im)
     pair: the backward half of the natural step on a padded canvas or
     with a propagation kernel (``slmsuite_tpu.ops.fft.wexp_ifft2_scrambled``,
-    whose input is scrambled). Kernels: ``cols_wexp_inv``, then
-    ``rows_fft`` with the ortho scale."""
+    whose input is scrambled), and of the multiplane engine on a (B, H, W)
+    stack. Kernels: ``cols_wexp_inv``, then ``rows_fft`` with the ortho
+    scale."""
     if use_kernels(weights):
         return _cuda().wexp_ifft2(weights, phase)
     return _wexp_ifft2(weights, phase)

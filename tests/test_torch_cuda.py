@@ -937,3 +937,152 @@ def test_host_iteration_launches_the_counted_kernels(cuda):
     assert launched == dict(rows_fft=3, cols_fft=3, cols_wexp_inv=1, carry_exit=1), launched
     assert holo.iter == 3 and type(holo)._psi.resident(holo).is_cuda
     assert np.isfinite(holo.get_phase()).all() and np.isfinite(np.asarray(holo.weights)).all()
+
+
+# ----------------------------------------------------------------------
+# The plane dimension (B1): carry_entry, cols_fwd_polar, cols_wexp_inv,
+# cols_fft and rows_fft on a (B, H, W) stack, in one launch.
+# ----------------------------------------------------------------------
+
+#: Stacks of the batched checks: the multiplane engine's 1024^2 at B = 8,
+#: the shortest and the clustered (4096-point) columns, a rectangle.
+STACK_SHAPES = [(8, 1024, 1024), (3, 64, 64), (3, 256, 512), (2, 4096, 128), (1, 128, 128)]
+
+
+def _stack_inputs(shape, device, seed=0):
+    rng = np.random.default_rng(seed)
+    B, H, W = shape
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+
+    return dict(
+        xr=dev(rng.standard_normal(shape)), xi=dev(rng.standard_normal(shape)),
+        psi=dev(rng.uniform(-4 * np.pi, 4 * np.pi, shape)),
+        w=dev(rng.uniform(0, 1, shape)), phi=dev(rng.uniform(-np.pi, np.pi, shape)),
+        amp=dev(0.5 + rng.uniform(0, 1, (H, W))),
+    )
+
+
+def _batched_calls(x):
+    """Kernel name -> (batched call on the stacks, call on plane b, plain
+    version on the stacks)."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    xr, xi, psi, w, phi, amp = (x[k] for k in ("xr", "xi", "psi", "w", "phi", "amp"))
+    return {
+        "carry_entry": (lambda: cuda_fft.carry_entry(psi, amp),
+                        lambda b: cuda_fft.carry_entry(psi[b], amp),
+                        lambda: fft._wgs_carry_entry(psi, amp)),
+        "carry_entry scalar": (lambda: cuda_fft.carry_entry(psi, 0.5),
+                               lambda b: cuda_fft.carry_entry(psi[b], 0.5),
+                               lambda: fft._wgs_carry_entry(psi, 0.5)),
+        "cols_fwd_polar": (lambda: cuda_fft.cols_fwd_polar(xr, xi, 0.25),
+                           lambda b: cuda_fft.cols_fwd_polar(xr[b], xi[b], 0.25),
+                           lambda: fft._cols_fwd_polar(xr, xi, 0.25)),
+        "cols_wexp_inv": (lambda: cuda_fft.cols_wexp_inv(w, phi),
+                          lambda b: cuda_fft.cols_wexp_inv(w[b], phi[b]),
+                          lambda: fft._cols_wexp_inv(w, phi)),
+        "cols_fft": (lambda: cuda_fft.cols_fft(xr, xi, inverse=True, scale=0.5),
+                     lambda b: cuda_fft.cols_fft(xr[b], xi[b], inverse=True, scale=0.5),
+                     lambda: fft._cols_fft(xr, xi, inverse=True, scale=0.5)),
+        "rows_fft": (lambda: cuda_fft.rows_fft(xr, xi, inverse=False, scale=0.5),
+                     lambda b: cuda_fft.rows_fft(xr[b], xi[b], inverse=False, scale=0.5),
+                     lambda: fft._rows_fft(xr, xi, inverse=False, scale=0.5)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STACK_SHAPES)
+@pytest.mark.parametrize("name", ["carry_entry", "carry_entry scalar", "cols_fwd_polar",
+                                  "cols_wexp_inv", "cols_fft", "rows_fft"])
+def test_batched_kernels_match_single_launches_and_plain(cuda, shape, name):
+    """A (B, H, W) stack in one launch equals B launches on its planes bit
+    for bit (the code a plane runs is the same) and the plain version on
+    the stack within CARRY_RTOL (``arg F``: 1e-3 rad where ``|F| > 1e-3 max
+    |F|``); ``carry_entry`` takes one (H, W) amplitude plane for every
+    plane of the stack."""
+    from slmsuite_torch.ops import cuda_fft
+
+    batched, single, plain = _batched_calls(_stack_inputs(shape, cuda))[name]
+    cuda_fft.reset_launch_counts()
+    got = batched()
+    torch.cuda.synchronize()
+    kernel = name.split()[0]
+    assert {k: v for k, v in cuda_fft.LAUNCHES.items() if v} == {kernel: 1}
+    planes = [single(b) for b in range(shape[0])]
+    for g, parts in zip(got, zip(*planes)):
+        assert g.shape == shape
+        assert torch.equal(g, torch.stack(parts))
+    ref = plain()
+    if kernel == "cols_fwd_polar":
+        assert _rel(got[0], ref[0]) <= CARRY_RTOL
+        on = ref[0] > 1e-3 * ref[0].amax(dim=(-2, -1), keepdim=True)
+        turn = torch.remainder(got[1] - ref[1] + np.pi, 2 * np.pi) - np.pi
+        assert float(turn.abs()[on].max()) < 1e-3
+    else:
+        for g, r in zip(got, ref):
+            assert _rel(g, r) <= CARRY_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["carry_entry", "cols_fwd_polar", "cols_wexp_inv",
+                                  "cols_fft", "rows_fft"])
+def test_plane_calls_equal_a_stack_of_one(cuda, name):
+    """An (H, W) call runs the kernel with one plane: it equals the (1, H,
+    W) stack's, bit for bit, and counts one launch."""
+    from slmsuite_torch.ops import cuda_fft
+
+    batched, single, _ = _batched_calls(_stack_inputs((1, 256, 512), cuda))[name]
+    cuda_fft.reset_launch_counts()
+    plane = single(0)
+    assert cuda_fft.LAUNCHES[name] == 1
+    for p, s in zip(plane, batched()):
+        assert p.shape == (256, 512) and torch.equal(p, s[0])
+
+
+@pytest.mark.cuda
+def test_batched_wrappers_refuse_mismatched_stacks(cuda):
+    """A stack takes one shape for all its planes and one (H, W) amplitude;
+    the wrappers that take no stack refuse one."""
+    from slmsuite_torch.ops import cuda_fft
+
+    stack = torch.zeros((3, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="Shape mismatch"):
+        cuda_fft.cols_fft(stack, stack[:2], inverse=False)
+    with pytest.raises(ValueError, match="does not match"):
+        cuda_fft.carry_entry(stack, torch.ones((64, 128), device=cuda))
+    with pytest.raises(ValueError, match="Shape mismatch"):
+        cuda_fft.carry_entry(stack, torch.ones((3, 64, 64), device=cuda))
+    with pytest.raises(ValueError, match="Shape mismatch"):
+        cuda_fft.carry_exit(stack, stack)
+    with pytest.raises(ValueError, match="Shape mismatch"):
+        cuda_fft.rows_normfwd(stack, stack, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mraf", [False, True])
+def test_batched_multiplane_runs_one_launch_an_iteration(cuda, mraf):
+    """The batched multiplane engine at 3 planes of 128^2 launches each
+    kernel of its step once an iteration for all planes, and agrees with
+    its plain versions (per-plane efficiency and uniformity within 1e-3)."""
+    from slmsuite_torch.models.parallel_models import multiplane_batched
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    run = multiplane_batched(3, N=128, mraf=mraf, device=cuda)
+    cuda_fft.reset_launch_counts()
+    _, _, stats, _, _ = run(None, 6)
+    torch.cuda.synchronize()
+    backward = dict(cols_fft=6) if mraf else dict(cols_wexp_inv=6)
+    assert {k: v for k, v in cuda_fft.LAUNCHES.items() if v} == dict(
+        carry_entry=6, cols_fwd_polar=6, rows_fft=6, **backward)
+    names = ("fft2_polar_from_phase", "wexp_ifft2", "ifft2")
+    saved = {n: getattr(fft, n) for n in names}
+    try:
+        for n in names:
+            setattr(fft, n, getattr(fft, "_" + n))
+        _, _, plain, _, _ = run(None, 6)
+    finally:
+        for n, f in saved.items():
+            setattr(fft, n, f)
+    assert float((stats[:, :, :2] - plain[:, :, :2]).abs().max()) <= 1e-3

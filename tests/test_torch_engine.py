@@ -220,7 +220,7 @@ def test_mraf_configs_run(change):
     assert bool(torch.isfinite(state.psi).all()) and 0 < float(stats[-1, 0, 0]) <= 1
 
 
-@pytest.mark.parametrize("entry", ["run_gs_scheduled", "run_gs_batch", "set_scrambled_mode"])
+@pytest.mark.parametrize("entry", ["run_gs_scheduled", "set_scrambled_mode"])
 def test_tpu_only_entry_points_raise(entry):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(TE, entry)(None)

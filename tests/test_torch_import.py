@@ -1,7 +1,8 @@
 """
 Importing the port and running a 64^2 fused optimize, a padded GS
-optimize, a compressed WGS-Kim optimize and a camera-in-the-loop WGS-Kim
-optimize on a simulated rig on the CPU loads none of jax,
+optimize, a compressed WGS-Kim optimize, a camera-in-the-loop WGS-Kim
+optimize on a simulated rig, a two-plane multiplane optimize and a batch
+of two on the CPU loads none of jax,
 cv2, h5py, matplotlib, tqdm, triton or the JAX package, and needs no
 ``nvcc`` (nor imports the compressed kernels' module). It runs in a
 subprocess: this test process has already imported jax
@@ -52,6 +53,13 @@ SCRIPT = textwrap.dedent("""
     camera_loop.optimize("WGS-Kim", maxiter=3, verbose=False, feedback="experimental_spot",
                          stat_groups=["experimental_spot"])
     rig.cam.get_image()
+    from slmsuite_torch.holography.algorithms import Hologram, MultiplaneHologram, optimize_batch
+    planes = [Hologram(holo.target, propagation_kernel=np.full((64, 64), 0.1 * b, np.float32))
+              for b in range(2)]
+    MultiplaneHologram(planes).optimize("WGS-Kim", maxiter=3, verbose=False,
+                                        stat_groups=["computational"])
+    optimize_batch([Hologram(holo.target), Hologram(holo.target)], "WGS-Kim", maxiter=3,
+                   verbose=False)
     compressed_module = sys.modules.get("slmsuite_torch.ops.cuda_compressed")
     added = sorted({m.split(".")[0] for m in set(sys.modules) - before})
     cuda_fft = sys.modules.get("slmsuite_torch.ops.cuda_fft")
