@@ -105,6 +105,18 @@ there is no card or the port is missing. In order:
      calls; each loop's host transfers (none allowed in the batched
      loops), every iteration's per-plane efficiency and uniformity against
      the plain versions within 1e-3;
+   - G1-G3, gradient phase retrieval (``method="CG"``, Adam) through the
+     kernels forward and backward: G1, the fused slice's array through
+     ``SpotHologram`` (lr 0.1, 50 iterations; ``rows_fft`` and ``cols_fft``
+     2 each an iteration); G2, config 5's ``CompressedSpotHologram`` (lr
+     0.3, 30 iterations; ``n2f`` and ``f2n`` 1 each); G3, P3's
+     ``MultiplaneHologram`` (lr 0.2, 20 iterations; 8 x (2 + 2)). Each
+     with exact launches in the loop and after it, against torch's own
+     autograd through the plain versions on the card (the first gradient
+     within 1e-4 of the largest, the loss at every iteration within 1e-3
+     relative, the final efficiency and uniformity within 1e-3, G2's spot
+     amplitudes within 2e-3), one host transfer an iteration (the loss),
+     ms an iteration interleaved and peak device memory;
    each through the kernels (loop launches checked, launches after the
    loop counted apart; the kernels line reports both together) and
    through the plain versions (final efficiency and uniformity within
@@ -147,7 +159,7 @@ there is no card or the port is missing. In order:
 8. ``torch.profiler`` breakdowns of the fused, the natural (WGS-Nogrette),
    the N2 GS, the ``image_mraf(2048)`` (WGS-Leonardo, the MRAF carry loop),
    M2's (WGS-Kim with zero weights), M3's (GS, the natural MRAF step), the
-   C1, the C2, the S2 and the P1 loops: device
+   C1, the C2, the S2, the P1 and the G1 loops: device
    time, device busy share, device launches per iteration (S2 also:
    the share of ``sim_measure_spots``).
 
@@ -231,6 +243,16 @@ CONFIG4_WARM, CONFIG4_ITERS = 5, 30
 S2_SIDE, S2_PITCH = 10, 24
 #: H1: camera-loop iterations, frames averaged, the noise's seed.
 H1_ITERS, H1_AVERAGING, H1_NOISE_SEED = 20, 4, 11
+#: G1-G3, gradient phase retrieval (CG, Adam): iterations and learning
+#: rates (the fused slice's array, config 5, P3's multiplane hologram).
+G1_ITERS, G1_LR = 50, 0.1
+G2_ITERS, G2_LR = 30, 0.3
+G3_ITERS, G3_LR = 20, 0.2
+#: CG, kernels against torch's own autograd through the plain versions on
+#: the card: the first iteration's gradient (max |diff| over the largest
+#: gradient) and the loss at every iteration (relative). Adam's first steps
+#: act on each gradient's sign, so psi itself is not compared.
+CG_GRAD_RTOL, CG_LOSS_RTOL = 1e-4, 1e-3
 #: H2: iterations asked for, and the iteration at which the callback stops.
 H2_MAXITER, H2_STOP = 50, 30
 #: H3: the zero_factor MRAF host loop's iterations, then external_spot's.
@@ -3051,6 +3073,155 @@ def phase_multiplane(device):
     return {path: launches for path, (launches, _) in p12.items()}, p12["P1"][1]
 
 
+# ----------------------------------------------------------------------
+# Gradient phase retrieval: G1-G3.
+# ----------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_gradients():
+    """Every transform plain, and gradient phase retrieval differentiated
+    by torch's own autograd through the plain versions (``grad.fft2`` and
+    ``grad.compressed_farfield`` swapped for their plain compositions): no
+    kernel launches."""
+    from slmsuite_torch.ops import compressed, fft, grad
+
+    saved = grad.fft2, grad.compressed_farfield
+    grad.fft2 = fft._fft2
+    grad.compressed_farfield = lambda re, im, coeffs, basis: compressed._unit(
+        *compressed._nearfield_to_farfield_raw(re, im, coeffs, basis))
+    try:
+        with plain_step_functions(), plain_compressed():
+            yield
+    finally:
+        grad.fft2, grad.compressed_farfield = saved
+
+
+def cg_gradient(holo):
+    """The gradient of ``holo``'s CG loss at its current phase."""
+    psi, loss_from_psi = holo._cg_objective()
+    leaf = psi.detach().clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(loss_from_psi(leaf), leaf)
+    return grad
+
+
+def cg_optimize(holo, n, lr, callback=None):
+    holo.optimize("CG", maxiter=n, verbose=False, optimizer_kwargs={"learning_rate": lr},
+                  callback=callback)
+
+
+def cg_final(holo):
+    """What users read after a CG run: the spot amplitudes over their
+    maximum (a compressed hologram), else the final efficiency and
+    uniformity of the hologram or of each child of a multiplane one."""
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+    from slmsuite_torch.ops.stats import calculate_stats_numpy
+
+    if isinstance(holo, CompressedSpotHologram):
+        amp = np.asarray(holo.amp_ff)
+        return amp / amp.max()
+    holos = getattr(holo, "holograms", [holo])
+    out = []
+    for h in holos:
+        if h is not holo:
+            h._populate_results()
+        stats = calculate_stats_numpy(np.asarray(h.amp_ff), np.asarray(h.target),
+                                      efficiency_compensation=False)
+        out.append([stats["efficiency"], stats["uniformity"]])
+    return np.array(out)
+
+
+def drive_cg(make, n, lr):
+    """``n`` CG iterations on a fresh ``make()`` with both launch counts
+    set to 0 just before. Returns ``(holo, losses, loop launches, launches
+    after the loop, seconds)``."""
+    holo = make()
+    losses = []
+    split = launches_split_at(holo)
+    start = time.perf_counter()
+    cg_optimize(holo, n, lr, lambda h: losses.append(h.flags["loss_result"]) and False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    loop, after = split()
+    del holo._populate_results  # The class's again.
+    return holo, np.array(losses), loop, after, seconds
+
+
+def run_cg_path(label, make, n, lr, loop_expect, after_expect, final_atol):
+    """One CG path: through the kernels (exact launches in the loop and
+    after it, peak device memory) and through torch's own autograd of the
+    plain versions (no launch): the first iteration's gradient within
+    CG_GRAD_RTOL of the largest, the loss at every iteration within
+    CG_LOSS_RTOL, what users read within ``final_atol``; then the host
+    transfers an iteration (one: the loss) and ms an iteration, plain,
+    kernels, kernels, plain. Returns ``(launches, the timed run)``."""
+    torch.cuda.reset_peak_memory_stats()
+    holo, losses, loop, after, seconds = drive_cg(make, n, lr)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label} (kernels): loss {losses[0]:.6e} -> {losses[-1]:.6e} in {seconds:.2f} s; "
+        f"loop launches {loop}, after the loop {after}; peak device memory {peak:.3f} GiB")
+    assert loop == loop_expect, (label, loop, loop_expect)
+    assert after == after_expect, (label, after, after_expect)
+    assert holo.iter == n == len(losses) and np.isfinite(losses).all(), (label, holo.iter)
+    assert np.isfinite(holo.get_phase()).all()
+    final = cg_final(holo)
+    grad = cg_gradient(make())
+    with plain_gradients():
+        plain_grad = cg_gradient(make())
+        torch.cuda.reset_peak_memory_stats()
+        plain, plain_losses, plain_loop, plain_after, plain_s = drive_cg(make, n, lr)
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        plain_final = cg_final(plain)
+    assert not plain_loop and not plain_after, (plain_loop, plain_after)
+    e_grad = float((grad - plain_grad).abs().max() / plain_grad.abs().max())
+    e_loss = float(np.max(np.abs(losses - plain_losses) / np.abs(plain_losses)))
+    e_final = float(np.abs(final - plain_final).max())
+    log(f"{label} (plain autograd): {plain_s:.2f} s, peak device memory {plain_peak:.3f} GiB; "
+        f"first gradient max |diff| / max {e_grad:.3e}, loss max relative diff {e_loss:.3e}, "
+        f"final max |diff| {e_final:.3e} (kernels {final.ravel()[:4].tolist()}, plain "
+        f"{plain_final.ravel()[:4].tolist()})")
+    assert e_grad <= CG_GRAD_RTOL and e_loss <= CG_LOSS_RTOL, (label, e_grad, e_loss)
+    assert e_final <= final_atol, (label, e_final)
+
+    def run(k):
+        cg_optimize(holo, k, lr)
+
+    base, _ = host_transfers(run, 0)
+    copies, events = host_transfers(run, HOST_TIMING_ITERS)
+    per_iter = (len(copies) - len(base)) / HOST_TIMING_ITERS
+    log(f"{label}: {per_iter:.2f} host transfers an iteration ({len(copies)} among {events} "
+        f"device events of {HOST_TIMING_ITERS} iterations, {len(base)} of a call of none)")
+    assert per_iter == 1, (label, per_iter)
+    with plain_gradients():
+        p1 = wall_ms(run, n)
+    k1, k2 = wall_ms(run, n), wall_ms(run, n)
+    with plain_gradients():
+        p2 = wall_ms(run, n)
+    log(f"{label} optimize(maxiter={n}): kernels {k1:.3f} {k2:.3f} ms an iteration, plain "
+        f"autograd {p1:.3f} {p2:.3f}  [{nvidia_smi_line()}]")
+    return {k: loop.get(k, 0) + after.get(k, 0) for k in {*loop, *after}}, run
+
+
+def phase_cg(device):
+    """G1-G3, gradient phase retrieval (CG, Adam) through the kernels in
+    both directions: G1, the fused slice's 2048^2 array through
+    SpotHologram; G2, config 5 through CompressedSpotHologram; G3, P3's
+    MultiplaneHologram. Returns each path's launches and G1's run."""
+    n1, n2, n3 = G1_ITERS, G2_ITERS, G3_ITERS
+    fft2 = dict(rows_fft=1, cols_fft=1)
+    g1, g1_run = run_cg_path(
+        "G1 SpotHologram 2048^2 32x32 CG", lambda: spot_array(device, (32, 32), (30, 30)),
+        n1, G1_LR, dict(rows_fft=2 * n1, cols_fft=2 * n1), fft2, SLICE_ATOL)
+    g2, _ = run_cg_path(
+        "G2 config 5 CompressedSpotHologram CG", lambda: config5_hologram(device), n2, G2_LR,
+        dict(n2f=n2, f2n=n2), dict(n2f=1), CMP_PATH_ATOL)
+    B = MP_PLANES
+    g3, _ = run_cg_path(
+        f"G3 MultiplaneHologram {B} x {MP_SIDE}^2 CG", lambda: p3_hologram(device), n3, G3_LR,
+        dict(rows_fft=2 * B * n3, cols_fft=2 * B * n3), fft2, SLICE_ATOL)
+    return {"G1": g1, "G2": g2, "G3": g3}, g1_run
+
+
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
@@ -3082,6 +3253,7 @@ def main():
     s2_loop = phase_camera(device)
     phase_host_loop(device)
     mp_launches, p1_run = phase_multiplane(device)
+    cg_launches, g1_run = phase_cg(device)
     phase_golden()
     times = phase_kernel_timing(device)
     batched_times = phase_batched_timing(device)
@@ -3108,6 +3280,7 @@ def main():
                   n=CONFIG4_ITERS)
     phase_profile(device, f"P1 multiplane {MP_PLANES} x {MP_SIDE}^2 WGS-Kim batched",
                   lambda k: p1_run(None, k), n=MP_TIMING_ITERS)
+    phase_profile(device, "G1 SpotHologram 2048^2 32x32 CG", g1_run, n=G1_ITERS)
 
     kernels = []
     for name, (source, replaces, path) in KERNELS.items():
@@ -3130,6 +3303,9 @@ def main():
                 "path": mp_path, "launches": mp_launches[mp_path][name], "planes": MP_PLANES,
                 "side": MP_SIDE, "ms_per_plane": b["per_plane"], "ms_one_plane": b["one_plane"],
             }
+        if any(name in counts for counts in cg_launches.values()):
+            # The launches of gradient phase retrieval, forward and backward.
+            kernels[-1]["cg"] = {g: counts.get(name, 0) for g, counts in cg_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

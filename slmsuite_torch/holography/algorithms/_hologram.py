@@ -11,7 +11,10 @@ MRAF. A callback, feedback measured on the host or given by the user, or a
 stat group the device does not compute runs the stepwise host loop
 (:meth:`Hologram._stepwise_iteration`): its transforms stay on the device,
 and only the stats, the weights' inputs and the camera frames cross to the
-host. Conjugate gradient and mesh-sharded runs are not ported yet and
+host. Gradient phase retrieval (``"CG"``, :meth:`Hologram.optimize_cg`)
+differentiates the loss through :class:`slmsuite_torch.ops.grad.Fft2`,
+whose forward and backward are the FFT kernels, and steps an optimizer of
+:mod:`slmsuite_torch.ops.optim`. Mesh-sharded runs are not ported yet and
 raise :class:`NotImplementedError`.
 """
 
@@ -30,9 +33,72 @@ from slmsuite_torch.holography.algorithms._stats import _HologramStats
 from slmsuite_torch.holography.toolbox import REAL_TYPES
 from slmsuite_torch.holography.toolbox import phase as tphase
 from slmsuite_torch.ops import engine as _engine
+from slmsuite_torch.ops import optim as _optim
 from slmsuite_torch.ops import propagation as _prop
 from slmsuite_torch.ops.stats import STAT_KEYS, calculate_stats
 from slmsuite_torch.ops.weights import update_weights_generic
+
+
+class ComplexMSELoss:
+    """Mean-squared error between the unit-power-normalized amplitude of a
+    complex farfield and a real target (nan counted as 0), for
+    :meth:`Hologram.optimize` with ``method="CG"`` (``loss=ComplexMSELoss()``;
+    ``slmsuite_tpu``'s, on torch tensors). ``reduction`` is ``"mean"``
+    (the default CG loss of :class:`Hologram`) or ``"sum"``."""
+
+    def __init__(self, reduction="mean"):
+        if reduction not in ("mean", "sum"):
+            raise ValueError(f"Unsupported reduction '{reduction}'.")
+        self.reduction = reduction
+
+    def __call__(self, farfield, target):
+        amp = torch.abs(farfield)
+        amp = amp / torch.sqrt(torch.sum(torch.square(amp)))
+        sq = torch.square(amp - torch.nan_to_num(target))
+        return torch.mean(sq) if self.reduction == "mean" else torch.sum(sq)
+
+
+class MaxUniformLoss:
+    """``-sum(|F|^2) + 10 std(|F|)`` with the Bessel-corrected std: total
+    farfield power against amplitude spread (``slmsuite_tpu``'s, on torch
+    tensors). The target is ignored."""
+
+    def __call__(self, farfield, target):
+        amp = torch.abs(farfield)
+        return -torch.sum(torch.square(amp)) + 10.0 * torch.std(amp, correction=1)
+
+
+def _default_cg_loss(farfield, target):
+    """The default CG loss of the compressed and multiplane holograms: the
+    mean squared error of the unit-power farfield amplitude against
+    ``target`` as given (:class:`ComplexMSELoss` cleans nan first)."""
+    amp = torch.abs(farfield)
+    amp = amp / torch.sqrt(torch.sum(torch.square(amp)))
+    return torch.mean(torch.square(amp - target))
+
+
+def _cg_loop(psi, loss_from_psi, flags, iterations, on_step):
+    """The CG loop of every class (``slmsuite_tpu``'s ``cg_step`` loop):
+    each iteration the loss and its gradient by autograd, one step of the
+    optimizer named by the ``optimizer`` flag, ``flags["loss_result"]`` (one
+    host transfer), then ``on_step(psi)``, which returns True to stop before
+    the iteration counts. Returns the last psi."""
+    optimizer = _optim.get_optimizer(
+        flags.get("optimizer", "adam"),
+        flags.get("optimizer_kwargs", {"learning_rate": 0.1}),
+    )
+    state = optimizer.init(psi)
+    for _ in iterations:
+        leaf = psi.detach().requires_grad_(True)
+        value = loss_from_psi(leaf)
+        (grads,) = torch.autograd.grad(value, leaf)
+        psi, state = optimizer.update(grads, state, psi)
+        flags["loss_result"] = float(value.detach())
+        if hasattr(iterations, "set_description"):
+            iterations.set_description(f"loss={flags['loss_result']:.3e}")
+        if on_step(psi):
+            break
+    return psi
 
 
 class _Plane:
@@ -658,8 +724,7 @@ class Hologram(_HologramStats):
         the device measurement does not model, image feedback) or given by
         the user (``"external_spot"``), or a stat group that only the host
         computes runs the stepwise host loop, as in ``slmsuite_tpu``.
-        ``"CG"`` raises :class:`NotImplementedError` naming its ROADMAP
-        item.
+        ``"CG"`` runs gradient phase retrieval (:meth:`optimize_cg`).
 
         Parameters follow ``slmsuite_tpu``'s :meth:`optimize`: ``method``,
         ``maxiter``, ``verbose``, ``callback``, ``feedback``,
@@ -677,16 +742,67 @@ class Hologram(_HologramStats):
         if "GS" in method:
             self.optimize_gs(maxiter, callback, verbose=verbose, name=name)
         elif "CG" in method:
-            self.optimize_cg()
+            progress = self._progress(maxiter, verbose, name)
+            self.optimize_cg(range(maxiter) if progress is None else progress, callback)
+            if progress is not None:
+                progress.close()
         else:
             raise ValueError(f"Unsupported optimization method '{method}'")
 
-    def optimize_cg(self, *args, **kwargs):
-        """Gradient-based phase retrieval (torch.autograd + torch.optim)."""
-        raise NotImplementedError(
-            "Conjugate-gradient optimization is not ported yet "
-            "(ROADMAP.md queue 1, item 6b)."
-        )
+    def optimize_cg(self, iterations, callback):
+        """
+        Gradient phase retrieval (``slmsuite_tpu``'s): each iteration the
+        loss of the farfield of the current phase and its gradient by
+        autograd through :meth:`slmsuite_torch.ops.propagation.
+        differentiable_farfield` (the FFT kernels forward and backward),
+        then one step of the optimizer named by the ``"optimizer"`` flag
+        (:mod:`slmsuite_torch.ops.optim`; ``"optimizer_kwargs"`` passed
+        through, ``lr`` accepted as an alias of ``learning_rate``).
+
+        The ``"loss"`` flag may be a callable ``loss(farfield, target) ->
+        scalar`` on torch tensors (the complex farfield and the raw target,
+        nan kept); the default is the mean squared error of the
+        unit-power farfield amplitude against the target, nan counted as 0
+        (:class:`ComplexMSELoss`). ``flags["loss_result"]`` holds each
+        iteration's loss. A ``callback(holo)`` runs after the phase is set
+        and stops the loop before :attr:`iter` moves by returning True.
+        """
+        psi, loss_from_psi = self._cg_objective()
+
+        def on_step(psi):
+            if callback is not None:
+                self._adopt_cg_psi(psi)
+                if callback(self):
+                    return True
+            if self.flags["stat_groups"]:
+                self._adopt_cg_psi(psi)
+                self._populate_results()
+                self._update_stats(self.flags["stat_groups"])
+            self.iter += 1
+            return False
+
+        self._adopt_cg_psi(_cg_loop(psi, loss_from_psi, self.flags, iterations, on_step))
+        self._populate_results()
+
+    def _cg_objective(self):
+        """``(psi, loss_from_psi)``: the current phase as the CG loop carries
+        it (here the folded psi) and its loss, differentiable in psi."""
+        loss = self.flags.get("loss")
+        if loss is None:
+            loss = ComplexMSELoss()
+        shape = tuple(self.shape)
+        amp = self._amp_device()
+        target = self._target_device()
+        kernel = self._kernel_device()
+
+        def loss_from_psi(psi):
+            return loss(_prop.differentiable_farfield(psi, amp, shape, kernel), target)
+
+        return type(self)._psi.device(self, self.device), loss_from_psi
+
+    def _adopt_cg_psi(self, psi):
+        """Set the phase from the CG loop's psi."""
+        self._psi = psi
 
     def _update_flags(self, method, verbose, feedback, stat_groups, **kwargs):
         """Merge method defaults + kwargs into :attr:`flags`."""
@@ -849,15 +965,15 @@ class Hologram(_HologramStats):
 
     @staticmethod
     def _progress(maxiter, verbose, name):
-        """A tqdm progress bar when ``verbose`` and tqdm is installed, else
-        None."""
+        """A tqdm progress bar over ``range(maxiter)`` (advanced by hand or
+        by iterating it) when ``verbose`` and tqdm is installed, else None."""
         if not verbose or maxiter <= 1:
             return None
         try:
             from tqdm.auto import tqdm
         except ImportError:
             return None
-        return tqdm(total=maxiter, desc=name)
+        return tqdm(range(maxiter), desc=name)
 
     def optimize_gs(self, maxiter, callback, verbose=True, name=None):
         """

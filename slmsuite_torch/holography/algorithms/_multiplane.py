@@ -12,15 +12,20 @@ transform launched once an iteration for all planes, no host transfer in
 the loop). Anything else (a callback, ``SpotHologram`` children, host
 feedback or stats, ``zero_factor``) runs the host meta loop: each child's
 forward, stats, weight update and constraint, then one weighted sum of the
-windows. ``optimize(mesh=...)`` raises (ROADMAP.md queue 1, item 11), and
-so does ``"CG"`` (item 6b).
+windows. ``"CG"`` differentiates the plane-weighted sum of the children's
+losses through each child's :class:`slmsuite_torch.ops.grad.Fft2`.
+``optimize(mesh=...)`` raises (ROADMAP.md queue 1, item 11).
 """
 
 import numpy as np
 import torch
 
 from slmsuite_torch import resolve_device
-from slmsuite_torch.holography.algorithms._hologram import Hologram
+from slmsuite_torch.holography.algorithms._hologram import (
+    Hologram,
+    _cg_loop,
+    _default_cg_loss,
+)
 from slmsuite_torch.ops import fft as _fft
 from slmsuite_torch.ops import propagation as _prop
 
@@ -421,4 +426,51 @@ class MultiplaneHologram(Hologram):
 
         if progress is not None:
             progress.close()
+        self._populate_results()
+
+    def _cg_objective(self):
+        """``(psi, loss_from_psi)`` of gradient phase retrieval on the shared
+        phase (``slmsuite_tpu``'s ``optimize_cg``): the loss is the
+        plane-weighted sum of each child's loss (the ``"loss"`` flag, or the
+        default of :meth:`Hologram.optimize_cg`), each child's farfield
+        through its own shape, propagation kernel and
+        :class:`slmsuite_torch.ops.grad.Fft2`, against its target with nan
+        counted as 0; one gradient through all planes."""
+        amp = self._amp_device()
+        planes = [
+            (tuple(h.shape), h._kernel_device(),
+             torch.nan_to_num(h._target_device()), float(np.float32(w)))
+            for h, w in zip(self.holograms, self.weights)
+        ]
+        loss = self.flags.get("loss")
+        if loss is None:
+            loss = _default_cg_loss
+
+        def loss_from_psi(psi):
+            total = 0.0
+            for shape, kernel, target, weight in planes:
+                farfield = _prop.differentiable_farfield(psi, amp, shape, kernel)
+                total = total + weight * loss(farfield, target)
+            return total
+
+        return type(self)._psi.device(self, self.device), loss_from_psi
+
+    def optimize_cg(self, iterations, callback):
+        """Gradient phase retrieval on the shared phase (:meth:`_cg_objective`).
+        No stats are taken in the loop; at the end every child takes the
+        shared phase and :attr:`iter`."""
+        psi, loss_from_psi = self._cg_objective()
+
+        def on_step(psi):
+            if callback is not None:
+                self._psi = psi
+                if callback(self):
+                    return True
+            self.iter += 1
+            return False
+
+        self._psi = psi = _cg_loop(psi, loss_from_psi, self.flags, iterations, on_step)
+        for h in self.holograms:
+            h._psi = psi
+            h.iter = self.iter
         self._populate_results()

@@ -20,9 +20,10 @@ orientation transform), amplitudes the user measures elsewhere
 engine (:mod:`slmsuite_torch.ops.compressed`) with ``computational_spot``
 feedback; callbacks, ``"external_spot"`` feedback and MRAF with
 ``zero_factor`` run its host-paced loop (:meth:`CompressedSpotHologram.
-_stepwise_compressed`) on the same transforms. Conjugate gradient is
-queued under item 6b, CameraSLMs (and so camera feedback) under item 9 and
-mesh-sharded runs under item 11.
+_stepwise_compressed`) on the same transforms; ``"CG"`` differentiates
+through :class:`slmsuite_torch.ops.grad.CompressedOverlap` (the ``n2f``
+kernel forward, ``f2n`` backward). CameraSLMs (and so camera feedback) are
+queued under item 9 and mesh-sharded runs under item 11.
 """
 
 import dataclasses
@@ -34,11 +35,12 @@ import torch
 
 from slmsuite_torch.holography import analysis, toolbox
 from slmsuite_torch.holography.algorithms._feedback import FeedbackHologram
-from slmsuite_torch.holography.algorithms._hologram import Hologram
+from slmsuite_torch.holography.algorithms._hologram import Hologram, _default_cg_loss
 from slmsuite_torch.holography.toolbox import REAL_TYPES, format_2vectors
 from slmsuite_torch.holography.toolbox import phase as _tphase
 from slmsuite_torch.ops import compressed as _comp
 from slmsuite_torch.ops import engine as _engine
+from slmsuite_torch.ops import grad as _grad
 from slmsuite_torch.ops import propagation as _prop
 from slmsuite_torch.ops.weights import update_weights_generic
 
@@ -1196,12 +1198,31 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         )
         return np.squeeze(center), np.squeeze(std)
 
-    def optimize_cg(self, *args, **kwargs):
-        """Gradient descent through the compressed transform."""
-        raise NotImplementedError(
-            "Conjugate-gradient optimization of compressed holograms is not ported yet "
-            "(ROADMAP.md queue 1, item 6b)."
-        )
+    def _cg_objective(self):
+        """``(psi, loss_from_psi)`` of gradient phase retrieval on the flat
+        SLM phase through the compressed near->far transform
+        (``slmsuite_tpu``'s ``optimize_cg``): ``nf = amp (cos psi, sin
+        psi)``, :meth:`slmsuite_torch.ops.grad.compressed_farfield` (the
+        ``n2f`` kernel forward, ``f2n`` backward, then the unit norm), then
+        the loss against the unit-norm target. The default loss is the mean
+        squared error of the unit-power spot amplitudes."""
+        consts = self._compressed_consts()
+        amp, coeffs, basis = consts["amp"], consts["coeffs"], consts["basis"]
+        target = torch.as_tensor(np.asarray(self.target, np.float32), device=self.device)
+        target = target / torch.sqrt(torch.sum(torch.square(target)))
+        loss = self.flags.get("loss")
+        if loss is None:
+            loss = _default_cg_loss
+
+        def loss_from_psi(psi):
+            ff_re, ff_im = _grad.compressed_farfield(
+                amp * torch.cos(psi), amp * torch.sin(psi), coeffs, basis)
+            return loss(torch.complex(ff_re, ff_im), target)
+
+        return type(self)._psi.device(self, self.device).reshape(-1), loss_from_psi
+
+    def _adopt_cg_psi(self, psi):
+        self._psi = psi.reshape(self.slm_shape)
 
     # ------------------------------------------------------------------
     # Weighting and stats.

@@ -13,6 +13,8 @@ The transforms go through the dispatchers of :mod:`slmsuite_torch.ops.fft`
 (the CUDA kernels for a CUDA plane). They run outside the engine's loop,
 once per ``optimize`` call, and once per iteration of the stepwise host
 loop (:meth:`forward_fields`, :meth:`stepwise_backward`).
+:meth:`differentiable_farfield` is the forward of gradient phase retrieval,
+differentiated through :class:`slmsuite_torch.ops.grad.Fft2`.
 """
 
 import functools
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from slmsuite_torch.ops import fft as _fft
+from slmsuite_torch.ops import grad as _grad
 
 
 def pad_window_slices(shape, slm_shape):
@@ -135,6 +138,15 @@ def _folded_farfield(psi, amp, shape, kernel):
 def compute_farfield(psi, amp, shape, kernel=None):
     """Folded phase + amplitude -> centered complex farfield (device)."""
     return unfold_farfield(_folded_farfield(psi, amp, shape, kernel))
+
+
+def differentiable_farfield(psi, amp, shape, kernel=None):
+    """The centered complex farfield of the folded phase ``psi``,
+    differentiable in ``psi`` (gradient phase retrieval): the folded
+    nearfield, :class:`slmsuite_torch.ops.grad.Fft2` (kernels forward and
+    backward), then :meth:`unfold_farfield`."""
+    re, im = _grad.fft2(*build_folded_nearfield(psi, amp, shape, kernel))
+    return unfold_farfield(torch.complex(re, im))
 
 
 def forward_fields(psi, amp, shape, kernel=None):

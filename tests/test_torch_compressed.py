@@ -756,12 +756,12 @@ class _FakeCameraSLM:
 
 
 def test_compressed_unported_paths_raise():
-    """CG (item 6b), mesh runs (item 11), CameraSLMs and camera feedback
-    (item 9) raise, naming their ROADMAP item; the host-paced loop
-    (callbacks, external feedback, MRAF with zero_factor), which raised
-    before it was ported, runs (``tests/test_torch_hostloop.py`` holds it
-    against the JAX package); a ``cuda`` flag that contradicts the device
-    raises ValueError."""
+    """Mesh runs (item 11), CameraSLMs and camera feedback (item 9) raise,
+    naming their ROADMAP item; the host-paced loop (callbacks, external
+    feedback, MRAF with zero_factor) and CG, which raised before they were
+    ported, run (``tests/test_torch_hostloop.py`` and
+    ``tests/test_torch_cg.py`` hold them against the JAX package); a
+    ``cuda`` flag that contradicts the device raises ValueError."""
     tslm, _ = _slms()
     vectors, _ = _spots("2d")
     holo = T.CompressedSpotHologram(vectors, cameraslm=tslm)
@@ -771,8 +771,8 @@ def test_compressed_unported_paths_raise():
     for kwargs in (dict(feedback="experimental_spot"), dict(stat_groups=["experimental_spot"])):
         with pytest.raises(NotImplementedError, match="item 9"):
             holo.optimize("WGS-Kim", maxiter=2, verbose=False, **kwargs)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        holo.optimize("CG", maxiter=2, verbose=False)
+    holo.optimize("CG", maxiter=2, verbose=False)
+    assert holo.iter == 6 and np.isfinite(holo.flags["loss_result"])
     with pytest.raises(NotImplementedError, match="item 11"):
         holo.optimize("WGS-Kim", maxiter=2, verbose=False, mesh=object())
     mraf_amp = np.ones(9)

@@ -1086,3 +1086,104 @@ def test_batched_multiplane_runs_one_launch_an_iteration(cuda, mraf):
         for n, f in saved.items():
             setattr(fft, n, f)
     assert float((stats[:, :, :2] - plain[:, :, :2]).abs().max()) <= 1e-3
+
+
+# ----------------------------------------------------------------------
+# Gradient phase retrieval: the differentiable transforms on the card.
+# ----------------------------------------------------------------------
+
+
+def _vjp_on(fn, inputs, cotangents):
+    """Outputs of ``fn(*inputs)`` and the gradients of ``<outputs,
+    cotangents>`` in the inputs (each input a fresh leaf)."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    outputs = fn(*leaves)
+    grads = torch.autograd.grad(outputs, leaves, cotangents)
+    return [o.detach() for o in outputs], list(grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (256, 512), (2048, 2048), (4096, 64)])
+def test_fft2_function_matches_plain_autograd(cuda, shape):
+    """``grad.Fft2`` on the card: the forward through ``rows_fft`` and
+    ``cols_fft``, the backward through ``cols_fft`` and ``rows_fft`` (one
+    launch each way), against autograd through ``torch.fft`` on the card,
+    within 1e-4 of the largest value."""
+    from slmsuite_torch.ops import cuda_fft, fft
+    from slmsuite_torch.ops import grad as G
+
+    x, g = _pair(shape, cuda, seed=3), _pair(shape, cuda, seed=4)
+    cuda_fft.reset_launch_counts()
+    out, grads = _vjp_on(G.Fft2.apply, x, g)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_fft.LAUNCHES.items() if v} == dict(rows_fft=2, cols_fft=2)
+    ref_out, ref_grads = _vjp_on(fft._fft2, x, g)
+    for got, ref in zip(out + grads, ref_out + ref_grads):
+        assert _rel(got, ref) <= CARRY_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D, N", [(3, 10), (3, 300), (16, 10), (16, 300)])
+def test_compressed_overlap_function_matches_plain_autograd(cuda, D, N):
+    """``grad.CompressedOverlap`` on the card: ``n2f`` unnormalized
+    forward and ``f2n`` backward (one launch each), against autograd
+    through the plain overlap on the card, within 1e-4 of the largest
+    value."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+    from slmsuite_torch.ops import grad as G
+
+    x = _cmp_inputs(D, 65536, N, cuda, seed=5)
+    coeffs, basis = x["coeffs"], x["basis"]
+    K.reset_launch_counts()
+    out, grads = _vjp_on(lambda a, b: G.CompressedOverlap.apply(a, b, coeffs, basis),
+                         (x["nfr"], x["nfi"]), (x["ffr"], x["ffi"]))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == dict(n2f=1, f2n=1)
+    ref_out, ref_grads = _vjp_on(lambda a, b: C._nearfield_to_farfield_raw(a, b, coeffs, basis),
+                                 (x["nfr"], x["nfi"]), (x["ffr"], x["ffi"]))
+    for got, ref in zip(out + grads, ref_out + ref_grads):
+        assert _rel(got, ref) <= CMP_RTOL
+
+
+@pytest.mark.cuda
+def test_cg_runs_through_kernels_and_matches_the_cpu(cuda):
+    """``Hologram`` CG on a 128^2 canvas holding a 64^2 SLM with a
+    propagation kernel: two launches each of ``rows_fft`` and ``cols_fft``
+    an iteration (forward and backward) and one each at the end; the loss
+    at every iteration within 1e-4 relative of the same run on the CPU."""
+    from slmsuite_torch.holography.algorithms import Hologram
+    from slmsuite_torch.ops import cuda_fft
+
+    rng = np.random.default_rng(6)
+    target = np.zeros((128, 128), np.float32)
+    target[rng.integers(16, 112, 12), rng.integers(16, 112, 12)] = 1.0
+    kernel = rng.uniform(-1, 1, (64, 64)).astype(np.float32)
+    phase = rng.uniform(-np.pi, np.pi, (64, 64))
+    losses = {}
+    for device in (cuda, torch.device("cpu")):
+        holo = Hologram(target, slm_shape=(64, 64), propagation_kernel=kernel, device=device)
+        holo.reset_phase(phase)
+        losses[device.type] = []
+        cuda_fft.reset_launch_counts()
+        holo.optimize("CG", maxiter=10, verbose=False,
+                      callback=lambda h, out=losses[device.type]: out.append(
+                          h.flags["loss_result"]) and False)
+        if device.type == "cuda":
+            assert {k: v for k, v in cuda_fft.LAUNCHES.items() if v} == dict(
+                rows_fft=21, cols_fft=21)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cg_refuses_cuda_shapes_outside_the_gate(cuda):
+    """CG on a CUDA plane whose sides the kernels do not take raises, as
+    the other paths do; it never falls back to the plain versions."""
+    from slmsuite_torch.holography.algorithms import Hologram
+    from slmsuite_torch.ops import cuda_fft
+
+    holo = Hologram(np.ones((96, 128), np.float32), device=cuda)
+    cuda_fft.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+        holo.optimize("CG", maxiter=2, verbose=False)
+    assert sum(cuda_fft.LAUNCHES.values()) == 0

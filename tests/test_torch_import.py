@@ -60,6 +60,8 @@ SCRIPT = textwrap.dedent("""
                                         stat_groups=["computational"])
     optimize_batch([Hologram(holo.target), Hologram(holo.target)], "WGS-Kim", maxiter=3,
                    verbose=False)
+    for cg in (Hologram(holo.target), compressed, MultiplaneHologram(planes)):
+        cg.optimize("CG", maxiter=2, verbose=False)
     compressed_module = sys.modules.get("slmsuite_torch.ops.cuda_compressed")
     added = sorted({m.split(".")[0] for m in set(sys.modules) - before})
     cuda_fft = sys.modules.get("slmsuite_torch.ops.cuda_fft")
@@ -80,7 +82,7 @@ def test_port_imports_no_jax_and_needs_no_nvcc():
     )
     assert done.returncode == 0, done.stderr
     result = json.loads(done.stdout.strip().splitlines()[-1])
-    forbidden = {"jax", "jaxlib", "cv2", "h5py", "matplotlib", "tqdm", "triton",
+    forbidden = {"jax", "jaxlib", "optax", "cv2", "h5py", "matplotlib", "tqdm", "triton",
                  "slmsuite_tpu"}
     assert not forbidden & set(result["added"]), result["added"]
     assert not result["built"]
@@ -99,8 +101,9 @@ def _port_sources():
     "path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT)
 )
 def test_port_source_imports_no_jax(path):
-    """No module of the port, and not chip_smoke.py, imports jax or the
-    JAX package (docstrings that name them are fine)."""
+    """No module of the port, and not chip_smoke.py, imports jax, optax
+    (which imports jax) or the JAX package (docstrings that name them are
+    fine)."""
     with open(path) as handle:
         tree = ast.parse(handle.read(), filename=path)
     imported = []
@@ -110,7 +113,7 @@ def test_port_source_imports_no_jax(path):
         elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
             imported.append(node.module)
     roots = {name.split(".")[0] for name in imported}
-    assert not roots & {"jax", "jaxlib", "slmsuite_tpu"}, sorted(roots)
+    assert not roots & {"jax", "jaxlib", "optax", "slmsuite_tpu"}, sorted(roots)
 
 
 def _imports_outside_functions(node):

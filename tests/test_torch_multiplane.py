@@ -395,14 +395,15 @@ def test_multiplane_hologram_plumbing():
 
 
 def test_multiplane_hologram_refusals():
-    """``optimize(mesh=...)`` names item 11 and ``"CG"`` item 6b; a
-    callback, a host stat group or ``zero_factor`` keeps the batched
-    engine off."""
+    """``optimize(mesh=...)`` names item 11; ``"CG"``, which raised before
+    it was ported, runs (``tests/test_torch_cg.py`` holds it against the
+    JAX package); a callback, a host stat group or ``zero_factor`` keeps
+    the batched engine off."""
     _, tholo = _pair()
     with pytest.raises(NotImplementedError, match="item 11"):
         tholo.optimize("WGS-Kim", maxiter=1, verbose=False, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tholo.optimize("CG", maxiter=1, verbose=False)
+    tholo.optimize("CG", maxiter=1, verbose=False)
+    assert tholo.iter == 1 and all(h.iter == 1 for h in tholo.holograms)
     tholo._update_flags("WGS-Kim", False, None, ["computational"])
     assert tholo._mesh_eligible(None)
     assert not tholo._mesh_eligible(lambda h: False)

@@ -150,11 +150,10 @@ def test_resume_from_jax_arrays():
 
 
 def test_unported_paths_raise():
-    """CG raises, naming its ROADMAP item (6b); the kxy basis without
-    hardware raises as in the JAX package; MRAF (a nan target), callbacks
-    and spot null regions, which raised before they were ported, run
-    (``tests/test_torch_hostloop.py`` holds them against the JAX
-    package)."""
+    """The kxy basis without hardware raises as in the JAX package; MRAF
+    (a nan target), callbacks, spot null regions and CG, which raised
+    before they were ported, run (``tests/test_torch_hostloop.py`` and
+    ``tests/test_torch_cg.py`` hold them against the JAX package)."""
     target = np.ones((64, 64))
     target[:8] = np.nan
     mraf = T.Hologram(target=target)
@@ -163,8 +162,8 @@ def test_unported_paths_raise():
     holo = T.Hologram(target=np.ones((64, 64)))
     holo.optimize(method="WGS-Kim", maxiter=3, verbose=False, callback=lambda h: h.iter == 1)
     assert holo.iter == 1
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        holo.optimize(method="CG", maxiter=2, verbose=False)
+    holo.optimize(method="CG", maxiter=2, verbose=False)
+    assert holo.iter == 3 and np.isfinite(holo.flags["loss_result"])
     with pytest.raises(ValueError, match="cameraslm"):
         T.SpotHologram((64, 64), [[10, 20], [10, 20]], basis="kxy")
     with pytest.raises(ValueError, match="cameraslm"):
