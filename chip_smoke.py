@@ -44,6 +44,13 @@ there is no card or the port is missing. In order:
    for the stack, bit for bit B one-plane launches, and against the plain
    version (with the compiler's registers, stack and spills of each
    instantiation of the four column and entry kernels and ``rows_fft``);
+   Z0, the four compressed kernels past 16 Zernike terms (D = 17, 21 and
+   28, at 100 and 600 spots: the wide ``f2n`` and ``n2f``, and
+   ``fused_iter`` on ``fused_spots_kernel`` and past 256 spots as ``f2n``
+   then ``n2f``), scalar and array amplitude, against their plain
+   versions, then a ``CompressedSpotHologram`` of 15,000 spots on a 64^2
+   SLM with the cache on: past ``fused_iter_cached``'s 14,272 spots it
+   runs the recomputing loop (``fused_iter`` as ``f2n`` and ``n2f``);
 5. the paths, each driven with the launch counts set to 0 just before it:
    - the fused slice: ``SpotHologram.make_rectangular_array((2048, 2048),
      32x32, pitch 30, "knm")``, WGS-Kim, 50 iterations;
@@ -105,6 +112,27 @@ there is no card or the port is missing. In order:
      calls; each loop's host transfers (none allowed in the batched
      loops), every iteration's per-plane efficiency and uniformity against
      the plain versions within 1e-3;
+   - Z1, the Zernike wavefront calibration on the 1024^2 rig of
+     ``engine_models.zernike_calibration_rig`` (a 1024^2 SLM and camera,
+     the analytic Fourier calibration, focus, astigmatism and spherical
+     injected into the simulated source): ``wavefront_calibrate(method=
+     "zernike")`` at 100 points asked, 21 Zernike terms, a 7-point sweep
+     in [-1.5, 1.5] and 2 iterations of ``experimental_spot`` WGS-Kim,
+     once through the kernels and once through the plain versions (numpy's
+     global generator seeded before each): the mean correction of each
+     injected term agrees within 0.1 rad, the mean spot area falls in both;
+     wall time, ms of one tick (3 GS iterations on the compressed host
+     loop, the phase fetched) and of one camera frame and their host
+     transfers,
+     launches and peak memory;
+     Z2, a clone of Z1's calibrated rig (``simulate()``; ``save`` or
+     ``save_calibration`` then ``load`` give the same ``kxyslm_to_ijcam``
+     within 1e-9 px; without h5py, the dictionary ``save`` writes crosses
+     through ``load``'s reader), on which a ``CompressedSpotHologram`` of a 10x10 grid
+     in ``"ij"`` runs 10 WGS-Kim iterations with ``experimental_spot``
+     feedback, then ``refine_offset()``: measured uniformity and efficiency
+     within 2e-3 and the shifts within 0.05 px, kernels against plain;
+     peak memory and host transfers a camera iteration;
    - G1-G3, gradient phase retrieval (``method="CG"``, Adam) through the
      kernels forward and backward: G1, the fused slice's array through
      ``SpotHologram`` (lr 0.1, 50 iterations; ``rows_fft`` and ``cols_fft``
@@ -145,7 +173,8 @@ there is no card or the port is missing. In order:
    kernel and its plain version at config 5 (with ``--parent DIR``, the
    root of a parent commit's unpacked port, each also against the
    parent's in the same process, and ``fused_iter``'s route past 256 spots
-   against the parent's at 300 to 8,000 spots),
+   against the parent's at 300 to 8,000 spots), and again at 21 Zernike
+   terms on config 5's plane and spot count,
    the cos/sin cache build, and ms/iteration of the C1 and C2 loops; the
    five stack kernels and the multiplane step's compositions
    (``fft2_polar_from_phase``, ``wexp_ifft2``, ``ifft2``) on 8 planes in
@@ -177,6 +206,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -299,6 +329,32 @@ CONFIG5_RES, CONFIG5_SIDE, CONFIG5_ITERS = 1024, 16, 30
 #: sincos (csrc/compressed.cu) runs the same reduction and two SFU
 #: operations; the count stays, so that the yardstick does not move.
 SINCOS_FLOPS = 24
+#: Z0: the Zernike term counts, past the earlier kernels' 16, at which the
+#: compressed kernels are held against their plain versions, and the (P, N)
+#: of each: within fused_spots_kernel's 256 spots and past them.
+Z0_TERMS = (17, 21, 28)
+Z0_SHAPES = ((65536, 100), (16384, 600))
+#: Z0: spots past fused_iter_cached's 14,272 on a Z0_SIDE^2 SLM, the cache
+#: on, and the iterations of their WGS-Kim run.
+Z0_SPOTS, Z0_SIDE, Z0_ITERS = 15000, 64, 3
+#: Z1: the Zernike wavefront calibration on the rig of
+#: engine_models.zernike_calibration_rig at Z1_SIDE^2: the points asked
+#: (the JAX package's default), the Zernike terms (ANSI 0-20, through the
+#: 5th radial order), the perturbation sweep and the weight iterations.
+Z1_SIDE, Z1_POINTS, Z1_TERMS, Z1_WEIGHT_ITERS = 1024, 100, 21, 2
+Z1_SWEEP = np.linspace(-1.5, 1.5, 7)
+#: Z1, kernels against plain: the mean correction of each injected term
+#: (rad), a fifth of the sweep's step.
+Z1_CORRECTION_ATOL = 0.1
+#: Z1: calls of the tick and of the camera frame timed (medians).
+Z1_TIMING_CALLS = 5
+#: Z2: the clone's 10x10 grid (camera pixels, the 0th order between its
+#: points), its WGS-Kim camera iterations, and kernels against plain:
+#: kxyslm_to_ijcam across save and load (px), refine_offset's shifts (px).
+Z2_SIDE, Z2_PITCH, Z2_ITERS = 10, 60, 10
+Z2_AFFINE_ATOL, Z2_SHIFT_ATOL = 1e-9, 0.05
+#: The compressed kernels also timed at the Zernike calibration's term count.
+ZERNIKE_TIMING_TERMS = 21
 
 
 def log(*args):
@@ -1765,6 +1821,285 @@ def phase_compressed_paths(device):
     return {"C1": c1, "C2": c2}
 
 
+# ----------------------------------------------------------------------
+# Z0-Z2: the compressed kernels past 16 Zernike terms and past the cached
+# kernel's spots, the Zernike wavefront calibration and a clone of its rig.
+# ----------------------------------------------------------------------
+
+
+def zernike_fused_route(D, N):
+    """Whether ``fused_iter`` at D terms and N spots runs as ``f2n`` then
+    ``n2f`` (past fused_spots_kernel's spots or the terms it stages)."""
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    lib = K._lib()
+    return N > lib.slm_cmp_fused_spots() or D > lib.slm_cmp_fused_terms()
+
+
+def phase_zernike_parity(device):
+    """Z0: the four compressed kernels at Z0_TERMS and Z0_SHAPES, scalar and
+    array amplitude, against their plain versions within CMP_RTOL, each
+    call's launches exact; then Z0_SPOTS spots on a Z0_SIDE^2 SLM with the
+    cache on, which run the recomputing loop."""
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    lines = []
+    for D in Z0_TERMS:
+        for P, N in Z0_SHAPES:
+            x = compressed_inputs(device, D, P, N, seed=D + N)
+            x["kc"], x["ks"] = C.build_kernel_cache(x["coeffs"], x["basis"])
+            two = zernike_fused_route(D, N)
+            tag = f"P {P}, N {N}, D {D}"
+            for amp_kind in ("scalar", "array"):
+                amp = 1.0 if amp_kind == "scalar" else x["amp"]
+                for name, (kernel, plain) in compressed_calls(x, amp).items():
+                    if amp_kind == "array" and name in ("f2n", "n2f"):
+                        continue  # these take no amplitude
+                    K.reset_launch_counts()
+                    got = kernel()
+                    launched = {k: v for k, v in K.LAUNCHES.items() if v}
+                    expect = dict(f2n=1, n2f=1) if name == "fused_iter" and two else {name: 1}
+                    assert launched == expect, (name, tag, launched)
+                    ref = plain()
+                    e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+                    assert e <= CMP_RTOL, f"Z0 {name} {tag} {amp_kind}: rel {e:.3e}"
+                    route = " (f2n + n2f)" if name == "fused_iter" and two else ""
+                    lines.append(f"Z0 {name}{route} {tag} {amp_kind}: rel {e:.3e}")
+            del x
+    with env_var("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", "4096"):
+        rng = np.random.default_rng(9)
+        holo = CompressedSpotHologram(rng.uniform(-2e-2, 2e-2, (2, Z0_SPOTS)),
+                                      cameraslm=SimulatedSLM((Z0_SIDE, Z0_SIDE)), device=device)
+        fits = C.kernel_cache_bytes(Z0_SPOTS, Z0_SIDE**2) <= 4096e6
+        assert fits and not holo._kernel_cache_enabled(), "the cache rule took the cache"
+        holo.reset_phase(rng.uniform(-np.pi, np.pi, (Z0_SIDE, Z0_SIDE)))
+        K.reset_launch_counts()
+        holo.optimize("WGS-Kim", maxiter=Z0_ITERS, verbose=False)
+        torch.cuda.synchronize()
+    launched = {k: v for k, v in K.LAUNCHES.items() if v}
+    assert launched == dict(f2n=Z0_ITERS + 1, n2f=Z0_ITERS + 2), launched
+    assert np.isfinite(np.asarray(holo.amp_ff)).all() and holo.iter == Z0_ITERS
+    lines.append(f"Z0 {Z0_SPOTS} spots on {Z0_SIDE}^2, cache on: {Z0_ITERS} WGS-Kim "
+                 f"iterations on the recomputing loop, launches {launched}")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "parity_zernike.log").write_text("\n".join(lines) + "\n")
+    log(f"Z0: {len(lines) - 1} kernel checks passed at D = {Z0_TERMS}; " + lines[-1])
+
+
+def z1_rig(device):
+    from slmsuite_torch.models.engine_models import zernike_calibration_rig
+
+    return zernike_calibration_rig(slm_side=Z1_SIDE, cam_side=Z1_SIDE, device=device)
+
+
+def z1_timing(fs, cal, device):
+    """Median ms of one tick of the calibration (new coefficients, 3 GS
+    iterations on the compressed host loop, the phase fetched) and of
+    one camera frame, on ``fs`` at its calibration ``cal``, and the host
+    transfers of each under the profiler (a mean over Z1_TIMING_CALLS)."""
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+
+    points = np.array(cal["corrected_spots"])
+    holo = CompressedSpotHologram(points, basis=np.array(cal["zernike_indices"]),
+                                  cameraslm=fs, device=device)
+    # The calibration's ticks follow its weight equalization, whose camera
+    # feedback stays in the flags: their GS runs the compressed host loop.
+    holo.flags["feedback"] = "experimental_spot"
+
+    def tick():
+        holo.spot_zernike = points.copy()
+        holo.optimize("GS", maxiter=3, verbose=0)
+        return holo.get_phase()
+
+    def median_ms(fn):
+        fn()
+        readings = []
+        for _ in range(Z1_TIMING_CALLS):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            readings.append((time.perf_counter() - start) * 1e3)
+        return float(np.median(readings))
+
+    def per_call_copies(fn):
+        copies, _ = host_transfers(lambda n: [fn() for _ in range(n)], Z1_TIMING_CALLS)
+        return len(copies) / Z1_TIMING_CALLS
+
+    tick_ms, tick_copies = median_ms(tick), per_call_copies(tick)
+    fs.slm.set_phase(tick(), settle=True, phase_correct=False)
+    frame = fs.cam.get_image
+    return tick_ms, median_ms(frame), tick_copies, per_call_copies(frame)
+
+
+def z1_run(device):
+    """Z1 once: the calibration on a fresh rig with the launch counts set to
+    0 and numpy's global generator seeded just before it. Returns ``(rig,
+    calibration, launches, seconds, peak bytes, (tick ms, frame ms, host
+    transfers a tick, a frame))``."""
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft
+
+    fs = z1_rig(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_compressed.reset_launch_counts()
+    cuda_fft.reset_launch_counts()
+    np.random.seed(0)
+    start = time.perf_counter()
+    cal = fs.wavefront_calibrate(method="zernike", calibration_points=Z1_POINTS,
+                                 zernike_indices=Z1_TERMS, perturbation=Z1_SWEEP,
+                                 optimize_weights=Z1_WEIGHT_ITERS, plot=-1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {k: v for counts in (cuda_compressed.LAUNCHES, cuda_fft.LAUNCHES)
+                for k, v in counts.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    return fs, cal, launches, seconds, peak, z1_timing(fs, cal, device)
+
+
+def injected_corrections(cal):
+    """The mean correction (corrected - initial, over the spots) of each
+    term the rig injected, by ANSI index."""
+    from slmsuite_torch.models.engine_models import ZERNIKE_RIG_ABERRATION
+
+    indices = list(np.asarray(cal["zernike_indices"]))
+    delta = np.asarray(cal["corrected_spots"]) - np.asarray(cal["initial_points"])
+    return {int(k): float(np.mean(delta[indices.index(k)])) for k in ZERNIKE_RIG_ABERRATION[0]}
+
+
+def phase_zernike_calibration(device):
+    """Z1 through the kernels (each compressed kernel of the path launched)
+    and through the plain versions (no launch); the mean correction of each
+    injected term within Z1_CORRECTION_ATOL, the mean spot area falling in
+    both. Returns ``(calibrated rig, launches)``."""
+    from slmsuite_torch.models.engine_models import ZERNIKE_RIG_ABERRATION
+
+    runs = {}
+    for label in ("kernels", "plain"):
+        if label == "kernels":
+            runs[label] = z1_run(device)
+        else:
+            with plain_compressed(), plain_step_functions():
+                runs[label] = z1_run(device)
+        fs, cal, launches, seconds, peak, (tick_ms, frame_ms, tick_copies,
+                                           frame_copies) = runs[label]
+        areas = [float(np.mean(m)) for m in cal["metric_stats"]]
+        n_points = np.asarray(cal["corrected_spots"]).shape[1]
+        log(f"Z1 Zernike calibration ({label}): {n_points} points, "
+            f"{len(cal['zernike_indices'])} terms, {seconds:.2f} s; tick {tick_ms:.2f} ms, "
+            f"camera frame {frame_ms:.2f} ms; host transfers a tick {tick_copies:.2f}, a "
+            f"frame {frame_copies:.2f}; launches {launches}; peak device memory "
+            f"{peak / 2**30:.3f} GiB; mean spot area first {areas[0]:.6g} last "
+            f"{areas[-1]:.6g}; injected {dict(zip(*ZERNIKE_RIG_ABERRATION))}, mean "
+            f"corrections {injected_corrections(cal)}  [{nvidia_smi_line()}]")
+        assert areas[-1] < areas[0], (label, areas[0], areas[-1])
+        assert np.isfinite(np.asarray(cal["corrected_spots"])).all(), label
+    kernel_launches = runs["kernels"][2]
+    for name in ("f2n", "n2f", "fused_iter_cached", "rows_fft", "cols_fft"):
+        assert kernel_launches.get(name, 0) > 0, f"Z1 launched no {name}: {kernel_launches}"
+    assert not runs["plain"][2], runs["plain"][2]
+    got, ref = injected_corrections(runs["kernels"][1]), injected_corrections(runs["plain"][1])
+    for index in got:
+        diff = abs(got[index] - ref[index])
+        assert diff <= Z1_CORRECTION_ATOL, f"Z1 Z_{index}: kernels vs plain differ by {diff:.3f}"
+    log(f"Z1 kernels vs plain: injected terms' mean corrections differ by at most "
+        f"{max(abs(got[i] - ref[i]) for i in got):.4f} rad (limit {Z1_CORRECTION_ATOL})")
+    return runs["kernels"][0], kernel_launches
+
+
+def z2_spots():
+    edge = (np.arange(Z2_SIDE) - (Z2_SIDE - 1) / 2) * Z2_PITCH + Z1_SIDE / 2
+    xs, ys = np.meshgrid(edge, edge)
+    return np.vstack((xs.ravel(), ys.ravel()))
+
+
+def z2_run(fs, device):
+    """On a clone of ``fs``: the 10x10 hologram's camera loop, then
+    refine_offset; then the host transfers of 3 more camera iterations
+    under the profiler. Returns ``(measured stats, shifts, launches,
+    seconds, peak bytes, host transfers an iteration)``."""
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft
+
+    clone = fs.simulate()
+    np.random.seed(1)
+    holo = CompressedSpotHologram(z2_spots(), basis="ij", cameraslm=clone, device=device)
+    cuda_compressed.reset_launch_counts()
+    cuda_fft.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    holo.optimize("WGS-Kim", feedback="experimental_spot", maxiter=Z2_ITERS, verbose=False,
+                  stat_groups=["experimental_spot"])
+    shifts = holo.refine_offset()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for counts in (cuda_compressed.LAUNCHES, cuda_fft.LAUNCHES)
+                for k, v in counts.items() if v}
+    recorded = holo.stats["stats"]["experimental_spot"]
+    stats = {key: float(recorded[key][-1]) for key in ("uniformity", "efficiency")}
+    copies, _ = host_transfers(lambda n: holo.optimize(
+        "WGS-Kim", feedback="experimental_spot", maxiter=n, verbose=False), 3)
+    return stats, shifts, launches, seconds, peak, len(copies) / 3
+
+
+def phase_zernike_clone(device, fs):
+    """Z2 on Z1's calibrated rig ``fs``: its clone's Fourier calibration
+    survives ``save``/``load`` and ``save_calibration``/``load`` within
+    Z2_AFFINE_ATOL; the clone's 10x10 camera loop and refine_offset through
+    the kernels and the plain versions agree on what users read."""
+    from slmsuite_torch.hardware.cameraslms import FourierSLM
+
+    clone = fs.simulate()
+    ij = z2_spots()
+    kxy = clone.ijcam_to_kxyslm(ij)
+    if importlib.util.find_spec("h5py") is None:
+        log("Z2: h5py is not installed here, so no HDF5 file is written: the clone crosses "
+            "as the dictionary that save() writes and load() reads (FourierSLM._from_pickle; "
+            "tests/test_torch_wavefront.py holds the files on the CPU)")
+        crossed = [("pickle()/load", FourierSLM._from_pickle(clone.pickle(), device))]
+    else:
+        with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+            loaded = FourierSLM.load(clone.save(tmp), device=device)
+            cal_path = clone.save_calibration("fourier", path=tmp)
+            bare = FourierSLM.load(cal_path, device=device)
+            assert not bare.calibrations
+            bare.load_calibration("fourier", cal_path)
+        crossed = [("save/load", loaded), ("save_calibration/load", bare)]
+    for label, other in crossed:
+        d = float(np.abs(other.kxyslm_to_ijcam(kxy) - clone.kxyslm_to_ijcam(kxy)).max())
+        log(f"Z2 clone {label}: kxyslm_to_ijcam max |diff| {d:.3e} px "
+            f"(limit {Z2_AFFINE_ATOL})")
+        assert d <= Z2_AFFINE_ATOL, (label, d)
+    assert "wavefront_zernike" in crossed[0][1].calibrations
+    del crossed, clone
+    stats, shifts, launches, seconds, peak, copies = z2_run(fs, device)
+    log(f"Z2 clone, 10x10 grid, {Z2_ITERS} WGS-Kim camera iterations and refine_offset "
+        f"(kernels): {seconds:.2f} s, uniformity {stats['uniformity']:.6f} efficiency "
+        f"{stats['efficiency']:.6f}, mean shift {np.round(np.mean(shifts, axis=1), 4)} px; "
+        f"launches {launches}; peak device memory {peak / 2**30:.3f} GiB; host transfers "
+        f"a camera iteration {copies:.2f}")
+    for name in ("f2n", "n2f", "rows_fft", "cols_fft"):
+        assert launches.get(name, 0) > 0, f"Z2 launched no {name}: {launches}"
+    with plain_compressed(), plain_step_functions():
+        plain_stats, plain_shifts, plain_launches, plain_s, plain_peak, plain_copies = z2_run(
+            fs, device)
+    assert not plain_launches, plain_launches
+    d_shift = float(np.abs(shifts - plain_shifts).max())
+    log(f"Z2 (plain): {plain_s:.2f} s, uniformity {plain_stats['uniformity']:.6f} efficiency "
+        f"{plain_stats['efficiency']:.6f}; shifts max |diff| {d_shift:.4f} px; peak device "
+        f"memory {plain_peak / 2**30:.3f} GiB; host transfers a camera iteration "
+        f"{plain_copies:.2f}")
+    for key in ("uniformity", "efficiency"):
+        diff = abs(stats[key] - plain_stats[key])
+        assert diff <= CAMERA_STAT_ATOL, f"Z2 {key}: kernels vs plain differ by {diff:.3e}"
+    assert d_shift <= Z2_SHIFT_ATOL, d_shift
+
+
 def compressed_bound(name, D, N, P, n8):
     """``(bound_ms, bound_by)`` of a compressed kernel: bytes (each input
     read once, each output written once) over the HBM rate against f32
@@ -1881,9 +2216,33 @@ def fused_route_ab(consts, device, parent):
                    "(f2n + n2f / roundtrip_kernel)", calls)
 
 
+def zernike_timing_inputs(device, x5):
+    """Config 5's plane and spot count at ZERNIKE_TIMING_TERMS Zernike terms
+    (ANSI 0, 1, ...): the basis on config 5's SLM, config 5's tilt and
+    focus coefficients (``x5``'s rows, ANSI 2, 1, 4), the other terms
+    uniform in +-1.5 rad (Z1's sweep) and piston 0; seeded fields, and the
+    cos/sin cache."""
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.ops import compressed as C
+
+    D = ZERNIKE_TIMING_TERMS
+    slm = SimulatedSLM(resolution=(CONFIG5_RES, CONFIG5_RES), pitch_um=(8, 8), wav_um=0.78)
+    basis = torch.from_numpy(C.build_zernike_basis(np.arange(D), slm)).to(device)
+    c5 = x5["coeffs"].cpu().numpy()
+    coeffs = np.random.default_rng(D).uniform(-1.5, 1.5, (D, c5.shape[1])).astype(np.float32)
+    coeffs[0] = 0.0
+    coeffs[[2, 1, 4]] = c5
+    x = compressed_inputs(device, D, basis.shape[1], c5.shape[1], seed=D, basis=basis,
+                          coeffs=torch.from_numpy(coeffs).to(device))
+    x["kc"], x["ks"] = C.build_kernel_cache(x["coeffs"], x["basis"])
+    return x
+
+
 def phase_compressed_timing(device, parent=None):
     """Each compressed kernel and its plain version at config 5 (array amp,
-    as config 5 runs); where ``parent`` names the root of a parent commit's
+    as config 5 runs), and at ZERNIKE_TIMING_TERMS terms on config 5's
+    plane and spots (:meth:`zernike_timing_inputs`; the entry's
+    ``"zernike"``); where ``parent`` names the root of a parent commit's
     port, each also against the parent's (:meth:`compressed_ab`) and
     fused_iter's two routes past 256 spots (:meth:`fused_route_ab`); the
     cache build, and ms/iteration of the C1 (cached) and C2 (recompute)
@@ -1896,6 +2255,13 @@ def phase_compressed_timing(device, parent=None):
     for name, (kernel, plain) in compressed_calls(x, x["amp"]).items():
         t[name] = interleaved(name, kernel, plain, bound_of=compressed_bound(name, D, N, P, n8),
                               size="config 5 (P 1024^2, N 256, D 3)")
+    xz = zernike_timing_inputs(device, x)
+    Dz = xz["coeffs"].shape[0]
+    for name, (kernel, plain) in compressed_calls(xz, xz["amp"]).items():
+        t[name]["zernike"] = interleaved(
+            name, kernel, plain, bound_of=compressed_bound(name, Dz, N, P, n8),
+            size=f"config 5's plane and spots at D {Dz} (P 1024^2, N 256)")
+    del xz
     if parent is not None:
         parent = parent_port(parent)
         compressed_ab(x, parent)
@@ -3243,12 +3609,16 @@ def main():
     errors.update(phase_natural_parity(device))
     errors.update(phase_mraf_parity(device))
     errors.update(phase_compressed_parity(device))
+    phase_zernike_parity(device)
     errors.update(phase_fwd_parity(device))
     phase_batched_parity(device)
     for line in kernel_registers():
         log(f"  ptxas: {line}")
     paths = phase_paths(device)
     paths.update(phase_compressed_paths(device))
+    z1_rig_calibrated, z1_launches = phase_zernike_calibration(device)
+    phase_zernike_clone(device, z1_rig_calibrated)
+    del z1_rig_calibrated
     paths["Q1"] = phase_q1(device)
     s2_loop = phase_camera(device)
     phase_host_loop(device)
@@ -3302,6 +3672,15 @@ def main():
             kernels[-1]["planes"] = {
                 "path": mp_path, "launches": mp_launches[mp_path][name], "planes": MP_PLANES,
                 "side": MP_SIDE, "ms_per_plane": b["per_plane"], "ms_one_plane": b["one_plane"],
+            }
+        if "zernike" in t:
+            # The Zernike calibration's launches (Z1), and the kernel's time
+            # at ZERNIKE_TIMING_TERMS terms on config 5's plane and spots.
+            z = t["zernike"]
+            kernels[-1]["zernike"] = {
+                "path": "Z1", "launches": z1_launches.get(name, 0), "terms": Z1_TERMS,
+                "timed_terms": ZERNIKE_TIMING_TERMS, "ms": z["kernel"], "plain_ms": z["plain"],
+                "bound_ms": z["bound"], "bound_by": z["bound_by"], "timer": z["timer"],
             }
         if any(name in counts for counts in cg_launches.values()):
             # The launches of gradient phase retrieval, forward and backward.

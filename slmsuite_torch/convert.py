@@ -7,7 +7,8 @@ result is the port's state on a given device. With these the tests start
 both packages from identical psi, weights, Kim phase store and constants.
 For a hologram's planes, see :meth:`slmsuite_torch.holography.algorithms.Hologram.load_arrays`.
 A simulated rig crosses with :meth:`rig_from_jax`, a spot hologram on it
-with :meth:`spot_hologram_from_jax`, a multiplane hologram with
+with :meth:`spot_hologram_from_jax`, a compressed one with
+:meth:`compressed_hologram_from_jax`, a multiplane hologram with
 :meth:`multiplane_hologram_from_jax`, and the batched multiplane engine's
 config and consts with :meth:`batched_config_from_jax` and
 :meth:`multiplane_consts_from_numpy`: they read the JAX objects' numpy
@@ -99,7 +100,9 @@ def rig_from_jax(cameraslm, device=None):
     a JAX-package ``FourierSLM`` on a ``SimulatedSLM`` and a
     ``SimulatedCamera``: geometry, bit depths, the source dictionary, the
     display, the camera's affine, exposure, gain, noise, averaging and HDR,
-    and the ``"fourier"`` calibration, all copied as numpy.
+    and every calibration dict (``"fourier"``, ``"wavefront_zernike"``, ...,
+    so that a resumed calibration starts from the same state), all copied
+    as numpy.
     """
     from slmsuite_torch.hardware.cameras.simulated import SimulatedCamera
     from slmsuite_torch.hardware.cameraslms import FourierSLM
@@ -128,12 +131,49 @@ def rig_from_jax(cameraslm, device=None):
     cam.set_exposure(jcam.exposure_s)
 
     fs = FourierSLM(cam, slm, mag=cameraslm.mag)
-    if "fourier" in cameraslm.calibrations:
-        fs.calibrations["fourier"] = {
-            key: np.array(value) if isinstance(value, np.ndarray) else value
-            for key, value in cameraslm.calibrations["fourier"].items()
-        }
+    fs.calibrations = _numpy_copy(cameraslm.calibrations)
+    fs._wavefront_calibration_window_multiplier = getattr(
+        cameraslm, "_wavefront_calibration_window_multiplier", 4)
     return fs
+
+
+def _numpy_copy(value):
+    """A deep copy of nested dicts and lists of arrays and scalars, with
+    every array as numpy."""
+    if isinstance(value, dict):
+        return {key: _numpy_copy(item) for key, item in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_numpy_copy(item) for item in value)
+    if hasattr(value, "__array__") and not np.isscalar(value):
+        return np.array(value)
+    return value
+
+
+def compressed_hologram_from_jax(holo, cameraslm, device=None):
+    """
+    The port's :class:`~slmsuite_torch.holography.algorithms.CompressedSpotHologram`
+    from a JAX-package one on a ``FourierSLM`` (``cameraslm`` is the port's,
+    from :meth:`rig_from_jax`): the ``(D, N)`` vectors in the Zernike basis,
+    the spot amplitudes, then the camera positions ``spot_ij`` and
+    integration width, the weights, the phase, Kim's phase store, the
+    iteration count and the fixed-phase flag, all as numpy.
+    """
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+
+    out = CompressedSpotHologram(
+        np.array(holo.spot_zernike), basis=np.array(holo.zernike_basis),
+        spot_amp=np.array(holo.spot_amp), cameraslm=cameraslm, device=device,
+    )
+    out.spot_ij = None if holo.spot_ij is None else np.array(holo.spot_ij)
+    out.spot_integration_width_ij = holo.spot_integration_width_ij
+    arrays = {"psi": np.asarray(holo.phase), "weights": np.asarray(holo.weights),
+              "iter": holo.iter}
+    if holo._phase_ff_folded is not None:
+        arrays["phase_ff_folded"] = np.asarray(holo._phase_ff_folded)
+    if "fixed_phase" in holo.flags:
+        arrays["fixed_phase"] = holo.flags["fixed_phase"]
+    out.load_arrays(arrays)
+    return out
 
 
 def spot_hologram_from_jax(holo, cameraslm, device=None):

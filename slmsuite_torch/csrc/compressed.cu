@@ -62,6 +62,20 @@
 // them): each pair then costs two sincos, but both kernels keep their
 // spots or pixels in registers and any N runs.
 //
+// Any number of Zernike terms. Up to kWideTerms (16) terms, f2n and n2f are
+// instantiated per term count (terms_of) and keep the basis of their pixels
+// or spots in registers or staged whole. Past it they take the wide kernels,
+// which read the basis one float4 group of terms at a time and accumulate
+// each pair's phase over the groups in a register (the phase enters a
+// sincos, so the terms cannot be split across launches): f2n_wide_kernel
+// and n2f_wide_kernel, both with lanes on pixels, the spots' coefficients
+// staged in chunks sized to the term count (at least kPixelSpots spots, so
+// up to slm_cmp_max_terms() = 7,248 terms). fused_spots_kernel stages its
+// block's basis and coefficients for any term count up to kFusedGroups
+// float4 groups (44 terms); past it fused_iter runs as f2n then n2f, as it
+// does past kWarpSpots spots. fused_iter_cached reads the cache, whose
+// build (a matrix product in PyTorch) takes any term count.
+//
 // fused_iter_cached is `roundtrip_kernel`. Its first half has lanes on
 // pixels and warp w on spots w, w + 8, ...: it reads the cos/sin of each
 // (spot, pixel) pair from the cache (coalesced) and forms the nearfield of
@@ -87,7 +101,7 @@ namespace slm_cmp {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxD = 16;             // Zernike terms the kernels take
+constexpr int kWideTerms = 16;        // past this many terms f2n and n2f run wide
 constexpr int kSub = 32;              // pixels per sub-chunk: one per lane
 constexpr int kBlockPixels = 1024;    // pixels per block of the reductions
 constexpr int kSpotChunk = 512;       // spots staged at once by f2n
@@ -98,6 +112,13 @@ constexpr int kChunk = 4;             // pixels a warp of fused_iter takes at on
 constexpr int kN2fChunk = 2;          // pixels a warp of n2f takes at once
 constexpr int kPixelSpots = 8;        // spots f2n takes at once
 constexpr int kThreadPixels = 4;      // pixels an f2n thread sums
+constexpr size_t kSmemLimit = 227 * 1024;  // shared bytes a block may take
+constexpr size_t kWideSmem = 64 * 1024;    // staged spots of the wide kernels
+// float4 groups of terms fused_spots_kernel stages (basis and coefficients).
+constexpr int kFusedGroups =
+    (int)(kSmemLimit / ((kBlockPixels + kWarpSpots) * sizeof(float4)));
+static_assert(kThreads * kThreadPixels == kBlockPixels,
+              "n2f_wide_kernel's blocks cover the partials' pixel blocks");
 
 // The period reduction of sincos_reduced (ops/cuda_compressed.py
 // `sincos_reduced_model` holds the same constants, and
@@ -415,6 +436,163 @@ n2f_kernel(const float* __restrict__ nfr, const float* __restrict__ nfi,
   }
 }
 
+// Spots a chunk of the wide kernels stages for dq float4 groups of terms,
+// `extra` more bytes a spot: as many as kWideSmem holds, a multiple of
+// kPixelSpots, at most kSpotChunk; at least kPixelSpots while they fit a
+// block's shared memory, else 0 (the launch refuses).
+int wide_chunk(int dq, size_t extra) {
+  const size_t per_spot = (size_t)dq * sizeof(float4) + extra;
+  if (kPixelSpots * per_spot > kSmemLimit) return 0;
+  const size_t n = kWideSmem / per_spot / kPixelSpots * kPixelSpots;
+  return (int)(n < kPixelSpots ? kPixelSpots : n > kSpotChunk ? kSpotChunk : n);
+}
+
+// The phases of kPixelSpots staged spots (n .. n + 7) at a thread's
+// kThreadPixels pixels (pb, pb + 256, ...), pair (j, c) at j * kThreadPixels
+// + c: for each float4 group of terms, the pixels' basis read from global
+// memory (coalesced over the warp; tail pixels and terms past D read 0) and
+// the spots' coefficients from the staged chunk cf[spot][dq], one fmaf a
+// term, accumulated in registers over the groups.
+__device__ __forceinline__ void wide_phases(const float* __restrict__ basis, int P, int D,
+                                            int dq, int pb, const float4* cf, int n,
+                                            float (&ph)[kPixelSpots * kThreadPixels]) {
+  constexpr int PIX = kThreadPixels;
+#pragma unroll
+  for (int i = 0; i < kPixelSpots * PIX; ++i) ph[i] = 0.f;
+  for (int q = 0; q < dq; ++q) {
+    float4 b[PIX];
+#pragma unroll
+    for (int c = 0; c < PIX; ++c) b[c] = terms4(basis, P, D, pb + kThreads * c, q);
+#pragma unroll
+    for (int j = 0; j < kPixelSpots; ++j) {
+      const float4 a = cf[(size_t)(n + j) * dq + q];
+#pragma unroll
+      for (int c = 0; c < PIX; ++c) ph[j * PIX + c] = dot4<4>(a, b[c], ph[j * PIX + c]);
+    }
+  }
+}
+
+// Stages spots s0 .. s0 + staged - 1 of the (D, N) coefficients as
+// cf[spot][dq] (zero past N and past D), after a barrier that lets the
+// previous chunk be read; the caller's barrier follows.
+__device__ __forceinline__ void stage_coeffs(const float* __restrict__ coeffs, int N, int D,
+                                             int dq, int s0, int staged, float4* cf) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < staged * dq; i += kThreads) {
+    const int s = i / dq, q = i - s * dq;
+    cf[i] = terms4(coeffs, N, D, s0 + s, q);
+  }
+}
+
+// #14 f2n past kWideTerms terms: f2n_kernel's lanes on pixels (kThreadPixels
+// a thread, sums in registers) and broadcasts of kPixelSpots staged spots,
+// with the phases of wide_phases and the spots staged `chunk` at a time.
+__global__ void __launch_bounds__(kThreads)
+f2n_wide_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
+                const float* __restrict__ coeffs, const float* __restrict__ basis,
+                const float* __restrict__ amp, int P, int N, int D, int chunk, float scale,
+                int replace, float* __restrict__ nfr, float* __restrict__ nfi) {
+  constexpr int PIX = kThreadPixels, SPOTS = kPixelSpots;
+  const int dq = (D + 3) >> 2;
+  extern __shared__ float4 smem4[];  // cf[chunk][dq], ff[chunk]
+  float4* cf = smem4;
+  float2* ff = reinterpret_cast<float2*>(cf + (size_t)chunk * dq);
+  const int pb = blockIdx.x * kThreads * PIX + threadIdx.x;
+  float re[PIX], im[PIX];
+#pragma unroll
+  for (int c = 0; c < PIX; ++c) re[c] = im[c] = 0.f;
+  for (int s0 = 0; s0 < N; s0 += chunk) {
+    const int ns = min(chunk, N - s0);
+    const int staged = (ns + SPOTS - 1) / SPOTS * SPOTS;
+    stage_coeffs(coeffs, N, D, dq, s0, staged, cf);
+    for (int i = threadIdx.x; i < staged; i += kThreads)
+      ff[i] = i < ns ? make_float2(ffr[s0 + i], ffi[s0 + i]) : make_float2(0.f, 0.f);
+    __syncthreads();
+    for (int n = 0; n < staged; n += SPOTS) {
+      float ph[SPOTS * PIX];
+      wide_phases(basis, P, D, dq, pb, cf, n, ph);
+      float2 f[SPOTS];
+#pragma unroll
+      for (int j = 0; j < SPOTS; ++j) f[j] = ff[n + j];
+      sincos_reduced_each(ph, [&](int i, float s, float co) {
+        const int j = i / PIX, c = i % PIX;
+        re[c] = fmaf(f[j].x, co, fmaf(-f[j].y, s, re[c]));
+        im[c] = fmaf(f[j].x, s, fmaf(f[j].y, co, im[c]));
+      });
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < PIX; ++c) {
+    const int p = pb + kThreads * c;
+    if (p < P) {
+      const float2 o = replace ? amp_replace(re[c], im[c], amp, p, true)
+                               : make_float2(re[c] * scale, im[c] * scale);
+      nfr[p] = o.x;
+      nfi[p] = o.y;
+    }
+  }
+}
+
+// #15 n2f past kWideTerms terms: lanes on pixels as in f2n_wide_kernel (a
+// block's kThreads x kThreadPixels pixels are the kBlockPixels of its
+// partials). Each pair's e^{-i Phi} nf is summed over the thread's pixels,
+// then over the warp's lanes (warp_sum2), the warps' sums of the staged
+// spots kept in red[kWarps][chunk] and added over the warps in a fixed
+// order into the block's partials.
+__global__ void __launch_bounds__(kThreads)
+n2f_wide_kernel(const float* __restrict__ nfr, const float* __restrict__ nfi,
+                const float* __restrict__ coeffs, const float* __restrict__ basis, int P,
+                int N, int D, int chunk, float* __restrict__ partials) {
+  constexpr int PIX = kThreadPixels, SPOTS = kPixelSpots;
+  const int dq = (D + 3) >> 2;
+  extern __shared__ float4 smem4[];  // cf[chunk][dq], red[kWarps][chunk]
+  float4* cf = smem4;
+  float2* red = reinterpret_cast<float2*>(cf + (size_t)chunk * dq);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int pb = blockIdx.x * kBlockPixels + threadIdx.x;
+  float2 v[PIX];
+#pragma unroll
+  for (int c = 0; c < PIX; ++c) {
+    const int p = pb + kThreads * c;
+    v[c] = p < P ? make_float2(nfr[p], nfi[p]) : make_float2(0.f, 0.f);
+  }
+  for (int s0 = 0; s0 < N; s0 += chunk) {
+    const int ns = min(chunk, N - s0);
+    const int staged = (ns + SPOTS - 1) / SPOTS * SPOTS;
+    stage_coeffs(coeffs, N, D, dq, s0, staged, cf);
+    __syncthreads();
+    for (int n = 0; n < staged; n += SPOTS) {
+      float ph[SPOTS * PIX];
+      wide_phases(basis, P, D, dq, pb, cf, n, ph);
+      float sr[SPOTS], si[SPOTS];
+#pragma unroll
+      for (int j = 0; j < SPOTS; ++j) sr[j] = si[j] = 0.f;
+      sincos_reduced_each(ph, [&](int i, float s, float co) {
+        const int j = i / PIX, c = i % PIX;
+        sr[j] = fmaf(co, v[c].x, fmaf(s, v[c].y, sr[j]));
+        si[j] = fmaf(co, v[c].y, fmaf(-s, v[c].x, si[j]));
+      });
+#pragma unroll
+      for (int j = 0; j < SPOTS; ++j) warp_sum2(sr[j], si[j]);
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < SPOTS; ++j)
+          red[(size_t)warp * chunk + n + j] = make_float2(sr[j], si[j]);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < ns; i += kThreads) {
+      float2 acc = make_float2(0.f, 0.f);
+      for (int w = 0; w < kWarps; ++w) {
+        acc.x += red[(size_t)w * chunk + i].x;
+        acc.y += red[(size_t)w * chunk + i].y;
+      }
+      partials[(size_t)blockIdx.x * N + s0 + i] = acc.x;
+      partials[((size_t)gridDim.x + blockIdx.x) * N + s0 + i] = acc.y;
+    }
+  }
+}
+
 // #17 fused_iter_cached: per block of kBlockPixels pixels, the (N,)
 // partial sums of e^{-i Phi} times amp nf/|nf| of the nearfield nf
 // expanded from the farfield, cos/sin read from the (n_tiles, N8, T)
@@ -700,9 +878,11 @@ cudaError_t finish(const float* partials, int n_blocks, int N, float scale,
   return cudaGetLastError();
 }
 
-// Calls f.template run<DT>() for D's term count (terms_of).
+// Calls f.template run<DT>() for D's term count (terms_of), or f.wide()
+// past kWideTerms terms.
 template <typename F>
 cudaError_t with_terms(int D, const F& f) {
+  if (D > kWideTerms) return f.wide();
   switch (terms_of(D)) {
     case 1: return f.template run<1>();
     case 2: return f.template run<2>();
@@ -733,6 +913,18 @@ struct F2nLaunch {
         ffr, ffi, coeffs, basis, amp, P, N, D, scale, replace, nfr, nfi);
     return cudaGetLastError();
   }
+
+  cudaError_t wide() const {
+    const int dq = (D + 3) / 4, chunk = wide_chunk(dq, sizeof(float2));
+    if (!chunk) return cudaErrorInvalidValue;
+    const size_t smem = (size_t)chunk * (dq * sizeof(float4) + sizeof(float2));
+    cudaError_t err = set_smem(f2n_wide_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int per_block = kThreads * kThreadPixels;
+    f2n_wide_kernel<<<(P + per_block - 1) / per_block, kThreads, smem, stream>>>(
+        ffr, ffi, coeffs, basis, amp, P, N, D, chunk, scale, replace, nfr, nfi);
+    return cudaGetLastError();
+  }
 };
 
 struct N2fLaunch {
@@ -750,6 +942,17 @@ struct N2fLaunch {
     if (err != cudaSuccess) return err;
     const dim3 grid(n_blocks_of(P), (N + kWarpSpots - 1) / kWarpSpots);
     n2f_kernel<DT><<<grid, kThreads, smem, stream>>>(nfr, nfi, coeffs, basis, P, N, D, partials);
+    return cudaGetLastError();
+  }
+
+  cudaError_t wide() const {
+    const int dq = (D + 3) / 4, chunk = wide_chunk(dq, kWarps * sizeof(float2));
+    if (!chunk) return cudaErrorInvalidValue;
+    const size_t smem = (size_t)chunk * (dq * sizeof(float4) + kWarps * sizeof(float2));
+    cudaError_t err = set_smem(n2f_wide_kernel, smem);
+    if (err != cudaSuccess) return err;
+    n2f_wide_kernel<<<n_blocks_of(P), kThreads, smem, stream>>>(nfr, nfi, coeffs, basis, P, N,
+                                                                D, chunk, partials);
     return cudaGetLastError();
   }
 };
@@ -772,13 +975,13 @@ cudaError_t launch_cached(const float* ffr, const float* ffi, const float* kc, c
   return finish(partials, n_blocks, N, 1.f, out_re, out_im, stream);
 }
 
-// fused_iter up to kWarpSpots spots: fused_spots_kernel and spot_reduce.
-// Beyond, the wrapper runs the round trip as f2n with the amplitude
-// replacement, then n2f unnormalized.
+// fused_iter up to kWarpSpots spots and 4 kFusedGroups terms:
+// fused_spots_kernel and spot_reduce. Beyond, the wrapper runs the round
+// trip as f2n with the amplitude replacement, then n2f unnormalized.
 cudaError_t launch_fused(const float* ffr, const float* ffi, const float* coeffs,
                          const float* basis, const float* amp, int P, int N, int D,
                          float* partials, float* out_re, float* out_im, cudaStream_t stream) {
-  if (N > kWarpSpots) return cudaErrorInvalidValue;
+  if (N > kWarpSpots || (D + 3) / 4 > kFusedGroups) return cudaErrorInvalidValue;
   const size_t smem = (size_t)(kBlockPixels + kWarpSpots) * ((D + 3) / 4) * sizeof(float4);
   cudaError_t err = set_smem(fused_spots_kernel, smem);
   if (err != cudaSuccess) return err;
@@ -836,5 +1039,13 @@ int slm_cmp_fused_cached(const float* ffr, const float* ffi, const float* kc,
 int slm_cmp_block_pixels() { return kBlockPixels; }
 
 int slm_cmp_fused_spots() { return kWarpSpots; }
+
+int slm_cmp_fused_terms() { return 4 * kFusedGroups; }
+
+// The most Zernike terms f2n and n2f take: kPixelSpots spots' coefficients
+// (and n2f's per-warp sums) within a block's shared memory.
+int slm_cmp_max_terms() {
+  return 4 * (int)((kSmemLimit / kPixelSpots - kWarps * sizeof(float2)) / sizeof(float4));
+}
 
 }  // extern "C"

@@ -14,16 +14,18 @@ camera, measured inside the loop on the device. A rig the device
 measurement does not model (real hardware, noise, averaging, an
 orientation transform), amplitudes the user measures elsewhere
 (``"external_spot"``) and callbacks run the stepwise host loop.
-``refine_offset`` is not ported yet (ROADMAP.md queue 1, item 9).
+:meth:`refine_offset` centers the spots on their camera windows.
 
-:class:`CompressedSpotHologram` takes a bare SLM and runs the compressed
-engine (:mod:`slmsuite_torch.ops.compressed`) with ``computational_spot``
-feedback; callbacks, ``"external_spot"`` feedback and MRAF with
-``zero_factor`` run its host-paced loop (:meth:`CompressedSpotHologram.
-_stepwise_compressed`) on the same transforms; ``"CG"`` differentiates
-through :class:`slmsuite_torch.ops.grad.CompressedOverlap` (the ``n2f``
-kernel forward, ``f2n`` backward). CameraSLMs (and so camera feedback) are
-queued under item 9 and mesh-sharded runs under item 11.
+:class:`CompressedSpotHologram` takes a bare SLM or a CameraSLM (whose
+Fourier calibration gives the spots' camera positions ``spot_ij`` and
+integration width) and runs the compressed engine
+(:mod:`slmsuite_torch.ops.compressed`) with ``computational_spot``
+feedback; callbacks, ``"external_spot"`` and ``"experimental_spot"``
+(camera) feedback, camera stats and MRAF with ``zero_factor`` run its
+host-paced loop (:meth:`CompressedSpotHologram._stepwise_compressed`) on
+the same transforms; ``"CG"`` differentiates through
+:class:`slmsuite_torch.ops.grad.CompressedOverlap` (the ``n2f`` kernel
+forward, ``f2n`` backward). Mesh-sharded runs are queued under item 11.
 """
 
 import dataclasses
@@ -43,13 +45,6 @@ from slmsuite_torch.ops import engine as _engine
 from slmsuite_torch.ops import grad as _grad
 from slmsuite_torch.ops import propagation as _prop
 from slmsuite_torch.ops.weights import update_weights_generic
-
-#: Why camera feedback on a compressed hologram raises.
-_COMPRESSED_CAMERA = (
-    "Camera feedback on a compressed hologram needs a CameraSLM, which is not ported "
-    "for compressed holograms yet (ROADMAP.md queue 1, item 9)."
-)
-
 
 class _AbstractSpotHologram(FeedbackHologram):
     """Shared spot logic: no vortex removal, the simulated rig's
@@ -227,11 +222,70 @@ class _AbstractSpotHologram(FeedbackHologram):
         self._sim_powers_value = (packed[:-1], float(packed[-1]))
         return self._sim_powers_value
 
-    def refine_offset(self, *args, **kwargs):
-        """Hone the spot positions toward their targets from an image."""
-        raise NotImplementedError(
-            "refine_offset is not ported yet (ROADMAP.md queue 1, item 9)."
+    def refine_offset(self, img=None, basis="kxy", force_affine=True, plot=False):
+        """
+        Hone the spot positions toward their targets: the centroid of each
+        spot's background-removed camera window (``img``, or a measurement
+        of the current phase), optionally through the affine fit of all
+        of them (``force_affine``), shifts the k-space targets (``basis``
+        ``"kxy"`` or ``"knm"``, which resets the weights of a
+        :class:`SpotHologram` and moves the tilt and focus coefficients of
+        a :class:`CompressedSpotHologram`) or the camera windows
+        (``"ij"``); None shifts nothing. ``plot`` is not ported (item 12).
+        Returns the ``(2, N)`` shifts in camera pixels.
+        """
+        if self.spot_integration_width_ij is None:
+            raise ValueError(
+                "hologram.spot_integration_width_ij must be set to use refine_offset()."
+            )
+        if plot:
+            raise NotImplementedError(
+                "refine_offset(plot=True): the plots are not ported yet "
+                "(ROADMAP.md queue 1, item 12)."
+            )
+
+        if img is None:
+            self.measure(basis="ij")
+            img = self.img_ij
+
+        regions = analysis.take(
+            img, self.spot_ij, self.spot_integration_width_ij, centered=True, integrate=False
         )
+        regions = analysis.image_remove_field(regions, deviations=None, out=regions)
+        shift_vectors = analysis.image_positions(regions)
+
+        if force_affine:
+            affine = analysis.fit_affine(
+                self.spot_ij[[0, 1]], self.spot_ij[[0, 1]] + shift_vectors
+            )
+            shift_vectors = (
+                affine["M"] @ self.spot_ij[[0, 1]] + affine["b"]
+            ) - self.spot_ij[[0, 1]]
+
+        if basis is None:
+            return shift_vectors
+        if basis in ("kxy", "knm"):
+            self.spot_kxy = self.spot_kxy.astype(float)
+            self.spot_kxy[[0, 1]] = self.spot_kxy[[0, 1]] - (
+                self.cameraslm.ijcam_to_kxyslm(shift_vectors)
+                - self.cameraslm.ijcam_to_kxyslm((0, 0))
+            )
+            if getattr(self, "spot_knm", None) is not None:
+                self.spot_knm = toolbox.convert_vector(
+                    self.spot_kxy, "kxy", "knm", hardware=self.cameraslm.slm,
+                    shape=self.shape,
+                )
+                self.set_target(reset_weights=True)
+            if hasattr(self, "spot_zernike"):
+                self.spot_zernike[self.zernike_basis_cartesian, :] = toolbox.convert_vector(
+                    self.spot_kxy, "kxy", "zernike", hardware=self.cameraslm.slm,
+                    shape=self.shape,
+                )
+        elif basis == "ij":
+            self.spot_ij = self.spot_ij + shift_vectors
+        else:
+            raise ValueError(f"Unrecognized basis '{basis}'.")
+        return shift_vectors
 
     def _populate_stats(self, stats, stat_groups):
         super()._populate_stats(stats, stat_groups)
@@ -706,17 +760,22 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         ANSI indices of the basis (``-1`` is the vortex waveplate).
     spot_kxy : numpy.ndarray
         ``(2, N)`` or ``(3, N)`` spot positions in ``"kxy"``.
-    spot_ij : None
-        Camera-basis positions (they need a CameraSLM, item 9).
+    spot_ij : numpy.ndarray OR None
+        Camera-basis positions (with a Fourier-calibrated CameraSLM).
+    spot_integration_width_ij : int OR None
+        The odd width of each spot's camera window: twice the camera-basis
+        PSF radius, clipped to [3, the smallest spot distance / 1.5].
     """
 
     def __init__(self, spot_vectors, basis="kxy", spot_amp=None, cameraslm=None, cuda=None,
                  **kwargs):
         """
         Initialize from ``(D, N)`` spot vectors in basis ``"kxy"`` (or
-        another SLM unit of :meth:`toolbox.convert_vector`),
-        ``"zernike"``, or an explicit list of ANSI indices. ``cameraslm``
-        is an SLM. ``cuda`` is kept for the JAX package's signature: the
+        another unit of :meth:`toolbox.convert_vector`: ``"ij"`` with a
+        Fourier-calibrated CameraSLM), ``"zernike"``, or an explicit list
+        of ANSI indices. ``cameraslm`` is an SLM or a CameraSLM, whose
+        Fourier calibration places the spots on the camera (and raises for
+        spots off it). ``cuda`` is kept for the JAX package's signature: the
         device decides the route (the kernels on a CUDA device, the plain
         versions on the CPU), and a ``cuda`` that contradicts it raises.
         """
@@ -769,18 +828,42 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             self.spot_kxy = toolbox.convert_vector(spot_vectors, basis, "kxy",
                                                    hardware=cameraslm)
 
-        # A CameraSLM bounds the spots laterally by its SLM's farfield.
+        # A CameraSLM bounds the spots laterally by its SLM's farfield and,
+        # when Fourier calibrated, places them on the camera.
+        self.spot_ij = None
+        psf_ij = 0
         if hasattr(cameraslm, "slm"):
             kmax = 1.0 / np.min(cameraslm.slm.pitch) / 2.0
             if np.any(np.abs(self.spot_kxy[:2, :]) > 1.1 * kmax):
                 raise ValueError("Spots laterally outside the bounds of the farfield")
-            raise NotImplementedError(
-                "Compressed holograms on a CameraSLM (camera-basis spots and "
-                "camera feedback) are not ported yet (ROADMAP.md queue 1, item 9); "
-                "pass its SLM."
-            )
-        self.spot_ij = None
+            if "fourier" in getattr(cameraslm, "calibrations", {}):
+                self.spot_ij = cameraslm.kxyslm_to_ijcam(self.spot_kxy)
+                psf_kxy = np.mean(cameraslm.slm.get_spot_radius_kxy())
+                psf_ij = toolbox.convert_radius(psf_kxy, "kxy", "ij", cameraslm)
+                if np.isnan(psf_ij):
+                    psf_ij = 0
+
         self.spot_integration_width_ij = None
+        if self.spot_ij is not None:
+            min_psf = 3
+            dist_ij = np.max([toolbox.smallest_distance(self.spot_ij) / 1.5, min_psf])
+            if psf_ij > dist_ij:
+                warnings.warn("The expected camera spot psf is too large; clipping.")
+            width = np.clip(2 * psf_ij, 3, dist_ij)
+            self.spot_integration_width_ij = int(2 * np.floor(width / 2) + 1)
+
+            cam_shape = cameraslm.cam.shape
+            half = self.spot_integration_width_ij / 2
+            if (
+                np.any(self.spot_ij[0] < half)
+                or np.any(self.spot_ij[1] < half)
+                or np.any(self.spot_ij[0] >= cam_shape[1] - half)
+                or np.any(self.spot_ij[1] >= cam_shape[0] - half)
+            ):
+                raise ValueError(
+                    f"Spots outside camera bounds!\nSpots:\n{self.spot_ij}\n"
+                    f"Bounds: {cam_shape}"
+                )
 
         super().__init__(shape=None, target_ij=None, cameraslm=cameraslm, **kwargs)
         self.shape = self.slm_shape
@@ -790,7 +873,8 @@ class CompressedSpotHologram(_AbstractSpotHologram):
 
         self.external_spot_amp = np.copy(self.spot_amp)
 
-        self._basis = _comp.build_zernike_basis(self.zernike_basis, cameraslm)
+        slm = cameraslm.slm if hasattr(cameraslm, "slm") else cameraslm
+        self._basis = _comp.build_zernike_basis(self.zernike_basis, slm)
         on_card = self.device.type == "cuda"
         if cuda is not None and bool(cuda) != on_card:
             raise ValueError(
@@ -879,13 +963,15 @@ class CompressedSpotHologram(_AbstractSpotHologram):
     def _kernel_cache_enabled(self):
         """Whether the loop streams the cos/sin cache instead of recomputing
         the sincos: when the cache fits ``SLMSUITE_TORCH_COMPRESSED_CACHE_MB``
-        (default 4096; ``0`` disables)."""
+        (default 4096; ``0`` disables) and the spots fit ``fused_iter_cached``'s
+        shared memory (:meth:`slmsuite_torch.ops.compressed.fused_iter_cached_ok`;
+        past it the recomputing loop runs, on the CPU as on the card)."""
         try:
             budget_mb = float(os.environ.get("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", 4096))
         except ValueError:
             budget_mb = 4096.0
-        return _comp.kernel_cache_bytes(len(self), int(np.prod(self.slm_shape))) \
-            <= budget_mb * 1e6
+        return _comp.fused_iter_cached_ok(len(self)) and _comp.kernel_cache_bytes(
+            len(self), int(np.prod(self.slm_shape))) <= budget_mb * 1e6
 
     def _compressed_config(self, kernel_cache=False):
         return _comp.CompressedGSConfig(
@@ -979,10 +1065,11 @@ class CompressedSpotHologram(_AbstractSpotHologram):
     def optimize_gs(self, maxiter, callback, verbose=True, name=None):
         """Compressed GS/WGS on the engine, in chunks (progress reporting
         between chunks when ``verbose``), with one packed download at the
-        end; a callback, ``"external_spot"`` feedback, host stats or MRAF
-        with ``zero_factor`` (whose complex zero weights the engine does
-        not carry) take the host-paced loop, one
-        :meth:`_stepwise_compressed` per iteration."""
+        end; a callback, ``"external_spot"`` or ``"experimental_spot"``
+        feedback, host stats (the camera's among them) or MRAF with
+        ``zero_factor`` (whose complex zero weights the engine does not
+        carry) take the host-paced loop, one :meth:`_stepwise_compressed`
+        per iteration."""
         if isinstance(maxiter, range):
             maxiter = len(maxiter)
 
@@ -995,15 +1082,11 @@ class CompressedSpotHologram(_AbstractSpotHologram):
                 "as 'experimental_spot'"
             )
             feedback = self.flags["feedback"] = "experimental_spot"
-        if feedback == "experimental_spot" or any(
-            "experimental" in g for g in self.flags.get("stat_groups", [])
-        ):
-            raise NotImplementedError(_COMPRESSED_CAMERA)
 
         host_loop = (
             callback is not None
             or bool(self._stats_pending_groups())
-            or feedback == "external_spot"
+            or feedback in ("experimental_spot", "external_spot")
             or (bool(self.flags.get("zero_factor", 0)) and self._mraf_enabled())
         )
         config = self._compressed_config(
@@ -1051,7 +1134,9 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         One host-paced compressed iteration: the entry transform
         (:meth:`slmsuite_torch.ops.compressed.nearfield_to_farfield`, kernel
         ``n2f``) on the device and one download of the spot farfield and
-        weights; the callback, stats and weight update on the host; the
+        weights; the callback, stats and weight update on the host (a
+        camera measures the iteration's phase, which the hologram adopts
+        first); the
         constraint (with the per-spot MRAF mix and the ``zero_factor``
         weights) and the exit transform (:meth:`~slmsuite_torch.ops.
         compressed.farfield_to_nearfield`, kernel ``f2n``) on the device.
@@ -1069,6 +1154,10 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         ff_re_h, ff_im_h = packed[:N], packed[N:2 * N]
         self.amp_ff = np.sqrt(ff_re_h**2 + ff_im_h**2)
         theta = np.arctan2(ff_im_h, ff_re_h)
+        # The phase the camera measures is this iteration's (the JAX
+        # package's loop measures the phase the hologram held when
+        # optimize() began).
+        self._psi = state.psi.reshape(self.slm_shape)
         self._midloop_cleaning()
         self.weights = packed[2 * N:3 * N].copy()
         self.iter = int(packed[3 * N])
@@ -1230,9 +1319,9 @@ class CompressedSpotHologram(_AbstractSpotHologram):
 
     def _update_weights(self):
         """The host loop's weight update (on the host: ``(N,)`` vectors)
-        from the computed (``computational_spot``) or given
-        (``external_spot``) spot amplitudes; camera feedback needs a
-        CameraSLM (item 9)."""
+        from the computed (``computational_spot``), given
+        (``external_spot``) or measured (``experimental_spot``: the power
+        in each spot's camera window) spot amplitudes."""
         feedback = self.flags["feedback"]
         if feedback == "computational":
             feedback = self.flags["feedback"] = "computational_spot"
@@ -1244,7 +1333,11 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         elif feedback == "external_spot":
             amp_feedback = self.external_spot_amp
         elif feedback == "experimental_spot":
-            raise NotImplementedError(_COMPRESSED_CAMERA)
+            self.measure(basis="ij")
+            amp_feedback = np.sqrt(analysis.take(
+                np.square(np.asarray(self.img_ij, dtype=self.dtype)), self.spot_ij,
+                self.spot_integration_width_ij, centered=True, integrate=True,
+            ))
         else:
             raise ValueError(f"Feedback '{feedback}' not recognized.")
 

@@ -31,6 +31,7 @@ __all__ = [
     "image_positions",
     "image_centroids",
     "image_variances",
+    "image_areas",
     "fit_affine",
     "blob_detect",
     "blob_array_detect",
@@ -345,6 +346,13 @@ def image_variances(images, centers=None, grid=None, normalize=True, nansum=Fals
         return np.vstack((m20, m02))
     m11 = image_moment(images, (1, 1), centers=centers, grid=grid, normalize=False, nansum=nansum)
     return np.vstack((m20, m02, m11))
+
+
+def image_areas(variances):
+    """The determinant of each image's moment matrix, ``M20 M02 - M11^2``
+    (a spot-area proxy), from :meth:`image_variances`' ``(3, N)``."""
+    m20, m02, m11 = variances[0, :], variances[1, :], variances[2, :]
+    return m20 * m02 - m11 * m11
 
 
 def fit_affine(x, y, guess_affine=None, plot=False):

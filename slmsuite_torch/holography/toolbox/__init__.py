@@ -13,7 +13,7 @@ import warnings
 import numpy as np
 from scipy.spatial import distance
 
-from slmsuite_torch.misc.math import REAL_TYPES
+from slmsuite_torch.misc.math import INTEGER_TYPES, REAL_TYPES
 
 #: Microns per unit of length.
 LENGTH_FACTORS = {"m": 1e6, "cm": 1e4, "mm": 1e3, "um": 1.0, "nm": 1e-3}
@@ -251,6 +251,76 @@ def convert_radius(radius, from_units="norm", to_units="norm", hardware=None, sh
     vx = convert_vector((radius, 0), from_units, to_units, hardware, shape)
     vy = convert_vector((0, radius), from_units, to_units, hardware, shape)
     return np.mean([np.linalg.norm(vx - origin), np.linalg.norm(vy - origin)])
+
+
+def fit_3pt(y0, y1, y2, N=None, x0=(0, 0), x1=(1, 0), x2=(0, 1), orientation_check=False):
+    r"""
+    The affine :math:`\vec{y} = M\vec{x} + \vec{b}` through three point
+    pairs: ``y0``, ``y1``, ``y2`` observed at the indices ``x0``, ``x1``,
+    ``x2`` (with ``x1`` or ``x2`` None, ``y1`` or ``y2`` are basis vectors,
+    differences from ``y0``). ``N`` None or not positive returns ``{"M",
+    "b"}``; a count or a pair evaluates the affine on that index grid, an
+    array on those indices, as ``(2, n)`` vectors. ``orientation_check``
+    drops the grid's last two points (the Fourier calibration's parity
+    check).
+    """
+    y0 = format_2vectors(y0)
+    y1 = format_2vectors(y1)
+    y2 = format_2vectors(y2)
+
+    x0 = format_2vectors((0, 0) if x0 is None else x0)
+    if x1 is None:
+        x1 = x0 + format_2vectors((1, 0))
+    else:
+        x1 = format_2vectors(x1)
+        y1 = y1 - y0
+    if x2 is None:
+        x2 = x0 + format_2vectors((0, 1))
+    else:
+        x2 = format_2vectors(x2)
+        y2 = y2 - y0
+
+    dx1 = x1 - x0
+    dx2 = x2 - x0
+    if np.abs(np.sum(dx1 * dx2)) == np.sqrt(np.sum(dx1 * dx1) * np.sum(dx2 * dx2)):
+        raise ValueError("Indices must not be colinear.")
+
+    J = np.linalg.inv(np.array([[dx1[0, 0], dx2[0, 0]], [dx1[1, 0], dx2[1, 0]]]))
+    M = np.array([[y1[0, 0], y2[0, 0]], [y1[1, 0], y2[1, 0]]]) @ J
+    b = y0 - M @ x0
+
+    indices = None
+    affine_return = False
+    if N is None:
+        affine_return = True
+    elif isinstance(N, INTEGER_TYPES):
+        if N <= 0:
+            affine_return = True
+        else:
+            N = (N, N)
+    elif isinstance(N, np.ndarray) and N.size > 2:
+        indices = format_2vectors(N)
+    elif (
+        not np.isscalar(N)
+        and len(N) == 2
+        and isinstance(N[0], INTEGER_TYPES)
+        and isinstance(N[1], INTEGER_TYPES)
+    ):
+        if N[0] <= 0 or N[1] <= 0:
+            affine_return = True
+    else:
+        raise ValueError(f"N={N} not recognized.")
+
+    if affine_return:
+        return {"M": M, "b": b}
+
+    if indices is None:
+        x_grid, y_grid = np.meshgrid(np.arange(N[0]), np.arange(N[1]))
+        indices = np.vstack((x_grid.ravel(), y_grid.ravel()))
+    if orientation_check:
+        indices = indices[:, :-2]
+
+    return np.asarray(M @ indices + b)
 
 
 def smallest_distance(vectors, metric="chebyshev"):

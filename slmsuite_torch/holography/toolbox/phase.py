@@ -3,8 +3,9 @@ Phase patterns on an SLM grid: the part of
 :mod:`slmsuite_tpu.holography.toolbox.phase` that the holograms need
 (numpy and scipy only): the blazed grating and the lens of the quadratic
 initial phase, and the Zernike polynomials of the compressed spot
-hologram. Polynomials are evaluated by their cached Cantor-monomial
-expansion and normalized to peak-to-valley 2 on the unit pupil.
+hologram and of the Zernike wavefront calibration. Polynomials are
+evaluated by their cached Cantor-monomial expansion and normalized to
+peak-to-valley 2 on the unit pupil.
 """
 
 import numpy as np
@@ -339,6 +340,12 @@ def _polynomial(grid, weights, terms, out):
         else:
             raise ValueError(f"Unrecognized terms {(nx, ny)} for index {index}.")
     return out
+
+
+def zernike(grid, index, weight=1, **kwargs):
+    """One Zernike polynomial (ANSI ``index``) times ``weight``; the keyword
+    arguments are :meth:`zernike_sum`'s."""
+    return zernike_sum(grid, (int(index),), (float(weight),), **kwargs)
 
 
 def zernike_sum(grid, indices, weights, aperture=None, use_mask=True):

@@ -209,3 +209,36 @@ def camera_loop_wgs(spot_ij=None, shape=(1024, 1024), calibration="analytic", se
     holo = SpotHologram(shape, spot_ij, basis="ij", cameraslm=fs, phase=phase,
                         device=device)
     return fs, holo
+
+
+#: The aberration :meth:`zernike_calibration_rig` injects: ANSI indices
+#: (focus, oblique astigmatism, primary spherical) and their weights (rad).
+ZERNIKE_RIG_ABERRATION = ((4, 3, 12), (1.0, -0.6, 0.4))
+#: The calibration rig's kxy -> ij affine at a 1024^2 SLM: four times
+#: config 4's focal length, so that a spot of the 1024^2 SLM's Gaussian
+#: source spans ~1.4 camera pixels (sigma) and the spot-area metric sees a
+#: radian of aberration (at config 4's it spans 0.35 px); the camera's
+#: canvas is then 4096^2, the kernels' longest side.
+ZERNIKE_RIG_M = np.array([[3.2e4, 800.0], [-800.0, 3.2e4]])
+
+
+def zernike_calibration_rig(slm_side=1024, cam_side=1024, aberration=ZERNIKE_RIG_ABERRATION,
+                            M=None, device=None, **rig):
+    """The rig of the Zernike wavefront calibration: :meth:`camera_loop_rig`
+    at ``slm_side``^2 and ``cam_side``^2 through the affine ``M`` (default
+    :data:`ZERNIKE_RIG_M` scaled to ``slm_side``, the spot's width in
+    camera pixels kept), its Fourier calibration set from the camera's own
+    affine (as ``camera_loop_wgs(calibration="analytic")`` does), and the
+    simulated source phase ``zernike_sum(slm, *aberration)`` that the
+    calibration is to find. Returns the
+    :class:`~slmsuite_torch.hardware.cameraslms.FourierSLM`."""
+    from slmsuite_torch.holography.toolbox.phase import zernike_sum
+
+    if M is None:
+        M = ZERNIKE_RIG_M * (slm_side / 1024)
+    fs = camera_loop_rig(slm_side=slm_side, cam_side=cam_side, M=M,
+                         device=resolve_device(device), **rig)
+    fs.fourier_calibrate_analytic(fs.cam.M, fs.cam.b)
+    indices, weights = aberration
+    fs.slm.source["phase_sim"] = np.asarray(zernike_sum(fs.slm, indices, weights))
+    return fs

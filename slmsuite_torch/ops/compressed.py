@@ -210,6 +210,20 @@ def build_kernel_cache(coeffs, basis):
     return torch.stack([c for c, _ in pairs]), torch.stack([s for _, s in pairs])
 
 
+#: Shared memory a block of ``fused_iter_cached``'s kernel may take on the
+#: H100 (227 KiB), in bytes.
+CACHED_SMEM_LIMIT = 227 * 1024
+
+
+def fused_iter_cached_ok(n_spots):
+    """Whether ``fused_iter_cached``'s kernel takes ``n_spots`` spots: their
+    farfield and sums, four floats a spot, and 4 KiB more within a block's
+    shared memory (up to 14,272 spots). The compressed hologram leaves the
+    cache off past it, as the JAX package's dispatcher leaves its kernel
+    (``fused_iter_cached_ok``)."""
+    return n_spots >= 1 and 4 * n_spots * 4 + 4096 <= CACHED_SMEM_LIMIT
+
+
 def kernel_cache_bytes(n_spots, n_pixels):
     """Device bytes of :meth:`build_kernel_cache` for a shape."""
     return 2 * 4 * (-(-n_spots // 8) * 8) * _n_tiles(n_pixels) * PIXEL_TILE

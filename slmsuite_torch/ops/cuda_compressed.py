@@ -6,13 +6,16 @@ kernels by :func:`slmsuite_torch.ops.cuda_fft.build` on the first launch
 (importing this module builds nothing).
 
 Each wrapper checks its inputs (CUDA, float32, contiguous, consistent
-lengths, at most 16 Zernike terms; ``fused_iter_cached`` a spot count
-whose shared memory fits) and raises on anything else, allocates its
-outputs and the per-block partials, launches on the current stream,
-raises if the launcher reports an error, and counts its call in
-:data:`LAUNCHES` (one per call, for the kernel and the fixed-order passes
-that finish it). ``f2n`` and ``n2f`` take any spot count; ``fused_iter``
-beyond the spots of its kernel's warp (256) runs as the two of them (each
+lengths; ``fused_iter_cached`` a spot count whose shared memory fits,
+:meth:`slmsuite_torch.ops.compressed.fused_iter_cached_ok`) and raises on
+anything else, allocates its outputs and the per-block partials, launches
+on the current stream, raises if the launcher reports an error, and
+counts its call in :data:`LAUNCHES` (one per call, for the kernel and the
+fixed-order passes that finish it). ``f2n`` and ``n2f`` take any spot count and any number of
+Zernike terms (past 16 their wide kernels, up to ``slm_cmp_max_terms()``,
+7,248, where eight spots' coefficients fill a block's shared memory);
+``fused_iter`` beyond the spots of its kernel's warp (256) or the terms it
+stages (``slm_cmp_fused_terms()``, 44) runs as the two of them (each
 counted).
 
 The plain PyTorch version of each kernel is the underscored function of
@@ -27,16 +30,11 @@ import ctypes
 import numpy as np
 import torch
 
-from slmsuite_torch.ops import cuda_fft
+from slmsuite_torch.ops import compressed, cuda_fft
 from slmsuite_torch.ops.cuda_fft import _ptr
 
 #: Calls per wrapper since the last :meth:`reset_launch_counts`.
 LAUNCHES = {"f2n": 0, "n2f": 0, "fused_iter": 0, "fused_iter_cached": 0}
-
-#: Zernike terms the kernels take (``kMaxD`` in the source).
-MAX_TERMS = 16
-#: Shared memory a block may use on the H100, in bytes.
-_SMEM_LIMIT = 227 * 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -46,6 +44,8 @@ _SIGNATURES = {
     "slm_cmp_fused_cached": [_P] * 4 + [_I, _I, _P, _I, _I, _P, _P, _P, _P],
     "slm_cmp_block_pixels": [],
     "slm_cmp_fused_spots": [],
+    "slm_cmp_fused_terms": [],
+    "slm_cmp_max_terms": [],
 }
 
 _BOUND = None
@@ -124,15 +124,15 @@ def _check_transform(ff_or_nf, coeffs, basis):
     if basis.shape[0] != D:
         raise ValueError(f"coeffs {tuple(coeffs.shape)} and basis {tuple(basis.shape)} "
                          "disagree on the Zernike terms.")
-    if not 1 <= D <= MAX_TERMS:
-        raise ValueError(f"The kernels take 1 to {MAX_TERMS} Zernike terms, not {D}.")
+    if not 1 <= D <= _lib().slm_cmp_max_terms():
+        raise ValueError(f"{D} Zernike terms: the kernels take 1 to "
+                         f"{_lib().slm_cmp_max_terms()}, the most whose coefficients "
+                         "fit a block's shared memory.")
     return D, N, basis.shape[1]
 
 
 def _check_spots(N):
-    """``N`` spots' farfield and sums (four floats a spot) must fit the
-    shared memory of a block of ``roundtrip_kernel``."""
-    if N < 1 or 4 * N * 4 + 4096 > _SMEM_LIMIT:
+    if not compressed.fused_iter_cached_ok(N):
         raise ValueError(f"{N} spots do not fit the kernels' shared memory.")
 
 
@@ -161,7 +161,8 @@ def f2n(ff_re, ff_im, coeffs, basis, amp=None):
     """#14: the ``(P,)`` nearfield pair ``P^-1/2 sum_n ff[n] e^{i Phi[n, p]}``;
     given ``amp`` (a scalar or ``(P,)``), the amplitude replacement ``amp
     nf/|nf|`` of the sum instead (scalar: unit amplitude), the first half
-    of :meth:`fused_iter` past its kernels' shared memory. Any spot count."""
+    of :meth:`fused_iter` past its kernels' shared memory. Any spot count;
+    past 16 terms ``f2n_wide_kernel``."""
     D, N, P = _check_transform((ff_re, ff_im), coeffs, basis)
     if ff_re.shape != (N,) or ff_im.shape != (N,):
         raise ValueError(f"The farfield must have {N} spots.")
@@ -181,7 +182,8 @@ def n2f(nf_re, nf_im, coeffs, basis, normalize=True):
     """#15: the unit-norm ``(N,)`` farfield pair of ``P^-1/2 sum_p
     e^{-i Phi[n, p]} nf[p]``; ``normalize`` False gives the sum itself,
     neither scaled nor normalized (the second half of :meth:`fused_iter`
-    past its kernels' shared memory). Any spot count."""
+    past its kernels' shared memory). Any spot count; past 16 terms
+    ``n2f_wide_kernel``."""
     D, N, P = _check_transform((nf_re, nf_im), coeffs, basis)
     if nf_re.shape != (P,) or nf_im.shape != (P,):
         raise ValueError(f"The nearfield must have {P} pixels.")
@@ -201,14 +203,15 @@ def fused_iter(ff_re, ff_im, coeffs, basis, amp):
     """#16: one round trip ff -> nf -> amp nf/|nf| (padded pixels masked)
     -> the unnormalized ``(N,)`` farfield pair; ``amp`` is a scalar or
     ``(P,)``. Beyond the spots of the kernel's warp (``slm_cmp_fused_spots``,
-    256), the round trip runs as :meth:`f2n` with the amplitude
-    replacement, then :meth:`n2f` unnormalized (each counts its launch)."""
+    256) or the terms it stages (``slm_cmp_fused_terms``, 44), the round
+    trip runs as :meth:`f2n` with the amplitude replacement, then
+    :meth:`n2f` unnormalized (each counts its launch)."""
     D, N, P = _check_transform((ff_re, ff_im), coeffs, basis)
     if ff_re.shape != (N,) or ff_im.shape != (N,):
         raise ValueError(f"The farfield must have {N} spots.")
     if N < 1:
         raise ValueError("fused_iter needs at least one spot.")
-    if N > _lib().slm_cmp_fused_spots():
+    if N > _lib().slm_cmp_fused_spots() or D > _lib().slm_cmp_fused_terms():
         nf = f2n(ff_re, ff_im, coeffs, basis, amp=1.0 if amp is None else amp)
         return n2f(*nf, coeffs, basis, normalize=False)
     amp_plane = _amp_plane(amp, P)

@@ -440,10 +440,13 @@ def test_calibration_save_load_roundtrip(tmp_path, monkeypatch):
         latest.load_calibration("pixel")
 
 
-@pytest.mark.parametrize("name", ["simulate", "load", "settle_calibrate", "pixel_calibrate",
-                                  "wavefront_calibrate", "wavefront_calibrate_zernike",
-                                  "wavefront_calibrate_superpixel"])
+@pytest.mark.parametrize("name", ["settle_calibrate", "pixel_calibrate",
+                                  "wavefront_calibrate", "wavefront_calibrate_superpixel"])
 def test_unported_calibrations_name_their_item(name):
+    """The calibrations still queued raise naming item 9:
+    ``wavefront_calibrate`` too, whose default method is the superpixel
+    one (``simulate``, ``load`` and the Zernike calibration run:
+    ``tests/test_torch_wavefront.py``)."""
     tfs, _ = _rigs()
     with pytest.raises(NotImplementedError, match="item 9"):
         getattr(tfs, name)()
@@ -586,8 +589,8 @@ def test_measure_matches_jax():
     scale = np.nanmax(jholo.img_knm)
     np.testing.assert_allclose(tholo.img_knm / scale, jholo.img_knm / scale, atol=1e-2,
                                equal_nan=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tholo.refine_offset()
+    shifts = tholo.refine_offset(basis=None)
+    assert shifts.shape == (2, 4) and np.all(np.isfinite(shifts))
 
 
 # ----------------------------------------------------------------------
@@ -892,7 +895,7 @@ def test_camera_loop_model_builds_config_4():
 
 @pytest.mark.parametrize("name", [
     "pixel_kernel", "write_calibration", "read_calibration",
-    "wavefront_calibrate_zernike_smooth", "wavefront_calibration_superpixel_window",
+    "wavefront_calibration_superpixel_window",
 ])
 def test_fourier_slm_names_of_item_9_raise(name):
     """FourierSLM methods of the JAX package that the port does not copy yet

@@ -25,6 +25,7 @@ on the same seeded numpy inputs:
   ill-conditioned), flags and iteration counts exact.
 """
 
+import contextlib
 import re
 from pathlib import Path
 
@@ -96,6 +97,18 @@ def _rel(got, want):
 
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+
+@contextlib.contextmanager
+def _numpy_global_state_kept():
+    """Numpy's global generator left as it was (a hologram draws its initial
+    phase from it): tests of other files that run after these in a worker
+    draw from it unseeded."""
+    state = np.random.get_state()
+    try:
+        yield
+    finally:
+        np.random.set_state(state)
 
 
 # ----------------------------------------------------------------------
@@ -344,6 +357,54 @@ def test_transforms_past_the_earlier_spot_limits_match_jax(N, D, P):
     assert got[0].shape == (N,)
     _close_pair(got, JC.nearfield_to_farfield(j["nfr"], j["nfi"], j["coeffs"], j["basis"], N),
                 JNP_RTOL)
+
+
+@pytest.mark.parametrize("amp_kind", ["scalar", "array"])
+@pytest.mark.parametrize("N", [17, 300])
+def test_transforms_at_20_terms_match_jax(N, amp_kind):
+    """f2n, n2f, the fused round trips (recomputed and cached) and the
+    cos/sin cache at D = 20 Zernike terms, past the earlier kernels' 16
+    (the Zernike calibration's hologram through the 5th radial order has
+    21), against the jnp twins."""
+    D, P = 20, 3000
+    x = _transform_inputs(N, P=P, D=D)
+    t = {k: _t(v) for k, v in x.items()}
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    t_amp, j_amp = (1.0, jnp.float32(1.0)) if amp_kind == "scalar" else (t["amp"], j["amp"])
+    _close_pair(TC.farfield_to_nearfield(t["ffr"], t["ffi"], t["coeffs"], t["basis"]),
+                JC.farfield_to_nearfield(j["ffr"], j["ffi"], j["coeffs"], j["basis"], N),
+                JNP_RTOL)
+    _close_pair(TC.nearfield_to_farfield(t["nfr"], t["nfi"], t["coeffs"], t["basis"]),
+                JC.nearfield_to_farfield(j["nfr"], j["nfi"], j["coeffs"], j["basis"], N),
+                JNP_RTOL)
+    _close_pair(TC.fused_iteration(t["ffr"], t["ffi"], t["coeffs"], t["basis"], t_amp),
+                JC._fused_iteration_jnp(j["ffr"], j["ffi"], j["coeffs"], j["basis"], j_amp, N),
+                JNP_RTOL)
+    kc, ks = TC.build_kernel_cache(t["coeffs"], t["basis"])
+    jkc, jks = JC.build_kernel_cache(j["coeffs"], j["basis"])
+    np.testing.assert_allclose(kc, jkc, atol=1e-4)
+    _close_pair(TC.fused_iteration_cached(t["ffr"], t["ffi"], kc, ks, t_amp, N, P),
+                JC._fused_iteration_cached(j["ffr"], j["ffi"], jkc, jks, j_amp, N, P),
+                JNP_RTOL)
+
+
+def test_cache_rule_recomputes_past_the_cached_kernel_spot_limit(monkeypatch):
+    """The cache is on where it fits the budget and ``fused_iter_cached``'s
+    shared memory takes the spots (14,272), and off past that spot count on
+    any device, so that the card runs the recomputing loop there, as the
+    JAX package's dispatcher leaves its kernel (``fused_iter_cached_ok``)."""
+    monkeypatch.setenv("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", "4096")
+    assert TC.fused_iter_cached_ok(14272) and not TC.fused_iter_cached_ok(14273)
+    assert not TC.fused_iter_cached_ok(0)
+    tslm, _ = _slms((16, 16))
+    rng = np.random.default_rng(2)
+    with _numpy_global_state_kept():
+        within = T.CompressedSpotHologram(rng.uniform(-1e-2, 1e-2, (2, 14272)),
+                                          cameraslm=tslm)
+        past = T.CompressedSpotHologram(rng.uniform(-1e-2, 1e-2, (2, 14273)), cameraslm=tslm)
+    assert within._kernel_cache_enabled() and not past._kernel_cache_enabled()
+    past.optimize("WGS-Kim", maxiter=2, verbose=False)
+    assert past.iter == 2 and np.isfinite(past.amp_ff).all()
 
 
 @pytest.mark.parametrize("amp_kind", ["scalar", "array"])
@@ -749,19 +810,22 @@ def test_compressed_constructor_errors_match_jax():
 
 
 class _FakeCameraSLM:
-    """A CameraSLM's shape: an SLM and a camera."""
+    """A CameraSLM's shape: an SLM and a camera, uncalibrated."""
 
     def __init__(self, slm):
         self.slm, self.cam = slm, object()
+        self.calibrations = {}
 
 
 def test_compressed_unported_paths_raise():
-    """Mesh runs (item 11), CameraSLMs and camera feedback (item 9) raise,
-    naming their ROADMAP item; the host-paced loop (callbacks, external
-    feedback, MRAF with zero_factor) and CG, which raised before they were
-    ported, run (``tests/test_torch_hostloop.py`` and
-    ``tests/test_torch_cg.py`` hold them against the JAX package); a
-    ``cuda`` flag that contradicts the device raises ValueError."""
+    """Mesh runs (item 11) raise, naming their ROADMAP item; the host-paced
+    loop (callbacks, external feedback, MRAF with zero_factor) and CG,
+    which raised before they were ported, run (``tests/test_torch_hostloop.py``
+    and ``tests/test_torch_cg.py`` hold them against the JAX package);
+    camera feedback on a bare SLM raises, for want of a camera, as in the
+    JAX package; an uncalibrated CameraSLM takes the hologram without
+    camera positions (a calibrated one: ``tests/test_torch_wavefront.py``);
+    a ``cuda`` flag that contradicts the device raises ValueError."""
     tslm, _ = _slms()
     vectors, _ = _spots("2d")
     holo = T.CompressedSpotHologram(vectors, cameraslm=tslm)
@@ -769,8 +833,9 @@ def test_compressed_unported_paths_raise():
         holo.optimize("WGS-Kim", maxiter=2, verbose=False, **kwargs)
     assert holo.iter == 4
     for kwargs in (dict(feedback="experimental_spot"), dict(stat_groups=["experimental_spot"])):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(RuntimeError, match="cameraslm"):
             holo.optimize("WGS-Kim", maxiter=2, verbose=False, **kwargs)
+    holo.iter = 4
     holo.optimize("CG", maxiter=2, verbose=False)
     assert holo.iter == 6 and np.isfinite(holo.flags["loss_result"])
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -781,8 +846,9 @@ def test_compressed_unported_paths_raise():
     mraf = T.CompressedSpotHologram(vectors, spot_amp=mraf_amp, cameraslm=tslm)
     mraf.optimize("WGS-Kim", maxiter=2, verbose=False, zero_factor=0.1)
     assert mraf.iter == 2 and np.abs(mraf._zero_weights_c).max() > 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.CompressedSpotHologram(vectors, cameraslm=_FakeCameraSLM(tslm))
+    with _numpy_global_state_kept():
+        on_camera = T.CompressedSpotHologram(vectors, cameraslm=_FakeCameraSLM(tslm))
+    assert on_camera.spot_ij is None and on_camera.spot_integration_width_ij is None
     with pytest.raises(ValueError, match="laterally"):
         T.CompressedSpotHologram(vectors * 1e3, cameraslm=_FakeCameraSLM(tslm))
     with pytest.raises(ValueError, match="contradicts"):

@@ -636,7 +636,9 @@ def _rel_pair(got, ref):
 @pytest.mark.parametrize("D, P, N", [(4, 3000, 17), (3, 65536, 256), (2, 8192, 600),
                                      (9, 5000, 100), (5, 4096, 300), (3, 65536, 300),
                                      (3, 65536, 600), (3, 65536, 9000), (3, 65536, 12000),
-                                     (16, 16384, 4096)])
+                                     (16, 16384, 4096), (17, 5000, 100), (17, 3000, 600),
+                                     (21, 65536, 100), (21, 16384, 4096), (28, 4096, 300),
+                                     (28, 8192, 256), (48, 3000, 17)])
 @pytest.mark.parametrize("amp_kind", ["scalar", "array"])
 def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
     """f2n, n2f, fused_iter and fused_iter_cached against their plain
@@ -647,7 +649,10 @@ def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
     12,000 spots, and 4,096 at D = 16: fused_iter runs as f2n with the
     amplitude replacement, then n2f unnormalized), past the shared memory
     of the earlier n2f (12,000 spots at D = 3, 4,096 at D = 16) and with
-    fused_iter_cached past the cos/sin it keeps (600 spots and more). One
+    fused_iter_cached past the cos/sin it keeps (600 spots and more), and
+    past 16 Zernike terms (17, 21 and 28: the wide f2n and n2f, and
+    fused_iter's kernel staging five to seven float4 groups; 48, past the
+    44 terms that kernel stages: fused_iter runs as f2n and n2f). One
     launch each, and one more of f2n and n2f where fused_iter runs as the
     two."""
     from slmsuite_torch.ops import compressed as C
@@ -671,7 +676,7 @@ def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
     assert got[0].shape == (N,)
     assert _rel_pair(got, C._fused_iteration_cached(x["ffr"], x["ffi"], kc, ks, amp, N,
                                                     P)) <= CMP_RTOL
-    two = N > 256
+    two = N > 256 or D > 44
     assert K.LAUNCHES == dict(f2n=1 + two, n2f=1 + two, fused_iter=int(not two),
                               fused_iter_cached=1)
 
@@ -701,7 +706,9 @@ def test_compressed_reductions_repeat_bit_for_bit(cuda):
 @pytest.mark.cuda
 def test_compressed_dispatchers_route_cuda_to_kernels(cuda):
     """The dispatchers launch the kernels for CUDA tensors (never the plain
-    versions), and the wrappers refuse what the kernels do not take."""
+    versions), and the wrappers refuse what the kernels do not take: 17
+    Zernike terms run (the wide kernels), terms past eight spots'
+    coefficients in a block's shared memory raise."""
     from slmsuite_torch.ops import compressed as C
     from slmsuite_torch.ops import cuda_compressed as K
 
@@ -715,9 +722,15 @@ def test_compressed_dispatchers_route_cuda_to_kernels(cuda):
     assert K.LAUNCHES == dict(f2n=1, n2f=1, fused_iter=1, fused_iter_cached=1)
     with pytest.raises(ValueError, match="float32"):
         K.f2n(x["ffr"].double(), x["ffi"], x["coeffs"], x["basis"])
+    got = K.n2f(x["nfr"], x["nfi"], torch.zeros((17, 17), device=cuda),
+                torch.zeros((17, 3000), device=cuda))
+    ref = C._nearfield_to_farfield(x["nfr"], x["nfi"], torch.zeros((17, 17), device=cuda),
+                                   torch.zeros((17, 3000), device=cuda))
+    assert _rel_pair(got, ref) <= CMP_RTOL
+    too_many = K._lib().slm_cmp_max_terms() + 1
     with pytest.raises(ValueError, match="Zernike terms"):
-        K.n2f(x["nfr"], x["nfi"], torch.zeros((17, 17), device=cuda),
-              torch.zeros((17, 3000), device=cuda))
+        K.n2f(x["nfr"], x["nfi"], torch.zeros((too_many, 17), device=cuda),
+              torch.zeros((too_many, 3000), device=cuda))
     with pytest.raises(ValueError, match="pixels"):
         K.fused_iter(x["ffr"], x["ffi"], x["coeffs"], x["basis"], x["amp"][:100])
 
@@ -741,6 +754,71 @@ def test_compressed_hologram_runs_through_kernels(cuda, monkeypatch):
 
     def run():
         holo = CompressedSpotHologram(spots, cameraslm=SimulatedSLM((64, 64)), device=cuda)
+        holo.reset_phase(phi0)
+        K.reset_launch_counts()
+        holo.optimize("WGS-Kim", maxiter=n, verbose=False)
+        amp, w = np.asarray(holo.amp_ff), np.asarray(holo.weights)
+        return {k: v for k, v in K.LAUNCHES.items() if v}, amp / amp.max(), w / w.max()
+
+    for cache_mb, expect in (("4096", dict(fused_iter_cached=n, n2f=1)),
+                             ("0", dict(fused_iter=n, n2f=2, f2n=1))):
+        monkeypatch.setenv("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", cache_mb)
+        launched, amp, w = run()
+        assert launched == expect, (cache_mb, launched)
+        for name in ("farfield_to_nearfield", "nearfield_to_farfield", "fused_iteration",
+                     "fused_iteration_cached"):
+            monkeypatch.setattr(C, name, getattr(C, "_" + name))
+        plain_launched, plain_amp, plain_w = run()
+        monkeypatch.undo()
+        assert not plain_launched
+        assert np.abs(amp - plain_amp).max() < 2e-3 and np.abs(w - plain_w).max() < 2e-3
+
+
+@pytest.mark.cuda
+def test_compressed_hologram_past_the_cached_spot_limit_recomputes(cuda, monkeypatch):
+    """15,000 spots on a 64^2 SimulatedSLM with the cache on (it fits the
+    budget): past fused_iter_cached's 14,272 spots the hologram takes the
+    recomputing loop, whose fused_iter runs as f2n and n2f (past 256
+    spots), and runs without raising; its amplitudes are finite."""
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    monkeypatch.setenv("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", "4096")
+    rng = np.random.default_rng(9)
+    spots = rng.uniform(-2e-2, 2e-2, (2, 15000))
+    holo = CompressedSpotHologram(spots, cameraslm=SimulatedSLM((64, 64)), device=cuda)
+    assert not holo._kernel_cache_enabled()
+    holo.reset_phase(rng.uniform(-np.pi, np.pi, (64, 64)))
+    K.reset_launch_counts()
+    n = 3
+    holo.optimize("WGS-Kim", maxiter=n, verbose=False)
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == dict(f2n=n + 1, n2f=n + 2)
+    assert np.isfinite(np.asarray(holo.amp_ff)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [17, 21])
+def test_compressed_hologram_past_16_terms_runs_through_kernels(cuda, monkeypatch, D):
+    """A CompressedSpotHologram with D Zernike terms (ANSI 0 .. D - 1) on a
+    64^2 SimulatedSLM, cached and recomputing: each loop launches its
+    kernels (the wide f2n and n2f past 16 terms) and agrees with the plain
+    run on the card (normalized amp_ff and weights within 2e-3)."""
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    rng = np.random.default_rng(10)
+    spots = np.zeros((D, 9))
+    spots[1:3] = rng.uniform(-40, 40, (2, 9))
+    spots[3:] = rng.uniform(-0.5, 0.5, (D - 3, 9))
+    phi0 = rng.uniform(-np.pi, np.pi, (64, 64))
+    n = 6
+
+    def run():
+        holo = CompressedSpotHologram(spots, basis=np.arange(D),
+                                      cameraslm=SimulatedSLM((64, 64)), device=cuda)
         holo.reset_phase(phi0)
         K.reset_launch_counts()
         holo.optimize("WGS-Kim", maxiter=n, verbose=False)

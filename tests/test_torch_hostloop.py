@@ -636,11 +636,12 @@ def test_compressed_host_loop_matches_jax(case):
 
 
 def test_compressed_camera_feedback_names_item_9():
-    """Camera feedback on a compressed hologram needs a CameraSLM, which
-    the port refuses for compressed holograms (item 9); a bare SLM's
-    hologram raises before the loop, naming it."""
+    """Camera feedback on a compressed hologram needs a camera: with a bare
+    SLM it raises at the first measurement (item 9 ported it for
+    CameraSLMs: ``tests/test_torch_wavefront.py``): the feedback at the
+    first weight update (iteration 1), the stat group at once."""
     t, _ = _compressed_pair()
     for kwargs in (dict(feedback="experimental_spot"), dict(stat_groups=["experimental_spot"])):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(RuntimeError, match="cameraslm"):
             t.optimize("WGS-Kim", maxiter=2, verbose=False, **kwargs)
-    assert t.iter == 0
+        assert t.iter == 1
