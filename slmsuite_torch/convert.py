@@ -98,11 +98,14 @@ def rig_from_jax(cameraslm, device=None):
     """
     The port's :class:`~slmsuite_torch.hardware.cameraslms.FourierSLM` from
     a JAX-package ``FourierSLM`` on a ``SimulatedSLM`` and a
-    ``SimulatedCamera``: geometry, bit depths, the source dictionary, the
-    display, the camera's affine, exposure, gain, noise, averaging and HDR,
-    and every calibration dict (``"fourier"``, ``"wavefront_zernike"``, ...,
-    so that a resumed calibration starts from the same state), all copied
-    as numpy.
+    ``SimulatedCamera``: geometry, bit depths, the source dictionary (the
+    measured ``amplitude``, ``phase`` and ``r2`` beside the simulation's
+    keys), the display, the camera's affine, exposure, gain, noise,
+    averaging and HDR, and every calibration dict (``"fourier"``,
+    ``"wavefront_zernike"``, ``"wavefront_superpixel"``, ``"settle"``,
+    ``"pixel"``, ..., so that a resumed calibration starts from the same
+    state and stored raw data processes to the same correction), all
+    copied as numpy.
     """
     from slmsuite_torch.hardware.cameras.simulated import SimulatedCamera
     from slmsuite_torch.hardware.cameraslms import FourierSLM

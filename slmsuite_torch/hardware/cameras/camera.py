@@ -2,18 +2,22 @@ r"""
 Abstract camera interface (the port's copy of
 :mod:`slmsuite_tpu.hardware.cameras.camera`, numpy only): shape, bit
 depth and dtype, the orientation transform, exposure, single, averaged
-and HDR captures with retries, and the buffer flush. ``autoexposure``,
-``autofocus``, ``plot`` and the live viewer are not copied yet and raise
-:class:`NotImplementedError` (ROADMAP.md queue 1, item 9).
+and HDR captures with retries, the buffer flush, and the exposure and
+focus searches (:meth:`Camera.autoexposure`, :meth:`Camera.autofocus`,
+which can take an SLM as its focus actuator). ``plot`` and the live viewer
+are not copied yet (ROADMAP.md queue 1, item 12).
 """
 
+import time
 import warnings
 from abc import ABC, abstractmethod
 
 import numpy as np
+from scipy.optimize import curve_fit
 
 from slmsuite_torch.hardware import _Picklable
 from slmsuite_torch.holography import analysis
+from slmsuite_torch.holography.analysis.fitfunctions import lorentzian
 from slmsuite_torch.holography.toolbox import format_shape
 from slmsuite_torch.misc.math import REAL_TYPES
 
@@ -431,17 +435,166 @@ class Camera(_Picklable, ABC):
         return img
 
     # ------------------------------------------------------------------
-    # Not copied yet.
+    # Autoexposure and autofocus.
     # ------------------------------------------------------------------
 
-    def autoexposure(self, *args, **kwargs):
-        """Search for the exposure that fills the well depth."""
-        raise NotImplementedError(
-            "Camera.autoexposure is not ported yet (ROADMAP.md queue 1, item 9)."
-        )
+    def autoexposure(
+        self,
+        set_fraction=0.5,
+        tol=0.05,
+        exposure_bounds_s=None,
+        window=None,
+        timeout_s=5,
+        verbose=True,
+    ):
+        """
+        Proportional exposure search (steps clipped to 0.5x-2x) until the
+        image maximum in ``window`` (``(x, w, y, h)``, centered; the whole
+        frame by default) is half the dynamic range within ``tol``, then
+        scaled to ``set_fraction`` of it. Returns the exposure in seconds.
+        """
+        if exposure_bounds_s is None:
+            exposure_bounds_s = self.exposure_bounds_s or (0, np.inf)
 
-    def autofocus(self, *args, **kwargs):
-        """Scan a focus stage for the sharpest image."""
-        raise NotImplementedError(
-            "Camera.autofocus is not ported yet (ROADMAP.md queue 1, item 9)."
+        if window is None:
+            wxi, wxf, wyi, wyf = 0, self.shape[1], 0, self.shape[0]
+        else:
+            wxi = int(window[0] - window[1] / 2)
+            wxf = int(window[0] + window[1] / 2)
+            wyi = int(window[2] - window[3] / 2)
+            wyf = int(window[2] + window[3] / 2)
+
+        set_val = 0.5 * self.bitresolution
+        exp = self.get_exposure()
+        self.flush()
+        img = self.get_image()
+        im_max = np.amax(img[wyi:wyf, wxi:wxf])
+
+        err = np.abs(im_max - set_val) / self.bitresolution
+        start = time.perf_counter()
+
+        while err > tol and time.perf_counter() - start < timeout_s:
+            exp = exp / np.amax([0.5, np.amin([(im_max / set_val), 2])])
+            exp_desired = exp
+            exp = np.clip(exp, exposure_bounds_s[0], exposure_bounds_s[1])
+            if exp_desired != exp:
+                raise RuntimeError(
+                    f"autoexposure has railed (exposure: {exp_desired}, "
+                    f"bounds: {exposure_bounds_s})."
+                )
+
+            self.set_exposure(exp)
+            self.flush()
+            img = self.get_image()
+            im_max = np.amax(img[wyi:wyf, wxi:wxf])
+            err = np.abs(im_max - set_val) / self.bitresolution
+
+            if verbose:
+                print(f"Autoexposure: exposure = {exp:<.2e} s, image_max = {im_max}")
+
+        if set_fraction != 0.5:
+            exp = exp * (2 * set_fraction)
+            self.set_exposure(exp)
+        return exp
+
+    @staticmethod
+    def _autofocus_metric(img, plot=False):
+        """Fourier contrast: the sum of the max-normalized DFT amplitudes
+        (a host FFT of the camera frame, as in the JAX package).
+        ``plot=True`` is not ported (ROADMAP.md queue 1, item 12)."""
+        if plot:
+            raise NotImplementedError(
+                "Camera._autofocus_metric(plot=True): the plots are not ported yet "
+                "(ROADMAP.md queue 1, item 12)."
+            )
+        dft_amp = np.abs(np.fft.fftshift(np.fft.fft2(img.astype(float))))
+        return np.sum(dft_amp / np.amax(dft_amp))
+
+    def autofocus(self, set_z, get_z=0, range_z=2, metric=None, plot=False, verbose=False):
+        """
+        Sweep a focus actuator ``set_z`` over ``z`` (11 points in
+        ``get_z`` +- ``range_z``, or the offsets ``range_z``), score each
+        frame by ``metric`` (the Fourier contrast by default), fit a
+        Lorentzian to the scores and move to its peak; returns the optimal
+        ``z``. An SLM as ``set_z`` applies Zernike defocus through
+        ``source["phase"]``, so that the optimum stays in its correction.
+        ``plot=True`` is not ported (ROADMAP.md queue 1, item 12).
+        """
+        from slmsuite_torch.holography.toolbox.phase import zernike
+
+        if plot:
+            raise NotImplementedError(
+                "Camera.autofocus(plot=True): the plots are not ported yet "
+                "(ROADMAP.md queue 1, item 12)."
+            )
+
+        if hasattr(set_z, "set_phase"):
+            slm = set_z
+            base_phase = slm.phase.copy()
+            base_correction = slm.source.get("phase", np.zeros_like(base_phase))
+            base_phase = base_phase - base_correction
+
+            def slm_set_z(z_val):
+                slm.source["phase"] = base_correction + zernike(
+                    slm, index=4, weight=z_val, use_mask=False
+                )
+                slm.set_phase(base_phase, settle=True)
+
+            set_z = slm_set_z
+
+        if not callable(set_z):
+            raise ValueError("set_z must be a function or SLM.")
+
+        z_base = get_z() if callable(get_z) else get_z
+        z_list = (
+            np.linspace(-range_z, range_z, 11, endpoint=True)
+            if np.isscalar(range_z)
+            else np.asarray(range_z, dtype=float)
         )
+        z_list = np.sort(z_list + z_base)
+
+        if metric is None:
+            metric = Camera._autofocus_metric
+
+        counts = np.full(len(z_list), np.nan)
+        for i, z in enumerate(z_list):
+            try:
+                if verbose:
+                    print(f"Moving to z = {z:<.2f}...", end="\r")
+                set_z(z)
+                self.flush()
+                counts[i] = metric(self.get_image())
+            except Exception:
+                pass
+
+        if np.all(np.isnan(counts)):
+            try:
+                set_z(z_base)
+            except Exception:
+                pass
+            raise RuntimeError("Autofocus failed; no valid images captured.")
+
+        best = int(np.nanargmax(counts))
+        dz = np.mean(np.diff(z_list))
+        guess = [
+            z_list[best],
+            np.nanmax(counts) - np.nanmin(counts),
+            np.nanmin(counts),
+            z_list[-1] - z_list[0],
+        ]
+        bounds = (
+            [z_list[0], 0, 0, dz],
+            [z_list[-1], (np.nanmax(counts) - np.nanmin(counts)) * 2 + 1e-12,
+             np.nanmax(counts) + 1e-12, np.inf],
+        )
+        try:
+            valid = ~np.isnan(counts)
+            popt, _ = curve_fit(
+                lorentzian, z_list[valid], counts[valid], p0=guess, bounds=bounds
+            )
+            z_opt = popt[0]
+        except RuntimeError:
+            z_opt = z_list[best]
+
+        set_z(z_opt)
+        return z_opt

@@ -13,26 +13,42 @@ clones into simulated hardware (:meth:`FourierSLM.simulate`, and
 (:meth:`FourierSLM.wavefront_calibrate_zernike`) projects a
 :class:`~slmsuite_torch.holography.algorithms.CompressedSpotHologram` at
 the points of :meth:`FourierSLM.wavefront_calibration_points` and sweeps
-each Zernike term per spot. The superpixel wavefront, pixel and settle
-calibrations and the plots are not copied yet and raise
-:class:`NotImplementedError` (ROADMAP.md queue 1, items 9 and 12).
+each Zernike term per spot. The superpixel wavefront calibration
+(:meth:`FourierSLM.wavefront_calibrate_superpixel`, the default method)
+interferes each superpixel of the SLM with a reference superpixel at a
+camera point; :meth:`FourierSLM.wavefront_calibration_superpixel_process`
+turns its raw data into ``slm.source["phase"]`` and ``["amplitude"]``,
+with the image operations on the rig's device
+(:mod:`slmsuite_torch.holography.analysis._cv`, no OpenCV). The settle and
+pixel calibrations are here too. The plots raise
+:class:`NotImplementedError` (ROADMAP.md queue 1, item 12).
 """
 
 import copy
+import itertools
 import os
+import time
 import warnings
 
 import numpy as np
+import torch
 from scipy import optimize
 
-from slmsuite_torch import __version__
+from slmsuite_torch import __version__, resolve_device
 from slmsuite_torch.hardware import _Picklable
 from slmsuite_torch.hardware.cameras.simulated import SimulatedCamera
 from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
 from slmsuite_torch.holography import analysis, toolbox
 from slmsuite_torch.holography.algorithms import CompressedSpotHologram, SpotHologram
+from slmsuite_torch.holography.analysis import _cv
+from slmsuite_torch.holography.analysis.fitfunctions import _sinc2d_centered, _sinc2d_nomod, cos
 from slmsuite_torch.holography.toolbox import format_2vectors, format_vectors
-from slmsuite_torch.holography.toolbox.phase import _zernike_indices_parse, zernike
+from slmsuite_torch.holography.toolbox.phase import (
+    _zernike_indices_parse,
+    binary,
+    blaze,
+    zernike,
+)
 from slmsuite_torch.misc.files import generate_path, latest_path, load_h5, save_h5
 from slmsuite_torch.misc.math import REAL_TYPES
 
@@ -65,16 +81,20 @@ class CameraSLM(_Picklable):
         finally:
             self.slm.close()
 
+    def plot(self, phase=None, image=None, title="", **kwargs):
+        """The SLM phase beside the camera image (not ported yet)."""
+        _no_plots("CameraSLM.plot")
 
-def _not_ported(name):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"FourierSLM.{name} is not ported yet (ROADMAP.md queue 1, item 9)."
-        )
 
-    method.__name__ = name
-    method.__doc__ = f"``{name}`` of the JAX package; not ported yet."
-    return method
+class NearfieldSLM(CameraSLM):
+    """
+    **(NotImplemented)** An SLM imaged (not Fourier-transformed) onto a
+    camera: a stub that raises, as in the JAX package.
+    """
+
+    def __init__(self, cam, slm, mag=None):
+        super().__init__(cam, slm, 1 if mag is None else mag)
+        raise NotImplementedError()
 
 
 def _no_plots(where):
@@ -92,6 +112,172 @@ def _progress(iterable, desc):
     return tqdm(iterable, desc=desc, position=0, leave=False)
 
 
+def _blaze_offset(grid, vector, offset=0):
+    """A blaze plus a constant phase offset (the superpixel imprint)."""
+    return blaze(grid=grid, vector=vector) + offset
+
+
+def _build_superpixel_schedule(slm_supershape, exclude_superpixels,
+                               reference_superpixels, phase_steps):
+    """
+    The conflict-free superpixel measurement schedule: ``(num_points,
+    num_measurements)`` global superpixel indices, ``-1`` for an idle
+    slot. Each row cycles through every active superpixel but that row's
+    reference.
+
+    The rotation is offset by the reference's position in the active
+    list, as the JAX package does (upstream takes its global index, which
+    agrees only when nothing is excluded: with exclusion margins it skips
+    an interior superpixel and schedules the reference itself).
+    """
+    num_superpixels = int(np.prod(slm_supershape))
+    num_points = len(reference_superpixels)
+    index_image = np.reshape(np.arange(num_superpixels, dtype=int), slm_supershape)
+    active_superpixels = index_image[~exclude_superpixels].ravel()
+    num_active_superpixels = len(active_superpixels)
+    num_measurements = num_active_superpixels + (
+        (2 * num_points - 2) if phase_steps is not None else 0
+    )
+
+    ref_active = np.searchsorted(active_superpixels, reference_superpixels)
+    scheduling = np.zeros((num_points, num_measurements), dtype=int)
+    scheduling[:, : num_active_superpixels - 1] = np.mod(
+        np.repeat(
+            np.arange(num_active_superpixels - 1, dtype=int)[np.newaxis, :] + 1,
+            num_points,
+            axis=0,
+        )
+        + np.repeat(ref_active[:, np.newaxis], num_active_superpixels - 1, axis=1),
+        num_active_superpixels,
+    )
+    scheduling = active_superpixels[scheduling]
+    scheduling[:, num_active_superpixels - 1:] = -1
+
+    if phase_steps is not None:
+        # Evict the slots that would overwrite another point's reference;
+        # reseat the displaced targets in the padding columns.
+        for i in range(num_points):
+            reference_index = reference_superpixels[i]
+            conflicts = scheduling == reference_index
+            conflict_indices = np.array(np.where(conflicts))
+            for j in range(int(np.sum(conflicts))):
+                c_index = conflict_indices[:, j]
+                displaced = scheduling[i, c_index[1]]
+                scheduling[i, c_index[1]] = -1
+                if displaced != -1:
+                    for k in range(num_active_superpixels - 1, num_measurements + 1):
+                        if k == num_measurements:
+                            raise RuntimeError("Calibration scheduling failed.")
+                        if (
+                            scheduling[i, k] == -1
+                            and not np.any(scheduling[:, k] == reference_index)
+                            and not np.any(scheduling[:, k] == displaced)
+                        ):
+                            scheduling[i, k] = displaced
+                            break
+
+    empty = np.all(scheduling == -1, axis=0)
+    return scheduling[:, ~empty]
+
+
+def _patch_from_neighbors(matrix, yx):
+    """Replace ``matrix[yx]`` in place by the mean of its finite
+    8-neighbors (0 when none): the reference superpixel's own reading is
+    undefined or contaminated by construction."""
+    y, x = yx
+    window = matrix[max(y - 1, 0):y + 2, max(x - 1, 0):x + 2].astype(float).copy()
+    window[y - max(y - 1, 0), x - max(x - 1, 0)] = np.nan  # The center.
+    finite = np.isfinite(window)
+    matrix[y, x] = window[finite].sum() / max(finite.sum(), 1)
+
+
+def _detect_noise_floor(power, normalization, untrusted):
+    """
+    A uniform noise floor in the untrusted superpixels' powers: when they
+    cluster tightly (median within half a global std of their minimum)
+    below the normalization's minimum, that minimum is camera background,
+    not signal. Returns the floor or None.
+    """
+    if not untrusted.any():
+        return None
+    below = power[untrusted]
+    if not np.any(np.isfinite(below)):
+        return None
+    floor = np.nanmin(below)
+    spread = np.nanstd(power)
+    if (
+        spread > 0
+        and (np.nanmedian(below) - floor) / spread < 0.5
+        and floor < np.nanmin(normalization)
+    ):
+        return floor
+    return None
+
+
+def _propagate_affine_phase(kx, ky, offset, trusted, ref, scale):
+    """
+    Fill the untrusted superpixels' ``(kx, ky, offset)`` by breadth-first
+    propagation from the trusted set.
+
+    Each trusted fringe fit is an affine phase model anchored at the
+    reference: ``phi(n) = offset + d(n) . k`` with ``d(n) = scale * (n -
+    ref)`` (``scale = 2pi * pitch * superpixel_size`` per axis). Untrusted
+    superpixels resolve in layers: the gradient is the mean of the
+    resolved 4-neighbors' gradients, the offset the circular mean of the
+    neighbors' models at this superpixel, re-anchored with that gradient.
+    Untrusted islands with no trusted neighbor stay zero. Returns the
+    filled ``(kx, ky, offset)`` (the inputs are not modified).
+    """
+    kx = np.array(kx, dtype=float)
+    ky = np.array(ky, dtype=float)
+    offset = np.array(offset, dtype=float)
+    resolved = np.array(trusted, dtype=bool)
+
+    NY, NX = kx.shape
+    dx = scale[0] * (np.arange(NX)[None, :] - ref[1])
+    dy = scale[1] * (np.arange(NY)[:, None] - ref[0])
+    dx, dy = np.broadcast_arrays(dx, dy)
+
+    def shifted(matrix, ay, ax, fill=0.0):
+        out = np.full_like(np.asarray(matrix, float), fill)
+        src_y = slice(max(ay, 0), NY + min(ay, 0))
+        src_x = slice(max(ax, 0), NX + min(ax, 0))
+        dst_y = slice(max(-ay, 0), NY + min(-ay, 0))
+        dst_x = slice(max(-ax, 0), NX + min(-ax, 0))
+        out[dst_y, dst_x] = matrix[src_y, src_x]
+        return out
+
+    while not resolved.all():
+        count = np.zeros_like(kx)
+        kx_sum = np.zeros_like(kx)
+        ky_sum = np.zeros_like(ky)
+        phasor = np.zeros(kx.shape, dtype=complex)
+
+        for ay, ax in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+            ok = shifted(resolved, ay, ax, fill=False).astype(bool)
+            count += ok
+            kx_nb = shifted(kx, ay, ax)
+            ky_nb = shifted(ky, ay, ax)
+            kx_sum += np.where(ok, kx_nb, 0.0)
+            ky_sum += np.where(ok, ky_nb, 0.0)
+            # The neighbor's model at this superpixel.
+            predicted = shifted(offset, ay, ax) + dx * kx_nb + dy * ky_nb
+            phasor += np.where(ok, np.exp(1j * predicted), 0)
+
+        frontier = ~resolved & (count > 0)
+        if not frontier.any():
+            break
+
+        n = np.maximum(count, 1)
+        kx = np.where(frontier, kx_sum / n, kx)
+        ky = np.where(frontier, ky_sum / n, ky)
+        mean_phase = np.mod(np.angle(phasor), 2 * np.pi)
+        offset = np.where(frontier, mean_phase - (dx * kx + dy * ky), offset)
+        resolved |= frontier
+
+    return kx, ky, offset
+
+
 class FourierSLM(CameraSLM):
     r"""
     An SLM and a camera separated by a Fourier transform, with the
@@ -100,21 +286,6 @@ class FourierSLM(CameraSLM):
 
     _pickle = ["name", "cam", "slm", "mag"]
     _pickle_data = ["calibrations"]
-
-    settle_calibrate = _not_ported("settle_calibrate")
-    settle_calibration_process = _not_ported("settle_calibration_process")
-    pixel_calibrate = _not_ported("pixel_calibrate")
-    pixel_calibration_process = _not_ported("pixel_calibration_process")
-    wavefront_calibrate_superpixel = _not_ported("wavefront_calibrate_superpixel")
-    wavefront_calibration_superpixel_process = _not_ported(
-        "wavefront_calibration_superpixel_process"
-    )
-    wavefront_calibration_superpixel_window = _not_ported(
-        "wavefront_calibration_superpixel_window"
-    )
-    pixel_kernel = _not_ported("pixel_kernel")
-    write_calibration = _not_ported("write_calibration")
-    read_calibration = _not_ported("read_calibration")
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -280,8 +451,263 @@ class FourierSLM(CameraSLM):
             )
         return file_path
 
+    def write_calibration(self, calibration_type, path, name):
+        """The deprecated alias of :meth:`save_calibration` (it warns)."""
+        warnings.warn("write_calibration is deprecated; use save_calibration.")
+        self.save_calibration(calibration_type, path, name)
+
+    def read_calibration(self, calibration_type, file_path=None):
+        """The deprecated alias of :meth:`load_calibration` (it warns)."""
+        warnings.warn("read_calibration is deprecated; use load_calibration.")
+        self.load_calibration(calibration_type, file_path)
+
     def _get_calibration_metadata(self):
         return self.pickle(attributes=False, metadata=True)
+
+    # ------------------------------------------------------------------
+    # Settle calibration.
+    # ------------------------------------------------------------------
+
+    def settle_calibrate(self, vector=(0.005, 0.005), size=None, times=None, settle_time_s=1):
+        r"""
+        The SLM's response in time: clear the SLM, wait ``settle_time_s``,
+        write a blaze toward ``vector`` and integrate its 1st-order spot
+        (``size`` pixels square, 16 spot radii by default) after each
+        delay of ``times`` (21 in [0, 1] s by default, or a count), then
+        :meth:`settle_calibration_process`. Returns the ``"settle"``
+        calibration.
+        """
+        point = self.kxyslm_to_ijcam(vector)
+        pattern = blaze(grid=self.slm, vector=vector)
+
+        if size is None:
+            size = 16 * toolbox.convert_radius(
+                self.slm.get_spot_radius_kxy(), to_units="ij", hardware=self
+            )
+        size = int(size)
+
+        if times is None:
+            times = 21
+        if np.isscalar(times):
+            times = np.linspace(0, 1, int(times), endpoint=True)
+        times = np.ravel(times)
+
+        if settle_time_s is None:
+            settle_time_s = self.slm.settle_time_s
+        settle_time_s = float(settle_time_s)
+
+        results = []
+        for t in _progress(times, "settle_calibrate"):
+            self.cam.flush()
+            self.slm.set_phase(None, settle=False, phase_correct=False)
+            time.sleep(settle_time_s)
+            self.slm.set_phase(pattern, settle=False, phase_correct=False)
+            time.sleep(t)
+            image = self.cam.get_image()
+            results.append(analysis.take(image, point, size, centered=True, integrate=True))
+
+        self.calibrations["settle"] = {"times": times, "data": np.array(results)}
+        self.calibrations["settle"].update(self._get_calibration_metadata())
+        self.settle_calibration_process(plot=False)
+        return self.calibrations["settle"]
+
+    def settle_calibration_process(self, plot=True):
+        r"""
+        Fit a step and an exponential to the settle data: the suggested
+        settle time is the communication time plus 4 times the 1/e
+        relaxation time. ``plot=True`` is not ported (ROADMAP.md queue 1,
+        item 12). Returns the fitted times.
+        """
+        if plot:
+            _no_plots("settle_calibration_process(plot=True)")
+        times = np.asarray(self.calibrations["settle"]["times"])
+        results = np.squeeze(np.asarray(self.calibrations["settle"]["data"]))
+
+        def exponential_jump(x, x0, a, b, c):
+            return (c - a * np.exp(-(x - x0) / b)) * np.heaviside(x - x0, 0)
+
+        guess = (np.max(times) / 2, np.max(results), np.max(times), np.max(results))
+        params, _ = optimize.curve_fit(
+            exponential_jump, times, results, p0=guess, maxfev=10000
+        )
+        x0, a, b, c = params
+
+        processed = {
+            "settle_time": x0 + 4 * b,
+            "relax_time": b,
+            "communication_time": x0,
+        }
+        self.calibrations["settle"].update(processed)
+        return processed
+
+    # ------------------------------------------------------------------
+    # Pixel calibration.
+    # ------------------------------------------------------------------
+
+    def pixel_calibrate(self, levels=2, periods=2, orders=3, window=None, field_period=10):
+        r"""
+        The pixels' crosstalk and phase response through binary gratings:
+        for each direction, period, level ``a`` and level ``b``, write the
+        raw integer grating (past ``phase2gray``; inside ``window`` on a
+        field grating of ``field_period``, when given) and integrate every
+        diffraction order of ``orders`` into a ``(2, P, N, N, M)`` array.
+        :meth:`pixel_calibration_process` fits the phase response.
+        """
+        if np.isscalar(levels):
+            if levels < 1:
+                levels = 1
+            levels = 2 ** (np.ceil(np.log2(levels)))
+            if levels > self.slm.bitresolution:
+                warnings.warn("Requested more levels than available. Rounding down.")
+                levels = self.slm.bitresolution
+            levels = np.arange(levels) * (self.slm.bitresolution / levels)
+        levels = np.mod(levels, self.slm.bitresolution).astype(self.slm.display.dtype)
+        N = len(levels)
+
+        if np.isscalar(periods):
+            raise NotImplementedError("Pass an explicit list of even periods.")
+        periods = 2 * (np.array(periods).astype(int) // 2)
+        P = len(periods)
+        if len(np.unique(periods)) != len(periods):
+            raise RuntimeError(f"Repeated periods in {periods}")
+        if np.any(periods <= 0):
+            raise ValueError("period should not be negative.")
+
+        if np.isscalar(orders):
+            orders = np.arange(-int(orders), int(orders) + 1)
+        orders = np.asarray(orders).astype(int)
+        M = len(orders)
+        if 1 not in orders:
+            raise ValueError("1st order must be included.")
+
+        data = np.zeros((2, P, N, N, M))
+
+        # Grating vectors along x, then y.
+        vectors_freq = np.zeros((2, 2 * P))
+        vectors_freq[0, :P] = vectors_freq[1, P:] = np.reciprocal(periods.astype(float))
+        vectors_kxy = toolbox.convert_vector(vectors_freq, "freq", "norm", hardware=self)
+
+        field_freq = np.zeros((2, 2))
+        field_freq[0, 0] = field_freq[1, 1] = 1 / float(field_period)
+        field_kxy = toolbox.convert_vector(field_freq, "freq", "norm", hardware=self)
+        field_hi, field_lo = np.array([self.slm.bitresolution / 2, 0]).astype(
+            self.slm.display.dtype
+        )
+        field_ij = toolbox.convert_vector(field_freq, "freq", "ij", hardware=self)
+
+        vectors_ij = self.kxyslm_to_ijcam(vectors_kxy)
+        center = self.kxyslm_to_ijcam((0, 0))
+        dorder = vectors_ij - center
+        dfield = field_ij - center
+        order_ij = [center + orders * dorder[:, [i]] for i in range(2 * P)]
+
+        # Absolute offsets: under a flipped or rotated affine the signed
+        # maximum collapses to ~0.
+        integration_size = int(
+            np.ceil(np.min([
+                np.min(np.max(np.abs(dorder), axis=1)),
+                np.min(np.max(np.abs(dfield), axis=1)),
+            ]))
+        )
+
+        sweep = itertools.product((0, 1), range(P), range(N), range(N))
+        for i, j, k, l in _progress(list(sweep), "pixel_calibrate"):
+            vector = vectors_kxy[:, i * P + j]
+            if window is None:
+                phase = binary(self.slm, vector=vector, a=levels[k], b=levels[l])
+            else:
+                phase = binary(grid=self.slm, vector=field_kxy[:, i], a=field_hi, b=field_lo)
+                toolbox.imprint(
+                    phase, window=window, function=binary, grid=self.slm,
+                    vector=vector, a=levels[k], b=levels[l],
+                )
+
+            # The raw integer write skips phase2gray.
+            self.slm.set_phase(
+                phase.astype(self.slm.display.dtype), phase_correct=False, settle=True
+            )
+            data[i, j, k, l, :] = analysis.take(
+                images=self.cam.get_image(),
+                vectors=order_ij[i * P + j],
+                size=integration_size,
+                integrate=True,
+            ).astype(float)
+
+        self.calibrations["pixel"] = {
+            "levels": levels,
+            "periods": periods,
+            "orders": orders,
+            "data": data,
+        }
+        self.calibrations["pixel"].update(self._get_calibration_metadata())
+        return self.calibrations["pixel"]
+
+    @staticmethod
+    def pixel_kernel(x, a1_pix=0.1, a2_pix=0.1, n1=1, n2=1):
+        r"""
+        The asymmetric-exponential pixel-crosstalk kernel
+        :math:`K(x) = \exp(-|x/\alpha|^{n})`, with its own
+        :math:`(\alpha, n)` on each side, normalized to unit sum.
+        """
+        x = np.asarray(x, dtype=float)
+        kernel = np.where(
+            x >= 0,
+            np.exp(-np.power(np.abs(x) / a1_pix, n1)),
+            np.exp(-np.power(np.abs(x) / a2_pix, n2)),
+        )
+        kernel[len(kernel) // 2] = 1
+        return kernel / np.sum(kernel)
+
+    def pixel_calibration_process(self, fit=True, plot=False):
+        r"""
+        Process the raw pixel-calibration data. With ``fit``, the SLM's
+        phase response :math:`\phi(\ell)` at the measured levels from the
+        binary grating's first-order power :math:`P_{ab} \propto
+        \sin^2((\phi_a - \phi_b) / 2)`, by a joint least-squares over the
+        ``(N, N)`` power matrix (averaged over directions, periods and the
+        +-1 orders); stored as ``calibrations["pixel"]["phase_fit"]``
+        (``levels``, ``phase`` with ``phase[0] = 0``, ``amplitude``,
+        ``rmse``). ``plot=True`` is not ported (ROADMAP.md queue 1, item
+        12). Returns the calibration.
+        """
+        if plot:
+            _no_plots("pixel_calibration_process(plot=True)")
+        cal = self.calibrations["pixel"]
+
+        if fit:
+            data = np.asarray(cal["data"])  # (2, P, N, N, M)
+            orders = np.asarray(cal["orders"])
+            picks = [int(np.where(orders == 1)[0][0])]
+            if np.any(orders == -1):
+                picks.append(int(np.where(orders == -1)[0][0]))
+            power = data[:, :, :, :, picks].mean(axis=(0, 1, -1))  # (N, N)
+
+            # Symmetrize and remove the zero-contrast (diagonal) baseline.
+            power = 0.5 * (power + power.T)
+            power = np.clip(power - np.median(np.diag(power)), 0, None)
+
+            levels = np.asarray(cal["levels"], dtype=float)
+            # Start at the ideal linear response of the bit depth.
+            phase_init = 2 * np.pi * levels / self.slm.bitresolution
+            scale_init = max(float(power.max()), 1e-12)
+
+            def residuals(params):
+                phase = np.concatenate([[0.0], params[:-1]])
+                scale = np.exp(params[-1])
+                model = scale * np.square(np.sin(0.5 * (phase[:, None] - phase[None, :])))
+                return (model - power).ravel()
+
+            solution = optimize.least_squares(
+                residuals,
+                np.concatenate([phase_init[1:] - phase_init[0], [np.log(scale_init)]]),
+            )
+            cal["phase_fit"] = {
+                "levels": levels,
+                "phase": np.concatenate([[0.0], solution.x[:-1]]),
+                "amplitude": float(np.exp(solution.x[-1])),
+                "rmse": float(np.sqrt(np.mean(np.square(solution.fun)))),
+            }
+        return cal
 
     # ------------------------------------------------------------------
     # Fourier calibration.
@@ -1014,3 +1440,727 @@ class FourierSLM(CameraSLM):
                 f"points) or pass a smaller field_exclusion."
             )
         return calibration_points
+
+    # ------------------------------------------------------------------
+    # Superpixel wavefront calibration.
+    # ------------------------------------------------------------------
+
+    def wavefront_calibration_superpixel_window(self, superpixel_size):
+        """
+        The interference window (camera pixels) of a superpixel of
+        ``superpixel_size`` SLM pixels: its farfield spot size, rounded,
+        times the window multiplier.
+        """
+        interference_size = np.rint(
+            np.array(self.get_farfield_spot_size(superpixel_size * self.slm.pitch, basis="ij"))
+        ).astype(int)
+        return self._wavefront_calibration_window_multiplier * interference_size
+
+    def _wavefront_calibration_superpixel_plot_raw(self, index=0, r2_threshold=0,
+                                                   phase_detail=True):
+        """The raw-data plot of the superpixel calibration (not ported yet)."""
+        _no_plots("_wavefront_calibration_superpixel_plot_raw")
+
+    def wavefront_calibrate_superpixel(
+        self,
+        calibration_points=None,
+        superpixel_size=50,
+        reference_superpixels=None,
+        exclude_superpixels=(0, 0),
+        test_index=None,
+        field_point=(0, 0),
+        field_point_units="kxy",
+        phase_steps=1,
+        fresh_calibration=True,
+        measure_background=False,
+        corrected_amplitude=False,
+        plot=0,
+    ):
+        r"""
+        Superpixel wavefront calibration (Čižmár's interference method,
+        doi:10.1038/nphoton.2010.85): a reference superpixel and each test
+        superpixel blaze to the same camera point, and their fringes give
+        the test superpixel's phase offset, local blaze gradient ``(kx,
+        ky)``, amplitude and fit r². Several calibration points run at
+        once through a conflict-free schedule
+        (:meth:`_build_superpixel_schedule`). Every measurement is a frame
+        of the camera: on the simulated rig, a farfield on the ported FFT
+        kernels.
+
+        ``calibration_points`` are ``"ij"`` points (None: the layout of
+        :meth:`wavefront_calibration_points` at 1.5 windows). The SLM is
+        cut into ``superpixel_size`` squares; ``reference_superpixels``
+        (``(2, N)`` superpixel coordinates; default, those nearest the SLM's
+        center), ``exclude_superpixels`` (margins ``(x, y)`` or a boolean
+        image of the superpixel grid). ``test_index`` measures one
+        schedule column and returns its result. The unused field blazes
+        to ``field_point`` (in ``field_point_units``). ``phase_steps``: 1
+        fits the single-shot fringe image, N > 1 fits a cosine to N
+        stepped phases, None measures the amplitude only.
+        ``fresh_calibration`` drops the stored correction while measuring;
+        ``measure_background`` measures each window with the superpixels
+        off; ``corrected_amplitude`` measures the power with the measured
+        blaze corrected. ``plot`` 0 shows progress bars (when tqdm is
+        installed), -1 nothing; above 0 it is not ported (ROADMAP.md queue
+        1, item 12).
+
+        Returns the raw ``"wavefront_superpixel"`` calibration;
+        :meth:`wavefront_calibration_superpixel_process` makes the
+        correction.
+        """
+        from slmsuite_torch.holography.toolbox import imprint, smallest_distance
+
+        if plot >= 1:
+            _no_plots("wavefront_calibrate_superpixel(plot >= 1)")
+
+        superpixel_size = int(superpixel_size)
+        slm_supershape = tuple(np.ceil(np.array(self.slm.shape) / superpixel_size).astype(int))
+        num_superpixels = slm_supershape[0] * slm_supershape[1]
+
+        interference_window = self.wavefront_calibration_superpixel_window(
+            superpixel_size
+        ).ravel()
+        interference_size = interference_window / self._wavefront_calibration_window_multiplier
+        interference_window = (interference_window // 2) * 2 + 1
+        interference_size = (interference_size // 2) * 2 + 1
+
+        def index2coord(index):
+            return format_2vectors(
+                np.stack((index % slm_supershape[1], index // slm_supershape[1]), axis=0)
+            )
+
+        def coord2index(coord):
+            coord = np.array(coord)
+            return coord[1, :] * slm_supershape[1] + coord[0, :]
+
+        # Exclusions.
+        exclude_superpixels = np.array(exclude_superpixels)
+        if exclude_superpixels.shape == slm_supershape:
+            exclude_superpixels = exclude_superpixels != 0
+        elif exclude_superpixels.size == 2:
+            margin = exclude_superpixels.astype(int)
+            exclude_superpixels = np.zeros(slm_supershape, dtype=bool)
+            if margin[0]:
+                exclude_superpixels[:, : margin[0]] = True
+                exclude_superpixels[:, slm_supershape[1] - margin[0]:] = True
+            if margin[1]:
+                exclude_superpixels[: margin[1], :] = True
+                exclude_superpixels[slm_supershape[0] - margin[1]:, :] = True
+        else:
+            raise ValueError("Did not recognize type for exclude_superpixels")
+
+        # Calibration points.
+        if calibration_points is None:
+            calibration_points = self.wavefront_calibration_points(
+                1.5 * np.max(interference_window),
+                np.max(interference_window),
+                field_point,
+                field_point_units,
+                plot=False,
+            )
+        calibration_points = np.rint(format_2vectors(calibration_points)).astype(int)
+        num_points = calibration_points.shape[1]
+
+        base_point = np.rint(self.kxyslm_to_ijcam([0, 0])).astype(int)
+
+        if field_point_units != "ij":
+            field_blaze = toolbox.convert_vector(
+                format_2vectors(field_point), field_point_units, "kxy", hardware=self.slm
+            )
+            field_point = self.kxyslm_to_ijcam(field_blaze)
+        else:
+            field_blaze = toolbox.convert_vector(field_point, "ij", "kxy", hardware=self)
+        field_point = np.rint(format_2vectors(field_point)).astype(int)
+
+        if "fourier" not in self.calibrations:
+            raise RuntimeError("Fourier calibration must be done before wavefront calibration.")
+        calibration_blazes = self.ijcam_to_kxyslm(calibration_points)
+        reference_blazes = calibration_blazes.copy()
+
+        # The reference superpixels default to those nearest the SLM's center.
+        if reference_superpixels is None:
+            all_coords = index2coord(np.arange(num_superpixels))
+            distance = np.sum(
+                np.square(all_coords - format_2vectors(slm_supershape[::-1]) / 2), axis=0
+            )
+            reference_superpixels = np.argsort(distance)[:num_points]
+        else:
+            reference_superpixels = coord2index(
+                np.rint(format_2vectors(reference_superpixels)).astype(int)
+            )
+
+        reference_superpixels_coords = index2coord(reference_superpixels)
+        reference_image = np.zeros(slm_supershape, dtype=bool)
+        reference_image.ravel()[reference_superpixels] = True
+        if np.any(np.logical_and(reference_image, exclude_superpixels)):
+            raise ValueError("reference_superpixels out of range of calibration.")
+
+        scheduling = _build_superpixel_schedule(
+            slm_supershape, exclude_superpixels, reference_superpixels, phase_steps
+        )
+        num_measurements = scheduling.shape[1]
+
+        # Geometry.
+        if num_points > 1:
+            calibration_distance = smallest_distance(calibration_points, "euclidean")
+            if np.max(interference_window) > calibration_distance:
+                message = (
+                    f"Requested calibration points are too close together: minimum "
+                    f"distance {calibration_distance} pix < window {interference_window} pix."
+                )
+                if test_index is None:
+                    raise ValueError(message)
+                warnings.warn(message)
+
+        dorder = field_point - base_point
+        order_distance = np.inf
+        for order in range(-5, 5):
+            order_distance = min(
+                order_distance,
+                smallest_distance(
+                    np.hstack((calibration_points, base_point + order * dorder)), "euclidean"
+                ),
+            )
+        if np.mean(interference_window) > order_distance:
+            warnings.warn(
+                "Calibration point(s) are close to field diffractive orders; "
+                "consider moving the calibration regions."
+            )
+
+        reflections = 2 * base_point - calibration_points
+        reflection_distance = smallest_distance(
+            np.hstack((calibration_points, reflections)), "euclidean"
+        )
+        if np.mean(interference_window) / 2 > reflection_distance:
+            warnings.warn(
+                "Calibration points are close to their own -1st orders; consider "
+                "avoid_mirrors in wavefront_calibration_points."
+            )
+
+        amplitude = self.slm._get_source_amplitude()
+        phase = self.slm._get_source_phase()
+        if fresh_calibration:
+            self.slm.source.pop("amplitude", None)
+            self.slm.source.pop("phase", None)
+            self.slm.source.pop("r2", None)
+
+        if phase_steps is not None:
+            if not np.isclose(phase_steps, int(phase_steps)):
+                raise ValueError(f"Expected integer phase_steps. Received {phase_steps}.")
+            phase_steps = int(phase_steps)
+            if phase_steps <= 0:
+                raise ValueError(f"Expected positive phase_steps. Received {phase_steps}.")
+
+        verbose = plot >= 0
+
+        calibration_dict = {
+            "__version__": __version__,
+            "__time__": time.time(),
+            "calibration_points": calibration_points,
+            "superpixel_size": superpixel_size,
+            "slm_supershape": slm_supershape,
+            "reference_superpixels": reference_superpixels,
+            "phase_steps": phase_steps,
+            "interference_size": interference_size,
+            "interference_window": interference_window,
+            "previous_phase_correction": (
+                False if "phase" not in self.slm.source else np.copy(self.slm.source["phase"])
+            ),
+            "scheduling": scheduling,
+        }
+        keys = [
+            "power", "normalization", "background", "phase", "kx", "ky",
+            "amp_fit", "contrast_fit", "r2_fit",
+        ]
+        for key in keys:
+            calibration_dict[key] = np.full((num_points,) + slm_supershape, np.nan,
+                                            dtype=np.float32)
+
+        # The field's blaze, under every pattern (computed once).
+        field_pattern = blaze(self.slm, field_blaze)
+
+        def superpixels(
+            schedule=None,
+            reference_phase=None,
+            target_phase=None,
+            reference_blaze=reference_blazes,
+            target_blaze=calibration_blazes,
+            phase_baselines=None,
+        ):
+            """Project the field with the reference (and target) superpixels
+            blazed to their points; returns the camera's frame."""
+            matrix = field_pattern.copy()
+
+            if reference_phase is not None:
+                for i in range(num_points):
+                    if schedule is None or schedule[i] != -1:
+                        imprint(
+                            matrix,
+                            np.array([
+                                reference_superpixels_coords[0, i], 1,
+                                reference_superpixels_coords[1, i], 1,
+                            ]) * superpixel_size,
+                            _blaze_offset,
+                            self.slm,
+                            vector=reference_blaze[:, [i]],
+                            offset=reference_phase,
+                        )
+
+            if target_phase is not None and schedule is not None:
+                target_coords = index2coord(schedule)
+                for i in range(num_points):
+                    if schedule[i] != -1:
+                        baseline = 0 if phase_baselines is None else phase_baselines[i]
+                        imprint(
+                            matrix,
+                            np.array([target_coords[0, i], 1, target_coords[1, i], 1])
+                            * superpixel_size,
+                            _blaze_offset,
+                            self.slm,
+                            vector=target_blaze[:, [i]],
+                            offset=baseline + (
+                                target_phase if np.isscalar(target_phase) else target_phase[i]
+                            ),
+                        )
+
+            self.slm.set_phase(matrix, settle=True)
+            self.cam.flush()
+            return self.cam.get_image()
+
+        def fit_phase(phases, intensities):
+            """The stepped cosine fit: ``(phase, amplitude, r2, contrast)``."""
+            guess = [
+                phases[np.argmax(intensities)],
+                np.max(intensities) - np.min(intensities),
+                np.min(intensities),
+            ]
+            try:
+                popt, _ = optimize.curve_fit(cos, phases, intensities, p0=guess)
+            except BaseException:
+                warnings.warn("Curve fitting failed; nulling response from this superpixel.")
+                return 0, 0, 0, 0
+
+            best_phase = popt[0]
+            amp = popt[1]
+            contrast = popt[1] / (popt[1] + popt[2]) if popt[1] + popt[2] != 0 else 0
+            ss_res = np.sum((intensities - cos(phases, *popt)) ** 2)
+            ss_tot = np.sum((intensities - np.mean(intensities)) ** 2)
+            r2 = 1 - (ss_res / ss_tot) if ss_tot > 0 else 0
+            return best_phase, amp, r2, contrast
+
+        def fit_phase_image(img, dsuperpixel):
+            """The single-shot fit of the fringe image: ``(phase,
+            amplitude, r2, contrast)``."""
+            xy = np.meshgrid(
+                *[
+                    np.arange(-(img.shape[1 - a] - 1) / 2, +(img.shape[1 - a] - 1) / 2 + 0.5)
+                    for a in range(2)
+                ]
+            )
+            xyr = [g.ravel() for g in xy]
+
+            M = self.calibrations["fourier"]["M"]
+            M_norm = M / np.sqrt(np.abs(np.linalg.det(M)))
+            dsuperpixel = np.squeeze(M_norm @ format_2vectors(dsuperpixel))
+
+            d = float(np.amin(img))
+            c = 0
+            a = float(np.amax(img)) - c
+            R = float(np.mean(img.shape)) / 4
+
+            guess = [
+                R, a, 0, c, d,
+                8 * np.pi * dsuperpixel[0] / img.shape[1],
+                8 * np.pi * dsuperpixel[1] / img.shape[0],
+            ]
+            dk = 8 * np.pi * np.max(slm_supershape) / np.min(img.shape)
+            lb = [0.9 * R, 0, -4 * np.pi, 0, 0, guess[5] - dk, guess[6] - dk]
+            ub = [1.1 * R, 2 * a + 1e-9, 4 * np.pi, a + 1e-9, a + 1e-9,
+                  guess[5] + dk, guess[6] + dk]
+
+            # A coarse phase guess by overlap.
+            differences = []
+            phases = np.arange(20) * 2 * np.pi / 20
+            for trial in phases:
+                guess[2] = trial
+                differences.append(np.sum(np.square(img - _sinc2d_centered(xy, *guess))))
+            guess[2] = phases[int(np.argmin(differences))]
+
+            try:
+                popt, _ = optimize.curve_fit(
+                    _sinc2d_centered, xyr, img.ravel().astype(float), p0=guess,
+                    bounds=(lb, ub),
+                )
+            except BaseException:
+                return [np.nan, np.nan, 0, np.nan]
+
+            best_phase = popt[2]
+            amp = np.abs(popt[1])
+            denominator = np.abs(popt[1]) + np.abs(popt[3])
+            contrast = np.abs(popt[1]) / denominator if denominator != 0 else 0
+
+            popt_nomod = np.copy(popt)
+            popt_nomod[3] += popt_nomod[1] / 2
+            popt_nomod[1] = 0
+            img0 = img - _sinc2d_centered(xy, *popt_nomod)
+            fit0 = _sinc2d_centered(xy, *popt) - _sinc2d_centered(xy, *popt_nomod)
+            ss_res = np.sum((img0 - fit0) ** 2)
+            ss_tot = np.sum((img0 - np.mean(img0)) ** 2)
+            r2 = 1 - (ss_res / ss_tot) if ss_tot > 0 else 0
+
+            return (np.mod(-best_phase, 2 * np.pi), amp, r2, contrast)
+
+        def take_interference_regions(img, integrate=True):
+            return analysis.take(
+                img, calibration_points, interference_window, clip=True, integrate=integrate
+            )
+
+        def find_centers(img):
+            """The interference spots' centers (camera pixels), by a sinc²
+            fit of each window."""
+            imgs = take_interference_regions(img, integrate=False)
+            centers = analysis.image_positions(imgs)
+            a = np.nanmax(imgs, axis=(1, 2))
+            R = np.mean(imgs.shape[1:]) / 4
+            guess = np.transpose(
+                np.vstack((centers, np.full_like(a, R), a, np.full_like(a, 0)))
+            )
+            result = analysis.image_fit(np.nan_to_num(imgs), function=_sinc2d_nomod,
+                                        guess=guess)
+            return result[:, 1:3].T + calibration_points
+
+        nans = [np.nan] * num_points
+
+        def measure(schedule):
+            """One schedule column: a value of each key for each point."""
+            if measure_background:
+                back = take_interference_regions(superpixels(schedule, None, None))
+            else:
+                back = nans
+
+            norm = take_interference_regions(superpixels(schedule, 0, None))
+
+            position_image = superpixels(schedule, None, 0)
+            if phase_steps is None and not corrected_amplitude:
+                return {
+                    "power": take_interference_regions(position_image),
+                    "normalization": norm, "background": back,
+                    "phase": nans, "kx": nans, "ky": nans,
+                    "amp_fit": nans, "contrast_fit": nans, "r2_fit": nans,
+                }
+
+            found_centers = find_centers(position_image)
+            blaze_differences = self.ijcam_to_kxyslm(found_centers) - calibration_blazes
+            target_blaze_fixed = calibration_blazes - blaze_differences
+
+            if corrected_amplitude:
+                pwr = take_interference_regions(
+                    superpixels(schedule, None, 0, target_blaze=target_blaze_fixed)
+                )
+            else:
+                pwr = take_interference_regions(position_image)
+
+            if phase_steps is None:
+                return {
+                    "power": pwr, "normalization": norm, "background": back,
+                    "phase": nans,
+                    "kx": -blaze_differences[0, :], "ky": -blaze_differences[1, :],
+                    "amp_fit": nans, "contrast_fit": nans, "r2_fit": nans,
+                }
+
+            results = []
+            if phase_steps == 1:
+                result_img = superpixels(schedule, 0, 0, target_blaze=target_blaze_fixed)
+                cropped = take_interference_regions(result_img, integrate=False)
+                coord_difference = index2coord(schedule) - index2coord(reference_superpixels)
+                results = [
+                    (
+                        fit_phase_image(np.nan_to_num(cropped[i]), coord_difference[:, i])
+                        if schedule[i] != -1
+                        else [np.nan] * 4
+                    )
+                    for i in range(num_points)
+                ]
+            else:
+                phases = np.linspace(0, 2 * np.pi, phase_steps, endpoint=False)
+                iresults = []
+                trials = _progress(phases, "phase_measurement") if verbose else phases
+                for trial in trials:
+                    interference_image = superpixels(
+                        schedule, 0, trial, target_blaze=target_blaze_fixed
+                    )
+                    iresults.append([
+                        interference_image[calibration_points[1, i], calibration_points[0, i]]
+                        for i in range(num_points)
+                    ])
+                iresults = np.array(iresults)
+                for i in range(num_points):
+                    results.append(fit_phase(phases, iresults[:, i]))
+
+            results = np.array(results)
+            return {
+                "power": pwr, "normalization": norm, "background": back,
+                "phase": results[:, 0],
+                "kx": -blaze_differences[0, :], "ky": -blaze_differences[1, :],
+                "amp_fit": results[:, 1], "contrast_fit": results[:, 3],
+                "r2_fit": results[:, 2],
+            }
+
+        # Correct the reference blazes by the measured centers.
+        base_image = superpixels(None, 0, None)
+        found_centers = find_centers(base_image)
+        reference_blaze_differences = self.ijcam_to_kxyslm(found_centers) - reference_blazes
+        np.subtract(reference_blazes, reference_blaze_differences, out=reference_blazes)
+
+        if test_index is not None:
+            result = measure(scheduling[:, test_index])
+            self.slm.source["amplitude"] = amplitude
+            self.slm.source["phase"] = phase
+            return result
+
+        measurements = range(num_measurements)
+        if plot > -1:
+            measurements = _progress(measurements, "calibration")
+
+        for n in measurements:
+            schedule = scheduling[:, n]
+            measurement = measure(schedule)
+            coords = index2coord(schedule)
+            for i in range(num_points):
+                if schedule[i] != -1:
+                    for key in measurement:
+                        result = measurement[key]
+                        if np.size(result) > 1:
+                            result = result[i]
+                        elif not np.isscalar(result):
+                            result = np.squeeze(result)
+                        calibration_dict[key][i, coords[1, i], coords[0, i]] = result
+
+        self.calibrations["wavefront_superpixel"] = calibration_dict
+        self.calibrations["wavefront_superpixel"].update(self._get_calibration_metadata())
+        return calibration_dict
+
+    def wavefront_calibration_superpixel_process(
+        self,
+        index=0,
+        smooth=True,
+        r2_threshold=0.9,
+        remove_vortices=False,
+        remove_blaze=True,
+        remove_background=True,
+        apply=True,
+        plot=False,
+    ):
+        """
+        The usable source phase and amplitude from the raw superpixel data
+        of calibration point ``index`` (a multi-point calibration is first
+        cut to the single-point r001 form; a stored ``"wavefront"`` r001
+        calibration is read as it is): see
+        :meth:`_process_superpixel_calibration`. Writes ``slm.source``
+        (``"phase"``, ``"amplitude"``, ``"r2"``) when ``apply``.
+        ``plot=True`` is not ported (ROADMAP.md queue 1, item 12).
+        """
+        if plot:
+            _no_plots("wavefront_calibration_superpixel_process(plot=True)")
+        if "wavefront_superpixel" in self.calibrations:
+            data = self.calibrations["wavefront_superpixel"]
+        elif "wavefront" in self.calibrations:
+            data = self.calibrations["wavefront"]
+        else:
+            raise RuntimeError("Could not find wavefront calibration.")
+        if len(data) == 0:
+            raise RuntimeError("No raw wavefront data to process.")
+
+        if "__version__" not in data:
+            data["__version__"] = "0.0.1"
+
+        if data["__version__"] != "0.0.1":
+            # Flatten a (multi-point) calibration into the r001 single-point form.
+            slm_supershape = tuple(np.asarray(data["slm_supershape"]).astype(int))
+            reference = np.asarray(data["reference_superpixels"]).astype(int)[index]
+            correction = {
+                "NX": slm_supershape[1],
+                "NY": slm_supershape[0],
+                "nxref": int(reference % slm_supershape[1]),
+                "nyref": int(reference // slm_supershape[1]),
+                "superpixel_size": data["superpixel_size"],
+                "interference_point": np.asarray(data["calibration_points"])[:, index],
+                "interference_size": data["interference_size"],
+                "previous_phase_correction": data.get("previous_phase_correction", False),
+            }
+            for key in [
+                "power", "normalization", "background", "phase", "kx", "ky",
+                "amp_fit", "contrast_fit", "r2_fit",
+            ]:
+                correction[key] = np.asarray(data[key])[index]
+            data = correction
+
+        return self._process_superpixel_calibration(
+            data,
+            smooth=smooth,
+            r2_threshold=r2_threshold,
+            remove_vortices=remove_vortices,
+            remove_blaze=remove_blaze,
+            remove_background=remove_background,
+            apply=apply,
+        )
+
+    def _process_superpixel_calibration(
+        self,
+        data,
+        smooth=True,
+        r2_threshold=0.9,
+        remove_vortices=False,
+        remove_blaze=True,
+        remove_background=True,
+        apply=True,
+    ):
+        """
+        The single-point processing:
+
+        1. the trust map, from the fringe fit's r² (the reference trusted);
+        2. the amplitude: the reference's reading patched from its
+           neighbors, a uniform noise floor removed when detected,
+           ``(power - background) / (normalization - background)``, cubic
+           upsampling, a Gaussian blur of ``4 superpixel_size + 1`` taps
+           (``smooth``), the square root;
+        3. the wavefront: each superpixel's affine model ``(offset, kx,
+           ky)`` anchored at the reference, the untrusted ones filled by
+           :meth:`_propagate_affine_phase`, expanded to the SLM's pixels,
+           smoothed ``smooth`` times (``True``: 16) in the complex domain
+           by a blur of ``2 (superpixel_size // 4) + 1`` taps (vortices
+           removed half way with ``remove_vortices``), then the global
+           blaze removed (``remove_blaze``) and the wraps reduced, with the
+           correction that was on during the measurement added back.
+
+        The upsampling, the blurs and the expansion run in float64 on the
+        rig's device (:mod:`slmsuite_torch.holography.analysis._cv`, which
+        reproduces OpenCV); the fills and the phase-image operations on the
+        host. The camera records the fringe phase modulo 2pi per
+        superpixel, so every mean of phases here is circular.
+        """
+        if smooth is True:
+            smooth = 16
+        smooth = int(smooth)
+        if smooth < 0:
+            raise ValueError("Smoothing iterations must be a non-negative integer.")
+        r2_threshold = float(r2_threshold)
+
+        supershape = (int(data["NY"]), int(data["NX"]))
+        ref = (int(data["nyref"]), int(data["nxref"]))
+        superpixel_size = int(data["superpixel_size"])
+        H, W = self.slm.shape
+        device = resolve_device(getattr(self.cam, "device", None))
+
+        def dev(matrix):
+            return torch.as_tensor(np.asarray(matrix, dtype=np.float64), device=device)
+
+        def upsample(matrix, interpolation):
+            """Superpixel grid -> SLM pixels (cropped to the SLM), on the device."""
+            full = _cv.resize(
+                dev(matrix),
+                (superpixel_size * supershape[1], superpixel_size * supershape[0]),
+                interpolation,
+            )
+            return full[:H, :W]
+
+        # The trust map. The reference never interferes with itself, so it
+        # has no fit: it is trusted (its phase is 0 by definition).
+        r2 = np.nan_to_num(np.asarray(data["r2_fit"], dtype=float))
+        r2[ref] = 1
+        trusted = r2 >= r2_threshold
+        r2_map = upsample(r2, _cv.INTER_NEAREST).cpu().numpy()
+
+        # The amplitude. The reference's own power reading is contaminated
+        # (it was always on): patch it from its neighbors.
+        power = np.asarray(data["power"], dtype=float).copy()
+        # Clamp to the largest finite reading (nanmax would return inf).
+        finite = power[np.isfinite(power)]
+        power[np.isinf(power)] = finite.max() if finite.size else 0.0
+        normalization = np.asarray(data["normalization"], dtype=float).copy()
+        background = np.nan_to_num(np.asarray(data["background"], dtype=float))
+        for matrix in (power, normalization, background):
+            _patch_from_neighbors(matrix, ref)
+
+        if remove_background and not background.any():
+            floor = _detect_noise_floor(power, normalization, ~trusted)
+            if floor is not None:
+                warnings.warn("Noise floor detected; removing this background.")
+                background[:] = floor
+
+        with np.errstate(divide="ignore", invalid="ignore"):
+            power_norm = (power - background) / (normalization - background)
+        power_norm[~np.isfinite(power_norm)] = 0
+        np.clip(power_norm, 0, None, out=power_norm)
+
+        power_map = upsample(power_norm, _cv.INTER_CUBIC)
+        power_map = torch.where(torch.isfinite(power_map), power_map, 0.0).clamp(min=0)
+        if smooth:
+            power_map = _cv.gaussian_blur(power_map, 4 * superpixel_size + 1)
+
+        amplitude = torch.sqrt(power_map)
+        if amplitude.max() > 0:
+            amplitude = amplitude / amplitude.max()
+        amplitude = amplitude.cpu().numpy()
+        power_map = power_map.cpu().numpy()
+
+        # The wavefront. Patch the reference's fit from its neighbors (the
+        # phase circularly), then fill the untrusted region.
+        kx = np.nan_to_num(np.asarray(data["kx"], dtype=float))
+        ky = np.nan_to_num(np.asarray(data["ky"], dtype=float))
+        fringe = np.nan_to_num(np.asarray(data["phase"], dtype=float))
+        re, im = np.cos(fringe), np.sin(fringe)
+        for matrix in (re, im, kx, ky):
+            _patch_from_neighbors(matrix, ref)
+        offset = np.arctan2(im, re) + np.pi  # [0, 2pi)
+
+        kx = np.where(trusted, kx, 0.0)
+        ky = np.where(trusted, ky, 0.0)
+        offset = np.where(trusted, offset, 0.0)
+        kx, ky, offset = _propagate_affine_phase(
+            kx, ky, offset, trusted, ref,
+            2 * np.pi * superpixel_size * np.asarray(self.slm.pitch),
+        )
+
+        # Expand to the SLM's pixels: phase = 2pi (kx X + ky Y) + offset
+        # with each superpixel's (kx, ky, offset), as imprinting a blaze
+        # into every superpixel would.
+        x_grid, y_grid = self.slm.grid
+        phase = (
+            2 * np.pi * upsample(kx, _cv.INTER_NEAREST) * dev(x_grid)
+            + 2 * np.pi * upsample(ky, _cv.INTER_NEAREST) * dev(y_grid)
+            + upsample(offset, _cv.INTER_NEAREST)
+        )
+
+        # Smoothing in the complex domain (wrap-safe).
+        if smooth:
+            ksize = 2 * (superpixel_size // 4) + 1
+            for i in _progress(range(smooth), "smooth"):
+                re = _cv.gaussian_blur(torch.cos(phase), ksize)
+                im = _cv.gaussian_blur(torch.sin(phase), ksize)
+                phase = torch.atan2(im, re) + np.pi
+                if remove_vortices and i == smooth // 2:
+                    phase = dev(analysis.image_remove_vortices(phase.cpu().numpy()))
+        else:
+            phase = torch.atan2(torch.sin(phase), torch.cos(phase)) + np.pi
+        phase = phase.cpu().numpy()
+
+        if remove_blaze:
+            phase = analysis.image_remove_blaze(phase, mask=power_map)
+        phase = analysis.image_reduce_wraps(phase, mask=power_map)
+
+        previous = data.get("previous_phase_correction", None)
+        if previous is not None and np.ndim(previous) > 0:
+            phase = phase + np.asarray(previous)
+
+        wavefront_calibration = {
+            "phase": phase,
+            "amplitude": amplitude,
+            "r2": r2_map,
+            "r2_threshold": r2_threshold,
+        }
+
+        if apply:
+            self.slm.source.update(wavefront_calibration)
+
+        return wavefront_calibration

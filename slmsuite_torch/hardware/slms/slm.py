@@ -3,12 +3,9 @@ The spatial light modulator interface: the part of
 :mod:`slmsuite_tpu.hardware.slms.slm` that the compressed spot hologram
 and the simulated rig need (numpy only). It holds the SLM's geometry
 (shape, pitch, wavelength, the normalized coordinate grid), its source
-(measured or simulated illumination), and the host-side write path
+(measured or simulated illumination, and the fit of a measured amplitude,
+which re-centres the grid on it), and the host-side write path
 (:meth:`SLM.set_phase`, grayscale conversion into :attr:`SLM.display`).
-
-Fitting a *measured* source amplitude (its moments or a Gaussian fit)
-comes with the wavefront calibration that measures it (ROADMAP.md queue
-1, item 9) and raises :class:`NotImplementedError` until then.
 """
 
 import inspect
@@ -19,7 +16,7 @@ from abc import ABC, abstractmethod
 import numpy as np
 
 from slmsuite_torch.hardware import _Picklable
-from slmsuite_torch.holography import toolbox
+from slmsuite_torch.holography import analysis, toolbox
 from slmsuite_torch.holography.analysis import fitfunctions
 from slmsuite_torch.misc.math import REAL_TYPES
 
@@ -285,31 +282,68 @@ class SLM(_Picklable, ABC):
 
     def fit_source_amplitude(self, method="moments", extent_threshold=0.1, force=True):
         """
-        Scalar source parameters (center pixel, amplitude radius, extent).
-        Without a measured ``source["amplitude"]`` they follow from the
-        SLM's geometry: the grid center, a quarter of the smaller side,
-        and the grid's extent.
+        Scalar source parameters (center pixel, amplitude radius, extent),
+        from ``source["amplitude"]`` by its moments (``"moments"``) or a 2D
+        Gaussian fit (``"fit"``), re-centring :attr:`grid` on the source in
+        place; without a measured amplitude, from the SLM's geometry: the
+        grid center, a quarter of the smaller side and the grid's extent.
+        The grid is a host array: what is built from it (a compressed
+        hologram's Zernike basis) is built anew by the next object that
+        reads it.
         """
         if "amplitude_center_pix" in self.source and not force:
             return
 
-        if "amplitude" in self.source:
-            raise NotImplementedError(
-                "Fitting a measured source amplitude comes with the wavefront "
-                "calibration (ROADMAP.md queue 1, item 9)."
-            )
-
-        self.source["amplitude_center_pix"] = np.array(
+        center_grid = np.array(
             [np.argmin(np.abs(self.grid[0][0, :])), np.argmin(np.abs(self.grid[1][:, 0]))]
         )
-        self.source["amplitude_radius"] = 0.25 * np.min(
-            (self.shape[1] * self.pitch[0], self.shape[0] * self.pitch[1])
-        )
+
+        if "amplitude" not in self.source:
+            self.source["amplitude_center_pix"] = center_grid
+            self.source["amplitude_radius"] = 0.25 * np.min(
+                (self.shape[1] * self.pitch[0], self.shape[0] * self.pitch[1])
+            )
+            self.source["amplitude_extent"] = np.array(
+                [np.max(np.abs(self.grid[0])), np.max(np.abs(self.grid[1]))]
+            )
+            self.source["amplitude_extent_radius"] = np.sqrt(
+                np.amax(np.square(self.grid[0]) + np.square(self.grid[1]))
+            )
+            return
+
+        amp = np.abs(self.source["amplitude"])
+        if extent_threshold > 1:
+            raise RuntimeError("extent_threshold cannot exceed 1 (100%).")
+
+        if method == "fit":
+            result = analysis.image_fit(amp)
+            center = np.array([result[0, 1], result[0, 2]])
+            std = np.array([result[0, 5], result[0, 6]])
+        else:
+            center = analysis.image_positions(np.square(amp))
+            std = np.sqrt(2 * analysis.image_variances(np.square(amp), centers=center)[:2])
+            center = np.squeeze(center)
+
+        center = center + np.flip(self.shape) / 2
+
+        self.source["amplitude_center_pix"] = center
+        self.source["amplitude_radius"] = np.mean(self.pitch * np.squeeze(std))
+
+        dcenter = center_grid - center
+        self.grid[0] += dcenter[0] * self.pitch[0]
+        self.grid[1] += dcenter[1] * self.pitch[1]
+
+        extent_mask = amp > (extent_threshold * np.amax(amp))
         self.source["amplitude_extent"] = np.array(
-            [np.max(np.abs(self.grid[0])), np.max(np.abs(self.grid[1]))]
+            [
+                np.max(np.abs(self.grid[0][extent_mask])),
+                np.max(np.abs(self.grid[1][extent_mask])),
+            ]
         )
         self.source["amplitude_extent_radius"] = np.sqrt(
-            np.amax(np.square(self.grid[0]) + np.square(self.grid[1]))
+            np.amax(
+                np.square(self.grid[0][extent_mask]) + np.square(self.grid[1][extent_mask])
+            )
         )
 
     def get_source_zernike_scaling(self):
@@ -322,6 +356,12 @@ class SLM(_Picklable, ABC):
         if "amplitude" in self.source:
             return self.source["amplitude"]
         return np.ones(self.shape)
+
+    def _get_source_phase(self):
+        """Source phase; flat if unmeasured."""
+        if "phase" in self.source:
+            return self.source["phase"]
+        return np.zeros(self.shape)
 
     def get_spot_radius_kxy(self):
         """Expected farfield spot standard-deviation radius in kxy units."""

@@ -26,6 +26,7 @@ from slmsuite_torch.holography.algorithms._hologram import (
     _cg_loop,
     _default_cg_loss,
 )
+from slmsuite_torch.holography.analysis._cv import gaussian_blur
 from slmsuite_torch.ops import fft as _fft
 from slmsuite_torch.ops import propagation as _prop
 
@@ -68,56 +69,6 @@ def _combine_windows(windows):
     for wr, wi in windows[1:]:
         re, im = re + wr, im + wi
     return torch.atan2(im, re)
-
-
-#: Taps of OpenCV's small Gaussian kernels (``getGaussianKernel`` with
-#: sigma <= 0 and an odd size up to 9), which ``cv2.GaussianBlur(img, (k,
-#: k), 0)`` takes in place of the sampled Gaussian.
-_SMALL_GAUSSIAN = {
-    1: (1.0,),
-    3: (0.25, 0.5, 0.25),
-    5: (0.0625, 0.25, 0.375, 0.25, 0.0625),
-    7: (0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125),
-    9: tuple(x / 256 for x in (4, 13, 30, 51, 60, 51, 30, 13, 4)),
-}
-
-
-def _gaussian_taps(k):
-    """The normalized taps of ``cv2.GaussianBlur``'s kernel of odd size
-    ``k`` with sigma 0: the small tables, else the Gaussian of sigma
-    ``0.3 ((k - 1) / 2 - 1) + 0.8`` sampled at the taps."""
-    if k in _SMALL_GAUSSIAN:
-        taps = np.asarray(_SMALL_GAUSSIAN[k])
-    else:
-        sigma = 0.3 * ((k - 1) * 0.5 - 1) + 0.8
-        x = np.arange(k) - (k - 1) * 0.5
-        taps = np.exp(-0.5 / sigma**2 * x * x)
-    return taps / taps.sum()
-
-
-def _reflect_101(index, n):
-    """OpenCV's default border (``BORDER_REFLECT_101``, ``gfedcb|abcdefgh|
-    gfedcba``) for any offset, also past a whole period."""
-    if n == 1:
-        return torch.zeros_like(index)
-    period = 2 * (n - 1)
-    index = torch.remainder(index, period)
-    return torch.where(index >= n, period - index, index)
-
-
-def _gaussian_blur(image, k):
-    """``cv2.GaussianBlur(image, (k, k), 0)`` in float64 on ``image``'s
-    device: the separable kernel of :meth:`_gaussian_taps` along each axis,
-    with reflect-101 borders."""
-    taps = _gaussian_taps(k)
-    for dim in (-1, -2):
-        n = image.shape[dim]
-        base = torch.arange(n, device=image.device) - len(taps) // 2
-        out = torch.zeros_like(image)
-        for j, weight in enumerate(taps):
-            out += float(weight) * image.index_select(dim, _reflect_101(base + j, n))
-        image = out
-    return image
 
 
 class MultiplaneHologram(Hologram):
@@ -204,7 +155,7 @@ class MultiplaneHologram(Hologram):
                 dz = (z1 - z2) * (f_eff * f_eff)
                 blur = w0_pix * (np.sqrt(1 + (dz / zr) ** 2) - (1 if sharp_focus else 0))
                 blur = 2 * int(blur) + 1
-                canvas[j] += _gaussian_blur(images[i], blur)
+                canvas[j] += gaussian_blur(images[i], blur)
 
         return canvas.cpu().numpy()
 

@@ -995,6 +995,16 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         def dev(x, dtype=torch.float32):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
+        held = self.__dict__.setdefault("_dev_scalars", {})
+
+        def scalar(key, value, dtype=torch.float32):
+            """A 0-d device constant, uploaded again only when its value
+            changes: a call of the host loop then moves no constant."""
+            token = repr((value, dtype))
+            if key not in held or held[key][0] != token:
+                held[key] = (token, dev(value, dtype))
+            return held[key][1]
+
         amp = self.amp
         if np.isscalar(amp) or np.ndim(amp) == 0:
             amp_flat = float(amp)
@@ -1012,10 +1022,13 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             "basis": self._dev_const("basis", self._basis, dev),
             "target": target,
             "stat_mask": stat_mask,
-            "feedback_exponent": dev(self.flags.get("feedback_exponent", 0.8)),
-            "feedback_factor": dev(self.flags.get("feedback_factor", 0.1)),
-            "fix_phase_iteration": dev(self.flags.get("fix_phase_iteration", 10), torch.int32),
-            "fix_phase_efficiency": dev(self.flags.get("fix_phase_efficiency") or np.nan),
+            "feedback_exponent": scalar("feedback_exponent",
+                                        self.flags.get("feedback_exponent", 0.8)),
+            "feedback_factor": scalar("feedback_factor", self.flags.get("feedback_factor", 0.1)),
+            "fix_phase_iteration": scalar("fix_phase_iteration",
+                                          self.flags.get("fix_phase_iteration", 10), torch.int32),
+            "fix_phase_efficiency": scalar("fix_phase_efficiency",
+                                           self.flags.get("fix_phase_efficiency") or np.nan),
         }
         if self._mraf_enabled():
             # nan spot_amp: noise spots (amplitude freedom); zeros: null spots.
@@ -1027,7 +1040,7 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             consts["signal_mask"], consts["noise_mask"] = self._dev_const(
                 "mraf_masks", self.target, masks)
             mraf_factor = self.flags.get("mraf_factor")
-            consts["mraf_k"] = dev(1.0 if mraf_factor is None else mraf_factor)
+            consts["mraf_k"] = scalar("mraf_k", 1.0 if mraf_factor is None else mraf_factor)
         if kernel_cache:
             consts["kc_tiles"], consts["ks_tiles"] = self._kernel_cache_tiles(
                 consts["coeffs"], consts["basis"]
@@ -1297,7 +1310,8 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         squared error of the unit-power spot amplitudes."""
         consts = self._compressed_consts()
         amp, coeffs, basis = consts["amp"], consts["coeffs"], consts["basis"]
-        target = torch.as_tensor(np.asarray(self.target, np.float32), device=self.device)
+        target = self._dev_const("cg_target", self.target, lambda t: torch.as_tensor(
+            np.asarray(t, np.float32), device=self.device))
         target = target / torch.sqrt(torch.sum(torch.square(target)))
         loss = self.flags.get("loss")
         if loss is None:

@@ -3,21 +3,24 @@ Image analysis on the host (the port's copy of what the simulated rig
 needs from :mod:`slmsuite_tpu.holography.analysis`; numpy and scipy):
 region extraction (:meth:`take`), background removal, first and second
 moments (the second for the quadratic initial phase of the holograms),
-affine fitting, and the spot-lattice detection behind the Fourier
-calibration (:meth:`blob_array_detect`).
+image fits (:meth:`image_fit`), the phase-image operations of the
+superpixel wavefront calibration (vortices, blaze removal, wrap
+reduction), affine fitting, and the spot-lattice detection behind the
+Fourier calibration (:meth:`blob_array_detect`).
 
 ``cv2`` is imported inside :meth:`blob_detect` and the helpers of
 :meth:`blob_array_detect` only: everything else here, and every path that
-runs on a machine without OpenCV, needs numpy and scipy alone. The image
-fits, the phase-image operations and the plots of the
-JAX package's module are not copied.
+runs on a machine without OpenCV, needs numpy and scipy alone (the
+calibrations' OpenCV image operations are in torch, in :mod:`._cv`). The
+plots of the JAX package's module are not copied.
 """
 
 import warnings
 from functools import reduce
 
 import numpy as np
-from scipy.optimize import minimize
+from scipy.ndimage import binary_erosion
+from scipy.optimize import curve_fit, minimize
 
 from slmsuite_torch.holography.analysis.fitfunctions import gaussian2d
 from slmsuite_torch.holography.toolbox import format_2vectors
@@ -32,6 +35,13 @@ __all__ = [
     "image_centroids",
     "image_variances",
     "image_areas",
+    "image_fit",
+    "image_vortices",
+    "image_vortices_coordinates",
+    "image_remove_vortices",
+    "image_remove_blaze",
+    "image_blaze_remove",
+    "image_reduce_wraps",
     "fit_affine",
     "blob_detect",
     "blob_array_detect",
@@ -353,6 +363,195 @@ def image_areas(variances):
     (a spot-area proxy), from :meth:`image_variances`' ``(3, N)``."""
     m20, m02, m11 = variances[0, :], variances[1, :], variances[2, :]
     return m20 * m02 - m11 * m11
+
+
+def image_fit(images, grid=None, function=gaussian2d, guess=None, plot=False):
+    """
+    Fit each image of a stack to a 2D ``function`` with
+    :meth:`scipy.optimize.curve_fit` (nan pixels left out), guessing from
+    the moments for
+    :meth:`~slmsuite_torch.holography.analysis.fitfunctions.gaussian2d`.
+    Returns ``(image_count, 1 + 2 * param_count)``: rows of ``[rsquared,
+    *params, *param_errors]``, a failed fit with nan rsquared.
+    ``plot=True`` is not ported (ROADMAP.md queue 1, item 12).
+    """
+    if plot:
+        raise NotImplementedError(
+            "image_fit(plot=True): the plots are not ported yet (ROADMAP.md queue 1, item 12)."
+        )
+    images, _ = _ensure_stack(images)
+    image_count, w_y, w_x = images.shape
+
+    if grid is None:
+        grid = _generate_grid(w_x, w_y, centered=True)
+    grid_ravel = (np.ravel(grid[0]), np.ravel(grid[1]))
+
+    param_count = function.__code__.co_argcount - 1
+    result = np.full((image_count, 2 * param_count + 1), np.nan)
+
+    if guess is None or guess is True:
+        if function is gaussian2d:
+            normalized = image_normalize(images, remove_field=True)
+            centers = image_positions(normalized, grid=grid, normalize=False)
+            variances = image_variances(normalized, centers=centers, grid=grid, normalize=False)
+            maxs = np.amax(images, axis=(1, 2))
+            mins = np.amin(images, axis=(1, 2))
+            guess = np.vstack(
+                (centers, maxs - mins, mins, np.sqrt(variances[:2, :]), variances[2, :])
+            ).T
+        else:
+            message = f"Default guess for function {function} not implemented."
+            if guess is True:
+                raise NotImplementedError(message)
+            warnings.warn(message)
+            guess = None
+
+    for idx in range(image_count):
+        img = images[idx].ravel()
+        grid_ = grid_ravel
+
+        undefined = np.isnan(img)
+        if np.any(undefined):
+            defined = ~undefined
+            img = img[defined]
+            grid_ = (grid_ravel[0][defined], grid_ravel[1][defined])
+
+        p0 = None if guess is None else guess[idx]
+
+        popt, perr, ok = None, np.nan, True
+        try:
+            popt, pcov = curve_fit(function, grid_, img, ftol=1e-5, p0=p0)
+            perr = np.sqrt(np.diag(pcov))
+        except RuntimeError:
+            ok = False
+        else:
+            if np.any(~np.isfinite(popt)):
+                ok = False
+
+        if ok:
+            ss_res = np.sum(np.square(img - function(grid_, *popt)))
+            ss_tot = np.sum(np.square(img - np.mean(img)))
+            r2 = 1 - (ss_res / ss_tot)
+        else:
+            popt = p0 if p0 is not None else np.full(param_count, np.nan)
+            r2 = np.nan
+            perr = np.nan
+
+        result[idx, 0] = r2
+        result[idx, 1 : param_count + 1] = popt
+        result[idx, param_count + 1 :] = perr
+
+    return result
+
+
+def image_vortices(phase_image):
+    """
+    The integer winding number at each pixel of a wrapped phase image,
+    from the discrete curl of the wrapped derivatives.
+    """
+    dd = [
+        np.mod(np.diff(phase_image, axis=a, prepend=np.nan) - np.pi, 2 * np.pi)
+        for a in range(2)
+    ]
+    winding = -(
+        dd[0] - dd[1] - np.roll(dd[0], shift=1, axis=1) + np.roll(dd[1], shift=1, axis=0)
+    ) / (2 * np.pi)
+    winding[np.isnan(winding)] = 0
+    return np.rint(winding)
+
+
+def image_vortices_coordinates(phase_image, mask=None):
+    """The coordinates ``(ys, xs)`` and the winding weights of the vortices
+    of a phase image (inside ``mask``)."""
+    winding = image_vortices(phase_image)
+    if mask is not None:
+        winding[~np.asarray(mask, dtype=bool)] = 0
+    coordinates = np.where(winding)
+    weights = winding[coordinates[0], coordinates[1]]
+    return coordinates, weights
+
+
+def image_remove_vortices(phase_image, mask=None, return_vortices_negative=False):
+    """
+    Subtract a ``w * arctan2`` screw at each vortex found (inside the
+    eroded ``mask``), removing the phase singularities in place.
+    """
+    mask_eroded = binary_erosion(mask, np.ones((5, 5))) if mask is not None else None
+    coordinates, weights = image_vortices_coordinates(phase_image, mask=mask_eroded)
+    grid = _generate_grid(phase_image.shape[1], phase_image.shape[0])
+
+    canvas = np.zeros_like(phase_image) if return_vortices_negative else phase_image
+    for x, y, w in zip(coordinates[1], coordinates[0], weights):
+        canvas -= w * np.arctan2(grid[0] - x, grid[1] - y)
+    return canvas
+
+
+def image_remove_blaze(phase_image, mask=None, plot=False):
+    """
+    Remove the mean phase gradient (the global blaze) of a wrapped phase
+    image, weighted by ``mask`` (the amplitude image, say) when given.
+    ``plot=True`` is not ported (ROADMAP.md queue 1, item 12).
+    """
+    if plot:
+        raise NotImplementedError(
+            "image_remove_blaze(plot=True): the plots are not ported yet "
+            "(ROADMAP.md queue 1, item 12)."
+        )
+    phase = np.mod(phase_image, 2 * np.pi)
+
+    dx = np.mod(np.gradient(phase, axis=1) + np.pi / 2, np.pi) - np.pi / 2
+    dy = np.mod(np.gradient(phase, axis=0) + np.pi / 2, np.pi) - np.pi / 2
+
+    if mask is None:
+        dx_mean, dy_mean = np.nanmean(dx), np.nanmean(dy)
+    else:
+        dx_mean = np.nansum(dx * mask) / np.nansum(mask)
+        dy_mean = np.nansum(dy * mask) / np.nansum(mask)
+
+    X, Y = np.meshgrid(np.arange(phase.shape[1]), np.arange(phase.shape[0]))
+    return np.mod(phase - dx_mean * X - dy_mean * Y, 2 * np.pi)
+
+
+def image_blaze_remove(**kwargs):
+    """The deprecated alias of :meth:`image_remove_blaze` (it warns)."""
+    warnings.warn(
+        "image_blaze_remove is deprecated; use image_remove_blaze instead.",
+        DeprecationWarning,
+    )
+    return image_remove_blaze(**kwargs)
+
+
+def image_reduce_wraps(phase_image, mask=None, steps=10, plot=False):
+    """
+    The global phase offset of ``steps`` that minimizes the (``mask``
+    weighted) length of the wrap lines, re-wrapped into ``[0, 2pi)``.
+    ``plot`` is accepted and draws nothing, as in the JAX package.
+    """
+    fom_min = np.inf
+    result = None
+
+    for step in range(steps):
+        shift = step * 2 * np.pi / steps
+        shifted = np.mod(phase_image + shift, 2 * np.pi)
+
+        wrapping = (
+            np.abs(np.gradient(shifted, axis=1)) + np.abs(np.gradient(shifted, axis=0))
+        ) > np.pi
+        if mask is not None:
+            wrapping = wrapping * mask
+        fom = np.sum(wrapping)
+
+        if fom < fom_min:
+            fom_min = fom
+            result = shifted
+            lo, mean, hi = np.nanmin(result), np.nanmean(result), np.nanmax(result)
+            if mean - lo < hi - mean:
+                result = result - lo
+            else:
+                result = result - (hi - 2 * np.pi)
+            result = np.mod(result, 2 * np.pi)
+
+    return result
 
 
 def fit_affine(x, y, guess_affine=None, plot=False):

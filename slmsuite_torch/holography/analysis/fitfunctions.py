@@ -1,12 +1,24 @@
 r"""
-Fit functions (the port's copy of the two source profiles it uses from
-:mod:`slmsuite_tpu.holography.analysis.fitfunctions`). Each takes the
-independent variables ``(x, y)`` first, then its parameters.
+Fit functions (the port's copy of those it uses from
+:mod:`slmsuite_tpu.holography.analysis.fitfunctions`: the source profiles,
+the calibrations' fringe, focus and settle models). Each takes the
+independent variable(s) ``x`` or ``(x, y)`` first, then its parameters,
+as :meth:`scipy.optimize.curve_fit` calls them.
 """
 
 import numpy as np
 
-__all__ = ["gaussian2d", "tophat2d"]
+__all__ = ["cos", "lorentzian", "gaussian2d", "tophat2d", "sinc2d", "exponential_jump"]
+
+
+def cos(x, b, a, c, k=1):
+    r""":math:`y = c + \frac{a}{2}[1 + \cos(kx - b)]`."""
+    return a * 0.5 * (1 + np.cos(k * x - b)) + c
+
+
+def lorentzian(x, x0, a, c, w):
+    r""":math:`y = c + a / [1 + ((x - x_0)/w)^2]`."""
+    return a / (1 + np.square((x - x0) / w)) + c
 
 
 def gaussian2d(xy, x0, y0, a, c, wx, wy, wxy=0):
@@ -37,3 +49,42 @@ def tophat2d(xy, x0, y0, R, a=1, c=0):
     x = xy[0] - x0
     y = xy[1] - y0
     return np.where(np.square(x) + np.square(y) <= R * R, a + c, c)
+
+
+def sinc2d(xy, x0, y0, R, a=1, b=0, c=0, d=0, kx=0, ky=0):
+    r"""
+    Rectangular :math:`\text{sinc}^2` distribution with optional sinusoidal
+    modulation (the superpixel interference fringes):
+
+    .. math:: z = d + \left(c + \frac{a}{2}[1 + \cos(k_xx + k_yy - b)]\right)
+              \text{sinc}^2(\pi(x - x_0)/R)\,\text{sinc}^2(\pi(y - y_0)/R).
+    """
+    x = xy[0] - x0
+    y = xy[1] - y0
+    return (
+        np.square(np.sinc((1 / R) * x) * np.sinc((1 / R) * y))
+        * (a * 0.5 * (1 + np.cos(kx * x + ky * y - b)) + c)
+        + d
+    )
+
+
+def _sinc2d_nomod(xy, x0, y0, R, a=1, d=0):
+    r"""Unmodulated rectangular sinc²."""
+    return (
+        a * np.square(np.sinc((1 / R) * (xy[0] - x0)) * np.sinc((1 / R) * (xy[1] - y0)))
+        + d
+    )
+
+
+def _sinc2d_centered(xy, R, a=1, b=0, c=0, d=0, kx=0, ky=0):
+    r"""Modulated sinc² centered at the origin (the superpixel fringe fit)."""
+    return sinc2d(xy, 0, 0, R, a, b, c, d, kx, ky)
+
+
+def exponential_jump(x, x0, a, b, c):
+    r"""
+    Step and exponential relaxation (the settle calibration's model):
+    :math:`y = c` for :math:`x < x_0`, else
+    :math:`y = c + a(1 - e^{-(x - x_0)/b})`.
+    """
+    return np.where(x < x0, c, c + a * (1 - np.exp(-(x - x0) / np.abs(b))))

@@ -2,7 +2,7 @@ r"""
 Phase patterns on an SLM grid: the part of
 :mod:`slmsuite_tpu.holography.toolbox.phase` that the holograms need
 (numpy and scipy only): the blazed grating and the lens of the quadratic
-initial phase, and the Zernike polynomials of the compressed spot
+initial phase, the binary grating of the pixel calibration, and the Zernike polynomials of the compressed spot
 hologram and of the Zernike wavefront calibration. Polynomials are
 evaluated by their cached Cantor-monomial expansion and normalized to
 peak-to-valley 2 on the unit pupil.
@@ -36,6 +36,41 @@ def blaze(grid, vector=(0, 0)):
         result = result + (np.pi * vector[2]) * (np.square(x_grid) + np.square(y_grid))
 
     return result
+
+
+def binary(grid, vector=(0, 0), shift=0, a=np.pi, b=0, duty_cycle=0.5):
+    r"""
+    Binary grating toward ``vector``: the value ``a`` for ``duty_cycle``
+    of each period, ``b`` otherwise. Components of ``vector`` larger than 1
+    are taken as integer pixel periods.
+    """
+    x_grid, y_grid = _process_grid(grid)
+    dtype = x_grid.dtype
+    duty_cycle = float(np.clip(duty_cycle, 0, 1))
+
+    if np.any(np.abs(vector) > 1):
+        # Pixel periods: a grid in pixel units.
+        x_grid, y_grid = np.meshgrid(
+            np.arange(x_grid.shape[1], dtype=float),
+            np.arange(x_grid.shape[0], dtype=float),
+        )
+        vector = (
+            0 if vector[0] == 0 else 1.0 / vector[0],
+            0 if vector[1] == 0 else 1.0 / vector[1],
+        )
+    grid = (x_grid, y_grid)
+
+    if vector[0] == 0 and vector[1] == 0:
+        value = b
+        if shift != 0 and np.mod(shift, 2 * np.pi) > (2 * np.pi * duty_cycle):
+            value = a
+        return np.full(x_grid.shape, value, dtype=dtype)
+
+    decision = np.mod(blaze(grid, vector) + shift, 2 * np.pi)
+    decision[np.isclose(decision, 2 * np.pi)] = 0
+    decision -= 2 * np.pi * (1 - duty_cycle)
+
+    return np.where(np.logical_or(decision > 0, np.isclose(decision, 0)), a, b)
 
 
 def _parse_focal_length(f):

@@ -440,18 +440,6 @@ def test_calibration_save_load_roundtrip(tmp_path, monkeypatch):
         latest.load_calibration("pixel")
 
 
-@pytest.mark.parametrize("name", ["settle_calibrate", "pixel_calibrate",
-                                  "wavefront_calibrate", "wavefront_calibrate_superpixel"])
-def test_unported_calibrations_name_their_item(name):
-    """The calibrations still queued raise naming item 9:
-    ``wavefront_calibrate`` too, whose default method is the superpixel
-    one (``simulate``, ``load`` and the Zernike calibration run:
-    ``tests/test_torch_wavefront.py``)."""
-    tfs, _ = _rigs()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        getattr(tfs, name)()
-
-
 def test_padded_shape_matches_jax():
     tfs, jfs = _rigs()
     cases = [
@@ -891,16 +879,3 @@ def test_camera_loop_model_builds_config_4():
     with pytest.raises(ValueError, match="calibration"):
         tmodels.camera_loop_wgs(calibration="guessed", slm_side=SIDE, cam_side=SIDE,
                                 M=RIG_M, device="cpu")
-
-
-@pytest.mark.parametrize("name", [
-    "pixel_kernel", "write_calibration", "read_calibration",
-    "wavefront_calibration_superpixel_window",
-])
-def test_fourier_slm_names_of_item_9_raise(name):
-    """FourierSLM methods of the JAX package that the port does not copy yet
-    raise NotImplementedError naming item 9, not AttributeError."""
-    assert callable(getattr(JFourierSLM, name))
-    fs = TFourierSLM.__new__(TFourierSLM)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        getattr(fs, name)(1)

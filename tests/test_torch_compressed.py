@@ -257,11 +257,25 @@ def test_simulated_slm_matches_jax(kwargs):
     np.testing.assert_allclose(tslm.phase, jslm.phase, atol=TOOLBOX_ATOL)
 
 
-def test_measured_source_fit_is_queued():
+def test_compressed_consts_keep_their_scalars_on_the_device():
+    """The engine's scalar constants (and CG's target) are uploaded once and
+    kept while their values hold, so a call of the loop moves no constant
+    to the device; a changed flag is uploaded anew."""
     tslm, _ = _slms((32, 32))
-    tslm.source["amplitude"] = np.ones(tslm.shape)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tslm.fit_source_amplitude()
+    with _numpy_global_state_kept():
+        holo = T.CompressedSpotHologram(np.array([[1e-3, -2e-3], [2e-3, 0.0]]),
+                                        cameraslm=tslm)
+    first = holo._compressed_consts()
+    again = holo._compressed_consts()
+    for key in ("feedback_exponent", "feedback_factor", "fix_phase_iteration",
+                "fix_phase_efficiency", "coeffs", "basis", "target"):
+        assert again[key] is first[key], key
+    holo.flags["feedback_exponent"] = 0.5
+    changed = holo._compressed_consts()
+    assert changed["feedback_exponent"] is not first["feedback_exponent"]
+    assert float(changed["feedback_exponent"]) == 0.5
+    assert changed["fix_phase_iteration"].dtype == torch.int32
+    assert torch.isnan(changed["fix_phase_efficiency"])
 
 
 def test_slm_write_is_the_jax_alias():

@@ -1265,3 +1265,153 @@ def test_cg_refuses_cuda_shapes_outside_the_gate(cuda):
     with pytest.raises(NotImplementedError, match="Non-power-of-two"):
         holo.optimize("CG", maxiter=2, verbose=False)
     assert sum(cuda_fft.LAUNCHES.values()) == 0
+
+
+# ----------------------------------------------------------------------
+# The rig's calibrations on the card: the superpixel wavefront calibration
+# (W1's pieces at 256^2), OpenCV's operations in torch, and the pin of the
+# device measurement to the correction the calibration writes.
+# ----------------------------------------------------------------------
+
+
+def _superpixel_rig(device):
+    """tests/hardware/test_cameraslm.py's 256^2 superpixel rig, calibrated
+    analytically, with focus and astigmatism in the simulated source."""
+    from slmsuite_torch.holography.toolbox.phase import zernike_sum
+    from slmsuite_torch.models.engine_models import camera_loop_rig
+
+    fs = camera_loop_rig(slm_side=256, cam_side=256,
+                         M=np.array([[4.0e3, 100.0], [-100.0, 4.0e3]]), device=device)
+    fs.fourier_calibrate_analytic(fs.cam.M, fs.cam.b)
+    fs.slm.source["phase_sim"] = np.asarray(zernike_sum(fs.slm, (4, 3), (1.5, -1.0)),
+                                            np.float32)
+    return fs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase_steps", [8, 1])
+def test_superpixel_calibration_runs_through_kernels_and_matches_the_cpu(cuda, phase_steps):
+    """The superpixel calibration (32-pixel superpixels) on the card: one
+    rows_fft and one cols_fft a camera frame; its raw data and processed
+    correction against the same run on the CPU (the camera quantizes, so
+    power within 1e-3 of its largest, the processed phase within 0.02 rad
+    RMS weighted by the amplitude modulo a constant, the amplitude within
+    1e-3); the corrected peak above 1.1 times the uncorrected one."""
+    import warnings
+
+    from slmsuite_torch.ops import cuda_fft
+
+    runs = {}
+    for device in (cuda, torch.device("cpu")):
+        fs = _superpixel_rig(device)
+        frames = [0]
+        hw = fs.cam._get_image_hw
+
+        def counted(*args, hw=hw, frames=frames, **kwargs):
+            frames[0] += 1
+            return hw(*args, **kwargs)
+
+        fs.cam._get_image_hw = counted
+        cuda_fft.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            raw = fs.wavefront_calibrate(calibration_points=np.array([[160.0], [110.0]]),
+                                         superpixel_size=32, phase_steps=phase_steps, plot=-1)
+            processed = fs.wavefront_calibration_superpixel_process(apply=True, smooth=2)
+        torch.cuda.synchronize()
+        runs[device.type] = (fs, raw, processed, dict(cuda_fft.LAUNCHES), frames[0])
+    fs, raw, processed, launches, frames = runs["cuda"]
+    assert launches["rows_fft"] == launches["cols_fft"] == frames > 0
+    _, raw_cpu, processed_cpu, launches_cpu, _ = runs["cpu"]
+    assert launches_cpu["rows_fft"] == 0
+    for key in ("power", "normalization"):
+        scale = np.nanmax(np.abs(raw_cpu[key]))
+        assert np.nanmax(np.abs(raw[key] - raw_cpu[key])) <= 1e-3 * scale, key
+    d = np.angle(np.exp(1j * (processed["phase"] - processed_cpu["phase"])))
+    weight = processed_cpu["amplitude"]
+    piston = np.angle(np.sum(weight * np.exp(1j * d)))
+    rms = np.sqrt(np.sum(weight * np.angle(np.exp(1j * (d - piston))) ** 2) / weight.sum())
+    assert rms <= 0.02, rms
+    assert np.abs(processed["amplitude"] - processed_cpu["amplitude"]).max() <= 1e-3
+
+    def peak():
+        fs.slm.set_phase(None, settle=False)
+        return float(fs.cam.get_image().astype(float).max())
+
+    while peak() >= 0.9 * fs.cam.bitresolution:
+        fs.cam.set_exposure(fs.cam.get_exposure() / 2)
+    after = peak()
+    correction = fs.slm.source.pop("phase")
+    before = peak()
+    fs.slm.source["phase"] = correction
+    assert after > 1.1 * before, (after, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 9, 17, 129, 257])
+def test_gaussian_blur_on_the_card_matches_the_cpu(cuda, k):
+    from slmsuite_torch.holography.analysis import _cv
+
+    image = torch.from_numpy(np.random.default_rng(k).uniform(0, 1, (300, 1024)))
+    got = _cv.gaussian_blur(image.to(cuda), k).cpu()
+    assert float((got - _cv.gaussian_blur(image, k)).abs().max()) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interpolation", ["nearest", "cubic"])
+@pytest.mark.parametrize("factor", [32, 64])
+def test_resize_on_the_card_matches_the_cpu(cuda, interpolation, factor):
+    from slmsuite_torch.holography.analysis import _cv
+
+    small = torch.from_numpy(np.random.default_rng(factor).uniform(-1, 2, (16, 16)))
+    size = (16 * factor, 16 * factor)
+    got = _cv.resize(small.to(cuda), size, interpolation).cpu()
+    assert float((got - _cv.resize(small, size, interpolation)).abs().max()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_device_measurement_follows_the_calibration_on_the_card(cuda):
+    """Item 8's pin on the card: a spot hologram optimized with camera
+    feedback on the device measurement path, then the superpixel
+    calibration's correction applied and the hologram optimized again:
+    its device constants are rebuilt, and each time the device measurement
+    (one rows_fft, one cols_fft) equals set_phase -> get_image -> take
+    within one count per window pixel."""
+    import warnings
+
+    from slmsuite_torch.holography import analysis
+    from slmsuite_torch.holography.algorithms import SpotHologram
+    from slmsuite_torch.ops import cuda_fft
+
+    fs = _superpixel_rig(cuda)
+    state = np.random.get_state()
+    np.random.seed(4)
+    holo = SpotHologram((512, 512), np.array([[150.0, 110.0, 130.0], [150.0, 150.0, 100.0]]),
+                        basis="ij", cameraslm=fs, device=cuda)
+    np.random.set_state(state)
+
+    def check():
+        holo._midloop_cleaning()
+        cuda_fft.reset_launch_counts()
+        fast, _ = holo._sim_spot_powers()
+        assert cuda_fft.LAUNCHES["rows_fft"] == 1 and cuda_fft.LAUNCHES["cols_fft"] == 1
+        holo.measure("ij")
+        host = analysis.take(np.square(np.asarray(holo.img_ij, np.float64)), holo.spot_ij,
+                             holo.spot_integration_width_ij, centered=True, integrate=True)
+        assert host.min() > 0
+        assert np.abs(fast - host).max() <= holo.spot_integration_width_ij ** 2
+
+    fs.cam.set_exposure(30.0)
+    holo.optimize("WGS-Kim", feedback="experimental_spot", maxiter=3, verbose=False)
+    consts = holo._sim_engine_inputs()[0]
+    check()
+    fs.cam.set_exposure(1.0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fs.wavefront_calibrate(calibration_points=np.array([[160.0], [110.0]]),
+                               superpixel_size=64, phase_steps=8, plot=-1)
+        fs.wavefront_calibration_superpixel_process(apply=True, smooth=2)
+    fs.cam.set_exposure(30.0)
+    holo.optimize("WGS-Kim", feedback="experimental_spot", maxiter=3, verbose=False)
+    assert holo._sim_engine_inputs()[0] is not consts
+    check()

@@ -483,12 +483,10 @@ def test_wavefront_calibrate_zernike_smooth_matches_jax(kwargs):
 
 
 def test_calibration_refusals_name_their_item():
-    """What stays queued raises, naming its ROADMAP item: the superpixel
-    method (item 9, step 5) and the plots (item 12); an unknown method
-    raises ValueError, as in the JAX package."""
+    """What stays queued raises, naming its ROADMAP item: the plots (item
+    12); an unknown method raises ValueError, as in the JAX package (the
+    superpixel method runs: ``tests/test_torch_superpixel.py``)."""
     tfs, jfs = _rigs()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tfs.wavefront_calibrate(method="superpixel", calibration_point=(1, 2))
     for call in (
         lambda: tfs.wavefront_calibrate(method="zernike", plot=1),
         lambda: tfs._wavefront_calibrate_zernike_plot_raw(),
