@@ -4,7 +4,9 @@ Smoke run of the PyTorch / CUDA port (``slmsuite_torch``) on one GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``--parent DIR`` adds the A/B of the compressed kernels against the port
-unpacked at ``DIR``, e.g. ``git archive <parent> slmsuite_torch``). It needs one
+unpacked at ``DIR``, e.g. ``git archive <parent> slmsuite_torch``;
+``--line-ab DIR`` runs only the build and the A/B of the eleven line
+kernels against that port's at 2048^2 and 4096^2). It needs one
 CUDA card and ``nvcc``; it fails (exit code != 0, no result line) when
 there is no card or the port is missing. In order:
 
@@ -44,6 +46,14 @@ there is no card or the port is missing. In order:
    for the stack, bit for bit B one-plane launches, and against the plain
    version (with the compiler's registers, stack and spills of each
    instantiation of the four column and entry kernels and ``rows_fft``);
+   X0, each of the eleven line kernels against its plain version on 14
+   planes that take each of the sides 96, 792, 1080, 1152, 1272, 1536,
+   1792, 1920, 4160, 6144 and 8192 as a row side and as a column side
+   (rows_fft and cols_fft both ways; the step kernels WGS-Kim with stats,
+   the MRAF mix with Kim and zero weights; an output normalized near a
+   zero of the field held against float64 where the plain f32 version is
+   itself further off, ``conditioned``), and the five stack kernels on a
+   4 x 1080x1920 stack;
    Z0, the four compressed kernels past 16 Zernike terms (D = 17, 21 and
    28, at 100 and 600 spots: the wide ``f2n`` and ``n2f``, and
    ``fused_iter`` on ``fused_spots_kernel`` and past 256 spots as ``f2n``
@@ -145,6 +155,18 @@ there is no card or the port is missing. In order:
      relative, the final efficiency and uniformity within 1e-3, G2's spot
      amplitudes within 2e-3), one host transfer an iteration (the loss),
      ms an iteration interleaved and peak device memory;
+   - X1 and X2, planes of the sides the line kernels take since they
+     take every multiple of 8 in [64, 8192]: X1, the fused slice's 32x32
+     array (pitch 120) on 8192^2, ``get_padded_shape`` of a 4160x2464 SLM
+     (the padded step: ``rows_fft`` 2, ``cols_fwd_polar`` and
+     ``cols_wexp_inv`` 1 an iteration), 50 iterations, then ms an
+     iteration and peak memory; X2, a 1920x1152 SLM at
+     ``padding_order=0``, a 1152x1920 plane: WGS-Kim on the fused loop,
+     N1's natural step, M1's MRAF carry on the ring cut to it, CG (20
+     iterations, as G1) and a 4-plane batched multiplane stack, then a
+     96x128 WGS-Kim hologram on the card against the same run on the CPU
+     port (efficiency and uniformity within 1e-3, the phase's 99th
+     percentile within 2e-3);
    each through the kernels (loop launches checked, launches after the
    loop counted apart; the kernels line reports both together) and
    through the plain versions (final efficiency and uniformity within
@@ -176,6 +198,9 @@ there is no card or the port is missing. In order:
    against the parent's at 300 to 8,000 spots), and again at 21 Zernike
    terms on config 5's plane and spot count,
    the cos/sin cache build, and ms/iteration of the C1 and C2 loops; the
+   eleven line kernels at 1152x1920 and 8192^2 with their plain versions,
+   ``torch.fft`` (rows and columns) and bounds, device time from one
+   profiler session a shape (``phase_mixed_timing``); the
    five stack kernels and the multiplane step's compositions
    (``fft2_polar_from_phase``, ``wexp_ifft2``, ``ifft2``) on 8 planes in
    one launch, per plane, beside one plane, the plain version and the
@@ -190,7 +215,9 @@ there is no card or the port is missing. In order:
    M2's (WGS-Kim with zero weights), M3's (GS, the natural MRAF step), the
    C1, the C2, the S2, the P1 and the G1 loops: device
    time, device busy share, device launches per iteration (S2 also:
-   the share of ``sim_measure_spots``).
+   the share of ``sim_measure_spots``); then X2, X1, X0 and the line
+   kernels' times at 1152x1920 and 8192^2 (described under 4, 5 and 7),
+   after every phase whose counts read the profiler.
 9. last (W1's ~5,100 frames of pageable copies leave the profiler
    missing some small copies and memsets, which the counts above rely
    on), the rig's other calibrations:
@@ -224,7 +251,9 @@ there is no card or the port is missing. In order:
    of the same names where h5py is missing);
 
 It prints the per-kernel JSON line (``rows_fft`` and ``cols_fft`` with
-their W1 launches under ``superpixel``), the ``nvidia-smi``
+their W1 launches under ``superpixel``; each line kernel with ``mixed``:
+X0's largest relative error, its X1 and X2 launches and its times at
+1152x1920 and 8192^2), the ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
 ``chiprun_out/`` (``chip_smoke.log`` keeps every line printed;
 ``fft_launch.log`` the launch shapes of the kernels on the line FFT, as
@@ -966,9 +995,7 @@ def bound(shape, planes_moved, line_ffts):
     pass, ``line_ffts`` passes) over the f32 peak."""
     H, W = shape
     assert H == W, shape
-    byte_ms = planes_moved * 4 * H * W / HBM_BYTES_PER_S * 1e3
-    flop_ms = line_ffts * 5 * H * W * np.log2(H) / F32_FLOP_PER_S * 1e3
-    return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
+    return bound_lines(shape, planes_moved, H, line_ffts)
 
 
 def interleaved(name, kernel, plain, library=None, bound_of=None, size="2048^2",
@@ -1079,7 +1106,7 @@ def write_launch_log():
 
     lines = []
     for kernel in cuda_fft.LINE_KERNELS:
-        for n in (64, 128, 256, 512, 1024, 2048, 4096):
+        for n in (64, 128, 256, 512, 1024, 2048, 4096, 8192) + X0_SIDES[:-1]:
             lines_a_block, blocks, threads, smem = cuda_fft.fft_launch_shape(kernel, n)
             what = "columns a tile" if kernel.startswith("cols") else "rows a block"
             lines.append(f"{kernel} n={n}: plan {cuda_fft.fft_plan(n)}, {lines_a_block} "
@@ -1254,12 +1281,15 @@ def plain_step_functions():
     return plain_versions(fft, DISPATCHERS)
 
 
-def spot_array(device, array_shape, array_pitch, slm_shape=None, seed=0):
+def spot_array(device, array_shape, array_pitch, slm_shape=None, seed=0,
+               shape=(2048, 2048)):
+    """SpotHologram.make_rectangular_array on a ``shape`` farfield (over a
+    ``slm_shape`` SLM where given, else unpadded), from a seeded phase."""
     from slmsuite_torch.holography.algorithms import SpotHologram
 
     kwargs = {} if slm_shape is None else dict(slm_shape=slm_shape)
     holo = SpotHologram.make_rectangular_array(
-        (2048, 2048), array_shape=array_shape, array_pitch=array_pitch, basis="knm",
+        shape, array_shape=array_shape, array_pitch=array_pitch, basis="knm",
         device=device, **kwargs,
     )
     rng = np.random.default_rng(seed)
@@ -1267,15 +1297,20 @@ def spot_array(device, array_shape, array_pitch, slm_shape=None, seed=0):
     return holo
 
 
-def image_hologram(device):
-    """``Hologram`` on the 2048^2 ``image_mraf`` ring target (nan noise
-    region), from a seeded phase."""
+def image_hologram(device, shape=(2048, 2048)):
+    """``Hologram`` on the ``image_mraf`` ring target (nan noise region),
+    cut to ``shape`` from the square of its larger side, from a seeded
+    phase."""
     from slmsuite_torch.holography.algorithms import Hologram
     from slmsuite_torch.models.engine_models import image_mraf_target
 
-    holo = Hologram(target=image_mraf_target(2048), device=device)
+    H, W = shape
+    side = max(H, W)
+    target = image_mraf_target(side)[(side - H) // 2:(side + H) // 2,
+                                     (side - W) // 2:(side + W) // 2]
+    holo = Hologram(target=np.ascontiguousarray(target), device=device)
     rng = np.random.default_rng(0)
-    holo.reset_phase(custom_phase=rng.uniform(-np.pi, np.pi, (2048, 2048)))
+    holo.reset_phase(custom_phase=rng.uniform(-np.pi, np.pi, shape))
     return holo
 
 
@@ -2561,10 +2596,11 @@ def compressed_bound(name, D, N, P, n8):
     return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
 
 
-def parent_port(root):
-    """The ``cuda_compressed`` module of the port unpacked at ``root`` (a
-    parent commit's ``slmsuite_torch``, for an A/B): its package imported
-    in place of this tree's, then this tree's put back in ``sys.modules``.
+def parent_port(root, module="slmsuite_torch.ops.cuda_compressed"):
+    """The ``module`` (``cuda_compressed``, or ``cuda_fft``) of the port
+    unpacked at ``root`` (a parent commit's ``slmsuite_torch``, for an
+    A/B): its package imported in place of this tree's, then this tree's
+    put back in ``sys.modules``.
     The parent's modules keep their own references, so its wrappers check,
     bind, build (into ``root/build/``) and launch its own library, and count
     in its own ``LAUNCHES``."""
@@ -2576,7 +2612,7 @@ def parent_port(root):
     saved = {k: sys.modules.pop(k) for k in list(sys.modules) if ours(k)}
     sys.path.insert(0, str(root))
     try:
-        return importlib.import_module("slmsuite_torch.ops.cuda_compressed")
+        return importlib.import_module(module)
     finally:
         sys.path.remove(str(root))
         for k in [k for k in sys.modules if ours(k)]:
@@ -4029,15 +4065,539 @@ def phase_cg(device):
     return {"G1": g1, "G2": g2, "G3": g3}, g1_run
 
 
+# ----------------------------------------------------------------------
+# X0-X2: planes whose sides are multiples of 8 but not powers of two (the
+# line FFT's mixed lines, n = m P with m odd), and the 8192-point line.
+# ----------------------------------------------------------------------
+
+#: X0's planes: every side of X0_SIDES as a row side and as a column side.
+X0_SIDES = (96, 792, 1080, 1152, 1272, 1536, 1792, 1920, 4160, 6144, 8192)
+X0_PLANES = ((96, 128), (128, 96), (792, 1272), (1272, 792), (1080, 1920), (1920, 1080),
+             (1152, 1536), (1536, 1152), (1152, 1920), (1792, 4160), (4160, 1792),
+             (6144, 1152), (1152, 6144), (8192, 8192))
+#: X0's stack for the kernels that take one.
+X0_STACK = (4, 1080, 1920)
+#: X1: the padded shape of a 4160x2464 SLM (a 10-megapixel 4K LCoS) at
+#: padding_order=1, and the SLM's (H, W).
+X1_SLM, X1_SHAPE, X1_ITERS, X1_PITCH = (2464, 4160), (8192, 8192), 50, 120
+#: X2: a 1920x1152 SLM at padding_order=0; its iterations (CG: X2_CG_ITERS)
+#: and the batched stack's planes.
+X2_SHAPE, X2_ITERS, X2_CG_ITERS, X2_PLANES = (1152, 1920), 50, 20, 4
+X2_ARRAY, X2_PITCH = (16, 16), (40, 40)
+#: X2's small plane, against the CPU port (ROADMAP.md F7's 96x128).
+X2_SMALL, X2_SMALL_ITERS = (96, 128), 20
+#: The shapes of the mixed-side timings (PERF.md section 6).
+MIXED_TIMED = ((1152, 1920), (8192, 8192))
+
+
+def device_pair(shape, device, seed):
+    """A standard normal pair drawn on the card (seeded torch generator):
+    the large planes' inputs, without a host round trip."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=device) for _ in range(2))
+
+
+def mixed_inputs(shape, device, seed=0):
+    """One carry step's inputs at ``shape`` on the card: step_inputs'
+    quantities (psi in +-4 pi, a 12-spot target, Kim's phasor, an amplitude
+    plane, MRAF regions, zero weights) drawn by a seeded torch generator."""
+    from slmsuite_torch.ops import fft
+
+    H, W = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform(lo, hi, size=shape):
+        return lo + (hi - lo) * torch.rand(size, generator=gen, device=device)
+
+    target = torch.from_numpy(spot_target(H, W, seed=seed + 5)).to(device)
+    pff = uniform(-np.pi, np.pi)
+    mcode = torch.where(target > 0, 1.0, torch.where(uniform(0, 1) < 0.5, 2.0, 0.0))
+    scal = fft.pack_scalars(dict(
+        post=1.0 / np.sqrt(H * W), inv_prev_norm=0.7, apply_update=1.0, use_theta=1.0,
+        feedback_exponent=0.8, feedback_factor=0.2, inv_fnorm=1.3,
+        inv_tsum=1.0 / float((target**2).sum()), inv_fsum=0.9, mraf_factor=0.4,
+        zero_factor=0.3,
+    ), device)
+    return dict(psi=uniform(-4 * np.pi, 4 * np.pi), amp=uniform(0.5, 1.5), target=target,
+                weights=target * 1.3, mask=(target != 0).float(), mcode=mcode.contiguous(),
+                phase_ff=(torch.cos(pff), torch.sin(pff)), angle=pff,
+                zw=1e-3 * torch.randn((2, *shape), generator=gen, device=device), scal=scal)
+
+
+def conditioned(tag, got, ref, plain64, lines):
+    """A carry kernel's pair against its plain version within CARRY_RTOL;
+    where the plain f32 version itself is further than that from the same
+    function in float64 (an amplitude replacement or a phasor near a zero of
+    the field), the kernel's pair against float64 within twice the plain
+    f32 version's own error. Returns the error against the f32 version."""
+    e = max(rel_err(g, r) for g, r in zip(got, ref))
+    if e <= CARRY_RTOL:
+        lines.append(f"{tag}: rel {e:.3e}")
+        return e
+    ref64 = plain64()
+    ek = max(rel_err(g.double(), r) for g, r in zip(got, ref64))
+    ep = max(rel_err(g.double(), r) for g, r in zip(ref, ref64))
+    assert ek <= max(CARRY_RTOL, 2 * ep), f"{tag}: rel {e:.3e}, float64 {ek:.3e} / {ep:.3e}"
+    lines.append(f"{tag}: rel {e:.3e}; against float64 kernel {ek:.3e}, plain f32 {ep:.3e}")
+    return e
+
+
+def as_double(*xs):
+    return tuple(None if x is None else tuple(y.double() for y in x) if isinstance(x, tuple)
+                 else x.double() if torch.is_tensor(x) else x for x in xs)
+
+
+def phase_mixed_parity(device):
+    """X0: each of the eleven line kernels against its plain version on
+    X0_PLANES (each of X0_SIDES as a row side and as a column side), forward
+    and inverse, then the five kernels that take a stack on X0_STACK (one
+    launch; bit for bit the planes' own launches; against the plain
+    version). Returns each kernel's largest relative error."""
+    from slmsuite_torch.ops import cuda_fft, fft
+
+    worst = dict.fromkeys(cuda_fft.LINE_KERNELS, 0.0)
+    lines = []
+
+    def keep(name, e):
+        worst[name] = max(worst[name], e)
+
+    start = time.perf_counter()
+    for shape in X0_PLANES:
+        xr, xi = device_pair(shape, device, seed=shape[0] + shape[1])
+        for inverse in (False, True):
+            for name in ("rows_fft", "cols_fft"):
+                got = getattr(cuda_fft, name)(xr, xi, inverse=inverse, scale=0.5)
+                ref = getattr(fft, "_" + name)(xr, xi, inverse=inverse, scale=0.5)
+                e = max(rel_err(g, r) for g, r in zip(got, ref))
+                assert e <= CARRY_RTOL, f"{name} {shape} inverse={inverse}: {e:.3e}"
+                lines.append(f"{name} {shape} inverse={inverse}: rel {e:.3e}")
+                keep(name, e)
+        x = mixed_inputs(shape, device)
+        for amp in (1.0 / np.sqrt(shape[0] * shape[1]), x["amp"]):
+            gr, gi = cuda_fft.carry_entry(x["psi"], amp)
+            pr, pi_ = fft._wgs_carry_entry(x["psi"], amp)
+            e = max(rel_err(gr, pr), rel_err(gi, pi_))
+            assert e <= CARRY_RTOL, f"carry_entry {shape}: {e:.3e}"
+            keep("carry_entry", e)
+        wrapped = wrapped_abs(cuda_fft.carry_exit(pr, pi_), fft._wgs_carry_exit(pr, pi_))
+        p99 = float(torch.quantile(wrapped.flatten()[::7].double(), 0.99))
+        top = float(wrapped.max())
+        assert p99 < PSI_P99 and top <= PSI_MAX_ATOL, f"carry_exit {shape}: {p99:.3e} {top:.3e}"
+        lines.append(f"carry_entry {shape}: rel {e:.3e}; carry_exit p99 {p99:.3e} max {top:.3e}")
+        keep("carry_exit", top)
+        # The column kernels with an epilogue, one column of the pair zero.
+        xr[:, 1], xi[:, 1] = 0.0, 0.0
+        got = cuda_fft.cols_fwd_polar(xr, xi, 0.25)
+        ref = fft._cols_fwd_polar(xr, xi, 0.25)
+        e, et = rel_err(got[0], ref[0]), theta_err(got[1], ref[1], ref[0])
+        assert e <= CARRY_RTOL and et < THETA_ATOL, f"cols_fwd_polar {shape}: {e:.3e} {et:.3e}"
+        assert max(float(g[:, 1].abs().max()) for g in got) == 0.0, f"polar {shape} zero column"
+        keep("cols_fwd_polar", e)
+        w, phi = xr.abs(), xi * np.pi
+        got, ref = cuda_fft.cols_wexp_inv(w, phi), fft._cols_wexp_inv(w, phi)
+        e2 = max(rel_err(g, r) for g, r in zip(got, ref))
+        assert e2 <= CARRY_RTOL, f"cols_wexp_inv {shape}: {e2:.3e}"
+        keep("cols_wexp_inv", e2)
+        lines.append(f"cols_fwd_polar {shape}: |F| rel {e:.3e} arg F {et:.3e}; "
+                     f"cols_wexp_inv rel {e2:.3e}")
+        del xr, xi, w, phi, got, ref
+        # The step kernels: WGS-Kim with stats, the amplitude plane.
+        kw = dict(rule="kim", kim=True, stats_on=True)
+        args = (pr, pi_, x["weights"], x["target"], x["mask"], x["phase_ff"], x["scal"])
+        got = cuda_fft.cols_wgs_roundtrip(*args, **kw)
+        ref = fft._cols_wgs_roundtrip(*args, **kw)
+        tag = f"cols_wgs_roundtrip {shape}"
+        keep("cols_wgs_roundtrip", conditioned(
+            tag + "/h", got[:2], ref[:2], lambda: fft._cols_wgs_roundtrip(
+                *as_double(*args[:-1]), args[-1], **kw)[:2], lines))
+        check_close(tag + "/w", got[2], ref[2], WEIGHT_ATOL, WEIGHT_RTOL)
+        amp_ff = torch.fft.fft(torch.complex(pr, pi_), dim=0).abs()
+        lines.append(f"{tag}/pff: " + check_phasor(tag + "/pff", got[3], ref[3], amp_ff))
+        check_close(tag + "/sums", got[4], ref[4], WEIGHT_ATOL, WEIGHT_RTOL)
+        check_close(tag + "/maxs", got[5], ref[5], WEIGHT_ATOL, WEIGHT_RTOL)
+        hr, hi = ref[0], ref[1]
+        keep("rows_normfwd", conditioned(
+            f"rows_normfwd {shape}", cuda_fft.rows_normfwd(hr, hi, x["amp"]),
+            fft._rows_normfwd(hr, hi, x["amp"]),
+            lambda: fft._rows_normfwd(*as_double(hr, hi, x["amp"])), lines))
+        del got, ref, hr, hi, amp_ff
+        fwd = (pr, pi_, x["weights"], x["target"], x["mask"], x["scal"])
+        got = cuda_fft.cols_mraf_fwd(*fwd, rule="kim", stats_on=True)
+        ref = fft._cols_mraf_fwd(*fwd, rule="kim", stats_on=True)
+        tag = f"cols_mraf_fwd {shape}"
+        e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+        assert e <= CARRY_RTOL, f"{tag}/F: {e:.3e}"
+        ew = check_close(tag + "/uw", got[2], ref[2], WEIGHT_ATOL, WEIGHT_RTOL)
+        check_close(tag + "/sums", got[3], ref[3], WEIGHT_ATOL, WEIGHT_RTOL)
+        check_close(tag + "/maxs", got[4], ref[4], WEIGHT_ATOL, WEIGHT_RTOL)
+        lines.append(f"{tag}: F rel {e:.3e} uw {ew:.3e}")
+        keep("cols_mraf_fwd", e)
+        mix = (ref[0], ref[1], ref[2], x["mcode"], x["phase_ff"], x["zw"], ref[3], x["scal"])
+        got_m = cuda_fft.cols_mraf_mix_inv(*mix, kim=True, zero=True)
+        ref_m = fft._cols_mraf_mix_inv(*mix, kim=True, zero=True)
+        tag = f"cols_mraf_mix_inv {shape}"
+        keep("cols_mraf_mix_inv", conditioned(
+            tag + "/h", got_m[:2], ref_m[:2], lambda: fft._cols_mraf_mix_inv(
+                *as_double(*mix[:6]), mix[6], mix[7], kim=True, zero=True)[:2], lines))
+        for g, r in (*zip(got_m[2], ref_m[2]), *zip(got_m[3], ref_m[3])):
+            check_close(tag + "/pff, zw", g, r, WEIGHT_ATOL, WEIGHT_RTOL)
+        del got, ref, got_m, ref_m, mix
+        fwd_kim = (pr, pi_, x["weights"], x["target"], x["mask"], x["angle"], x["scal"])
+        got = cuda_fft.cols_wgs_fwd(*fwd_kim, **kw)
+        ref = fft._cols_wgs_fwd(*fwd_kim, **kw)
+        tag = f"cols_wgs_fwd {shape}"
+        e = max(rel_err(got[0], ref[0]), rel_err(got[1], ref[1]))
+        assert e <= CARRY_RTOL, f"{tag}/re, im: {e:.3e}"
+        check_close(tag + "/w", got[2], ref[2], WEIGHT_ATOL, WEIGHT_RTOL)
+        et = theta_err(got[3], ref[3], fft._fft2_polar_from_phase(x["psi"], x["amp"])[0])
+        assert et < THETA_ATOL, f"{tag}/phase_ff: {et:.3e}"
+        check_close(tag + "/sums", got[4], ref[4], WEIGHT_ATOL, WEIGHT_RTOL)
+        check_close(tag + "/maxs", got[5], ref[5], WEIGHT_ATOL, WEIGHT_RTOL)
+        lines.append(f"{tag}: re, im rel {e:.3e} phase_ff {et:.3e}")
+        keep("cols_wgs_fwd", e)
+        del x, pr, pi_, got, ref, fwd, fwd_kim, args
+        torch.cuda.synchronize()
+    # The stack: one launch, bit for bit its planes' launches, the plain
+    # version on the stack.
+    B = X0_STACK[0]
+    xr, xi = device_pair(X0_STACK, device, seed=7)
+    s = dict(xr=xr, xi=xi, psi=xr * 4, w=xr.abs(), phi=xi * np.pi, amp=xi[0].abs() + 0.5)
+    for name, (batched, single, plain) in stack_calls(s).items():
+        cuda_fft.reset_launch_counts()
+        got = batched()
+        kernel = name.split()[0]
+        assert cuda_fft.LAUNCHES[kernel] == 1, (name, cuda_fft.LAUNCHES)
+        for b in range(B):
+            assert all(torch.equal(g[b], p) for g, p in zip(got, single(b))), (name, b)
+        ref = plain()
+        if kernel == "cols_fwd_polar":
+            e = rel_err(got[0], ref[0])
+            assert theta_err(got[1], ref[1], ref[0]) < THETA_ATOL, name
+        else:
+            e = max(rel_err(g, r) for g, r in zip(got, ref))
+        assert e <= CARRY_RTOL, f"{name} stack {X0_STACK}: {e:.3e}"
+        lines.append(f"{name} stack {X0_STACK}: one launch, {B} planes bit for bit, rel {e:.3e}")
+    del xr, xi, s, got, ref
+    torch.cuda.synchronize()
+    (OUT / "parity_mixed.log").write_text("\n".join(lines) + "\n")
+    log(f"X0 mixed sides: {len(lines)} checks passed on {len(X0_PLANES)} planes and the "
+        f"{X0_STACK} stack in {time.perf_counter() - start:.1f} s; largest relative error "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return worst
+
+
+def mixed_multiplane(device, shape, B, seed=0):
+    """``run(k)``: the batched multiplane engine on B planes of ``shape``,
+    as parallel_models.multiplane_batched builds it (one spot a plane, a
+    constant kernel a plane), WGS-Kim."""
+    from slmsuite_torch.ops.propagation import fold_phase
+    from slmsuite_torch.parallel.multiplane import (
+        BatchedGSConfig,
+        make_multiplane_consts,
+        run_batched_gs,
+    )
+
+    H, W = shape
+    targets = np.zeros((B, H, W), np.float32)
+    for b in range(B):
+        targets[b, H // 4 + 7 * b, W // 3 + 11 * b] = 1.0
+    kernels = np.stack([np.full(shape, 0.05 * b, np.float32) for b in range(B)])
+    config = BatchedGSConfig(method="WGS-Kim", shape=shape, slm_shape=shape, n_planes=B)
+    consts = make_multiplane_consts(targets, kernels, np.full(B, 1 / np.sqrt(B), np.float32),
+                                    1.0 / np.sqrt(H * W), device=device)
+    rng = np.random.default_rng(seed)
+    psi0 = torch.as_tensor(fold_phase(rng.uniform(-np.pi, np.pi, shape).astype(np.float32),
+                                      shape), device=device)
+    weights0 = torch.as_tensor(targets, device=device)
+    return lambda k: run_batched_gs(config, psi0, weights0, consts, k)
+
+
+def phase_mixed_paths(device):
+    """X2 and X1, each path driven with the launch counts set to 0 just
+    before it and read just after. X2, a 1920x1152 SLM at padding_order=0
+    (a 1152x1920 plane): the fused loop, N1's natural step, M1's MRAF
+    carry, G1's CG and an X2_PLANES-plane batched multiplane stack, each
+    against the plain versions; and the 96x128 hologram ROADMAP.md's F7
+    names against the CPU port. X1, the headline path at full width on
+    get_padded_shape of a 4160x2464 SLM: a 32x32 SpotHologram array,
+    WGS-Kim, X1_ITERS iterations (the padded natural step), against the
+    plain versions, then ms an iteration and peak memory. Returns each
+    path's launches."""
+    from slmsuite_torch.holography.algorithms import Hologram
+
+    out = {}
+    n = X2_ITERS
+    size = f"{X2_SHAPE[0]}x{X2_SHAPE[1]}"
+    out["X2 fused"] = run_path(
+        f"X2 fused WGS-Kim {size}",
+        lambda: spot_array(device, X2_ARRAY, X2_PITCH, shape=X2_SHAPE),
+        lambda h: h.optimize(method="WGS-Kim", maxiter=n, stat_groups=["computational"],
+                             verbose=False),
+        dict(carry_entry=1, cols_wgs_roundtrip=n, rows_normfwd=n, carry_exit=1))
+    out["X2 N1"] = run_path(
+        f"X2 N1 WGS-Nogrette computational_spot {size}",
+        lambda: spot_array(device, X2_ARRAY, X2_PITCH, shape=X2_SHAPE),
+        lambda h: h.optimize(method="WGS-Nogrette", maxiter=n, feedback="computational_spot",
+                             stat_groups=["computational", "computational_spot"],
+                             verbose=False),
+        dict(carry_entry=n, cols_fwd_polar=n, cols_wexp_inv=n, carry_exit=n))
+    out["X2 M1"] = run_path(
+        f"X2 M1 MRAF WGS-Leonardo image {size}",
+        lambda: image_hologram(device, X2_SHAPE),
+        lambda h: h.optimize(method="WGS-Leonardo", maxiter=n, mraf_factor=0.5,
+                             stat_groups=["computational"], verbose=False),
+        dict(carry_entry=1, cols_mraf_fwd=n, cols_mraf_mix_inv=n, rows_normfwd=n,
+             carry_exit=1))
+    c = X2_CG_ITERS
+    out["X2 G1"], _ = run_cg_path(
+        f"X2 G1 SpotHologram {size} CG",
+        lambda: spot_array(device, X2_ARRAY, X2_PITCH, shape=X2_SHAPE), c, G1_LR,
+        dict(rows_fft=2 * c, cols_fft=2 * c), dict(rows_fft=1, cols_fft=1), SLICE_ATOL)
+    B = X2_PLANES
+    run = mixed_multiplane(device, X2_SHAPE, B)
+    (psi, _, stats, _, _), launches, seconds = counted(lambda: run(n))
+    expect = dict(carry_entry=n, cols_fwd_polar=n, cols_wexp_inv=n, rows_fft=n)
+    log(f"X2 multiplane {B} x {size} WGS-Kim (kernels): final efficiency "
+        f"{stats[-1, :, 0].tolist()} in {seconds:.2f} s; launches {launches}")
+    assert launches == expect, (launches, expect)
+    assert psi.shape == X2_SHAPE and bool(torch.isfinite(stats).all())
+    with plain_step_functions():
+        (_, _, plain, _, _), plain_launches, _ = counted(lambda: run(n))
+    assert not plain_launches, plain_launches
+    d = float((stats[:, :, :2] - plain[:, :, :2]).abs().max())
+    log(f"X2 multiplane {B} x {size} (plain): per-plane efficiency and uniformity max |diff| "
+        f"over {n} iterations {d:.3e}")
+    assert d <= SLICE_ATOL, d
+    out["X2 multiplane"] = launches
+    # ROADMAP.md F7's plane: the card's run against the CPU port's.
+    m = X2_SMALL_ITERS
+    finals = []
+    for where in (device, torch.device("cpu")):
+        holo = spot_array(where, (4, 4), (12, 12), shape=X2_SMALL)
+        split = launches_split_at_populate(holo)
+        holo.optimize(method="WGS-Kim", maxiter=m, stat_groups=["computational"],
+                      verbose=False)
+        loop, _ = split()
+        if where.type == "cuda":
+            assert loop == dict(carry_entry=1, cols_wgs_roundtrip=m, rows_normfwd=m,
+                                carry_exit=1), loop
+            out["X2 96x128"] = loop
+        stats = holo.stats["stats"]["computational"]
+        finals.append((np.array([stats["efficiency"][-1], stats["uniformity"][-1]]),
+                       np.asarray(holo.get_phase())))
+    (card, card_phase), (cpu, cpu_phase) = finals
+    d = float(np.abs(card - cpu).max())
+    p99 = float(np.percentile(np.abs(np.angle(np.exp(1j * (card_phase - cpu_phase)))), 99))
+    log(f"X2 {X2_SMALL} WGS-Kim {m} iterations, card against the CPU port: efficiency and "
+        f"uniformity max |diff| {d:.3e}, phase p99 {p99:.3e}")
+    assert d <= SLICE_ATOL and p99 < PSI_P99, (d, p99)
+    padded = Hologram.get_padded_shape(X1_SLM)
+    assert tuple(padded) == X1_SHAPE, padded
+    n = X1_ITERS
+    torch.cuda.reset_peak_memory_stats()
+    out["X1"] = run_path(
+        f"X1 SpotHologram {X1_SHAPE} canvas / {X1_SLM} SLM 32x32 WGS-Kim",
+        lambda: spot_array(device, (32, 32), (X1_PITCH, X1_PITCH), slm_shape=X1_SLM,
+                           shape=X1_SHAPE),
+        lambda h: h.optimize(method="WGS-Kim", maxiter=n, stat_groups=["computational"],
+                             verbose=False),
+        dict(rows_fft=2 * n, cols_fwd_polar=n, cols_wexp_inv=n))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    holo = spot_array(device, (32, 32), (X1_PITCH, X1_PITCH), slm_shape=X1_SLM, shape=X1_SHAPE)
+    run = lambda k: holo.optimize(method="WGS-Kim", maxiter=k,  # noqa: E731
+                                  stat_groups=["computational"], verbose=False)
+    with plain_step_functions():
+        p1 = wall_ms(run, 10)
+    k1 = wall_ms(run, 10)
+    log(f"X1 {X1_SHAPE}: kernels {k1:.3f} ms an iteration, plain {p1:.3f}; peak device memory "
+        f"{peak:.3f} GiB  [{nvidia_smi_line()}]")
+    del holo, run
+    return out
+
+
+def bound_lines(shape, planes_moved, n, line_ffts):
+    """``(bound_ms, bound_by)`` of a kernel on the lines of length ``n``
+    of an (H, W) plane: the bytes moved (each input plane read once, each
+    output written once) over the HBM rate against 5 n log2 n flops a line
+    (the FFT's least count, whatever the radices) over the f32 peak."""
+    H, W = shape
+    byte_ms = planes_moved * 4 * H * W / HBM_BYTES_PER_S * 1e3
+    flop_ms = line_ffts * 5 * H * W * np.log2(n) / F32_FLOP_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
+
+
+def device_ms_many(calls, n=10):
+    """Device milliseconds per call of each of ``calls`` (name -> fn) from
+    one ``torch.profiler`` session: a window of one call and one of ``n``
+    for each, the device events whose midpoints lie in the window summed.
+    A name whose window of ``n`` does not hold ``n`` times the events of
+    one call (the profiler lost some) is timed by CUDA events instead.
+    Returns name -> (ms, "device" or "events")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in calls.items():
+            for k in (1, n):
+                with record_function(f"{name} x{k}"):
+                    for _ in range(k):
+                        fn()
+                    torch.cuda.synchronize()
+    events = prof.events()
+    spans = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.endswith((" x1", f" x{n}")):
+            spans[e.name] = (e.time_range.start, e.time_range.end, [])
+    for e in events:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        mid = (e.time_range.start + e.time_range.end) / 2
+        for lo, hi, found in spans.values():
+            if lo <= mid <= hi:
+                found.append(e.time_range.elapsed_us())
+    out = {}
+    for name, fn in calls.items():
+        one, many = spans.get(f"{name} x1"), spans.get(f"{name} x{n}")
+        if one and many and one[2] and len(many[2]) == n * len(one[2]):
+            out[name] = (sum(many[2]) / 1e3 / n, "device")
+        else:
+            out[name] = (cuda_ms(fn, n=n), "events")
+    return out
+
+
+def line_kernel_calls(shape, device, module):
+    """name -> (call of each of the eleven line kernels of ``module`` (a
+    ``cuda_fft``) at ``shape``, its plain version, the library call or
+    None, (planes moved, line length, line FFTs)): the variants of
+    phase_carry_timing (WGS-Kim with stats, scalar amplitude; MRAF at M1's
+    Leonardo, the mix without Kim or zero weights)."""
+    from slmsuite_torch.ops import fft
+
+    H, W = shape
+    x = mixed_inputs(shape, device)
+    amp = 1.0 / np.sqrt(H * W)
+    gr, gi = fft._wgs_carry_entry(x["psi"], amp)
+    z = torch.complex(gr, gi)
+    kw = dict(rule="kim", kim=True, stats_on=True)
+    cols = (gr, gi, x["weights"], x["target"], x["mask"], x["phase_ff"], x["scal"])
+    fwd = (gr, gi, x["weights"], x["target"], x["mask"], x["scal"])
+    fr, fi, uw, sums, _ = fft._cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True)
+    mix = (fr, fi, uw, x["mcode"], None, None, sums, x["scal"])
+    fwd_kim = (gr, gi, x["weights"], x["target"], x["mask"], x["angle"], x["scal"])
+    w, phi = gr.abs(), gi
+    K = module
+    return {
+        "rows_fft": (lambda: K.rows_fft(gr, gi, inverse=False),
+                     lambda: fft._rows_fft(gr, gi, inverse=False),
+                     lambda: torch.fft.fft(z, dim=-1), (4, W, 1)),
+        "cols_fft": (lambda: K.cols_fft(gr, gi, inverse=False),
+                     lambda: fft._cols_fft(gr, gi, inverse=False),
+                     lambda: torch.fft.fft(z, dim=0), (4, H, 1)),
+        "rows_normfwd": (lambda: K.rows_normfwd(gr, gi, amp),
+                         lambda: fft._rows_normfwd(gr, gi, amp), None, (4, W, 2)),
+        "cols_wgs_roundtrip": (lambda: K.cols_wgs_roundtrip(*cols, **kw),
+                               lambda: fft._cols_wgs_roundtrip(*cols, **kw), None, (10, H, 2)),
+        "carry_entry": (lambda: K.carry_entry(x["psi"], amp),
+                        lambda: fft._wgs_carry_entry(x["psi"], amp), None, (3, W, 1)),
+        "carry_exit": (lambda: K.carry_exit(gr, gi), lambda: fft._wgs_carry_exit(gr, gi),
+                       None, (3, W, 1)),
+        "cols_fwd_polar": (lambda: K.cols_fwd_polar(gr, gi, 1.0),
+                           lambda: fft._cols_fwd_polar(gr, gi, 1.0), None, (4, H, 1)),
+        "cols_wexp_inv": (lambda: K.cols_wexp_inv(w, phi), lambda: fft._cols_wexp_inv(w, phi),
+                          None, (4, H, 1)),
+        "cols_mraf_fwd": (lambda: K.cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True),
+                          lambda: fft._cols_mraf_fwd(*fwd, rule="leonardo", stats_on=True),
+                          None, (8, H, 1)),
+        "cols_mraf_mix_inv": (lambda: K.cols_mraf_mix_inv(*mix, kim=False, zero=False),
+                              lambda: fft._cols_mraf_mix_inv(*mix, kim=False, zero=False),
+                              None, (6, H, 1)),
+        "cols_wgs_fwd": (lambda: K.cols_wgs_fwd(*fwd_kim, **kw),
+                         lambda: fft._cols_wgs_fwd(*fwd_kim, **kw), None, (9, H, 1)),
+    }
+
+
+def phase_mixed_timing(device):
+    """The eleven line kernels at MIXED_TIMED (1152x1920: mixed lines both
+    ways; 8192^2: the four-pass line, columns on a cluster of four): device
+    time of the kernel, its plain version and the library call (torch.fft
+    along the same axis, for rows_fft and cols_fft), and the bound, from one
+    profiler session a shape. Returns name -> {size: entry}."""
+    from slmsuite_torch.ops import cuda_fft
+
+    t = {}
+    for shape in MIXED_TIMED:
+        size = f"{shape[0]}x{shape[1]}"
+        calls = line_kernel_calls(shape, device, cuda_fft)
+        flat = {}
+        for name, (kernel, plain, library, _) in calls.items():
+            flat[name], flat[name + " plain"] = kernel, plain
+            if library is not None:
+                flat[name + " library"] = library
+        ms = device_ms_many(flat)
+        for name, (_, _, library, (planes, n, ffts)) in calls.items():
+            bound_ms, bound_by = bound_lines(shape, planes, n, ffts)
+            entry = dict(ms=ms[name][0], plain_ms=ms[name + " plain"][0],
+                         library_ms=ms[name + " library"][0] if library else None,
+                         bound_ms=bound_ms, bound_by=bound_by, timer=ms[name][1])
+            t.setdefault(name, {})[size] = entry
+            log(f"time {name} {size} ({entry['timer']}): kernel {entry['ms']:.4f} ms, plain "
+                f"{entry['plain_ms']:.4f} ms"
+                + (f", torch.fft {entry['library_ms']:.4f} ms" if library else "")
+                + f", bound {bound_ms:.4f} ms ({bound_by}): {bound_ms / entry['ms']:.3f} of it")
+        del calls, flat
+    log(f"  [{nvidia_smi_line()}]")
+    return t
+
+
+def line_ab(device, parent_root):
+    """The eleven line kernels of this tree against the parent's (the port
+    unpacked at ``parent_root``) at 2048^2 and 4096^2, in one process:
+    outputs compared, then device time in turns parent, this, this, parent,
+    twice (medians of four), from one profiler session a shape and round."""
+    from slmsuite_torch.ops import cuda_fft
+
+    parent = parent_port(parent_root, "slmsuite_torch.ops.cuda_fft")
+    for side in (2048, 4096):
+        shape, size = (side, side), f"{side}^2"
+        this_calls = line_kernel_calls(shape, device, cuda_fft)
+        parent_calls = line_kernel_calls(shape, device, parent)
+        readings = {name: {"this": [], "parent": []} for name in this_calls}
+        for name in this_calls:
+            a, b = this_calls[name][0](), parent_calls[name][0]()
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            same = all(torch.equal(u, v) for u, v in zip(a, b) if torch.is_tensor(u))
+            log(f"A/B {name} {size}: outputs {'bit for bit' if same else 'differ'}")
+        for _ in range(2):
+            for who in ("parent", "this", "this", "parent"):
+                source = this_calls if who == "this" else parent_calls
+                ms = device_ms_many({name: call[0] for name, call in source.items()})
+                for name, (value, timer) in ms.items():
+                    readings[name][who].append(value)
+        for name, r in readings.items():
+            this, par = float(np.median(r["this"])), float(np.median(r["parent"]))
+            log(f"A/B {name} {size} (device): this " + " ".join(f"{v:.4f}" for v in r["this"])
+                + " ms, parent " + " ".join(f"{v:.4f}" for v in r["parent"])
+                + f" ms; medians {this:.4f} / {par:.4f} = {this / par:.4f}")
+        del this_calls, parent_calls
+    log(f"  [{nvidia_smi_line()}]")
+
+
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
-    parent = None
+    parent = line_ab_parent = None
     if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
         parent = Path(sys.argv[2]).resolve()
         assert (parent / "slmsuite_torch").is_dir(), f"no port under {parent}"
+    elif sys.argv[1:2] == ["--line-ab"] and len(sys.argv) == 3:
+        line_ab_parent = Path(sys.argv[2]).resolve()
+        assert (line_ab_parent / "slmsuite_torch").is_dir(), f"no port under {line_ab_parent}"
     elif len(sys.argv) > 1:
-        raise SystemExit("usage: python3 chip_smoke.py [--parent DIR]")
+        raise SystemExit("usage: python3 chip_smoke.py [--parent DIR | --line-ab DIR]")
 
     device = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4046,6 +4606,10 @@ def main():
     (OUT / "chip_smoke.log").write_text("")
     phase_environment()
     phase_build()
+    if line_ab_parent is not None:
+        # Only the A/B of the line kernels against the parent's, no smoke.
+        line_ab(device, line_ab_parent)
+        return
     errors = phase_parity(device)
     errors.update(phase_natural_parity(device))
     errors.update(phase_mraf_parity(device))
@@ -4092,6 +4656,11 @@ def main():
     phase_profile(device, f"P1 multiplane {MP_PLANES} x {MP_SIDE}^2 WGS-Kim batched",
                   lambda k: p1_run(None, k), n=MP_TIMING_ITERS)
     phase_profile(device, "G1 SpotHologram 2048^2 32x32 CG", g1_run, n=G1_ITERS)
+    # The sides that are not powers of two, and 8192^2, after every phase
+    # whose counts read the profiler (X2's CG first among them).
+    mixed_paths = phase_mixed_paths(device)
+    mixed_errors = phase_mixed_parity(device)
+    mixed_times = phase_mixed_timing(device)
     # The rig's calibrations come last: after W1's ~5,100 frames (three 4 MB
     # pageable copies each) the profiler's CUPTI records miss some small
     # copies and memsets, which the transfer counts and device-event
@@ -4136,6 +4705,15 @@ def main():
             # The superpixel wavefront calibration's launches (W1): one of
             # each a camera frame.
             kernels[-1]["superpixel"] = {"path": "W1", "launches": w1_launches[name]}
+        if name in mixed_times:
+            # Planes whose sides are not powers of two, and 8192^2: X0's
+            # largest relative error against the plain version, the
+            # launches on X1 and X2's paths, and the times at MIXED_TIMED.
+            kernels[-1]["mixed"] = {
+                "x0_max_rel": mixed_errors[name],
+                "launches": {p: c[name] for p, c in mixed_paths.items() if c.get(name)},
+                **mixed_times[name],
+            }
         if any(name in counts for counts in cg_launches.values()):
             # The launches of gradient phase retrieval, forward and backward.
             kernels[-1]["cg"] = {g: counts.get(name, 0) for g, counts in cg_launches.items()}

@@ -123,7 +123,11 @@ __device__ __forceinline__ void stats_accumulate(float f, float t, float m,
 // the result is the same from run to run): two float32 sums f (overlap,
 // |w|^2), the two float64 error moments d (err_sum, err_sq) and four
 // float32 maxes m; lanes first, then the warps in order. Thread 0 gets the
-// totals. Any block of whole warps, up to 1024 threads.
+// totals. Any block of whole warps, up to 1024 threads; with PARTIAL (the
+// column kernels of a mixed line, whose blocks are tc m T_P threads) also a
+// block whose last warp is partial: its shuffles name only its lanes, and a
+// lane adds only what a lane of the block sent.
+template <bool PARTIAL = false>
 __device__ __forceinline__ void block_reduce(float f[2], double d[2],
                                              float m[4]) {
   __shared__ float red_f[32][2];
@@ -131,13 +135,30 @@ __device__ __forceinline__ void block_reduce(float f[2], double d[2],
   __shared__ float red_m[32][4];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    for (int k = 0; k < 2; ++k) {
-      f[k] += __shfl_down_sync(0xffffffffu, f[k], off);
-      d[k] += __shfl_down_sync(0xffffffffu, d[k], off);
+  if constexpr (!PARTIAL) {
+    for (int off = 16; off > 0; off >>= 1) {
+      for (int k = 0; k < 2; ++k) {
+        f[k] += __shfl_down_sync(0xffffffffu, f[k], off);
+        d[k] += __shfl_down_sync(0xffffffffu, d[k], off);
+      }
+      for (int k = 0; k < 4; ++k)
+        m[k] = fmaxf(m[k], __shfl_down_sync(0xffffffffu, m[k], off));
     }
-    for (int k = 0; k < 4; ++k)
-      m[k] = fmaxf(m[k], __shfl_down_sync(0xffffffffu, m[k], off));
+  } else {
+    const int lanes = min(32, (int)blockDim.x - (warp << 5));
+    const unsigned mask = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1u;
+    for (int off = 16; off > 0; off >>= 1) {
+      const bool in = lane + off < lanes;
+      for (int k = 0; k < 2; ++k) {
+        const float fo = __shfl_down_sync(mask, f[k], off);
+        const double dq = __shfl_down_sync(mask, d[k], off);
+        if (in) f[k] += fo, d[k] += dq;
+      }
+      for (int k = 0; k < 4; ++k) {
+        const float mo = __shfl_down_sync(mask, m[k], off);
+        if (in) m[k] = fmaxf(m[k], mo);
+      }
+    }
   }
   if (lane == 0) {
     for (int k = 0; k < 2; ++k) {
@@ -148,7 +169,8 @@ __device__ __forceinline__ void block_reduce(float f[2], double d[2],
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
+    const int warps = PARTIAL ? (int)(blockDim.x + 31) >> 5 : (int)(blockDim.x >> 5);
+    for (int w = 1; w < warps; ++w) {
       for (int k = 0; k < 2; ++k) {
         f[k] += red_f[w][k];
         d[k] += red_d[w][k];
@@ -159,10 +181,11 @@ __device__ __forceinline__ void block_reduce(float f[2], double d[2],
 }
 
 // Block-reduce the partials and write this block's row of `partials`.
+template <bool PARTIAL = false>
 __device__ __forceinline__ void write_partials(float facc[2], double dacc[2],
                                                float macc[4],
                                                double* __restrict__ partials) {
-  block_reduce(facc, dacc, macc);
+  block_reduce<PARTIAL>(facc, dacc, macc);
   if (threadIdx.x == 0) {
     double* out = partials + blockIdx.x * 8;
     out[0] = facc[0];

@@ -34,7 +34,7 @@
 // rows s + q H / E of its column in registers; every per-point plane is
 // read and written at the same offsets (col_offset), and the epilogue of
 // the forward kernel and the prologue of the mix run on those registers.
-// The per-point offsets are 32-bit (col_offset<LOG2N, unsigned>): with
+// The per-point offsets are 32-bit (col_offset<LINE, unsigned>): with
 // 64-bit ones the mix spilled 528-560 bytes at 2048 and 4096 points and
 // took 0.068 ms at 2048^2, with 32-bit ones it spills nothing at any
 // length and takes 0.058 (Kim with zero weights 0.109 against 0.129);
@@ -72,18 +72,19 @@ constexpr float kNoise = 2.f;
 // second barrier is needed. 64 registers from 128 points up (53 at 64 and
 // 512), with 192-256 bytes of spill loads; the mix kernel below, 64 or
 // fewer and no spill.
-template <int LOG2N, int G>
+template <int LINE, int G>
 __device__ __forceinline__ void cols_mraf_fwd_tile(
     const float* __restrict__ gr, const float* __restrict__ gi, const float* __restrict__ w,
     const float* __restrict__ t, const float* __restrict__ mask, float* __restrict__ fr_out,
     float* __restrict__ fi_out, float* __restrict__ uw_out, const float* __restrict__ scal,
     double* __restrict__ partials, const float2* __restrict__ tw_fwd, int rule, int stats_on,
-    int W, int tc, int log2tc) {
-  constexpr int E = line_points(LOG2N);
+    int W, int tc, int log2tc, int m) {
+  constexpr int E = line_points(LINE);
   extern __shared__ float2 sbuf[];
+  const Line<LINE> ln{m};
   float2 v[E];
-  const ColPlace p = col_tile_start<LOG2N, G>(v, gr, gi, W, tc, log2tc);
-  line_fft<LOG2N, false, G>(v, sbuf + p.c, tc, p.s, tw_fwd);
+  const ColPlace p = col_tile_start<LINE, G>(v, gr, gi, W, tc, log2tc, ln);
+  line_fft<LINE, false, G>(v, sbuf + p.c, tc, p.s, tw_fwd, ln);
 
   const StepScalars sc = load_scalars(scal);
   float facc[2] = {0.f, 0.f};    // overlap, sum uw^2
@@ -91,7 +92,7 @@ __device__ __forceinline__ void cols_mraf_fwd_tile(
   float macc[4] = {kNegFill, kNegFill, kNegFill, kNegFill};
 #pragma unroll
   for (int q = 0; q < E; ++q) {
-    const unsigned g = col_offset<LOG2N, unsigned>(q, W, p.col, p.s);
+    const unsigned g = col_offset<LINE, unsigned>(ln, q, W, p.col, p.s);
     const float fr = v[q].x * sc.post;
     const float fi = v[q].y * sc.post;
     const float f = sqrtf(fr * fr + fi * fi);
@@ -104,33 +105,33 @@ __device__ __forceinline__ void cols_mraf_fwd_tile(
     if (stats_on)
       stats_accumulate(f, tv, mask[g], sc.inv_tsum, sc.inv_fsum, facc, dacc, macc);
   }
-  write_partials(facc, dacc, macc, partials);
+  write_partials<line_mixed(LINE)>(facc, dacc, macc, partials);
 }
 
-template <int LOG2N>
-__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE>
+__global__ void __launch_bounds__(cols_max_threads(LINE))
 cols_mraf_fwd_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
                      const float* __restrict__ w, const float* __restrict__ t,
                      const float* __restrict__ mask, float* __restrict__ fr_out,
                      float* __restrict__ fi_out, float* __restrict__ uw_out,
                      const float* __restrict__ scal, double* __restrict__ partials,
                      const float2* __restrict__ tw_fwd, int rule, int stats_on, int W, int tc,
-                     int log2tc) {
-  cols_mraf_fwd_tile<LOG2N, 1>(gr, gi, w, t, mask, fr_out, fi_out, uw_out, scal, partials,
-                               tw_fwd, rule, stats_on, W, tc, log2tc);
+                     int log2tc, int m) {
+  cols_mraf_fwd_tile<LINE, 1>(gr, gi, w, t, mask, fr_out, fi_out, uw_out, scal, partials,
+                              tw_fwd, rule, stats_on, W, tc, log2tc, m);
 }
 
-template <int LOG2N>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE, int G>
+__global__ void __cluster_dims__(G, 1, 1) __launch_bounds__(cols_max_threads(LINE))
 cols_mraf_fwd_cluster_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
                              const float* __restrict__ w, const float* __restrict__ t,
                              const float* __restrict__ mask, float* __restrict__ fr_out,
                              float* __restrict__ fi_out, float* __restrict__ uw_out,
                              const float* __restrict__ scal, double* __restrict__ partials,
                              const float2* __restrict__ tw_fwd, int rule, int stats_on, int W,
-                             int tc, int log2tc) {
-  cols_mraf_fwd_tile<LOG2N, 2>(gr, gi, w, t, mask, fr_out, fi_out, uw_out, scal, partials,
-                               tw_fwd, rule, stats_on, W, tc, log2tc);
+                             int tc, int log2tc, int m) {
+  cols_mraf_fwd_tile<LINE, G>(gr, gi, w, t, mask, fr_out, fi_out, uw_out, scal, partials,
+                              tw_fwd, rule, stats_on, W, tc, log2tc, m);
 }
 
 // #10, K2 <- pallas_fft._cols_mraf_mix_inv_kernel (pallas_call at :1837),
@@ -147,7 +148,7 @@ cols_mraf_fwd_cluster_kernel(const float* __restrict__ gr, const float* __restri
 // for two, would not fit 64 registers. With G = 2 the cluster's barrier
 // ends the start: the inverse's first exchange writes the other block's
 // buffer. Then the inverse column line_fft and the store.
-template <int LOG2N, int G>
+template <int LINE, int G>
 __device__ __forceinline__ void cols_mraf_mix_inv_tile(
     const float* __restrict__ fr_in, const float* __restrict__ fi_in,
     const float* __restrict__ uw, const float* __restrict__ mcode,
@@ -156,17 +157,18 @@ __device__ __forceinline__ void cols_mraf_mix_inv_tile(
     float* __restrict__ hi, float* __restrict__ pffr_out, float* __restrict__ pffi_out,
     float* __restrict__ zwr_out, float* __restrict__ zwi_out, const float* __restrict__ scal,
     const double* __restrict__ sums, const float2* __restrict__ tw_inv, int kim, int zero,
-    int W, int tc, int log2tc) {
-  constexpr int E = line_points(LOG2N);
+    int W, int tc, int log2tc, int m) {
+  constexpr int E = line_points(LINE);
   extern __shared__ float2 sbuf[];
+  const Line<LINE> ln{m};
   float2 v[E];
   const ColPlace p = col_place<G>(tc, log2tc);
-  load_col_regs<LOG2N>(v, fr_in, fi_in, W, p.col, p.s);
+  load_col_regs(v, fr_in, fi_in, W, p.col, p.s, ln);
   const StepScalars sc = load_scalars(scal);
   const float inv_norm = 1.f / sqrtf((float)sums[3]);
 #pragma unroll
   for (int q = 0; q < E; ++q) {
-    const unsigned g = col_offset<LOG2N, unsigned>(q, W, p.col, p.s);
+    const unsigned g = col_offset<LINE, unsigned>(ln, q, W, p.col, p.s);
     const float2 F = v[q];
     const float f2 = F.x * F.x + F.y * F.y;
     float er = 1.f, ei = 0.f;
@@ -208,12 +210,12 @@ __device__ __forceinline__ void cols_mraf_mix_inv_tile(
     v[q] = make_float2(re, im);
   }
   if (G > 1) cooperative_groups::this_cluster().sync();
-  line_fft<LOG2N, true, G>(v, sbuf + p.c, tc, p.s, tw_inv);
-  store_col_regs<LOG2N>(v, hr, hi, W, p.col, p.s, 1.f);
+  line_fft<LINE, true, G>(v, sbuf + p.c, tc, p.s, tw_inv, ln);
+  store_col_regs(v, hr, hi, W, p.col, p.s, 1.f, ln);
 }
 
-template <int LOG2N>
-__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE>
+__global__ void __launch_bounds__(cols_max_threads(LINE))
 cols_mraf_mix_inv_kernel(
     const float* __restrict__ fr_in, const float* __restrict__ fi_in,
     const float* __restrict__ uw, const float* __restrict__ mcode,
@@ -222,14 +224,14 @@ cols_mraf_mix_inv_kernel(
     float* __restrict__ hi, float* __restrict__ pffr_out, float* __restrict__ pffi_out,
     float* __restrict__ zwr_out, float* __restrict__ zwi_out, const float* __restrict__ scal,
     const double* __restrict__ sums, const float2* __restrict__ tw_inv, int kim, int zero,
-    int W, int tc, int log2tc) {
-  cols_mraf_mix_inv_tile<LOG2N, 1>(fr_in, fi_in, uw, mcode, pffr, pffi, zwr, zwi, hr, hi,
-                                   pffr_out, pffi_out, zwr_out, zwi_out, scal, sums, tw_inv,
-                                   kim, zero, W, tc, log2tc);
+    int W, int tc, int log2tc, int m) {
+  cols_mraf_mix_inv_tile<LINE, 1>(fr_in, fi_in, uw, mcode, pffr, pffi, zwr, zwi, hr, hi,
+                                  pffr_out, pffi_out, zwr_out, zwi_out, scal, sums, tw_inv,
+                                  kim, zero, W, tc, log2tc, m);
 }
 
-template <int LOG2N>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE, int G>
+__global__ void __cluster_dims__(G, 1, 1) __launch_bounds__(cols_max_threads(LINE))
 cols_mraf_mix_inv_cluster_kernel(
     const float* __restrict__ fr_in, const float* __restrict__ fi_in,
     const float* __restrict__ uw, const float* __restrict__ mcode,
@@ -238,48 +240,51 @@ cols_mraf_mix_inv_cluster_kernel(
     float* __restrict__ hi, float* __restrict__ pffr_out, float* __restrict__ pffi_out,
     float* __restrict__ zwr_out, float* __restrict__ zwi_out, const float* __restrict__ scal,
     const double* __restrict__ sums, const float2* __restrict__ tw_inv, int kim, int zero,
-    int W, int tc, int log2tc) {
-  cols_mraf_mix_inv_tile<LOG2N, 2>(fr_in, fi_in, uw, mcode, pffr, pffi, zwr, zwi, hr, hi,
-                                   pffr_out, pffi_out, zwr_out, zwi_out, scal, sums, tw_inv,
-                                   kim, zero, W, tc, log2tc);
+    int W, int tc, int log2tc, int m) {
+  cols_mraf_mix_inv_tile<LINE, G>(fr_in, fi_in, uw, mcode, pffr, pffi, zwr, zwi, hr, hi,
+                                  pffr_out, pffi_out, zwr_out, zwi_out, scal, sums, tw_inv,
+                                  kim, zero, W, tc, log2tc, m);
 }
 
 // Launches of one instantiation of each (launch_cols; the cluster
-// instantiation where cols_cluster says two blocks). cols_mraf_fwd then
-// launches stats_reduce on its n_blocks rows of partials, which must be
-// the grid's (cols_blocks).
-template <int LOG2N>
+// instantiation where cols_cluster says more than one block). cols_mraf_fwd
+// then launches stats_reduce on its n_blocks rows of partials, which must
+// be the grid's (cols_blocks).
+template <int LINE>
 int launch_cols_mraf_fwd(const float* gr, const float* gi, const float* w, const float* t,
                          const float* mask, float* fr, float* fi, float* uw, const float* scal,
-                         double* partials, double* sums, float* maxs, int W, int n_blocks,
-                         const float2* tw_fwd, int rule, int stats_on, cudaStream_t stream) {
-  if (n_blocks <= 0 || n_blocks != cols_blocks(kColsMrafFwd, LOG2N, W))
+                         double* partials, double* sums, float* maxs, int W, int m,
+                         int n_blocks, const float2* tw_fwd, int rule, int stats_on,
+                         cudaStream_t stream) {
+  constexpr int G = cols_cluster(LINE);
+  if (n_blocks <= 0 || n_blocks != cols_blocks(kColsMrafFwd, m << line_log2(LINE), W))
     return (int)cudaErrorInvalidValue;
   auto kernel = [] {
-    if constexpr (cols_cluster(LOG2N) == 2) return cols_mraf_fwd_cluster_kernel<LOG2N>;
-    else return cols_mraf_fwd_kernel<LOG2N>;
+    if constexpr (G > 1) return cols_mraf_fwd_cluster_kernel<LINE, G>;
+    else return cols_mraf_fwd_kernel<LINE>;
   }();
-  const int err = launch_cols<kColsMrafFwd, LOG2N>(kernel, W, stream, gr, gi, w, t, mask, fr,
-                                                    fi, uw, scal, partials, tw_fwd, rule,
-                                                    stats_on);
+  const int err = launch_cols<kColsMrafFwd, LINE>(kernel, W, m, stream, gr, gi, w, t, mask, fr,
+                                                   fi, uw, scal, partials, tw_fwd, rule,
+                                                   stats_on);
   if (err != (int)cudaSuccess) return err;
   return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
 }
 
-template <int LOG2N>
+template <int LINE>
 int launch_cols_mraf_mix_inv(const float* fr, const float* fi, const float* uw,
                              const float* mcode, const float* pffr, const float* pffi,
                              const float* zwr, const float* zwi, float* hr, float* hi,
                              float* pffr_out, float* pffi_out, float* zwr_out, float* zwi_out,
-                             const float* scal, const double* sums, int W,
+                             const float* scal, const double* sums, int W, int m,
                              const float2* tw_inv, int kim, int zero, cudaStream_t stream) {
+  constexpr int G = cols_cluster(LINE);
   auto kernel = [] {
-    if constexpr (cols_cluster(LOG2N) == 2) return cols_mraf_mix_inv_cluster_kernel<LOG2N>;
-    else return cols_mraf_mix_inv_kernel<LOG2N>;
+    if constexpr (G > 1) return cols_mraf_mix_inv_cluster_kernel<LINE, G>;
+    else return cols_mraf_mix_inv_kernel<LINE>;
   }();
-  return launch_cols<kColsMrafMixInv, LOG2N>(kernel, W, stream, fr, fi, uw, mcode, pffr, pffi,
-                                             zwr, zwi, hr, hi, pffr_out, pffi_out, zwr_out,
-                                             zwi_out, scal, sums, tw_inv, kim, zero);
+  return launch_cols<kColsMrafMixInv, LINE>(kernel, W, m, stream, fr, fi, uw, mcode, pffr, pffi,
+                                            zwr, zwi, hr, hi, pffr_out, pffi_out, zwr_out,
+                                            zwi_out, scal, sums, tw_inv, kim, zero);
 }
 
 }  // namespace slm
@@ -289,20 +294,21 @@ using namespace slm;
 extern "C" {
 
 // n_blocks: the rows of `partials`, slm_cols_blocks(kColsMrafFwd, H, W).
-int slm_cols_mraf_fwd(const float* gr, const float* gi, const float* w,
+int SLM_ENTRY(slm_cols_mraf_fwd)(const float* gr, const float* gi, const float* w,
                       const float* t, const float* mask, float* fr, float* fi,
                       float* uw, const float* scal, double* partials,
                       double* sums, float* maxs, int H, int W, int n_blocks,
                       const float2* tw_fwd, int rule, int stats_on,
                       cudaStream_t stream) {
-  switch (ilog2(H)) {
+  int m = 0;
+  switch (line_code(H, &m)) {
     SLM_LEN_CASES(launch_cols_mraf_fwd, gr, gi, w, t, mask, fr, fi, uw, scal, partials, sums,
-                  maxs, W, n_blocks, tw_fwd, rule, stats_on, stream)
+                  maxs, W, m, n_blocks, tw_fwd, rule, stats_on, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int slm_cols_mraf_mix_inv(const float* fr, const float* fi, const float* uw,
+int SLM_ENTRY(slm_cols_mraf_mix_inv)(const float* fr, const float* fi, const float* uw,
                           const float* mcode, const float* pffr,
                           const float* pffi, const float* zwr,
                           const float* zwi, float* hr, float* hi,
@@ -311,9 +317,10 @@ int slm_cols_mraf_mix_inv(const float* fr, const float* fi, const float* uw,
                           const double* sums, int H, int W,
                           const float2* tw_inv, int kim, int zero,
                           cudaStream_t stream) {
-  switch (ilog2(H)) {
+  int m = 0;
+  switch (line_code(H, &m)) {
     SLM_LEN_CASES(launch_cols_mraf_mix_inv, fr, fi, uw, mcode, pffr, pffi, zwr, zwi, hr, hi,
-                  pffr_out, pffi_out, zwr_out, zwi_out, scal, sums, W, tw_inv, kim, zero,
+                  pffr_out, pffi_out, zwr_out, zwi_out, scal, sums, W, m, tw_inv, kim, zero,
                   stream)
   }
   return (int)cudaErrorInvalidValue;

@@ -64,17 +64,18 @@ namespace slm {
 // there (by cp.async.bulk and an mbarrier) were slower, 0.035 against
 // 0.033 ms at 2048^2 by CUDA events. Nothing here needs more than the
 // planes' 4-byte alignment.
-template <int LOG2N, bool INV>
-__global__ void __launch_bounds__(kThreads)
+template <int LINE, bool INV>
+__global__ void __launch_bounds__(rows_max_threads(LINE))
 rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ yr, float* __restrict__ yi,
-                const float2* __restrict__ tw, float scale) {
+                const float2* __restrict__ tw, float scale, int m) {
   extern __shared__ float2 sbuf[];
-  const RowPlace p = row_place<LOG2N>(sbuf);
-  float2 v[line_points(LOG2N)];
-  load_row_regs<LOG2N>(v, xr, xi, p.base);
-  line_fft<LOG2N, INV>(v, p.buf, 1, p.s, tw);
-  store_row_regs<LOG2N>(v, yr, yi, p.base, scale);
+  const Line<LINE> ln{m};
+  const RowPlace p = row_place(sbuf, ln);
+  float2 v[line_points(LINE)];
+  load_row_regs(v, xr, xi, p.base, ln);
+  line_fft<LINE, INV>(v, p.buf, 1, p.s, tw, ln);
+  store_row_regs(v, yr, yi, p.base, scale, ln);
 }
 
 // #5 (cols half) <- pallas_fft._fft_cols (slmsuite_tpu/ops/pallas_fft.py:385,
@@ -106,37 +107,38 @@ rows_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // 0.052 ms against 0.039.
 // The cluster's size is the kernel's attribute: given at the launch
 // instead, the same code took 0.21 ms.
-template <int LOG2N, bool INV, int G>
+template <int LINE, bool INV, int G>
 __device__ __forceinline__ void cols_fft_tile(const float* __restrict__ xr,
                                               const float* __restrict__ xi,
                                               float* __restrict__ yr,
                                               float* __restrict__ yi,
                                               const float2* __restrict__ tw, float scale,
-                                              int W, int tc, int log2tc) {
+                                              int W, int tc, int log2tc, int m) {
   extern __shared__ float2 sbuf[];
-  const size_t plane = plane_offset<LOG2N>(W);
+  const Line<LINE> ln{m};
+  const size_t plane = plane_offset(W, ln);
   xr += plane, xi += plane, yr += plane, yi += plane;
-  float2 v[line_points(LOG2N)];
-  const ColPlace p = col_tile_start<LOG2N, G>(v, xr, xi, W, tc, log2tc);
-  line_fft<LOG2N, INV, G>(v, sbuf + p.c, tc, p.s, tw);
-  store_col_regs<LOG2N>(v, yr, yi, W, p.col, p.s, scale);
+  float2 v[line_points(LINE)];
+  const ColPlace p = col_tile_start<LINE, G>(v, xr, xi, W, tc, log2tc, ln);
+  line_fft<LINE, INV, G>(v, sbuf + p.c, tc, p.s, tw, ln);
+  store_col_regs(v, yr, yi, W, p.col, p.s, scale, ln);
 }
 
-template <int LOG2N, bool INV>
-__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE, bool INV>
+__global__ void __launch_bounds__(cols_max_threads(LINE))
 cols_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ yr, float* __restrict__ yi,
-                const float2* __restrict__ tw, float scale, int W, int tc, int log2tc) {
-  cols_fft_tile<LOG2N, INV, 1>(xr, xi, yr, yi, tw, scale, W, tc, log2tc);
+                const float2* __restrict__ tw, float scale, int W, int tc, int log2tc, int m) {
+  cols_fft_tile<LINE, INV, 1>(xr, xi, yr, yi, tw, scale, W, tc, log2tc, m);
 }
 
-template <int LOG2N, bool INV>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE, bool INV, int G>
+__global__ void __cluster_dims__(G, 1, 1) __launch_bounds__(cols_max_threads(LINE))
 cols_fft_cluster_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                         float* __restrict__ yr, float* __restrict__ yi,
                         const float2* __restrict__ tw, float scale, int W, int tc,
-                        int log2tc) {
-  cols_fft_tile<LOG2N, INV, 2>(xr, xi, yr, yi, tw, scale, W, tc, log2tc);
+                        int log2tc, int m) {
+  cols_fft_tile<LINE, INV, G>(xr, xi, yr, yi, tw, scale, W, tc, log2tc, m);
 }
 
 // #5 polar and #6 (cols half) <- pallas_fft._cols_kernel(polar_out=True)
@@ -155,37 +157,39 @@ cols_fft_cluster_kernel(const float* __restrict__ xr, const float* __restrict__ 
 // of the bound and within 3% of cols_fft (45% at 4096^2); the first
 // version, the tile staged in shared memory for a radix-2 FFT, took 0.22 ms, 9%.
 // PERF.md, section 6, has the measurements.
-template <int LOG2N, int G>
+template <int LINE, int G>
 __device__ __forceinline__ void cols_fwd_polar_tile(const float* __restrict__ xr,
                                                     const float* __restrict__ xi,
                                                     float* __restrict__ amp,
                                                     float* __restrict__ theta,
                                                     const float2* __restrict__ tw, float scale,
-                                                    int W, int tc, int log2tc) {
+                                                    int W, int tc, int log2tc, int m) {
   extern __shared__ float2 sbuf[];
-  const size_t plane = plane_offset<LOG2N>(W);
+  const Line<LINE> ln{m};
+  const size_t plane = plane_offset(W, ln);
   xr += plane, xi += plane, amp += plane, theta += plane;
-  float2 v[line_points(LOG2N)];
-  const ColPlace p = col_tile_start<LOG2N, G>(v, xr, xi, W, tc, log2tc);
-  line_fft<LOG2N, false, G>(v, sbuf + p.c, tc, p.s, tw);
-  store_col_polar<LOG2N>(v, amp, theta, W, p.col, p.s, scale);
+  float2 v[line_points(LINE)];
+  const ColPlace p = col_tile_start<LINE, G>(v, xr, xi, W, tc, log2tc, ln);
+  line_fft<LINE, false, G>(v, sbuf + p.c, tc, p.s, tw, ln);
+  store_col_polar(v, amp, theta, W, p.col, p.s, scale, ln);
 }
 
-template <int LOG2N>
-__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE>
+__global__ void __launch_bounds__(cols_max_threads(LINE))
 cols_fwd_polar_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                       float* __restrict__ amp, float* __restrict__ theta,
-                      const float2* __restrict__ tw, float scale, int W, int tc, int log2tc) {
-  cols_fwd_polar_tile<LOG2N, 1>(xr, xi, amp, theta, tw, scale, W, tc, log2tc);
+                      const float2* __restrict__ tw, float scale, int W, int tc, int log2tc,
+                      int m) {
+  cols_fwd_polar_tile<LINE, 1>(xr, xi, amp, theta, tw, scale, W, tc, log2tc, m);
 }
 
-template <int LOG2N>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE, int G>
+__global__ void __cluster_dims__(G, 1, 1) __launch_bounds__(cols_max_threads(LINE))
 cols_fwd_polar_cluster_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                               float* __restrict__ amp, float* __restrict__ theta,
                               const float2* __restrict__ tw, float scale, int W, int tc,
-                              int log2tc) {
-  cols_fwd_polar_tile<LOG2N, 2>(xr, xi, amp, theta, tw, scale, W, tc, log2tc);
+                              int log2tc, int m) {
+  cols_fwd_polar_tile<LINE, G>(xr, xi, amp, theta, tw, scale, W, tc, log2tc, m);
 }
 
 // #11 (cols half) <- pallas_fft._cols_wexp_inv_kernel
@@ -206,79 +210,85 @@ cols_fwd_polar_cluster_kernel(const float* __restrict__ xr, const float* __restr
 // at 64 and 512 points only): 0.042 ms at 2048^2, 48% of the bound (44% at
 // 4096^2); the first version, the constraint synthesised into a
 // shared-memory tile for a radix-2 FFT, took 0.25 ms, 8%.
-template <int LOG2N, int G>
+template <int LINE, int G>
 __device__ __forceinline__ void cols_wexp_inv_tile(const float* __restrict__ w,
                                                    const float* __restrict__ phi,
                                                    float* __restrict__ yr,
                                                    float* __restrict__ yi,
                                                    const float2* __restrict__ tw_inv, int W,
-                                                   int tc, int log2tc) {
+                                                   int tc, int log2tc, int m) {
   extern __shared__ float2 sbuf[];
-  const size_t plane = plane_offset<LOG2N>(W);
+  const Line<LINE> ln{m};
+  const size_t plane = plane_offset(W, ln);
   w += plane, phi += plane, yr += plane, yi += plane;
-  float2 v[line_points(LOG2N)];
-  const ColPlace p = col_tile_start_wexp<LOG2N, G>(v, w, phi, W, tc, log2tc);
-  line_fft<LOG2N, true, G>(v, sbuf + p.c, tc, p.s, tw_inv);
-  store_col_regs<LOG2N>(v, yr, yi, W, p.col, p.s, 1.f);
+  float2 v[line_points(LINE)];
+  const ColPlace p = col_tile_start_wexp<LINE, G>(v, w, phi, W, tc, log2tc, ln);
+  line_fft<LINE, true, G>(v, sbuf + p.c, tc, p.s, tw_inv, ln);
+  store_col_regs(v, yr, yi, W, p.col, p.s, 1.f, ln);
 }
 
-template <int LOG2N>
-__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE>
+__global__ void __launch_bounds__(cols_max_threads(LINE))
 cols_wexp_inv_kernel(const float* __restrict__ w, const float* __restrict__ phi,
                      float* __restrict__ yr, float* __restrict__ yi,
-                     const float2* __restrict__ tw_inv, int W, int tc, int log2tc) {
-  cols_wexp_inv_tile<LOG2N, 1>(w, phi, yr, yi, tw_inv, W, tc, log2tc);
+                     const float2* __restrict__ tw_inv, int W, int tc, int log2tc, int m) {
+  cols_wexp_inv_tile<LINE, 1>(w, phi, yr, yi, tw_inv, W, tc, log2tc, m);
 }
 
-template <int LOG2N>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE, int G>
+__global__ void __cluster_dims__(G, 1, 1) __launch_bounds__(cols_max_threads(LINE))
 cols_wexp_inv_cluster_kernel(const float* __restrict__ w, const float* __restrict__ phi,
                              float* __restrict__ yr, float* __restrict__ yi,
-                             const float2* __restrict__ tw_inv, int W, int tc, int log2tc) {
-  cols_wexp_inv_tile<LOG2N, 2>(w, phi, yr, yi, tw_inv, W, tc, log2tc);
+                             const float2* __restrict__ tw_inv, int W, int tc, int log2tc,
+                             int m) {
+  cols_wexp_inv_tile<LINE, G>(w, phi, yr, yi, tw_inv, W, tc, log2tc, m);
 }
 
 // Launch of one instantiation of rows_fft_kernel (launch_rows).
-template <int LOG2N, bool INV>
-int launch_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
+template <int LINE, bool INV>
+int launch_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int H, int m,
                     const float2* tw, float scale, cudaStream_t stream) {
-  return launch_rows<kRowsFft, LOG2N>(rows_fft_kernel<LOG2N, INV>, H, stream, xr, xi, yr, yi,
-                                      tw, scale);
+  return launch_rows<kRowsFft, LINE>(rows_fft_kernel<LINE, INV>, H, m, stream, xr, xi, yr, yi,
+                                     tw, scale);
 }
 
 // Launches of one instantiation of the column kernels (launch_cols): the
-// cluster instantiation where cols_cluster says two blocks.
-template <int LOG2N, bool INV>
+// cluster instantiation where cols_cluster says more than one block.
+template <int LINE, bool INV>
 int launch_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int W,
-                    int planes, const float2* tw, float scale, cudaStream_t stream) {
+                    int planes, int m, const float2* tw, float scale, cudaStream_t stream) {
+  constexpr int G = cols_cluster(LINE);
   auto kernel = [] {
-    if constexpr (cols_cluster(LOG2N) == 2) return cols_fft_cluster_kernel<LOG2N, INV>;
-    else return cols_fft_kernel<LOG2N, INV>;
+    if constexpr (G > 1) return cols_fft_cluster_kernel<LINE, INV, G>;
+    else return cols_fft_kernel<LINE, INV>;
   }();
-  return launch_cols_planes<kColsFft, LOG2N>(kernel, W, planes, stream, xr, xi, yr, yi, tw,
-                                             scale);
+  return launch_cols_planes<kColsFft, LINE>(kernel, W, planes, m, stream, xr, xi, yr, yi, tw,
+                                            scale);
 }
 
-template <int LOG2N>
+template <int LINE>
 int launch_cols_fwd_polar(const float* xr, const float* xi, float* amp, float* theta, int W,
-                          int planes, const float2* tw, float scale, cudaStream_t stream) {
+                          int planes, int m, const float2* tw, float scale,
+                          cudaStream_t stream) {
+  constexpr int G = cols_cluster(LINE);
   auto kernel = [] {
-    if constexpr (cols_cluster(LOG2N) == 2) return cols_fwd_polar_cluster_kernel<LOG2N>;
-    else return cols_fwd_polar_kernel<LOG2N>;
+    if constexpr (G > 1) return cols_fwd_polar_cluster_kernel<LINE, G>;
+    else return cols_fwd_polar_kernel<LINE>;
   }();
-  return launch_cols_planes<kColsFwdPolar, LOG2N>(kernel, W, planes, stream, xr, xi, amp,
-                                                  theta, tw, scale);
+  return launch_cols_planes<kColsFwdPolar, LINE>(kernel, W, planes, m, stream, xr, xi, amp,
+                                                 theta, tw, scale);
 }
 
-template <int LOG2N>
+template <int LINE>
 int launch_cols_wexp_inv(const float* w, const float* phi, float* yr, float* yi, int W,
-                         int planes, const float2* tw_inv, cudaStream_t stream) {
+                         int planes, int m, const float2* tw_inv, cudaStream_t stream) {
+  constexpr int G = cols_cluster(LINE);
   auto kernel = [] {
-    if constexpr (cols_cluster(LOG2N) == 2) return cols_wexp_inv_cluster_kernel<LOG2N>;
-    else return cols_wexp_inv_kernel<LOG2N>;
+    if constexpr (G > 1) return cols_wexp_inv_cluster_kernel<LINE, G>;
+    else return cols_wexp_inv_kernel<LINE>;
   }();
-  return launch_cols_planes<kColsWexpInv, LOG2N>(kernel, W, planes, stream, w, phi, yr, yi,
-                                                 tw_inv);
+  return launch_cols_planes<kColsWexpInv, LINE>(kernel, W, planes, m, stream, w, phi, yr, yi,
+                                                tw_inv);
 }
 
 }  // namespace slm
@@ -287,35 +297,38 @@ using namespace slm;
 
 extern "C" {
 
-int slm_rows_fft(const float* xr, const float* xi, float* yr, float* yi, int H,
+int SLM_ENTRY(slm_rows_fft)(const float* xr, const float* xi, float* yr, float* yi, int H,
                  int W, int inverse, const float2* tw, float scale,
                  cudaStream_t stream) {
-  switch (ilog2(W) * 2 + (inverse != 0)) {
-    SLM_LINE_CASES(launch_rows_fft, xr, xi, yr, yi, H, tw, scale, stream)
+  int m = 0;
+  switch (line_code(W, &m) * 2 + (inverse != 0)) {
+    SLM_LINE_CASES(launch_rows_fft, xr, xi, yr, yi, H, m, tw, scale, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The column launchers take `planes` stacked (H, W) planes (1: one plane).
-int slm_cols_fft(const float* xr, const float* xi, float* yr, float* yi, int planes,
+int SLM_ENTRY(slm_cols_fft)(const float* xr, const float* xi, float* yr, float* yi, int planes,
                  int H, int W, int inverse, const float2* tw, float scale,
                  cudaStream_t stream) {
-  switch (ilog2(H) * 2 + (inverse != 0)) {
-    SLM_LINE_CASES(launch_cols_fft, xr, xi, yr, yi, W, planes, tw, scale, stream)
+  int m = 0;
+  switch (line_code(H, &m) * 2 + (inverse != 0)) {
+    SLM_LINE_CASES(launch_cols_fft, xr, xi, yr, yi, W, planes, m, tw, scale, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
 
+#if !SLM_UNIT_MIXED
 // out[0..4) = the LaunchShape (lines, cluster, threads, smem) of `kernel`
 // (a LineKernel: rows_fft, cols_fft, rows_normfwd, cols_wgs_roundtrip,
 // carry_entry, carry_exit, cols_fwd_polar, cols_wexp_inv, cols_mraf_fwd,
-// cols_mraf_mix_inv) on lines of n points, a power of two in [64, 4096].
-int slm_fft_launch_shape(int kernel, int n, int* out) {
-  const int log2n = ilog2(n);
-  if (kernel < 0 || kernel >= kNumLineKernels || log2n < 6 || log2n > 12 ||
-      (1 << log2n) != n)
-    return (int)cudaErrorInvalidValue;
-  const LaunchShape shape = launch_shape(kernel, log2n);
+// cols_mraf_mix_inv, cols_wgs_fwd) on lines of n points, a multiple of 8
+// in [64, 8192], where the plane's other side is `other` (0: a multiple of
+// every tile; line_launch).
+int slm_fft_launch_shape(int kernel, int n, int other, int* out) {
+  if (other < 0 || other % 8) return (int)cudaErrorInvalidValue;
+  const LaunchShape shape = line_launch(kernel, n, other);
+  if (shape.lines == 0) return (int)cudaErrorInvalidValue;
   out[0] = shape.lines;
   out[1] = shape.cluster;
   out[2] = shape.threads;
@@ -327,25 +340,24 @@ int slm_fft_launch_shape(int kernel, int n, int* out) {
 // (H, W) pair, that is the rows of the stats partials of cols_wgs_roundtrip,
 // cols_mraf_fwd and cols_wgs_fwd (cols_blocks); -1 for a pair or a kernel it
 // does not take.
-int slm_cols_blocks(int kernel, int H, int W) {
-  const int log2n = ilog2(H);
-  if (!cols_kernel(kernel) || log2n < 6 || log2n > 12 || (1 << log2n) != H) return -1;
-  return cols_blocks(kernel, log2n, W);
-}
+int slm_cols_blocks(int kernel, int H, int W) { return cols_blocks(kernel, H, W); }
+#endif
 
-int slm_cols_fwd_polar(const float* xr, const float* xi, float* amp, float* theta,
+int SLM_ENTRY(slm_cols_fwd_polar)(const float* xr, const float* xi, float* amp, float* theta,
                        int planes, int H, int W, const float2* tw, float scale,
                        cudaStream_t stream) {
-  switch (ilog2(H)) {
-    SLM_LEN_CASES(launch_cols_fwd_polar, xr, xi, amp, theta, W, planes, tw, scale, stream)
+  int m = 0;
+  switch (line_code(H, &m)) {
+    SLM_LEN_CASES(launch_cols_fwd_polar, xr, xi, amp, theta, W, planes, m, tw, scale, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int slm_cols_wexp_inv(const float* w, const float* phi, float* yr, float* yi, int planes,
+int SLM_ENTRY(slm_cols_wexp_inv)(const float* w, const float* phi, float* yr, float* yi, int planes,
                       int H, int W, const float2* tw_inv, cudaStream_t stream) {
-  switch (ilog2(H)) {
-    SLM_LEN_CASES(launch_cols_wexp_inv, w, phi, yr, yi, W, planes, tw_inv, stream)
+  int m = 0;
+  switch (line_code(H, &m)) {
+    SLM_LEN_CASES(launch_cols_wexp_inv, w, phi, yr, yi, W, planes, m, tw_inv, stream)
   }
   return (int)cudaErrorInvalidValue;
 }

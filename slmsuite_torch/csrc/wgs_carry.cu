@@ -62,18 +62,21 @@ namespace slm {
 // A stack of B phase planes runs in one launch, as B H rows against one
 // shared amplitude plane (the multiplane engine's planes share their
 // nearfield amplitude): a row's amplitude is that of its row in the plane,
-// at the row's offset masked by amp_mask = H W - 1 (H W is a power of two,
-// and a thread's points lie in one row).
-template <int LOG2N>
-__global__ void __launch_bounds__(kThreads)
+// at the row's offset masked by amp_mask = H W - 1 where H W is a power of
+// two (all ones for one plane), else (WRAP) modulo amp_mask + 1 = H W; a
+// thread's points lie in one row.
+template <int LINE, bool WRAP>
+__global__ void __launch_bounds__(rows_max_threads(LINE))
 carry_entry_kernel(const float* __restrict__ psi, const float* __restrict__ amp,
                    float* __restrict__ gr, float* __restrict__ gi,
-                   const float2* __restrict__ tw, size_t amp_mask) {
-  constexpr int E = line_points(LOG2N), T = line_threads(LOG2N);
+                   const float2* __restrict__ tw, size_t amp_mask, int m) {
+  constexpr int E = line_points(LINE);
   extern __shared__ float2 sbuf[];
-  const RowPlace p = row_place<LOG2N>(sbuf);
+  const Line<LINE> ln{m};
+  const int T = ln.threads();
+  const RowPlace p = row_place(sbuf, ln);
   float2 v[E];
-  const size_t a = p.base & amp_mask;
+  const size_t a = WRAP ? p.base % (amp_mask + 1) : p.base & amp_mask;
   // Every load first (psi in .x, the amplitude in .y), then the phasors.
 #pragma unroll
   for (int q = 0; q < E; ++q)
@@ -84,8 +87,8 @@ carry_entry_kernel(const float* __restrict__ psi, const float* __restrict__ amp,
     sincosf(v[q].x, &s, &c);
     v[q] = make_float2(v[q].y * c, v[q].y * s);
   }
-  line_fft<LOG2N, false>(v, p.buf, 1, p.s, tw);
-  store_row_regs<LOG2N>(v, gr, gi, p.base, 1.f);
+  line_fft<LINE, false>(v, p.buf, 1, p.s, tw, ln);
+  store_row_regs(v, gr, gi, p.base, 1.f, ln);
 }
 
 // #2 <- pallas_fft.wgs_carry_step_pallas kernel B
@@ -114,7 +117,7 @@ carry_entry_kernel(const float* __restrict__ psi, const float* __restrict__ amp,
 // transform, so that the accumulators (two of them float64) are not live
 // through it: at 2048 points 1024 threads leave 64 registers a thread.
 // The alternatives measured against this design are in PERF.md, section 6.
-template <int LOG2N, int G>
+template <int LINE, int G>
 __device__ __forceinline__ void cols_wgs_roundtrip_tile(
     const float* __restrict__ gr, const float* __restrict__ gi,
     const float* __restrict__ w, const float* __restrict__ t,
@@ -124,14 +127,16 @@ __device__ __forceinline__ void cols_wgs_roundtrip_tile(
     float* __restrict__ pffr_out, float* __restrict__ pffi_out,
     const float* __restrict__ scal, double* __restrict__ partials, int W, int tc,
     int log2tc, const float2* __restrict__ tw_fwd, const float2* __restrict__ tw_inv,
-    int rule, int kim, int stats_on) {
-  constexpr int E = line_points(LOG2N), T = line_threads(LOG2N);
+    int rule, int kim, int stats_on, int m) {
+  constexpr int E = line_points(LINE);
   extern __shared__ float2 sbuf[];
+  const Line<LINE> ln{m};
+  const int T = ln.threads();
   float2 v[E];
-  const ColPlace p = col_tile_start<LOG2N, G>(v, gr, gi, W, tc, log2tc);
+  const ColPlace p = col_tile_start<LINE, G>(v, gr, gi, W, tc, log2tc, ln);
   const int s = p.s;
   const size_t col = p.col;
-  line_fft<LOG2N, false, G>(v, sbuf + p.c, tc, s, tw_fwd);
+  line_fft<LINE, false, G>(v, sbuf + p.c, tc, s, tw_fwd, ln);
 
   const StepScalars sc = load_scalars(scal);
   float facc[2] = {0.f, 0.f};    // overlap, |w'|^2
@@ -169,14 +174,20 @@ __device__ __forceinline__ void cols_wgs_roundtrip_tile(
   }
   // The stats leave before the inverse transform, so that their
   // accumulators are not live through it.
-  write_partials(facc, dacc, macc, partials);
+  write_partials<line_mixed(LINE)>(facc, dacc, macc, partials);
   line_barrier<G == 1>();
-  line_fft<LOG2N, true, G>(v, sbuf + p.c, tc, s, tw_inv);
-  store_col_regs<LOG2N>(v, hr, hi, W, col, s, 1.f);
+  line_fft<LINE, true, G>(v, sbuf + p.c, tc, s, tw_inv, ln);
+  store_col_regs(v, hr, hi, W, col, s, 1.f, ln);
 }
 
-template <int LOG2N>
-__global__ void __launch_bounds__(launch_shape(kColsWgsRoundtrip, LOG2N).threads)
+// The launch bound of cols_wgs_roundtrip: its launch's threads (a mixed
+// line: any block up to 1024).
+constexpr int roundtrip_threads(int line) {
+  return line_mixed(line) ? 1024 : launch_shape(kColsWgsRoundtrip, line).threads;
+}
+
+template <int LINE>
+__global__ void __launch_bounds__(roundtrip_threads(LINE))
 cols_wgs_roundtrip_kernel(
     const float* __restrict__ gr, const float* __restrict__ gi, const float* __restrict__ w,
     const float* __restrict__ t, const float* __restrict__ mask,
@@ -185,15 +196,14 @@ cols_wgs_roundtrip_kernel(
     float* __restrict__ pffi_out, const float* __restrict__ scal,
     double* __restrict__ partials, int W, int tc, int log2tc,
     const float2* __restrict__ tw_fwd, const float2* __restrict__ tw_inv, int rule, int kim,
-    int stats_on) {
-  cols_wgs_roundtrip_tile<LOG2N, 1>(gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out,
-                                    pffi_out, scal, partials, W, tc, log2tc, tw_fwd, tw_inv,
-                                    rule, kim, stats_on);
+    int stats_on, int m) {
+  cols_wgs_roundtrip_tile<LINE, 1>(gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out,
+                                   pffi_out, scal, partials, W, tc, log2tc, tw_fwd, tw_inv,
+                                   rule, kim, stats_on, m);
 }
 
-template <int LOG2N>
-__global__ void __cluster_dims__(2, 1, 1)
-__launch_bounds__(launch_shape(kColsWgsRoundtrip, LOG2N).threads)
+template <int LINE, int G>
+__global__ void __cluster_dims__(G, 1, 1) __launch_bounds__(roundtrip_threads(LINE))
 cols_wgs_roundtrip_cluster_kernel(
     const float* __restrict__ gr, const float* __restrict__ gi, const float* __restrict__ w,
     const float* __restrict__ t, const float* __restrict__ mask,
@@ -202,10 +212,10 @@ cols_wgs_roundtrip_cluster_kernel(
     float* __restrict__ pffi_out, const float* __restrict__ scal,
     double* __restrict__ partials, int W, int tc, int log2tc,
     const float2* __restrict__ tw_fwd, const float2* __restrict__ tw_inv, int rule, int kim,
-    int stats_on) {
-  cols_wgs_roundtrip_tile<LOG2N, 2>(gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out,
-                                    pffi_out, scal, partials, W, tc, log2tc, tw_fwd, tw_inv,
-                                    rule, kim, stats_on);
+    int stats_on, int m) {
+  cols_wgs_roundtrip_tile<LINE, G>(gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out,
+                                   pffi_out, scal, partials, W, tc, log2tc, tw_fwd, tw_inv,
+                                   rule, kim, stats_on, m);
 }
 
 // #7 <- pallas_fft.wgs_fused_forward_pallas (the column pass,
@@ -228,19 +238,20 @@ cols_wgs_roundtrip_cluster_kernel(
 // mask and the angle store and writes re, im, w' and the store: ten planes,
 // 50 us at 2048^2 (45 with use_theta on, the store not read). One
 // transform, so no barrier follows it.
-template <int LOG2N, int G>
+template <int LINE, int G>
 __device__ __forceinline__ void cols_wgs_fwd_tile(
     const float* __restrict__ gr, const float* __restrict__ gi, const float* __restrict__ w,
     const float* __restrict__ t, const float* __restrict__ mask,
     const float* __restrict__ pff, float* __restrict__ re, float* __restrict__ im,
     float* __restrict__ wout, float* __restrict__ pff_out, const float* __restrict__ scal,
     double* __restrict__ partials, const float2* __restrict__ tw_fwd, int rule, int kim,
-    int stats_on, int W, int tc, int log2tc) {
-  constexpr int E = line_points(LOG2N);
+    int stats_on, int W, int tc, int log2tc, int m) {
+  constexpr int E = line_points(LINE);
   extern __shared__ float2 sbuf[];
+  const Line<LINE> ln{m};
   float2 v[E];
-  const ColPlace p = col_tile_start<LOG2N, G>(v, gr, gi, W, tc, log2tc);
-  line_fft<LOG2N, false, G>(v, sbuf + p.c, tc, p.s, tw_fwd);
+  const ColPlace p = col_tile_start<LINE, G>(v, gr, gi, W, tc, log2tc, ln);
+  line_fft<LINE, false, G>(v, sbuf + p.c, tc, p.s, tw_fwd, ln);
 
   const StepScalars sc = load_scalars(scal);
   float facc[2] = {0.f, 0.f};    // overlap, |w'|^2
@@ -248,7 +259,7 @@ __device__ __forceinline__ void cols_wgs_fwd_tile(
   float macc[4] = {kNegFill, kNegFill, kNegFill, kNegFill};
 #pragma unroll
   for (int q = 0; q < E; ++q) {
-    const unsigned g = col_offset<LOG2N, unsigned>(q, W, p.col, p.s);
+    const unsigned g = col_offset<LINE, unsigned>(ln, q, W, p.col, p.s);
     const float2 F = v[q];
     const float f2 = F.x * F.x + F.y * F.y;
     const float f = sqrtf(f2) * sc.post;
@@ -278,24 +289,24 @@ __device__ __forceinline__ void cols_wgs_fwd_tile(
     if (stats_on)
       stats_accumulate(f, tv, mask[g], sc.inv_tsum, sc.inv_fsum, facc, dacc, macc);
   }
-  write_partials(facc, dacc, macc, partials);
+  write_partials<line_mixed(LINE)>(facc, dacc, macc, partials);
 }
 
-template <int LOG2N>
-__global__ void __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE>
+__global__ void __launch_bounds__(cols_max_threads(LINE))
 cols_wgs_fwd_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
                     const float* __restrict__ w, const float* __restrict__ t,
                     const float* __restrict__ mask, const float* __restrict__ pff,
                     float* __restrict__ re, float* __restrict__ im, float* __restrict__ wout,
                     float* __restrict__ pff_out, const float* __restrict__ scal,
                     double* __restrict__ partials, const float2* __restrict__ tw_fwd, int rule,
-                    int kim, int stats_on, int W, int tc, int log2tc) {
-  cols_wgs_fwd_tile<LOG2N, 1>(gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal, partials,
-                              tw_fwd, rule, kim, stats_on, W, tc, log2tc);
+                    int kim, int stats_on, int W, int tc, int log2tc, int m) {
+  cols_wgs_fwd_tile<LINE, 1>(gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal, partials,
+                             tw_fwd, rule, kim, stats_on, W, tc, log2tc, m);
 }
 
-template <int LOG2N>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cols_max_threads(LOG2N))
+template <int LINE, int G>
+__global__ void __cluster_dims__(G, 1, 1) __launch_bounds__(cols_max_threads(LINE))
 cols_wgs_fwd_cluster_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
                             const float* __restrict__ w, const float* __restrict__ t,
                             const float* __restrict__ mask, const float* __restrict__ pff,
@@ -303,11 +314,12 @@ cols_wgs_fwd_cluster_kernel(const float* __restrict__ gr, const float* __restric
                             float* __restrict__ wout, float* __restrict__ pff_out,
                             const float* __restrict__ scal, double* __restrict__ partials,
                             const float2* __restrict__ tw_fwd, int rule, int kim,
-                            int stats_on, int W, int tc, int log2tc) {
-  cols_wgs_fwd_tile<LOG2N, 2>(gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal, partials,
-                              tw_fwd, rule, kim, stats_on, W, tc, log2tc);
+                            int stats_on, int W, int tc, int log2tc, int m) {
+  cols_wgs_fwd_tile<LINE, G>(gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal, partials,
+                             tw_fwd, rule, kim, stats_on, W, tc, log2tc, m);
 }
 
+#if !SLM_UNIT_MIXED
 // Second pass of #2 and of cols_wgs_fwd: one block folds the (n_blocks, 8)
 // partials into sums[0:4] (float64 storage; the overlap and |w'|^2 summed
 // in float32, the error moments in float64) and maxs[0:4] (float32), in a
@@ -335,6 +347,7 @@ stats_reduce_kernel(const double* __restrict__ partials, int n_blocks,
     for (int k = 0; k < 4; ++k) maxs[k] = macc[k];
   }
 }
+#endif
 
 // #3 <- pallas_fft.wgs_carry_step_pallas kernel A (_rows_normfwd_kernel,
 // _rows_normfwd_amp_kernel): inverse row FFT -> Z, Z/|Z| or amp * Z/|Z|
@@ -349,18 +362,20 @@ stats_reduce_kernel(const double* __restrict__ partials, int n_blocks,
 // The block barrier between the transforms is required: the forward's
 // first exchange writes the buffer that the inverse's last exchange may
 // still be read from.
-template <int LOG2N>
-__global__ void __launch_bounds__(kThreads)
+template <int LINE>
+__global__ void __launch_bounds__(rows_max_threads(LINE))
 rows_normfwd_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
                     const float* __restrict__ amp, float* __restrict__ gr,
                     float* __restrict__ gi, const float2* __restrict__ tw_fwd,
-                    const float2* __restrict__ tw_inv) {
-  constexpr int E = line_points(LOG2N), T = line_threads(LOG2N);
+                    const float2* __restrict__ tw_inv, int m) {
+  constexpr int E = line_points(LINE);
   extern __shared__ float2 sbuf[];
-  const RowPlace p = row_place<LOG2N>(sbuf);
+  const Line<LINE> ln{m};
+  const int T = ln.threads();
+  const RowPlace p = row_place(sbuf, ln);
   float2 v[E];
-  load_row_regs<LOG2N>(v, hr, hi, p.base);
-  line_fft<LOG2N, true>(v, p.buf, 1, p.s, tw_inv);
+  load_row_regs(v, hr, hi, p.base, ln);
+  line_fft<LINE, true>(v, p.buf, 1, p.s, tw_inv, ln);
 #pragma unroll
   for (int q = 0; q < E; ++q) {
     const float2 z = v[q];
@@ -374,8 +389,8 @@ rows_normfwd_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
     }
   }
   __syncthreads();
-  line_fft<LOG2N, false>(v, p.buf, 1, p.s, tw_fwd);
-  store_row_regs<LOG2N>(v, gr, gi, p.base, 1.f);
+  line_fft<LINE, false>(v, p.buf, 1, p.s, tw_fwd, ln);
+  store_row_regs(v, gr, gi, p.base, 1.f, ln);
 }
 
 // #4 <- pallas_fft.wgs_carry_exit_pallas (_rows_phase_extract_kernel):
@@ -388,104 +403,117 @@ rows_normfwd_kernel(const float* __restrict__ hr, const float* __restrict__ hi,
 // registers, and one plane stored at the same indices. 64 registers at
 // 2048 and 4096 points (80 at 1024), no spill: 58% of the bound at 2048^2
 // (0.026 ms; the first version 0.104), 76% at 4096^2. PERF.md, section 6.
-template <int LOG2N>
-__global__ void __launch_bounds__(kThreads)
+template <int LINE>
+__global__ void __launch_bounds__(rows_max_threads(LINE))
 carry_exit_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
-                  float* __restrict__ psi, const float2* __restrict__ tw_inv) {
-  constexpr int E = line_points(LOG2N), T = line_threads(LOG2N);
+                  float* __restrict__ psi, const float2* __restrict__ tw_inv, int m) {
+  constexpr int E = line_points(LINE);
   extern __shared__ float2 sbuf[];
-  const RowPlace p = row_place<LOG2N>(sbuf);
+  const Line<LINE> ln{m};
+  const int T = ln.threads();
+  const RowPlace p = row_place(sbuf, ln);
   float2 v[E];
-  load_row_regs<LOG2N>(v, gr, gi, p.base);
-  line_fft<LOG2N, true>(v, p.buf, 1, p.s, tw_inv);
+  load_row_regs(v, gr, gi, p.base, ln);
+  line_fft<LINE, true>(v, p.buf, 1, p.s, tw_inv, ln);
 #pragma unroll
   for (int q = 0; q < E; ++q) psi[p.base + q * T] = atan2f(v[q].y, v[q].x);
 }
 
+#if !SLM_UNIT_MIXED
 cudaError_t launch_stats_reduce(const double* partials, int n_blocks,
                                 double* sums, float* maxs, cudaStream_t stream) {
   stats_reduce_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks, sums,
                                                   maxs);
   return cudaGetLastError();
 }
+#endif
 
 // Launch of one instantiation of cols_wgs_roundtrip, and of stats_reduce
 // on its n_blocks rows of partials (which must be the grid's). The dynamic
 // shared memory is above the 48 KB default from H = 1024 on: the attribute
 // is the instantiation's own.
-template <int LOG2N>
+template <int LINE>
 int launch_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
                               const float* t, const float* mask, const float* pffr,
                               const float* pffi, float* hr, float* hi, float* wout,
                               float* pffr_out, float* pffi_out, const float* scal,
-                              double* partials, double* sums, float* maxs, int W,
+                              double* partials, double* sums, float* maxs, int W, int m,
                               int n_blocks, const float2* tw_fwd, const float2* tw_inv,
                               int rule, int kim, int stats_on, cudaStream_t stream) {
-  constexpr LaunchShape shape = launch_shape(kColsWgsRoundtrip, LOG2N);
-  constexpr int G = shape.cluster;
-  static_assert(shape.threads <= 1024 && shape.smem <= 227 * 1024, "cols_wgs_roundtrip launch");
-  if (n_blocks <= 0 || n_blocks != cols_blocks(kColsWgsRoundtrip, LOG2N, W))
+  constexpr int G = cols_cluster(LINE);
+  const int n = m << line_log2(LINE);
+  const LaunchShape shape = line_launch(kColsWgsRoundtrip, n, W);
+  if (n_blocks <= 0 || n_blocks != cols_blocks(kColsWgsRoundtrip, n, W) ||
+      shape.threads > roundtrip_threads(LINE) || shape.smem > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   auto kernel = [] {
-    if constexpr (G == 2) return cols_wgs_roundtrip_cluster_kernel<LOG2N>;
-    else return cols_wgs_roundtrip_kernel<LOG2N>;
+    if constexpr (G > 1) return cols_wgs_roundtrip_cluster_kernel<LINE, G>;
+    else return cols_wgs_roundtrip_kernel<LINE>;
   }();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shape.smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<n_blocks, shape.threads, shape.smem, stream>>>(
       gr, gi, w, t, mask, pffr, pffi, hr, hi, wout, pffr_out, pffi_out, scal, partials, W,
-      shape.lines, ilog2(shape.lines), tw_fwd, tw_inv, rule, kim, stats_on);
+      shape.lines, ilog2(shape.lines), tw_fwd, tw_inv, rule, kim, stats_on, m);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
 }
 
 // Launch of one instantiation of cols_wgs_fwd (launch_cols; the cluster
-// instantiation where cols_cluster says two blocks), then stats_reduce on
-// its n_blocks rows of partials, which must be the grid's (cols_blocks).
-template <int LOG2N>
+// instantiation where cols_cluster says more than one block), then
+// stats_reduce on its n_blocks rows of partials, which must be the grid's
+// (cols_blocks).
+template <int LINE>
 int launch_cols_wgs_fwd(const float* gr, const float* gi, const float* w, const float* t,
                         const float* mask, const float* pff, float* re, float* im,
                         float* wout, float* pff_out, const float* scal, double* partials,
-                        double* sums, float* maxs, int W, int n_blocks, const float2* tw_fwd,
-                        int rule, int kim, int stats_on, cudaStream_t stream) {
-  if (n_blocks <= 0 || n_blocks != cols_blocks(kColsWgsFwd, LOG2N, W))
+                        double* sums, float* maxs, int W, int m, int n_blocks,
+                        const float2* tw_fwd, int rule, int kim, int stats_on,
+                        cudaStream_t stream) {
+  constexpr int G = cols_cluster(LINE);
+  if (n_blocks <= 0 || n_blocks != cols_blocks(kColsWgsFwd, m << line_log2(LINE), W))
     return (int)cudaErrorInvalidValue;
   auto kernel = [] {
-    if constexpr (cols_cluster(LOG2N) == 2) return cols_wgs_fwd_cluster_kernel<LOG2N>;
-    else return cols_wgs_fwd_kernel<LOG2N>;
+    if constexpr (G > 1) return cols_wgs_fwd_cluster_kernel<LINE, G>;
+    else return cols_wgs_fwd_kernel<LINE>;
   }();
-  const int err = launch_cols<kColsWgsFwd, LOG2N>(kernel, W, stream, gr, gi, w, t, mask, pff,
-                                                   re, im, wout, pff_out, scal, partials,
-                                                   tw_fwd, rule, kim, stats_on);
+  const int err = launch_cols<kColsWgsFwd, LINE>(kernel, W, m, stream, gr, gi, w, t, mask, pff,
+                                                  re, im, wout, pff_out, scal, partials,
+                                                  tw_fwd, rule, kim, stats_on);
   if (err != (int)cudaSuccess) return err;
   return (int)launch_stats_reduce(partials, n_blocks, sums, maxs, stream);
 }
 
 // Launches of one instantiation of the row kernels (launch_rows).
-template <int LOG2N>
+template <int LINE>
 int launch_rows_normfwd(const float* hr, const float* hi, const float* amp, float* gr,
-                        float* gi, int H, const float2* tw_fwd, const float2* tw_inv,
+                        float* gi, int H, int m, const float2* tw_fwd, const float2* tw_inv,
                         cudaStream_t stream) {
-  return launch_rows<kRowsNormfwd, LOG2N>(rows_normfwd_kernel<LOG2N>, H, stream, hr, hi, amp,
-                                          gr, gi, tw_fwd, tw_inv);
+  return launch_rows<kRowsNormfwd, LINE>(rows_normfwd_kernel<LINE>, H, m, stream, hr, hi, amp,
+                                         gr, gi, tw_fwd, tw_inv);
 }
 
-// carry_entry over `planes` stacked (H, W) phase planes: planes H rows.
-template <int LOG2N>
+// carry_entry over `planes` stacked (H, W) phase planes: planes H rows;
+// the WRAP instantiation for a stack of planes whose H W is not a power of
+// two.
+template <int LINE>
 int launch_carry_entry(const float* psi, const float* amp, float* gr, float* gi, int planes,
-                       int H, const float2* tw, cudaStream_t stream) {
-  const size_t amp_mask = ((size_t)H << LOG2N) - 1;
-  return launch_rows<kCarryEntry, LOG2N>(carry_entry_kernel<LOG2N>, planes * H, stream, psi,
-                                         amp, gr, gi, tw, amp_mask);
+                       int H, int m, const float2* tw, cudaStream_t stream) {
+  const size_t plane = (size_t)H * (size_t)(m << line_log2(LINE));
+  if (planes > 1 && (plane & (plane - 1)))
+    return launch_rows<kCarryEntry, LINE>(carry_entry_kernel<LINE, true>, planes * H, m, stream,
+                                          psi, amp, gr, gi, tw, plane - 1);
+  return launch_rows<kCarryEntry, LINE>(carry_entry_kernel<LINE, false>, planes * H, m, stream,
+                                        psi, amp, gr, gi, tw, planes > 1 ? plane - 1 : ~(size_t)0);
 }
 
-template <int LOG2N>
-int launch_carry_exit(const float* gr, const float* gi, float* psi, int H,
+template <int LINE>
+int launch_carry_exit(const float* gr, const float* gi, float* psi, int H, int m,
                       const float2* tw_inv, cudaStream_t stream) {
-  return launch_rows<kCarryExit, LOG2N>(carry_exit_kernel<LOG2N>, H, stream, gr, gi, psi,
-                                        tw_inv);
+  return launch_rows<kCarryExit, LINE>(carry_exit_kernel<LINE>, H, m, stream, gr, gi, psi,
+                                       tw_inv);
 }
 
 }  // namespace slm
@@ -494,16 +522,17 @@ using namespace slm;
 
 extern "C" {
 
-int slm_carry_entry(const float* psi, const float* amp, float* gr, float* gi, int planes,
+int SLM_ENTRY(slm_carry_entry)(const float* psi, const float* amp, float* gr, float* gi, int planes,
                     int H, int W, const float2* tw, cudaStream_t stream) {
   if (planes < 1) return (int)cudaErrorInvalidValue;
-  switch (ilog2(W)) {
-    SLM_LEN_CASES(launch_carry_entry, psi, amp, gr, gi, planes, H, tw, stream)
+  int m = 0;
+  switch (line_code(W, &m)) {
+    SLM_LEN_CASES(launch_carry_entry, psi, amp, gr, gi, planes, H, m, tw, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
+int SLM_ENTRY(slm_cols_wgs_roundtrip)(const float* gr, const float* gi, const float* w,
                            const float* t, const float* mask,
                            const float* pffr, const float* pffi, float* hr,
                            float* hi, float* wout, float* pffr_out,
@@ -512,41 +541,45 @@ int slm_cols_wgs_roundtrip(const float* gr, const float* gi, const float* w,
                            int H, int W, int n_blocks, const float2* tw_fwd,
                            const float2* tw_inv, int rule, int kim, int stats_on,
                            cudaStream_t stream) {
-  switch (ilog2(H)) {
+  int m = 0;
+  switch (line_code(H, &m)) {
     SLM_LEN_CASES(launch_cols_wgs_roundtrip, gr, gi, w, t, mask, pffr, pffi, hr, hi, wout,
-                  pffr_out, pffi_out, scal, partials, sums, maxs, W, n_blocks, tw_fwd,
+                  pffr_out, pffi_out, scal, partials, sums, maxs, W, m, n_blocks, tw_fwd,
                   tw_inv, rule, kim, stats_on, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // n_blocks: the rows of `partials`, slm_cols_blocks(kColsWgsFwd, H, W).
-int slm_cols_wgs_fwd(const float* gr, const float* gi, const float* w,
+int SLM_ENTRY(slm_cols_wgs_fwd)(const float* gr, const float* gi, const float* w,
                      const float* t, const float* mask, const float* pff,
                      float* re, float* im, float* wout, float* pff_out,
                      const float* scal, double* partials, double* sums,
                      float* maxs, int H, int W, int n_blocks, const float2* tw_fwd,
                      int rule, int kim, int stats_on, cudaStream_t stream) {
-  switch (ilog2(H)) {
+  int m = 0;
+  switch (line_code(H, &m)) {
     SLM_LEN_CASES(launch_cols_wgs_fwd, gr, gi, w, t, mask, pff, re, im, wout, pff_out, scal,
-                  partials, sums, maxs, W, n_blocks, tw_fwd, rule, kim, stats_on, stream)
+                  partials, sums, maxs, W, m, n_blocks, tw_fwd, rule, kim, stats_on, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int slm_rows_normfwd(const float* hr, const float* hi, const float* amp,
+int SLM_ENTRY(slm_rows_normfwd)(const float* hr, const float* hi, const float* amp,
                      float* gr, float* gi, int H, int W, const float2* tw_fwd,
                      const float2* tw_inv, cudaStream_t stream) {
-  switch (ilog2(W)) {
-    SLM_LEN_CASES(launch_rows_normfwd, hr, hi, amp, gr, gi, H, tw_fwd, tw_inv, stream)
+  int m = 0;
+  switch (line_code(W, &m)) {
+    SLM_LEN_CASES(launch_rows_normfwd, hr, hi, amp, gr, gi, H, m, tw_fwd, tw_inv, stream)
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int slm_carry_exit(const float* gr, const float* gi, float* psi, int H, int W,
+int SLM_ENTRY(slm_carry_exit)(const float* gr, const float* gi, float* psi, int H, int W,
                    const float2* tw_inv, cudaStream_t stream) {
-  switch (ilog2(W)) {
-    SLM_LEN_CASES(launch_carry_exit, gr, gi, psi, H, tw_inv, stream)
+  int m = 0;
+  switch (line_code(W, &m)) {
+    SLM_LEN_CASES(launch_carry_exit, gr, gi, psi, H, m, tw_inv, stream)
   }
   return (int)cudaErrorInvalidValue;
 }

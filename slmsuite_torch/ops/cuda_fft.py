@@ -9,12 +9,14 @@ same library; their wrappers are in :mod:`slmsuite_torch.ops.cuda_compressed`.
 
 The sources are ``slmsuite_torch/csrc/*.cu`` and ``*.cuh``. On the first
 launch each ``.cu`` is compiled with ``nvcc`` for ``sm_90a``, all at
-once in parallel, and the objects are linked into
+once in parallel (a source of the line kernels twice, its power-of-two
+plans and, with ``SLM_UNIT_MIXED=1``, its mixed plan: the second object's
+entry points end in ``_mixed``), and the objects are linked into
 ``build/slmsuite_torch/<hash of the sources>/libslmsuite_torch.so``
 (beside the package, in the checkout), loaded with ``ctypes``;
 importing this module builds nothing. Each wrapper checks its inputs
-(CUDA, float32, contiguous, one shape, sides powers of two in
-[64, 4096]) and raises on anything else, allocates its outputs, launches
+(CUDA, float32, contiguous, one shape, sides multiples of 8 in
+[64, 8192]) and raises on anything else, allocates its outputs, launches
 on the current stream, raises if the launcher reports an error, and
 counts its launches in :data:`LAUNCHES`.
 
@@ -95,12 +97,22 @@ _SIGNATURES = {
     "slm_carry_exit": [_P, _P, _P, _I, _I, _P, _P],
     "slm_rows_fft": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
     "slm_cols_fft": [_P] * 4 + [_I, _I, _I, _I, _P, _F, _P],
-    "slm_fft_launch_shape": [_I, _I, ctypes.POINTER(_I)],
+    "slm_fft_launch_shape": [_I, _I, _I, ctypes.POINTER(_I)],
     "slm_cols_fwd_polar": [_P] * 4 + [_I, _I, _I, _P, _F, _P],
     "slm_cols_wexp_inv": [_P] * 4 + [_I, _I, _I, _P, _P],
     "slm_cols_mraf_fwd": [_P] * 12 + [_I, _I, _I, _P, _I, _I, _P],
     "slm_cols_mraf_mix_inv": [_P] * 16 + [_I, _I, _P, _I, _I, _P],
 }
+
+#: The entry points of the line kernels: each also as ``name + "_mixed"``,
+#: its mixed plan's, in the second object of its source (:meth:`_entry`).
+_LINE_ENTRIES = ("slm_carry_entry", "slm_cols_wgs_roundtrip", "slm_cols_wgs_fwd",
+                 "slm_rows_normfwd", "slm_carry_exit", "slm_rows_fft", "slm_cols_fft",
+                 "slm_cols_fwd_polar", "slm_cols_wexp_inv", "slm_cols_mraf_fwd",
+                 "slm_cols_mraf_mix_inv")
+_SIGNATURES.update({name + "_mixed": _SIGNATURES[name] for name in _LINE_ENTRIES})
+#: The compilations of a source of the line kernels: (object suffix, flags).
+_UNITS = (("", ()), (".mixed", ("-DSLM_UNIT_MIXED=1",)))
 
 _LIB = None
 
@@ -147,11 +159,13 @@ def build():
     start = time.perf_counter()
     jobs = []
     for src in (s for s in _sources() if s.suffix == ".cu"):
-        obj = out_dir / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
+        units = _UNITS if "SLM_ENTRY(" in src.read_text() else _UNITS[:1]
+        for suffix, flags in units:
+            obj = out_dir / f"{src.stem}{suffix}.{tag}.o"
+            cmd = [nvcc, *_NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
     logs, failed = [], []
     for obj, proc in jobs:
         out, _ = proc.communicate()
@@ -187,7 +201,7 @@ def _lib():
     return _LIB
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=512)
 def _twiddles(n, inverse, device):
     """exp(sign 2 pi i k / n), k < n/2, computed in float64, stored f32
     as (n/2, 2) (re, im) pairs on ``device``."""
@@ -204,24 +218,54 @@ def _twiddles(n, inverse, device):
 # ----------------------------------------------------------------------
 
 
-def fft_plan(n):
-    """The radices of the line FFT's passes for a line of ``n`` points, in
-    the order they run: two passes up to 256, three above, radix 8 first and
-    radix 16 for what is left (2048 = 8 * 16 * 16)."""
-    if not kernel_len_ok(n):
-        raise ValueError(f"No plan for a line of {n} points.")
-    log2n = n.bit_length() - 1
-    passes = 2 if log2n <= 8 else 3
-    sixteens = log2n - 3 * passes
+def line_split(n):
+    """``(P, m)`` of a line of ``n`` points, ``n = m * P``: ``(n, 1)`` for a
+    power of two, else ``(8, n // 8)``, a mixed line: ``m`` interleaved
+    8-point lines, then one pass per prime factor of ``m``."""
+    return (n, 1) if n & (n - 1) == 0 else (8, n // 8)
+
+
+def _pow2_plan(p):
+    """Radices of the passes of a ``p``-point line: one pass at 8 (a mixed
+    line's 8-point lines), two up to 256, three up to 4096, four at 8192,
+    radix 8 first and radix 16 for what is left (2048 = 8 * 16 * 16)."""
+    log2p = p.bit_length() - 1
+    passes = 1 if log2p <= 4 else 2 if log2p <= 8 else 3 if log2p <= 12 else 4
+    sixteens = log2p - 3 * passes
     return (8,) * (passes - sixteens) + (16,) * sixteens
 
 
+def _factors(m):
+    """The prime factors of ``m``, smallest first, with repeats: the
+    radices of a mixed line's passes of ``m``."""
+    factors, r = [], 2
+    while m > 1:
+        while m % r == 0:
+            factors.append(r)
+            m //= r
+        r += 1 if r == 2 else 2
+    return tuple(factors)
+
+
+def fft_plan(n):
+    """The radices of the line FFT's passes for a line of ``n`` points, in
+    the order they run: the power-of-two part's register passes
+    (:meth:`_pow2_plan`), then, for a mixed line, one pass for each prime
+    factor of ``m`` (:meth:`line_split`; 1080 = 8 * 3 * 3 * 3 * 5, 1920 =
+    8 * 2 * 2 * 2 * 2 * 3 * 5)."""
+    if not kernel_len_ok(n):
+        raise ValueError(f"No plan for a line of {n} points.")
+    p, m = line_split(n)
+    return _pow2_plan(p) + _factors(m)
+
+
 def line_points(n):
-    """Points of a line that one thread holds in registers: the plan's
-    largest radix. A line takes ``n // line_points(n)`` threads, and thread
-    ``s`` holds the points ``s + q * n // line_points(n)`` before the first
-    pass and after the last."""
-    return max(fft_plan(n))
+    """Points of a line that one thread holds in registers: the largest
+    radix of the power-of-two passes. A line takes ``n // line_points(n)``
+    threads, and thread ``s`` holds the points ``s + q * n //
+    line_points(n)`` before the first pass and after the last."""
+    fft_plan(n)
+    return max(_pow2_plan(line_split(n)[0]))
 
 
 def line_pad(m):
@@ -237,13 +281,13 @@ def line_pitch(n):
 
 
 def line_slot(n, m, blocks=1):
-    """``(block, slot)`` of point ``m`` of a line in the exchange: the
-    block of the cluster whose threads read it next (thread ``m mod T`` of
-    the line's ``T = n // line_points(n)``; the blocks take the threads in
-    groups of 8 in turn), and its padded slot in that block's buffer, which
-    holds the points of its own threads only. One block: ``(0,
-    line_pad(m))``."""
-    threads = n // line_points(n)
+    """``(block, slot)`` of point ``m`` of a power-of-two line in the
+    exchange: the block of the cluster whose threads read it next (thread
+    ``m mod T`` of the line's ``T = n // line_points(n)``; the blocks take
+    the threads in groups of 8 in turn), and its padded slot in that
+    block's buffer, which holds the points of its own threads only. One
+    block: ``(0, line_pad(m))``."""
+    threads = n // max(_pow2_plan(n))
     reader = m % threads
     local = (m // threads) * (threads // blocks) + reader // (8 * blocks) * 8 + reader % 8
     return reader // 8 % blocks, line_pad(local)
@@ -275,8 +319,8 @@ def _fft4(a, inverse):
 
 def _radix(u, inverse):
     """Radix-8 or radix-16 butterfly of the list ``u``, natural order, as
-    ``radix<8>``/``radix<16>`` of the kernel: R = 4 * n2, input ``n1 + 4 * n2``,
-    output ``k2 + n2 * k1``."""
+    ``radix<8>``/``radix<16>`` of the kernel: R = 4 * n2, input ``n1 + 4 *
+    n2``, output ``k2 + n2 * k1``."""
     n2 = len(u) // 4
     a = list(u)
     for n1 in range(4):
@@ -292,21 +336,19 @@ def _radix(u, inverse):
     return [a[4 * (k % n2) + k // n2] for k in range(len(u))]
 
 
-def line_fft_model(xr, xi, *, inverse, blocks=1):
-    """Plain PyTorch model of the kernels' ``line_fft`` along the last
-    axis, in f32: the passes of :meth:`fft_plan`, each a twiddle ``w^r``
-    formed from two reads of the f32 table of :meth:`_twiddles` (``w`` at
-    ``k n / (p R)`` and ``w^4``: ``w^(4a + b) = (w^4)^a w^b``), a radix-8 or
-    radix-16 butterfly in natural order, and a self-sorting exchange
-    (write ``(i - k) R + k + r p``, read ``i + r n / R``) through one padded
-    buffer for each of the ``blocks`` blocks that share the line
-    (:meth:`line_slot`). Unnormalized, like the kernels."""
-    n = xr.shape[-1]
-    table = _twiddles(n, bool(inverse), "cpu")
-    table = torch.complex(table[:, 0], table[:, 1])
-    x = torch.complex(xr.float(), xi.float())
+def _table_at(table, at):
+    """Entries ``at`` < n of the rotations from the table of n / 2:
+    ``-table[at - n / 2]`` above it, as ``tw_full`` of the kernel."""
+    half = table.shape[0]
+    return torch.where(at < half, table[at % half], -table[at % half])
+
+
+def _pow2_passes(x, table, inverse, blocks):
+    """The passes of ``line_fft`` on the power-of-two lines along the last
+    axis of ``x`` (complex64), with their table of twiddles."""
+    n = x.shape[-1]
     p = 1
-    for radix in fft_plan(n):
+    for radix in _pow2_plan(n):
         i = torch.arange(n // radix)
         k = i & (p - 1)
         stride = n // (p * radix)
@@ -330,7 +372,63 @@ def line_fft_model(xr, xi, *, inverse, blocks=1):
         block, slot = line_slot(n, torch.arange(n), blocks)
         x = buf[..., block, slot]
         p *= radix
-    return x.real.contiguous(), x.imag.contiguous()
+    return x
+
+
+def line_fft_model(xr, xi, *, inverse, blocks=1):
+    """Plain PyTorch model of the kernels' ``line_fft`` along the last
+    axis, in f32. The power-of-two passes (:meth:`_pow2_plan`), each a
+    twiddle ``w^r`` formed from two reads of the f32 table of
+    :meth:`_twiddles` (``w`` at ``k n / (p R)`` and ``w^4``: ``w^(4a + b) =
+    (w^4)^a w^b``), a radix-8 or radix-16 butterfly in natural order, and a
+    self-sorting exchange (write ``(i - k) R + k + r p``, read ``i + r n /
+    R``) through one padded buffer for each of the ``blocks`` blocks that
+    share the line (:meth:`line_slot`). A mixed line (``n = m P``, P = 8,
+    :meth:`line_split`) runs one radix-8 butterfly on each of its ``m``
+    interleaved ``P``-point lines ``b + m a``, rotates output ``k1`` of
+    line ``b`` by ``w_n^(b k1)`` into slot ``k1 m + b``, and runs one pass
+    per prime factor ``r`` of ``m``: output ``o`` of the ``m``-point
+    line ``k1`` is ``sum_j x[i + j m / r] w_(p r)^(j (o mod p r))``, ``i =
+    (o // (p r)) p + o mod p``, the sum in ``j`` order with the exponent
+    stepped mod ``p r``, every pass but the last into slot ``k1 m + o``,
+    the last to the line's output ``k1 + P o``. Unnormalized, like the
+    kernels."""
+    n = xr.shape[-1]
+    p2, m = line_split(n)
+    fft_plan(n)
+    table = _twiddles(n, bool(inverse), "cpu")
+    table = torch.complex(table[:, 0], table[:, 1])
+    x = torch.complex(xr.float(), xi.float())
+    if m == 1:
+        x = _pow2_passes(x, table, inverse, blocks)
+        return x.real.contiguous(), x.imag.contiguous()
+    if blocks != 1:
+        raise ValueError("A mixed line takes one block.")
+    lead = x.shape[:-1]
+    lines = x.reshape(*lead, p2, m).transpose(-1, -2)
+    # The 8-point lines: one radix-8 butterfly, as the kernel's registers.
+    y = torch.stack(_radix(list(lines.unbind(-1)), inverse), dim=-1)
+    b, k1 = torch.arange(m)[:, None], torch.arange(p2)[None, :]
+    y = y * _table_at(table, b * k1)
+    buf = y.transpose(-1, -2).reshape(*lead, n)
+    idx = torch.arange(n)
+    p = 1
+    for r in _factors(m):
+        pr = p * r
+        if pr == m:
+            k1, o = idx & (p2 - 1), idx // p2
+        else:
+            k1, o = idx // m, idx % m
+        e0 = o % pr
+        at = k1 * m + (o // pr) * p + o % p
+        acc = buf[..., at]
+        e = e0
+        for j in range(1, r):
+            acc = acc + buf[..., at + j * (m // r)] * _table_at(table, e * (n // pr))
+            e = torch.where(e + e0 >= pr, e + e0 - pr, e + e0)
+        buf = acc
+        p = pr
+    return buf.real.contiguous(), buf.imag.contiguous()
 
 
 def _check_planes(*planes, stack=False):
@@ -356,7 +454,7 @@ def _check_planes(*planes, stack=False):
     H, W = shape[-2:]
     if not (kernel_len_ok(H) and kernel_len_ok(W)):
         raise ValueError(
-            f"Sides must be powers of two in [64, 4096]; got {tuple(shape)}."
+            f"Sides must be multiples of 8 in [64, 8192]; got {tuple(shape)}."
         )
     return H, W
 
@@ -404,6 +502,12 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _entry(name, n):
+    """The library's entry point ``name`` for lines of ``n`` points: the
+    mixed plan's (``name + "_mixed"``) where ``n`` is not a power of two."""
+    return getattr(_lib(), name + "_mixed" if n & (n - 1) else name)
+
+
 def _stream():
     return torch.cuda.current_stream().cuda_stream
 
@@ -420,7 +524,7 @@ def carry_entry(psi, amp):
     H, W = _check_planes(psi, stack=True)
     amp_plane = _amp_plane(amp, psi.shape)
     gr, gi = torch.empty_like(psi), torch.empty_like(psi)
-    rc = _lib().slm_carry_entry(
+    rc = _entry("slm_carry_entry", W)(
         _ptr(psi), _ptr(amp_plane), _ptr(gr), _ptr(gi), _n_planes(psi), H, W,
         _ptr(_twiddles(W, False, psi.device)), _stream(),
     )
@@ -449,7 +553,7 @@ def cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
     sums = torch.empty(4, dtype=torch.float64, device=gr.device)
     maxs = torch.empty(4, dtype=torch.float32, device=gr.device)
     pff_in = phase_ff if kim else (None, None)
-    rc = _lib().slm_cols_wgs_roundtrip(
+    rc = _entry("slm_cols_wgs_roundtrip", H)(
         _ptr(gr), _ptr(gi), _ptr(weights), _ptr(target),
         _ptr(mask if stats_on else None), _ptr(pff_in[0]), _ptr(pff_in[1]),
         _ptr(hr), _ptr(hi), _ptr(wout), _ptr(pff_out[0]), _ptr(pff_out[1]),
@@ -482,7 +586,7 @@ def cols_wgs_fwd(gr, gi, weights, target, mask, phase_ff, scal,
     partials = torch.empty((blocks, 8), dtype=torch.float64, device=gr.device)
     sums = torch.empty(4, dtype=torch.float64, device=gr.device)
     maxs = torch.empty(4, dtype=torch.float32, device=gr.device)
-    rc = _lib().slm_cols_wgs_fwd(
+    rc = _entry("slm_cols_wgs_fwd", H)(
         _ptr(gr), _ptr(gi), _ptr(weights), _ptr(target),
         _ptr(mask if stats_on else None), _ptr(phase_ff if kim else None),
         _ptr(re), _ptr(im), _ptr(wout), _ptr(pff_out), _ptr(scal), _ptr(partials),
@@ -499,7 +603,7 @@ def rows_normfwd(hr, hi, amp):
     H, W = _check_planes(hr, hi)
     amp_plane = _amp_plane(amp, hr.shape)
     gr, gi = torch.empty_like(hr), torch.empty_like(hr)
-    rc = _lib().slm_rows_normfwd(
+    rc = _entry("slm_rows_normfwd", W)(
         _ptr(hr), _ptr(hi), _ptr(amp_plane), _ptr(gr), _ptr(gi), H, W,
         _ptr(_twiddles(W, False, hr.device)), _ptr(_twiddles(W, True, hr.device)),
         _stream(),
@@ -513,7 +617,7 @@ def carry_exit(gr, gi):
     """#4: rows-transformed carry -> psi (inverse row FFT, atan2)."""
     H, W = _check_planes(gr, gi)
     psi = torch.empty_like(gr)
-    rc = _lib().slm_carry_exit(
+    rc = _entry("slm_carry_exit", W)(
         _ptr(gr), _ptr(gi), _ptr(psi), H, W,
         _ptr(_twiddles(W, True, gr.device)), _stream(),
     )
@@ -548,7 +652,7 @@ def cols_mraf_fwd(gr, gi, weights, target, mask, scal, *, rule, stats_on):
     partials = torch.empty((blocks, 8), dtype=torch.float64, device=gr.device)
     sums = torch.empty(4, dtype=torch.float64, device=gr.device)
     maxs = torch.empty(4, dtype=torch.float32, device=gr.device)
-    rc = _lib().slm_cols_mraf_fwd(
+    rc = _entry("slm_cols_mraf_fwd", H)(
         _ptr(gr), _ptr(gi), _ptr(weights), _ptr(target),
         _ptr(mask if stats_on else None), _ptr(fr), _ptr(fi), _ptr(uw),
         _ptr(scal), _ptr(partials), _ptr(sums), _ptr(maxs), H, W, blocks,
@@ -578,7 +682,7 @@ def cols_mraf_mix_inv(fr, fi, uw, mcode, phase_ff, zw, sums, scal, *, kim, zero)
     zw_out = torch.empty((2, H, W), dtype=fr.dtype, device=fr.device) if zero else None
     pff_in = phase_ff if kim else (None, None)
     zw_in, zw_to = (zw, zw_out) if zero else ((None, None), (None, None))
-    rc = _lib().slm_cols_mraf_mix_inv(
+    rc = _entry("slm_cols_mraf_mix_inv", H)(
         _ptr(fr), _ptr(fi), _ptr(uw), _ptr(mcode), _ptr(pff_in[0]), _ptr(pff_in[1]),
         _ptr(zw_in[0]), _ptr(zw_in[1]), _ptr(hr), _ptr(hi), _ptr(pff_out[0]),
         _ptr(pff_out[1]), _ptr(zw_to[0]), _ptr(zw_to[1]), _ptr(scal), _ptr(sums),
@@ -610,7 +714,7 @@ def rows_fft(xr, xi, *, inverse, scale=1.0):
     rows), times ``scale``."""
     H, W = _check_planes(xr, xi, stack=True)
     yr, yi = torch.empty_like(xr), torch.empty_like(xr)
-    rc = _lib().slm_rows_fft(
+    rc = _entry("slm_rows_fft", W)(
         _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), _n_planes(xr) * H, W, int(bool(inverse)),
         _ptr(_twiddles(W, bool(inverse), xr.device)), float(scale), _stream(),
     )
@@ -625,7 +729,7 @@ def cols_fft(xr, xi, *, inverse, scale=1.0):
     times ``scale``."""
     H, W = _check_planes(xr, xi, stack=True)
     yr, yi = torch.empty_like(xr), torch.empty_like(xr)
-    rc = _lib().slm_cols_fft(
+    rc = _entry("slm_cols_fft", H)(
         _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), _n_planes(xr), H, W, int(bool(inverse)),
         _ptr(_twiddles(H, bool(inverse), xr.device)), float(scale), _stream(),
     )
@@ -641,13 +745,15 @@ LINE_KERNELS = ("rows_fft", "cols_fft", "rows_normfwd", "cols_wgs_roundtrip", "c
                 "cols_mraf_mix_inv", "cols_wgs_fwd")
 
 
-def fft_launch_shape(kernel, n):
+def fft_launch_shape(kernel, n, other=0):
     """What the launcher of ``kernel`` (one of :data:`LINE_KERNELS`)
-    launches on lines of ``n`` points, as the built library reports it:
-    ``(rows a block or columns a tile, blocks that share a tile, threads a
-    block, bytes of dynamic shared memory a block)``. Launches nothing."""
+    launches on lines of ``n`` points where the plane's other side (a row
+    kernel: the rows of all its planes) is ``other`` (0: a multiple of
+    every tile), as the built library reports it: ``(rows a block or
+    columns a tile, blocks that share a tile, threads a block, bytes of
+    dynamic shared memory a block)``. Launches nothing."""
     out = (_I * 4)()
-    rc = _lib().slm_fft_launch_shape(LINE_KERNELS.index(kernel), int(n), out)
+    rc = _lib().slm_fft_launch_shape(LINE_KERNELS.index(kernel), int(n), int(other), out)
     if rc != 0:
         raise ValueError(f"No {kernel} launch on lines of {n} points.")
     return tuple(out)
@@ -668,7 +774,7 @@ def cols_fwd_polar(xr, xi, scale):
     each plane of a (B, H, W) stack), returned as ``(scale * |F|, arg F)``."""
     H, W = _check_planes(xr, xi, stack=True)
     amp, theta = torch.empty_like(xr), torch.empty_like(xr)
-    rc = _lib().slm_cols_fwd_polar(
+    rc = _entry("slm_cols_fwd_polar", H)(
         _ptr(xr), _ptr(xi), _ptr(amp), _ptr(theta), _n_planes(xr), H, W,
         _ptr(_twiddles(H, False, xr.device)), float(scale), _stream(),
     )
@@ -682,7 +788,7 @@ def cols_wexp_inv(weights, phase):
     inverse FFT of every column (of each plane of a (B, H, W) stack)."""
     H, W = _check_planes(weights, phase, stack=True)
     yr, yi = torch.empty_like(weights), torch.empty_like(weights)
-    rc = _lib().slm_cols_wexp_inv(
+    rc = _entry("slm_cols_wexp_inv", H)(
         _ptr(weights), _ptr(phase), _ptr(yr), _ptr(yi), _n_planes(weights), H, W,
         _ptr(_twiddles(H, True, weights.device)), _stream(),
     )

@@ -49,8 +49,8 @@ The dispatchers (:meth:`wgs_carry_entry`, :meth:`wgs_carry_step`,
 :meth:`ifft2`, :meth:`ifft2_phase`, :meth:`fft2_polar`,
 :meth:`fft2_polar_from_phase`, :meth:`wexp_ifft2`, :meth:`wexp_ifft2_phase`,
 :meth:`wgs_fused_forward`, :meth:`wgs_fused_step`, :meth:`mraf_fused_step`) take the plain versions
-for CPU tensors only. A CUDA tensor whose sides are powers of two in
-[64, 4096] launches the kernels; any other CUDA shape raises
+for CPU tensors only. A CUDA tensor whose sides are multiples of 8 in
+[64, 8192] launches the kernels; any other CUDA shape raises
 :class:`NotImplementedError`.
 
 :meth:`fft2`, :meth:`ifft2`, :meth:`fft2_polar`, :meth:`fft2_polar_from_phase`
@@ -91,9 +91,9 @@ _S = {key: lane for lane, key in enumerate(SCALAR_KEYS)}
 #: Fill value standing in for -inf in the max partials.
 _NEG_FILL = -3.0e38
 
-#: Line lengths the CUDA kernels take: powers of two whose line fits the
-#: shared-memory FFT.
-_KERNEL_MIN_LEN, _KERNEL_MAX_LEN = 64, 4096
+#: Line lengths the CUDA kernels take: multiples of 8 in this range (the
+#: column kernels' tiles are 8 columns wide; line_fft's plans reach 8192).
+_KERNEL_MIN_LEN, _KERNEL_MAX_LEN = 64, 8192
 
 
 def pack_scalars(values, device=None):
@@ -114,7 +114,7 @@ def is_scalar_amp(amp):
 @functools.lru_cache(maxsize=None)
 def kernel_len_ok(n):
     """Whether a line of length ``n`` takes the CUDA kernels."""
-    return _KERNEL_MIN_LEN <= n <= _KERNEL_MAX_LEN and n & (n - 1) == 0
+    return _KERNEL_MIN_LEN <= n <= _KERNEL_MAX_LEN and n % 8 == 0
 
 
 def use_kernels(x):
@@ -127,9 +127,9 @@ def use_kernels(x):
     if x.is_cuda and kernel_len_ok(x.shape[-2]) and kernel_len_ok(x.shape[-1]):
         return True
     raise NotImplementedError(
-        f"The CUDA kernels take planes whose sides are powers of two in "
+        f"The CUDA kernels take planes whose sides are multiples of 8 in "
         f"[{_KERNEL_MIN_LEN}, {_KERNEL_MAX_LEN}], not {tuple(x.shape)} on "
-        f"{x.device} (ROADMAP.md 'Non-power-of-two lengths')."
+        f"{x.device} (ROADMAP.md 'Other plane sides')."
     )
 
 

@@ -25,6 +25,15 @@ from slmsuite_torch.holography import algorithms as T
 from slmsuite_torch.ops import engine as TE
 from slmsuite_tpu.holography import algorithms as J
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 STATS_ATOL, STATS_RTOL = 1e-4, 1e-3
 PHASE_ATOL = 5e-3
 WEIGHT_RTOL = 1e-5

@@ -38,6 +38,15 @@ from slmsuite_tpu.holography import analysis as janalysis
 from slmsuite_tpu.holography import toolbox as jtoolbox
 from slmsuite_tpu.ops import engine as JE
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 torch.set_num_threads(1)
 
 SIDE, SHAPE = 128, (256, 256)

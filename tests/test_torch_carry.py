@@ -32,6 +32,15 @@ from slmsuite_torch.ops import cuda_fft
 from slmsuite_torch.ops import fft as T
 from slmsuite_tpu.ops import fft as F
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 SHAPE = (64, 128)
 #: The step's shapes: the kernels' line FFT has two passes at 64 and 128
 #: points and three at 256, so these cover both plans along each axis.

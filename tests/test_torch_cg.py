@@ -44,6 +44,15 @@ from slmsuite_tpu.holography import algorithms as J
 from slmsuite_tpu.holography.algorithms import _hologram as JH
 from slmsuite_tpu.ops import propagation as JP
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 VJP_RTOL = 1e-5
 OPTIM_ATOL = 1e-6
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-9

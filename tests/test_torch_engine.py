@@ -26,6 +26,15 @@ from slmsuite_torch.ops import propagation as tprop
 from slmsuite_tpu.models import engine_models as jmodels
 from slmsuite_tpu.ops import engine as JE
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 N = 128
 ITERS = 20
 PHASE_ATOL = 5e-4

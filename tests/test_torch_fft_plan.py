@@ -6,11 +6,17 @@ PyTorch model that follows the kernel pass by pass
 (``slmsuite_torch.ops.cuda_fft.line_fft_model``), against ``torch.fft`` in
 float64 and against the JAX package's ``fft2``/``ifft2`` on the CPU.
 
+Lines that are not a power of two (mixed lines, ``n = 8 * m``) run ``m``
+interleaved 8-point lines, then one pass per prime factor of ``m``; the
+model follows them too, at every side that ``chip_smoke.py``'s X0 runs on
+the card.
+
 Tolerances: the model runs in f32 with an f32 twiddle table, so against a
 float64 transform of the same input it is held to ``2e-6 * log2(n)`` of
 the largest output value (an f32 FFT's error grows with the number of
-passes; measured 1e-7 to 2e-7). Against the JAX package (f32, another
-algorithm) a plane is held to 2e-5 of its largest value.
+passes; measured 1e-7 to 3e-7, and 1.3e-6 at 8168 = 8 * 1021, a direct
+1021-term sum). Against the JAX package (f32, another algorithm) a plane
+is held to 2e-5 of its largest value.
 """
 
 import re
@@ -24,7 +30,19 @@ from slmsuite_torch.ops import cuda_fft
 from slmsuite_torch.ops import fft as TF
 from slmsuite_tpu.ops import fft as JF
 
-SIDES = (64, 128, 256, 512, 1024, 2048, 4096)
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
+SIDES = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+#: The sides chip_smoke.py's X0 holds every line kernel at on the card.
+X0_SIDES = (96, 792, 1080, 1152, 1272, 1536, 1792, 1920, 4160, 6144, 8192)
+MIXED = tuple(n for n in X0_SIDES if n & (n - 1))
 JAX_RTOL = 2e-5
 
 
@@ -37,23 +55,35 @@ def _rel(got, ref):
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
-@pytest.mark.parametrize("n", SIDES)
+@pytest.mark.parametrize("n", SIDES + MIXED)
 def test_plan_multiplies_to_the_length(n):
+    """The register passes of the power of two P (two up to 256, three up
+    to 4096, four at 8192; radix 8 first; a mixed line: P = 8, one pass),
+    then the primes of m, smallest first."""
     plan = cuda_fft.fft_plan(n)
     assert int(np.prod(plan)) == n
-    assert set(plan) <= {8, 16} and len(plan) == (2 if n <= 256 else 3)
-    assert list(plan) == sorted(plan)
-    assert cuda_fft.line_points(n) == max(plan)
+    p, m = cuda_fft.line_split(n)
+    assert p * m == n and p >= 8 and p & (p - 1) == 0
+    primes = cuda_fft._factors(m)
+    pow2 = plan[:len(plan) - len(primes)]
+    assert int(np.prod(pow2)) == p and int(np.prod(primes)) == m
+    assert list(primes) == sorted(primes)
+    if m > 1:
+        assert pow2 == (8,) and m & (m - 1) != 0
+    else:
+        assert set(pow2) <= {8, 16} and len(pow2) == (2 if p <= 256 else 3 if p <= 4096 else 4)
+        assert list(pow2) == sorted(pow2)
+    assert cuda_fft.line_points(n) == max(pow2)
 
 
-@pytest.mark.parametrize("n", [32, 96, 8192])
+@pytest.mark.parametrize("n", [32, 100, 1021, 16384])
 def test_plan_refuses_other_lengths(n):
     with pytest.raises(ValueError, match="No plan"):
         cuda_fft.fft_plan(n)
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("n", SIDES)
+@pytest.mark.parametrize("n", SIDES + MIXED)
 def test_model_matches_float64_fft(n, inverse):
     xr, xi = _pair((3, n), n)
     yr, yi = cuda_fft.line_fft_model(torch.from_numpy(xr), torch.from_numpy(xi), inverse=inverse)
@@ -63,13 +93,14 @@ def test_model_matches_float64_fft(n, inverse):
     assert _rel(got.numpy(), ref.numpy()) <= 2e-6 * np.log2(n)
 
 
-@pytest.mark.parametrize("n", [1024, 2048, 4096])
-def test_model_through_a_cluster_of_two_is_the_same(n):
+@pytest.mark.parametrize("n,blocks", [(1024, 2), (2048, 2), (4096, 2), (8192, 2), (8192, 4)])
+def test_model_through_a_cluster_of_two_is_the_same(n, blocks):
     """The exchange through two blocks' buffers (cols_fft at 4096 points)
-    moves the same values: bit-identical to one block's."""
+    or four (at 8192) moves the same values: bit-identical to one
+    block's."""
     xr, xi = (torch.from_numpy(x) for x in _pair((2, n), 7))
     one = cuda_fft.line_fft_model(xr, xi, inverse=False)
-    two = cuda_fft.line_fft_model(xr, xi, inverse=False, blocks=2)
+    two = cuda_fft.line_fft_model(xr, xi, inverse=False, blocks=blocks)
     assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
@@ -88,15 +119,15 @@ def test_exchange_writes_every_point_once(n):
     assert len(set(slots)) == n and slots.max() < cuda_fft.line_pitch(n)
 
 
-@pytest.mark.parametrize("blocks", [1, 2])
-@pytest.mark.parametrize("n", [n for n in SIDES if n >= 256])
+@pytest.mark.parametrize("n,blocks", [(n, b) for n in SIDES if n >= 256 for b in (1, 2, 4)
+                                      if n // cuda_fft.line_points(n) >= 8 * b])
 def test_cluster_slots(n, blocks):
     """Point m goes to the block whose thread m mod T reads it (the blocks
     take a line's threads in groups of 8 in turn), to a slot of its own
     there; thread s of the line is thread t = s / (8 blocks) * 8 + s mod 8
     of its block and finds its q-th point, s + q T, at the padded local
     index q * T / blocks + t, where the kernel reads it. Lines of at least
-    16 threads: each of two blocks takes whole groups of 8."""
+    16 threads (32 on four blocks): each block takes whole groups of 8."""
     threads = n // cuda_fft.line_points(n)
     per_block = threads // blocks
     m = np.arange(n)
@@ -112,13 +143,15 @@ def test_cluster_slots(n, blocks):
         assert (at == cuda_fft.line_pad(q * per_block + t)).all()
 
 
-def test_cluster_exchange_after_a_wide_pass_is_local():
+@pytest.mark.parametrize("n,blocks,local", [(4096, 2, [False, True]),
+                                            (8192, 4, [False, False, True])])
+def test_cluster_exchange_after_a_wide_pass_is_local(n, blocks, local):
     """After a pass whose stride p is a multiple of 8 * blocks every output
     of a thread is read in the thread's own block, so 4096 = 16 * 16 * 16 on
-    two blocks crosses blocks in its first exchange only."""
-    n, blocks = 4096, 2
+    two blocks crosses blocks in its first exchange only, and 8192 = 8 * 8 *
+    8 * 16 on four blocks in its first two."""
     threads = n // cuda_fft.line_points(n)
-    p, local = 1, []
+    p, stays_local = 1, []
     for radix in cuda_fft.fft_plan(n)[:-1]:
         i = np.arange(n // radix)
         k = i & (p - 1)
@@ -127,9 +160,34 @@ def test_cluster_exchange_after_a_wide_pass_is_local():
             (cuda_fft.line_slot(n, (i - k) * radix + k + r * p, blocks)[0] == writer).all()
             for r in range(radix))
         assert stays == (p % (8 * blocks) == 0)
-        local.append(stays)
+        stays_local.append(stays)
         p *= radix
-    assert local == [False, True]
+    assert stays_local == local
+
+
+@pytest.mark.parametrize("n", MIXED + (8168, 8184))
+def test_m_passes_read_every_point_once(n):
+    """A mixed line's passes of m: the four-step rotation writes slot k1 m
+    + b once for every point, each pass's output-driven sum reads the r
+    points i + j m / r of its own m-point line, and over a pass every point
+    is read r times (each by r outputs); the last pass's outputs k1 + P o
+    are the line's points in order. The slots fit the line's pitch."""
+    p2, m = cuda_fft.line_split(n)
+    b, k1 = np.meshgrid(np.arange(m), np.arange(p2), indexing="ij")
+    assert sorted((k1 * m + b).ravel()) == list(range(n))
+    idx, p = np.arange(n), 1
+    for r in cuda_fft._factors(m):
+        pr = p * r
+        last = pr == m
+        line, o = (idx % p2, idx // p2) if last else (idx // m, idx % m)
+        at = line * m + (o // pr) * p + o % p
+        reads = np.concatenate([at + j * (m // r) for j in range(r)])
+        assert (reads // m == np.tile(line, r)).all()
+        assert (np.bincount(reads, minlength=n) == r).all()
+        if last:
+            assert (line + p2 * o == idx).all()
+        p = pr
+    assert cuda_fft.line_pad(np.arange(n)).max() < cuda_fft.line_pitch(n)
 
 
 def test_line_kernel_enum_names_the_line_kernels_in_order():
@@ -157,12 +215,15 @@ def test_line_kernel_enum_names_the_line_kernels_in_order():
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("shape", [(64, 4096), (4096, 64)])
+@pytest.mark.parametrize("shape", [(64, 4096), (4096, 64), (96, 128), (384, 1536)])
 @pytest.mark.parametrize("route", ["plain", "model"])
 def test_rectangles_match_jax(route, shape, inverse):
     """Rows then columns (inverse: columns then rows) of the two extreme
-    rectangles, through the kernels' plain versions and through the model
-    of their line FFT, against the JAX package's ortho fft2 / ifft2."""
+    rectangles and of two planes whose sides are not all powers of two
+    (96 = 32 * 3; 384 = 128 * 3 and 1536 = 512 * 3, sides the JAX
+    package's own kernels take), through the kernels' plain versions and
+    through the model of their line FFT, against the JAX package's ortho
+    fft2 / ifft2."""
     xr, xi = _pair(shape, 11)
     ref = (JF.ifft2 if inverse else JF.fft2)(jnp.asarray(xr) + 1j * jnp.asarray(xi))
     ref = np.asarray(ref)

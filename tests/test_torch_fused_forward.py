@@ -33,6 +33,15 @@ from slmsuite_torch.ops import fft as TF
 from slmsuite_tpu.ops import fft as JF
 from slmsuite_tpu.ops import pallas_fft as JPF
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 PLANE_ATOL, PLANE_RTOL = 2e-5, 1e-5
 SUMS_RTOL, SUMS_ATOL = 1e-4, 1e-6
 NEG_FILL = -3.0e38

@@ -36,6 +36,15 @@ from slmsuite_tpu.holography import toolbox as JT
 from slmsuite_tpu.holography.algorithms._hologram import _stepwise_backward
 from slmsuite_tpu.ops import engine as JE
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 STATS_ATOL, STATS_RTOL = 1e-4, 1e-3
 PHASE_ATOL = 5e-3
 WEIGHT_RTOL = 1e-5

@@ -21,7 +21,17 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
+
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -45,6 +45,15 @@ from slmsuite_tpu.models import engine_models as jmodels
 from slmsuite_tpu.ops import engine as JE
 from slmsuite_tpu.ops import fft as JF
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 SHAPE = (64, 128)
 CARRY_RTOL = 3e-5
 ATOL, RTOL = 3e-5, 1e-4

@@ -44,6 +44,15 @@ from slmsuite_tpu.holography import algorithms as J
 from slmsuite_tpu.models import parallel_models as JPM
 from slmsuite_tpu.parallel import multiplane as JM
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 STATS_ATOL, STATS_RTOL = 1e-4, 1e-3
 PHASE_ATOL = 5e-3
 WEIGHT_RTOL = 1e-5
@@ -234,22 +243,24 @@ def test_run_batched_gs_refuses_a_mesh():
 
 
 def test_batched_gate_refuses_non_power_of_two_cuda_stacks():
-    """The kernels' gate reads a stack's last two sides: a CUDA (B, 96,
-    128) stack raises, naming K5, where a (B, 128, 128) one takes the
-    kernels; and the batched engine on a device other than the CPU raises
-    in the same way on 96x128 planes, before any launch."""
+    """The kernels' gate reads a stack's last two sides: a CUDA (B, 100,
+    128) stack raises, naming the ROADMAP entry of the sides the kernels do
+    not take, where a (B, 128, 128) or a (B, 96, 128) one takes the kernels;
+    and the batched engine on a device other than the CPU raises in the
+    same way on 100x128 planes, before any launch."""
     def fake_cuda(shape):
         return types.SimpleNamespace(device=torch.device("cuda"), is_cuda=True, shape=shape)
 
     assert TF.use_kernels(fake_cuda((B, 128, 128))) is True
-    with pytest.raises(NotImplementedError, match="Non-power-of-two"):
-        TF.use_kernels(fake_cuda((B, 96, 128)))
-    shape = (96, 128)
+    assert TF.use_kernels(fake_cuda((B, 96, 128))) is True
+    with pytest.raises(NotImplementedError, match="Other plane sides"):
+        TF.use_kernels(fake_cuda((B, 100, 128)))
+    shape = (100, 128)
     config = TM.BatchedGSConfig(method="WGS-Kim", shape=shape, slm_shape=shape, n_planes=B)
     consts = TM.make_multiplane_consts(np.ones((B, *shape)), np.zeros((B, *shape)),
                                        np.ones(B), 0.01, device="meta")
     cuda_fft.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+    with pytest.raises(NotImplementedError, match="Other plane sides"):
         TM.run_batched_gs(config, torch.zeros(shape, device="meta"),
                           torch.zeros((B, *shape), device="meta"), consts, 1)
     assert sum(cuda_fft.LAUNCHES.values()) == 0

@@ -42,6 +42,15 @@ from slmsuite_tpu.ops import fft as JF
 from slmsuite_tpu.ops import propagation as jprop
 from slmsuite_tpu.ops import weights as jweights
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 PLANE_RTOL = 1e-5
 THETA_ATOL = 1e-3
 PSI_P99 = 2e-3

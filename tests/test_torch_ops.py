@@ -26,6 +26,15 @@ from slmsuite_tpu.ops import propagation as jprop
 from slmsuite_tpu.ops import stats as jstats
 from slmsuite_tpu.ops import weights as jweights
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 #: f32 round-off over a 64x64 plane, with margin.
 ATOL, RTOL = 1e-6, 1e-5
 
@@ -217,11 +226,14 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_build_nothing():
 
 def test_dispatch_gate_is_cpu_or_kernels():
     """Only a CPU tensor takes the plain versions; a tensor on any other
-    device either takes the kernels or raises."""
+    device either takes the kernels or raises, naming the ROADMAP entry of
+    the sides the kernels do not take."""
     assert tfft.use_kernels(torch.zeros((96, 128))) is False
-    with pytest.raises(NotImplementedError, match="Non-power-of-two"):
-        tfft.use_kernels(torch.zeros((96, 128), device="meta"))
-    with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+    assert tfft.use_kernels(torch.zeros((100, 128))) is False
+    for shape in ((96, 128), (100, 128)):
+        with pytest.raises(NotImplementedError, match="Other plane sides"):
+            tfft.use_kernels(torch.zeros(shape, device="meta"))
+    with pytest.raises(NotImplementedError, match="Other plane sides"):
         tfft.wgs_carry_entry(torch.zeros((64, 64), device="meta"), 1.0)
     meta = torch.zeros((64, 64), device="meta")
     for call in (lambda: tfft.fft2(meta, meta), lambda: tfft.ifft2(meta, meta),
@@ -230,11 +242,13 @@ def test_dispatch_gate_is_cpu_or_kernels():
                  lambda: tfft.wexp_ifft2(meta, meta),
                  lambda: tfft.wexp_ifft2_phase(meta, meta),
                  lambda: tfft.ifft2_phase(meta, meta)):
-        with pytest.raises(NotImplementedError, match="Non-power-of-two"):
+        with pytest.raises(NotImplementedError, match="Other plane sides"):
             call()
 
 
-@pytest.mark.parametrize("n,ok", [(32, False), (64, True), (1536, False), (2048, True),
-                                  (4096, True), (8192, False)])
+@pytest.mark.parametrize("n,ok", [(32, False), (64, True), (1536, True), (2048, True),
+                                  (4096, True), (8192, True), (96, True), (1080, True),
+                                  (1272, True), (100, False), (1021, False), (16384, False),
+                                  (8200, False), (56, False)])
 def test_kernel_shape_gate(n, ok):
     assert tfft.kernel_len_ok(n) is ok

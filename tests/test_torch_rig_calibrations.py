@@ -21,6 +21,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+from scipy import optimize
 
 import slmsuite_torch
 from slmsuite_torch import convert
@@ -136,13 +137,27 @@ def _correction_rms(got, ref, weight):
 
 
 @pytest.mark.parametrize("times", [np.linspace(0.001, 0.02, 6), 4])
-def test_settle_calibration_matches_jax(times):
+def test_settle_calibration_matches_jax(times, monkeypatch):
     """``TestSettlePixelDifferential``'s settle calibration: the data
-    (integrated counts) within one count per window pixel; the fit of the
-    same stored data (the JAX package's) within FIT_RTOL. The simulated SLM
-    settles at once, so the step-and-exponential fit of its flat data is
-    ill-posed: a count's difference in the data can move the fitted times
-    anywhere, and the fits of the two packages' own data are not compared."""
+    (integrated counts) within one count per window pixel, and the port's
+    fit of the same stored data (the JAX package's) held on what is
+    well-posed. The simulated SLM settles at once, so the data are flat and
+    the step-and-exponential fit (four parameters on four or six points) is
+    ill-posed: a change of 1e-15 of the data, or a last bit of ``np.exp``,
+    moves the fitted times by orders of magnitude, so they are not compared
+    (their comparison failed or passed with the tests run before it in the
+    process). Each fitted model at the sweep's points reproduces the data
+    it was fitted to within one count per window pixel, as does the JAX
+    package's, and the times are stored as returned."""
+    fits = []
+    curve_fit = optimize.curve_fit
+
+    def spy(f, xdata, ydata, *args, **kwargs):
+        params, cov = curve_fit(f, xdata, ydata, *args, **kwargs)
+        fits.append((f(np.asarray(xdata), *params), np.asarray(ydata)))
+        return params, cov
+
+    monkeypatch.setattr(optimize, "curve_fit", spy)
     tfs, jfs = _pair(_jax_settle_rig())
     kwargs = dict(vector=(0.005, 0.005), times=times, settle_time_s=0.01)
     if np.isscalar(times):
@@ -151,13 +166,17 @@ def test_settle_calibration_matches_jax(times):
     ref = _quiet(jfs.settle_calibrate, **kwargs)
     size = kwargs.get("size") or 16 * _quiet(
         jtoolbox.convert_radius, jfs.slm.get_spot_radius_kxy(), to_units="ij", hardware=jfs)
+    count = int(size) ** 2
     np.testing.assert_array_equal(got["times"], ref["times"])
-    np.testing.assert_allclose(got["data"], ref["data"], rtol=0, atol=int(size) ** 2)
+    np.testing.assert_allclose(got["data"], ref["data"], rtol=0, atol=count)
     tfs.calibrations["settle"]["data"] = np.array(ref["data"])
     fitted = _quiet(tfs.settle_calibration_process, plot=False)
+    assert len(fits) == 3   # the port's, the JAX package's, the port's of the JAX data
+    for model, data in fits:
+        np.testing.assert_allclose(model, data, rtol=0, atol=count)
+    np.testing.assert_array_equal(fits[2][1], np.squeeze(ref["data"]))
     for key in ("communication_time", "relax_time", "settle_time"):
-        np.testing.assert_allclose(fitted[key], ref[key], rtol=FIT_RTOL, err_msg=key)
-        assert tfs.calibrations["settle"][key] == fitted[key]
+        assert np.isfinite(fitted[key]) and tfs.calibrations["settle"][key] == fitted[key]
     with pytest.raises(NotImplementedError, match="item 12"):
         tfs.settle_calibration_process()
 

@@ -21,6 +21,15 @@ import slmsuite_torch
 from slmsuite_torch.holography import algorithms as T
 from slmsuite_tpu.holography import algorithms as J
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Numpy's global generator left as the test found it."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "holography", "golden")
 
 _spec = importlib.util.spec_from_file_location(
