@@ -217,7 +217,22 @@ there is no card or the port is missing. In order:
    time, device busy share, device launches per iteration (S2 also:
    the share of ``sim_measure_spots``); then X2, X1, X0 and the line
    kernels' times at 1152x1920 and 8192^2 (described under 4, 5 and 7),
-   after every phase whose counts read the profiler.
+   after every phase whose counts read the profiler; then D0-D3, the mesh
+   engines on four shards of the one card (``[cuda:0] * 4``), each against
+   the same work without a mesh, in turns: D0, ``distributed_fft2`` and
+   ``distributed_ifft2`` at 8192^2 (``rows_fft`` twice a shard) against
+   the ``fft2``/``ifft2`` kernels, and ``dryrun_multichip(4)``; D1, an
+   8192^2 ``Hologram`` (a 32x32 spot grid), WGS-Kim, computational stats,
+   rows over four, 20 iterations (``carry_entry``, ``rows_fft`` twice and
+   ``carry_exit`` a shard and iteration) against the fused carry loop; D2,
+   P1's 8 x 1024^2 over a data axis of four (one launch of each stack
+   kernel a shard and iteration), P3's hologram through
+   ``optimize(mesh=...)`` and P4's ``optimize_batch`` over four (bit for
+   bit the meshless batch); D3, config 5 with its pixels over four
+   (``fused_iter`` a shard and iteration) against the recomputing C2 loop.
+   Each with its launches a shard, ms an iteration of mesh and meshless
+   loops, peak memory, and the largest differences of psi, weights and
+   stats within ``tests/test_parallel.py``'s bounds.
 9. last (W1's ~5,100 frames of pageable copies leave the profiler
    missing some small copies and memsets, which the counts above rely
    on), the rig's other calibrations:
@@ -251,7 +266,8 @@ there is no card or the port is missing. In order:
    of the same names where h5py is missing);
 
 It prints the per-kernel JSON line (``rows_fft`` and ``cols_fft`` with
-their W1 launches under ``superpixel``; each line kernel with ``mixed``:
+their W1 launches under ``superpixel``; each kernel of D0-D3 with
+``mesh``: its launches a shard on each; each line kernel with ``mixed``:
 X0's largest relative error, its X1 and X2 launches and its times at
 1152x1920 and 8192^2), the ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Longer logs go to
@@ -3161,29 +3177,31 @@ def phase_camera(device):
 # ----------------------------------------------------------------------
 
 
-def launches_split_at(holo):
+def launches_split_at(holo, at="_populate_results"):
     """As :meth:`launches_split_at_populate`, for both counters: set
     ``cuda_fft``'s and ``cuda_compressed``'s launch counts to 0 and note
-    them when ``holo``'s ``_populate_results`` starts. Returns a function
-    giving ``(loop launches, launches after the loop)`` over both."""
+    them when ``holo``'s method ``at`` starts (``_populate_results``, or the
+    compressed engine's ``_finalize_scan_fused``: where an ``optimize``
+    call's loop ends). Returns a function giving ``(loop launches, launches
+    after the loop)`` over both."""
     from slmsuite_torch.ops import cuda_compressed, cuda_fft
 
     def counts():
         return {**cuda_fft.LAUNCHES, **cuda_compressed.LAUNCHES}
 
-    populate = holo._populate_results
-    at_populate = {}
+    method = getattr(holo, at)
+    at_start = {}
 
-    def counted_populate():
-        at_populate.update(counts())
-        populate()
+    def counted(*args, **kwargs):
+        at_start.update(counts())
+        return method(*args, **kwargs)
 
     def split():
         now = counts()
-        after = {k: v - at_populate[k] for k, v in now.items() if v - at_populate[k]}
-        return {k: v for k, v in at_populate.items() if v}, after
+        after = {k: v - at_start[k] for k, v in now.items() if v - at_start[k]}
+        return {k: v for k, v in at_start.items() if v}, after
 
-    holo._populate_results = counted_populate
+    setattr(holo, at, counted)
     cuda_fft.reset_launch_counts()
     cuda_compressed.reset_launch_counts()
     return split
@@ -4586,6 +4604,387 @@ def line_ab(device, parent_root):
     log(f"  [{nvidia_smi_line()}]")
 
 
+# ----------------------------------------------------------------------
+# The mesh engines on one card: D0-D3.
+# ----------------------------------------------------------------------
+
+#: Shards of D0-D3, all on the one card (``[cuda:0] * 4``).
+MESH_SHARDS = 4
+#: D0's distributed FFT and D1's plane: the largest side the kernels take.
+D0_SIDE, D1_SIDE, D1_ITERS = 8192, 8192, 20
+#: D1's target: spot_array_target's 32x32 grid at N // 70.
+D1_SPOTS, D1_SPACING_DIV = 32, 70
+#: D2's iterations of the batched model and of P3's hologram, and D3's.
+D2_ITERS, D3_ITERS = 20, CONFIG5_ITERS
+#: Mesh against meshless, tests/test_parallel.py's bounds: the plane's
+#: wrapped psi and efficiency; the multiplane's psi and stats; the
+#: compressed wrapped psi, amp_ff and uniformity. The plane's psi is held
+#: at its largest over the pixels whose last nearfield amplitude is above
+#: MESH_PLANE_NEARFIELD of the largest (99.98% of D1's pixels; every row
+#: and column has them): its angle is ill-conditioned where that field
+#: nearly vanishes. On an H100 at 8192^2 after 20 iterations, the meshless
+#: kernels and their plain versions differ there by up to 3.0e-4, and by
+#: 3.0e-3 above 1e-3 of the largest, so a tighter mask would test f32
+#: rounding, not the mesh: above 1e-3 the mesh is held to that difference,
+#: measured in the same phase. The weights' bounds, which tests/test_parallel.py
+#: does not set, are about ten and seventy times the H100's readings (8.7e-7
+#: of the largest weight on the plane, 1.5e-8 on the compressed spots).
+MESH_PLANE_PSI, MESH_PLANE_EFF, MESH_PLANE_NEARFIELD = 5e-4, 1e-4, 1e-2
+MESH_PLANE_WEIGHTS = 1e-5
+MESH_MP_PSI, MESH_MP_STATS = 5e-4, 1e-3
+MESH_CMP_PSI, MESH_CMP_AMP, MESH_CMP_UNIFORMITY, MESH_CMP_WEIGHTS = 1e-3, 1e-5, 1e-4, 1e-6
+
+
+def mesh_of(device, axis):
+    from slmsuite_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axis_names=(axis,), devices=[device] * MESH_SHARDS)
+
+
+def counted_all(fn):
+    """``fn()`` with both launch counters set to 0 just before it; returns
+    ``(result, launches, seconds)``."""
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft
+
+    cuda_fft.reset_launch_counts()
+    cuda_compressed.reset_launch_counts()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: v for m in (cuda_fft, cuda_compressed) for k, v in m.LAUNCHES.items() if v}
+    return out, launches, time.perf_counter() - start
+
+
+def per_shard(launches):
+    """Launches a shard (every shard launches each kernel once a step)."""
+    return {k: v // MESH_SHARDS if v % MESH_SHARDS == 0 else v / MESH_SHARDS
+            for k, v in launches.items()}
+
+
+def peak_gib(fn):
+    """``(fn(), peak device memory in GiB during it)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def mesh_turns(label, mesh_run, single_run, n):
+    """ms an iteration of ``mesh_run(n)`` and ``single_run(n)`` by
+    :meth:`loop_ms`, in turns: mesh, meshless, meshless, mesh."""
+    m1 = loop_ms(mesh_run, n)
+    s1, s2 = loop_ms(single_run, n), loop_ms(single_run, n)
+    m2 = loop_ms(mesh_run, n)
+    log(f"{label} run({n}): mesh {m1:.4f} {m2:.4f} ms/iter, meshless {s1:.4f} {s2:.4f} "
+        f"ms/iter  [{nvidia_smi_line()}]")
+    return (m1 + m2) / 2, (s1 + s2) / 2
+
+
+def wrapped_max(a, b, where=None):
+    """Largest wrapped difference of two phase tensors (over the pixels
+    ``where`` is true, when given)."""
+    d = (torch.remainder(a.float() - b.float() + np.pi, 2 * np.pi) - np.pi).abs()
+    return float((d if where is None else d[where]).max())
+
+
+def phase_d0(device):
+    """D0: ``distributed_fft2`` and ``distributed_ifft2`` at 8192^2 on four
+    shards (``rows_fft`` twice a shard) against the one-device ``fft2`` and
+    ``ifft2`` kernels, ms of each in turns (and of the shards' transform
+    alone, without the API's split and gather), peak memory; then
+    ``dryrun_multichip(4)`` on ``[cuda:0] * 4``. Returns the launches a
+    shard."""
+    from slmsuite_torch.models.parallel_models import dryrun_multichip
+    from slmsuite_torch.ops import fft
+    from slmsuite_torch.ops import collectives as C
+    from slmsuite_torch.parallel.fft2d import (
+        distributed_fft2,
+        distributed_ifft2,
+        fft2_shards,
+    )
+
+    label = f"D0 distributed fft2 {D0_SIDE}^2 over {MESH_SHARDS} shards"
+    mesh = mesh_of(device, "space")
+    gen = torch.Generator(device=device).manual_seed(0)
+    shape = (D0_SIDE, D0_SIDE)
+    xr = torch.randn(shape, device=device, generator=gen)
+    xi = torch.randn(shape, device=device, generator=gen)
+    x = torch.complex(xr, xi)
+    (y, launches, _), mesh_peak = peak_gib(lambda: counted_all(lambda: distributed_fft2(x, mesh)))
+    assert launches == {"rows_fft": 2 * MESH_SHARDS}, launches
+    (ref, single_launches, _), single_peak = peak_gib(lambda: counted_all(lambda: fft.fft2(xr, xi)))
+    assert single_launches == {"rows_fft": 1, "cols_fft": 1}, single_launches
+    scale = float(torch.maximum(ref[0].abs().max(), ref[1].abs().max()))
+    err = max(float((y.real - ref[0]).abs().max()), float((y.imag - ref[1]).abs().max())) / scale
+    back, inv_launches, _ = counted_all(lambda: distributed_ifft2(y, mesh))
+    assert inv_launches == {"rows_fft": 2 * MESH_SHARDS}, inv_launches
+    ref_back = fft.ifft2(*ref)
+    err_inv = max(float((back.real - ref_back[0]).abs().max()),
+                  float((back.imag - ref_back[1]).abs().max())) / float(xr.abs().max())
+    log(f"{label}: fft2 max |mesh - fft2 kernels| / max {err:.3e}, ifft2 {err_inv:.3e}; "
+        f"launches a shard {per_shard(launches)}; peak device memory mesh {mesh_peak:.3f} GiB, "
+        f"one device {single_peak:.3f} GiB")
+    assert err <= CARRY_RTOL and err_inv <= CARRY_RTOL, (err, err_inv)
+    del y, back, ref_back
+    devices = mesh.axis_devices("space")
+    re, im = C.split(xr, devices), C.split(xi, devices)
+    calls = {"api": lambda: distributed_fft2(x, mesh),
+             "shards": lambda: fft2_shards(re, im, inverse=False),
+             "single": lambda: fft.fft2(xr, xi)}
+    times = {name: [] for name in calls}
+    for name in ("api", "shards", "single", "single", "shards", "api"):
+        times[name].append(cuda_ms(calls[name], n=5, warmup=1))
+    log(f"{label} ms a call: distributed_fft2 {times['api']}, the shards' transform "
+        f"{times['shards']}, fft2 kernels on one device {times['single']}  "
+        f"[{nvidia_smi_line()}]")
+    del x, xr, xi, re, im, ref
+    errors, dry_launches, seconds = counted_all(
+        lambda: dryrun_multichip(MESH_SHARDS, devices=[device] * MESH_SHARDS))
+    log(f"D0 dryrun_multichip({MESH_SHARDS}) on [{device}] * {MESH_SHARDS} in {seconds:.2f} s: "
+        f"{errors}; launches {dry_launches}")
+    return per_shard(launches)
+
+
+def d1_hologram(device):
+    """D1: a full-plane 8192^2 Hologram of spot_array_target's 32x32 grid,
+    from a seeded phase."""
+    from slmsuite_torch.holography.algorithms import Hologram
+    from slmsuite_torch.models.engine_models import spot_array_target
+
+    target = spot_array_target(D1_SIDE, D1_SPOTS, D1_SPACING_DIV)
+    holo = Hologram(target, device=device)
+    rng = np.random.default_rng(0)
+    holo.reset_phase(custom_phase=rng.uniform(-np.pi, np.pi, target.shape).astype(np.float32))
+    return holo
+
+
+def phase_d1(device):
+    """D1: the 8192^2 plane through ``Hologram.optimize(mesh=...)``, rows
+    over four shards, WGS-Kim with computational stats, against the same
+    hologram without a mesh (the fused carry loop): exact launches a shard,
+    psi (beside the meshless kernels against their plain versions), weights
+    and stats, peak memory, and ms an iteration of the two engine loops in
+    turns. Returns the launches a shard."""
+    from slmsuite_torch.ops import engine
+    from slmsuite_torch.parallel.plane import run_sharded_plane_gs
+
+    label = f"D1 Hologram {D1_SIDE}^2 WGS-Kim, rows over {MESH_SHARDS} shards"
+    n = D1_ITERS
+    mesh = mesh_of(device, "rows")
+    runs = {}
+    last = {}
+    for name, m in (("mesh", mesh), ("single", None)):
+        holo = d1_hologram(device)
+        split = launches_split_at_populate(holo)
+        if m is None:
+            # The last backward's weights and phase store, as the loop leaves
+            # them (_populate_results replaces the phase store).
+            counted_populate = holo._populate_results
+
+            def keep_last(holo=holo, populate=counted_populate):
+                last["weights"] = type(holo).weights.device(holo, device)
+                last["phase_ff"] = type(holo)._phase_ff_folded.device(holo, device)
+                populate()
+
+            holo._populate_results = keep_last
+        _, peak = peak_gib(lambda: holo.optimize("WGS-Kim", maxiter=n, verbose=False, mesh=m,
+                                                 stat_groups=["computational"]))
+        loop, after = split()
+        del holo._populate_results
+        stats = np.stack([holo.stats["stats"]["computational"][k]
+                          for k in ("efficiency", "uniformity", "pkpk_err", "std_err")], -1)
+        runs[name] = (holo, loop, after, peak, stats)
+        log(f"{label} ({name}): final efficiency {stats[-1, 0]:.6f}, uniformity "
+            f"{stats[-1, 1]:.6f}; loop launches {loop}, after {after}; peak device memory "
+            f"{peak:.3f} GiB")
+    holo, loop, after, _, stats = runs["mesh"]
+    single, _, _, _, single_stats = runs["single"]
+    S = MESH_SHARDS
+    assert loop == dict(carry_entry=n * S, rows_fft=2 * n * S, carry_exit=n * S), loop
+    assert after == dict(rows_fft=1, cols_fft=1), after
+    # psi is the angle of the last backward's nearfield, ill-conditioned
+    # where that field vanishes: held where its amplitude is above
+    # MESH_PLANE_NEARFIELD of its largest (and logged above 1e-3 of it).
+    nearfield = torch.fft.ifft2(torch.polar(last["weights"], last["phase_ff"])).abs()
+    lit = nearfield > MESH_PLANE_NEARFIELD * nearfield.max()
+    dim_lit = nearfield > 1e-3 * nearfield.max()
+    psi, psi_single = (type(h)._psi.device(h, device) for h in (holo, single))
+    psi_max = wrapped_max(psi, psi_single)
+    psi_lit = wrapped_max(psi, psi_single, lit)
+    psi_dim_lit = wrapped_max(psi, psi_single, dim_lit)
+    # The meshless kernels against their plain versions, the f32 floor at
+    # this size: the mesh is held no further from the kernels above 1e-3.
+    plain = d1_hologram(device)
+    with plain_step_functions():
+        plain.optimize("WGS-Kim", maxiter=n, verbose=False, stat_groups=["computational"])
+    psi_plain = type(plain)._psi.device(plain, device)
+    plain_lit = wrapped_max(psi_plain, psi_single, lit)
+    plain_dim_lit = wrapped_max(psi_plain, psi_single, dim_lit)
+    del plain, psi_plain
+    w = type(holo).weights.device(holo, device)
+    w_single = type(single).weights.device(single, device)
+    w_err = float((w - w_single).abs().max() / w_single.abs().max())
+    d_stats = np.abs(stats - single_stats).max(axis=0)
+    log(f"{label}: mesh against meshless: psi wrapped max {psi_lit:.3e} over the "
+        f"{int(lit.sum())} of {lit.numel()} pixels whose nearfield amplitude is above "
+        f"{MESH_PLANE_NEARFIELD:g} of its largest ({psi_dim_lit:.3e} over the "
+        f"{int(dim_lit.sum())} above 1e-3, {psi_max:.3e} over all), weights max |diff| / "
+        f"max {w_err:.3e}, stats max |diff| [efficiency, uniformity, pkpk_err, std_err] "
+        f"{d_stats.tolist()}; the meshless kernels against their plain versions: psi "
+        f"wrapped max {plain_lit:.3e} above {MESH_PLANE_NEARFIELD:g}, {plain_dim_lit:.3e} "
+        f"above 1e-3")
+    assert psi_lit <= MESH_PLANE_PSI and d_stats[0] <= MESH_PLANE_EFF, (psi_lit, d_stats)
+    assert psi_dim_lit <= plain_dim_lit, (psi_dim_lit, plain_dim_lit)
+    assert w_err <= MESH_PLANE_WEIGHTS, w_err
+    del runs, holo, single, w, w_single, psi, psi_single, nearfield, lit, dim_lit, last
+
+    fresh = d1_hologram(device)
+    fresh._update_flags("WGS-Kim", False, None, ["computational"])
+    config = fresh._build_config()
+    consts = fresh._build_consts(config)
+    state = fresh._build_state(config)
+    mesh_turns(label, lambda k: run_sharded_plane_gs(config, state, consts, mesh, k, "rows"),
+               lambda k: engine.run_gs(config, state, consts, k), n)
+    return per_shard(loop)
+
+
+def phase_d2(device):
+    """D2: P1's 8 x 1024^2 through ``run_batched_gs(mesh=...)`` over a data
+    axis of four, P3's ``MultiplaneHologram`` through ``optimize(mesh=...)``
+    and P4's ``optimize_batch`` of 8 frames over four, each against its
+    meshless run (launches a shard, psi, weights and stats; P4 bit for
+    bit), peak memory, and ms an iteration of P1's loop in turns. Returns
+    the launches a shard of P1's loop."""
+    from slmsuite_torch.holography.algorithms import optimize_batch
+    from slmsuite_torch.models.parallel_models import multiplane_batched
+
+    n, S = D2_ITERS, MESH_SHARDS
+    mesh = mesh_of(device, "data")
+    label = f"D2 multiplane {MP_PLANES} x {MP_SIDE}^2 WGS-Kim, planes over {S} shards"
+    run = multiplane_batched(MP_PLANES, N=MP_SIDE, device=device)
+    ((psi, weights, stats, _, fixed), launches, seconds), peak = peak_gib(
+        lambda: counted_all(lambda: run(mesh, n)))
+    (ref_psi, ref_w, ref_stats, _, ref_fixed), single_peak = peak_gib(lambda: run(None, n))
+    assert launches == dict(carry_entry=n * S, cols_fwd_polar=n * S, cols_wexp_inv=n * S,
+                            rows_fft=n * S), launches
+    psi_max = wrapped_max(psi, ref_psi)
+    w_err = float((weights - ref_w).abs().max() / ref_w.abs().max())
+    d_stats = float((stats[..., :4] - ref_stats[..., :4]).abs().max())
+    log(f"{label}: launches a shard {per_shard(launches)} in {seconds:.2f} s; against "
+        f"meshless: psi wrapped max {psi_max:.3e}, weights {w_err:.3e}, stats max |diff| "
+        f"{d_stats:.3e}, Kim flags equal {bool(torch.equal(fixed, ref_fixed))}; peak device "
+        f"memory mesh {peak:.3f} GiB, one device {single_peak:.3f} GiB")
+    assert psi_max <= MESH_MP_PSI and d_stats <= MESH_MP_STATS, (psi_max, d_stats)
+    mesh_turns(label, lambda k: run(mesh, k), lambda k: run(None, k), n)
+
+    holos = {}
+    for name, m in (("mesh", mesh), ("single", None)):
+        holo = p3_hologram(device)
+        split = launches_split_at_populate(holo)
+        holo.optimize("WGS-Kim", maxiter=P3_ITERS, verbose=False, mesh=m,
+                      stat_groups=["computational"])
+        holos[name] = (holo, *split(), child_stats(holo.holograms))
+        del holo._populate_results
+    (holo, loop, _, st), (single, _, _, single_st) = holos["mesh"], holos["single"]
+    m = P3_ITERS
+    assert loop == dict(carry_entry=m * S, cols_fwd_polar=m * S, cols_wexp_inv=m * S,
+                        rows_fft=m * S), loop
+    p3_max = wrapped_max(type(holo)._psi.device(holo, device),
+                         type(single)._psi.device(single, device))
+    d3 = float(np.abs(st - single_st).max())
+    log(f"D2 P3 MultiplaneHologram.optimize(mesh=...): loop launches a shard {per_shard(loop)}; "
+        f"against meshless: psi wrapped max {p3_max:.3e}, per-child efficiency and uniformity "
+        f"max |diff| {d3:.3e}")
+    assert p3_max <= MESH_MP_PSI and d3 <= MESH_MP_STATS, (p3_max, d3)
+    del holos, holo, single
+
+    frames = {}
+    for name, m in (("mesh", mesh), ("single", None)):
+        fs = p4_frames(device)
+        _, batch_launches, seconds = counted_all(lambda: optimize_batch(
+            fs, "WGS-Kim", maxiter=P4_ITERS, verbose=False, stat_groups=["computational"],
+            mesh=m))
+        frames[name] = (fs, batch_launches, seconds)
+    (fs, batch_launches, seconds), (solo, solo_launches, solo_seconds) = (
+        frames["mesh"], frames["single"])
+    for b, (h, s) in enumerate(zip(fs, solo)):
+        assert np.array_equal(h.get_phase(), s.get_phase()), b
+        assert h.stats["stats"] == s.stats["stats"], b
+    assert batch_launches == solo_launches, (batch_launches, solo_launches)
+    log(f"D2 P4 optimize_batch {MP_PLANES} frames over {S} shards: phases and stats identical "
+        f"to the meshless batch; launches {batch_launches} ({per_shard(batch_launches)} a "
+        f"shard); {seconds:.3f} s against {solo_seconds:.3f} s")
+    return per_shard(launches)
+
+
+def phase_d3(device):
+    """D3: config 5 through ``CompressedSpotHologram.optimize(mesh=...)``,
+    pixels over four shards, against the recomputing C2 loop on one device
+    (the cache is off under a mesh): launches a shard, amp_ff, weights,
+    uniformity and psi, peak memory, and ms an iteration of the two engine
+    loops in turns. Returns the launches a shard."""
+    from slmsuite_torch.ops import compressed
+    from slmsuite_torch.parallel.compressed import (
+        run_sharded_compressed_gs,
+        shard_compressed_consts,
+    )
+
+    n, S = D3_ITERS, MESH_SHARDS
+    label = f"D3 config 5 WGS-Kim {n} iterations, pixels over {S} shards"
+    mesh = mesh_of(device, "pixels")
+    runs = {}
+    with env_var("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", "0"):
+        for name, m in (("mesh", mesh), ("single", None)):
+            holo = config5_hologram(device)
+            # The loop ends where the hologram adopts its final state.
+            split = launches_split_at(holo, "_finalize_scan_fused")
+            start = time.perf_counter()
+            _, peak = peak_gib(lambda: holo.optimize(
+                "WGS-Kim", maxiter=n, verbose=False, mesh=m, stat_groups=["computational_spot"]))
+            seconds = time.perf_counter() - start
+            loop, after = split()
+            del holo._finalize_scan_fused
+            assert not holo._kernel_cache_enabled()
+            runs[name] = (holo, loop, after)
+            log(f"{label} ({name}): loop launches {loop}, after {after} in {seconds:.2f} s; "
+                f"peak device memory {peak:.3f} GiB")
+    (holo, loop, after), (single, single_loop, single_after) = runs["mesh"], runs["single"]
+    # Each shard: n2f at entry, fused_iter an iteration, f2n at exit; then
+    # the hologram's n2f of the gathered phase (the final farfield).
+    assert loop == dict(n2f=S, fused_iter=n * S, f2n=S), loop
+    assert single_loop == dict(n2f=1, fused_iter=n, f2n=1), single_loop
+    assert after == single_after == dict(n2f=1), (after, single_after)
+    amp_err = float(np.abs(holo.amp_ff - single.amp_ff).max())
+    w_err = float(np.abs(np.asarray(holo.weights) - np.asarray(single.weights)).max())
+    u = [np.asarray(h.stats["stats"]["computational_spot"]["uniformity"]) for h in (holo, single)]
+    u_err = float(np.abs(u[0] - u[1]).max())
+    psi_max = wrapped_max(type(holo)._psi.device(holo, device),
+                          type(single)._psi.device(single, device))
+    log(f"{label}: against the recomputing loop: amp_ff max |diff| {amp_err:.3e}, weights "
+        f"{w_err:.3e}, uniformity {u_err:.3e}, psi wrapped max {psi_max:.3e}")
+    assert amp_err <= MESH_CMP_AMP and u_err <= MESH_CMP_UNIFORMITY, (amp_err, u_err)
+    assert w_err <= MESH_CMP_WEIGHTS and psi_max <= MESH_CMP_PSI, (w_err, psi_max)
+
+    fresh = config5_hologram(device)
+    fresh._update_flags("WGS-Kim", False, None, ["computational_spot"])
+    with env_var("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", "0"):
+        config = fresh._compressed_config(kernel_cache=False)
+        consts = fresh._compressed_consts(kernel_cache=False)
+    state = fresh._compressed_state()
+    shards = shard_compressed_consts(consts, mesh)
+    mesh_turns(label, lambda k: run_sharded_compressed_gs(config, state, shards, mesh, k),
+               lambda k: compressed.run_compressed_gs(config, state, consts, k), n)
+    return per_shard(loop)
+
+
+def phase_mesh(device):
+    """D0-D3, the mesh engines on four shards of the one card. Returns the
+    launches a shard of each path."""
+    return {"D0": phase_d0(device), "D1": phase_d1(device), "D2": phase_d2(device),
+            "D3": phase_d3(device)}
+
+
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
@@ -4661,6 +5060,8 @@ def main():
     mixed_paths = phase_mixed_paths(device)
     mixed_errors = phase_mixed_parity(device)
     mixed_times = phase_mixed_timing(device)
+    # The mesh engines (D0-D3) after the profiler's phases and before W1.
+    mesh_launches = phase_mesh(device)
     # The rig's calibrations come last: after W1's ~5,100 frames (three 4 MB
     # pageable copies each) the profiler's CUPTI records miss some small
     # copies and memsets, which the transfer counts and device-event
@@ -4713,6 +5114,13 @@ def main():
                 "x0_max_rel": mixed_errors[name],
                 "launches": {p: c[name] for p, c in mixed_paths.items() if c.get(name)},
                 **mixed_times[name],
+            }
+        if any(name in counts for counts in mesh_launches.values()):
+            # The launches a shard of the mesh engines' paths (D0-D3).
+            kernels[-1]["mesh"] = {
+                "shards": MESH_SHARDS,
+                "launches_per_shard": {p: c[name] for p, c in mesh_launches.items()
+                                       if c.get(name)},
             }
         if any(name in counts for counts in cg_launches.values()):
             # The launches of gradient phase retrieval, forward and backward.

@@ -7,7 +7,8 @@ instances (frames of a tweezer-rearrangement movie, a parameter scan,
 per-wavelength variants) advance through one call; each instance runs the
 engine's own loop on its kernels (:meth:`slmsuite_torch.ops.engine.run_gs_batch`),
 and its results land back on it exactly as if it had been optimized
-alone. The mesh-sharded batch comes with ROADMAP.md queue 1, item 11.
+alone. With a mesh the instances are cut over its devices, with no
+collective.
 """
 
 import numpy as np
@@ -33,6 +34,7 @@ def optimize_batch(
     verbose=True,
     stat_groups=[],
     mesh=None,
+    axis_name="data",
     **kwargs,
 ):
     """
@@ -50,20 +52,17 @@ def optimize_batch(
         (phase, farfield, weights, stats) as if optimized individually.
     method, maxiter, verbose, stat_groups, **kwargs
         As :meth:`~slmsuite_torch.holography.algorithms.Hologram.optimize`.
-    mesh
-        A ``mesh`` raises :class:`NotImplementedError` (ROADMAP.md queue 1,
-        item 11).
+    mesh : slmsuite_torch.parallel.mesh.Mesh OR None
+        Cut the batch over ``axis_name``; the batch size must divide the
+        mesh. No collectives are made.
+    axis_name : str
+        Mesh axis to cut over.
 
     Returns
     -------
     list of Hologram
         The same instances, advanced ``maxiter`` iterations.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "Mesh-sharded batch optimization comes with the distributed engines "
-            "(ROADMAP.md queue 1, item 11)."
-        )
     if len(holograms) == 0:
         return holograms
 
@@ -97,7 +96,8 @@ def optimize_batch(
 
     stacked_state = _engine.GSState(*(_stack(list(field)) for field in zip(*states)))
     stacked_consts = {key: _stack([c[key] for c in consts_list]) for key in consts_list[0]}
-    final, stats = _engine.run_gs_batch(configs[0], stacked_state, stacked_consts, maxiter)
+    final, stats = _engine.run_gs_batch(configs[0], stacked_state, stacked_consts, maxiter,
+                                        mesh=mesh, axis_name=axis_name)
 
     stats = stats.cpu().numpy()
     for i, h in enumerate(holograms):

@@ -730,13 +730,16 @@ class Hologram(_HologramStats):
         ``maxiter``, ``verbose``, ``callback``, ``feedback``,
         ``stat_groups`` and method flags in ``**kwargs`` (persisted into
         :attr:`flags`).
+
+        ``mesh=`` a :class:`slmsuite_torch.parallel.mesh.Mesh` runs the
+        optimization sharded over it, as in ``slmsuite_tpu``: a plane's rows
+        (:mod:`slmsuite_torch.parallel.plane`), :class:`MultiplaneHologram`'s
+        planes, or :class:`CompressedSpotHologram`'s pixels. The mesh
+        persists for later ``optimize`` calls until ``mesh=None`` is passed.
         """
         name = kwargs.pop("name", None)
-        if kwargs.pop("mesh", None) is not None:
-            raise NotImplementedError(
-                "Mesh-sharded optimization comes with the distributed engines "
-                "(ROADMAP.md queue 1, item 11)."
-            )
+        if "mesh" in kwargs:
+            self._mesh = kwargs.pop("mesh")
         self._update_flags(method, verbose, feedback, stat_groups, **kwargs)
 
         if "GS" in method:
@@ -1004,6 +1007,7 @@ class Hologram(_HologramStats):
         progress = self._progress(maxiter, verbose, name)
 
         if host_loop:
+            self._warn_mesh_host_loop()
             for _ in range(maxiter):
                 self._stepwise_iteration(config, consts, callback)
                 if progress is not None:
@@ -1014,9 +1018,10 @@ class Hologram(_HologramStats):
             state = self._build_state(config)
             start_iter = self.iter
             chunk = maxiter if not verbose else max(1, int(np.ceil(maxiter / 10)))
+            on_chunk = progress.update if progress is not None else None
             state, all_stats = _engine.run_gs_chunked(
-                config, state, consts, maxiter, chunk=chunk,
-                on_chunk=(progress.update if progress is not None else None),
+                config, state, consts, maxiter, chunk=chunk, on_chunk=on_chunk,
+                run=self._plane_mesh_run(config),
             )
             self._sync_from_state(state)
             if self._device_stat_groups():
@@ -1027,6 +1032,44 @@ class Hologram(_HologramStats):
 
     #: Set by a callback that returned True; ends the host loop.
     _break_requested = False
+
+    #: The active :class:`slmsuite_torch.parallel.mesh.Mesh` (set through
+    #: ``optimize(mesh=...)``).
+    _mesh = None
+
+    def _warn_mesh_host_loop(self):
+        """The host loop runs on one device, whatever the mesh."""
+        if self._mesh is not None:
+            warnings.warn(
+                "mesh-sharded optimization requires the fully-computational "
+                "path (no callback/experimental feedback); running on a "
+                "single device."
+            )
+
+    def _plane_mesh_run(self, config):
+        """The run of a chunk that shards the plane's rows over the mesh's
+        first axis (:meth:`slmsuite_torch.parallel.plane.run_sharded_plane_gs`),
+        or None for the engine's own: with no mesh, or one that
+        :meth:`~slmsuite_torch.parallel.plane.plane_shardable` refuses (then
+        with a warning, and the run is on one device)."""
+        from slmsuite_torch.parallel.plane import plane_shardable, run_sharded_plane_gs
+
+        mesh = self._mesh
+        if mesh is None:
+            return None
+        if not plane_shardable(config, mesh.size):
+            warnings.warn(
+                "mesh-sharded plane optimization requires farfield "
+                "shape == SLM shape, computational (non-spot) "
+                "feedback, and dimensions divisible by the mesh; "
+                "running on a single device."
+            )
+            return None
+
+        def run(config, state, consts, n):
+            return run_sharded_plane_gs(config, state, consts, mesh, n, mesh.axis_names[0])
+
+        return run
 
     def _stepwise_iteration(self, config, consts, callback):
         """

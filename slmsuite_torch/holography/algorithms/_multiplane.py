@@ -14,8 +14,12 @@ feedback or stats, ``zero_factor``) runs the host meta loop: each child's
 forward, stats, weight update and constraint, then one weighted sum of the
 windows. ``"CG"`` differentiates the plane-weighted sum of the children's
 losses through each child's :class:`slmsuite_torch.ops.grad.Fft2`.
-``optimize(mesh=...)`` raises (ROADMAP.md queue 1, item 11).
+With ``optimize(mesh=...)`` the batched engine cuts the planes over the
+mesh (:meth:`slmsuite_torch.parallel.multiplane.run_batched_gs`); a problem
+it does not cover warns and runs the host meta loop.
 """
+
+import warnings
 
 import numpy as np
 import torch
@@ -193,23 +197,45 @@ class MultiplaneHologram(Hologram):
     # Optimization.
     # ------------------------------------------------------------------
 
-    def _mesh_eligible(self, callback):
+    def _mesh_eligible(self, callback, n_dev=None, warn=True):
         """Whether the batched engine covers this problem (``slmsuite_tpu``'s
-        gate on a one-device mesh): no callback, plain-Hologram children
-        sharing one farfield shape (MRAF masks included: they are
-        plane-local), computational feedback, computational stats only and
-        no ``zero_factor`` (its evolving zero-region weights are host meta
-        loop state)."""
+        gate): no callback, plain-Hologram children sharing one farfield
+        shape (MRAF masks included: they are plane-local), computational
+        feedback, computational stats only, no ``zero_factor`` (its evolving
+        zero-region weights are host meta loop state), and a plane count
+        that divides by ``n_dev`` (the mesh's size by default, 1 without a
+        mesh). Where it does not, it warns when ``warn``."""
         children = self.holograms
-        return (
-            callback is None
-            and all(type(h) is Hologram for h in children)
-            and self.flags.get("feedback", "computational") == "computational"
-            and len({tuple(h.shape) for h in children}) == 1
-            and not any(bool(h.flags.get("zero_factor", 0)) for h in children)
-            and not bool(self.flags.get("zero_factor", 0))
-            and set(self.flags.get("stat_groups", [])) <= {"computational"}
-        )
+        reasons = []
+        if callback is not None:
+            reasons.append("callback requires the host meta loop")
+        if any(type(h) is not Hologram for h in children):
+            reasons.append("children must be plain Hologram instances")
+        if self.flags.get("feedback", "computational") != "computational":
+            reasons.append("only computational feedback is data-parallel")
+        if len({tuple(h.shape) for h in children}) != 1:
+            reasons.append("children must share one farfield shape")
+        if any(bool(h.flags.get("zero_factor", 0)) for h in children) or bool(
+            self.flags.get("zero_factor", 0)
+        ):
+            reasons.append(
+                "zero_factor (evolving zero-region weights) carries extra "
+                "complex state; host meta loop only"
+            )
+        if set(self.flags.get("stat_groups", [])) - {"computational"}:
+            reasons.append("only 'computational' stats are device-side here")
+        if n_dev is None:
+            n_dev = 1 if self._mesh is None else self._mesh.size
+        if len(children) % n_dev:
+            reasons.append(f"plane count {len(children)} must divide the mesh ({n_dev})")
+        if reasons:
+            if warn:
+                warnings.warn(
+                    "mesh-sharded multiplane optimization unavailable ("
+                    + "; ".join(reasons) + "); running the host meta loop."
+                )
+            return False
+        return True
 
     def _batched_inputs(self):
         """The inputs of the batched run from the children's state, on the
@@ -269,12 +295,13 @@ class MultiplaneHologram(Hologram):
         psi = type(self)._psi.device(self, device)
         return config, psi, weights, consts, phase_ff, fixed
 
-    def _optimize_gs_batched(self, maxiter, verbose, name):
-        """The batched multiplane run on one device (``slmsuite_tpu``'s
-        ``_optimize_gs_mesh`` on a one-device mesh): the whole run is one
-        device loop (:meth:`slmsuite_torch.parallel.multiplane.run_batched_gs`)
-        from :meth:`_batched_inputs`, with the state and stats scattered
-        back into the children once at the end."""
+    def _optimize_gs_batched(self, maxiter, verbose, name, mesh=None):
+        """The batched multiplane run (``slmsuite_tpu``'s
+        ``_optimize_gs_mesh``): the whole run is one device loop
+        (:meth:`slmsuite_torch.parallel.multiplane.run_batched_gs`), its
+        planes cut over the first axis of ``mesh`` where one is given, from
+        :meth:`_batched_inputs`, with the state and stats scattered back
+        into the children once at the end."""
         from slmsuite_torch.parallel.multiplane import run_batched_gs
 
         children = self.holograms
@@ -283,6 +310,7 @@ class MultiplaneHologram(Hologram):
         progress = self._progress(maxiter, verbose, name)
         psi, weights, stats, phase_ff, fixed = run_batched_gs(
             config, psi, weights0, consts, maxiter,
+            mesh=mesh, axis_name=None if mesh is None else mesh.axis_names[0],
             start_iteration=start_iter, phase_ff=phase_ff0, fixed=fixed0,
         )
         if progress is not None:
@@ -318,15 +346,18 @@ class MultiplaneHologram(Hologram):
     def optimize_gs(self, maxiter, callback, verbose=True, name=None):
         """
         Multiplane GS. A homogeneous, computational, callback-free problem
-        runs the batched engine (:meth:`_optimize_gs_batched`); anything
-        else the host meta loop: per iteration, every child runs its
-        forward, stats, weight update and constraint on the device, and the
-        plane-weighted complex windows combine into the shared phase.
+        runs the batched engine (:meth:`_optimize_gs_batched`), over the
+        mesh where ``optimize(mesh=...)`` gave one; anything else the host
+        meta loop (with a warning under a mesh): per iteration, every child
+        runs its forward, stats, weight update and constraint on the device,
+        and the plane-weighted complex windows combine into the shared phase.
         """
         if isinstance(maxiter, range):
             maxiter = len(maxiter)
 
-        if self._mesh_eligible(callback):
+        if self._mesh is not None and self._mesh_eligible(callback):
+            return self._optimize_gs_batched(maxiter, verbose, name, mesh=self._mesh)
+        if self._mesh is None and self._mesh_eligible(callback, n_dev=1, warn=False):
             return self._optimize_gs_batched(maxiter, verbose, name)
 
         children = self.holograms

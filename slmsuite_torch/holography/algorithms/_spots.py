@@ -25,7 +25,8 @@ feedback; callbacks, ``"external_spot"`` and ``"experimental_spot"``
 host-paced loop (:meth:`CompressedSpotHologram._stepwise_compressed`) on
 the same transforms; ``"CG"`` differentiates through
 :class:`slmsuite_torch.ops.grad.CompressedOverlap` (the ``n2f`` kernel
-forward, ``f2n`` backward). Mesh-sharded runs are queued under item 11.
+forward, ``f2n`` backward). ``optimize(mesh=...)`` cuts the pixels over the
+mesh (:mod:`slmsuite_torch.parallel.compressed`).
 """
 
 import dataclasses
@@ -965,7 +966,10 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         the sincos: when the cache fits ``SLMSUITE_TORCH_COMPRESSED_CACHE_MB``
         (default 4096; ``0`` disables) and the spots fit ``fused_iter_cached``'s
         shared memory (:meth:`slmsuite_torch.ops.compressed.fused_iter_cached_ok`;
-        past it the recomputing loop runs, on the CPU as on the card)."""
+        past it the recomputing loop runs, on the CPU as on the card); off
+        under a mesh (the pixel-sharded engine recomputes on each shard)."""
+        if self._mesh is not None:
+            return False
         try:
             budget_mb = float(os.environ.get("SLMSUITE_TORCH_COMPRESSED_CACHE_MB", 4096))
         except ValueError:
@@ -1102,6 +1106,8 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             or feedback in ("experimental_spot", "external_spot")
             or (bool(self.flags.get("zero_factor", 0)) and self._mraf_enabled())
         )
+        if host_loop:
+            self._warn_mesh_host_loop()
         config = self._compressed_config(
             kernel_cache=not host_loop and self._kernel_cache_enabled()
         )
@@ -1123,12 +1129,31 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             self._populate_results()
             return
 
+        mesh = self._mesh
+        if mesh is not None and config.n_pixels % mesh.size:
+            warnings.warn(
+                f"mesh-sharded compressed optimization unavailable "
+                f"(pixel count {config.n_pixels} must divide the "
+                f"mesh ({mesh.size})); running on a single device."
+            )
+            mesh = None
+        if mesh is not None:
+            from slmsuite_torch.parallel.compressed import (
+                run_sharded_compressed_gs,
+                shard_compressed_consts,
+            )
+
+            axis = mesh.axis_names[0]
+            shards = shard_compressed_consts(consts, mesh, axis)
         chunk = maxiter if not verbose else max(1, int(np.ceil(maxiter / 10)))
         all_stats = []
         remaining = maxiter
         while remaining > 0:
             n = min(chunk, remaining)
-            state, stats = _comp.run_compressed_gs(config, state, consts, n)
+            if mesh is not None:
+                state, stats = run_sharded_compressed_gs(config, state, shards, mesh, n, axis)
+            else:
+                state, stats = _comp.run_compressed_gs(config, state, consts, n)
             all_stats.append(stats)
             remaining -= n
             if progress is not None:

@@ -331,6 +331,18 @@ def nearfield_to_farfield(nf_re, nf_im, coeffs, basis):
     return _nearfield_to_farfield(nf_re, nf_im, coeffs, basis)
 
 
+def nearfield_overlap(nf_re, nf_im, coeffs, basis):
+    """
+    The ``(N,)`` sum ``sum_p e^{-i Phi} nf`` itself, neither scaled nor
+    normalized: a pixel slab's share of :meth:`nearfield_to_farfield`
+    (``slmsuite_tpu.ops.compressed.nearfield_to_farfield_raw`` without its
+    scale). Kernel: ``n2f`` unnormalized.
+    """
+    if _on_card(basis):
+        return _cuda().n2f(nf_re, nf_im, coeffs, basis, normalize=False)
+    return _nearfield_to_farfield(nf_re, nf_im, coeffs, basis, normalize=False)
+
+
 def fused_iteration(ff_re, ff_im, coeffs, basis, amp):
     """
     One round trip ``ff -> nf -> amp nf/|nf| -> ff'`` on one phase
@@ -417,13 +429,14 @@ def _spot_stats(amp_ff, consts):
                            efficiency_compensation=False)
 
 
-def make_compressed_carry_step(config: CompressedGSConfig):
+def make_compressed_carry_step(config: CompressedGSConfig, round_trip=None):
     """
     The loop step ``step(state, consts) -> (state, stats (n_groups + 1,
     4))`` on the farfield carry; the trailing stats row is ``[efficiency
     or nan, fixed_phase, 0, 0]``. The epilogue is O(N) PyTorch; the O(N P)
     round trip is one :meth:`fused_iteration` or
-    :meth:`fused_iteration_cached`.
+    :meth:`fused_iteration_cached`, or ``round_trip(ffp_re, ffp_im)`` where
+    given (the pixel-sharded engine's: every shard's round trip, summed).
     """
 
     def step(state, consts):
@@ -470,7 +483,9 @@ def make_compressed_carry_step(config: CompressedGSConfig):
             # The mix keeps the NORMALIZED farfield at noise spots.
             ffp_re, ffp_im = apply_compressed_mraf_mix(ffp_re, ffp_im, ff_re, ff_im, consts)
 
-        if config.kernel_cache:
+        if round_trip is not None:
+            next_re, next_im = round_trip(ffp_re, ffp_im)
+        elif config.kernel_cache:
             next_re, next_im = fused_iteration_cached(
                 ffp_re, ffp_im, consts["kc_tiles"], consts["ks_tiles"], consts["amp"],
                 config.n_spots, config.n_pixels,

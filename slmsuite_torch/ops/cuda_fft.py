@@ -431,10 +431,12 @@ def line_fft_model(xr, xi, *, inverse, blocks=1):
     return buf.real.contiguous(), buf.imag.contiguous()
 
 
-def _check_planes(*planes, stack=False):
+def _check_planes(*planes, stack=False, rows=False):
     """Raise unless every plane is a contiguous f32 CUDA tensor of one
     shape, (H, W) or, with ``stack``, also (B, H, W) with B >= 1, whose
-    sides the kernels take. Returns ``(H, W)``."""
+    sides the kernels take; with ``rows`` (a row kernel, which transforms
+    lines of W points), W one the kernels take and H any positive multiple
+    of 8 (a row shard of a plane). Returns ``(H, W)``."""
     shape = planes[0].shape
     ndims = (2, 3) if stack else (2,)
     for x in planes:
@@ -452,7 +454,12 @@ def _check_planes(*planes, stack=False):
                 f"{torch.cuda.current_device()}: launches go to the current device."
             )
     H, W = shape[-2:]
-    if not (kernel_len_ok(H) and kernel_len_ok(W)):
+    if rows and not (kernel_len_ok(W) and H % 8 == 0):
+        raise ValueError(
+            f"Rows must be multiples of 8 in [64, 8192] long and a multiple of 8 "
+            f"in number; got {tuple(shape)}."
+        )
+    if not rows and not (kernel_len_ok(H) and kernel_len_ok(W)):
         raise ValueError(
             f"Sides must be multiples of 8 in [64, 8192]; got {tuple(shape)}."
         )
@@ -464,12 +471,12 @@ def _n_planes(x):
     return x.shape[0] if x.ndim == 3 else 1
 
 
-def _amp_plane(amp, shape):
+def _amp_plane(amp, shape, rows=False):
     """The (H, W) amplitude plane of planes of ``shape`` ((H, W) or a
     (B, H, W) stack, which shares it), or None for a scalar amplitude."""
     if is_scalar_amp(amp):
         return None
-    _check_planes(amp)
+    _check_planes(amp, rows=rows)
     if amp.shape != shape[-2:]:
         raise ValueError(f"amp {tuple(amp.shape)} does not match {tuple(shape)}.")
     return amp
@@ -521,8 +528,8 @@ def carry_entry(psi, amp):
     """#1: psi -> rows-transformed carry ``(gr, gi)`` of ``e^{i psi}``
     (scalar ``amp``) or ``amp * e^{i psi}``. ``psi`` is an (H, W) plane or
     a (B, H, W) stack, whose planes share the (H, W) ``amp``."""
-    H, W = _check_planes(psi, stack=True)
-    amp_plane = _amp_plane(amp, psi.shape)
+    H, W = _check_planes(psi, stack=True, rows=True)
+    amp_plane = _amp_plane(amp, psi.shape, rows=True)
     gr, gi = torch.empty_like(psi), torch.empty_like(psi)
     rc = _entry("slm_carry_entry", W)(
         _ptr(psi), _ptr(amp_plane), _ptr(gr), _ptr(gi), _n_planes(psi), H, W,
@@ -615,7 +622,7 @@ def rows_normfwd(hr, hi, amp):
 
 def carry_exit(gr, gi):
     """#4: rows-transformed carry -> psi (inverse row FFT, atan2)."""
-    H, W = _check_planes(gr, gi)
+    H, W = _check_planes(gr, gi, rows=True)
     psi = torch.empty_like(gr)
     rc = _entry("slm_carry_exit", W)(
         _ptr(gr), _ptr(gi), _ptr(psi), H, W,
@@ -712,7 +719,7 @@ def rows_fft(xr, xi, *, inverse, scale=1.0):
     """#5, rows half: the FFT (``inverse``: the unnormalized inverse FFT)
     of every row of the pair (of every plane of a (B, H, W) stack: B H
     rows), times ``scale``."""
-    H, W = _check_planes(xr, xi, stack=True)
+    H, W = _check_planes(xr, xi, stack=True, rows=True)
     yr, yi = torch.empty_like(xr), torch.empty_like(xr)
     rc = _entry("slm_rows_fft", W)(
         _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), _n_planes(xr) * H, W, int(bool(inverse)),

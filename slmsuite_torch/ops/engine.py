@@ -30,7 +30,8 @@ Python branch on a tensor value runs inside the loop, and the stats rows
 are stacked once per run.
 
 :meth:`run_gs_batch` runs K independent holograms (``optimize_batch``),
-each through :meth:`run_gs` on its own loop and kernels.
+each through :meth:`run_gs` on its own loop and kernels, with a mesh K/D on
+each of its devices.
 
 ``experimental_spot_sim`` closes the camera loop on the device for a
 simulated rig: :meth:`sim_measure_spots` forms the quantized display, the
@@ -51,6 +52,7 @@ import torch
 from slmsuite_torch import resolve_device
 from slmsuite_torch.ops import fft as _fft
 from slmsuite_torch.ops import propagation as _prop
+from slmsuite_torch.ops.collectives import on_device
 from slmsuite_torch.ops.stats import calculate_stats, std_from_moments
 from slmsuite_torch.ops.weights import update_weights_generic
 
@@ -716,23 +718,27 @@ def run_gs(config: GSConfig, state: GSState, consts: dict, n_iterations: int):
     return _finalize_fused(config, state), stats
 
 
-def run_gs_chunked(config, state, consts, n_iterations, chunk=None, on_chunk=None):
+def run_gs_chunked(config, state, consts, n_iterations, chunk=None, on_chunk=None, run=None):
     """
     Like :meth:`run_gs` but split into ``chunk``-sized runs with
     ``on_chunk(n)`` called between them (progress reporting). Fused
     chunks enter and exit the carry, as the JAX package's chunks do; the
-    deferred weight norm is finalized once at the end.
+    deferred weight norm is finalized once at the end. ``run(config,
+    state, consts, n) -> (state, stats)`` runs a chunk in place of the
+    engine's own loop (the row-sharded plane's,
+    :meth:`slmsuite_torch.parallel.plane.run_sharded_plane_gs`).
 
     Returns ``(state, [stats_chunk, ...])``.
     """
     n_iterations = int(n_iterations)
     chunk = n_iterations if chunk is None else max(1, int(chunk))
+    run = _run if run is None else run
     state = _provision_fused(config, state)
     all_stats = []
     done = 0
     while done < n_iterations:
         n = min(chunk, n_iterations - done)
-        state, stats = _run(config, state, consts, n)
+        state, stats = run(config, state, consts, n)
         all_stats.append(stats)
         done += n
         if on_chunk is not None:
@@ -750,7 +756,7 @@ def run_gs_scheduled(*args, **kwargs):
 
 
 def run_gs_batch(config: GSConfig, states: GSState, consts: dict, n_iterations: int,
-                 mesh=None):
+                 mesh=None, axis_name="data"):
     """
     Run ``n_iterations`` of GS/WGS on a BATCH of K independent holograms
     (no coupling; contrast :mod:`slmsuite_torch.parallel.multiplane`, whose
@@ -759,27 +765,43 @@ def run_gs_batch(config: GSConfig, states: GSState, consts: dict, n_iterations: 
     amplitude as a (K,) tensor). Each instance runs through :meth:`run_gs`,
     on the loop and the kernels its configuration takes (the fused carry
     loop, the MRAF carry loop or the natural step); the amplitudes cross to
-    the host once, before the first. A ``mesh`` raises
-    :class:`NotImplementedError` (ROADMAP.md queue 1, item 11).
+    the host once, before the first.
+
+    With ``mesh`` (:class:`slmsuite_torch.parallel.mesh.Mesh`), the K
+    instances are cut over its ``axis_name``, K/D on each device in turn,
+    with no collective; K must divide by the axis size. The results are
+    gathered on the device of ``states``.
 
     Returns ``(states, stats)``: the final states stacked on K, and the
     stats, ``(K, n_iterations, len(stat_groups) + 1, 4)``.
     """
+    K = states.weights.shape[0]
+    home = states.weights.device
+    devices = [home] * K
     if mesh is not None:
-        raise NotImplementedError(
-            "Mesh-sharded batch optimization comes with the distributed engines "
-            "(ROADMAP.md queue 1, item 11)."
-        )
+        axis = mesh.axis_devices(axis_name)
+        if K % len(axis):
+            raise ValueError(
+                f"Batch size {K} must divide the mesh "
+                f"({len(axis)} devices) for sharded batch optimization."
+            )
+        devices = [axis[k // (K // len(axis))] for k in range(K)]
     amps = consts["amp"]
     if amps.ndim == 1:
         amps = amps.tolist()  # Scalar amplitudes: Python floats, as run_gs takes them.
+
+    def moved(x, device):
+        return x.to(device) if torch.is_tensor(x) else x
+
     finals, stats = [], []
-    for k in range(states.weights.shape[0]):
-        state = GSState(*(None if field is None else field[k] for field in states))
-        instance = {key: amps[k] if key == "amp" else value[k] for key, value in consts.items()}
-        state, rows = run_gs(config, state, instance, n_iterations)
-        finals.append(state)
-        stats.append(rows)
+    for k, device in enumerate(devices):
+        state = GSState(*(None if field is None else field[k].to(device) for field in states))
+        instance = {key: moved(amps[k] if key == "amp" else value[k], device)
+                    for key, value in consts.items()}
+        with on_device(device):
+            state, rows = run_gs(config, state, instance, n_iterations)
+        finals.append(GSState(*(None if f is None else f.to(home) for f in state)))
+        stats.append(rows.to(home))
     states = GSState(*(None if fields[0] is None else torch.stack(fields)
                        for fields in zip(*finals)))
     return states, torch.stack(stats)

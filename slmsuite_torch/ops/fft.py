@@ -51,7 +51,9 @@ The dispatchers (:meth:`wgs_carry_entry`, :meth:`wgs_carry_step`,
 :meth:`wgs_fused_forward`, :meth:`wgs_fused_step`, :meth:`mraf_fused_step`) take the plain versions
 for CPU tensors only. A CUDA tensor whose sides are multiples of 8 in
 [64, 8192] launches the kernels; any other CUDA shape raises
-:class:`NotImplementedError`.
+:class:`NotImplementedError`. The row-only dispatchers (:meth:`wgs_carry_entry`,
+:meth:`wgs_carry_exit`, :meth:`rows_fft`) read only the line length, and take
+any multiple of 8 rows (a row shard of a plane, :meth:`use_row_kernels`).
 
 :meth:`fft2`, :meth:`ifft2`, :meth:`fft2_polar`, :meth:`fft2_polar_from_phase`
 and :meth:`wexp_ifft2` also take a ``(B, H, W)`` stack of planes (the
@@ -130,6 +132,24 @@ def use_kernels(x):
         f"The CUDA kernels take planes whose sides are multiples of 8 in "
         f"[{_KERNEL_MIN_LEN}, {_KERNEL_MAX_LEN}], not {tuple(x.shape)} on "
         f"{x.device} (ROADMAP.md 'Other plane sides')."
+    )
+
+
+def use_row_kernels(x):
+    """The gate of the row-only dispatchers (:meth:`rows_fft`,
+    :meth:`wgs_carry_entry`, :meth:`wgs_carry_exit`), which transform
+    lines of the last side: False for a CPU tensor, True for a CUDA tensor
+    whose last side the kernels take and whose rows (a plane's, or a row
+    shard's of one) are a multiple of 8 in number. Raises for any other
+    tensor."""
+    if x.device.type == "cpu":
+        return False
+    if x.is_cuda and kernel_len_ok(x.shape[-1]) and x.shape[-2] % 8 == 0:
+        return True
+    raise NotImplementedError(
+        f"The CUDA row kernels take rows of a length that is a multiple of 8 in "
+        f"[{_KERNEL_MIN_LEN}, {_KERNEL_MAX_LEN}], a multiple of 8 of them, not "
+        f"{tuple(x.shape)} on {x.device} (ROADMAP.md 'Other plane sides')."
     )
 
 
@@ -346,17 +366,28 @@ def _mraf_carry_step(gr, gi, amp, weights, phase_ff, target, mask, mcode, zw, sc
 
 
 def wgs_carry_entry(psi, amp):
-    """psi (natural, unbounded range) -> rows-transformed field carry."""
-    if use_kernels(psi):
+    """psi (natural, unbounded range) -> rows-transformed field carry, of a
+    plane or a row shard of one (the gate :meth:`use_row_kernels`)."""
+    if use_row_kernels(psi):
         return _cuda().carry_entry(psi, amp)
     return _wgs_carry_entry(psi, amp)
 
 
 def wgs_carry_exit(gr, gi):
-    """Rows-transformed field carry -> psi."""
-    if use_kernels(gr):
+    """Rows-transformed field carry -> psi, of a plane or a row shard of one
+    (the gate :meth:`use_row_kernels`)."""
+    if use_row_kernels(gr):
         return _cuda().carry_exit(gr, gi)
     return _wgs_carry_exit(gr, gi)
+
+
+def rows_fft(xr, xi, *, inverse, scale=1.0):
+    """The unnormalized FFT (``inverse``: inverse FFT) of every row of a pair,
+    times ``scale``, on a plane, a row shard or a (B, H, W) stack (the gate
+    :meth:`use_row_kernels`). Kernel: ``rows_fft``."""
+    if use_row_kernels(xr):
+        return _cuda().rows_fft(xr, xi, inverse=inverse, scale=scale)
+    return _rows_fft(xr, xi, inverse=inverse, scale=scale)
 
 
 def wgs_phasor_entry(phase_ff):

@@ -10,6 +10,8 @@ reference's dict form.
 import numpy as np
 import torch
 
+from slmsuite_torch.ops import collectives as C
+
 #: Order of the metrics in the stats vector.
 STAT_KEYS = ("efficiency", "uniformity", "pkpk_err", "std_err")
 
@@ -30,10 +32,16 @@ def calculate_stats(
 
     Parameters
     ----------
-    feedback_amp, target_amp : torch.Tensor
+    feedback_amp, target_amp : torch.Tensor OR list of torch.Tensor
         Computed or measured amplitudes, and target amplitudes (nan
-        allowed; excluded through ``mask``).
-    mask : torch.Tensor OR None
+        allowed; excluded through ``mask``). Lists hold a plane cut into
+        shards (``slmsuite_tpu``'s ``axis_name`` form): each shard reduces
+        its own pixels and the partials reduce across the shards in rank
+        order (:mod:`slmsuite_torch.ops.collectives`), in two rounds: the
+        power sums, overlap and count first (``err_elem`` needs the global
+        target sum and feedback norm), then the extremes and the float64
+        error moments. The stats are on the first shard's device.
+    mask : torch.Tensor OR list OR None
         Boolean mask of valid pixels (``target != 0 & ~isnan``); computed
         when None.
     efficiency_compensation : bool
@@ -41,15 +49,17 @@ def calculate_stats(
     total : float OR 0-d tensor OR None
         Total measured power; replaces the overlap efficiency when given.
     """
-    if mask is None:
-        mask = (target_amp != 0) & ~torch.isnan(target_amp)
-    target_clean = torch.nan_to_num(target_amp)
+    if not isinstance(feedback_amp, list):
+        feedback_amp, target_amp, mask = [feedback_amp], [target_amp], [mask]
+    devices = C.devices_of(feedback_amp)
+    mask = [(t != 0) & ~torch.isnan(t) if m is None else m for t, m in zip(target_amp, mask)]
+    target_clean = [torch.nan_to_num(t) for t in target_amp]
 
-    feedback_pwr = torch.square(feedback_amp)
-    feedback_pwr_sum = feedback_pwr.sum()
-    target_pwr = torch.square(target_clean)
-    target_pwr_sum = target_pwr.sum()
-    overlap = (target_clean * feedback_amp).sum()
+    feedback_pwr = [torch.square(f) for f in feedback_amp]
+    feedback_pwr_sum = C.reduce_sum([p.sum() for p in feedback_pwr])
+    target_pwr = [torch.square(t) for t in target_clean]
+    target_pwr_sum = C.reduce_sum([p.sum() for p in target_pwr])
+    overlap = C.reduce_sum([(t * f).sum() for t, f in zip(target_clean, feedback_amp)])
 
     if total is not None:
         efficiency = feedback_pwr_sum / total
@@ -62,20 +72,26 @@ def calculate_stats(
             else feedback_pwr_sum
         )
 
-    count = mask.sum()
-    u = torch.where(mask, feedback_pwr / torch.where(mask, target_pwr, 1.0), 0.0)
-    err_elem = torch.where(
-        mask, target_pwr / target_pwr_sum - feedback_pwr / f_norm, 0.0
-    )
-
-    umin = torch.where(mask, u, _POS_FILL).min()
-    umax = torch.where(mask, u, _NEG_FILL).max()
-    err_min = torch.where(mask, err_elem, _POS_FILL).min()
-    err_max = torch.where(mask, err_elem, _NEG_FILL).max()
+    count = C.reduce_sum([m.sum() for m in mask])
+    umin, umax, err_min, err_max, err_sum, err_sq_sum = [], [], [], [], [], []
+    for m, fp, tp, t_sum, f_sum in zip(mask, feedback_pwr, target_pwr,
+                                       C.broadcast(target_pwr_sum, devices),
+                                       C.broadcast(f_norm, devices)):
+        u = torch.where(m, fp / torch.where(m, tp, 1.0), 0.0)
+        err_elem = torch.where(m, tp / t_sum - fp / f_sum, 0.0)
+        umin.append(torch.where(m, u, _POS_FILL).min())
+        umax.append(torch.where(m, u, _NEG_FILL).max())
+        err_min.append(torch.where(m, err_elem, _POS_FILL).min())
+        err_max.append(torch.where(m, err_elem, _NEG_FILL).max())
+        moments = error_moments(err_elem)
+        err_sum.append(moments[0])
+        err_sq_sum.append(moments[1])
+    umin, umax = C.reduce_min(umin), C.reduce_max(umax)
+    err_min, err_max = C.reduce_min(err_min), C.reduce_max(err_max)
 
     uniformity = 1 - (umax - umin) / (umax + umin)
     pkpk_err = count * (err_max - err_min)
-    std_err = std_from_moments(*error_moments(err_elem), count)
+    std_err = std_from_moments(C.reduce_sum(err_sum), C.reduce_sum(err_sq_sum), count)
 
     return torch.stack(
         [v.to(torch.float32) for v in (efficiency, uniformity, pkpk_err, std_err)]

@@ -17,12 +17,17 @@ before the angle is taken, so the phase-only backward does not apply. The
 per-plane stats and WGS weights run under :func:`torch.vmap`, so each plane
 is reduced on its own.
 
+With ``run_batched_gs(mesh=...)`` the planes are cut over a ``data`` mesh
+axis: each shard runs its ``B/D`` planes as one stack through the same
+kernels, sums its own plane-weighted windows, and the one collective of
+the step adds those sums across the shards in rank order
+(:mod:`slmsuite_torch.ops.collectives`) before the angle is taken,
+once, and given to every shard.
+
 Not ported, by design:
 
 - ``_batched_can_scramble`` and ``_permute_planes``: the scrambled farfield
   layout is the TPU's four-step FFT; the port runs in natural order.
-- ``_compiled_batched_sharded`` and ``run_batched_gs(mesh=...)``: the mesh
-  engines come with ROADMAP.md queue 1, item 11 (a ``mesh`` raises).
 - The ``lru_cache``'d jit wrappers: the loop is a Python loop over global
   iteration numbers.
 """
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from slmsuite_torch import resolve_device
+from slmsuite_torch.ops import collectives as C
 from slmsuite_torch.ops import fft as _fft
 from slmsuite_torch.ops.propagation import pad_window_slices
 from slmsuite_torch.ops.stats import calculate_stats
@@ -94,6 +100,11 @@ def make_batched_gs_step(config: BatchedGSConfig):
     :meth:`_augment_consts`) and ``iteration`` the global iteration number.
     Per plane, the stats row is ``[efficiency, uniformity, pkpk_err,
     std_err, fixed_phase]``, the last column the Kim flag before the step.
+
+    ``step.local(carry, consts, iteration)`` is the step up to its one
+    collective point: it returns the plane-weighted window sum as a pair,
+    the rest of the new carry and the stats; the shared psi is the angle of
+    the sum over every shard's (:meth:`run_batched_gs` with a mesh).
     """
     y0, y1, x0, x1 = pad_window_slices(config.shape, config.slm_shape)
     full = tuple(config.shape) == tuple(config.slm_shape)
@@ -167,44 +178,83 @@ def make_batched_gs_step(config: BatchedGSConfig):
         re, im = torch.where(zero, 0.0, re), torch.where(zero, 0.0, im)
         return _fft.ifft2(re.contiguous(), im.contiguous())
 
-    def combine(re, im, consts):
+    def window_sum(re, im, consts):
         """The plane-weighted sum of the windows, each with its kernel
-        removed, and its angle: the shared psi."""
+        removed, as a pair: its angle is the shared psi."""
         re, im = re[:, y0:y1, x0:x1], im[:, y0:y1, x0:x1]
         if config.has_kernel:
             c, s = consts["_kernel_phasor"]
             re, im = re * c + im * s, im * c - re * s
         pw = consts["plane_weights"][:, None, None]
-        return torch.atan2((pw * im).sum(dim=0), (pw * re).sum(dim=0))
+        return (pw * re).sum(dim=0), (pw * im).sum(dim=0)
 
-    def step(carry, consts, iteration):
+    def local(carry, consts, iteration):
         amp_ff, theta = plane_forward(carry[0], consts)
         weights, phase_ff, fixed, streak, stats = constrain(
             amp_ff, theta, carry, consts, iteration
         )
         re, im = backward(amp_ff, theta, weights, phase_ff, consts)
-        return (combine(re, im, consts), weights, phase_ff, fixed, streak), stats
+        return window_sum(re, im, consts), (weights, phase_ff, fixed, streak), stats
 
+    def step(carry, consts, iteration):
+        (re, im), rest, stats = local(carry, consts, iteration)
+        return (torch.atan2(im, re), *rest), stats
+
+    step.local = local
     return step
 
 
-def _scan_planes(step, n_iterations, psi, weights, phase_ff, fixed, streak, start, consts):
+def _scan_planes(config, n_iterations, psi, weights, phase_ff, fixed, streak, start, consts,
+                 devices):
     """Run the step from the RESUMABLE Kim state over global iteration
     numbers ``start + [0, n)``, so a second call continues the trajectory
     of the first (the WGS warm-up is not re-run and a fixed Kim phase stays
-    fixed). Returns ``(psi, weights, phase_ff, fixed, stats (n, B, 5))``."""
-    carry = (psi, weights, phase_ff, fixed, streak)
-    rows = []
+    fixed), with the planes cut over ``devices`` (one device: no cut): each
+    shard runs :meth:`make_batched_gs_step`'s local stage on its planes, the
+    window sums add across the shards in rank order, and the angle of the
+    total, taken once, is every shard's psi. Returns ``(psi, weights,
+    phase_ff, fixed, stats (n, B, 5))``, gathered on the device of
+    ``consts``."""
+    home = consts["targets"].device
+    D = len(devices)
+    B = weights.shape[0]
+    step = make_batched_gs_step(dataclasses.replace(config, n_planes=B // D))
+
+    def cut(x):
+        return C.split(x, devices)
+
+    plane_keys = ("kernels", "targets", "mcodes", "plane_weights")
+    shards = [{} for _ in devices]
+    for key, value in consts.items():
+        parts = (cut(value) if key in plane_keys
+                 else C.broadcast(value, devices) if torch.is_tensor(value) else [value] * D)
+        for sh, part in zip(shards, parts):
+            sh[key] = part
+    shards = [_augment_consts(config, sh) for sh in shards]
+    carries = list(zip(C.broadcast(psi, devices), cut(weights), cut(phase_ff), cut(fixed),
+                       cut(streak)))
+    rows = [[] for _ in devices]
     for i in range(int(n_iterations)):
-        carry, stats = step(carry, consts, start + i)
-        rows.append(stats)
-    stats = (torch.stack(rows) if rows else
-             torch.zeros((0, weights.shape[0], 5), dtype=torch.float32, device=psi.device))
-    return carry[0], carry[1], carry[2], carry[3], stats
+        sums_re, sums_im, rests = [], [], []
+        for d, (carry, sh) in enumerate(zip(carries, shards)):
+            with C.on_device(devices[d]):
+                (re, im), rest, stats = step.local(carry, sh, start + i)
+            sums_re.append(re)
+            sums_im.append(im)
+            rests.append(rest)
+            rows[d].append(stats)
+        psi = torch.atan2(C.reduce_sum(sums_im), C.reduce_sum(sums_re))
+        carries = [(p, *rest) for p, rest in zip(C.broadcast(psi, devices), rests)]
+    n = int(n_iterations)
+    stats = (C.gather([torch.stack(r) for r in rows], home, axis=1) if n
+             else torch.zeros((0, B, 5), dtype=torch.float32, device=home))
+    _, weights, phase_ff, fixed, _ = zip(*carries)
+    return (carries[0][0].to(home), C.gather(weights, home), C.gather(phase_ff, home),
+            C.gather(fixed, home), stats)
 
 
 def run_batched_gs(config, psi, weights, consts, n_iterations, mesh=None,
-                   start_iteration=0, phase_ff=None, fixed=None):
+                   axis_name="data", start_iteration=0, phase_ff=None, fixed=None):
     """
     Run ``n_iterations`` of the batched multiplane loop on the device of
     ``consts`` (:meth:`make_multiplane_consts`).
@@ -212,20 +262,17 @@ def run_batched_gs(config, psi, weights, consts, n_iterations, mesh=None,
     ``start_iteration``/``phase_ff``/``fixed`` RESUME a previous run: global
     iteration numbers continue, so the WGS warm-up is not silently re-run
     and a fixed Kim phase stays fixed. Defaults start a fresh run.
-    ``psi`` and ``weights`` may be numpy or tensors. A ``mesh`` raises
-    :class:`NotImplementedError` (the mesh engines come with ROADMAP.md
-    queue 1, item 11).
+    ``psi`` and ``weights`` may be numpy or tensors. With a ``mesh``
+    (:class:`slmsuite_torch.parallel.mesh.Mesh`), the planes are cut over
+    its ``axis_name`` (:meth:`_scan_planes`); the plane count must
+    divide by the axis size. The results are gathered on the device of
+    ``consts``.
 
     Returns ``(psi, weights, stats (n, B, 5), phase_ff, fixed)``: per plane
     ``[efficiency, uniformity, pkpk_err, std_err, fixed_phase]`` (the last
     column the Kim flag history; zeros for non-Kim methods), and the final
     per-plane farfield phase store and Kim flags to resume from.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "Mesh-sharded multiplane optimization comes with the distributed "
-            "engines (ROADMAP.md queue 1, item 11)."
-        )
     device = consts["targets"].device
 
     def tensor(x, dtype=torch.float32):
@@ -239,10 +286,17 @@ def run_batched_gs(config, psi, weights, consts, n_iterations, mesh=None,
     fixed = (torch.zeros(B, dtype=torch.bool, device=device) if fixed is None
              else tensor(fixed, torch.bool))
     streak = torch.zeros(B, dtype=torch.int32, device=device)
-    step = make_batched_gs_step(config)
+    devices = [device]
+    if mesh is not None:
+        devices = mesh.axis_devices(axis_name)
+        if B % len(devices):
+            raise ValueError(
+                f"Plane count {B} must divide the mesh axis '{axis_name}' "
+                f"({len(devices)} devices)."
+            )
     psi, weights, phase_ff, fixed, stats = _scan_planes(
-        step, n_iterations, psi, weights, phase_ff, fixed, streak,
-        int(start_iteration), _augment_consts(config, consts),
+        config, n_iterations, psi, weights, phase_ff, fixed, streak,
+        int(start_iteration), consts, devices,
     )
     return psi, weights, stats, phase_ff, fixed
 

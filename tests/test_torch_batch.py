@@ -4,8 +4,8 @@ against ``slmsuite_tpu``'s ``optimize_batch`` on the same frames
 (``examples/batched_holography.py``'s rotating spot arrays, at 64^2, and a
 32^2 SLM in a 64^2 farfield), against the port's own individual
 ``optimize`` calls (identical: each instance runs the engine's own loop),
-a resumed batch, and the refusals (a heterogeneous batch, camera
-feedback, a ``mesh``).
+a resumed batch, a batch over a mesh, and the refusals (a heterogeneous
+batch, camera feedback, a mesh whose axis the batch does not divide).
 
 Tolerances against the JAX package: stats 1e-4 abs / 1e-3 rel (the
 goldens'; std_err also ``sqrt(eps32) (1 - efficiency)``, the uncertainty
@@ -20,10 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 import slmsuite_torch
 from slmsuite_torch.holography import algorithms as T
 from slmsuite_torch.ops import engine as TE
+from slmsuite_torch.parallel.mesh import make_mesh
 from slmsuite_tpu.holography import algorithms as J
+from slmsuite_tpu.parallel import mesh as JMESH
 
 
 @pytest.fixture(autouse=True)
@@ -167,7 +171,8 @@ def test_optimize_batch_resumes_like_individual_runs():
 def test_run_gs_batch_stacks_instances():
     """The engine's batch: states and consts stacked on K in, stacked
     states and stats (K, n, groups + 1, 4) out, each instance as its own
-    ``run_gs``; an amplitude plane per instance too."""
+    ``run_gs``; an amplitude plane per instance too; over a mesh of K CPU
+    shards the same, and a mesh that K does not divide refused."""
     frames = _frames(T)
     amp = np.random.default_rng(2).uniform(0.5, 1.0, (64, 64)).astype(np.float32)
     for h in frames:
@@ -184,14 +189,20 @@ def test_run_gs_batch_stacks_instances():
         state, rows = TE.run_gs(configs[k], states[k], consts[k], 5)
         assert torch.equal(final.psi[k], state.psi) and torch.equal(stats[k], rows)
         assert torch.equal(final.weights[k], state.weights)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TE.run_gs_batch(configs[0], stacked, stacked_consts, 1, mesh=object())
+    # Over a mesh: the K instances cut over its axis (K must divide it), the
+    # same runs on each shard's device.
+    on_mesh, mesh_stats = TE.run_gs_batch(configs[0], stacked, stacked_consts, 5,
+                                          mesh=make_mesh(devices=["cpu"] * K))
+    assert torch.equal(on_mesh.psi, final.psi) and torch.equal(mesh_stats, stats)
+    with pytest.raises(ValueError, match=f"Batch size {K} must divide the mesh"):
+        TE.run_gs_batch(configs[0], stacked, stacked_consts, 1,
+                        mesh=make_mesh(devices=["cpu"] * 2))
 
 
 def test_optimize_batch_refusals():
     """A heterogeneous batch (two classes, two configurations), camera
-    feedback and a ``mesh`` are refused, with the JAX package's messages
-    for the first three; an empty batch is returned as it is."""
+    feedback and a mesh whose axis the batch does not divide are refused,
+    with the JAX package's messages; an empty batch is returned as it is."""
     assert T.optimize_batch([]) == []
     for module in (J, T):
         mixed = [module.Hologram(frame_target((64, 64), 0)),
@@ -211,5 +222,12 @@ def test_optimize_batch_refusals():
             h.flags["feedback"] = "experimental_spot"
         with pytest.raises(ValueError, match="fully-computational feedback only"):
             module.optimize_batch(spots, "WGS-Kim", maxiter=1, verbose=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.optimize_batch(_frames(T), "GS", maxiter=1, verbose=False, mesh=object())
+    # A mesh whose axis K does not divide, with the JAX package's message.
+    messages = []
+    for module, mesh in ((T, make_mesh(devices=["cpu"] * 2)),
+                         (J, JMESH.make_mesh(devices=jax.devices()[:2]))):
+        with pytest.raises(ValueError) as err:
+            module.optimize_batch(_frames(module), "GS", maxiter=1, verbose=False, mesh=mesh)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1] == (
+        f"Batch size {K} must divide the mesh (2 devices) for sharded batch optimization.")

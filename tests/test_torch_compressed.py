@@ -44,6 +44,7 @@ from slmsuite_torch.holography import toolbox as TT
 from slmsuite_torch.holography.toolbox import phase as TP
 from slmsuite_torch.ops import compressed as TC
 from slmsuite_torch.ops import cuda_compressed as TK
+from slmsuite_torch.parallel.mesh import make_mesh
 from slmsuite_tpu.hardware.slms.simulated import SimulatedSLM as JSLM
 from slmsuite_tpu.holography import algorithms as J
 from slmsuite_tpu.holography import toolbox as JT
@@ -832,9 +833,10 @@ class _FakeCameraSLM:
 
 
 def test_compressed_unported_paths_raise():
-    """Mesh runs (item 11) raise, naming their ROADMAP item; the host-paced
-    loop (callbacks, external feedback, MRAF with zero_factor) and CG,
-    which raised before they were ported, run (``tests/test_torch_hostloop.py``
+    """The paths that raised before they were ported run: a mesh run (the
+    pixels over a mesh of CPU shards, ``tests/test_torch_parallel.py``
+    holds it against the JAX package), the host-paced loop (callbacks,
+    external feedback, MRAF with zero_factor) and CG (``tests/test_torch_hostloop.py``
     and ``tests/test_torch_cg.py`` hold them against the JAX package);
     camera feedback on a bare SLM raises, for want of a camera, as in the
     JAX package; an uncalibrated CameraSLM takes the hologram without
@@ -852,8 +854,11 @@ def test_compressed_unported_paths_raise():
     holo.iter = 4
     holo.optimize("CG", maxiter=2, verbose=False)
     assert holo.iter == 6 and np.isfinite(holo.flags["loss_result"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        holo.optimize("WGS-Kim", maxiter=2, verbose=False, mesh=object())
+    holo.optimize("WGS-Kim", maxiter=2, verbose=False, feedback="computational_spot",
+                  stat_groups=[], mesh=make_mesh(axis_names=("pixels",), devices=["cpu"] * 4))
+    assert holo.iter == 8 and holo._mesh.size == 4 and not holo._kernel_cache_enabled()
+    holo.optimize("WGS-Kim", maxiter=1, verbose=False, mesh=None)
+    assert holo.iter == 9 and holo._mesh is None
     mraf_amp = np.ones(9)
     mraf_amp[0] = np.nan
     mraf_amp[1] = 0.0

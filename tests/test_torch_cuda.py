@@ -1498,3 +1498,163 @@ def test_device_measurement_follows_the_calibration_on_the_card(cuda):
     holo.optimize("WGS-Kim", feedback="experimental_spot", maxiter=3, verbose=False)
     assert holo._sim_engine_inputs()[0] is not consts
     check()
+
+
+# ----------------------------------------------------------------------
+# The mesh engines on [cuda:0] * 4 (one card holding four shards).
+# ----------------------------------------------------------------------
+
+MESH_D = 4
+
+
+def _mesh(cuda, axis):
+    from slmsuite_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axis_names=(axis,), devices=[cuda] * MESH_D)
+
+
+def _wrapped_max(a, b):
+    d = np.asarray(a, float) - np.asarray(b, float)
+    return float(np.abs(np.mod(d + np.pi, 2 * np.pi) - np.pi).max())
+
+
+def _launched():
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft
+
+    return {k: v for m in (cuda_fft, cuda_compressed) for k, v in m.LAUNCHES.items() if v}
+
+
+def _reset_launches():
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft
+
+    cuda_fft.reset_launch_counts()
+    cuda_compressed.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512), (2048, 2048), (8192, 8192)])
+def test_mesh_distributed_fft2_kernels(cuda, shape):
+    """The distributed 2D FFT on four shards of one card: ``rows_fft`` twice
+    a shard, and the plain dense transform's result."""
+    from slmsuite_torch.parallel.fft2d import distributed_fft2, distributed_ifft2
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.complex(torch.randn(shape, device=cuda, generator=gen),
+                      torch.randn(shape, device=cuda, generator=gen))
+    mesh = _mesh(cuda, "space")
+    _reset_launches()
+    y = distributed_fft2(x, mesh)
+    assert _launched() == {"rows_fft": 2 * MESH_D}
+    ref = torch.fft.fft2(x, norm="ortho")
+    assert float((y - ref).abs().max() / ref.abs().max()) <= CARRY_RTOL
+    back = distributed_ifft2(y, mesh)
+    assert float((back - x).abs().max() / x.abs().max()) <= CARRY_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["WGS-Kim", "WGS-Nogrette"])
+def test_mesh_plane_hologram_kernels(cuda, method):
+    """A 512^2 plane, rows over four shards, against the meshless run; per
+    shard and iteration ``carry_entry``, ``rows_fft`` twice, ``carry_exit``,
+    and nothing else in the loop."""
+    from slmsuite_torch.holography.algorithms import Hologram
+
+    rng = np.random.default_rng(9)
+    target = np.zeros((512, 512), np.float32)
+    ys, xs = np.mgrid[160:352:32, 128:384:32]
+    target[ys.ravel(), xs.ravel()] = 1.0
+    phi0 = rng.uniform(-np.pi, np.pi, (512, 512)).astype(np.float32)
+    runs = []
+    for mesh in (_mesh(cuda, "rows"), None):
+        holo = Hologram(target.copy(), device=cuda)
+        holo.reset_phase(custom_phase=phi0)
+        _reset_launches()
+        holo.optimize(method, maxiter=10, verbose=False, mesh=mesh, fix_phase_iteration=4,
+                      stat_groups=["computational"])
+        runs.append((holo, _launched()))
+    (port, launches), (single, _) = runs
+    # The loop's, and one rows_fft and cols_fft for the final farfield
+    # (_populate_results on the gathered phase).
+    assert launches == {"carry_entry": 10 * MESH_D, "rows_fft": 20 * MESH_D + 1,
+                        "carry_exit": 10 * MESH_D, "cols_fft": 1}
+    assert _wrapped_max(port.phase, single.phase) < 5e-4
+    eff = [np.asarray(h.stats["stats"]["computational"]["efficiency"]) for h in (port, single)]
+    np.testing.assert_allclose(eff[0], eff[1], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mesh_multiplane_kernels(cuda):
+    """8 planes of 256^2 over a data axis of four on one card: each shard
+    one launch of each stack kernel an iteration; the meshless run's
+    result."""
+    from slmsuite_torch.models.parallel_models import multiplane_batched
+
+    for mraf, backward in ((False, "cols_wexp_inv"), (True, "cols_fft")):
+        run = multiplane_batched(8, N=256, method="WGS-Leonardo" if mraf else "WGS-Kim",
+                                 mraf=mraf, device=cuda)
+        _reset_launches()
+        got = run(_mesh(cuda, "data"), 6)
+        assert _launched() == {"carry_entry": 6 * MESH_D, "cols_fwd_polar": 6 * MESH_D,
+                               backward: 6 * MESH_D, "rows_fft": 6 * MESH_D}
+        ref = run(None, 6)
+        assert _wrapped_max(got[0].cpu(), ref[0].cpu()) < 5e-4
+        torch.testing.assert_close(got[2], ref[2], atol=1e-3, rtol=0)
+        np.testing.assert_allclose(got[2][..., 0].cpu(), ref[2][..., 0].cpu(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mesh_compressed_kernels(cuda):
+    """Config 5's plane (1024^2) and 256 spots with pixels over four shards:
+    ``n2f`` at entry, ``fused_iter`` an iteration and ``f2n`` at exit on
+    each shard; the one-shard run's result."""
+    from slmsuite_torch.models.parallel_models import compressed_spots_3d
+    from slmsuite_torch.parallel.mesh import make_mesh
+
+    _reset_launches()
+    state, stats = compressed_spots_3d(1024 * 1024, 256, device=cuda)(_mesh(cuda, "pixels"), 8)
+    assert _launched() == {"n2f": MESH_D, "fused_iter": 8 * MESH_D, "f2n": MESH_D}
+    ref, ref_stats = compressed_spots_3d(1024 * 1024, 256, device=cuda)(
+        make_mesh(axis_names=("pixels",), devices=[cuda]), 8)
+    assert _wrapped_max(state.psi.cpu(), ref.psi.cpu()) < 1e-3
+    torch.testing.assert_close(state.weights, ref.weights, atol=1e-5, rtol=0)
+    torch.testing.assert_close(stats[:, 0, 1], ref_stats[:, 0, 1], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mesh_batch_and_dryrun(cuda):
+    """``optimize_batch`` of four frames over four shards equals the
+    meshless batch bit for bit; ``dryrun_multichip(4)`` on ``[cuda:0] * 4``."""
+    from slmsuite_torch.holography.algorithms import Hologram, optimize_batch
+    from slmsuite_torch.models.parallel_models import dryrun_multichip
+
+    phase0 = np.random.default_rng(1).uniform(-np.pi, np.pi, (256, 256)).astype(np.float32)
+    batches = []
+    for mesh in (_mesh(cuda, "data"), None):
+        frames = []
+        for t in range(MESH_D):
+            target = np.zeros((256, 256), np.float32)
+            target[64 + 16 * t, 96:160:16] = 1.0
+            h = Hologram(target, device=cuda)
+            h.reset_phase(phase0)
+            frames.append(h)
+        optimize_batch(frames, "WGS-Kim", maxiter=5, verbose=False, mesh=mesh)
+        batches.append(frames)
+    for a, b in zip(*batches):
+        assert np.array_equal(a.phase, b.phase)
+    errors = dryrun_multichip(MESH_D, devices=[cuda] * MESH_D)
+    assert len(errors) == 7
+
+
+@pytest.mark.cuda
+def test_mesh_refuses_shards_the_kernels_do_not_take(cuda):
+    """A row shard of 4 rows (64 rows over 16 shards), or rows of 100
+    points, raise before any launch instead of running plain."""
+    from slmsuite_torch.parallel.fft2d import distributed_fft2
+    from slmsuite_torch.parallel.mesh import make_mesh
+
+    for shape, shards in (((64, 64), 16), ((64, 100), 4)):
+        mesh = make_mesh(axis_names=("space",), devices=[cuda] * shards)
+        _reset_launches()
+        with pytest.raises(NotImplementedError, match="Other plane sides"):
+            distributed_fft2(torch.zeros(shape, dtype=torch.complex64, device=cuda), mesh)
+        assert _launched() == {}

@@ -177,7 +177,8 @@ def counting_plain_kernels(monkeypatch):
 
     for name, fn in plain.items():
         monkeypatch.setattr(cuda_fft, name, counted(name, fn))
-    monkeypatch.setattr(TF, "use_kernels", lambda x: True)
+    for gate in ("use_kernels", "use_row_kernels"):
+        monkeypatch.setattr(TF, gate, lambda x: True)
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))
@@ -191,7 +192,8 @@ def test_kernel_sequences_at_mixed_sides_match_plain(shape, name, counting_plain
     seq = _run(T, shape, name, phi0)
     launched = dict(cuda_fft.LAUNCHES)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(TF, "use_kernels", lambda x: False)
+        for gate in ("use_kernels", "use_row_kernels"):
+            mp.setattr(TF, gate, lambda x: False)
         plain = _run(T, shape, name, phi0)
     for kernel, per_iteration in RUNS[name][3].items():
         assert launched[kernel] == ITERS * per_iteration, (kernel, launched)

@@ -40,6 +40,7 @@ from slmsuite_torch.models import parallel_models as TPM
 from slmsuite_torch.ops import cuda_fft
 from slmsuite_torch.ops import fft as TF
 from slmsuite_torch.parallel import multiplane as TM
+from slmsuite_torch.parallel.mesh import make_mesh
 from slmsuite_tpu.holography import algorithms as J
 from slmsuite_tpu.models import parallel_models as JPM
 from slmsuite_tpu.parallel import multiplane as JM
@@ -72,10 +73,11 @@ def _torch_cpu():
 
 @pytest.fixture
 def kernel_route(monkeypatch):
-    """``use_kernels`` true for CPU tensors and each kernel wrapper of
+    """The kernels' gates true for CPU tensors and each kernel wrapper of
     ``cuda_fft`` replaced by a counting plain version: the dispatchers take
     ``cuda_fft``'s compositions, as on the card."""
-    monkeypatch.setattr(TF, "use_kernels", lambda x: True)
+    for gate in ("use_kernels", "use_row_kernels"):
+        monkeypatch.setattr(TF, gate, lambda x: True)
     for name, plain in (("carry_entry", TF._wgs_carry_entry), ("rows_fft", TF._rows_fft),
                         ("cols_fft", TF._cols_fft), ("cols_fwd_polar", TF._cols_fwd_polar),
                         ("cols_wexp_inv", TF._cols_wexp_inv)):
@@ -235,11 +237,17 @@ def test_multiplane_batched_model_matches_jax(mraf):
 
 
 def test_run_batched_gs_refuses_a_mesh():
-    config, consts, psi0, weights0, _ = _both("GS")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TM.run_batched_gs(config, psi0, weights0, consts, 1, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TPM.multiplane_batched(B, N=N, device="cpu")(object(), 1)
+    """A mesh whose axis the planes do not divide is refused; one they
+    divide runs them there (``tests/test_torch_parallel.py`` holds the mesh
+    runs against the JAX package), here as the one-device run."""
+    config, consts, psi0, weights0, ref = _both("GS")
+    with pytest.raises(ValueError, match=f"Plane count {B} must divide the mesh axis 'data'"):
+        TM.run_batched_gs(config, psi0, weights0, consts, 1,
+                          mesh=make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="must divide"):
+        TPM.multiplane_batched(B, N=N, device="cpu")(make_mesh(devices=["cpu"] * 2), 1)
+    _assert_run(TM.run_batched_gs(config, psi0, weights0, consts, 8,
+                                  mesh=make_mesh(devices=["cpu"] * B)), ref, weights0)
 
 
 def test_batched_gate_refuses_non_power_of_two_cuda_stacks():
@@ -406,15 +414,19 @@ def test_multiplane_hologram_plumbing():
 
 
 def test_multiplane_hologram_refusals():
-    """``optimize(mesh=...)`` names item 11; ``"CG"``, which raised before
-    it was ported, runs (``tests/test_torch_cg.py`` holds it against the
-    JAX package); a callback, a host stat group or ``zero_factor`` keeps
-    the batched engine off."""
+    """``optimize(mesh=...)`` on a mesh the planes do not divide warns and
+    runs the host meta loop, as in the JAX package
+    (``tests/test_torch_parallel.py`` holds the mesh runs); ``"CG"``, which
+    raised before it was ported, runs (``tests/test_torch_cg.py`` holds it
+    against the JAX package); a callback, a host stat group or
+    ``zero_factor`` keeps the batched engine off."""
     _, tholo = _pair()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tholo.optimize("WGS-Kim", maxiter=1, verbose=False, mesh=object())
-    tholo.optimize("CG", maxiter=1, verbose=False)
-    assert tholo.iter == 1 and all(h.iter == 1 for h in tholo.holograms)
+    with pytest.warns(UserWarning, match="mesh-sharded multiplane optimization unavailable"):
+        tholo.optimize("WGS-Kim", maxiter=1, verbose=False,
+                       mesh=make_mesh(devices=["cpu"] * 2))
+    tholo.optimize("CG", maxiter=1, verbose=False, mesh=None)
+    assert tholo.iter == 2 and all(h.iter == 2 for h in tholo.holograms)
+    assert tholo._mesh is None
     tholo._update_flags("WGS-Kim", False, None, ["computational"])
     assert tholo._mesh_eligible(None)
     assert not tholo._mesh_eligible(lambda h: False)
