@@ -4985,6 +4985,240 @@ def phase_mesh(device):
             "D3": phase_d3(device)}
 
 
+# ----------------------------------------------------------------------
+# X3: planes whose sides the kernels do not take run the plain tier on the
+# card (PLAIN_ON_DEVICE counts each dispatch), against the CPU.
+# ----------------------------------------------------------------------
+
+#: X3's planes: a Santec SLM-100's 1050x1440 panel at padding_order=0
+#: (WGS-Kim), and 100x128 (GS).
+X3_RUNS = (((1050, 1440), "WGS-Kim", 20), ((100, 128), "GS", 20))
+#: Iterations before X3's timed ones (the FFT plans of the odd sides).
+X3_WARMUP = 5
+#: X3 and E1-E8, the card against the CPU or kernels against plain: what
+#: users read (PERF.md section 2).
+STAT_ATOL, COMPRESSED_STAT_ATOL = 1e-3, 2e-3
+
+
+def x3_run(shape, method, n, device):
+    """A 10x10 spot array on the SLM's own plane (padding_order=0) from a
+    seeded phase, X3_WARMUP iterations, then ``n`` timed: ``(efficiency,
+    uniformity, seconds of the n)``."""
+    from slmsuite_torch.holography.algorithms import SpotHologram
+
+    holo = SpotHologram.make_rectangular_array(
+        shape, array_shape=(10, 10), array_pitch=(shape[0] // 14, shape[1] // 14),
+        basis="knm", device=device)
+    holo.reset_phase(custom_phase=np.random.default_rng(3).uniform(-np.pi, np.pi, shape))
+    holo.optimize(method, maxiter=X3_WARMUP, verbose=False, stat_groups=["computational"])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    start = time.perf_counter()
+    holo.optimize(method, maxiter=n, verbose=False, stat_groups=["computational"])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    stats = holo.stats["stats"]["computational"]
+    return float(stats["efficiency"][-1]), float(stats["uniformity"][-1]), seconds
+
+
+def phase_plain_tier(device):
+    """X3: each plane through the plain tier on the card (no kernel launch,
+    PLAIN_ON_DEVICE > 0), its efficiency and uniformity within STAT_ATOL of
+    the same run on the CPU, and its ms an iteration."""
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft, fft
+
+    out = {}
+    for shape, method, n in X3_RUNS:
+        label = f"{shape[0]}x{shape[1]} {method}"
+        fft.reset_plain_count()
+        (eff, uni, seconds), launches, _ = counted_all(lambda: x3_run(shape, method, n, device))
+        plain_dispatches = fft.PLAIN_ON_DEVICE
+        assert not launches, f"X3 {label}: kernels launched {launches}"
+        assert plain_dispatches > 0, f"X3 {label}: no dispatch took the plain tier"
+        ceff, cuni, cpu_seconds = x3_run(shape, method, n, torch.device("cpu"))
+        log(f"X3 {label}: card efficiency {eff:.6f} uniformity {uni:.6f}, cpu {ceff:.6f} "
+            f"{cuni:.6f}; {plain_dispatches} plain dispatches, 0 launches; "
+            f"{1e3 * seconds / n:.3f} ms an iteration on the card ({1e3 * cpu_seconds / n:.3f} "
+            f"on the CPU) [{nvidia_smi_line()}]")
+        assert abs(eff - ceff) <= STAT_ATOL and abs(uni - cuni) <= STAT_ATOL, label
+        out[label] = dict(ms_per_iteration=1e3 * seconds / n, plain_dispatches=plain_dispatches)
+    fft.reset_plain_count()
+    cuda_fft.reset_launch_counts()
+    cuda_compressed.reset_launch_counts()
+    return out
+
+
+# ----------------------------------------------------------------------
+# E1-E8: the examples, through the kernels and through the plain versions.
+# ----------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_everything():
+    """Every dispatcher the examples reach plain (``plain_gradients``, and
+    the mesh engines' row transforms and pixel-slab overlaps): no kernel
+    launches."""
+    from slmsuite_torch.ops import compressed, fft
+
+    saved = compressed.nearfield_overlap
+    compressed.nearfield_overlap = lambda re, im, coeffs, basis: \
+        compressed._nearfield_to_farfield(re, im, coeffs, basis, normalize=False)
+    try:
+        with plain_gradients(), plain_versions(fft, ("rows_fft",)):
+            yield
+    finally:
+        compressed.nearfield_overlap = saved
+
+
+#: label -> (example module, keyword arguments). The defaults are the
+#: reference examples' sizes; E2b is the headline 2048^2 width and E1 the
+#: nine patterns on a 1920x1152 SLM.
+EXAMPLES = {
+    "E1 structured_light 1920x1152": ("structured_light", dict(resolution=(1920, 1152))),
+    "E2 computational_holography 512^2": ("computational_holography", {}),
+    "E2b computational_holography 2048^2": ("computational_holography",
+                                            dict(shape=(2048, 2048))),
+    "E3 batched_holography": ("batched_holography", {}),
+    "E4 zernike_holography": ("zernike_holography", {}),
+    "E5 experimental_holography": ("experimental_holography", {}),
+    "E6 multichip_scaling": ("multichip_scaling", {}),
+    "E7 wavefront_calibration": ("wavefront_calibration", {}),
+    "E8 multipoint_calibration": ("multipoint_calibration", {}),
+}
+
+#: What each example prints, kernels against plain: (absolute, relative)
+#: tolerance by key; efficiencies and uniformities at STAT_ATOL, the
+#: compressed and camera-measured ones at COMPRESSED_STAT_ATOL. The
+#: computational example's MRAF ring is uniform and centred, so its noise
+#: region has no unique optimum: runs that differ in rounding alone end up
+#: to 1e-2 apart in signal efficiency after its 30 iterations (0.5882
+#: through the kernels, 0.5785 plain, at 512^2 on an H100), where its spot
+#: array agrees to 2e-7; ``mraf_efficiency`` is held at MRAF_RING_ATOL.
+MRAF_RING_ATOL = 2e-2
+EXAMPLE_TOL = {
+    "mraf_efficiency": (MRAF_RING_ATOL, 0),
+    "lattice_efficiency": (COMPRESSED_STAT_ATOL, 0), "lattice_uniformity": (COMPRESSED_STAT_ATOL, 0),
+    "compressed_uniformity": (COMPRESSED_STAT_ATOL, 0),
+    "measured_uniformity": (COMPRESSED_STAT_ATOL, 0),
+    "lattice_cv": (COMPRESSED_STAT_ATOL, 0), "custom_cv": (COMPRESSED_STAT_ATOL, 0),
+    "cg_loss": (1e-9, 0.1), "placement_error_px": (1.0, 0),
+    "peak_before": (0, 0.05), "peak_after": (0, 0.05), "strehl_gain": (0, 0.1),
+    "term_2": (0.05, 0), "term_3": (0.05, 0), "term_4": (0.05, 0),
+    "patterns": (0, 0), "phase_min": (0, 0), "phase_max": (0, 0),
+}
+
+
+def example_agrees(key, got, ref):
+    atol, rtol = EXAMPLE_TOL.get(key, (STAT_ATOL, 0))
+    return abs(got - ref) <= atol + rtol * abs(ref)
+
+
+def phase_examples(device):
+    """E1-E8: each example (``remote_hardware`` drives the wire protocol,
+    not the device, and runs in the tests) called in this process with
+    ``device`` and no plots, once through the kernels and once through the
+    plain versions; what it returns held between the two (EXAMPLE_TOL);
+    its launches, seconds and peak memory logged. Returns the launches of
+    each run through the kernels."""
+    import importlib
+
+    from slmsuite_torch.ops import fft
+
+    def seeded(module, kwargs):
+        # The examples draw their initial phases from numpy's global
+        # generator: both runs start from the same draws.
+        np.random.seed(0)
+        return module.main(device=device, plots=False, **kwargs)
+
+    launches_by_example, failures = {}, []
+    state = np.random.get_state()
+    for label, (module_name, kwargs) in EXAMPLES.items():
+        module = importlib.import_module(f"slmsuite_torch.examples.{module_name}")
+        fft.reset_plain_count()
+        (got, launches, seconds), peak = peak_gib(
+            lambda: counted_all(lambda: seeded(module, kwargs)))
+        plain_dispatches = fft.PLAIN_ON_DEVICE
+        with plain_everything():
+            (ref, plain_launches, plain_seconds), plain_peak = peak_gib(
+                lambda: counted_all(lambda: seeded(module, kwargs)))
+        assert not plain_launches, f"{label}: the plain run launched {plain_launches}"
+        bad = [k for k in got if isinstance(got[k], float) and not example_agrees(k, got[k], ref[k])]
+        failures += [f"{label} {k}: kernels {got[k]} plain {ref[k]}" for k in bad]
+        log(f"{label}: kernels {json.dumps(got)} in {seconds:.2f} s, peak {peak:.3f} GiB, "
+            f"launches {launches}, plain-tier dispatches {plain_dispatches}; plain "
+            f"{json.dumps(ref)} in {plain_seconds:.2f} s, peak {plain_peak:.3f} GiB"
+            + (f"; DISAGREE {bad}" if bad else ""))
+        launches_by_example[label.split()[0]] = launches
+    log(f"  [{nvidia_smi_line()}]")
+    np.random.set_state(state)
+    fft.reset_plain_count()
+    assert not failures, failures
+    return launches_by_example
+
+
+# ----------------------------------------------------------------------
+# M1-M2: the memory helpers and misc.profile on the card.
+# ----------------------------------------------------------------------
+
+
+def phase_memory(device):
+    """M1: ``suggest_memory_strategy`` from the card's own budget, and the
+    ``set_``/``get_mempool_limit`` round trip."""
+    from slmsuite_torch.holography.algorithms import Hologram
+
+    total = torch.cuda.mem_get_info(device)[1]
+    assert Hologram.get_mempool_limit(0) == total
+    for shape in ((2048, 2048), (8192, 8192), (32768, 32768)):
+        advice = Hologram.suggest_memory_strategy(shape)
+        log(f"M1 suggest_memory_strategy{shape}: {advice}")
+        assert advice["budget"] is None and advice["max_side"] > 8192
+    Hologram.set_mempool_limit(0, fraction=0.5)
+    try:
+        half = Hologram.get_mempool_limit(0)
+        assert half == int(total * 0.5), (half, total)
+        assert Hologram.suggest_memory_strategy((1, 1))["max_side"] < \
+            Hologram._memory_constrained_side(total)
+    finally:
+        Hologram.set_mempool_limit(0, fraction=1.0)
+    assert Hologram.get_mempool_limit(0) == total
+    log(f"M1 mempool limit: {total} bytes, {half} at fraction 0.5, restored "
+        f"[{nvidia_smi_line()}]")
+
+
+def phase_profile_helpers(device):
+    """M2: ``misc.profile`` on the fused WGS-Kim carry step at 2048^2:
+    ``time_scan`` (ms an iteration, CUDA events) and ``bytes_accessed``,
+    whose declared bytes for ``cols_wgs_roundtrip`` and ``rows_normfwd``,
+    over HBM_BYTES_PER_S, are set beside the bound of the kernels line
+    (``bound``: ten and four planes)."""
+    from slmsuite_torch.misc import profile
+    from slmsuite_torch.models.engine_models import spot_array_wgs
+    from slmsuite_torch.ops import engine, fft
+
+    model = spot_array_wgs(N=2048, device=device)
+    consts = engine._augment_fused_consts(model.config, model.consts)
+    state = engine._provision_fused(model.config, model.init_state())
+    state = state._replace(psi=fft.wgs_carry_entry(state.psi, consts["amp"]),
+                           phase_ff=fft.wgs_phasor_entry(state.phase_ff))
+    step = model.step
+    times = profile.time_scan(lambda s: step(s, consts)[0], state, n_iterations=50, repeats=3)
+    total, detail = profile.bytes_accessed(lambda: step(state, consts))
+    shape = (2048, 2048)
+    out = {}
+    for name, planes in (("cols_wgs_roundtrip", 10), ("rows_normfwd", 4)):
+        declared_ms = detail[name] / HBM_BYTES_PER_S * 1e3
+        table_ms = bound(shape, planes, 2)[0]
+        out[name] = dict(declared_bytes=detail[name], declared_ms=declared_ms,
+                         bound_ms=table_ms, planes=detail[name] / (4 * 2048 * 2048))
+        log(f"M2 {name}: declared {detail[name]} bytes = {out[name]['planes']:.2f} planes, "
+            f"{declared_ms:.4f} ms at 3.35 TB/s; the kernels line's bound {table_ms:.4f} ms "
+            f"({planes} planes)")
+    log(f"M2 fused step 2048^2: time_scan {', '.join(f'{t:.4f}' for t in times)} ms an "
+        f"iteration; bytes_accessed {total} ({json.dumps(detail)}) [{nvidia_smi_line()}]")
+    return out
+
+
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
@@ -4998,6 +5232,8 @@ def main():
     elif len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py [--parent DIR | --line-ab DIR]")
 
+    from slmsuite_torch.ops import fft
+
     device = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5009,6 +5245,7 @@ def main():
         # Only the A/B of the line kernels against the parent's, no smoke.
         line_ab(device, line_ab_parent)
         return
+    fft.reset_plain_count()
     errors = phase_parity(device)
     errors.update(phase_natural_parity(device))
     errors.update(phase_mraf_parity(device))
@@ -5062,6 +5299,12 @@ def main():
     mixed_times = phase_mixed_timing(device)
     # The mesh engines (D0-D3) after the profiler's phases and before W1.
     mesh_launches = phase_mesh(device)
+    # Every path above took the kernels: no dispatch took the plain tier.
+    assert fft.PLAIN_ON_DEVICE == 0, f"{fft.PLAIN_ON_DEVICE} plain-tier dispatches"
+    plain_tier = phase_plain_tier(device)
+    example_launches = phase_examples(device)
+    phase_memory(device)
+    phase_profile_helpers(device)
     # The rig's calibrations come last: after W1's ~5,100 frames (three 4 MB
     # pageable copies each) the profiler's CUPTI records miss some small
     # copies and memsets, which the transfer counts and device-event
@@ -5071,6 +5314,8 @@ def main():
     w1_launches = w1_runs["kernels"]["launches"]
     del w1_rigs, w1_runs
     phase_rig_calibrations(device)
+    assert fft.PLAIN_ON_DEVICE == 0, f"{fft.PLAIN_ON_DEVICE} plain-tier dispatches in W1-W3"
+    log(f"X3 plain tier: {json.dumps(plain_tier)}")
 
     kernels = []
     for name, (source, replaces, path) in KERNELS.items():
@@ -5122,6 +5367,10 @@ def main():
                 "launches_per_shard": {p: c[name] for p, c in mesh_launches.items()
                                        if c.get(name)},
             }
+        if any(name in counts for counts in example_launches.values()):
+            # The launches of each example run through the kernels (E1-E8).
+            kernels[-1]["examples"] = {e: counts[name] for e, counts in example_launches.items()
+                                       if counts.get(name)}
         if any(name in counts for counts in cg_launches.values()):
             # The launches of gradient phase retrieval, forward and backward.
             kernels[-1]["cg"] = {g: counts.get(name, 0) for g, counts in cg_launches.items()}

@@ -207,6 +207,35 @@ def spot_hologram_from_jax(holo, cameraslm, device=None):
     return out
 
 
+def hologram_from_jax(holo, device=None):
+    """
+    The port's plain :class:`~slmsuite_torch.holography.algorithms.Hologram`
+    from a JAX-package one: its target, SLM shape, amplitude, propagation
+    kernel, phase, weights, Kim's phase store, farfield amplitude,
+    iteration count, flags and stats, so that both packages plot or
+    measure the same state.
+    """
+    import copy
+
+    from slmsuite_torch.holography.algorithms import Hologram
+
+    kernel = holo.propagation_kernel
+    out = Hologram(
+        target=np.array(holo.target), slm_shape=tuple(holo.slm_shape), dtype=holo.dtype,
+        propagation_kernel=None if kernel is None else np.array(kernel), device=device,
+    )
+    arrays = {"amp": np.asarray(holo.amp), "psi": np.asarray(holo._psi),
+              "weights": np.asarray(holo.weights), "iter": holo.iter}
+    if holo._phase_ff_folded is not None:
+        arrays["phase_ff_folded"] = np.asarray(holo._phase_ff_folded)
+    out.load_arrays(arrays)
+    if holo.amp_ff is not None:
+        out.amp_ff = np.array(holo.amp_ff)
+    out.flags.update(copy.deepcopy(holo.flags))
+    out.stats = copy.deepcopy(holo.stats)
+    return out
+
+
 def batched_config_from_jax(config):
     """The port's :class:`~slmsuite_torch.parallel.multiplane.BatchedGSConfig`
     from a ``slmsuite_tpu.parallel.multiplane.BatchedGSConfig`` (its

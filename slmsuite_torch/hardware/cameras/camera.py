@@ -4,8 +4,9 @@ Abstract camera interface (the port's copy of
 depth and dtype, the orientation transform, exposure, single, averaged
 and HDR captures with retries, the buffer flush, and the exposure and
 focus searches (:meth:`Camera.autoexposure`, :meth:`Camera.autofocus`,
-which can take an SLM as its focus actuator). ``plot`` and the live viewer
-are not copied yet (ROADMAP.md queue 1, item 12).
+which can take an SLM as its focus actuator), :meth:`Camera.plot` and the
+self-test :meth:`Camera.test`. The live viewer is not copied yet
+(ROADMAP.md queue 1, item 12, part two).
 """
 
 import time
@@ -19,6 +20,7 @@ from slmsuite_torch.hardware import _Picklable
 from slmsuite_torch.holography import analysis
 from slmsuite_torch.holography.analysis.fitfunctions import lorentzian
 from slmsuite_torch.holography.toolbox import format_shape
+from slmsuite_torch.misc.host import as_numpy
 from slmsuite_torch.misc.math import REAL_TYPES
 
 
@@ -499,34 +501,25 @@ class Camera(_Picklable, ABC):
 
     @staticmethod
     def _autofocus_metric(img, plot=False):
-        """Fourier contrast: the sum of the max-normalized DFT amplitudes
-        (a host FFT of the camera frame, as in the JAX package).
-        ``plot=True`` is not ported (ROADMAP.md queue 1, item 12)."""
-        if plot:
-            raise NotImplementedError(
-                "Camera._autofocus_metric(plot=True): the plots are not ported yet "
-                "(ROADMAP.md queue 1, item 12)."
-            )
+        """Fourier contrast: sum of max-normalized FFT amplitudes."""
         dft_amp = np.abs(np.fft.fftshift(np.fft.fft2(img.astype(float))))
-        return np.sum(dft_amp / np.amax(dft_amp))
+        fom = np.sum(dft_amp / np.amax(dft_amp))
+        if plot:
+            import matplotlib.pyplot as plt
+
+            plt.imshow(dft_amp / np.amax(dft_amp))
+            plt.title(f"FoM = {fom}")
+            plt.show()
+        return fom
 
     def autofocus(self, set_z, get_z=0, range_z=2, metric=None, plot=False, verbose=False):
         """
-        Sweep a focus actuator ``set_z`` over ``z`` (11 points in
-        ``get_z`` +- ``range_z``, or the offsets ``range_z``), score each
-        frame by ``metric`` (the Fourier contrast by default), fit a
-        Lorentzian to the scores and move to its peak; returns the optimal
-        ``z``. An SLM as ``set_z`` applies Zernike defocus through
-        ``source["phase"]``, so that the optimum stays in its correction.
-        ``plot=True`` is not ported (ROADMAP.md queue 1, item 12).
+        Sweep a focus actuator over ``z``, evaluate a sharpness ``metric``
+        per image, and Lorentzian-fit the optimum. Passing an SLM as
+        ``set_z`` applies Zernike defocus through ``source["phase"]``
+        (optimal defocus retained in the wavefront correction).
         """
         from slmsuite_torch.holography.toolbox.phase import zernike
-
-        if plot:
-            raise NotImplementedError(
-                "Camera.autofocus(plot=True): the plots are not ported yet "
-                "(ROADMAP.md queue 1, item 12)."
-            )
 
         if hasattr(set_z, "set_phase"):
             slm = set_z
@@ -557,13 +550,16 @@ class Camera(_Picklable, ABC):
             metric = Camera._autofocus_metric
 
         counts = np.full(len(z_list), np.nan)
+        images = []
         for i, z in enumerate(z_list):
             try:
                 if verbose:
                     print(f"Moving to z = {z:<.2f}...", end="\r")
                 set_z(z)
                 self.flush()
-                counts[i] = metric(self.get_image())
+                img = self.get_image()
+                images.append(np.copy(img))
+                counts[i] = metric(img)
             except Exception:
                 pass
 
@@ -597,4 +593,87 @@ class Camera(_Picklable, ABC):
             z_opt = z_list[best]
 
         set_z(z_opt)
+
+        if plot:
+            import matplotlib.pyplot as plt
+
+            plt.plot(z_list, counts, "o")
+            z_fine = np.linspace(z_list[0], z_list[-1], 200)
+            try:
+                plt.plot(z_fine, lorentzian(z_fine, *popt))
+            except Exception:
+                pass
+            plt.axvline(z_opt, color="r")
+            plt.xlabel("z")
+            plt.ylabel("FoM")
+            plt.show()
+
         return z_opt
+
+    def plot(self, image=None, limits=None, title="Image", ax=None, cbar=True):
+        """
+        Plot an image: ``None`` grabs a fresh frame, ``False`` uses
+        :attr:`last_image`. Ref ``camera.py:1033``.
+        """
+        import matplotlib.pyplot as plt
+
+        if image is None:
+            self.flush()
+            image = self.get_image()
+        elif image is False:
+            image = self.last_image
+        image = as_numpy(image)
+
+        if ax is None:
+            _, ax = plt.subplots()
+        im = ax.imshow(image)
+        if cbar:
+            plt.colorbar(im, ax=ax)
+        ax.set_title(title)
+        if limits is not None and limits != 1:
+            limits = np.asarray(limits, dtype=float)
+            if limits.ndim == 0:
+                center = np.flip(np.array(image.shape)) / 2
+                half = np.flip(np.array(image.shape)) / 2 * float(limits)
+                ax.set_xlim(center[0] - half[0], center[0] + half[0])
+                ax.set_ylim(center[1] + half[1], center[1] - half[1])
+            else:
+                ax.set_xlim(*limits[0])
+                ax.set_ylim(*np.flip(limits[1]))
+        plt.sca(ax)
+        return ax
+
+    def live(self, activate=None, widgets=True, backend="ipython", **kwargs):
+        """The notebook's live viewer: not ported yet (ROADMAP.md queue 1,
+        item 12, part two, with ``cameras/_viewer.py``)."""
+        raise NotImplementedError(
+            "Camera.live: the live viewer is not ported yet (ROADMAP.md queue 1, "
+            "item 12, part two)."
+        )
+
+    def test(self):
+        """Exercise the core camera methods against the hardware."""
+        print(f"Testing camera: {self.name}")
+
+        exposure = self.get_exposure()
+        self.set_exposure(exposure)
+        print(f"  exposure get/set OK ({exposure} s)")
+
+        img = self.get_image()
+        assert img.shape == tuple(self.shape), (img.shape, self.shape)
+        print(f"  get_image OK {img.shape}")
+
+        self.flush()
+        print("  flush OK")
+
+        imgs = self.get_images(2)
+        assert imgs.shape[0] == 2
+        print("  get_images OK")
+
+        n_iter = 10
+        t0 = time.time()
+        for _ in range(n_iter):
+            self.get_image()
+        elapsed = time.time() - t0
+        print(f"  capture benchmark: {n_iter / elapsed:.1f} fps")
+        return True

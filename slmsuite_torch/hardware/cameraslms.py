@@ -20,8 +20,9 @@ camera point; :meth:`FourierSLM.wavefront_calibration_superpixel_process`
 turns its raw data into ``slm.source["phase"]`` and ``["amplitude"]``,
 with the image operations on the rig's device
 (:mod:`slmsuite_torch.holography.analysis._cv`, no OpenCV). The settle and
-pixel calibrations are here too. The plots raise
-:class:`NotImplementedError` (ROADMAP.md queue 1, item 12).
+pixel calibrations are here too, and every calibration's plots
+(matplotlib imported inside each; tensors reach it through
+:meth:`slmsuite_torch.misc.host.as_numpy`).
 """
 
 import copy
@@ -50,6 +51,7 @@ from slmsuite_torch.holography.toolbox.phase import (
     zernike,
 )
 from slmsuite_torch.misc.files import generate_path, latest_path, load_h5, save_h5
+from slmsuite_torch.misc.host import as_numpy
 from slmsuite_torch.misc.math import REAL_TYPES
 
 
@@ -82,8 +84,26 @@ class CameraSLM(_Picklable):
             self.slm.close()
 
     def plot(self, phase=None, image=None, title="", **kwargs):
-        """The SLM phase beside the camera image (not ported yet)."""
-        _no_plots("CameraSLM.plot")
+        """Plot the SLM phase (``phase``, or the SLM's; a phase of the SLM's
+        shape is displayed first when no ``image`` is given) beside the
+        camera image (``image``, or a new one). Returns the axes."""
+        import matplotlib.pyplot as plt
+
+        if image is None and phase is not None and np.shape(phase) == self.slm.shape:
+            self.slm.set_phase(phase, **kwargs)
+        if phase is None:
+            phase = self.slm.phase
+        if image is None:
+            image = self.cam.get_image()
+
+        fig, axs = plt.subplots(1, 2, figsize=(14, 6))
+        axs[0].imshow(np.mod(as_numpy(phase), 2 * np.pi), cmap="twilight", vmin=0, vmax=2 * np.pi)
+        axs[0].set_title("SLM Phase")
+        axs[1].imshow(as_numpy(image))
+        axs[1].set_title("Camera Image")
+        fig.suptitle(title)
+        plt.show()
+        return axs
 
 
 class NearfieldSLM(CameraSLM):
@@ -97,10 +117,18 @@ class NearfieldSLM(CameraSLM):
         raise NotImplementedError()
 
 
-def _no_plots(where):
-    raise NotImplementedError(
-        f"{where}: the calibration plots are not ported yet (ROADMAP.md queue 1, item 12)."
-    )
+def _plot_labeled_rects(ax, points, labels, colors, width, height):
+    """Annotate ``ax`` with labeled rectangles centered on ``points``: the
+    superpixel and window markers of the superpixel calibration's plots."""
+    import matplotlib.pyplot as plt
+
+    for point, label, color in zip(points, labels, colors):
+        ax.add_patch(plt.Rectangle(
+            (float(point[0] - width / 2), float(point[1] - height / 2)),
+            float(width), float(height), ec=color, fc="none",
+        ))
+        ax.annotate(label, (point[0], point[1]), c=color, size="x-small",
+                    ha="center", va="center")
 
 
 def _progress(iterable, desc):
@@ -515,11 +543,9 @@ class FourierSLM(CameraSLM):
         r"""
         Fit a step and an exponential to the settle data: the suggested
         settle time is the communication time plus 4 times the 1/e
-        relaxation time. ``plot=True`` is not ported (ROADMAP.md queue 1,
-        item 12). Returns the fitted times.
+        relaxation time. ``plot`` shows the data and the fit. Returns the
+        fitted times.
         """
-        if plot:
-            _no_plots("settle_calibration_process(plot=True)")
         times = np.asarray(self.calibrations["settle"]["times"])
         results = np.squeeze(np.asarray(self.calibrations["settle"]["data"]))
 
@@ -538,6 +564,22 @@ class FourierSLM(CameraSLM):
             "communication_time": x0,
         }
         self.calibrations["settle"].update(processed)
+
+        if plot:
+            import matplotlib.pyplot as plt
+
+            x_interp = np.linspace(times.min(), times.max(), 100)
+            plt.plot(times, results, "k.", label="data")
+            plt.plot(x_interp, exponential_jump(x_interp, *params), "r--", label="fit")
+            plt.xlabel("Time [sec]")
+            plt.ylabel("Signal [a.u.]")
+            plt.title(
+                f"Communication: {1e3 * processed['communication_time']:.0f} ms; "
+                f"1/e relax: {1e3 * processed['relax_time']:.0f} ms; "
+                f"suggested settle: {1e3 * processed['settle_time']:.0f} ms"
+            )
+            plt.legend()
+            plt.show()
         return processed
 
     # ------------------------------------------------------------------
@@ -667,11 +709,9 @@ class FourierSLM(CameraSLM):
         ``(N, N)`` power matrix (averaged over directions, periods and the
         +-1 orders); stored as ``calibrations["pixel"]["phase_fit"]``
         (``levels``, ``phase`` with ``phase[0] = 0``, ``amplitude``,
-        ``rmse``). ``plot=True`` is not ported (ROADMAP.md queue 1, item
-        12). Returns the calibration.
+        ``rmse``). ``plot`` shows each period's first-order power matrix.
+        Returns the calibration.
         """
-        if plot:
-            _no_plots("pixel_calibration_process(plot=True)")
         cal = self.calibrations["pixel"]
 
         if fit:
@@ -707,6 +747,20 @@ class FourierSLM(CameraSLM):
                 "amplitude": float(np.exp(solution.x[-1])),
                 "rmse": float(np.sqrt(np.mean(np.square(solution.fun)))),
             }
+
+        if plot:
+            import matplotlib.pyplot as plt
+
+            data = np.asarray(cal["data"])
+            order_index = int(np.where(np.asarray(cal["orders"]) == 1)[0][0])
+            fig, axs = plt.subplots(2, len(cal["periods"]), figsize=(4 * len(cal["periods"]), 8))
+            # One period gives subplots of shape (2,).
+            axs = np.array(axs).reshape(2, -1)
+            for i in (0, 1):
+                for j in range(len(cal["periods"])):
+                    axs[i, j].imshow(data[i, j, :, :, order_index])
+                    axs[i, j].set_title(f"{'x' if i == 0 else 'y'} period {cal['periods'][j]}")
+            plt.show()
         return cal
 
     # ------------------------------------------------------------------
@@ -753,6 +807,10 @@ class FourierSLM(CameraSLM):
         # The center really projected (rounding compensated; the first two
         # points are skipped to balance the two left out at the end).
         array_center = np.mean(hologram.spot_kxy_rounded[:, 2:], axis=1)
+
+        if plot > 1:
+            hologram.plot_farfield()
+            hologram.plot_nearfield()
 
         self.cam.flush()
 
@@ -1009,8 +1067,26 @@ class FourierSLM(CameraSLM):
         return analysis.image_areas(variances)
 
     def _wavefront_calibrate_zernike_plot_raw(self, calibration_points=None, index=0):
-        """The raw-data plot of the Zernike calibration (not ported yet)."""
-        _no_plots("_wavefront_calibrate_zernike_plot_raw")
+        """Raw-data diagnostic for the Zernike wavefront calibration:
+        scatter of the per-point aberration correction for one Zernike
+        term over the camera plane (ref ``cameraslms.py:2041-2063``)."""
+        import matplotlib.pyplot as plt
+
+        dat = self.calibrations["wavefront_zernike"]
+        if calibration_points is None:
+            calibration_points = np.copy(dat["corrected_spots"])
+        points_ij = np.asarray(dat["calibration_points_ij"])
+        zernike_indices = np.asarray(dat["zernike_indices"])
+
+        aberration = np.asarray(calibration_points)[index, :]
+        lim = np.max(np.abs(aberration)) or 1
+
+        plt.scatter(points_ij[0, :], points_ij[1, :], c=aberration, cmap="seismic")
+        plt.gca().invert_yaxis()
+        cbar = plt.colorbar()
+        cbar.ax.set_ylabel("Aberration Correction [rad]")
+        plt.clim(-lim, lim)
+        plt.title(f"Zernike $Z_{{{zernike_indices[index]}}}$")
 
     def wavefront_calibrate_zernike(
         self,
@@ -1048,15 +1124,15 @@ class FourierSLM(CameraSLM):
         or None to resume the stored ``"wavefront_zernike"`` calibration
         (100 points if there is none). ``perturbation`` is a sweep, or a
         scalar ``p`` for 11 points in ``[-p, p]``; 0 or None projects the
-        hologram and returns it. ``plot`` above 0 is not ported (item 12).
+        hologram and returns it. ``plot`` above 0 shows each term's sweep
+        and fit, the calibration points, and (with no perturbation) the
+        camera's status image; 2 and above, the spots' tiles and the
+        refined offsets too; below 0, no progress bars.
         Returns the ``"wavefront_zernike"`` calibration dict: the initial
         and corrected points, the indices, the last sweep's results, the
         camera points and window width, the metric before each term and
         after the last, and the weights.
         """
-        if plot > 0:
-            _no_plots("wavefront_calibrate_zernike(plot > 0)")
-
         def sweep_term(sweep, term, pattern, callback, desc=None):
             sweep = np.ravel(sweep)
             result = None
@@ -1076,7 +1152,7 @@ class FourierSLM(CameraSLM):
                 result[i, :] = this_result
             return result
 
-        def fit_term(sweep, result):
+        def fit_term(sweep, result, term_index):
             """The parabola's minimum per spot (clipped to the sweep)."""
             ddy = np.diff(result, n=2, axis=0)
             a0 = 0.5 * np.mean(ddy, axis=0) / np.square(np.mean(np.diff(sweep)))
@@ -1087,17 +1163,40 @@ class FourierSLM(CameraSLM):
                 return c + a * np.square(x - x0)
 
             x = np.zeros(result.shape[1])
+            dx = np.zeros(result.shape[1])
             for i in range(result.shape[1]):
                 guess = (x0[i], max(a0[i], 1e-30), c0[i])
                 try:
-                    popt, _ = optimize.curve_fit(
+                    popt, pcov = optimize.curve_fit(
                         parabola, sweep, result[:, i], ftol=1e-5, p0=guess,
                         bounds=([-np.inf, 0, -np.inf], [np.inf, np.inf, np.inf]),
                     )
+                    perr = np.sqrt(np.diag(pcov))
                 except Exception:
                     popt = guess
+                    perr = np.zeros(3)
                 x[i] = popt[0]
-            return np.clip(x, np.min(sweep), np.max(sweep))
+                dx[i] = perr[0]
+            x = np.clip(x, np.min(sweep), np.max(sweep))
+
+            if plot > 0:
+                import matplotlib.pyplot as plt
+
+                shown = result - np.min(result, axis=0, keepdims=True)
+                shown = shown / np.maximum(np.max(shown, axis=0, keepdims=True), 1e-30)
+                plt.imshow(
+                    shown,
+                    interpolation="none",
+                    extent=[-0.5, result.shape[1] - 0.5, np.max(sweep), np.min(sweep)],
+                )
+                plt.errorbar(np.arange(result.shape[1]), x, yerr=dx, c="r", marker=".",
+                             linestyle="none")
+                plt.gca().set_aspect("auto")
+                plt.title("Zernike $Z_{" + str(term_index) + "}$")
+                plt.xlabel("Calibration Point [#]")
+                plt.ylabel("Perturbation [rad]")
+                plt.show()
+            return x
 
         # The points, or the stored calibration to resume.
         calibration_points_ij = None
@@ -1132,7 +1231,7 @@ class FourierSLM(CameraSLM):
 
         if np.isscalar(calibration_points):
             pitch = np.sqrt(np.prod(self.cam.shape) / calibration_points)
-            calibration_points = self.wavefront_calibration_points(pitch)
+            calibration_points = self.wavefront_calibration_points(pitch, plot=plot > 0)
             calibration_points = toolbox.convert_vector(
                 calibration_points, "ij", "zernike", hardware=self
             )
@@ -1221,7 +1320,30 @@ class FourierSLM(CameraSLM):
         if no_perturbation:
             self.slm.set_phase(tick(), settle=True, phase_correct=False)
             self.cam.flush()
-            self.cam.get_image()
+            img = self.cam.get_image()
+            if plot > 0:
+                # The status: the whole frame with an overexposure check, and
+                # each spot's tile at plot >= 2.
+                import matplotlib.pyplot as plt
+
+                spots = analysis.take(
+                    img, hologram.spot_ij, hologram.spot_integration_width_ij,
+                    centered=True, integrate=False,
+                )
+                peak = np.max(spots)
+                if peak >= self.cam.bitresolution - 1:
+                    warnings.warn("Image is overexposed.")
+                elif peak > 0.5 * self.cam.bitresolution:
+                    warnings.warn(
+                        f"Image might become overexposed during optimization "
+                        f"({peak}/{self.cam.bitresolution - 1})."
+                    )
+                self.cam.plot(img, title="Zernike Calibration Status")
+                if plot >= 2:
+                    plt.figure(figsize=(12, 12))
+                    analysis.take_plot(spots, separate_axes=False)
+                    plt.title("Zernike Calibration Status (Zoom)")
+                    plt.show()
             return hologram
 
         if np.isscalar(perturbation):
@@ -1234,7 +1356,8 @@ class FourierSLM(CameraSLM):
             # correction), so that the refined targets describe the optical
             # state the sweeps measure.
             self.slm.set_phase(tick(), settle=True, phase_correct=False)
-            hologram.refine_offset(img=None, basis="kxy", force_affine=global_correction)
+            hologram.refine_offset(img=None, basis="kxy", force_affine=global_correction,
+                                   plot=plot > 1)
             calibration_points = hologram.spot_zernike
 
         # One sweep per Zernike term.
@@ -1250,7 +1373,7 @@ class FourierSLM(CameraSLM):
 
             term = zernike(self.slm, i, use_mask=False)
             result = sweep_term(perturbation, term, pattern, callback, f"Z_{i}")
-            correction = fit_term(perturbation, result)
+            correction = fit_term(perturbation, result, i)
 
             if global_correction:
                 correction = np.mean(correction)
@@ -1283,12 +1406,11 @@ class FourierSLM(CameraSLM):
         the median left out): the tilts average their residual from the
         Fourier calibration's expectation (``smoothing_xy``), the higher
         terms the coefficients themselves (``smoothing``). Returns the
-        ``(D, N)`` coefficients. ``plot`` is not ported (item 12).
+        ``(D, N)`` coefficients. ``plot`` draws the points and the
+        neighbor graph the averaging walks.
         """
         from scipy.spatial import Delaunay
 
-        if plot:
-            _no_plots("wavefront_calibrate_zernike_smooth(plot=True)")
         if smoothing < 0 or smoothing > 1:
             raise ValueError("Smoothing factor must be between 0 and 1.")
         if smoothing_xy < 0 or smoothing_xy > 1:
@@ -1325,6 +1447,11 @@ class FourierSLM(CameraSLM):
             )
         ])
 
+        if plot:
+            import matplotlib.pyplot as plt
+
+            plt.scatter(*points_ij[:2], c="r", zorder=10)
+
         for i in range(points_ij.shape[1]):
             neighbors = set()
             for simplex in simplices:
@@ -1339,6 +1466,11 @@ class FourierSLM(CameraSLM):
                 final[to_smooth, i] = vectors[to_smooth, i]
                 continue
 
+            if plot:
+                for n in neighbors:
+                    plt.plot([points_ij[0, n], points_ij[0, i]],
+                             [points_ij[1, n], points_ij[1, i]], c="k", linewidth=1)
+
             final[x_smooth, i] = (1 - smoothing_xy) * (
                 vectors[x_smooth, i] - base_xy[0, i]
             ) + base_xy[0, i]
@@ -1352,6 +1484,10 @@ class FourierSLM(CameraSLM):
             final[to_smooth, i] = (1 - smoothing) * vectors[to_smooth, i]
             for n in neighbors:
                 final[to_smooth, i] += smoothing * vectors[to_smooth, n] / count
+
+        if plot:
+            plt.gca().invert_yaxis()
+            plt.title("Nearest Neighbor Smoothing")
 
         return final
 
@@ -1373,11 +1509,9 @@ class FourierSLM(CameraSLM):
         off ``avoid_points``, placed so that the -1st-order mirrors fall
         between points (``avoid_mirrors``), and within the first Nyquist
         zone (``avoid_nyquist``). Returns ``(2, N)`` ``"ij"`` points sorted
-        by their distance from the 0th order. ``plot`` is not ported (item
-        12).
+        by their distance from the 0th order. ``plot`` shows the points
+        (blue) and the points avoided (red).
         """
-        if plot:
-            _no_plots("wavefront_calibration_points(plot=True)")
         field_point = toolbox.convert_vector(
             format_2vectors(field_point), field_point_units, "ij", hardware=self
         )
@@ -1439,6 +1573,16 @@ class FourierSLM(CameraSLM):
                 f"{tuple(self.cam.shape)} camera). Use a smaller pitch (more "
                 f"points) or pass a smaller field_exclusion."
             )
+
+        if plot:
+            import matplotlib.pyplot as plt
+
+            plt.scatter(calibration_points[0, :], calibration_points[1, :], c="b")
+            plt.scatter(avoid_points[0, :], avoid_points[1, :], c="r")
+            plt.xlim([0, self.cam.shape[1]])
+            plt.ylim([self.cam.shape[0], 0])
+            plt.show()
+
         return calibration_points
 
     # ------------------------------------------------------------------
@@ -1456,10 +1600,91 @@ class FourierSLM(CameraSLM):
         ).astype(int)
         return self._wavefront_calibration_window_multiplier * interference_size
 
-    def _wavefront_calibration_superpixel_plot_raw(self, index=0, r2_threshold=0,
-                                                   phase_detail=True):
-        """The raw-data plot of the superpixel calibration (not ported yet)."""
-        _no_plots("_wavefront_calibration_superpixel_plot_raw")
+    def _wavefront_calibration_superpixel_plot_raw(
+        self, index=0, r2_threshold=0, phase_detail=True
+    ):
+        """
+        Raw-data diagnostic for the superpixel wavefront calibration
+        (ref ``cameraslms.py:3984-4094``): the calibration point's camera
+        location, the measured per-superpixel fringe phase, and either
+        the phase derivatives (``phase_detail``) or the measured power
+        and fit r². ``index=None`` plots all calibration points' camera
+        locations instead.
+        """
+        import matplotlib.pyplot as plt
+
+        plt.figure(figsize=(16, 8))
+        data = self.calibrations["wavefront_superpixel"]
+
+        if index is None:
+            coords = np.asarray(data["calibration_points"])
+            plt.subplot(1, 4, 1)
+            plt.scatter(coords[0, :], coords[1, :], c="r")
+            for i in range(coords.shape[1]):
+                plt.annotate(str(i), (coords[0, i], coords[1, i]))
+            plt.title("Calibration Points")
+            plt.xlabel("Camera $x$ [pix]")
+            plt.ylabel("Camera $y$ [pix]")
+            plt.xlim([0, self.cam.shape[1]])
+            plt.ylim([0, self.cam.shape[0]])
+            plt.gca().set_aspect(1)
+            return
+
+        coord = np.asarray(data["calibration_points"])[:, index]
+        phase = np.array(data["phase"][index], dtype=float)
+        kx = np.array(data["kx"][index], dtype=float)
+        ky = np.array(data["ky"][index], dtype=float)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            power = np.asarray(data["power"][index], dtype=float) / np.asarray(
+                data["normalization"][index], dtype=float
+            )
+        r2 = np.array(data["r2_fit"][index], dtype=float)
+
+        below = r2 < r2_threshold
+        for matrix in (phase, kx, ky, power):
+            matrix[below] = np.nan
+
+        kscale = np.nanmax(
+            [np.nanmax(np.abs(kx), initial=0), np.nanmax(np.abs(ky), initial=0)]
+        ) or 1
+
+        plt.subplot(1, 4, 1)
+        plt.scatter(coord[0], coord[1], c="r")
+        plt.annotate(str(index), (coord[0], coord[1]))
+        plt.title(f"Calibration Point {index}")
+        plt.xlabel("Camera $x$ [pix]")
+        plt.ylabel("Camera $y$ [pix]")
+        plt.xlim([0, self.cam.shape[1]])
+        plt.ylim([0, self.cam.shape[0]])
+        plt.gca().set_aspect(1)
+
+        plt.subplot(1, 4, 2)
+        plt.imshow(phase, clim=(0, 2 * np.pi), cmap="twilight", interpolation="none")
+        plt.title(r"Phase Correction $\phi$")
+        plt.xticks([])
+        plt.yticks([])
+
+        plt.subplot(1, 4, 3)
+        if phase_detail:
+            plt.imshow(kx, clim=(-kscale, kscale), cmap="twilight", interpolation="none")
+            plt.title(r"$k_x \propto \partial\phi/\partial x$")
+        else:
+            plt.imshow(power)
+            plt.title("Measured Beam Power")
+        plt.xticks([])
+        plt.yticks([])
+
+        plt.subplot(1, 4, 4)
+        if phase_detail:
+            plt.imshow(ky, clim=(-kscale, kscale), cmap="twilight", interpolation="none")
+            plt.title(r"$k_y \propto \partial\phi/\partial y$")
+        else:
+            plt.imshow(r2, clim=(0, 1))
+            plt.title("$R^2$")
+        plt.xticks([])
+        plt.yticks([])
+
+        plt.show()
 
     def wavefront_calibrate_superpixel(
         self,
@@ -1501,17 +1726,14 @@ class FourierSLM(CameraSLM):
         ``measure_background`` measures each window with the superpixels
         off; ``corrected_amplitude`` measures the power with the measured
         blaze corrected. ``plot`` 0 shows progress bars (when tqdm is
-        installed), -1 nothing; above 0 it is not ported (ROADMAP.md queue
-        1, item 12).
+        installed), -1 nothing; 1 and above also each fit, 2 and above each
+        measurement's SLM phase and camera frame with the labeled windows.
 
         Returns the raw ``"wavefront_superpixel"`` calibration;
         :meth:`wavefront_calibration_superpixel_process` makes the
         correction.
         """
         from slmsuite_torch.holography.toolbox import imprint, smallest_distance
-
-        if plot >= 1:
-            _no_plots("wavefront_calibrate_superpixel(plot >= 1)")
 
         superpixel_size = int(superpixel_size)
         slm_supershape = tuple(np.ceil(np.array(self.slm.shape) / superpixel_size).astype(int))
@@ -1652,6 +1874,7 @@ class FourierSLM(CameraSLM):
                 raise ValueError(f"Expected positive phase_steps. Received {phase_steps}.")
 
         verbose = plot >= 0
+        plot_fits = plot >= 1
 
         calibration_dict = {
             "__version__": __version__,
@@ -1727,7 +1950,7 @@ class FourierSLM(CameraSLM):
             self.cam.flush()
             return self.cam.get_image()
 
-        def fit_phase(phases, intensities):
+        def fit_phase(phases, intensities, plot_this=False):
             """The stepped cosine fit: ``(phase, amplitude, r2, contrast)``."""
             guess = [
                 phases[np.argmax(intensities)],
@@ -1746,6 +1969,22 @@ class FourierSLM(CameraSLM):
             ss_res = np.sum((intensities - cos(phases, *popt)) ** 2)
             ss_tot = np.sum((intensities - np.mean(intensities)) ** 2)
             r2 = 1 - (ss_res / ss_tot) if ss_tot > 0 else 0
+
+            if plot_this:
+                import matplotlib.pyplot as plt
+
+                plt.scatter(phases / np.pi, intensities, color="k", label="Data")
+                phases_fine = np.linspace(0, 2 * np.pi, 100)
+                plt.plot(phases_fine / np.pi, cos(phases_fine, *popt), "k-", label="Fit")
+                plt.plot(phases_fine / np.pi, cos(phases_fine, *guess), "k--", label="Guess")
+                plt.plot(best_phase / np.pi, popt[1] + popt[2], "xr", label="Phase")
+                plt.legend(loc="best")
+                plt.title(f"Interference ($R^2$={r2:.3f})")
+                plt.grid()
+                plt.xlim([0, 2])
+                plt.xlabel(r"$\phi$ $[\pi]$")
+                plt.ylabel("Signal")
+                plt.show()
             return best_phase, amp, r2, contrast
 
         def fit_phase_image(img, dsuperpixel):
@@ -1808,6 +2047,17 @@ class FourierSLM(CameraSLM):
             ss_tot = np.sum((img0 - np.mean(img0)) ** 2)
             r2 = 1 - (ss_res / ss_tot) if ss_tot > 0 else 0
 
+            if plot_fits:
+                import matplotlib.pyplot as plt
+
+                _, axs = plt.subplots(1, 3, figsize=(20, 10))
+                axs[0].imshow(img)
+                axs[1].imshow(_sinc2d_centered(xy, *guess))
+                axs[2].imshow(_sinc2d_centered(xy, *popt))
+                for a, fit_title in enumerate(["Image", "Guess", "Fit"]):
+                    axs[a].set_title(fit_title)
+                plt.show()
+
             return (np.mod(-best_phase, 2 * np.pi), amp, r2, contrast)
 
         def take_interference_regions(img, integrate=True):
@@ -1829,6 +2079,83 @@ class FourierSLM(CameraSLM):
                                         guess=guess)
             return result[:, 1:3].T + calibration_points
 
+        def plot_labeled(schedule, img, title="", focus=0):
+            """The SLM phase with the labeled reference and test superpixels,
+            the log-scaled camera frame with the diffraction orders and the
+            labeled windows, and a zoom on the focused window."""
+            import matplotlib.pyplot as plt
+
+            fig, axs = plt.subplots(1, 3, figsize=(16, 4))
+
+            axs[0].imshow(
+                np.mod(as_numpy(self.slm.phase), 2 * np.pi),
+                cmap="twilight", interpolation="none",
+            )
+            center = np.array([superpixel_size / 2, superpixel_size / 2])
+            points, labels, colors = [], [], []
+            for i in range(num_points):
+                if schedule is not None and schedule[i] == -1:
+                    continue
+                points.append(
+                    reference_superpixels_coords[:, i] * superpixel_size
+                    + center
+                )
+                labels.append(str(i) if num_points > 1 else "Reference\nSuperpixel")
+                colors.append((1 if i == focus else 0.5, 0.2, 0))
+                if schedule is not None:
+                    points.append(
+                        (index2coord(schedule)[:, i] * superpixel_size
+                         + center).ravel()
+                    )
+                    labels.append(str(i) if num_points > 1 else "Test\nSuperpixel")
+                    colors.append((1 if i == focus else 0.5, 0, 0.2))
+            _plot_labeled_rects(
+                axs[0], points, labels, colors, superpixel_size, superpixel_size
+            )
+            axs[0].set_title("SLM Phase")
+
+            if img is not None:
+                im = axs[1].imshow(np.log10(as_numpy(img).astype(float) + 0.1))
+                im.set_clim(0, np.log10(self.cam.bitresolution))
+            dpoint = field_point - base_point
+            points = [(base_point + n * dpoint).ravel() for n in range(-2, 3)]
+            labels = ["-2nd", "-1st", "0th", "1st", "2nd"]
+            colors = ["b"] * 5
+            focus_point = None
+            for i in range(num_points):
+                if schedule is not None and schedule[i] == -1:
+                    continue
+                points.append(calibration_points[:, i])
+                labels.append(str(i) if num_points > 1 else "Calibration\nPoint")
+                colors.append((1 if i == focus else 0.5, 0, 0))
+                if i == focus:
+                    focus_point = calibration_points[:, i]
+            wh, hh = (int(v) for v in interference_window)
+            _plot_labeled_rects(axs[1], points, labels, colors, wh, hh)
+            axs[1].set_title("Camera Result")
+
+            if img is not None:
+                im = axs[2].imshow(np.log10(as_numpy(img).astype(float) + 0.1))
+                im.set_clim(0, np.log10(self.cam.bitresolution))
+                step = 2 if self.cam.bitdepth > 10 else 1
+                bitres_list = np.power(
+                    2, np.arange(0, self.cam.bitdepth + 1, step), dtype=int
+                )
+                cbar = fig.colorbar(im, ax=axs[2])
+                cbar.ax.set_yticks(np.log10(bitres_list))
+                cbar.ax.set_yticklabels(bitres_list)
+            if focus_point is None:
+                focus_point = base_point.ravel()
+            axs[2].scatter([focus_point[0]], [focus_point[1]], 5, "r", "*")
+            axs[2].set_xlim(focus_point[0] - wh / 2, focus_point[0] + wh / 2)
+            axs[2].set_ylim(focus_point[1] + hh / 2, focus_point[1] - hh / 2)
+            for spine in axs[2].spines.values():
+                spine.set_color("r")
+                spine.set_linewidth(1.5)
+            axs[2].set_title(title)
+
+            plt.show()
+
         nans = [np.nan] * num_points
 
         def measure(schedule):
@@ -1841,6 +2168,8 @@ class FourierSLM(CameraSLM):
             norm = take_interference_regions(superpixels(schedule, 0, None))
 
             position_image = superpixels(schedule, None, 0)
+            if plot > 1:
+                plot_labeled(schedule, position_image, title="Test Point")
             if phase_steps is None and not corrected_amplitude:
                 return {
                     "power": take_interference_regions(position_image),
@@ -1871,6 +2200,8 @@ class FourierSLM(CameraSLM):
             results = []
             if phase_steps == 1:
                 result_img = superpixels(schedule, 0, 0, target_blaze=target_blaze_fixed)
+                if plot > 1:
+                    plot_labeled(schedule, result_img, title="Interference")
                 cropped = take_interference_regions(result_img, integrate=False)
                 coord_difference = index2coord(schedule) - index2coord(reference_superpixels)
                 results = [
@@ -1895,7 +2226,7 @@ class FourierSLM(CameraSLM):
                     ])
                 iresults = np.array(iresults)
                 for i in range(num_points):
-                    results.append(fit_phase(phases, iresults[:, i]))
+                    results.append(fit_phase(phases, iresults[:, i], plot_this=plot_fits))
 
             results = np.array(results)
             return {
@@ -1958,10 +2289,8 @@ class FourierSLM(CameraSLM):
         calibration is read as it is): see
         :meth:`_process_superpixel_calibration`. Writes ``slm.source``
         (``"phase"``, ``"amplitude"``, ``"r2"``) when ``apply``.
-        ``plot=True`` is not ported (ROADMAP.md queue 1, item 12).
+        ``plot`` shows the result (:meth:`SLM.plot_source`).
         """
-        if plot:
-            _no_plots("wavefront_calibration_superpixel_process(plot=True)")
         if "wavefront_superpixel" in self.calibrations:
             data = self.calibrations["wavefront_superpixel"]
         elif "wavefront" in self.calibrations:
@@ -1995,7 +2324,7 @@ class FourierSLM(CameraSLM):
                 correction[key] = np.asarray(data[key])[index]
             data = correction
 
-        return self._process_superpixel_calibration(
+        wavefront_calibration = self._process_superpixel_calibration(
             data,
             smooth=smooth,
             r2_threshold=r2_threshold,
@@ -2004,6 +2333,9 @@ class FourierSLM(CameraSLM):
             remove_background=remove_background,
             apply=apply,
         )
+        if plot:
+            self.slm.plot_source(source=wavefront_calibration)
+        return wavefront_calibration
 
     def _process_superpixel_calibration(
         self,

@@ -40,5 +40,36 @@ class SimulatedSLM(SLM):
         pass
 
     def _set_phase_hw(self, display):
-        """No hardware: :meth:`set_phase` has already written
-        :attr:`display` and :attr:`phase`."""
+        """No hardware, but the written data is stored, so that a write
+        that bypasses the local :meth:`set_phase` (a remote client's, which
+        ships only the integer display) reaches the simulation: the
+        display is range-checked and stored, and :attr:`phase` follows it
+        by the inverse mapping of ``set_phase``'s integer path. A local
+        write has already stored both."""
+        display = np.asarray(display)
+        if display is self.display:
+            return  # The local write stored both.
+        if display.shape != self.display.shape:
+            raise ValueError(
+                f"Display write of shape {display.shape} does not match "
+                f"the SLM shape {self.display.shape}."
+            )
+        # Range-check like set_phase's integer fast path: silently
+        # narrowing >= bitresolution values via astype would render
+        # wrapped garbage for a buggy remote client without any error.
+        if not np.issubdtype(display.dtype, np.integer):
+            raise TypeError(
+                f"Expected integer display data; got {display.dtype}."
+            )
+        if display.size and (
+            np.any(display >= self.bitresolution) or np.any(display < 0)
+        ):
+            raise TypeError(
+                f"Display data exceeds the SLM bitdepth "
+                f"(bitresolution={self.bitresolution}): range "
+                f"[{display.min()}, {display.max()}]."
+            )
+        np.copyto(self.display, display.astype(self.display.dtype))
+        self.phase = 2 * np.pi - self.display * (
+            2 * np.pi / self.phase_scaling / self.bitresolution
+        )

@@ -4,8 +4,10 @@ The spatial light modulator interface: the part of
 and the simulated rig need (numpy only). It holds the SLM's geometry
 (shape, pitch, wavelength, the normalized coordinate grid), its source
 (measured or simulated illumination, and the fit of a measured amplitude,
-which re-centres the grid on it), and the host-side write path
-(:meth:`SLM.set_phase`, grayscale conversion into :attr:`SLM.display`).
+which re-centres the grid on it), the host-side write path
+(:meth:`SLM.set_phase`, grayscale conversion into :attr:`SLM.display`),
+saving and loading phases, the source's aperture and plots, the expected
+point spread function (a tensor on a device) and the self-test.
 """
 
 import inspect
@@ -18,6 +20,8 @@ import numpy as np
 from slmsuite_torch.hardware import _Picklable
 from slmsuite_torch.holography import analysis, toolbox
 from slmsuite_torch.holography.analysis import fitfunctions
+from slmsuite_torch.misc.files import generate_path, latest_path, load_h5, save_h5
+from slmsuite_torch.misc.host import as_numpy
 from slmsuite_torch.misc.math import REAL_TYPES
 
 
@@ -371,3 +375,244 @@ class SLM(_Picklable, ABC):
             [rad_freq, rad_freq], "freq", "kxy", hardware=self, shape=self.shape
         )
         return np.mean(psf_kxy)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _format_phase_hw(self, phase):
+        """Default hardware formatting: grayscale conversion into :attr:`display`."""
+        return self._phase2gray(phase, out=self.display)
+
+    @staticmethod
+    def info(verbose=True):
+        """Discover connected devices; base class has none."""
+        if verbose:
+            print("SLM.info() is unimplemented for the base class.")
+        return []
+
+    def load_vendor_phase_correction(self, file_path):
+        """
+        Load a vendor-provided phase-correction image into
+        ``source["phase"]`` (inverted per the phase sign convention,
+        scaled by the phase table, padded/unpadded to the SLM shape).
+        Subclasses override for vendor-specific formats.
+        
+        """
+        import cv2
+
+        image = cv2.imread(file_path, cv2.IMREAD_UNCHANGED)
+        if image is None:
+            raise ValueError(f"Could not read image at '{file_path}'.")
+        correction = self.bitresolution - 1 - np.asarray(image, dtype=float)
+        if correction.ndim != 2:
+            raise ValueError(f"Expected 2D image; found shape {correction.shape}.")
+        correction *= 2 * np.pi / (self.phase_scaling * self.bitresolution)
+
+        shape_sign = np.sign(np.array(correction.shape) - np.array(self.shape))
+        if np.any(np.abs(np.diff(shape_sign)) > 1):
+            raise ValueError(
+                f"Cannot pad or unpad correction {correction.shape} to {self.shape}."
+            )
+        if np.any(shape_sign > 0):
+            self.source["phase"] = toolbox.unpad(correction, self.shape)
+        elif np.any(shape_sign < 0):
+            self.source["phase"] = toolbox.pad(correction, self.shape)
+        else:
+            self.source["phase"] = correction
+        return self.source["phase"]
+
+    def plot(self, phase=None, limits=None, title="Phase", ax=None, cbar=True):
+        """Plot ``phase`` (default: the last written phase). """
+        import matplotlib.pyplot as plt
+
+        if phase is None:
+            phase = self.phase
+        phase = as_numpy(phase)
+
+        if ax is None:
+            _, ax = plt.subplots()
+        im = ax.imshow(phase, cmap="twilight", interpolation="none")
+        if limits is not None:
+            limits = np.asarray(limits, dtype=float)
+            if limits.ndim == 0:
+                center = np.flip(np.array(phase.shape)) / 2
+                half = np.flip(np.array(phase.shape)) / 2 * float(limits)
+                ax.set_xlim(center[0] - half[0], center[0] + half[0])
+                ax.set_ylim(center[1] + half[1], center[1] - half[1])
+            else:
+                ax.set_xlim(*limits[0])
+                ax.set_ylim(*np.flip(limits[1]))
+        ax.set_title(title)
+        if cbar:
+            plt.colorbar(im, ax=ax)
+        plt.sca(ax)
+        return ax
+
+    def save_phase(self, path=".", name=None):
+        """Save the current :attr:`phase`/:attr:`display` to h5; returns the path."""
+        if name is None:
+            name = self.name + "-phase"
+        file_path = generate_path(path, name, extension="h5")
+        save_h5(file_path, {"phase": as_numpy(self.phase), "display": as_numpy(self.display)})
+        return file_path
+
+    def load_phase(self, file_path=None, path=".", name=None, set_phase=True,
+                   settle=False):
+        """Load phase from a file (or the latest autosave); optionally
+        write it (``settle`` sleeps for :attr:`settle_time_s` after the
+        write, reference-compatible)."""
+        if file_path is None:
+            if name is None:
+                name = self.name + "-phase"
+            file_path = latest_path(path, name, extension="h5")
+            if file_path is None:
+                raise FileNotFoundError(f"No saved phase found under '{name}' in '{path}'.")
+        data = load_h5(file_path)
+        if set_phase:
+            self.set_phase(data["phase"], settle=settle)
+        return data["phase"]
+
+    def set_input_trigger(self, on=False):
+        """**(Not supported by this SLM.)** External display-update trigger."""
+        raise NotImplementedError("This SLM does not support input triggering.")
+
+    def set_output_trigger(self, on=False):
+        """**(Not supported by this SLM.)** Display-updated output signal."""
+        raise NotImplementedError("This SLM does not support output triggering.")
+
+    def set_source_aperture(self, amplitude_center_pix=None, amplitude_radius=None, amplitude_extent=None, amplitude_extent_radius=None):
+        """Directly set fitted source parameters (regridding on a new center)."""
+        if amplitude_center_pix is not None:
+            amplitude_center_pix = np.array(amplitude_center_pix)
+            current = np.array(
+                [np.argmin(np.abs(self.grid[0][0, :])), np.argmin(np.abs(self.grid[1][:, 0]))]
+            )
+            dcenter = current - amplitude_center_pix
+            self.grid[0] += dcenter[0] * self.pitch[0]
+            self.grid[1] += dcenter[1] * self.pitch[1]
+            self.source["amplitude_center_pix"] = amplitude_center_pix
+
+        if amplitude_radius is not None:
+            self.source["amplitude_radius"] = float(amplitude_radius)
+        if amplitude_extent is not None:
+            self.source["amplitude_extent"] = np.array(amplitude_extent)
+        if amplitude_extent_radius is not None:
+            self.source["amplitude_extent_radius"] = float(amplitude_extent_radius)
+        return self.source
+
+    def get_source_radius(self):
+        """Source 1/e amplitude radius in normalized units."""
+        self.fit_source_amplitude(force=False)
+        return self.source["amplitude_radius"]
+
+    def get_source_center(self):
+        """Source center pixel."""
+        self.fit_source_amplitude(force=False)
+        return self.source["amplitude_center_pix"]
+
+    def plot_source(self, source=None, sim=False, power=False):
+        """
+        Plot the source phase and amplitude (or power) distributions,
+        plus — for measured sources carrying a wavefront-calibration
+        fit — the r² goodness-of-fit map with the ``r2_threshold``
+        contour overlaid on every panel (the fit-quality boundary of
+        the usable correction).
+        """
+        import matplotlib.pyplot as plt
+        from mpl_toolkits.axes_grid1 import make_axes_locatable
+
+        if source is None:
+            source = self.source
+        suffix = "_sim" if sim else ""
+        if ("amplitude" + suffix) not in source or ("phase" + suffix) not in source:
+            raise RuntimeError(
+                "amplitude/phase keywords missing from slm.source. Run "
+                "wavefront calibration or set_source_analytic()."
+            )
+
+        plot_r2 = not sim and "r2" in source
+        r2_full_shape = plot_r2 and (
+            np.shape(source["r2"]) == tuple(self.shape)
+        )
+        plot_contour = r2_full_shape and "r2_threshold" in source
+
+        def r2_contour(ax):
+            if plot_contour:
+                ax.contour(
+                    source["r2"], levels=[float(source["r2_threshold"])],
+                    colors="red", linewidths=1,
+                )
+
+        fig, axs = plt.subplots(1, 3 if plot_r2 else 2, figsize=(10, 6))
+
+        im = axs[0].imshow(
+            np.mod(source["phase" + suffix], 2 * np.pi),
+            cmap="twilight", vmin=0, vmax=2 * np.pi, interpolation="none",
+        )
+        r2_contour(axs[0])
+        axs[0].set_title("Simulated Source Phase" if sim else "Source Phase")
+        cax = make_axes_locatable(axs[0]).append_axes("right", size="5%", pad=0.05)
+        plt.colorbar(im, cax=cax)
+
+        data = source["amplitude" + suffix]
+        im = axs[1].imshow(np.square(data) if power else data, clim=(0, 1))
+        r2_contour(axs[1])
+        kind = "Power" if power else "Amplitude"
+        axs[1].set_title(f"Simulated Source {kind}" if sim else f"Source {kind}")
+        cax = make_axes_locatable(axs[1]).append_axes("right", size="5%", pad=0.05)
+        plt.colorbar(im, cax=cax)
+
+        if plot_r2:
+            im = axs[2].imshow(source["r2"], clim=(0, 1))
+            r2_contour(axs[2])
+            axs[2].set_title("Cal Fitting $R^2$")
+            unit = "pix" if r2_full_shape else "superpix"
+            axs[2].set_xlabel(f"SLM $x$ [{unit}]")
+            axs[2].set_ylabel(f"SLM $y$ [{unit}]")
+
+        for ax in axs[:2]:
+            ax.set_xlabel("SLM $x$ [pix]")
+            ax.set_ylabel("SLM $y$ [pix]")
+
+        plt.show()
+        return axs
+
+    def test(self):
+        """Exercise core SLM methods; benchmark the write path."""
+        print(f"Testing SLM: {self.name}")
+
+        n_iter = 20
+        phase = np.random.rand(n_iter, *self.shape) * 2 * np.pi
+        t0 = time.time()
+        for i in range(n_iter):
+            self.set_phase(phase[i], phase_correct=False)
+        elapsed = time.time() - t0
+        print(f"  set_phase benchmark: {n_iter / elapsed:.1f} Hz "
+              f"({elapsed / n_iter * 1e3:.2f} ms/frame)")
+
+        for setter in (self.set_input_trigger, self.set_output_trigger):
+            for val in (True, False):
+                try:
+                    setter(val)
+                except NotImplementedError:
+                    pass
+
+        return True
+
+    def get_point_spread_function_knm(self, padded_shape=None, device=None):
+        """The expected diffraction-limited point spread function: the
+        magnitude of the centered ortho FFT of the source amplitude, padded
+        to ``padded_shape``, as a float32 tensor on ``device`` (None: the
+        port's default device)."""
+        import torch
+
+        from slmsuite_torch import resolve_device
+
+        nearfield = torch.as_tensor(
+            np.fft.fftshift(toolbox.pad(self._get_source_amplitude(), padded_shape)),
+            dtype=torch.float32, device=resolve_device(device),
+        )
+        return torch.abs(torch.fft.fftshift(torch.fft.fft2(nearfield, norm="ortho")))

@@ -1168,6 +1168,127 @@ class Hologram(_HologramStats):
             stat_groups = [g for g in stat_groups if g != "computational"]
         super()._populate_stats(stats, stat_groups)
 
+    def _remove_vortices(self):
+        """Remove farfield phase vortices where the target is positive."""
+        if self.phase_ff is not None:
+            cleaned = analysis.image_remove_vortices(
+                self.phase_ff.copy(), np.nan_to_num(np.asarray(self.target)) > 0
+            )
+            self.phase_ff = cleaned
+
+    # ------------------------------------------------------------------
+    # Memory (slmsuite_tpu _hologram.py:729-800, 1452-1474). The live-set
+    # model is the JAX package's, so that an explicit budget gives its
+    # answer; the budget itself is read from the CUDA device.
+    # ------------------------------------------------------------------
+
+    #: Planes of the scanned step's live set, by path (the JAX package's
+    #: model: carry, weights, target, phase store, stats mask, the step's
+    #: outputs and workspace; the natural path adds the farfield planes).
+    _STEP_LIVE_PLANES = {"fused": 14, "natural": 22}
+
+    #: Multiplicative slack for allocator fragmentation.
+    _HBM_SLACK = 1.25
+
+    def _calculate_memory_constrained_shape(self, device=0, dtype=None, budget=None,
+                                            path="fused"):
+        """
+        Largest square computational side :math:`N` whose step's live set
+        (:attr:`_STEP_LIVE_PLANES` planes of ``dtype``, times
+        :attr:`_HBM_SLACK`) fits in ``budget`` bytes; ``budget=None`` reads
+        the device's limit (:meth:`get_mempool_limit`, from
+        ``torch.cuda.mem_get_info``). ``path`` is ``"fused"`` or
+        ``"natural"``. Returns the side as a float.
+        """
+        if dtype is None:
+            dtype = self.dtype
+        return Hologram._memory_constrained_side(budget, device=device, dtype=dtype, path=path)
+
+    @staticmethod
+    def _memory_constrained_side(budget, device=0, dtype=np.float32, path="fused"):
+        """Core of :meth:`_calculate_memory_constrained_shape` (shared with
+        the instance-free :meth:`suggest_memory_strategy`)."""
+        if budget is None:
+            budget = Hologram.get_mempool_limit(device=device)
+        if budget is None or budget <= 0:
+            raise RuntimeError(
+                "No device memory budget available; pass budget= explicitly "
+                "(e.g. 80e9 for an H100)."
+            )
+        planes = Hologram._STEP_LIVE_PLANES[path]
+        bytes_per_value = np.dtype(dtype).itemsize
+        values_per_plane = budget / (planes * bytes_per_value * Hologram._HBM_SLACK)
+        return float(np.sqrt(values_per_plane))
+
+    @staticmethod
+    def suggest_memory_strategy(shape, budget=None, device=0, dtype=np.float32, spots=False):
+        """
+        Sizing advice for a computational ``shape`` against a device memory
+        ``budget`` in bytes (None: the device's, :meth:`get_mempool_limit`):
+        whether one device's engine fits, the largest side that would, and
+        above the budget which path to take (the row-sharded plane of
+        :mod:`slmsuite_torch.parallel.plane` for images; the grid-free
+        :class:`CompressedSpotHologram` for spots). Returns ``{"shape",
+        "max_side", "fits", "recommendation", "budget"}``.
+        """
+        max_side = Hologram._memory_constrained_side(budget, device=device, dtype=dtype)
+        side = int(np.max(shape) if not np.isscalar(shape) else shape)
+        fits = side <= max_side
+        if fits:
+            recommendation = "single-chip"
+        elif spots:
+            recommendation = "compressed"
+        else:
+            recommendation = "shard-plane"
+        return {
+            "shape": (side, side),
+            "max_side": max_side,
+            "fits": fits,
+            "recommendation": recommendation,
+            "budget": budget,
+        }
+
+    #: The fraction of each CUDA device's memory this process may allocate,
+    #: as :meth:`set_mempool_limit` last set it (1 where it was not set).
+    _mempool_fraction = {}
+
+    @staticmethod
+    def _cuda_index(device):
+        device = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
+        return torch.cuda.current_device() if device.index is None else device.index
+
+    @staticmethod
+    def set_mempool_limit(device=0, size=None, fraction=None):
+        """
+        Limit the memory PyTorch's caching allocator may take on a CUDA
+        ``device`` to ``size`` bytes or a ``fraction`` of the device
+        (``torch.cuda.set_per_process_memory_fraction``: upstream's trim of
+        the GPU memory pool). Warns and does nothing without a CUDA device.
+        """
+        if not torch.cuda.is_available():
+            warnings.warn("set_mempool_limit: no CUDA device; nothing to limit.")
+            return
+        index = Hologram._cuda_index(device)
+        if fraction is None:
+            if size is None:
+                fraction = 1.0
+            else:
+                fraction = float(size) / torch.cuda.mem_get_info(index)[1]
+        fraction = float(np.clip(fraction, 0.0, 1.0))
+        torch.cuda.set_per_process_memory_fraction(fraction, index)
+        Hologram._mempool_fraction[index] = fraction
+
+    @staticmethod
+    def get_mempool_limit(device=0):
+        """The bytes this process may allocate on a CUDA ``device``: the
+        device's memory (``torch.cuda.mem_get_info``) times the fraction
+        :meth:`set_mempool_limit` set; -1 without a CUDA device."""
+        if not torch.cuda.is_available():
+            return -1
+        index = Hologram._cuda_index(device)
+        total = torch.cuda.mem_get_info(index)[1]
+        return int(total * Hologram._mempool_fraction.get(index, 1.0))
+
     @staticmethod
     def _norm(matrix):
         r"""Root of sum of squares :math:`\sqrt{\iint |E|^2}`."""

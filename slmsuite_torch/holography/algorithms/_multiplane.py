@@ -193,6 +193,18 @@ class MultiplaneHologram(Hologram):
         for h in self.holograms:
             h._update_stats(stat_groups)
 
+    def plot_farfield(self, *args, **kwargs):
+        for h in self.holograms:
+            h.plot_farfield(*args, **kwargs)
+
+    def plot_stats(self, *args, **kwargs):
+        for h in self.holograms:
+            h.plot_stats(*args, **kwargs)
+
+    def remove_vortices(self):
+        for h in self.holograms:
+            h.remove_vortices()
+
     # ------------------------------------------------------------------
     # Optimization.
     # ------------------------------------------------------------------

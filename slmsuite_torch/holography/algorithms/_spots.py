@@ -41,6 +41,7 @@ from slmsuite_torch.holography.algorithms._feedback import FeedbackHologram
 from slmsuite_torch.holography.algorithms._hologram import Hologram, _default_cg_loss
 from slmsuite_torch.holography.toolbox import REAL_TYPES, format_2vectors
 from slmsuite_torch.holography.toolbox import phase as _tphase
+from slmsuite_torch.misc.host import as_numpy
 from slmsuite_torch.ops import compressed as _comp
 from slmsuite_torch.ops import engine as _engine
 from slmsuite_torch.ops import grad as _grad
@@ -232,17 +233,12 @@ class _AbstractSpotHologram(FeedbackHologram):
         ``"kxy"`` or ``"knm"``, which resets the weights of a
         :class:`SpotHologram` and moves the tilt and focus coefficients of
         a :class:`CompressedSpotHologram`) or the camera windows
-        (``"ij"``); None shifts nothing. ``plot`` is not ported (item 12).
-        Returns the ``(2, N)`` shifts in camera pixels.
+        (``"ij"``); None shifts nothing. ``plot`` shows the image with the
+        refined positions. Returns the ``(2, N)`` shifts in camera pixels.
         """
         if self.spot_integration_width_ij is None:
             raise ValueError(
                 "hologram.spot_integration_width_ij must be set to use refine_offset()."
-            )
-        if plot:
-            raise NotImplementedError(
-                "refine_offset(plot=True): the plots are not ported yet "
-                "(ROADMAP.md queue 1, item 12)."
             )
 
         if img is None:
@@ -262,6 +258,15 @@ class _AbstractSpotHologram(FeedbackHologram):
             shift_vectors = (
                 affine["M"] @ self.spot_ij[[0, 1]] + affine["b"]
             ) - self.spot_ij[[0, 1]]
+
+        if plot:
+            import matplotlib.pyplot as plt
+
+            plt.imshow(as_numpy(img))
+            sv = self.spot_ij[[0, 1]] + shift_vectors
+            plt.scatter(sv[0, :], sv[1, :], s=200, fc="none", ec="r")
+            plt.title("Refine Offset")
+            plt.show()
 
         if basis is None:
             return shift_vectors
@@ -586,13 +591,9 @@ class SpotHologram(_AbstractSpotHologram):
 
     def set_target(self, new_target=None, reset_weights=False, plot=False):
         """Update the target from the current :attr:`spot_knm` positions.
-        ``plot=True`` raises: the hologram plots are not ported yet."""
-        del new_target  # The target is derived from the spot positions.
-        if plot:
-            raise NotImplementedError(
-                "set_target(plot=True): the hologram plots are not ported yet "
-                "(ROADMAP.md queue 1, item 12)."
-            )
+        ``plot`` is taken for the signature's sake and draws nothing, as in
+        the JAX package."""
+        del new_target, plot  # The target is derived from the spot positions.
         self._set_target_spots(reset_weights=reset_weights)
 
     # ------------------------------------------------------------------

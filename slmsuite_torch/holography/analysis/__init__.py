@@ -6,13 +6,17 @@ moments (the second for the quadratic initial phase of the holograms),
 image fits (:meth:`image_fit`), the phase-image operations of the
 superpixel wavefront calibration (vortices, blaze removal, wrap
 reduction), affine fitting, and the spot-lattice detection behind the
-Fourier calibration (:meth:`blob_array_detect`).
+Fourier calibration (:meth:`blob_array_detect`), and the rest of the
+module: image statistics (:meth:`image_std`, the ellipticity,
+:meth:`image_relative_strehl`), :meth:`image_zernike_fit`, and the plots
+(:meth:`take_plot`, the ``plot`` of :meth:`image_fit` and
+:meth:`image_remove_blaze`, matplotlib imported inside each).
 
 ``cv2`` is imported inside :meth:`blob_detect` and the helpers of
 :meth:`blob_array_detect` only: everything else here, and every path that
 runs on a machine without OpenCV, needs numpy and scipy alone (the
-calibrations' OpenCV image operations are in torch, in :mod:`._cv`). The
-plots of the JAX package's module are not copied.
+calibrations' OpenCV image operations are in torch, in :mod:`._cv`).
+:meth:`take` also gathers on a device, with ``xp=torch``.
 """
 
 import warnings
@@ -23,11 +27,15 @@ from scipy.ndimage import binary_erosion
 from scipy.optimize import curve_fit, minimize
 
 from slmsuite_torch.holography.analysis.fitfunctions import gaussian2d
-from slmsuite_torch.holography.toolbox import format_2vectors
+from slmsuite_torch.holography.toolbox import _process_grid, format_2vectors
+from slmsuite_torch.misc.host import as_numpy
 
 __all__ = [
     "take",
+    "take_tile",
+    "take_plot",
     "image_remove_field",
+    "image_relative_strehl",
     "image_moment",
     "image_normalization",
     "image_normalize",
@@ -35,7 +43,11 @@ __all__ = [
     "image_centroids",
     "image_variances",
     "image_areas",
+    "image_std",
+    "image_ellipticity",
+    "image_ellipticity_angle",
     "image_fit",
+    "image_zernike_fit",
     "image_vortices",
     "image_vortices_coordinates",
     "image_remove_vortices",
@@ -115,22 +127,21 @@ def take(
     return_mask : bool
         Return a boolean mask of taken pixels instead of data.
     plot : bool
-        Show the mask (with ``return_mask``).
+        Visualize with :meth:`take_plot` (the mask, with ``return_mask``).
     xp : module OR None
-        Array module of the data path: numpy (the default). The device
-        measurement of the simulated rig gathers on the card inside the
-        engine (``ops.engine.sim_measure_spots``); another module raises.
+        Array module of the data path: numpy (the default) or ``torch``,
+        which gathers on the images' device and returns tensors there
+        (``integrate`` sums in float64).
 
     Returns
     -------
-    numpy.ndarray
+    numpy.ndarray OR torch.Tensor
         ``(N, h, w)`` regions or ``(N,)`` sums.
     """
-    if xp is not None and xp is not np:
-        raise NotImplementedError(
-            f"take(xp={getattr(xp, '__name__', xp)}) takes numpy only; other array "
-            "modules are not ported yet (ROADMAP.md queue 1, item 12)."
-        )
+    if xp is None:
+        xp = np
+    if xp is not np and getattr(xp, "__name__", None) != "torch":
+        raise ValueError(f"take(xp=...) takes numpy or torch, not {getattr(xp, '__name__', xp)}.")
     if np.isscalar(size):
         size = (int(size), int(size))
     else:
@@ -147,7 +158,7 @@ def take(
     integration_x = region_x.ravel()[np.newaxis, :] + vectors[0][:, np.newaxis]
     integration_y = region_y.ravel()[np.newaxis, :] + vectors[1][:, np.newaxis]
 
-    images = np.asarray(images)
+    images = np.asarray(images) if xp is np else xp.as_tensor(images)
     shape = images.shape
 
     if clip:
@@ -173,22 +184,34 @@ def take(
             plt.show()
         return canvas
 
+    if xp is not np:
+        integration_x = xp.as_tensor(integration_x, device=images.device)
+        integration_y = xp.as_tensor(integration_y, device=images.device)
     if len(shape) == 2:
-        result = images[np.newaxis, integration_y, integration_x]
+        result = images[None, integration_y, integration_x]
     elif len(shape) == 3:
         result = images[:, integration_y, integration_x]
     else:
         raise RuntimeError(f"Unexpected shape for images: {shape}")
 
     if clip:
-        if np.issubdtype(result.dtype, np.floating):
-            result[:, oob] = np.nan
+        if xp is np:
+            if np.issubdtype(result.dtype, np.floating):
+                result[:, oob] = np.nan
+            else:
+                result[:, oob] = 0
         else:
-            result[:, oob] = 0
+            fill = float("nan") if result.is_floating_point() else 0
+            result = xp.where(xp.as_tensor(oob, device=result.device)[None], fill, result)
+
+    if plot:
+        take_plot(as_numpy(result).reshape((-1, vectors.shape[1], size[1], size[0]))[0])
 
     if integrate:
-        return np.squeeze(np.sum(result.astype(float), axis=-1))
-    return np.reshape(result, (vectors.shape[1], size[1], size[0]))
+        if xp is np:
+            return np.squeeze(np.sum(result.astype(float), axis=-1))
+        return xp.squeeze(xp.sum(result.to(xp.float64), dim=-1))
+    return result.reshape((vectors.shape[1], size[1], size[0]))
 
 
 def image_remove_field(images, deviations=1, out=None):
@@ -367,27 +390,27 @@ def image_areas(variances):
 
 def image_fit(images, grid=None, function=gaussian2d, guess=None, plot=False):
     """
-    Fit each image of a stack to a 2D ``function`` with
-    :meth:`scipy.optimize.curve_fit` (nan pixels left out), guessing from
-    the moments for
+    Fit each image in a stack to a 2D ``function`` with
+    :meth:`scipy.optimize.curve_fit`, auto-guessing from moments for
     :meth:`~slmsuite_torch.holography.analysis.fitfunctions.gaussian2d`.
-    Returns ``(image_count, 1 + 2 * param_count)``: rows of ``[rsquared,
-    *params, *param_errors]``, a failed fit with nan rsquared.
-    ``plot=True`` is not ported (ROADMAP.md queue 1, item 12).
+
+    Returns
+    -------
+    numpy.ndarray of shape ``(image_count, 1 + 2 * param_count)``
+        Rows are ``[rsquared, *params, *param_errors]``; failed fits have
+        ``nan`` rsquared.
     """
-    if plot:
-        raise NotImplementedError(
-            "image_fit(plot=True): the plots are not ported yet (ROADMAP.md queue 1, item 12)."
-        )
     images, _ = _ensure_stack(images)
     image_count, w_y, w_x = images.shape
+    img_shape = (w_y, w_x)
 
     if grid is None:
         grid = _generate_grid(w_x, w_y, centered=True)
     grid_ravel = (np.ravel(grid[0]), np.ravel(grid[1]))
 
     param_count = function.__code__.co_argcount - 1
-    result = np.full((image_count, 2 * param_count + 1), np.nan)
+    result_count = 2 * param_count + 1
+    result = np.full((image_count, result_count), np.nan)
 
     if guess is None or guess is True:
         if function is gaussian2d:
@@ -441,6 +464,16 @@ def image_fit(images, grid=None, function=gaussian2d, guess=None, plot=False):
         result[idx, 1 : param_count + 1] = popt
         result[idx, param_count + 1 :] = perr
 
+        if plot:
+            import matplotlib.pyplot as plt
+
+            fig, axs = plt.subplots(1, 2, figsize=(12, 5))
+            axs[0].imshow(images[idx])
+            axs[0].set_title("Data")
+            axs[1].imshow(np.reshape(function(grid_ravel, *popt), img_shape))
+            axs[1].set_title("Fit")
+            plt.show()
+
     return result
 
 
@@ -488,15 +521,9 @@ def image_remove_vortices(phase_image, mask=None, return_vortices_negative=False
 
 def image_remove_blaze(phase_image, mask=None, plot=False):
     """
-    Remove the mean phase gradient (the global blaze) of a wrapped phase
-    image, weighted by ``mask`` (the amplitude image, say) when given.
-    ``plot=True`` is not ported (ROADMAP.md queue 1, item 12).
+    Remove the mean phase gradient (global blaze) from a wrapped phase image,
+    optionally weighted by ``mask`` (e.g. the amplitude image).
     """
-    if plot:
-        raise NotImplementedError(
-            "image_remove_blaze(plot=True): the plots are not ported yet "
-            "(ROADMAP.md queue 1, item 12)."
-        )
     phase = np.mod(phase_image, 2 * np.pi)
 
     dx = np.mod(np.gradient(phase, axis=1) + np.pi / 2, np.pi) - np.pi / 2
@@ -509,7 +536,20 @@ def image_remove_blaze(phase_image, mask=None, plot=False):
         dy_mean = np.nansum(dy * mask) / np.nansum(mask)
 
     X, Y = np.meshgrid(np.arange(phase.shape[1]), np.arange(phase.shape[0]))
-    return np.mod(phase - dx_mean * X - dy_mean * Y, 2 * np.pi)
+    result = np.mod(phase - dx_mean * X - dy_mean * Y, 2 * np.pi)
+
+    if plot:
+        import matplotlib.pyplot as plt
+
+        fig, axs = plt.subplots(1, 4, figsize=(20, 5))
+        for ax, (img, title) in zip(
+            axs, [(phase, "phase"), (dx, "dx"), (dy, "dy"), (result, "removed")]
+        ):
+            ax.imshow(img)
+            ax.set_title(title)
+        plt.show()
+
+    return result
 
 
 def image_blaze_remove(**kwargs):
@@ -1095,3 +1135,163 @@ def get_orientation_transformation(rot="0", fliplr=False, flipud=False):
         transforms.append(lambda img: np.rot90(img, 3))
 
     return reduce(lambda f, g: lambda x: f(g(x)), transforms, lambda x: x)
+
+
+def _take_parse_shape(images, shape=None):
+    """Resolve the tiling grid shape for a stack of images."""
+    img_count = np.shape(images)[0]
+    if shape is None:
+        M = N = int(np.ceil(np.sqrt(img_count)))
+    else:
+        M, N = shape
+    if M * N < img_count:
+        warnings.warn("Not enough space to fit all images. Truncating the image count.")
+        img_count = M * N
+    return img_count, (M, N)
+
+
+
+def take_tile(images, shape=None):
+    """Tile a stack of images into one mosaic image of grid ``shape``."""
+    img_count, sy, sx = np.shape(images)
+    img_count, (M, N) = _take_parse_shape(images, shape)
+
+    result = np.zeros((M * N, sy, sx), np.asarray(images).dtype)
+    result[:img_count] = images[:img_count]
+    return result.reshape(M, N, sy, sx).transpose(0, 2, 1, 3).reshape(M * sy, N * sx)
+
+
+
+def take_plot(images, shape=None, separate_axes=False, cbar=True):
+    """Plot a stack of :meth:`take` regions (tiled or as subplots)."""
+    import matplotlib.pyplot as plt
+    from mpl_toolkits.axes_grid1 import make_axes_locatable
+
+    img_count, sy, sx = np.shape(images)
+    img_count, (M, N) = _take_parse_shape(images, shape)
+
+    if separate_axes:
+        vmin, vmax = np.nanmin(images), np.nanmax(images)
+        plt.figure(figsize=(12, 12))
+        for i in range(img_count):
+            ax = plt.subplot(M, M, i + 1)
+            ax.imshow(images[i], vmin=vmin, vmax=vmax, interpolation="none")
+            ax.axis("off")
+    else:
+        im = plt.imshow(take_tile(images, shape), interpolation="none")
+        ax = plt.gca()
+        ax.axis("off")
+        for x in range(1, N):
+            ax.axvline(x=sx * x, color="r", linewidth=0.5)
+        for y in range(1, M):
+            ax.axhline(y=sy * y, color="r", linewidth=0.5)
+        if cbar:
+            cax = make_axes_locatable(ax).append_axes("right", size="2%", pad=0.05)
+            plt.gcf().colorbar(im, cax=cax, orientation="vertical")
+            plt.sca(ax)
+
+
+
+def image_relative_strehl(images):
+    r"""Relative Strehl metric :math:`S = \max I / \sum I` per image; shape ``(N,)``."""
+    images, _ = _ensure_stack(images)
+    return np.amax(images, axis=(1, 2)) / np.sum(images, axis=(1, 2))
+
+
+
+def image_std(images, centers=None, grid=None, normalize=True, nansum=False):
+    """Standard deviations (sqrt of variances, shear excluded); shape ``(2, N)``."""
+    return np.sqrt(
+        image_variances(images, centers, grid, normalize, nansum, exclude_shear=True)
+    )
+
+
+
+def _variance_eigenvalues(variances):
+    """Eigenvalues of the 2x2 moment matrices; returns (eig_plus, eig_minus)."""
+    m20, m02, m11 = variances[0, :], variances[1, :], variances[2, :]
+    half_trace = (m20 + m02) / 2
+    determinant = m20 * m02 - m11 * m11
+    eig_half_difference = np.sqrt(np.square(half_trace) - determinant)
+    return half_trace + eig_half_difference, half_trace - eig_half_difference
+
+
+
+def image_ellipticity(variances):
+    r"""
+    Ellipticity metric :math:`1 - \lambda_-/\lambda_+` from the output of
+    :meth:`image_variances`; 0 for circular, 1 for a line.
+    """
+    eig_plus, eig_minus = _variance_eigenvalues(variances)
+    return 1 - (eig_minus / eig_plus)
+
+
+
+def image_ellipticity_angle(variances):
+    r"""Angle between the x axis and the major (large-eigenvalue) axis."""
+    m02, m11 = variances[1, :], variances[2, :]
+    eig_plus, _ = _variance_eigenvalues(variances)
+    return np.arctan2(eig_plus - m02, m11, where=m11 != 0, out=np.zeros_like(m11))
+
+
+
+def image_zernike_fit(phase_images, grid, order=10, iterations=2, leastsquares=True, unwrap=False, **kwargs):
+    """
+    Fit Zernike coefficients (up to radial ``order``, piston omitted) to a
+    stack of phase images: iterative overlap subtraction, then optional
+    least-squares refinement.
+
+    Note: phase unwrapping (``unwrap=True``) requires scikit-image, which is
+    optional; the reference behaves identically (``analysis/__init__.py:1127``).
+    """
+    from slmsuite_torch.holography.toolbox.phase import zernike_sum
+
+    phase_images = np.asarray(phase_images)
+    if phase_images.ndim == 2:
+        phase_images = phase_images.reshape((1, *phase_images.shape))
+    image_count = phase_images.shape[0]
+
+    if unwrap:
+        try:
+            from skimage.restoration import unwrap_phase
+        except ImportError:
+            raise ImportError("Phase unwrapping requires scikit-image.")
+        phase_images = np.stack([unwrap_phase(im) for im in phase_images])
+
+    order = int(order + 1)
+    indices_ansi = np.arange((order * (order + 1)) // 2)
+    D = len(indices_ansi)
+    phases = zernike_sum(grid, indices_ansi, np.eye(D), use_mask=True, **kwargs)
+    norm = np.reciprocal(np.nansum(np.square(phases), (1, 2)))
+
+    vectors_zernike = np.zeros((D, image_count))
+    remainders = np.copy(phase_images).astype(float)
+
+    for _ in range(int(iterations)):
+        for i in range(D):
+            overlap = np.nansum(remainders * phases[[i]] * norm[i], axis=(1, 2))
+            vectors_zernike[i, :] += overlap
+            remainders -= overlap[:, np.newaxis, np.newaxis] * phases[[i]]
+
+    if leastsquares:
+        grid_xy = _process_grid(grid)
+        grid_ravel = (np.ravel(grid_xy[0]), np.ravel(grid_xy[1]))
+
+        for j in range(image_count):
+
+            def zsum(g, *p):
+                return zernike_sum(
+                    grid, indices_ansi, np.reshape(p, (D, 1)), use_mask=True, **kwargs
+                ).ravel()
+
+            try:
+                popt, _ = curve_fit(
+                    zsum, grid_ravel, phase_images[j].ravel(), ftol=1e-5,
+                    p0=vectors_zernike[:, j],
+                )
+                vectors_zernike[:, j] = popt
+            except RuntimeError:
+                pass
+
+    return vectors_zernike[1:, :]
+

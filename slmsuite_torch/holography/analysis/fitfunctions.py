@@ -1,14 +1,27 @@
 r"""
-Fit functions (the port's copy of those it uses from
-:mod:`slmsuite_tpu.holography.analysis.fitfunctions`: the source profiles,
-the calibrations' fringe, focus and settle models). Each takes the
+Fit functions (the port's copy of
+:mod:`slmsuite_tpu.holography.analysis.fitfunctions`: lines, parabolas,
+the beam-waist hyperbola, the source profiles, the calibrations' fringe,
+focus and settle models). Each takes the
 independent variable(s) ``x`` or ``(x, y)`` first, then its parameters,
 as :meth:`scipy.optimize.curve_fit` calls them.
 """
 
 import numpy as np
+from scipy.special import factorial
 
-__all__ = ["cos", "lorentzian", "gaussian2d", "tophat2d", "sinc2d", "exponential_jump"]
+__all__ = [
+    "linear",
+    "parabola",
+    "hyperbola",
+    "cos",
+    "lorentzian",
+    "gaussian",
+    "gaussian2d",
+    "tophat2d",
+    "sinc2d",
+    "exponential_jump",
+]
 
 
 def cos(x, b, a, c, k=1):
@@ -88,3 +101,95 @@ def exponential_jump(x, x0, a, b, c):
     :math:`y = c + a(1 - e^{-(x - x_0)/b})`.
     """
     return np.where(x < x0, c, c + a * (1 - np.exp(-(x - x0) / np.abs(b))))
+
+
+def linear(x, m, b):
+    r""":math:`y = mx + b`."""
+    return m * x + b
+
+
+
+def parabola(x, a, x0, y0):
+    r""":math:`y = a(x - x_0)^2 + y_0`."""
+    return a * np.square(x - x0) + y0
+
+
+
+def hyperbola(z, w0, z0, zr):
+    r"""
+    Gaussian-beam-waist hyperbola
+    :math:`w(z) = w_0\sqrt{1 + ((z - z_0)/z_R)^2}`.
+    """
+    return w0 * np.sqrt(1 + np.square((z - z0) / zr))
+
+
+
+def gaussian(x, x0, a, c, w):
+    r""":math:`y = c + a\exp[-(x - x_0)^2/2w^2]`."""
+    return c + a * np.exp(-0.5 * np.square((x - x0) / w))
+
+
+
+def _sinc_taylor(x, order=12):
+    """Taylor-series sinc (numpy normalization); good to the second zero at order 12."""
+    squared = np.square(np.pi * x)
+    monomial = squared.copy()
+    result = 1
+    for n in range(2, order + 2, 2):
+        if n != 2:
+            monomial = monomial * squared
+        result = result + monomial * ((-1 if n % 4 == 2 else 1) / factorial(n + 1))
+    return result
+
+
+
+def _sinc2d_nomod_taylor(xy, x0, y0, R, a=1, d=0):
+    r"""Unmodulated rectangular sinc² using the Taylor approximation (smooth for fits)."""
+    return (
+        a
+        * np.square(
+            _sinc_taylor((1 / R) * (xy[0] - x0)) * _sinc_taylor((1 / R) * (xy[1] - y0))
+        )
+        + d
+    )
+
+
+
+def _sinc2d_centered_taylor(xy, R, a=1, b=0, c=0, d=0, kx=0, ky=0):
+    r"""Taylor variant of :meth:`_sinc2d_centered`."""
+    sinc_term = np.square(_sinc_taylor((1 / R) * xy[0]) * _sinc_taylor((1 / R) * xy[1]))
+    return sinc_term * (a * 0.5 * (1 + np.cos(kx * xy[0] + ky * xy[1] - b)) + c) + d
+
+
+
+def _sinc2d_centered_jacobian(xy, R, a=1, b=0, c=0, d=0, kx=0, ky=0):
+    r"""
+    Analytic Jacobian of :meth:`_sinc2d_centered` with respect to
+    ``(R, a, b, c, d, kx, ky)``, shape ``(npoints, 7)`` — usable as the
+    ``jac`` argument of ``scipy.optimize.curve_fit`` for the superpixel
+    fringe fit (ref ``fitfunctions.py:509-541``; unused by ``image_fit``
+    in both packages).
+    """
+    scx = np.sinc((1 / R) * xy[0])
+    scy = np.sinc((1 / R) * xy[1])
+    cx = np.cos((np.pi / R) * xy[0])
+    cy = np.cos((np.pi / R) * xy[1])
+    sinc_term = np.square(scx * scy)
+    phase = kx * xy[0] + ky * xy[1] - b
+    cos_term = 0.5 * (1 + np.cos(phase))
+    dcos_term = -0.5 * np.sin(phase)
+    # d/dR of sinc(x/R)^2 = (2/R) sinc(x/R) (sinc(x/R) - cos(pi x/R));
+    # the product rule couples the x and y factors.
+    dsinc_dR = (2 / R) * scx * scy * (
+        scx * (scy - cy) + scy * (scx - cx)
+    )
+    return np.vstack((
+        dsinc_dR * (a * cos_term + c),                  # R
+        sinc_term * cos_term,                           # a
+        -sinc_term * a * dcos_term,                     # b
+        sinc_term,                                      # c
+        np.full_like(np.asarray(xy[0], dtype=float), 1.0),  # d
+        xy[0] * sinc_term * a * dcos_term,              # kx
+        xy[1] * sinc_term * a * dcos_term,              # ky
+    )).T
+

@@ -11,7 +11,7 @@ Fourier-calibrated CameraSLM as ``hardware``; without one
 import warnings
 
 import numpy as np
-from scipy.spatial import distance
+from scipy.spatial import Voronoi, distance, voronoi_plot_2d
 
 from slmsuite_torch.misc.math import INTEGER_TYPES, REAL_TYPES
 
@@ -20,6 +20,30 @@ LENGTH_FACTORS = {"m": 1e6, "cm": 1e4, "mm": 1e3, "um": 1.0, "nm": 1e-3}
 
 #: Camera-plane units: pixels and (magnified) lengths.
 CAMERA_UNITS = ["ij"] + [p + k for p in ("", "mag_") for k in LENGTH_FACTORS]
+
+#: Axis label of each length unit.
+LENGTH_LABELS = {k: k for k in LENGTH_FACTORS}
+LENGTH_LABELS["um"] = r"$\mu$m"
+
+#: Axis labels of each unit, for plots.
+BLAZE_LABELS = {
+    "rad": (r"$\theta_x$ [rad]", r"$\theta_y$ [rad]"),
+    "mrad": (r"$\theta_x$ [mrad]", r"$\theta_y$ [mrad]"),
+    "deg": (r"$\theta_x$ [$^\circ$]", r"$\theta_y$ [$^\circ$]"),
+    "norm": (r"$k_x/k$", r"$k_y/k$"),
+    "kxy": (r"$k_x/k$", r"$k_y/k$"),
+    "knm": (r"$k_n$ [pix]", r"$k_m$ [pix]"),
+    "freq": (r"$f_x$ [1/pix]", r"$f_y$ [1/pix]"),
+    "lpmm": (r"$k_x/2\pi$ [1/mm]", r"$k_y/2\pi$ [1/mm]"),
+    "zernike": (
+        r"$x = Z_2 = Z_1^1$ [Zernike rad]",
+        r"$y = Z_1 = Z_1^{-1}$ [Zernike rad]",
+    ),
+    "ij": (r"Camera $i$ [pix]", r"Camera $j$ [pix]"),
+}
+for _prefix, _name in zip(["", "mag_"], ["Camera", "Experiment"]):
+    for _k, _u in LENGTH_LABELS.items():
+        BLAZE_LABELS[_prefix + _k] = (f"{_name} $x$ [{_u}]", f"{_name} $y$ [{_u}]")
 
 #: Every unit :meth:`convert_vector` takes.
 BLAZE_UNITS = ["rad", "mrad", "deg", "norm", "kxy", "knm", "freq", "lpmm",
@@ -506,3 +530,326 @@ def imprint(matrix, window, function, grid=None, imprint_operation="replace",
     else:
         raise ValueError(f"Unrecognized imprint operation '{imprint_operation}'.")
     return matrix
+
+
+def convert_blaze_vector(*args, **kwargs):
+    """Backwards-compatible alias of :meth:`convert_vector`."""
+    warnings.warn("convert_blaze_vector is deprecated; use convert_vector.")
+    if "slm" in kwargs:
+        kwargs["hardware"] = kwargs.pop("slm")
+    return convert_vector(*args, **kwargs)
+
+
+
+def convert_blaze_radius(*args, **kwargs):
+    """Backwards-compatible alias of :meth:`convert_radius`."""
+    warnings.warn("convert_blaze_radius is deprecated; use convert_radius.")
+    if "slm" in kwargs:
+        kwargs["hardware"] = kwargs.pop("slm")
+    return convert_radius(*args, **kwargs)
+
+
+
+def print_blaze_conversions(vector, from_units="norm", **kwargs):
+    """Print the given vector converted into every supported unit."""
+    for unit in BLAZE_UNITS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            result = convert_vector(vector, from_units=from_units, to_units=unit, **kwargs)
+        print(f"{unit} : {tuple(np.ravel(result))}")
+
+
+
+def window_extent(window, padding_frac=0, padding_pix=0):
+    """
+    Bounding rectangle ``(x, w, y, h)`` of the active region of a window
+    (boolean mask or ``(y_ind, x_ind)`` index arrays), optionally padded.
+    """
+    limits = []
+    for axis in (0, 1):
+        if len(window) == 2 and np.ndim(window) != 2:
+            lo, hi = np.amin(window[axis]), np.amax(window[axis]) + 1
+        elif np.ndim(window) == 2:
+            hit = np.where(np.any(window, axis=axis))[0]
+            lo, hi = np.amin(hit), np.amax(hit) + 1
+        else:
+            raise ValueError("Unrecognized format for `window`.")
+
+        padding = int(np.floor((hi - lo) * padding_frac) + padding_pix)
+        lo, hi = lo - padding, hi + padding
+        if np.ndim(window) == 2:
+            lo = np.clip(lo, 0, window.shape[1 - axis])
+            hi = np.clip(hi, 0, window.shape[1 - axis])
+        limits.append((int(lo), int(hi)))
+
+    (xl, xh), (yl, yh) = limits
+    return (xl, xh - xl, yl, yh - yl)
+
+
+
+def voronoi_windows(grid, vectors, radius=None, plot=False):
+    r"""
+    Boolean window masks for the Voronoi cells of a set of vectors
+    (cells are clipped against previously-assigned windows so pixels are
+    uniquely owned, and optionally bounded to a ``radius`` around each seed).
+
+    Parameters
+    ----------
+    grid : (array_like, array_like) OR SLM OR (int, int)
+        Normalized coordinate meshgrids, an SLM, or a plain (height, width)
+        shape (in which case ``vectors`` are in pixel units).
+    vectors : array_like
+        Seed points, cleaned with :meth:`format_2vectors`.
+    radius : float OR None
+        Optional bound on each cell's extent (pixels).
+    plot : bool
+        Plot the Voronoi diagram.
+
+    Returns
+    -------
+    list of numpy.ndarray
+        Boolean masks, one per seed.
+    """
+    import matplotlib.path as mpath
+
+    vectors = format_2vectors(vectors)
+
+    if (
+        isinstance(grid, (list, tuple))
+        and isinstance(grid[0], INTEGER_TYPES)
+        and isinstance(grid[1], INTEGER_TYPES)
+    ):
+        shape = tuple(grid)
+    else:
+        x_grid, y_grid = _process_grid(grid)
+        shape = x_grid.shape
+        # Interpolate normalized coordinates into pixel indices.
+        vectors = np.vstack(
+            (
+                np.interp(vectors[0, :], x_grid[0, :], np.arange(shape[1])),
+                np.interp(vectors[1, :], y_grid[:, 0], np.arange(shape[0])),
+            )
+        )
+
+    hsx, hsy = shape[1] / 2, shape[0] / 2
+    # Distant helper sites guarantee all central cells are bounded.
+    sites = np.concatenate(
+        (
+            vectors.T,
+            np.array(
+                [[hsx, -3 * hsy], [hsx, 5 * hsy], [-3 * hsx, hsy], [5 * hsx, hsy]]
+            ),
+        )
+    )
+    vor = Voronoi(sites)
+
+    if plot:
+        import matplotlib.pyplot as plt
+
+        voronoi_plot_2d(vor)
+        sx, sy = shape[1], shape[0]
+        plt.plot([0, sx, sx, 0, 0], [0, 0, sy, sy, 0], "r")
+        plt.xlim(-0.05 * sx, 1.05 * sx)
+        plt.ylim(1.05 * sy, -0.05 * sy)
+        plt.gca().set_aspect("equal")
+        plt.title("Voronoi Cells")
+        plt.show()
+
+    yy, xx = np.mgrid[0 : shape[0], 0 : shape[1]]
+    pixel_points = np.column_stack((xx.ravel() + 0.5, yy.ravel() + 0.5))
+
+    windows = []
+    already = np.zeros(shape, dtype=bool)
+    count = vectors.shape[1]
+    for i in range(count):
+        region = vor.regions[vor.point_region[i]]
+        poly = vor.vertices[region]
+        mask = (
+            mpath.Path(poly).contains_points(pixel_points).reshape(shape)
+            if len(poly) >= 3
+            else np.zeros(shape, dtype=bool)
+        )
+        if radius is not None and radius > 0:
+            center = vor.points[i]
+            rr = np.square(xx - center[0]) + np.square(yy - center[1])
+            mask &= rr <= radius * radius
+        mask &= ~already
+        windows.append(mask)
+        already |= mask
+
+    return windows
+
+
+
+def lloyds_algorithm(grid, vectors, iterations=10, plot=False):
+    r"""
+    Lloyd's algorithm: iteratively move each vector to the centroid of its
+    (box-clipped) Voronoi cell to promote even spacing. Vectors are in pixel
+    units of the grid shape.
+    """
+    result = np.array(format_2vectors(vectors), dtype=float, copy=True)
+
+    if isinstance(grid, (tuple, list)) and all(isinstance(g, INTEGER_TYPES) for g in grid):
+        shape = tuple(grid)
+    else:
+        x_grid, _ = _process_grid(grid)
+        shape = x_grid.shape
+    H, W = shape
+
+    def centroid(poly):
+        x, y = poly[:, 0], poly[:, 1]
+        xs, ys = np.roll(x, -1), np.roll(y, -1)
+        cross = x * ys - xs * y
+        area = 0.5 * np.sum(cross)
+        if np.isclose(area, 0):
+            return np.mean(poly, axis=0)
+        return np.array(
+            [
+                np.sum((x + xs) * cross) / (6 * area),
+                np.sum((y + ys) * cross) / (6 * area),
+            ]
+        )
+
+    def clip_box(poly):
+        # Sutherland–Hodgman against the [0,W]x[0,H] box.
+        def clip_edge(poly, inside, intersect):
+            out = []
+            prev = poly[-1]
+            for curr in poly:
+                if inside(curr):
+                    if not inside(prev):
+                        out.append(intersect(prev, curr))
+                    out.append(list(curr))
+                elif inside(prev):
+                    out.append(intersect(prev, curr))
+                prev = curr
+            return out
+
+        def cut(p1, p2, axis, value):
+            t = (value - p1[axis]) / (p2[axis] - p1[axis])
+            point = [0.0, 0.0]
+            point[axis] = value
+            point[1 - axis] = p1[1 - axis] + t * (p2[1 - axis] - p1[1 - axis])
+            return point
+
+        edges = [
+            (lambda p: p[0] >= 0, lambda a, b: cut(a, b, 0, 0.0)),
+            (lambda p: p[0] <= W, lambda a, b: cut(a, b, 0, float(W))),
+            (lambda p: p[1] >= 0, lambda a, b: cut(a, b, 1, 0.0)),
+            (lambda p: p[1] <= H, lambda a, b: cut(a, b, 1, float(H))),
+        ]
+        poly = [list(p) for p in poly]
+        for inside, intersect in edges:
+            poly = clip_edge(poly, inside, intersect)
+            if not poly:
+                break
+        return np.array(poly)
+
+    for _ in range(iterations):
+        hsx, hsy = W / 2, H / 2
+        sites = np.concatenate(
+            (
+                result.T,
+                np.array(
+                    [[hsx, -3 * hsy], [hsx, 5 * hsy], [-3 * hsx, hsy], [5 * hsx, hsy]]
+                ),
+            )
+        )
+        vor = Voronoi(sites)
+
+        if plot:
+            import matplotlib.pyplot as plt
+
+            voronoi_plot_2d(vor)
+            plt.gca().set_aspect("equal")
+            plt.show()
+
+        for i in range(result.shape[1]):
+            region = vor.regions[vor.point_region[i]]
+            if -1 in region or len(region) == 0:
+                continue
+            poly = clip_box(vor.vertices[region])
+            if len(poly) < 3:
+                continue
+            result[:, i] = centroid(poly)
+
+    return result
+
+
+
+def lloyds_points(grid, n_points, iterations=10, plot=False):
+    """
+    Lloyd's algorithm with random non-overlapping seeds;
+    see :meth:`lloyds_algorithm`.
+    """
+    if (
+        isinstance(grid, (list, tuple))
+        and isinstance(grid[0], INTEGER_TYPES)
+        and isinstance(grid[1], INTEGER_TYPES)
+    ):
+        shape = tuple(grid)
+        grids = None
+    else:
+        x_grid, y_grid = _process_grid(grid)
+        shape = x_grid.shape
+        grids = (x_grid, y_grid)
+
+    def draw():
+        return np.vstack(
+            (
+                np.random.randint(0, shape[1], n_points),
+                np.random.randint(0, shape[0], n_points),
+            )
+        )
+
+    vectors = draw()
+    while smallest_distance(vectors) < 1:
+        vectors = draw()
+
+    pixel_grid = np.meshgrid(np.arange(shape[1]), np.arange(shape[0]))
+    result = lloyds_algorithm(pixel_grid, vectors, iterations, plot)
+
+    if grids is None:
+        return result
+    idx = np.rint(result).astype(int)
+    return np.vstack(
+        (grids[0][idx[1], idx[0]], grids[1][idx[1], idx[0]])
+    )
+
+
+
+def assign_vectors(vectors, assignment_options):
+    """
+    For each vector, index of the nearest point in ``assignment_options``
+    (Euclidean metric). Shapes ``(M, N)`` and ``(M, K)`` -> ``(N,)``.
+    """
+    vectors = format_vectors(vectors)[:, np.newaxis, :]
+    options = format_vectors(assignment_options)[:, :, np.newaxis]
+    dist2 = np.sum(np.square(vectors - options), axis=0)
+    return np.argmin(dist2, axis=0)
+
+
+
+def pad(matrix, shape):
+    """
+    Center-pad ``matrix`` with zeros to ``shape`` (numpy ``(h, w)``).
+    ``shape=None`` is a no-op.
+    """
+    if shape is None:
+        return matrix
+    shape = format_shape(shape)
+
+    dh = (shape[0] - matrix.shape[0]) / 2.0
+    dw = (shape[1] - matrix.shape[1]) / 2.0
+    if dh < 0 or dw < 0:
+        raise ValueError(f"Shape {tuple(matrix.shape)} too large to pad to {shape}")
+
+    return np.pad(
+        matrix,
+        [
+            (int(np.floor(dh)), int(np.ceil(dh))),
+            (int(np.floor(dw)), int(np.ceil(dw))),
+        ],
+        mode="constant",
+    )
+

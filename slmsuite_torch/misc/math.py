@@ -13,3 +13,11 @@ FLOAT_TYPES = (float, np.floating)
 
 #: Real scalar types.
 REAL_TYPES = INTEGER_TYPES + FLOAT_TYPES
+
+#: All scalar types including complex.
+SCALAR_TYPES = REAL_TYPES + (complex, np.complexfloating)
+
+
+def iseven(x):
+    """Return ``True`` if the integer ``x`` is even."""
+    return int(x) % 2 == 0

@@ -11,7 +11,8 @@ lengths; ``fused_iter_cached`` a spot count whose shared memory fits,
 anything else, allocates its outputs and the per-block partials, launches
 on the current stream, raises if the launcher reports an error, and
 counts its call in :data:`LAUNCHES` (one per call, for the kernel and the
-fixed-order passes that finish it). ``f2n`` and ``n2f`` take any spot count and any number of
+fixed-order passes that finish it) and the bytes it declares in
+:data:`BYTES`. ``f2n`` and ``n2f`` take any spot count and any number of
 Zernike terms (past 16 their wide kernels, up to ``slm_cmp_max_terms()``,
 7,248, where eight spots' coefficients fill a block's shared memory);
 ``fused_iter`` beyond the spots of its kernel's warp (256) or the terms it
@@ -35,6 +36,18 @@ from slmsuite_torch.ops.cuda_fft import _ptr
 
 #: Calls per wrapper since the last :meth:`reset_launch_counts`.
 LAUNCHES = {"f2n": 0, "n2f": 0, "fused_iter": 0, "fused_iter_cached": 0}
+
+#: Bytes each wrapper declares for its launches since the last
+#: :meth:`reset_launch_counts`: the tensors its kernel reads, each once, and
+#: writes, each once (the stats partials left out).
+BYTES = dict.fromkeys(LAUNCHES, 0)
+
+
+def _launched(name, reads, writes):
+    """Count one launch of ``name`` and its declared bytes."""
+    LAUNCHES[name] += 1
+    BYTES[name] += sum(t.numel() * t.element_size()
+                       for t in (*reads, *writes) if t is not None)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -84,6 +97,7 @@ def reset_launch_counts():
     """Set every launch count to 0."""
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+        BYTES[key] = 0
 
 
 def _lib():
@@ -174,7 +188,7 @@ def f2n(ff_re, ff_im, coeffs, basis, amp=None):
                             _ptr(amp_plane), P, N, D, float(P ** -0.5), int(replace),
                             _ptr(nfr), _ptr(nfi), cuda_fft._stream())
     cuda_fft._raise_on(rc, "f2n")
-    LAUNCHES["f2n"] += 1
+    _launched("f2n", (ff_re, ff_im, coeffs, basis, amp_plane), (nfr, nfi))
     return nfr, nfi
 
 
@@ -195,7 +209,7 @@ def n2f(nf_re, nf_im, coeffs, basis, normalize=True):
                             float(P ** -0.5) if normalize else 1.0, int(normalize),
                             _ptr(partials), _ptr(out_re), _ptr(out_im), cuda_fft._stream())
     cuda_fft._raise_on(rc, "n2f")
-    LAUNCHES["n2f"] += 1
+    _launched("n2f", (nf_re, nf_im, coeffs, basis), (out_re, out_im))
     return out_re, out_im
 
 
@@ -221,7 +235,7 @@ def fused_iter(ff_re, ff_im, coeffs, basis, amp):
                               _ptr(amp_plane), P, N, D, _ptr(partials), _ptr(out_re),
                               _ptr(out_im), cuda_fft._stream())
     cuda_fft._raise_on(rc, "fused_iter")
-    LAUNCHES["fused_iter"] += 1
+    _launched("fused_iter", (ff_re, ff_im, coeffs, basis, amp_plane), (out_re, out_im))
     return out_re, out_im
 
 
@@ -248,6 +262,6 @@ def fused_iter_cached(ff_re, ff_im, kc, ks, amp, n_spots, n_pixels):
                                      n8, tile, _ptr(amp_plane), P, N, _ptr(partials),
                                      _ptr(out_re), _ptr(out_im), cuda_fft._stream())
     cuda_fft._raise_on(rc, "fused_iter_cached")
-    LAUNCHES["fused_iter_cached"] += 1
+    _launched("fused_iter_cached", (ff_re, ff_im, kc, ks, amp_plane), (out_re, out_im))
     return out_re, out_im
 

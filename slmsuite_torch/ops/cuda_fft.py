@@ -18,7 +18,8 @@ importing this module builds nothing. Each wrapper checks its inputs
 (CUDA, float32, contiguous, one shape, sides multiples of 8 in
 [64, 8192]) and raises on anything else, allocates its outputs, launches
 on the current stream, raises if the launcher reports an error, and
-counts its launches in :data:`LAUNCHES`.
+counts its launches in :data:`LAUNCHES` and the bytes it declares in
+:data:`BYTES` (the planes read and written).
 
 ``carry_entry``, ``cols_fwd_polar``, ``cols_wexp_inv``, ``cols_fft`` and
 ``rows_fft`` also take a ``(B, H, W)`` stack of planes (the multiplane
@@ -79,6 +80,19 @@ LAUNCHES = {
     "cols_wgs_fwd": 0,
 }
 
+#: Bytes each wrapper declares for its launches since the last
+#: :meth:`reset_launch_counts`: the planes its kernel reads, each once, and
+#: writes, each once (the rule of the kernels' bound; the twiddle tables,
+#: the scalar buffer and the stats partials are left out).
+BYTES = dict.fromkeys(LAUNCHES, 0)
+
+
+def _launched(name, reads, writes):
+    """Count one launch of ``name`` and its declared bytes."""
+    LAUNCHES[name] += 1
+    BYTES[name] += sum(t.numel() * t.element_size()
+                       for t in (*reads, *writes) if t is not None)
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "slmsuite_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -121,6 +135,7 @@ def reset_launch_counts():
     """Set every launch count to 0."""
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+        BYTES[key] = 0
 
 
 def _sources():
@@ -536,7 +551,7 @@ def carry_entry(psi, amp):
         _ptr(_twiddles(W, False, psi.device)), _stream(),
     )
     _raise_on(rc, "carry_entry")
-    LAUNCHES["carry_entry"] += 1
+    _launched("carry_entry", (psi, amp_plane), (gr, gi))
     return gr, gi
 
 
@@ -569,7 +584,7 @@ def cols_wgs_roundtrip(gr, gi, weights, target, mask, phase_ff, scal,
         _RULES[rule], int(kim), int(stats_on), _stream(),
     )
     _raise_on(rc, "cols_wgs_roundtrip")
-    LAUNCHES["cols_wgs_roundtrip"] += 1
+    _launched("cols_wgs_roundtrip", planes, (hr, hi, wout, *pff_out))
     return hr, hi, wout, pff_out if kim else None, sums, maxs
 
 
@@ -601,7 +616,7 @@ def cols_wgs_fwd(gr, gi, weights, target, mask, phase_ff, scal,
         _RULES[rule], int(kim), int(stats_on), _stream(),
     )
     _raise_on(rc, "cols_wgs_fwd")
-    LAUNCHES["cols_wgs_fwd"] += 1
+    _launched("cols_wgs_fwd", planes, (re, im, wout, pff_out))
     return re, im, wout, pff_out, sums, maxs
 
 
@@ -616,7 +631,7 @@ def rows_normfwd(hr, hi, amp):
         _stream(),
     )
     _raise_on(rc, "rows_normfwd")
-    LAUNCHES["rows_normfwd"] += 1
+    _launched("rows_normfwd", (hr, hi, amp_plane), (gr, gi))
     return gr, gi
 
 
@@ -629,7 +644,7 @@ def carry_exit(gr, gi):
         _ptr(_twiddles(W, True, gr.device)), _stream(),
     )
     _raise_on(rc, "carry_exit")
-    LAUNCHES["carry_exit"] += 1
+    _launched("carry_exit", (gr, gi), (psi,))
     return psi
 
 
@@ -666,7 +681,7 @@ def cols_mraf_fwd(gr, gi, weights, target, mask, scal, *, rule, stats_on):
         _ptr(_twiddles(H, False, gr.device)), _RULES[rule], int(stats_on), _stream(),
     )
     _raise_on(rc, "cols_mraf_fwd")
-    LAUNCHES["cols_mraf_fwd"] += 1
+    _launched("cols_mraf_fwd", planes, (fr, fi, uw))
     return fr, fi, uw, sums, maxs
 
 
@@ -696,7 +711,7 @@ def cols_mraf_mix_inv(fr, fi, uw, mcode, phase_ff, zw, sums, scal, *, kim, zero)
         H, W, _ptr(_twiddles(H, True, fr.device)), int(kim), int(zero), _stream(),
     )
     _raise_on(rc, "cols_mraf_mix_inv")
-    LAUNCHES["cols_mraf_mix_inv"] += 1
+    _launched("cols_mraf_mix_inv", planes, (hr, hi, *pff_out, zw_out))
     return hr, hi, pff_out if kim else None, zw_out
 
 
@@ -726,7 +741,7 @@ def rows_fft(xr, xi, *, inverse, scale=1.0):
         _ptr(_twiddles(W, bool(inverse), xr.device)), float(scale), _stream(),
     )
     _raise_on(rc, "rows_fft")
-    LAUNCHES["rows_fft"] += 1
+    _launched("rows_fft", (xr, xi), (yr, yi))
     return yr, yi
 
 
@@ -741,7 +756,7 @@ def cols_fft(xr, xi, *, inverse, scale=1.0):
         _ptr(_twiddles(H, bool(inverse), xr.device)), float(scale), _stream(),
     )
     _raise_on(rc, "cols_fft")
-    LAUNCHES["cols_fft"] += 1
+    _launched("cols_fft", (xr, xi), (yr, yi))
     return yr, yi
 
 
@@ -786,7 +801,7 @@ def cols_fwd_polar(xr, xi, scale):
         _ptr(_twiddles(H, False, xr.device)), float(scale), _stream(),
     )
     _raise_on(rc, "cols_fwd_polar")
-    LAUNCHES["cols_fwd_polar"] += 1
+    _launched("cols_fwd_polar", (xr, xi), (amp, theta))
     return amp, theta
 
 
@@ -800,7 +815,7 @@ def cols_wexp_inv(weights, phase):
         _ptr(_twiddles(H, True, weights.device)), _stream(),
     )
     _raise_on(rc, "cols_wexp_inv")
-    LAUNCHES["cols_wexp_inv"] += 1
+    _launched("cols_wexp_inv", (weights, phase), (yr, yi))
     return yr, yi
 
 

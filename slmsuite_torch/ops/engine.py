@@ -698,8 +698,19 @@ def _run_fused(config: GSConfig, state: GSState, consts: dict, n_iterations: int
     return state, _stack_stats(config, rows, state.weights.device)
 
 
+def _carry_runs(config: GSConfig, device):
+    """Whether a carry-mode loop runs ``config`` on ``device``: on the CPU,
+    where its plain versions stand in for the kernels, and on the card only
+    where the kernels take the plane (:meth:`slmsuite_torch.ops.fft.kernel_tier`).
+    The card's plain tier runs the natural step, as the JAX package's
+    non-kernel tier does."""
+    return _carry_active(config) and (
+        device.type == "cpu" or _fft.kernel_tier(device.type, config.shape) == "kernels"
+    )
+
+
 def _run(config: GSConfig, state: GSState, consts: dict, n_iterations: int):
-    if _carry_active(config):
+    if _carry_runs(config, state.weights.device):
         return _run_fused(config, state, consts, n_iterations)
     return _run_natural(config, state, consts, n_iterations)
 

@@ -48,12 +48,17 @@ The dispatchers (:meth:`wgs_carry_entry`, :meth:`wgs_carry_step`,
 :meth:`wgs_carry_exit`, :meth:`mraf_carry_step`, :meth:`fft2`,
 :meth:`ifft2`, :meth:`ifft2_phase`, :meth:`fft2_polar`,
 :meth:`fft2_polar_from_phase`, :meth:`wexp_ifft2`, :meth:`wexp_ifft2_phase`,
-:meth:`wgs_fused_forward`, :meth:`wgs_fused_step`, :meth:`mraf_fused_step`) take the plain versions
-for CPU tensors only. A CUDA tensor whose sides are multiples of 8 in
-[64, 8192] launches the kernels; any other CUDA shape raises
-:class:`NotImplementedError`. The row-only dispatchers (:meth:`wgs_carry_entry`,
-:meth:`wgs_carry_exit`, :meth:`rows_fft`) read only the line length, and take
-any multiple of 8 rows (a row shard of a plane, :meth:`use_row_kernels`).
+:meth:`wgs_fused_forward`, :meth:`wgs_fused_step`, :meth:`mraf_fused_step`) choose
+a tier with :meth:`kernel_tier`, from the device and the shape alone, before
+any launch. A CUDA tensor whose sides are multiples of 8 in [64, 8192]
+launches the kernels. Any other CUDA shape takes the plain versions on the
+card (the counterpart of the JAX package's einsum and ``jnp.fft`` tier for
+shapes its Pallas kernels do not take), and each such dispatch adds one to
+:data:`PLAIN_ON_DEVICE`. A CPU tensor takes the plain versions; a tensor on
+any other device raises :class:`NotImplementedError`. The row-only
+dispatchers (:meth:`wgs_carry_entry`, :meth:`wgs_carry_exit`,
+:meth:`rows_fft`) read only the line length, and take any multiple of 8
+rows (a row shard of a plane, :meth:`use_row_kernels`).
 
 :meth:`fft2`, :meth:`ifft2`, :meth:`fft2_polar`, :meth:`fft2_polar_from_phase`
 and :meth:`wexp_ifft2` also take a ``(B, H, W)`` stack of planes (the
@@ -119,38 +124,62 @@ def kernel_len_ok(n):
     return _KERNEL_MIN_LEN <= n <= _KERNEL_MAX_LEN and n % 8 == 0
 
 
-def use_kernels(x):
-    """The dispatchers' gate, decided from the device and shape alone,
-    before any launch: False for a CPU tensor (the plain versions), True
-    for a CUDA tensor whose last two sides both take the kernels. Raises
-    for any other tensor."""
-    if x.device.type == "cpu":
-        return False
-    if x.is_cuda and kernel_len_ok(x.shape[-2]) and kernel_len_ok(x.shape[-1]):
+#: Dispatches that took the plain tier on a CUDA tensor (a plane whose sides
+#: the kernels do not take). :meth:`reset_plain_count` zeroes it.
+PLAIN_ON_DEVICE = 0
+
+
+def reset_plain_count():
+    """Zero :data:`PLAIN_ON_DEVICE`."""
+    global PLAIN_ON_DEVICE
+    PLAIN_ON_DEVICE = 0
+
+
+def kernel_tier(device_type, shape, rows=False):
+    """
+    The tier a dispatcher takes, from the device type and the shape alone:
+    ``"kernels"`` for a CUDA plane whose last two sides the kernels take
+    (``rows``: whose last side they take, in a multiple of 8 rows), else
+    ``"plain"``, the plain PyTorch versions (on the CPU, or on the card for
+    the other shapes). Raises :class:`NotImplementedError` for a device
+    other than the CPU or CUDA.
+    """
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise NotImplementedError(
+            f"The transforms run on the CPU or on a CUDA device, not on {device_type}."
+        )
+    H, W = shape[-2:]
+    ok = kernel_len_ok(W) and (H % 8 == 0 if rows else kernel_len_ok(H))
+    return "kernels" if ok else "plain"
+
+
+def _takes_kernels(x, rows):
+    """Whether a dispatcher launches the kernels on ``x``; counts a plain
+    dispatch on the card in :data:`PLAIN_ON_DEVICE`."""
+    global PLAIN_ON_DEVICE
+    if kernel_tier(x.device.type, x.shape, rows) == "kernels":
         return True
-    raise NotImplementedError(
-        f"The CUDA kernels take planes whose sides are multiples of 8 in "
-        f"[{_KERNEL_MIN_LEN}, {_KERNEL_MAX_LEN}], not {tuple(x.shape)} on "
-        f"{x.device} (ROADMAP.md 'Other plane sides')."
-    )
+    if x.device.type != "cpu":
+        PLAIN_ON_DEVICE += 1
+    return False
+
+
+def use_kernels(x):
+    """The dispatchers' gate (:meth:`kernel_tier` of ``x``'s last two
+    sides): True where the kernels launch, False where the plain versions
+    run."""
+    return _takes_kernels(x, rows=False)
 
 
 def use_row_kernels(x):
     """The gate of the row-only dispatchers (:meth:`rows_fft`,
     :meth:`wgs_carry_entry`, :meth:`wgs_carry_exit`), which transform
-    lines of the last side: False for a CPU tensor, True for a CUDA tensor
-    whose last side the kernels take and whose rows (a plane's, or a row
-    shard's of one) are a multiple of 8 in number. Raises for any other
-    tensor."""
-    if x.device.type == "cpu":
-        return False
-    if x.is_cuda and kernel_len_ok(x.shape[-1]) and x.shape[-2] % 8 == 0:
-        return True
-    raise NotImplementedError(
-        f"The CUDA row kernels take rows of a length that is a multiple of 8 in "
-        f"[{_KERNEL_MIN_LEN}, {_KERNEL_MAX_LEN}], a multiple of 8 of them, not "
-        f"{tuple(x.shape)} on {x.device} (ROADMAP.md 'Other plane sides')."
-    )
+    lines of the last side: True for a CUDA tensor whose last side the
+    kernels take and whose rows (a plane's, or a row shard's of one) are a
+    multiple of 8 in number, False where the plain versions run."""
+    return _takes_kernels(x, rows=True)
 
 
 def _cuda():

@@ -165,7 +165,7 @@ def get_optimizer(name, kwargs):
     if name not in OPTIMIZERS:
         raise NotImplementedError(
             f"Optimizer '{name}' is not ported; the port has {sorted(OPTIMIZERS)} "
-            "(ROADMAP.md queue 1, item 12, 'the other optax optimizers')."
+            "(ROADMAP.md queue 1, item 12, part two, 'the other optax optimizers')."
         )
     kwargs = dict(kwargs)
     if "lr" in kwargs:

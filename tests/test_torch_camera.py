@@ -16,6 +16,8 @@ a gray level, and ``floor`` a camera count), so:
   their maximum.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -133,7 +135,8 @@ def test_take_matches_jax(kwargs):
 @pytest.mark.parametrize("integrate", [True, False])
 def test_take_takes_numpy_xp_like_jax(integrate):
     """``take(..., xp=numpy)``, the JAX package's signature, gives what the
-    default gives; another array module raises, naming item 12."""
+    default gives; ``xp=torch`` gathers the same values into a tensor on
+    the image's device (sums in float64); another module raises."""
     rng = np.random.default_rng(3)
     img = rng.uniform(0, 255, (64, 96))
     vectors = rng.uniform(8, 56, (2, 5))
@@ -141,8 +144,12 @@ def test_take_takes_numpy_xp_like_jax(integrate):
     np.testing.assert_array_equal(got, janalysis.take(img, vectors, 7, integrate=integrate,
                                                       xp=np))
     np.testing.assert_array_equal(got, tanalysis.take(img, vectors, 7, integrate=integrate))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tanalysis.take(img, vectors, 7, integrate=integrate, xp=torch)
+    on_device = tanalysis.take(torch.as_tensor(img), vectors, 7, integrate=integrate, xp=torch)
+    assert torch.is_tensor(on_device) and on_device.device == torch.device("cpu")
+    # The float64 sums run in torch's order (same values, summed otherwise).
+    np.testing.assert_allclose(on_device.numpy(), got, rtol=1e-12, atol=0)
+    with pytest.raises(ValueError, match="numpy or torch"):
+        tanalysis.take(img, vectors, 7, integrate=integrate, xp=types)
 
 
 def test_take_off_frame_raises_like_jax():

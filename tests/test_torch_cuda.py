@@ -173,32 +173,46 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 
 @pytest.mark.cuda
-def test_dispatchers_refuse_cuda_shapes_outside_the_gate(cuda):
+def test_dispatchers_take_the_plain_tier_outside_the_gate(cuda):
     """A CUDA plane whose sides the kernels do not take (100 is not a
-    multiple of 8) raises; it never falls back to the plain versions."""
+    multiple of 8; 8200, 16384 and 56 are out of range) runs the plain
+    versions on the card: the same result as the plain version, no launch,
+    and one PLAIN_ON_DEVICE count a dispatch."""
     from slmsuite_torch.ops import cuda_fft, fft
 
-    plane = torch.zeros((100, 128), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    plane = torch.rand((100, 128), device=cuda, generator=gen)
+    other = torch.rand((100, 128), device=cuda, generator=gen)
     scal = fft.pack_scalars(dict.fromkeys(fft.SCALAR_KEYS, 0.0), cuda)
     cuda_fft.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
-        fft.wgs_carry_entry(plane, 1.0)
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
-        fft.wgs_carry_exit(plane, plane)
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
-        fft.wgs_carry_step(plane, plane, 1.0, plane, None, plane, plane, scal,
-                           rule="kim", kim=False, stats_on=True)
-    for call in (lambda: fft.fft2(plane, plane), lambda: fft.ifft2(plane, plane),
-                 lambda: fft.fft2_polar(plane, plane),
-                 lambda: fft.fft2_polar_from_phase(plane, 1.0),
-                 lambda: fft.wexp_ifft2(plane, plane),
-                 lambda: fft.wexp_ifft2_phase(plane, plane)):
-        with pytest.raises(NotImplementedError, match="Other plane sides"):
-            call()
+    fft.reset_plain_count()
+    pairs = [
+        (lambda: fft.wgs_carry_entry(plane, 1.0), lambda: fft._wgs_carry_entry(plane, 1.0)),
+        (lambda: fft.wgs_carry_exit(plane, other), lambda: fft._wgs_carry_exit(plane, other)),
+        (lambda: fft.wgs_carry_step(plane, other, 1.0, plane, None, plane, plane, scal,
+                                    rule="kim", kim=False, stats_on=True),
+         lambda: fft._wgs_carry_step(plane, other, 1.0, plane, None, plane, plane, scal,
+                                     rule="kim", kim=False, stats_on=True)),
+        (lambda: fft.fft2(plane, other), lambda: fft._fft2(plane, other)),
+        (lambda: fft.ifft2(plane, other), lambda: fft._ifft2(plane, other)),
+        (lambda: fft.fft2_polar(plane, other), lambda: fft._fft2_polar(plane, other)),
+        (lambda: fft.fft2_polar_from_phase(plane, 1.0),
+         lambda: fft._fft2_polar_from_phase(plane, 1.0)),
+        (lambda: fft.wexp_ifft2(plane, other), lambda: fft._wexp_ifft2(plane, other)),
+        (lambda: fft.wexp_ifft2_phase(plane, other),
+         lambda: fft._wexp_ifft2_phase(plane, other)),
+    ]
+    for call, plain in pairs:
+        for got, ref in zip(call(), plain()):
+            if got is not None:
+                assert torch.equal(got, ref)
+    assert fft.PLAIN_ON_DEVICE == len(pairs)
     for shape in ((8200, 64), (64, 16384), (56, 64)):
-        with pytest.raises(NotImplementedError, match="Other plane sides"):
-            fft.fft2(*(torch.zeros(shape, device=cuda),) * 2)
+        x = torch.zeros(shape, device=cuda)
+        assert all(torch.equal(a, b) for a, b in zip(fft.fft2(x, x), fft._fft2(x, x)))
+    assert fft.PLAIN_ON_DEVICE == len(pairs) + 3
     assert sum(cuda_fft.LAUNCHES.values()) == 0
+    fft.reset_plain_count()
 
 
 @pytest.mark.cuda
@@ -1003,10 +1017,14 @@ def test_wgs_fused_forward_dispatches_to_kernels(cuda, amp_kind):
     assert torch.equal(got[2], target * 1.3)
     again = fft.wgs_fused_forward(*args, **kw)
     assert torch.equal(got[4], again[4]) and torch.equal(got[5], again[5])
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
-        plane = torch.zeros((100, 128), device=cuda)
-        fft.wgs_fused_forward(plane, 1.0, plane, None, plane, None, scal,
-                              rule="wu", kim=False, stats_on=False)
+    plane = torch.zeros((100, 128), device=cuda)
+    cuda_fft.reset_launch_counts()
+    fft.reset_plain_count()
+    outside = fft.wgs_fused_forward(plane, 1.0, plane, None, plane, None, scal,
+                                    rule="wu", kim=False, stats_on=False)
+    assert fft.PLAIN_ON_DEVICE == 1 and sum(cuda_fft.LAUNCHES.values()) == 0
+    assert outside[0].shape == (100, 128)
+    fft.reset_plain_count()
 
 
 @pytest.mark.cuda
@@ -1337,17 +1355,25 @@ def test_cg_runs_through_kernels_and_matches_the_cpu(cuda):
 
 
 @pytest.mark.cuda
-def test_cg_refuses_cuda_shapes_outside_the_gate(cuda):
-    """CG on a CUDA plane whose sides the kernels do not take raises, as
-    the other paths do; it never falls back to the plain versions."""
+def test_cg_runs_cuda_shapes_outside_the_gate_on_the_plain_tier(cuda):
+    """CG on a CUDA plane whose sides the kernels do not take runs the
+    plain tier on the card, with no launch, and gives the CPU's losses."""
     from slmsuite_torch.holography.algorithms import Hologram
-    from slmsuite_torch.ops import cuda_fft
+    from slmsuite_torch.ops import cuda_fft, fft
 
-    holo = Hologram(np.ones((100, 128), np.float32), device=cuda)
-    cuda_fft.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
+    losses = {}
+    for device in (cuda, torch.device("cpu")):
+        np.random.seed(5)
+        holo = Hologram(np.ones((100, 128), np.float32), device=device)
+        cuda_fft.reset_launch_counts()
+        fft.reset_plain_count()
         holo.optimize("CG", maxiter=2, verbose=False)
-    assert sum(cuda_fft.LAUNCHES.values()) == 0
+        losses[device.type] = holo.flags["loss_result"]
+        if device.type == "cuda":
+            assert sum(cuda_fft.LAUNCHES.values()) == 0
+            assert fft.PLAIN_ON_DEVICE > 0
+    fft.reset_plain_count()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
 # ----------------------------------------------------------------------
@@ -1648,13 +1674,18 @@ def test_mesh_batch_and_dryrun(cuda):
 @pytest.mark.cuda
 def test_mesh_refuses_shards_the_kernels_do_not_take(cuda):
     """A row shard of 4 rows (64 rows over 16 shards), or rows of 100
-    points, raise before any launch instead of running plain."""
+    points, take the plain tier on the card: no launch, the plain FFT's
+    result, and a PLAIN_ON_DEVICE count."""
+    from slmsuite_torch.ops import fft
     from slmsuite_torch.parallel.fft2d import distributed_fft2
     from slmsuite_torch.parallel.mesh import make_mesh
 
     for shape, shards in (((64, 64), 16), ((64, 100), 4)):
         mesh = make_mesh(axis_names=("space",), devices=[cuda] * shards)
         _reset_launches()
-        with pytest.raises(NotImplementedError, match="Other plane sides"):
-            distributed_fft2(torch.zeros(shape, dtype=torch.complex64, device=cuda), mesh)
-        assert _launched() == {}
+        fft.reset_plain_count()
+        x = torch.randn(shape, dtype=torch.complex64, device=cuda)
+        got = distributed_fft2(x, mesh)
+        assert _launched() == {} and fft.PLAIN_ON_DEVICE > 0
+        torch.testing.assert_close(got, torch.fft.fft2(x, norm="ortho"), atol=1e-4, rtol=1e-4)
+    fft.reset_plain_count()

@@ -151,3 +151,30 @@ def test_port_source_imports_no_cv2_or_tqdm_on_import(path):
         tree = ast.parse(handle.read(), filename=path)
     roots = {name.split(".")[0] for name in _imports_outside_functions(tree)}
     assert not roots & {"cv2", "tqdm"}, sorted(roots)
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_port_source_imports_no_matplotlib_on_import(path):
+    """``matplotlib`` (and ``mpl_toolkits``) are imported inside the plot
+    functions, never when a module of the port, its examples or
+    chip_smoke.py is imported: the machine with the card has none."""
+    with open(path) as handle:
+        tree = ast.parse(handle.read(), filename=path)
+    roots = {name.split(".")[0] for name in _imports_outside_functions(tree)}
+    assert not roots & {"matplotlib", "mpl_toolkits", "cv2"}, sorted(roots)
+
+
+def test_examples_and_remote_files_are_checked():
+    """The static checks above read the examples and the remote hardware
+    (whose modules import nothing of the JAX package or jax)."""
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for name in ("_rig", "structured_light", "computational_holography",
+                 "batched_holography", "zernike_holography", "experimental_holography",
+                 "multichip_scaling", "wavefront_calibration", "multipoint_calibration",
+                 "remote_hardware"):
+        assert os.path.join("slmsuite_torch", "examples", name + ".py") in checked
+    for name in ("hardware/remote.py", "hardware/cameras/remote.py", "hardware/slms/remote.py",
+                 "misc/profile.py"):
+        assert os.path.join("slmsuite_torch", *name.split("/")) in checked

@@ -250,25 +250,28 @@ def test_run_batched_gs_refuses_a_mesh():
                                   mesh=make_mesh(devices=["cpu"] * B)), ref, weights0)
 
 
-def test_batched_gate_refuses_non_power_of_two_cuda_stacks():
+def test_batched_gate_takes_the_plain_tier_on_other_cuda_stacks():
     """The kernels' gate reads a stack's last two sides: a CUDA (B, 100,
-    128) stack raises, naming the ROADMAP entry of the sides the kernels do
-    not take, where a (B, 128, 128) or a (B, 96, 128) one takes the kernels;
-    and the batched engine on a device other than the CPU raises in the
-    same way on 100x128 planes, before any launch."""
+    128) stack takes the plain tier (counted in PLAIN_ON_DEVICE), where a
+    (B, 128, 128) or a (B, 96, 128) one takes the kernels; the batched
+    engine on a device that is neither the CPU nor CUDA raises before any
+    launch, without naming a ROADMAP entry."""
     def fake_cuda(shape):
         return types.SimpleNamespace(device=torch.device("cuda"), is_cuda=True, shape=shape)
 
+    TF.reset_plain_count()
     assert TF.use_kernels(fake_cuda((B, 128, 128))) is True
     assert TF.use_kernels(fake_cuda((B, 96, 128))) is True
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
-        TF.use_kernels(fake_cuda((B, 100, 128)))
+    assert TF.PLAIN_ON_DEVICE == 0
+    assert TF.use_kernels(fake_cuda((B, 100, 128))) is False
+    assert TF.PLAIN_ON_DEVICE == 1
+    TF.reset_plain_count()
     shape = (100, 128)
     config = TM.BatchedGSConfig(method="WGS-Kim", shape=shape, slm_shape=shape, n_planes=B)
     consts = TM.make_multiplane_consts(np.ones((B, *shape)), np.zeros((B, *shape)),
                                        np.ones(B), 0.01, device="meta")
     cuda_fft.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
+    with pytest.raises(NotImplementedError, match="CPU or on a CUDA device"):
         TM.run_batched_gs(config, torch.zeros(shape, device="meta"),
                           torch.zeros((B, *shape), device="meta"), consts, 1)
     assert sum(cuda_fft.LAUNCHES.values()) == 0

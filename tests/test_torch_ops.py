@@ -9,8 +9,10 @@ Tolerances are f32 round-off: the two packages sum in different orders.
 """
 
 import sys
+import types
 
 import jax.numpy as jnp
+
 import numpy as np
 import pytest
 import torch
@@ -224,16 +226,27 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_build_nothing():
     assert not tfft.use_kernels(plane)
 
 
-def test_dispatch_gate_is_cpu_or_kernels():
-    """Only a CPU tensor takes the plain versions; a tensor on any other
-    device either takes the kernels or raises, naming the ROADMAP entry of
-    the sides the kernels do not take."""
+def test_dispatch_tier_is_plain_on_cpu_and_outside_the_gate():
+    """A CPU tensor takes the plain versions; a CUDA tensor takes the
+    kernels where they take its sides and the plain tier elsewhere, counted
+    in PLAIN_ON_DEVICE; a tensor on any other device raises, before any
+    launch, without naming a ROADMAP entry."""
     assert tfft.use_kernels(torch.zeros((96, 128))) is False
     assert tfft.use_kernels(torch.zeros((100, 128))) is False
+    assert tfft.kernel_tier("cuda", (96, 128)) == "kernels"
+    assert tfft.kernel_tier("cuda", (100, 128)) == "plain"
+    assert tfft.kernel_tier("cpu", (96, 128)) == "plain"
+    tfft.reset_plain_count()
+    fake = types.SimpleNamespace(device=torch.device("cuda"), shape=(100, 128))
+    assert tfft.use_kernels(fake) is False and tfft.PLAIN_ON_DEVICE == 1
+    fake.shape = (96, 128)
+    assert tfft.use_kernels(fake) is True and tfft.PLAIN_ON_DEVICE == 1
+    tfft.reset_plain_count()
     for shape in ((96, 128), (100, 128)):
-        with pytest.raises(NotImplementedError, match="Other plane sides"):
+        with pytest.raises(NotImplementedError, match="CPU or on a CUDA device") as info:
             tfft.use_kernels(torch.zeros(shape, device="meta"))
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
+        assert "ROADMAP" not in str(info.value)
+    with pytest.raises(NotImplementedError, match="CPU or on a CUDA device"):
         tfft.wgs_carry_entry(torch.zeros((64, 64), device="meta"), 1.0)
     meta = torch.zeros((64, 64), device="meta")
     for call in (lambda: tfft.fft2(meta, meta), lambda: tfft.ifft2(meta, meta),
@@ -242,13 +255,21 @@ def test_dispatch_gate_is_cpu_or_kernels():
                  lambda: tfft.wexp_ifft2(meta, meta),
                  lambda: tfft.wexp_ifft2_phase(meta, meta),
                  lambda: tfft.ifft2_phase(meta, meta)):
-        with pytest.raises(NotImplementedError, match="Other plane sides"):
+        with pytest.raises(NotImplementedError, match="CPU or on a CUDA device"):
             call()
+    assert tfft.PLAIN_ON_DEVICE == 0
 
 
 @pytest.mark.parametrize("n,ok", [(32, False), (64, True), (1536, True), (2048, True),
                                   (4096, True), (8192, True), (96, True), (1080, True),
                                   (1272, True), (100, False), (1021, False), (16384, False),
                                   (8200, False), (56, False)])
-def test_kernel_shape_gate(n, ok):
+def test_kernel_tier_of_a_side(n, ok):
+    """A side the kernels take gives a CUDA plane the kernels, any other
+    side the plain tier; the CPU always takes the plain tier."""
     assert tfft.kernel_len_ok(n) is ok
+    tier = "kernels" if ok else "plain"
+    assert tfft.kernel_tier("cuda", (n, 128)) == tier
+    assert tfft.kernel_tier("cuda", (128, n)) == tier
+    assert tfft.kernel_tier("cuda", (8, n), rows=True) == tier
+    assert tfft.kernel_tier("cpu", (n, n)) == "plain"

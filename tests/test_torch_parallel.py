@@ -242,16 +242,17 @@ def _fake_cuda(shape):
 def test_row_gate_reads_the_line_length():
     """Row-only transforms take a shard of any multiple of 8 rows whose line
     the kernels take (a 256-row plane over 8 shards has 32; a 64-row plane
-    over 8, 8), and raise for a line or a row count they do not take; the
-    plane gate still reads both sides. A shard on a device the kernels do
-    not serve raises before any launch, instead of running plain."""
+    over 8, 8), and take the plain tier on the card for a line or a row
+    count they do not take; the plane gate still reads both sides. A shard
+    on a device that is neither the CPU nor CUDA raises before any launch."""
     for shape in ((32, 256), (8, 64), (16, 8192), (2, 24, 1920)):
         assert TF.use_row_kernels(_fake_cuda(shape)) is True
+    TF.reset_plain_count()
     for shape in ((32, 100), (12, 256), (16, 16384), (16, 32)):
-        with pytest.raises(NotImplementedError, match="Other plane sides"):
-            TF.use_row_kernels(_fake_cuda(shape))
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
-        TF.use_kernels(_fake_cuda((32, 256)))
+        assert TF.use_row_kernels(_fake_cuda(shape)) is False
+    assert TF.use_kernels(_fake_cuda((32, 256))) is False
+    assert TF.PLAIN_ON_DEVICE == 5
+    TF.reset_plain_count()
     assert TF.use_row_kernels(torch.zeros((3, 5))) is False
     x = torch.randn(16, 64)
     for got, ref in zip(TF.rows_fft(x, x.flip(0), inverse=True, scale=0.5),
@@ -262,10 +263,10 @@ def test_row_gate_reads_the_line_length():
     meta = TMESH.make_mesh(axis_names=("rows",), devices=["meta"] * D)
     run = TPM.sharded_plane_wgs(N=64, device="cpu")
     cuda_fft.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
+    with pytest.raises(NotImplementedError, match="CPU or on a CUDA device"):
         TFD.distributed_fft2(torch.zeros((64, 64), dtype=torch.complex64, device="meta"), meta,
                              axis_name="rows")
-    with pytest.raises(NotImplementedError, match="Other plane sides"):
+    with pytest.raises(NotImplementedError, match="CPU or on a CUDA device"):
         run(meta, 1)
     assert sum(cuda_fft.LAUNCHES.values()) == 0
 

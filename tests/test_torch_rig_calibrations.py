@@ -36,6 +36,7 @@ from slmsuite_torch.holography import analysis as tanalysis
 from slmsuite_torch.holography.toolbox import phase as tphase
 from slmsuite_tpu.hardware.cameras.camera import Camera as JCamera
 from slmsuite_tpu.hardware.cameras.simulated import SimulatedCamera as JSimCamera
+from slmsuite_tpu.hardware.cameraslms import CameraSLM as JCameraSLM
 from slmsuite_tpu.hardware.cameraslms import FourierSLM as JFourierSLM
 from slmsuite_tpu.hardware.cameraslms import NearfieldSLM as JNearfieldSLM
 from slmsuite_tpu.hardware.slms.simulated import SimulatedSLM as JSLM
@@ -177,8 +178,7 @@ def test_settle_calibration_matches_jax(times, monkeypatch):
     np.testing.assert_array_equal(fits[2][1], np.squeeze(ref["data"]))
     for key in ("communication_time", "relax_time", "settle_time"):
         assert np.isfinite(fitted[key]) and tfs.calibrations["settle"][key] == fitted[key]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tfs.settle_calibration_process()
+    assert _draws(lambda: _quiet(tfs.settle_calibration_process)) == fitted
 
 
 @pytest.mark.parametrize("window", [None, (32, 64, 32, 64)])
@@ -201,8 +201,7 @@ def test_pixel_calibration_matches_jax(window):
     np.testing.assert_array_equal(fit_t["levels"], fit_j["levels"])
     for key in ("phase", "amplitude", "rmse"):
         np.testing.assert_allclose(fit_t[key], fit_j[key], rtol=FIT_RTOL, atol=1e-9, err_msg=key)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tfs.pixel_calibration_process(plot=True)
+    _draws(lambda: tfs.pixel_calibration_process(fit=False, plot=True))
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -288,8 +287,8 @@ def test_autofocus_metric_matches_jax():
     img = np.random.default_rng(3).integers(0, 255, (64, 48))
     np.testing.assert_allclose(TCamera._autofocus_metric(img), JCamera._autofocus_metric(img),
                                rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TCamera._autofocus_metric(img, plot=True)
+    assert _draws(lambda: TCamera._autofocus_metric(img, plot=True)) == \
+        TCamera._autofocus_metric(img)
 
 
 @pytest.mark.parametrize("range_z", [2, np.linspace(-1.5, 1.0, 9)])
@@ -345,8 +344,7 @@ def test_autofocus_refusals_match_jax():
             cam.autofocus(broken)
         with pytest.raises(ValueError, match="function or SLM"):
             cam.autofocus(3.0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _bare_rig("port")[1].autofocus(lambda z: None, plot=True)
+    _draws(lambda: _quiet(_bare_rig("port")[1].autofocus, lambda z: None, plot=True))
 
 
 # ----------------------------------------------------------------------
@@ -556,12 +554,28 @@ def test_stored_jax_calibrations_cross_and_process_alike():
 
 
 def test_stubs_stay_as_in_jax():
-    """``NearfieldSLM`` raises in both packages; ``CameraSLM.plot`` is
-    queued with the plots (item 12)."""
+    """``NearfieldSLM`` raises in both packages; ``CameraSLM.plot`` draws the
+    SLM's phase beside a camera frame, as the JAX package's does."""
     tfs, jfs = _pair(_jax_rig())
     with pytest.raises(NotImplementedError):
         JNearfieldSLM(jfs.cam, jfs.slm)
     with pytest.raises(NotImplementedError):
         TNearfieldSLM(tfs.cam, tfs.slm)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TCameraSLM(tfs.cam, tfs.slm).plot()
+    taxs = _draws(lambda: TCameraSLM(tfs.cam, tfs.slm).plot(title="pair"))
+    jaxs = _draws(lambda: JCameraSLM(jfs.cam, jfs.slm).plot(title="pair"))
+    np.testing.assert_array_equal(taxs[0].images[0].get_array(), jaxs[0].images[0].get_array())
+    # The camera frames of the same state: within a count.
+    np.testing.assert_allclose(taxs[1].images[0].get_array(), jaxs[1].images[0].get_array(),
+                               rtol=0, atol=1)
+
+
+def _draws(call):
+    """Run ``call`` under matplotlib's Agg backend; it must draw a figure.
+    Closes every figure after. Returns what ``call`` returns."""
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    out = call()
+    assert plt.get_fignums(), "no figure drawn"
+    plt.close("all")
+    return out

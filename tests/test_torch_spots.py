@@ -186,7 +186,8 @@ def test_unported_paths_raise():
 def test_set_target_takes_plot_like_jax(reset_weights):
     """``set_target(new_target, reset_weights, plot=False)`` (the JAX
     package's signature) rebuilds the same target and weights in both
-    packages after the spots move; ``plot=True`` raises, naming item 12."""
+    packages after the spots move; ``plot=True`` draws nothing and leaves
+    the same target, as in the JAX package."""
     holos = [pkg.SpotHologram.make_rectangular_array(
         (64, 64), array_shape=(3, 3), array_pitch=(12, 12), basis="knm") for pkg in (T, J)]
     for holo in holos:
@@ -195,8 +196,13 @@ def test_set_target_takes_plot_like_jax(reset_weights):
     tholo, jholo = holos
     np.testing.assert_array_equal(tholo.target, np.asarray(jholo.target))
     np.testing.assert_array_equal(np.asarray(tholo.weights), np.asarray(jholo.weights))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tholo.set_target(plot=True)
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    tholo.set_target(plot=True)
+    jholo.set_target(plot=True)
+    assert not plt.get_fignums()
+    np.testing.assert_array_equal(tholo.target, np.asarray(jholo.target))
 
 
 # ----------------------------------------------------------------------

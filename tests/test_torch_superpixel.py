@@ -767,18 +767,32 @@ def test_r001_file_processes_like_jax(tmp_path):
 
 
 def test_superpixel_refusals_name_their_item():
-    """The plots stay queued (item 12); the rest of the JAX package's names
-    run."""
+    """The plots draw (no refusal names item 12 any more): the raw-data and
+    processed plots of a measured calibration, the fit plots and the
+    analysis plots; the rest of the JAX package's names run."""
     tfs, _ = _rigs()
+    with pytest.raises(RuntimeError, match="Could not find"):
+        tfs.wavefront_calibration_superpixel_process(plot=True)
+    _draws(lambda: _calibrate(tfs, phase_steps=1, test_index=5, plot=2))
+    _draws(lambda: _calibrate(tfs, phase_steps=4, test_index=5, plot=1))
+    _calibrate(tfs, phase_steps=1)
     for call in (
-        lambda: tfs.wavefront_calibrate_superpixel(plot=1),
-        lambda: tfs.wavefront_calibrate(calibration_points=POINT, plot=2),
         lambda: tfs._wavefront_calibration_superpixel_plot_raw(index=0),
-        lambda: tfs.wavefront_calibration_superpixel_process(plot=True),
+        lambda: tfs._wavefront_calibration_superpixel_plot_raw(index=None),
+        lambda: tfs.wavefront_calibration_superpixel_process(plot=True, apply=False),
         lambda: tanalysis.image_fit(np.ones((3, 3)), plot=True),
         lambda: tanalysis.image_remove_blaze(np.ones((3, 3)), plot=True),
     ):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
-    with pytest.raises(RuntimeError, match="Could not find"):
-        tfs.wavefront_calibration_superpixel_process()
+        _draws(call)
+
+
+def _draws(call):
+    """Run ``call`` under matplotlib's Agg backend; it must draw a figure.
+    Closes every figure after. Returns what ``call`` returns."""
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    out = call()
+    assert plt.get_fignums(), "no figure drawn"
+    plt.close("all")
+    return out

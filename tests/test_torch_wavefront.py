@@ -375,8 +375,9 @@ def test_refine_offset_matches_jax(kind, basis, force_affine):
         np.testing.assert_allclose(t.spot_knm, j.spot_knm, atol=SHIFT_ATOL)
     with pytest.raises(ValueError, match="basis"):
         t.refine_offset(basis="rad")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t.refine_offset(basis=None, plot=True)
+    shifts = t.refine_offset(basis=None)
+    np.testing.assert_array_equal(_draws(lambda: t.refine_offset(basis=None, plot=True)),
+                                  shifts)
 
 
 # ----------------------------------------------------------------------
@@ -483,18 +484,22 @@ def test_wavefront_calibrate_zernike_smooth_matches_jax(kwargs):
 
 
 def test_calibration_refusals_name_their_item():
-    """What stays queued raises, naming its ROADMAP item: the plots (item
-    12); an unknown method raises ValueError, as in the JAX package (the
-    superpixel method runs: ``tests/test_torch_superpixel.py``)."""
+    """Nothing names item 12 any more: the Zernike calibration's plots draw
+    (each term's sweep and fit, the points, the status image and tiles of
+    a projection, the refined offsets, the raw data, the smoothing graph);
+    an unknown method raises ValueError, as in the JAX package (the
+    superpixel method's plots: ``tests/test_torch_superpixel.py``)."""
     tfs, jfs = _rigs()
+    small = dict(calibration_points=POINTS_3X3, zernike_indices=4, optimize_weights=False)
     for call in (
-        lambda: tfs.wavefront_calibrate(method="zernike", plot=1),
+        lambda: tfs.wavefront_calibrate(method="zernike", plot=2, perturbation=0, **small),
+        lambda: tfs.wavefront_calibrate(method="zernike", plot=2,
+                                        perturbation=np.linspace(-1, 1, 3), **small),
         lambda: tfs._wavefront_calibrate_zernike_plot_raw(),
         lambda: tfs.wavefront_calibrate_zernike_smooth(plot=True),
         lambda: tfs.wavefront_calibration_points(20, plot=True),
     ):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+        _draws(call)
     for fs in (tfs, jfs):
         with pytest.raises(ValueError, match="not recognized"):
             fs.wavefront_calibrate(method="bogus")
@@ -543,3 +548,15 @@ def test_zernike_calibration_rig_model():
                      perturbation=np.linspace(-1.5, 1.5, 7), optimize_weights=2)
     focus = list(cal["zernike_indices"]).index(4)
     assert np.mean(cal["corrected_spots"][focus] - cal["initial_points"][focus]) < -0.3
+
+
+def _draws(call):
+    """Run ``call`` under matplotlib's Agg backend; it must draw a figure.
+    Closes every figure after. Returns what ``call`` returns."""
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    out = call()
+    assert plt.get_fignums(), "no figure drawn"
+    plt.close("all")
+    return out
