@@ -155,6 +155,21 @@ there is no card or the port is missing. In order:
      relative, the final efficiency and uniformity within 1e-3, G2's spot
      amplitudes within 2e-3), one host transfer an iteration (the loss),
      ms an iteration interleaved and peak device memory;
+   - G4, each of the 25 optimizers the port added to those five (optax's
+     names: adabelief ... yogi, ``scale_by_learning_rate`` and
+     ``scale_by_rprop``) on G1's path for 10 iterations, with the
+     ``optimizer_kwargs`` of ``g4_kwargs`` (printed): exact launches, the
+     efficiency risen from the initial phase's (fallen for
+     ``scale_by_rprop``, which optax applies uphill), final efficiency and
+     uniformity within 1e-3 of torch's autograd through the plain
+     versions, ms an iteration interleaved;
+   - N0, the native host helpers (``slmsuite_torch/native``) built with
+     the host's C compiler: ``phase2gray`` (float64 to uint8 and 12-bit
+     uint16, float32 to uint8) at 1920x1152 and 4160x2464, the PLM
+     electrode map and bitpack at the p67 PLM's mirror count, each bit for
+     bit against its numpy path with host ms of both (the CPU model
+     printed), and G1's final phase written through
+     ``SimulatedSLM.set_phase``; any count of the numpy route fails it;
    - X1 and X2, planes of the sides the line kernels take since they
      take every multiple of 8 in [64, 8192]: X1, the fused slice's 32x32
      array (pitch 120) on 8192^2, ``get_padded_shape`` of a 4160x2464 SLM
@@ -281,6 +296,7 @@ import contextlib
 import importlib.util
 import json
 import os
+import platform
 import subprocess
 import sys
 import tempfile
@@ -3117,18 +3133,45 @@ def camera_engine_loop(holo):
 
 def host_transfers(run, n):
     """Host-to-device and device-to-host copies among the device events
-    of ``run(n)`` under ``torch.profiler``."""
+    of ``run(n)`` under ``torch.profiler``. The profiler keeps only some
+    pageable copies, and now and then a window of no device event at all:
+    such a window is profiled again, at most twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(3):
+        run(2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(n)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    assert names, "torch.profiler recorded no device events in three windows"
+    return [name for name in names if "HtoD" in name or "DtoH" in name], len(names)
+
+
+def host_syncs(run, n):
+    """The times ``run(n)`` made the host wait on the card, as torch's sync
+    debug mode reports them: every copy between host and card that is not
+    ``non_blocking`` (a pageable upload, ``.item()``, ``.cpu()``) and every
+    other synchronizing call. Counted on the host, so none is lost; the
+    profiler's memcpy records (:func:`host_transfers`) are a lower bound,
+    since it keeps only some pageable copies."""
+    import warnings
+
     run(2)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(n)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert names, "torch.profiler recorded no device events"
-    return [name for name in names if "HtoD" in name or "DtoH" in name], len(names)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 def phase_camera(device):
@@ -3966,8 +4009,11 @@ def cg_gradient(holo):
     return grad
 
 
-def cg_optimize(holo, n, lr, callback=None):
-    holo.optimize("CG", maxiter=n, verbose=False, optimizer_kwargs={"learning_rate": lr},
+def cg_optimize(holo, n, lr, callback=None, optimizer="adam", kwargs=None):
+    """``n`` CG iterations of ``optimizer`` (Adam at learning rate ``lr``
+    unless ``kwargs`` are given)."""
+    kwargs = {"learning_rate": lr} if kwargs is None else kwargs
+    holo.optimize("CG", maxiter=n, verbose=False, optimizer=optimizer, optimizer_kwargs=kwargs,
                   callback=callback)
 
 
@@ -3992,15 +4038,16 @@ def cg_final(holo):
     return np.array(out)
 
 
-def drive_cg(make, n, lr):
+def drive_cg(make, n, lr, **optimizer):
     """``n`` CG iterations on a fresh ``make()`` with both launch counts
-    set to 0 just before. Returns ``(holo, losses, loop launches, launches
-    after the loop, seconds)``."""
+    set to 0 just before (``optimizer``: :meth:`cg_optimize`'s). Returns
+    ``(holo, losses, loop launches, launches after the loop, seconds)``."""
     holo = make()
     losses = []
     split = launches_split_at(holo)
     start = time.perf_counter()
-    cg_optimize(holo, n, lr, lambda h: losses.append(h.flags["loss_result"]) and False)
+    cg_optimize(holo, n, lr, lambda h: losses.append(h.flags["loss_result"]) and False,
+                **optimizer)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     loop, after = split()
@@ -4014,7 +4061,8 @@ def run_cg_path(label, make, n, lr, loop_expect, after_expect, final_atol):
     plain versions (no launch): the first iteration's gradient within
     CG_GRAD_RTOL of the largest, the loss at every iteration within
     CG_LOSS_RTOL, what users read within ``final_atol``; then the host
-    transfers an iteration (one: the loss) and ms an iteration, plain,
+    syncs an iteration (one: the loss; :func:`host_syncs`, with the
+    profiler's records no more than them) and ms an iteration, plain,
     kernels, kernels, plain. Returns ``(launches, the timed run)``."""
     torch.cuda.reset_peak_memory_stats()
     holo, losses, loop, after, seconds = drive_cg(make, n, lr)
@@ -4049,10 +4097,15 @@ def run_cg_path(label, make, n, lr, loop_expect, after_expect, final_atol):
 
     base, _ = host_transfers(run, 0)
     copies, events = host_transfers(run, HOST_TIMING_ITERS)
-    per_iter = (len(copies) - len(base)) / HOST_TIMING_ITERS
-    log(f"{label}: {per_iter:.2f} host transfers an iteration ({len(copies)} among {events} "
-        f"device events of {HOST_TIMING_ITERS} iterations, {len(base)} of a call of none)")
+    sync_base, syncs = host_syncs(run, 0), host_syncs(run, HOST_TIMING_ITERS)
+    per_iter = (syncs - sync_base) / HOST_TIMING_ITERS
+    log(f"{label}: {per_iter:.2f} host syncs an iteration ({syncs} in {HOST_TIMING_ITERS} "
+        f"iterations, {sync_base} in a call of none); the profiler kept {len(copies)} host "
+        f"transfers among {events} device events of {HOST_TIMING_ITERS} iterations, "
+        f"{len(base)} of a call of none")
     assert per_iter == 1, (label, per_iter)
+    # Every transfer the profiler kept made the host wait: none is non_blocking.
+    assert len(copies) <= syncs and len(base) <= sync_base, (label, copies, base)
     with plain_gradients():
         p1 = wall_ms(run, n)
     k1, k2 = wall_ms(run, n), wall_ms(run, n)
@@ -4060,27 +4113,300 @@ def run_cg_path(label, make, n, lr, loop_expect, after_expect, final_atol):
         p2 = wall_ms(run, n)
     log(f"{label} optimize(maxiter={n}): kernels {k1:.3f} {k2:.3f} ms an iteration, plain "
         f"autograd {p1:.3f} {p2:.3f}  [{nvidia_smi_line()}]")
-    return {k: loop.get(k, 0) + after.get(k, 0) for k in {*loop, *after}}, run
+    return {k: loop.get(k, 0) + after.get(k, 0) for k in {*loop, *after}}, run, holo
 
 
 def phase_cg(device):
     """G1-G3, gradient phase retrieval (CG, Adam) through the kernels in
     both directions: G1, the fused slice's 2048^2 array through
     SpotHologram; G2, config 5 through CompressedSpotHologram; G3, P3's
-    MultiplaneHologram. Returns each path's launches and G1's run."""
+    MultiplaneHologram. Returns each path's launches, G1's run and G1's
+    final phase."""
     n1, n2, n3 = G1_ITERS, G2_ITERS, G3_ITERS
     fft2 = dict(rows_fft=1, cols_fft=1)
-    g1, g1_run = run_cg_path(
-        "G1 SpotHologram 2048^2 32x32 CG", lambda: spot_array(device, (32, 32), (30, 30)),
+    g1, g1_run, g1_holo = run_cg_path(
+        "G1 SpotHologram 2048^2 32x32 CG", lambda: g1_hologram(device),
         n1, G1_LR, dict(rows_fft=2 * n1, cols_fft=2 * n1), fft2, SLICE_ATOL)
-    g2, _ = run_cg_path(
+    g2, _, _ = run_cg_path(
         "G2 config 5 CompressedSpotHologram CG", lambda: config5_hologram(device), n2, G2_LR,
         dict(n2f=n2, f2n=n2), dict(n2f=1), CMP_PATH_ATOL)
     B = MP_PLANES
-    g3, _ = run_cg_path(
+    g3, _, _ = run_cg_path(
         f"G3 MultiplaneHologram {B} x {MP_SIDE}^2 CG", lambda: p3_hologram(device), n3, G3_LR,
         dict(rows_fft=2 * B * n3, cols_fft=2 * B * n3), fft2, SLICE_ATOL)
-    return {"G1": g1, "G2": g2, "G3": g3}, g1_run
+    return {"G1": g1, "G2": g2, "G3": g3}, g1_run, g1_holo.get_phase()
+
+
+def g1_hologram(device):
+    """G1's hologram: the fused slice's 2048^2 farfield, a 32x32 array."""
+    return spot_array(device, (32, 32), (30, 30))
+
+
+#: G4: the optimizers the port added to Adam, Adam-W, SGD, RMSprop and
+#: Adagrad, each on G1's path for G4_ITERS iterations.
+G4_RULES = (
+    "adabelief", "adadelta", "adafactor", "adamax", "adamaxw", "adan", "amsgrad", "fromage",
+    "lamb", "lars", "lion", "nadam", "nadamw", "noisy_sgd", "novograd", "optimistic_adam",
+    "optimistic_adam_v2", "optimistic_gradient_descent", "radam", "rprop", "sign_sgd", "sm3",
+    "yogi", "scale_by_learning_rate", "scale_by_rprop",
+)
+G4_ITERS = 10
+#: optax's scale_by_rprop adds its steps (optax's rprop is it with the sign
+#: flipped): CG with it climbs the loss, and the efficiency falls.
+G4_UPHILL = ("scale_by_rprop",)
+
+
+def g4_kwargs(name, s, side):
+    """The ``optimizer_kwargs`` of each G4 rule, chosen so that G4_ITERS
+    iterations raise G1's efficiency. On a ``side``^2 plane the per-pixel
+    gradients of the unit-power loss are tiny (``s``, their rms at the
+    initial phase, is near 1e-13 at 2048^2), so each epsilon that sits
+    beside a gradient or its square is set to 1e-3 of ``s`` (or its
+    square), and a rule that steps by the gradient itself (or, SM3, by
+    it over its fixed 1e-8 epsilon's root) takes a learning rate over
+    ``s``. Rules that act on signs, norms or ratios (Lion, signSGD,
+    Rprop, LAMB, LARS, Fromage, Adafactor) keep their defaults but the
+    rate; NovoGrad divides by the plane's norm, ``s * side``; RAdam
+    rectifies only past ro 5, which at b2 0.9 it reaches by step 6; Yogi's
+    first moment starts at 1e-6 everywhere, a common phase that b1 0
+    drops. Fromage steps along the raw gradient scaled to psi's norm and
+    shrinks psi by ``1 - 1/sqrt(1 + lr**2)``: at 2048^2 on an H100 no
+    rate in 0.005-0.4 raised the efficiency by more than 5% in 10
+    iterations (0.1 the most), so it is held to a rise only."""
+    e = 1e-3 * s
+    return {
+        "adabelief": dict(learning_rate=0.05, eps=e, eps_root=0.0),
+        "adadelta": dict(learning_rate=30.0 / s, eps=e * e),
+        "adafactor": dict(learning_rate=0.05),
+        "adamax": dict(learning_rate=0.05, eps=e),
+        "adamaxw": dict(learning_rate=0.05, eps=e),
+        "adan": dict(learning_rate=0.05, eps=e, eps_root=0.0),
+        "amsgrad": dict(learning_rate=0.05, eps=e),
+        "fromage": dict(learning_rate=0.1),
+        "lamb": dict(learning_rate=0.05, eps=e),
+        "lars": dict(learning_rate=0.05, trust_coefficient=1.0),
+        "lion": dict(learning_rate=0.05),
+        "nadam": dict(learning_rate=0.05, eps=e),
+        "nadamw": dict(learning_rate=0.05, eps=e),
+        "noisy_sgd": dict(learning_rate=0.1 / s, eta=(0.1 * s) ** 2, key=0),
+        "novograd": dict(learning_rate=0.05 * side, eps=e * side),
+        "optimistic_adam": dict(learning_rate=0.05, eps=e),
+        "optimistic_adam_v2": dict(learning_rate=0.05, eps=e),
+        "optimistic_gradient_descent": dict(learning_rate=0.1 / s),
+        "radam": dict(learning_rate=0.3, b2=0.9, eps=e),
+        "rprop": dict(learning_rate=0.03),
+        "sign_sgd": dict(learning_rate=0.05),
+        "sm3": dict(learning_rate=3e-5 / s),
+        "yogi": dict(learning_rate=1.6e-3 / s, b1=0.0),
+        "scale_by_learning_rate": dict(learning_rate=0.1 / s),
+        "scale_by_rprop": dict(learning_rate=0.01),
+    }[name]
+
+
+def phase_g4(device, make=None, n=G4_ITERS):
+    """G4: each optimizer the port added, on G1's path (the 2048^2 32x32
+    array through SpotHologram, CG) through the kernels and through torch's
+    autograd of the plain versions on the card: exact launches (rows_fft
+    and cols_fft 2n in the loop, one each after it), the efficiency risen
+    from the initial phase's (fallen for G4_UPHILL), final efficiency and
+    uniformity within SLICE_ATOL of the plain run's, and ms an iteration,
+    plain, kernels, kernels, plain. Returns the launches over all rules."""
+    make = make or (lambda: g1_hologram(device))
+    start = time.perf_counter()
+    holo = make()
+    side = holo.shape[0]
+    s = float(cg_gradient(holo).pow(2).mean().sqrt())
+    cg_optimize(holo, 1, None, optimizer="sgd", kwargs={"learning_rate": 0.0})
+    initial = cg_final(holo)[0]
+    log(f"G4: first gradient rms {s:.4e}; initial efficiency {initial[0]:.6f}, uniformity "
+        f"{initial[1]:.6f}")
+    total = {}
+    for name in G4_RULES:
+        kwargs = g4_kwargs(name, s, side)
+        opt = dict(optimizer=name, kwargs=kwargs)
+        holo, losses, loop, after, _ = drive_cg(make, n, None, **opt)
+        assert loop == dict(rows_fft=2 * n, cols_fft=2 * n), (name, loop)
+        assert after == dict(rows_fft=1, cols_fft=1), (name, after)
+        assert holo.iter == n == len(losses) and np.isfinite(losses).all(), (name, holo.iter)
+        final = cg_final(holo)[0]
+        with plain_gradients():
+            plain, plain_losses, plain_loop, plain_after, _ = drive_cg(make, n, None, **opt)
+            plain_final = cg_final(plain)[0]
+        assert not plain_loop and not plain_after, (name, plain_loop, plain_after)
+        e_final = float(np.abs(final - plain_final).max())
+        e_loss = float(np.max(np.abs(losses - plain_losses) / np.abs(plain_losses)))
+        rose = final[0] > initial[0]
+        assert rose != (name in G4_UPHILL), (name, initial, final)
+        assert e_final <= SLICE_ATOL, (name, final, plain_final)
+
+        def run(k, holo=holo, opt=opt):
+            cg_optimize(holo, k, None, **opt)
+
+        with plain_gradients():
+            p1 = wall_ms(run, n)
+        k1, k2 = wall_ms(run, n), wall_ms(run, n)
+        with plain_gradients():
+            p2 = wall_ms(run, n)
+        shown = {k: float(f"{v:.6g}") if isinstance(v, float) else v for k, v in kwargs.items()}
+        log(f"G4 {name} {json.dumps(shown)}: efficiency {initial[0]:.6f} -> {final[0]:.6f} "
+            f"(plain {plain_final[0]:.6f}), uniformity {final[1]:.6f} (plain "
+            f"{plain_final[1]:.6f}); final max |diff| {e_final:.3e}, loss max relative diff "
+            f"{e_loss:.3e}; kernels {k1:.3f} {k2:.3f} ms an iteration, plain autograd {p1:.3f} "
+            f"{p2:.3f}")
+        for counts in (loop, after):
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    log(f"G4: {len(G4_RULES)} rules in {time.perf_counter() - start:.1f} s; launches {total}  "
+        f"[{nvidia_smi_line()}]")
+    return total
+
+
+# ----------------------------------------------------------------------
+# N0: the native host helpers (slmsuite_torch/native) on the card's host.
+# ----------------------------------------------------------------------
+
+#: N0's SLM planes: a 1920x1152 SLM and X1's 4160x2464 one, as (H, W).
+N0_SHAPES = ((1152, 1920), (2464, 4160))
+#: N0's PLM model (texas_instruments.yaml) and the timed repeats.
+N0_PLM, N0_REPEATS = "p67", 5
+
+
+def cpu_model():
+    """The host CPU's model name (/proc/cpuinfo); where a virtual machine
+    reports it "unknown", its vendor, family, model number and clock."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as info:
+            for line in info:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        return platform.processor() or platform.machine()
+    name = fields.get("model name", "unknown")
+    if name.lower() != "unknown":
+        return name
+    return (f"{fields.get('vendor_id', '?')} family {fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')} (model name not reported), "
+            f"{fields.get('cpu MHz', '?')} MHz")
+
+
+def host_ms(fn, n=N0_REPEATS):
+    """Median host milliseconds of ``fn()`` over ``n`` calls after one."""
+    fn()
+    times = []
+    for _ in range(n):
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+    return float(np.median(times))
+
+
+@contextlib.contextmanager
+def numpy_phase2gray():
+    """The SLM write path with its native conversion refused: the numpy
+    passes of ``SLM._phase2gray`` (not counted in ``native.ROUTES``)."""
+    from slmsuite_torch.hardware.slms import slm
+
+    saved = slm.phase2gray_native
+    slm.phase2gray_native = lambda *args: False
+    try:
+        yield
+    finally:
+        slm.phase2gray_native = saved
+
+
+def f32_phase2gray_numpy(phase, bitresolution):
+    """The float32 kernel's arithmetic in numpy (the product in float32,
+    rounded half to even, less one, wrapped): its numpy path, the SLM's
+    passes being float64 as its phase is."""
+    factor = np.float32(-np.float32(bitresolution) / np.float32(2 * np.pi))
+    codes = np.rint(phase * factor).astype(np.int64) - 1
+    return (codes & (bitresolution - 1)).astype(np.uint8)
+
+
+def phase_native(g1_phase):
+    """N0: the native helpers built from the repository's C sources on the
+    card's host, each held bit for bit against its numpy path (phase2gray
+    float64 to uint8 and to 12-bit uint16, float32 to uint8 at N0_SHAPES;
+    the PLM electrode map and bitpack at N0_PLM's mirror count), host ms
+    native against numpy, then G1's final phase written through
+    SimulatedSLM.set_phase. Fails on a failed build or any count of the
+    numpy route in native.ROUTES."""
+    from slmsuite_torch import native
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.hardware.slms.texasinstruments import PLM, PLM_MODELS
+
+    start = time.perf_counter()
+    earlier = sorted(native._LIBS)
+    libs = [native.build(stem) for stem in ("phase2gray", "plm_pack")]
+    log(f"N0: {', '.join(str(p.relative_to(ROOT)) for p in libs)} ready in "
+        f"{time.perf_counter() - start:.2f} s (built from slmsuite_torch/native/*.c at first "
+        f"use; {earlier or 'none'} loaded earlier in this run); host CPU: {cpu_model()} "
+        f"({os.cpu_count()} cores)")
+    native.reset_routes()
+    for H, W in N0_SHAPES:
+        phase = np.random.default_rng(H).uniform(-4 * np.pi, 4 * np.pi, (H, W))
+        for label, bitdepth, dtype in (("f64->u8", 8, np.float64), ("f64->u16", 12, np.float64),
+                                       ("f32->u8", 8, np.float32)):
+            x = np.ascontiguousarray(phase, dtype=dtype)
+            slm = SimulatedSLM((W, H), bitdepth=bitdepth)
+            out = np.empty((H, W), slm.dtype)
+            assert native.phase2gray_native(x, out, 2**bitdepth), (label, H, W)
+            if dtype == np.float64:
+                with numpy_phase2gray():
+                    ref = slm._phase2gray(x)
+
+                    def numpy_route(slm=slm, x=x):
+                        slm._phase2gray(x)
+
+                    t_numpy = host_ms(numpy_route)
+            else:
+                ref = f32_phase2gray_numpy(x, 2**bitdepth)
+                t_numpy = host_ms(lambda x=x, b=2**bitdepth: f32_phase2gray_numpy(x, b))
+            assert np.array_equal(out, ref), (label, H, W, int((out != ref).sum()))
+            t_native = host_ms(lambda x=x, out=out, b=2**bitdepth:
+                               native.phase2gray_native(x, out, b))
+            log(f"N0 phase2gray {label} {H}x{W}: bit-exact; host {t_native:.3f} ms native, "
+                f"{t_numpy:.3f} ms numpy")
+
+    plm = object.__new__(PLM)
+    plm.model = PLM_MODELS[N0_PLM]
+    plm._init_quantize_lut(0.633, 0.633)
+    h, w = plm.model["shape"]
+    display = np.random.default_rng(6).integers(0, 256, (h, w)).astype(np.uint8)
+    packed = plm._pack_frame(display)
+    ref = plm._electrode_map(plm._gray_to_code[display])
+    assert np.array_equal(packed, ref), int((packed != ref).sum())
+    t_native = host_ms(lambda: plm._pack_frame(display))
+    t_numpy = host_ms(lambda: plm._electrode_map(plm._gray_to_code[display]))
+    log(f"N0 plm_electrode_map {N0_PLM} {h}x{w} -> {2 * h}x{2 * w}: bit-exact; host "
+        f"{t_native:.3f} ms native, {t_numpy:.3f} ms numpy")
+    maps = np.random.default_rng(7).integers(0, 2, (8, 2 * h, 2 * w)).astype(np.uint8)
+    shifts = np.arange(8, dtype=np.uint8)[:, None, None]
+
+    def numpy_pack():
+        return np.bitwise_or.reduce(np.left_shift(maps & 1, shifts), axis=0)
+
+    packed = PLM.bitpack(list(maps))[0]
+    assert np.array_equal(packed, numpy_pack())
+    t_native = host_ms(lambda: PLM.bitpack(list(maps)))
+    t_numpy = host_ms(numpy_pack)
+    log(f"N0 plm_bitpack8 8 x {2 * h}x{2 * w}: bit-exact; host {t_native:.3f} ms native "
+        f"(PLM.bitpack), {t_numpy:.3f} ms numpy")
+
+    slm = SimulatedSLM(g1_phase.shape[::-1])
+    before = dict(native.ROUTES["phase2gray"])
+    slm.set_phase(g1_phase, settle=False)
+    with numpy_phase2gray():
+        ref = slm._phase2gray(slm.phase)
+    assert np.array_equal(slm.display, ref)
+    assert native.ROUTES["phase2gray"]["native"] > before["native"], native.ROUTES
+    assert all(counts["numpy"] == 0 for counts in native.ROUTES.values()), native.ROUTES
+    log(f"N0: G1's final phase written through SimulatedSLM.set_phase natively; routes "
+        f"{json.dumps(native.ROUTES)}; {time.perf_counter() - start:.1f} s  "
+        f"[{nvidia_smi_line()}]")
 
 
 # ----------------------------------------------------------------------
@@ -4367,7 +4693,7 @@ def phase_mixed_paths(device):
         dict(carry_entry=1, cols_mraf_fwd=n, cols_mraf_mix_inv=n, rows_normfwd=n,
              carry_exit=1))
     c = X2_CG_ITERS
-    out["X2 G1"], _ = run_cg_path(
+    out["X2 G1"], _, _ = run_cg_path(
         f"X2 G1 SpotHologram {size} CG",
         lambda: spot_array(device, X2_ARRAY, X2_PITCH, shape=X2_SHAPE), c, G1_LR,
         dict(rows_fft=2 * c, cols_fft=2 * c), dict(rows_fft=1, cols_fft=1), SLICE_ATOL)
@@ -5264,7 +5590,9 @@ def main():
     s2_loop = phase_camera(device)
     phase_host_loop(device)
     mp_launches, p1_run = phase_multiplane(device)
-    cg_launches, g1_run = phase_cg(device)
+    cg_launches, g1_run, g1_phase = phase_cg(device)
+    cg_launches["G4"] = phase_g4(device)
+    phase_native(g1_phase)
     phase_golden()
     times = phase_kernel_timing(device)
     batched_times = phase_batched_timing(device)

@@ -1,12 +1,24 @@
 """
 Hardware of the port: the SLM and camera interfaces, their simulated
-versions, and their pairing (:mod:`slmsuite_torch.hardware.cameraslms`).
+versions, the vendor drivers, the screen-mirrored window (``_pyglet``), and
+their pairing (:mod:`slmsuite_torch.hardware.cameraslms`).
 """
 
 import datetime
+import importlib
 import warnings
 
 from slmsuite_torch import __version__
+
+
+def _optional_import(name):
+    """The module ``name`` (a vendor SDK, pyglet, OpenCV), imported when the
+    hardware that needs it is built, or None where it is not installed: no
+    module of the port imports one when it is itself imported."""
+    try:
+        return importlib.import_module(name)
+    except ImportError:
+        return None
 
 
 class _Picklable:

@@ -4,9 +4,9 @@ Abstract camera interface (the port's copy of
 depth and dtype, the orientation transform, exposure, single, averaged
 and HDR captures with retries, the buffer flush, and the exposure and
 focus searches (:meth:`Camera.autoexposure`, :meth:`Camera.autofocus`,
-which can take an SLM as its focus actuator), :meth:`Camera.plot` and the
-self-test :meth:`Camera.test`. The live viewer is not copied yet
-(ROADMAP.md queue 1, item 12, part two).
+which can take an SLM as its focus actuator), :meth:`Camera.plot`, the
+notebook's live viewer :meth:`Camera.live` (``_viewer.py``) and the
+self-test :meth:`Camera.test`.
 """
 
 import time
@@ -644,12 +644,35 @@ class Camera(_Picklable, ABC):
         return ax
 
     def live(self, activate=None, widgets=True, backend="ipython", **kwargs):
-        """The notebook's live viewer: not ported yet (ROADMAP.md queue 1,
-        item 12, part two, with ``cameras/_viewer.py``)."""
-        raise NotImplementedError(
-            "Camera.live: the live viewer is not ported yet (ROADMAP.md queue 1, "
-            "item 12, part two)."
-        )
+        """
+        Toggle a Jupyter live viewer that displays every frame produced
+        by :meth:`get_image` / :meth:`get_images`, with a *Live* button
+        that polls the camera on the notebook's asyncio loop.
+
+        Parameters
+        ----------
+        activate : bool OR None
+            True creates a viewer (replacing any existing one), False
+            destroys it, None toggles.
+        widgets : bool
+            Show color-scale / colormap / zoom / live controls.
+        backend : str
+            Only ``"ipython"`` is supported.
+        **kwargs
+            Passed to the viewer (``cmap=``, ``cmap_options=``,
+            ``scale=``, ``poll_s=``).
+        """
+        if backend != "ipython":
+            raise ValueError(f"Unsupported live() backend '{backend}'.")
+        from slmsuite_torch.hardware.cameras._viewer import _CameraViewer
+
+        if (self.viewer is None and activate is None) or activate:
+            if self.viewer is not None:
+                self.viewer.close()
+            self.viewer = _CameraViewer(self, widgets, backend, **kwargs)
+        elif self.viewer is not None and not activate:
+            self.viewer.close()
+            self.viewer = None
 
     def test(self):
         """Exercise the core camera methods against the hardware."""

@@ -5,7 +5,8 @@ and the simulated rig need (numpy only). It holds the SLM's geometry
 (shape, pitch, wavelength, the normalized coordinate grid), its source
 (measured or simulated illumination, and the fit of a measured amplitude,
 which re-centres the grid on it), the host-side write path
-(:meth:`SLM.set_phase`, grayscale conversion into :attr:`SLM.display`),
+(:meth:`SLM.set_phase`, grayscale conversion into :attr:`SLM.display`,
+native first, :mod:`slmsuite_torch.native`),
 saving and loading phases, the source's aperture and plots, the expected
 point spread function (a tensor on a device) and the self-test.
 """
@@ -23,6 +24,7 @@ from slmsuite_torch.holography.analysis import fitfunctions
 from slmsuite_torch.misc.files import generate_path, latest_path, load_h5, save_h5
 from slmsuite_torch.misc.host import as_numpy
 from slmsuite_torch.misc.math import REAL_TYPES
+from slmsuite_torch.native import phase2gray_native
 
 
 class SLM(_Picklable, ABC):
@@ -205,16 +207,22 @@ class SLM(_Picklable, ABC):
     def _phase2gray(self, phase, out=None):
         r"""
         Radians to bitdepth-scaled integers. When ``phase_scaling == 1``
-        ``phase`` is left untouched (as the JAX package's native
-        conversion leaves it) and a bitwise modulo wraps a power-of-two
-        bitresolution; otherwise ``phase`` is wrapped in place with
-        ``np.mod``, with the over- and under-range handling of
-        ``phase_scaling != 1``.
+        ``phase`` is left untouched, by the native conversion (tried first,
+        as in the JAX package) and by the numpy passes, where a bitwise
+        modulo wraps a power-of-two bitresolution; otherwise ``phase`` is
+        wrapped in place with ``np.mod``, with the over- and under-range
+        handling of ``phase_scaling != 1``.
         """
         if out is None:
             out = np.zeros(self.shape, dtype=self.dtype)
 
         if self.phase_scaling == 1:
+            # The native single-pass conversion (C via ctypes) when it is
+            # available; numpy's passes otherwise (native.ROUTES counts
+            # which ran).
+            if phase2gray_native(np.ascontiguousarray(phase), out, self.bitresolution):
+                return out
+
             factor = -(self.bitresolution / 2 / np.pi)
             scaled = phase * factor
 

@@ -580,11 +580,14 @@ class Hologram(_HologramStats):
         return torch.as_tensor(np.asarray(self.amp, np.float32), device=self.device)
 
     def _kernel_device(self):
+        """The propagation kernel as an f32 device tensor (None without
+        one), uploaded once while :attr:`propagation_kernel` is unchanged,
+        as :meth:`_target_device` is."""
         if self.propagation_kernel is None:
             return None
-        return torch.as_tensor(
-            np.asarray(self.propagation_kernel, np.float32), device=self.device
-        )
+        return self._dev_const("propagation_kernel", self.propagation_kernel,
+                               lambda k: torch.tensor(np.asarray(k, np.float32),
+                                                      device=self.device))
 
     def get_farfield(self, shape=None, propagation_kernel=None, affine=None, get=True):
         r"""

@@ -259,18 +259,31 @@ def test_losses_match_jax():
 
 
 def test_optimizer_names_and_aliases():
-    """``lr`` is an alias of ``learning_rate``, names are case-insensitive,
-    and an optimizer optax has but the port has not raises, naming its
-    ROADMAP entry."""
+    """``lr`` is an alias of ``learning_rate`` and names are case-insensitive;
+    ``lamb`` and ``lion`` run (on ``Hologram.optimize("CG")`` too); a name
+    optax lacks raises ``AttributeError`` and ``lbfgs`` optax's
+    ``TypeError`` at its update, as ``getattr(optax, name)(**kwargs)`` does
+    in the JAX package; one of optax's building blocks raises
+    ``NotImplementedError`` naming its ROADMAP line."""
     a = TO.get_optimizer("SGD", {"lr": 0.5})
     b = TO.get_optimizer("sgd", {"learning_rate": 0.5})
     psi, g = torch.ones(3), torch.full((3,), 0.2)
     assert torch.equal(a.update(g, a.init(psi), psi)[0], b.update(g, b.init(psi), psi)[0])
-    with pytest.raises(NotImplementedError, match="the other optax optimizers"):
-        TO.get_optimizer("lamb", {"learning_rate": 0.1})
+    lamb = TO.get_optimizer("lamb", {"learning_rate": 0.1})
+    assert not torch.equal(lamb.update(g, lamb.init(psi), psi)[0], psi)
     holo = T.Hologram(np.ones((64, 64)))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        holo.optimize("CG", maxiter=2, verbose=False, optimizer="lion")
+    holo.reset_phase(np.random.default_rng(2).uniform(-np.pi, np.pi, (64, 64)))
+    holo.optimize("CG", maxiter=2, verbose=False, optimizer="lion")
+    assert holo.iter == 2 and np.isfinite(holo.flags["loss_result"])
+    with pytest.raises(AttributeError, match="has no attribute 'not_an_optimizer'"):
+        TO.get_optimizer("not_an_optimizer", {"learning_rate": 0.1})
+    with pytest.raises(AttributeError):
+        getattr(optax, "not_an_optimizer")
+    lbfgs = TO.get_optimizer("lbfgs", {"learning_rate": 0.1})
+    with pytest.raises(TypeError, match="'value', 'grad', and 'value_fn'"):
+        lbfgs.update(g, lbfgs.init(psi), psi)
+    with pytest.raises(NotImplementedError, match="item 13, 'optax's building blocks'"):
+        TO.get_optimizer("scale_by_adam", {})
 
 
 # ----------------------------------------------------------------------

@@ -11,7 +11,8 @@ installed (through torch.hub), so the check is on what the port adds.
 A static check reads every module of the port and ``chip_smoke.py``
 with ``ast``: none imports jax or the JAX package, and none imports
 ``cv2`` or ``tqdm`` outside a function (the machine with the card has
-neither).
+neither), nor pyglet or a vendor SDK (the drivers import theirs when
+hardware is built).
 """
 
 import ast
@@ -178,3 +179,52 @@ def test_examples_and_remote_files_are_checked():
     for name in ("hardware/remote.py", "hardware/cameras/remote.py", "hardware/slms/remote.py",
                  "misc/profile.py"):
         assert os.path.join("slmsuite_torch", *name.split("/")) in checked
+
+
+SDK_MODULES = {"pyglet", "hid", "vmbpy", "pypylon", "PySpin", "imagingcontrol4", "instrumental",
+               "mvsdk", "pymmcore", "pylablib", "thorlabs_tsi_sdk", "holoeye", "ipywidgets",
+               "IPython", "ipyevents"}
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_port_source_imports_no_sdk_on_import(path):
+    """pyglet, the vendor SDKs and the notebook widgets are imported when
+    hardware (or a viewer) is built, never when a module of the port (or
+    chip_smoke.py) is imported."""
+    with open(path) as handle:
+        tree = ast.parse(handle.read(), filename=path)
+    roots = {name.split(".")[0] for name in _imports_outside_functions(tree)}
+    assert not roots & SDK_MODULES, sorted(roots)
+
+
+def test_drivers_viewer_and_native_files_are_checked():
+    """The static checks above read the vendor drivers, the window and
+    viewer modules, the native helpers' build module and the optimizers."""
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    names = ["hardware/_pyglet.py", "hardware/cameras/_viewer.py", "native/__init__.py",
+             "ops/optim.py"]
+    names += [f"hardware/cameras/{n}.py" for n in (
+        "alliedvision", "basler", "flir", "imagingsource", "instrumental", "mindvision",
+        "mmcore", "pylablib", "template", "thorlabs", "webcam", "xenics")]
+    names += [f"hardware/slms/{n}.py" for n in (
+        "hamamatsu", "holoeye", "meadowlark", "santec", "screenmirrored", "template",
+        "texasinstruments", "thorlabs")]
+    for name in names:
+        assert os.path.join("slmsuite_torch", *name.split("/")) in checked, name
+
+
+def test_every_module_of_the_jax_package_has_a_port_file():
+    """Each ``slmsuite_tpu/**/*.py`` has a file at the same place in
+    ``slmsuite_torch/``, but the two Pallas modules, whose kernels are the
+    port's ``ops/cuda_fft.py``, ``ops/cuda_compressed.py`` and ``csrc/``."""
+    def tree(package):
+        base = os.path.join(ROOT, package)
+        return {os.path.relpath(os.path.join(folder, f), base)
+                for folder, _, files in os.walk(base) for f in files
+                if f.endswith((".py", ".c", ".csv", ".yaml"))}
+
+    missing = tree("slmsuite_tpu") - tree("slmsuite_torch")
+    assert missing == {os.path.join("ops", "pallas_fft.py"),
+                       os.path.join("ops", "pallas_compressed.py")}

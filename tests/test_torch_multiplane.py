@@ -416,6 +416,25 @@ def test_multiplane_hologram_plumbing():
     np.testing.assert_allclose(tholo.weights, jholo.weights, rtol=1e-6)
 
 
+def test_propagation_kernel_is_uploaded_once_while_unchanged():
+    """Each child's kernel reaches the device once: the same tensor on every
+    call (a CG call of a multiplane hologram made one upload a child), a new
+    one after the kernel is replaced or edited in place, with its values."""
+    holo = T.MultiplaneHologram(_children(T))
+    child = holo.holograms[1]
+    first = child._kernel_device()
+    assert first is child._kernel_device()
+    np.testing.assert_array_equal(first.numpy(), child.propagation_kernel)
+    child.propagation_kernel[:] += 1
+    edited = child._kernel_device()
+    assert edited is not first
+    np.testing.assert_array_equal(edited.numpy(), child.propagation_kernel)
+    child.propagation_kernel = child.propagation_kernel * 2
+    assert child._kernel_device() is not edited
+    np.testing.assert_array_equal(child._kernel_device().numpy(), child.propagation_kernel)
+    assert T.Hologram(np.ones((N, N)), device="cpu")._kernel_device() is None
+
+
 def test_multiplane_hologram_refusals():
     """``optimize(mesh=...)`` on a mesh the planes do not divide warns and
     runs the host meta loop, as in the JAX package

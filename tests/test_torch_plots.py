@@ -245,8 +245,13 @@ def test_camera_plot_and_test_match_jax():
                      _axes_of(lambda: jcam.plot(image, **kw)))
     _axes_of(lambda: tcam.plot())
     assert tcam.test() is True
-    with pytest.raises(NotImplementedError, match="item 12, part two"):
-        tcam.live()
+    for cam in (tcam, jcam):
+        with pytest.raises(ValueError, match="Unsupported live"):
+            cam.live(backend="qt")
+        cam.live(widgets=False)
+        assert cam.viewer is not None and cam.viewer.prev_img is not None
+        cam.live(False)
+        assert cam.viewer is None
 
 
 # ----------------------------------------------------------------------
