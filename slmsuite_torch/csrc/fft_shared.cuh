@@ -60,19 +60,35 @@ constexpr int kThreads = 256;
 // table; staging the table in shared memory changed nothing, its banks
 // conflict the same way.)
 //
-// Lines that are not a power of two (mixed lines): n = 8 m, m > 1 given at
-// run time and not a power of two (any other side that is a multiple of 8
-// in [64, 8192]). A four-step split: the line's m threads are m interleaved
-// 8-point lines (thread s holds the points s + q m, q < 8, of line b = s:
-// one radix-8 pass in registers, no exchange), then each output k1 of line
-// b is rotated by w_n^(b k1) into slot k1 m + b, and the m-point DFTs over
-// b run as Stockham passes of the prime factors r of m (2 first), through
-// shared memory, each output a direct r-term sum (m_passes). These are
-// right, not tuned: a prime factor r costs r table reads and shared-memory
-// reads a point, and every mixed length is one instantiation (kMixedLine),
-// so that the build stays short. The twiddle index of those passes reaches
-// n: above n / 2 the table gives -tw[m - n / 2]. A mixed line takes one
-// block a line group (no cluster).
+// Lines that are not a power of two (mixed lines): n = P m, P = 8 where n
+// has three or five factors of 2, else P = 16, the points a thread holds
+// (any other side that is a multiple of 8 in [64, 8192]; ops/cuda_fft.py's
+// line_split). A four-step split: the line's m threads are m interleaved
+// P-point lines (thread s holds the points s + q m, q < P, of line s: one
+// radix-P butterfly in registers, no exchange), then output k1 of line s
+// is rotated by w_n^(s k1) (two table reads a thread, the other powers by
+// products) into point s of the m-point line k1, and the m-point DFTs run
+// as Stockham passes between the two halves of the line's buffer in
+// shared memory (m_part; one barrier a pass): the power of two of m in
+// passes of radix 4, 8 or 16, then its odd part, its 3s in pairs as 9 and
+// a 3 with a 5 as 15 (1080 = 8 * 9 * 15, 1152 = 16 * 8 * 9, 1920 = 16 * 8
+// * 15, 6144 = 16 * 16 * 8 * 3). Radices up to 16 are butterflies in
+// registers with their rotations as constants (m_pass: ceil(P / r)
+// butterflies a thread, one at a time, one table read a butterfly, two
+// from radix 8 on, the other powers by products); a prime of 11 or more
+// is a direct sum (m_pass_direct). The passes' radices, strides, counts
+// and the multipliers that divide without a division (m_div) are the
+// host's (cuda_fft.m_pass_table), read from after the line's table of
+// twiddles; the branch on the radix is uniform across the block. Point j
+// of the m-point line k1 sits in slot j (P + 1) + k1, so that a thread's P
+// writes fall on distinct banks across a warp and the line's output x = k1
+// + P k2 sits in slot x + x / P, where the last read finds it. Two plans
+// in all (P = 8, 16), one block a line group (no cluster). The first
+// design of the mixed lines (P = 8, one pass a prime factor of m, 2
+// included, each output a direct sum with a table read a term) reached 9%
+// of the bound at 1152x1920; a single buffer, each thread holding all its
+// butterflies of a pass across the barrier, spilled 1 KB a thread at P =
+// 16 under the 64 registers of a block of 1024.
 //
 // A line may be shared by a cluster of G blocks (G = 1: one block). The
 // line's T = n / E threads go to the blocks in groups of 8: block g holds
@@ -97,10 +113,9 @@ constexpr int kThreads = 256;
 
 // A line's plan code (template parameter LINE of the kernels): log2 of the
 // line's power-of-two part P, plus kMixed for a mixed line. A power-of-two
-// line's code is its log2 (P = n); every mixed line's is kMixedLine (P = 8,
-// n = 8 m with m given to the kernel at run time).
+// line's code is its log2 (P = n); a mixed line's kMixed + 3 or kMixed + 4
+// (P = 8 or 16, n = P m with m given to the kernel at run time).
 constexpr int kMixed = 16;
-constexpr int kMixedLine = kMixed + 3;
 __host__ __device__ constexpr int line_log2(int line) { return line & (kMixed - 1); }
 __host__ __device__ constexpr bool line_mixed(int line) { return line >= kMixed; }
 
@@ -108,7 +123,7 @@ __host__ __device__ constexpr int line_passes(int line) {
   return line_log2(line) <= 4 ? 1 : line_log2(line) <= 8 ? 2 : line_log2(line) <= 12 ? 3 : 4;
 }
 // Radix of pass `pass` of the power-of-two part: 8 first, 16 for what is
-// left (a mixed line's 8-point lines: one radix-8 pass).
+// left (a mixed line's P-point lines: one radix-P pass).
 __host__ __device__ constexpr int line_radix(int line, int pass) {
   return pass < 4 * line_passes(line) - line_log2(line) ? 8 : 16;
 }
@@ -127,7 +142,7 @@ __host__ __device__ constexpr int line_pitch(int line) {
 }
 __device__ __forceinline__ int line_pad(int m) { return m + (m >> 4); }
 
-// A line of the plan `LINE`: its factor m (n = m P; 1 unless mixed), and
+// A line of the plan `LINE`: its factor m (n = P m; 1 unless mixed), and
 // what follows from it. For a power-of-two line every member is a constant.
 template <int LINE>
 struct Line {
@@ -138,7 +153,11 @@ struct Line {
   __host__ __device__ __forceinline__ int len() const {
     return line_mixed(LINE) ? m << line_log2(LINE) : 1 << line_log2(LINE);
   }
-  __host__ __device__ __forceinline__ int pitch() const { return len() + len() / 16; }
+  // Slots of the line's exchange buffer (a mixed line: two halves of m
+  // rows of P + 1, m_part's buffers).
+  __host__ __device__ __forceinline__ int pitch() const {
+    return line_mixed(LINE) ? 2 * (len() + m) : len() + len() / 16;
+  }
 };
 
 // a * (+-i): -i forward, +i inverse.
@@ -325,6 +344,170 @@ __device__ __forceinline__ void line_passes_from(float2 (&v)[line_points(LINE)],
   }
 }
 
+// ----------------------------------------------------------------------
+// The m-point part of a mixed line (n = P m, P = 1 << L = 8 or 16; see the
+// note at the top). The line's m threads s < m; point j of the m-point
+// line k1 in slot j (P + 1) + k1 of the buffer (slot stride ms).
+// ----------------------------------------------------------------------
+
+// A mixed line's pass table (cuda_fft.m_pass_table), after the n / 2
+// twiddles of n: the number of passes, then kPlanStride ints a pass.
+constexpr int kPlanStride = 8;
+struct MPass {
+  int r;            // radix
+  int p;            // product of the radices before it
+  int mr;           // m / r
+  int tws;          // n / (p r): the table's stride for w_(p r)
+  int nb;           // n / r: butterflies of the line
+  unsigned div_p;   // multipliers of p and p r (m_div)
+  unsigned div_pr;
+};
+
+__device__ __forceinline__ MPass m_pass_at(const int* __restrict__ plan, int pass) {
+  const int* q = plan + 1 + pass * kPlanStride;
+  return {__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3), __ldg(q + 4),
+          (unsigned)__ldg(q + 5), (unsigned)__ldg(q + 6)};
+}
+
+// x / d for the x and d below 2^12 of a mixed line's passes, from d's
+// multiplier ceil(2^24 / d) (exact while x (ceil(2^24 / d) d - 2^24) <
+// 2^24): a multiply-high, no division on a point's path.
+__device__ __forceinline__ int m_div(int x, unsigned magic) {
+  return (int)__umulhi((unsigned)x << 8, magic);
+}
+
+// u[t] times w^t, 0 < t < R, each power formed just before its product,
+// so that no table of powers is live: from R = 8 on from w and w4 = w^4
+// read from the table, w^(4a + b) = (w^4)^a w^b as line_pass forms them;
+// else by products, w^2 = w w, w^3 = w^2 w, w^4 = w^2 w^2, w^5 = w^4 w,
+// w^6 = w^3 w^3.
+template <int R>
+__device__ __forceinline__ void m_rotate(float2 (&u)[R], float2 w, float2 w4) {
+  const float2 w2 = cmul(w, w);
+  u[1] = cmul(u[1], w);
+  u[2] = cmul(u[2], w2);
+  if constexpr (R > 3) {
+    const float2 w3 = cmul(w2, w);
+    u[3] = cmul(u[3], w3);
+    if constexpr (R >= 8) {
+      float2 hi = w4;
+#pragma unroll
+      for (int a = 1; 4 * a < R; ++a) {
+        if (a == 2) hi = cmul(w4, w4);
+        if (a == 3) hi = cmul(hi, w4);
+        u[4 * a] = cmul(u[4 * a], hi);
+        if (4 * a + 1 < R) u[4 * a + 1] = cmul(u[4 * a + 1], cmul(hi, w));
+        if (4 * a + 2 < R) u[4 * a + 2] = cmul(u[4 * a + 2], cmul(hi, w2));
+        if (4 * a + 3 < R) u[4 * a + 3] = cmul(u[4 * a + 3], cmul(hi, w3));
+      }
+    } else if constexpr (R > 4) {
+      const float2 w4p = cmul(w2, w2);
+      u[4] = cmul(u[4], w4p);
+      if constexpr (R > 5) {
+        u[5] = cmul(u[5], cmul(w4p, w));
+        u[6] = cmul(u[6], cmul(w3, w3));
+      }
+    }
+  }
+}
+
+// cos and sin of 2 pi j / R for the odd radices R = 3, 5, 7, 9, 15 and
+// 0 <= j <= R / 2 (j = 0 where R is not a prime: u k = 0 mod R).
+__host__ __device__ constexpr float odd_cos(int R, int j) {
+  return j == 0 ? 1.f
+         : R == 3 ? (-0.500000000f)
+         : R == 5 ? (j == 1 ? 0.309016994f : -0.809016994f)
+         : R == 7 ? (j == 1 ? 0.623489802f : j == 2 ? -0.222520934f : -0.900968868f)
+         : R == 9 ? (j == 1 ? 0.766044443f : j == 2 ? 0.173648178f : j == 3 ? -0.500000000f :
+                     -0.939692621f)
+         : (j == 1 ? 0.913545458f : j == 2 ? 0.669130606f : j == 3 ? 0.309016994f :
+            j == 4 ? -0.104528463f : j == 5 ? -0.500000000f : j == 6 ? -0.809016994f :
+            -0.978147601f);
+}
+__host__ __device__ constexpr float odd_sin(int R, int j) {
+  return j == 0 ? 0.f
+         : R == 3 ? (0.866025404f)
+         : R == 5 ? (j == 1 ? 0.951056516f : 0.587785252f)
+         : R == 7 ? (j == 1 ? 0.781831482f : j == 2 ? 0.974927912f : 0.433883739f)
+         : R == 9 ? (j == 1 ? 0.642787610f : j == 2 ? 0.984807753f : j == 3 ? 0.866025404f :
+                     0.342020143f)
+         : (j == 1 ? 0.406736643f : j == 2 ? 0.743144825f : j == 3 ? 0.951056516f :
+            j == 4 ? 0.994521895f : j == 5 ? 0.866025404f : j == 6 ? 0.587785252f :
+            0.207911691f);
+}
+
+// Radix-R butterfly (R = 3, 5, 7, 9, 15) on a[0..R), in place, natural
+// order out: s_u = a_u + a_(R-u), d_u = a_u - a_(R-u), then outputs k and
+// R - k as re +- (-+i) im, re = a_0 + sum_u s_u cos(2 pi u k / R), im =
+// sum_u d_u sin(2 pi u k / R), the cosines and sines constants.
+template <int R, bool INV>
+__device__ __forceinline__ void odd_radix(float2 (&a)[R]) {
+  constexpr int H = R / 2;
+  float2 s[H + 1], d[H + 1];
+#pragma unroll
+  for (int u = 1; u <= H; ++u) {
+    s[u] = cadd(a[u], a[R - u]);
+    d[u] = csub(a[u], a[R - u]);
+  }
+  const float2 a0 = a[0];
+#pragma unroll
+  for (int u = 1; u <= H; ++u) a[0] = cadd(a[0], s[u]);
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 re = a0, im = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int u = 1; u <= H; ++u) {
+      const int j = u * k % R;
+      const float c = odd_cos(R, j <= H ? j : R - j);
+      const float sn = j <= H ? odd_sin(R, j) : -odd_sin(R, R - j);
+      re = make_float2(re.x + s[u].x * c, re.y + s[u].y * c);
+      im = make_float2(im.x + d[u].x * sn, im.y + d[u].y * sn);
+    }
+    const float2 t = mul_i<INV>(im);
+    a[k] = cadd(re, t);
+    a[R - k] = csub(re, t);
+  }
+}
+
+// The butterfly of radix R in natural order (3, 4, 5, 7, 8, 9, 15, 16).
+template <int R, bool INV>
+__device__ __forceinline__ void m_butterfly(float2 (&u)[R]) {
+  if constexpr (R == 4) fft4<INV>(u[0], u[1], u[2], u[3]);
+  else if constexpr (R == 8 || R == 16) radix<R, INV>(u);
+  else odd_radix<R, INV>(u);
+}
+
+// One butterfly pass of radix R over the m-point lines, from the buffer
+// `src` into `dst`: butterfly b = s + c m, c < ceil(P / R), of the line's
+// n / R takes the line k1 = b mod P, i = b / P < m / R, k = i mod p, the
+// inputs i + t m / R rotated by w_(p R)^(t k) (w from the table, w^4 too at
+// 8 and 16), and writes output t to (i - k) R + k + t p. The barrier before
+// it makes the last pass's writes visible and ends its reads of `dst`.
+template <int L, bool INV, int R>
+__device__ __forceinline__ void m_pass(const float2* src, float2* dst, int ms, int s, int m,
+                                       const float2* __restrict__ tw, const MPass& mp) {
+  constexpr int P = 1 << L, NB = (P + R - 1) / R;
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    const int b = s + c * m;
+    if (b < mp.nb) {
+      const int k1 = b & (P - 1), i = b >> L;
+      const int jj = m_div(i, mp.div_p), k = i - jj * mp.p;
+      float2 u[R];
+#pragma unroll
+      for (int t = 0; t < R; ++t) u[t] = src[((i + t * mp.mr) * (P + 1) + k1) * ms];
+      if (mp.p > 1)
+        m_rotate<R>(u, __ldg(&tw[k * mp.tws]),
+                    R >= 8 ? __ldg(&tw[4 * k * mp.tws]) : make_float2(0.f, 0.f));
+      m_butterfly<R, INV>(u);
+      const int at = (jj * mp.p * R + k) * (P + 1) + k1;
+#pragma unroll
+      for (int t = 0; t < R; ++t) dst[(at + t * mp.p * (P + 1)) * ms] = u[t];
+    }
+  }
+}
+
 // Entry `at` < n of the rotations exp(-+ 2 pi i at / n) from the table of
 // n / 2 entries.
 __device__ __forceinline__ float2 tw_full(const float2* __restrict__ tw, int at, int half) {
@@ -333,62 +516,80 @@ __device__ __forceinline__ float2 tw_full(const float2* __restrict__ tw, int at,
   return make_float2(-w.x, -w.y);
 }
 
-// The m-point part of a mixed line (n = m P, P = 8; see the note at the
-// top): the P-point lines' outputs, in the registers of line_fft's P-point
-// layout, rotated by w_n^(b k1) into slot k1 m + b, then one Stockham pass
-// for each prime factor r of m (smallest first), output-driven: output o
-// of the m-point line k1 after a pass of radix r on p = the product of the
-// radices before it is sum_j x[i + j m / r] w_(p r)^(j (o mod p r)), i =
-// (o / (p r)) p + o mod p. Thread s computes the points s + q T of the
-// buffer (slot k1 m + o) in every pass but the last, whose points s + q T
-// are the line's outputs k1 + P o, so that it leaves them in line_fft's
-// layout. Block barriers only (a mixed line has no cluster).
-template <int LINE, bool INV>
-__device__ __forceinline__ void m_passes(float2 (&v)[line_points(LINE)], float2* line,
-                                         int ms, int s, const float2* __restrict__ tw,
-                                         int m) {
-  constexpr int L = line_log2(LINE), E = line_points(LINE), TP = line_threads(LINE);
-  const int T = m * TP, n = m << L, half = n >> 1;
-  const int b = s % m, s2 = s / m;
+// One direct pass of a prime r of 11 or more, output-driven, from `src`
+// into `dst`: thread s computes the points x = s + q m, q < P, output o = x
+// / P of the line k1 = x mod P (slot o (P + 1) + k1 = x + x / P), as sum_j
+// x[i + j m / r] w_(p r)^(j (o mod p r)), i = (o / (p r)) p + o mod p, the
+// exponent stepped mod p r and each rotation read from the table.
+template <int L, bool INV>
+__device__ __forceinline__ void m_pass_direct(const float2* src, float2* dst, int ms, int s,
+                                              int m, const float2* __restrict__ tw,
+                                              const MPass& mp) {
+  constexpr int P = 1 << L;
+  const int half = (m << L) >> 1, pr = mp.p * mp.r, stride = mp.mr * (P + 1) * ms;
   __syncthreads();
 #pragma unroll
-  for (int q = 0; q < E; ++q) {
-    const int k1 = s2 + q * TP;
-    line[line_pad(k1 * m + b) * ms] = cmul(v[q], tw_full(tw, b * k1, half));
+  for (int q = 0; q < P; ++q) {
+    const int x = s + q * m, o = x >> L;
+    const int q1 = m_div(o, mp.div_pr), e0 = o - q1 * pr;
+    const int i = q1 * mp.p + e0 - m_div(e0, mp.div_p) * mp.p;
+    const float2* in = src + (i * (P + 1) + (x & (P - 1))) * ms;
+    float2 a = in[0];
+    for (int j = 1, e = e0; j < mp.r; ++j) {
+      a = cadd(a, cmul(in[j * stride], tw_full(tw, e * mp.tws, half)));
+      e += e0;
+      if (e >= pr) e -= pr;
+    }
+    dst[(x + (x >> L)) * ms] = a;
+  }
+}
+
+// The m-point part of a mixed line, after the P-point butterflies: v[k1]
+// of thread s, times w_n^(s k1) (m_rotate: w = tw[s], w^4 = tw[4 s], both
+// below n / 2), into point s of the m-point line k1, the passes of the
+// table after the twiddles, each from one half of the buffer into the
+// other (n + m slots each), and the line's points s + q m back into v
+// (line_fft's layout). A thread holds one butterfly at a time and v
+// nothing between the rotation and the last read, so that the passes fit
+// the registers of a block of 1024 threads; one barrier a pass.
+template <int LINE, bool INV>
+__device__ __forceinline__ void m_part(float2 (&v)[line_points(LINE)], float2* line, int ms,
+                                       int s, const float2* __restrict__ tw, int m) {
+  constexpr int L = line_log2(LINE), P = 1 << L;
+  const int n = m << L;
+  m_rotate<P>(v, __ldg(&tw[s]), __ldg(&tw[4 * s]));
+#pragma unroll
+  for (int k1 = 0; k1 < P; ++k1) line[(s * (P + 1) + k1) * ms] = v[k1];
+  float2* src = line;
+  float2* dst = line + (n + m) * ms;
+  const int* plan = reinterpret_cast<const int*>(tw + n / 2);
+  const int passes = __ldg(plan);
+  for (int pass = 0; pass < passes; ++pass) {
+    const MPass mp = m_pass_at(plan, pass);
+    switch (mp.r) {
+      case 3: m_pass<L, INV, 3>(src, dst, ms, s, m, tw, mp); break;
+      case 4: m_pass<L, INV, 4>(src, dst, ms, s, m, tw, mp); break;
+      case 5: m_pass<L, INV, 5>(src, dst, ms, s, m, tw, mp); break;
+      case 7: m_pass<L, INV, 7>(src, dst, ms, s, m, tw, mp); break;
+      case 9: m_pass<L, INV, 9>(src, dst, ms, s, m, tw, mp); break;
+      case 15: m_pass<L, INV, 15>(src, dst, ms, s, m, tw, mp); break;
+      case 8:
+        if constexpr (P == 16) m_pass<L, INV, 8>(src, dst, ms, s, m, tw, mp);
+        break;
+      case 16:
+        if constexpr (P == 16) m_pass<L, INV, 16>(src, dst, ms, s, m, tw, mp);
+        break;
+      default: m_pass_direct<L, INV>(src, dst, ms, s, m, tw, mp);
+    }
+    float2* t = src;
+    src = dst;
+    dst = t;
   }
   __syncthreads();
-  int p = 1, rest = m;
-  while (rest > 1) {
-    int r = 2;
-    while (rest % r) r += r == 2 ? 1 : 2;
-    rest /= r;
-    const int pr = p * r, stride = m / r, step = n / pr;
-    float2 acc[E];
 #pragma unroll
-    for (int q = 0; q < E; ++q) {
-      const int x = s + q * T;
-      const int k1 = rest == 1 ? x & ((1 << L) - 1) : x / m;
-      const int o = rest == 1 ? x >> L : x - k1 * m;
-      const int e0 = o % pr;
-      const int at = k1 * m + (o / pr) * p + o % p;
-      float2 a = line[line_pad(at) * ms];
-      for (int j = 1, e = e0; j < r; ++j) {
-        a = cadd(a, cmul(line[line_pad(at + j * stride) * ms], tw_full(tw, e * step, half)));
-        e += e0;
-        if (e >= pr) e -= pr;
-      }
-      acc[q] = a;
-    }
-    if (rest > 1) {
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < E; ++q) line[line_pad(s + q * T) * ms] = acc[q];
-      __syncthreads();
-    } else {
-#pragma unroll
-      for (int q = 0; q < E; ++q) v[q] = acc[q];
-    }
-    p = pr;
+  for (int q = 0; q < P; ++q) {
+    const int x = s + q * m;
+    v[q] = src[(x + (x >> L)) * ms];
   }
 }
 
@@ -400,8 +601,8 @@ __device__ __forceinline__ void m_passes(float2 (&v)[line_points(LINE)], float2*
 // ln.len() points); with G > 1 blocks to a line, s comes from line_thread
 // and `line` is the block's own buffer (ln.pitch() / G slots).
 // Every thread of the block, and every block of the cluster, must call it: it
-// has barriers (one to three exchanges; a mixed line two, and two for
-// each prime factor of m but the last). Threads may still be reading the
+// has barriers (one to three exchanges; a mixed line one a pass over m
+// and one before its last read). Threads may still be reading the
 // buffer when others return: a caller that writes it again (a second
 // transform, another line) puts a barrier in between.
 template <int LINE, bool INV, int G = 1>
@@ -411,11 +612,11 @@ __device__ __forceinline__ void line_fft(float2 (&v)[line_points(LINE)], float2*
   if constexpr (!line_mixed(LINE)) {
     line_passes_from<LINE, INV, G>(v, line, ms, s, tw);
   } else {
-    // The 8-point lines: one radix-8 butterfly on the thread's registers.
-    static_assert(G == 1 && line_points(LINE) == 8 && line_threads(LINE) == 1,
-                  "a mixed line: 8-point lines of one thread, one block");
-    radix<8, INV>(v);
-    m_passes<LINE, INV>(v, line, ms, s, tw, ln.m);
+    // The P-point lines: one radix-P butterfly on the thread's registers.
+    static_assert(G == 1 && line_threads(LINE) == 1,
+                  "a mixed line: P-point lines of one thread, one block");
+    radix<line_points(LINE), INV>(v);
+    m_part<LINE, INV>(v, line, ms, s, tw, ln.m);
   }
 }
 
@@ -582,7 +783,7 @@ __device__ __forceinline__ void store_row_regs(const float2 (&v)[line_points(LIN
 
 // Most threads a block of a row kernel on line_fft may have (its launch
 // bound): kThreads up to 4096 points, one 8192-point line of 512 threads,
-// and a mixed line's up to 1023.
+// and a mixed line's up to 1023 (8184 = 8 * 1023).
 __host__ __device__ constexpr int rows_max_threads(int line) {
   return line_mixed(line) ? 1024 : line <= 12 ? kThreads : 512;
 }
@@ -648,13 +849,17 @@ inline int ilog2(int n) {
 }
 
 // The plan code of a line of n points (a power of two: log2 n; any other
-// length: kMixedLine, n = 8 m), with m in *m; -1 for a length the kernels
-// do not take (a multiple of 8 in [64, 8192]).
+// length: kMixed + log2 P, n = P m, P = 8 where n has three or five
+// factors of 2, else 16; cuda_fft.line_split), with m in *m; -1 for a
+// length the kernels do not take (a multiple of 8 in [64, 8192]).
 inline int line_code(int n, int* m) {
   if (n < 64 || n > 8192 || n % 8) return -1;
   if (n & (n - 1)) {
-    *m = n / 8;
-    return kMixedLine;
+    int twos = 0;
+    while (!((n >> twos) & 1)) ++twos;
+    const int log2p = twos == 3 || twos == 5 ? 3 : 4;
+    *m = n >> log2p;
+    return kMixed + log2p;
   }
   *m = 1;
   return ilog2(n);
@@ -665,9 +870,13 @@ inline int line_code(int n, int* m) {
 // multiple of every tile): the power-of-two lines' launch_shape, with the
 // rows a block or the tile narrowed to the largest power of two that
 // divides `other` (at least 8: the sides are multiples of 8); a mixed
-// line's, its rows a block (up to 8) and tile (up to 32, 8 beyond 64
-// threads a line) as many as fill 256 and 512 threads, one block a tile,
-// with fewer where one line's threads fill more. lines 0: no launch.
+// line's (m threads a line), its rows a block (up to 8) as many as fill 128
+// threads (small blocks: more of them an SM, so that one block's barriers
+// overlap another's loads) and its tile (up to 32, 8 beyond 64 threads a
+// line) as many as
+// fill 512 threads, or 1024 for a tile of 8, and 227 KB of shared memory
+// (two halves of n + m slots a line), one block a tile, with fewer where
+// one line's threads fill more. lines 0: no launch.
 inline LaunchShape line_launch(int kernel, int n, int other) {
   int m = 0;
   const int code = line_code(n, &m);
@@ -679,14 +888,17 @@ inline LaunchShape line_launch(int kernel, int n, int other) {
   } else {
     const int T = m * line_threads(code);
     int lines = cols ? 32 : 8;
-    while (lines > 1 && lines * T > (cols ? (lines > 8 ? 512 : 1024) : 256)) lines /= 2;
+    while (lines > 1 && (lines * T > (!cols ? 128 : lines <= 8 ? 1024 : 512) ||
+                         lines * 2 * (n + m) * (int)sizeof(float2) > 227 * 1024))
+      lines /= 2;
     shape = {lines, 1, 0, 0};
   }
   const int low = other ? other & -other : shape.lines;
   if (shape.lines > low) shape.lines = low;
   const int T = m * line_threads(code);
   shape.threads = shape.lines * T / shape.cluster;
-  shape.smem = shape.lines * (n + n / 16) / shape.cluster * (int)sizeof(float2);
+  const int pitch = line_mixed(code) ? 2 * (n + m) : n + n / 16;
+  shape.smem = shape.lines * pitch / shape.cluster * (int)sizeof(float2);
   return shape;
 }
 
@@ -701,7 +913,7 @@ inline int cols_blocks(int kernel, int n, int W) {
 
 // Each source of the line kernels builds as two objects that nvcc compiles
 // in parallel (cuda_fft.build): the power-of-two plans, and with
-// SLM_UNIT_MIXED=1 the mixed plan alone. A launcher's switch instantiates
+// SLM_UNIT_MIXED=1 the two mixed plans (P = 8, 16) alone. A launcher's switch instantiates
 // the unit's plan codes; its extern "C" entry is `name` in the first unit
 // and `name_mixed` in the second (SLM_ENTRY), and the wrappers call the
 // one of the line's length (cuda_fft._entry). Code that instantiates no
@@ -712,7 +924,7 @@ inline int cols_blocks(int kernel, int n, int W) {
 
 // The cases of a launcher's switch on 2 * line_code(n) + inverse: one
 // instantiation per plan code of the unit (power-of-two lengths 64..8192;
-// every mixed length) and direction.
+// the mixed lengths' two) and direction.
 #define SLM_LINE_CASE(fn, line, ...)                      \
   case 2 * (line): return fn<line, false>(__VA_ARGS__);   \
   case 2 * (line) + 1: return fn<line, true>(__VA_ARGS__);
@@ -720,8 +932,10 @@ inline int cols_blocks(int kernel, int n, int W) {
 #define SLM_LEN_CASE(fn, line, ...) case line: return fn<line>(__VA_ARGS__);
 #if SLM_UNIT_MIXED
 #define SLM_ENTRY(name) name##_mixed
-#define SLM_LINE_CASES(fn, ...) SLM_LINE_CASE(fn, kMixedLine, __VA_ARGS__)
-#define SLM_LEN_CASES(fn, ...) SLM_LEN_CASE(fn, kMixedLine, __VA_ARGS__)
+#define SLM_LINE_CASES(fn, ...) \
+  SLM_LINE_CASE(fn, kMixed + 3, __VA_ARGS__) SLM_LINE_CASE(fn, kMixed + 4, __VA_ARGS__)
+#define SLM_LEN_CASES(fn, ...) \
+  SLM_LEN_CASE(fn, kMixed + 3, __VA_ARGS__) SLM_LEN_CASE(fn, kMixed + 4, __VA_ARGS__)
 #else
 #define SLM_ENTRY(name) name
 #define SLM_LINE_CASES(fn, ...)                                          \

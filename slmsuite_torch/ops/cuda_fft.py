@@ -219,10 +219,16 @@ def _lib():
 @functools.lru_cache(maxsize=512)
 def _twiddles(n, inverse, device):
     """exp(sign 2 pi i k / n), k < n/2, computed in float64, stored f32
-    as (n/2, 2) (re, im) pairs on ``device``."""
+    as (n/2, 2) (re, im) pairs on ``device``. A mixed line's table goes on
+    with the table of its passes (:meth:`m_pass_table`, int32 bits in the
+    f32 pairs), which the kernels read at ``tw + n / 2``."""
     sign = 1.0 if inverse else -1.0
     w = np.exp(sign * 2j * np.pi * np.arange(n // 2) / n)
     table = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+    if n & (n - 1):
+        plan = m_pass_table(n)
+        plan = np.concatenate([plan, np.zeros(len(plan) % 2, np.int32)])
+        table = np.concatenate([table, plan.view(np.float32).reshape(-1, 2)])
     return torch.from_numpy(table).to(device)
 
 
@@ -234,65 +240,107 @@ def _twiddles(n, inverse, device):
 
 
 def line_split(n):
-    """``(P, m)`` of a line of ``n`` points, ``n = m * P``: ``(n, 1)`` for a
-    power of two, else ``(8, n // 8)``, a mixed line: ``m`` interleaved
-    8-point lines, then one pass per prime factor of ``m``."""
-    return (n, 1) if n & (n - 1) == 0 else (8, n // 8)
+    """``(P, m)`` of a line of ``n`` points, ``n = P * m``: ``(n, 1)`` for a
+    power of two; else a mixed line, ``P`` = 8 where ``n`` has three or
+    five factors of 2 and 16 where it has four or more than five: ``m``
+    interleaved P-point lines, one radix-P butterfly each in one thread's
+    registers, then the passes over ``m`` (:meth:`m_radices`) through
+    shared memory."""
+    if n & (n - 1) == 0:
+        return n, 1
+    twos = (n & -n).bit_length() - 1
+    p = 8 if twos in (3, 5) else 16
+    return p, n // p
 
 
 def _pow2_plan(p):
-    """Radices of the passes of a ``p``-point line: one pass at 8 (a mixed
-    line's 8-point lines), two up to 256, three up to 4096, four at 8192,
-    radix 8 first and radix 16 for what is left (2048 = 8 * 16 * 16)."""
+    """Radices of the passes of a ``p``-point line: one pass at 8 and 16
+    (a mixed line's P-point lines), two up to 256, three up to 4096, four
+    at 8192, radix 8 first and radix 16 for what is left (2048 = 8 * 16 *
+    16)."""
     log2p = p.bit_length() - 1
     passes = 1 if log2p <= 4 else 2 if log2p <= 8 else 3 if log2p <= 12 else 4
     sixteens = log2p - 3 * passes
     return (8,) * (passes - sixteens) + (16,) * sixteens
 
 
-def _factors(m):
-    """The prime factors of ``m``, smallest first, with repeats: the
-    radices of a mixed line's passes of ``m``."""
-    factors, r = [], 2
+def m_radices(m):
+    """The radices of a mixed line's passes over ``m``, in the order they
+    run: the power of two of ``m`` (1, 4, 8, ..., 128) in passes of 16, 8
+    and 4, never 2 (32 = 8 * 4, 64 = 16 * 4, 128 = 16 * 8), then the odd
+    part, smallest radix first: its 3s in pairs as 9, a 3 left over with a
+    5 as 15, and the other odd primes with repeats. 3, 5, 7, 9 and 15 are
+    butterflies in registers (:data:`M_BUTTERFLIES`), primes of 11 and
+    above direct sums; each pass is one barrier and one trip through
+    shared memory, so fewer, larger radices are the faster plan."""
+    twos = m & -m
+    radices = []
+    while twos > 1:
+        r = next(r for r in (16, 8, 4) if twos % r == 0 and twos // r != 2)
+        radices.append(r)
+        twos //= r
+    m //= m & -m
+    odd = []
+    r = 3
     while m > 1:
         while m % r == 0:
-            factors.append(r)
+            odd.append(r)
             m //= r
-        r += 1 if r == 2 else 2
-    return tuple(factors)
+        r += 2
+    threes = odd.count(3)
+    odd = [r for r in odd if r != 3] + [9] * (threes // 2) + [3] * (threes % 2)
+    if 3 in odd and 5 in odd:
+        odd.remove(3)
+        odd.remove(5)
+        odd.append(15)
+    return tuple(radices + sorted(odd))
 
 
 def fft_plan(n):
     """The radices of the line FFT's passes for a line of ``n`` points, in
     the order they run: the power-of-two part's register passes
-    (:meth:`_pow2_plan`), then, for a mixed line, one pass for each prime
-    factor of ``m`` (:meth:`line_split`; 1080 = 8 * 3 * 3 * 3 * 5, 1920 =
-    8 * 2 * 2 * 2 * 2 * 3 * 5)."""
+    (:meth:`_pow2_plan`), then, for a mixed line, the passes over ``m``
+    (:meth:`line_split`, :meth:`m_radices`; 1080 = 8 * 9 * 15, 1152 = 16
+    * 8 * 9, 1920 = 16 * 8 * 15, 6144 = 16 * 16 * 8 * 3)."""
     if not kernel_len_ok(n):
         raise ValueError(f"No plan for a line of {n} points.")
     p, m = line_split(n)
-    return _pow2_plan(p) + _factors(m)
+    return _pow2_plan(p) + m_radices(m)
 
 
 def line_points(n):
     """Points of a line that one thread holds in registers: the largest
-    radix of the power-of-two passes. A line takes ``n // line_points(n)``
-    threads, and thread ``s`` holds the points ``s + q * n //
-    line_points(n)`` before the first pass and after the last."""
+    radix of the power-of-two passes (a mixed line's P). A line takes
+    ``n // line_points(n)`` threads, and thread ``s`` holds the points ``s
+    + q * n // line_points(n)`` before the first pass and after the
+    last."""
     fft_plan(n)
     return max(_pow2_plan(line_split(n)[0]))
 
 
 def line_pad(m):
-    """Slot of point ``m`` of a line in the shared-memory exchange buffer:
-    one slot of padding after every 16, so that the first pass's writes
-    (stride 8 or 16) spread over the banks."""
+    """Slot of point ``m`` of a power-of-two line in the shared-memory
+    exchange buffer: one slot of padding after every 16, so that the first
+    pass's writes (stride 8 or 16) spread over the banks."""
     return m + (m >> 4)
 
 
 def line_pitch(n):
-    """Slots of one line in the exchange buffer."""
-    return n + n // 16
+    """Slots of one line in the exchange buffer: ``n + n / 16``, or for a
+    mixed line two halves of ``n + m``, its ``m``-point lines' points in
+    rows of ``P + 1`` slots (:meth:`m_slot`), which each pass over ``m``
+    reads from one and writes to the other."""
+    p, m = line_split(n)
+    return n + n // 16 if m == 1 else 2 * (n + m)
+
+
+def m_slot(n, k1, j):
+    """Slot of point ``j`` of the ``m``-point line ``k1`` of a mixed line of
+    ``n`` points in the exchange buffer: ``j (P + 1) + k1``. The P points
+    that a thread writes after its butterfly fall a stride of P + 1 apart
+    across a warp, on distinct banks, and the line's output ``x = k1 + P
+    k2`` sits at slot ``x + x / P``."""
+    return j * (line_split(n)[0] + 1) + k1
 
 
 def line_slot(n, m, blocks=1):
@@ -306,6 +354,53 @@ def line_slot(n, m, blocks=1):
     reader = m % threads
     local = (m // threads) * (threads // blocks) + reader // (8 * blocks) * 8 + reader % 8
     return reader // 8 % blocks, line_pad(local)
+
+
+def _magic(d):
+    """The multiplier by which the kernels divide by ``d`` (:meth:`m_div`):
+    ceil(2^24 / d), exact for every ``x`` with ``x (ceil(2^24 / d) d -
+    2^24) < 2^24``, so for every ``x < 2^12`` and ``d < 2^12``."""
+    return -(-(1 << 24) // d)
+
+
+def m_div(x, magic):
+    """``x // d`` from d's :meth:`_magic`, as the kernels take it:
+    ``__umulhi(x << 8, magic)``."""
+    return ((x << 8) * magic) >> 32
+
+
+#: The radices of the passes over ``m`` that are butterflies in registers
+#: (``m_pass``); any other (a prime of 11 or more) is a direct sum.
+M_BUTTERFLIES = (3, 4, 5, 7, 8, 9, 15, 16)
+
+#: Ints a pass takes in :meth:`m_pass_table` (kPlanStride in the kernels).
+PLAN_STRIDE = 8
+
+
+def m_passes(n):
+    """The passes over ``m`` of a mixed line of ``n`` points, each a dict:
+    radix ``r``, ``p`` the product of the radices before it, ``mr = m /
+    r``, ``tws = n / (p r)`` (the table's stride for the roots of order
+    ``p r``), ``nb = n / r`` (its butterflies) and the multipliers of ``p``
+    and ``p r`` (:meth:`_magic`)."""
+    _, m = line_split(n)
+    passes, p = [], 1
+    for r in m_radices(m):
+        passes.append(dict(r=r, p=p, mr=m // r, tws=n // (p * r), nb=n // r,
+                           div_p=_magic(p), div_pr=_magic(p * r)))
+        p *= r
+    return passes
+
+
+def m_pass_table(n):
+    """The int32 table of a mixed line's passes, which the kernels read
+    after the twiddles (``tw + n / 2``; :meth:`_twiddles`): the number of
+    passes, then PLAN_STRIDE ints a pass (``r, p, mr, tws, nb`` and the two
+    multipliers of :meth:`m_passes`, then 0)."""
+    rows = [[q["r"], q["p"], q["mr"], q["tws"], q["nb"], q["div_p"], q["div_pr"]]
+            for q in m_passes(n)]
+    rows = [row + [0] * (PLAN_STRIDE - len(row)) for row in rows]
+    return np.array([len(rows)] + [v for row in rows for v in row], dtype=np.int32)
 
 
 _C1, _S1, _H = (np.float32(x) for x in (np.cos(np.pi / 8), np.sin(np.pi / 8), np.sqrt(0.5)))
@@ -351,6 +446,60 @@ def _radix(u, inverse):
     return [a[4 * (k % n2) + k // n2] for k in range(len(u))]
 
 
+def _odd_radix(a, inverse):
+    """Radix-R butterfly of the list ``a`` (R = 3, 5, 7, 9 or 15), natural order,
+    as ``odd_radix`` of the kernel: the sums ``s_u`` and differences
+    ``d_u`` of the inputs u and R - u, then outputs k and R - k as ``re +-
+    (-+i) im``, ``re = a_0 + sum_u s_u cos(2 pi u k / R)``, ``im = sum_u d_u
+    sin(2 pi u k / R)``, with the f32 constants of the kernel."""
+    r = len(a)
+    h = r // 2
+    j = np.arange(r)
+    cos, sin = (f(2 * np.pi * j / r).astype(np.float32) for f in (np.cos, np.sin))
+    s = [a[u] + a[r - u] for u in range(1, h + 1)]
+    d = [a[u] - a[r - u] for u in range(1, h + 1)]
+    y = [a[0]] * r
+    for u in range(h):
+        y[0] = y[0] + s[u]
+    for k in range(1, h + 1):
+        re, im = a[0], None
+        for u in range(1, h + 1):
+            re = re + s[u - 1] * float(cos[u * k % r])
+            t = d[u - 1] * float(sin[u * k % r])
+            im = t if im is None else im + t
+        im = _rot(im, 4, inverse)
+        y[k], y[r - k] = re + im, re - im
+    return y
+
+
+def _butterfly(u, inverse):
+    """The butterfly of ``len(u)`` points in natural order
+    (:data:`M_BUTTERFLIES`), as the kernel's."""
+    if len(u) == 4:
+        return _fft4(u, inverse)
+    if len(u) in (8, 16):
+        return _radix(u, inverse)
+    return _odd_radix(u, inverse)
+
+
+def _powers(w, w4, r):
+    """``w^t``, t < r (None for t = 0), as the kernels form them
+    (``m_rotate``): from radix 8 on from ``w`` and the table's ``w4`` = w^4
+    (``w^(4a + b) = (w^4)^a w^b``, as the power-of-two passes), else by
+    products of w, w^2 = w w, w^3 = w^2 w, w^4 = w^2 w^2, w^5 = w^4 w, w^6
+    = w^3 w^3."""
+    pw = [None, w, w * w]
+    pw.append(pw[2] * w)
+    if r >= 8:
+        hi = [None, w4, w4 * w4]
+        hi.append(hi[2] * w4)
+        return [None] + [pw[t] if t < 4 else hi[t // 4] if t % 4 == 0
+                         else hi[t // 4] * pw[t % 4] for t in range(1, r)]
+    pw += [pw[2] * pw[2]]
+    pw += [pw[4] * w, pw[3] * pw[3]]
+    return pw[:r]
+
+
 def _table_at(table, at):
     """Entries ``at`` < n of the rotations from the table of n / 2:
     ``-table[at - n / 2]`` above it, as ``tw_full`` of the kernel."""
@@ -390,6 +539,50 @@ def _pow2_passes(x, table, inverse, blocks):
     return x
 
 
+def _mixed_passes(x, table, inverse):
+    """``line_fft`` on the mixed lines along the last axis of ``x``
+    (complex64; ``table`` the n / 2 twiddles of n): the P-point lines'
+    butterflies, the rotation into the m-point lines, and the passes over
+    them, as ``m_part`` of the kernel (:meth:`line_fft_model`)."""
+    n = x.shape[-1]
+    p2, m = line_split(n)
+    lead = x.shape[:-1]
+    # Thread s holds the points s + q m, q < P: one radix-P butterfly.
+    y = _radix(list(x.reshape(*lead, p2, m).unbind(-2)), inverse)
+    # Output k1 of line s times w_n^(s k1): w = tw[s] and w^4 = tw[4 s].
+    s = torch.arange(m)
+    pw = _powers(table[s], table[4 * s], p2)
+    buf = torch.stack([y[0]] + [y[k1] * pw[k1] for k1 in range(1, p2)], dim=-2)
+    # buf[..., k1, j]: point j of the m-point line k1.
+    for q in m_passes(n):
+        r, p, mr, tws = q["r"], q["p"], q["mr"], q["tws"]
+        if r in M_BUTTERFLIES:
+            i = torch.arange(m // r)
+            jj = m_div(i, q["div_p"])
+            k = i - jj * p
+            u = [buf[..., i + t * mr] for t in range(r)]
+            if p > 1:
+                pw = _powers(table[k * tws], table[4 * k * tws] if r >= 8 else None, r)
+                u = [u[0]] + [u[t] * pw[t] for t in range(1, r)]
+            u = _butterfly(u, inverse)
+            out = torch.empty_like(buf)
+            for t in range(r):
+                out[..., jj * p * r + k + t * p] = u[t]
+            buf = out
+        else:
+            o = torch.arange(m)
+            pr = p * r
+            q1 = m_div(o, q["div_pr"])
+            e0 = o - q1 * pr
+            i = q1 * p + e0 - m_div(e0, q["div_p"]) * p
+            acc, e = buf[..., i], e0
+            for j in range(1, r):
+                acc = acc + buf[..., i + j * mr] * _table_at(table, e * tws)
+                e = torch.where(e + e0 >= pr, e + e0 - pr, e + e0)
+            buf = acc
+    return buf.transpose(-1, -2).reshape(*lead, n)
+
+
 def line_fft_model(xr, xi, *, inverse, blocks=1):
     """Plain PyTorch model of the kernels' ``line_fft`` along the last
     axis, in f32. The power-of-two passes (:meth:`_pow2_plan`), each a
@@ -398,52 +591,31 @@ def line_fft_model(xr, xi, *, inverse, blocks=1):
     (w^4)^a w^b``), a radix-8 or radix-16 butterfly in natural order, and a
     self-sorting exchange (write ``(i - k) R + k + r p``, read ``i + r n /
     R``) through one padded buffer for each of the ``blocks`` blocks that
-    share the line (:meth:`line_slot`). A mixed line (``n = m P``, P = 8,
-    :meth:`line_split`) runs one radix-8 butterfly on each of its ``m``
-    interleaved ``P``-point lines ``b + m a``, rotates output ``k1`` of
-    line ``b`` by ``w_n^(b k1)`` into slot ``k1 m + b``, and runs one pass
-    per prime factor ``r`` of ``m``: output ``o`` of the ``m``-point
-    line ``k1`` is ``sum_j x[i + j m / r] w_(p r)^(j (o mod p r))``, ``i =
-    (o // (p r)) p + o mod p``, the sum in ``j`` order with the exponent
-    stepped mod ``p r``, every pass but the last into slot ``k1 m + o``,
-    the last to the line's output ``k1 + P o``. Unnormalized, like the
+    share the line (:meth:`line_slot`). A mixed line (``n = P m``,
+    :meth:`line_split`) runs one radix-P butterfly on each of its ``m``
+    interleaved P-point lines ``s + m q``, rotates output ``k1`` of line
+    ``s`` by ``w_n^(s k1)`` into point ``s`` of the m-point line ``k1``,
+    and runs the passes of :meth:`m_passes` over those lines: a butterfly
+    pass of radix ``r`` (:data:`M_BUTTERFLIES`) takes butterfly ``i < m / r``,
+    ``k = i mod p``, to the inputs ``i + t m / r`` rotated by ``w_(p
+    r)^(t k)`` and writes output ``t`` to ``(i - k) r + k + t p``; a direct
+    pass (a prime of 11 or more) sums output ``o`` as ``sum_j x[i + j m /
+    r] w_(p r)^(j (o mod p r))``, ``i = (o // (p r)) p + o mod p``, in
+    ``j`` order with the exponent stepped mod ``p r``. Output ``k2`` of the
+    line ``k1`` is the line's point ``k1 + P k2``. Unnormalized, like the
     kernels."""
     n = xr.shape[-1]
-    p2, m = line_split(n)
     fft_plan(n)
-    table = _twiddles(n, bool(inverse), "cpu")
+    table = _twiddles(n, bool(inverse), "cpu")[:n // 2]
     table = torch.complex(table[:, 0], table[:, 1])
     x = torch.complex(xr.float(), xi.float())
-    if m == 1:
+    if n & (n - 1) == 0:
         x = _pow2_passes(x, table, inverse, blocks)
-        return x.real.contiguous(), x.imag.contiguous()
-    if blocks != 1:
+    elif blocks != 1:
         raise ValueError("A mixed line takes one block.")
-    lead = x.shape[:-1]
-    lines = x.reshape(*lead, p2, m).transpose(-1, -2)
-    # The 8-point lines: one radix-8 butterfly, as the kernel's registers.
-    y = torch.stack(_radix(list(lines.unbind(-1)), inverse), dim=-1)
-    b, k1 = torch.arange(m)[:, None], torch.arange(p2)[None, :]
-    y = y * _table_at(table, b * k1)
-    buf = y.transpose(-1, -2).reshape(*lead, n)
-    idx = torch.arange(n)
-    p = 1
-    for r in _factors(m):
-        pr = p * r
-        if pr == m:
-            k1, o = idx & (p2 - 1), idx // p2
-        else:
-            k1, o = idx // m, idx % m
-        e0 = o % pr
-        at = k1 * m + (o // pr) * p + o % p
-        acc = buf[..., at]
-        e = e0
-        for j in range(1, r):
-            acc = acc + buf[..., at + j * (m // r)] * _table_at(table, e * (n // pr))
-            e = torch.where(e + e0 >= pr, e + e0 - pr, e + e0)
-        buf = acc
-        p = pr
-    return buf.real.contiguous(), buf.imag.contiguous()
+    else:
+        x = _mixed_passes(x, table, inverse)
+    return x.real.contiguous(), x.imag.contiguous()
 
 
 def _check_planes(*planes, stack=False, rows=False):

@@ -64,15 +64,17 @@ def _assert_phasor(got, ref, amp_ff):
 #: Shapes of the carry step: the step kernels' launches differ with each
 #: side (line_fft's plan, the column tile, the cluster of two at 4096 and
 #: of four at 8192), so every power-of-two side from 64 to 8192 appears as
-#: H and as W, with the rectangles both ways; and mixed lines (n = m P, m
-#: odd), as H and as W, beside powers of two and each other: 96 = 32 * 3,
+#: H and as W, with the rectangles both ways; and mixed lines (n = P m,
+#: P = 8 or 16), as H and as W, beside powers of two and each other: 96 = 32 * 3,
 #: 120 = 8 * 15, 1152 = 128 * 9, 1920 = 128 * 15, 792 = 8 * 9 * 11, 1272 =
-#: 8 * 3 * 53. (At 1272x792 these inputs put a row's inverse FFT near 0 at
-#: one point, where rows_normfwd's amplitude replacement leaves even the
-#: plain f32 step 2e-4 from float64: FFT_SHAPES holds the kernels there.)
+#: 8 * 3 * 53, and 1080 = 8 * 135, whose lines have only odd factors
+#: beyond P = 8. (At 1272x792 these inputs put a row's inverse FFT near 0
+#: at one point, where rows_normfwd's amplitude replacement leaves even
+#: the plain f32 step 2e-4 from float64: FFT_SHAPES holds the kernels
+#: there.)
 STEP_SHAPES = [(64, 64), (256, 512), (64, 4096), (4096, 64), (512, 256), (2048, 2048),
                (128, 1024), (1024, 128), (8192, 64), (64, 8192), (96, 128), (120, 72),
-               (1152, 1920), (792, 1272)]
+               (1152, 1920), (792, 1272), (1080, 1920)]
 
 
 @pytest.mark.cuda
@@ -255,13 +257,14 @@ def _pair(shape, device, seed=2):
 
 
 #: Every power-of-two side the kernels take, the two extreme rectangles
-#: and 256x512; and planes with mixed lines (n = m P, m odd): real panels
+#: and 256x512; and planes with mixed lines (n = P m, P = 8 or 16): real panels
 #: at padding_order=0 (1152x1920, 1080x1920, 1200x1920, 2464x4160), the
 #: JAX package's kernel sides (1536, 6144), 792 and 1272 (odd factors 11
-#: and 53), 1792 = 256 * 7, and 96x128.
+#: and 53), 1792 = 256 * 7, 96x128, and 8168 = 8 * 1021 both ways (a line
+#: whose pass over m is one 1021-term direct sum).
 FFT_SHAPES = [(n, n) for n in (64, 128, 256, 512, 1024, 2048, 4096, 8192)] + [
     (256, 512), (64, 4096), (4096, 64), (96, 128), (1152, 1920), (1080, 1920), (1200, 1920),
-    (2464, 4160), (6144, 1536), (1272, 792), (1792, 96)]
+    (2464, 4160), (6144, 1536), (1272, 792), (1792, 96), (8168, 64), (64, 8168)]
 
 
 @pytest.mark.cuda
@@ -343,7 +346,9 @@ def test_fft_launch_shapes_fit_the_card(cuda, n):
     (8), whole 32-byte sectors a row segment of a power-of-two line's column
     tile, a cluster of two blocks at 4096 points and of four at 8192, and a
     thread for every 8 or 16 points of the lines a block holds. A plane
-    whose other side is a multiple of 8 only narrows rows and tiles to 8."""
+    whose other side is a multiple of 8 only narrows rows and tiles to 8.
+    A mixed line's tile holds 8 columns or more wherever 8 columns'
+    threads and shared memory fit a block."""
     from slmsuite_torch.ops import cuda_fft
 
     points = cuda_fft.line_points(n)
@@ -368,6 +373,7 @@ def test_fft_launch_shapes_fit_the_card(cuda, n):
         assert 64 % tc == 0 and threads <= 1024 and smem <= 227 * 1024
         assert blocks == {4096: 2, 8192: 4}.get(n, 1)
         assert not pow2 or tc >= 8
+        assert tc >= 8 or 8 * n // points > 1024 or 8 * cuda_fft.line_pitch(n) * 8 > 227 * 1024
         assert threads * blocks * points == tc * n
         assert smem * blocks == tc * cuda_fft.line_pitch(n) * 8
         narrow = cuda_fft.fft_launch_shape(kernel, n, 1080)

@@ -6,10 +6,12 @@ PyTorch model that follows the kernel pass by pass
 (``slmsuite_torch.ops.cuda_fft.line_fft_model``), against ``torch.fft`` in
 float64 and against the JAX package's ``fft2``/``ifft2`` on the CPU.
 
-Lines that are not a power of two (mixed lines, ``n = 8 * m``) run ``m``
-interleaved 8-point lines, then one pass per prime factor of ``m``; the
+Lines that are not a power of two (mixed lines, ``n = P * m``, P = 8 or
+16) run ``m`` interleaved P-point lines in registers, then the passes over
+``m`` through shared memory: its power of two in radices 4, 8 and 16, its
+odd primes as butterflies (3, 5, 7) or direct sums (11 and above); the
 model follows them too, at every side that ``chip_smoke.py``'s X0 runs on
-the card.
+the card and at a seeded sample of other sides.
 
 Tolerances: the model runs in f32 with an f32 twiddle table, so against a
 float64 transform of the same input it is held to ``2e-6 * log2(n)`` of
@@ -43,6 +45,14 @@ SIDES = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 #: The sides chip_smoke.py's X0 holds every line kernel at on the card.
 X0_SIDES = (96, 792, 1080, 1152, 1272, 1536, 1792, 1920, 4160, 6144, 8192)
 MIXED = tuple(n for n in X0_SIDES if n & (n - 1))
+#: More mixed sides for the model: real panels' sides and the plans'
+#: extremes (1200; 8168 = 8 * 1021, a prime; 8184 = 8 * 3 * 11 * 31, a
+#: direct pass before the last), and a sample of 40 other multiples of 8 in
+#: [64, 8192] that are not powers of two, drawn with a fixed seed.
+NAMED = (1080, 1200, 1272, 4160, 6144, 8168, 8184)
+_OTHERS = [n for n in range(64, 8193, 8) if n & (n - 1) and n not in MIXED + NAMED]
+SAMPLE = tuple(sorted(set(NAMED) | {int(n) for n in
+                                    np.random.default_rng(22).choice(_OTHERS, 40, replace=False)}))
 JAX_RTOL = 2e-5
 
 
@@ -58,18 +68,33 @@ def _rel(got, ref):
 @pytest.mark.parametrize("n", SIDES + MIXED)
 def test_plan_multiplies_to_the_length(n):
     """The register passes of the power of two P (two up to 256, three up
-    to 4096, four at 8192; radix 8 first; a mixed line: P = 8, one pass),
-    then the primes of m, smallest first."""
+    to 4096, four at 8192; radix 8 first), then for a mixed line (P = 8
+    where n has three or five factors of 2, else 16: one register pass) the
+    passes over m: its power of two in radices 16, 8 and 4, the fewest
+    passes and never a 2 (a radix of 8 or 16 only with P = 16, so that a
+    thread takes whole butterflies), then its odd part, smallest radix
+    first: its 3s in pairs as 9, a 3 left over with a 5 as 15 (so at most
+    one 3, and not beside a 5), the other odd primes as they are."""
     plan = cuda_fft.fft_plan(n)
     assert int(np.prod(plan)) == n
     p, m = cuda_fft.line_split(n)
     assert p * m == n and p >= 8 and p & (p - 1) == 0
-    primes = cuda_fft._factors(m)
-    pow2 = plan[:len(plan) - len(primes)]
-    assert int(np.prod(pow2)) == p and int(np.prod(primes)) == m
-    assert list(primes) == sorted(primes)
+    radices = cuda_fft.m_radices(m)
+    pow2 = plan[:len(plan) - len(radices)]
+    assert int(np.prod(pow2)) == p and int(np.prod(radices)) == m
     if m > 1:
-        assert pow2 == (8,) and m & (m - 1) != 0
+        twos = (n & -n).bit_length() - 1
+        assert pow2 == ((8,) if twos in (3, 5) else (16,)) and m & (m - 1) != 0
+        evens = [r for r in radices if r % 2 == 0]
+        odds = radices[len(evens):]
+        assert set(evens) <= ({4} if p == 8 else {4, 8, 16})
+        assert int(np.prod(evens)) == m & -m
+        assert len(evens) == {1: 0, 4: 1, 8: 1, 16: 1, 32: 2, 64: 2, 128: 2}[m & -m]
+        assert list(odds) == sorted(odds) and int(np.prod(odds)) == m // (m & -m)
+        primes = [r for r in odds if r not in (9, 15)]
+        assert all(r > 2 and all(r % d for d in range(2, int(r ** 0.5) + 1)) for r in primes)
+        assert primes.count(3) <= 1 and not (3 in primes and 5 in primes)
+        assert all(r in cuda_fft.M_BUTTERFLIES or r > 10 for r in odds)
     else:
         assert set(pow2) <= {8, 16} and len(pow2) == (2 if p <= 256 else 3 if p <= 4096 else 4)
         assert list(pow2) == sorted(pow2)
@@ -83,7 +108,7 @@ def test_plan_refuses_other_lengths(n):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("n", SIDES + MIXED)
+@pytest.mark.parametrize("n", SIDES + MIXED + tuple(n for n in SAMPLE if n not in MIXED))
 def test_model_matches_float64_fft(n, inverse):
     xr, xi = _pair((3, n), n)
     yr, yi = cuda_fft.line_fft_model(torch.from_numpy(xr), torch.from_numpy(xi), inverse=inverse)
@@ -167,27 +192,60 @@ def test_cluster_exchange_after_a_wide_pass_is_local(n, blocks, local):
 
 @pytest.mark.parametrize("n", MIXED + (8168, 8184))
 def test_m_passes_read_every_point_once(n):
-    """A mixed line's passes of m: the four-step rotation writes slot k1 m
-    + b once for every point, each pass's output-driven sum reads the r
-    points i + j m / r of its own m-point line, and over a pass every point
-    is read r times (each by r outputs); the last pass's outputs k1 + P o
-    are the line's points in order. The slots fit the line's pitch."""
+    """A mixed line's passes over m, slot by slot (``m_slot``: point j of
+    the m-point line k1 in slot j (P + 1) + k1 of either half of the
+    buffer; the slots distinct and within a half of the pitch, each pass
+    reading one half and writing the other). The rotation writes every
+    slot once (thread s: point
+    s of each line k1). Each butterfly pass of radix r writes every slot
+    once and reads every slot once, r points a butterfly, all of one
+    m-point line, and a thread takes at most ceil(P / r) of the n / r
+    butterflies (b = s + c m); each direct pass (a prime of 11 or more)
+    reads every slot r times, each output's r points of its own line, and
+    writes every slot once. The line's output k1 + P k2 is read last from
+    slot x + x / P. The multipliers divide every index of the
+    pass exactly, and the strides and counts multiply to the lengths."""
     p2, m = cuda_fft.line_split(n)
-    b, k1 = np.meshgrid(np.arange(m), np.arange(p2), indexing="ij")
-    assert sorted((k1 * m + b).ravel()) == list(range(n))
-    idx, p = np.arange(n), 1
-    for r in cuda_fft._factors(m):
-        pr = p * r
-        last = pr == m
-        line, o = (idx % p2, idx // p2) if last else (idx // m, idx % m)
-        at = line * m + (o // pr) * p + o % p
-        reads = np.concatenate([at + j * (m // r) for j in range(r)])
-        assert (reads // m == np.tile(line, r)).all()
-        assert (np.bincount(reads, minlength=n) == r).all()
-        if last:
-            assert (line + p2 * o == idx).all()
-        p = pr
-    assert cuda_fft.line_pad(np.arange(n)).max() < cuda_fft.line_pitch(n)
+    pitch = cuda_fft.line_pitch(n)
+    k1, j = np.meshgrid(np.arange(p2), np.arange(m), indexing="ij")
+    slots = cuda_fft.m_slot(n, k1, j).ravel()
+    assert len(set(slots)) == n and slots.max() < pitch // 2
+
+    def each_slot_once(at, times=1):
+        counts = np.bincount(np.concatenate(at), minlength=pitch)
+        return (counts[slots] == times).all() and counts.sum() == times * n
+
+    s = np.arange(m)
+    assert each_slot_once([cuda_fft.m_slot(n, q, s) for q in range(p2)])
+    passes = cuda_fft.m_passes(n)
+    assert tuple(q["r"] for q in passes) == cuda_fft.m_radices(m)
+    for q in passes:
+        r, p, mr = q["r"], q["p"], q["mr"]
+        assert mr * r == m and q["nb"] * r == n and q["tws"] * p * r == n
+        if r in cuda_fft.M_BUTTERFLIES:
+            b = np.arange(q["nb"])
+            line, i = b % p2, b // p2
+            jj = cuda_fft.m_div(i, q["div_p"])
+            assert (jj == i // p).all()
+            k = i - jj * p
+            reads = [cuda_fft.m_slot(n, line, i + t * mr) for t in range(r)]
+            assert each_slot_once(reads)
+            assert each_slot_once([cuda_fft.m_slot(n, line, jj * p * r + k + t * p)
+                                   for t in range(r)])
+            assert -(-q["nb"] // m) <= -(-p2 // r)
+        else:
+            x = np.arange(n)
+            line, o = x % p2, x // p2
+            q1 = cuda_fft.m_div(o, q["div_pr"])
+            assert (q1 == o // (p * r)).all()
+            e0 = o - q1 * p * r
+            assert (cuda_fft.m_div(e0, q["div_p"]) == e0 // p).all()
+            i = q1 * p + e0 % p
+            reads = [cuda_fft.m_slot(n, line, i + t * mr) for t in range(r)]
+            assert each_slot_once(reads, times=r)
+            assert each_slot_once([cuda_fft.m_slot(n, line, o)])
+    x = np.arange(n)
+    assert (cuda_fft.m_slot(n, x % p2, x // p2) == x + x // p2).all()
 
 
 def test_line_kernel_enum_names_the_line_kernels_in_order():
