@@ -8,7 +8,11 @@ unpacked at ``DIR``, e.g. ``git archive <parent> slmsuite_torch``;
 ``--line-ab DIR`` runs only the builds and the A/B of the eleven line
 kernels against that port's at 2048^2 and 4096^2, bit for bit, and on
 five planes of mixed lines, each held to X0's limits, then X2's fused,
-N1 and CG paths through either tree's kernels). It needs one
+N1 and CG paths through either tree's kernels; ``--compressed-ab DIR``
+runs only the builds and the A/B of the wide ``f2n`` and ``n2f``, past 16
+Zernike terms, against that port's at 17, 21, 28, 44 and 48 terms on
+config 5's plane and spots and at Z1's 97 spots at 21 terms, with each
+tree's registers, spills and SASS opcode counts). It needs one
 CUDA card and ``nvcc``; it fails (exit code != 0, no result line) when
 there is no card or the port is missing. In order:
 
@@ -145,6 +149,17 @@ there is no card or the port is missing. In order:
      feedback, then ``refine_offset()``: measured uniformity and efficiency
      within 2e-3 and the shifts within 0.05 px, kernels against plain;
      peak memory and host transfers a camera iteration;
+   - Z3, a ``CompressedSpotHologram`` of a 32x32 array in the Zernike basis
+     ANSI 0-20 on config 5's 1024^2 ``SimulatedSLM`` (config 5's tilt and
+     focus rows, the other terms seeded in +-1.5 rad): 1,024 spots leave
+     the cos/sin cache off by the port's own rule, so each of its 20
+     WGS-Kim iterations (``computational_spot`` feedback and stats) runs one
+     wide ``f2n`` (amplitude replacement) and one wide ``n2f`` (exact
+     launches, also counted as wide); final efficiency, uniformity,
+     normalized amp_ff and weights within 2e-3 of the plain run; then ms an
+     iteration through the kernels and the plain versions (and the
+     parent's kernels with ``--parent``); run last, after W3, so that its
+     plain runs' many small launches stay out of every profiler window;
    - G1-G3, gradient phase retrieval (``method="CG"``, Adam) through the
      kernels forward and backward: G1, the fused slice's array through
      ``SpotHologram`` (lr 0.1, 50 iterations; ``rows_fft`` and ``cols_fft``
@@ -213,7 +228,7 @@ there is no card or the port is missing. In order:
    root of a parent commit's unpacked port, each also against the
    parent's in the same process, and ``fused_iter``'s route past 256 spots
    against the parent's at 300 to 8,000 spots), and again at 21 Zernike
-   terms on config 5's plane and spot count,
+   terms on config 5's plane and spot count, and Z3's loop (above),
    the cos/sin cache build, and ms/iteration of the C1 and C2 loops; the
    eleven line kernels at 1152x1920 and 8192^2 with their plain versions,
    ``torch.fft`` (rows and columns) and bounds, device time from one
@@ -2729,34 +2744,12 @@ def fused_route_ab(consts, device, parent):
                    "(f2n + n2f / roundtrip_kernel)", calls)
 
 
-def zernike_timing_inputs(device, x5):
-    """Config 5's plane and spot count at ZERNIKE_TIMING_TERMS Zernike terms
-    (ANSI 0, 1, ...): the basis on config 5's SLM, config 5's tilt and
-    focus coefficients (``x5``'s rows, ANSI 2, 1, 4), the other terms
-    uniform in +-1.5 rad (Z1's sweep) and piston 0; seeded fields, and the
-    cos/sin cache."""
-    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
-    from slmsuite_torch.ops import compressed as C
-
-    D = ZERNIKE_TIMING_TERMS
-    slm = SimulatedSLM(resolution=(CONFIG5_RES, CONFIG5_RES), pitch_um=(8, 8), wav_um=0.78)
-    basis = torch.from_numpy(C.build_zernike_basis(np.arange(D), slm)).to(device)
-    c5 = x5["coeffs"].cpu().numpy()
-    coeffs = np.random.default_rng(D).uniform(-1.5, 1.5, (D, c5.shape[1])).astype(np.float32)
-    coeffs[0] = 0.0
-    coeffs[[2, 1, 4]] = c5
-    x = compressed_inputs(device, D, basis.shape[1], c5.shape[1], seed=D, basis=basis,
-                          coeffs=torch.from_numpy(coeffs).to(device))
-    x["kc"], x["ks"] = C.build_kernel_cache(x["coeffs"], x["basis"])
-    return x
-
-
 def phase_compressed_timing(device, parent=None):
     """Each compressed kernel and its plain version at config 5 (array amp,
     as config 5 runs), and at ZERNIKE_TIMING_TERMS terms on config 5's
-    plane and spots (:meth:`zernike_timing_inputs`; the entry's
-    ``"zernike"``); where ``parent`` names the root of a parent commit's
-    port, each also against the parent's (:meth:`compressed_ab`) and
+    plane and spots (:meth:`wide_inputs`; the entry's ``"zernike"``);
+    with ``parent``, a parent commit's ``cuda_compressed`` (:meth:`parent_port`),
+    each also against the parent's (:meth:`compressed_ab`) and
     fused_iter's two routes past 256 spots (:meth:`fused_route_ab`); the
     cache build, and ms/iteration of the C1 (cached) and C2 (recompute)
     loops through the kernels and the plain versions."""
@@ -2768,7 +2761,7 @@ def phase_compressed_timing(device, parent=None):
     for name, (kernel, plain) in compressed_calls(x, x["amp"]).items():
         t[name] = interleaved(name, kernel, plain, bound_of=compressed_bound(name, D, N, P, n8),
                               size="config 5 (P 1024^2, N 256, D 3)")
-    xz = zernike_timing_inputs(device, x)
+    xz = wide_inputs(device, x, ZERNIKE_TIMING_TERMS, cache=True)
     Dz = xz["coeffs"].shape[0]
     for name, (kernel, plain) in compressed_calls(xz, xz["amp"]).items():
         t[name]["zernike"] = interleaved(
@@ -2776,7 +2769,6 @@ def phase_compressed_timing(device, parent=None):
             size=f"config 5's plane and spots at D {Dz} (P 1024^2, N 256)")
     del xz
     if parent is not None:
-        parent = parent_port(parent)
         compressed_ab(x, parent)
         fused_route_ab(consts, device, parent)
     build_ms = cuda_ms(lambda: C.build_kernel_cache(x["coeffs"], x["basis"]), n=3, warmup=1)
@@ -2803,6 +2795,419 @@ def phase_compressed_timing(device, parent=None):
         log(f"{label} run({CONFIG5_ITERS}): kernels {k1:.4f} {k2:.4f} ms/iter, "
             f"plain {p1:.4f} {p2:.4f} ms/iter  [{nvidia_smi_line()}]")
     return t, loops
+
+
+# ----------------------------------------------------------------------
+# The wide compressed kernels (past 16 Zernike terms): their A/B against
+# a parent's port (--compressed-ab), and Z3.
+# ----------------------------------------------------------------------
+
+#: Term counts of the wide kernels' A/B: five, six, seven and eleven float4
+#: groups (compile-time instantiations, the last one spot a lane in n2f)
+#: and 48, past them (the group count at run time).
+WIDE_AB_TERMS = (17, 21, 28, 44, 48)
+#: Z1's spot count (its 97 points) at its 21 terms, also in the A/B.
+WIDE_AB_Z1_SPOTS = 97
+#: Z3: a Z3_SIDE x Z3_SIDE spot array at Z3_TERMS Zernike terms on config
+#: 5's SLM, WGS-Kim iterations of its run and of each timing.
+Z3_SIDE, Z3_TERMS, Z3_ITERS, Z3_TIMING_ITERS = 32, 21, 20, 5
+
+
+def template_args(mangled):
+    """``"21, 16"`` of a mangled template argument list ``Li21ELi16E``."""
+    import re
+
+    return ", ".join(re.findall(r"Li(\d+)E", mangled))
+
+
+def wide_ptxas(build_log, names=("f2n_wide_kernel", "n2f_wide_kernel")):
+    """``{instantiation: (registers, spill store bytes, spill load bytes)}``
+    of the kernels ``names`` in an nvcc ``-Xptxas -v`` log (``<D, K>``:
+    the term count, 0 at run time, and the pairs a vote; ``*`` a kernel
+    that is no template)."""
+    import re
+
+    lines = build_log.splitlines()
+    out = {}
+    for k, line in enumerate(lines):
+        entry = re.search(r"Compiling entry function '(_Z\w+)'", line)
+        if not entry or not any(n in entry.group(1) for n in names):
+            continue
+        name = next(n for n in names if n in entry.group(1))
+        args = re.search(re.escape(name) + r"I((?:Li\d+E)+)E", entry.group(1))
+        info = " ".join(lines[k + 1:k + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+        out[f"{name}<{template_args(args.group(1)) if args else '*'}>"] = (
+            int(regs.group(1)) if regs else None,
+            *(int(v) for v in (spill.groups() if spill else (-1, -1))))
+    return out
+
+
+def sass_counts(lib_path, names=("f2n_wide_kernel", "n2f_wide_kernel"),
+                opcodes=("FFMA", "FMUL", "FADD", "FRND", "MUFU", "LDS", "LDG", "LDGSTS", "SHFL",
+                         "BAR", "F2I", "I2F")):
+    """Static counts of ``opcodes`` in the SASS of each function of the
+    library ``lib_path`` whose name holds one of ``names`` (cuobjdump
+    -sass), with the function's instruction count as ``"all"``; None where
+    the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True).stdout
+    out, current = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = next((n for n in names if n in head.group(1)), None)
+            args = re.search(r"I((?:Li\d+E)+)E", head.group(1))
+            current = (f"{name}<{template_args(args.group(1)) if args else '*'}>" if name
+                       else None)
+            if current:
+                out[current] = dict.fromkeys(("all",) + opcodes, 0)
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if current and op:
+            out[current]["all"] += 1
+            base = op.group(1)
+            if base in out[current]:
+                out[current][base] += 1
+    return out
+
+
+def wide_inputs(device, x5, D, n_spots=None, cache=False):
+    """Config 5's plane at D Zernike terms (ANSI 0, 1, ...: the basis on
+    config 5's SLM), the first ``n_spots`` of its spots (all 256 by
+    default) with their tilt and focus coefficients (``x5``'s rows, ANSI 2,
+    1, 4), the other terms uniform in +-1.5 rad (Z1's sweep) and piston 0;
+    seeded fields, and the cos/sin cache where ``cache``."""
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.ops import compressed as C
+
+    slm = SimulatedSLM(resolution=(CONFIG5_RES, CONFIG5_RES), pitch_um=(8, 8), wav_um=0.78)
+    basis = torch.from_numpy(C.build_zernike_basis(np.arange(D), slm)).to(device)
+    c5 = x5["coeffs"].cpu().numpy()[:, :n_spots]
+    coeffs = np.random.default_rng(D).uniform(-1.5, 1.5, (D, c5.shape[1])).astype(np.float32)
+    coeffs[0] = 0.0
+    coeffs[[2, 1, 4]] = c5
+    x = compressed_inputs(device, D, basis.shape[1], c5.shape[1], seed=D, basis=basis,
+                          coeffs=torch.from_numpy(coeffs).to(device))
+    if cache:
+        x["kc"], x["ks"] = C.build_kernel_cache(x["coeffs"], x["basis"])
+    return x
+
+
+def sincos_phases(n=65536, seed=7):
+    """``(x, sets)``: ``n`` f32 phases, the first half within 1e-3 of a
+    half period (k + 1/2) 2 pi, |k| < 15,000, the second uniform within
+    +-REDUCED_LIMIT; ``sets`` their masks: near a half with x - k 2 pi
+    within [-pi, pi], past +-pi (where k, the f32 product x kInv2Pi
+    rounded, is the farther integer: the reduction folds these), and
+    uniform (as tests/test_torch_cuda.py's test_compressed_sincos_past_pi
+    draws them)."""
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    k = rng.integers(-15_000, 15_000, half)
+    near = (2 * np.pi * (k + 0.5 + rng.uniform(-1e-3, 1e-3, half))).astype(np.float32)
+    uniform = rng.uniform(-K.REDUCED_LIMIT, K.REDUCED_LIMIT, n - half).astype(np.float32)
+    x = np.concatenate([near, uniform])
+    x64 = x.astype(np.float64)
+    past = np.abs(x64 - np.round(x * np.float32(K.INV_2PI)).astype(np.float64) * 2 * np.pi) > np.pi
+    first = np.arange(n) < half
+    return x, {"near a half, |y| <= pi": first & ~past, "past pi": past,
+               "uniform": ~first}
+
+
+def sincos_errors(module, device, D, x):
+    """|error| against float64 of the kernels' sincos on the f32 phases
+    ``x`` (a power of 4 of them), as ``module``'s f2n forms it at D terms:
+    one spot of farfield 1, the phase the first basis row (the other terms
+    zero, so it is exact), the output times P^1/2 (exact)."""
+    P = x.size
+    basis, coeffs = np.zeros((D, P), np.float32), np.zeros((D, 1), np.float32)
+    basis[0], coeffs[0] = x, 1.0
+    dev = lambda a: torch.from_numpy(a).to(device)
+    nfr, nfi = module.f2n(dev(np.ones(1, np.float32)), dev(np.zeros(1, np.float32)),
+                          dev(coeffs), dev(basis))
+    c, s = (t.double().cpu().numpy() * P**0.5 for t in (nfr, nfi))
+    x64 = x.astype(np.float64)
+    return np.maximum(np.abs(c - np.cos(x64)), np.abs(s - np.sin(x64)))
+
+
+def compressed_wide_ab(device, parent_root):
+    """The wide f2n and n2f of this tree against the parent's (the port
+    unpacked at ``parent_root``), in one process: both builds timed, each
+    tree's registers and spills of every wide instantiation (ptxas) and,
+    where the toolkit has cuobjdump, their SASS opcode counts; then at
+    WIDE_AB_TERMS on config 5's plane and spots, and at Z1's 97 spots at 21
+    terms, each kernel's outputs within CMP_RTOL of the parent's and of the
+    plain version, and their times in turns parent, this, this, parent,
+    twice (:meth:`ab_medians`: medians of four), beside the bound; before
+    them each tree's sincos against float64 on :meth:`sincos_phases`
+    (:meth:`sincos_errors`, through f2n at 1 and 17 terms). Writes
+    ``compressed_ab.json``."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+    from slmsuite_torch.ops import cuda_fft
+
+    parent = parent_port(parent_root)
+    parent_lib, seconds, parent_log = parent.cuda_fft.build()
+    parent._lib()
+    log(f"build: parent's library in {seconds:.1f} s (this tree's: the build line above)")
+    ptxas = {"this": wide_ptxas((OUT / "ptxas.log").read_text()),
+             "parent": wide_ptxas(parent_log)}
+    for who, kernels in ptxas.items():
+        for tag, (regs, stores, loads) in kernels.items():
+            log(f"  ptxas {who} {tag}: {regs} registers, spill stores {stores} B, "
+                f"loads {loads} B")
+    sass = {"this": sass_counts(cuda_fft.build()[0]), "parent": sass_counts(parent_lib)}
+    for who, kernels in sass.items():
+        for tag, counts in (kernels or {}).items():
+            log(f"  SASS {who} {tag}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    x, sets = sincos_phases()
+    sincos = {}
+    for D in (1, 17):  # f2n_kernel, f2n_wide_kernel
+        errors = {who: sincos_errors(mod, device, D, x) for who, mod in (("this", K),
+                                                                         ("parent", parent))}
+        for name, mask in sets.items():
+            worst = {who: float(e[mask].max()) for who, e in errors.items()}
+            sincos[f"D {D}, {name}"] = worst
+            log(f"sincos D {D}, {name} ({int(mask.sum())} phases), max |error| against "
+                f"float64: this {worst['this']:.3e}, parent {worst['parent']:.3e}")
+    del x
+    _, _, x5 = config5_inputs(device)
+    shapes = [(D, None) for D in WIDE_AB_TERMS] + [(21, WIDE_AB_Z1_SPOTS)]
+    rows = []
+    for D, n_spots in shapes:
+        x = wide_inputs(device, x5, D, n_spots)
+        N, P = x["coeffs"].shape[1], x["basis"].shape[1]
+        ff, nf, cb = (x["ffr"], x["ffi"]), (x["nfr"], x["nfi"]), (x["coeffs"], x["basis"])
+        cases = {
+            "f2n": (lambda m: (lambda: m.f2n(*ff, *cb)),
+                    lambda: C._farfield_to_nearfield(*ff, *cb)),
+            "n2f": (lambda m: (lambda: m.n2f(*nf, *cb)),
+                    lambda: C._nearfield_to_farfield(*nf, *cb)),
+        }
+        for name, (call, plain) in cases.items():
+            calls = {"this": call(K), "parent": call(parent)}
+            K.reset_launch_counts()
+            got = calls["this"]()
+            assert K.WIDE_LAUNCHES[name] == 1, (name, D, K.WIDE_LAUNCHES)
+            ref = plain()
+            e_parent = max(rel_err(a, b) for a, b in zip(got, calls["parent"]()))
+            e_plain = max(rel_err(a, b) for a, b in zip(got, ref))
+            assert e_parent <= CMP_RTOL and e_plain <= CMP_RTOL, (name, D, N, e_parent, e_plain)
+            tag = f"{name} D {D}, N {N}, P {P}"
+            this_ms, parent_ms = ab_medians(tag, calls)
+            bound_ms, bound_by = compressed_bound(name, D, N, P, 0)
+            log(f"A/B {tag}: this {this_ms:.4f} ms, parent {parent_ms:.4f} ms "
+                f"({parent_ms / this_ms:.3f}x); {bound_ms / this_ms:.3f} of the bound "
+                f"({bound_ms * 1e3:.1f} us, {bound_by}), parent {bound_ms / parent_ms:.3f}; "
+                f"outputs within rel {e_parent:.2e} of the parent's, {e_plain:.2e} of plain")
+            rows.append({"kernel": name, "D": D, "N": N, "P": P, "ms": this_ms,
+                         "parent_ms": parent_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "rel_parent": e_parent, "rel_plain": e_plain})
+        del x
+        torch.cuda.empty_cache()
+    card = nvidia_smi_line()
+    (OUT / "compressed_ab.json").write_text(json.dumps(
+        {"card": card, "rows": rows, "ptxas": ptxas, "sass": sass, "sincos": sincos}, indent=1))
+    log(f"  [{card}]")
+
+
+def z3_hologram(device):
+    """Z3's hologram: a Z3_SIDE^2 array of spots on config 5's 1024^2
+    SimulatedSLM in the Zernike basis ANSI 0 .. Z3_TERMS - 1: the tilt and
+    focus rows (ANSI 2, 1, 4) of config 5's kxy spots (kx, ky in [-8e-3,
+    8e-3], focus uniform in [-2e-6, 2e-6], default_rng(0)), the other terms
+    uniform in +-1.5 rad (default_rng(Z3_TERMS)), piston 0; from a seeded
+    phase."""
+    import warnings
+
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.holography import toolbox
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+
+    slm = SimulatedSLM(resolution=(CONFIG5_RES, CONFIG5_RES), pitch_um=(8, 8), wav_um=0.78)
+    edge = np.linspace(-8e-3, 8e-3, Z3_SIDE)
+    kx, ky = np.meshgrid(edge, edge)
+    kxy = np.vstack([kx.ravel(), ky.ravel(),
+                     np.random.default_rng(0).uniform(-2e-6, 2e-6, kx.size)])
+    spots = np.random.default_rng(Z3_TERMS).uniform(-1.5, 1.5, (Z3_TERMS, kx.size))
+    spots[0] = 0.0
+    spots[[2, 1, 4]] = toolbox.convert_vector(kxy, "kxy", "zernike", hardware=slm)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # piston in the basis
+        holo = CompressedSpotHologram(spots, basis=np.arange(Z3_TERMS), cameraslm=slm,
+                                      device=device)
+    holo.reset_phase(np.random.default_rng(1).uniform(-np.pi, np.pi, slm.shape))
+    return holo
+
+
+def z3_drive(device):
+    """Z3 once through whatever the dispatchers take: a fresh hologram,
+    the launch counts set to 0 just before its Z3_ITERS iterations of
+    WGS-Kim with computational_spot feedback and stats. Returns ``(launches,
+    wide launches, final efficiency, uniformity, amp_ff / max, weights /
+    max, seconds)``."""
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft
+
+    holo = z3_hologram(device)
+    assert not holo._kernel_cache_enabled(), "Z3's cache rule took the cache"
+    cuda_compressed.reset_launch_counts()
+    cuda_fft.reset_launch_counts()
+    start = time.perf_counter()
+    holo.optimize("WGS-Kim", maxiter=Z3_ITERS, feedback="computational_spot",
+                  stat_groups=["computational_spot"], verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    assert not any(cuda_fft.LAUNCHES.values()), cuda_fft.LAUNCHES
+    assert holo.iter == Z3_ITERS, holo.iter
+    launched = {k: v for k, v in cuda_compressed.LAUNCHES.items() if v}
+    wide = {k: v for k, v in cuda_compressed.WIDE_LAUNCHES.items() if v}
+    stats = holo.stats["stats"]["computational_spot"]
+    amp, weights = np.asarray(holo.amp_ff), np.asarray(holo.weights)
+    assert np.isfinite(amp).all() and np.isfinite(weights).all()
+    return (launched, wide, float(stats["efficiency"][-1]), float(stats["uniformity"][-1]),
+            amp / amp.max(), weights / weights.max(), seconds)
+
+
+def z3_kernel_checks(device, consts):
+    """The wide f2n (scaled, and the amplitude replacement with an
+    amplitude plane) and n2f (normalized, and the unnormalized sum) at the
+    main path's shapes: on Z3's own basis and coefficients (``consts``: P
+    1024^2, N Z3_SIDE^2, D Z3_TERMS) and at ZERNIKE_TIMING_TERMS terms on
+    config 5's plane with its 256 spots and with Z1's 97 (:meth:`wide_inputs`),
+    seeded fields. The wide launch counts are set to 0 just before each
+    call and must read one wide launch of it; each output is held to its
+    plain version within CMP_RTOL (the replacement as X0 holds the carry
+    kernels', :meth:`conditioned`: where the plain f32 version is itself
+    further than that from float64, near a zero of the sum, against float64
+    within twice its error), and the scaled f2n and n2f against float64
+    (:meth:`check_float64`). Writes ``parity_z3.log``."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    (D, N), P = consts["coeffs"].shape, consts["basis"].shape[1]
+    cases = {f"Z3 P {P}, N {N}, D {D}": compressed_inputs(
+        device, D, P, N, seed=N + D, basis=consts["basis"], coeffs=consts["coeffs"])}
+    _, _, x5 = config5_inputs(device)
+    for n_spots in (None, WIDE_AB_Z1_SPOTS):
+        x = wide_inputs(device, x5, ZERNIKE_TIMING_TERMS, n_spots)
+        Dx, Nx = x["coeffs"].shape
+        cases[f"config 5's plane P {x['basis'].shape[1]}, N {Nx}, D {Dx}"] = x
+    del x5
+    lines = []
+    for tag, x in cases.items():
+        ff, nf, cb = (x["ffr"], x["ffi"]), (x["nfr"], x["nfi"]), (x["coeffs"], x["basis"])
+        calls = {
+            "f2n": (lambda: K.f2n(*ff, *cb), lambda: C._farfield_to_nearfield(*ff, *cb)),
+            "f2n replace": (lambda: K.f2n(*ff, *cb, amp=x["amp"]),
+                            lambda: C._farfield_to_nearfield(*ff, *cb, amp=x["amp"])),
+            "n2f": (lambda: K.n2f(*nf, *cb), lambda: C._nearfield_to_farfield(*nf, *cb)),
+            "n2f unnormalized": (lambda: K.n2f(*nf, *cb, normalize=False),
+                                 lambda: C._nearfield_to_farfield(*nf, *cb, normalize=False)),
+        }
+        for name, (kernel, plain) in calls.items():
+            K.reset_launch_counts()
+            got = kernel()
+            wide = {k: v for k, v in K.WIDE_LAUNCHES.items() if v}
+            assert wide == {name.split()[0]: 1}, (tag, name, wide)
+            if name == "f2n replace":
+                conditioned(f"{tag} {name}", got, plain(), lambda: C._farfield_to_nearfield(
+                    *(t.double() for t in (*ff, *cb)), amp=x["amp"].double()), lines)
+                continue
+            e = max(rel_err(a, b) for a, b in zip(got, plain()))
+            assert e <= CMP_RTOL, f"{tag} {name}: rel {e:.3e}"
+            lines.append(f"{tag} {name}: rel {e:.3e}")
+        check_float64(tag, "scalar", x, 1.0, lines, names=("f2n", "n2f"))
+        torch.cuda.empty_cache()
+    OUT.mkdir(exist_ok=True)
+    (OUT / "parity_z3.log").write_text("\n".join(lines) + "\n")
+    log(f"Z3 kernel checks: {len(lines)} passed, each call one wide launch (parity_z3.log)")
+    for line in lines:
+        log(f"  {line}")
+
+
+def phase_z3(device, parent=None):
+    """Z3 through the kernels (with the cache off by the port's own rule,
+    each iteration one wide f2n with the amplitude replacement and one wide
+    n2f: exact launches) and through the plain versions (final efficiency
+    and uniformity, normalized amp_ff and weights within CMP_PATH_ATOL);
+    each wide kernel held to its plain version and to float64 at Z3's
+    shapes and at config 5's (:meth:`z3_kernel_checks`); then ms an
+    iteration of its engine loop through the kernels and the plain versions
+    in turns plain, kernels, kernels, plain, and, with ``parent``
+    (:meth:`parent_port`'s module), through the parent's kernels in turns
+    parent, this, this, parent. Returns the launches."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    n = Z3_ITERS
+    expect = dict(f2n=n + 1, n2f=n + 2)  # entry n2f; f2n + n2f an iteration; exit f2n; finalize n2f
+    launched, wide, eff, uni, amp, weights, seconds = z3_drive(device)
+    log(f"Z3 {Z3_SIDE}x{Z3_SIDE} spots, {Z3_TERMS} terms, {CONFIG5_RES}^2 (kernels): "
+        f"{seconds:.2f} s, launches {launched}, wide {wide}, efficiency {eff:.6f}, "
+        f"uniformity {uni:.6f}")
+    assert launched == expect and wide == expect, (launched, wide, expect)
+    with plain_compressed():
+        p_launched, _, p_eff, p_uni, p_amp, p_weights, p_seconds = z3_drive(device)
+    assert not p_launched, p_launched
+    errors = {"efficiency": abs(eff - p_eff), "uniformity": abs(uni - p_uni),
+              "amp_ff": float(np.abs(amp - p_amp).max()),
+              "weights": float(np.abs(weights - p_weights).max())}
+    log(f"Z3 (plain): {p_seconds:.2f} s, efficiency {p_eff:.6f}, uniformity {p_uni:.6f}; "
+        "kernels against plain: " + ", ".join(f"{k} {v:.3e}" for k, v in errors.items()))
+    assert max(errors.values()) < CMP_PATH_ATOL, errors
+
+    holo = z3_hologram(device)
+    holo._update_flags("WGS-Kim", False, "computational_spot", [])
+    config = holo._compressed_config(kernel_cache=False)
+    consts = holo._compressed_consts(kernel_cache=False)
+    state = holo._compressed_state()
+    z3_kernel_checks(device, consts)
+
+    def run(k):
+        return C.run_compressed_gs(config, state, consts, k)
+
+    with plain_compressed():
+        p1 = loop_ms(run, Z3_TIMING_ITERS)
+    k1, k2 = loop_ms(run, Z3_TIMING_ITERS), loop_ms(run, Z3_TIMING_ITERS)
+    with plain_compressed():
+        p2 = loop_ms(run, Z3_TIMING_ITERS)
+    log(f"Z3 run({Z3_TIMING_ITERS}): kernels {k1:.4f} {k2:.4f} ms/iter, plain {p1:.4f} "
+        f"{p2:.4f} ms/iter  [{nvidia_smi_line()}]")
+    if parent is not None:
+        names = ("f2n", "n2f", "fused_iter")
+        ours = {name: getattr(K, name) for name in names}
+
+        @contextlib.contextmanager
+        def parents():
+            for name in names:
+                setattr(K, name, getattr(parent, name))
+            try:
+                yield
+            finally:
+                for name, fn in ours.items():
+                    setattr(K, name, fn)
+
+        readings = {"this": [], "parent": []}
+        for _ in range(2):
+            for who in ("parent", "this", "this", "parent"):
+                with parents() if who == "parent" else contextlib.nullcontext():
+                    readings[who].append(loop_ms(run, Z3_TIMING_ITERS))
+        medians = {who: float(np.median(r)) for who, r in readings.items()}
+        log(f"A/B Z3 run({Z3_TIMING_ITERS}), ms/iter, this tree's kernels against the "
+            "parent's, one process: this " + " ".join(f"{v:.4f}" for v in readings["this"])
+            + ", parent " + " ".join(f"{v:.4f}" for v in readings["parent"])
+            + f"; medians {medians['this']:.4f} / {medians['parent']:.4f}  "
+            f"[{nvidia_smi_line()}]")
+    return launched
 
 
 # ----------------------------------------------------------------------
@@ -5705,15 +6110,19 @@ def phase_profile_helpers(device):
 def main():
     from slmsuite_torch.models.engine_models import image_mraf, spot_array_wgs
 
-    parent = line_ab_parent = None
+    parent = line_ab_parent = wide_ab_parent = None
     if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
         parent = Path(sys.argv[2]).resolve()
         assert (parent / "slmsuite_torch").is_dir(), f"no port under {parent}"
     elif sys.argv[1:2] == ["--line-ab"] and len(sys.argv) == 3:
         line_ab_parent = Path(sys.argv[2]).resolve()
         assert (line_ab_parent / "slmsuite_torch").is_dir(), f"no port under {line_ab_parent}"
+    elif sys.argv[1:2] == ["--compressed-ab"] and len(sys.argv) == 3:
+        wide_ab_parent = Path(sys.argv[2]).resolve()
+        assert (wide_ab_parent / "slmsuite_torch").is_dir(), f"no port under {wide_ab_parent}"
     elif len(sys.argv) > 1:
-        raise SystemExit("usage: python3 chip_smoke.py [--parent DIR | --line-ab DIR]")
+        raise SystemExit("usage: python3 chip_smoke.py [--parent DIR | --line-ab DIR | "
+                         "--compressed-ab DIR]")
 
     from slmsuite_torch.ops import fft
 
@@ -5727,6 +6136,10 @@ def main():
     if line_ab_parent is not None:
         # Only the A/B of the line kernels against the parent's, no smoke.
         line_ab(device, line_ab_parent)
+        return
+    if wide_ab_parent is not None:
+        # Only the A/B of the wide compressed kernels against the parent's.
+        compressed_wide_ab(device, wide_ab_parent)
         return
     fft.reset_plain_count()
     errors = phase_parity(device)
@@ -5753,6 +6166,7 @@ def main():
     phase_golden()
     times = phase_kernel_timing(device)
     batched_times = phase_batched_timing(device)
+    parent = parent_port(parent) if parent is not None else None
     compressed_times, compressed_loops = phase_compressed_timing(device, parent=parent)
     times.update(compressed_times)
     phase_model_timing(device)
@@ -5800,6 +6214,9 @@ def main():
     del w1_rigs, w1_runs
     phase_rig_calibrations(device)
     assert fft.PLAIN_ON_DEVICE == 0, f"{fft.PLAIN_ON_DEVICE} plain-tier dispatches in W1-W3"
+    # Z3 reads no profiler window, and runs after every phase that does.
+    z3_launches = phase_z3(device, parent=parent)
+    del parent
     log(f"X3 plain tier: {json.dumps(plain_tier)}")
 
     kernels = []
@@ -5829,6 +6246,7 @@ def main():
             z = t["zernike"]
             kernels[-1]["zernike"] = {
                 "path": "Z1", "launches": z1_launches.get(name, 0), "terms": Z1_TERMS,
+                "z3_launches": z3_launches.get(name, 0),
                 "timed_terms": ZERNIKE_TIMING_TERMS, "ms": z["kernel"], "plain_ms": z["plain"],
                 "bound_ms": z["bound"], "bound_by": z["bound_by"], "timer": z["timer"],
             }

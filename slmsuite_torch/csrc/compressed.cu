@@ -42,7 +42,8 @@
 // f2n, n2f and fused_spots_kernel check the range once a chunk by a warp
 // vote (sincos_reduced_lanes, sincos_reduced_each), so the chunk's pairs
 // carry no branch and their latencies overlap; lanes on tail pixels and
-// pad spots take part with phase 0 and a zero weight.
+// pad spots take part with phase 0 and a zero weight (in the wide kernels
+// with a clamped column's terms and a zero weight, or sums left unused).
 //
 // Design. Lanes hold what a pair reads most: n2f and fused_iter (up to
 // kWarpSpots = 256 spots) put lanes on spots, with the spots' sums (and
@@ -64,14 +65,14 @@
 //
 // Any number of Zernike terms. Up to kWideTerms (16) terms, f2n and n2f are
 // instantiated per term count (terms_of) and keep the basis of their pixels
-// or spots in registers or staged whole. Past it they take the wide kernels,
-// which read the basis one float4 group of terms at a time and accumulate
-// each pair's phase over the groups in a register (the phase enters a
-// sincos, so the terms cannot be split across launches): f2n_wide_kernel
-// and n2f_wide_kernel, both with lanes on pixels, the spots' coefficients
-// staged in chunks sized to the term count (at least kPixelSpots spots, so
-// up to slm_cmp_max_terms() = 7,248 terms). fused_spots_kernel stages its
-// block's basis and coefficients for any term count up to kFusedGroups
+// or spots in registers or staged whole. Past it they take the wide kernels
+// (their note below): the operand a thread reuses (f2n: its pixels' basis;
+// n2f, lanes on spots: its spots' coefficients) in registers, the other
+// staged through a cp.async ring and read as broadcasts, instantiated per
+// term count up to 44 and, beyond, one kernel with the group count at run
+// time, up to slm_cmp_max_terms() = 7,248 terms (the phase enters a sincos,
+// so the terms cannot be split across launches). fused_spots_kernel stages
+// its block's basis and coefficients for any term count up to kFusedGroups
 // float4 groups (44 terms); past it fused_iter runs as f2n then n2f, as it
 // does past kWarpSpots spots. fused_iter_cached reads the cache, whose
 // build (a matrix product in PyTorch) takes any term count.
@@ -97,6 +98,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The build compiles this source twice (ops/cuda_fft.py `_UNITS`): the
+// second object (SLM_UNIT_MIXED=1) holds the wide kernels past kWideSplit
+// terms alone, the first everything else, so that the two halves of the
+// wide kernels' instantiations compile in parallel.
+#ifndef SLM_UNIT_MIXED
+#define SLM_UNIT_MIXED 0
+#endif
+
 namespace slm_cmp {
 
 constexpr int kThreads = 256;
@@ -113,32 +122,39 @@ constexpr int kN2fChunk = 2;          // pixels a warp of n2f takes at once
 constexpr int kPixelSpots = 8;        // spots f2n takes at once
 constexpr int kThreadPixels = 4;      // pixels an f2n thread sums
 constexpr size_t kSmemLimit = 227 * 1024;  // shared bytes a block may take
-constexpr size_t kWideSmem = 64 * 1024;    // staged spots of the wide kernels
+constexpr size_t kWideSmem = 64 * 1024;    // the wide kernels' ring past kWideMax terms
 // float4 groups of terms fused_spots_kernel stages (basis and coefficients).
 constexpr int kFusedGroups =
     (int)(kSmemLimit / ((kBlockPixels + kWarpSpots) * sizeof(float4)));
-static_assert(kThreads * kThreadPixels == kBlockPixels,
-              "n2f_wide_kernel's blocks cover the partials' pixel blocks");
 
 // The period reduction of sincos_reduced (ops/cuda_compressed.py
 // `sincos_reduced_model` holds the same constants, and
-// tests/test_torch_compressed.py reads them from here): 2 pi split in three
-// f32 terms, the first with 8 significant bits, so that k * k2PiA is exact
-// for |k| < 2^16 and each fmaf below rounds once.
+// tests/test_torch_compressed.py reads them from here): 1 / 2 pi; 2 pi split
+// in three f32 terms, the first with 8 significant bits, so that k * k2PiA
+// is exact for |k| < 2^16 and each fmaf below rounds once; pi and 2 pi as
+// f32; and 1.5 2^23, whose sum with any |t| < 2^22 has the unit 1 as its
+// last place.
 constexpr float kInv2Pi = 0.15915493667125702f;
 constexpr float k2PiA = 6.28125f;
 constexpr float k2PiB = 0.0019353071693331003f;
 constexpr float k2PiC = 1.0253376273028358e-11f;
 constexpr float kPiF = 3.1415927410125732f;
 constexpr float k2PiF = 6.2831854820251465f;
+constexpr float kRoundShift = 12582912.0f;
 // |phase| above which sincos_reduced takes libdevice's sincosf.
 constexpr float kReducedLimit = 1e5f;
 
-// (sin, cos) of a phase in +-kReducedLimit: k = rint(x / 2 pi), y = x -
-// k 2 pi by three fmaf (Cody-Waite), y folded back into [-pi, pi] where
-// rounding picked k off by one, then __sincosf (the SFU) on [-pi, pi].
+// (sin, cos) of a phase in +-kReducedLimit: k = rint(x kInv2Pi), the f32
+// product rounded to the nearest integer (ties to even) by adding and
+// subtracting kRoundShift, which gives rintf's k and so its bits, on the
+// f32 pipe where rintf issues on the quarter-rate one beside __sincosf's two
+// operations; y = x - k 2 pi by three fmaf (Cody-Waite), folded back into
+// [-pi, pi] where the product's rounding picked the farther k (within ~1e-3
+// of a half period; y lies up to ~4e-3 past +-pi there, and __sincosf,
+// bounded on [-pi, pi], is less accurate: PERF.md, section 6); then
+// __sincosf (the SFU) on y.
 __device__ __forceinline__ void sincos_near(float x, float* s, float* c) {
-  const float k = rintf(x * kInv2Pi);
+  const float k = __fadd_rn(__fadd_rn(__fmul_rn(x, kInv2Pi), kRoundShift), -kRoundShift);
   float y = fmaf(-k, k2PiA, x);
   y = fmaf(-k, k2PiB, y);
   y = fmaf(-k, k2PiC, y);
@@ -239,6 +255,7 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
   }
 }
 
+#if !SLM_UNIT_MIXED
 // Fixed-order sum over the block (kThreads threads); returns it to all.
 __device__ float2 block_sum2(float2 v) {
   __shared__ float2 red[kThreads];
@@ -255,6 +272,7 @@ __device__ float2 block_sum2(float2 v) {
   __syncthreads();
   return out;
 }
+#endif  // !SLM_UNIT_MIXED
 
 // amp * nf / |nf| (ops/compressed.py `_amp_replace`): a zero field becomes
 // unit real, padded pixels (valid false) give 0; amp null is the scalar case.
@@ -436,93 +454,233 @@ n2f_kernel(const float* __restrict__ nfr, const float* __restrict__ nfi,
   }
 }
 
-// Spots a chunk of the wide kernels stages for dq float4 groups of terms,
-// `extra` more bytes a spot: as many as kWideSmem holds, a multiple of
-// kPixelSpots, at most kSpotChunk; at least kPixelSpots while they fit a
-// block's shared memory, else 0 (the launch refuses).
-int wide_chunk(int dq, size_t extra) {
-  const size_t per_spot = (size_t)dq * sizeof(float4) + extra;
-  if (kPixelSpots * per_spot > kSmemLimit) return 0;
-  const size_t n = kWideSmem / per_spot / kPixelSpots * kPixelSpots;
-  return (int)(n < kPixelSpots ? kPixelSpots : n > kSpotChunk ? kSpotChunk : n);
+// ---------------------------------------------------------------------------
+// #14 and #15 past kWideTerms terms: f2n_wide_kernel and n2f_wide_kernel.
+//
+// Past 16 terms a pair's phase (D fmaf) is most of its work, beside one
+// sincos and four fmaf. So each kernel keeps the operand that a thread
+// reuses in registers, reads the other as a shared-memory broadcast, and
+// loads nothing from global memory in its pair loop. f2n keeps lanes on
+// pixels, Wide<D>::R a thread, with their basis in registers, and
+// broadcasts the spots' coefficients and farfield; n2f keeps lanes on
+// spots, R a lane, with their coefficients in registers, and broadcasts
+// the pixels' basis and nearfield (no shuffle: a lane sums its own spots
+// over the pixels). Each broadcast of a float4 group feeds R pairs, so a
+// pair costs G / R shared loads beside its D fmaf. What they broadcast is
+// staged kWideItems at a time (f2n: spots; n2f: pixels of its block)
+// through a ring of two buffers by cp.async (`copy4`): the copy of the next
+// buffer overlaps the pairs of this one, one barrier a buffer.
+//
+// Instantiated per term count from 17 to kWideMax = 44 (float4 groups G =
+// 5 .. 11, those fused_spots_kernel stages), so that the group loop is
+// unrolled and the last group forms its products over the D - 4 (G - 1)
+// terms it holds alone (dot4<T>); R = 2 up to 8 groups and 1 beyond, so
+// that two blocks of kThreads fit an SM (128 registers a thread); a thread
+// forms K = 16 pairs before one sincos vote. Past kWideMax terms the same
+// kernels run with D = 0: the group count at run time and the thread's
+// operand read from global memory a group at a time (coalesced; tail pixels
+// and pad spots clamped, their sums unused; the next group loaded before
+// this one's products), the ring of two buffers of at most kWideSmem, else
+// one (slm_cmp_max_terms(): eight items of 7,248 terms fill a block's shared
+// memory), and K = 32 pairs wherever a buffer holds 16 items, so that each
+// group loaded from global memory feeds 32 pairs.
+//
+// n2f's grid is pixel blocks (kBlockPixels, the partials' blocks) x spot
+// groups. A block's warps take `groups` (a power of two) columns of 32 R
+// spots and split the block's pixels `kWarps / groups` ways; their sums
+// go into the partials in a fixed order, as n2f_kernel's do.
+
+constexpr int kWideMax = 4 * kFusedGroups;  // terms of the last compile-time instantiation
+constexpr int kWideSplit = 30;              // the second object's instantiations start past it
+constexpr int kWideItems = 256;             // items a buffer stages (D > 0)
+
+template <int D, int K_ = 16>
+struct Wide {
+  static constexpr int G = (D + 3) / 4;                // float4 groups (D = 0: at run time)
+  static constexpr int T = D - 4 * (G - 1);            // terms of the last group
+  static constexpr int R = D == 0 || G <= 8 ? 2 : 1;   // f2n: pixels a thread; n2f: spots a lane
+  // Pairs a thread forms before one sincos vote: 16, and at the group count
+  // at run time 32 where a buffer holds 16 items, so that each group of the
+  // thread's operand, loaded from global memory, feeds twice the pairs.
+  static constexpr int K = K_;
+  static constexpr int J = K / R;                      // f2n: spots a step; n2f: pixels a step
+};
+
+// One 4-byte copy from global to shared memory, asynchronous on the card
+// (cp.async; copy_wait completes the thread's copies), zero where !valid
+// (then nothing is read). The host stand-in copies at once.
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+#else
+  *dst = valid ? *src : 0.f;
+#endif
 }
 
-// The phases of kPixelSpots staged spots (n .. n + 7) at a thread's
-// kThreadPixels pixels (pb, pb + 256, ...), pair (j, c) at j * kThreadPixels
-// + c: for each float4 group of terms, the pixels' basis read from global
-// memory (coalesced over the warp; tail pixels and terms past D read 0) and
-// the spots' coefficients from the staged chunk cf[spot][dq], one fmaf a
-// term, accumulated in registers over the groups.
-__device__ __forceinline__ void wide_phases(const float* __restrict__ basis, int P, int D,
-                                            int dq, int pb, const float4* cf, int n,
-                                            float (&ph)[kPixelSpots * kThreadPixels]) {
-  constexpr int PIX = kThreadPixels;
-#pragma unroll
-  for (int i = 0; i < kPixelSpots * PIX; ++i) ph[i] = 0.f;
-  for (int q = 0; q < dq; ++q) {
-    float4 b[PIX];
-#pragma unroll
-    for (int c = 0; c < PIX; ++c) b[c] = terms4(basis, P, D, pb + kThreads * c, q);
-#pragma unroll
-    for (int j = 0; j < kPixelSpots; ++j) {
-      const float4 a = cf[(size_t)(n + j) * dq + q];
-#pragma unroll
-      for (int c = 0; c < PIX; ++c) ph[j * PIX + c] = dot4<4>(a, b[c], ph[j * PIX + c]);
+__device__ __forceinline__ void copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+// Stages items i0 .. i0 + items - 1 of the (D, stride) row-major array x
+// (coefficients or basis) as float4 groups dst[q * items + i] (terms 4q ..
+// 4q + 3, zero past D), then the (re, im) pairs of the same items as
+// float2 after them; items at or past `end` are zero. Four neighbouring
+// threads copy one item's four terms of a group, so a warp's copies read
+// four 32-byte segments and land on 32 consecutive words.
+__device__ __forceinline__ void stage_items(const float* __restrict__ x,
+                                            const float* __restrict__ re,
+                                            const float* __restrict__ im, int stride, int end,
+                                            int D, int dq, int i0, int items, float* dst) {
+  for (int q = 0; q < dq; ++q)
+    for (int t = threadIdx.x; t < 4 * items; t += kThreads) {
+      const int i = i0 + (t >> 2), d = 4 * q + (t & 3);
+      copy4(dst + ((size_t)q * items << 2) + t,
+            x + (size_t)min(d, D - 1) * stride + min(i, end - 1), d < D && i < end);
     }
+  float* pairs = dst + ((size_t)dq * items << 2);
+  for (int t = threadIdx.x; t < 2 * items; t += kThreads) {
+    const int i = i0 + (t >> 1);
+    copy4(pairs + t, ((t & 1) ? im : re) + min(i, end - 1), i < end);
   }
+  copy_commit();
 }
 
-// Stages spots s0 .. s0 + staged - 1 of the (D, N) coefficients as
-// cf[spot][dq] (zero past N and past D), after a barrier that lets the
-// previous chunk be read; the caller's barrier follows.
-__device__ __forceinline__ void stage_coeffs(const float* __restrict__ coeffs, int N, int D,
-                                             int dq, int s0, int staged, float4* cf) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < staged * dq; i += kThreads) {
-    const int s = i / dq, q = i - s * dq;
-    cf[i] = terms4(coeffs, N, D, s0 + s, q);
+// The float4 group q of column i of a (D, stride) row-major array, read
+// from global memory (terms past D zero).
+template <int D>
+__device__ __forceinline__ float4 column_group(const float* __restrict__ x, int stride, int i,
+                                               int d_run, int q) {
+  const int Dt = D ? D : d_run;
+  float t[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int d = 4 * q + k;
+    t[k] = d < Dt ? x[(size_t)d * stride + i] : 0.f;
   }
+  return make_float4(t[0], t[1], t[2], t[3]);
 }
 
-// #14 f2n past kWideTerms terms: f2n_kernel's lanes on pixels (kThreadPixels
-// a thread, sums in registers) and broadcasts of kPixelSpots staged spots,
-// with the phases of wide_phases and the spots staged `chunk` at a time.
-__global__ void __launch_bounds__(kThreads)
+// acc + a . b over a group's terms: all four, or the last group's T.
+template <int D>
+__device__ __forceinline__ float dot_group(float4 a, float4 b, float acc, bool last) {
+  return last ? dot4<Wide<D>::T>(a, b, acc) : dot4<4>(a, b, acc);
+}
+
+// The thread's operand (f2n: its pixels' basis; n2f: its spots' coefficients)
+// in registers, R columns of the (D, stride) array, loaded once.
+template <int D, bool kHeld = (D > 0)>
+struct Held {
+  float4 v[Wide<D>::R][Wide<D>::G];
+  __device__ __forceinline__ Held(const float* __restrict__ x, int stride,
+                                  const int (&col)[Wide<D>::R], int) {
+#pragma unroll
+    for (int r = 0; r < Wide<D>::R; ++r)
+#pragma unroll
+      for (int q = 0; q < Wide<D>::G; ++q) v[r][q] = column_group<D>(x, stride, col[r], D, q);
+  }
+  __device__ __forceinline__ float4 group(int r, int q) const { return v[r][q]; }
+};
+
+// Past kWideMax terms: the operand read a group at a time from global memory.
+template <int D>
+struct Held<D, false> {
+  const float* x;
+  int stride, d_run, col[Wide<D>::R];
+  __device__ __forceinline__ Held(const float* __restrict__ x_, int stride_,
+                                  const int (&col_)[Wide<D>::R], int d_run_)
+      : x(x_), stride(stride_), d_run(d_run_) {
+#pragma unroll
+    for (int r = 0; r < Wide<D>::R; ++r) col[r] = col_[r];
+  }
+  __device__ __forceinline__ float4 group(int r, int q) const {
+    return column_group<0>(x, stride, col[r], d_run, q);
+  }
+};
+
+// f2n past kWideTerms terms. Block b takes pixels b kThreads R .. (thread t
+// pixels t, t + kThreads, ...); spots are staged kWideItems (`items`) at a
+// time and taken J at a time, each step's J x R pairs formed before one
+// sincos vote. The output is written once, scaled by `scale`, or (replace)
+// its amplitude replacement amp nf/|nf|.
+template <int D, int K>
+__global__ void __launch_bounds__(kThreads, 2)
 f2n_wide_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
                 const float* __restrict__ coeffs, const float* __restrict__ basis,
-                const float* __restrict__ amp, int P, int N, int D, int chunk, float scale,
-                int replace, float* __restrict__ nfr, float* __restrict__ nfi) {
-  constexpr int PIX = kThreadPixels, SPOTS = kPixelSpots;
-  const int dq = (D + 3) >> 2;
-  extern __shared__ float4 smem4[];  // cf[chunk][dq], ff[chunk]
-  float4* cf = smem4;
-  float2* ff = reinterpret_cast<float2*>(cf + (size_t)chunk * dq);
-  const int pb = blockIdx.x * kThreads * PIX + threadIdx.x;
-  float re[PIX], im[PIX];
+                const float* __restrict__ amp, int P, int N, int d_run, int items_run,
+                int ring_run, float scale, int replace, float* __restrict__ nfr,
+                float* __restrict__ nfi) {
+  using W = Wide<D, K>;
+  constexpr int R = W::R, J = W::J;
+  const int Dt = D ? D : d_run, dq = D ? W::G : (d_run + 3) >> 2;
+  const int items = D ? kWideItems : items_run, ring = D ? 2 : ring_run;
+  extern __shared__ float4 smem4[];  // ring x (cf[dq][items], ff[items])
+  float* const buf0 = reinterpret_cast<float*>(smem4);
+  float* const buf1 = buf0 + (size_t)items * (4 * dq + 2);
+  const int pb = blockIdx.x * kThreads * R + threadIdx.x;
+  int col[R];
 #pragma unroll
-  for (int c = 0; c < PIX; ++c) re[c] = im[c] = 0.f;
-  for (int s0 = 0; s0 < N; s0 += chunk) {
-    const int ns = min(chunk, N - s0);
-    const int staged = (ns + SPOTS - 1) / SPOTS * SPOTS;
-    stage_coeffs(coeffs, N, D, dq, s0, staged, cf);
-    for (int i = threadIdx.x; i < staged; i += kThreads)
-      ff[i] = i < ns ? make_float2(ffr[s0 + i], ffi[s0 + i]) : make_float2(0.f, 0.f);
-    __syncthreads();
-    for (int n = 0; n < staged; n += SPOTS) {
-      float ph[SPOTS * PIX];
-      wide_phases(basis, P, D, dq, pb, cf, n, ph);
-      float2 f[SPOTS];
+  for (int c = 0; c < R; ++c) col[c] = min(pb + kThreads * c, P - 1);
+  const Held<D> b(basis, P, col, d_run);
+  float re[R], im[R];
 #pragma unroll
-      for (int j = 0; j < SPOTS; ++j) f[j] = ff[n + j];
+  for (int c = 0; c < R; ++c) re[c] = im[c] = 0.f;
+  const int n_bufs = (N + items - 1) / items;
+  stage_items(coeffs, ffr, ffi, N, N, Dt, dq, 0, items, buf0);
+  for (int k = 0; k < n_bufs; ++k) {
+    copy_wait();
+    __syncthreads();  // buffer k is staged; the other one is read
+    const float* cur = ring == 2 && (k & 1) ? buf1 : buf0;
+    if (ring == 2 && k + 1 < n_bufs)
+      stage_items(coeffs, ffr, ffi, N, N, Dt, dq, (k + 1) * items, items, (k & 1) ? buf0 : buf1);
+    const float4* cf = reinterpret_cast<const float4*>(cur);
+    const float2* ff = reinterpret_cast<const float2*>(cur + ((size_t)dq * items << 2));
+    const int staged = min(items, (N - k * items + J - 1) / J * J);
+    for (int n = 0; n < staged; n += J) {
+      float ph[W::K];  // pair (j, c) at j R + c
+#pragma unroll
+      for (int i = 0; i < W::K; ++i) ph[i] = 0.f;
+      float4 bq[R];
+#pragma unroll
+      for (int c = 0; c < R; ++c) bq[c] = b.group(c, 0);
+#pragma unroll
+      for (int q = 0; q < dq; ++q) {
+        float4 next[R];  // group q + 1, loaded before group q's products
+#pragma unroll
+        for (int c = 0; c < R; ++c) next[c] = b.group(c, q + 1 < dq ? q + 1 : q);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float4 a = cf[(size_t)q * items + n + j];
+#pragma unroll
+          for (int c = 0; c < R; ++c)
+            ph[j * R + c] = dot_group<D>(a, bq[c], ph[j * R + c], D && q + 1 == W::G);
+        }
+#pragma unroll
+        for (int c = 0; c < R; ++c) bq[c] = next[c];
+      }
       sincos_reduced_each(ph, [&](int i, float s, float co) {
-        const int j = i / PIX, c = i % PIX;
-        re[c] = fmaf(f[j].x, co, fmaf(-f[j].y, s, re[c]));
-        im[c] = fmaf(f[j].x, s, fmaf(f[j].y, co, im[c]));
+        const int j = i / R, c = i % R;
+        const float2 f = ff[n + j];
+        re[c] = fmaf(f.x, co, fmaf(-f.y, s, re[c]));
+        im[c] = fmaf(f.x, s, fmaf(f.y, co, im[c]));
       });
+    }
+    if (ring == 1 && k + 1 < n_bufs) {
+      __syncthreads();  // the one buffer is read
+      stage_items(coeffs, ffr, ffi, N, N, Dt, dq, (k + 1) * items, items, buf0);
     }
   }
 #pragma unroll
-  for (int c = 0; c < PIX; ++c) {
+  for (int c = 0; c < R; ++c) {
     const int p = pb + kThreads * c;
     if (p < P) {
       const float2 o = replace ? amp_replace(re[c], im[c], amp, p, true)
@@ -533,65 +691,104 @@ f2n_wide_kernel(const float* __restrict__ ffr, const float* __restrict__ ffi,
   }
 }
 
-// #15 n2f past kWideTerms terms: lanes on pixels as in f2n_wide_kernel (a
-// block's kThreads x kThreadPixels pixels are the kBlockPixels of its
-// partials). Each pair's e^{-i Phi} nf is summed over the thread's pixels,
-// then over the warp's lanes (warp_sum2), the warps' sums of the staged
-// spots kept in red[kWarps][chunk] and added over the warps in a fixed
-// order into the block's partials.
-__global__ void __launch_bounds__(kThreads)
+// n2f past kWideTerms terms. Block (x, y) takes pixels x kBlockPixels ..
+// and spots y 32 R groups ..; warp w takes the spot column w % groups (lane
+// l spots l + 32 j) and every (kWarps / groups)-th step of J pixels of each
+// staged buffer, from step w / groups. Its sums stay in registers; after
+// the loop the warps' sums of a spot are added in a fixed order into the
+// block's partials (pad spots' sums are dropped).
+template <int D, int K>
+__global__ void __launch_bounds__(kThreads, 2)
 n2f_wide_kernel(const float* __restrict__ nfr, const float* __restrict__ nfi,
-                const float* __restrict__ coeffs, const float* __restrict__ basis, int P,
-                int N, int D, int chunk, float* __restrict__ partials) {
-  constexpr int PIX = kThreadPixels, SPOTS = kPixelSpots;
-  const int dq = (D + 3) >> 2;
-  extern __shared__ float4 smem4[];  // cf[chunk][dq], red[kWarps][chunk]
-  float4* cf = smem4;
-  float2* red = reinterpret_cast<float2*>(cf + (size_t)chunk * dq);
+                const float* __restrict__ coeffs, const float* __restrict__ basis, int P, int N,
+                int d_run, int items_run, int ring_run, int groups,
+                float* __restrict__ partials) {
+  using W = Wide<D, K>;
+  constexpr int R = W::R, J = W::J, kColumn = 32 * R;
+  const int Dt = D ? D : d_run, dq = D ? W::G : (d_run + 3) >> 2;
+  const int items = D ? kWideItems : items_run, ring = D ? 2 : ring_run;
+  // ring x (bs[dq][items], nf[items]); after the loop red[kWarps][kColumn].
+  extern __shared__ float4 smem4[];
+  float* const buf0 = reinterpret_cast<float*>(smem4);
+  float* const buf1 = buf0 + (size_t)items * (4 * dq + 2);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int pb = blockIdx.x * kBlockPixels + threadIdx.x;
-  float2 v[PIX];
+  const int column = warp & (groups - 1), part = warp / groups, parts = kWarps / groups;
+  const int n0 = blockIdx.y * kColumn * groups + column * kColumn + lane;
+  int col[R];
 #pragma unroll
-  for (int c = 0; c < PIX; ++c) {
-    const int p = pb + kThreads * c;
-    v[c] = p < P ? make_float2(nfr[p], nfi[p]) : make_float2(0.f, 0.f);
-  }
-  for (int s0 = 0; s0 < N; s0 += chunk) {
-    const int ns = min(chunk, N - s0);
-    const int staged = (ns + SPOTS - 1) / SPOTS * SPOTS;
-    stage_coeffs(coeffs, N, D, dq, s0, staged, cf);
-    __syncthreads();
-    for (int n = 0; n < staged; n += SPOTS) {
-      float ph[SPOTS * PIX];
-      wide_phases(basis, P, D, dq, pb, cf, n, ph);
-      float sr[SPOTS], si[SPOTS];
+  for (int j = 0; j < R; ++j) col[j] = min(n0 + 32 * j, N - 1);
+  const Held<D> a(coeffs, N, col, d_run);
+  float acc_re[R], acc_im[R];
 #pragma unroll
-      for (int j = 0; j < SPOTS; ++j) sr[j] = si[j] = 0.f;
+  for (int j = 0; j < R; ++j) acc_re[j] = acc_im[j] = 0.f;
+  const int p0 = blockIdx.x * kBlockPixels, end = min(P, p0 + kBlockPixels);
+  const int n_bufs = (end - p0 + items - 1) / items;
+  stage_items(basis, nfr, nfi, P, end, Dt, dq, p0, items, buf0);
+  for (int k = 0; k < n_bufs; ++k) {
+    copy_wait();
+    __syncthreads();  // buffer k is staged; the other one is read
+    const float* cur = ring == 2 && (k & 1) ? buf1 : buf0;
+    if (ring == 2 && k + 1 < n_bufs)
+      stage_items(basis, nfr, nfi, P, end, Dt, dq, p0 + (k + 1) * items, items,
+                  (k & 1) ? buf0 : buf1);
+    const float4* bs = reinterpret_cast<const float4*>(cur);
+    const float2* nf = reinterpret_cast<const float2*>(cur + ((size_t)dq * items << 2));
+    const int staged = min(items, (end - p0 - k * items + J - 1) / J * J);
+    for (int c0 = part * J; c0 < staged; c0 += parts * J) {
+      float ph[W::K];  // pair (c, j) at c R + j
+#pragma unroll
+      for (int i = 0; i < W::K; ++i) ph[i] = 0.f;
+      float4 aq[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) aq[j] = a.group(j, 0);
+#pragma unroll
+      for (int q = 0; q < dq; ++q) {
+        float4 next[R];  // group q + 1, loaded before group q's products
+#pragma unroll
+        for (int j = 0; j < R; ++j) next[j] = a.group(j, q + 1 < dq ? q + 1 : q);
+#pragma unroll
+        for (int c = 0; c < J; ++c) {
+          const float4 bc = bs[(size_t)q * items + c0 + c];
+#pragma unroll
+          for (int j = 0; j < R; ++j)
+            ph[c * R + j] = dot_group<D>(aq[j], bc, ph[c * R + j], D && q + 1 == W::G);
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) aq[j] = next[j];
+      }
       sincos_reduced_each(ph, [&](int i, float s, float co) {
-        const int j = i / PIX, c = i % PIX;
-        sr[j] = fmaf(co, v[c].x, fmaf(s, v[c].y, sr[j]));
-        si[j] = fmaf(co, v[c].y, fmaf(-s, v[c].x, si[j]));
+        const int c = i / R, j = i % R;
+        const float2 v = nf[c0 + c];
+        acc_re[j] = fmaf(co, v.x, fmaf(s, v.y, acc_re[j]));
+        acc_im[j] = fmaf(co, v.y, fmaf(-s, v.x, acc_im[j]));
       });
-#pragma unroll
-      for (int j = 0; j < SPOTS; ++j) warp_sum2(sr[j], si[j]);
-      if (lane == 0) {
-#pragma unroll
-        for (int j = 0; j < SPOTS; ++j)
-          red[(size_t)warp * chunk + n + j] = make_float2(sr[j], si[j]);
-      }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < ns; i += kThreads) {
-      float2 acc = make_float2(0.f, 0.f);
-      for (int w = 0; w < kWarps; ++w) {
-        acc.x += red[(size_t)w * chunk + i].x;
-        acc.y += red[(size_t)w * chunk + i].y;
-      }
-      partials[(size_t)blockIdx.x * N + s0 + i] = acc.x;
-      partials[((size_t)gridDim.x + blockIdx.x) * N + s0 + i] = acc.y;
+    if (ring == 1 && k + 1 < n_bufs) {
+      __syncthreads();  // the one buffer is read
+      stage_items(basis, nfr, nfi, P, end, Dt, dq, p0 + (k + 1) * items, items, buf0);
     }
+  }
+  __syncthreads();  // red overwrites the ring
+  float2* red = reinterpret_cast<float2*>(smem4);
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    red[warp * kColumn + lane + 32 * j] = make_float2(acc_re[j], acc_im[j]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kColumn * groups; i += kThreads) {
+    const int n = blockIdx.y * kColumn * groups + i;
+    if (n >= N) break;
+    const int c = i / kColumn, r = i - c * kColumn;
+    float2 v = make_float2(0.f, 0.f);
+    for (int h = 0; h < parts; ++h) {
+      v.x += red[(h * groups + c) * kColumn + r].x;
+      v.y += red[(h * groups + c) * kColumn + r].y;
+    }
+    partials[(size_t)blockIdx.x * N + n] = v.x;
+    partials[((size_t)gridDim.x + blockIdx.x) * N + n] = v.y;
   }
 }
+
+#if !SLM_UNIT_MIXED
 
 // #17 fused_iter_cached: per block of kBlockPixels pixels, the (N,)
 // partial sums of e^{-i Phi} times amp nf/|nf| of the nearfield nf
@@ -861,14 +1058,17 @@ unit_norm_kernel(float* __restrict__ re, float* __restrict__ im, int N) {
   }
 }
 
+#endif  // !SLM_UNIT_MIXED
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
-int n_blocks_of(int P) { return (P + kBlockPixels - 1) / kBlockPixels; }
+inline int n_blocks_of(int P) { return (P + kBlockPixels - 1) / kBlockPixels; }
 
+#if !SLM_UNIT_MIXED
 cudaError_t finish(const float* partials, int n_blocks, int N, float scale,
                    float* out_re, float* out_im, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
@@ -877,12 +1077,20 @@ cudaError_t finish(const float* partials, int n_blocks, int N, float scale,
                                                  out_re, out_im);
   return cudaGetLastError();
 }
+#endif  // !SLM_UNIT_MIXED
 
-// Calls f.template run<DT>() for D's term count (terms_of), or f.wide()
-// past kWideTerms terms.
+// f.template wide<D>() for D up to kWideMax, else f.template wide<0>().
+template <int DT, typename F>
+cudaError_t wide_terms(int D, const F& f) {
+  if constexpr (DT > kWideMax) return f.template wide<0>();
+  else return D == DT ? f.template wide<DT>() : wide_terms<DT + 1>(D, f);
+}
+
+// Calls f.template run<DT>() for D's term count (terms_of), or past
+// kWideTerms terms f.template wide<D>() (wide_terms).
 template <typename F>
 cudaError_t with_terms(int D, const F& f) {
-  if (D > kWideTerms) return f.wide();
+  if (D > kWideTerms) return wide_terms<kWideTerms + 1>(D, f);
   switch (terms_of(D)) {
     case 1: return f.template run<1>();
     case 2: return f.template run<2>();
@@ -893,6 +1101,43 @@ cudaError_t with_terms(int D, const F& f) {
     case 16: return f.template run<16>();
   }
   return cudaErrorInvalidValue;
+}
+
+// The staging of the wide kernels at D terms: items a buffer, buffers (the
+// ring), and the block's shared bytes (at least `least`, n2f's sums after
+// the loop). At D <= kWideMax kWideItems in two buffers; past it, as many
+// items (at most kWideItems; a multiple of 16, or of 8 below 16) as two
+// buffers hold within kWideSmem, else as many as one buffer holds within
+// kSmemLimit; none (items 0) where eight do not fit.
+struct WideRing {
+  int items, ring;
+  size_t bytes;
+};
+inline int wide_items(size_t bytes, size_t per_item) {
+  const size_t n = bytes / per_item;
+  return (int)(n >= kWideItems ? kWideItems : n >= 16 ? n / 16 * 16 : n / 8 * 8);
+}
+inline WideRing wide_ring(int D, size_t least) {
+  const size_t per_item = (size_t)((D + 3) / 4) * sizeof(float4) + sizeof(float2);
+  int items = kWideItems, ring = 2;
+  if (D > kWideMax) {
+    items = wide_items(kWideSmem / 2, per_item);
+    if (items < 8) {
+      ring = 1;
+      items = wide_items(kSmemLimit, per_item);
+    }
+    if (items < 8) return {0, 0, 0};
+  }
+  const size_t bytes = ring * items * per_item;
+  return {items, ring, bytes > least ? bytes : least};
+}
+
+// Spot columns of 32 `column`-spot lanes a block of n2f_wide_kernel takes:
+// the least power of two that covers N, at most kWarps.
+inline int wide_groups(int N, int column) {
+  int groups = 1;
+  while (groups < kWarps && groups * column < N) groups *= 2;
+  return groups;
 }
 
 struct F2nLaunch {
@@ -914,15 +1159,16 @@ struct F2nLaunch {
     return cudaGetLastError();
   }
 
-  cudaError_t wide() const {
-    const int dq = (D + 3) / 4, chunk = wide_chunk(dq, sizeof(float2));
-    if (!chunk) return cudaErrorInvalidValue;
-    const size_t smem = (size_t)chunk * (dq * sizeof(float4) + sizeof(float2));
-    cudaError_t err = set_smem(f2n_wide_kernel, smem);
+  template <int DT>
+  cudaError_t wide() const;  // below
+
+  template <int DT, int K>
+  cudaError_t launch(const WideRing& w) const {
+    cudaError_t err = set_smem(f2n_wide_kernel<DT, K>, w.bytes);
     if (err != cudaSuccess) return err;
-    const int per_block = kThreads * kThreadPixels;
-    f2n_wide_kernel<<<(P + per_block - 1) / per_block, kThreads, smem, stream>>>(
-        ffr, ffi, coeffs, basis, amp, P, N, D, chunk, scale, replace, nfr, nfi);
+    const int per_block = kThreads * Wide<DT>::R;
+    f2n_wide_kernel<DT, K><<<(P + per_block - 1) / per_block, kThreads, w.bytes, stream>>>(
+        ffr, ffi, coeffs, basis, amp, P, N, D, w.items, w.ring, scale, replace, nfr, nfi);
     return cudaGetLastError();
   }
 };
@@ -945,18 +1191,62 @@ struct N2fLaunch {
     return cudaGetLastError();
   }
 
-  cudaError_t wide() const {
-    const int dq = (D + 3) / 4, chunk = wide_chunk(dq, kWarps * sizeof(float2));
-    if (!chunk) return cudaErrorInvalidValue;
-    const size_t smem = (size_t)chunk * (dq * sizeof(float4) + kWarps * sizeof(float2));
-    cudaError_t err = set_smem(n2f_wide_kernel, smem);
+  template <int DT>
+  cudaError_t wide() const;  // below
+
+  template <int DT, int K>
+  cudaError_t launch(const WideRing& w) const {
+    constexpr int kColumn = 32 * Wide<DT>::R;
+    cudaError_t err = set_smem(n2f_wide_kernel<DT, K>, w.bytes);
     if (err != cudaSuccess) return err;
-    n2f_wide_kernel<<<n_blocks_of(P), kThreads, smem, stream>>>(nfr, nfi, coeffs, basis, P, N,
-                                                                D, chunk, partials);
+    const int groups = wide_groups(N, kColumn);
+    const dim3 grid(n_blocks_of(P), (N + kColumn * groups - 1) / (kColumn * groups));
+    n2f_wide_kernel<DT, K><<<grid, kThreads, w.bytes, stream>>>(nfr, nfi, coeffs, basis, P, N, D,
+                                                                w.items, w.ring, groups, partials);
     return cudaGetLastError();
   }
 };
 
+// The wide launches at DT terms (0: the group count at run time, K = 32
+// where a buffer holds 16 items). Defined out of the classes (not inline),
+// so that each object instantiates those of its own half alone.
+template <int DT>
+cudaError_t F2nLaunch::wide() const {
+  const WideRing w = wide_ring(DT ? DT : D, 0);
+  if (!w.items) return cudaErrorInvalidValue;
+  if constexpr (DT == 0)
+    if (w.items % 16 == 0) return launch<0, 32>(w);
+  return launch<DT, 16>(w);
+}
+
+template <int DT>
+cudaError_t N2fLaunch::wide() const {
+  constexpr int kColumn = 32 * Wide<DT>::R;
+  const WideRing w = wide_ring(DT ? DT : D, kWarps * kColumn * sizeof(float2));
+  if (!w.items) return cudaErrorInvalidValue;
+  if constexpr (DT == 0)
+    if (w.items % 16 == 0) return launch<0, 32>(w);
+  return launch<DT, 16>(w);
+}
+
+// The term counts past kWideSplit, whose wide launches the second object
+// instantiates and the first only declares.
+#define SLM_CMP_WIDE_SECOND(X) \
+  X(31) X(32) X(33) X(34) X(35) X(36) X(37) X(38) X(39) X(40) X(41) X(42) X(43) X(44)
+static_assert(kWideSplit == 30 && kWideMax == 44, "SLM_CMP_WIDE_SECOND lists the second half");
+#if SLM_UNIT_MIXED
+#define SLM_CMP_WIDE(DT)                                     \
+  template cudaError_t F2nLaunch::wide<DT>() const; \
+  template cudaError_t N2fLaunch::wide<DT>() const;
+#else
+#define SLM_CMP_WIDE(DT)                                            \
+  extern template cudaError_t F2nLaunch::wide<DT>() const; \
+  extern template cudaError_t N2fLaunch::wide<DT>() const;
+#endif
+SLM_CMP_WIDE_SECOND(SLM_CMP_WIDE)
+#undef SLM_CMP_WIDE
+
+#if !SLM_UNIT_MIXED
 // fused_iter_cached: roundtrip_kernel (keeping the cos/sin when it fits)
 // and the fixed-order spot_reduce that finishes it.
 cudaError_t launch_cached(const float* ffr, const float* ffi, const float* kc, const float* ks,
@@ -991,7 +1281,11 @@ cudaError_t launch_fused(const float* ffr, const float* ffi, const float* coeffs
   return finish(partials, n_blocks, N, 1.f, out_re, out_im, stream);
 }
 
+#endif  // !SLM_UNIT_MIXED
+
 }  // namespace slm_cmp
+
+#if !SLM_UNIT_MIXED
 
 using namespace slm_cmp;
 
@@ -1042,10 +1336,14 @@ int slm_cmp_fused_spots() { return kWarpSpots; }
 
 int slm_cmp_fused_terms() { return 4 * kFusedGroups; }
 
-// The most Zernike terms f2n and n2f take: kPixelSpots spots' coefficients
-// (and n2f's per-warp sums) within a block's shared memory.
+int slm_cmp_wide_terms() { return kWideTerms; }
+
+// The most Zernike terms f2n and n2f take: the wide kernels' one buffer of
+// eight items (f2n: spots; n2f: pixels) within a block's shared memory.
 int slm_cmp_max_terms() {
   return 4 * (int)((kSmemLimit / kPixelSpots - kWarps * sizeof(float2)) / sizeof(float4));
 }
 
 }  // extern "C"
+
+#endif  // !SLM_UNIT_MIXED

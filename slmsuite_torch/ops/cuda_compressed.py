@@ -13,8 +13,9 @@ on the current stream, raises if the launcher reports an error, and
 counts its call in :data:`LAUNCHES` (one per call, for the kernel and the
 fixed-order passes that finish it) and the bytes it declares in
 :data:`BYTES`. ``f2n`` and ``n2f`` take any spot count and any number of
-Zernike terms (past 16 their wide kernels, up to ``slm_cmp_max_terms()``,
-7,248, where eight spots' coefficients fill a block's shared memory);
+Zernike terms (past 16 their wide kernels, counted apart as well in
+:data:`WIDE_LAUNCHES`, up to ``slm_cmp_max_terms()``, 7,248, where eight
+spots' coefficients or pixels' basis fill a block's shared memory);
 ``fused_iter`` beyond the spots of its kernel's warp (256) or the terms it
 stages (``slm_cmp_fused_terms()``, 44) runs as the two of them (each
 counted).
@@ -37,15 +38,23 @@ from slmsuite_torch.ops.cuda_fft import _ptr
 #: Calls per wrapper since the last :meth:`reset_launch_counts`.
 LAUNCHES = {"f2n": 0, "n2f": 0, "fused_iter": 0, "fused_iter_cached": 0}
 
+#: Calls of ``f2n`` and ``n2f`` past ``slm_cmp_wide_terms()`` (16) Zernike
+#: terms, that is of their wide kernels, since the last
+#: :meth:`reset_launch_counts` (each is counted in :data:`LAUNCHES` too).
+WIDE_LAUNCHES = {"f2n": 0, "n2f": 0}
+
 #: Bytes each wrapper declares for its launches since the last
 #: :meth:`reset_launch_counts`: the tensors its kernel reads, each once, and
 #: writes, each once (the stats partials left out).
 BYTES = dict.fromkeys(LAUNCHES, 0)
 
 
-def _launched(name, reads, writes):
-    """Count one launch of ``name`` and its declared bytes."""
+def _launched(name, reads, writes, terms=0):
+    """Count one launch of ``name`` and its declared bytes (at ``terms``
+    Zernike terms: past ``slm_cmp_wide_terms()`` a wide launch too)."""
     LAUNCHES[name] += 1
+    if terms and terms > _lib().slm_cmp_wide_terms():
+        WIDE_LAUNCHES[name] += 1
     BYTES[name] += sum(t.numel() * t.element_size()
                        for t in (*reads, *writes) if t is not None)
 
@@ -59,6 +68,7 @@ _SIGNATURES = {
     "slm_cmp_fused_spots": [],
     "slm_cmp_fused_terms": [],
     "slm_cmp_max_terms": [],
+    "slm_cmp_wide_terms": [],
 }
 
 _BOUND = None
@@ -98,6 +108,8 @@ def reset_launch_counts():
     for key in LAUNCHES:
         LAUNCHES[key] = 0
         BYTES[key] = 0
+    for key in WIDE_LAUNCHES:
+        WIDE_LAUNCHES[key] = 0
 
 
 def _lib():
@@ -188,7 +200,7 @@ def f2n(ff_re, ff_im, coeffs, basis, amp=None):
                             _ptr(amp_plane), P, N, D, float(P ** -0.5), int(replace),
                             _ptr(nfr), _ptr(nfi), cuda_fft._stream())
     cuda_fft._raise_on(rc, "f2n")
-    _launched("f2n", (ff_re, ff_im, coeffs, basis, amp_plane), (nfr, nfi))
+    _launched("f2n", (ff_re, ff_im, coeffs, basis, amp_plane), (nfr, nfi), D)
     return nfr, nfi
 
 
@@ -209,7 +221,7 @@ def n2f(nf_re, nf_im, coeffs, basis, normalize=True):
                             float(P ** -0.5) if normalize else 1.0, int(normalize),
                             _ptr(partials), _ptr(out_re), _ptr(out_im), cuda_fft._stream())
     cuda_fft._raise_on(rc, "n2f")
-    _launched("n2f", (nf_re, nf_im, coeffs, basis), (out_re, out_im))
+    _launched("n2f", (nf_re, nf_im, coeffs, basis), (out_re, out_im), D)
     return out_re, out_im
 
 

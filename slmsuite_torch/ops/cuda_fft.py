@@ -11,7 +11,8 @@ The sources are ``slmsuite_torch/csrc/*.cu`` and ``*.cuh``. On the first
 launch each ``.cu`` is compiled with ``nvcc`` for ``sm_90a``, all at
 once in parallel (a source of the line kernels twice, its power-of-two
 plans and, with ``SLM_UNIT_MIXED=1``, its mixed plan: the second object's
-entry points end in ``_mixed``), and the objects are linked into
+entry points end in ``_mixed``; ``compressed.cu`` twice, the second object
+holding the wide kernels past 30 Zernike terms), and the objects are linked into
 ``build/slmsuite_torch/<hash of the sources>/libslmsuite_torch.so``
 (beside the package, in the checkout), loaded with ``ctypes``;
 importing this module builds nothing. Each wrapper checks its inputs
@@ -174,7 +175,8 @@ def build():
     start = time.perf_counter()
     jobs = []
     for src in (s for s in _sources() if s.suffix == ".cu"):
-        units = _UNITS if "SLM_ENTRY(" in src.read_text() else _UNITS[:1]
+        text = src.read_text()
+        units = _UNITS if "SLM_ENTRY(" in text or "SLM_UNIT_MIXED" in text else _UNITS[:1]
         for suffix, flags in units:
             obj = out_dir / f"{src.stem}{suffix}.{tag}.o"
             cmd = [nvcc, *_NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)]

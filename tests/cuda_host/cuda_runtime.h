@@ -1,13 +1,20 @@
 // A host stand-in for the parts of the CUDA runtime and device language
-// that the port's line kernels use, so that their sources compile with a
-// host C++20 compiler and run on the CPU (tests/test_torch_csrc_host.py):
-// a launch runs each block of the grid in turn, its threads as std::threads
-// that meet at a std::barrier in __syncthreads(); shared memory is one
-// host array. Warp shuffles, clusters and inline PTX are not modelled
-// (the kernels that need them are compiled, not run).
+// that the port's kernels use, so that their sources compile with a host
+// C++20 compiler and run on the CPU (tests/test_torch_csrc_host.py for the
+// line kernels, tests/test_torch_csrc_host_compressed.py for the compressed
+// ones): a launch runs each block of the grid in turn, its threads as
+// std::threads that meet at a std::barrier in __syncthreads(); shared
+// memory is one host array. Warp shuffles, clusters and inline PTX are not
+// modelled (the kernels that need them are compiled, not run): a shuffle
+// returns the thread's own value. A warp vote (__any_sync) returns the
+// thread's own predicate, which is exact where both branches of the vote
+// give each element the same value (the compressed kernels' sincos). The
+// math functions are the C library's (math.h: rintf, copysignf, fmaf,
+// sincosf, ...); the card's __sincosf is the library's sincosf here.
 #pragma once
 #include <barrier>
 #include <cmath>
+#include <math.h>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -27,6 +34,10 @@ struct float2 {
   float x, y;
 };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -43,6 +54,8 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __int_as_float(int i) {
   float f;
   std::memcpy(&f, &i, 4);
@@ -53,6 +66,16 @@ template <class T>
 inline T __shfl_down_sync(unsigned, T v, int) {
   return v;
 }
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int) {
+  return v;
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int) {
+  return v;
+}
+inline bool __any_sync(unsigned, bool predicate) { return predicate; }
+inline void __sincosf(float x, float* s, float* c) { sincosf(x, s, c); }
 inline unsigned __cvta_generic_to_shared(const void*) { return 0; }
 
 typedef void* cudaStream_t;

@@ -740,7 +740,8 @@ def _rel_pair(got, ref):
                                      (3, 65536, 600), (3, 65536, 9000), (3, 65536, 12000),
                                      (16, 16384, 4096), (17, 5000, 100), (17, 3000, 600),
                                      (21, 65536, 100), (21, 16384, 4096), (28, 4096, 300),
-                                     (28, 8192, 256), (48, 3000, 17)])
+                                     (28, 8192, 256), (48, 3000, 17), (20, 5000, 97),
+                                     (24, 3000, 301), (25, 9000, 45), (44, 5000, 97)])
 @pytest.mark.parametrize("amp_kind", ["scalar", "array"])
 def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
     """f2n, n2f, fused_iter and fused_iter_cached against their plain
@@ -754,9 +755,12 @@ def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
     fused_iter_cached past the cos/sin it keeps (600 spots and more), and
     past 16 Zernike terms (17, 21 and 28: the wide f2n and n2f, and
     fused_iter's kernel staging five to seven float4 groups; 48, past the
-    44 terms that kernel stages: fused_iter runs as f2n and n2f). One
-    launch each, and one more of f2n and n2f where fused_iter runs as the
-    two."""
+    44 terms that kernel stages: fused_iter runs as f2n and n2f; 20, 24, 25
+    and 44, each group count's last group whole or not, 44 the last
+    compile-time instantiation of the wide kernels, at spot counts that
+    are no multiple of 8 and pixels with a tail). One launch each, and one
+    more of f2n and n2f where fused_iter runs as the two; past 16 terms
+    each launch of f2n and n2f is counted as wide too."""
     from slmsuite_torch.ops import compressed as C
     from slmsuite_torch.ops import cuda_compressed as K
 
@@ -781,28 +785,150 @@ def test_compressed_kernels_match_plain(cuda, D, P, N, amp_kind):
     two = N > 256 or D > 44
     assert K.LAUNCHES == dict(f2n=1 + two, n2f=1 + two, fused_iter=int(not two),
                               fused_iter_cached=1)
+    wide = D > 16
+    assert K.WIDE_LAUNCHES == dict(f2n=(1 + two) * wide, n2f=(1 + two) * wide)
 
 
 @pytest.mark.cuda
 def test_compressed_reductions_repeat_bit_for_bit(cuda):
     """The cross-block reductions run in a fixed order: two launches on
     the same inputs give the same bits (fused_iter at 9,000 spots: f2n and
-    n2f)."""
+    n2f; the wide f2n and n2f at 21 terms)."""
     from slmsuite_torch.ops import compressed as C
     from slmsuite_torch.ops import cuda_compressed as K
 
     x = _cmp_inputs(3, 65536, 256, cuda, seed=1)
     big = _cmp_inputs(3, 65536, 9000, cuda, seed=1)
+    wide = _cmp_inputs(21, 65536, 300, cuda, seed=1)
     kc, ks = C.build_kernel_cache(x["coeffs"], x["basis"])
     calls = (
         lambda: K.n2f(x["nfr"], x["nfi"], x["coeffs"], x["basis"]),
         lambda: K.fused_iter(x["ffr"], x["ffi"], x["coeffs"], x["basis"], x["amp"]),
         lambda: K.fused_iter_cached(x["ffr"], x["ffi"], kc, ks, x["amp"], 256, 65536),
         lambda: K.fused_iter(big["ffr"], big["ffi"], big["coeffs"], big["basis"], big["amp"]),
+        lambda: K.n2f(wide["nfr"], wide["nfi"], wide["coeffs"], wide["basis"]),
+        lambda: K.f2n(wide["ffr"], wide["ffi"], wide["coeffs"], wide["basis"], amp=wide["amp"]),
     )
     for call in calls:
         first, second = call(), call()
         assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_wide_compressed_kernels_against_float64(cuda):
+    """The wide f2n and n2f at 21 terms on inputs whose phases reach 1e6
+    (past 1e5 the kernels' sincos takes libdevice's sincosf) and are exact
+    in f32 (as chip_smoke.py's wide_phase_inputs makes them: the basis in
+    multiples of 1/4 within [-2, 2], the coefficients in multiples of 1/4
+    up to scales spaced geometrically from 1 to 1e6 / 42, the first spot's
+    all at the largest such multiple and the first pixel's basis all 2,
+    where the phase is 999,999; every partial sum a multiple of 1/16 below
+    2^20): against the plain versions run in float64 on the card, within
+    CMP_RTOL of the largest float64 value."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    D, P, N, top = 21, 3000, 17, 1e6
+    rng = np.random.default_rng(4)
+    basis = rng.integers(-8, 9, size=(D, P)) / 4
+    scale = np.geomspace(top / (2 * D), 1, N)
+    coeffs = np.round(rng.uniform(-1, 1, (D, N)) * scale * 4) / 4
+    coeffs[:, 0], basis[:, 0] = np.floor(scale[0] * 4) / 4, 2.0
+    assert np.abs(coeffs.T @ basis).max() == 2 * D * coeffs[0, 0] == 999_999 < 2**20
+    x = _cmp_inputs(D, P, N, cuda, seed=4)
+    x["basis"] = torch.from_numpy(basis.astype(np.float32)).to(cuda)
+    x["coeffs"] = torch.from_numpy(coeffs.astype(np.float32)).to(cuda)
+    cb = (x["coeffs"], x["basis"])
+    for kernel, plain, args in ((K.f2n, C._farfield_to_nearfield, (x["ffr"], x["ffi"], *cb)),
+                                (K.n2f, C._nearfield_to_farfield, (x["nfr"], x["nfi"], *cb))):
+        ref = plain(*(a.double() for a in args))
+        got = kernel(*args)
+        peak = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+        err = max(float((got[k].double() - ref[k]).abs().max()) for k in (0, 1)) / peak
+        assert err <= CMP_RTOL, (kernel.__name__, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [600, 2000, 7248])
+def test_wide_compressed_kernels_at_the_run_time_group_count(cuda, D):
+    """The wide f2n (scaled, and the amplitude replacement) and n2f
+    (normalized, and the unnormalized sum) past 44 terms, where the group
+    count is known at run time, at each staging of that kernel: 600 terms
+    (a ring of two buffers of eight items, 16 pairs a vote), 2,000 (one
+    buffer of 16 items, with its extra barrier and restaging, 32 pairs a
+    vote) and the limit slm_cmp_max_terms(), 7,248 (one buffer of eight
+    items). 17 spots (pad spots; f2n restages its buffer) and 3,000 pixels
+    (a tail block). The basis and coefficients are multiples of 1/4 within
+    [-2, 2] and [-1, 1], so that every partial sum of a phase is a multiple
+    of 1/16 below 2^20 and exact in f32: kernel and plain version differ in
+    the sincos and the sums' order alone. Against the plain versions within
+    CMP_RTOL; each call one wide launch."""
+    from slmsuite_torch.ops import compressed as C
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    assert K._lib().slm_cmp_max_terms() == 7248
+    P, N = 3000, 17
+    rng = np.random.default_rng(D)
+    x = _cmp_inputs(D, P, N, cuda, seed=D)
+    x["basis"] = torch.from_numpy(rng.integers(-8, 9, (D, P)).astype(np.float32) / 4).to(cuda)
+    x["coeffs"] = torch.from_numpy(rng.integers(-4, 5, (D, N)).astype(np.float32) / 4).to(cuda)
+    ff, nf, cb = (x["ffr"], x["ffi"]), (x["nfr"], x["nfi"]), (x["coeffs"], x["basis"])
+    calls = {
+        "f2n": (lambda: K.f2n(*ff, *cb), lambda: C._farfield_to_nearfield(*ff, *cb)),
+        "f2n replace": (lambda: K.f2n(*ff, *cb, amp=x["amp"]),
+                        lambda: C._farfield_to_nearfield(*ff, *cb, amp=x["amp"])),
+        "n2f": (lambda: K.n2f(*nf, *cb), lambda: C._nearfield_to_farfield(*nf, *cb)),
+        "n2f unnormalized": (lambda: K.n2f(*nf, *cb, normalize=False),
+                             lambda: C._nearfield_to_farfield(*nf, *cb, normalize=False)),
+    }
+    for name, (kernel, plain) in calls.items():
+        K.reset_launch_counts()
+        got = kernel()
+        assert {k: v for k, v in K.WIDE_LAUNCHES.items() if v} == {name.split()[0]: 1}, name
+        assert _rel_pair(got, plain()) <= CMP_RTOL, name
+
+
+#: The kernels' sincos on the card against float64 sin and cos of the same
+#: f32 phase: the limit tests/test_torch_compressed.py holds the CPU model
+#: of its reduction to (torch's sin in place of __sincosf).
+SINCOS_ATOL = 6e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 17])
+def test_compressed_sincos_past_pi(cuda, D):
+    """The kernels' sincos as f2n forms it (D = 1: f2n_kernel; D = 17:
+    f2n_wide_kernel), read through f2n at one spot of farfield 1 on 65,536
+    pixels (the phase is the first basis row, the other terms zero, so it
+    is exact; the scale 1/256 is exact too): half of the phases lie within
+    1e-3 of a half period, where k (the f32 product x kInv2Pi rounded) may
+    be the farther integer and x - k 2 pi then lies past +-pi (at least
+    1,000 of them here; the reduction folds it back); the other half
+    uniform within the reduced range +-1e5. Each set, and the phases past
+    +-pi alone, against float64 within SINCOS_ATOL."""
+    from slmsuite_torch.ops import cuda_compressed as K
+
+    P, half = 65536, 32768
+    rng = np.random.default_rng(7)
+    k = rng.integers(-15_000, 15_000, half)
+    near = (2 * np.pi * (k + 0.5 + rng.uniform(-1e-3, 1e-3, half))).astype(np.float32)
+    inside = rng.uniform(-K.REDUCED_LIMIT, K.REDUCED_LIMIT, P - half).astype(np.float32)
+    x = np.concatenate([near, inside])
+    x64 = x.astype(np.float64)
+    y = x64 - np.round(x * np.float32(K.INV_2PI)).astype(np.float64) * 2 * np.pi
+    past = np.abs(y) > np.pi
+    assert past[:half].sum() >= 1000, past[:half].sum()
+    basis, coeffs = np.zeros((D, P), np.float32), np.zeros((D, 1), np.float32)
+    basis[0], coeffs[0] = x, 1.0
+    one, zero = torch.ones(1, device=cuda), torch.zeros(1, device=cuda)
+    nfr, nfi = K.f2n(one, zero, torch.from_numpy(coeffs).to(cuda),
+                     torch.from_numpy(basis).to(cuda))
+    c, s = (t.double().cpu().numpy() * 256 for t in (nfr, nfi))
+    for tag, part in (("near a half", slice(0, half)), ("past pi", past),
+                      ("uniform", slice(half, P))):
+        err = max(np.abs(c[part] - np.cos(x64[part])).max(),
+                  np.abs(s[part] - np.sin(x64[part])).max())
+        assert err <= SINCOS_ATOL, (D, tag, err)
 
 
 @pytest.mark.cuda
