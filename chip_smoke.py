@@ -4615,58 +4615,292 @@ def g4_kwargs(name, s, side):
 def phase_g4(device, make=None, n=G4_ITERS):
     """G4: each optimizer the port added, on G1's path (the 2048^2 32x32
     array through SpotHologram, CG) through the kernels and through torch's
-    autograd of the plain versions on the card: exact launches (rows_fft
-    and cols_fft 2n in the loop, one each after it), the efficiency risen
-    from the initial phase's (fallen for G4_UPHILL), final efficiency and
-    uniformity within SLICE_ATOL of the plain run's, and ms an iteration,
-    plain, kernels, kernels, plain. Returns the launches over all rules."""
+    autograd of the plain versions on the card (:func:`cg_rule_run`): exact
+    launches (rows_fft and cols_fft 2n in the loop, one each after it), one
+    host sync an iteration, the efficiency risen from the initial phase's
+    (fallen for G4_UPHILL), final efficiency and uniformity within
+    SLICE_ATOL of the plain run's, and ms an iteration. Returns the
+    launches over all rules."""
     make = make or (lambda: g1_hologram(device))
     start = time.perf_counter()
+    s, side, initial = cg_start(make, "G4")
+    total = {}
+    for name in G4_RULES:
+        counts, _, _ = cg_rule_run(
+            f"G4 {name}", make, n, name, g4_kwargs(name, s, side),
+            dict(rows_fft=2 * n, cols_fft=2 * n), dict(rows_fft=1, cols_fft=1), SLICE_ATOL,
+            initial, rise=name not in G4_UPHILL)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    log(f"G4: {len(G4_RULES)} rules in {time.perf_counter() - start:.1f} s; launches {total}  "
+        f"[{nvidia_smi_line()}]")
+    return total
+
+
+def cg_start(make, label):
+    """The rms of the first gradient of ``make()``'s CG loss, its side, and
+    its initial efficiency and uniformity (after a step of rate 0)."""
     holo = make()
-    side = holo.shape[0]
     s = float(cg_gradient(holo).pow(2).mean().sqrt())
     cg_optimize(holo, 1, None, optimizer="sgd", kwargs={"learning_rate": 0.0})
     initial = cg_final(holo)[0]
-    log(f"G4: first gradient rms {s:.4e}; initial efficiency {initial[0]:.6f}, uniformity "
-        f"{initial[1]:.6f}")
-    total = {}
-    for name in G4_RULES:
-        kwargs = g4_kwargs(name, s, side)
-        opt = dict(optimizer=name, kwargs=kwargs)
-        holo, losses, loop, after, _ = drive_cg(make, n, None, **opt)
-        assert loop == dict(rows_fft=2 * n, cols_fft=2 * n), (name, loop)
-        assert after == dict(rows_fft=1, cols_fft=1), (name, after)
-        assert holo.iter == n == len(losses) and np.isfinite(losses).all(), (name, holo.iter)
-        final = cg_final(holo)[0]
-        with plain_gradients():
-            plain, plain_losses, plain_loop, plain_after, _ = drive_cg(make, n, None, **opt)
-            plain_final = cg_final(plain)[0]
-        assert not plain_loop and not plain_after, (name, plain_loop, plain_after)
-        e_final = float(np.abs(final - plain_final).max())
-        e_loss = float(np.max(np.abs(losses - plain_losses) / np.abs(plain_losses)))
-        rose = final[0] > initial[0]
-        assert rose != (name in G4_UPHILL), (name, initial, final)
-        assert e_final <= SLICE_ATOL, (name, final, plain_final)
+    log(f"{label}: first gradient rms {s:.4e}; initial efficiency {initial[0]:.6f}, "
+        f"uniformity {initial[1]:.6f}")
+    return s, holo.shape[0], initial
 
-        def run(k, holo=holo, opt=opt):
-            cg_optimize(holo, k, None, **opt)
 
+def cg_rule_run(label, make, n, name, kwargs, loop_expect, after_expect, atol, initial=None,
+                rise=True, timed=True):
+    """One CG run of the optimizer or building block ``name`` (G4, G5):
+    through the kernels (exact launches in the loop and after it) and
+    through torch's autograd of the plain versions (none); what users read
+    within ``atol`` of plain; where ``initial`` is given, the efficiency
+    risen from it (fallen when not ``rise``); one host sync an iteration;
+    if ``timed``, ms an iteration, plain, kernels, kernels, plain. Returns
+    ``(launches, ms through the kernels, ms plain)``, no times if not
+    ``timed``."""
+    opt = dict(optimizer=name, kwargs=kwargs)
+    holo, losses, loop, after, _ = drive_cg(make, n, None, **opt)
+    assert loop == loop_expect, (label, loop)
+    assert after == after_expect, (label, after)
+    assert holo.iter == n == len(losses) and np.isfinite(losses).all(), (label, losses)
+    final = cg_final(holo)
+    with plain_gradients():
+        plain, plain_losses, plain_loop, plain_after, _ = drive_cg(make, n, None, **opt)
+        plain_final = cg_final(plain)
+    assert not plain_loop and not plain_after, (label, plain_loop, plain_after)
+    e_final = float(np.abs(final - plain_final).max())
+    e_loss = float(np.max(np.abs(losses - plain_losses) / np.abs(plain_losses)))
+    assert e_final <= atol, (label, final, plain_final)
+    if initial is not None:
+        assert (final[0][0] > initial[0]) == rise, (label, initial, final)
+
+    def run(k, holo=holo, opt=opt):
+        cg_optimize(holo, k, None, **opt)
+
+    syncs = (host_syncs(run, HOST_TIMING_ITERS) - host_syncs(run, 0)) / HOST_TIMING_ITERS
+    assert syncs == 1, (label, syncs)
+    kernel_ms = plain_ms = ()
+    times = ""
+    if timed:
         with plain_gradients():
             p1 = wall_ms(run, n)
-        k1, k2 = wall_ms(run, n), wall_ms(run, n)
+        kernel_ms = wall_ms(run, n), wall_ms(run, n)
         with plain_gradients():
-            p2 = wall_ms(run, n)
-        shown = {k: float(f"{v:.6g}") if isinstance(v, float) else v for k, v in kwargs.items()}
-        log(f"G4 {name} {json.dumps(shown)}: efficiency {initial[0]:.6f} -> {final[0]:.6f} "
-            f"(plain {plain_final[0]:.6f}), uniformity {final[1]:.6f} (plain "
-            f"{plain_final[1]:.6f}); final max |diff| {e_final:.3e}, loss max relative diff "
-            f"{e_loss:.3e}; kernels {k1:.3f} {k2:.3f} ms an iteration, plain autograd {p1:.3f} "
-            f"{p2:.3f}")
-        for counts in (loop, after):
-            for k, v in counts.items():
-                total[k] = total.get(k, 0) + v
-    log(f"G4: {len(G4_RULES)} rules in {time.perf_counter() - start:.1f} s; launches {total}  "
-        f"[{nvidia_smi_line()}]")
+            plain_ms = p1, wall_ms(run, n)
+        times = (f"; kernels {kernel_ms[0]:.3f} {kernel_ms[1]:.3f} ms an iteration, plain "
+                 f"autograd {plain_ms[0]:.3f} {plain_ms[1]:.3f}")
+    log(f"{label}: {final.ravel()[:2].tolist()} (plain {plain_final.ravel()[:2].tolist()}); "
+        f"final max |diff| {e_final:.3e}, loss max relative diff {e_loss:.3e}; {syncs:.2f} host "
+        f"syncs an iteration{times}")
+    counts = {k: loop.get(k, 0) + after.get(k, 0) for k in {*loop, *after}}
+    return counts, kernel_ms, plain_ms
+
+
+# ----------------------------------------------------------------------
+# G5: optax's building blocks (ops/optim.py) on G1's and G2's paths.
+# ----------------------------------------------------------------------
+
+#: G5: the 52 building blocks that CG steps (optax's gradient
+#: transformations without a learning rate), each on G1's path for G4_ITERS
+#: iterations, and the 7 that CG cannot step (they raise the reference's
+#: class at its stage).
+G5_BLOCKS = (
+    "adaptive_grad_clip", "add_decayed_weights", "add_noise", "apply_every",
+    "apply_if_finite", "centralize", "clip", "clip_by_block_rms", "clip_by_global_norm",
+    "conditionally_mask", "conditionally_transform", "ema", "flatten", "freeze", "identity",
+    "keep_params_nonnegative", "masked", "multi_transform", "named_chain",
+    "normalize_by_update_norm", "partition", "scale", "scale_by_adadelta", "scale_by_adam",
+    "scale_by_adamax", "scale_by_adan", "scale_by_amsgrad", "scale_by_belief",
+    "scale_by_distance_over_gradients", "scale_by_lbfgs", "scale_by_lion",
+    "scale_by_novograd", "scale_by_optimistic_gradient", "scale_by_param_block_norm",
+    "scale_by_param_block_rms", "scale_by_radam", "scale_by_rms", "scale_by_rss",
+    "scale_by_schedule", "scale_by_sign", "scale_by_sm3", "scale_by_stddev",
+    "scale_by_trust_ratio", "scale_by_yogi", "selective_transform", "set_to_zero",
+    "snapshot", "stateless", "stateless_with_tree_map", "trace", "with_extra_args_support",
+    "zero_nans",
+)
+#: Extra G5 runs: an ``inject_hyperparams`` transform as an inner one.
+G5_EXTRA = {"masked_injected": "masked"}
+#: The runs that must raise G1's efficiency: every combinator given a
+#: descending inner rule, and the leaves given a descending step.
+G5_RISE = ("apply_if_finite", "conditionally_mask", "conditionally_transform", "flatten",
+           "masked", "masked_injected", "multi_transform", "partition", "selective_transform",
+           "stateless", "stateless_with_tree_map", "with_extra_args_support", "scale",
+           "scale_by_schedule", "normalize_by_update_norm")
+#: The blocks whose result depends on psi's rank, also on G2's path (the
+#: flat pixel vector of config 5).
+G5_RANKED = ("adaptive_grad_clip", "centralize", "clip_by_block_rms", "flatten",
+             "scale_by_param_block_norm", "scale_by_param_block_rms", "scale_by_sm3")
+#: The G5 runs timed (ms an iteration, plain, kernels, kernels, plain): a
+#: leaf of each kind, the heaviest rules and a combinator of each kind.
+G5_TIMED = ("scale", "scale_by_adam", "scale_by_lbfgs", "scale_by_distance_over_gradients",
+            "clip_by_global_norm", "zero_nans", "apply_if_finite", "flatten", "partition",
+            "masked_injected")
+#: The blocks CG cannot step: the stage that raises and the class.
+G5_FAILING = {
+    "chain": ("build", ValueError), "inject_hyperparams": ("init", AttributeError),
+    "inject_stateful_hyperparams": ("init", AttributeError),
+    "lookahead": ("update", AttributeError),
+    "scale_by_backtracking_linesearch": ("update", TypeError),
+    "scale_by_polyak": ("update", TypeError), "scale_by_zoom_linesearch": ("update", TypeError),
+}
+
+
+def g5_kwargs(name, s, side):
+    """The ``optimizer_kwargs`` of each G5 run on a plane of ``side**2``
+    values whose first gradient has rms ``s``, as :func:`g4_kwargs` scales
+    G4's. A combinator's inner rule is Adam at rate 0.05, epsilon 1e-3 of
+    ``s``, built from the port's ``ops.optim``; a leaf that steps by a unit
+    ratio (the Adam family, RMS, RSS, SM3, the standard deviation) takes an
+    epsilon of 20 ``s`` (or its square), so it climbs about 0.05 rad a
+    step; the trust ratio a coefficient of 0.03; the scales a step of
+    -0.1 / ``s`` (descending); the clips thresholds of order ``s``; DoG an
+    epsilon of 1e4 ``s`` (optax's update divides by ``sqrt(update + eps)``,
+    nan below ``-eps``). Sign and Lion step by 1 rad."""
+    from slmsuite_torch.ops import optim
+
+    e, big = 1e-3 * s, 20 * s
+    inner = optim.adam(0.05, eps=e)
+    descend = -0.1 / s
+    return {
+        "adaptive_grad_clip": dict(clipping=0.2 * s),
+        "add_decayed_weights": dict(weight_decay=0.01),
+        "add_noise": dict(eta=(0.1 * s) ** 2, gamma=0.55, key=0),
+        "apply_every": dict(k=3),
+        "apply_if_finite": dict(inner=inner, max_consecutive_errors=2),
+        "centralize": dict(),
+        "clip": dict(max_delta=s),
+        "clip_by_block_rms": dict(threshold=0.5 * s),
+        "clip_by_global_norm": dict(max_norm=0.5 * s * side),
+        "conditionally_mask": dict(inner=inner, should_transform_fn=lambda step: step % 2 == 0),
+        "conditionally_transform": dict(inner=inner, should_transform_fn=lambda step: step < 100),
+        "ema": dict(decay=0.9),
+        "flatten": dict(inner=optim.adafactor(0.05)),
+        "freeze": dict(mask=True),
+        "identity": dict(),
+        "keep_params_nonnegative": dict(),
+        "masked": dict(inner=inner, mask=lambda u: u.ndim >= 1),
+        "masked_injected": dict(inner=optim.inject_hyperparams(optim.adam)(
+            learning_rate=0.05, eps=e), mask=True),
+        "multi_transform": dict(transforms={"a": inner, "b": optim.sgd(descend)},
+                                param_labels="a"),
+        "named_chain": dict(),
+        "normalize_by_update_norm": dict(scale_factor=-0.05 * side, eps=e * side),
+        "partition": dict(transforms={"a": inner}, param_labels=lambda p: "a"),
+        "scale": dict(step_size=descend),
+        "scale_by_adadelta": dict(eps=e * e),
+        "scale_by_adam": dict(eps=big),
+        "scale_by_adamax": dict(eps=big),
+        "scale_by_adan": dict(eps=big),
+        "scale_by_amsgrad": dict(eps=big),
+        "scale_by_belief": dict(eps=big, eps_root=0.0),
+        "scale_by_distance_over_gradients": dict(eps=1e4 * s),
+        "scale_by_lbfgs": dict(scale_init_precond=False),
+        "scale_by_lion": dict(),
+        "scale_by_novograd": dict(eps=e * side),
+        "scale_by_optimistic_gradient": dict(alpha=0.5, beta=2.0),
+        "scale_by_param_block_norm": dict(),
+        "scale_by_param_block_rms": dict(),
+        "scale_by_radam": dict(b2=0.9, eps=big),
+        "scale_by_rms": dict(eps=big * big),
+        "scale_by_rss": dict(initial_accumulator_value=big * big, eps=e * e),
+        "scale_by_schedule": dict(step_size_fn=lambda count: descend),
+        "scale_by_sign": dict(),
+        "scale_by_sm3": dict(eps=big * big),
+        "scale_by_stddev": dict(eps=big * big),
+        "scale_by_trust_ratio": dict(trust_coefficient=0.03),
+        "scale_by_yogi": dict(b1=0.0, eps=big, initial_accumulator_value=big * big),
+        "selective_transform": dict(optimizer=inner, freeze_mask=False),
+        "set_to_zero": dict(),
+        "snapshot": dict(measure_name="sq", measure=lambda u: (u * u).sum()),
+        "stateless": dict(f=lambda u, p: descend * u),
+        "stateless_with_tree_map": dict(f=lambda u, p: descend * u),
+        "trace": dict(decay=0.9),
+        "with_extra_args_support": dict(tx=inner),
+        "zero_nans": dict(),
+    }[name]
+
+
+def g5_failing_kwargs(name):
+    from slmsuite_torch.ops import optim
+
+    return {
+        "chain": {}, "inject_hyperparams": dict(inner_factory=optim.adam),
+        "inject_stateful_hyperparams": dict(inner_factory=optim.adam),
+        "lookahead": dict(fast_optimizer=optim.sgd(0.1), sync_period=2, slow_step_size=0.5),
+        "scale_by_backtracking_linesearch": dict(max_backtracking_steps=5),
+        "scale_by_polyak": {}, "scale_by_zoom_linesearch": dict(max_linesearch_steps=5),
+    }[name]
+
+
+def phase_g5(device, make=None, make2=None, n=G4_ITERS):
+    """G5: optax's building blocks. Each of the 52 that CG steps on G1's
+    path (the 2048^2 32x32 array through SpotHologram), and an
+    ``inject_hyperparams`` Adam inside ``masked``: exact launches (rows_fft
+    and cols_fft 2n in the loop, one each after it), one host sync an
+    iteration, the final efficiency and uniformity within SLICE_ATOL of
+    torch's autograd of the plain versions on the card, a rise in
+    efficiency for every combinator of a descending rule (G5_RISE), and ms
+    an iteration of the runs named in G5_TIMED. The rank-dependent blocks also on G2's path (config 5's
+    flat vector: n2f and f2n n in the loop, n2f once after it; within
+    CMP_PATH_ATOL). The 7 that CG cannot step raise the reference's class on
+    the card. Returns the launches over all runs."""
+    import warnings
+
+    from slmsuite_torch.ops import optim
+
+    make = make or (lambda: g1_hologram(device))
+    make2 = make2 or (lambda: config5_hologram(device))
+    start = time.perf_counter()
+    s, side, initial = cg_start(make, "G5")
+    total, kernel_ms, plain_ms = {}, [], []
+    fft_loop, fft_after = dict(rows_fft=2 * n, cols_fft=2 * n), dict(rows_fft=1, cols_fft=1)
+    for run_name in (*G5_BLOCKS, *G5_EXTRA):
+        name = G5_EXTRA.get(run_name, run_name)
+        kwargs = g5_kwargs(run_name, s, side)
+        counts, k, p = cg_rule_run(f"G5 {run_name}", make, n, name, kwargs, fft_loop,
+                                   fft_after, SLICE_ATOL,
+                                   initial if run_name in G5_RISE else None,
+                                   timed=run_name in G5_TIMED)
+        kernel_ms += k
+        plain_ms += p
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+    g1_s = time.perf_counter() - start
+    grad2 = cg_gradient(make2())
+    s2, side2 = float(grad2.pow(2).mean().sqrt()), int(round(grad2.numel() ** 0.5))
+    del grad2
+    cmp_ms = []  # Kernels, plain, for each timed run on G2.
+    for name in G5_RANKED:
+        counts, k, p = cg_rule_run(f"G5 G2 {name}", make2, n, name, g5_kwargs(name, s2, side2),
+                                   dict(n2f=n, f2n=n), dict(n2f=1), CMP_PATH_ATOL,
+                                   timed=name in G5_TIMED)
+        cmp_ms += [t for pair in zip(k, p) for t in pair]
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+    psi = torch.zeros(8, 8, device=device)
+    for name, (stage, error) in G5_FAILING.items():
+        at = "build"
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                opt = optim.get_optimizer(name, g5_failing_kwargs(name))
+            at = "init"
+            state = opt.init(psi)
+            at = "update"
+            opt.update(torch.ones_like(psi), state, psi)
+        except error:
+            assert at == stage, (name, at, stage)
+        else:
+            raise AssertionError(f"G5 {name} ran")
+    log(f"G5: {len(G5_BLOCKS) + len(G5_EXTRA)} runs on G1 in {g1_s:.1f} s; those timed "
+        f"(G5_TIMED), kernels {min(kernel_ms):.3f}-{max(kernel_ms):.3f} ms an iteration, plain "
+        f"autograd {min(plain_ms):.3f}-{max(plain_ms):.3f}; {len(G5_RANKED)} on G2, those "
+        f"timed {min(cmp_ms[0::2]):.3f}-{max(cmp_ms[0::2]):.3f} ms, plain autograd "
+        f"{min(cmp_ms[1::2]):.3f}-{max(cmp_ms[1::2]):.3f}; the {len(G5_FAILING)} that CG cannot "
+        f"step raise their class; "
+        f"{time.perf_counter() - start:.1f} s in all; launches {total}  [{nvidia_smi_line()}]")
     return total
 
 
@@ -6161,7 +6395,6 @@ def main():
     phase_host_loop(device)
     mp_launches, p1_run = phase_multiplane(device)
     cg_launches, g1_run, g1_phase = phase_cg(device)
-    cg_launches["G4"] = phase_g4(device)
     phase_native(g1_phase)
     phase_golden()
     times = phase_kernel_timing(device)
@@ -6217,6 +6450,11 @@ def main():
     # Z3 reads no profiler window, and runs after every phase that does.
     z3_launches = phase_z3(device, parent=parent)
     del parent
+    # G4 and G5 (every optimizer and building block on G1's path, some
+    # 80 runs of a few hundred small launches each) read no profiler
+    # window, and run after every phase that does.
+    cg_launches["G4"] = phase_g4(device)
+    cg_launches["G5"] = phase_g5(device)
     log(f"X3 plain tier: {json.dumps(plain_tier)}")
 
     kernels = []

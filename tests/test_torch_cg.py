@@ -263,8 +263,8 @@ def test_optimizer_names_and_aliases():
     ``lamb`` and ``lion`` run (on ``Hologram.optimize("CG")`` too); a name
     optax lacks raises ``AttributeError`` and ``lbfgs`` optax's
     ``TypeError`` at its update, as ``getattr(optax, name)(**kwargs)`` does
-    in the JAX package; one of optax's building blocks raises
-    ``NotImplementedError`` naming its ROADMAP line."""
+    in the JAX package; one of optax's building blocks builds and steps as
+    optax's does."""
     a = TO.get_optimizer("SGD", {"lr": 0.5})
     b = TO.get_optimizer("sgd", {"learning_rate": 0.5})
     psi, g = torch.ones(3), torch.full((3,), 0.2)
@@ -282,8 +282,11 @@ def test_optimizer_names_and_aliases():
     lbfgs = TO.get_optimizer("lbfgs", {"learning_rate": 0.1})
     with pytest.raises(TypeError, match="'value', 'grad', and 'value_fn'"):
         lbfgs.update(g, lbfgs.init(psi), psi)
-    with pytest.raises(NotImplementedError, match="item 13, 'optax's building blocks'"):
-        TO.get_optimizer("scale_by_adam", {})
+    block, tx = TO.get_optimizer("scale_by_adam", {"b1": 0.8}), optax.scale_by_adam(b1=0.8)
+    updates, _ = tx.update(jnp.asarray(g.numpy()), tx.init(jnp.asarray(psi.numpy())))
+    np.testing.assert_allclose(block.update(g, block.init(psi), psi)[0].numpy(),
+                               np.asarray(optax.apply_updates(jnp.asarray(psi.numpy()), updates)),
+                               atol=OPTIM_ATOL, rtol=0)
 
 
 # ----------------------------------------------------------------------

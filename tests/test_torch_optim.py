@@ -322,16 +322,26 @@ def test_value_optimizers_raise_at_update_as_optax(name):
 
 
 def test_building_blocks_are_optax_transforms_without_a_rate():
-    """Each name refused as a building block is one of optax's gradient
-    transformations, none takes a learning rate, and each raises
-    ``NotImplementedError`` naming its ROADMAP line."""
+    """Each building block is one of optax's gradient transformations, none
+    takes a learning rate, and each builds in the port as it builds in
+    optax: with no argument, those with defaults build (``chain`` raises
+    optax's ``ValueError``), the others raise ``TypeError`` in both
+    (``tests/test_torch_optim_blocks.py`` steps each)."""
     import inspect
 
     for name in TO.BUILDING_BLOCKS:
         params = inspect.signature(getattr(optax, name)).parameters
         assert "learning_rate" not in params, name
-        with pytest.raises(NotImplementedError, match="item 13, 'optax's building blocks'"):
-            TO.get_optimizer(name, {})
+        outcomes = []
+        for build in (lambda: getattr(optax, name)(), lambda: TO.get_optimizer(name, {})):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                try:
+                    build()
+                    outcomes.append(None)
+                except (TypeError, ValueError) as err:
+                    outcomes.append(type(err))
+        assert outcomes[0] == outcomes[1], (name, outcomes)
 
 
 # ----------------------------------------------------------------------
