@@ -32,6 +32,7 @@ from slmsuite_torch.holography.algorithms._header import (
 from slmsuite_torch.holography.algorithms._stats import _HologramStats
 from slmsuite_torch.holography.toolbox import REAL_TYPES
 from slmsuite_torch.holography.toolbox import phase as tphase
+from slmsuite_torch.misc import profile as _profile
 from slmsuite_torch.ops import engine as _engine
 from slmsuite_torch.ops import optim as _optim
 from slmsuite_torch.ops import propagation as _prop
@@ -101,6 +102,33 @@ def _cg_loop(psi, loss_from_psi, flags, iterations, on_step):
     return psi
 
 
+def _crosses(device):
+    """Whether a copy to or from ``device`` crosses between the host and a
+    device."""
+    return device.type != "cpu"
+
+
+def _upload(host, device, dtype=None, copy=False):
+    """``torch.as_tensor(host, dtype, device)`` (``torch.tensor`` with
+    ``copy``: a private copy on the CPU too), the hologram modules' one way
+    of moving host data to the device: where it crosses to one, its bytes
+    count as ``h2d_bytes`` (:func:`slmsuite_torch.misc.profile.count`)."""
+    out = (torch.tensor if copy else torch.as_tensor)(host, dtype=dtype, device=device)
+    if _crosses(out.device):
+        _profile.count("h2d_bytes", out.numel() * out.element_size())
+    return out
+
+
+def _download(tensor):
+    """``tensor`` as a host numpy array, the hologram modules' one way of
+    reading device data: where it crosses from a device, the host waits for
+    it, and that counts as one of the ``syncs``
+    (:func:`slmsuite_torch.misc.profile.count`)."""
+    if _crosses(tensor.device):
+        _profile.count("syncs")
+    return tensor.detach().cpu().numpy()
+
+
 class _Plane:
     """A plane attribute kept on the device, with a host numpy view made
     on first read. Writes take either kind. The device copy is trusted
@@ -116,7 +144,7 @@ class _Plane:
         host = obj.__dict__.get(self.host)
         dev = obj.__dict__.get(self.dev)
         if host is None and dev is not None:
-            host = dev.detach().cpu().numpy()
+            host = _download(dev)
             obj.__dict__[self.host] = host
         return host
 
@@ -147,7 +175,7 @@ class _Plane:
         if host is None:
             return None
         # A private f32 copy: the host view may be read-only or edited later.
-        return torch.from_numpy(np.array(host, dtype=np.float32)).to(device)
+        return _upload(np.array(host, dtype=np.float32), device)
 
 
 class Hologram(_HologramStats):
@@ -381,8 +409,8 @@ class Hologram(_HologramStats):
         """The target as an f32 device tensor (nan kept), uploaded once
         while :attr:`target` is unchanged; a copy on every device (a CPU
         tensor would otherwise share the host array's memory)."""
-        return self._dev_const("target", self.target, lambda t: torch.tensor(
-            np.asarray(t, np.float32), device=self.device))
+        return self._dev_const("target", self.target, lambda t: _upload(
+            np.asarray(t, np.float32), self.device, copy=True))
 
     # ------------------------------------------------------------------
     # Phase conventions.
@@ -419,6 +447,7 @@ class Hologram(_HologramStats):
     # Reset / target management.
     # ------------------------------------------------------------------
 
+    @_profile.spanned("hologram.reset")
     def reset(self, reset_phase=True, reset_flags=False):
         """Reset the hologram to an initial state."""
         if self._psi is None or reset_phase:
@@ -435,6 +464,7 @@ class Hologram(_HologramStats):
         self._farfield_folded = None
         self._final_fixed_phase = False
 
+    @_profile.spanned("hologram.reset_phase")
     def reset_phase(self, custom_phase=None, random_phase=None, quadratic_phase=None):
         r"""
         Reset :attr:`phase` to ``custom_phase``, or to (scaled) uniform
@@ -537,6 +567,7 @@ class Hologram(_HologramStats):
     # Accessors.
     # ------------------------------------------------------------------
 
+    @_profile.spanned("hologram.get_phase")
     def get_phase(self, include_propagation=False):
         r"""Current nearfield phase, +pi (or with the propagation kernel
         included)."""
@@ -586,8 +617,8 @@ class Hologram(_HologramStats):
         if self.propagation_kernel is None:
             return None
         return self._dev_const("propagation_kernel", self.propagation_kernel,
-                               lambda k: torch.tensor(np.asarray(k, np.float32),
-                                                      device=self.device))
+                               lambda k: _upload(np.asarray(k, np.float32), self.device,
+                                                 copy=True))
 
     def get_farfield(self, shape=None, propagation_kernel=None, affine=None, get=True):
         r"""
@@ -689,6 +720,7 @@ class Hologram(_HologramStats):
     # Optimization.
     # ------------------------------------------------------------------
 
+    @_profile.spanned("hologram.optimize")
     def optimize(
         self,
         method="GS",

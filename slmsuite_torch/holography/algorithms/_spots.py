@@ -38,9 +38,15 @@ import torch
 
 from slmsuite_torch.holography import analysis, toolbox
 from slmsuite_torch.holography.algorithms._feedback import FeedbackHologram
-from slmsuite_torch.holography.algorithms._hologram import Hologram, _default_cg_loss
+from slmsuite_torch.holography.algorithms._hologram import (
+    Hologram,
+    _default_cg_loss,
+    _download,
+    _upload,
+)
 from slmsuite_torch.holography.toolbox import REAL_TYPES, format_2vectors
 from slmsuite_torch.holography.toolbox import phase as _tphase
+from slmsuite_torch.misc import profile as _profile
 from slmsuite_torch.misc.host import as_numpy
 from slmsuite_torch.ops import compressed as _comp
 from slmsuite_torch.ops import engine as _engine
@@ -769,6 +775,7 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         PSF radius, clipped to [3, the smallest spot distance / 1.5].
     """
 
+    @_profile.spanned("hologram.init")
     def __init__(self, spot_vectors, basis="kxy", spot_amp=None, cameraslm=None, cuda=None,
                  **kwargs):
         """
@@ -998,7 +1005,7 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         device = self.device
 
         def dev(x, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+            return _upload(np.asarray(x), device, dtype)
 
         held = self.__dict__.setdefault("_dev_scalars", {})
 
@@ -1074,10 +1081,9 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             weights=torch.nan_to_num(type(self).weights.device(self, device)),
             phase_ff=(phase_ff if phase_ff is not None
                       else torch.zeros(len(self), dtype=torch.float32, device=device)),
-            fixed_phase=torch.tensor(bool(self.flags.get("fixed_phase", False)),
-                                     device=device),
+            fixed_phase=_upload(bool(self.flags.get("fixed_phase", False)), device),
             unfixed_streak=torch.zeros((), dtype=torch.int32, device=device),
-            iteration=torch.tensor(self.iter, dtype=torch.int32, device=device),
+            iteration=_upload(self.iter, device, torch.int32),
         )
 
     def optimize_gs(self, maxiter, callback, verbose=True, name=None):
@@ -1109,25 +1115,29 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         )
         if host_loop:
             self._warn_mesh_host_loop()
-        config = self._compressed_config(
-            kernel_cache=not host_loop and self._kernel_cache_enabled()
-        )
-        consts = self._compressed_consts(kernel_cache=config.kernel_cache)
-        state = self._compressed_state()
+        with _profile.span("gs.setup"):
+            config = self._compressed_config(
+                kernel_cache=not host_loop and self._kernel_cache_enabled()
+            )
+            consts = self._compressed_consts(kernel_cache=config.kernel_cache)
+            state = self._compressed_state()
         start_iter = self.iter
         progress = self._progress(maxiter, verbose, name)
 
         if host_loop:
-            for _ in range(maxiter):
-                state = self._stepwise_compressed(state, consts, config, callback)
-                if progress is not None:
-                    progress.update(1)
-                if self._break_requested:
-                    break
+            with _profile.span("gs.loop"):
+                for _ in range(maxiter):
+                    with _profile.span("gs.iter"):
+                        state = self._stepwise_compressed(state, consts, config, callback)
+                    if progress is not None:
+                        progress.update(1)
+                    if self._break_requested:
+                        break
             if progress is not None:
                 progress.close()
-            self._sync_compressed_state(state)
-            self._populate_results()
+            with _profile.span("gs.finalize"):
+                self._sync_compressed_state(state)
+                self._populate_results()
             return
 
         mesh = self._mesh
@@ -1162,7 +1172,8 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         if progress is not None:
             progress.close()
 
-        self._finalize_scan_fused(state, all_stats, config, consts, start_iter)
+        with _profile.span("gs.finalize"):
+            self._finalize_scan_fused(state, all_stats, config, consts, start_iter)
 
     #: The evolving complex zero weights of the null spots (``zero_factor``
     #: MRAF in the host loop); kept across calls, as in the JAX package.
@@ -1186,10 +1197,10 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         ff_re, ff_im = _comp.nearfield_to_farfield(
             *_comp.nearfield(state.psi, consts["amp"]), consts["coeffs"], consts["basis"]
         )
-        packed = torch.cat([
+        packed = _download(torch.cat([
             ff_re, ff_im, state.weights.to(torch.float32),
             state.iteration.to(torch.float32)[None],
-        ]).cpu().numpy()
+        ]))
         ff_re_h, ff_im_h = packed[:N], packed[N:2 * N]
         self.amp_ff = np.sqrt(ff_re_h**2 + ff_im_h**2)
         theta = np.arctan2(ff_im_h, ff_re_h)
@@ -1214,7 +1225,7 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             self._phase_ff_folded = theta
 
         def dev(x):
-            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+            return _upload(np.asarray(x, np.float32), self.device)
 
         weights = dev(np.nan_to_num(np.asarray(self.weights, np.float32)))
         phase_ff = dev(self._phase_ff_folded)
@@ -1241,8 +1252,7 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             psi=torch.atan2(nfp_im, nfp_re),
             weights=weights,
             phase_ff=phase_ff,
-            fixed_phase=torch.tensor(bool(self.flags.get("fixed_phase", False)),
-                                     device=self.device),
+            fixed_phase=_upload(bool(self.flags.get("fixed_phase", False)), self.device),
             unfixed_streak=state.unfixed_streak,
             iteration=state.iteration + 1,
         )
@@ -1251,11 +1261,11 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         """Adopt the host loop's final state (psi stays on the device; one
         download for the rest)."""
         N = len(self)
-        packed = torch.cat([
+        packed = _download(torch.cat([
             state.weights.to(torch.float32), state.phase_ff.to(torch.float32),
             torch.stack([state.fixed_phase.to(torch.float32),
                          state.iteration.to(torch.float32)]),
-        ]).cpu().numpy()
+        ]))
         self._psi = state.psi.reshape(self.slm_shape)
         self.weights = packed[:N].copy()
         self._phase_ff_folded = packed[N:2 * N].copy()
@@ -1271,14 +1281,14 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         ff_re, ff_im = _comp.nearfield_to_farfield(nf_re, nf_im, consts["coeffs"],
                                                    consts["basis"])
         stats = torch.cat(all_stats) if all_stats else None
-        packed = torch.cat([
+        packed = _download(torch.cat([
             state.weights.to(torch.float32),
             torch.atan2(ff_im, ff_re),
             torch.sqrt(ff_re**2 + ff_im**2),
             torch.stack([state.fixed_phase.to(torch.float32),
                          state.iteration.to(torch.float32)]),
             *([] if stats is None else [stats.reshape(-1)]),
-        ]).cpu().numpy()
+        ]))
 
         self._psi = state.psi.reshape(self.slm_shape)
         self.weights = packed[:N].copy()
@@ -1300,8 +1310,8 @@ class CompressedSpotHologram(_AbstractSpotHologram):
             *_comp.nearfield(psi, consts["amp"]), consts["coeffs"], consts["basis"]
         )
         self._farfield_folded = None
-        self.amp_ff = torch.sqrt(ff_re**2 + ff_im**2).cpu().numpy()
-        self._phase_ff_folded = torch.atan2(ff_im, ff_re).cpu().numpy()
+        self.amp_ff = _download(torch.sqrt(ff_re**2 + ff_im**2))
+        self._phase_ff_folded = _download(torch.atan2(ff_im, ff_re))
 
     def _get_target_moments_knm_norm(self):
         """First/second moments of the spot ensemble in normalized knm
@@ -1336,8 +1346,8 @@ class CompressedSpotHologram(_AbstractSpotHologram):
         squared error of the unit-power spot amplitudes."""
         consts = self._compressed_consts()
         amp, coeffs, basis = consts["amp"], consts["coeffs"], consts["basis"]
-        target = self._dev_const("cg_target", self.target, lambda t: torch.as_tensor(
-            np.asarray(t, np.float32), device=self.device))
+        target = self._dev_const("cg_target", self.target, lambda t: _upload(
+            np.asarray(t, np.float32), self.device))
         target = target / torch.sqrt(torch.sum(torch.square(target)))
         loss = self.flags.get("loss")
         if loss is None:

@@ -13,13 +13,180 @@ Profiling and timing helpers (the port's counterpart of
   each hand-kernel launch declares (its inputs read once, its outputs
   written once; ``BYTES`` of :mod:`slmsuite_torch.ops.cuda_fft` and
   :mod:`slmsuite_torch.ops.cuda_compressed`).
+- :func:`recording`, :func:`span`, :func:`spanned` and :func:`count`: the
+  operator's view of one call's spans and transfers. The program marks its
+  layer boundaries with :func:`span` (or :func:`spanned` on a whole
+  function) and counts where data crosses between the host and a device
+  with :func:`count`. Both do nothing until :func:`recording` is entered:
+  :func:`span` then returns one shared null context after a single check
+  of a module-level flag, and :func:`count` returns. Inside
+  ``with recording() as rec:`` each span is kept in memory (its name, the
+  index of the enclosing span of its thread, its ``time.perf_counter_ns()``
+  start and end, its thread) and is also a
+  :func:`torch.profiler.record_function` range, so that in a profiled
+  window it is a ``user_annotation`` event of the Chrome trace, on the
+  clock of the device's kernels and copies. No span synchronises the
+  device. ``rec.result()`` gives ``{"spans", "counters", "launches"}``,
+  ``launches`` the kernels each wrapper launched during the recording
+  (the difference of the wrappers' ``LAUNCHES``).
+
+  The spans of the compressed hologram's path: ``hologram.init``,
+  ``hologram.reset``, ``compressed.basis``, ``hologram.reset_phase``,
+  ``hologram.optimize``, ``gs.setup`` (the engine's configuration,
+  constants and state, with their uploads), ``gs.loop`` (an engine run:
+  its self time is the entry and exit transforms), ``gs.iter`` (one
+  iteration), ``gs.finalize`` (the packed download) and
+  ``hologram.get_phase``; ``ops/engine.py``'s loops give every other
+  hologram ``gs.loop`` and ``gs.iter``. The counters: ``h2d_bytes`` (bytes
+  copied from the host to a device) and ``syncs`` (each place the host
+  waits for device data), counted by the hologram modules' upload and
+  download helpers: every transfer of the compressed hologram's path, and
+  the planes' of every hologram.
 """
 
 import contextlib
+import functools
 import os
+import threading
 import time
 
-__all__ = ["trace", "time_scan", "bytes_accessed"]
+__all__ = ["trace", "time_scan", "bytes_accessed", "recording", "span", "spanned", "count"]
+
+#: The open :class:`Recorder`, or None: the one flag :func:`span` and
+#: :func:`count` read.
+_RECORDER = None
+#: What :func:`span` returns while nothing records.
+_NULL_SPAN = contextlib.nullcontext()
+#: Held while a :func:`recording` is open.
+_OPEN = threading.Lock()
+
+
+class Recorder:
+    """The spans and counters of one :func:`recording`."""
+
+    def __init__(self):
+        self.spans = []
+        self.counters = {}
+        self._lock = threading.Lock()
+        self._stacks = threading.local()
+        self._launches_at_start = _launch_counts()
+        self._launches = None
+
+    def _stack(self):
+        stack = getattr(self._stacks, "open", None)
+        if stack is None:
+            stack = self._stacks.open = []
+        return stack
+
+    def _launches_since_start(self):
+        start = self._launches_at_start
+        return {name: n - start.get(name, 0)
+                for name, n in _launch_counts().items() if n != start.get(name, 0)}
+
+    def _close(self):
+        self._launches = self._launches_since_start()
+
+    def result(self):
+        """``{"spans": [{"name", "parent", "start_ns", "end_ns", "thread"},
+        ...], "counters": {key: n}, "launches": {wrapper: n}}``: ``parent``
+        the index in ``spans`` of the enclosing span of the same thread
+        (None at the top), ``end_ns`` None while the span is open,
+        ``launches`` the nonzero launches since the recording began (to its
+        end once it has ended), by kernel wrapper."""
+        launches = self._launches if self._launches is not None else self._launches_since_start()
+        with self._lock:
+            return {"spans": [dict(s) for s in self.spans], "counters": dict(self.counters),
+                    "launches": launches}
+
+
+def _launch_counts():
+    """Every kernel wrapper's launches so far, by name."""
+    from slmsuite_torch.ops import cuda_compressed, cuda_fft
+
+    return {**cuda_fft.LAUNCHES, **cuda_compressed.LAUNCHES}
+
+
+class _Span:
+    """One open span of a :class:`Recorder` (see :func:`span`)."""
+
+    __slots__ = ("recorder", "name", "entry", "annotation")
+
+    def __init__(self, recorder, name):
+        self.recorder, self.name = recorder, name
+
+    def __enter__(self):
+        import torch
+
+        rec = self.recorder
+        stack = rec._stack()
+        self.entry = {"name": self.name, "parent": stack[-1] if stack else None,
+                      "start_ns": time.perf_counter_ns(), "end_ns": None,
+                      "thread": threading.get_ident()}
+        with rec._lock:
+            stack.append(len(rec.spans))
+            rec.spans.append(self.entry)
+        self.annotation = torch.profiler.record_function(self.name)
+        self.annotation.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.annotation.__exit__(*exc)
+        self.entry["end_ns"] = time.perf_counter_ns()
+        self.recorder._stack().pop()
+        return False
+
+
+def span(name):
+    """A context that records the block as the span ``name`` while a
+    :func:`recording` is open, and does nothing otherwise (it is then one
+    shared null context)."""
+    if _RECORDER is None:
+        return _NULL_SPAN
+    return _Span(_RECORDER, name)
+
+
+def spanned(name):
+    """Decorator: each call of the function is the span ``name``
+    (:func:`span`)."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def count(key, n=1):
+    """Add ``n`` to the counter ``key`` of the open :func:`recording`; does
+    nothing while none is open."""
+    rec = _RECORDER
+    if rec is None:
+        return
+    with rec._lock:
+        rec.counters[key] = rec.counters.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the program's spans and counters inside the block; yields the
+    :class:`Recorder`, whose ``result()`` holds them. One recording at a
+    time: entering a second while one is open raises ``RuntimeError``."""
+    global _RECORDER
+    if not _OPEN.acquire(blocking=False):
+        raise RuntimeError("a recording is already open")
+    rec = None
+    try:
+        rec = _RECORDER = Recorder()
+        yield rec
+    finally:
+        _RECORDER = None
+        _OPEN.release()
+        if rec is not None:
+            rec._close()
 
 
 @contextlib.contextmanager

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from slmsuite_torch.misc import profile as _profile
 from slmsuite_torch.ops.stats import calculate_stats
 from slmsuite_torch.ops.weights import update_weights_generic
 
@@ -47,6 +48,7 @@ from slmsuite_torch.ops.weights import update_weights_generic
 PIXEL_TILE = 8192
 
 
+@_profile.spanned("compressed.basis")
 def build_zernike_basis(indices, slm, dtype=np.float32):
     """
     The Zernike basis stack ``(D, H*W)`` (numpy) of the ANSI ``indices``
@@ -516,6 +518,7 @@ def nearfield(psi, amp):
     return amp * torch.cos(psi), amp * torch.sin(psi)
 
 
+@_profile.spanned("gs.loop")
 def run_compressed_gs(config, state, consts, n_iterations):
     """
     ``n_iterations`` of compressed-spot GS from ``state`` (whose ``psi`` is
@@ -546,7 +549,8 @@ def run_compressed_gs(config, state, consts, n_iterations):
 
     rows = []
     for _ in range(n_iterations):
-        state, stats = step(state, consts)
+        with _profile.span("gs.iter"):
+            state, stats = step(state, consts)
         rows.append(stats)
 
     _, _, ffp_re, ffp_im = state.psi

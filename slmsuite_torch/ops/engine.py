@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from slmsuite_torch import resolve_device
+from slmsuite_torch.misc import profile as _profile
 from slmsuite_torch.ops import fft as _fft
 from slmsuite_torch.ops import propagation as _prop
 from slmsuite_torch.ops.collectives import on_device
@@ -671,7 +672,8 @@ def _run_natural(config: GSConfig, state: GSState, consts: dict, n_iterations: i
     consts = _augment_natural_consts(consts)
     rows = []
     for _ in range(int(n_iterations)):
-        state, stats = step(state, consts)
+        with _profile.span("gs.iter"):
+            state, stats = step(state, consts)
         rows.append(stats)
     return state, _stack_stats(config, rows, state.weights.device)
 
@@ -690,7 +692,8 @@ def _run_fused(config: GSConfig, state: GSState, consts: dict, n_iterations: int
         state = state._replace(phase_ff=_fft.wgs_phasor_entry(state.phase_ff))
     rows = []
     for _ in range(int(n_iterations)):
-        state, stats = step(state, consts)
+        with _profile.span("gs.iter"):
+            state, stats = step(state, consts)
         rows.append(stats)
     state = state._replace(psi=_fft.wgs_carry_exit(*state.psi))
     if config.is_kim:
@@ -709,6 +712,7 @@ def _carry_runs(config: GSConfig, device):
     )
 
 
+@_profile.spanned("gs.loop")
 def _run(config: GSConfig, state: GSState, consts: dict, n_iterations: int):
     if _carry_runs(config, state.weights.device):
         return _run_fused(config, state, consts, n_iterations)

@@ -1821,3 +1821,41 @@ def test_mesh_refuses_shards_the_kernels_do_not_take(cuda):
         assert _launched() == {} and fft.PLAIN_ON_DEVICE > 0
         torch.testing.assert_close(got, torch.fft.fft2(x, norm="ortho"), atol=1e-4, rtol=1e-4)
     fft.reset_plain_count()
+
+
+@pytest.mark.cuda
+def test_compressed_request_uploads_its_arrays(cuda):
+    """A hologram of the benchmark's aberr21 shape (1024^2 SLM under a
+    Gaussian source, 1,024 3D spots in 21 Zernike terms, WGS-Kim) counts,
+    under ``recording()``, exactly the bytes of its arrays as uploaded
+    (``h2d_bytes``: the basis, the amplitude, the initial phase, the
+    coefficients, the target, stat mask and weights, four 0-d flags of the
+    loop, the fixed-phase flag and the iteration) and two syncs: the packed
+    download and ``get_phase``'s."""
+    import warnings
+
+    from slmsuite_torch.hardware.slms.simulated import SimulatedSLM
+    from slmsuite_torch.holography.algorithms import CompressedSpotHologram
+    from slmsuite_torch.misc import profile
+
+    side, terms, spots = 1024, 21, 1024
+    slm = SimulatedSLM(resolution=(side, side), pitch_um=(8, 8), wav_um=0.78)
+    slm.set_source_analytic("gaussian2d", x0=0, y0=0, a=1, c=0,
+                            wx=0.35 * side * slm.pitch[0], wy=0.35 * side * slm.pitch[1])
+    rng = np.random.default_rng(21)
+    coeffs = rng.uniform(-1.5, 1.5, (terms, spots))
+    coeffs[0] = 0.0
+    coeffs[2], coeffs[1] = rng.uniform(-8e-3, 8e-3, (2, spots))
+    with profile.recording() as rec:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # Piston in the basis.
+            holo = CompressedSpotHologram(coeffs, basis=list(range(terms)), cameraslm=slm,
+                                          device=cuda)
+        holo.reset_phase(custom_phase=rng.uniform(-np.pi, np.pi, (side, side)))
+        holo.optimize("WGS-Kim", maxiter=3, feedback="computational_spot",
+                      stat_groups=["computational_spot"], verbose=False)
+        holo.get_phase()
+    P = side * side
+    arrays = 4 * (terms * P + P + P + terms * spots + spots + spots) + spots + 4 * 4 + 1 + 4
+    assert rec.result()["counters"] == {"h2d_bytes": arrays, "syncs": 2}
+    assert rec.result()["launches"] == {"n2f": 5, "f2n": 4}
